@@ -1,0 +1,62 @@
+// Shared device helpers of the sublayer kernels: bf16 vector access,
+// warp reductions and cp.async with zero-fill for ragged tile edges.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace duodiff {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// 8 bf16 values = one 16-byte vector access.
+constexpr int kVec = 8;
+
+__device__ __forceinline__ void unpack8(const uint4& raw, float out[kVec]) {
+  const bf16* p = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) out[e] = __bfloat162float(p[e]);
+}
+
+__device__ __forceinline__ uint4 pack8(const float in[kVec]) {
+  uint4 raw;
+  bf16* p = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) p[e] = __float2bfloat16(in[e]);
+  return raw;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// 16-byte global -> shared copy; with pred false it writes 16 zero bytes
+// and reads nothing (the src-size operand is 0).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+}  // namespace
+}  // namespace duodiff

@@ -1,0 +1,159 @@
+"""U-ViT building blocks (counterpart of ``duodiff_tpu/models/layers.py``).
+
+Images are NHWC and tokens (B, L, D), as in the JAX package. Parameters are
+fp32 and keep the reference's state-dict names and shapes; activations run
+in the model's compute dtype (bf16 for sampling). Where the JAX package
+uses ``nn.Dense(dtype=...)``, :func:`dense` casts both operands to the
+compute dtype and adds the bias in it, as flax does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from duodiff_tpu_torch.ops.block import (
+    attn_sublayer_plain,
+    fused_attn_sublayer,
+    fused_mlp_sublayer,
+    mlp_sublayer_plain,
+    pack_attn,
+    pack_mlp,
+)
+
+ATTN_IMPLS = ("fused", "plain")
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000):
+    """Sinusoidal embeddings, cos-first; (B,) -> (B, dim) float32."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half
+    )
+    args = timesteps.float()[:, None] * freqs[None]
+    embedding = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        embedding = torch.cat([embedding, torch.zeros_like(embedding[:, :1])], dim=-1)
+    return embedding
+
+
+def patchify(imgs: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """NHWC image -> (B, h*w, p*p*C) tokens, each patch ordered (p1, p2, C)."""
+    b, hh, ww, c = imgs.shape
+    p = patch_size
+    h, w = hh // p, ww // p
+    x = imgs.reshape(b, h, p, w, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * w, p * p * c)
+
+
+def unpatchify(x: torch.Tensor, channels: int = 3) -> torch.Tensor:
+    """(B, L, p*p*C) tokens -> NHWC image."""
+    b, num_patches, patch_dim = x.shape
+    p = int((patch_dim // channels) ** 0.5)
+    h = w = int(num_patches**0.5)
+    if h * w != num_patches or p * p * channels != patch_dim:
+        raise ValueError(f"tokens {tuple(x.shape)} do not form a square image")
+    x = x.reshape(b, h, w, p, p, channels).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * p, w * p, channels)
+
+
+def dense(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` on a torch Linear's parameters."""
+    y = torch.matmul(x.to(dtype), linear.weight.to(dtype).t())
+    return y if linear.bias is None else y + linear.bias.to(dtype)
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + one matmul. The weight keeps the reference's conv shape
+    (D, C, p, p); as a (p*p*C, D) matmul weight it is
+    ``w.permute(2, 3, 1, 0).reshape(p*p*C, D)``."""
+
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        w = self.proj.weight.permute(2, 3, 1, 0).reshape(-1, self.proj.out_channels)
+        y = torch.matmul(patchify(x.to(dtype), self.patch_size), w.to(dtype))
+        return y + self.proj.bias.to(dtype)
+
+
+class TimeEmbed(nn.Sequential):
+    """Linear-SiLU-Linear over the sinusoidal embedding (state-dict names
+    ``time_embed.0`` / ``time_embed.2``); empty, the identity, when
+    ``mlp_time_embed`` is False."""
+
+    def __init__(self, embed_dim: int, mlp_time_embed: bool):
+        layers = []
+        if mlp_time_embed:
+            layers = [nn.Linear(embed_dim, 4 * embed_dim), nn.SiLU(),
+                      nn.Linear(4 * embed_dim, embed_dim)]
+        super().__init__(*layers)
+
+    def forward(self, emb: torch.Tensor, dtype) -> torch.Tensor:
+        if len(self) == 0:
+            return emb
+        return dense(F.silu(dense(emb, self[0], dtype)), self[2], dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block with an optional long-skip input:
+
+      x = skip_linear(cat(x, skip))     # out-blocks only
+      x = x + attn(norm1(x))            # K1
+      x = x + mlp(norm2(x))             # K2
+
+    ``attn_impl="fused"`` runs the two sublayer wrappers (the CUDA kernels
+    on a CUDA tensor), ``"plain"`` their plain PyTorch versions. Both read
+    the operands :meth:`pack` prepared, once per model.
+    """
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, skip: bool = False,
+                 gelu_approx: bool = False, attn_impl: str = "plain"):
+        super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        self.num_heads = num_heads
+        self.gelu_approx = gelu_approx
+        self.attn_impl = attn_impl
+        self.skip_linear = nn.Linear(2 * dim, dim) if skip else None
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = nn.ModuleDict({
+            "qkv": nn.Linear(dim, 3 * dim, bias=qkv_bias),
+            "proj": nn.Linear(dim, dim),
+        })
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.ModuleDict({
+            "fc1": nn.Linear(dim, hidden),
+            "fc2": nn.Linear(hidden, dim),
+        })
+        self._packed = None
+
+    @torch.no_grad()
+    def pack(self, dtype) -> None:
+        """Prepare the sublayers' operands from the current parameters."""
+        self._packed = (
+            pack_attn(self.norm1, self.attn["qkv"], self.attn["proj"],
+                      num_heads=self.num_heads, dtype=dtype),
+            pack_mlp(self.norm2, self.mlp["fc1"], self.mlp["fc2"], dtype=dtype),
+        )
+
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
+        if self._packed is None:
+            raise RuntimeError("Block operands are not packed: call UViT.pack_for_kernels()")
+        if self.skip_linear is not None:
+            x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
+        attn_ops, mlp_ops = self._packed
+        if self.attn_impl == "fused":
+            x = fused_attn_sublayer(x, *attn_ops, num_heads=self.num_heads)
+            return fused_mlp_sublayer(x, *mlp_ops, gelu_approx=self.gelu_approx)
+        x = attn_sublayer_plain(x, *attn_ops, num_heads=self.num_heads)
+        return mlp_sublayer_plain(x, *mlp_ops, gelu_approx=self.gelu_approx)

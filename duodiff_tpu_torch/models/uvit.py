@@ -1,0 +1,156 @@
+"""U-ViT backbone (counterpart of ``duodiff_tpu/models/uvit.py``).
+
+  patch_embed -> [label_emb?, time_token, patches] + pos_embed
+  -> depth//2 in_blocks (collect long skips) -> mid_block
+  -> depth//2 out_blocks (consume skips via Linear(concat))
+  -> LayerNorm -> decoder_pred -> drop extra tokens -> unpatchify -> 3x3 conv
+
+Parameters are fp32 under the reference's state-dict names (those
+``duodiff_tpu.utils.torch_export.export_uvit`` emits), so a JAX parameter
+tree or a reference ``.pth`` loads with ``strict=True``. Activations run in
+``dtype``. Call :meth:`UViT.pack_for_kernels` after the weights are final
+and on their device, before the first forward.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from duodiff_tpu_torch.config import UViTConfig
+from duodiff_tpu_torch.models.layers import (
+    Block,
+    PatchEmbed,
+    TimeEmbed,
+    dense,
+    timestep_embedding,
+    unpatchify,
+)
+
+
+class UViT(nn.Module):
+    """U-ViT denoiser: forward(x (B, H, W, C), timesteps (B,), y=None) ->
+    (B, H, W, C) float32 prediction under the training parametrization."""
+
+    def __init__(self, config: UViTConfig, *, dtype=torch.bfloat16,
+                 attn_impl: str = "plain", gelu_approx: bool = False):
+        super().__init__()
+        cfg = config
+        d = cfg.embed_dim
+        self.config = cfg
+        self.dtype = dtype
+        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, d)
+        self.time_embed = TimeEmbed(d, cfg.mlp_time_embed)
+        self.label_emb = nn.Embedding(cfg.num_classes, d) if cfg.num_classes > 0 else None
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.extras + cfg.num_patches, d))
+        common = dict(
+            dim=d, num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
+            qkv_bias=cfg.qkv_bias, gelu_approx=gelu_approx, attn_impl=attn_impl,
+        )
+        k = cfg.depth // 2
+        self.in_blocks = nn.ModuleList([Block(**common) for _ in range(k)])
+        self.mid_block = Block(**common)
+        self.out_blocks = nn.ModuleList([Block(**common, skip=cfg.skip) for _ in range(k)])
+        self.norm = nn.LayerNorm(d, eps=1e-5)
+        self.decoder_pred = nn.Linear(d, cfg.patch_dim)
+        self.final_layer = (
+            nn.Conv2d(cfg.in_chans, cfg.in_chans, 3, padding=1) if cfg.conv else None
+        )
+
+    def blocks(self) -> list[Block]:
+        return [*self.in_blocks, self.mid_block, *self.out_blocks]
+
+    @torch.no_grad()
+    def pack_for_kernels(self) -> None:
+        """Pack every block's sublayer operands once (weights transposed,
+        softmax scale folded, cast to the compute dtype)."""
+        for blk in self.blocks():
+            blk.pack(self.dtype)
+
+    def embed_tokens(self, x, timesteps, y=None):
+        """Patchify + time/label tokens + positional embedding."""
+        cfg = self.config
+        dt = self.dtype
+        if cfg.normalize_timesteps:
+            timesteps = timesteps.float() / 1000.0
+        x = self.patch_embed(x, dt)
+        time_token = self.time_embed(timestep_embedding(timesteps, cfg.embed_dim), dt)
+        x = torch.cat([time_token[:, None, :].to(dt), x], dim=1)
+        if self.label_emb is not None:
+            if y is None:
+                raise ValueError("class-conditional model requires labels")
+            x = torch.cat([self.label_emb(y)[:, None, :].to(dt), x], dim=1)
+        return x + self.pos_embed.to(dt)
+
+    def decode_tokens(self, x):
+        """Final norm + linear decoder + unpatchify + 3x3 conv."""
+        cfg = self.config
+        dt = self.dtype
+        # flax nn.LayerNorm(dtype=f32): fast variance E[x^2] - E[x]^2
+        xv = x.float()
+        mean = xv.mean(-1, keepdim=True)
+        var = torch.clamp(xv.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
+        x = (xv - mean) * (torch.rsqrt(var + 1e-5) * self.norm.weight) + self.norm.bias
+        x = dense(x, self.decoder_pred, dt)
+        x = unpatchify(x[:, cfg.extras:, :], cfg.in_chans)
+        if self.final_layer is not None:
+            # NHWC SAME 3x3 conv in the compute dtype, bias added after
+            conv = F.conv2d(x.permute(0, 3, 1, 2), self.final_layer.weight.to(dt), padding=1)
+            conv = conv + self.final_layer.bias.to(dt)[:, None, None]
+            x = conv.permute(0, 2, 3, 1)
+        return x.float()
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.embed_tokens(x, timesteps, y)
+        skips = []
+        for blk in self.in_blocks:
+            x = blk(x)
+            skips.append(x)
+        x = self.mid_block(x)
+        for blk in self.out_blocks:
+            x = blk(x, skips.pop())
+        return self.decode_tokens(x)
+
+
+def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
+    """flax ``truncated_normal(stddev)``: cut at two standard deviations of
+    the underlying normal, rescaled so the result has ``std``."""
+    s = std / 0.87962566103423978
+    return nn.init.trunc_normal_(t, std=s, a=-2 * s, b=2 * s, generator=generator)
+
+
+@torch.no_grad()
+def _init_params(model: UViT, generator: torch.Generator) -> None:
+    """The JAX package's initialisers: trunc-normal(0.02) for linear and
+    patch-embed weights and pos_embed, zero biases, LayerNorm ones/zeros,
+    flax's lecun-normal for the 3x3 conv and normal(D^-0.5) for labels."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+            if name == "final_layer":
+                fan_in = mod.weight[0].numel()
+                _trunc_normal_(mod.weight, fan_in**-0.5, generator)
+            else:
+                _trunc_normal_(mod.weight, 0.02, generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            nn.init.normal_(mod.weight, std=mod.embedding_dim**-0.5, generator=generator)
+    _trunc_normal_(model.pos_embed, 0.02, generator)
+
+
+def init_uvit(config: UViTConfig, *, device, dtype=torch.bfloat16,
+              generator: torch.Generator, attn_impl: str = "plain",
+              gelu_approx: bool = False) -> UViT:
+    """A UViT with random fp32 weights drawn on the CPU from ``generator``
+    (a CPU generator, so the weights do not depend on ``device``), then
+    moved to ``device``. ``dtype`` is the compute dtype."""
+    model = UViT(config, dtype=dtype, attn_impl=attn_impl, gelu_approx=gelu_approx)
+    _init_params(model, generator)
+    return model.to(device)
