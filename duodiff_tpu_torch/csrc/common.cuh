@@ -1,5 +1,5 @@
 // Shared device helpers of the sublayer kernels: bf16 vector access,
-// warp reductions and cp.async with zero-fill for ragged tile edges.
+// warp reductions, GELU and cp.async with zero-fill for ragged tile edges.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +37,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// GELU of the MLP sublayers in fp32: exact (erff) or the tanh form.
+enum GeluMode : int { kGeluNone = 0, kGeluErf = 1, kGeluTanh = 2 };
+
+__device__ __forceinline__ float gelu(float v, int mode) {
+  if (mode == kGeluErf) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  if (mode == kGeluTanh) {
+    const float u = 0.79788456080286536f * (v + 0.044715f * v * v * v);
+    return 0.5f * v * (1.f + tanhf(u));
+  }
   return v;
 }
 

@@ -34,23 +34,12 @@ namespace {
 
 using namespace nvcuda;
 
-enum GeluMode : int { kGeluNone = 0, kGeluErf = 1, kGeluTanh = 2 };
-
 constexpr int kGemmBM = 128;
 constexpr int kGemmBN = 128;
 constexpr int kGemmBK = 32;
 constexpr int kGemmThreads = 256;
 constexpr int kAPitch = kGemmBK + 8;  // bf16 elements per A tile row
 constexpr int kBPitch = kGemmBN + 8;  // bf16 elements per B tile row
-
-__device__ __forceinline__ float gelu(float v, int mode) {
-  if (mode == kGeluErf) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-  if (mode == kGeluTanh) {
-    const float u = 0.79788456080286536f * (v + 0.044715f * v * v * v);
-    return 0.5f * v * (1.f + tanhf(u));
-  }
-  return v;
-}
 
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C,

@@ -24,8 +24,24 @@ from duodiff_tpu_torch.ops.block import (
     pack_attn,
     pack_mlp,
 )
+from duodiff_tpu_torch.ops.block_int8 import (
+    attn_sublayer_int8_plain,
+    fused_attn_sublayer_int8,
+    fused_mlp_sublayer_int8,
+    mlp_sublayer_int8_plain,
+    pack_attn_int8,
+    pack_mlp_int8,
+)
 
-ATTN_IMPLS = ("fused", "plain")
+INT8_IMPLS = ("fused_int8", "plain_int8")
+ATTN_IMPLS = ("fused", "plain", *INT8_IMPLS)
+# attn_impl -> (attention sublayer, MLP sublayer)
+_SUBLAYERS = {
+    "fused": (fused_attn_sublayer, fused_mlp_sublayer),
+    "plain": (attn_sublayer_plain, mlp_sublayer_plain),
+    "fused_int8": (fused_attn_sublayer_int8, fused_mlp_sublayer_int8),
+    "plain_int8": (attn_sublayer_int8_plain, mlp_sublayer_int8_plain),
+}
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000):
@@ -110,19 +126,27 @@ class Block(nn.Module):
       x = x + mlp(norm2(x))             # K2
 
     ``attn_impl="fused"`` runs the two sublayer wrappers (the CUDA kernels
-    on a CUDA tensor), ``"plain"`` their plain PyTorch versions. Both read
-    the operands :meth:`pack` prepared, once per model.
+    on a CUDA tensor), ``"plain"`` their plain PyTorch versions;
+    ``"fused_int8"`` and ``"plain_int8"`` are the same pair for the W8A8
+    sublayers (sampling only; the int8 weights are quantized once, at
+    pack time). All read the operands :meth:`pack` prepared, once per
+    model. ``int8_mlp_scales=(sx, sh)``, the block's calibrated post-LN and
+    post-GELU amax, switches its int8 MLP to static activation scales.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, skip: bool = False,
-                 gelu_approx: bool = False, attn_impl: str = "plain"):
+                 gelu_approx: bool = False, attn_impl: str = "plain",
+                 int8_mlp_scales: Optional[tuple] = None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        if int8_mlp_scales is not None and attn_impl not in INT8_IMPLS:
+            raise ValueError(f"int8_mlp_scales need an int8 attn_impl, got {attn_impl!r}")
         self.num_heads = num_heads
         self.gelu_approx = gelu_approx
         self.attn_impl = attn_impl
+        self.int8_mlp_scales = int8_mlp_scales
         self.skip_linear = nn.Linear(2 * dim, dim) if skip else None
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = nn.ModuleDict({
@@ -139,12 +163,22 @@ class Block(nn.Module):
 
     @torch.no_grad()
     def pack(self, dtype) -> None:
-        """Prepare the sublayers' operands from the current parameters."""
-        self._packed = (
-            pack_attn(self.norm1, self.attn["qkv"], self.attn["proj"],
-                      num_heads=self.num_heads, dtype=dtype),
-            pack_mlp(self.norm2, self.mlp["fc1"], self.mlp["fc2"], dtype=dtype),
-        )
+        """Prepare the sublayers' operands from the current parameters: bf16
+        (``dtype``) weights, or int8 codes with fp32 scales for the int8
+        impls. ``attn_impl`` may later switch within its family (fused and
+        plain read the same operands), not across it."""
+        qkv, proj = self.attn["qkv"], self.attn["proj"]
+        fc1, fc2 = self.mlp["fc1"], self.mlp["fc2"]
+        if self.attn_impl in INT8_IMPLS:
+            self._packed = (
+                pack_attn_int8(self.norm1, qkv, proj, num_heads=self.num_heads),
+                pack_mlp_int8(self.norm2, fc1, fc2, static_scales=self.int8_mlp_scales),
+            )
+        else:
+            self._packed = (
+                pack_attn(self.norm1, qkv, proj, num_heads=self.num_heads, dtype=dtype),
+                pack_mlp(self.norm2, fc1, fc2, dtype=dtype),
+            )
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
         if self._packed is None:
@@ -152,8 +186,6 @@ class Block(nn.Module):
         if self.skip_linear is not None:
             x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
         attn_ops, mlp_ops = self._packed
-        if self.attn_impl == "fused":
-            x = fused_attn_sublayer(x, *attn_ops, num_heads=self.num_heads)
-            return fused_mlp_sublayer(x, *mlp_ops, gelu_approx=self.gelu_approx)
-        x = attn_sublayer_plain(x, *attn_ops, num_heads=self.num_heads)
-        return mlp_sublayer_plain(x, *mlp_ops, gelu_approx=self.gelu_approx)
+        attn, mlp = _SUBLAYERS[self.attn_impl]
+        x = attn(x, *attn_ops, num_heads=self.num_heads)
+        return mlp(x, *mlp_ops, gelu_approx=self.gelu_approx)

@@ -33,13 +33,23 @@ from duodiff_tpu_torch.models.layers import (
 
 class UViT(nn.Module):
     """U-ViT denoiser: forward(x (B, H, W, C), timesteps (B,), y=None) ->
-    (B, H, W, C) float32 prediction under the training parametrization."""
+    (B, H, W, C) float32 prediction under the training parametrization.
+
+    ``int8_mlp_scales`` (int8 attn_impl only): one (sx, sh) pair per block
+    in execution order (in_0..in_{k-1}, mid, out_0..out_{k-1}), the static
+    MLP activation scales of a calibration file
+    (:func:`duodiff_tpu_torch.utils.int8_scales.scales_dict_to_tuple`)."""
 
     def __init__(self, config: UViTConfig, *, dtype=torch.bfloat16,
-                 attn_impl: str = "plain", gelu_approx: bool = False):
+                 attn_impl: str = "plain", gelu_approx: bool = False,
+                 int8_mlp_scales: Optional[tuple] = None):
         super().__init__()
         cfg = config
         d = cfg.embed_dim
+        k = cfg.depth // 2
+        sc = int8_mlp_scales
+        if sc is not None and len(sc) != 2 * k + 1:
+            raise ValueError(f"int8_mlp_scales has {len(sc)} entries, need {2 * k + 1}")
         self.config = cfg
         self.dtype = dtype
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, d)
@@ -50,10 +60,14 @@ class UViT(nn.Module):
             dim=d, num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
             qkv_bias=cfg.qkv_bias, gelu_approx=gelu_approx, attn_impl=attn_impl,
         )
-        k = cfg.depth // 2
-        self.in_blocks = nn.ModuleList([Block(**common) for _ in range(k)])
-        self.mid_block = Block(**common)
-        self.out_blocks = nn.ModuleList([Block(**common, skip=cfg.skip) for _ in range(k)])
+
+        def blk(i: int, **kw) -> Block:
+            scales = None if sc is None else tuple(sc[i])
+            return Block(**common, int8_mlp_scales=scales, **kw)
+
+        self.in_blocks = nn.ModuleList([blk(i) for i in range(k)])
+        self.mid_block = blk(k)
+        self.out_blocks = nn.ModuleList([blk(k + 1 + i, skip=cfg.skip) for i in range(k)])
         self.norm = nn.LayerNorm(d, eps=1e-5)
         self.decoder_pred = nn.Linear(d, cfg.patch_dim)
         self.final_layer = (
@@ -115,6 +129,54 @@ class UViT(nn.Module):
             x = blk(x, skips.pop())
         return self.decode_tokens(x)
 
+    def _check_n_outer(self, n_outer: int) -> int:
+        k = self.config.depth // 2
+        if not 0 <= n_outer <= k:
+            raise ValueError(f"n_outer must be in [0, {k}], got {n_outer}")
+        return k
+
+    def forward_anchor(self, x, timesteps, y=None, *, n_outer: int):
+        """Full forward that also returns the residual of the centered
+        ``depth - 2*n_outer`` blocks (in_blocks[n_outer:], mid_block,
+        out_blocks[:k - n_outer]) for block caching: ``(prediction,
+        delta)`` with ``delta = tokens_out - tokens_in`` of that region,
+        (B, L, D) in the compute dtype. Long skips pushed inside the region
+        are consumed inside it, so the region reduces to that one residual.
+        ``prediction`` equals :meth:`forward`."""
+        k = self._check_n_outer(n_outer)
+        x = self.embed_tokens(x, timesteps, y)
+        skips = []
+        for blk in self.in_blocks[:n_outer]:
+            x = blk(x)
+            skips.append(x)
+        region_in = x
+        inner_skips = []
+        for blk in self.in_blocks[n_outer:]:
+            x = blk(x)
+            inner_skips.append(x)
+        x = self.mid_block(x)
+        for blk in self.out_blocks[:k - n_outer]:
+            x = blk(x, inner_skips.pop())
+        delta = x - region_in
+        for blk in self.out_blocks[k - n_outer:]:
+            x = blk(x, skips.pop())
+        return self.decode_tokens(x), delta
+
+    def forward_cached(self, x, timesteps, y=None, *, n_outer: int, delta):
+        """Forward that runs only the ``2*n_outer`` outer blocks (plus embed
+        and decode) and replaces the centered region by ``x + delta``, a
+        residual :meth:`forward_anchor` returned."""
+        k = self._check_n_outer(n_outer)
+        x = self.embed_tokens(x, timesteps, y)
+        skips = []
+        for blk in self.in_blocks[:n_outer]:
+            x = blk(x)
+            skips.append(x)
+        x = x + delta.to(x.dtype)
+        for blk in self.out_blocks[k - n_outer:]:
+            x = blk(x, skips.pop())
+        return self.decode_tokens(x)
+
 
 def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
     """flax ``truncated_normal(stddev)``: cut at two standard deviations of
@@ -147,10 +209,11 @@ def _init_params(model: UViT, generator: torch.Generator) -> None:
 
 def init_uvit(config: UViTConfig, *, device, dtype=torch.bfloat16,
               generator: torch.Generator, attn_impl: str = "plain",
-              gelu_approx: bool = False) -> UViT:
+              gelu_approx: bool = False, int8_mlp_scales: Optional[tuple] = None) -> UViT:
     """A UViT with random fp32 weights drawn on the CPU from ``generator``
     (a CPU generator, so the weights do not depend on ``device``), then
     moved to ``device``. ``dtype`` is the compute dtype."""
-    model = UViT(config, dtype=dtype, attn_impl=attn_impl, gelu_approx=gelu_approx)
+    model = UViT(config, dtype=dtype, attn_impl=attn_impl, gelu_approx=gelu_approx,
+                 int8_mlp_scales=int8_mlp_scales)
     _init_params(model, generator)
     return model.to(device)

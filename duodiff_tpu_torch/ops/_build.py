@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``duodiff_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes``. The build runs at first use, into
+Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The build runs at first use, into
 ``duodiff_tpu_torch/build/``, and again whenever a source's content
 changes (the library's name carries a hash of the sources and flags).
 Importing this module needs neither ``nvcc`` nor a GPU.
@@ -22,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _PTR = ctypes.c_void_p
@@ -32,6 +33,8 @@ _FLOAT = ctypes.c_float
 _SIGNATURES = {
     "duodiff_attn_sublayer": ([_PTR] * 11 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer": ([_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_int8": ([_PTR] * 14 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_mlp_sublayer_int8": ([_PTR] * 16 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_attn_core_smem_bytes": ([_INT], _INT),
     "duodiff_error_string": ([_INT], ctypes.c_char_p),
 }
@@ -62,23 +65,36 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the first failure's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in units]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                  for p, o in zip(units, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 

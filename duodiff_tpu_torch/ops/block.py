@@ -74,26 +74,34 @@ def _layer_norm(xv, scale, bias, eps):
     return (xv - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+def attention_core_plain(qkv, num_heads: int, dtype):
+    """The SDPA core of K1 and K11 on a packed (B, L, 3A) qkv whose values
+    are ``dtype``-rounded and whose q is pre-scaled: fp32 scores, e rounded
+    to ``dtype`` for the value product, fp32 denominator applied after it;
+    returns the merged heads (B, L, A) in ``dtype``."""
+    b, l, three_a = qkv.shape
+    a = three_a // 3
+    qkv = qkv.float()
+    q, k, v = (qkv[..., i * a:(i + 1) * a].reshape(b, l, num_heads, a // num_heads)
+               for i in range(3))
+    s = torch.einsum("blhe,bmhe->bhlm", q, k)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = e.sum(-1, keepdim=True)
+    o = torch.einsum("bhlm,bmhe->blhe", e.to(dtype).float(), v)
+    return (o / denom.transpose(1, 2)).to(dtype).reshape(b, l, a)
+
+
 def attn_sublayer_plain(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
                         num_heads: int, eps: float = 1e-5):
     """Plain PyTorch K1 (pallas_block._attn_sublayer_reference with the
     scale pre-folded into ``wqkv``)."""
-    b, l, _ = x.shape
-    a = wp.shape[0]
-    h = num_heads
     dt = x.dtype
     xv = x.float()
     xn = _layer_norm(xv, ln_scale.float(), ln_bias.float(), eps).to(dt)
     qkv = torch.matmul(xn.float(), wqkv.float())
     if bqkv is not None:
         qkv = qkv + bqkv.float()
-    qkv = qkv.to(dt).float()
-    q, k, v = (qkv[..., i * a:(i + 1) * a].reshape(b, l, h, a // h) for i in range(3))
-    s = torch.einsum("blhe,bmhe->bhlm", q, k)
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    denom = e.sum(-1, keepdim=True)
-    o = torch.einsum("bhlm,bmhe->blhe", e.to(dt).float(), v)
-    merged = (o / denom.transpose(1, 2)).to(dt).reshape(b, l, a)
+    merged = attention_core_plain(qkv.to(dt), num_heads, dt)
     proj = torch.matmul(merged.float(), wp.float())
     return (proj + xv + bp.float()).to(dt)
 

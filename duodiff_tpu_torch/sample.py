@@ -11,7 +11,17 @@ With a late model and ``--t_switch N`` the first model runs the N high-noise
 steps t = T-1 .. T-N and the late model the rest; without, the first model
 runs all T steps. The samples are written as one ``samples.npy``, uint8
 NHWC. ``--attn_impl`` picks the block sublayers: ``fused`` (the CUDA
-kernels; default on a CUDA device) or ``plain`` (default on the CPU).
+kernels; default on a CUDA device), ``plain`` (default on the CPU) or
+``fused_int8`` (the W8A8 kernels; ``--int8_scales`` / ``--int8_scales_late``
+give the early / late model static MLP activation scales, else they are
+dynamic per row).
+
+Block caching (``--cache_every N`` or ``--cache_schedule FILE``): the
+centered blocks recompute only on anchor steps and their residual is reused
+in between. A single model runs cached from its first step; with the
+DuoDiff pair the late model's segment runs cached from the handoff, and the
+shallow model stays dense. ``--cache_outer`` sets the blocks run every step
+at each end (default ``ceil((depth//2) / 3)``).
 """
 
 from __future__ import annotations
@@ -23,7 +33,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from duodiff_tpu_torch.diffusion.sampling import DDPMSampler
+from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
+from duodiff_tpu_torch.diffusion.sampling import DDPMSampler, make_block_cached_apply
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.utils.model_loading import load_model
 
@@ -44,15 +55,33 @@ def get_args(argv=None):
     parser.add_argument("--t_switch", type=int, default=None,
                         help="Number of high-noise steps the first model runs "
                              "before the late model takes over")
+    parser.add_argument("--cache_every", type=int, default=None,
+                        help="Block caching: recompute the middle blocks only on "
+                             "anchor steps (t %% N == 0, and the first step of the "
+                             "cached segment) and reuse their residual in between "
+                             "(single model, or the DuoDiff late segment)")
+    parser.add_argument("--cache_outer", type=int, default=None,
+                        help="Blocks recomputed every step at EACH end of the network "
+                             "under block caching. Default: ceil(depth//2 / 3)")
+    parser.add_argument("--cache_schedule", type=str, default=None,
+                        help="Anchor schedule JSON (tools/derive_cache_schedule.py) "
+                             "in place of --cache_every: anchors exactly the listed "
+                             "timesteps (plus the cached segment's first step)")
     parser.add_argument("--random_init", action="store_true",
                         help="Skip checkpoint loading (random weights from --seed)")
     parser.add_argument("--num_timesteps", type=int, default=1000)
     parser.add_argument("--gelu_approx", action="store_true",
                         help="tanh-approximate GELU in the MLP sublayers")
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--attn_impl", type=str, default=None, choices=["fused", "plain"],
-                        help="Block sublayers: fused kernels or plain PyTorch "
-                             "(default: fused on CUDA, plain on the CPU)")
+    parser.add_argument("--attn_impl", type=str, default=None,
+                        choices=["fused", "plain", "fused_int8"],
+                        help="Block sublayers: fused kernels, plain PyTorch or the "
+                             "W8A8 kernels (default: fused on CUDA, plain on the CPU)")
+    parser.add_argument("--int8_scales", type=str, default=None,
+                        help="tools/calibrate_int8.py JSON: static MLP activation "
+                             "scales of the (early) model for --attn_impl fused_int8")
+    parser.add_argument("--int8_scales_late", type=str, default=None,
+                        help="int8 scales JSON for the DuoDiff late model")
     return parser.parse_args(argv)
 
 
@@ -71,49 +100,100 @@ def main(argv=None) -> dict:
     if not args.random_init and args.checkpoint_path is None:
         raise SystemExit("--checkpoint_path is required (or pass --random_init)")
     has_late = args.config_path_late is not None or args.checkpoint_path_late is not None
+    steps = args.num_timesteps
+
+    # anchor rule for block caching: the uniform period or a boolean table
+    cache_rule = args.cache_every
+    if args.cache_schedule is not None:
+        if args.cache_every is not None:
+            raise SystemExit("--cache_schedule and --cache_every are mutually exclusive")
+        cache_rule = load_cache_schedule(args.cache_schedule, num_timesteps=steps)
+    cache_on = cache_rule is not None
+    if cache_on:
+        if args.cache_every is not None and args.cache_every < 1:
+            raise SystemExit("--cache_every must be >= 1")
+        if has_late and args.t_switch is None:
+            raise SystemExit("--cache_every/--cache_schedule with a late model needs "
+                             "--t_switch (the cached segment starts at the DuoDiff "
+                             "handoff)")
+    elif args.cache_outer is not None:
+        raise SystemExit("--cache_outer requires --cache_every or --cache_schedule")
+
     if has_late != (args.t_switch is not None):
         raise SystemExit("DuoDiff needs both --t_switch and the late model "
                          "(--config_path_late / --checkpoint_path_late)")
-    steps = args.num_timesteps
     if args.t_switch is not None and not 0 <= args.t_switch <= steps:
         raise SystemExit(f"--t_switch must be in [0, {steps}], got {args.t_switch}")
     attn_impl = args.attn_impl or ("fused" if device.type == "cuda" else "plain")
     output_folder = Path(args.output_folder)
     output_folder.mkdir(parents=True, exist_ok=True)
 
-    def load(config_path, checkpoint_path, seed):
+    def load(config_path, checkpoint_path, seed, int8_scales):
         model, cfg = load_model(
             config_path, None if args.random_init else checkpoint_path,
             device=device, seed=seed, attn_impl=attn_impl,
-            gelu_approx=args.gelu_approx,
+            gelu_approx=args.gelu_approx, int8_scales=int8_scales,
         )
         if cfg.num_classes > 0:
             raise SystemExit("class-conditional sampling is not ported yet")
         model.pack_for_kernels()
         return model.eval(), cfg
 
-    model, cfg = load(args.config_path, args.checkpoint_path, args.seed)
     schedule = NoiseSchedule.create(steps=steps, device=device)
-    segments = [(model, steps - 1, 0)]
+
+    def dense_sampler(model):
+        return DDPMSampler(model, schedule, parametrization=args.parametrization)
+
+    def cached_sampler(model, cfg, t_first: int, which: str):
+        """The model's block-cached sampler; its state is the cached residual,
+        zeros (B, L, D) in the compute dtype at the segment's first step."""
+        k_half = cfg.depth // 2
+        n_outer = args.cache_outer if args.cache_outer is not None else max(1, -(-k_half // 3))
+        if not 1 <= n_outer <= k_half:
+            raise SystemExit(f"--cache_outer must be in [1, {k_half}] for {which}depth "
+                             f"{cfg.depth}, got {n_outer}")
+        apply = make_block_cached_apply(
+            lambda x, t, y: model.forward_anchor(x, t, y, n_outer=n_outer),
+            lambda x, t, y, delta: model.forward_cached(x, t, y, n_outer=n_outer, delta=delta),
+            cache_rule, t_first,
+        )
+        tokens = cfg.extras + cfg.num_patches
+        return DDPMSampler(
+            apply, schedule, parametrization=args.parametrization,
+            init_state_fn=lambda x: torch.zeros((x.shape[0], tokens, cfg.embed_dim),
+                                                dtype=model.dtype, device=x.device),
+        )
+
+    model, cfg = load(args.config_path, args.checkpoint_path, args.seed, args.int8_scales)
     if has_late:
-        late, _ = load(args.config_path_late or args.config_path,
-                       args.checkpoint_path_late, args.seed + 1)
+        late, late_cfg = load(args.config_path_late or args.config_path,
+                              args.checkpoint_path_late, args.seed + 1,
+                              args.int8_scales_late)
         handoff = steps - args.t_switch
-        segments = [(model, steps - 1, handoff), (late, handoff - 1, 0)]
+        late_sampler = (cached_sampler(late, late_cfg, handoff - 1, "the late model's ")
+                        if cache_on else dense_sampler(late))
+        segments = [(dense_sampler(model), steps - 1, handoff),
+                    (late_sampler, handoff - 1, 0)]
+    else:
+        sampler = cached_sampler(model, cfg, steps - 1, "") if cache_on else dense_sampler(model)
+        segments = [(sampler, steps - 1, 0)]
     shape = (args.batch_size, cfg.img_size, cfg.img_size, cfg.in_chans)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
-    print(f"Sampling {args.batch_size} images on {device} (attn_impl={attn_impl})...")
+    print(f"Sampling {args.batch_size} images on {device} (attn_impl={attn_impl}, "
+          f"cache={'on' if cache_on else 'off'})...")
     with torch.inference_mode():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         tic = time.perf_counter()
-        x = DDPMSampler(model, schedule).init(generator, shape)
-        for seg_model, t_hi, t_lo in segments:
-            if t_hi >= t_lo:
-                sampler = DDPMSampler(seg_model, schedule,
-                                      parametrization=args.parametrization)
+        x = segments[0][0].init(generator, shape)
+        for sampler, t_hi, t_lo in segments:
+            if t_hi < t_lo:
+                continue
+            if sampler.init_state_fn is None:
                 x = sampler.run(x, generator, t_hi, t_lo)
+            else:
+                x, _ = sampler.run(x, generator, t_hi, t_lo, state=sampler.init_state_fn(x))
         samples = ((x + 1.0) / 2.0).cpu().numpy()  # waits for the device
         elapsed = time.perf_counter() - tic
 

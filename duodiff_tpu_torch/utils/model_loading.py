@@ -13,7 +13,9 @@ from typing import Optional
 import torch
 
 from duodiff_tpu_torch.config import UViTConfig, load_model_config
+from duodiff_tpu_torch.models.layers import INT8_IMPLS
 from duodiff_tpu_torch.models.uvit import UViT, init_uvit
+from duodiff_tpu_torch.utils.int8_scales import load_int8_scales, scales_dict_to_tuple
 
 
 def load_model(
@@ -25,15 +27,25 @@ def load_model(
     seed: int = 0,
     attn_impl: str = "plain",
     gelu_approx: bool = False,
+    int8_scales: Optional[str] = None,
 ) -> tuple[UViT, UViTConfig]:
     """Build the UViT a config file describes, with random weights from
     ``seed`` or the weights of ``checkpoint_path`` (loaded strictly), on
-    ``device`` with compute dtype ``dtype``."""
+    ``device`` with compute dtype ``dtype``. ``int8_scales`` is a
+    calibration JSON (``tools/calibrate_int8.py``): static MLP activation
+    scales for the int8 sublayers, so it needs an int8 ``attn_impl``."""
     cfg = load_model_config(config_path)
+    scales = None
+    if int8_scales:
+        if attn_impl not in INT8_IMPLS:
+            raise ValueError(
+                f"--int8_scales requires --attn_impl fused_int8 (got {attn_impl!r})"
+            )
+        scales = scales_dict_to_tuple(load_int8_scales(int8_scales), cfg.depth)
     model = init_uvit(
         cfg, device="cpu", dtype=dtype,
         generator=torch.Generator().manual_seed(seed),
-        attn_impl=attn_impl, gelu_approx=gelu_approx,
+        attn_impl=attn_impl, gelu_approx=gelu_approx, int8_mlp_scales=scales,
     )
     if checkpoint_path:
         state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)

@@ -122,14 +122,22 @@ def test_config_reader_rejects_nested_values(tmp_path):
 
 
 def test_port_imports_no_jax_yaml_or_pil():
+    """Every module of the port, the block-caching and int8 ones included,
+    imports without JAX, flax, PyYAML, Pillow or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import duodiff_tpu_torch as pkg\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, 'duodiff_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'duodiff_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = {'jax', 'jaxlib', 'flax', 'yaml', 'PIL', 'duodiff_tpu'}\n"
         "print(sorted({n.split('.')[0] for n in sys.modules} & bad))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
-    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+    bad, imported = out.stdout.strip().splitlines()
+    assert bad == "[]", out.stdout + out.stderr
+    for name in ("ops.block_int8", "diffusion.cache_schedule", "utils.int8_scales",
+                 "diffusion.sampling", "sample"):
+        assert f"duodiff_tpu_torch.{name}" in imported.split(), name
