@@ -26,7 +26,23 @@ it, in phases, each printing its results on its own lines:
 4b. the headline composition through the same CLI: int8 sublayers (depth 3
    with dynamic scales, depth 13 with the static ones), the depth-13
    segment block-cached on ``assets/cache_schedule_celeba_duodiff.json``,
-   tanh GELU; the counters must equal what the schedule implies.
+   tanh GELU; the counters must equal what the schedule implies;
+5. training, the main path of the third slice: ``python -m
+   duodiff_tpu_torch.train`` in-process on ``configs/uvit_cifar10.yaml``
+   (L = 257, D = 512, depth 13) with ``--use_amp`` at batch 128, on
+   synthetic palette images in the CIFAR-10 layout written to a temporary
+   directory: the loss must fall, every block must run K1, K2, K6 and K7
+   once a step, a ``--resume`` run must continue from the saved step and
+   sampler state, and the checkpoint must load into the sampling CLI's
+   ``load_model`` and give the trainer's forward; then a profile of one
+   step;
+5b. DuoDiff distillation through the same CLI: a depth-3 student
+   (``configs/uvit_cifar10_3.yaml``) from a depth-13 teacher.
+
+Phase 2 also holds the backward kernels K6 (with and without a qkv bias)
+and K7 (exact and tanh GELU) against their plain versions, and phase 3 the
+gradients of the whole depth-13 model and a few optimizer steps, fused
+against plain.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. There is
@@ -86,6 +102,47 @@ INT8_KERNELS = {
         "replaces": "duodiff_tpu/ops/pallas_block_int8.py:155",
     },
 }
+BWD_KERNELS = {
+    "fused_attn_sublayer_bwd": {
+        "source": "duodiff_tpu_torch/csrc/attn_sublayer_bwd.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:232",
+    },
+    "fused_mlp_sublayer_bwd": {
+        "source": "duodiff_tpu_torch/csrc/mlp_sublayer_bwd.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:1035",
+    },
+}
+# The backward kernels are held per output tensor to
+# ||kernel - plain|| / ||plain|| <= BWD_REL_FRO: most gradient entries are
+# far below 0.05, so the elementwise bound would pass nearly anything. Both
+# sides round to bf16 at the Pallas kernels' points (2**-8 relative); their
+# fp32 sums differ only in order, so 1e-2 (~2.5 bf16 ulps over the tensor)
+# is a bound a wrong kernel cannot meet. dx is also held elementwise.
+BWD_REL_FRO = 1e-2
+# The gradients of a whole depth-13 model, fused (K6/K7) against plain
+# (autograd through the plain sublayers), meet the same per-parameter bound:
+# the two backwards round the activation gradients to bf16 at somewhat
+# different points, which 13 blocks compound (measured worst 3.8e-3).
+# A few AdamW steps, fused against plain: the loss of each step within
+# STEP_LOSS_REL, and each parameter's total update within UPDATE_REL_FRO.
+# Adam scales each entry's update by its own gradient's size, so entries
+# whose gradient is near zero move by up to lr either way on bf16 noise;
+# the bound holds the update as a whole (measured worst 4.4e-2).
+OPT_STEPS = 3
+STEP_LOSS_REL = 1e-3
+UPDATE_REL_FRO = 0.1
+# The logged train loss must end below LOSS_DROP times its first value: the
+# logged values are single-batch losses, which after step 1 fell
+# monotonically 0.65 -> 0.59 over steps 50-200 at the default lr 2e-4 from
+# 1.19 at step 1, so a quarter's drop is far outside their spread.
+LOSS_DROP = 0.75
+TRAIN_CONFIG = str(REPO / "configs/uvit_cifar10.yaml")
+STUDENT_CONFIG = str(REPO / "configs/uvit_cifar10_3.yaml")
+TRAIN_BATCH = 128      # main.py's default
+TRAIN_STEPS = 200
+RESUME_STEPS = 20
+DISTILL_STEPS = 20
+WARMUP_STEPS = 20
 INT8_SCALES = str(REPO / "assets/int8_scales_celeba_flagship.json")
 CACHE_SCHEDULE = str(REPO / "assets/cache_schedule_celeba_duodiff.json")
 
@@ -278,6 +335,72 @@ def check_int8_kernels(device) -> dict:
     return results
 
 
+def check_bwd_kernels(device) -> dict:
+    """Phase 2, backward: K6 with and without a qkv bias and K7 with exact
+    and tanh GELU against their plain versions at batch 8 and 128, each
+    called twice for the same bits. The recorded times are those of the
+    training path's variants at batch 128 (no qkv bias, exact GELU, as
+    configs/uvit_cifar10.yaml)."""
+    from duodiff_tpu_torch.ops import block
+
+    bf = torch.bfloat16
+    results = {name: {"max_abs_err": 0.0, "max_rel_fro_err": 0.0} for name in BWD_KERNELS}
+    for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
+        for variant in (False, True):
+            x, norm, qkv, proj, fc1, fc2 = block_modules(batch, qkv_bias=variant)
+            dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(bf)
+            x, dy = x.to(device), dy.to(device)
+            ln = to_device((norm.weight.detach(), norm.bias.detach()), device)
+            attn = to_device((qkv.weight.detach().t().to(bf).contiguous(),
+                              None if qkv.bias is None else qkv.bias.detach(),
+                              proj.weight.detach().t().to(bf).contiguous()), device)
+            mlp = to_device((fc1.weight.detach().t().to(bf).contiguous(), fc1.bias.detach(),
+                             fc2.weight.detach().t().to(bf).contiguous()), device)
+            cases = {
+                "fused_attn_sublayer_bwd": (
+                    f"qkv_bias={variant}", ("dx", "dg", "db", "dwqkv", "dbqkv", "dwp", "dbp"),
+                    lambda: block.fused_attn_sublayer_bwd(x, dy, *ln, *attn, num_heads=HEADS),
+                    lambda: block.attn_sublayer_bwd_plain(x, dy, *ln, *attn, num_heads=HEADS),
+                ),
+                "fused_mlp_sublayer_bwd": (
+                    f"gelu={'tanh' if variant else 'erf'}",
+                    ("dx", "dg", "db", "dw1", "db1", "dw2", "db2"),
+                    lambda: block.fused_mlp_sublayer_bwd(x, dy, *ln, *mlp, gelu_approx=variant),
+                    lambda: block.mlp_sublayer_bwd_plain(x, dy, *ln, *mlp, gelu_approx=variant),
+                ),
+            }
+            for name, (label, outs, kernel, plain) in cases.items():
+                compare_bwd_kernel(results[name], f"{name} B={batch} {label}", outs, kernel,
+                                   plain, keep_time=batch == MAIN_BATCH and not variant)
+    return results
+
+
+def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, keep_time: bool) -> None:
+    """A backward kernel against its plain version: every output within
+    BWD_REL_FRO, dx also elementwise, and a repeat call equal to the bit."""
+    got = kernel()
+    again = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+    rels = {n: rel_fro(g, w) for n, g, w in zip(outs, got, want) if w is not None}
+    abs_err = max(errors(g, w)[0] for g, w in zip(got, want) if w is not None)
+    dx_abs, _, dx_ok = errors(got[0], want[0])
+    ms = time_ms({"kernel": kernel, "plain": plain})
+    worst = max(rels, key=rels.get)
+    ok = same and dx_ok and rels[worst] <= BWD_REL_FRO
+    print(f"phase 2: {label}: rel_fro_err {', '.join(f'{n}={v:.3g}' for n, v in rels.items())} "
+          f"(bound {BWD_REL_FRO}) dx max_abs_err={dx_abs:.6g} bound={ATOL}+{RTOL}*|plain| "
+          f"max_abs_err={abs_err:.6g} repeat_equal={same} ok={ok} kernel_ms={ms['kernel']:.6g} "
+          f"plain_ms={ms['plain']:.6g}", flush=True)
+    if not ok:
+        fail(f"{label} disagrees with its plain version or is not deterministic")
+    res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+    res["max_rel_fro_err"] = max(res["max_rel_fro_err"], rels[worst])
+    if keep_time:
+        res["ms"], res["plain_ms"] = ms["kernel"], ms["plain"]
+
+
 def set_attn_impl(model, impl: str) -> None:
     for blk in model.blocks():
         blk.attn_impl = impl
@@ -440,11 +563,67 @@ def check_int8_blocks(model, x, t) -> None:
           f"bound={ATOL}+{RTOL}*|plain| ok=True", flush=True)
 
 
+def check_training(device) -> None:
+    """Phase 3, training: the gradients of every parameter of the depth-13
+    CIFAR-10 model at batch 8, fused (K1/K2 forward, K6/K7 backward)
+    against plain (autograd through the plain sublayers), on the same
+    weights, batch and draws; then OPT_STEPS AdamW steps both ways."""
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.training.train_state import TrainState, make_optimizer, make_train_step
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    schedule = NoiseSchedule.create(device=device)
+    models, steps, states = {}, {}, {}
+    for impl in ("fused", "plain"):
+        model, cfg = load_model(TRAIN_CONFIG, device=device, seed=0, attn_impl=impl)
+        models[impl] = model.train()
+        steps[impl] = make_train_step(model, schedule, parametrization="predict_noise", seed=0)
+        states[impl] = TrainState.create(model, make_optimizer(
+            dict(model.named_parameters()), lr=2e-4, weight_decay=0.03, beta1=0.99,
+            beta2=0.999, max_grad_norm=1.0, num_warmup_steps=0, num_training_steps=100))
+    g = torch.Generator().manual_seed(2)
+    shape = (CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    batch = {"image": (torch.rand(shape, generator=g) * 2 - 1).to(device)}
+    names = [n for n, _ in models["plain"].named_parameters()]
+    draws = steps["plain"].draws(batch, 1)
+    grads = {impl: steps[impl].backward(batch, *draws)[1] for impl in models}
+    rels = {n: rel_fro(a, b) for n, a, b in zip(names, grads["fused"], grads["plain"])}
+    worst = max(rels, key=rels.get)
+    ok = rels[worst] <= BWD_REL_FRO
+    print(f"phase 3: depth-{cfg.depth} training gradients B={CHECK_BATCH} fused vs plain, "
+          f"{len(names)} parameters: worst rel_fro_err={rels[worst]:.6g} ({worst}), "
+          f"median {statistics.median(rels.values()):.6g} (bound {BWD_REL_FRO}) ok={ok}",
+          flush=True)
+    if not ok:
+        fail("the fused training gradients disagree with the plain ones")
+
+    init = [p.detach().clone() for p in models["plain"].parameters()]
+    losses = {impl: [] for impl in models}
+    for s in range(1, OPT_STEPS + 1):
+        draws = steps["plain"].draws(batch, s)
+        for impl in models:
+            losses[impl].append(steps[impl](states[impl], batch, s, *draws)["train_loss"].item())
+    loss_rel = max(abs(a / b - 1) for a, b in zip(losses["fused"], losses["plain"]))
+    upd = {n: rel_fro(pf.detach() - p0, pp.detach() - p0) for n, pf, pp, p0 in
+           zip(names, models["fused"].parameters(), models["plain"].parameters(), init)}
+    worst = max(upd, key=upd.get)
+    ok = loss_rel <= STEP_LOSS_REL and upd[worst] <= UPDATE_REL_FRO
+    print(f"phase 3: {OPT_STEPS} AdamW steps fused vs plain: losses "
+          f"{[round(v, 6) for v in losses['fused']]} vs {[round(v, 6) for v in losses['plain']]} "
+          f"max rel {loss_rel:.6g} (bound {STEP_LOSS_REL}); parameter updates worst rel_fro_err "
+          f"{upd[worst]:.6g} ({worst}), median {statistics.median(upd.values()):.6g} "
+          f"(bound {UPDATE_REL_FRO}) ok={ok}", flush=True)
+    if not ok:
+        fail("fused training steps disagree with plain ones")
+
+
 def reset_counts() -> None:
     from duodiff_tpu_torch.ops import block, block_int8
 
     block.fused_attn_sublayer.launches = 0
     block.fused_mlp_sublayer.launches = 0
+    block.fused_attn_sublayer_bwd.launches = 0
+    block.fused_mlp_sublayer_bwd.launches = 0
     block_int8.reset_launch_counts()
 
 
@@ -455,6 +634,8 @@ def read_counts() -> dict:
     return {
         "fused_attn_sublayer": block.fused_attn_sublayer.launches,
         "fused_mlp_sublayer": block.fused_mlp_sublayer.launches,
+        "fused_attn_sublayer_bwd": block.fused_attn_sublayer_bwd.launches,
+        "fused_mlp_sublayer_bwd": block.fused_mlp_sublayer_bwd.launches,
         "fused_attn_sublayer_int8": block_int8.fused_attn_sublayer_int8.launches,
         "fused_mlp_sublayer_int8": k12.launches,
         "fused_mlp_sublayer_int8 dynamic": k12.launches_dynamic,
@@ -492,10 +673,15 @@ def run_cli(label: str, extra: list, card: str, expected: dict) -> dict:
              f"expected {shape} uint8")
     if not np.isfinite(samples).all():
         fail("samples are not finite")
+    check_counts(launches, expected)
+    return launches
+
+
+def check_counts(launches: dict, expected: dict) -> None:
+    """Every counter equals ``expected`` (unlisted kernels: 0)."""
     for name, n in launches.items():
         if n != expected.get(name, 0):
             fail(f"{name} launched {n} times on the path, expected {expected.get(name, 0)}")
-    return launches
 
 
 def run_main_path(card: str) -> dict:
@@ -539,6 +725,184 @@ def run_int8_main_path(card: str) -> dict:
     )
 
 
+def train_argv(work: str, exp: str, n_steps: int, *extra) -> list:
+    return ["--config_path", TRAIN_CONFIG, "--dataset", "cifar10", "--data_path", f"{work}/data",
+            "--log_path", f"{work}/logs", "--exp_name", exp, "--n_steps", str(n_steps),
+            "--batch_size", str(TRAIN_BATCH), "--use_amp", "--num_warmup_steps",
+            str(WARMUP_STEPS), "--device", "cuda", "--seed", "0", *extra]
+
+
+def run_train_cli(label: str, argv: list, card: str, expected: dict):
+    """One in-process run of the training CLI with every launch counter set
+    to 0 just before and read just after; checks finite losses and the
+    counts. Returns (trainer, launches)."""
+    from duodiff_tpu_torch import train
+
+    reset_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    trainer = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = read_counts()
+    logs = trainer.logs
+    steps = logs[-1]["step"] - trainer.start_step
+    steady = (f"{logs[-1]['steps_per_sec']:.6g} steps/s over steps {logs[-2]['step'] + 1}-"
+              f"{logs[-1]['step']}, " if len(logs) > 1 else "")
+    print(f"{label}: {steps} steps at batch {TRAIN_BATCH}, losses "
+          f"{[(log['step'], round(log['train_loss'], 6)) for log in logs]}, {steady}"
+          f"CLI wall {wall:.6g} s ({steps / wall:.6g} steps/s, set-up included), "
+          f"launches {launches} (expected {expected}), card {card}", flush=True)
+    if not all(np.isfinite(log["train_loss"]) and np.isfinite(log["grad_norm"]) for log in logs):
+        fail(f"{label}: non-finite loss or gradient norm")
+    check_counts(launches, expected)
+    return trainer, launches
+
+
+def run_train_path(device, card: str) -> dict:
+    """Phase 5: the training CLI on configs/uvit_cifar10.yaml at batch 128,
+    bf16, on synthetic palette data; then the checkpoint in the sampling
+    CLI's load_model, a --resume run, and a profile of one step. Returns
+    the main run's launch counts."""
+    from duodiff_tpu_torch.data.sampler import ResumableSeedableSampler
+    from duodiff_tpu_torch.data.synthetic import write_palette_cifar
+    from duodiff_tpu_torch.training.checkpointer import CHECKPOINT_FILE, Checkpointer
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    per_step = 13 * TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as work:
+        write_palette_cifar(Path(work) / "data", seed=0)
+        trainer, launches = run_train_cli(
+            f"phase 5: train {TRAIN_CONFIG.rsplit('/', 1)[-1]}", train_argv(work, "main", TRAIN_STEPS),
+            card, {k: per_step for k in ("fused_attn_sublayer", "fused_mlp_sublayer",
+                                         "fused_attn_sublayer_bwd", "fused_mlp_sublayer_bwd")})
+        first, last = trainer.logs[0]["train_loss"], trainer.logs[-1]["train_loss"]
+        if not last < LOSS_DROP * first:
+            fail(f"the train loss did not fall clearly: {first:.6g} -> {last:.6g}")
+
+        ckpt = trainer.log_path / "cifar10_uvit_last"
+        saved = Checkpointer.restore(ckpt)
+        model, cfg = load_model(TRAIN_CONFIG, str(ckpt / CHECKPOINT_FILE), device=device,
+                                attn_impl="fused")
+        for m in (model, trainer.model):
+            m.pack_for_kernels()
+            m.eval()
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn((CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans), generator=g)
+        t = torch.linspace(0, 999, CHECK_BATCH)
+        with torch.inference_mode():
+            same = torch.equal(model(x.to(device), t.to(device)),
+                               trainer.model(x.to(device), t.to(device)))
+        print(f"phase 5: checkpoint step {saved['step']} loaded strictly by the sampling CLI's "
+              f"load_model; its forward equals the trainer's: {same}", flush=True)
+        if not same or saved["step"] != TRAIN_STEPS:
+            fail("the checkpoint does not reproduce the trained model")
+        del trainer, model
+
+        per_step = 13 * RESUME_STEPS
+        resumed, _ = run_train_cli(
+            "phase 5: --resume", train_argv(work, "main", TRAIN_STEPS + RESUME_STEPS, "--resume"),
+            card, {k: per_step for k in ("fused_attn_sublayer", "fused_mlp_sublayer",
+                                         "fused_attn_sublayer_bwd", "fused_mlp_sublayer_bwd")})
+        sampler = ResumableSeedableSampler(len(saved["sampler_state"]["perm"]), seed=0)
+        sampler.set_state(saved["sampler_state"])
+        sampler.next_indices(TRAIN_BATCH * RESUME_STEPS)
+        want, got = sampler.get_state(), resumed.dataloader.get_state()
+        ok = (resumed.start_step == TRAIN_STEPS and resumed.logs[0]["step"] == TRAIN_STEPS + 1
+              and np.array_equal(want["perm"], got["perm"])
+              and (want["perm_index"], want["epoch"]) == (got["perm_index"], got["epoch"]))
+        print(f"phase 5: resumed at step {resumed.start_step}, sampler at epoch {got['epoch']} "
+              f"index {got['perm_index']} after {RESUME_STEPS} more steps, as the saved state "
+              f"implies: {ok}", flush=True)
+        if not ok:
+            fail("--resume did not continue from the saved step and sampler state")
+        profile_train_step(resumed, card)
+    return launches
+
+
+def profile_train_step(trainer, card: str) -> None:
+    """One training step of the trainer's model split into forward, backward
+    and optimizer with CUDA events (medians of 5), and torch.profiler over 3
+    steps: device busy time, idle share and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn, state, model = trainer._train_step, trainer.state, trainer.model
+    model.train()
+    params = list(model.parameters())
+    batch = trainer._to_device(trainer.dataloader.next_batch())
+    trainer.dataloader.close()
+    draws = step_fn.draws(batch, 1)
+
+    def one_step():
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for p in params:
+            p.grad = None
+        events[0].record()
+        loss, _ = step_fn.loss_fn(batch, *draws)
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        state.optimizer.step([p.grad for p in params])
+        state.update_ema()
+        events[3].record()
+        return events
+
+    for _ in range(2):
+        one_step()
+    phases = {"forward": [], "backward": [], "optimizer": [], "step": []}
+    for _ in range(5):
+        ev = one_step()
+        ev[3].synchronize()
+        for i, name in enumerate(("forward", "backward", "optimizer")):
+            phases[name].append(ev[i].elapsed_time(ev[i + 1]))
+        phases["step"].append(ev[0].elapsed_time(ev[3]))
+    ms = {k: statistics.median(v) for k, v in phases.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        for _ in range(3):
+            one_step()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - tic) * 1e6
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    print(f"phase 5: one train step at batch {TRAIN_BATCH} (CUDA events, median of 5): "
+          f"forward {ms['forward']:.6g} ms, backward {ms['backward']:.6g} ms, optimizer + EMA "
+          f"{ms['optimizer']:.6g} ms, step {ms['step']:.6g} ms; card {card}", flush=True)
+    if busy:
+        print(f"phase 5: profiler over 3 steps: device busy {busy / 1e3:.6g} ms of "
+              f"{window_us / 1e3:.6g} ms, idle share {1 - busy / window_us:.6g}; largest "
+              "kernels: " + "; ".join(f"{n[:60]} {v / busy:.4f}" for n, v in top), flush=True)
+    else:
+        print("phase 5: the profiler recorded no device time (idle share not measured)",
+              flush=True)
+
+
+def run_distill_path(card: str) -> None:
+    """Phase 5b: DuoDiff distillation through the training CLI: a depth-3
+    student from a random depth-13 teacher; the teacher runs K1/K2 forward
+    only, the student K1/K2 and K6/K7."""
+    from duodiff_tpu_torch.data.synthetic import write_palette_cifar
+
+    with tempfile.TemporaryDirectory() as work:
+        write_palette_cifar(Path(work) / "data", seed=0)
+        fwd, bwd = (13 + 3) * DISTILL_STEPS, 3 * DISTILL_STEPS
+        trainer, _ = run_train_cli(
+            "phase 5b: distil depth 3 from depth 13",
+            train_argv(work, "distill", DISTILL_STEPS, "--config_path", STUDENT_CONFIG,
+                       "--distill_config", TRAIN_CONFIG),
+            card, {"fused_attn_sublayer": fwd, "fused_mlp_sublayer": fwd,
+                   "fused_attn_sublayer_bwd": bwd, "fused_mlp_sublayer_bwd": bwd})
+        last = trainer.logs[-1]
+        if not {"distill_loss", "task_loss"} <= set(last) or not np.isfinite(last["distill_loss"]):
+            fail("the distillation run reported no finite distillation loss")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device; chip_smoke.py runs only on a GPU", file=sys.stderr)
@@ -547,13 +911,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = setup()
-    results = {**check_kernels(device), **check_int8_kernels(device)}
+    results = {**check_kernels(device), **check_int8_kernels(device),
+               **check_bwd_kernels(device)}
     check_model(device)
     check_int8_model(device)
+    check_training(device)
     launches = run_main_path(card)
     launches.update({name: n for name, n in run_int8_main_path(card).items()
                      if name in INT8_KERNELS})
-    kernels = {**KERNELS, **INT8_KERNELS}
+    launches.update({name: n for name, n in run_train_path(device, card).items()
+                     if name in BWD_KERNELS})
+    run_distill_path(card)
+    kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS}
     record = [
         {"name": name, "route": "cuda", **kernels[name], "launches": launches[name],
          **results[name]}

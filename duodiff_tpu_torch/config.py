@@ -75,24 +75,26 @@ def _scalar(text: str):
         return float(text)
 
 
-def read_model_params(path) -> dict:
-    """The flat ``model_params:`` block of a config file, as a dict."""
+def _config_lines(path) -> list[str]:
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(f"Config file {path} does not exist")
+    lines = (raw.split("#", 1)[0].rstrip() for raw in path.read_text().splitlines())
+    return [line for line in lines if line.strip()]
+
+
+def read_model_params(path) -> dict:
+    """The flat ``model_params:`` block of a config file, as a dict."""
     params: dict = {}
     in_block = False
-    for raw in path.read_text().splitlines():
-        line = raw.split("#", 1)[0].rstrip()
-        if not line.strip():
-            continue
+    for line in _config_lines(path):
         if not line[0].isspace():  # a top-level key opens or closes a block
             in_block = line == "model_params:"
             continue
         if in_block:
             key, sep, value = line.strip().partition(":")
             if not sep or not value.strip():
-                raise ValueError(f"{path}: not a 'key: scalar' line: {raw!r}")
+                raise ValueError(f"{path}: not a 'key: scalar' line: {line!r}")
             params[key.strip()] = _scalar(value.strip())
     if not params:
         raise ValueError(f"{path}: no model_params block")
@@ -102,3 +104,15 @@ def read_model_params(path) -> dict:
 def load_model_config(path) -> UViTConfig:
     """Config file -> :class:`UViTConfig` (the ``model_params`` block)."""
     return UViTConfig.from_dict(read_model_params(path))
+
+
+def merge_args_with_config(args, path):
+    """Overlay a config file's ``model_params`` onto an argparse namespace,
+    the file winning (the JAX package's merge). A config with an
+    ``autoencoder`` block (latent diffusion) is refused: the autoencoder is
+    not ported yet."""
+    top = {line.rstrip(":").strip() for line in _config_lines(path) if not line[0].isspace()}
+    if "autoencoder" in top:
+        raise NotImplementedError(f"{path}: the latent autoencoder is not ported yet")
+    args.__dict__.update(read_model_params(path))
+    return args

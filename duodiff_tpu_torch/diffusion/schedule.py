@@ -50,6 +50,26 @@ class NoiseSchedule:
             return self.betas_tilde
         raise ValueError("Invalid variance mode. Choose 'beta' or 'beta_tilde'.")
 
+    def add_noise(self, x0: torch.Tensor, timesteps: torch.Tensor, noise: torch.Tensor):
+        """Forward process q(x_t | x_0) with the noise passed in; timesteps
+        (B,) int. Returns x_t shaped like x0."""
+        alpha_bar_t = _bcast(self.alphas_bar[timesteps], x0.ndim)
+        return torch.sqrt(alpha_bar_t) * x0 + torch.sqrt(1.0 - alpha_bar_t) * noise
+
+    def predict_previous_target(self, clean, noisy, timesteps):
+        """Posterior-mean regression target of the ``predict_previous``
+        parametrization."""
+        t = timesteps
+        clean_coef = _bcast(
+            torch.sqrt(self.alphas_bar_prev[t]) * self.betas[t] / (1.0 - self.alphas_bar[t]),
+            clean.ndim,
+        )
+        noisy_coef = _bcast(
+            torch.sqrt(self.alphas[t]) * (1.0 - self.alphas_bar_prev[t]) / (1.0 - self.alphas_bar[t]),
+            clean.ndim,
+        )
+        return clean_coef * clean + noisy_coef * noisy
+
     def sigma(self, t: int, variance_mode: str = "beta_tilde") -> torch.Tensor:
         """Reverse-step noise scale sqrt(sigma^2_t)."""
         return torch.sqrt(self.sigma_squared(variance_mode)[t])
@@ -89,3 +109,8 @@ class NoiseSchedule:
         if parametrization == "predict_previous":
             return self.step_predict_previous(model_output, x, t, z, variance_mode)
         raise ValueError(f"Invalid parametrization {parametrization}")
+
+
+def _bcast(coeffs: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(B,) coefficients -> (B, 1, ..., 1) for broadcasting."""
+    return coeffs.reshape(coeffs.shape[0], *((1,) * (ndim - 1)))

@@ -17,9 +17,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from duodiff_tpu_torch.ops.block import (
+    FusedAttnSublayerFn,
+    FusedMlpSublayerFn,
+    attn_operands,
     attn_sublayer_plain,
     fused_attn_sublayer,
     fused_mlp_sublayer,
+    mlp_operands,
     mlp_sublayer_plain,
     pack_attn,
     pack_mlp,
@@ -132,6 +136,11 @@ class Block(nn.Module):
     pack time). All read the operands :meth:`pack` prepared, once per
     model. ``int8_mlp_scales=(sx, sh)``, the block's calibrated post-LN and
     post-GELU amax, switches its int8 MLP to static activation scales.
+
+    In training mode with grad enabled the block reads its live parameters
+    instead: ``"fused"`` runs the autograd Functions that pair K1 and K2
+    with their backward kernels K6 and K7 (bf16 only), ``"plain"`` runs
+    autograd through the plain versions; the int8 impls have no backward.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -181,11 +190,36 @@ class Block(nn.Module):
             )
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
-        if self._packed is None:
+        training = self.training and torch.is_grad_enabled()
+        if self._packed is None and not training:
             raise RuntimeError("Block operands are not packed: call UViT.pack_for_kernels()")
         if self.skip_linear is not None:
             x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
+        if training:
+            return self._train_forward(x)
         attn_ops, mlp_ops = self._packed
         attn, mlp = _SUBLAYERS[self.attn_impl]
         x = attn(x, *attn_ops, num_heads=self.num_heads)
         return mlp(x, *mlp_ops, gelu_approx=self.gelu_approx)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The two sublayers on the live parameters, differentiable."""
+        norm1, qkv, proj = self.norm1, self.attn["qkv"], self.attn["proj"]
+        norm2, fc1, fc2 = self.norm2, self.mlp["fc1"], self.mlp["fc2"]
+        attn_params = (norm1.weight, norm1.bias, qkv.weight, qkv.bias, proj.weight, proj.bias)
+        mlp_params = (norm2.weight, norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        if self.attn_impl == "fused":
+            if x.dtype != torch.bfloat16:
+                raise ValueError(
+                    f"attn_impl 'fused' trains in bf16 only (the backward kernels take "
+                    f"bf16), got {x.dtype}: pass --use_amp, or train with attn_impl 'plain'"
+                )
+            x = FusedAttnSublayerFn.apply(x.contiguous(), *attn_params, self.num_heads, 1e-5)
+            return FusedMlpSublayerFn.apply(x, *mlp_params, self.gelu_approx, 1e-5)
+        if self.attn_impl == "plain":
+            x = attn_sublayer_plain(x, *attn_operands(*attn_params, num_heads=self.num_heads,
+                                                      dtype=x.dtype), num_heads=self.num_heads)
+            return mlp_sublayer_plain(x, *mlp_operands(*mlp_params, dtype=x.dtype),
+                                      gelu_approx=self.gelu_approx)
+        raise ValueError(f"attn_impl {self.attn_impl!r} has no backward: train with "
+                         "'fused' or 'plain'")

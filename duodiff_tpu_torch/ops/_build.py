@@ -35,7 +35,12 @@ _SIGNATURES = {
     "duodiff_mlp_sublayer": ([_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_attn_sublayer_int8": ([_PTR] * 14 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_int8": ([_PTR] * 16 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_mlp_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_bwd_workspace": ([_INT] * 4, ctypes.c_size_t),
+    "duodiff_mlp_sublayer_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_attn_core_smem_bytes": ([_INT], _INT),
+    "duodiff_attn_bwd_core_smem_bytes": ([_INT], _INT),
     "duodiff_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -91,10 +91,16 @@ def test_pth_checkpoint_loads_through_model_loading(tmp_path):
 
 
 def test_unpacked_model_refuses_to_run():
+    """Outside training (eval mode, or no grad) the blocks read packed
+    operands; in training mode with grad they read the live parameters."""
     model = init_uvit(UViTConfig(**CONFIGS["depth5"]), device="cpu",
                       generator=torch.Generator().manual_seed(0))
+    x, t = torch.zeros(1, 16, 16, 3), torch.zeros(1)
     with pytest.raises(RuntimeError, match="pack_for_kernels"):
-        model(torch.zeros(1, 16, 16, 3), torch.zeros(1))
+        model.eval()(x, t)
+    with pytest.raises(RuntimeError, match="pack_for_kernels"), torch.no_grad():
+        model.train()(x, t)
+    assert model.train()(x, t).requires_grad
 
 
 def test_random_init_is_seeded():
@@ -122,8 +128,8 @@ def test_config_reader_rejects_nested_values(tmp_path):
 
 
 def test_port_imports_no_jax_yaml_or_pil():
-    """Every module of the port, the block-caching and int8 ones included,
-    imports without JAX, flax, PyYAML, Pillow or the JAX package."""
+    """Every module of the port, the block-caching, int8 and training ones
+    included, imports without JAX, flax, PyYAML, Pillow or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import duodiff_tpu_torch as pkg\n"
@@ -139,5 +145,8 @@ def test_port_imports_no_jax_yaml_or_pil():
     bad, imported = out.stdout.strip().splitlines()
     assert bad == "[]", out.stdout + out.stderr
     for name in ("ops.block_int8", "diffusion.cache_schedule", "utils.int8_scales",
-                 "diffusion.sampling", "sample"):
+                 "diffusion.sampling", "sample", "train", "training.trainer",
+                 "training.train_state", "training.losses", "training.lr",
+                 "training.checkpointer", "data.sampler", "data.loader", "data.datasets",
+                 "data.synthetic", "utils.train_utils"):
         assert f"duodiff_tpu_torch.{name}" in imported.split(), name
