@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path at the full CelebA-64 U-ViT width and checks
-it, in phases, each printing its results on its own lines:
+Drives the port's main paths at the full width of the CelebA-64 U-ViT
+(D = 512) and of the class-conditional ImageNet-64 U-ViT (D = 768) and
+checks them, in phases, each printing its results on its own lines:
 
 1. set-up: the card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the build of the CUDA kernels from ``duodiff_tpu_torch/csrc``;
@@ -37,15 +38,32 @@ it, in phases, each printing its results on its own lines:
    ``load_model`` and give the trainer's forward; then a profile of one
    step;
 5b. DuoDiff distillation through the same CLI: a depth-3 student
-   (``configs/uvit_cifar10_3.yaml``) from a depth-13 teacher.
+   (``configs/uvit_cifar10_3.yaml``) from a depth-13 teacher;
+6. class-conditional sampling: the sampling CLI on ``configs/uvit_imagenet64_3.yaml`` ->
+   ``configs/uvit_imagenet64.yaml`` (D = 768, 12 heads, depth 17, L = 258),
+   ``--attn_impl pallas`` (the unfused block around the attention kernel
+   K9) with classifier-free guidance on random classes at batch 64, so
+   every forward runs at batch 128; then one guided step timed and profiled;
+7. class-conditional training through the training CLI on
+   ``configs/uvit_imagenet64.yaml`` at batch 128 in bf16 on a synthetic
+   ImageNet-64 cache with label dropout: 100 steps with ``--attn_impl
+   pallas`` (K9 forward, K10 backward; the loss must fall), a step's split,
+   profile and peak memory, then 20 steps with ``--attn_impl fused`` (K1,
+   K2, K6, K7 at D = 768).
 
 Phase 2 also holds the backward kernels K6 (with and without a qkv bias)
-and K7 (exact and tanh GELU) against their plain versions, and phase 3 the
-gradients of the whole depth-13 model and a few optimizer steps, fused
-against plain.
+and K7 (exact and tanh GELU) against their plain versions, the attention
+kernels K9 and K10 at three (B, H, L) with
+``F.scaled_dot_product_attention`` timed beside them as a yardstick, and
+K1, K2, K6, K7, K11 and K12 at the ImageNet-64 width. Phase 3 also holds
+the gradients of the whole depth-13 model and a few optimizer steps, fused
+against plain, and the depth-17 ImageNet-64 forward, gradients and a guided
+DuoDiff trajectory, attention kernels against their plain versions.
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero. There is
+The line before the last is the per-kernel JSON record (its ``bound_ms``
+is the least time the card could take at the published H100 SXM peaks, its
+``library_ms`` one PyTorch call of the same function where there is one);
+the last line is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. There is
 no CPU fallback: without a CUDA device the script exits with code 1.
 """
 
@@ -58,6 +76,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,11 +85,27 @@ CHECK_BATCH = 8      # kernel and forward checks
 MAIN_BATCH = 128     # the 1000-step main path (bench.py's batch)
 STEPS = 1000
 T_SWITCH = 300
-N_OUTER = 2          # the default for depth 13: ceil((13 // 2) / 3)
 REPO = Path(__file__).resolve().parent
 EARLY_CONFIG = str(REPO / "configs/uvit_celeba_3.yaml")
 LATE_CONFIG = str(REPO / "configs/uvit_celeba.yaml")
-L, D, HEADS, HIDDEN = 257, 512, 8, 2048
+
+
+class Width(NamedTuple):
+    """Tokens, embedding width and heads of one model family (hidden 4 D)."""
+
+    l: int
+    d: int
+    heads: int
+
+
+CELEBA = Width(257, 512, 8)      # configs/uvit_celeba.yaml, uvit_cifar10.yaml
+IMAGENET = Width(258, 768, 12)   # configs/uvit_imagenet64.yaml (time + label tokens)
+N_OUTER = 2          # the default for depth 13: ceil((13 // 2) / 3)
+# published dense peaks of one H100 SXM at its full 700 W limit (NVIDIA's
+# data sheet): the rates every bound_ms below is computed against
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise: the bound the JAX
 # tests allow between the package's own bf16 paths (tests/test_ops.py)
 ATOL = RTOL = 5e-2
@@ -80,6 +115,23 @@ ATOL = RTOL = 5e-2
 # such flips compound to a few percent, the size of int8's own error against
 # bf16 (PERF.md). The blocks one by one meet the elementwise bound.
 INT8_REL_FRO = 5e-2
+# The attention kernel K9 and the models that run through it are held to
+# their plain versions as a whole and entry by entry, both scaled to the
+# output: the attention output is a mean of 258 values, far below 0.05, so
+# the bound above would pass a kernel that is wrong by its whole size.
+# One kernel call: ||got - plain|| / ||plain|| <= FWD_REL_FRO (an unmasked
+# padded key column moves every row by ~3 %; measured 9e-5) and |got - plain|
+# <= KERNEL_MAX_FRAC * max|plain| for every entry, one flipped bf16 rounding
+# (at most 2**-7 of the value) of the largest value.
+# A depth-17 forward: the two sides' bf16 residual streams round apart from
+# the first flipped entry on, about 2**-9 of the stream per sublayer over
+# 34 sublayers (measured 0.9e-2 and 1.0e-2), so it is held at twice that
+# floor, MODEL_REL_FRO, and entry by entry at MODEL_MAX_FRAC of the largest
+# value (measured 1.1e-2 of it). The fp32 trajectory meets FWD_REL_FRO.
+FWD_REL_FRO = 1e-2
+MODEL_REL_FRO = 2e-2
+KERNEL_MAX_FRAC = 2.0**-7
+MODEL_MAX_FRAC = 2.0**-5
 TIMING_REPS = 25
 
 KERNELS = {
@@ -100,6 +152,16 @@ INT8_KERNELS = {
     "fused_mlp_sublayer_int8": {
         "source": "duodiff_tpu_torch/csrc/mlp_sublayer_int8.cu",
         "replaces": "duodiff_tpu/ops/pallas_block_int8.py:155",
+    },
+}
+ATTENTION_KERNELS = {
+    "flash_attention": {
+        "source": "duodiff_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "duodiff_tpu/ops/pallas_attention.py:30",
+    },
+    "flash_attention_bwd": {
+        "source": "duodiff_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "duodiff_tpu/ops/pallas_attention.py:72",
     },
 }
 BWD_KERNELS = {
@@ -143,6 +205,13 @@ TRAIN_STEPS = 200
 RESUME_STEPS = 20
 DISTILL_STEPS = 20
 WARMUP_STEPS = 20
+IMAGENET_EARLY_CONFIG = str(REPO / "configs/uvit_imagenet64_3.yaml")
+IMAGENET_CONFIG = str(REPO / "configs/uvit_imagenet64.yaml")
+GUIDED_BATCH = 64          # every guided forward runs at twice this, MAIN_BATCH
+GUIDANCE_SCALE = 1.5
+IMAGENET_TRAIN_STEPS = 100
+IMAGENET_FUSED_STEPS = 20
+LABEL_DROPOUT = 0.1
 INT8_SCALES = str(REPO / "assets/int8_scales_celeba_flagship.json")
 CACHE_SCHEDULE = str(REPO / "assets/cache_schedule_celeba_duodiff.json")
 
@@ -162,6 +231,16 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, bool]:
     max_rel = (diff / want.abs().clamp_min(1e-6)).max().item()
     ok = bool((diff <= ATOL + RTOL * want.abs()).all())
     return max_abs, max_rel, ok
+
+
+def scaled_errors(got: torch.Tensor, want: torch.Tensor, frac: float,
+                  rel_bound: float = FWD_REL_FRO):
+    """(max abs error, its bound frac * max|want|, relative Frobenius error,
+    within both that bound and ``rel_bound``)."""
+    max_abs = errors(got, want)[0]
+    limit = frac * want.float().abs().max().item()
+    rel = rel_fro(got, want)
+    return max_abs, limit, rel, max_abs <= limit and rel <= rel_bound
 
 
 def rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -213,9 +292,9 @@ def setup() -> str:
     return card
 
 
-def block_modules(batch: int, qkv_bias: bool, seed: int = 0):
+def block_modules(batch: int, qkv_bias: bool, seed: int = 0, width: Width = CELEBA):
     """Random bf16 input (CPU) and the torch modules of one block at
-    flagship width: (x, norm, qkv, proj, fc1, fc2)."""
+    ``width``: (x, norm, qkv, proj, fc1, fc2)."""
     from torch import nn
 
     g = torch.Generator().manual_seed(seed)
@@ -223,16 +302,17 @@ def block_modules(batch: int, qkv_bias: bool, seed: int = 0):
     def rand(*shape, scale=1.0):
         return torch.randn(*shape, generator=g) * scale
 
-    norm = nn.LayerNorm(D)
-    qkv, proj = nn.Linear(D, 3 * D, bias=qkv_bias), nn.Linear(D, D)
-    fc1, fc2 = nn.Linear(D, HIDDEN), nn.Linear(HIDDEN, D)
+    d = width.d
+    norm = nn.LayerNorm(d)
+    qkv, proj = nn.Linear(d, 3 * d, bias=qkv_bias), nn.Linear(d, d)
+    fc1, fc2 = nn.Linear(d, 4 * d), nn.Linear(4 * d, d)
     with torch.no_grad():
         for mod in (norm, qkv, proj, fc1, fc2):
             mod.weight.copy_(rand(*mod.weight.shape, scale=0.05))
             if mod.bias is not None:
                 mod.bias.copy_(rand(*mod.bias.shape, scale=0.05))
         norm.weight.add_(1.0)
-    x = rand(batch, L, D).to(torch.bfloat16)
+    x = rand(batch, width.l, d).to(torch.bfloat16)
     return x, norm, qkv, proj, fc1, fc2
 
 
@@ -240,31 +320,43 @@ def to_device(ops, device):
     return tuple(None if t is None else t.to(device) for t in ops)
 
 
-def sublayer_operands(batch: int, qkv_bias: bool, device, seed: int = 0):
-    """Random bf16 input and packed operands of one block at flagship width."""
+def sublayer_operands(batch: int, qkv_bias: bool, device, width: Width = CELEBA):
+    """Random bf16 input and packed operands of one block at ``width``."""
     from duodiff_tpu_torch.ops.block import pack_attn, pack_mlp
 
-    x, norm, qkv, proj, fc1, fc2 = block_modules(batch, qkv_bias, seed)
-    attn_ops = pack_attn(norm, qkv, proj, num_heads=HEADS, dtype=torch.bfloat16)
+    x, norm, qkv, proj, fc1, fc2 = block_modules(batch, qkv_bias, width=width)
+    attn_ops = pack_attn(norm, qkv, proj, num_heads=width.heads, dtype=torch.bfloat16)
     mlp_ops = pack_mlp(norm, fc1, fc2, dtype=torch.bfloat16)
     return x.to(device), to_device(attn_ops, device), to_device(mlp_ops, device)
 
 
-def check_kernels(device) -> dict:
-    """Phase 2: each kernel against its plain version; returns per-kernel
-    {max_abs_err, ms, plain_ms} (errors over every variant and batch,
-    times at the main path's batch)."""
+def new_results(names) -> dict:
+    return {name: {"max_abs_err": 0.0} for name in names}
+
+
+def keep_times(res: dict, ms: dict, suffix) -> None:
+    """Record a comparison's times under ``ms`` / ``plain_ms`` + suffix
+    (None: this variant's times are printed only)."""
+    if suffix is not None:
+        res["ms" + suffix], res["plain_ms" + suffix] = ms["kernel"], ms["plain"]
+
+
+def check_kernels(device, results: dict, width: Width = CELEBA, variants=(False, True),
+                  suffix: str = "") -> None:
+    """Phase 2: K1 (with and without a qkv bias) and K2 (exact and tanh
+    GELU) against their plain versions at batch 8 and 128; errors fold over
+    every variant and batch, times are kept at batch 128, first variant."""
     from duodiff_tpu_torch.ops import block
 
-    results = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    heads = width.heads
     for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
-        for variant in (False, True):
-            x, attn_ops, mlp_ops = sublayer_operands(batch, qkv_bias=variant, device=device)
+        for variant in variants:
+            x, attn_ops, mlp_ops = sublayer_operands(batch, variant, device, width)
             cases = {
                 "fused_attn_sublayer": (
                     f"qkv_bias={variant}",
-                    lambda: block.fused_attn_sublayer(x, *attn_ops, num_heads=HEADS),
-                    lambda: block.attn_sublayer_plain(x, *attn_ops, num_heads=HEADS),
+                    lambda: block.fused_attn_sublayer(x, *attn_ops, num_heads=heads),
+                    lambda: block.attn_sublayer_plain(x, *attn_ops, num_heads=heads),
                 ),
                 "fused_mlp_sublayer": (
                     f"gelu={'tanh' if variant else 'erf'}",
@@ -273,81 +365,90 @@ def check_kernels(device) -> dict:
                 ),
             }
             for name, (label, kernel, plain) in cases.items():
-                compare_kernel(results[name], f"{name} B={batch} {label}", kernel, plain,
-                               keep_time=batch == MAIN_BATCH and not variant)
-    return results
+                compare_kernel(results[name], f"{name} D={width.d} L={width.l} B={batch} {label}",
+                               kernel, plain,
+                               suffix if batch == MAIN_BATCH and not variant else None)
 
 
-def compare_kernel(res: dict, label: str, kernel, plain, keep_time: bool) -> None:
+def compare_kernel(res: dict, label: str, kernel, plain, suffix,
+                   scaled: bool = False) -> None:
     """One kernel call against its plain version on the same inputs, both
-    timed; folds the error into ``res`` and, for the main path's variant,
-    the times."""
+    timed; folds the error into ``res`` and keeps the times (keep_times).
+    ``scaled`` holds it to the bounds scaled to the output (scaled_errors)
+    instead of the elementwise ATOL + RTOL * |plain|."""
     got = kernel()
     torch.cuda.synchronize()
-    max_abs, max_rel, ok = errors(got, plain())
+    if scaled:
+        max_abs, limit, rel, ok = scaled_errors(got, plain(), KERNEL_MAX_FRAC)
+        held = (f"max_abs_err={max_abs:.6g} (bound {limit:.6g} = {KERNEL_MAX_FRAC}*max|plain|) "
+                f"rel_fro_err={rel:.6g} (bound {FWD_REL_FRO})")
+    else:
+        max_abs, max_rel, ok = errors(got, plain())
+        held = (f"max_abs_err={max_abs:.6g} max_rel_err={max_rel:.6g} "
+                f"bound={ATOL}+{RTOL}*|plain|")
     ms = time_ms({"kernel": kernel, "plain": plain})
-    print(f"phase 2: {label}: max_abs_err={max_abs:.6g} max_rel_err={max_rel:.6g} "
-          f"bound={ATOL}+{RTOL}*|plain| ok={ok} kernel_ms={ms['kernel']:.6g} "
+    print(f"phase 2: {label}: {held} ok={ok} kernel_ms={ms['kernel']:.6g} "
           f"plain_ms={ms['plain']:.6g}", flush=True)
     if not ok:
         fail(f"{label} disagrees with its plain version")
     res["max_abs_err"] = max(res["max_abs_err"], max_abs)
-    if keep_time:
-        res["ms"], res["plain_ms"] = ms["kernel"], ms["plain"]
+    keep_times(res, ms, suffix)
 
 
-def check_int8_kernels(device) -> dict:
+def check_int8_kernels(device, results: dict, width: Width = CELEBA,
+                       batches=(CHECK_BATCH, MAIN_BATCH), suffix: str = "") -> None:
     """Phase 2, int8: K11 with and without a qkv bias, K12 with dynamic and
     static scales (the asset's mid-block pair), each with erf and tanh
-    GELU, against their plain versions. The recorded times are those of
-    the main path's variants at batch 128: K11 without bias, K12 static
+    GELU, against their plain versions. The times kept are those of the
+    main path's variants at the largest batch: K11 without bias, K12 static
     with tanh GELU (the late model's 3529 of 4429 launches)."""
     from duodiff_tpu_torch.ops import block_int8 as q
     from duodiff_tpu_torch.utils.int8_scales import load_int8_scales
 
     static = load_int8_scales(INT8_SCALES)["mid_block"]
-    results = {name: {"max_abs_err": 0.0} for name in INT8_KERNELS}
-    for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
+    heads = width.heads
+    for batch in sorted(set(batches)):
+        timed = batch == max(batches)
         for qkv_bias in (False, True):
-            x, norm, qkv, proj, _, _ = block_modules(batch, qkv_bias)
+            x, norm, qkv, proj, _, _ = block_modules(batch, qkv_bias, width=width)
             x = x.to(device)
-            ops = to_device(q.pack_attn_int8(norm, qkv, proj, num_heads=HEADS), device)
+            ops = to_device(q.pack_attn_int8(norm, qkv, proj, num_heads=heads), device)
             compare_kernel(
                 results["fused_attn_sublayer_int8"],
-                f"fused_attn_sublayer_int8 B={batch} qkv_bias={qkv_bias}",
-                lambda: q.fused_attn_sublayer_int8(x, *ops, num_heads=HEADS),
-                lambda: q.attn_sublayer_int8_plain(x, *ops, num_heads=HEADS),
-                keep_time=batch == MAIN_BATCH and not qkv_bias,
+                f"fused_attn_sublayer_int8 D={width.d} L={width.l} B={batch} qkv_bias={qkv_bias}",
+                lambda: q.fused_attn_sublayer_int8(x, *ops, num_heads=heads),
+                lambda: q.attn_sublayer_int8_plain(x, *ops, num_heads=heads),
+                suffix if timed and not qkv_bias else None,
             )
-        x, norm, _, _, fc1, fc2 = block_modules(batch, False)
+        x, norm, _, _, fc1, fc2 = block_modules(batch, False, width=width)
         x = x.to(device)
         for scales in (None, static):
             ops = to_device(q.pack_mlp_int8(norm, fc1, fc2, static_scales=scales), device)
             for tanh in (False, True):
                 compare_kernel(
                     results["fused_mlp_sublayer_int8"],
-                    f"fused_mlp_sublayer_int8 B={batch} "
+                    f"fused_mlp_sublayer_int8 D={width.d} L={width.l} B={batch} "
                     f"scales={'static' if scales else 'dynamic'} gelu={'tanh' if tanh else 'erf'}",
                     lambda: q.fused_mlp_sublayer_int8(x, *ops, gelu_approx=tanh),
                     lambda: q.mlp_sublayer_int8_plain(x, *ops, gelu_approx=tanh),
-                    keep_time=batch == MAIN_BATCH and scales is not None and tanh,
+                    suffix if timed and scales is not None and tanh else None,
                 )
-    return results
 
 
-def check_bwd_kernels(device) -> dict:
+def check_bwd_kernels(device, results: dict, width: Width = CELEBA, variants=(False, True),
+                      suffix: str = "") -> None:
     """Phase 2, backward: K6 with and without a qkv bias and K7 with exact
     and tanh GELU against their plain versions at batch 8 and 128, each
-    called twice for the same bits. The recorded times are those of the
+    called twice for the same bits. The times kept are those of the
     training path's variants at batch 128 (no qkv bias, exact GELU, as
-    configs/uvit_cifar10.yaml)."""
+    configs/uvit_cifar10.yaml and configs/uvit_imagenet64.yaml)."""
     from duodiff_tpu_torch.ops import block
 
     bf = torch.bfloat16
-    results = {name: {"max_abs_err": 0.0, "max_rel_fro_err": 0.0} for name in BWD_KERNELS}
+    heads = width.heads
     for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
-        for variant in (False, True):
-            x, norm, qkv, proj, fc1, fc2 = block_modules(batch, qkv_bias=variant)
+        for variant in variants:
+            x, norm, qkv, proj, fc1, fc2 = block_modules(batch, variant, width=width)
             dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(bf)
             x, dy = x.to(device), dy.to(device)
             ln = to_device((norm.weight.detach(), norm.bias.detach()), device)
@@ -359,8 +460,8 @@ def check_bwd_kernels(device) -> dict:
             cases = {
                 "fused_attn_sublayer_bwd": (
                     f"qkv_bias={variant}", ("dx", "dg", "db", "dwqkv", "dbqkv", "dwp", "dbp"),
-                    lambda: block.fused_attn_sublayer_bwd(x, dy, *ln, *attn, num_heads=HEADS),
-                    lambda: block.attn_sublayer_bwd_plain(x, dy, *ln, *attn, num_heads=HEADS),
+                    lambda: block.fused_attn_sublayer_bwd(x, dy, *ln, *attn, num_heads=heads),
+                    lambda: block.attn_sublayer_bwd_plain(x, dy, *ln, *attn, num_heads=heads),
                 ),
                 "fused_mlp_sublayer_bwd": (
                     f"gelu={'tanh' if variant else 'erf'}",
@@ -370,14 +471,17 @@ def check_bwd_kernels(device) -> dict:
                 ),
             }
             for name, (label, outs, kernel, plain) in cases.items():
-                compare_bwd_kernel(results[name], f"{name} B={batch} {label}", outs, kernel,
-                                   plain, keep_time=batch == MAIN_BATCH and not variant)
-    return results
+                compare_bwd_kernel(results[name],
+                                   f"{name} D={width.d} L={width.l} B={batch} {label}", outs,
+                                   kernel, plain,
+                                   suffix if batch == MAIN_BATCH and not variant else None)
 
 
-def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, keep_time: bool) -> None:
+def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, suffix,
+                       elementwise_first: bool = True) -> dict:
     """A backward kernel against its plain version: every output within
-    BWD_REL_FRO, dx also elementwise, and a repeat call equal to the bit."""
+    BWD_REL_FRO, the first (dx) also elementwise unless told otherwise, and
+    a repeat call equal to the bit. Returns the times."""
     got = kernel()
     again = kernel()
     want = plain()
@@ -388,22 +492,106 @@ def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, keep_time: bo
     dx_abs, _, dx_ok = errors(got[0], want[0])
     ms = time_ms({"kernel": kernel, "plain": plain})
     worst = max(rels, key=rels.get)
-    ok = same and dx_ok and rels[worst] <= BWD_REL_FRO
+    ok = same and (dx_ok or not elementwise_first) and rels[worst] <= BWD_REL_FRO
     print(f"phase 2: {label}: rel_fro_err {', '.join(f'{n}={v:.3g}' for n, v in rels.items())} "
-          f"(bound {BWD_REL_FRO}) dx max_abs_err={dx_abs:.6g} bound={ATOL}+{RTOL}*|plain| "
+          f"(bound {BWD_REL_FRO}) {outs[0]} max_abs_err={dx_abs:.6g} "
+          f"bound={ATOL}+{RTOL}*|plain| "
           f"max_abs_err={abs_err:.6g} repeat_equal={same} ok={ok} kernel_ms={ms['kernel']:.6g} "
           f"plain_ms={ms['plain']:.6g}", flush=True)
     if not ok:
         fail(f"{label} disagrees with its plain version or is not deterministic")
     res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-    res["max_rel_fro_err"] = max(res["max_rel_fro_err"], rels[worst])
-    if keep_time:
-        res["ms"], res["plain_ms"] = ms["kernel"], ms["plain"]
+    res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), rels[worst])
+    keep_times(res, ms, suffix)
+    return ms
 
 
-def set_attn_impl(model, impl: str) -> None:
+# (B, H, L) of the attention kernels' checks: the ImageNet-64 model at the
+# check batch and at the main path's doubled guided batch, and the CelebA one
+ATTENTION_SHAPES = ((CHECK_BATCH, IMAGENET.heads, IMAGENET.l),
+                    (MAIN_BATCH, IMAGENET.heads, IMAGENET.l),
+                    (MAIN_BATCH, CELEBA.heads, CELEBA.l))
+
+
+def check_attention_kernels(device, results: dict) -> None:
+    """Phase 2, standalone attention: K9 against flash_attention_plain
+    (relative Frobenius and elementwise, both scaled to the output) and K10 against flash_attention_bwd_plain (dq, dk, dv each
+    within BWD_REL_FRO, equal bits on a repeat call) at ATTENTION_SHAPES,
+    timed, with F.scaled_dot_product_attention's forward and its autograd
+    backward timed beside them as the library yardstick (the port never
+    calls it). The times kept are those at (128, 12, 258)."""
+    import torch.nn.functional as F
+
+    from duodiff_tpu_torch.ops import flash_attention as fa
+
+    for b, h, l in ATTENTION_SHAPES:
+        g = torch.Generator().manual_seed(l)
+        q, k, v, do = (torch.randn((b, h, l, 64), generator=g).to(torch.bfloat16).to(device)
+                       for _ in range(4))
+        main = (b, h, l) == ATTENTION_SHAPES[1]
+        label = f"B={b} H={h} L={l}"
+        compare_kernel(results["flash_attention"], f"flash_attention {label}",
+                       lambda: fa.flash_attention(q, k, v),
+                       lambda: fa.flash_attention_plain(q, k, v), "" if main else None,
+                       scaled=True)
+        compare_bwd_kernel(results["flash_attention_bwd"], f"flash_attention_bwd {label}",
+                           ("dq", "dk", "dv"),
+                           lambda: fa.flash_attention_bwd(q, k, v, do),
+                           lambda: fa.flash_attention_bwd_plain(q, k, v, do),
+                           "" if main else None, elementwise_first=False)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves)
+            return torch.autograd.grad(out, leaves, do)
+
+        lib = time_ms({"fwd": lambda: F.scaled_dot_product_attention(q, k, v),
+                       "fwd_bwd": sdpa_fwd_bwd})
+        lib_bwd = lib["fwd_bwd"] - lib["fwd"]
+        sdpa_err = errors(F.scaled_dot_product_attention(q, k, v), fa.flash_attention(q, k, v))[0]
+        print(f"phase 2: library yardstick {label}: F.scaled_dot_product_attention forward "
+              f"{lib['fwd']:.6g} ms, backward (forward + backward less forward) {lib_bwd:.6g} ms; "
+              f"max |SDPA - K9| {sdpa_err:.6g}", flush=True)
+        if main:
+            results["flash_attention"]["library_ms"] = lib["fwd"]
+            results["flash_attention_bwd"]["library_ms"] = lib_bwd
+
+
+def bound(flops: float, int8_ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the bytes over its
+    memory rate and the operations over its peak rates for their types."""
+    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+    t_bytes = nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def kernel_bounds(width: Width = CELEBA, batch: int = MAIN_BATCH,
+                  attention_shape=ATTENTION_SHAPES[1]) -> dict:
+    """bound_ms / bound_by of each kernel at the shapes its main path gives
+    it: every input read once and every output written once (activations
+    bf16, weights bf16 or int8, weight gradients fp32) against the
+    operations of its matrix products."""
+    l, d, _ = width
+    rows, act = batch * l, batch * l * d * 2  # one (B, L, D) bf16 tensor
+    bh, la = attention_shape[0] * attention_shape[1], attention_shape[2]
+    head = bh * la * 64 * 2  # one (B, H, L, 64) bf16 tensor
+    return {
+        "fused_attn_sublayer": bound(rows * (8 * d * d + 4 * l * d), 0, 2 * act + 8 * d * d),
+        "fused_mlp_sublayer": bound(rows * 16 * d * d, 0, 2 * act + 16 * d * d),
+        "fused_attn_sublayer_int8": bound(rows * 4 * l * d, rows * 8 * d * d, 2 * act + 4 * d * d),
+        "fused_mlp_sublayer_int8": bound(0, rows * 16 * d * d, 2 * act + 8 * d * d),
+        "fused_attn_sublayer_bwd": bound(rows * (22 * d * d + 12 * l * d), 0,
+                                         3 * act + 8 * d * d + 16 * d * d),
+        "fused_mlp_sublayer_bwd": bound(rows * 40 * d * d, 0, 3 * act + 16 * d * d + 32 * d * d),
+        "flash_attention": bound(4 * bh * la * la * 64, 0, 4 * head),
+        "flash_attention_bwd": bound(10 * bh * la * la * 64, 0, 7 * head),
+    }
+
+
+def set_attn_impl(model, impl: str, mlp_impl: str = "auto") -> None:
     for blk in model.blocks():
-        blk.attn_impl = impl
+        blk.attn_impl, blk.mlp_impl = impl, mlp_impl
 
 
 def check_model(device) -> None:
@@ -618,8 +806,10 @@ def check_training(device) -> None:
 
 
 def reset_counts() -> None:
-    from duodiff_tpu_torch.ops import block, block_int8
+    from duodiff_tpu_torch.ops import block, block_int8, flash_attention
 
+    flash_attention.flash_attention.launches = 0
+    flash_attention.flash_attention_bwd.launches = 0
     block.fused_attn_sublayer.launches = 0
     block.fused_mlp_sublayer.launches = 0
     block.fused_attn_sublayer_bwd.launches = 0
@@ -628,10 +818,12 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    from duodiff_tpu_torch.ops import block, block_int8
+    from duodiff_tpu_torch.ops import block, block_int8, flash_attention
 
     k12 = block_int8.fused_mlp_sublayer_int8
     return {
+        "flash_attention": flash_attention.flash_attention.launches,
+        "flash_attention_bwd": flash_attention.flash_attention_bwd.launches,
         "fused_attn_sublayer": block.fused_attn_sublayer.launches,
         "fused_mlp_sublayer": block.fused_mlp_sublayer.launches,
         "fused_attn_sublayer_bwd": block.fused_attn_sublayer_bwd.launches,
@@ -643,7 +835,8 @@ def read_counts() -> dict:
     }
 
 
-def run_cli(label: str, extra: list, card: str, expected: dict) -> dict:
+def run_cli(label: str, extra: list, card: str, expected: dict,
+            configs=(EARLY_CONFIG, LATE_CONFIG), batch: int = MAIN_BATCH) -> dict:
     """One 1000-step DuoDiff run of the sampling CLI, in-process, with every
     launch counter set to 0 just before and read just after; checks the
     samples and that the counts equal ``expected`` (unlisted kernels: 0)."""
@@ -651,9 +844,9 @@ def run_cli(label: str, extra: list, card: str, expected: dict) -> dict:
 
     with tempfile.TemporaryDirectory() as out:
         argv = [
-            "--config_path", EARLY_CONFIG, "--config_path_late", LATE_CONFIG,
+            "--config_path", configs[0], "--config_path_late", configs[1],
             "--t_switch", str(T_SWITCH), "--random_init",
-            "--num_timesteps", str(STEPS), "--batch_size", str(MAIN_BATCH),
+            "--num_timesteps", str(STEPS), "--batch_size", str(batch),
             "--parametrization", "predict_noise", "--device", "cuda",
             "--output_folder", out, "--seed", "0", *extra,
         ]
@@ -664,10 +857,10 @@ def run_cli(label: str, extra: list, card: str, expected: dict) -> dict:
         launches = read_counts()
         saved = np.load(f"{out}/samples.npy")
     samples = result["samples"]
-    print(f"{label} batch {MAIN_BATCH}: sampling {result['seconds']:.6g} s, "
-          f"{MAIN_BATCH / result['seconds']:.6g} samples/s, CLI wall {wall:.6g} s, "
+    print(f"{label} batch {batch}: sampling {result['seconds']:.6g} s, "
+          f"{batch / result['seconds']:.6g} samples/s, CLI wall {wall:.6g} s, "
           f"launches {launches} (expected {expected}), card {card}", flush=True)
-    shape = (MAIN_BATCH, 64, 64, 3)
+    shape = (batch, 64, 64, 3)
     if samples.shape != shape or saved.shape != shape or saved.dtype != np.uint8:
         fail(f"samples have shape {samples.shape} / {saved.shape} {saved.dtype}, "
              f"expected {shape} uint8")
@@ -725,8 +918,9 @@ def run_int8_main_path(card: str) -> dict:
     )
 
 
-def train_argv(work: str, exp: str, n_steps: int, *extra) -> list:
-    return ["--config_path", TRAIN_CONFIG, "--dataset", "cifar10", "--data_path", f"{work}/data",
+def train_argv(work: str, exp: str, n_steps: int, *extra, config: str = TRAIN_CONFIG,
+               dataset: str = "cifar10") -> list:
+    return ["--config_path", config, "--dataset", dataset, "--data_path", f"{work}/data",
             "--log_path", f"{work}/logs", "--exp_name", exp, "--n_steps", str(n_steps),
             "--batch_size", str(TRAIN_BATCH), "--use_amp", "--num_warmup_steps",
             str(WARMUP_STEPS), "--device", "cuda", "--seed", "0", *extra]
@@ -816,23 +1010,77 @@ def run_train_path(device, card: str) -> dict:
               f"implies: {ok}", flush=True)
         if not ok:
             fail("--resume did not continue from the saved step and sampler state")
-        profile_train_step(resumed, card)
+        profile_train_step(resumed, card, "phase 5")
     return launches
 
 
-def profile_train_step(trainer, card: str) -> None:
-    """One training step of the trainer's model split into forward, backward
-    and optimizer with CUDA events (medians of 5), and torch.profiler over 3
-    steps: device busy time, idle share and the largest kernels."""
+# device-kernel families of a profile, by what their names contain (first
+# match wins); everything else counts as "other"
+KERNEL_FAMILIES = (
+    ("own kernels", ("duodiff::",)),
+    ("cuBLAS matrix products", ("nvjet", "cublas", "cutlass", "gemm", "gemv", "xmma")),
+    ("PyTorch elementwise", ("elementwise", "CatArrayBatchedCopy", "fill", "copy")),
+    ("PyTorch reductions", ("reduce", "softmax", "norm")),
+    ("copies and memsets", ("Memcpy", "Memset")),
+)
+
+
+def kernel_family(name: str) -> str:
+    for family, marks in KERNEL_FAMILIES:
+        if any(m in name for m in marks):
+            return family
+    return "other"
+
+
+def profile_steps(label: str, one_step, n: int = 3) -> None:
+    """torch.profiler over ``n`` calls of ``one_step``: device busy time, idle
+    share, the share of every kernel family (all device events, summing to
+    1) and the largest kernels by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        for _ in range(n):
+            one_step()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - tic) * 1e6
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(kernels.values())
+    if not busy:
+        print(f"{label}: the profiler recorded no device time (idle share not measured)",
+              flush=True)
+        return
+    families = {}
+    for name, us in kernels.items():
+        families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + us
+
+    def by_size(d):
+        return sorted(d.items(), key=lambda kv: -kv[1])
+
+    others = [k[:60] for k, _ in by_size(kernels) if kernel_family(k) == "other"][:3]
+    print(f"{label}: profiler over {n} steps: device busy {busy / 1e3:.6g} ms of "
+          f"{window_us / 1e3:.6g} ms, idle share {1 - busy / window_us:.6g}; families: "
+          + "; ".join(f"{k} {v / busy:.4f}" for k, v in by_size(families))
+          + (f" (other: {', '.join(others)})" if others else "")
+          + "; largest kernels: "
+          + "; ".join(f"{k[:60]} {v / busy:.4f}" for k, v in by_size(kernels)[:10]), flush=True)
+
+
+def profile_train_step(trainer, card: str, phase: str) -> None:
+    """One training step of the trainer's model split into forward, backward
+    and optimizer with CUDA events (medians of 5), then :func:`profile_steps`
+    over 3 steps."""
     step_fn, state, model = trainer._train_step, trainer.state, trainer.model
     model.train()
     params = list(model.parameters())
     batch = trainer._to_device(trainer.dataloader.next_batch())
     trainer.dataloader.close()
-    draws = step_fn.draws(batch, 1)
+    draws = (*step_fn.draws(batch, 1), step_fn.drop_mask(batch, 1))
 
     def one_step():
         events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -858,29 +1106,10 @@ def profile_train_step(trainer, card: str) -> None:
             phases[name].append(ev[i].elapsed_time(ev[i + 1]))
         phases["step"].append(ev[0].elapsed_time(ev[3]))
     ms = {k: statistics.median(v) for k, v in phases.items()}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tic = time.perf_counter()
-        for _ in range(3):
-            one_step()
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - tic) * 1e6
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    print(f"phase 5: one train step at batch {TRAIN_BATCH} (CUDA events, median of 5): "
+    print(f"{phase}: one train step at batch {TRAIN_BATCH} (CUDA events, median of 5): "
           f"forward {ms['forward']:.6g} ms, backward {ms['backward']:.6g} ms, optimizer + EMA "
           f"{ms['optimizer']:.6g} ms, step {ms['step']:.6g} ms; card {card}", flush=True)
-    if busy:
-        print(f"phase 5: profiler over 3 steps: device busy {busy / 1e3:.6g} ms of "
-              f"{window_us / 1e3:.6g} ms, idle share {1 - busy / window_us:.6g}; largest "
-              "kernels: " + "; ".join(f"{n[:60]} {v / busy:.4f}" for n, v in top), flush=True)
-    else:
-        print("phase 5: the profiler recorded no device time (idle share not measured)",
-              flush=True)
+    profile_steps(phase, one_step)
 
 
 def run_distill_path(card: str) -> None:
@@ -903,6 +1132,178 @@ def run_distill_path(card: str) -> None:
             fail("the distillation run reported no finite distillation loss")
 
 
+# (attn_impl, mlp_impl) of the unfused block's variants checked in phase 3,
+# each against ("pallas_plain", "auto"), the plain versions throughout
+UNFUSED_VARIANTS = {"pallas": ("pallas", "auto"), "pallas + fused MLP": ("pallas", "fused")}
+UNFUSED_PLAIN = ("pallas_plain", "auto")
+
+
+def check_imagenet_model(device) -> None:
+    """Phase 3, ImageNet-64: the depth-17 class-conditional forward with the
+    attention kernel (attn_impl "pallas"), alone and paired with the fused
+    MLP sublayer (mlp_impl "fused": K2, and K7 in training), against the
+    plain versions ("pallas_plain" and the plain MLP) on the same weights
+    and labels; the gradients of every parameter the same ways; and a short
+    guided DuoDiff trajectory (depth 3 -> depth 17, full width) with and
+    without the attention kernel from one noise table."""
+    from duodiff_tpu_torch.diffusion.sampling import duodiff_sample, make_guided_apply
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.training.train_state import make_train_step
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    late, cfg = load_model(IMAGENET_CONFIG, device=device, seed=1, attn_impl="pallas")
+    early, _ = load_model(IMAGENET_EARLY_CONFIG, device=device, seed=0, attn_impl="pallas")
+    late.pack_for_kernels()  # the fused MLP sublayer reads packed operands in eval
+    g = torch.Generator().manual_seed(4)
+    shape = (CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    x = torch.randn(shape, generator=g).to(device)
+    y = torch.randint(0, cfg.num_classes - 1, (CHECK_BATCH,), generator=g).to(device)
+    t = torch.tensor([999.0, 700.0, 500.0, 300.0, 100.0, 10.0, 1.0, 0.0],
+                     device=device)[:CHECK_BATCH]
+
+    def forward(impls):
+        set_attn_impl(late, *impls)
+        with torch.inference_mode():
+            return late.eval()(x, t, y)
+
+    want = forward(UNFUSED_PLAIN)
+    for name, impls in UNFUSED_VARIANTS.items():
+        max_abs, limit, rel, ok = scaled_errors(forward(impls), want, MODEL_MAX_FRAC,
+                                                MODEL_REL_FRO)
+        print(f"phase 3: depth-{cfg.depth} class-conditional forward (D={cfg.embed_dim}, "
+              f"L={cfg.extras + cfg.num_patches}) B={CHECK_BATCH} {name} vs pallas_plain: "
+              f"rel_fro_err={rel:.6g} (bound {MODEL_REL_FRO}) max_abs_err={max_abs:.6g} (bound "
+              f"{limit:.6g} = {MODEL_MAX_FRAC}*max|plain|) ok={ok}", flush=True)
+        if not ok:
+            fail(f"the ImageNet-64 forward through {name} disagrees with the plain one")
+
+    schedule = NoiseSchedule.create(device=device)
+    step = make_train_step(late, schedule, parametrization="predict_noise", seed=0,
+                           has_labels=True)
+    batch = {"image": (torch.rand(shape, generator=g) * 2 - 1).to(device), "label": y}
+    draws = step.draws(batch, 1)
+
+    def gradients(impls):
+        set_attn_impl(late, *impls)
+        return [t.clone() for t in step.backward(batch, *draws)[1]]
+
+    names = [n for n, _ in late.named_parameters()]
+    want = gradients(UNFUSED_PLAIN)
+    for name, impls in UNFUSED_VARIANTS.items():
+        rels = {n: rel_fro(a, b) for n, a, b in zip(names, gradients(impls), want)}
+        worst = max(rels, key=rels.get)
+        ok = rels[worst] <= BWD_REL_FRO
+        print(f"phase 3: depth-{cfg.depth} ImageNet-64 training gradients B={CHECK_BATCH} {name} "
+              f"vs pallas_plain, {len(names)} parameters: worst rel_fro_err={rels[worst]:.6g} "
+              f"({worst}), median {statistics.median(rels.values()):.6g} (bound {BWD_REL_FRO}) "
+              f"ok={ok}", flush=True)
+        if not ok:
+            fail(f"the gradients through {name} disagree with the plain ones")
+    for p in late.parameters():
+        p.grad = None
+
+    steps, t_switch = 20, 6
+    schedule = NoiseSchedule.create(steps=steps, device=device)
+    small = (2,) + shape[1:]
+    noise = torch.randn((steps,) + small, generator=g).to(device)
+    x0 = torch.randn(small, generator=g).to(device)
+    null = cfg.num_classes - 1
+    outs = {}
+    with torch.inference_mode():
+        for impl in ("pallas", "pallas_plain"):
+            set_attn_impl(early, impl)
+            set_attn_impl(late, impl)
+            outs[impl] = duodiff_sample(
+                make_guided_apply(early.eval(), GUIDANCE_SCALE, null),
+                make_guided_apply(late.eval(), GUIDANCE_SCALE, null), None, schedule=schedule,
+                shape=small, t_switch=t_switch, y=y[:2], x_init=x0, noise_table=noise,
+            )
+    max_abs, limit, rel, ok = scaled_errors(outs["pallas"], outs["pallas_plain"], MODEL_MAX_FRAC)
+    print(f"phase 3: {steps}-step guided DuoDiff trajectory (depth 3 -> {cfg.depth}, t_switch "
+          f"{t_switch}, w={GUIDANCE_SCALE}) B=2 pallas vs pallas_plain: rel_fro_err={rel:.6g} "
+          f"(bound {FWD_REL_FRO}) max_abs_err={max_abs:.6g} (bound {limit:.6g} = "
+          f"{MODEL_MAX_FRAC}*max|plain|) ok={ok}", flush=True)
+    if not ok:
+        fail("the guided DuoDiff trajectory through the attention kernel disagrees with the "
+             "plain one")
+
+
+def run_imagenet_sampling(device, card: str) -> dict:
+    """Phase 6: the sampling CLI on the ImageNet-64 pair (depth 3 for 300
+    steps, then depth 17), class-conditional with classifier-free guidance
+    on random real classes, the unfused block around K9; every guided
+    forward runs at batch 2 * GUIDED_BATCH. Then one guided depth-17 step
+    alone, timed and profiled by kernel."""
+    from duodiff_tpu_torch.diffusion.sampling import make_guided_apply
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    expected = T_SWITCH * 3 + (STEPS - T_SWITCH) * 17
+    launches = run_cli(
+        f"phase 6: guided DuoDiff {STEPS} steps on ImageNet-64 (depth 3 x {T_SWITCH}, depth 17 x "
+        f"{STEPS - T_SWITCH}), attn_impl pallas, w={GUIDANCE_SCALE}, forwards at batch "
+        f"{2 * GUIDED_BATCH},",
+        ["--attn_impl", "pallas", "--class_id", "-1", "--guidance_scale", str(GUIDANCE_SCALE)],
+        card, {"flash_attention": expected}, configs=(IMAGENET_EARLY_CONFIG, IMAGENET_CONFIG),
+        batch=GUIDED_BATCH,
+    )
+    model, cfg = load_model(IMAGENET_CONFIG, device=device, seed=1, attn_impl="pallas")
+    apply = make_guided_apply(model.eval(), GUIDANCE_SCALE, cfg.num_classes - 1)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((GUIDED_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans), generator=g)
+    y = torch.randint(0, cfg.num_classes - 1, (GUIDED_BATCH,), generator=g)
+    x, y = x.to(device), y.to(device)
+    t = torch.full((GUIDED_BATCH,), 350.0, device=device)
+    with torch.inference_mode():
+        ms = time_ms({"step": lambda: apply(x, t, y)}, reps=5)["step"]
+        print(f"phase 6: one guided depth-{cfg.depth} forward at batch {2 * GUIDED_BATCH} "
+              f"(CUDA events, median of 5): {ms:.6g} ms; card {card}", flush=True)
+        profile_steps("phase 6", lambda: apply(x, t, y))
+    return launches
+
+
+def run_imagenet_training(card: str) -> dict:
+    """Phase 7: the training CLI on configs/uvit_imagenet64.yaml (D = 768,
+    depth 17, L = 258) at batch 128 in bf16 on the synthetic ImageNet-64
+    cache, with label dropout: first the unfused block around K9 and K10
+    (losses must fall, 17 launches of each a step, a step's split and
+    profile, peak device memory), then a short run of the fused block
+    (K1, K2, K6, K7) at this width. Returns the first run's launch counts."""
+    from duodiff_tpu_torch.data.synthetic import write_palette_imagenet64_cache
+
+    def argv(work, exp, n_steps, impl):
+        return train_argv(work, exp, n_steps, "--attn_impl", impl, "--label_dropout",
+                          str(LABEL_DROPOUT), config=IMAGENET_CONFIG, dataset="imagenet64")
+
+    with tempfile.TemporaryDirectory() as work:
+        write_palette_imagenet64_cache(Path(work) / "data", seed=0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n = 17 * IMAGENET_TRAIN_STEPS
+        trainer, launches = run_train_cli(
+            "phase 7: train uvit_imagenet64.yaml, attn_impl pallas",
+            argv(work, "pallas", IMAGENET_TRAIN_STEPS, "pallas"), card,
+            {"flash_attention": n, "flash_attention_bwd": n})
+        peak = torch.cuda.max_memory_allocated()
+        first, last = trainer.logs[0]["train_loss"], trainer.logs[-1]["train_loss"]
+        print(f"phase 7: peak device memory {peak / 2**30:.6g} GiB; loss {first:.6g} -> "
+              f"{last:.6g}", flush=True)
+        if not last < LOSS_DROP * first:
+            fail(f"the ImageNet-64 train loss did not fall clearly: {first:.6g} -> {last:.6g}")
+        profile_train_step(trainer, card, "phase 7 (pallas)")
+        del trainer
+        torch.cuda.empty_cache()
+        n = 17 * IMAGENET_FUSED_STEPS
+        trainer, _ = run_train_cli(
+            "phase 7: train uvit_imagenet64.yaml, attn_impl fused",
+            argv(work, "fused", IMAGENET_FUSED_STEPS, "fused"), card,
+            {k: n for k in ("fused_attn_sublayer", "fused_mlp_sublayer",
+                            "fused_attn_sublayer_bwd", "fused_mlp_sublayer_bwd")})
+        profile_train_step(trainer, card, "phase 7 (fused)")
+        del trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device; chip_smoke.py runs only on a GPU", file=sys.stderr)
@@ -911,21 +1312,31 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = setup()
-    results = {**check_kernels(device), **check_int8_kernels(device),
-               **check_bwd_kernels(device)}
+    kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS, **ATTENTION_KERNELS}
+    results = new_results(kernels)
+    check_kernels(device, results)
+    check_int8_kernels(device, results)
+    check_bwd_kernels(device, results)
+    check_attention_kernels(device, results)
+    check_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
+    check_bwd_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
+    check_int8_kernels(device, results, IMAGENET, batches=(CHECK_BATCH,), suffix="_d768_b8")
     check_model(device)
     check_int8_model(device)
     check_training(device)
+    check_imagenet_model(device)
     launches = run_main_path(card)
     launches.update({name: n for name, n in run_int8_main_path(card).items()
                      if name in INT8_KERNELS})
     launches.update({name: n for name, n in run_train_path(device, card).items()
                      if name in BWD_KERNELS})
     run_distill_path(card)
-    kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS}
+    launches["flash_attention"] = run_imagenet_sampling(device, card)["flash_attention"]
+    launches["flash_attention_bwd"] = run_imagenet_training(card)["flash_attention_bwd"]
+    bounds = kernel_bounds()
     record = [
         {"name": name, "route": "cuda", **kernels[name], "launches": launches[name],
-         **results[name]}
+         "library_ms": None, **bounds[name], **results[name]}
         for name in kernels
     ]
     print(json.dumps({"kernels": record}), flush=True)

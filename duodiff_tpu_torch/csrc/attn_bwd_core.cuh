@@ -1,11 +1,16 @@
-// The attention core of K6: the backward of softmax(q k^T * scale) v per
-// (sample, head) on the packed (B, L, 3A) bf16 qkv (unscaled q), with the
-// merged-head gradient dm = dy Wp^T (B, L, A) bf16 as the incoming do.
+// The attention core of K6 and K10: the backward of
+// softmax(q k^T * scale) v per (sample, head) on bf16 rows given as
+// HeadRows views (common.cuh), q unscaled. For K6 the operands are the
+// packed (B, L, 3A) qkv and the merged-head gradient dm = dy Wp^T (B, L, A)
+// as the incoming do, and dq, dk, dv go into a packed dqkv; for K10 they are
+// separate (B, H, L, Dh) tensors and no merged output is written.
 //
 // Replaces: the per-head loop of duodiff_tpu/ops/pallas_block.py
-// _attn_bwd_kernel (:289-341). With e = exp(s - m) and r = 1 / rowsum(e):
+// _attn_bwd_kernel (:289-341) and duodiff_tpu/ops/pallas_attention.py
+// _bwd_kernel (:72-119), the same arithmetic. With e = exp(s - m) and
+// r = 1 / rowsum(e):
 //   qsc = bf16(q * scale), s = qsc k^T (fp32);
-//   o   = bf16((bf16(e) v) * r)                      -> merged heads
+//   o   = bf16((bf16(e) v) * r)                      -> merged heads (K6 only)
 //   dv  = bf16(bf16(e)^T bf16(do * r))
 //   dp  = do v^T, c = rowsum(dp * e) * r, dsp = bf16(e * (dp - c))
 //   dq  = bf16((dsp k) * (r * scale)), dk = bf16(dsp^T bf16(qsc * r))
@@ -27,9 +32,9 @@
 // on mma.sync tiles fed from shared memory; the first launch keeps two
 // fp32 16 x L row blocks per warp (220 KB at L = 257, one block per SM).
 // Determinism: every sum runs in a fixed order inside one warp; no atomics.
-// L = 257 is ragged: keys past L are masked (e = 0), and query rows past L
-// are zero in the staged q and do, with zero statistics, so they add
-// nothing to dk and dv; their outputs are never written.
+// L = 257 or 258 is ragged: keys past L are masked (e = 0), and query rows
+// past L are zero in the staged q and do, with zero statistics, so they
+// add nothing to dk and dv; their outputs are never written.
 #pragma once
 
 #include <mma.h>
@@ -81,26 +86,18 @@ constexpr size_t kKvSmemBytes =
 static_assert(kBwdWarps * 16 * kBwdOPitch * sizeof(float) <= 4 * kKvStageBytes,
               "the dk/dv output tiles reuse the query stage");
 
-// Stage rows [row0, row0 + n) of column block col of a row-major bf16
-// matrix with row stride `stride` into dst (pitch kBwdPitch), rows past L
-// as zeros; each thread of `threads` copies 16 bytes at a time.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t stride, int col,
-                                           int row0, int n, int L, int tid, int threads) {
+// Stage rows [row0, row0 + n) of a head (64 bf16 each, `stride` elements
+// apart) into dst (pitch kBwdPitch), rows past L as zeros; each thread of
+// `threads` copies 16 bytes at a time.
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t stride, int row0,
+                                           int n, int L, int tid, int threads) {
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int c = tid; c < n * (kBwdDh / kVec); c += threads) {
     const int r = c / (kBwdDh / kVec), k = (c % (kBwdDh / kVec)) * kVec;
     uint4 v = zero;
-    if (row0 + r < L) v = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + col + k);
+    if (row0 + r < L) v = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + k);
     *reinterpret_cast<uint4*>(dst + r * kBwdPitch + k) = v;
   }
-}
-
-__device__ __forceinline__ uint4 scale8(const uint4& raw, float s) {
-  float v[kVec];
-  unpack8(raw, v);
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) v[e] *= s;
-  return pack8(v);
 }
 
 // Writes the 16 x 64 fp32 tile os (pitch kBwdOPitch) times mul(row), as
@@ -143,11 +140,13 @@ __device__ __forceinline__ void row_col_tile(BwdAcc& acc, const bf16* rows, cons
   }
 }
 
-// Row statistics, merged output and dq. stats: m, r, c, each (B, H, L).
+// Row statistics, the forward output o (unless o.p is null) and dq.
+// stats: m, r, c, each (B, H, L).
 __global__ void __launch_bounds__(kBwdWarps * 32)
-attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
-                  bf16* __restrict__ merged, bf16* __restrict__ dqkv, float* __restrict__ stats,
-                  int L, int H, float scale) {
+attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
+                  HeadRows<const bf16> v_rows, HeadRows<const bf16> do_rows,
+                  HeadRows<bf16> o_out, HeadRows<bf16> dq_out,
+                  float* __restrict__ stats, int L, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnBwdQSmem sm = attn_bwd_q_smem(L);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -166,15 +165,11 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
   float* c_s = stat + 32;
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int A = H * kBwdDh;
-  const size_t qkv_stride = 3 * static_cast<size_t>(A);
-  const bf16* base = qkv + static_cast<size_t>(b) * L * qkv_stride;
-  const bf16* dmb = dm + static_cast<size_t>(b) * L * A;
-  stage_rows(Ks, base, qkv_stride, A + h * kBwdDh, 0, sm.lpad, L, threadIdx.x, blockDim.x);
-  stage_rows(Vs, base, qkv_stride, 2 * A + h * kBwdDh, 0, sm.lpad, L, threadIdx.x, blockDim.x);
+  stage_rows(Ks, k_rows.at(b, h), k_rows.row, 0, sm.lpad, L, threadIdx.x, blockDim.x);
+  stage_rows(Vs, v_rows.at(b, h), v_rows.row, 0, sm.lpad, L, threadIdx.x, blockDim.x);
   const int q0 = blockIdx.x * kBwdRows + warp * 16;
-  stage_rows(Qs, base, qkv_stride, h * kBwdDh, q0, 16, L, lane, 32);
-  stage_rows(DOs, dmb, A, h * kBwdDh, q0, 16, L, lane, 32);
+  stage_rows(Qs, q_rows.at(b, h), q_rows.row, q0, 16, L, lane, 32);
+  stage_rows(DOs, do_rows.at(b, h), do_rows.row, q0, 16, L, lane, 32);
   __syncwarp();
   for (int c = lane; c < 16 * (kBwdDh / kVec); c += 32) {  // qsc = bf16(q * scale)
     const int r = c / (kBwdDh / kVec), k = (c % (kBwdDh / kVec)) * kVec;
@@ -215,27 +210,27 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
   }
   __syncwarp();
 
-  // o = bf16(e) v, merged = bf16(o * r)
   BwdAcc o[kBwdDh / 16];
+  if (o_out.p != nullptr) {  // the forward output bf16((bf16(e) v) * r), which K6 needs
 #pragma unroll
-  for (int n = 0; n < kBwdDh / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-  for (int kt = 0; kt < ntiles; ++kt) {
-    BwdFragA pa;
-    wmma::load_matrix_sync(pa, Ps + kt * 16, sm.p_pitch);
+    for (int n = 0; n < kBwdDh / 16; ++n) wmma::fill_fragment(o[n], 0.f);
+    for (int kt = 0; kt < ntiles; ++kt) {
+      BwdFragA pa;
+      wmma::load_matrix_sync(pa, Ps + kt * 16, sm.p_pitch);
 #pragma unroll
-    for (int n = 0; n < kBwdDh / 16; ++n) {
-      BwdFragB vb;
-      wmma::load_matrix_sync(vb, Vs + kt * 16 * kBwdPitch + n * 16, kBwdPitch);
-      wmma::mma_sync(o[n], pa, vb, o[n]);
+      for (int n = 0; n < kBwdDh / 16; ++n) {
+        BwdFragB vf;
+        wmma::load_matrix_sync(vf, Vs + kt * 16 * kBwdPitch + n * 16, kBwdPitch);
+        wmma::mma_sync(o[n], pa, vf, o[n]);
+      }
     }
-  }
 #pragma unroll
-  for (int n = 0; n < kBwdDh / 16; ++n)
-    wmma::store_matrix_sync(Os + n * 16, o[n], kBwdOPitch, wmma::mem_row_major);
-  __syncwarp();
-  bf16* merged_b = merged + static_cast<size_t>(b) * L * A + h * kBwdDh;
-  store_tile(Os, merged_b, A, q0, L, lane, [&](int r) { return r_s[r]; });
-  __syncwarp();
+    for (int n = 0; n < kBwdDh / 16; ++n)
+      wmma::store_matrix_sync(Os + n * 16, o[n], kBwdOPitch, wmma::mem_row_major);
+    __syncwarp();
+    store_tile(Os, o_out.at(b, h), o_out.row, q0, L, lane, [&](int r) { return r_s[r]; });
+    __syncwarp();
+  }
 
   // c = rowsum(dp * e) * r with dp = do v^T, tile by tile; each lane sums
   // 8 columns of row lane / 2 of every tile, then the two lanes of a row
@@ -277,17 +272,16 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
     wmma::load_matrix_sync(pa, Ps + kt * 16, sm.p_pitch);
 #pragma unroll
     for (int n = 0; n < kBwdDh / 16; ++n) {
-      BwdFragB kb;
-      wmma::load_matrix_sync(kb, Ks + kt * 16 * kBwdPitch + n * 16, kBwdPitch);
-      wmma::mma_sync(o[n], pa, kb, o[n]);
+      BwdFragB kf;
+      wmma::load_matrix_sync(kf, Ks + kt * 16 * kBwdPitch + n * 16, kBwdPitch);
+      wmma::mma_sync(o[n], pa, kf, o[n]);
     }
   }
 #pragma unroll
   for (int n = 0; n < kBwdDh / 16; ++n)
     wmma::store_matrix_sync(Os + n * 16, o[n], kBwdOPitch, wmma::mem_row_major);
   __syncwarp();
-  bf16* dq_b = dqkv + static_cast<size_t>(b) * L * qkv_stride + h * kBwdDh;
-  store_tile(Os, dq_b, qkv_stride, q0, L, lane, [&](int r) { return r_s[r] * scale; });
+  store_tile(Os, dq_out.at(b, h), dq_out.row, q0, L, lane, [&](int r) { return r_s[r] * scale; });
 
   if (lane < 16 && q0 + lane < L) {
     const size_t bhl = static_cast<size_t>(gridDim.z) * H * L;
@@ -300,9 +294,10 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
 
 // dk and dv of 64 keys, summed over every query row.
 __global__ void __launch_bounds__(kBwdWarps * 32)
-attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
-                   const float* __restrict__ stats, bf16* __restrict__ dqkv, int L, int H,
-                   float scale) {
+attn_bwd_kv_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
+                   HeadRows<const bf16> v_rows, HeadRows<const bf16> do_rows,
+                   const float* __restrict__ stats,
+                   HeadRows<bf16> dk_out, HeadRows<bf16> dv_out, int L, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -322,17 +317,14 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
   bf16* Db = Eb + 256;
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int A = H * kBwdDh;
-  const size_t qkv_stride = 3 * static_cast<size_t>(A);
-  const bf16* base = qkv + static_cast<size_t>(b) * L * qkv_stride;
-  const bf16* dmb = dm + static_cast<size_t>(b) * L * A;
+  const bf16* qb = q_rows.at(b, h);
+  const bf16* dob = do_rows.at(b, h);
   const size_t bhl = static_cast<size_t>(gridDim.z) * H * L;
   const float* st_b = stats + (static_cast<size_t>(b) * H + h) * L;
   const int key_base = blockIdx.x * kBwdRows;
   const int key0 = key_base + warp * 16;
-  stage_rows(Ks, base, qkv_stride, A + h * kBwdDh, key_base, kBwdRows, L, threadIdx.x, blockDim.x);
-  stage_rows(Vs, base, qkv_stride, 2 * A + h * kBwdDh, key_base, kBwdRows, L, threadIdx.x,
-             blockDim.x);
+  stage_rows(Ks, k_rows.at(b, h), k_rows.row, key_base, kBwdRows, L, threadIdx.x, blockDim.x);
+  stage_rows(Vs, v_rows.at(b, h), v_rows.row, key_base, kBwdRows, L, threadIdx.x, blockDim.x);
 
   BwdAcc dk[kBwdDh / 16], dv[kBwdDh / 16];
 #pragma unroll
@@ -351,8 +343,8 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
       rs[threadIdx.x] = ok ? st_b[bhl + q] : 0.f;
       cs[threadIdx.x] = ok ? st_b[2 * bhl + q] : 0.f;
     }
-    stage_rows(Qs, base, qkv_stride, h * kBwdDh, qbase, kBwdRows, L, threadIdx.x, blockDim.x);
-    stage_rows(DOs, dmb, A, h * kBwdDh, qbase, kBwdRows, L, threadIdx.x, blockDim.x);
+    stage_rows(Qs, qb, q_rows.row, qbase, kBwdRows, L, threadIdx.x, blockDim.x);
+    stage_rows(DOs, dob, do_rows.row, qbase, kBwdRows, L, threadIdx.x, blockDim.x);
     __syncthreads();
     for (int c = threadIdx.x; c < kBwdRows * (kBwdDh / kVec); c += blockDim.x) {
       const int r = c / (kBwdDh / kVec), k = (c % (kBwdDh / kVec)) * kVec;
@@ -403,26 +395,27 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm,
   __syncthreads();  // the query stage becomes the output tiles
   if (key0 >= L) return;
   float* Os = reinterpret_cast<float*>(Qs) + warp * 16 * kBwdOPitch;
-  bf16* dq_b = dqkv + static_cast<size_t>(b) * L * qkv_stride + h * kBwdDh;
   auto one = [](int) { return 1.f; };
 #pragma unroll
   for (int n = 0; n < kBwdDh / 16; ++n)
     wmma::store_matrix_sync(Os + n * 16, dk[n], kBwdOPitch, wmma::mem_row_major);
   __syncwarp();
-  store_tile(Os, dq_b + A, qkv_stride, key0, L, lane, one);
+  store_tile(Os, dk_out.at(b, h), dk_out.row, key0, L, lane, one);
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < kBwdDh / 16; ++n)
     wmma::store_matrix_sync(Os + n * 16, dv[n], kBwdOPitch, wmma::mem_row_major);
   __syncwarp();
-  store_tile(Os, dq_b + 2 * A, qkv_stride, key0, L, lane, one);
+  store_tile(Os, dv_out.at(b, h), dv_out.row, key0, L, lane, one);
 }
 
-// merged, dq, dk and dv (into dqkv) from qkv and dm; stats is scratch of
-// 3 * B * H * L floats.
-inline cudaError_t launch_attn_bwd_core(const bf16* qkv, const bf16* dm, bf16* merged,
-                                        bf16* dqkv, float* stats, int B, int L, int H,
-                                        float scale, cudaStream_t stream) {
+// dq, dk, dv (and the forward output o_out unless its p is null) from q, k,
+// v and dout; stats is scratch of 3 * B * H * L floats.
+inline cudaError_t launch_attn_bwd_core(HeadRows<const bf16> q, HeadRows<const bf16> k,
+                                        HeadRows<const bf16> v, HeadRows<const bf16> dout,
+                                        HeadRows<bf16> o_out, HeadRows<bf16> dq,
+                                        HeadRows<bf16> dk, HeadRows<bf16> dv, float* stats, int B,
+                                        int L, int H, float scale, cudaStream_t stream) {
   const size_t smem_q = attn_bwd_q_smem(L).total;
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -432,13 +425,26 @@ inline cudaError_t launch_attn_bwd_core(const bf16* qkv, const bf16* dm, bf16* m
                              static_cast<int>(kKvSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kBwdRows - 1) / kBwdRows, H, B);
-  attn_bwd_q_kernel<<<grid, kBwdWarps * 32, smem_q, stream>>>(qkv, dm, merged, dqkv, stats, L, H,
-                                                              scale);
+  attn_bwd_q_kernel<<<grid, kBwdWarps * 32, smem_q, stream>>>(q, k, v, dout, o_out, dq, stats, L,
+                                                              H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_kv_kernel<<<grid, kBwdWarps * 32, kKvSmemBytes, stream>>>(qkv, dm, stats, dqkv, L, H,
-                                                                     scale);
+  attn_bwd_kv_kernel<<<grid, kBwdWarps * 32, kKvSmemBytes, stream>>>(q, k, v, dout, stats, dk, dv,
+                                                                     L, H, scale);
   return cudaGetLastError();
+}
+
+// The core on a packed (B, L, 3A) qkv and dm (B, L, A): merged heads, and
+// dq, dk, dv into the packed dqkv.
+inline cudaError_t launch_attn_bwd_core(const bf16* qkv, const bf16* dm, bf16* merged,
+                                        bf16* dqkv, float* stats, int B, int L, int H,
+                                        float scale, cudaStream_t stream) {
+  constexpr int Dh = kBwdDh;
+  return launch_attn_bwd_core(
+      packed_third(qkv, 0, L, H, Dh), packed_third(qkv, 1, L, H, Dh),
+      packed_third(qkv, 2, L, H, Dh), merged_heads(dm, L, H, Dh), merged_heads(merged, L, H, Dh),
+      packed_third(dqkv, 0, L, H, Dh), packed_third(dqkv, 1, L, H, Dh),
+      packed_third(dqkv, 2, L, H, Dh), stats, B, L, H, scale, stream);
 }
 
 }  // namespace

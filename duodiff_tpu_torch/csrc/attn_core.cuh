@@ -1,21 +1,25 @@
-// The attention core of K1 and K11: softmax(q k^T) v per (sample, head)
-// on the packed (B, L, 3A) bf16 qkv tensor, merged heads out as (B, L, A)
-// bf16. The q columns are pre-scaled by the softmax scale.
+// The attention core of K1, K11 and K9: softmax(q k^T) v per (sample,
+// head) on bf16 rows given as HeadRows views (common.cuh): for K1 and K11
+// the packed (B, L, 3A) qkv tensor with q pre-scaled by the softmax scale
+// and the merged heads out as (B, L, A); for K9 three (B, H, L, Dh) tensors,
+// q scaled here (qscale, q * qscale rounded to bf16), out (B, H, L, Dh).
 //
 // Replaces: the per-head SDPA loop of duodiff_tpu/ops/pallas_block.py
 // _kernel_v2 (:139-157) and of pallas_block_int8.py _kernel_v2_int8
-// (:130-146), which are the same: fp32 scores, e = exp(s - m) rounded to
-// bf16 for e v, and the division by the fp32 sum of the unrounded e after
-// the value product.
+// (:130-146), and duodiff_tpu/ops/pallas_attention.py _kernel (:30-52),
+// which are the same: fp32 scores, e = exp(s - m) rounded to bf16 for e v,
+// and the division by the fp32 sum of the unrounded e after the value
+// product.
 //
 // One block per (query tile of 64 rows, head, sample):
 //   - K and V rows of the head (L x 64 bf16 each, 33 KB at L = 257) are
 //     staged once in shared memory and shared by 4 warps of 16 query rows;
-//   - q, k and v are column slices h*Dh, A + h*Dh, 2A + h*Dh of qkv;
+//   - q, k and v rows come through their views (column slices of qkv, or
+//     separate tensors);
 //   - s = q k^T in fp32 (WMMA), key columns past L masked to -inf before
 //     the row max, e = exp(s - m), denom = fp32 sum of the unrounded e;
 //   - e rounded to bf16 for e v (fp32 accumulation), then divided by denom;
-//   - the head's output goes to the merged (B, L, A) bf16 tensor.
+//   - the head's output goes to its rows of the output view, in bf16.
 // Bound: the core does 4*L*L*Dh flops per (sample, head) against
 // 8*L*Dh bytes of bf16 q, k, v and output (L/2, ~128 flop/byte at
 // L = 257, under the card's ~295 balance point), and it keeps each warp's
@@ -25,8 +29,8 @@
 // over stored scores keep the TPU kernel's rounding points: an exact row
 // max, one bf16 rounding of e); a register-resident online softmax is
 // later work.
-// L = 257 is no multiple of 16: K/V/q rows past L are zero-filled, scores
-// past L masked, and output rows past L never written.
+// L = 257 or 258 is no multiple of 16: K/V/q rows past L are zero-filled,
+// scores past L masked, and output rows past L never written.
 #pragma once
 
 #include <mma.h>
@@ -69,7 +73,8 @@ __host__ __device__ inline AttnSmem attn_smem(int L) {
 }
 
 __global__ void __launch_bounds__(kAttnWarps * 32)
-attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int H) {
+attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
+                 HeadRows<const bf16> v_rows, HeadRows<bf16> out, int L, float qscale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float denom_s[kAttnWarps][16];
   const AttnSmem sm = attn_smem(L);
@@ -82,18 +87,17 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, in
   bf16* Ps = reinterpret_cast<bf16*>(mine + sm.q_bytes + sm.s_bytes);
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int A = H * kDh;
-  const size_t row_stride = 3 * static_cast<size_t>(A);
-  const bf16* base = qkv + static_cast<size_t>(b) * L * row_stride;
-  const int qcol = h * kDh, kcol = A + h * kDh, vcol = 2 * A + h * kDh;
+  const bf16* qb = q_rows.at(b, h);
+  const bf16* kb = k_rows.at(b, h);
+  const bf16* vb = v_rows.at(b, h);
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   for (int c = threadIdx.x; c < sm.lpad * (kDh / kVec); c += blockDim.x) {
     const int j = c / (kDh / kVec), col = (c % (kDh / kVec)) * kVec;
     uint4 kv = zero, vv = zero;
     if (j < L) {
-      kv = *reinterpret_cast<const uint4*>(base + j * row_stride + kcol + col);
-      vv = *reinterpret_cast<const uint4*>(base + j * row_stride + vcol + col);
+      kv = *reinterpret_cast<const uint4*>(kb + j * k_rows.row + col);
+      vv = *reinterpret_cast<const uint4*>(vb + j * v_rows.row + col);
     }
     *reinterpret_cast<uint4*>(Ks + j * kKvPitch + col) = kv;
     *reinterpret_cast<uint4*>(Vs + j * kKvPitch + col) = vv;
@@ -102,7 +106,10 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, in
   for (int c = lane; c < 16 * (kDh / kVec); c += 32) {
     const int r = c / (kDh / kVec), col = (c % (kDh / kVec)) * kVec;
     uint4 qv = zero;
-    if (q0 + r < L) qv = *reinterpret_cast<const uint4*>(base + (q0 + r) * row_stride + qcol + col);
+    if (q0 + r < L) {
+      qv = *reinterpret_cast<const uint4*>(qb + (q0 + r) * q_rows.row + col);
+      if (qscale != 1.f) qv = scale8(qv, qscale);  // bf16(q * scale), K9's rounding
+    }
     *reinterpret_cast<uint4*>(Qs + r * kKvPitch + col) = qv;
   }
   __syncthreads();  // the only block-wide barrier: warps are independent below
@@ -119,9 +126,9 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, in
 #pragma unroll
     for (int kk = 0; kk < kDh / 16; ++kk) {
       // k^T as a column-major (Dh x 16) operand: element (k, n) = K[n][k]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-      wmma::load_matrix_sync(kb, Ks + nt * 16 * kKvPitch + kk * 16, kKvPitch);
-      wmma::mma_sync(s, qa[kk], kb, s);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+      wmma::load_matrix_sync(kf, Ks + nt * 16 * kKvPitch + kk * 16, kKvPitch);
+      wmma::mma_sync(s, qa[kk], kf, s);
     }
     wmma::store_matrix_sync(Ss + nt * 16, s, sm.s_pitch, wmma::mem_row_major);
   }
@@ -155,9 +162,9 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, in
     wmma::load_matrix_sync(pa, Ps + kt * 16, sm.p_pitch);
 #pragma unroll
     for (int n = 0; n < kDh / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-      wmma::load_matrix_sync(vb, Vs + kt * 16 * kKvPitch + n * 16, kKvPitch);
-      wmma::mma_sync(o[n], pa, vb, o[n]);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+      wmma::load_matrix_sync(vf, Vs + kt * 16 * kKvPitch + n * 16, kKvPitch);
+      wmma::mma_sync(o[n], pa, vf, o[n]);
     }
   }
   float* Os = Ss;  // the scores are consumed
@@ -170,7 +177,7 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, in
   const int r = lane >> 1, c0 = (lane & 1) * 32;
   if (q0 + r < L) {
     const float den = denom_s[warp][r];
-    bf16* dst = out + (static_cast<size_t>(b) * L + q0 + r) * A + h * kDh + c0;
+    bf16* dst = out.at(b, h) + (q0 + r) * out.row + c0;
 #pragma unroll
     for (int c = 0; c < 32; c += kVec) {
       float v[kVec];
@@ -181,15 +188,24 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, in
   }
 }
 
-cudaError_t launch_attn_core(const bf16* qkv, bf16* merged, int B, int L, int H,
-                             cudaStream_t stream) {
+cudaError_t launch_attn_core(HeadRows<const bf16> q, HeadRows<const bf16> k,
+                             HeadRows<const bf16> v, HeadRows<bf16> out, int B, int L, int H,
+                             float qscale, cudaStream_t stream) {
   const size_t smem = attn_smem(L).total;
   cudaError_t err = cudaFuncSetAttribute(
       attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kQRows - 1) / kQRows, H, B);
-  attn_core_kernel<<<grid, kAttnWarps * 32, smem, stream>>>(qkv, merged, L, H);
+  attn_core_kernel<<<grid, kAttnWarps * 32, smem, stream>>>(q, k, v, out, L, qscale);
   return cudaGetLastError();
+}
+
+// The core on a packed (B, L, 3A) qkv with pre-scaled q, merged heads out.
+cudaError_t launch_attn_core(const bf16* qkv, bf16* merged, int B, int L, int H,
+                             cudaStream_t stream) {
+  return launch_attn_core(packed_third(qkv, 0, L, H, kDh), packed_third(qkv, 1, L, H, kDh),
+                          packed_third(qkv, 2, L, H, kDh), merged_heads(merged, L, H, kDh), B, L,
+                          H, 1.f, stream);
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
-// Shared device helpers of the sublayer kernels: bf16 vector access,
-// warp reductions, GELU and cp.async with zero-fill for ragged tile edges.
+// Shared device helpers of the kernels: bf16 vector access, warp
+// reductions, GELU, cp.async with zero-fill for ragged tile edges, and the
+// strided (sample, head, row) view the attention cores read and write.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +27,48 @@ __device__ __forceinline__ uint4 pack8(const float in[kVec]) {
 #pragma unroll
   for (int e = 0; e < kVec; ++e) p[e] = __float2bfloat16(in[e]);
   return raw;
+}
+
+__device__ __forceinline__ uint4 scale8(const uint4& raw, float s) {
+  float v[kVec];
+  unpack8(raw, v);
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) v[e] *= s;
+  return pack8(v);
+}
+
+// The rows of every (sample, head) of a bf16 tensor, wherever they lie: row
+// l of head h of sample b starts at p + b * sample + h * head + l * row
+// (strides in elements; a row is the head's Dh contiguous values). The
+// attention cores take their operands as such views, so one kernel serves
+// the packed (B, L, 3A) qkv of the fused sublayers and the separate
+// (B, H, L, Dh) tensors of the standalone attention.
+template <typename T>
+struct HeadRows {
+  T* p;
+  size_t sample, head, row;
+  __host__ __device__ T* at(int b, int h) const { return p + b * sample + h * head; }
+};
+
+// Third `which` (0 q, 1 k, 2 v) of a packed (B, L, 3A) tensor, A = H * Dh.
+template <typename T>
+inline HeadRows<T> packed_third(T* qkv, int which, int L, int H, int Dh) {
+  const size_t A = static_cast<size_t>(H) * Dh;
+  return {qkv + which * A, L * 3 * A, static_cast<size_t>(Dh), 3 * A};
+}
+
+// Merged heads (B, L, A).
+template <typename T>
+inline HeadRows<T> merged_heads(T* t, int L, int H, int Dh) {
+  const size_t A = static_cast<size_t>(H) * Dh;
+  return {t, L * A, static_cast<size_t>(Dh), A};
+}
+
+// Split heads (B, H, L, Dh), contiguous.
+template <typename T>
+inline HeadRows<T> split_heads(T* t, int L, int H, int Dh) {
+  const size_t LD = static_cast<size_t>(L) * Dh;
+  return {t, H * LD, LD, static_cast<size_t>(Dh)};
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,0 +1,35 @@
+// K9: scaled dot-product attention on Hopper,
+//
+//   o = softmax(q k^T / sqrt(Dh)) v,   q, k, v, o (B, H, L, Dh) bf16,
+//
+// one launch of the attention core (attn_core.cuh) on the three separate
+// tensors, the softmax scale applied to q inside it.
+//
+// Replaces: duodiff_tpu/ops/pallas_attention.py flash_attention (kernel
+// _kernel). The rounding points are that kernel's: q * scale in fp32
+// rounded to bf16, fp32 scores and row max, e = exp(s - m) rounded to bf16
+// for e v, the fp32 sum of the unrounded e divided out after the value
+// product, one rounding of the output. The TPU kernel's group size and lane
+// padding have no counterpart: a block is one (64 query rows, head, sample).
+// Bound: 4 * L * L * Dh flops per (sample, head) against 8 * L * Dh bytes
+// (L / 2 = 129 flop/byte at L = 258, under the card's ~295): bytes at the
+// roofline, latency and occupancy in this simple core (one block per SM,
+// whole score rows in shared memory); see attn_core.cuh.
+
+#include "attn_core.cuh"
+#include "common.cuh"
+
+using duodiff::bf16;
+
+// q, k, v, out: (B, H, L, 64) bf16, contiguous. Returns the first CUDA
+// error, or 0.
+extern "C" int duodiff_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                       int B, int H, int L, void* stream) {
+  using namespace duodiff;
+  const float scale = 1.f / sqrtf(static_cast<float>(kDh));
+  return launch_attn_core(split_heads(static_cast<const bf16*>(q), L, H, kDh),
+                          split_heads(static_cast<const bf16*>(k), L, H, kDh),
+                          split_heads(static_cast<const bf16*>(v), L, H, kDh),
+                          split_heads(static_cast<bf16*>(out), L, H, kDh), B, L, H, scale,
+                          static_cast<cudaStream_t>(stream));
+}

@@ -3,7 +3,9 @@
 CIFAR-10 reads the train split's python pickle batches with numpy alone:
 items are NHWC uint8, and the loader's fused scale and offset give
 x / 255 followed by Normalize(0.5, 0.5), i.e. values in [-1, 1]. CelebA
-and ImageNet need image decoding, which the port does not have yet.
+and ImageNet need image decoding, which the port does not have yet;
+ImageNet-64 is read from its decoded-image cache (``data/cache.py``) when
+one is there.
 """
 
 from __future__ import annotations
@@ -13,16 +15,20 @@ from pathlib import Path
 
 import numpy as np
 
+from duodiff_tpu_torch.data.cache import CACHE_DIR, IMAGENET64_KEY, MemmapCachedDataset
 from duodiff_tpu_torch.data.loader import DataLoader
 from duodiff_tpu_torch.data.sampler import ResumableSeedableSampler
+
+
+# uint8 -> float: x / 255, then Normalize(0.5, 0.5), as one multiply-add
+NORMALIZE_SCALE, NORMALIZE_OFFSET = 2.0 / 255.0, -1.0
 
 
 class Cifar10Dataset:
     """CIFAR-10 train split from ``cifar-10-batches-py/data_batch_{1..5}``
     under ``data_dir/cifar10`` or ``data_dir``."""
 
-    # uint8 -> float: x / 255, then (x - .5) / .5, as one multiply-add
-    scale, offset = 2.0 / 255.0, -1.0
+    scale, offset = NORMALIZE_SCALE, NORMALIZE_OFFSET
 
     def __init__(self, data_dir):
         root = Path(data_dir) / "cifar10" / "cifar-10-batches-py"
@@ -52,6 +58,15 @@ def get_dataloader(dataset: str, batch_size: int, seed: int, data_dir) -> DataLo
     if dataset == "cifar10":
         ds = Cifar10Dataset(data_dir)
         return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed))
-    if dataset in ("celeba", "imagenet64", "imagenet256"):
+    if dataset == "imagenet64":
+        cache = Path(data_dir) / CACHE_DIR / IMAGENET64_KEY
+        if not (cache / "meta.json").exists():
+            raise NotImplementedError(
+                f"dataset 'imagenet64' needs image decoding, which is not ported yet, unless "
+                f"its decoded cache is at {cache} (the JAX package builds it with "
+                "--cache_data; duodiff_tpu_torch.data.synthetic writes a synthetic one)")
+        ds = MemmapCachedDataset(cache, scale=NORMALIZE_SCALE, offset=NORMALIZE_OFFSET)
+        return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed))
+    if dataset in ("celeba", "imagenet256"):
         raise NotImplementedError(f"dataset {dataset!r} needs image decoding, not ported yet")
     raise ValueError(f"Dataset {dataset} not implemented.")

@@ -59,6 +59,31 @@ def ddpm_loop(
     return (x, state) if stateful else x
 
 
+def make_guided_apply(apply_fn: Callable, guidance_scale: float, null_label: int) -> Callable:
+    """Classifier-free guidance: an ``apply_fn(x, t, y)`` computing
+
+        out = out_null + w * (out_cond - out_null)
+
+    with ONE forward at twice the batch (the conditional half first, the
+    null-label half second), so it composes with :func:`ddpm_loop`,
+    :class:`DDPMSampler` and :func:`duodiff_sample` unchanged. ``w = 1`` is
+    the conditional model, ``w = 0`` the unconditional one. Any leading
+    arguments pass through untouched; only the trailing (x, t, y) triple is
+    doubled."""
+
+    def guided(*args):
+        *lead, x, t, y = args
+        if y is None:
+            raise ValueError("guidance needs class labels")
+        b = x.shape[0]
+        out = apply_fn(*lead, torch.cat([x, x]), torch.cat([t, t]),
+                       torch.cat([y, torch.full_like(y, null_label)]))
+        cond, uncond = out[:b], out[b:]
+        return uncond + guidance_scale * (cond - uncond)
+
+    return guided
+
+
 def make_block_cached_apply(apply_anchor: Callable, apply_cached: Callable, every,
                             t_first: int) -> Callable:
     """Training-free block caching (the Delta-DiT / DeepCache family): on

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from duodiff_tpu_torch.ops.attention import multi_head_attention
 from duodiff_tpu_torch.ops.block import (
     FusedAttnSublayerFn,
     FusedMlpSublayerFn,
@@ -38,7 +39,13 @@ from duodiff_tpu_torch.ops.block_int8 import (
 )
 
 INT8_IMPLS = ("fused_int8", "plain_int8")
-ATTN_IMPLS = ("fused", "plain", *INT8_IMPLS)
+# the unfused block: separate LayerNorm, projections and attention dispatch
+# (xla: plain attention; pallas: the attention kernels K9 / K10;
+# pallas_plain: their plain versions)
+UNFUSED_IMPLS = ("xla", "pallas", "pallas_plain")
+ATTN_IMPLS = ("fused", "plain", *UNFUSED_IMPLS, *INT8_IMPLS)
+# the unfused block's MLP: "auto" the plain one, "fused" the sublayer kernel (K2 / K7)
+MLP_IMPLS = ("auto", "fused")
 # attn_impl -> (attention sublayer, MLP sublayer)
 _SUBLAYERS = {
     "fused": (fused_attn_sublayer, fused_mlp_sublayer),
@@ -86,6 +93,16 @@ def dense(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:
     """flax ``nn.Dense(dtype=dtype)`` on a torch Linear's parameters."""
     y = torch.matmul(x.to(dtype), linear.weight.to(dtype).t())
     return y if linear.bias is None else y + linear.bias.to(dtype)
+
+
+def flax_layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """flax ``nn.LayerNorm(epsilon=1e-5, dtype=float32)`` on a torch
+    LayerNorm's parameters: fp32 statistics with the fast variance
+    E[x^2] - E[x]^2; returns fp32."""
+    xv = x.float()
+    mean = xv.mean(-1, keepdim=True)
+    var = torch.clamp(xv.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
+    return (xv - mean) * (torch.rsqrt(var + norm.eps) * norm.weight) + norm.bias
 
 
 class PatchEmbed(nn.Module):
@@ -141,20 +158,35 @@ class Block(nn.Module):
     instead: ``"fused"`` runs the autograd Functions that pair K1 and K2
     with their backward kernels K6 and K7 (bf16 only), ``"plain"`` runs
     autograd through the plain versions; the int8 impls have no backward.
+
+    ``"xla"``, ``"pallas"`` and ``"pallas_plain"`` run the unfused block of
+    the JAX package instead (``x + attn(LN(x))`` then ``x + mlp(LN(x))``,
+    each residual added in the compute dtype): LayerNorm with fp32
+    statistics cast to the compute dtype, q, k and v as three products
+    landing in (B, H, L, Dh), :func:`multi_head_attention` (for ``"pallas"``
+    the attention kernels K9 and K10), the head merge and the out
+    projection, then the plain MLP. These products are plain matmuls, as
+    the JAX package leaves them to XLA. The unfused block reads the live
+    parameters in training and in eval, and autograd differentiates it.
+    ``mlp_impl="fused"`` pairs it with the fused MLP sublayer (K2, and K7 in
+    training) in place of the plain MLP.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, skip: bool = False,
                  gelu_approx: bool = False, attn_impl: str = "plain",
-                 int8_mlp_scales: Optional[tuple] = None):
+                 int8_mlp_scales: Optional[tuple] = None, mlp_impl: str = "auto"):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        if mlp_impl not in MLP_IMPLS:
+            raise ValueError(f"mlp_impl must be one of {MLP_IMPLS}, got {mlp_impl!r}")
         if int8_mlp_scales is not None and attn_impl not in INT8_IMPLS:
             raise ValueError(f"int8_mlp_scales need an int8 attn_impl, got {attn_impl!r}")
         self.num_heads = num_heads
         self.gelu_approx = gelu_approx
         self.attn_impl = attn_impl
+        self.mlp_impl = mlp_impl
         self.int8_mlp_scales = int8_mlp_scales
         self.skip_linear = nn.Linear(2 * dim, dim) if skip else None
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -191,10 +223,17 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
         training = self.training and torch.is_grad_enabled()
-        if self._packed is None and not training:
+        unfused = self.attn_impl in UNFUSED_IMPLS
+        reads_packed = not training and (not unfused or self.mlp_impl == "fused")
+        if self._packed is None and reads_packed:
             raise RuntimeError("Block operands are not packed: call UViT.pack_for_kernels()")
         if self.skip_linear is not None:
             x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
+        if unfused:
+            x = x + self._attention(x).to(x.dtype)
+            if self.mlp_impl == "fused":
+                return self._fused_mlp(x, training)
+            return x + self._mlp(x).to(x.dtype)
         if training:
             return self._train_forward(x)
         attn_ops, mlp_ops = self._packed
@@ -202,18 +241,54 @@ class Block(nn.Module):
         x = attn(x, *attn_ops, num_heads=self.num_heads)
         return mlp(x, *mlp_ops, gelu_approx=self.gelu_approx)
 
+    def _attention(self, x: torch.Tensor) -> torch.Tensor:
+        """attn(LN(x)) of the unfused block, (B, L, D) in x's dtype."""
+        dt = x.dtype
+        b, l, d = x.shape
+        qkv = self.attn["qkv"]
+        xn = flax_layer_norm(x, self.norm1).to(dt)
+        w = qkv.weight.to(dt)  # (3D, D): q, k and v rows, each head-major
+        heads = []
+        for i in range(3):
+            t = torch.matmul(xn, w[i * d:(i + 1) * d].t())
+            if qkv.bias is not None:
+                t = t + qkv.bias[i * d:(i + 1) * d].to(dt)
+            heads.append(t.reshape(b, l, self.num_heads, -1).transpose(1, 2).contiguous())
+        out = multi_head_attention(*heads, impl=self.attn_impl).to(dt)  # (B, H, L, Dh)
+        return dense(out.transpose(1, 2).reshape(b, l, d), self.attn["proj"], dt)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """mlp(LN(x)) of the unfused block, in x's dtype."""
+        dt = x.dtype
+        hidden = dense(flax_layer_norm(x, self.norm2).to(dt), self.mlp["fc1"], dt)
+        hidden = F.gelu(hidden, approximate="tanh" if self.gelu_approx else "none")
+        return dense(hidden, self.mlp["fc2"], dt)
+
+    def _mlp_params(self):
+        norm2, fc1, fc2 = self.norm2, self.mlp["fc1"], self.mlp["fc2"]
+        return norm2.weight, norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias
+
+    def _check_bf16(self, x: torch.Tensor, what: str) -> None:
+        if x.dtype != torch.bfloat16:
+            raise ValueError(
+                f"{what} trains in bf16 only (the backward kernels take bf16), got "
+                f"{x.dtype}: pass --use_amp, or train with attn_impl 'plain'"
+            )
+
+    def _fused_mlp(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        """The fused MLP sublayer after an unfused attention (mlp_impl "fused")."""
+        if not training:
+            return fused_mlp_sublayer(x, *self._packed[1], gelu_approx=self.gelu_approx)
+        self._check_bf16(x, "mlp_impl 'fused'")
+        return FusedMlpSublayerFn.apply(x.contiguous(), *self._mlp_params(), self.gelu_approx, 1e-5)
+
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The two sublayers on the live parameters, differentiable."""
         norm1, qkv, proj = self.norm1, self.attn["qkv"], self.attn["proj"]
-        norm2, fc1, fc2 = self.norm2, self.mlp["fc1"], self.mlp["fc2"]
         attn_params = (norm1.weight, norm1.bias, qkv.weight, qkv.bias, proj.weight, proj.bias)
-        mlp_params = (norm2.weight, norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        mlp_params = self._mlp_params()
         if self.attn_impl == "fused":
-            if x.dtype != torch.bfloat16:
-                raise ValueError(
-                    f"attn_impl 'fused' trains in bf16 only (the backward kernels take "
-                    f"bf16), got {x.dtype}: pass --use_amp, or train with attn_impl 'plain'"
-                )
+            self._check_bf16(x, "attn_impl 'fused'")
             x = FusedAttnSublayerFn.apply(x.contiguous(), *attn_params, self.num_heads, 1e-5)
             return FusedMlpSublayerFn.apply(x, *mlp_params, self.gelu_approx, 1e-5)
         if self.attn_impl == "plain":

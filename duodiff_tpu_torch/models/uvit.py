@@ -6,7 +6,7 @@
   -> LayerNorm -> decoder_pred -> drop extra tokens -> unpatchify -> 3x3 conv
 
 Parameters are fp32 under the reference's state-dict names (those
-``duodiff_tpu.utils.torch_export.export_uvit`` emits), so a JAX parameter
+``duodiff_tpu_torch.utils.convert.export_uvit`` emits), so a JAX parameter
 tree or a reference ``.pth`` loads with ``strict=True``. Activations run in
 ``dtype``. Call :meth:`UViT.pack_for_kernels` after the weights are final
 and on their device, before the first forward.
@@ -26,6 +26,7 @@ from duodiff_tpu_torch.models.layers import (
     PatchEmbed,
     TimeEmbed,
     dense,
+    flax_layer_norm,
     timestep_embedding,
     unpatchify,
 )
@@ -42,7 +43,7 @@ class UViT(nn.Module):
 
     def __init__(self, config: UViTConfig, *, dtype=torch.bfloat16,
                  attn_impl: str = "plain", gelu_approx: bool = False,
-                 int8_mlp_scales: Optional[tuple] = None):
+                 int8_mlp_scales: Optional[tuple] = None, mlp_impl: str = "auto"):
         super().__init__()
         cfg = config
         d = cfg.embed_dim
@@ -59,6 +60,7 @@ class UViT(nn.Module):
         common = dict(
             dim=d, num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
             qkv_bias=cfg.qkv_bias, gelu_approx=gelu_approx, attn_impl=attn_impl,
+            mlp_impl=mlp_impl,
         )
 
         def blk(i: int, **kw) -> Block:
@@ -103,12 +105,7 @@ class UViT(nn.Module):
         """Final norm + linear decoder + unpatchify + 3x3 conv."""
         cfg = self.config
         dt = self.dtype
-        # flax nn.LayerNorm(dtype=f32): fast variance E[x^2] - E[x]^2
-        xv = x.float()
-        mean = xv.mean(-1, keepdim=True)
-        var = torch.clamp(xv.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
-        x = (xv - mean) * (torch.rsqrt(var + 1e-5) * self.norm.weight) + self.norm.bias
-        x = dense(x, self.decoder_pred, dt)
+        x = dense(flax_layer_norm(x, self.norm), self.decoder_pred, dt)
         x = unpatchify(x[:, cfg.extras:, :], cfg.in_chans)
         if self.final_layer is not None:
             # NHWC SAME 3x3 conv in the compute dtype, bias added after
@@ -209,11 +206,12 @@ def _init_params(model: UViT, generator: torch.Generator) -> None:
 
 def init_uvit(config: UViTConfig, *, device, dtype=torch.bfloat16,
               generator: torch.Generator, attn_impl: str = "plain",
-              gelu_approx: bool = False, int8_mlp_scales: Optional[tuple] = None) -> UViT:
+              gelu_approx: bool = False, int8_mlp_scales: Optional[tuple] = None,
+              mlp_impl: str = "auto") -> UViT:
     """A UViT with random fp32 weights drawn on the CPU from ``generator``
     (a CPU generator, so the weights do not depend on ``device``), then
     moved to ``device``. ``dtype`` is the compute dtype."""
     model = UViT(config, dtype=dtype, attn_impl=attn_impl, gelu_approx=gelu_approx,
-                 int8_mlp_scales=int8_mlp_scales)
+                 int8_mlp_scales=int8_mlp_scales, mlp_impl=mlp_impl)
     _init_params(model, generator)
     return model.to(device)

@@ -37,6 +37,9 @@ _SIGNATURES = {
     "duodiff_mlp_sublayer_int8": ([_PTR] * 16 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_attn_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_flash_attention": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+    "duodiff_flash_attention_bwd": ([_PTR] * 8 + [_INT] * 3 + [_PTR], _INT),
+    "duodiff_flash_attention_bwd_stats": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_attn_sublayer_bwd_workspace": ([_INT] * 4, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_attn_core_smem_bytes": ([_INT], _INT),

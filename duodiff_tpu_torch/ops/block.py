@@ -34,7 +34,9 @@ import torch.nn.functional as F
 # what the CUDA kernels take: bf16 activations, head width 64, a 16-byte
 # aligned row of every operand (widths multiple of 8), and the attention
 # core's dynamic shared memory within a block's 227 KB opt-in limit, less
-# the core's 256 bytes of static shared memory
+# the core's 256 bytes of static shared memory (L <= 272). Checked on the
+# card at D = 512 with 8 heads and L = 257, and at D = 768 with 12 heads and
+# L = 258 (chip_smoke.py phase 2)
 HEAD_DIM = 64
 _MAX_SMEM_BYTES = 227 * 1024 - 256
 

@@ -10,11 +10,21 @@
 With a late model and ``--t_switch N`` the first model runs the N high-noise
 steps t = T-1 .. T-N and the late model the rest; without, the first model
 runs all T steps. The samples are written as one ``samples.npy``, uint8
-NHWC. ``--attn_impl`` picks the block sublayers: ``fused`` (the CUDA
-kernels; default on a CUDA device), ``plain`` (default on the CPU) or
-``fused_int8`` (the W8A8 kernels; ``--int8_scales`` / ``--int8_scales_late``
-give the early / late model static MLP activation scales, else they are
-dynamic per row).
+NHWC. ``--attn_impl`` picks the block: ``fused`` (the fused sublayer
+kernels K1 / K2; default on a CUDA device), ``plain`` (their plain PyTorch
+versions; default on the CPU), ``fused_int8`` (the W8A8 kernels K11 / K12;
+``--int8_scales`` / ``--int8_scales_late`` give the early / late model
+static MLP activation scales, else they are dynamic per row), ``pallas``
+(the unfused block around the attention kernel K9) or ``xla`` (the unfused
+block around plain attention).
+
+Class-conditional models need labels: ``--fixed_class N`` (every sample
+class N), ``--class_id`` alone (random labels in [1, min(1001,
+num_classes)), the reference's behaviour, the value ignored), or
+``--class_id N --guidance_scale W`` (classifier-free guidance on class N,
+``-1`` for random real classes in [0, null_class); ``--null_class`` is the
+null label, default ``num_classes - 1``). A guided step is one forward at
+twice the batch.
 
 Block caching (``--cache_every N`` or ``--cache_schedule FILE``): the
 centered blocks recompute only on anchor steps and their residual is reused
@@ -34,7 +44,11 @@ import numpy as np
 import torch
 
 from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
-from duodiff_tpu_torch.diffusion.sampling import DDPMSampler, make_block_cached_apply
+from duodiff_tpu_torch.diffusion.sampling import (
+    DDPMSampler,
+    make_block_cached_apply,
+    make_guided_apply,
+)
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.utils.model_loading import load_model
 
@@ -55,6 +69,20 @@ def get_args(argv=None):
     parser.add_argument("--t_switch", type=int, default=None,
                         help="Number of high-noise steps the first model runs "
                              "before the late model takes over")
+    parser.add_argument("--class_id", type=int, default=None,
+                        help="Class-conditional sampling. Unguided: random labels in "
+                             "[1, min(1001, num_classes)) (the value is ignored). Guided "
+                             "(--guidance_scale): sample this class; -1 draws uniform "
+                             "random real classes in [0, null_class)")
+    parser.add_argument("--guidance_scale", type=float, default=None,
+                        help="Classifier-free guidance weight w: out = out_null + "
+                             "w * (out_cond - out_null) from one forward at twice the "
+                             "batch. Needs weights trained with --label_dropout")
+    parser.add_argument("--null_class", type=int, default=None,
+                        help="Null-label index for guidance (default num_classes - 1)")
+    parser.add_argument("--fixed_class", type=int, default=None,
+                        help="Unguided class-conditional sampling of this class for "
+                             "every sample")
     parser.add_argument("--cache_every", type=int, default=None,
                         help="Block caching: recompute the middle blocks only on "
                              "anchor steps (t %% N == 0, and the first step of the "
@@ -74,9 +102,11 @@ def get_args(argv=None):
                         help="tanh-approximate GELU in the MLP sublayers")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--attn_impl", type=str, default=None,
-                        choices=["fused", "plain", "fused_int8"],
-                        help="Block sublayers: fused kernels, plain PyTorch or the "
-                             "W8A8 kernels (default: fused on CUDA, plain on the CPU)")
+                        choices=["fused", "plain", "fused_int8", "pallas", "xla"],
+                        help="Block: fused sublayer kernels, their plain PyTorch "
+                             "versions, the W8A8 kernels, or the unfused block around "
+                             "the attention kernel (pallas) or plain attention (xla) "
+                             "(default: fused on CUDA, plain on the CPU)")
     parser.add_argument("--int8_scales", type=str, default=None,
                         help="tools/calibrate_int8.py JSON: static MLP activation "
                              "scales of the (early) model for --attn_impl fused_int8")
@@ -88,6 +118,47 @@ def get_args(argv=None):
 def to_uint8(img01: np.ndarray) -> np.ndarray:
     img01 = np.nan_to_num(img01, nan=0.0, posinf=1.0, neginf=0.0)
     return (np.clip(img01, 0.0, 1.0) * 255.0).round().astype(np.uint8)
+
+
+def class_labels(args, num_classes: int, generator: torch.Generator):
+    """The labels (B,) int64 on the generator's device, or None, and the null
+    label for guidance, by the JAX CLI's rules. Every label is checked
+    against ``num_classes`` here, on the host: an out-of-range index into
+    the label embedding would fail on the device, far from its cause."""
+    batch, device = args.batch_size, generator.device
+    if args.fixed_class is not None:
+        if args.class_id is not None or args.guidance_scale is not None:
+            raise SystemExit("--fixed_class is the unguided fixed-label mode; don't combine "
+                             "with --class_id/--guidance_scale (guided sampling already "
+                             "honors --class_id)")
+        if not 0 <= args.fixed_class < num_classes:
+            raise SystemExit(f"--fixed_class must be in [0, {num_classes})")
+        return torch.full((batch,), args.fixed_class, dtype=torch.long, device=device), None
+    if args.guidance_scale is None:
+        if args.class_id is None:
+            return None, None
+        if num_classes < 2:
+            raise SystemExit(f"--class_id needs a class-conditional model with at least 2 "
+                             f"classes, got num_classes={num_classes}")
+        # the reference draws in [1, 1001); labels past the embedding table are refused
+        return torch.randint(1, min(1001, num_classes), (batch,), generator=generator,
+                             device=device), None
+    if args.class_id is None:
+        raise SystemExit("--guidance_scale needs --class_id (labels)")
+    null = args.null_class if args.null_class is not None else num_classes - 1
+    if null < 1:
+        raise SystemExit("--guidance_scale needs a class-conditional model with a reserved "
+                         f"null slot: num_classes={num_classes}, null_class={null} leaves no "
+                         "real classes")
+    if null >= num_classes:
+        raise SystemExit(f"--null_class {null} is not a label of this model: labels lie in "
+                         f"[0, {num_classes})")
+    if args.class_id >= null:
+        raise SystemExit(f"--class_id {args.class_id} is not a real class: guided labels "
+                         f"must lie in [0, {null}) (null_class and above are reserved)")
+    if args.class_id >= 0:
+        return torch.full((batch,), args.class_id, dtype=torch.long, device=device), null
+    return torch.randint(0, null, (batch,), generator=generator, device=device), null
 
 
 def main(argv=None) -> dict:
@@ -112,6 +183,9 @@ def main(argv=None) -> dict:
     if cache_on:
         if args.cache_every is not None and args.cache_every < 1:
             raise SystemExit("--cache_every must be >= 1")
+        if args.guidance_scale is not None:
+            raise SystemExit("--cache_every/--cache_schedule does not support "
+                             "--guidance_scale")
         if has_late and args.t_switch is None:
             raise SystemExit("--cache_every/--cache_schedule with a late model needs "
                              "--t_switch (the cached segment starts at the DuoDiff "
@@ -134,15 +208,16 @@ def main(argv=None) -> dict:
             device=device, seed=seed, attn_impl=attn_impl,
             gelu_approx=args.gelu_approx, int8_scales=int8_scales,
         )
-        if cfg.num_classes > 0:
-            raise SystemExit("class-conditional sampling is not ported yet")
         model.pack_for_kernels()
         return model.eval(), cfg
 
     schedule = NoiseSchedule.create(steps=steps, device=device)
 
     def dense_sampler(model):
-        return DDPMSampler(model, schedule, parametrization=args.parametrization)
+        apply = model
+        if null_label is not None:
+            apply = make_guided_apply(model, args.guidance_scale, null_label)
+        return DDPMSampler(apply, schedule, parametrization=args.parametrization)
 
     def cached_sampler(model, cfg, t_first: int, which: str):
         """The model's block-cached sampler; its state is the cached residual,
@@ -165,6 +240,11 @@ def main(argv=None) -> dict:
         )
 
     model, cfg = load(args.config_path, args.checkpoint_path, args.seed, args.int8_scales)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    y, null_label = class_labels(args, cfg.num_classes, generator)
+    if cfg.num_classes > 0 and y is None:
+        raise SystemExit("a class-conditional model needs labels: pass --class_id "
+                         "(with or without --guidance_scale) or --fixed_class")
     if has_late:
         late, late_cfg = load(args.config_path_late or args.config_path,
                               args.checkpoint_path_late, args.seed + 1,
@@ -178,7 +258,6 @@ def main(argv=None) -> dict:
         sampler = cached_sampler(model, cfg, steps - 1, "") if cache_on else dense_sampler(model)
         segments = [(sampler, steps - 1, 0)]
     shape = (args.batch_size, cfg.img_size, cfg.img_size, cfg.in_chans)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
 
     print(f"Sampling {args.batch_size} images on {device} (attn_impl={attn_impl}, "
           f"cache={'on' if cache_on else 'off'})...")
@@ -191,9 +270,10 @@ def main(argv=None) -> dict:
             if t_hi < t_lo:
                 continue
             if sampler.init_state_fn is None:
-                x = sampler.run(x, generator, t_hi, t_lo)
+                x = sampler.run(x, generator, t_hi, t_lo, y)
             else:
-                x, _ = sampler.run(x, generator, t_hi, t_lo, state=sampler.init_state_fn(x))
+                x, _ = sampler.run(x, generator, t_hi, t_lo, y,
+                                       state=sampler.init_state_fn(x))
         samples = ((x + 1.0) / 2.0).cpu().numpy()  # waits for the device
         elapsed = time.perf_counter() - tic
 

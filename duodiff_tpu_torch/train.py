@@ -7,10 +7,15 @@ names, plus ``--device``).
         --device cuda
 
 ``--config_path`` overlays the file's ``model_params`` on the flags.
-``--attn_impl`` picks the block sublayers: ``fused`` (K1/K2 forward and
-K6/K7 backward kernels, bf16 under ``--use_amp``; default on CUDA) or
-``plain`` (autograd through the plain PyTorch sublayers; default on the
-CPU). Flags whose machinery is not ported yet are refused with a message.
+``--attn_impl`` picks the block: ``fused`` (K1/K2 forward and K6/K7
+backward kernels, bf16 under ``--use_amp``; default on CUDA), ``plain``
+(autograd through the plain PyTorch sublayers; default on the CPU),
+``pallas`` (the unfused block around the attention kernels K9 forward and
+K10 backward, bf16 on CUDA) or ``xla`` (the unfused block around plain
+attention). ``--dataset imagenet64`` reads the decoded-image cache under
+``<data_path>/_duodiff_cache`` (``data/synthetic.py`` writes a synthetic
+one); ``--label_dropout P`` trains for classifier-free guidance. Flags
+whose machinery is not ported yet are refused with a message.
 Checkpoints land in ``<log_path>/<exp_name>/<save_name>_last/checkpoint.pth``;
 ``python -m duodiff_tpu_torch.sample --checkpoint_path`` loads that file.
 """
@@ -35,9 +40,12 @@ def get_args(argv=None):
     p.add_argument("--amp_dtype", type=str, default="bfloat16")
     p.add_argument("--attn_impl", type=str, default=None,
                    choices=["auto", "xla", "pallas", "fused", "plain"],
-                   help="Block sublayers: fused kernels or plain PyTorch (default: fused "
-                        "on CUDA, plain on the CPU); xla and pallas are not ported")
-    p.add_argument("--label_dropout", type=float, default=0.0)
+                   help="Block: fused sublayer kernels, their plain PyTorch versions, or "
+                        "the unfused block around the attention kernels (pallas) or plain "
+                        "attention (xla) (default, and auto: fused on CUDA, plain on the CPU)")
+    p.add_argument("--label_dropout", type=float, default=0.0,
+                   help="Classifier-free-guidance training: replace this fraction of the "
+                        "labels by the null label (num_classes - 1)")
     p.add_argument("--gelu", type=str, default="exact", choices=["exact", "tanh"])
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--use_checkpoint", action="store_true", default=False)
@@ -102,7 +110,8 @@ def get_args(argv=None):
                    choices=["cifar10", "celeba", "imagenet64", "imagenet256"])
     p.add_argument("--data_path", type=str, default="data")
     p.add_argument("--cache_data", action="store_true", default=False,
-                   help="Accepted; CIFAR-10, the one dataset ported, lives in memory")
+                   help="Accepted; CIFAR-10 lives in memory and imagenet64 is read from "
+                        "its cache only")
     # Parallelism
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--fsdp", action="store_true", default=False)

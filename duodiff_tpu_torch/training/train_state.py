@@ -124,16 +124,22 @@ class TrainState:
         torch._foreach_add_(shadow, self.optimizer.params, alpha=1.0 - d)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+_LABEL_DROP_STREAM = 0x1ABE1  # the JAX package's fold_in constant for the drop draw
+
+
+def step_generator(seed: int, step: int, device, stream: int = 0) -> torch.Generator:
     """The generator of one step's draws, a function of (seed, step) only,
-    so a resumed run draws what an unbroken one would."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    so a resumed run draws what an unbroken one would. ``stream`` gives a
+    second, independent generator for the same step."""
+    entropy = [seed, step] + ([stream] if stream else [])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 
 def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrization: str,
                     seed: int, has_labels: bool = False, teacher: Optional[nn.Module] = None,
-                    distill_alpha: float = 1.0, t_min: int = 0):
+                    distill_alpha: float = 1.0, t_min: int = 0, label_dropout: float = 0.0,
+                    null_label: Optional[int] = None):
     """Build ``train_step(state, batch, step) -> metrics``.
 
     A step draws uniform timesteps in [t_min, steps) and the noise from
@@ -146,8 +152,16 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     loss is ``alpha * MSE(student, teacher) + (1 - alpha) * task``, the
     teacher run under no grad. ``train_step.loss_fn(batch, timesteps,
     noise)`` returns (loss, metrics) for injected draws.
+
+    Classifier-free-guidance training: with ``label_dropout`` > 0 a
+    Bernoulli(label_dropout) mask per sample replaces labels by
+    ``null_label``. The mask comes from a generator of its own
+    (:func:`drop_mask`), so the timesteps and the noise are those of a
+    ``label_dropout=0`` run to the bit. ``loss_fn(..., drop=mask)`` injects it.
     """
     params = list(model.parameters())
+    if label_dropout > 0.0 and (not has_labels or null_label is None):
+        raise ValueError("label_dropout needs labels and a null_label")
 
     def draws(batch, step: int):
         clean = batch["image"]
@@ -157,9 +171,19 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
         noise = torch.randn(clean.shape, generator=g, device=clean.device, dtype=torch.float32)
         return timesteps, noise
 
-    def loss_fn(batch, timesteps, noise):
+    def drop_mask(batch, step: int):
+        """The step's label-drop mask (B,) bool, or None without label_dropout."""
+        if label_dropout <= 0.0:
+            return None
+        clean = batch["image"]
+        g = step_generator(seed, step, clean.device, _LABEL_DROP_STREAM)
+        return torch.rand((clean.shape[0],), generator=g, device=clean.device) < label_dropout
+
+    def loss_fn(batch, timesteps, noise, drop=None):
         clean = batch["image"].float()
         labels = batch.get("label") if has_labels else None
+        if drop is not None:
+            labels = torch.where(drop, torch.full_like(labels, null_label), labels)
         noisy = schedule.add_noise(clean, timesteps, noise)
         t = timesteps.float()
         pred = model(noisy, t, labels)
@@ -175,20 +199,22 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
             metrics = {"train_loss": loss, "distill_loss": distill, "task_loss": task}
         return loss, metrics
 
-    def backward(batch, timesteps, noise) -> tuple[dict, list]:
+    def backward(batch, timesteps, noise, drop=None) -> tuple[dict, list]:
         """Loss and gradients (fp32, one per parameter) for injected draws."""
         model.train()
         for p in params:
             p.grad = None
-        loss, metrics = loss_fn(batch, timesteps, noise)
+        loss, metrics = loss_fn(batch, timesteps, noise, drop)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         return metrics, grads
 
-    def train_step(state: TrainState, batch, step: int, timesteps=None, noise=None) -> dict:
+    def train_step(state: TrainState, batch, step: int, timesteps=None, noise=None,
+                   drop=None) -> dict:
         if timesteps is None:
             timesteps, noise = draws(batch, step)
-        metrics, grads = backward(batch, timesteps, noise)
+            drop = drop_mask(batch, step)
+        metrics, grads = backward(batch, timesteps, noise, drop)
         metrics["grad_norm"] = state.optimizer.step(grads)
         state.update_ema()
         return {k: v.detach() for k, v in metrics.items()}
@@ -196,4 +222,5 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     train_step.loss_fn = loss_fn
     train_step.backward = backward
     train_step.draws = draws
+    train_step.drop_mask = drop_mask
     return train_step

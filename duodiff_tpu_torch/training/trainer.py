@@ -3,8 +3,10 @@
 
 ``Trainer(args).train()`` with ``main.py``'s flag surface: the model (the
 fused K1/K2 forward and K6/K7 backward kernels on CUDA by default, the
-plain PyTorch sublayers on the CPU), an optional distillation teacher, the
-CIFAR-10 loader, AdamW with clipping and the cosine-warmup schedule, an
+plain PyTorch sublayers on the CPU, or the unfused block around the
+attention kernels K9/K10 with ``--attn_impl pallas``), an optional
+distillation teacher, the CIFAR-10 or cached ImageNet-64 loader,
+classifier-free-guidance label dropout, AdamW with clipping and the cosine-warmup schedule, an
 optional EMA, checkpoints with exact resume, and a SIGTERM
 checkpoint-and-exit. Flags whose machinery is not ported are refused
 (:func:`refuse_unported`).
@@ -33,7 +35,6 @@ _UNPORTED = {
     "model": (lambda v: v != "uvit", "early exit (deediff_uvit)"),
     "load_backbone": (bool, "early-exit backbone loading"),
     "freeze_backbone": (bool, "early-exit backbone freezing"),
-    "label_dropout": (lambda v: bool(v), "classifier-free-guidance training"),
     "log_every_n_steps": (lambda v: v is not None, "in-training sampling and image logging"),
     "grad_accum": (lambda v: (v or 1) > 1, "gradient accumulation"),
     "skip_nonfinite": (lambda v: bool(v), "skipping non-finite updates"),
@@ -43,8 +44,6 @@ _UNPORTED = {
     "fsdp": (bool, "multi-GPU parameter sharding"),
     "model_parallel": (lambda v: (v or 1) > 1, "multi-GPU tensor parallelism"),
     "multihost": (bool, "multi-host training"),
-    "attn_impl": (lambda v: v in ("xla", "pallas"),
-                  "the standalone attention kernels K9 and K10"),
 }
 
 
@@ -94,11 +93,35 @@ class Trainer:
         self.logger.log_hparams(vars(args))
         self.start_step = 0
         self._maybe_resume()
+        label_dropout = getattr(args, "label_dropout", 0.0) or 0.0
         self._train_step = make_train_step(
             self.model, self.schedule, parametrization=args.parametrization, seed=args.seed,
             has_labels=self.has_labels, teacher=self.teacher,
             distill_alpha=args.distill_alpha, t_min=args.distill_t_min or 0,
+            label_dropout=label_dropout, null_label=self._null_label(label_dropout),
         )
+
+    def _null_label(self, label_dropout: float):
+        """The null label of classifier-free-guidance training, the last
+        embedding slot, or None without ``--label_dropout``. Refuses a
+        model without labels, and a config whose ``num_classes`` leaves the
+        null token no slot beyond the dataset's real classes (it would alias
+        the last class)."""
+        if label_dropout <= 0.0:
+            return None
+        num_classes = self.model_config.num_classes
+        if not self.has_labels or num_classes <= 0:
+            raise ValueError("--label_dropout needs a class-conditional model "
+                             "(num_classes > 0); it would silently be a no-op here")
+        real = getattr(self.dataloader.dataset, "num_real_classes", None)
+        if real is not None and num_classes <= real:
+            raise ValueError(
+                f"--label_dropout needs num_classes > the dataset's real class count ({real}) "
+                f"so the null token gets its own embedding slot; this config has "
+                f"num_classes={num_classes}, which would alias the null token onto real class "
+                f"{num_classes - 1} (use e.g. num_classes: {real + 1})")
+        print(f"label_dropout={label_dropout}: using null label {num_classes - 1}")
+        return num_classes - 1
 
     def _init_model(self):
         print(f"Training on {self.device} (attn_impl={self.attn_impl}, "

@@ -28,6 +28,7 @@ def load_model(
     attn_impl: str = "plain",
     gelu_approx: bool = False,
     int8_scales: Optional[str] = None,
+    mlp_impl: str = "auto",
 ) -> tuple[UViT, UViTConfig]:
     """Build the UViT a config file describes, with random weights from
     ``seed`` or the weights of ``checkpoint_path`` (loaded strictly), on
@@ -46,6 +47,7 @@ def load_model(
         cfg, device="cpu", dtype=dtype,
         generator=torch.Generator().manual_seed(seed),
         attn_impl=attn_impl, gelu_approx=gelu_approx, int8_mlp_scales=scales,
+        mlp_impl=mlp_impl,
     )
     if checkpoint_path:
         state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)

@@ -1,7 +1,8 @@
-"""The sampling CLI's int8 and block-caching flags
+"""The sampling CLI's int8, block-caching and class flags
 (``python -m duodiff_tpu_torch.sample``, run in-process on the CPU at a
 tiny config): W8A8 sublayers with a scales file, block-cached single-model
-and DuoDiff runs, and the refusals ``sampler.py`` makes."""
+and DuoDiff runs, class-conditional and guided runs through the unfused
+block, and the refusals ``sampler.py`` makes."""
 
 import json
 
@@ -106,3 +107,102 @@ def test_refusals(files, name):
     exc, match, argv = REFUSALS[name]
     with pytest.raises(exc, match=match):
         sample.main(argv(files))
+
+
+# --- class-conditional sampling ------------------------------------------------
+
+CLASSES = 10
+
+
+@pytest.fixture(scope="module")
+def labelled(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli_classes")
+    out = {"out": str(d / "out")}
+    for depth in (3, 5):
+        path = d / f"classes{depth}.yaml"
+        path.write_text("model_params:\n" + "".join(
+            f"  {k}: {v}\n" for k, v in dict(SMALL, embed_dim=128, num_heads=2, depth=depth,
+                                             num_classes=CLASSES).items()))
+        out[f"config{depth}"] = str(path)
+    return out
+
+
+def _labelled_argv(labelled, *extra):
+    return ["--device", "cpu", "--random_init", "--config_path", labelled["config3"],
+            "--config_path_late", labelled["config5"], "--t_switch", "3",
+            "--num_timesteps", str(STEPS), "--batch_size", "2",
+            "--parametrization", "predict_noise", "--output_folder", labelled["out"], *extra]
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla", "plain"])
+def test_guided_run_with_scale_one_is_the_conditional_run(labelled, impl):
+    """w = 1 reduces guidance to the conditional model, so the guided run of
+    class 2 equals the unguided --fixed_class 2 run (same seed: no label is
+    drawn in either) to the rounding of uncond + 1 * (cond - uncond)."""
+    guided = _run(_labelled_argv(labelled, "--attn_impl", impl, "--class_id", "2",
+                                 "--guidance_scale", "1.0"))
+    fixed = _run(_labelled_argv(labelled, "--attn_impl", impl, "--fixed_class", "2"))
+    np.testing.assert_allclose(guided, fixed, atol=1e-4)
+    other = _run(_labelled_argv(labelled, "--attn_impl", impl, "--class_id", "2",
+                                "--guidance_scale", "3.0"))
+    assert not np.allclose(other, fixed, atol=1e-4)
+
+
+def test_pallas_and_xla_blocks_sample_alike(labelled):
+    """In fp32 the attention kernel's plain version and plain attention
+    differ in summation order only."""
+    argv = ["--class_id", "-1", "--guidance_scale", "1.5"]
+    np.testing.assert_allclose(_run(_labelled_argv(labelled, "--attn_impl", "pallas", *argv)),
+                               _run(_labelled_argv(labelled, "--attn_impl", "xla", *argv)),
+                               atol=1e-3)
+
+
+def test_random_labels_stay_inside_the_embedding_table(labelled):
+    """Unguided --class_id draws in [1, min(1001, num_classes)); guided -1 in
+    [0, null_class): never an index past the label embedding."""
+    g = torch.Generator().manual_seed(0)
+    args = sample.get_args(_labelled_argv(labelled, "--class_id", "0", "--batch_size", "512"))
+    y, null = sample.class_labels(args, CLASSES, g)
+    assert null is None and y.dtype == torch.long
+    assert int(y.min()) == 1 and int(y.max()) == CLASSES - 1
+    y, null = sample.class_labels(args, 2000, g)
+    assert int(y.max()) <= 1000
+    args = sample.get_args(_labelled_argv(labelled, "--class_id", "-1", "--guidance_scale", "2",
+                                          "--batch_size", "512"))
+    y, null = sample.class_labels(args, CLASSES, g)
+    assert null == CLASSES - 1 and int(y.min()) == 0 and int(y.max()) == CLASSES - 2
+    args.null_class = 5
+    y, null = sample.class_labels(args, CLASSES, g)
+    assert null == 5 and int(y.max()) == 4
+
+
+CLASS_REFUSALS = {
+    "no_labels": ([], "needs labels"),
+    "fixed_with_class_id": (["--fixed_class", "1", "--class_id", "1"], "--fixed_class is the"),
+    "fixed_with_guidance": (["--fixed_class", "1", "--guidance_scale", "2"],
+                            "--fixed_class is the"),
+    "fixed_out_of_range": (["--fixed_class", str(CLASSES)], r"must be in \[0, 10\)"),
+    "guidance_without_labels": (["--guidance_scale", "2"], "needs --class_id"),
+    "class_is_the_null_label": (["--class_id", "9", "--guidance_scale", "2"],
+                                "not a real class"),
+    "class_above_null_class": (["--class_id", "5", "--guidance_scale", "2", "--null_class", "4"],
+                               "not a real class"),
+    "null_class_out_of_range": (["--class_id", "1", "--guidance_scale", "2", "--null_class",
+                                 str(CLASSES)], "not a label of this model"),
+    "null_class_leaves_no_class": (["--class_id", "-1", "--guidance_scale", "2", "--null_class",
+                                    "0"], "leaves no real classes"),
+    "guidance_with_cache": (["--class_id", "1", "--guidance_scale", "2", "--cache_every", "2"],
+                            "does not support --guidance_scale"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLASS_REFUSALS))
+def test_class_flag_refusals(labelled, name):
+    extra, match = CLASS_REFUSALS[name]
+    with pytest.raises(SystemExit, match=match):
+        sample.main(_labelled_argv(labelled, *extra))
+
+
+def test_class_id_on_an_unconditional_model_is_refused(files):
+    with pytest.raises(SystemExit, match="class-conditional model"):
+        sample.main(_argv(files, "--class_id", "1"))

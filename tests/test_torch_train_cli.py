@@ -2,8 +2,9 @@
 on the CPU at a tiny config on synthetic palette data): end to end with a
 falling loss, a resumed run equal to an unbroken one bit for bit, the
 checkpoint in the sampling CLI, distillation, SIGTERM checkpoint-and-exit,
-corrupt-checkpoint skipping, and the refusal of every flag whose machinery
-is not ported."""
+corrupt-checkpoint skipping, the refusal of every flag whose machinery
+is not ported, and class-conditional training on a synthetic ImageNet-64
+cache with the unfused block and label dropout."""
 
 import json
 import signal
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from duodiff_tpu_torch import sample, train
-from duodiff_tpu_torch.data.synthetic import write_palette_cifar
+from duodiff_tpu_torch.data.synthetic import write_palette_cifar, write_palette_imagenet64_cache
 from duodiff_tpu_torch.training.checkpointer import CHECKPOINT_FILE, Checkpointer
 from duodiff_tpu_torch.utils.model_loading import load_model
 
@@ -139,7 +140,6 @@ REFUSED = {
     "deediff": ["--model", "deediff_uvit"],
     "load_backbone": ["--load_backbone", "x.pth"],
     "freeze_backbone": ["--freeze_backbone"],
-    "label_dropout": ["--label_dropout", "0.1"],
     "log_every_n_steps": ["--log_every_n_steps", "5"],
     "grad_accum": ["--grad_accum", "2"],
     "skip_nonfinite": ["--skip_nonfinite", "3"],
@@ -149,8 +149,6 @@ REFUSED = {
     "fsdp": ["--fsdp"],
     "model_parallel": ["--model_parallel", "2"],
     "multihost": ["--multihost"],
-    "attn_impl_xla": ["--attn_impl", "xla"],
-    "attn_impl_pallas": ["--attn_impl", "pallas"],
 }
 
 
@@ -168,3 +166,66 @@ def test_autoencoder_config_and_fp32_fused_are_refused(files, tmp_path):
         train.main(_argv(files, "refused", 2) + ["--config_path", str(latent)])
     with pytest.raises(ValueError, match="--use_amp"):
         train.main(_argv(files, "refused", 2, "--attn_impl", "fused"))
+
+
+def test_label_dropout_is_refused_without_a_class_conditional_model(files):
+    with pytest.raises(ValueError, match="--label_dropout needs a class-conditional model"):
+        train.main(_argv(files, "refused", 2, "--label_dropout", "0.1"))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_unfused_block_trains_like_the_plain_one(files, impl):
+    """--attn_impl xla and pallas run the unfused block; in fp32 on the CPU
+    their three steps follow the plain sublayers' to summation order."""
+    want = train.main(_argv(files, "plain3", 3, "--attn_impl", "plain")).logs[-1]
+    got = train.main(_argv(files, impl, 3, "--attn_impl", impl)).logs[-1]
+    assert got["step"] == 3
+    np.testing.assert_allclose(got["train_loss"], want["train_loss"], rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def imagenet(tmp_path_factory):
+    d = tmp_path_factory.mktemp("imagenet")
+    write_palette_imagenet64_cache(d / "data", n=48, seed=0, num_classes=7)  # labels 0..6
+    out = {"data": str(d / "data"), "logs": str(d / "logs")}
+    for name, classes in (("reserved", 8), ("aliased", 7)):
+        path = d / f"{name}.yaml"
+        path.write_text("model_params:\n" + "".join(f"  {k}: {v}\n" for k, v in dict(
+            TINY, img_size=64, patch_size=16, embed_dim=128, num_heads=2, depth=3,
+            num_classes=classes, normalize_timesteps=False).items()))
+        out[name] = str(path)
+    return out
+
+
+def _imagenet_argv(imagenet, config, exp, *extra):
+    return ["--config_path", imagenet[config], "--dataset", "imagenet64", "--device", "cpu",
+            "--data_path", imagenet["data"], "--log_path", imagenet["logs"], "--exp_name", exp,
+            "--n_steps", "4", "--batch_size", "8", "--num_warmup_steps", "2", "--seed", "0",
+            *extra]
+
+
+@pytest.mark.parametrize("use_amp", [False, True], ids=["fp32", "bf16"])
+def test_imagenet64_cache_trains_with_pallas_and_label_dropout(imagenet, use_amp):
+    extra = ["--attn_impl", "pallas", "--label_dropout", "0.25"] + (["--use_amp"] * use_amp)
+    trainer = train.main(_imagenet_argv(imagenet, "reserved", f"cfg{use_amp}", *extra))
+    assert trainer.has_labels and trainer.model.label_emb.num_embeddings == 8
+    assert [log["step"] for log in trainer.logs] == [1, 4]
+    assert all(np.isfinite(log["train_loss"]) and np.isfinite(log["grad_norm"])
+               for log in trainer.logs)
+    ckpt = trainer.log_path / "imagenet64_uvit_last"
+    model, cfg = load_model(imagenet["reserved"], str(ckpt / CHECKPOINT_FILE), device="cpu",
+                            attn_impl="pallas")
+    assert cfg.num_classes == 8
+    for (name, a), b in zip(model.state_dict().items(), trainer.model.state_dict().values()):
+        assert torch.equal(a, b), name
+
+
+def test_label_dropout_is_refused_when_the_null_label_aliases_a_class(imagenet):
+    with pytest.raises(ValueError, match="alias the null token"):
+        train.main(_imagenet_argv(imagenet, "aliased", "aliased", "--label_dropout", "0.1"))
+
+
+def test_imagenet64_without_a_cache_is_refused(files):
+    with pytest.raises(NotImplementedError, match="image decoding"):
+        train.main(_argv(files, "nocache", 2, "--dataset", "imagenet64"))

@@ -148,5 +148,6 @@ def test_port_imports_no_jax_yaml_or_pil():
                  "diffusion.sampling", "sample", "train", "training.trainer",
                  "training.train_state", "training.losses", "training.lr",
                  "training.checkpointer", "data.sampler", "data.loader", "data.datasets",
-                 "data.synthetic", "utils.train_utils"):
+                 "data.synthetic", "utils.train_utils", "ops.flash_attention",
+                 "ops.attention", "data.cache"):
         assert f"duodiff_tpu_torch.{name}" in imported.split(), name
