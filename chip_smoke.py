@@ -49,16 +49,31 @@ checks them, in phases, each printing its results on its own lines:
    ImageNet-64 cache with label dropout: 100 steps with ``--attn_impl
    pallas`` (K9 forward, K10 backward; the loss must fall), a step's split,
    profile and peak memory, then 20 steps with ``--attn_impl fused`` (K1,
-   K2, K6, K7 at D = 768).
+   K2, K6, K7 at D = 768);
+8. the same fused training with ``DUODIFF_MLP_BWD_SPLIT=1``, so that the MLP
+   sublayer's backward is the hidden-split kernel K8 and K7 never runs: 40
+   steps (the loss must fall; split, profile and peak memory beside phase
+   7's), 20 steps with ``--grad_accum 2 --skip_nonfinite 3`` (10 optimizer
+   updates), a run loaded from that one's checkpoint of step 13, inside an
+   accumulation window, which must end where the unbroken run ended, and 10
+   steps with ``--use_checkpoint`` (every block's forward twice a step);
+   then ``duodiff_tpu_torch.tools.probe_mlp_bwd_split``.
 
 Phase 2 also holds the backward kernels K6 (with and without a qkv bias)
 and K7 (exact and tanh GELU) against their plain versions, the attention
 kernels K9 and K10 at three (B, H, L) with
 ``F.scaled_dot_product_attention`` timed beside them as a yardstick, and
-K1, K2, K6, K7, K11 and K12 at the ImageNet-64 width. Phase 3 also holds
+K1, K2, K6, K7, K11 and K12 at the ImageNet-64 width, and at both widths
+the rest of ``ops/pallas_block.py``: the per-head attention sublayer K1-v1
+and the whole-block kernel K5 against their plain versions, K5 timed beside
+K1 then K2 and K1-v1 beside K1, and K8 at 2, 4 and 8 slices against its
+plain version and against K7, timed beside K7. Phase 3 also holds
 the gradients of the whole depth-13 model and a few optimizer steps, fused
 against plain, and the depth-17 ImageNet-64 forward, gradients and a guided
-DuoDiff trajectory, attention kernels against their plain versions.
+DuoDiff trajectory, attention kernels against their plain versions; a stack
+of the depth-17 model's blocks through ``FusedBlockFn`` (K5 and its chained
+backward) and through K1-v1, against the plain block; and the depth-17
+model's gradients with K8 against those with K7.
 
 The line before the last is the per-kernel JSON record (its ``bound_ms``
 is the least time the card could take at the published H100 SXM peaks, its
@@ -69,7 +84,9 @@ no CPU fallback: without a CUDA device the script exits with code 1.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -174,6 +191,34 @@ BWD_KERNELS = {
         "replaces": "duodiff_tpu/ops/pallas_block.py:1035",
     },
 }
+# the rest of ops/pallas_block.py: the per-head attention sublayer, the
+# whole-block kernel and the hidden-split MLP backward; their recorded times
+# and bounds are those at the ImageNet-64 width, where training runs K8
+BLOCK_KERNELS = {
+    "fused_attn_sublayer_v1": {
+        "source": "duodiff_tpu_torch/csrc/attn_sublayer_v1.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:45",
+    },
+    "fused_block": {
+        "source": "duodiff_tpu_torch/csrc/fused_block.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:415",
+    },
+    "fused_mlp_sublayer_bwd_split": {
+        "source": "duodiff_tpu_torch/csrc/mlp_sublayer_bwd_split.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:1167",
+    },
+}
+# A stack of 17 blocks with no long skips carries every block's bf16
+# roundings, forward and backward, through all the blocks behind it: the
+# gradients of FusedBlockFn against autograd through block_plain over the
+# whole stack measured 1.4e-2 at worst (median 9.7e-3), above the 1e-2 that
+# models with long skips meet. So each block is held to BWD_REL_FRO on the
+# plain stack's own input and upstream gradient, where nothing is carried,
+# and the whole stack to STACK_GRAD_REL_FRO; a wrong backward is off by its
+# whole size either way.
+STACK_GRAD_REL_FRO = 3e-2
+SPLITS = (2, 4, 8)       # K8's slice counts held in phase 2
+MAIN_SPLITS = 4          # what mlp_bwd_split_config picks at hidden 2048 and 3072
 # The backward kernels are held per output tensor to
 # ||kernel - plain|| / ||plain|| <= BWD_REL_FRO: most gradient entries are
 # far below 0.05, so the elementwise bound would pass nearly anything. Both
@@ -506,6 +551,121 @@ def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, suffix,
     return ms
 
 
+def check_block_kernels(device, results: dict, width: Width, suffix: str) -> None:
+    """Phase 2, the per-head attention sublayer and the whole block: K1-v1
+    against attn_sublayer_v1_plain (with and without a qkv bias) and K5
+    against block_plain (exact and tanh GELU) at batch 8 and 128; then, at
+    batch 128, K5 timed beside K1 followed by K2 on the same operands and
+    K1-v1 beside K1, and how far K5's output lies from that of K1 then K2
+    (they differ by the bf16 rounding of the intermediate residual stream)."""
+    from duodiff_tpu_torch.ops import block
+
+    bf = torch.bfloat16
+    heads = width.heads
+    for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
+        for variant in (False, True):
+            x, norm, qkv, proj, fc1, fc2 = block_modules(batch, variant, width=width)
+            x = x.to(device)
+            v1 = to_device(block.pack_attn_v1(norm, qkv, proj, dtype=bf), device)
+            v2 = to_device(block.pack_attn(norm, qkv, proj, num_heads=heads, dtype=bf), device)
+            mlp = to_device(block.pack_mlp(norm, fc1, fc2, dtype=bf), device)
+            keep = suffix if batch == MAIN_BATCH and not variant else None
+            where = f"D={width.d} L={width.l} B={batch}"
+            compare_kernel(
+                results["fused_attn_sublayer_v1"],
+                f"fused_attn_sublayer_v1 {where} qkv_bias={variant}",
+                lambda: block.fused_attn_sublayer(x, *v1, num_heads=heads, variant="v1"),
+                lambda: block.attn_sublayer_v1_plain(x, *v1, num_heads=heads), keep)
+            compare_kernel(
+                results["fused_block"],
+                f"fused_block {where} qkv_bias={variant} gelu={'tanh' if variant else 'erf'}",
+                lambda: block.fused_block(x, *v2, *mlp, num_heads=heads, gelu_approx=variant),
+                lambda: block.block_plain(x, *v2, *mlp, num_heads=heads, gelu_approx=variant),
+                keep)
+            if keep is None:
+                continue
+
+            def chain():
+                u = block.fused_attn_sublayer(x, *v2, num_heads=heads)
+                return block.fused_mlp_sublayer(u, *mlp)
+
+            ms = time_ms({
+                "K5": lambda: block.fused_block(x, *v2, *mlp, num_heads=heads),
+                "K1 then K2": chain,
+                "K1-v1": lambda: block.fused_attn_sublayer(x, *v1, num_heads=heads, variant="v1"),
+                "K1": lambda: block.fused_attn_sublayer(x, *v2, num_heads=heads),
+            })
+            got, two = block.fused_block(x, *v2, *mlp, num_heads=heads).float(), chain().float()
+            differ = (got != two).float().mean().item()
+            print(f"phase 2: {where}: K5 {ms['K5']:.6g} ms beside K1 then K2 "
+                  f"{ms['K1 then K2']:.6g} ms; K1-v1 {ms['K1-v1']:.6g} ms beside K1 "
+                  f"{ms['K1']:.6g} ms; K5 differs from K1 then K2 in {differ:.4g} of the "
+                  f"entries, by at most {(got - two).abs().max().item():.6g}", flush=True)
+            results["fused_block"]["two_sublayers_ms" + suffix] = ms["K1 then K2"]
+            results["fused_attn_sublayer_v1"]["v2_ms" + suffix] = ms["K1"]
+
+
+def check_split_kernel(device, results: dict, width: Width, variants, suffix: str) -> None:
+    """Phase 2, the hidden-split MLP backward: K8 at 2, 4 and 8 slices
+    against mlp_sublayer_bwd_split_plain (every output within BWD_REL_FRO, dx
+    also elementwise, equal bits on a repeat call) and against K7's outputs
+    on the same inputs within the same bound, at batch 8 and 128; at batch
+    128 K8 timed beside K7, with the scratch each takes. The times kept are
+    those of MAIN_SPLITS slices, exact GELU."""
+    from duodiff_tpu_torch.ops import block
+    from duodiff_tpu_torch.ops._build import load_library
+
+    bf = torch.bfloat16
+    lib = load_library()
+    outs = ("dx", "dg", "db", "dw1", "db1", "dw2", "db2")
+    res = results["fused_mlp_sublayer_bwd_split"]
+    for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
+        for variant in variants:
+            x, norm, _, _, fc1, fc2 = block_modules(batch, False, width=width)
+            dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(bf)
+            x, dy = x.to(device), dy.to(device)
+            ops = to_device((norm.weight.detach(), norm.bias.detach(),
+                             fc1.weight.detach().t().to(bf).contiguous(), fc1.bias.detach(),
+                             fc2.weight.detach().t().to(bf).contiguous()), device)
+            where = (f"D={width.d} L={width.l} B={batch} gelu={'tanh' if variant else 'erf'}")
+            mono = block.fused_mlp_sublayer_bwd(x, dy, *ops, gelu_approx=variant)
+            for splits in SPLITS:
+                def kernel(splits=splits):
+                    return block.fused_mlp_sublayer_bwd_split(x, dy, *ops, splits=splits,
+                                                              gelu_approx=variant)
+
+                def plain(splits=splits):
+                    return block.mlp_sublayer_bwd_split_plain(x, dy, *ops, splits=splits,
+                                                              gelu_approx=variant)
+
+                main = batch == MAIN_BATCH and not variant and splits == MAIN_SPLITS
+                compare_bwd_kernel(res, f"fused_mlp_sublayer_bwd_split {where} splits={splits}",
+                                   outs, kernel, plain, suffix if main else None)
+                rels = {n: rel_fro(g, w) for n, g, w in zip(outs, kernel(), mono)}
+                worst = max(rels, key=rels.get)
+                ok = rels[worst] <= BWD_REL_FRO
+                print(f"phase 2: K8 splits={splits} against K7 {where}: worst rel_fro_err "
+                      f"{rels[worst]:.3g} ({worst}) (bound {BWD_REL_FRO}) ok={ok}", flush=True)
+                if not ok:
+                    fail(f"K8 with {splits} slices disagrees with K7 at {where}")
+            if batch != MAIN_BATCH or variant:
+                continue
+            fns = {f"K8 splits={n}": (lambda n=n: block.fused_mlp_sublayer_bwd_split(
+                x, dy, *ops, splits=n)) for n in SPLITS}
+            fns["K7"] = lambda: block.fused_mlp_sublayer_bwd(x, dy, *ops)
+            ms = time_ms(fns)
+            rows, hid = batch * width.l, 4 * width.d
+            scratch = {f"K8 splits={n}": lib.duodiff_mlp_sublayer_bwd_split_workspace(
+                rows, width.d, hid, n) for n in SPLITS}
+            scratch["K7"] = lib.duodiff_mlp_sublayer_bwd_workspace(rows, width.d, hid)
+            k6 = lib.duodiff_attn_sublayer_bwd_workspace(batch, width.l, width.d, width.heads)
+            print(f"phase 2: {where}: " + "; ".join(
+                f"{k} {ms[k]:.6g} ms, scratch {scratch[k] / 2**20:.6g} MiB" for k in ms)
+                + f" (K6, the other backward kernel of a block, takes {k6 / 2**20:.6g} MiB)",
+                flush=True)
+            res["monolithic_ms" + suffix] = ms["K7"]
+
+
 # (B, H, L) of the attention kernels' checks: the ImageNet-64 model at the
 # check batch and at the main path's doubled guided batch, and the CelebA one
 ATTENTION_SHAPES = ((CHECK_BATCH, IMAGENET.heads, IMAGENET.l),
@@ -584,6 +744,12 @@ def kernel_bounds(width: Width = CELEBA, batch: int = MAIN_BATCH,
         "fused_attn_sublayer_bwd": bound(rows * (22 * d * d + 12 * l * d), 0,
                                          3 * act + 8 * d * d + 16 * d * d),
         "fused_mlp_sublayer_bwd": bound(rows * 40 * d * d, 0, 3 * act + 16 * d * d + 32 * d * d),
+        # K1-v1 and K8 compute K1's and K7's functions; K5 both sublayers'
+        # products with x read and y written once
+        "fused_attn_sublayer_v1": bound(rows * (8 * d * d + 4 * l * d), 0, 2 * act + 8 * d * d),
+        "fused_block": bound(rows * (24 * d * d + 4 * l * d), 0, 2 * act + 24 * d * d),
+        "fused_mlp_sublayer_bwd_split": bound(rows * 40 * d * d, 0,
+                                              3 * act + 16 * d * d + 32 * d * d),
         "flash_attention": bound(4 * bh * la * la * 64, 0, 4 * head),
         "flash_attention_bwd": bound(10 * bh * la * la * 64, 0, 7 * head),
     }
@@ -814,6 +980,9 @@ def reset_counts() -> None:
     block.fused_mlp_sublayer.launches = 0
     block.fused_attn_sublayer_bwd.launches = 0
     block.fused_mlp_sublayer_bwd.launches = 0
+    block.fused_attn_sublayer.launches_v1 = 0
+    block.fused_block.launches = 0
+    block.fused_mlp_sublayer_bwd_split.launches = 0
     block_int8.reset_launch_counts()
 
 
@@ -828,6 +997,9 @@ def read_counts() -> dict:
         "fused_mlp_sublayer": block.fused_mlp_sublayer.launches,
         "fused_attn_sublayer_bwd": block.fused_attn_sublayer_bwd.launches,
         "fused_mlp_sublayer_bwd": block.fused_mlp_sublayer_bwd.launches,
+        "fused_attn_sublayer_v1": block.fused_attn_sublayer.launches_v1,
+        "fused_block": block.fused_block.launches,
+        "fused_mlp_sublayer_bwd_split": block.fused_mlp_sublayer_bwd_split.launches,
         "fused_attn_sublayer_int8": block_int8.fused_attn_sublayer_int8.launches,
         "fused_mlp_sublayer_int8": k12.launches,
         "fused_mlp_sublayer_int8 dynamic": k12.launches_dynamic,
@@ -868,6 +1040,17 @@ def run_cli(label: str, extra: list, card: str, expected: dict,
         fail("samples are not finite")
     check_counts(launches, expected)
     return launches
+
+
+def release_memory() -> float:
+    """Drop what earlier phases left behind (a trainer's closures keep its
+    model and optimizer alive until the cycle collector runs), return the
+    freed blocks to the device and start a new peak reading. Returns the
+    GiB still allocated, the floor of that reading."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
 
 
 def check_counts(launches: dict, expected: dict) -> None:
@@ -1261,13 +1444,14 @@ def run_imagenet_sampling(device, card: str) -> dict:
     return launches
 
 
-def run_imagenet_training(card: str) -> dict:
+def run_imagenet_training(card: str) -> tuple:
     """Phase 7: the training CLI on configs/uvit_imagenet64.yaml (D = 768,
     depth 17, L = 258) at batch 128 in bf16 on the synthetic ImageNet-64
     cache, with label dropout: first the unfused block around K9 and K10
     (losses must fall, 17 launches of each a step, a step's split and
     profile, peak device memory), then a short run of the fused block
-    (K1, K2, K6, K7) at this width. Returns the first run's launch counts."""
+    (K1, K2, K6, K7) at this width. Returns the first run's launch counts
+    and the fused leg's peak device memory."""
     from duodiff_tpu_torch.data.synthetic import write_palette_imagenet64_cache
 
     def argv(work, exp, n_steps, impl):
@@ -1276,8 +1460,7 @@ def run_imagenet_training(card: str) -> dict:
 
     with tempfile.TemporaryDirectory() as work:
         write_palette_imagenet64_cache(Path(work) / "data", seed=0)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        floor = release_memory()
         n = 17 * IMAGENET_TRAIN_STEPS
         trainer, launches = run_train_cli(
             "phase 7: train uvit_imagenet64.yaml, attn_impl pallas",
@@ -1285,22 +1468,336 @@ def run_imagenet_training(card: str) -> dict:
             {"flash_attention": n, "flash_attention_bwd": n})
         peak = torch.cuda.max_memory_allocated()
         first, last = trainer.logs[0]["train_loss"], trainer.logs[-1]["train_loss"]
-        print(f"phase 7: peak device memory {peak / 2**30:.6g} GiB; loss {first:.6g} -> "
-              f"{last:.6g}", flush=True)
+        print(f"phase 7: peak device memory {peak / 2**30:.6g} GiB ({floor:.6g} GiB held before "
+              f"the run); loss {first:.6g} -> {last:.6g}", flush=True)
         if not last < LOSS_DROP * first:
             fail(f"the ImageNet-64 train loss did not fall clearly: {first:.6g} -> {last:.6g}")
         profile_train_step(trainer, card, "phase 7 (pallas)")
         del trainer
-        torch.cuda.empty_cache()
+        floor = release_memory()
         n = 17 * IMAGENET_FUSED_STEPS
         trainer, _ = run_train_cli(
             "phase 7: train uvit_imagenet64.yaml, attn_impl fused",
             argv(work, "fused", IMAGENET_FUSED_STEPS, "fused"), card,
             {k: n for k in ("fused_attn_sublayer", "fused_mlp_sublayer",
                             "fused_attn_sublayer_bwd", "fused_mlp_sublayer_bwd")})
+        fused_peak = torch.cuda.max_memory_allocated()
+        print(f"phase 7: peak device memory of the fused leg (K7) {fused_peak / 2**30:.6g} GiB "
+              f"({floor:.6g} GiB held before the run)", flush=True)
         profile_train_step(trainer, card, "phase 7 (fused)")
         del trainer
         torch.cuda.empty_cache()
+    return launches, fused_peak
+
+
+class split_backward:
+    """DUODIFF_MLP_BWD_SPLIT=1 inside the block (the MLP sublayer's backward
+    is then K8), the variable as it was afterwards."""
+
+    def __enter__(self):
+        self.before = os.environ.get("DUODIFF_MLP_BWD_SPLIT")
+        os.environ["DUODIFF_MLP_BWD_SPLIT"] = "1"
+
+    def __exit__(self, *exc):
+        if self.before is None:
+            del os.environ["DUODIFF_MLP_BWD_SPLIT"]
+        else:
+            os.environ["DUODIFF_MLP_BWD_SPLIT"] = self.before
+
+
+def block_parameters(blk) -> tuple:
+    """A block's 12 parameters in FusedBlockFn's order."""
+    qkv, proj, fc1, fc2 = blk.attn["qkv"], blk.attn["proj"], blk.mlp["fc1"], blk.mlp["fc2"]
+    return (blk.norm1.weight, blk.norm1.bias, qkv.weight, qkv.bias, proj.weight, proj.bias,
+            blk.norm2.weight, blk.norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+
+
+def check_block_stack(device) -> dict:
+    """Phase 3, the op-API paths of K5 and K1-v1 at D = 768: the 17 blocks of
+    the ImageNet-64 model (their own parameters, no long skips) as a stack on
+    random tokens at batch 8. FusedBlockFn (K5 forward; K1, the MLP backward
+    and K6 in the backward) against autograd through block_plain: the output
+    within MODEL_REL_FRO and the gradients of the input and of every
+    parameter within STACK_GRAD_REL_FRO over the whole stack, and within
+    BWD_REL_FRO block by block on the plain stack's inputs and upstream
+    gradients. Then the forward of K1-v1 followed by K2 per block
+    against their plain versions. Launch counts are set to 0 before each
+    stack and checked after; returns those of K5 and K1-v1."""
+    from duodiff_tpu_torch.ops import block
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    model, cfg = load_model(IMAGENET_CONFIG, device=device, seed=1, attn_impl="fused")
+    blocks = model.blocks()
+    heads, bf = cfg.num_heads, torch.bfloat16
+    g = torch.Generator().manual_seed(6)
+    tokens = cfg.extras + cfg.num_patches
+    x0 = torch.randn((CHECK_BATCH, tokens, cfg.embed_dim), generator=g).to(bf).to(device)
+    dy = torch.randn(x0.shape, generator=g).to(bf).to(device)
+    params = [t for blk in blocks for t in block_parameters(blk) if t is not None]
+
+    def fused(x, blk):
+        return block.FusedBlockFn.apply(x, *block_parameters(blk), heads, False, 1e-5)
+
+    def plain(x, blk):
+        p = block_parameters(blk)
+        return block.block_plain(x, *block.attn_operands(*p[:6], num_heads=heads, dtype=bf),
+                                 *block.mlp_operands(*p[6:], dtype=bf), num_heads=heads)
+
+    def run(step):
+        x = x0.clone().requires_grad_(True)
+        y = x
+        for blk in blocks:
+            y = step(y, blk)
+        grads = torch.autograd.grad(y, [x, *params], dy)
+        return y.detach(), [t.float() for t in grads]
+
+    reset_counts()
+    y_fused, g_fused = run(fused)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    y_plain, g_plain = run(plain)
+    n = len(blocks)
+    check_counts(launches, {"fused_block": n, "fused_attn_sublayer": n,
+                            "fused_attn_sublayer_bwd": n, "fused_mlp_sublayer_bwd": n})
+    max_abs, limit, rel, ok = scaled_errors(y_fused, y_plain, MODEL_MAX_FRAC, MODEL_REL_FRO)
+    rels = [rel_fro(a, b) for a, b in zip(g_fused, g_plain)]
+    ok = ok and max(rels) <= STACK_GRAD_REL_FRO
+    print(f"phase 3: FusedBlockFn on a stack of the depth-{n} model's blocks (D={cfg.embed_dim}, "
+          f"L={tokens}) B={CHECK_BATCH} vs block_plain: output rel_fro_err={rel:.6g} (bound "
+          f"{MODEL_REL_FRO}) max_abs_err={max_abs:.6g} (bound {limit:.6g}); gradients of the "
+          f"input and {len(params)} parameters: worst rel_fro_err={max(rels):.6g}, median "
+          f"{statistics.median(rels):.6g} (bound {STACK_GRAD_REL_FRO}); launches K5 "
+          f"{launches['fused_block']}, K1 {launches['fused_attn_sublayer']}, K6 "
+          f"{launches['fused_attn_sublayer_bwd']}, K7 {launches['fused_mlp_sublayer_bwd']} "
+          f"ok={ok}", flush=True)
+    if not ok:
+        fail("FusedBlockFn disagrees with the plain block")
+
+    # block by block: each on the plain stack's input, from the last block
+    # back, each with the plain stack's upstream gradient
+    inputs = []
+    with torch.no_grad():
+        y = x0
+        for blk in blocks:
+            inputs.append(y)
+            y = plain(y, blk)
+    upstream, worst = dy, (0.0, "")
+    for i in reversed(range(n)):
+        blk = blocks[i]
+        own = [t for t in block_parameters(blk) if t is not None]
+        grads = {}
+        for name, step in (("fused", fused), ("plain", plain)):
+            x = inputs[i].clone().requires_grad_(True)
+            grads[name] = torch.autograd.grad(step(x, blk), [x, *own], upstream)
+        rel = max(rel_fro(a, b) for a, b in zip(grads["fused"], grads["plain"]))
+        worst = max(worst, (rel, f"block {i}"))
+        upstream = grads["plain"][0]
+    ok = worst[0] <= BWD_REL_FRO
+    print(f"phase 3: FusedBlockFn block by block on the plain stack's inputs and upstream "
+          f"gradients: worst rel_fro_err over the input's and the 11 parameters' gradients "
+          f"{worst[0]:.6g} ({worst[1]}) (bound {BWD_REL_FRO}) ok={ok}", flush=True)
+    if not ok:
+        fail("FusedBlockFn's gradients disagree with the plain block's")
+
+    packed = [(to_device(block.pack_attn_v1(b.norm1, b.attn["qkv"], b.attn["proj"], dtype=bf),
+                         device),
+               to_device(block.pack_mlp(b.norm2, b.mlp["fc1"], b.mlp["fc2"], dtype=bf), device))
+              for b in blocks]
+    outs = {}
+    reset_counts()
+    with torch.inference_mode():
+        for name, attn, mlp in (
+                ("kernels", lambda x, a: block.fused_attn_sublayer(x, *a, num_heads=heads,
+                                                                    variant="v1"),
+                 block.fused_mlp_sublayer),
+                ("plain", lambda x, a: block.attn_sublayer_v1_plain(x, *a, num_heads=heads),
+                 block.mlp_sublayer_plain)):
+            y = x0
+            for v1, mlp_ops in packed:
+                y = mlp(attn(y, v1), *mlp_ops)
+            outs[name] = y
+    torch.cuda.synchronize()
+    v1_launches = read_counts()
+    check_counts(v1_launches, {"fused_attn_sublayer_v1": n, "fused_mlp_sublayer": n})
+    max_abs, limit, rel, ok = scaled_errors(outs["kernels"], outs["plain"], MODEL_MAX_FRAC,
+                                            MODEL_REL_FRO)
+    print(f"phase 3: K1-v1 then K2 through the same {n} blocks B={CHECK_BATCH} vs their plain "
+          f"versions: rel_fro_err={rel:.6g} (bound {MODEL_REL_FRO}) max_abs_err={max_abs:.6g} "
+          f"(bound {limit:.6g}); launches K1-v1 {v1_launches['fused_attn_sublayer_v1']} ok={ok}",
+          flush=True)
+    if not ok:
+        fail("the stack through K1-v1 disagrees with its plain version")
+    return {"fused_block": launches["fused_block"],
+            "fused_attn_sublayer_v1": v1_launches["fused_attn_sublayer_v1"]}
+
+
+def check_split_training(device) -> None:
+    """Phase 3, K8 in the model: the gradients of every parameter of the
+    depth-17 ImageNet-64 model at batch 8 through the fused block with
+    DUODIFF_MLP_BWD_SPLIT=1 (17 launches of K8, none of K7) against those
+    without (K7), within BWD_REL_FRO per parameter."""
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.training.train_state import make_train_step
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    model, cfg = load_model(IMAGENET_CONFIG, device=device, seed=1, attn_impl="fused")
+    model.train()
+    step = make_train_step(model, NoiseSchedule.create(device=device),
+                           parametrization="predict_noise", seed=0, has_labels=True)
+    g = torch.Generator().manual_seed(7)
+    shape = (CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    batch = {"image": (torch.rand(shape, generator=g) * 2 - 1).to(device),
+             "label": torch.randint(0, cfg.num_classes - 1, (CHECK_BATCH,), generator=g).to(device)}
+    draws = step.draws(batch, 1)
+    reset_counts()
+    want = [t.clone() for t in step.backward(batch, *draws)[1]]
+    mono = read_counts()
+    reset_counts()
+    with split_backward():
+        got = [t.clone() for t in step.backward(batch, *draws)[1]]
+    split = read_counts()
+    n = cfg.depth
+    same = {"fused_attn_sublayer": n, "fused_mlp_sublayer": n, "fused_attn_sublayer_bwd": n}
+    check_counts(mono, {**same, "fused_mlp_sublayer_bwd": n})
+    check_counts(split, {**same, "fused_mlp_sublayer_bwd_split": n})
+    names = [k for k, _ in model.named_parameters()]
+    rels = {k: rel_fro(a, b) for k, a, b in zip(names, got, want)}
+    worst = max(rels, key=rels.get)
+    ok = rels[worst] <= BWD_REL_FRO
+    print(f"phase 3: depth-{n} ImageNet-64 training gradients B={CHECK_BATCH}, fused block with "
+          f"DUODIFF_MLP_BWD_SPLIT=1 (K8 x {split['fused_mlp_sublayer_bwd_split']}) vs without "
+          f"(K7 x {mono['fused_mlp_sublayer_bwd']}), {len(names)} parameters: worst "
+          f"rel_fro_err={rels[worst]:.6g} ({worst}), median "
+          f"{statistics.median(rels.values()):.6g} (bound {BWD_REL_FRO}) ok={ok}", flush=True)
+    if not ok:
+        fail("the gradients through the split MLP backward disagree with the monolithic ones")
+    for p in model.parameters():
+        p.grad = None
+
+
+SPLIT_TRAIN_STEPS = 40
+ACCUM_STEPS, ACCUM, ACCUM_SAVE_AT = 20, 2, 13   # saved inside the 7th window
+CHECKPOINT_STEPS = 10
+FUSED_KERNELS_SPLIT = ("fused_attn_sublayer", "fused_mlp_sublayer", "fused_attn_sublayer_bwd",
+                       "fused_mlp_sublayer_bwd_split")
+
+
+def run_split_training(card: str, fused_peak: int) -> dict:
+    """Phase 8, fused training with the split MLP backward at full width:
+    the training CLI on configs/uvit_imagenet64.yaml at batch 128 in bf16 on the synthetic
+    ImageNet-64 cache, --attn_impl fused with DUODIFF_MLP_BWD_SPLIT=1, so
+    every block runs K1, K2, K6 and K8 and none K7: (a) 40 steps, the loss
+    must fall, a step's split, profile and peak memory beside the K7 leg's
+    (``fused_peak``); (b) 20 steps with --grad_accum 2 --skip_nonfinite 3: 10
+    optimizer updates; (c) 10 steps with --use_checkpoint: every block's
+    forward runs twice; (d) a run loaded from (b)'s checkpoint of step 13,
+    the middle of an accumulation window, must end where (b) ended. Then the
+    probe tool of K8. Returns (a)'s launch counts."""
+    import shutil
+
+    from duodiff_tpu_torch.data.synthetic import write_palette_imagenet64_cache
+    from duodiff_tpu_torch.tools import probe_mlp_bwd_split
+    from duodiff_tpu_torch.training.checkpointer import Checkpointer
+
+    def argv(work, exp, n_steps, *extra):
+        return train_argv(work, exp, n_steps, "--attn_impl", "fused", "--label_dropout",
+                          str(LABEL_DROPOUT), *extra, config=IMAGENET_CONFIG,
+                          dataset="imagenet64")
+
+    def run(label, args, steps, forwards=1):
+        floor = release_memory()
+        print(f"phase 8{label.split(':')[0]}: {floor:.6g} GiB of device memory held before the "
+              "run", flush=True)
+        n = 17 * steps
+        expected = {k: n for k in FUSED_KERNELS_SPLIT}
+        expected["fused_attn_sublayer"] = expected["fused_mlp_sublayer"] = n * forwards
+        trainer, launches = run_train_cli(f"phase 8{label}", args, card, expected)
+        return trainer, launches, torch.cuda.max_memory_allocated()
+
+    with tempfile.TemporaryDirectory() as work, split_backward():
+        write_palette_imagenet64_cache(Path(work) / "data", seed=0)
+        trainer, launches, peak = run(
+            "a: train uvit_imagenet64.yaml, attn_impl fused, DUODIFF_MLP_BWD_SPLIT=1",
+            argv(work, "split", SPLIT_TRAIN_STEPS), SPLIT_TRAIN_STEPS)
+        first, last = trainer.logs[0]["train_loss"], trainer.logs[-1]["train_loss"]
+        print(f"phase 8a: peak device memory {peak / 2**30:.6g} GiB with K8 beside "
+              f"{fused_peak / 2**30:.6g} GiB in phase 7's fused leg with K7; loss {first:.6g} -> "
+              f"{last:.6g}", flush=True)
+        if not last < LOSS_DROP * first:
+            fail(f"the train loss through K8 did not fall clearly: {first:.6g} -> {last:.6g}")
+        profile_train_step(trainer, card, "phase 8a (fused, K8)")
+        del trainer
+        shutil.rmtree(Path(work) / "logs")
+
+        accum = ("--grad_accum", str(ACCUM), "--skip_nonfinite", "3")
+        trainer, _, accum_peak = run(
+            f"b: --grad_accum {ACCUM} --skip_nonfinite 3",
+            argv(work, "accum", ACCUM_STEPS, *accum, "--save_new_every_n_steps",
+                 str(ACCUM_SAVE_AT)), ACCUM_STEPS)
+        opt = trainer.state.optimizer
+        updates, bad = opt.count, int(opt.total_notfinite)
+        ok = updates == ACCUM_STEPS // ACCUM and opt.mini_step == 0 and bad == 0
+        print(f"phase 8b: {ACCUM_STEPS} data steps made {updates} optimizer updates (the "
+              f"learning-rate position), mini-step {opt.mini_step}, {bad} non-finite updates "
+              f"skipped; {trainer.logs[-1]['steps_per_sec']:.6g} data steps/s; peak device memory "
+              f"{accum_peak / 2**30:.6g} GiB ok={ok}", flush=True)
+        if not ok:
+            fail("--grad_accum did not make one update per window")
+        want = [p.detach().clone() for p in trainer.model.parameters()]
+        cut = trainer.log_path / f"imagenet64_uvit_step-{ACCUM_SAVE_AT}"
+        saved = Checkpointer.restore(cut)["optimizer"]
+        held = max(float(t.abs().max()) for t in saved["acc_grads"].values())
+        # the optimizer's share of a data step, on gradients of zeros: the
+        # steps that only fold into the running mean, and those that update
+        zeros = [torch.zeros_like(p) for p in opt.params]
+        ms = {"accumulate": [], "update": []}
+        for _ in range(8):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            opt.step(zeros)
+            end.record()
+            end.synchronize()
+            ms["update" if opt.mini_step == 0 else "accumulate"].append(start.elapsed_time(end))
+        print(f"phase 8b: the optimizer's part of a data step (CUDA events, median of 4): "
+              f"{statistics.median(ms['accumulate']):.6g} ms folding into the running mean, "
+              f"{statistics.median(ms['update']):.6g} ms folding, clipping, checking and updating; "
+              "the logged steps/s above include the 2.6 GB checkpoint of step "
+              f"{ACCUM_SAVE_AT}", flush=True)
+        del trainer, saved, opt, zeros
+
+        steps = ACCUM_STEPS - ACCUM_SAVE_AT
+        resumed, _, _ = run(
+            f"d: resume of (b) from its checkpoint of step {ACCUM_SAVE_AT}",
+            argv(work, "accum_resumed", ACCUM_STEPS, *accum, "--load_checkpoint_path", str(cut)),
+            steps)
+        got = list(resumed.model.parameters())
+        rels = [rel_fro(a.detach(), b) for a, b in zip(got, want)]
+        equal = all(torch.equal(a.detach(), b) for a, b in zip(got, want))
+        ok = (resumed.start_step == ACCUM_SAVE_AT and held > 0.0 and max(rels) <= 1e-6
+              and resumed.state.optimizer.count == ACCUM_STEPS // ACCUM)
+        print(f"phase 8d: resumed at step {resumed.start_step} with mini-step 1 and the saved "
+              f"running mean (max |entry| {held:.6g}); after {steps} more steps its parameters "
+              f"are those of the unbroken run: equal to the bit {equal}, worst rel_fro_err "
+              f"{max(rels):.3g} (bound 1e-6); {resumed.state.optimizer.count} updates ok={ok}",
+              flush=True)
+        if not ok:
+            fail("a resume inside an accumulation window did not continue the window")
+        del resumed, want, got
+        shutil.rmtree(Path(work) / "logs")
+
+        trainer, _, ckpt_peak = run(
+            "c: --use_checkpoint", argv(work, "checkpointed", CHECKPOINT_STEPS,
+                                        "--use_checkpoint"), CHECKPOINT_STEPS, forwards=2)
+        print(f"phase 8c: peak device memory {ckpt_peak / 2**30:.6g} GiB with --use_checkpoint "
+              f"beside {peak / 2**30:.6g} GiB without (8a); "
+              f"{trainer.logs[-1]['steps_per_sec']:.6g} steps/s over steps 2-"
+              f"{CHECKPOINT_STEPS}", flush=True)
+        profile_train_step(trainer, card, "phase 8c (fused, K8, --use_checkpoint)")
+        del trainer
+        torch.cuda.empty_cache()
+    probe = probe_mlp_bwd_split.main(["imagenet64", *map(str, SPLITS)])
+    if probe["card"] != card:
+        fail(f"the probe tool saw another card: {probe['card']}")
     return launches
 
 
@@ -1312,7 +1809,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = setup()
-    kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS, **ATTENTION_KERNELS}
+    kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS, **ATTENTION_KERNELS, **BLOCK_KERNELS}
     results = new_results(kernels)
     check_kernels(device, results)
     check_int8_kernels(device, results)
@@ -1321,10 +1818,16 @@ def main() -> int:
     check_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
     check_bwd_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
     check_int8_kernels(device, results, IMAGENET, batches=(CHECK_BATCH,), suffix="_d768_b8")
+    check_block_kernels(device, results, IMAGENET, suffix="")
+    check_split_kernel(device, results, IMAGENET, variants=(False,), suffix="")
+    check_block_kernels(device, results, CELEBA, suffix="_d512")
+    check_split_kernel(device, results, CELEBA, variants=(False, True), suffix="_d512")
     check_model(device)
     check_int8_model(device)
     check_training(device)
     check_imagenet_model(device)
+    stack_launches = check_block_stack(device)
+    check_split_training(device)
     launches = run_main_path(card)
     launches.update({name: n for name, n in run_int8_main_path(card).items()
                      if name in INT8_KERNELS})
@@ -1332,8 +1835,16 @@ def main() -> int:
                      if name in BWD_KERNELS})
     run_distill_path(card)
     launches["flash_attention"] = run_imagenet_sampling(device, card)["flash_attention"]
-    launches["flash_attention_bwd"] = run_imagenet_training(card)["flash_attention_bwd"]
-    bounds = kernel_bounds()
+    imagenet_launches, fused_peak = run_imagenet_training(card)
+    launches["flash_attention_bwd"] = imagenet_launches["flash_attention_bwd"]
+    split_launches = run_split_training(card, fused_peak)
+    launches["fused_mlp_sublayer_bwd_split"] = split_launches["fused_mlp_sublayer_bwd_split"]
+    launches.update(stack_launches)
+    # the bounds at the width of each kernel's main path: CelebA's for the
+    # sublayers and their int8 and backward forms, ImageNet-64's for K1-v1,
+    # K5 and K8
+    bounds = {**kernel_bounds(), **{k: v for k, v in kernel_bounds(IMAGENET).items()
+                                    if k in BLOCK_KERNELS}}
     record = [
         {"name": name, "route": "cuda", **kernels[name], "launches": launches[name],
          "library_ms": None, **bounds[name], **results[name]}

@@ -29,6 +29,11 @@
 // over stored scores keep the TPU kernel's rounding points: an exact row
 // max, one bf16 rounding of e); a register-resident online softmax is
 // later work.
+// kNormFirst is the per-head attention sublayer's form (K1-v1, the Pallas
+// _kernel :79-86): q comes unscaled, the fp32 scores are multiplied by
+// `scale`, and p = e / sum is rounded to bf16 BEFORE the value product, so
+// nothing is divided afterwards. It is a template argument: the default
+// form's code does not change.
 // L = 257 or 258 is no multiple of 16: K/V/q rows past L are zero-filled,
 // scores past L masked, and output rows past L never written.
 #pragma once
@@ -72,9 +77,12 @@ __host__ __device__ inline AttnSmem attn_smem(int L) {
   return m;
 }
 
+// scale: q is multiplied by it and rounded to bf16 (1: q comes pre-scaled);
+// with kNormFirst q stays as it is and the fp32 scores are multiplied by it.
+template <bool kNormFirst>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
-                 HeadRows<const bf16> v_rows, HeadRows<bf16> out, int L, float qscale) {
+                 HeadRows<const bf16> v_rows, HeadRows<bf16> out, int L, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float denom_s[kAttnWarps][16];
   const AttnSmem sm = attn_smem(L);
@@ -108,7 +116,7 @@ attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
     uint4 qv = zero;
     if (q0 + r < L) {
       qv = *reinterpret_cast<const uint4*>(qb + (q0 + r) * q_rows.row + col);
-      if (qscale != 1.f) qv = scale8(qv, qscale);  // bf16(q * scale), K9's rounding
+      if (!kNormFirst && scale != 1.f) qv = scale8(qv, scale);  // bf16(q * scale), K9's rounding
     }
     *reinterpret_cast<uint4*>(Qs + r * kKvPitch + col) = qv;
   }
@@ -137,9 +145,24 @@ attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
   // softmax numerator in bf16, denominator in fp32 (normalised after e v)
   const float neg_inf = __uint_as_float(0xff800000u);
   for (int r = 0; r < 16; ++r) {
-    const float* srow = Ss + r * sm.s_pitch;
+    float* srow = Ss + r * sm.s_pitch;
     bf16* prow = Ps + r * sm.p_pitch;
     float m = neg_inf;
+    if (kNormFirst) {
+      // p = softmax(s * scale) in fp32, one rounding to bf16 after the
+      // division; each lane owns the same columns in all three passes
+      for (int j = lane; j < sm.lpad; j += 32) m = fmaxf(m, j < L ? srow[j] * scale : neg_inf);
+      m = warp_max(m);
+      float sum = 0.f;
+      for (int j = lane; j < sm.lpad; j += 32) {
+        const float e = j < L ? expf(srow[j] * scale - m) : 0.f;
+        srow[j] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int j = lane; j < sm.lpad; j += 32) prow[j] = __float2bfloat16(srow[j] / sum);
+      continue;
+    }
     for (int j = lane; j < sm.lpad; j += 32) m = fmaxf(m, j < L ? srow[j] : neg_inf);
     m = warp_max(m);
     float sum = 0.f;
@@ -176,28 +199,40 @@ attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
   // each lane writes 32 columns of one row: o / denom, rounded to bf16
   const int r = lane >> 1, c0 = (lane & 1) * 32;
   if (q0 + r < L) {
-    const float den = denom_s[warp][r];
+    const float den = kNormFirst ? 1.f : denom_s[warp][r];
     bf16* dst = out.at(b, h) + (q0 + r) * out.row + c0;
 #pragma unroll
     for (int c = 0; c < 32; c += kVec) {
       float v[kVec];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) v[e] = Os[r * kOPitch + c0 + c + e] / den;
+      for (int e = 0; e < kVec; ++e) {
+        v[e] = Os[r * kOPitch + c0 + c + e];
+        if (!kNormFirst) v[e] /= den;
+      }
       *reinterpret_cast<uint4*>(dst + c) = pack8(v);
     }
   }
 }
 
+template <bool kNormFirst>
+cudaError_t launch_attn_core_form(HeadRows<const bf16> q, HeadRows<const bf16> k,
+                                  HeadRows<const bf16> v, HeadRows<bf16> out, int B, int L, int H,
+                                  float scale, cudaStream_t stream) {
+  const size_t smem = attn_smem(L).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_core_kernel<kNormFirst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + kQRows - 1) / kQRows, H, B);
+  attn_core_kernel<kNormFirst><<<grid, kAttnWarps * 32, smem, stream>>>(q, k, v, out, L, scale);
+  return cudaGetLastError();
+}
+
+// The default form: q * qscale rounded to bf16, normalised after e v.
 cudaError_t launch_attn_core(HeadRows<const bf16> q, HeadRows<const bf16> k,
                              HeadRows<const bf16> v, HeadRows<bf16> out, int B, int L, int H,
                              float qscale, cudaStream_t stream) {
-  const size_t smem = attn_smem(L).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kQRows - 1) / kQRows, H, B);
-  attn_core_kernel<<<grid, kAttnWarps * 32, smem, stream>>>(q, k, v, out, L, qscale);
-  return cudaGetLastError();
+  return launch_attn_core_form<false>(q, k, v, out, B, L, H, qscale, stream);
 }
 
 // The core on a packed (B, L, 3A) qkv with pre-scaled q, merged heads out.

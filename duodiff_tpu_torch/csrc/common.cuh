@@ -37,6 +37,30 @@ __device__ __forceinline__ uint4 scale8(const uint4& raw, float s) {
   return pack8(v);
 }
 
+// 8 consecutive values of a bf16 or an fp32 row, as fp32: the kernels whose
+// rows come in either type (the whole-block kernel keeps its intermediate
+// residual stream in fp32) are templates over the row type and read and
+// write through these.
+__device__ __forceinline__ void load_row8(const bf16* p, float out[kVec]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), out);
+}
+
+__device__ __forceinline__ void load_row8(const float* p, float out[kVec]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+__device__ __forceinline__ void store_row8(bf16* p, const float in[kVec]) {
+  *reinterpret_cast<uint4*>(p) = pack8(in);
+}
+
+__device__ __forceinline__ void store_row8(float* p, const float in[kVec]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(in[0], in[1], in[2], in[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(in[4], in[5], in[6], in[7]);
+}
+
 // The rows of every (sample, head) of a bf16 tensor, wherever they lie: row
 // l of head h of sample b starts at p + b * sample + h * head + l * row
 // (strides in elements; a row is the head's Dh contiguous values). The

@@ -4,6 +4,11 @@
 //   C[M, N] = cast_bf16( gelu?( acc + residual? + bias? ) ),
 //   acc = A[M, K] @ B[K, N] in fp32 from bf16 operands.
 //
+// The kernel is a template over the row types of the residual and of C
+// (bf16 or fp32): the whole-block kernel K5 writes its intermediate residual
+// stream u as fp32 from the proj epilogue and adds it as fp32 in the fc2
+// epilogue; every other caller takes bf16 for both (launch_gemm).
+//
 // Replaces: the jnp.dot(..., preferred_element_type=f32) projections inside
 // duodiff_tpu/ops/pallas_block.py _kernel_v2 (qkv, :132-135; proj with the
 // fp32 residual and bias, :161-164) and _mlp_kernel (fc1 + bias + GELU,
@@ -41,9 +46,10 @@ constexpr int kGemmThreads = 256;
 constexpr int kAPitch = kGemmBK + 8;  // bf16 elements per A tile row
 constexpr int kBPitch = kGemmBN + 8;  // bf16 elements per B tile row
 
+template <typename ResT, typename OutT>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C,
-                 const float* __restrict__ bias, const bf16* __restrict__ residual,
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, OutT* __restrict__ C,
+                 const float* __restrict__ bias, const ResT* __restrict__ residual,
                  int M, int N, int K, int gelu_mode) {
   __shared__ __align__(128) bf16 As[2][kGemmBM * kAPitch];
   __shared__ __align__(128) bf16 Bs[2][kGemmBK * kBPitch];
@@ -127,7 +133,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* _
         const size_t off = static_cast<size_t>(gr) * N + gc;
         if (residual != nullptr) {
           float res[kVec];
-          unpack8(*reinterpret_cast<const uint4*>(residual + off), res);
+          load_row8(residual + off, res);
 #pragma unroll
           for (int e = 0; e < kVec; ++e) v[e] += res[e];
         }
@@ -137,7 +143,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* _
         }
 #pragma unroll
         for (int e = 0; e < kVec; ++e) v[e] = gelu(v[e], gelu_mode);
-        *reinterpret_cast<uint4*>(C + off) = pack8(v);
+        store_row8(C + off, v);
       }
       __syncwarp();
     }
@@ -145,13 +151,21 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* _
 }
 
 // bias may be null (no bias), residual may be null (no residual add).
+template <typename ResT, typename OutT>
+inline cudaError_t launch_gemm_rows(const bf16* A, const bf16* B, OutT* C, const float* bias,
+                                    const ResT* residual, int M, int N, int K, int gelu_mode,
+                                    cudaStream_t stream) {
+  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+  gemm_bf16_kernel<ResT, OutT><<<grid, kGemmThreads, 0, stream>>>(A, B, C, bias, residual, M, N,
+                                                                   K, gelu_mode);
+  return cudaGetLastError();
+}
+
+// The bf16-row form every sublayer kernel takes.
 inline cudaError_t launch_gemm(const bf16* A, const bf16* B, bf16* C, const float* bias,
                                const bf16* residual, int M, int N, int K, int gelu_mode,
                                cudaStream_t stream) {
-  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  gemm_bf16_kernel<<<grid, kGemmThreads, 0, stream>>>(A, B, C, bias, residual, M, N, K,
-                                                       gelu_mode);
-  return cudaGetLastError();
+  return launch_gemm_rows<bf16, bf16>(A, B, C, bias, residual, M, N, K, gelu_mode, stream);
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // LayerNorm over the rows of a bf16 (M, D) matrix, the first stage of both
-// sublayers (K1 and K2 below).
+// sublayers (K1 and K2 below), or of an fp32 one (the whole-block kernel K5,
+// whose second LayerNorm reads the unrounded fp32 residual stream).
 //
 // Replaces: the in-kernel LayerNorm of duodiff_tpu/ops/pallas_block.py
 // (_ln_fwd, called from _kernel_v2 and _mlp_kernel): fp32 two-pass
@@ -21,20 +22,21 @@ namespace {
 
 constexpr int kLnThreads = 256;  // 8 warps = 8 rows per block
 
+template <typename InT>
 __global__ void __launch_bounds__(kLnThreads)
-layernorm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+layernorm_rows_kernel(const InT* __restrict__ x, const float* __restrict__ gamma,
                       const float* __restrict__ beta, bf16* __restrict__ y,
                       int M, int D, float eps) {
   const int row = blockIdx.x * (kLnThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;  // whole warp leaves together
-  const bf16* xr = x + static_cast<size_t>(row) * D;
+  const InT* xr = x + static_cast<size_t>(row) * D;
   bf16* yr = y + static_cast<size_t>(row) * D;
   float v[kVec];
 
   float sum = 0.f;
   for (int c = lane * kVec; c < D; c += 32 * kVec) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+    load_row8(xr + c, v);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) sum += v[e];
   }
@@ -42,7 +44,7 @@ layernorm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamm
 
   float sq = 0.f;
   for (int c = lane * kVec; c < D; c += 32 * kVec) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+    load_row8(xr + c, v);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
       const float d = v[e] - mean;
@@ -52,14 +54,15 @@ layernorm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamm
   const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
 
   for (int c = lane * kVec; c < D; c += 32 * kVec) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+    load_row8(xr + c, v);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) v[e] = (v[e] - mean) * rstd * gamma[c + e] + beta[c + e];
     *reinterpret_cast<uint4*>(yr + c) = pack8(v);
   }
 }
 
-inline cudaError_t launch_layernorm(const bf16* x, const float* gamma, const float* beta,
+template <typename InT>
+inline cudaError_t launch_layernorm(const InT* x, const float* gamma, const float* beta,
                                     bf16* y, int M, int D, float eps, cudaStream_t stream) {
   const int rows_per_block = kLnThreads / 32;
   const int blocks = (M + rows_per_block - 1) / rows_per_block;

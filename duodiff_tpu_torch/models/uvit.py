@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from duodiff_tpu_torch.config import UViTConfig
 from duodiff_tpu_torch.models.layers import (
@@ -39,11 +40,18 @@ class UViT(nn.Module):
     ``int8_mlp_scales`` (int8 attn_impl only): one (sx, sh) pair per block
     in execution order (in_0..in_{k-1}, mid, out_0..out_{k-1}), the static
     MLP activation scales of a calibration file
-    (:func:`duodiff_tpu_torch.utils.int8_scales.scales_dict_to_tuple`)."""
+    (:func:`duodiff_tpu_torch.utils.int8_scales.scales_dict_to_tuple`).
+
+    ``use_checkpoint`` (the JAX package's ``nn.remat(Block)``): in training
+    :meth:`forward` keeps only each block's inputs and runs the block again
+    in the backward, so a step trades one more forward of every block for
+    the activations the blocks would save. No block draws random numbers,
+    so the second run repeats the first to the bit."""
 
     def __init__(self, config: UViTConfig, *, dtype=torch.bfloat16,
                  attn_impl: str = "plain", gelu_approx: bool = False,
-                 int8_mlp_scales: Optional[tuple] = None, mlp_impl: str = "auto"):
+                 int8_mlp_scales: Optional[tuple] = None, mlp_impl: str = "auto",
+                 use_checkpoint: bool = False):
         super().__init__()
         cfg = config
         d = cfg.embed_dim
@@ -53,6 +61,7 @@ class UViT(nn.Module):
             raise ValueError(f"int8_mlp_scales has {len(sc)} entries, need {2 * k + 1}")
         self.config = cfg
         self.dtype = dtype
+        self.use_checkpoint = use_checkpoint
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, d)
         self.time_embed = TimeEmbed(d, cfg.mlp_time_embed)
         self.label_emb = nn.Embedding(cfg.num_classes, d) if cfg.num_classes > 0 else None
@@ -117,14 +126,21 @@ class UViT(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.embed_tokens(x, timesteps, y)
+        run = self._run_block
         skips = []
         for blk in self.in_blocks:
-            x = blk(x)
+            x = run(blk, x)
             skips.append(x)
-        x = self.mid_block(x)
+        x = run(self.mid_block, x)
         for blk in self.out_blocks:
-            x = blk(x, skips.pop())
+            x = run(blk, x, skips.pop())
         return self.decode_tokens(x)
+
+    def _run_block(self, blk: Block, x, skip=None):
+        """The block, behind a checkpoint when training with ``use_checkpoint``."""
+        if self.use_checkpoint and self.training and torch.is_grad_enabled():
+            return checkpoint(blk, x, skip, use_reentrant=False)
+        return blk(x, skip)
 
     def _check_n_outer(self, n_outer: int) -> int:
         k = self.config.depth // 2
@@ -207,11 +223,12 @@ def _init_params(model: UViT, generator: torch.Generator) -> None:
 def init_uvit(config: UViTConfig, *, device, dtype=torch.bfloat16,
               generator: torch.Generator, attn_impl: str = "plain",
               gelu_approx: bool = False, int8_mlp_scales: Optional[tuple] = None,
-              mlp_impl: str = "auto") -> UViT:
+              mlp_impl: str = "auto", use_checkpoint: bool = False) -> UViT:
     """A UViT with random fp32 weights drawn on the CPU from ``generator``
     (a CPU generator, so the weights do not depend on ``device``), then
     moved to ``device``. ``dtype`` is the compute dtype."""
     model = UViT(config, dtype=dtype, attn_impl=attn_impl, gelu_approx=gelu_approx,
-                 int8_mlp_scales=int8_mlp_scales, mlp_impl=mlp_impl)
+                 int8_mlp_scales=int8_mlp_scales, mlp_impl=mlp_impl,
+                 use_checkpoint=use_checkpoint)
     _init_params(model, generator)
     return model.to(device)

@@ -37,11 +37,15 @@ _SIGNATURES = {
     "duodiff_mlp_sublayer_int8": ([_PTR] * 16 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_attn_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_v1": ([_PTR] * 11 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_fused_block": ([_PTR] * 19 + [_INT] * 6 + [_FLOAT, _PTR], _INT),
+    "duodiff_mlp_sublayer_bwd_split": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
     "duodiff_flash_attention": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
     "duodiff_flash_attention_bwd": ([_PTR] * 8 + [_INT] * 3 + [_PTR], _INT),
     "duodiff_flash_attention_bwd_stats": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_attn_sublayer_bwd_workspace": ([_INT] * 4, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
+    "duodiff_mlp_sublayer_bwd_split_workspace": ([_INT] * 4, ctypes.c_size_t),
     "duodiff_attn_core_smem_bytes": ([_INT], _INT),
     "duodiff_attn_bwd_core_smem_bytes": ([_INT], _INT),
     "duodiff_error_string": ([_INT], ctypes.c_char_p),

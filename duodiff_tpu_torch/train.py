@@ -14,7 +14,15 @@ backward kernels, bf16 under ``--use_amp``; default on CUDA), ``plain``
 K10 backward, bf16 on CUDA) or ``xla`` (the unfused block around plain
 attention). ``--dataset imagenet64`` reads the decoded-image cache under
 ``<data_path>/_duodiff_cache`` (``data/synthetic.py`` writes a synthetic
-one); ``--label_dropout P`` trains for classifier-free guidance. Flags
+one); ``--label_dropout P`` trains for classifier-free guidance.
+``--grad_accum K`` averages the gradients of K data steps into one optimizer
+update (``--n_steps`` must be a multiple of K; warm-up and the schedule count
+updates), ``--skip_nonfinite N`` drops an update whose gradients are not
+finite until more than N in a row were, and ``--use_checkpoint`` recomputes
+each block in the backward instead of keeping its activations. With
+``--attn_impl fused`` the environment variable ``DUODIFF_MLP_BWD_SPLIT=1``
+takes the hidden-split MLP backward kernel K8 in place of K7
+(``DUODIFF_MLP_BWD_SPLIT_CFG=<slices>`` picks the number of slices). Flags
 whose machinery is not ported yet are refused with a message.
 Checkpoints land in ``<log_path>/<exp_name>/<save_name>_last/checkpoint.pth``;
 ``python -m duodiff_tpu_torch.sample --checkpoint_path`` loads that file.
@@ -48,7 +56,8 @@ def get_args(argv=None):
                         "labels by the null label (num_classes - 1)")
     p.add_argument("--gelu", type=str, default="exact", choices=["exact", "tanh"])
     p.add_argument("--max_grad_norm", type=float, default=1.0)
-    p.add_argument("--use_checkpoint", action="store_true", default=False)
+    p.add_argument("--use_checkpoint", action="store_true", default=False,
+                   help="Recompute each block in the backward (activation checkpointing)")
     # Logging
     p.add_argument("--log_path", type=str, default="logs")
     p.add_argument("--exp_name", type=str, default=None)
@@ -83,8 +92,10 @@ def get_args(argv=None):
     p.add_argument("--weight_decay", type=float, default=0.03)
     p.add_argument("--beta1", type=float, default=0.99)
     p.add_argument("--beta2", type=float, default=0.999)
-    p.add_argument("--grad_accum", type=int, default=1)
-    p.add_argument("--skip_nonfinite", type=int, default=0)
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="Average the gradients of this many data steps into one update")
+    p.add_argument("--skip_nonfinite", type=int, default=0,
+                   help="Skip an update with non-finite gradients, up to this many in a row")
     # LR scheduler
     p.add_argument("--num_warmup_steps", type=int, default=1500)
     # Model

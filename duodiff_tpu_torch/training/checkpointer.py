@@ -70,9 +70,10 @@ class Checkpointer:
         cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
         state = {"step": int(step), "model_state_dict": cpu(model_state)}
         if optimizer_state is not None:
-            state["optimizer"] = {"count": int(optimizer_state["count"]),
-                                  "mu": cpu(optimizer_state["mu"]),
-                                  "nu": cpu(optimizer_state["nu"])}
+            # the moments (and an accumulation window's running mean) as CPU
+            # tensors, the counters as they are
+            state["optimizer"] = {k: cpu(v) if isinstance(v, dict) else v
+                                  for k, v in optimizer_state.items()}
         if ema_state is not None:
             state["ema_state_dict"] = cpu(ema_state)
         if sampler_state is not None:

@@ -3,9 +3,11 @@
 
 The JAX package's optax chain, global-norm clipping then AdamW on the
 cosine-warmup schedule, written out in plain PyTorch with the same order of
-operations, plus the optional EMA shadow of the parameters. Every update
-stays on the device: clipping scales by a device scalar, so a step never
-waits for the host.
+operations, plus the optional EMA shadow of the parameters, gradient
+accumulation (``optax.MultiSteps``) and the skipping of non-finite updates
+(``optax.apply_if_finite``). Every update stays on the device: clipping
+scales by a device scalar and the finite check selects on a device flag, so
+a step never waits for the host.
 """
 
 from __future__ import annotations
@@ -22,41 +24,108 @@ from duodiff_tpu_torch.training.losses import uvit_loss
 from duodiff_tpu_torch.training.lr import cosine_schedule_with_warmup
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+def tensor_norms(tensors) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each tensor's 2-norm, stacked, and the norm of those: the sqrt of the
+    sum of squares of every element (optax.global_norm)."""
+    norms = torch.stack(torch._foreach_norm(list(tensors)))
+    return norms, torch.linalg.vector_norm(norms)
 
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(lr_schedule,
     b1, b2, eps=1e-8, weight_decay))`` over named parameters, updated in
     place. Weight decay applies to every parameter (optax's default mask),
-    and the learning rate of the n-th update is ``lr_schedule(n - 1)``."""
+    and the learning rate of the n-th update is ``lr_schedule(n - 1)``.
+
+    ``grad_accum = k > 1`` is ``optax.MultiSteps(every_k_schedule=k)`` around
+    it: :meth:`step` folds each data step's gradients into a running fp32
+    mean (``acc + (g - acc) / (n + 1)``, optax's), and only every k-th call
+    clips that mean and updates; in between the parameters do not move, and
+    ``count``, the learning-rate position, advances once per k.
+
+    ``skip_nonfinite = n > 0`` is ``optax.apply_if_finite(...,
+    max_consecutive_errors=n)`` inside that: an update whose gradients hold
+    an inf or a NaN leaves parameters, moments and ``count`` untouched, until
+    more than n updates in a row were bad, from when on it is applied as it
+    is. The decision is a device flag (every tensor's norm is finite) that
+    selects between the old and the new value of each tensor, so nothing
+    waits for the host; ``count`` and optax's three counters
+    (``notfinite_count``, ``total_notfinite``, ``last_finite``) then live on
+    the device. With both, a bad data step makes its window's mean
+    non-finite and the window's update is the one skipped; the mean starts
+    again from zero with the next window."""
 
     EPS = 1e-8  # optax.adamw's default
 
     def __init__(self, params: dict, *, lr_schedule: Callable[[int], float], beta1: float,
-                 beta2: float, weight_decay: float, max_grad_norm: float):
+                 beta2: float, weight_decay: float, max_grad_norm: float,
+                 skip_nonfinite: int = 0, grad_accum: int = 1):
+        if grad_accum < 1 or skip_nonfinite < 0:
+            raise ValueError(f"grad_accum must be >= 1 and skip_nonfinite >= 0, got "
+                             f"{grad_accum} and {skip_nonfinite}")
         self.names = list(params)
         self.params = [params[n] for n in self.names]
         self.lr_schedule = lr_schedule
         self.beta1, self.beta2 = beta1, beta2
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
-        self.count = 0
+        self.skip_nonfinite = skip_nonfinite
+        self.grad_accum = grad_accum
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        self._count = 0
+        self.mini_step = 0
+        self.acc_grads = ([torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+                          if grad_accum > 1 else None)
+        if skip_nonfinite:
+            device = self.params[0].device
+            self._count = torch.zeros((), dtype=torch.int64, device=device)
+            self.notfinite_count = torch.zeros((), dtype=torch.int64, device=device)
+            self.total_notfinite = torch.zeros((), dtype=torch.int64, device=device)
+            self.last_finite = torch.ones((), dtype=torch.bool, device=device)
+
+    @property
+    def count(self) -> int:
+        """Updates applied so far (reads the device when ``skip_nonfinite``)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        if self.skip_nonfinite:
+            self._count.fill_(int(value))
+        else:
+            self._count = int(value)
 
     @torch.no_grad()
     def step(self, grads: list) -> torch.Tensor:
-        """Clip ``grads`` (in place) to the global norm, then one AdamW update;
-        returns the global norm before clipping."""
-        g_norm = global_norm(grads)
+        """One data step: returns the global norm of ``grads`` before any
+        clipping. Without accumulation it clips ``grads`` (in place) and
+        updates; with it, it folds them into the running mean and updates
+        from the mean on every ``grad_accum``-th call."""
+        norms, g_norm = tensor_norms(grads)
+        if self.grad_accum == 1:
+            self._update(grads, norms, g_norm)
+            return g_norm
+        diff = torch._foreach_sub(grads, self.acc_grads)
+        torch._foreach_div_(diff, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc_grads, diff)
+        self.mini_step = (self.mini_step + 1) % self.grad_accum
+        if self.mini_step == 0:
+            self._update(self.acc_grads, *tensor_norms(self.acc_grads))
+            torch._foreach_zero_(self.acc_grads)
+        return g_norm
+
+    def _update(self, grads: list, norms: torch.Tensor, g_norm: torch.Tensor) -> None:
+        """Clip ``grads`` (in place) to the global norm ``g_norm``, then one
+        AdamW update, skipped on the device if it is to be."""
         # optax.clip_by_global_norm: g if |g| < max, else g / |g| * max
         factor = torch.where(g_norm < self.max_grad_norm, torch.ones_like(g_norm),
                              self.max_grad_norm / g_norm)
         torch._foreach_mul_(grads, factor)
-        self.count += 1
+        if self.skip_nonfinite:
+            self._update_if_finite(grads, torch.isfinite(norms).all())
+            return
+        self._count += 1
         b1, b2 = self.beta1, self.beta2
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
@@ -69,32 +138,89 @@ class AdamW:
         update = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(update, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, update, alpha=-self.lr_schedule(self.count - 1))
-        return g_norm
+
+    def _update_if_finite(self, grads: list, finite: torch.Tensor) -> None:
+        """The same update computed beside the state, then taken or dropped
+        tensor by tensor on ``finite`` (a device bool) and the run of bad
+        updates so far, as optax.apply_if_finite does."""
+        bad_run = torch.where(finite, torch.zeros_like(self.notfinite_count),
+                              self.notfinite_count + 1)
+        ok = finite | (bad_run > self.skip_nonfinite)
+        self.notfinite_count = bad_run
+        self.total_notfinite = self.total_notfinite + (~finite)
+        self.last_finite = finite
+        count = self._count + 1
+        b1, b2 = self.beta1, self.beta2
+        mu = torch._foreach_mul(self.mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        nu = torch._foreach_mul(self.nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+        mu_hat = torch._foreach_div(mu, (1.0 - b1 ** count.double()).float())
+        denom = torch._foreach_div(nu, (1.0 - b2 ** count.double()).float())
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.EPS)
+        update = torch._foreach_div(mu_hat, denom)
+        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
+        torch._foreach_mul_(update, (-self.lr_schedule(count - 1)).float())
+        new_params = torch._foreach_add(self.params, update)
+        for old, new in ((self.mu, mu), (self.nu, nu), (self.params, new_params)):
+            for t, n in zip(old, new):
+                t.copy_(torch.where(ok, n, t))
+        self._count = torch.where(ok, count, self._count)
 
     def state_dict(self) -> dict:
-        return {"count": self.count,
-                "mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu))}
+        state = {"count": self.count,
+                 "mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu))}
+        if self.grad_accum > 1:
+            state["mini_step"] = self.mini_step
+            state["acc_grads"] = dict(zip(self.names, self.acc_grads))
+        if self.skip_nonfinite:
+            state["notfinite_count"] = int(self.notfinite_count)
+            state["total_notfinite"] = int(self.total_notfinite)
+            state["last_finite"] = bool(self.last_finite)
+        return state
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Strict: the moments must name exactly this optimizer's parameters."""
-        for key in ("mu", "nu"):
+        """Strict: the moments must name exactly this optimizer's parameters.
+        The accumulation window (``mini_step``, ``acc_grads``) and the
+        non-finite counters are restored where the state holds them, so a
+        run saved in the middle of a window continues it; a state without
+        them starts a new window with the counters at zero."""
+        tensors = [(self.mu, "mu"), (self.nu, "nu")]
+        if self.grad_accum > 1 and "acc_grads" in state:
+            if not 0 <= int(state["mini_step"]) < self.grad_accum:
+                raise ValueError(f"the state was saved at mini-step {state['mini_step']} of a "
+                                 f"window; this optimizer accumulates {self.grad_accum}")
+            tensors.append((self.acc_grads, "acc_grads"))
+        for _, key in tensors:
             if set(state[key]) != set(self.names):
                 raise KeyError(f"optimizer state {key!r} names other parameters "
                                f"than the model's: {sorted(set(state[key]) ^ set(self.names))}")
         self.count = int(state["count"])
-        for dst, key in ((self.mu, "mu"), (self.nu, "nu")):
+        for dst, key in tensors:
             for t, name in zip(dst, self.names):
                 t.copy_(state[key][name])
+        if self.grad_accum > 1:
+            self.mini_step = int(state.get("mini_step", 0))
+            if "acc_grads" not in state:
+                torch._foreach_zero_(self.acc_grads)
+        if self.skip_nonfinite:
+            self.notfinite_count.fill_(int(state.get("notfinite_count", 0)))
+            self.total_notfinite.fill_(int(state.get("total_notfinite", 0)))
+            self.last_finite.fill_(bool(state.get("last_finite", True)))
 
 
 def make_optimizer(params: dict, *, lr: float, weight_decay: float, beta1: float, beta2: float,
-                   max_grad_norm: float, num_warmup_steps: int,
-                   num_training_steps: int) -> AdamW:
-    """AdamW with global-norm clipping on the cosine-warmup schedule."""
+                   max_grad_norm: float, num_warmup_steps: int, num_training_steps: int,
+                   skip_nonfinite: int = 0, grad_accum: int = 1) -> AdamW:
+    """AdamW with global-norm clipping on the cosine-warmup schedule.
+    ``num_warmup_steps`` and ``num_training_steps`` count optimizer updates:
+    with ``grad_accum`` the caller divides its data steps by it."""
     return AdamW(params,
                  lr_schedule=cosine_schedule_with_warmup(lr, num_warmup_steps, num_training_steps),
-                 beta1=beta1, beta2=beta2, weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+                 beta1=beta1, beta2=beta2, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+                 skip_nonfinite=skip_nonfinite, grad_accum=grad_accum)
 
 
 @dataclasses.dataclass

@@ -7,8 +7,10 @@ plain PyTorch sublayers on the CPU, or the unfused block around the
 attention kernels K9/K10 with ``--attn_impl pallas``), an optional
 distillation teacher, the CIFAR-10 or cached ImageNet-64 loader,
 classifier-free-guidance label dropout, AdamW with clipping and the cosine-warmup schedule, an
-optional EMA, checkpoints with exact resume, and a SIGTERM
-checkpoint-and-exit. Flags whose machinery is not ported are refused
+optional EMA, gradient accumulation (``--grad_accum``), skipping of
+non-finite updates (``--skip_nonfinite``), activation checkpointing
+(``--use_checkpoint``), checkpoints with exact resume, also in the middle of
+an accumulation window, and a SIGTERM checkpoint-and-exit. Flags whose machinery is not ported are refused
 (:func:`refuse_unported`).
 """
 
@@ -36,9 +38,6 @@ _UNPORTED = {
     "load_backbone": (bool, "early-exit backbone loading"),
     "freeze_backbone": (bool, "early-exit backbone freezing"),
     "log_every_n_steps": (lambda v: v is not None, "in-training sampling and image logging"),
-    "grad_accum": (lambda v: (v or 1) > 1, "gradient accumulation"),
-    "skip_nonfinite": (lambda v: bool(v), "skipping non-finite updates"),
-    "use_checkpoint": (bool, "activation checkpointing"),
     "async_checkpoint": (bool, "asynchronous checkpoints"),
     "profile": (bool, "the profiler hook"),
     "fsdp": (bool, "multi-GPU parameter sharding"),
@@ -80,10 +79,17 @@ class Trainer:
                                          args.data_path)
         # labels feed the model for ImageNet and for any class-conditional model
         self.has_labels = "imagenet" in args.dataset or self.model_config.num_classes > 0
+        grad_accum = getattr(args, "grad_accum", 1) or 1
+        if grad_accum > 1 and args.n_steps % grad_accum:
+            raise ValueError(f"--n_steps {args.n_steps} must be a multiple of "
+                             f"--grad_accum {grad_accum}")
         optimizer = make_optimizer(
             dict(self.model.named_parameters()), lr=args.lr, weight_decay=args.weight_decay,
             beta1=args.beta1, beta2=args.beta2, max_grad_norm=args.max_grad_norm,
-            num_warmup_steps=args.num_warmup_steps, num_training_steps=max(args.n_steps, 1),
+            # schedule positions count optimizer updates, not data steps
+            num_warmup_steps=args.num_warmup_steps,
+            num_training_steps=max(args.n_steps // grad_accum, 1),
+            skip_nonfinite=getattr(args, "skip_nonfinite", 0) or 0, grad_accum=grad_accum,
         )
         self.state = TrainState.create(self.model, optimizer, ema_decay=args.ema_decay or 0.0)
         self.checkpointer = Checkpointer(args.log_path, args.exp_name,
@@ -130,6 +136,7 @@ class Trainer:
             self.model_config, device=self.device, dtype=self.compute_dtype,
             generator=torch.Generator().manual_seed(self.args.seed),
             attn_impl=self.attn_impl, gelu_approx=self.gelu_approx,
+            use_checkpoint=bool(getattr(self.args, "use_checkpoint", False)),
         )
         self.model.train()
 

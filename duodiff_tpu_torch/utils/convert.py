@@ -112,3 +112,22 @@ def uvit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         name: torch.from_numpy(np.array(value, dtype=np.float32, order="C"))  # a copy
         for name, value in export_uvit(params).items()
     }
+
+
+_BLOCK_PARAM_ORDER = ("ln1_s", "ln1_b", "wqkv", "bqkv", "wp", "bp", "ln2_s", "ln2_b", "w1", "b1",
+                      "w2", "b2")
+
+
+def block_params_from_jax(p: Mapping) -> tuple:
+    """The 12 torch-layout parameters of one block, in the order
+    :class:`duodiff_tpu_torch.ops.block.FusedBlockFn` takes them, from
+    JAX-layout arrays under the names above: the four kernels (in, out)
+    become weights (out, in), vectors stay; ``bqkv`` may be None."""
+    def one(name):
+        a = p[name]
+        if a is None:
+            return None
+        a = _np(a)
+        return torch.from_numpy(np.ascontiguousarray(a.T if a.ndim == 2 else a)).float()
+
+    return tuple(one(name) for name in _BLOCK_PARAM_ORDER)
