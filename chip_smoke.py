@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512) and of the class-conditional ImageNet-64 U-ViT (D = 768) and
@@ -57,7 +57,17 @@ checks them, in phases, each printing its results on its own lines:
    updates), a run loaded from that one's checkpoint of step 13, inside an
    accumulation window, which must end where the unbroken run ended, and 10
    steps with ``--use_checkpoint`` (every block's forward twice a step);
-   then ``duodiff_tpu_torch.tools.probe_mlp_bwd_split``.
+   then ``duodiff_tpu_torch.tools.probe_mlp_bwd_split``;
+9. the int8 probe tools, the main path of the sixth slice:
+   ``duodiff_tpu_torch.tools.probe_int8_static`` (K13, K14: the dynamic and
+   the static twin of both W8A8 sublayers, chained) and
+   ``duodiff_tpu_torch.tools.probe_int8_sdpa`` (K15: the attention chain alone,
+   bf16 and int8), each once through its ``main`` at its full geometry
+   (batch 128, L = 257, D = 512, 8 heads), with the launch counts they imply.
+
+Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
+files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
+launch counts and the per-kernel record then cover the phases run.
 
 Phase 2 also holds the backward kernels K6 (with and without a qkv bias)
 and K7 (exact and tanh GELU) against their plain versions, the attention
@@ -67,7 +77,11 @@ K1, K2, K6, K7, K11 and K12 at the ImageNet-64 width, and at both widths
 the rest of ``ops/pallas_block.py``: the per-head attention sublayer K1-v1
 and the whole-block kernel K5 against their plain versions, K5 timed beside
 K1 then K2 and K1-v1 beside K1, and K8 at 2, 4 and 8 slices against its
-plain version and against K7, timed beside K7. Phase 3 also holds
+plain version and against K7, timed beside K7; and at the probes' geometry
+K13 and K14, dynamic and static, and K15's two forms (the int8 one within
+1 % relative Frobenius of its plain version, equal bits on a repeat call,
+under 5 % from the bf16 form) with ``F.scaled_dot_product_attention(scale=1)``
+timed beside them. Phase 3 also holds
 the gradients of the whole depth-13 model and a few optimizer steps, fused
 against plain, and the depth-17 ImageNet-64 forward, gradients and a guided
 DuoDiff trajectory, attention kernels against their plain versions; a stack
@@ -84,10 +98,12 @@ no CPU fallback: without a CUDA device the script exits with code 1.
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -208,6 +224,35 @@ BLOCK_KERNELS = {
         "replaces": "duodiff_tpu/ops/pallas_block.py:1167",
     },
 }
+# the kernels of the int8 probe tools: K13 is K12's kernel and K14's dynamic
+# form K11's, reached through the probes' own operands and scales; K14's
+# static form and K15's int8 form are device code of their own; K15's bf16
+# form launches the core of K1 / K9 with no scale
+PROBE_KERNELS = {
+    "probe_mlp_int8": {
+        "source": "duodiff_tpu_torch/csrc/mlp_sublayer_int8.cu",
+        "replaces": "tools/probe_int8_static.py:51",
+    },
+    "probe_attn_int8": {
+        "source": "duodiff_tpu_torch/csrc/attn_sublayer_int8.cu",
+        "replaces": "tools/probe_int8_static.py:111",
+    },
+    "sdpa_chain_bf16": {
+        "source": "duodiff_tpu_torch/csrc/sdpa_int8.cu",
+        "replaces": "tools/probe_int8_sdpa.py:46",
+    },
+    "sdpa_chain_int8": {
+        "source": "duodiff_tpu_torch/csrc/sdpa_int8.cu",
+        "replaces": "tools/probe_int8_sdpa.py:68",
+    },
+}
+# K15's int8 form against its plain version: int32 sums are exact, so the two
+# differ through expf against torch.exp and the order of the fp32 row sum, and
+# where e * 127 lies near a half a code of e flips by one; such flips move
+# single entries by more than a bf16 rounding, so the gate is the relative
+# Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
+SDPA_INT8_REL = 5e-2
+PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -717,6 +762,76 @@ def check_attention_kernels(device, results: dict) -> None:
             results["flash_attention_bwd"]["library_ms"] = lib_bwd
 
 
+def check_probe_kernels(device, results: dict) -> None:
+    """Phase 2, the int8 probe tools' kernels at the probes' geometry (L = 257,
+    D = 512, hidden 2048, 8 heads of 64) on the probes' own operands and
+    scales, at batch 8 and 128. K13 (the MLP sublayer, tanh GELU) and K14
+    (the attention sublayer, no qkv bias), each dynamic and static, against
+    their plain versions elementwise. K15's bf16 form as K9 is held; its int8
+    form within FWD_REL_FRO of its plain version as a whole, equal to the bit
+    on a repeat call, and within SDPA_INT8_REL of the bf16 form; with
+    F.scaled_dot_product_attention(scale=1) timed beside both as the library
+    yardstick (the port never calls it). Times are kept at batch 128."""
+    import torch.nn.functional as F
+
+    from duodiff_tpu_torch.ops import block_int8 as q
+    from duodiff_tpu_torch.ops import sdpa_int8
+    from duodiff_tpu_torch.tools import probe_int8_static as probe
+
+    for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
+        timed = batch == MAIN_BATCH
+        ops = probe.operands(batch, device)
+        x = ops["x"]
+        where = f"D={probe.D} L={probe.L} B={batch}"
+        for mode in ("dynamic", "static"):
+            suffix = ("" if mode == "dynamic" else "_static") if timed else None
+            mlp, attn = ops["mlp"][mode], ops["attn"][mode]
+            compare_kernel(
+                results["probe_mlp_int8"], f"K13 probe MLP sublayer int8 {where} scales={mode}",
+                lambda: q.fused_mlp_sublayer_int8(x, *mlp, gelu_approx=True),
+                lambda: q.mlp_sublayer_int8_plain(x, *mlp, gelu_approx=True), suffix)
+            compare_kernel(
+                results["probe_attn_int8"],
+                f"K14 probe attention sublayer int8 {where} scales={mode}",
+                lambda: q.fused_attn_sublayer_int8(x, *attn, num_heads=probe.H),
+                lambda: q.attn_sublayer_int8_plain(x, *attn, num_heads=probe.H), suffix)
+
+        g = torch.Generator().manual_seed(batch)
+        qq, kk, vv = (torch.randn((batch, probe.H, probe.L, 64), generator=g)
+                      .to(torch.bfloat16).to(device) for _ in range(3))
+        label = f"B={batch} H={probe.H} L={probe.L}"
+        compare_kernel(results["sdpa_chain_bf16"], f"K15 sdpa_chain_bf16 {label}",
+                       lambda: sdpa_int8.sdpa_chain_bf16(qq, kk, vv),
+                       lambda: sdpa_int8.sdpa_chain_bf16_plain(qq, kk, vv),
+                       "" if timed else None, scaled=True)
+        got = sdpa_int8.sdpa_chain_int8(qq, kk, vv)
+        again = sdpa_int8.sdpa_chain_int8(qq, kk, vv)
+        torch.cuda.synchronize()
+        want = sdpa_int8.sdpa_chain_int8_plain(qq, kk, vv)
+        same = torch.equal(got, again)
+        rel, max_abs = rel_fro(got, want), errors(got, want)[0]
+        from_bf16 = rel_fro(got, sdpa_int8.sdpa_chain_bf16(qq, kk, vv))
+        ms = time_ms({"kernel": lambda: sdpa_int8.sdpa_chain_int8(qq, kk, vv),
+                      "plain": lambda: sdpa_int8.sdpa_chain_int8_plain(qq, kk, vv),
+                      "library": lambda: F.scaled_dot_product_attention(qq, kk, vv, scale=1.0)})
+        ok = same and rel <= FWD_REL_FRO and from_bf16 <= SDPA_INT8_REL
+        print(f"phase 2: K15 sdpa_chain_int8 {label}: rel_fro_err={rel:.6g} (bound {FWD_REL_FRO}) "
+              f"max_abs_err={max_abs:.6g} repeat_equal={same} rel l2 from the bf16 form "
+              f"{from_bf16:.6g} (bound {SDPA_INT8_REL}) ok={ok} kernel_ms={ms['kernel']:.6g} "
+              f"plain_ms={ms['plain']:.6g}; library yardstick F.scaled_dot_product_attention("
+              f"scale=1) {ms['library']:.6g} ms", flush=True)
+        if not ok:
+            fail(f"K15 sdpa_chain_int8 {label} disagrees with its plain version, with the bf16 "
+                 "form, or is not deterministic")
+        res = results["sdpa_chain_int8"]
+        res["max_abs_err"] = max(res["max_abs_err"], max_abs)
+        res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), rel)
+        if timed:
+            keep_times(res, ms, "")
+            res["rel_l2_from_bf16"] = from_bf16
+            res["library_ms"] = results["sdpa_chain_bf16"]["library_ms"] = ms["library"]
+
+
 def bound(flops: float, int8_ops: float, nbytes: float) -> dict:
     """The least time the card could take: the larger of the bytes over its
     memory rate and the operations over its peak rates for their types."""
@@ -727,7 +842,7 @@ def bound(flops: float, int8_ops: float, nbytes: float) -> dict:
 
 
 def kernel_bounds(width: Width = CELEBA, batch: int = MAIN_BATCH,
-                  attention_shape=ATTENTION_SHAPES[1]) -> dict:
+                  attention_shape=ATTENTION_SHAPES[1], chain_shape=ATTENTION_SHAPES[2]) -> dict:
     """bound_ms / bound_by of each kernel at the shapes its main path gives
     it: every input read once and every output written once (activations
     bf16, weights bf16 or int8, weight gradients fp32) against the
@@ -736,6 +851,8 @@ def kernel_bounds(width: Width = CELEBA, batch: int = MAIN_BATCH,
     rows, act = batch * l, batch * l * d * 2  # one (B, L, D) bf16 tensor
     bh, la = attention_shape[0] * attention_shape[1], attention_shape[2]
     head = bh * la * 64 * 2  # one (B, H, L, 64) bf16 tensor
+    ch, lc = chain_shape[0] * chain_shape[1], chain_shape[2]  # K15, the probe's (B, H, L)
+    chain_ops, chain_bytes = 4 * ch * lc * lc * 64, 4 * ch * lc * 64 * 2
     return {
         "fused_attn_sublayer": bound(rows * (8 * d * d + 4 * l * d), 0, 2 * act + 8 * d * d),
         "fused_mlp_sublayer": bound(rows * 16 * d * d, 0, 2 * act + 16 * d * d),
@@ -752,6 +869,11 @@ def kernel_bounds(width: Width = CELEBA, batch: int = MAIN_BATCH,
                                               3 * act + 16 * d * d + 32 * d * d),
         "flash_attention": bound(4 * bh * la * la * 64, 0, 4 * head),
         "flash_attention_bwd": bound(10 * bh * la * la * 64, 0, 7 * head),
+        # K13 and K14 compute K12's and K11's functions (no biases to speak of)
+        "probe_mlp_int8": bound(0, rows * 16 * d * d, 2 * act + 8 * d * d),
+        "probe_attn_int8": bound(rows * 4 * l * d, rows * 8 * d * d, 2 * act + 4 * d * d),
+        "sdpa_chain_bf16": bound(chain_ops, 0, chain_bytes),
+        "sdpa_chain_int8": bound(0, chain_ops, chain_bytes),
     }
 
 
@@ -972,7 +1094,7 @@ def check_training(device) -> None:
 
 
 def reset_counts() -> None:
-    from duodiff_tpu_torch.ops import block, block_int8, flash_attention
+    from duodiff_tpu_torch.ops import block, block_int8, flash_attention, sdpa_int8
 
     flash_attention.flash_attention.launches = 0
     flash_attention.flash_attention_bwd.launches = 0
@@ -984,10 +1106,11 @@ def reset_counts() -> None:
     block.fused_block.launches = 0
     block.fused_mlp_sublayer_bwd_split.launches = 0
     block_int8.reset_launch_counts()
+    sdpa_int8.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from duodiff_tpu_torch.ops import block, block_int8, flash_attention
+    from duodiff_tpu_torch.ops import block, block_int8, flash_attention, sdpa_int8
 
     k12 = block_int8.fused_mlp_sublayer_int8
     return {
@@ -1004,14 +1127,19 @@ def read_counts() -> dict:
         "fused_mlp_sublayer_int8": k12.launches,
         "fused_mlp_sublayer_int8 dynamic": k12.launches_dynamic,
         "fused_mlp_sublayer_int8 static": k12.launches_static,
+        "fused_attn_sublayer_int8 static": block_int8.fused_attn_sublayer_int8.launches_static,
+        "sdpa_chain_bf16": sdpa_int8.sdpa_chain_bf16.launches,
+        "sdpa_chain_int8": sdpa_int8.sdpa_chain_int8.launches,
     }
 
 
 def run_cli(label: str, extra: list, card: str, expected: dict,
-            configs=(EARLY_CONFIG, LATE_CONFIG), batch: int = MAIN_BATCH) -> dict:
+            configs=(EARLY_CONFIG, LATE_CONFIG), batch: int = MAIN_BATCH,
+            check_output=None) -> dict:
     """One 1000-step DuoDiff run of the sampling CLI, in-process, with every
     launch counter set to 0 just before and read just after; checks the
-    samples and that the counts equal ``expected`` (unlisted kernels: 0)."""
+    samples and that the counts equal ``expected`` (unlisted kernels: 0).
+    ``check_output(folder, result)`` looks at the files before they go."""
     from duodiff_tpu_torch import sample
 
     with tempfile.TemporaryDirectory() as out:
@@ -1028,6 +1156,8 @@ def run_cli(label: str, extra: list, card: str, expected: dict,
         wall = time.perf_counter() - tic
         launches = read_counts()
         saved = np.load(f"{out}/samples.npy")
+        if check_output is not None:
+            check_output(Path(out), result)
     samples = result["samples"]
     print(f"{label} batch {batch}: sampling {result['seconds']:.6g} s, "
           f"{batch / result['seconds']:.6g} samples/s, CLI wall {wall:.6g} s, "
@@ -1060,14 +1190,50 @@ def check_counts(launches: dict, expected: dict) -> None:
             fail(f"{name} launched {n} times on the path, expected {expected.get(name, 0)}")
 
 
+def png_header(path: Path) -> tuple:
+    """(width, height, bit depth, colour type) of a PNG file; fails on a file
+    without the PNG signature or whose first chunk is not IHDR."""
+    head = path.read_bytes()[:33]
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        fail(f"{path.name} is not a PNG file")
+    return struct.unpack(">IIBB", head[16:26])
+
+
+def check_sample_files(folder: Path, result: dict) -> None:
+    """Phase 4's files: every sample as {i}.png, the state after T_SWITCH
+    reverse steps (the handoff) as {i}_{T_SWITCH}.png, the grid, all 8-bit RGB
+    of the right size; --timesteps_save STEPS is the end, so its state must
+    equal the samples."""
+    grid = int(np.ceil(np.sqrt(MAIN_BATCH))) * 64
+    names = {f"{i}.png": 64 for i in range(MAIN_BATCH)}
+    names.update({f"{i}_{T_SWITCH}.png": 64 for i in range(MAIN_BATCH)})
+    names["grid_image.png"] = grid
+    for name, size in names.items():
+        if not (folder / name).exists():
+            fail(f"the sampling CLI did not write {name}")
+        if png_header(folder / name) != (size, size, 8, 2):
+            fail(f"{name} has header {png_header(folder / name)}, expected {size}x{size} 8-bit RGB")
+    inter = result["intermediates"]
+    if sorted(inter) != [T_SWITCH, STEPS] or not np.array_equal(inter[STEPS], result["samples"]):
+        fail("--timesteps_save did not keep the handoff state and the final state")
+    if inter[T_SWITCH].shape != result["samples"].shape or not np.isfinite(inter[T_SWITCH]).all():
+        fail("the state kept at the handoff is not a finite batch of images")
+    print(f"phase 4: {len(names)} PNG files written ({MAIN_BATCH} samples, {MAIN_BATCH} "
+          f"states at the handoff, a {grid}x{grid} grid), 8-bit RGB; the state kept after "
+          f"{STEPS} steps equals the samples", flush=True)
+
+
 def run_main_path(card: str) -> dict:
-    """Phase 4: the bf16 DuoDiff run of the sampling CLI; returns the
-    launch counts."""
+    """Phase 4: the bf16 DuoDiff run of the sampling CLI, which also saves
+    the state at the handoff and at the end and writes PNG files; returns
+    the launch counts."""
     expected = T_SWITCH * 3 + (STEPS - T_SWITCH) * 13
     return run_cli(
         f"phase 4: DuoDiff {STEPS} steps (depth 3 x {T_SWITCH}, depth 13 x "
         f"{STEPS - T_SWITCH}), bf16",
-        [], card, {"fused_attn_sublayer": expected, "fused_mlp_sublayer": expected},
+        ["--timesteps_save", str(T_SWITCH), str(STEPS)], card,
+        {"fused_attn_sublayer": expected, "fused_mlp_sublayer": expected},
+        check_output=check_sample_files,
     )
 
 
@@ -1682,13 +1848,14 @@ FUSED_KERNELS_SPLIT = ("fused_attn_sublayer", "fused_mlp_sublayer", "fused_attn_
                        "fused_mlp_sublayer_bwd_split")
 
 
-def run_split_training(card: str, fused_peak: int) -> dict:
+def run_split_training(card: str, fused_peak) -> dict:
     """Phase 8, fused training with the split MLP backward at full width:
     the training CLI on configs/uvit_imagenet64.yaml at batch 128 in bf16 on the synthetic
     ImageNet-64 cache, --attn_impl fused with DUODIFF_MLP_BWD_SPLIT=1, so
     every block runs K1, K2, K6 and K8 and none K7: (a) 40 steps, the loss
     must fall, a step's split, profile and peak memory beside the K7 leg's
-    (``fused_peak``); (b) 20 steps with --grad_accum 2 --skip_nonfinite 3: 10
+    (``fused_peak``, None when phase 7 did not run); (b) 20 steps with
+    --grad_accum 2 --skip_nonfinite 3: 10
     optimizer updates; (c) 10 steps with --use_checkpoint: every block's
     forward runs twice; (d) a run loaded from (b)'s checkpoint of step 13,
     the middle of an accumulation window, must end where (b) ended. Then the
@@ -1720,8 +1887,9 @@ def run_split_training(card: str, fused_peak: int) -> dict:
             "a: train uvit_imagenet64.yaml, attn_impl fused, DUODIFF_MLP_BWD_SPLIT=1",
             argv(work, "split", SPLIT_TRAIN_STEPS), SPLIT_TRAIN_STEPS)
         first, last = trainer.logs[0]["train_loss"], trainer.logs[-1]["train_loss"]
+        beside = "not measured" if fused_peak is None else f"{fused_peak / 2**30:.6g} GiB"
         print(f"phase 8a: peak device memory {peak / 2**30:.6g} GiB with K8 beside "
-              f"{fused_peak / 2**30:.6g} GiB in phase 7's fused leg with K7; loss {first:.6g} -> "
+              f"{beside} in phase 7's fused leg with K7; loss {first:.6g} -> "
               f"{last:.6g}", flush=True)
         if not last < LOSS_DROP * first:
             fail(f"the train loss through K8 did not fall clearly: {first:.6g} -> {last:.6g}")
@@ -1801,7 +1969,71 @@ def run_split_training(card: str, fused_peak: int) -> dict:
     return launches
 
 
-def main() -> int:
+def run_probe_tools(card: str) -> dict:
+    """Phase 9: the two int8 probe tools through their ``main`` at their full
+    geometry, every launch counter set to 0 just before each and read just
+    after. Each form of each sublayer runs a warm-up chain and a timed chain
+    of ``ITERS`` calls; the attention-chain probe adds one call of each form
+    for its error. A static twin slower than its dynamic one, or int8 slower
+    than bf16, is a finding, printed and not a failure. Returns the launches
+    of the probes' kernels."""
+    from duodiff_tpu_torch.tools import probe_int8_sdpa, probe_int8_static
+
+    reset_counts()
+    static = probe_int8_static.main([])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    chains = 2 * probe_int8_static.ITERS
+    check_counts(launches, {
+        "fused_mlp_sublayer_int8": 2 * chains, "fused_mlp_sublayer_int8 dynamic": chains,
+        "fused_mlp_sublayer_int8 static": chains, "fused_attn_sublayer_int8": 2 * chains,
+        "fused_attn_sublayer_int8 static": chains})
+    told = static["launches"]
+    if told != {"mlp": {"dynamic": chains, "static": chains},
+                "attn": {"dynamic": chains, "static": chains}}:
+        fail(f"probe_int8_static reports launches {told}, expected {chains} of each form")
+    ms = static["ms"]
+    if not all(np.isfinite(v) and v > 0 for v in ms.values()):
+        fail(f"probe_int8_static reports times {ms}")
+    out = {"probe_mlp_int8": launches["fused_mlp_sublayer_int8"],
+           "probe_attn_int8": launches["fused_attn_sublayer_int8"]}
+    print(f"phase 9: probe_int8_static: launches {launches}; static beats dynamic for the MLP: "
+          f"{ms['mlp_static'] < ms['mlp_dynamic']}, for attention: "
+          f"{ms['attn_static'] < ms['attn_dynamic']}; card {card}", flush=True)
+
+    reset_counts()
+    sdpa = probe_int8_sdpa.main([])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    calls = 2 * probe_int8_sdpa.ITERS + 1
+    check_counts(launches, {"sdpa_chain_bf16": calls, "sdpa_chain_int8": calls})
+    if sdpa["launches"] != {"bf16": calls, "int8": calls}:
+        fail(f"probe_int8_sdpa reports launches {sdpa['launches']}, expected {calls} of each")
+    if not 0.0 < sdpa["rel_l2_err"] <= SDPA_INT8_REL:
+        fail(f"probe_int8_sdpa: int8 lies {sdpa['rel_l2_err']:.6g} from bf16 "
+             f"(bound {SDPA_INT8_REL})")
+    if static["card"] != card or sdpa["card"] != card:
+        fail(f"a probe tool saw another card: {static['card']} / {sdpa['card']}")
+    print(f"phase 9: probe_int8_sdpa: launches {launches}; int8 beats bf16: "
+          f"{sdpa['speedup'] > 1.0} ({sdpa['speedup']:.6g}x); card {card}", flush=True)
+    out.update({k: launches[k] for k in ("sdpa_chain_bf16", "sdpa_chain_int8")})
+    return out
+
+
+def parse_phases(argv) -> set:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma list of the phases to run, of {', '.join(PHASES)} "
+                             "(default: all; phase 1, the set-up, always runs)")
+    phases = [p.strip() for p in parser.parse_args(argv).phases.split(",") if p.strip()]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown or not phases:
+        parser.error(f"--phases takes a comma list of {', '.join(PHASES)}; got {unknown or 'none'}")
+    return set(phases)
+
+
+def main(argv=None) -> int:
+    run = parse_phases(argv)
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device; chip_smoke.py runs only on a GPU", file=sys.stderr)
         return 1
@@ -1809,46 +2041,67 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = setup()
-    kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS, **ATTENTION_KERNELS, **BLOCK_KERNELS}
+    kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS, **ATTENTION_KERNELS, **BLOCK_KERNELS,
+               **PROBE_KERNELS}
     results = new_results(kernels)
-    check_kernels(device, results)
-    check_int8_kernels(device, results)
-    check_bwd_kernels(device, results)
-    check_attention_kernels(device, results)
-    check_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
-    check_bwd_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
-    check_int8_kernels(device, results, IMAGENET, batches=(CHECK_BATCH,), suffix="_d768_b8")
-    check_block_kernels(device, results, IMAGENET, suffix="")
-    check_split_kernel(device, results, IMAGENET, variants=(False,), suffix="")
-    check_block_kernels(device, results, CELEBA, suffix="_d512")
-    check_split_kernel(device, results, CELEBA, variants=(False, True), suffix="_d512")
-    check_model(device)
-    check_int8_model(device)
-    check_training(device)
-    check_imagenet_model(device)
-    stack_launches = check_block_stack(device)
-    check_split_training(device)
-    launches = run_main_path(card)
-    launches.update({name: n for name, n in run_int8_main_path(card).items()
-                     if name in INT8_KERNELS})
-    launches.update({name: n for name, n in run_train_path(device, card).items()
-                     if name in BWD_KERNELS})
-    run_distill_path(card)
-    launches["flash_attention"] = run_imagenet_sampling(device, card)["flash_attention"]
-    imagenet_launches, fused_peak = run_imagenet_training(card)
-    launches["flash_attention_bwd"] = imagenet_launches["flash_attention_bwd"]
-    split_launches = run_split_training(card, fused_peak)
-    launches["fused_mlp_sublayer_bwd_split"] = split_launches["fused_mlp_sublayer_bwd_split"]
-    launches.update(stack_launches)
+    launches = {}
+    if "2" in run:
+        check_kernels(device, results)
+        check_int8_kernels(device, results)
+        check_bwd_kernels(device, results)
+        check_attention_kernels(device, results)
+        check_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
+        check_bwd_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
+        check_int8_kernels(device, results, IMAGENET, batches=(CHECK_BATCH,), suffix="_d768_b8")
+        check_block_kernels(device, results, IMAGENET, suffix="")
+        check_split_kernel(device, results, IMAGENET, variants=(False,), suffix="")
+        check_block_kernels(device, results, CELEBA, suffix="_d512")
+        check_split_kernel(device, results, CELEBA, variants=(False, True), suffix="_d512")
+        check_probe_kernels(device, results)
+    if "3" in run:
+        check_model(device)
+        check_int8_model(device)
+        check_training(device)
+        check_imagenet_model(device)
+        launches.update(check_block_stack(device))
+        check_split_training(device)
+    if "4" in run:
+        launches.update({name: n for name, n in run_main_path(card).items() if name in KERNELS})
+    if "4b" in run:
+        launches.update({name: n for name, n in run_int8_main_path(card).items()
+                         if name in INT8_KERNELS})
+    if "5" in run:
+        launches.update({name: n for name, n in run_train_path(device, card).items()
+                         if name in BWD_KERNELS})
+    if "5b" in run:
+        run_distill_path(card)
+    if "6" in run:
+        launches["flash_attention"] = run_imagenet_sampling(device, card)["flash_attention"]
+    fused_peak = None
+    if "7" in run:
+        imagenet_launches, fused_peak = run_imagenet_training(card)
+        launches["flash_attention_bwd"] = imagenet_launches["flash_attention_bwd"]
+    if "8" in run:
+        split_launches = run_split_training(card, fused_peak)
+        launches["fused_mlp_sublayer_bwd_split"] = split_launches["fused_mlp_sublayer_bwd_split"]
+    if "9" in run:
+        launches.update(run_probe_tools(card))
+    if run == set(PHASES):
+        idle = sorted(name for name in kernels if not launches.get(name))
+        if idle:
+            fail(f"kernels never launched on their paths: {idle}")
     # the bounds at the width of each kernel's main path: CelebA's for the
-    # sublayers and their int8 and backward forms, ImageNet-64's for K1-v1,
-    # K5 and K8
+    # sublayers, their int8 and backward forms and the probes' kernels,
+    # ImageNet-64's for K1-v1, K5 and K8
     bounds = {**kernel_bounds(), **{k: v for k, v in kernel_bounds(IMAGENET).items()
                                     if k in BLOCK_KERNELS}}
+    # with a subset of the phases: the kernels that phase 2 timed or a path
+    # launched, each with what was measured (launches null where its path did
+    # not run)
     record = [
-        {"name": name, "route": "cuda", **kernels[name], "launches": launches[name],
+        {"name": name, "route": "cuda", **kernels[name], "launches": launches.get(name),
          "library_ms": None, **bounds[name], **results[name]}
-        for name in kernels
+        for name in kernels if "ms" in results[name] or name in launches
     ]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -106,13 +106,23 @@ def load_model_config(path) -> UViTConfig:
     return UViTConfig.from_dict(read_model_params(path))
 
 
-def merge_args_with_config(args, path):
-    """Overlay a config file's ``model_params`` onto an argparse namespace,
-    the file winning (the JAX package's merge). A config with an
-    ``autoencoder`` block (latent diffusion) is refused: the autoencoder is
-    not ported yet."""
+def refuse_latent_config(path) -> None:
+    """Raise for a config with an ``autoencoder`` block (latent diffusion):
+    its model works on autoencoder latents, and the autoencoder is not ported
+    yet, so training could not encode its images and sampling would write
+    undecoded latents as if they were images."""
     top = {line.rstrip(":").strip() for line in _config_lines(path) if not line[0].isspace()}
     if "autoencoder" in top:
-        raise NotImplementedError(f"{path}: the latent autoencoder is not ported yet")
+        raise NotImplementedError(
+            f"{path}: this is a latent-diffusion config, and its autoencoder (the encoder "
+            "that training needs and the decoder that turns sampled latents into images) is "
+            "not ported yet")
+
+
+def merge_args_with_config(args, path):
+    """Overlay a config file's ``model_params`` onto an argparse namespace,
+    the file winning (the JAX package's merge). A latent-diffusion config is
+    refused (:func:`refuse_latent_config`)."""
+    refuse_latent_config(path)
     args.__dict__.update(read_model_params(path))
     return args

@@ -68,7 +68,8 @@ extern "C" int duodiff_mlp_sublayer_int8(const void* x, const void* ln_w, const 
                      static_cast<const float*>(b1), nullptr, nullptr, hidden};
     err = launch_gemm_int8(x_codes, static_cast<const int8_t*>(w1), M, Hd, D, fc1, s);
     if (err != cudaSuccess) return err;
-    err = launch_quant_rows(static_cast<const float*>(hidden), h_codes, h_scale, M, Hd, s);
+    err = launch_quant_rows(static_cast<const float*>(hidden), h_codes, h_scale, nullptr, M, Hd,
+                            s);
   }
   if (err != cudaSuccess) return err;
   Int8GemmArgs fc2{kEpiResidual, kGeluNone, is_static ? nullptr : h_scale,

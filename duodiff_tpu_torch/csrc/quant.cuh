@@ -7,8 +7,10 @@
 //
 // Dynamic mode, per row: amax = max|v|, inv = amax > 0 ? 127/amax : 1,
 // q = clip(rint(v * inv), -127, 127), row scale amax/127. Static mode (K12
-// with calibrated scales): q = clip(rint(v * inv)) with one given inv, no
-// row statistic.
+// with calibrated scales, and the static form of the attention sublayer,
+// tools/probe_int8_static.py _attn_kernel_static :152, :168): q =
+// clip(rint(v * inv)) with one given inv, no row statistic; a bf16 input is
+// widened to fp32 before the multiply, as the Pallas body does.
 //
 // Replaces: _quant_rows and _quant_rows_static of
 // duodiff_tpu/ops/pallas_block_int8.py (:71-88), applied in
@@ -123,25 +125,33 @@ ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma
   }
 }
 
-// in (M, N) bf16 or fp32 -> out (M, N) int8, row_scale[m] = amax/127.
+// in (M, N) bf16 or fp32 -> out (M, N) int8. static_inv null: dynamic,
+// row_scale[m] = amax/127; else every row quantizes with static_inv[0] and
+// row_scale is not written.
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads)
 quant_rows_kernel(const T* __restrict__ in, int8_t* __restrict__ out,
-                  float* __restrict__ row_scale, int M, int N) {
+                  float* __restrict__ row_scale, const float* __restrict__ static_inv, int M,
+                  int N) {
   const int row = blockIdx.x * (kQuantThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   const T* r = in + static_cast<size_t>(row) * N;
   float v[kVec];
-  float amax = 0.f;
-  for (int c = lane * kVec; c < N; c += 32 * kVec) {
-    load8(r + c, v);
+  float inv;
+  if (static_inv != nullptr) {
+    inv = static_inv[0];
+  } else {
+    float amax = 0.f;
+    for (int c = lane * kVec; c < N; c += 32 * kVec) {
+      load8(r + c, v);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) amax = fmaxf(amax, fabsf(v[e]));
+      for (int e = 0; e < kVec; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+    amax = warp_max(amax);
+    inv = inv_scale(amax);
+    if (lane == 0) row_scale[row] = __fdiv_rn(amax, 127.f);
   }
-  amax = warp_max(amax);
-  const float inv = inv_scale(amax);
-  if (lane == 0) row_scale[row] = __fdiv_rn(amax, 127.f);
   int8_t* q = out + static_cast<size_t>(row) * N;
   for (int c = lane * kVec; c < N; c += 32 * kVec) {
     load8(r + c, v);
@@ -163,9 +173,11 @@ inline cudaError_t launch_ln_quant_rows(const bf16* x, const float* gamma, const
 }
 
 template <typename T>
-inline cudaError_t launch_quant_rows(const T* in, int8_t* out, float* row_scale, int M, int N,
+inline cudaError_t launch_quant_rows(const T* in, int8_t* out, float* row_scale,
+                                     const float* static_inv, int M, int N,
                                      cudaStream_t stream) {
-  quant_rows_kernel<T><<<quant_blocks(M), kQuantThreads, 0, stream>>>(in, out, row_scale, M, N);
+  quant_rows_kernel<T><<<quant_blocks(M), kQuantThreads, 0, stream>>>(in, out, row_scale,
+                                                                      static_inv, M, N);
   return cudaGetLastError();
 }
 

@@ -151,7 +151,10 @@ class Block(nn.Module):
     ``"fused_int8"`` and ``"plain_int8"`` are the same pair for the W8A8
     sublayers (sampling only; the int8 weights are quantized once, at
     pack time). All read the operands :meth:`pack` prepared, once per
-    model. ``int8_mlp_scales=(sx, sh)``, the block's calibrated post-LN and
+    model; a forward that finds a parameter changed since then (an optimizer
+    step, ``load_state_dict``, ``.to(device)``) packs again first, so it
+    never computes with weights the model no longer has.
+    ``int8_mlp_scales=(sx, sh)``, the block's calibrated post-LN and
     post-GELU amax, switches its int8 MLP to static activation scales.
 
     In training mode with grad enabled the block reads its live parameters
@@ -201,6 +204,18 @@ class Block(nn.Module):
             "fc2": nn.Linear(hidden, dim),
         })
         self._packed = None
+        self._packed_dtype = None
+        self._packed_marks = None
+
+    def _param_marks(self) -> list:
+        """(version, address) of every parameter :meth:`pack` reads, from the
+        host alone: an in-place update bumps the version, a replaced or moved
+        tensor has another address. (An in-place write through ``p.data``
+        bumps no version and goes unseen.)"""
+        mods = (self.norm1, self.attn["qkv"], self.attn["proj"], self.norm2,
+                self.mlp["fc1"], self.mlp["fc2"])
+        return [(0 if p.is_inference() else p._version, p.data_ptr())
+                for m in mods for p in (m.weight, m.bias) if p is not None]
 
     @torch.no_grad()
     def pack(self, dtype) -> None:
@@ -210,6 +225,8 @@ class Block(nn.Module):
         plain read the same operands), not across it."""
         qkv, proj = self.attn["qkv"], self.attn["proj"]
         fc1, fc2 = self.mlp["fc1"], self.mlp["fc2"]
+        self._packed_dtype = dtype
+        self._packed_marks = self._param_marks()
         if self.attn_impl in INT8_IMPLS:
             self._packed = (
                 pack_attn_int8(self.norm1, qkv, proj, num_heads=self.num_heads),
@@ -227,6 +244,8 @@ class Block(nn.Module):
         reads_packed = not training and (not unfused or self.mlp_impl == "fused")
         if self._packed is None and reads_packed:
             raise RuntimeError("Block operands are not packed: call UViT.pack_for_kernels()")
+        if reads_packed and self._packed_marks != self._param_marks():
+            self.pack(self._packed_dtype)  # a parameter changed since packing
         if self.skip_linear is not None:
             x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
         if unfused:

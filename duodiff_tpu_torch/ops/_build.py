@@ -33,7 +33,7 @@ _FLOAT = ctypes.c_float
 _SIGNATURES = {
     "duodiff_attn_sublayer": ([_PTR] * 11 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer": ([_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
-    "duodiff_attn_sublayer_int8": ([_PTR] * 14 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_int8": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_int8": ([_PTR] * 16 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_attn_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
@@ -42,6 +42,9 @@ _SIGNATURES = {
     "duodiff_mlp_sublayer_bwd_split": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
     "duodiff_flash_attention": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
     "duodiff_flash_attention_bwd": ([_PTR] * 8 + [_INT] * 3 + [_PTR], _INT),
+    "duodiff_sdpa_chain_bf16": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+    "duodiff_sdpa_chain_int8": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+    "duodiff_sdpa_int8_smem_bytes": ([_INT], _INT),
     "duodiff_flash_attention_bwd_stats": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_attn_sublayer_bwd_workspace": ([_INT] * 4, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),

@@ -1,8 +1,10 @@
 """The W8A8 twins of the two fused sublayers (counterpart of
 ``duodiff_tpu/ops/pallas_block_int8.py``), for sampling only.
 
-- :func:`fused_attn_sublayer_int8`: K1 with int8 qkv and proj projections
-  (K11, ``csrc/attn_sublayer_int8.cu``; the Pallas ``_kernel_v2_int8``);
+- :func:`fused_attn_sublayer_int8`: K1 with int8 qkv and proj projections,
+  activation scales dynamic per row or static (K11,
+  ``csrc/attn_sublayer_int8.cu``; the Pallas ``_kernel_v2_int8``; with
+  ``inv`` the static twin of ``tools/probe_int8_static.py``, K14);
 - :func:`fused_mlp_sublayer_int8`: K2 with int8 fc1 and fc2, activation
   scales dynamic per row or static per block (K12,
   ``csrc/mlp_sublayer_int8.cu``; the Pallas ``_mlp_kernel_int8``).
@@ -14,7 +16,10 @@ LayerNorm, the GELU and the merged heads; the int32 product dequantized as
 ``acc * (row_scale * col_scale)``. The softmax scale goes into the q column
 scales (fp32), never into the int8 codes. With static MLP scales the row
 factors ``sx/127``, ``sh/127`` are folded into the column scales and the
-activations quantize with ``inv = [127/sx, 127/sh]``.
+activations quantize with ``inv = [127/sx, 127/sh]``. The attention sublayer
+takes static scales the same way (``inv = [127/sx, 127/sm]`` for the
+LayerNorm output and the merged heads, :func:`static_inv`); the model never
+passes them, as the JAX ``Block`` never does: they are an argument of the op.
 
 Packed int8 weights are (out, in), the torch ``Linear.weight`` layout, which
 is the ``row.col`` operand layout of the card's int8 ``mma.sync``.
@@ -22,7 +27,7 @@ is the ``row.col`` operand layout of the card's int8 ``mma.sync``.
 Each wrapper takes the plain PyTorch version (:func:`attn_sublayer_int8_plain`,
 :func:`mlp_sublayer_int8_plain`) for a tensor on the CPU. For a CUDA tensor
 it launches its kernel or raises; it counts its launches in ``.launches``
-(K12 also in ``.launches_dynamic`` / ``.launches_static``). The plain
+and, by mode, in ``.launches_dynamic`` / ``.launches_static``. The plain
 versions compute the int8 products exactly, as XLA's int32 ``dot_general``
 does: in float64, which holds every partial sum of int8 products at these
 widths exactly.
@@ -81,6 +86,16 @@ def _int8_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a8.double(), w8.double().t()).float()
 
 
+def static_inv(scales, device=None) -> torch.Tensor:
+    """``[127/s0, 127/s1]`` as an fp32 (2,) tensor for two calibrated amax
+    values, each a true fp32 division. The caller folds ``s/127`` into the
+    matching column scales."""
+    s = torch.tensor([float(v) for v in scales], dtype=torch.float32, device=device)
+    if s.shape != (2,) or not bool((s > 0).all()):
+        raise ValueError(f"static int8 scales must be two values > 0, got {scales}")
+    return s.new_tensor(127.0) / s
+
+
 def pack_attn_int8(norm, qkv, proj, *, num_heads: int):
     """(ln_scale, ln_bias, wqkv8 (3A, D) int8, sqkv (3A,), bqkv (3A,) or
     None, wp8 (D, A) int8, sp (D,), bp (D,)) from torch-layout modules
@@ -117,14 +132,11 @@ def pack_mlp_int8(norm, fc1, fc2, *, static_scales=None):
     w2_8, s2 = quantize_weight_int8(fc2.weight.detach().t())
     inv = None
     if static_scales is not None:
+        inv = static_inv(static_scales, s1.device)
         sx, sh = (torch.tensor(float(v), dtype=torch.float32, device=s1.device)
                   for v in static_scales)
-        if not (sx > 0 and sh > 0):
-            raise ValueError(f"static int8 scales must be > 0, got {static_scales}")
         s1 = s1 * (sx / 127.0)
         s2 = s2 * (sh / 127.0)
-        c127 = sx.new_tensor(127.0)
-        inv = torch.stack([c127 / sx, c127 / sh])
     return (
         norm.weight.detach().float().contiguous(),
         norm.bias.detach().float().contiguous(),
@@ -134,20 +146,31 @@ def pack_mlp_int8(norm, fc1, fc2, *, static_scales=None):
     )
 
 
-def attn_sublayer_int8_plain(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp, *,
-                             num_heads: int, eps: float = 1e-5):
-    """Plain PyTorch K11 (pallas_block_int8._attn_sublayer_int8_reference)."""
-    b, l, d = x.shape
+def attn_sublayer_int8_plain(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp, inv=None,
+                             *, num_heads: int, eps: float = 1e-5):
+    """Plain PyTorch K11 (pallas_block_int8._attn_sublayer_int8_reference).
+    ``inv = [127/sx, 127/sm]`` (:func:`static_inv`) is K14's static form
+    (tools/probe_int8_static.py ``_attn_kernel_static``): the LayerNorm output
+    and the merged heads quantize with one scale each, and ``sqkv`` / ``sp``
+    come with ``sx/127`` / ``sm/127`` folded in."""
     dt = x.dtype
     xv = x.float()
     xn = _layer_norm(xv, ln_scale.float(), ln_bias.float(), eps)
-    x8, rs = _quant_rows(xn)
-    qkv = _int8_matmul(x8, wqkv8) * (rs * sqkv)
+    if inv is None:
+        x8, rs = _quant_rows(xn)
+        rs_qkv = rs * sqkv
+    else:
+        x8, rs_qkv = _quant_rows_static(xn, inv[0]), sqkv
+    qkv = _int8_matmul(x8, wqkv8) * rs_qkv
     if bqkv is not None:
         qkv = qkv + bqkv
-    merged = attention_core_plain(qkv.to(dt), num_heads, dt)
-    m8, mrs = _quant_rows(merged.float())
-    proj = _int8_matmul(m8, wp8) * (mrs * sp)
+    merged = attention_core_plain(qkv.to(dt), num_heads, dt).float()
+    if inv is None:
+        m8, mrs = _quant_rows(merged)
+        rs_p = mrs * sp
+    else:
+        m8, rs_p = _quant_rows_static(merged, inv[1]), sp
+    proj = _int8_matmul(m8, wp8) * rs_p
     return (xv + proj + bp).to(dt)
 
 
@@ -174,11 +197,12 @@ def mlp_sublayer_int8_plain(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, in
     return (xv + out + b2).to(dt)
 
 
-def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp, *,
+def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp, inv=None, *,
                              num_heads: int, eps: float):
     """Check the operands and launch K11 (the LayerNorm + row quant, int8
     qkv GEMM, attention core, row quant and int8 proj GEMM launches of
-    csrc/attn_sublayer_int8.cu)."""
+    csrc/attn_sublayer_int8.cu); with ``inv`` both quantizations are static
+    and no row scale is kept."""
     from duodiff_tpu_torch.ops._build import load_library
 
     if x.dim() != 3:
@@ -203,18 +227,20 @@ def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, b
     _check("wp8", wp8, (d, a), i8, dev)
     _check("sp", sp, (d,), f32, dev)
     _check("bp", bp, (d,), f32, dev)
+    if inv is not None:
+        _check("inv", inv, (2,), f32, dev)
     lib = load_library()
     if lib.duodiff_attn_core_smem_bytes(l) > _MAX_SMEM_BYTES:
         raise ValueError(f"sequence length {l} does not fit the attention core")
     m = b * l
     x8 = torch.empty((m, d), dtype=i8, device=dev)  # reused for the merged heads
-    rs = torch.empty((m,), dtype=f32, device=dev)
+    rs = torch.empty((m,), dtype=f32, device=dev) if inv is None else None
     qkv = torch.empty((m, 3 * a), dtype=bf16, device=dev)
     merged = torch.empty((m, a), dtype=bf16, device=dev)
     y = torch.empty_like(x)
     err = lib.duodiff_attn_sublayer_int8(
         _ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv8), _ptr(sqkv), _ptr(bqkv),
-        _ptr(wp8), _ptr(sp), _ptr(bp), _ptr(x8), _ptr(rs), _ptr(qkv), _ptr(merged),
+        _ptr(wp8), _ptr(sp), _ptr(bp), _ptr(inv), _ptr(x8), _ptr(rs), _ptr(qkv), _ptr(merged),
         _ptr(y), b, l, d, num_heads, eps, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(lib, "int8 attention sublayer kernel", err)
@@ -268,15 +294,17 @@ def _mlp_sublayer_int8_cuda(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, in
     return y
 
 
-def fused_attn_sublayer_int8(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp, *,
-                             num_heads: int, eps: float = 1e-5):
-    """K11 on packed operands (:func:`pack_attn_int8`); x (B, L, D)."""
+def fused_attn_sublayer_int8(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp, inv=None,
+                             *, num_heads: int, eps: float = 1e-5):
+    """K11 on packed operands (:func:`pack_attn_int8`); x (B, L, D). ``inv``
+    (:func:`static_inv`) switches both activation quantizations to static
+    scales (K14's static form)."""
     if x.device.type == "cpu":
         return attn_sublayer_int8_plain(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp,
-                                        bp, num_heads=num_heads, eps=eps)
-    y = _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp,
+                                        bp, inv, num_heads=num_heads, eps=eps)
+    y = _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp, inv,
                                  num_heads=num_heads, eps=eps)
-    fused_attn_sublayer_int8.launches += 1
+    _count(fused_attn_sublayer_int8, inv)
     return y
 
 
@@ -288,20 +316,23 @@ def fused_mlp_sublayer_int8(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, in
                                        inv, gelu_approx=gelu_approx, eps=eps)
     y = _mlp_sublayer_int8_cuda(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, inv,
                                 gelu_approx=gelu_approx, eps=eps)
-    fused_mlp_sublayer_int8.launches += 1
-    if inv is None:
-        fused_mlp_sublayer_int8.launches_dynamic += 1
-    else:
-        fused_mlp_sublayer_int8.launches_static += 1
+    _count(fused_mlp_sublayer_int8, inv)
     return y
+
+
+def _count(wrapper, inv) -> None:
+    """One launch of ``wrapper``'s kernel, dynamic or static by ``inv``."""
+    wrapper.launches += 1
+    if inv is None:
+        wrapper.launches_dynamic += 1
+    else:
+        wrapper.launches_static += 1
 
 
 def reset_launch_counts() -> None:
     """Set the int8 wrappers' launch counters to 0."""
-    fused_attn_sublayer_int8.launches = 0
-    fused_mlp_sublayer_int8.launches = 0
-    fused_mlp_sublayer_int8.launches_dynamic = 0
-    fused_mlp_sublayer_int8.launches_static = 0
+    for wrapper in (fused_attn_sublayer_int8, fused_mlp_sublayer_int8):
+        wrapper.launches = wrapper.launches_dynamic = wrapper.launches_static = 0
 
 
 reset_launch_counts()

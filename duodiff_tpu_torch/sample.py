@@ -9,8 +9,13 @@
 
 With a late model and ``--t_switch N`` the first model runs the N high-noise
 steps t = T-1 .. T-N and the late model the rest; without, the first model
-runs all T steps. The samples are written as one ``samples.npy``, uint8
-NHWC. ``--attn_impl`` picks the block: ``fused`` (the fused sublayer
+runs all T steps. The samples are written as ``{i}.png`` each, a square
+``grid_image.png`` and one ``samples.npy`` (uint8 NHWC); ``--timesteps_save
+s1 s2 ...`` also writes the state after s1, s2, ... reverse steps as
+``{i}_{s}.png`` (each s in [1, num_timesteps]; not with block caching).
+``--use_ema`` samples with the EMA weights of a checkpoint trained with
+``--ema_decay`` (both models of a pair). ``--attn_impl`` picks the block:
+``fused`` (the fused sublayer
 kernels K1 / K2; default on a CUDA device), ``plain`` (their plain PyTorch
 versions; default on the CPU), ``fused_int8`` (the W8A8 kernels K11 / K12;
 ``--int8_scales`` / ``--int8_scales_late`` give the early / late model
@@ -50,6 +55,7 @@ from duodiff_tpu_torch.diffusion.sampling import (
     make_guided_apply,
 )
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+from duodiff_tpu_torch.utils.image import save_samples, to_uint8
 from duodiff_tpu_torch.utils.model_loading import load_model
 
 
@@ -95,6 +101,12 @@ def get_args(argv=None):
                         help="Anchor schedule JSON (tools/derive_cache_schedule.py) "
                              "in place of --cache_every: anchors exactly the listed "
                              "timesteps (plus the cached segment's first step)")
+    parser.add_argument("--timesteps_save", type=int, nargs="+", default=[],
+                        help="Also save the state after this many reverse steps, "
+                             "each in [1, num_timesteps], as {i}_{s}.png")
+    parser.add_argument("--use_ema", action="store_true",
+                        help="Sample with the EMA shadow params from an --ema_decay-"
+                             "trained checkpoint (both models for DuoDiff)")
     parser.add_argument("--random_init", action="store_true",
                         help="Skip checkpoint loading (random weights from --seed)")
     parser.add_argument("--num_timesteps", type=int, default=1000)
@@ -115,9 +127,17 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
-def to_uint8(img01: np.ndarray) -> np.ndarray:
-    img01 = np.nan_to_num(img01, nan=0.0, posinf=1.0, neginf=0.0)
-    return (np.clip(img01, 0.0, 1.0) * 255.0).round().astype(np.uint8)
+def split_segments(segments: list, stops) -> list:
+    """Cut ``(sampler, t_hi, t_lo)`` segments so that the update at every t in
+    ``stops`` is the last of a segment. Empty segments (t_hi < t_lo) stay as
+    they are."""
+    out = []
+    for sampler, t_hi, t_lo in segments:
+        for t in sorted((t for t in stops if t_lo < t <= t_hi), reverse=True):
+            out.append((sampler, t_hi, t))
+            t_hi = t - 1
+        out.append((sampler, t_hi, t_lo))
+    return out
 
 
 def class_labels(args, num_classes: int, generator: torch.Generator):
@@ -163,6 +183,7 @@ def class_labels(args, num_classes: int, generator: torch.Generator):
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {"samples": float (B, H, W, C) in about [0, 1],
+    "intermediates": {s: the same after s reverse steps, for --timesteps_save},
     "seconds": sampling wall time}."""
     args = get_args(argv)
     device = torch.device(args.device)
@@ -186,6 +207,9 @@ def main(argv=None) -> dict:
         if args.guidance_scale is not None:
             raise SystemExit("--cache_every/--cache_schedule does not support "
                              "--guidance_scale")
+        if args.timesteps_save:
+            raise SystemExit("--cache_every/--cache_schedule does not support "
+                             "--timesteps_save")
         if has_late and args.t_switch is None:
             raise SystemExit("--cache_every/--cache_schedule with a late model needs "
                              "--t_switch (the cached segment starts at the DuoDiff "
@@ -198,6 +222,10 @@ def main(argv=None) -> dict:
                          "(--config_path_late / --checkpoint_path_late)")
     if args.t_switch is not None and not 0 <= args.t_switch <= steps:
         raise SystemExit(f"--t_switch must be in [0, {steps}], got {args.t_switch}")
+    outside = [s for s in args.timesteps_save if not 1 <= s <= steps]
+    if outside:
+        raise SystemExit(f"--timesteps_save counts reverse steps, each in [1, {steps}]: "
+                         f"got {outside}")
     attn_impl = args.attn_impl or ("fused" if device.type == "cuda" else "plain")
     output_folder = Path(args.output_folder)
     output_folder.mkdir(parents=True, exist_ok=True)
@@ -206,7 +234,7 @@ def main(argv=None) -> dict:
         model, cfg = load_model(
             config_path, None if args.random_init else checkpoint_path,
             device=device, seed=seed, attn_impl=attn_impl,
-            gelu_approx=args.gelu_approx, int8_scales=int8_scales,
+            gelu_approx=args.gelu_approx, int8_scales=int8_scales, use_ema=args.use_ema,
         )
         model.pack_for_kernels()
         return model.eval(), cfg
@@ -257,6 +285,9 @@ def main(argv=None) -> dict:
     else:
         sampler = cached_sampler(model, cfg, steps - 1, "") if cache_on else dense_sampler(model)
         segments = [(sampler, steps - 1, 0)]
+    # the state is kept after the update at t = steps - s
+    save_at = {steps - s for s in args.timesteps_save}
+    segments = split_segments(segments, save_at)
     shape = (args.batch_size, cfg.img_size, cfg.img_size, cfg.in_chans)
 
     print(f"Sampling {args.batch_size} images on {device} (attn_impl={attn_impl}, "
@@ -266,6 +297,7 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
         tic = time.perf_counter()
         x = segments[0][0].init(generator, shape)
+        kept = {}
         for sampler, t_hi, t_lo in segments:
             if t_hi < t_lo:
                 continue
@@ -274,14 +306,21 @@ def main(argv=None) -> dict:
             else:
                 x, _ = sampler.run(x, generator, t_hi, t_lo, y,
                                        state=sampler.init_state_fn(x))
+            if t_lo in save_at:
+                kept[t_lo] = x
         samples = ((x + 1.0) / 2.0).cpu().numpy()  # waits for the device
         elapsed = time.perf_counter() - tic
+        intermediates = {s: ((kept[steps - s] + 1.0) / 2.0).cpu().numpy()
+                         for s in args.timesteps_save}
 
     np.save(output_folder / "samples.npy", to_uint8(samples))
     with open(output_folder / "statistics.txt", "w") as f:
         f.write(f"Elapsed time: {elapsed} s\n")
+    save_samples(samples, output_folder)
+    for s, inter in intermediates.items():
+        save_samples(inter, output_folder, timestep=s)
     print(f"Elapsed time: {elapsed:.2f} s -> {output_folder}")
-    return {"samples": samples, "seconds": elapsed}
+    return {"samples": samples, "intermediates": intermediates, "seconds": elapsed}
 
 
 if __name__ == "__main__":

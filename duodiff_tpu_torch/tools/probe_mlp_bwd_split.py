@@ -17,42 +17,14 @@ say nothing about the card. A kernel that fails to launch raises.
 from __future__ import annotations
 
 import argparse
-import subprocess
-import time
 
 import torch
 
 from duodiff_tpu_torch.ops import block
+from duodiff_tpu_torch.tools._measure import card_line, device_from_arg, time_ms
 
 SHAPES = {"imagenet64": (128, 258, 768, 3072), "imagenet256": (128, 258, 1024, 4096)}
 REPS = 10
-
-
-def _card_line(device: torch.device) -> str:
-    if device.type != "cuda":
-        return f"{device} (no card: times below are not device times)"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _time_ms(fn, device: torch.device, reps: int) -> float:
-    """Mean time per call over ``reps`` calls after one warm-up: CUDA events
-    on the card, the host clock on the CPU."""
-    fn()
-    if device.type != "cuda":
-        tic = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - tic) / reps * 1e3
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(device)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> dict:
@@ -65,13 +37,11 @@ def main(argv=None) -> dict:
     p.add_argument("--batch", type=int, default=None, help="override the shape's batch")
     p.add_argument("--reps", type=int, default=REPS)
     args = p.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is available")
+    device = device_from_arg(args.device)
     b, l, d, hidden = SHAPES[args.shape]
     b = args.batch or b
     auto = block.mlp_bwd_split_config(hidden)
-    card = _card_line(device)
+    card = card_line(device)
     print(card)
     print(f"shape={args.shape}: B={b} L={l} D={d} hidden={hidden} auto-splits={auto}")
 
@@ -96,7 +66,7 @@ def main(argv=None) -> dict:
             "K7 monolithic": lambda: block.fused_mlp_sublayer_bwd(*ops)}
     for n in args.splits or [auto]:
         runs[f"K8 splits={n}"] = lambda n=n: block.fused_mlp_sublayer_bwd_split(*ops, splits=n)
-    ms = {name: _time_ms(fn, device, args.reps) for name, fn in runs.items()}
+    ms = {name: time_ms(fn, device, args.reps) for name, fn in runs.items()}
     ref = autograd_bwd()
     errs = {}
     for name, fn in runs.items():

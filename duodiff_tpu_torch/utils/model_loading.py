@@ -2,8 +2,10 @@
 ``duodiff_tpu/utils/model_loading.py``).
 
 Checkpoints are reference-format ``.pth`` files: a state dict, or
-``{"model_state_dict": ...}`` as ``export_torch_checkpoint`` writes. Orbax
-checkpoint directories need JAX; convert them with the JAX package first.
+``{"model_state_dict": ...}`` as ``export_torch_checkpoint`` and the port's
+trainer write, the latter with an ``ema_state_dict`` beside it when it ran
+with ``--ema_decay``. Orbax checkpoint directories need JAX; convert them
+with the JAX package first.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from duodiff_tpu_torch.config import UViTConfig, load_model_config
+from duodiff_tpu_torch.config import UViTConfig, load_model_config, refuse_latent_config
 from duodiff_tpu_torch.models.layers import INT8_IMPLS
 from duodiff_tpu_torch.models.uvit import UViT, init_uvit
 from duodiff_tpu_torch.utils.int8_scales import load_int8_scales, scales_dict_to_tuple
@@ -29,12 +31,16 @@ def load_model(
     gelu_approx: bool = False,
     int8_scales: Optional[str] = None,
     mlp_impl: str = "auto",
+    use_ema: bool = False,
 ) -> tuple[UViT, UViTConfig]:
     """Build the UViT a config file describes, with random weights from
     ``seed`` or the weights of ``checkpoint_path`` (loaded strictly), on
     ``device`` with compute dtype ``dtype``. ``int8_scales`` is a
     calibration JSON (``tools/calibrate_int8.py``): static MLP activation
-    scales for the int8 sublayers, so it needs an int8 ``attn_impl``."""
+    scales for the int8 sublayers, so it needs an int8 ``attn_impl``.
+    ``use_ema`` loads the checkpoint's EMA shadow of the parameters in place
+    of the live ones. A latent-diffusion config is refused."""
+    refuse_latent_config(config_path)
     cfg = load_model_config(config_path)
     scales = None
     if int8_scales:
@@ -51,6 +57,12 @@ def load_model(
     )
     if checkpoint_path:
         state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-        state = state.get("model_state_dict", state)
+        if use_ema:
+            if not isinstance(state.get("ema_state_dict"), dict):
+                raise ValueError(f"{checkpoint_path} has no EMA params — the checkpoint was "
+                                 "saved without --ema_decay")
+            state = state["ema_state_dict"]
+        else:
+            state = state.get("model_state_dict", state)
         model.load_state_dict(state, strict=True)
     return model.to(device), cfg

@@ -88,6 +88,9 @@ def test_checkpoint_loads_into_the_sampling_cli(files, tmp_path):
     path = trainer.log_path / "cifar10_uvit_last" / CHECKPOINT_FILE
     model, _ = load_model(files["config3"], str(path), device="cpu", dtype=torch.float32)
     model.pack_for_kernels()
+    # the trainer never packs its student, so this is its first packing; a
+    # model packed before training would pack again by itself in the forward
+    # below (test_packed_operands_follow_the_parameters)
     trainer.model.pack_for_kernels()
     x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
     t = torch.tensor([10.0, 900.0])
@@ -98,6 +101,50 @@ def test_checkpoint_loads_into_the_sampling_cli(files, tmp_path):
                        "--batch_size", "2", "--parametrization", "predict_noise",
                        "--output_folder", str(tmp_path)])
     assert out["samples"].shape == (2, 32, 32, 3) and np.isfinite(out["samples"]).all()
+
+
+@pytest.mark.parametrize("impl", ["plain", "fused", "plain_int8"])
+@pytest.mark.parametrize("change", ["optimizer_step", "load_state_dict", "replaced_storage"])
+def test_packed_operands_follow_the_parameters(files, impl, change):
+    """A model packed, then changed, then run without grad computes with the
+    weights it has now: its forward equals that of a freshly packed copy of
+    them and differs from the forward before the change. The three ways a
+    parameter changes: in place (an optimizer step), ``load_state_dict``,
+    and a new tensor behind ``p.data`` (what ``.to(device)`` does)."""
+    def build(seed):
+        model, _ = load_model(files["config3"], device="cpu", dtype=torch.float32, seed=seed,
+                              attn_impl=impl)
+        model.pack_for_kernels()
+        return model
+
+    model = build(0)
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    t = torch.tensor([10.0, 900.0])
+    with torch.no_grad():
+        stale = model.eval()(x, t)
+    if change == "optimizer_step":
+        opt = torch.optim.SGD(model.parameters(), lr=0.5)
+        if impl == "plain":  # a real step through the live parameters
+            model.train()(x, t).square().mean().backward()
+        else:  # fp32 "fused" and the int8 blocks have no backward here
+            for p in model.parameters():
+                p.grad = torch.randn(p.shape, generator=torch.Generator().manual_seed(2)) * 0.01
+        opt.step()
+    elif change == "load_state_dict":
+        model.load_state_dict(build(3).state_dict())
+    else:
+        for p in model.parameters():
+            p.data = p.data * 1.5
+    fresh = build(0)
+    fresh.load_state_dict(model.state_dict())
+    fresh.pack_for_kernels()
+    with torch.no_grad():
+        got, want = model.eval()(x, t), fresh.eval()(x, t)
+    assert torch.equal(got, want) and not torch.equal(got, stale)
+    with torch.no_grad():  # and unchanged parameters are not packed again
+        packed = model.blocks()[0]._packed
+        model(x, t)
+        assert model.blocks()[0]._packed is packed
 
 
 def test_distillation_run(files):
