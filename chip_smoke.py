@@ -81,7 +81,14 @@ plain version and against K7, timed beside K7; and at the probes' geometry
 K13 and K14, dynamic and static, and K15's two forms (the int8 one within
 1 % relative Frobenius of its plain version, equal bits on a repeat call,
 under 5 % from the bf16 form) with ``F.scaled_dot_product_attention(scale=1)``
-timed beside them. Phase 3 also holds
+timed beside them. It prints what the compiler and the runtime say of the two
+attention cores (registers and spills a thread, shared memory and resident
+blocks an SM, which must hold eight warps), holds K9 and K10 against their
+plain versions at the lengths where a 16-row tile and the cores' 272-key
+limit break (1, 63, 64, 65, 129, 257, 272) and K1-v1 at 65 and 257, and times
+K9, K10 and the library call 20 calls back to back beside the call-by-call
+medians. Phases 4 and 4b also time and profile one bf16 dense, one int8
+anchored and one int8 cached depth-13 step at batch 128. Phase 3 also holds
 the gradients of the whole depth-13 model and a few optimizer steps, fused
 against plain, and the depth-17 ImageNet-64 forward, gradients and a guided
 DuoDiff trajectory, attention kernels against their plain versions; a stack
@@ -102,6 +109,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -357,6 +365,22 @@ def time_ms(fns: dict, reps: int = TIMING_REPS) -> dict:
             end.synchronize()
             times[name].append(start.elapsed_time(end))
     return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def burst_ms(fn, n: int = 20) -> float:
+    """CUDA-event time of ``n`` calls of ``fn`` launched back to back, over n:
+    the device's time a call where the host runs ahead of it, as in a model's
+    step (time_ms, which waits for the device after every call, also counts
+    the host's part of a call)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def card_line() -> str:
@@ -753,6 +777,14 @@ def check_attention_kernels(device, results: dict) -> None:
         lib = time_ms({"fwd": lambda: F.scaled_dot_product_attention(q, k, v),
                        "fwd_bwd": sdpa_fwd_bwd})
         lib_bwd = lib["fwd_bwd"] - lib["fwd"]
+        burst = {"K9": burst_ms(lambda: fa.flash_attention(q, k, v)),
+                 "K10": burst_ms(lambda: fa.flash_attention_bwd(q, k, v, do)),
+                 "fwd": burst_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                 "fwd_bwd": burst_ms(sdpa_fwd_bwd)}
+        print(f"phase 2: {label}, 20 calls back to back, ms a call: K9 {burst['K9']:.6g}, "
+              f"K10 {burst['K10']:.6g}; F.scaled_dot_product_attention forward "
+              f"{burst['fwd']:.6g}, backward (forward + backward less forward) "
+              f"{burst['fwd_bwd'] - burst['fwd']:.6g}", flush=True)
         sdpa_err = errors(F.scaled_dot_product_attention(q, k, v), fa.flash_attention(q, k, v))[0]
         print(f"phase 2: library yardstick {label}: F.scaled_dot_product_attention forward "
               f"{lib['fwd']:.6g} ms, backward (forward + backward less forward) {lib_bwd:.6g} ms; "
@@ -760,6 +792,109 @@ def check_attention_kernels(device, results: dict) -> None:
         if main:
             results["flash_attention"]["library_ms"] = lib["fwd"]
             results["flash_attention_bwd"]["library_ms"] = lib_bwd
+            results["flash_attention"]["burst_ms"] = burst["K9"]
+            results["flash_attention"]["library_burst_ms"] = burst["fwd"]
+            results["flash_attention_bwd"]["burst_ms"] = burst["K10"]
+            results["flash_attention_bwd"]["library_burst_ms"] = burst["fwd_bwd"] - burst["fwd"]
+
+
+# lengths at which a 16-row query tile, a 16-key step and the 272-key limit
+# of the attention cores break
+RAGGED_LENGTHS = (1, 63, 64, 65, 129, 257, 272)
+NORM_FIRST_LENGTHS = (65, 257)
+
+
+def report_attention_cores() -> None:
+    """Phase 2: what the compiler and the runtime say of the two redesigned
+    attention cores: registers a thread and spills of each kernel (ptxas),
+    warps a block, dynamic shared memory and resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at both main lengths."""
+    from duodiff_tpu_torch.ops._build import kernel_resources, load_library
+
+    names = {"attn_core_kernelILb0": "forward core", "attn_core_kernelILb1": "forward core, "
+             "normalise first", "attn_bwd_q_kernel": "backward core, row launch",
+             "attn_bwd_kv_kernel": "backward core, key launch"}
+    for unit in ("flash_attention", "attn_sublayer_v1", "flash_attention_bwd"):
+        for rec in kernel_resources(unit):
+            what = next((v for k, v in names.items() if k in rec["entry"]), None)
+            if what is None or (unit == "attn_sublayer_v1" and "Lb1" not in rec["entry"]):
+                continue
+            # the cores are compiled once for each class of sequence length
+            # (SeqClass<tiles of 8 keys, first masked tile> in attn_tiles.cuh)
+            tiles = re.search(r"SeqClassILi(\d+)", rec["entry"])
+            if tiles:
+                what += f", up to {8 * int(tiles.group(1))} keys"
+            print(f"phase 2: {what} ({unit}.cu): {rec['registers']} registers a thread, "
+                  f"spill stores {rec['spill_stores']} B, spill loads {rec['spill_loads']} B, "
+                  f"stack {rec['stack']} B", flush=True)
+    lib = load_library()
+    for l in (CELEBA.l, IMAGENET.l):
+        fwd = (lib.duodiff_attn_core_warps(), lib.duodiff_attn_core_smem_bytes(l),
+               lib.duodiff_attn_core_blocks_per_sm(l))
+        row, key = ((lib.duodiff_attn_bwd_core_warps(k), lib.duodiff_attn_bwd_core_smem_bytes(l, k),
+                     lib.duodiff_attn_bwd_core_blocks_per_sm(l, k)) for k in (0, 1))
+        print(f"phase 2: L={l}: forward core {fwd[0]} warps a block, {fwd[1]} B of shared "
+              f"memory, {fwd[2]} blocks an SM; backward row launch {row[0]} warps, {row[1]} B, "
+              f"{row[2]} blocks an SM; backward key launch {key[0]} warps, {key[1]} B, "
+              f"{key[2]} blocks an SM", flush=True)
+        if min(fwd[0] * fwd[2], row[0] * row[2], key[0] * key[2]) < 8:
+            fail(f"an attention core holds fewer than eight warps an SM at L={l}")
+
+
+def check_ragged_attention(device, results: dict) -> None:
+    """Phase 2, ragged lengths, untimed, at batch 8: K9 and K10 against their
+    plain versions at RAGGED_LENGTHS with the bounds of
+    check_attention_kernels (K10 also equal to the bit on a repeat call),
+    and the per-head sublayer K1-v1, whose core normalises before the value
+    product, against its plain version at NORM_FIRST_LENGTHS."""
+    from duodiff_tpu_torch.ops import block
+    from duodiff_tpu_torch.ops import flash_attention as fa
+
+    b, h = CHECK_BATCH, 2
+    for l in RAGGED_LENGTHS:
+        g = torch.Generator().manual_seed(1000 + l)
+        q, k, v, do = (torch.randn((b, h, l, 64), generator=g).to(torch.bfloat16).to(device)
+                       for _ in range(4))
+        max_abs, limit, rel, ok = scaled_errors(fa.flash_attention(q, k, v),
+                                                fa.flash_attention_plain(q, k, v),
+                                                KERNEL_MAX_FRAC)
+        got = fa.flash_attention_bwd(q, k, v, do)
+        again = fa.flash_attention_bwd(q, k, v, do)
+        want = fa.flash_attention_bwd_plain(q, k, v, do)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        # at L = 1 the softmax is 1 and dq, dk are exact zeros: equal tensors
+        # count as error 0 where the relative error would be 0 / 0
+        rels = {n: 0.0 if torch.equal(a, w) else rel_fro(a, w)
+                for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        bwd_ok = same and max(rels.values()) <= BWD_REL_FRO
+        print(f"phase 2: ragged B={b} H={h} L={l}: flash_attention max_abs_err={max_abs:.6g} "
+              f"(bound {limit:.6g}) rel_fro_err={rel:.6g} (bound {FWD_REL_FRO}) ok={ok}; "
+              f"flash_attention_bwd rel_fro_err "
+              f"{', '.join(f'{n}={x:.3g}' for n, x in rels.items())} (bound {BWD_REL_FRO}) "
+              f"repeat_equal={same} ok={bwd_ok}", flush=True)
+        if not (ok and bwd_ok):
+            fail(f"K9 or K10 disagrees with its plain version at L={l}")
+        res = results["flash_attention"]
+        res["max_abs_err"] = max(res["max_abs_err"], max_abs)
+        res = results["flash_attention_bwd"]
+        res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), max(rels.values()))
+    for l in NORM_FIRST_LENGTHS:
+        width = Width(l, CELEBA.d, CELEBA.heads)
+        x, norm, qkv, proj, _, _ = block_modules(b, True, width=width)
+        x = x.to(device)
+        v1 = to_device(block.pack_attn_v1(norm, qkv, proj, dtype=torch.bfloat16), device)
+        got = block.fused_attn_sublayer(x, *v1, num_heads=width.heads, variant="v1")
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = errors(got, block.attn_sublayer_v1_plain(x, *v1,
+                                                                        num_heads=width.heads))
+        print(f"phase 2: ragged fused_attn_sublayer_v1 D={width.d} L={l} B={b}: "
+              f"max_abs_err={max_abs:.6g} max_rel_err={max_rel:.6g} "
+              f"bound={ATOL}+{RTOL}*|plain| ok={ok}", flush=True)
+        if not ok:
+            fail(f"K1-v1 disagrees with its plain version at L={l}")
+        res = results["fused_attn_sublayer_v1"]
+        res["max_abs_err"] = max(res["max_abs_err"], max_abs)
 
 
 def check_probe_kernels(device, results: dict) -> None:
@@ -1267,6 +1402,44 @@ def run_int8_main_path(card: str) -> dict:
     )
 
 
+def profile_sampling_steps(device, card: str, int8: bool) -> None:
+    """One reverse step's model call of the depth-13 CelebA-64 model at batch
+    128, timed with CUDA events and profiled by kernel: the bf16 dense
+    forward (phase 4), or the int8 model's anchored and cached forwards
+    with the asset's static scales (phase 4b)."""
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    if int8:
+        model, cfg = load_model(LATE_CONFIG, device=device, seed=1, attn_impl="fused_int8",
+                                gelu_approx=True, int8_scales=INT8_SCALES)
+    else:
+        model, cfg = load_model(LATE_CONFIG, device=device, seed=1, attn_impl="fused",
+                                dtype=torch.bfloat16)
+    model.eval().pack_for_kernels()
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((MAIN_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans), generator=g).to(device)
+    t = torch.full((MAIN_BATCH,), 350.0, device=device)
+    with torch.inference_mode():
+        if int8:
+            delta = model.forward_anchor(x, t, n_outer=N_OUTER)[1]
+            steps = {
+                "int8 anchored step (13 blocks)":
+                    lambda: model.forward_anchor(x, t, n_outer=N_OUTER),
+                f"int8 cached step ({2 * N_OUTER} blocks)":
+                    lambda: model.forward_cached(x, t, n_outer=N_OUTER, delta=delta),
+            }
+            phase = "phase 4b"
+        else:
+            steps, phase = {"bf16 dense step (13 blocks)": lambda: model(x, t)}, "phase 4"
+        for what, step in steps.items():
+            ms = time_ms({"step": step}, reps=5)["step"]
+            print(f"{phase}: one {what} at batch {MAIN_BATCH} (CUDA events, median of 5): "
+                  f"{ms:.6g} ms; card {card}", flush=True)
+            profile_steps(f"{phase}, {what}", step)
+    del model
+    release_memory()
+
+
 def train_argv(work: str, exp: str, n_steps: int, *extra, config: str = TRAIN_CONFIG,
                dataset: str = "cifar10") -> list:
     return ["--config_path", config, "--dataset", dataset, "--data_path", f"{work}/data",
@@ -1412,12 +1585,19 @@ def profile_steps(label: str, one_step, n: int = 3) -> None:
         return sorted(d.items(), key=lambda kv: -kv[1])
 
     others = [k[:60] for k, _ in by_size(kernels) if kernel_family(k) == "other"][:3]
+    own = {}  # the port's kernels by function name, template arguments dropped
+    for name, us in kernels.items():
+        found = re.search(r"duodiff::\(anonymous namespace\)::(\w+)", name)
+        if found:
+            own[found.group(1)] = own.get(found.group(1), 0.0) + us
     print(f"{label}: profiler over {n} steps: device busy {busy / 1e3:.6g} ms of "
           f"{window_us / 1e3:.6g} ms, idle share {1 - busy / window_us:.6g}; families: "
           + "; ".join(f"{k} {v / busy:.4f}" for k, v in by_size(families))
           + (f" (other: {', '.join(others)})" if others else "")
           + "; largest kernels: "
-          + "; ".join(f"{k[:60]} {v / busy:.4f}" for k, v in by_size(kernels)[:10]), flush=True)
+          + "; ".join(f"{k[:60]} {v / busy:.4f}" for k, v in by_size(kernels)[:10])
+          + "; own kernels by name: "
+          + "; ".join(f"{k} {v / busy:.4f}" for k, v in by_size(own)), flush=True)
 
 
 def profile_train_step(trainer, card: str, phase: str) -> None:
@@ -2050,6 +2230,8 @@ def main(argv=None) -> int:
         check_int8_kernels(device, results)
         check_bwd_kernels(device, results)
         check_attention_kernels(device, results)
+        report_attention_cores()
+        check_ragged_attention(device, results)
         check_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
         check_bwd_kernels(device, results, IMAGENET, variants=(False,), suffix="_d768")
         check_int8_kernels(device, results, IMAGENET, batches=(CHECK_BATCH,), suffix="_d768_b8")
@@ -2067,9 +2249,11 @@ def main(argv=None) -> int:
         check_split_training(device)
     if "4" in run:
         launches.update({name: n for name, n in run_main_path(card).items() if name in KERNELS})
+        profile_sampling_steps(device, card, int8=False)
     if "4b" in run:
         launches.update({name: n for name, n in run_int8_main_path(card).items()
                          if name in INT8_KERNELS})
+        profile_sampling_steps(device, card, int8=True)
     if "5" in run:
         launches.update({name: n for name, n in run_train_path(device, card).items()
                          if name in BWD_KERNELS})

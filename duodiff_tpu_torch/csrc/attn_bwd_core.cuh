@@ -17,396 +17,305 @@
 // every rounding at the Pallas kernel's own point.
 //
 // The Pallas kernel holds a whole (L, L) head in VMEM. Here the rows and
-// the columns of that matrix are reduced by different blocks, and nothing
-// is carried from one block to another, so the core is two launches:
-//   - attn_bwd_q_kernel, one block per (64 query rows, head, sample), the
-//     forward core's layout (K and V of the head staged once, whole 16 x L
-//     score rows per warp in shared memory): the row statistics m, r and c,
-//     the merged output o, and dq (a sum over keys, inside the row);
-//   - attn_bwd_kv_kernel, one block per (64 keys, head, sample): it walks
-//     all query tiles, recomputes s and dp for its keys with the same WMMA
-//     tiles (the same bits as the first launch), takes e and dsp from the
-//     stored m, r and c, and sums dk and dv over the queries in registers.
-// Bound: latency and occupancy, as the forward core: 4 * L^2 * Dh flops
-// per (sample, head) for the first launch and 8 * L^2 * Dh for the second,
-// on mma.sync tiles fed from shared memory; the first launch keeps two
-// fp32 16 x L row blocks per warp (220 KB at L = 257, one block per SM).
+// the columns of that matrix are reduced by different warps, and nothing is
+// carried from one block to another, so the core is two launches, both on
+// the register-resident tiles of the forward core (attn_core.cuh,
+// attn_tiles.cuh): no score, e, dp or dsp tile ever touches shared memory.
+//   - attn_bwd_q_kernel, the forward core's layout: K and V of the head
+//     arrive by cp.async (two groups) into a swizzled stage, a block's 4
+//     warps walk the 16-row query tiles, two blocks an SM. A warp holds the
+//     16 x L rows of e in 136 registers; dp of a second such row does not
+//     fit beside them, so dp is formed 16 keys at a time, once for
+//     c = rowsum(dp * e) * r and, when c is known, once more for dsp, which
+//     replaces e in place and goes to dsp k from registers. It writes the
+//     row statistics m, r and c, the merged output o (K6) and dq. 69,632
+//     bytes of shared memory at L = 257; all 255 registers a thread and,
+//     with e, the dq tile and do's A operand live together, about a
+//     kilobyte of spills a thread around the two dp passes;
+//   - attn_bwd_kv_kernel: a warp owns 16 KEYS and forms s^T = k qsc^T and
+//     dp^T = v do^T against 16 queries at a time, so e^T and dsp^T are born
+//     in the A layout of the products that sum over the queries
+//     (dv += e^T (do r), dk += dsp^T (qsc r)); dk and dv stay in registers
+//     over all queries. A block stages qsc, bf16(qsc * r), do and
+//     bf16(do * r) of the whole head once (through registers, for the
+//     scaling; 141,440 bytes at L = 257, one block an SM), k and v come
+//     straight from device memory as A operands. One block a head with
+//     kBwdKeyWarps = 9 warps: the 17 key tiles of L = 257 or 258 are two
+//     trips for all but one warp.
+// The two launches form s and dp from the same products, summed over the
+// same four k-steps in the same order (the operands change sides, a product
+// does not care), so e agrees between dq and dk / dv.
+// Bound: 10 * L^2 * Dh flops per (sample, head) against 14 * L * Dh bytes
+// at the roofline (bytes). On the card the core pays for its instruction count
+// (two exps, the dsp arithmetic and the roundings per score; exp is one
+// multiplication and one ex2.approx, attn_tiles.cuh) and for the eight or
+// nine warps an SM holds at this many registers a thread.
 // Determinism: every sum runs in a fixed order inside one warp; no atomics.
-// L = 257 or 258 is ragged: keys past L are masked (e = 0), and query rows
-// past L are zero in the staged q and do, with zero statistics, so they
-// add nothing to dk and dv; their outputs are never written.
+// L = 257 or 258 is ragged: keys past L are masked (e = 0), query rows past
+// L are zeros with e = 0 in the key launch, so they add nothing to dk and
+// dv; rows past L are never written.
 #pragma once
 
-#include <mma.h>
-
+#include "attn_tiles.cuh"
 #include "common.cuh"
 
 namespace duodiff {
 namespace {
 
-using namespace nvcuda;
+constexpr int kBwdDh = kHeadDim;       // head width the core takes
+constexpr int kBwdRowWarps = 4;        // 16 query rows each, per trip
+constexpr int kBwdRowBlocksPerSm = 2;  // what the row launch's register cap is set for
+constexpr int kBwdKeyWarps = 9;        // 16 keys each, per trip
 
-constexpr int kBwdDh = 64;                // head width the core takes
-constexpr int kBwdWarps = 4;              // 16 query rows (or keys) each
-constexpr int kBwdRows = 16 * kBwdWarps;  // query rows (or keys) per block
-constexpr int kBwdPitch = kBwdDh + 8;     // bf16 per staged q/k/v/do row
-constexpr int kBwdOPitch = kBwdDh + 4;    // fp32 per output-tile row
-
-// Dynamic shared memory of attn_bwd_q_kernel at sequence length L.
-struct AttnBwdQSmem {
-  int lpad;         // L rounded up to 16
-  int s_pitch;      // fp32 per score / e row
-  int p_pitch;      // bf16 per e / dsp row
-  size_t kv_bytes;  // K (or V) stage
-  size_t row_bytes; // a warp's 16 staged q (or do) rows
-  size_t s_bytes, p_bytes, o_bytes, stat_bytes, per_warp, total;
-};
-
-__host__ __device__ inline AttnBwdQSmem attn_bwd_q_smem(int L) {
-  AttnBwdQSmem m;
-  m.lpad = (L + 15) / 16 * 16;
-  m.s_pitch = m.lpad + 4;
-  m.p_pitch = m.lpad + 8;
-  m.kv_bytes = static_cast<size_t>(m.lpad) * kBwdPitch * sizeof(bf16);
-  m.row_bytes = 16 * kBwdPitch * sizeof(bf16);
-  m.s_bytes = static_cast<size_t>(16) * m.s_pitch * sizeof(float);
-  m.p_bytes = static_cast<size_t>(16) * m.p_pitch * sizeof(bf16);
-  m.o_bytes = 16 * kBwdOPitch * sizeof(float);
-  m.stat_bytes = 256;  // m, r, c of 16 rows, padded
-  m.per_warp = 2 * m.row_bytes + m.s_bytes + m.p_bytes + m.o_bytes + m.stat_bytes;
-  m.total = 2 * m.kv_bytes + kBwdWarps * m.per_warp;
-  return m;
-}
-
-// Dynamic shared memory of attn_bwd_kv_kernel (independent of L).
-constexpr size_t kKvStageBytes = kBwdRows * kBwdPitch * sizeof(bf16);
-constexpr size_t kKvWarpBytes = 2 * 256 * sizeof(float) + 2 * 256 * sizeof(bf16);
-constexpr size_t kKvSmemBytes =
-    6 * kKvStageBytes + 3 * kBwdRows * sizeof(float) + kBwdWarps * kKvWarpBytes;
-static_assert(kBwdWarps * 16 * kBwdOPitch * sizeof(float) <= 4 * kKvStageBytes,
-              "the dk/dv output tiles reuse the query stage");
-
-// Stage rows [row0, row0 + n) of a head (64 bf16 each, `stride` elements
-// apart) into dst (pitch kBwdPitch), rows past L as zeros; each thread of
-// `threads` copies 16 bytes at a time.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t stride, int row0,
-                                           int n, int L, int tid, int threads) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = tid; c < n * (kBwdDh / kVec); c += threads) {
-    const int r = c / (kBwdDh / kVec), k = (c % (kBwdDh / kVec)) * kVec;
-    uint4 v = zero;
-    if (row0 + r < L) v = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + k);
-    *reinterpret_cast<uint4*>(dst + r * kBwdPitch + k) = v;
-  }
-}
-
-// Writes the 16 x 64 fp32 tile os (pitch kBwdOPitch) times mul(row), as
-// bf16, to rows row0.. (< L) of dst with row stride `stride`; each lane
-// writes 32 columns of one row.
-template <typename Mul>
-__device__ __forceinline__ void store_tile(const float* os, bf16* dst, size_t stride, int row0,
-                                           int L, int lane, Mul mul) {
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  if (row0 + r >= L) return;
-  const float s = mul(r);
-  bf16* out = dst + static_cast<size_t>(row0 + r) * stride + c0;
-#pragma unroll
-  for (int c = 0; c < 32; c += kVec) {
-    float v[kVec];
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) v[e] = os[r * kBwdOPitch + c0 + c + e] * s;
-    *reinterpret_cast<uint4*>(out + c) = pack8(v);
-  }
-}
-
-using BwdFragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using BwdFragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using BwdFragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using BwdFragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using BwdAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// The 16 x 16 product rows(16 x 64) cols(16 x 64)^T of two staged tiles:
-// the score (or dp) tile of 16 query rows and 16 keys. Both launches form
-// these tiles the same way, so they agree to the bit.
-__device__ __forceinline__ void row_col_tile(BwdAcc& acc, const bf16* rows, const bf16* cols) {
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int kk = 0; kk < kBwdDh / 16; ++kk) {
-    BwdFragA a;
-    BwdFragBT b;
-    wmma::load_matrix_sync(a, rows + kk * 16, kBwdPitch);
-    wmma::load_matrix_sync(b, cols + kk * 16, kBwdPitch);
-    wmma::mma_sync(acc, a, b, acc);
-  }
+// Dynamic shared memory of attn_bwd_kv_kernel at sequence length L: four
+// staged heads and the statistics m and c.
+__host__ __device__ inline size_t attn_bwd_kv_smem_bytes(int L) {
+  const size_t lpad = (L + 15) / 16 * 16;
+  return 4 * lpad * kHeadRowBytes + 2 * lpad * sizeof(float);
 }
 
 // Row statistics, the forward output o (unless o.p is null) and dq.
-// stats: m, r, c, each (B, H, L).
-__global__ void __launch_bounds__(kBwdWarps * 32)
+// stats: m, r, c, each (B, H, L). Seq is the SeqClass of L (attn_tiles.cuh).
+template <typename Seq>
+__global__ void __launch_bounds__(kBwdRowWarps * 32, kBwdRowBlocksPerSm)
 attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
                   HeadRows<const bf16> v_rows, HeadRows<const bf16> do_rows,
                   HeadRows<bf16> o_out, HeadRows<bf16> dq_out,
                   float* __restrict__ stats, int L, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const AttnBwdQSmem sm = attn_bwd_q_smem(L);
+  constexpr int kTiles = Seq::kTiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + sm.kv_bytes);
-  unsigned char* mine = smem + 2 * sm.kv_bytes + warp * sm.per_warp;
-  bf16* Qs = reinterpret_cast<bf16*>(mine);
-  bf16* DOs = reinterpret_cast<bf16*>(mine + sm.row_bytes);
-  float* Ss = reinterpret_cast<float*>(mine + 2 * sm.row_bytes);
-  bf16* Ps = reinterpret_cast<bf16*>(mine + 2 * sm.row_bytes + sm.s_bytes);
-  float* Os = reinterpret_cast<float*>(mine + 2 * sm.row_bytes + sm.s_bytes + sm.p_bytes);
-  float* stat = reinterpret_cast<float*>(mine + 2 * sm.row_bytes + sm.s_bytes + sm.p_bytes +
-                                         sm.o_bytes);
-  float* m_s = stat;
-  float* r_s = stat + 16;
-  float* c_s = stat + 32;
+  const int g = lane >> 2, tg = lane & 3;
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + Seq::kHeadBytes;
+  const unsigned k_stage = static_cast<unsigned>(__cvta_generic_to_shared(Ks));
+  const unsigned v_stage = static_cast<unsigned>(__cvta_generic_to_shared(Vs));
 
   const int b = blockIdx.z, h = blockIdx.y;
-  stage_rows(Ks, k_rows.at(b, h), k_rows.row, 0, sm.lpad, L, threadIdx.x, blockDim.x);
-  stage_rows(Vs, v_rows.at(b, h), v_rows.row, 0, sm.lpad, L, threadIdx.x, blockDim.x);
-  const int q0 = blockIdx.x * kBwdRows + warp * 16;
-  stage_rows(Qs, q_rows.at(b, h), q_rows.row, q0, 16, L, lane, 32);
-  stage_rows(DOs, do_rows.at(b, h), do_rows.row, q0, 16, L, lane, 32);
-  __syncwarp();
-  for (int c = lane; c < 16 * (kBwdDh / kVec); c += 32) {  // qsc = bf16(q * scale)
-    const int r = c / (kBwdDh / kVec), k = (c % (kBwdDh / kVec)) * kVec;
-    uint4* p = reinterpret_cast<uint4*>(Qs + r * kBwdPitch + k);
-    *p = scale8(*p, scale);
-  }
-  __syncthreads();  // the only block-wide barrier: warps are independent below
-  if (q0 >= L) return;
+  stage_head_async(Ks, k_rows.at(b, h), k_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
+  cp_async_commit();
+  stage_head_async(Vs, v_rows.at(b, h), v_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
+  cp_async_commit();
 
-  const int ntiles = sm.lpad / 16;
-  for (int nt = 0; nt < ntiles; ++nt) {  // s = qsc k^T
-    BwdAcc s;
-    row_col_tile(s, Qs, Ks + nt * 16 * kBwdPitch);
-    wmma::store_matrix_sync(Ss + nt * 16, s, sm.s_pitch, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // m, e = exp(s - m) (0 past L) kept in fp32 in place of s, bf16(e), r
-  const float neg_inf = __uint_as_float(0xff800000u);
-  for (int r = 0; r < 16; ++r) {
-    float* srow = Ss + r * sm.s_pitch;
-    bf16* prow = Ps + r * sm.p_pitch;
-    float m = neg_inf;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < sm.lpad; j += 32) {
-      const float e = j < L ? expf(srow[j] - m) : 0.f;
-      sum += e;
-      srow[j] = e;
-      prow[j] = __float2bfloat16(e);
+  const unsigned v_off0 = v_stage + rows_offset(lane, 0), v_off1 = v_stage + rows_offset(lane, 4);
+  const unsigned toff = trans_offset(lane, 0);
+  // every warp makes the same number of trips (the barriers of the first)
+  const int tiles = (L + 15) / 16, per_trip = gridDim.x * kBwdRowWarps;
+  const int trips = (tiles + per_trip - 1) / per_trip;
+  for (int trip = 0; trip < trips; ++trip) {
+    const int q0 = ((trip * gridDim.x + blockIdx.x) * kBwdRowWarps + warp) * 16;
+    const bool active = q0 < L;
+    unsigned qa[4][4], da[4][4];
+    float e[kTiles][4];
+    if (active) {
+      load_a_rows(qa, q_rows.at(b, h), q_rows.row, q0, L, lane, scale);  // qsc = bf16(q * scale)
+      load_a_rows(da, do_rows.at(b, h), do_rows.row, q0, L, lane, 1.f);
     }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      m_s[r] = m;
-      r_s[r] = 1.f / sum;
+    if (trip == 0) {
+      cp_async_wait<1>();  // K has landed, V is still in flight
+      __syncthreads();
     }
-  }
-  __syncwarp();
+    if (active) score_tiles<kTiles>(e, qa, k_stage, lane);
+    if (trip == 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (!active) continue;
 
-  BwdAcc o[kBwdDh / 16];
-  if (o_out.p != nullptr) {  // the forward output bf16((bf16(e) v) * r), which K6 needs
+    float m_lo, m_hi, sum_lo, sum_hi;
+    softmax_rows<kTiles, Seq::kMaskFrom>(e, L, lane, m_lo, m_hi, sum_lo, sum_hi);
+    const float r_lo = 1.f / sum_lo, r_hi = 1.f / sum_hi;
+
+    if (o_out.p != nullptr) {  // the forward output bf16((bf16(e) v) * r), which K6 needs
+      float o[8][4];
+      value_tiles<kTiles>(o, e, v_stage, lane);
+      store_tile64(o_out.at(b, h), o_out.row, q0, L, lane, o, r_lo, r_hi);
+    }
+
+    // c = rowsum(dp * e) * r with dp = do v^T, 16 keys at a time
+    float c_lo = 0.f, c_hi = 0.f;
 #pragma unroll
-    for (int n = 0; n < kBwdDh / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-    for (int kt = 0; kt < ntiles; ++kt) {
-      BwdFragA pa;
-      wmma::load_matrix_sync(pa, Ps + kt * 16, sm.p_pitch);
+    for (int nt = 0; nt < kTiles; nt += 2) {
+      float dp[2][4];
+      row_col_pair(dp, da, v_off0, v_off1, nt);
 #pragma unroll
-      for (int n = 0; n < kBwdDh / 16; ++n) {
-        BwdFragB vf;
-        wmma::load_matrix_sync(vf, Vs + kt * 16 * kBwdPitch + n * 16, kBwdPitch);
-        wmma::mma_sync(o[n], pa, vf, o[n]);
+      for (int t = 0; t < 2; ++t) {
+        c_lo += dp[t][0] * e[nt + t][0] + dp[t][1] * e[nt + t][1];
+        c_hi += dp[t][2] * e[nt + t][2] + dp[t][3] * e[nt + t][3];
       }
     }
-#pragma unroll
-    for (int n = 0; n < kBwdDh / 16; ++n)
-      wmma::store_matrix_sync(Os + n * 16, o[n], kBwdOPitch, wmma::mem_row_major);
-    __syncwarp();
-    store_tile(Os, o_out.at(b, h), o_out.row, q0, L, lane, [&](int r) { return r_s[r]; });
-    __syncwarp();
-  }
+    c_lo += __shfl_xor_sync(0xffffffffu, c_lo, 1);
+    c_lo += __shfl_xor_sync(0xffffffffu, c_lo, 2);
+    c_hi += __shfl_xor_sync(0xffffffffu, c_hi, 1);
+    c_hi += __shfl_xor_sync(0xffffffffu, c_hi, 2);
+    c_lo *= r_lo;
+    c_hi *= r_hi;
 
-  // c = rowsum(dp * e) * r with dp = do v^T, tile by tile; each lane sums
-  // 8 columns of row lane / 2 of every tile, then the two lanes of a row
-  const int rr = lane >> 1, cc = (lane & 1) * kVec;
-  float cacc = 0.f;
-  for (int nt = 0; nt < ntiles; ++nt) {
-    BwdAcc dp;
-    row_col_tile(dp, DOs, Vs + nt * 16 * kBwdPitch);
-    wmma::store_matrix_sync(Os, dp, 16, wmma::mem_row_major);
-    __syncwarp();
+    // dsp = bf16(e * (dp - c)), 16 keys at a time, in place of e, and
+    // dq += dsp k
+    float dq[8][4];
+    zero_tile64(dq);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) cacc += Os[rr * 16 + cc + e] * Ss[rr * sm.s_pitch + nt * 16 + cc + e];
-    __syncwarp();
-  }
-  cacc += __shfl_xor_sync(0xffffffffu, cacc, 1);
-  if ((lane & 1) == 0) c_s[rr] = cacc * r_s[rr];
-  __syncwarp();
-
-  // dsp = bf16(e * (dp - c)) in place of bf16(e)
-  const float c_row = c_s[rr];
-  for (int nt = 0; nt < ntiles; ++nt) {
-    BwdAcc dp;
-    row_col_tile(dp, DOs, Vs + nt * 16 * kBwdPitch);
-    wmma::store_matrix_sync(Os, dp, 16, wmma::mem_row_major);
-    __syncwarp();
+    for (int kk = 0; kk < kTiles / 2; ++kk) {
+      float dp[2][4];
+      row_col_pair(dp, da, v_off0, v_off1, 2 * kk);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      const int j = nt * 16 + cc + e;
-      Ps[rr * sm.p_pitch + j] = __float2bfloat16(Ss[rr * sm.s_pitch + j] * (Os[rr * 16 + cc + e] - c_row));
+      for (int t = 0; t < 2; ++t) {
+        float(&et)[4] = e[2 * kk + t];
+        et[0] *= dp[t][0] - c_lo;
+        et[1] *= dp[t][1] - c_lo;
+        et[2] *= dp[t][2] - c_hi;
+        et[3] *= dp[t][3] - c_hi;
+      }
+      unsigned a[4];
+      pack_a(a, e, kk);
+      rows_product_step(dq, a, k_stage, toff, kk);
     }
-    __syncwarp();
-  }
+    store_tile64(dq_out.at(b, h), dq_out.row, q0, L, lane, dq, r_lo * scale, r_hi * scale);
 
-  // dq = bf16((dsp k) * (r * scale))
-#pragma unroll
-  for (int n = 0; n < kBwdDh / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-  for (int kt = 0; kt < ntiles; ++kt) {
-    BwdFragA pa;
-    wmma::load_matrix_sync(pa, Ps + kt * 16, sm.p_pitch);
-#pragma unroll
-    for (int n = 0; n < kBwdDh / 16; ++n) {
-      BwdFragB kf;
-      wmma::load_matrix_sync(kf, Ks + kt * 16 * kBwdPitch + n * 16, kBwdPitch);
-      wmma::mma_sync(o[n], pa, kf, o[n]);
+    if (tg == 0) {
+      const size_t bhl = static_cast<size_t>(gridDim.z) * H * L;
+      const size_t idx = (static_cast<size_t>(b) * H + h) * L + q0 + g;
+      if (q0 + g < L) {
+        stats[idx] = m_lo;
+        stats[bhl + idx] = r_lo;
+        stats[2 * bhl + idx] = c_lo;
+      }
+      if (q0 + g + 8 < L) {
+        stats[idx + 8] = m_hi;
+        stats[bhl + idx + 8] = r_hi;
+        stats[2 * bhl + idx + 8] = c_hi;
+      }
     }
-  }
-#pragma unroll
-  for (int n = 0; n < kBwdDh / 16; ++n)
-    wmma::store_matrix_sync(Os + n * 16, o[n], kBwdOPitch, wmma::mem_row_major);
-  __syncwarp();
-  store_tile(Os, dq_out.at(b, h), dq_out.row, q0, L, lane, [&](int r) { return r_s[r] * scale; });
-
-  if (lane < 16 && q0 + lane < L) {
-    const size_t bhl = static_cast<size_t>(gridDim.z) * H * L;
-    const size_t idx = (static_cast<size_t>(b) * H + h) * L + q0 + lane;
-    stats[idx] = m_s[lane];
-    stats[bhl + idx] = r_s[lane];
-    stats[2 * bhl + idx] = c_s[lane];
   }
 }
 
-// dk and dv of 64 keys, summed over every query row.
-__global__ void __launch_bounds__(kBwdWarps * 32)
+// dk and dv of 16 keys a warp, summed over every query row.
+__global__ void __launch_bounds__(kBwdKeyWarps * 32, 1)
 attn_bwd_kv_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
                    HeadRows<const bf16> v_rows, HeadRows<const bf16> do_rows,
                    const float* __restrict__ stats,
                    HeadRows<bf16> dk_out, HeadRows<bf16> dv_out, int L, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
+  const int lpad = (L + 15) / 16 * 16;
+  const size_t head_bytes = static_cast<size_t>(lpad) * kHeadRowBytes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + kKvStageBytes);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + 2 * kKvStageBytes);   // bf16(q * scale)
-  bf16* QRs = reinterpret_cast<bf16*>(smem + 3 * kKvStageBytes);  // bf16(qsc * r)
-  bf16* DOs = reinterpret_cast<bf16*>(smem + 4 * kKvStageBytes);
-  bf16* DORs = reinterpret_cast<bf16*>(smem + 5 * kKvStageBytes); // bf16(do * r)
-  float* ms = reinterpret_cast<float*>(smem + 6 * kKvStageBytes);
-  float* rs = ms + kBwdRows;
-  float* cs = rs + kBwdRows;
-  unsigned char* mine = smem + 6 * kKvStageBytes + 3 * kBwdRows * sizeof(float) +
-                        warp * kKvWarpBytes;
-  float* St = reinterpret_cast<float*>(mine);
-  float* Dt = St + 256;
-  bf16* Eb = reinterpret_cast<bf16*>(Dt + 256);
-  bf16* Db = Eb + 256;
+  const int g = lane >> 2, tg = lane & 3;
+  unsigned char* QS = smem;                   // bf16(q * scale)
+  unsigned char* QR = smem + head_bytes;      // bf16(qsc * r)
+  unsigned char* DOS = smem + 2 * head_bytes; // do
+  unsigned char* DOR = smem + 3 * head_bytes; // bf16(do * r)
+  float* m_s = reinterpret_cast<float*>(smem + 4 * head_bytes);
+  float* c_s = m_s + lpad;
 
   const int b = blockIdx.z, h = blockIdx.y;
   const bf16* qb = q_rows.at(b, h);
   const bf16* dob = do_rows.at(b, h);
   const size_t bhl = static_cast<size_t>(gridDim.z) * H * L;
   const float* st_b = stats + (static_cast<size_t>(b) * H + h) * L;
-  const int key_base = blockIdx.x * kBwdRows;
-  const int key0 = key_base + warp * 16;
-  stage_rows(Ks, k_rows.at(b, h), k_rows.row, key_base, kBwdRows, L, threadIdx.x, blockDim.x);
-  stage_rows(Vs, v_rows.at(b, h), v_rows.row, key_base, kBwdRows, L, threadIdx.x, blockDim.x);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int c = threadIdx.x; c < lpad * 8; c += blockDim.x) {
+    const int row = c >> 3, ch = c & 7;
+    uint4 qv = zero, dov = zero;
+    float r = 0.f;
+    if (row < L) {
+      qv = *reinterpret_cast<const uint4*>(qb + row * q_rows.row + ch * kVec);
+      dov = *reinterpret_cast<const uint4*>(dob + row * do_rows.row + ch * kVec);
+      r = st_b[bhl + row];
+    }
+    const unsigned at = staged_byte(row, ch);
+    const uint4 qsc = scale8(qv, scale);
+    *reinterpret_cast<uint4*>(QS + at) = qsc;
+    *reinterpret_cast<uint4*>(QR + at) = scale8(qsc, r);
+    *reinterpret_cast<uint4*>(DOS + at) = dov;
+    *reinterpret_cast<uint4*>(DOR + at) = scale8(dov, r);
+  }
+  for (int i = threadIdx.x; i < lpad; i += blockDim.x) {
+    m_s[i] = i < L ? st_b[i] : 0.f;
+    c_s[i] = i < L ? st_b[2 * bhl + i] : 0.f;
+  }
+  __syncthreads();  // the only barrier: the warps are independent below
 
-  BwdAcc dk[kBwdDh / 16], dv[kBwdDh / 16];
+  const unsigned qs_base = static_cast<unsigned>(__cvta_generic_to_shared(QS));
+  const unsigned qr_base = static_cast<unsigned>(__cvta_generic_to_shared(QR));
+  const unsigned dos_base = static_cast<unsigned>(__cvta_generic_to_shared(DOS));
+  const unsigned dor_base = static_cast<unsigned>(__cvta_generic_to_shared(DOR));
+  const unsigned roff0 = rows_offset(lane, 0), roff1 = rows_offset(lane, 4);
+  const unsigned toff = trans_offset(lane, 0);
+
+  for (int kt = blockIdx.x * kBwdKeyWarps + warp; kt * 16 < L; kt += gridDim.x * kBwdKeyWarps) {
+    const int key0 = kt * 16;
+    unsigned ka[4][4], va[4][4];
+    load_a_rows(ka, k_rows.at(b, h), k_rows.row, key0, L, lane, 1.f);
+    load_a_rows(va, v_rows.at(b, h), v_rows.row, key0, L, lane, 1.f);
+    const bool key_lo = key0 + g < L, key_hi = key0 + g + 8 < L;
+    float dk[8][4], dv[8][4];
+    zero_tile64(dk);
+    zero_tile64(dv);
+#pragma unroll 1
+    for (int qt = 0; qt * 16 < lpad; ++qt) {
+      // e^T and dsp^T of (16 keys x 16 queries), packed as A operands
+      unsigned ea[4], dsa[4];
+      float st2[2][4], dpt2[2][4];
+      row_col_pair(st2, ka, qs_base + roff0, qs_base + roff1, 2 * qt);
+      row_col_pair(dpt2, va, dos_base + roff0, dos_base + roff1, 2 * qt);
 #pragma unroll
-  for (int n = 0; n < kBwdDh / 16; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
-  }
-  const int i = lane >> 1, jj = (lane & 1) * kVec;  // this lane's row, 8 columns of a tile
-  for (int qt = 0; qt * kBwdRows < L; ++qt) {
-    const int qbase = qt * kBwdRows;
-    __syncthreads();  // the previous query tile is consumed
-    if (threadIdx.x < kBwdRows) {
-      const int q = qbase + threadIdx.x;
-      const bool ok = q < L;
-      ms[threadIdx.x] = ok ? st_b[q] : 0.f;
-      rs[threadIdx.x] = ok ? st_b[bhl + q] : 0.f;
-      cs[threadIdx.x] = ok ? st_b[2 * bhl + q] : 0.f;
-    }
-    stage_rows(Qs, qb, q_rows.row, qbase, kBwdRows, L, threadIdx.x, blockDim.x);
-    stage_rows(DOs, dob, do_rows.row, qbase, kBwdRows, L, threadIdx.x, blockDim.x);
-    __syncthreads();
-    for (int c = threadIdx.x; c < kBwdRows * (kBwdDh / kVec); c += blockDim.x) {
-      const int r = c / (kBwdDh / kVec), k = (c % (kBwdDh / kVec)) * kVec;
-      const int off = r * kBwdPitch + k;
-      const uint4 qsc = scale8(*reinterpret_cast<const uint4*>(Qs + off), scale);
-      *reinterpret_cast<uint4*>(Qs + off) = qsc;
-      *reinterpret_cast<uint4*>(QRs + off) = scale8(qsc, rs[r]);
-      *reinterpret_cast<uint4*>(DORs + off) =
-          scale8(*reinterpret_cast<const uint4*>(DOs + off), rs[r]);
-    }
-    __syncthreads();
-    if (key0 >= L) continue;
-    for (int st = 0; st < kBwdWarps && qbase + st * 16 < L; ++st) {
-      const int qrow = st * 16;
-      BwdAcc s, dp;
-      row_col_tile(s, Qs + qrow * kBwdPitch, Ks + warp * 16 * kBwdPitch);
-      row_col_tile(dp, DOs + qrow * kBwdPitch, Vs + warp * 16 * kBwdPitch);
-      wmma::store_matrix_sync(St, s, 16, wmma::mem_row_major);
-      wmma::store_matrix_sync(Dt, dp, 16, wmma::mem_row_major);
-      __syncwarp();
-      const int q = qbase + qrow + i;
-      const float m = ms[qrow + i], c = cs[qrow + i];
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        const int idx = i * 16 + jj + e;
-        const bool valid = q < L && key0 + jj + e < L;
-        const float ev = valid ? expf(St[idx] - m) : 0.f;
-        Eb[idx] = __float2bfloat16(ev);
-        Db[idx] = __float2bfloat16(ev * (Dt[idx] - c));
+      for (int j = 0; j < 2; ++j) {
+        const float(&st)[4] = st2[j], (&dpt)[4] = dpt2[j];
+        const int q = qt * 16 + j * 8 + tg * 2;
+        const float2 m2 = *reinterpret_cast<const float2*>(m_s + q);
+        const float2 c2 = *reinterpret_cast<const float2*>(c_s + q);
+        const bool q_a = q < L, q_b = q + 1 < L;
+        const float e0 = key_lo && q_a ? exp_nonpos(st[0] - m2.x) : 0.f;
+        const float e1 = key_lo && q_b ? exp_nonpos(st[1] - m2.y) : 0.f;
+        const float e2 = key_hi && q_a ? exp_nonpos(st[2] - m2.x) : 0.f;
+        const float e3 = key_hi && q_b ? exp_nonpos(st[3] - m2.y) : 0.f;
+        ea[2 * j] = pack_bf16x2(e0, e1);
+        ea[2 * j + 1] = pack_bf16x2(e2, e3);
+        dsa[2 * j] = pack_bf16x2(e0 * (dpt[0] - c2.x), e1 * (dpt[1] - c2.y));
+        dsa[2 * j + 1] = pack_bf16x2(e2 * (dpt[2] - c2.x), e3 * (dpt[3] - c2.y));
       }
-      __syncwarp();
-      // dv += bf16(e)^T bf16(do * r), dk += dsp^T bf16(qsc * r); the
-      // (query, key) tiles read column-major are their transposes
-      BwdFragAT ea, da;
-      wmma::load_matrix_sync(ea, Eb, 16);
-      wmma::load_matrix_sync(da, Db, 16);
-#pragma unroll
-      for (int n = 0; n < kBwdDh / 16; ++n) {
-        BwdFragB bv, bk;
-        wmma::load_matrix_sync(bv, DORs + qrow * kBwdPitch + n * 16, kBwdPitch);
-        wmma::mma_sync(dv[n], ea, bv, dv[n]);
-        wmma::load_matrix_sync(bk, QRs + qrow * kBwdPitch + n * 16, kBwdPitch);
-        wmma::mma_sync(dk[n], da, bk, dk[n]);
-      }
-      __syncwarp();
+      // dv += bf16(e)^T bf16(do * r), dk += dsp^T bf16(qsc * r): the queries
+      // are the reduction, so the staged rows are read transposed
+      rows_product_step(dv, ea, dor_base, toff, qt);
+      rows_product_step(dk, dsa, qr_base, toff, qt);
     }
+    store_tile64(dk_out.at(b, h), dk_out.row, key0, L, lane, dk, 1.f, 1.f);
+    store_tile64(dv_out.at(b, h), dv_out.row, key0, L, lane, dv, 1.f, 1.f);
   }
-  __syncthreads();  // the query stage becomes the output tiles
-  if (key0 >= L) return;
-  float* Os = reinterpret_cast<float*>(Qs) + warp * 16 * kBwdOPitch;
-  auto one = [](int) { return 1.f; };
-#pragma unroll
-  for (int n = 0; n < kBwdDh / 16; ++n)
-    wmma::store_matrix_sync(Os + n * 16, dk[n], kBwdOPitch, wmma::mem_row_major);
-  __syncwarp();
-  store_tile(Os, dk_out.at(b, h), dk_out.row, key0, L, lane, one);
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < kBwdDh / 16; ++n)
-    wmma::store_matrix_sync(Os + n * 16, dv[n], kBwdOPitch, wmma::mem_row_major);
-  __syncwarp();
-  store_tile(Os, dv_out.at(b, h), dv_out.row, key0, L, lane, one);
+}
+
+// Dynamic shared memory of a block of the row launch (key false: K and V of
+// the head) or of the key launch (key true) at sequence length L, and the
+// blocks of it that one SM holds, as the runtime reckons them (0 on an
+// error).
+inline int attn_bwd_core_smem_bytes(int L, bool key) {
+  if (key) return static_cast<int>(attn_bwd_kv_smem_bytes(L));
+  return with_seq_class(L, [](auto seq) {
+    return static_cast<int>(2 * decltype(seq)::kHeadBytes);
+  });
+}
+
+inline int attn_bwd_core_blocks_per_sm(int L, bool key) {
+  const size_t smem = attn_bwd_core_smem_bytes(L, key);
+  int blocks = 0;
+  if (key) {
+    if (cudaFuncSetAttribute(attn_bwd_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_bwd_kv_kernel,
+                                                      kBwdKeyWarps * 32, smem) != cudaSuccess)
+      return 0;
+    return blocks;
+  }
+  return with_seq_class(L, [&](auto seq) {
+    using Seq = decltype(seq);
+    if (cudaFuncSetAttribute(attn_bwd_q_kernel<Seq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_bwd_q_kernel<Seq>,
+                                                      kBwdRowWarps * 32, smem) != cudaSuccess)
+      return 0;
+    return blocks;
+  });
 }
 
 // dq, dk, dv (and the forward output o_out unless its p is null) from q, k,
@@ -416,21 +325,29 @@ inline cudaError_t launch_attn_bwd_core(HeadRows<const bf16> q, HeadRows<const b
                                         HeadRows<bf16> o_out, HeadRows<bf16> dq,
                                         HeadRows<bf16> dk, HeadRows<bf16> dv, float* stats, int B,
                                         int L, int H, float scale, cudaStream_t stream) {
-  const size_t smem_q = attn_bwd_q_smem(L).total;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel,
+  if (L < 1 || L > kMaxSeq) return cudaErrorInvalidValue;
+  cudaError_t err = with_seq_class(L, [&](auto seq) {
+    using Seq = decltype(seq);
+    constexpr size_t smem = 2 * Seq::kHeadBytes;
+    cudaError_t e = cudaFuncSetAttribute(attn_bwd_q_kernel<Seq>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_q));
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    const dim3 grid(head_splits(B * H, L, kBwdRowWarps, 2 * kSmCount * kBwdRowBlocksPerSm), H,
+                    B);
+    attn_bwd_q_kernel<Seq><<<grid, kBwdRowWarps * 32, smem, stream>>>(q, k, v, dout, o_out, dq,
+                                                                      stats, L, H, scale);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
+  const size_t smem_kv = attn_bwd_kv_smem_bytes(L);
   err = cudaFuncSetAttribute(attn_bwd_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kKvSmemBytes));
+                             static_cast<int>(smem_kv));
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + kBwdRows - 1) / kBwdRows, H, B);
-  attn_bwd_q_kernel<<<grid, kBwdWarps * 32, smem_q, stream>>>(q, k, v, dout, o_out, dq, stats, L,
-                                                              H, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_kv_kernel<<<grid, kBwdWarps * 32, kKvSmemBytes, stream>>>(q, k, v, dout, stats, dk, dv,
-                                                                     L, H, scale);
+  // one block a head (and an SM) when there is a head for every SM
+  const dim3 grid_kv(head_splits(B * H, L, kBwdKeyWarps, kSmCount), H, B);
+  attn_bwd_kv_kernel<<<grid_kv, kBwdKeyWarps * 32, smem_kv, stream>>>(q, k, v, dout, stats, dk,
+                                                                      dv, L, H, scale);
   return cudaGetLastError();
 }
 

@@ -11,206 +11,128 @@
 // and the division by the fp32 sum of the unrounded e after the value
 // product.
 //
-// One block per (query tile of 64 rows, head, sample):
-//   - K and V rows of the head (L x 64 bf16 each, 33 KB at L = 257) are
-//     staged once in shared memory and shared by 4 warps of 16 query rows;
-//   - q, k and v rows come through their views (column slices of qkv, or
-//     separate tensors);
-//   - s = q k^T in fp32 (WMMA), key columns past L masked to -inf before
-//     the row max, e = exp(s - m), denom = fp32 sum of the unrounded e;
-//   - e rounded to bf16 for e v (fp32 accumulation), then divided by denom;
-//   - the head's output goes to its rows of the output view, in bf16.
-// Bound: the core does 4*L*L*Dh flops per (sample, head) against
-// 8*L*Dh bytes of bf16 q, k, v and output (L/2, ~128 flop/byte at
-// L = 257, under the card's ~295 balance point), and it keeps each warp's
-// full (16 x L) fp32 score rows in shared memory (194 KB per block at
-// L = 257), so one block fits an SM: it is bound by latency and
-// occupancy, not by bandwidth. Design: simple and exact first (two passes
-// over stored scores keep the TPU kernel's rounding points: an exact row
-// max, one bf16 rounding of e); a register-resident online softmax is
-// later work.
+// Bound: 4*L*L*Dh flops per (sample, head) against 8*L*Dh bytes of bf16 q,
+// k, v and output (L/2, ~128 flop/byte at L = 257, under the card's ~295
+// balance point): bytes at the roofline. What a kernel of this size pays
+// for on the card is its instruction count (an exp, a max, a sum and a rounding
+// per score) and latency with few warps resident. The design keeps the
+// score rows out of shared memory and the instructions per score few:
+//   - a warp owns 16 query rows and ALL their keys: 34 accumulator tiles of
+//     mma.sync m16n8k16 = 136 fp32 registers a thread at L = 272 (the
+//     bound on L), plus 32 for the 16 x 64 output. The row max and the row
+//     sum are exact two-pass reductions over those registers and the four
+//     lanes that share a row (shuffles), so the Pallas kernels' rounding
+//     points stay: no online rescaling. e is packed to bf16 in registers:
+//     the accumulator layout of q k^T is the A layout of e v
+//     (attn_tiles.cuh). No score, no e and no output tile is ever in shared
+//     memory; the output leaves as 16-byte stores after a four-lane
+//     exchange;
+//   - the tile count is a template argument (three classes of L, SeqClass
+//     in attn_tiles.cuh), so the loops over the tiles are straight-line
+//     code without a branch between two tensor-core instructions; exp is
+//     one multiplication and one ex2.approx, and the division by the row
+//     sum one IEEE reciprocal a row and a multiplication;
+//   - shared memory holds only K and V of the head, 128 bytes a row in an
+//     XOR swizzle (no padding): 2 * 272 * 128 = 69,632 bytes at L = 257,
+//     so three blocks would fit an SM; the registers (all 255 a thread
+//     at L > 144, some 180 bytes of spills around q k^T, none in the
+//     softmax) allow kAttnBlocksPerSm = 2 blocks of kAttnWarps = 4 warps;
+//   - K and V arrive by cp.async in two groups: q k^T starts when K is
+//     there, V lands behind it. Q is read straight from device memory into
+//     the A registers (and scaled there);
+//   - one block loads K and V once and its warps walk the 16-row query
+//     tiles of the head (grid.x > 1 splits them over blocks when there are
+//     few heads), so the ragged tail of L = 257 or 258 = 16 * 16 + 1 (2)
+//     costs one more 16-row tile for one warp, not a block that stages the
+//     whole head for one row. Keys past L are masked to -inf before the
+//     max (e = 0), K / V / q rows past L are zeros, output rows past L are
+//     never written.
 // kNormFirst is the per-head attention sublayer's form (K1-v1, the Pallas
 // _kernel :79-86): q comes unscaled, the fp32 scores are multiplied by
 // `scale`, and p = e / sum is rounded to bf16 BEFORE the value product, so
 // nothing is divided afterwards. It is a template argument: the default
 // form's code does not change.
-// L = 257 or 258 is no multiple of 16: K/V/q rows past L are zero-filled,
-// scores past L masked, and output rows past L never written.
 #pragma once
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "attn_tiles.cuh"
 
 namespace duodiff {
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kDh = 64;                  // head width the core takes
-constexpr int kAttnWarps = 4;            // 16 query rows each
-constexpr int kQRows = 16 * kAttnWarps;  // query rows per block
-constexpr int kKvPitch = kDh + 8;        // bf16 per staged K/V/q row
-constexpr int kOPitch = kDh + 4;         // fp32 per output-tile row
-
-struct AttnSmem {
-  int lpad;          // L rounded up to 16
-  int s_pitch;       // fp32 per score row (the output tile reuses it)
-  int p_pitch;       // bf16 per probability row
-  size_t kv_bytes;   // K (or V) stage
-  size_t q_bytes;    // per warp
-  size_t s_bytes;    // per warp
-  size_t p_bytes;    // per warp
-  size_t total;
-};
-
-__host__ __device__ inline AttnSmem attn_smem(int L) {
-  AttnSmem m;
-  m.lpad = (L + 15) / 16 * 16;
-  m.s_pitch = (m.lpad > kDh ? m.lpad : kDh) + 4;
-  m.p_pitch = m.lpad + 8;
-  m.kv_bytes = static_cast<size_t>(m.lpad) * kKvPitch * sizeof(bf16);
-  m.q_bytes = 16 * kKvPitch * sizeof(bf16);
-  m.s_bytes = static_cast<size_t>(16) * m.s_pitch * sizeof(float);
-  m.p_bytes = static_cast<size_t>(16) * m.p_pitch * sizeof(bf16);
-  m.total = 2 * m.kv_bytes + kAttnWarps * (m.q_bytes + m.s_bytes + m.p_bytes);
-  return m;
-}
+constexpr int kDh = kHeadDim;            // head width the core takes
+constexpr int kAttnWarps = 4;            // 16 query rows each, per trip
+constexpr int kAttnBlocksPerSm = 2;      // what the register cap is set for
 
 // scale: q is multiplied by it and rounded to bf16 (1: q comes pre-scaled);
 // with kNormFirst q stays as it is and the fp32 scores are multiplied by it.
-template <bool kNormFirst>
-__global__ void __launch_bounds__(kAttnWarps * 32)
+// Seq is the SeqClass of L (attn_tiles.cuh).
+template <bool kNormFirst, typename Seq>
+__global__ void __launch_bounds__(kAttnWarps * 32, kAttnBlocksPerSm)
 attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
                  HeadRows<const bf16> v_rows, HeadRows<bf16> out, int L, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float denom_s[kAttnWarps][16];
-  const AttnSmem sm = attn_smem(L);
+  constexpr int kTiles = Seq::kTiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + sm.kv_bytes);
-  unsigned char* mine = smem + 2 * sm.kv_bytes + warp * (sm.q_bytes + sm.s_bytes + sm.p_bytes);
-  bf16* Qs = reinterpret_cast<bf16*>(mine);
-  float* Ss = reinterpret_cast<float*>(mine + sm.q_bytes);
-  bf16* Ps = reinterpret_cast<bf16*>(mine + sm.q_bytes + sm.s_bytes);
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + Seq::kHeadBytes;
+  const unsigned k_stage = static_cast<unsigned>(__cvta_generic_to_shared(Ks));
+  const unsigned v_stage = static_cast<unsigned>(__cvta_generic_to_shared(Vs));
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const bf16* qb = q_rows.at(b, h);
-  const bf16* kb = k_rows.at(b, h);
-  const bf16* vb = v_rows.at(b, h);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  stage_head_async(Ks, k_rows.at(b, h), k_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
+  cp_async_commit();
+  stage_head_async(Vs, v_rows.at(b, h), v_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
+  cp_async_commit();
 
-  for (int c = threadIdx.x; c < sm.lpad * (kDh / kVec); c += blockDim.x) {
-    const int j = c / (kDh / kVec), col = (c % (kDh / kVec)) * kVec;
-    uint4 kv = zero, vv = zero;
-    if (j < L) {
-      kv = *reinterpret_cast<const uint4*>(kb + j * k_rows.row + col);
-      vv = *reinterpret_cast<const uint4*>(vb + j * v_rows.row + col);
+  // every warp makes the same number of trips, so that the two barriers of
+  // the first one are reached by all; a warp with no tile left idles
+  const int tiles = (L + 15) / 16, per_trip = gridDim.x * kAttnWarps;
+  const int trips = (tiles + per_trip - 1) / per_trip;
+  for (int trip = 0; trip < trips; ++trip) {
+    const int q0 = ((trip * gridDim.x + blockIdx.x) * kAttnWarps + warp) * 16;
+    const bool active = q0 < L;
+    unsigned qa[4][4];
+    float s[kTiles][4];
+    if (active)
+      load_a_rows(qa, q_rows.at(b, h), q_rows.row, q0, L, lane, kNormFirst ? 1.f : scale);
+    if (trip == 0) {
+      cp_async_wait<1>();  // K has landed, V is still in flight
+      __syncthreads();
     }
-    *reinterpret_cast<uint4*>(Ks + j * kKvPitch + col) = kv;
-    *reinterpret_cast<uint4*>(Vs + j * kKvPitch + col) = vv;
-  }
-  const int q0 = blockIdx.x * kQRows + warp * 16;
-  for (int c = lane; c < 16 * (kDh / kVec); c += 32) {
-    const int r = c / (kDh / kVec), col = (c % (kDh / kVec)) * kVec;
-    uint4 qv = zero;
-    if (q0 + r < L) {
-      qv = *reinterpret_cast<const uint4*>(qb + (q0 + r) * q_rows.row + col);
-      if (!kNormFirst && scale != 1.f) qv = scale8(qv, scale);  // bf16(q * scale), K9's rounding
+    if (active) score_tiles<kTiles>(s, qa, k_stage, lane);
+    if (trip == 0) {
+      cp_async_wait<0>();
+      __syncthreads();
     }
-    *reinterpret_cast<uint4*>(Qs + r * kKvPitch + col) = qv;
-  }
-  __syncthreads();  // the only block-wide barrier: warps are independent below
-  if (q0 >= L) return;
+    if (!active) continue;
 
-  // scores s = q k^T, (16 x lpad) fp32
-  const int ntiles = sm.lpad / 16;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kDh / 16];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qs + kk * 16, kKvPitch);
-  for (int nt = 0; nt < ntiles; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::fill_fragment(s, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      // k^T as a column-major (Dh x 16) operand: element (k, n) = K[n][k]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + nt * 16 * kKvPitch + kk * 16, kKvPitch);
-      wmma::mma_sync(s, qa[kk], kf, s);
-    }
-    wmma::store_matrix_sync(Ss + nt * 16, s, sm.s_pitch, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // softmax numerator in bf16, denominator in fp32 (normalised after e v)
-  const float neg_inf = __uint_as_float(0xff800000u);
-  for (int r = 0; r < 16; ++r) {
-    float* srow = Ss + r * sm.s_pitch;
-    bf16* prow = Ps + r * sm.p_pitch;
-    float m = neg_inf;
     if (kNormFirst) {
-      // p = softmax(s * scale) in fp32, one rounding to bf16 after the
-      // division; each lane owns the same columns in all three passes
-      for (int j = lane; j < sm.lpad; j += 32) m = fmaxf(m, j < L ? srow[j] * scale : neg_inf);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < sm.lpad; j += 32) {
-        const float e = j < L ? expf(srow[j] * scale - m) : 0.f;
-        srow[j] = e;
-        sum += e;
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= scale;
       }
-      sum = warp_sum(sum);
-      for (int j = lane; j < sm.lpad; j += 32) prow[j] = __float2bfloat16(srow[j] / sum);
-      continue;
     }
-    for (int j = lane; j < sm.lpad; j += 32) m = fmaxf(m, j < L ? srow[j] : neg_inf);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < sm.lpad; j += 32) {
-      const float e = expf((j < L ? srow[j] : neg_inf) - m);
-      sum += e;
-      prow[j] = __float2bfloat16(e);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) denom_s[warp][r] = sum;
-  }
-  __syncwarp();
-
-  // o = e v, (16 x 64) fp32
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kDh / 16];
+    float m_lo, m_hi, sum_lo, sum_hi;
+    softmax_rows<kTiles, Seq::kMaskFrom>(s, L, lane, m_lo, m_hi, sum_lo, sum_hi);
+    // the division by the row sum as one IEEE reciprocal a row and a
+    // multiplication: within an ulp of the fp32 quotient, which the rounding
+    // to bf16 that follows swallows, at a tenth of a division's instructions
+    const float r_lo = __frcp_rn(sum_lo), r_hi = __frcp_rn(sum_hi);
+    if (kNormFirst) {  // p = e / sum, rounded to bf16 by the value product's packing
 #pragma unroll
-  for (int n = 0; n < kDh / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-  for (int kt = 0; kt < ntiles; ++kt) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-    wmma::load_matrix_sync(pa, Ps + kt * 16, sm.p_pitch);
-#pragma unroll
-    for (int n = 0; n < kDh / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-      wmma::load_matrix_sync(vf, Vs + kt * 16 * kKvPitch + n * 16, kKvPitch);
-      wmma::mma_sync(o[n], pa, vf, o[n]);
-    }
-  }
-  float* Os = Ss;  // the scores are consumed
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n)
-    wmma::store_matrix_sync(Os + n * 16, o[n], kOPitch, wmma::mem_row_major);
-  __syncwarp();
-
-  // each lane writes 32 columns of one row: o / denom, rounded to bf16
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  if (q0 + r < L) {
-    const float den = kNormFirst ? 1.f : denom_s[warp][r];
-    bf16* dst = out.at(b, h) + (q0 + r) * out.row + c0;
-#pragma unroll
-    for (int c = 0; c < 32; c += kVec) {
-      float v[kVec];
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        v[e] = Os[r * kOPitch + c0 + c + e];
-        if (!kNormFirst) v[e] /= den;
+      for (int nt = 0; nt < kTiles; ++nt) {
+        s[nt][0] *= r_lo;
+        s[nt][1] *= r_lo;
+        s[nt][2] *= r_hi;
+        s[nt][3] *= r_hi;
       }
-      *reinterpret_cast<uint4*>(dst + c) = pack8(v);
     }
+    float o[8][4];
+    value_tiles<kTiles>(o, s, v_stage, lane);
+    store_tile64(out.at(b, h), out.row, q0, L, lane, o, kNormFirst ? 1.f : r_lo,
+                 kNormFirst ? 1.f : r_hi);
   }
 }
 
@@ -218,14 +140,44 @@ template <bool kNormFirst>
 cudaError_t launch_attn_core_form(HeadRows<const bf16> q, HeadRows<const bf16> k,
                                   HeadRows<const bf16> v, HeadRows<bf16> out, int B, int L, int H,
                                   float scale, cudaStream_t stream) {
-  const size_t smem = attn_smem(L).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_core_kernel<kNormFirst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kQRows - 1) / kQRows, H, B);
-  attn_core_kernel<kNormFirst><<<grid, kAttnWarps * 32, smem, stream>>>(q, k, v, out, L, scale);
-  return cudaGetLastError();
+  if (L < 1 || L > kMaxSeq) return cudaErrorInvalidValue;
+  return with_seq_class(L, [&](auto seq) {
+    using Seq = decltype(seq);
+    constexpr size_t smem = 2 * Seq::kHeadBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_core_kernel<kNormFirst, Seq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    // one block a head when the heads alone fill the card twice over
+    const dim3 grid(head_splits(B * H, L, kAttnWarps, 2 * kSmCount * kAttnBlocksPerSm), H, B);
+    attn_core_kernel<kNormFirst, Seq><<<grid, kAttnWarps * 32, smem, stream>>>(q, k, v, out, L,
+                                                                              scale);
+    return cudaGetLastError();
+  });
+}
+
+// Dynamic shared memory of a block of the core at sequence length L (K and
+// V of the head) and the blocks one SM holds, by registers and shared
+// memory, as the runtime reckons them (0 on an error).
+inline int attn_core_smem_bytes(int L) {
+  return with_seq_class(L, [](auto seq) {
+    return static_cast<int>(2 * decltype(seq)::kHeadBytes);
+  });
+}
+
+inline int attn_core_blocks_per_sm(int L) {
+  return with_seq_class(L, [](auto seq) {
+    using Seq = decltype(seq);
+    constexpr size_t smem = 2 * Seq::kHeadBytes;
+    int blocks = 0;
+    if (cudaFuncSetAttribute(attn_core_kernel<false, Seq>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_core_kernel<false, Seq>,
+                                                      kAttnWarps * 32, smem) != cudaSuccess)
+      return 0;
+    return blocks;
+  });
 }
 
 // The default form: q * qscale rounded to bf16, normalised after e v.

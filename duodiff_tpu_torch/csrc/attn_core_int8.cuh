@@ -21,7 +21,8 @@
 // e, and an e code flipping by one at a rounding boundary.
 //
 // One block per (query tile of 64 rows, head, sample), 4 warps of 16 query
-// rows, as the bf16 core (attn_core.cuh):
+// rows each, with the score rows in shared memory (the bf16 core,
+// attn_core.cuh, keeps its own in registers):
 //   - the head's k and v rows are copied once into shared memory as they
 //     come (bf16, in the area the warps' score rows take later), so that the
 //     quantization passes below never wait for device memory;
@@ -33,7 +34,7 @@
 //     contiguous, and K is the token axis in the value product;
 //   - each warp quantizes its 16 q rows, takes s with mma.sync m16n8k32
 //     (two k32 steps), writes the dequantized fp32 scores to shared memory,
-//     runs the two-pass softmax of the bf16 core over them, and stores the
+//     runs a two-pass softmax over those stored rows, and stores the
 //     e codes (a quarter of the bf16 probabilities' bytes);
 //   - o32 = e8 v8 with Lpad / 32 k32 steps into 8 column tiles of int32
 //     accumulators in registers; the epilogue writes bf16 pairs.

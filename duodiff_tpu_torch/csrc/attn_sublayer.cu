@@ -20,10 +20,9 @@
 
 using duodiff::bf16;
 
-// Dynamic shared memory the attention core needs at sequence length L.
-extern "C" int duodiff_attn_core_smem_bytes(int L) {
-  return static_cast<int>(duodiff::attn_smem(L).total);
-}
+// The longest sequence the attention core takes: a warp keeps 16 whole score
+// rows in registers (attn_core.cuh).
+extern "C" int duodiff_attn_core_max_len() { return duodiff::kMaxSeq; }
 
 extern "C" const char* duodiff_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

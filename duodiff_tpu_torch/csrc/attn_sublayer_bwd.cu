@@ -21,10 +21,10 @@
 //      the column sums dbp and dbqkv (layernorm_bwd.cuh).
 // Bound: ~172 GFLOP at batch 128 (the Pallas cost estimate, :736), of which
 // the projection GEMMs are tensor-core bound and the attention core, which
-// recomputes the (L, L) scores three times (rows, dq pass, key pass), is
-// bound by latency and occupancy as the forward core is. The Pallas kernel
-// keeps xn, qkv, dm and dqkv in VMEM; here they go to device memory, at its
-// bf16 rounding points, so the split changes no number.
+// forms the (L, L) scores twice (row launch, key launch) and dp three times,
+// all in registers, is bound by its instruction count as the forward core
+// is. The Pallas kernel keeps xn, qkv, dm and dqkv in VMEM; here they go to
+// device memory, at its bf16 rounding points, so the split changes no number.
 // Deterministic reductions: the weight gradients sum split-K partials in
 // split order (gemm_t.cuh), dgamma / dbeta / dbp / dbqkv sum per-block
 // partials in block order (layernorm_bwd.cuh), and the core sums dk and dv
@@ -83,10 +83,9 @@ extern "C" size_t duodiff_attn_sublayer_bwd_workspace(int B, int L, int D, int H
   return attn_bwd_workspace(B, L, D, H).total;
 }
 
-// Dynamic shared memory the core's row launch needs at sequence length L.
-extern "C" int duodiff_attn_bwd_core_smem_bytes(int L) {
-  return static_cast<int>(duodiff::attn_bwd_q_smem(L).total);
-}
+// The longest sequence the backward core takes: its row launch keeps 16
+// whole rows of e in registers (attn_bwd_core.cuh).
+extern "C" int duodiff_attn_bwd_core_max_len() { return duodiff::kMaxSeq; }
 
 // x, dy, dx: (B, L, D) bf16; wqkv: (D, 3A) bf16, unscaled; bqkv: (3A,) fp32
 // or null; wp: (A, D) bf16; ln_w, ln_b: fp32. Outputs fp32: dg, db (D,),

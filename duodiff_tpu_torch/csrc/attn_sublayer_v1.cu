@@ -5,8 +5,8 @@
 //
 // as six launches: LayerNorm rows (layernorm.cuh), one GEMM each for q, k
 // and v from the three (D, A) blocks of the packed weight (gemm.cuh), the
-// attention core in its normalise-first form on a (query tile, head,
-// sample) grid (attn_core.cuh), and the proj GEMM with the fp32 residual and
+// attention core in its normalise-first form, one block a (head, sample)
+// whose warps walk the 16-row query tiles (attn_core.cuh), and the proj GEMM with the fp32 residual and
 // bias in its epilogue.
 //
 // Replaces: duodiff_tpu/ops/pallas_block.py fused_attn_sublayer, variant

@@ -10,16 +10,25 @@
 // rounded to bf16, fp32 scores and row max, e = exp(s - m) rounded to bf16
 // for e v, the fp32 sum of the unrounded e divided out after the value
 // product, one rounding of the output. The TPU kernel's group size and lane
-// padding have no counterpart: a block is one (64 query rows, head, sample).
+// padding have no counterpart: a block is one (head, sample), its warps walk
+// the 16-row query tiles.
 // Bound: 4 * L * L * Dh flops per (sample, head) against 8 * L * Dh bytes
 // (L / 2 = 129 flop/byte at L = 258, under the card's ~295): bytes at the
-// roofline, latency and occupancy in this simple core (one block per SM,
-// whole score rows in shared memory); see attn_core.cuh.
+// roofline; on the card, the instruction count of the softmax over score rows
+// held in registers (two blocks of four warps an SM); see attn_core.cuh.
 
 #include "attn_core.cuh"
 #include "common.cuh"
 
 using duodiff::bf16;
+
+// Warps a block, dynamic shared memory a block and resident blocks an SM of
+// the attention core at length L.
+extern "C" int duodiff_attn_core_warps() { return duodiff::kAttnWarps; }
+extern "C" int duodiff_attn_core_smem_bytes(int L) { return duodiff::attn_core_smem_bytes(L); }
+extern "C" int duodiff_attn_core_blocks_per_sm(int L) {
+  return duodiff::attn_core_blocks_per_sm(L);
+}
 
 // q, k, v, out: (B, H, L, 64) bf16, contiguous. Returns the first CUDA
 // error, or 0.

@@ -5,7 +5,8 @@
 //
 // the two launches of the attention backward core (attn_bwd_core.cuh) on
 // the separate tensors: the row launch (softmax statistics and dq), then
-// the key launch (dk and dv summed over the queries in registers).
+// the key launch (dk and dv summed over the queries in registers); every
+// score, e, dp and dsp tile lives in registers in both.
 //
 // Replaces: duodiff_tpu/ops/pallas_attention.py _flash_attention_bwd_impl
 // (kernel _bwd_kernel). As there, the forward saves only q, k and v, the
@@ -14,9 +15,9 @@
 // comes in unscaled and dq is the gradient for that tensor. The rounding
 // points are the Pallas kernel's (attn_bwd_core.cuh lists them).
 // Bound: 10 * L * L * Dh flops per (sample, head) against 14 * L * Dh bytes
-// at the roofline (bytes); this core recomputes the scores in both
-// launches and is bound by latency and occupancy. No atomics: a repeat call
-// gives the same bits.
+// at the roofline (bytes); this core forms the scores in both launches and
+// is bound by its instruction count. No atomics: a repeat call gives the same
+// bits.
 
 #include "attn_bwd_core.cuh"
 #include "common.cuh"
@@ -26,6 +27,18 @@ using duodiff::bf16;
 // Floats of scratch duodiff_flash_attention_bwd takes.
 extern "C" size_t duodiff_flash_attention_bwd_stats(int B, int H, int L) {
   return 3 * static_cast<size_t>(B) * H * L;
+}
+
+// Warps a block, dynamic shared memory a block and resident blocks an SM of
+// the backward core's row launch (key 0) and key launch (key 1) at length L.
+extern "C" int duodiff_attn_bwd_core_warps(int key) {
+  return key ? duodiff::kBwdKeyWarps : duodiff::kBwdRowWarps;
+}
+extern "C" int duodiff_attn_bwd_core_smem_bytes(int L, int key) {
+  return duodiff::attn_bwd_core_smem_bytes(L, key != 0);
+}
+extern "C" int duodiff_attn_bwd_core_blocks_per_sm(int L, int key) {
+  return duodiff::attn_bwd_core_blocks_per_sm(L, key != 0);
 }
 
 // q, k, v, dout, dq, dk, dv: (B, H, L, 64) bf16, contiguous; stats: fp32

@@ -12,10 +12,12 @@
 // the attention core of K1 and K9 (attn_core.cuh) with no scale: this entry
 // launches that core with qscale = 1, which leaves q untouched. The TPU
 // kernel's group of samples per grid step has no counterpart: a block is one
-// (64 query rows, head, sample) in both forms.
+// (head, sample) in the bf16 form, whose scores live in registers, and one
+// (64 query rows, head, sample) in the int8 form, which still keeps its fp32
+// score rows in shared memory.
 // Bound: 4 * L * L * Dh operations per (sample, head) against 8 * L * Dh
 // bytes: bytes at the roofline for both forms; see the two cores' notes for
-// what bounds these simple versions instead.
+// what bounds each on the card instead.
 
 #include "attn_core.cuh"
 #include "attn_core_int8.cuh"

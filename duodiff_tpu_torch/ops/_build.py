@@ -5,6 +5,8 @@ and the objects are linked into one shared library with a plain C
 interface, loaded with ``ctypes``. The build runs at first use, into
 ``duodiff_tpu_torch/build/``, and again whenever a source's content
 changes (the library's name carries a hash of the sources and flags).
+ptxas reports every kernel's registers and spills (``-Xptxas -v``) into a
+text file beside the library, which :func:`kernel_resources` reads.
 Importing this module needs neither ``nvcc`` nor a GPU.
 """
 
@@ -14,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +26,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _PTR = ctypes.c_void_p
@@ -49,8 +52,14 @@ _SIGNATURES = {
     "duodiff_attn_sublayer_bwd_workspace": ([_INT] * 4, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_split_workspace": ([_INT] * 4, ctypes.c_size_t),
+    "duodiff_attn_core_warps": ([], _INT),
     "duodiff_attn_core_smem_bytes": ([_INT], _INT),
-    "duodiff_attn_bwd_core_smem_bytes": ([_INT], _INT),
+    "duodiff_attn_bwd_core_smem_bytes": ([_INT] * 2, _INT),
+    "duodiff_attn_core_blocks_per_sm": ([_INT], _INT),
+    "duodiff_attn_bwd_core_warps": ([_INT], _INT),
+    "duodiff_attn_bwd_core_blocks_per_sm": ([_INT] * 2, _INT),
+    "duodiff_attn_core_max_len": ([], _INT),
+    "duodiff_attn_bwd_core_max_len": ([], _INT),
     "duodiff_error_string": ([_INT], ctypes.c_char_p),
 }
 
@@ -80,14 +89,16 @@ def _nvcc() -> str:
     return found
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands concurrently; raise with the first failure's output."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently; raise with the first failure's output,
+    else return every command's output."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
     outputs = [proc.communicate()[0] for proc in procs]
     for cmd, proc, out in zip(cmds, procs, outputs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
+    return outputs
 
 
 def build() -> Path:
@@ -102,8 +113,10 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in units]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
-                  for p, o in zip(units, objs)])
+        reports = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                            for p, o in zip(units, objs)])
+        _resources_path(out).write_text(
+            "".join(f"== {p.stem}\n{text}\n" for p, text in zip(units, reports)))
         _run_all([[nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]])
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     finally:
@@ -111,6 +124,27 @@ def build() -> Path:
         for o in objs:
             o.unlink(missing_ok=True)
     return out
+
+
+def _resources_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def kernel_resources(unit: str) -> list[dict]:
+    """What ptxas reported for each kernel of ``csrc/<unit>.cu`` when the
+    library was built: ``entry`` (the mangled name), ``registers`` a thread,
+    ``spill_stores`` / ``spill_loads`` / ``stack`` in bytes."""
+    text = _resources_path(build()).read_text()
+    section = text.split(f"== {unit}\n", 1)[1].split("\n== ", 1)[0]
+    records = []
+    for part in section.split("Compiling entry function '")[1:]:
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", part)
+        used = re.search(r"Used (\d+) registers", part)
+        records.append({"entry": part.split("'", 1)[0], "registers": int(used.group(1)),
+                        "stack": int(spill.group(1)), "spill_stores": int(spill.group(2)),
+                        "spill_loads": int(spill.group(3))})
+    return records
 
 
 @functools.cache

@@ -46,13 +46,25 @@ import torch
 import torch.nn.functional as F
 
 # what the CUDA kernels take: bf16 activations, head width 64, a 16-byte
-# aligned row of every operand (widths multiple of 8), and the attention
-# core's dynamic shared memory within a block's 227 KB opt-in limit, less
-# the core's 256 bytes of static shared memory (L <= 272). Checked on the
-# card at D = 512 with 8 heads and L = 257, and at D = 768 with 12 heads and
-# L = 258 (chip_smoke.py phase 2)
+# aligned row of every operand (widths multiple of 8), and a sequence the
+# attention cores can hold: a warp keeps 16 whole fp32 score rows in
+# registers, 136 a thread at L = 272, which is the limit the library
+# reports (duodiff_attn_core_max_len, duodiff_attn_bwd_core_max_len). The
+# int8 chain of K15 still keeps its score rows in shared memory and is held
+# to a block's 227 KB opt-in limit less a margin of 256 bytes. Checked on the card at D = 512 with 8 heads and L = 257, and at
+# D = 768 with 12 heads and L = 258 (chip_smoke.py phase 2)
 HEAD_DIM = 64
 _MAX_SMEM_BYTES = 227 * 1024 - 256
+
+
+def _check_seq_len(lib, l: int, backward: bool = False) -> None:
+    """Raise unless the attention core (or its backward) takes length l."""
+    if backward:
+        limit, what = lib.duodiff_attn_bwd_core_max_len(), "attention backward core"
+    else:
+        limit, what = lib.duodiff_attn_core_max_len(), "attention core"
+    if l > limit:
+        raise ValueError(f"sequence length {l} does not fit the {what} (at most {limit})")
 
 
 def attn_operands(ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b, *, num_heads: int, dtype):
@@ -440,8 +452,7 @@ def _attn_sublayer_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
     _check("wp", wp, (a, d), bf16, dev)
     _check("bp", bp, (d,), f32, dev)
     lib = load_library()
-    if lib.duodiff_attn_core_smem_bytes(l) > _MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {l} does not fit the attention core")
+    _check_seq_len(lib, l)
     xn = torch.empty_like(x)
     # v2 packs q, k, v per row (B, L, 3A); v1 keeps them apart, (3, B, L, A)
     qkv = torch.empty((3, b, l, a) if v1 else (b, l, 3 * a), dtype=bf16, device=dev)
@@ -480,8 +491,7 @@ def _fused_block_cuda(x, ln1_scale, ln1_bias, wqkv, bqkv, wp, bp, ln2_scale, ln2
     _check("b1", b1, (hid,), f32, dev)
     _check("w2", w2, (hid, d), bf16, dev)
     lib = load_library()
-    if lib.duodiff_attn_core_smem_bytes(l) > _MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {l} does not fit the attention core")
+    _check_seq_len(lib, l)
     xn = torch.empty_like(x)
     qkv = torch.empty((b, l, 3 * a), dtype=bf16, device=dev)
     merged = torch.empty((b, l, a), dtype=bf16, device=dev)
@@ -548,8 +558,7 @@ def _attn_sublayer_bwd_cuda(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int
         _check("bqkv", bqkv, (3 * a,), f32, dev)
     _check("wp", wp, (a, d), bf16, dev)
     lib = load_library()
-    if lib.duodiff_attn_bwd_core_smem_bytes(l) > _MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {l} does not fit the attention backward core")
+    _check_seq_len(lib, l, backward=True)
     ws = torch.empty(lib.duodiff_attn_sublayer_bwd_workspace(b, l, d, num_heads),
                      dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)

@@ -39,9 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from duodiff_tpu_torch.ops.block import (
-    _MAX_SMEM_BYTES,
     HEAD_DIM,
     _check,
+    _check_seq_len,
     _layer_norm,
     _ptr,
     _raise_on_error,
@@ -230,8 +230,7 @@ def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, b
     if inv is not None:
         _check("inv", inv, (2,), f32, dev)
     lib = load_library()
-    if lib.duodiff_attn_core_smem_bytes(l) > _MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {l} does not fit the attention core")
+    _check_seq_len(lib, l)
     m = b * l
     x8 = torch.empty((m, d), dtype=i8, device=dev)  # reused for the merged heads
     rs = torch.empty((m,), dtype=f32, device=dev) if inv is None else None

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from duodiff_tpu_torch.ops.block import HEAD_DIM, _MAX_SMEM_BYTES, _check, _ptr, _raise_on_error
+from duodiff_tpu_torch.ops.block import HEAD_DIM, _check, _check_seq_len, _ptr, _raise_on_error
 
 
 def _softmax_parts(q, k):
@@ -88,8 +88,7 @@ def _flash_attention_cuda(q, k, v):
 
     b, h, l = _dims(q, {"q": q, "k": k, "v": v})
     lib = load_library()
-    if lib.duodiff_attn_core_smem_bytes(l) > _MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {l} does not fit the attention core")
+    _check_seq_len(lib, l)
     out = torch.empty_like(q)
     err = lib.duodiff_flash_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, l,
                                       torch.cuda.current_stream(q.device).cuda_stream)
@@ -103,8 +102,7 @@ def _flash_attention_bwd_cuda(q, k, v, do):
 
     b, h, l = _dims(q, {"q": q, "k": k, "v": v, "do": do})
     lib = load_library()
-    if lib.duodiff_attn_bwd_core_smem_bytes(l) > _MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {l} does not fit the attention backward core")
+    _check_seq_len(lib, l, backward=True)
     stats = torch.empty(lib.duodiff_flash_attention_bwd_stats(b, h, l), dtype=torch.float32,
                         device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)

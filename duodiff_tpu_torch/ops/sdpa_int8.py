@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from duodiff_tpu_torch.ops.block import _MAX_SMEM_BYTES, _ptr, _raise_on_error
+from duodiff_tpu_torch.ops.block import _MAX_SMEM_BYTES, _check_seq_len, _ptr, _raise_on_error
 from duodiff_tpu_torch.ops.block_int8 import _quant_rows
 from duodiff_tpu_torch.ops.flash_attention import _dims
 
@@ -68,13 +68,17 @@ def sdpa_chain_int8_plain(q, k, v):
     return (o / p["denom"]).to(q.dtype)
 
 
-def _launch(entry: str, smem_entry: str, what: str, q, k, v):
-    """Check the operands and launch one form of K15 (csrc/sdpa_int8.cu)."""
+def _launch(entry: str, smem_entry: str | None, what: str, q, k, v):
+    """Check the operands and launch one form of K15 (csrc/sdpa_int8.cu).
+    smem_entry names the C entry that gives the form's shared memory at a
+    length; None holds the length to the bf16 core's own limit."""
     from duodiff_tpu_torch.ops._build import load_library
 
     b, h, l = _dims(q, {"q": q, "k": k, "v": v})
     lib = load_library()
-    if getattr(lib, smem_entry)(l) > _MAX_SMEM_BYTES:
+    if smem_entry is None:
+        _check_seq_len(lib, l)
+    elif getattr(lib, smem_entry)(l) > _MAX_SMEM_BYTES:
         raise ValueError(f"sequence length {l} does not fit the {what}")
     out = torch.empty_like(q)
     err = getattr(lib, entry)(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, l,
@@ -87,8 +91,7 @@ def sdpa_chain_bf16(q, k, v):
     """K15, bf16 form: q, k, v (B, H, L, Dh) contiguous -> (B, H, L, Dh)."""
     if q.device.type == "cpu":
         return sdpa_chain_bf16_plain(q, k, v)
-    out = _launch("duodiff_sdpa_chain_bf16", "duodiff_attn_core_smem_bytes",
-                  "attention core", q, k, v)
+    out = _launch("duodiff_sdpa_chain_bf16", None, "attention core", q, k, v)
     sdpa_chain_bf16.launches += 1
     return out
 

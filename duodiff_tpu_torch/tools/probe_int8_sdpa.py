@@ -24,15 +24,18 @@ against the bf16 one on one call. It runs on the card unless ``--device
 cpu``, where both wrappers take their plain versions and the times say
 nothing about the card. A kernel that fails to launch raises.
 
-RESULT (NVIDIA H100 80GB HBM3, 700.00 W; three runs of this tool):
-NEGATIVE on this card too. The int8 chain takes 1.83 ms a call against
-1.34-1.36 for bf16 (0.73-0.74x), at 2.56e-2 relative L2 from the bf16
-output. Both cores keep fp32 score rows in shared memory, run the same
-two-pass softmax and fit one block an SM; there the tensor-core
-products are a small part of a block's time, so halving them buys less
-than quantizing q, k, v and e costs. A first form that quantized k and v
-straight from device memory took 2.16-2.17 ms (0.62-0.63x). The W8A8
-attention sublayer therefore keeps its core in bf16.
+RESULT (NVIDIA H100 80GB HBM3, 700.00 W; runs of this tool):
+NEGATIVE on this card too. With both cores in their first design (fp32
+score rows in shared memory, the same two-pass softmax, one block an SM)
+the int8 chain took 1.83 ms a call against 1.34-1.36 for bf16 (0.73-0.74x),
+at 2.56e-2 relative L2 from the bf16 output: the tensor-core products are a
+small part of such a block's time, so halving them buys less than
+quantizing q, k, v and e costs. A first int8 form that quantized k and v
+straight from device memory took 2.16-2.17 ms (0.62-0.63x). Since the bf16
+core keeps its scores in registers (csrc/attn_core.cuh) its chain takes
+0.27-0.34 ms a call, and the int8 core, still in its first design at
+1.84-1.85 ms, stands at 0.15-0.18x. The W8A8 attention sublayer therefore
+keeps its core in bf16.
 """
 
 from __future__ import annotations

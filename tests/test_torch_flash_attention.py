@@ -2,7 +2,9 @@
 ops.attention) against the JAX package's Pallas kernels K9 and K10, run in
 interpret mode on the CPU, on the same inputs made from a seed with numpy:
 (B, H, L, Dh) = (2, 2, L, 64) with L = 18 (16 patches + 2 tokens) and the
-ragged L = 66.
+ragged L = 66; and (1, 2, L, 64) at the lengths where the CUDA cores' 16-row
+query tiles, 16-key steps and 272-key limit break (1, 63, 64, 65, 129, 257,
+272), with the wrappers' refusal of L = 273.
 
 On the CPU the wrappers take their plain PyTorch versions, which repeat
 the kernels' arithmetic with the same rounding points. Tolerances are the
@@ -34,9 +36,14 @@ BWD_TOL = {"fp32": 1e-5, "bf16": 2e-2}
 LENGTHS = [18, 66]
 
 
-def _inputs(l, n=4, seed=0):
+# fp32 at every length a tile or the limit breaks at, bf16 at two of them
+RAGGED_CASES = ([("fp32", l) for l in (1, 63, 64, 65, 129, 257, 272)]
+                + [("bf16", l) for l in (65, 257)])
+
+
+def _inputs(l, n=4, seed=0, batch=2):
     rng = np.random.default_rng(seed + l)
-    return [rng.standard_normal((2, 2, l, 64)).astype(np.float32) for _ in range(n)]
+    return [rng.standard_normal((batch, 2, l, 64)).astype(np.float32) for _ in range(n)]
 
 
 def _torch(arrays, dtype):
@@ -84,6 +91,28 @@ def test_plain_backward_matches_pallas_interpret(dtype, l):
     want = jax_fa._flash_attention_bwd_impl(*_jax(arrays, jdt), interpret=True)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == tdt
+        np.testing.assert_allclose(_np(g), _np(w), rtol=BWD_TOL[dtype], atol=BWD_TOL[dtype],
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,l", RAGGED_CASES)
+def test_plain_forward_matches_pallas_interpret_at_ragged_lengths(dtype, l):
+    tdt, jdt = DTYPES[dtype]
+    arrays = _inputs(l, 3, seed=7, batch=1)
+    got = fa.flash_attention_plain(*_torch(arrays, tdt))
+    want = jax_fa.flash_attention(*_jax(arrays, jdt), interpret=True)
+    assert got.dtype == tdt and got.shape == (1, 2, l, 64)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=FWD_TOL[dtype], atol=FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,l", RAGGED_CASES)
+def test_plain_backward_matches_pallas_interpret_at_ragged_lengths(dtype, l):
+    tdt, jdt = DTYPES[dtype]
+    arrays = _inputs(l, 4, seed=8, batch=1)
+    got = fa.flash_attention_bwd_plain(*_torch(arrays, tdt))
+    want = jax_fa._flash_attention_bwd_impl(*_jax(arrays, jdt), interpret=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt and g.shape == (1, 2, l, 64)
         np.testing.assert_allclose(_np(g), _np(w), rtol=BWD_TOL[dtype], atol=BWD_TOL[dtype],
                                    err_msg=name)
 
@@ -152,3 +181,53 @@ def test_kernel_operand_checks(what):
     }[what]
     with pytest.raises(bad[1], match=bad[2]):
         fa._dims(bad[0], {"q": bad[0]})
+
+
+class _Limits:
+    """Stands in for the loaded kernel library: it knows the cores' longest
+    sequence and has no kernel entry, so a call that got past the length
+    check would fail with AttributeError, not ValueError."""
+
+    @staticmethod
+    def duodiff_attn_core_max_len():
+        return 272
+
+    @staticmethod
+    def duodiff_attn_bwd_core_max_len():
+        return 272
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10", "K1", "K6"])
+def test_wrappers_refuse_a_sequence_the_cores_cannot_hold(kernel, monkeypatch):
+    """The cores keep 16 whole score rows in a warp's registers, which bounds
+    L at 272: each CUDA wrapper refuses L = 273 before it allocates or
+    launches anything. The device checks are taken out so that CPU tensors
+    reach the length check."""
+    from duodiff_tpu_torch.ops import _build, block
+
+    monkeypatch.setattr(_build, "load_library", lambda: _Limits)
+    monkeypatch.setattr(block, "_check", lambda *a: None)
+    monkeypatch.setattr(fa, "_check", lambda *a: None)
+    bf = torch.bfloat16
+    q = torch.zeros(1, 1, 273, 64, dtype=bf)
+    x = torch.zeros(1, 273, 64, dtype=bf)
+    vec, wqkv, wp = torch.zeros(64), torch.zeros(64, 192, dtype=bf), torch.zeros(64, 64, dtype=bf)
+    call = {
+        "K9": lambda: fa._flash_attention_cuda(q, q, q),
+        "K10": lambda: fa._flash_attention_bwd_cuda(q, q, q, q),
+        "K1": lambda: block._attn_sublayer_cuda(x, vec, vec, wqkv, None, wp, vec, num_heads=1,
+                                                eps=1e-5, variant="v2"),
+        "K6": lambda: block._attn_sublayer_bwd_cuda(x, x, vec, vec, wqkv, None, wp, num_heads=1,
+                                                    eps=1e-5),
+    }[kernel]
+    with pytest.raises(ValueError, match="sequence length 273 does not fit the attention"):
+        call()
+
+
+def test_length_check_takes_the_limit_itself():
+    from duodiff_tpu_torch.ops.block import _check_seq_len
+
+    _check_seq_len(_Limits, 272)
+    _check_seq_len(_Limits, 272, backward=True)
+    with pytest.raises(ValueError, match="backward core"):
+        _check_seq_len(_Limits, 273, backward=True)
