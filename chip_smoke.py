@@ -69,8 +69,16 @@ Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
 launch counts and the per-kernel record then cover the phases run.
 
-Phase 2 also holds the backward kernels K6 (with and without a qkv bias)
-and K7 (exact and tanh GELU) against their plain versions, the attention
+Phase 2 starts with the bf16 GEMM that carries every projection of K1, K2,
+K5, K1-v1 and K6's qkv recompute (``csrc/gemm.cuh``), alone through
+``ops/gemm.py``: what ptxas and the occupancy call say of it, each of the
+eight main-path projections (qkv, proj, fc1, fc2 at D = 512 and 768) at
+batch 8 and the ragged row counts 1, 127, 129, 2056 in every epilogue form
+against its plain version, the refusal of a misaligned operand, and at batch
+128 its time beside ``torch.matmul`` on the same operands (TFLOP/s, share of
+the peak, host time a call). It also holds the backward kernels K6 (with and
+without a qkv bias) and K7 (exact and tanh GELU) against their plain
+versions, the attention
 kernels K9 and K10 at three (B, H, L) with
 ``F.scaled_dot_product_attention`` timed beside them as a yardstick, and
 K1, K2, K6, K7, K11 and K12 at the ImageNet-64 width, and at both widths
@@ -796,6 +804,204 @@ def check_attention_kernels(device, results: dict) -> None:
             results["flash_attention"]["library_burst_ms"] = burst["fwd"]
             results["flash_attention_bwd"]["burst_ms"] = burst["K10"]
             results["flash_attention_bwd"]["library_burst_ms"] = burst["fwd_bwd"] - burst["fwd"]
+
+
+# The bf16 GEMM of the block kernels (csrc/gemm.cuh) alone, at the main
+# path's projections: (name, width, N, K, epilogue) with M = batch * L.
+# Epilogues as the sublayers use them: qkv bias only; proj and fc2 the bf16
+# residual and the bias; fc1 the bias and exact GELU.
+GEMM_SHAPES = tuple(
+    (f"{name} D={w.d}", w, n, k, epi)
+    for w in (CELEBA, IMAGENET)
+    for name, n, k, epi in (("qkv", 3 * w.d, w.d, "bias"), ("proj", w.d, w.d, "residual"),
+                            ("fc1", 4 * w.d, w.d, "gelu"), ("fc2", w.d, 4 * w.d, "residual"))
+)
+# M where a 128-row tile breaks, with N = 136 (a ragged 128-column tile), 264
+# (three column tiles, the last with 8 columns) and 512, at K = 72 (a ragged
+# 64-deep slab), in every (residual, output) form the kernel has, GELU modes
+# in turn
+GEMM_RAGGED_M = (1, 127, 129, 2056)
+GEMM_RAGGED_N = (136, 264, 512)
+GEMM_RAGGED_FORMS = ((None, torch.bfloat16, "none"), (torch.bfloat16, torch.bfloat16, "erf"),
+                     (torch.float32, torch.bfloat16, "tanh"),
+                     (torch.bfloat16, torch.float32, "none"),
+                     (torch.float32, torch.float32, "erf"), (None, torch.float32, "tanh"))
+# |kernel - plain| <= GEMM_REL * |plain| + GEMM_ABS_FRAC * max|plain| entry by
+# entry: both sum the same bf16 products in fp32, in another order (~1e-6 of
+# the sum), and apply the same fp32 epilogue, so they differ by at most one
+# flipped rounding of the output (2**-7 of the value in bf16) plus the
+# order of the sums, which the small absolute term covers where GELU brings
+# a value near zero. A wrong tile or slab is off by the value's whole size.
+GEMM_REL = 2.0**-7
+GEMM_ABS_FRAC = 2.0**-10
+GEMM_UNITS = ("gemm_bf16", "attn_sublayer", "attn_sublayer_v1", "mlp_sublayer", "fused_block",
+              "attn_sublayer_bwd")
+
+
+def gemm_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, bool]:
+    """(max abs error, largest error over its bound, within GEMM_REL and
+    GEMM_ABS_FRAC everywhere)."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf"), float("inf"), False
+    diff = (got - want).abs()
+    limit = GEMM_REL * want.abs() + GEMM_ABS_FRAC * want.abs().max().clamp_min(1e-30)
+    worst = (diff / limit).max().item()
+    return diff.max().item(), worst, worst <= 1.0
+
+
+def gemm_operands(m: int, n: int, k: int, device, residual_dtype, seed: int):
+    """bf16 a (M, K) ~ N(0, 1), b (K, N) ~ N(0, 1/K), fp32 bias ~ N(0, 0.1^2)
+    and a residual ~ N(0, 1) of the given type (or None), on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=g, device=device) * k ** -0.5).to(torch.bfloat16)
+    bias = torch.randn((n,), generator=g, device=device) * 0.1
+    residual = None
+    if residual_dtype is not None:
+        residual = torch.randn((m, n), generator=g, device=device).to(residual_dtype)
+    return a, b, bias, residual
+
+
+def report_gemm() -> None:
+    """Phase 2: what ptxas says of every form of the bf16 GEMM kernel in
+    every unit that compiles it (registers a thread, spills, stack; any
+    warning, such as a serialised wgmma), and what the runtime says of a
+    block (warps, stages, dynamic shared memory, resident blocks an SM)."""
+    from duodiff_tpu_torch.ops._build import kernel_resources, load_library, ptxas_warnings
+
+    for unit in GEMM_UNITS:
+        for rec in kernel_resources(unit):
+            if "gemm_bf16_kernel" not in rec["entry"]:
+                continue
+            # ..._kernelI<residual type><output type>EEv...: bf16 is
+            # 13__nv_bfloat16 or, repeated, a substitution S<n>_; fp32 is f
+            form = re.search(r"gemm_bf16_kernelI(.*?)EEv", rec["entry"])
+            types = ", ".join("fp32" if t == "f" else "bf16"
+                              for t in re.findall(r"13__nv_bfloat16|S\d*_|f",
+                                                  form.group(1) if form else ""))
+            print(f"phase 2: gemm_bf16_kernel <{types}> ({unit}.cu): "
+                  f"{rec['registers']} registers a thread, spill stores {rec['spill_stores']} B, "
+                  f"spill loads {rec['spill_loads']} B, stack {rec['stack']} B", flush=True)
+        for line in ptxas_warnings(unit):
+            if "gemm" in line or "wgmma" in line:
+                print(f"phase 2: ptxas on {unit}.cu: {line}", flush=True)
+    lib = load_library()
+    print(f"phase 2: gemm_bf16: {lib.duodiff_gemm_bf16_threads() // 32} warps a block (a "
+          f"producer, two MMA and two epilogue warpgroups), {lib.duodiff_gemm_bf16_stages()} "
+          f"stages, {lib.duodiff_gemm_bf16_smem_bytes()} B of dynamic shared memory, "
+          f"{lib.duodiff_gemm_bf16_blocks_per_sm()} blocks an SM", flush=True)
+
+
+def check_gemm(device) -> None:
+    """Phase 2, the bf16 GEMM alone (ops/gemm.py, the measurement entry of
+    csrc/gemm.cuh): against its plain version (gemm_errors) at the eight
+    GEMM_SHAPES at batch 8, and at GEMM_RAGGED_M x GEMM_RAGGED_N in every
+    form; the entry must refuse a misaligned operand and N % 8 != 0. Then
+    at batch 128: kernel, plain version and torch.matmul on the same bf16
+    operands (the library yardstick, no epilogue; the port never calls it),
+    each call waited for (time_ms) and 20 back to back (burst_ms); TFLOP/s
+    and the share of the 989 TFLOP/s peak from the back-to-back time; the
+    host time of one call through the wrapper and through the C entry alone
+    (tensor maps included); the batch-128 numbers also as one JSON line."""
+    from duodiff_tpu_torch.ops import gemm
+    from duodiff_tpu_torch.ops._build import load_library
+
+    def run(a, b, bias, res, epi_gelu, out_dtype=torch.bfloat16):
+        return gemm.gemm_bf16(a, b, bias, res, gelu=epi_gelu, out_dtype=out_dtype)
+
+    def path_epilogue(epi):
+        return (torch.bfloat16 if epi == "residual" else None), ("erf" if epi == "gelu" else "none")
+
+    for i, (name, width, n, k, epi) in enumerate(GEMM_SHAPES):
+        res_dtype, act = path_epilogue(epi)
+        m = CHECK_BATCH * width.l
+        a, b, bias, res = gemm_operands(m, n, k, device, res_dtype, seed=i)
+        want = gemm.gemm_bf16_plain(a, b, bias, res, gelu=act)
+        max_abs, worst, ok = gemm_errors(run(a, b, bias, res, act), want)
+        print(f"phase 2: gemm_bf16 {name} M={m} N={n} K={k} {epi}: max_abs_err={max_abs:.6g}, "
+              f"worst error over bound {worst:.4g} (bound {GEMM_REL}*|plain| + "
+              f"{GEMM_ABS_FRAC}*max|plain|) ok={ok}", flush=True)
+        if not ok:
+            fail(f"gemm_bf16 {name} M={m} disagrees with its plain version")
+    for m in GEMM_RAGGED_M:
+        for n in GEMM_RAGGED_N:
+            for j, (res_dtype, out_dtype, act) in enumerate(GEMM_RAGGED_FORMS):
+                a, b, bias, res = gemm_operands(m, n, 72, device, res_dtype, seed=100 * m + j)
+                got = run(a, b, bias if j % 2 == 0 else None, res, act, out_dtype)
+                want = gemm.gemm_bf16_plain(a, b, bias if j % 2 == 0 else None, res, gelu=act,
+                                            out_dtype=out_dtype)
+                max_abs, worst, ok = gemm_errors(got, want)
+                if not ok or got.dtype != out_dtype:
+                    fail(f"gemm_bf16 ragged M={m} N={n} K=72 residual={res_dtype} out={out_dtype} "
+                         f"gelu={act}: max_abs_err={max_abs:.6g}, worst over bound {worst:.4g}")
+    torch.cuda.synchronize()
+    print(f"phase 2: gemm_bf16 ragged: M in {GEMM_RAGGED_M} x N in {GEMM_RAGGED_N} x K=72 x "
+          f"{len(GEMM_RAGGED_FORMS)} (residual, output, GELU) forms, bias every other: ok=True",
+          flush=True)
+    lib = load_library()
+    a, b, bias, res = gemm_operands(64, 64, 64, device, torch.bfloat16, seed=7)
+    c = torch.empty((64, 64), dtype=torch.bfloat16, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    refused = {
+        "A 2 bytes off": lib.duodiff_gemm_bf16(a.data_ptr() + 2, b.data_ptr(), c.data_ptr(), None,
+                                               None, 63, 64, 64, 0, 0, 0, stream),
+        "N = 60": lib.duodiff_gemm_bf16(a.data_ptr(), b.data_ptr(), c.data_ptr(), None, None, 64,
+                                        60, 64, 0, 0, 0, stream),
+    }
+    print("phase 2: gemm_bf16 refuses " + "; ".join(
+        f"{what}: error {err} ({lib.duodiff_error_string(err).decode()})"
+        for what, err in refused.items()), flush=True)
+    if not all(refused.values()):
+        fail("the GEMM entry launched on an operand it cannot take")
+
+    timed = {}
+    for i, (name, width, n, k, epi) in enumerate(GEMM_SHAPES):
+        res_dtype, act = path_epilogue(epi)
+        m = MAIN_BATCH * width.l
+        a, b, bias, res = gemm_operands(m, n, k, device, res_dtype, seed=i)
+        max_abs, worst, ok = gemm_errors(run(a, b, bias, res, act),
+                                         gemm.gemm_bf16_plain(a, b, bias, res, gelu=act))
+        if not ok:
+            fail(f"gemm_bf16 {name} M={m} disagrees with its plain version")
+        fns = {"kernel": lambda: run(a, b, bias, res, act),
+               "plain": lambda: gemm.gemm_bf16_plain(a, b, bias, res, gelu=act),
+               "library": lambda: torch.matmul(a, b)}
+        ms = time_ms(fns)
+        burst = {key: burst_ms(fns[key]) for key in ("kernel", "library")}
+        flops = 2.0 * m * n * k
+        tflops = flops / (burst["kernel"] * 1e-3) / 1e12
+        c = torch.empty((m, n), dtype=torch.bfloat16, device=device)
+        args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), bias.data_ptr(),
+                None if res is None else res.data_ptr(), m, n, k, gemm.GELU_MODES[act], 0, 0,
+                stream)
+        host = {}
+        for key, fn in (("wrapper", lambda: run(a, b, bias, res, act)),
+                        ("entry", lambda: lib.duodiff_gemm_bf16(*args))):
+            fn()
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(20):
+                fn()
+            host[key] = (time.perf_counter() - tic) / 20 * 1e3
+            torch.cuda.synchronize()
+        timed[name] = {"M": m, "N": n, "K": k, "ms": ms["kernel"], "burst_ms": burst["kernel"],
+                       "tflops": tflops, "peak_share": tflops / (PEAK_BF16_FLOPS / 1e12),
+                       "plain_ms": ms["plain"],
+                       "library_ms": ms["library"], "library_burst_ms": burst["library"],
+                       "bound_ms": bound(flops, 0, 2 * (m * k + k * n + m * n) + 4 * n
+                                         + (0 if res is None else 2 * m * n))["bound_ms"],
+                       "host_ms_wrapper": host["wrapper"], "host_ms_entry": host["entry"],
+                       "max_abs_err": max_abs}
+        print(f"phase 2: gemm_bf16 {name} M={m} N={n} K={k} {epi}: kernel {ms['kernel']:.6g} ms "
+              f"(back to back {burst['kernel']:.6g}: {tflops:.1f} TFLOP/s, "
+              f"{100 * tflops / (PEAK_BF16_FLOPS / 1e12):.1f} % of 989), plain "
+              f"{ms['plain']:.6g} ms; library yardstick torch.matmul "
+              f"{ms['library']:.6g} ms (back to back {burst['library']:.6g}: "
+              f"{flops / (burst['library'] * 1e-3) / 1e12:.1f} TFLOP/s); host time a call "
+              f"{host['wrapper']:.4g} ms through the wrapper, {host['entry']:.4g} ms through "
+              f"the C entry (tensor maps included)", flush=True)
+    print(json.dumps({"gemm_bf16": timed}), flush=True)
 
 
 # lengths at which a 16-row query tile, a 16-key step and the 272-key limit
@@ -2226,6 +2432,8 @@ def main(argv=None) -> int:
     results = new_results(kernels)
     launches = {}
     if "2" in run:
+        report_gemm()
+        check_gemm(device)
         check_kernels(device, results)
         check_int8_kernels(device, results)
         check_bwd_kernels(device, results)

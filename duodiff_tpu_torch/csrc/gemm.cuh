@@ -1,163 +1,493 @@
-// Tiled bf16 GEMM with an fp32 epilogue, the four projections of a block:
-// qkv and proj (K1), fc1 and fc2 (K2).
+// bf16 GEMM with an fp32 epilogue for Hopper, the projections of a block:
+// qkv and proj (K1, K1-v1, K6's qkv recompute), fc1 and fc2 (K2), and all
+// four in the whole-block kernel K5.
 //
-//   C[M, N] = cast_bf16( gelu?( acc + residual? + bias? ) ),
-//   acc = A[M, K] @ B[K, N] in fp32 from bf16 operands.
+//   C[M, N] = cast( gelu?( acc + residual? + bias? ) ),
+//   acc = A[M, K] @ B[K, N] in fp32 from bf16 operands,
 //
-// The kernel is a template over the row types of the residual and of C
-// (bf16 or fp32): the whole-block kernel K5 writes its intermediate residual
-// stream u as fp32 from the proj epilogue and adds it as fp32 in the fc2
-// epilogue; every other caller takes bf16 for both (launch_gemm).
+// A row-major (activations), B row-major (K, N) (the packed weights). The
+// kernel is a template over the row types of the residual and of C (bf16 or
+// fp32): K5 writes its intermediate residual stream u as fp32 from the proj
+// epilogue and adds it as fp32 in the fc2 epilogue; every other caller takes
+// bf16 for both (launch_gemm).
 //
 // Replaces: the jnp.dot(..., preferred_element_type=f32) projections inside
 // duodiff_tpu/ops/pallas_block.py _kernel_v2 (qkv, :132-135; proj with the
 // fp32 residual and bias, :161-164) and _mlp_kernel (fc1 + bias + GELU,
 // :405-408; fc2 with the fp32 residual and bias, :409-412). The epilogue
 // keeps their order: residual first, then bias, then GELU, all in fp32,
-// one rounding to bf16 at the end. GELU is exact (erff) or tanh.
+// one rounding at the end. GELU is exact (erff) or tanh.
 //
-// Bound: at the sampling shapes (M = B*257, K in {512, 2048}) these are the
-// only tensor-core work of any size, ~92% of a block's flops, so the bound
-// is tensor-core throughput; the 128x128 tile reads 2*(128+128)*32 bytes
-// per 2*128*128*32 flops (64 flop/byte, below the card's balance point,
-// so operand staging through shared memory must be overlapped with math).
-// Design (simple first, wgmma/TMA later): 128x128x32 block tile, 8 warps
-// each owning a 64x32 tile of 4x2 WMMA 16x16x16 fragments with fp32
-// accumulators, a two-stage cp.async pipeline (the next K slab loads while
-// the current one multiplies), rows padded by 8 bf16 against bank
-// conflicts. Ragged edges (M = B*257 is no multiple of 128) are zero-filled
-// by cp.async's src-size operand and masked at the store; M, N, K need
-// only N % 8 == 0 and K % 8 == 0 (16-byte chunks).
+// Bound: at the sampling shapes (M = B*257 or B*258, K in {512, 768, 2048,
+// 3072}) these are the only tensor-core work of any size, ~92% of a
+// block's flops, so the bound is tensor-core throughput, which only wgmma
+// reaches; a 128x128 tile takes 2*(128+128)*64 bytes from L2 per
+// 2*128*128*64 flops, and the weights (at most 4.7 MB) stay in L2.
+// Design: one persistent block an SM walks the 128 x 128 output tiles, row
+// of tiles by row of tiles, so the blocks running together share the A rows
+// in L2. Five warpgroups, each with one job:
+// - the producer (one thread issues) keeps a ring of four 64-deep K slabs in
+//   flight by TMA with a 128-byte swizzle: A as one 128 x 64 box, B as two
+//   64 x 64 boxes (its rows are N-major: wgmma reads it through the
+//   transpose bit, so no weight is repacked); each stage has a "full"
+//   mbarrier (TMA bytes) and an "empty" one (the eight MMA warps);
+// - two MMA warpgroups each own 64 rows of the tile and issue wgmma
+//   m64n128k16 from shared memory into fp32 registers, keeping one slab's
+//   products in flight while the previous slab is released; at the end of a
+//   tile they write the fp32 sums to a shared-memory staging tile and go on
+//   to the next tile at once;
+// - two epilogue warpgroups read the staged tile row by row (8 consecutive
+//   values a lane: the residual read and C written as whole rows, 16 bytes
+//   a lane), add the residual and the bias, apply GELU and round, while the
+//   MMA warpgroups already multiply the next tile; they load the residual
+//   rows of a tile before it is staged. A pair of mbarriers hands the
+//   staging tile back and forth.
+// Run in the MMA warpgroups, the epilogue (erff GELU at fc1, the residual
+// read at proj and fc2) left the tensor cores idle for longer than the
+// tile's products took. TMA zero-fills the rows past M and the K tail; stores are
+// masked at M and N. N % 8 == 0, K % 8 == 0 and 16-byte aligned operands
+// are required (the TMA strides and the row vectors), else the launch
+// returns cudaErrorInvalidValue / cudaErrorMisalignedAddress and nothing
+// runs. A wait on an mbarrier that does not complete within 10 s traps, so
+// a fault in the ring ends the kernel with an error instead of hanging it.
+// (gemm_t.cuh and gemm_int8.cuh keep the first, WMMA-based design.)
 #pragma once
 
-#include <mma.h>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 
 #include "common.cuh"
 
 namespace duodiff {
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kGemmBM = 128;
+constexpr int kGemmBM = 128;        // two MMA warpgroups of 64 rows
 constexpr int kGemmBN = 128;
-constexpr int kGemmBK = 32;
-constexpr int kGemmThreads = 256;
-constexpr int kAPitch = kGemmBK + 8;  // bf16 elements per A tile row
-constexpr int kBPitch = kGemmBN + 8;  // bf16 elements per B tile row
+constexpr int kGemmBK = 64;         // one 128-byte swizzle row of bf16
+constexpr int kGemmStages = 4;
+constexpr int kGemmThreads = 640;   // producer, two MMA and two epilogue warpgroups
+constexpr int kGemmMmaThreads = 256;
+constexpr int kGemmEpiThreads = 256;
+constexpr int kGemmEpiRows = kGemmBM * (kGemmBN / 8) / kGemmEpiThreads;  // 8 rows a lane
+constexpr int kGemmBoxBytes = 64 * 64 * 2;   // one 64 x 64 bf16 TMA box
+constexpr int kGemmABytes = kGemmBM * kGemmBK * 2;   // 16 KB
+constexpr int kGemmStageBytes = kGemmABytes + kGemmBK * kGemmBN * 2;  // 32 KB
+// fp32 words a staged row: 128 + 8 keeps both the fragment writes and the
+// row reads free of bank conflicts
+constexpr int kGemmStagePitch = kGemmBN + 8;
+constexpr int kGemmStagingOffset = kGemmStages * kGemmStageBytes;
+constexpr int kGemmBarOffset = kGemmStagingOffset + kGemmBM * kGemmStagePitch * 4;
+// the ring starts on a 1024-byte boundary (the swizzle atom); 2 barriers a
+// stage and the staging tile's pair
+constexpr int kGemmSmemBytes = 1024 + kGemmBarOffset + (2 * kGemmStages + 2) * 8;
+constexpr unsigned long long kGemmHangNs = 10000000000ull;
 
-template <typename ResT, typename OutT>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, OutT* __restrict__ C,
-                 const float* __restrict__ bias, const ResT* __restrict__ residual,
-                 int M, int N, int K, int gelu_mode) {
-  __shared__ __align__(128) bf16 As[2][kGemmBM * kAPitch];
-  __shared__ __align__(128) bf16 Bs[2][kGemmBK * kBPitch];
-  __shared__ __align__(128) float Cs[kGemmThreads / 32][16 * 16];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2;  // 2 warp rows of 64
-  const int wn = warp & 3;   // 4 warp columns of 32
-  const int m0 = blockIdx.y * kGemmBM;
-  const int n0 = blockIdx.x * kGemmBN;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
 
-  auto load_tile = [&](int stage, int k0) {
-    for (int c = tid; c < kGemmBM * kGemmBK / kVec; c += kGemmThreads) {
-      const int r = c / (kGemmBK / kVec), col = (c % (kGemmBK / kVec)) * kVec;
-      const bool ok = m0 + r < M && k0 + col < K;
-      const bf16* src = ok ? A + static_cast<size_t>(m0 + r) * K + k0 + col : A;
-      cp_async16(&As[stage][r * kAPitch + col], src, ok);
-    }
-    for (int c = tid; c < kGemmBK * kGemmBN / kVec; c += kGemmThreads) {
-      const int r = c / (kGemmBN / kVec), col = (c % (kGemmBN / kVec)) * kVec;
-      const bool ok = k0 + r < K && n0 + col < N;
-      const bf16* src = ok ? B + static_cast<size_t>(k0 + r) * N + n0 + col : B;
-      cp_async16(&Bs[stage][r * kBPitch + col], src, ok);
-    }
-  };
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
 
-  const int num_k = (K + kGemmBK - 1) / kGemmBK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < num_k; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < num_k) {
-      load_tile(st ^ 1, (kt + 1) * kGemmBK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], &As[st][(wm * 64 + i * 16) * kAPitch + kk], kAPitch);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[st][kk * kBPitch + wn * 32 + j * 16], kBPitch);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // the next iteration overwrites the other stage
-  }
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
 
-  // Epilogue, one 16x16 fragment at a time through a per-warp fp32 tile:
-  // each lane owns 8 consecutive columns of one row (one 16-byte store).
-  float* cs = Cs[warp];
-  const int r = lane >> 1, c0 = (lane & 1) * kVec;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 64 + i * 16 + r;
-      const int gc = n0 + wn * 32 + j * 16 + c0;
-      if (gr < M && gc < N) {  // N % 8 == 0: the 8 columns are all in or all out
-        float v[kVec];
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) v[e] = cs[r * 16 + c0 + e];
-        const size_t off = static_cast<size_t>(gr) * N + gc;
-        if (residual != nullptr) {
-          float res[kVec];
-          load_row8(residual + off, res);
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) v[e] += res[e];
-        }
-        if (bias != nullptr) {
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) v[e] += bias[gc + e];
-        }
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) v[e] = gelu(v[e], gelu_mode);
-        store_row8(C + off, v);
-      }
-      __syncwarp();
+// Wait for the phase of the given parity to complete; trap after kGemmHangNs.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    const uint64_t now = global_ns();
+    if (start == 0) {
+      start = now;
+    } else if (now - start > kGemmHangNs) {
+      __trap();
     }
   }
 }
+
+// One 2-D TMA box (inner coordinate c0, outer c1) into shared memory,
+// completing on the barrier's transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets (all in 16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+#define DUODIFF_ACC8(i)                                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),            \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define DUODIFF_ACC32(i) DUODIFF_ACC8(i), DUODIFF_ACC8(i + 8), DUODIFF_ACC8(i + 16), \
+                         DUODIFF_ACC8(i + 24)
+
+// d (+)= A B for a 64 x 128 x 16 step of one warpgroup: A K-major, B
+// N-major (transpose bit set), both in shared memory; scale_d 0 starts the
+// sum.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : DUODIFF_ACC32(0), DUODIFF_ACC32(32)
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef DUODIFF_ACC32
+#undef DUODIFF_ACC8
+
+// Keep the compiler from moving accumulator reads across the wgmma wait.
+__device__ __forceinline__ void fence_accumulators(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// 8 consecutive values of a residual row as they lie in memory: the
+// epilogue issues these loads before it waits for the staged tile, so their
+// latency hides behind the tile's products.
+template <typename T>
+struct Raw8;
+
+template <>
+struct Raw8<bf16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const bf16* p) { v = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void add_to(float x[kVec]) const {
+    float r[kVec];
+    unpack8(v, r);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) x[e] += r[e];
+  }
+};
+
+template <>
+struct Raw8<float> {
+  float4 lo, hi;
+  __device__ __forceinline__ void load(const float* p) {
+    lo = reinterpret_cast<const float4*>(p)[0];
+    hi = reinterpret_cast<const float4*>(p)[1];
+  }
+  __device__ __forceinline__ void add_to(float x[kVec]) const {
+    x[0] += lo.x; x[1] += lo.y; x[2] += lo.z; x[3] += lo.w;
+    x[4] += hi.x; x[5] += hi.y; x[6] += hi.z; x[7] += hi.w;
+  }
+};
+
+// The epilogue warpgroups' part of one tile: lane t of the 256 takes the 8
+// columns 8 (t % 16) .. + 7 of rows t / 16 + 16 r, r = 0 .. 7, of the
+// staged fp32 sums, adds the residual and the bias, applies GELU and stores
+// once; rows past M and columns past N are not stored. The residual rows
+// (all 8 in bf16, the first 4 in fp32, for the registers) are loaded before
+// the wait on `staged`.
+template <typename ResT, typename OutT>
+__device__ __forceinline__ void gemm_epilogue(const float* staging, uint64_t* staged,
+                                              uint32_t parity, int et, OutT* __restrict__ C,
+                                              const float* __restrict__ bias,
+                                              const ResT* __restrict__ residual, int m0, int n0,
+                                              int M, int N, int gelu_mode) {
+  constexpr int kPre = sizeof(ResT) == 2 ? kGemmEpiRows : kGemmEpiRows / 2;
+  const int seg = et & 15, row0 = et >> 4;
+  const int gn = n0 + 8 * seg;
+  const bool cols_in = gn < N;  // N % 8 == 0: the 8 columns are all in or all out
+  Raw8<ResT> pre[kPre];
+  float b[kVec] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (cols_in) {
+    if (residual != nullptr) {
+#pragma unroll
+      for (int r = 0; r < kPre; ++r) {
+        const int gm = m0 + row0 + 16 * r;
+        if (gm < M) pre[r].load(residual + static_cast<size_t>(gm) * N + gn);
+      }
+    }
+    if (bias != nullptr) load_row8(bias + gn, b);
+  }
+  mbar_wait(staged, parity);
+  if (!cols_in) return;
+  // lanes 4-7 of each quarter warp read their two halves the other way
+  // round, so the eight 16-byte reads of a quarter hit distinct banks
+  const int h = seg & 4;
+#pragma unroll
+  for (int r = 0; r < kGemmEpiRows; ++r) {
+    const int row = row0 + 16 * r;
+    const int gm = m0 + row;
+    if (gm >= M) break;
+    const float* src = staging + row * kGemmStagePitch + 8 * seg;
+    const float4 first = *reinterpret_cast<const float4*>(src + h);
+    const float4 second = *reinterpret_cast<const float4*>(src + 4 - h);
+    const float4 lo = h ? second : first, hi = h ? first : second;
+    float v[kVec] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const size_t off = static_cast<size_t>(gm) * N + gn;
+    if (residual != nullptr) {
+      if (r < kPre) {
+        pre[r].add_to(v);
+      } else {
+        float res[kVec];
+        load_row8(residual + off, res);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[e] += res[e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[e] = gelu(v[e] + b[e], gelu_mode);
+    store_row8(C + off, v);
+  }
+}
+
+template <typename ResT, typename OutT>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
+                 const __grid_constant__ CUtensorMap tma_b, OutT* __restrict__ C,
+                 const float* __restrict__ bias,
+                 const ResT* __restrict__ residual, int M, int N, int K, int gelu_mode) {
+  extern __shared__ unsigned char gemm_smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(gemm_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* staging = reinterpret_cast<float*>(smem + kGemmStagingOffset);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGemmBarOffset);
+  uint64_t* empty = full + kGemmStages;
+  uint64_t* staged = empty + kGemmStages;  // the MMA warpgroups wrote a tile
+  uint64_t* drained = staged + 1;          // the epilogue warpgroups read it
+
+  const int n_tiles = (N + kGemmBN - 1) / kGemmBN;
+  const int num_tiles = ((M + kGemmBM - 1) / kGemmBM) * n_tiles;
+  const int num_k = (K + kGemmBK - 1) / kGemmBK;
+  // the warpgroup's role, read from lane 0 so that the compiler sees it
+  // uniform across the warp: a branch it took for divergent would make ptxas
+  // serialise the wgmma products
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kGemmMmaThreads / 32);
+    }
+    mbar_init(staged, kGemmMmaThreads);
+    mbar_init(drained, kGemmEpiThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every TMA load of the block's tiles
+    if (threadIdx.x != 0) return;
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tma_a))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tma_b))
+                 : "memory");
+    int it = 0;
+    for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * kGemmBM, n0 = tile % n_tiles * kGemmBN;
+      for (int kb = 0; kb < num_k; ++kb, ++it) {
+        const int s = it % kGemmStages;
+        mbar_wait(&empty[s], ((it / kGemmStages) & 1) ^ 1);
+        unsigned char* a = smem + s * kGemmStageBytes;
+        mbar_arrive_expect_tx(&full[s], kGemmStageBytes);
+        tma_load_2d(a, &tma_a, &full[s], kb * kGemmBK, m0);
+        tma_load_2d(a + kGemmABytes, &tma_b, &full[s], n0, kb * kGemmBK);
+        tma_load_2d(a + kGemmABytes + kGemmBoxBytes, &tma_b, &full[s], n0 + 64, kb * kGemmBK);
+      }
+    }
+  } else if (wg >= 3) {
+    // epilogue: each staged tile to C
+    const int et = threadIdx.x - 3 * 128;
+    int i = 0;
+    for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, ++i) {
+      gemm_epilogue<ResT, OutT>(staging, staged, i & 1, et, C, bias, residual,
+                                tile / n_tiles * kGemmBM, tile % n_tiles * kGemmBN, M, N,
+                                gelu_mode);
+      mbar_arrive(drained);
+    }
+  } else {
+    // MMA warpgroup w multiplies rows 64 w .. 64 w + 63 of each tile
+    const int w = wg - 1;
+    const int lane = threadIdx.x & 31;
+    // the accumulator fragment: row 16 (warp in group) + lane / 4 (+ 8),
+    // columns 8 j + 2 (lane % 4) (+ 1), j = 0 .. 15
+    float* frag = staging + (64 * w + 16 * ((threadIdx.x / 32) & 3) + (lane >> 2)) *
+                                kGemmStagePitch + 2 * (lane & 3);
+    float d[64];
+#pragma unroll
+    for (int r = 0; r < 64; ++r) d[r] = 0.f;
+    int it = 0, i = 0;
+    for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, ++i) {
+      int prev = 0;
+      for (int kb = 0; kb < num_k; ++kb, ++it) {
+        const int s = it % kGemmStages;
+        mbar_wait(&full[s], (it / kGemmStages) & 1);
+        const uint32_t a = smem_u32(smem + s * kGemmStageBytes) + w * 64 * 128;
+        const uint32_t b = smem_u32(smem + s * kGemmStageBytes + kGemmABytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kGemmBK / 16; ++kk) {
+          // A: 16 columns = 32 bytes along the swizzled row, 8-row groups 1 KB
+          // apart; B: 16 rows = 2 KB down, the two 64-column boxes 8 KB apart
+          wgmma_m64n128k16(d, smem_desc(a + 32 * kk, 16, 1024),
+                           smem_desc(b + 2048 * kk, kGemmBoxBytes, 1024), (kb | kk) != 0);
+        }
+        wgmma_commit();
+        if (kb > 0) {
+          wgmma_wait<1>();  // the previous slab's products are done with it
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = s;
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      fence_accumulators(d);
+      mbar_wait(drained, (i & 1) ^ 1);  // the epilogue has read the last tile
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<float2*>(frag + 8 * j) = make_float2(d[4 * j], d[4 * j + 1]);
+        *reinterpret_cast<float2*>(frag + 8 * kGemmStagePitch + 8 * j) =
+            make_float2(d[4 * j + 2], d[4 * j + 3]);
+      }
+      mbar_arrive(staged);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up by name through the CUDA runtime, so the
+// library links no -lcuda.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major (rows, cols) bf16 matrix, read in boxes of
+// box_rows x 64 columns (128 bytes) with the 128-byte swizzle; out-of-range
+// elements read as zeros.
+inline cudaError_t bf16_tma_map(CUtensorMap* map, const bf16* base, int rows, int cols,
+                                int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base),
+                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline int gemm_sm_count() {
+  static const int count = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return count;
+}
+
+// The kernel's dynamic shared memory opt-in, once per form.
+template <typename ResT, typename OutT>
+inline cudaError_t gemm_kernel_attributes() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      gemm_bf16_kernel<ResT, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmemBytes);
+  return err;
+}
+
+// Resident blocks an SM (the occupancy call), for reports.
+inline int gemm_blocks_per_sm() {
+  if (gemm_kernel_attributes<bf16, bf16>() != cudaSuccess) return 0;
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gemm_bf16_kernel<bf16, bf16>,
+                                                kGemmThreads, kGemmSmemBytes);
+  return blocks;
+}
+
+inline bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 // bias may be null (no bias), residual may be null (no residual add).
 template <typename ResT, typename OutT>
 inline cudaError_t launch_gemm_rows(const bf16* A, const bf16* B, OutT* C, const float* bias,
                                     const ResT* residual, int M, int N, int K, int gelu_mode,
                                     cudaStream_t stream) {
-  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  gemm_bf16_kernel<ResT, OutT><<<grid, kGemmThreads, 0, stream>>>(A, B, C, bias, residual, M, N,
-                                                                   K, gelu_mode);
+  if (M == 0) return cudaSuccess;
+  if (M < 0 || N <= 0 || K <= 0 || N % 8 != 0 || K % 8 != 0) return cudaErrorInvalidValue;
+  if (misaligned16(A) || misaligned16(B) || misaligned16(C) || misaligned16(bias) ||
+      misaligned16(residual))
+    return cudaErrorMisalignedAddress;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = bf16_tma_map(&map_a, A, M, K, kGemmBM);
+  if (err != cudaSuccess) return err;
+  err = bf16_tma_map(&map_b, B, K, N, kGemmBK);
+  if (err != cudaSuccess) return err;
+  err = gemm_kernel_attributes<ResT, OutT>();
+  if (err != cudaSuccess) return err;
+  const int tiles = ((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN);
+  const int grid = tiles < gemm_sm_count() ? tiles : gemm_sm_count();
+  gemm_bf16_kernel<ResT, OutT><<<grid, kGemmThreads, kGemmSmemBytes, stream>>>(
+      map_a, map_b, C, bias, residual, M, N, K, gelu_mode);
   return cudaGetLastError();
 }
 

@@ -58,6 +58,11 @@ _SIGNATURES = {
     "duodiff_attn_core_blocks_per_sm": ([_INT], _INT),
     "duodiff_attn_bwd_core_warps": ([_INT], _INT),
     "duodiff_attn_bwd_core_blocks_per_sm": ([_INT] * 2, _INT),
+    "duodiff_gemm_bf16": ([_PTR] * 5 + [_INT] * 6 + [_PTR], _INT),
+    "duodiff_gemm_bf16_threads": ([], _INT),
+    "duodiff_gemm_bf16_stages": ([], _INT),
+    "duodiff_gemm_bf16_smem_bytes": ([], _INT),
+    "duodiff_gemm_bf16_blocks_per_sm": ([], _INT),
     "duodiff_attn_core_max_len": ([], _INT),
     "duodiff_attn_bwd_core_max_len": ([], _INT),
     "duodiff_error_string": ([_INT], ctypes.c_char_p),
@@ -130,12 +135,23 @@ def _resources_path(lib: Path) -> Path:
     return lib.with_suffix(".ptxas.txt")
 
 
+def _report_section(unit: str) -> str:
+    text = _resources_path(build()).read_text()
+    return text.split(f"== {unit}\n", 1)[1].split("\n== ", 1)[0]
+
+
+def ptxas_warnings(unit: str) -> list[str]:
+    """The warning lines of the compiler's report on ``csrc/<unit>.cu`` (for
+    instance a ``wgmma`` that ptxas had to serialise)."""
+    return [line.strip() for line in _report_section(unit).splitlines()
+            if "warning" in line.lower() or "Performance Loss" in line]
+
+
 def kernel_resources(unit: str) -> list[dict]:
     """What ptxas reported for each kernel of ``csrc/<unit>.cu`` when the
     library was built: ``entry`` (the mangled name), ``registers`` a thread,
     ``spill_stores`` / ``spill_loads`` / ``stack`` in bytes."""
-    text = _resources_path(build()).read_text()
-    section = text.split(f"== {unit}\n", 1)[1].split("\n== ", 1)[0]
+    section = _report_section(unit)
     records = []
     for part in section.split("Compiling entry function '")[1:]:
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
