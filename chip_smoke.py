@@ -76,7 +76,14 @@ eight main-path projections (qkv, proj, fc1, fc2 at D = 512 and 768) at
 batch 8 and the ragged row counts 1, 127, 129, 2056 in every epilogue form
 against its plain version, the refusal of a misaligned operand, and at batch
 128 its time beside ``torch.matmul`` on the same operands (TFLOP/s, share of
-the peak, host time a call). It also holds the backward kernels K6 (with and
+the peak, host time a call); then the same for the int8 GEMM of K11 / K12
+(``csrc/gemm_int8.cuh``, through ``ops/gemm.py:gemm_int8``): ptxas's report of
+every form, the eight W8A8 projections at batch 8 and M in {1, 127, 129, 2056} x
+N in {144, 272, 512} x K in {80, 512} in every epilogue with and without row
+scales, the refusal of K % 16 != 0, of N % 16 != 0 into int8 codes and of a
+misaligned operand, and at batch 128 TOP/s beside ``torch._int_mm`` and the
+bf16 GEMM; and the one-read LayerNorm + quant pass equal to the bit to its
+first form at D = 512 and 768. It also holds the backward kernels K6 (with and
 without a qkv bias) and K7 (exact and tanh GELU) against their plain
 versions, the attention
 kernels K9 and K10 at three (B, H, L) with
@@ -1002,6 +1009,303 @@ def check_gemm(device) -> None:
               f"{host['wrapper']:.4g} ms through the wrapper, {host['entry']:.4g} ms through "
               f"the C entry (tensor maps included)", flush=True)
     print(json.dumps({"gemm_bf16": timed}), flush=True)
+    return timed
+
+
+# The int8 GEMM of K11 / K12 (csrc/gemm_int8.cuh) alone, at the main path's
+# W8A8 projections: (name, width, N, K, epilogue, row scales, GELU). K11 runs
+# with dynamic scales in the model (row scales for qkv and proj), K12's
+# late-model launches with static ones (fc1's epilogue quantizes the tanh
+# GELU to int8 codes, no row scales for fc1 and fc2).
+GEMM_INT8_SHAPES = tuple(
+    (f"{name} D={w.d}", w, n, k, epi, rows, act)
+    for w in (CELEBA, IMAGENET)
+    for name, n, k, epi, rows, act in (
+        ("qkv", 3 * w.d, w.d, "bias", True, "none"),
+        ("proj", w.d, w.d, "residual", True, "none"),
+        ("fc1", 4 * w.d, w.d, "gelu_quant", False, "tanh"),
+        ("fc2", w.d, 4 * w.d, "residual", False, "none"))
+)
+# M where a 128-row tile breaks, N = 144 (a ragged 128-column tile), 272 (three
+# column tiles, the last with 16 columns) and 512, K = 80 (a ragged 128-deep
+# slab) and 512, in every epilogue, with and without row scales
+GEMM_INT8_RAGGED_M = (1, 127, 129, 2056)
+GEMM_INT8_RAGGED_N = (144, 272, 512)
+GEMM_INT8_RAGGED_K = (80, 512)
+GEMM_INT8_FORMS = (("bias", "none"), ("residual", "none"), ("gelu_f32", "erf"),
+                   ("gelu_quant", "tanh"))
+# Against the plain version on the same codes and scales: the int32 products
+# are exact on both sides and the fp32 epilogue steps are the same roundings
+# in the same order, so they differ only where erff / tanhf and torch's GELU
+# differ by an ulp: a bf16 output by at most one rounding (2**-8 of the value,
+# the small absolute term where GELU brings a value near zero), an fp32 one by
+# a few ulps, and an int8 code by one where v * inv lies within an ulp of a
+# half, which at most INT8_CODE_FLIPS of the entries may do.
+GEMM_INT8_BOUNDS = {torch.bfloat16: (2.0**-8, 2.0**-12), torch.float32: (2.0**-20, 2.0**-24)}
+INT8_CODE_FLIPS = 1e-4
+GEMM_INT8_UNITS = ("gemm_int8_entry", "attn_sublayer_int8", "mlp_sublayer_int8")
+INT8_EPILOGUE_NAMES = {"0": "bias", "1": "residual", "2": "gelu_f32", "3": "gelu_quant"}
+GELU_NAMES = {"0": "none", "1": "erf", "2": "tanh"}
+
+
+def gemm_int8_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, bool]:
+    """(max abs error, largest error over its bound or, for int8 codes, the
+    share of codes that differ, within the bound)."""
+    if got.dtype == torch.int8:
+        diff = (got.int() - want.int()).abs()
+        share = (diff > 0).float().mean().item()
+        return diff.max().item(), share, diff.max().item() <= 1 and share <= INT8_CODE_FLIPS
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf"), float("inf"), False
+    rel, frac = GEMM_INT8_BOUNDS[torch.float32 if got.dtype == torch.float32 else torch.bfloat16]
+    diff = (got - want).abs()
+    limit = rel * want.abs() + frac * want.abs().max().clamp_min(1e-30)
+    worst = (diff / limit).max().item()
+    return diff.max().item(), worst, worst <= 1.0
+
+
+def gemm_int8_operands(m: int, n: int, k: int, device, epilogue: str, rows: bool, seed: int):
+    """int8 codes a8 (M, K) and b8 (N, K) uniform in [-127, 127], column
+    scales that bring the dequantized sums to ~N(0, 1), row scales in [0.5,
+    1.5) (or None), an fp32 bias ~ N(0, 0.1^2), and the residual (bf16 ~ N(0,
+    1)) and quant_inv (127 / 4) where the epilogue takes them, on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a8 = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8)
+    col = (0.5 + torch.rand((n,), generator=g, device=device)) * (3.0 / (127.0**2 * k**0.5))
+    row = 0.5 + torch.rand((m,), generator=g, device=device) if rows else None
+    bias = torch.randn((n,), generator=g, device=device) * 0.1
+    res = None
+    if epilogue == "residual":
+        res = torch.randn((m, n), generator=g, device=device).to(torch.bfloat16)
+    inv = torch.tensor([127.0 / 4.0], device=device) if epilogue == "gelu_quant" else None
+    return a8, b8, col, row, bias, res, inv
+
+
+def report_gemm_int8() -> None:
+    """Phase 2: what ptxas says of every form of the int8 GEMM kernel and of
+    the LayerNorm + quant pass in every unit that compiles them (registers a
+    thread, spills, stack; any warning, such as a serialised wgmma), and what
+    the runtime says of a GEMM block (warps, stages, dynamic shared memory,
+    resident blocks an SM)."""
+    from duodiff_tpu_torch.ops._build import kernel_resources, load_library, ptxas_warnings
+
+    for unit in GEMM_INT8_UNITS:
+        for rec in kernel_resources(unit):
+            # ..._kernelILi<epilogue>ELi<GELU>EEv... / ..._kernelILi<chunks>EEv...
+            form = re.search(r"(gemm_int8_kernel|ln_quant_rows_kernel|ln_quant_rows_first_kernel)"
+                             r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", rec["entry"])
+            if form is None:
+                continue
+            name = form.group(1)
+            if name == "gemm_int8_kernel":
+                name += (f" <{INT8_EPILOGUE_NAMES.get(form.group(2), form.group(2))}, GELU "
+                         f"{GELU_NAMES.get(form.group(3), form.group(3))}>")
+            elif form.group(2):
+                name += f" <{form.group(2)} chunks>"
+            print(f"phase 2: {name} ({unit}.cu): {rec['registers']} registers a thread, spill "
+                  f"stores {rec['spill_stores']} B, spill loads {rec['spill_loads']} B, stack "
+                  f"{rec['stack']} B", flush=True)
+        for line in ptxas_warnings(unit):
+            print(f"phase 2: ptxas on {unit}.cu: {line}", flush=True)
+    lib = load_library()
+    print(f"phase 2: gemm_int8: {lib.duodiff_gemm_int8_threads() // 32} warps a block (a "
+          f"producer, two MMA and two epilogue warpgroups), {lib.duodiff_gemm_int8_stages()} "
+          f"stages, {lib.duodiff_gemm_int8_smem_bytes()} B of dynamic shared memory, "
+          f"{lib.duodiff_gemm_int8_blocks_per_sm()} blocks an SM", flush=True)
+
+
+def check_gemm_int8(device, bf16_timed: dict | None = None) -> None:
+    """Phase 2, the int8 GEMM alone (ops/gemm.py, the measurement entry of
+    csrc/gemm_int8.cuh): against its plain version (gemm_int8_errors) at the
+    eight GEMM_INT8_SHAPES at batch 8, and at GEMM_INT8_RAGGED_M x _N x _K in
+    every epilogue with and without row scales; the entry must refuse K % 16
+    != 0, N % 16 != 0 for int8 codes and a misaligned operand. Then at batch
+    128: kernel, plain version and torch._int_mm on the same codes (the
+    library yardstick, int32 out, no epilogue; the port never calls it), each
+    call waited for (time_ms) and 20 back to back (burst_ms); TOP/s and the
+    share of the 1,979 TOP/s peak from the back-to-back time, beside the bf16
+    GEMM's TFLOP/s at the same shape (``bf16_timed``, check_gemm's record);
+    the host time of one call through the wrapper and through the C entry
+    alone (tensor maps included); the batch-128 numbers also as one JSON
+    line."""
+    from duodiff_tpu_torch.ops import gemm
+    from duodiff_tpu_torch.ops._build import load_library
+
+    def run(ops, epi, act):
+        a8, b8, col, row, bias, res, inv = ops
+        return gemm.gemm_int8(a8, b8, col, row, bias, res, inv, epilogue=epi, gelu=act)
+
+    def plain(ops, epi, act):
+        a8, b8, col, row, bias, res, inv = ops
+        return gemm.gemm_int8_plain(a8, b8, col, row, bias, res, inv, epilogue=epi, gelu=act)
+
+    for i, (name, width, n, k, epi, rows, act) in enumerate(GEMM_INT8_SHAPES):
+        m = CHECK_BATCH * width.l
+        ops = gemm_int8_operands(m, n, k, device, epi, rows, seed=i)
+        max_abs, worst, ok = gemm_int8_errors(run(ops, epi, act), plain(ops, epi, act))
+        print(f"phase 2: gemm_int8 {name} M={m} N={n} K={k} {epi} row_scales={rows} gelu={act}: "
+              f"max_abs_err={max_abs:.6g}, worst error over bound (int8: share of flipped "
+              f"codes) {worst:.4g} ok={ok}", flush=True)
+        if not ok:
+            fail(f"gemm_int8 {name} M={m} disagrees with its plain version")
+    checked = 0
+    for m in GEMM_INT8_RAGGED_M:
+        for n in GEMM_INT8_RAGGED_N:
+            for k in GEMM_INT8_RAGGED_K:
+                for j, (epi, act) in enumerate(GEMM_INT8_FORMS):
+                    for rows in (False, True):
+                        ops = gemm_int8_operands(m, n, k, device, epi, rows,
+                                                 seed=1000 * m + 10 * n + k + j)
+                        if (j + rows) % 2:  # the bias in every other form
+                            ops = ops[:4] + (None,) + ops[5:]
+                        got, want = run(ops, epi, act), plain(ops, epi, act)
+                        max_abs, worst, ok = gemm_int8_errors(got, want)
+                        if not ok or got.dtype != want.dtype:
+                            fail(f"gemm_int8 ragged M={m} N={n} K={k} {epi} row_scales={rows} "
+                                 f"gelu={act}: max_abs_err={max_abs:.6g}, worst over bound "
+                                 f"{worst:.4g}")
+                        checked += 1
+    torch.cuda.synchronize()
+    print(f"phase 2: gemm_int8 ragged: M in {GEMM_INT8_RAGGED_M} x N in {GEMM_INT8_RAGGED_N} x K "
+          f"in {GEMM_INT8_RAGGED_K} x {len(GEMM_INT8_FORMS)} epilogues x row scales or not, bias "
+          f"every other: {checked} cases ok=True", flush=True)
+    lib = load_library()
+    a8, b8, col, _, _, _, inv = gemm_int8_operands(64, 64, 64, device, "gelu_quant", False, seed=7)
+    c = torch.empty((64, 64), dtype=torch.int8, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def entry(a_ptr, n, k, mode, inv_ptr=None):
+        return lib.duodiff_gemm_int8(a_ptr, b8.data_ptr(), c.data_ptr(), None, col.data_ptr(),
+                                     None, None, inv_ptr, 63, n, k, mode, 0, stream)
+
+    refused = {
+        "A 1 byte off": entry(a8.data_ptr() + 1, 64, 48, 0),
+        "K = 72": entry(a8.data_ptr(), 64, 72, 0),
+        "N = 56 into int8 codes": entry(a8.data_ptr(), 56, 64, 3, inv.data_ptr()),
+        "int8 codes without quant_inv": entry(a8.data_ptr(), 64, 64, 3),
+    }
+    print("phase 2: gemm_int8 refuses " + "; ".join(
+        f"{what}: error {err} ({lib.duodiff_error_string(err).decode()})"
+        for what, err in refused.items()), flush=True)
+    if not all(refused.values()):
+        fail("the int8 GEMM entry launched on an operand it cannot take")
+
+    timed = {}
+    for i, (name, width, n, k, epi, rows, act) in enumerate(GEMM_INT8_SHAPES):
+        m = MAIN_BATCH * width.l
+        ops = gemm_int8_operands(m, n, k, device, epi, rows, seed=i)
+        max_abs, worst, ok = gemm_int8_errors(run(ops, epi, act), plain(ops, epi, act))
+        if not ok:
+            fail(f"gemm_int8 {name} M={m} disagrees with its plain version")
+        a8, b8, col, row, bias, res, inv = ops
+        b8_t = b8.t()
+        mode, out_dtype = gemm.INT8_EPILOGUES[epi]
+        c = torch.empty((m, n), dtype=out_dtype, device=device)
+        args = (a8.data_ptr(), b8.data_ptr(), c.data_ptr(), None if row is None else row.data_ptr(),
+                col.data_ptr(), bias.data_ptr(), None if res is None else res.data_ptr(),
+                None if inv is None else inv.data_ptr(), m, n, k, mode, gemm.GELU_MODES[act],
+                stream)
+        fns = {"kernel": lambda: run(ops, epi, act), "plain": lambda: plain(ops, epi, act),
+               "library": lambda: torch._int_mm(a8, b8_t)}
+        ms = time_ms(fns)
+        # back to back through the C entry (~0.01 ms of host a call), so the
+        # card, not the host, sets the pace; through the wrapper as well
+        burst = {key: burst_ms(fns[key]) for key in ("kernel", "library")}
+        burst["entry"] = burst_ms(lambda: lib.duodiff_gemm_int8(*args))
+        int8_ops = 2.0 * m * n * k
+        tops = int8_ops / (burst["entry"] * 1e-3) / 1e12
+        host = {}
+        for key, fn in (("wrapper", fns["kernel"]),
+                        ("entry", lambda: lib.duodiff_gemm_int8(*args))):
+            fn()
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(20):
+                fn()
+            host[key] = (time.perf_counter() - tic) / 20 * 1e3
+            torch.cuda.synchronize()
+        nbytes = (m * k + n * k + m * n * c.element_size() + 8 * n
+                  + (0 if row is None else 4 * m) + (0 if res is None else 2 * m * n))
+        bf16 = (bf16_timed or {}).get(name, {})
+        timed[name] = {"M": m, "N": n, "K": k, "epilogue": epi, "row_scales": rows, "gelu": act,
+                       "ms": ms["kernel"], "burst_ms": burst["entry"],
+                       "wrapper_burst_ms": burst["kernel"], "tops": tops,
+                       "peak_share": tops / (PEAK_INT8_OPS / 1e12), "plain_ms": ms["plain"],
+                       "library_ms": ms["library"], "library_burst_ms": burst["library"],
+                       "library_tops": int8_ops / (burst["library"] * 1e-3) / 1e12,
+                       "bf16_burst_ms": bf16.get("burst_ms"), "bf16_tflops": bf16.get("tflops"),
+                       "bound_ms": bound(0, int8_ops, nbytes)["bound_ms"],
+                       "host_ms_wrapper": host["wrapper"], "host_ms_entry": host["entry"],
+                       "max_abs_err": max_abs}
+        vs_bf16 = (f"; the bf16 GEMM {bf16['burst_ms']:.6g} ms, {bf16['tflops']:.1f} TFLOP/s: "
+                   f"{tops / bf16['tflops']:.3g}x its rate" if bf16 else "")
+        print(f"phase 2: gemm_int8 {name} M={m} N={n} K={k} {epi}: kernel {ms['kernel']:.6g} ms "
+              f"(back to back through the C entry {burst['entry']:.6g}: {tops:.1f} TOP/s, "
+              f"{100 * tops / (PEAK_INT8_OPS / 1e12):.1f} % of 1979; through the wrapper "
+              f"{burst['kernel']:.6g}), plain {ms['plain']:.6g} ms; "
+              f"library yardstick torch._int_mm {ms['library']:.6g} ms (back to back "
+              f"{burst['library']:.6g}: {timed[name]['library_tops']:.1f} TOP/s){vs_bf16}; host "
+              f"time a call {host['wrapper']:.4g} ms through the wrapper, {host['entry']:.4g} ms "
+              f"through the C entry (tensor maps included)", flush=True)
+    print(json.dumps({"gemm_int8": timed}), flush=True)
+
+
+# The LayerNorm + int8 row quant pass of K11 and K12 (csrc/quant.cuh): its
+# one-read form against its first form, which stays in the measurement entry
+# for this gate: the same arithmetic in the same order, so the codes and row
+# scales must be equal to the bit.
+def check_ln_quant(device) -> None:
+    """Phase 2: ln_quant_rows at D = 512 and 768 (L = 257, 258), batch 8 and
+    128, dynamic and static (the asset's mid-block post-LN scale), against
+    its first form, equal to the bit; at batch 128 both timed 20 calls back
+    to back through the C entry (its host time is a fraction of the pass)
+    beside the bound (bf16 read once, int8 and the row scales written
+    once)."""
+    from duodiff_tpu_torch.ops import gemm
+    from duodiff_tpu_torch.ops._build import load_library
+    from duodiff_tpu_torch.ops.block_int8 import static_inv
+    from duodiff_tpu_torch.utils.int8_scales import load_int8_scales
+
+    lib = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    inv = static_inv(load_int8_scales(INT8_SCALES)["mid_block"], device)
+    record = {}
+    for width in (CELEBA, IMAGENET):
+        for batch in (CHECK_BATCH, MAIN_BATCH):
+            x, norm, *_ = block_modules(batch, False, seed=batch, width=width)
+            x = x.reshape(-1, width.d).to(device)
+            gamma = norm.weight.detach().float().to(device)
+            beta = norm.bias.detach().float().to(device)
+            m = x.shape[0]
+            for mode, v in (("dynamic", None), ("static", inv)):
+                new = gemm.ln_quant_rows(x, gamma, beta, v)
+                first = gemm.ln_quant_rows(x, gamma, beta, v, first=True)
+                torch.cuda.synchronize()
+                same = torch.equal(new[0], first[0]) and (
+                    v is not None or torch.equal(new[1], first[1]))
+                line = (f"phase 2: ln_quant_rows D={width.d} M={m} {mode}: codes and row "
+                        f"scales equal to the first form's to the bit: {same}")
+                if batch == MAIN_BATCH:
+                    x8 = torch.empty((m, width.d), dtype=torch.int8, device=device)
+                    rs = torch.empty((m,), dtype=torch.float32, device=device)
+                    args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), x8.data_ptr(),
+                            rs.data_ptr(), None if v is None else v.data_ptr(), m, width.d,
+                            1e-5)
+                    ms = {key: burst_ms(lambda f=f: lib.duodiff_ln_quant_rows(*args, f, stream))
+                          for key, f in (("kernel", 0), ("first", 1))}
+                    nbytes = 3 * m * width.d + 8 * width.d + (4 * m if v is None else 0)
+                    bnd = bound(0, 0, nbytes)["bound_ms"]
+                    record[f"D={width.d} {mode}"] = {"M": m, "burst_ms": ms["kernel"],
+                                                     "first_burst_ms": ms["first"],
+                                                     "bound_ms": bnd}
+                    line += (f"; back to back {ms['kernel']:.6g} ms, the first form "
+                             f"{ms['first']:.6g} ms, bound {bnd:.6g} ms (by bytes)")
+                print(line, flush=True)
+                if not same:
+                    fail(f"ln_quant_rows D={width.d} M={m} {mode} differs from its first form")
+    print(json.dumps({"ln_quant_rows": record}), flush=True)
 
 
 # lengths at which a 16-row query tile, a 16-key step and the 272-key limit
@@ -2433,7 +2737,10 @@ def main(argv=None) -> int:
     launches = {}
     if "2" in run:
         report_gemm()
-        check_gemm(device)
+        bf16_gemm = check_gemm(device)
+        report_gemm_int8()
+        check_gemm_int8(device, bf16_gemm)
+        check_ln_quant(device)
         check_kernels(device, results)
         check_int8_kernels(device, results)
         check_bwd_kernels(device, results)

@@ -50,11 +50,22 @@
 #pragma once
 
 #include "common.cuh"
-#include "gemm_int8.cuh"
 #include "quant.cuh"
 
 namespace duodiff {
 namespace {
+
+__device__ __forceinline__ void mma_s8_16832(int c[4], const unsigned a[4], const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned lds32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
 
 constexpr int kI8Dh = 64;                     // head width the core takes
 constexpr int kI8AttnWarps = 4;               // 16 query rows each

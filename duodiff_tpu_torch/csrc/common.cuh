@@ -15,6 +15,10 @@ using bf16 = __nv_bfloat16;
 // 8 bf16 values = one 16-byte vector access.
 constexpr int kVec = 8;
 
+// A launcher's check of an operand that its kernel reads or writes in 16-byte
+// vectors or by TMA (null passes).
+inline bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+
 __device__ __forceinline__ void unpack8(const uint4& raw, float out[kVec]) {
   const bf16* p = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll

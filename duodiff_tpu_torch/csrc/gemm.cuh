@@ -50,12 +50,12 @@
 // returns cudaErrorInvalidValue / cudaErrorMisalignedAddress and nothing
 // runs. A wait on an mbarrier that does not complete within 10 s traps, so
 // a fault in the ring ends the kernel with an error instead of hanging it.
-// (gemm_t.cuh and gemm_int8.cuh keep the first, WMMA-based design.)
+// The mbarrier, TMA and descriptor helpers are hopper.cuh's, shared with
+// gemm_int8.cuh. (gemm_t.cuh keeps the first, WMMA-based design.)
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace duodiff {
 namespace {
@@ -79,84 +79,6 @@ constexpr int kGemmBarOffset = kGemmStagingOffset + kGemmBM * kGemmStagePitch * 
 // the ring starts on a 1024-byte boundary (the swizzle atom); 2 barriers a
 // stage and the staging tile's pair
 constexpr int kGemmSmemBytes = 1024 + kGemmBarOffset + (2 * kGemmStages + 2) * 8;
-constexpr unsigned long long kGemmHangNs = 10000000000ull;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of the given parity to complete; trap after kGemmHangNs.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint64_t start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    const uint64_t now = global_ns();
-    if (start == 0) {
-      start = now;
-    } else if (now - start > kGemmHangNs) {
-      __trap();
-    }
-  }
-}
-
-// One 2-D TMA box (inner coordinate c0, outer c1) into shared memory,
-// completing on the barrier's transaction count.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor with the 128-byte swizzle: start address,
-// leading and stride byte offsets (all in 16-byte units).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lead >> 4) << 16) |
-         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
 
 #define DUODIFF_ACC8(i)                                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),            \
@@ -395,57 +317,13 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up by name through the CUDA runtime, so the
-// library links no -lcuda.
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The TMA map of a row-major (rows, cols) bf16 matrix, read in boxes of
 // box_rows x 64 columns (128 bytes) with the 128-byte swizzle; out-of-range
 // elements read as zeros.
 inline cudaError_t bf16_tma_map(CUtensorMap* map, const bf16* base, int rows, int cols,
                                 int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base),
-                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-inline int gemm_sm_count() {
-  static const int count = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
-  return count;
+  return swizzled_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), base, rows, cols,
+                          box_rows);
 }
 
 // The kernel's dynamic shared memory opt-in, once per form.
@@ -465,8 +343,6 @@ inline int gemm_blocks_per_sm() {
   return blocks;
 }
 
-inline bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
-
 // bias may be null (no bias), residual may be null (no residual add).
 template <typename ResT, typename OutT>
 inline cudaError_t launch_gemm_rows(const bf16* A, const bf16* B, OutT* C, const float* bias,
@@ -485,7 +361,7 @@ inline cudaError_t launch_gemm_rows(const bf16* A, const bf16* B, OutT* C, const
   err = gemm_kernel_attributes<ResT, OutT>();
   if (err != cudaSuccess) return err;
   const int tiles = ((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN);
-  const int grid = tiles < gemm_sm_count() ? tiles : gemm_sm_count();
+  const int grid = tiles < sm_count() ? tiles : sm_count();
   gemm_bf16_kernel<ResT, OutT><<<grid, kGemmThreads, kGemmSmemBytes, stream>>>(
       map_a, map_b, C, bias, residual, M, N, K, gelu_mode);
   return cudaGetLastError();

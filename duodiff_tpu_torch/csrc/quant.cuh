@@ -25,9 +25,12 @@
 // __fmul_rn/__fadd_rn so that no FMA contraction changes a value that is
 // about to be rounded to an int8 code.
 //
-// Bound: memory. A row is read two or three times (statistics, amax,
-// codes) from L1/L2 and written once as int8. Design: one warp per row,
-// 8 values per lane per trip, so any width that is a multiple of 8 works.
+// Bound: memory, 3 bytes a value (bf16 in, int8 out) for the LayerNorm
+// pass. Design: 8 values a lane per 16-byte load; the LayerNorm pass gives
+// a warp two rows and holds them whole in registers (D <= 1024), so it reads
+// them from memory once and gamma and beta as 16-byte vectors; the row quant
+// of an fp32 or bf16 matrix takes a row a warp and reads it twice (amax,
+// codes), the second time from L1/L2.
 #pragma once
 
 #include "common.cuh"
@@ -68,62 +71,107 @@ __device__ __forceinline__ float inv_scale(float amax) {
 
 // x (M, D) bf16 -> x8 (M, D) int8. static_inv null: dynamic, row_scale[m]
 // = amax/127; else every row quantizes with static_inv[0] and row_scale is
-// not written.
+// not written. One warp takes kLnRows rows; lane l holds each row's columns
+// 8 l + 256 j .. + 7, j < kChunks (D <= 256 kChunks), in registers from one
+// read of the row, and the loads of all its rows are issued before the first
+// is summed, so twice the bytes are in flight while the reductions run. The
+// statistics, the normalized values, their amax and the codes all come from
+// the registers. Each row's sums run over the same values in the same order
+// as a loop over the row would, so the codes and scales depend neither on
+// kChunks nor on kLnRows.
+constexpr int kLnRows = 2;
+
+template <int kChunks>
 __global__ void __launch_bounds__(kQuantThreads)
 ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta, int8_t* __restrict__ x8,
                      float* __restrict__ row_scale, const float* __restrict__ static_inv,
                      int M, int D, float eps) {
-  const int row = blockIdx.x * (kQuantThreads / 32) + (threadIdx.x >> 5);
+  const int row0 = (blockIdx.x * (kQuantThreads / 32) + (threadIdx.x >> 5)) * kLnRows;
   const int lane = threadIdx.x & 31;
-  if (row >= M) return;  // whole warp leaves together
-  const bf16* xr = x + static_cast<size_t>(row) * D;
-  float v[kVec];
-
-  float sum = 0.f;
-  for (int c = lane * kVec; c < D; c += 32 * kVec) {
-    load8(xr + c, v);
+  if (row0 >= M) return;  // whole warp leaves together
+  const auto in_row = [&](int j) { return lane * kVec + 32 * kVec * j < D; };
+  float v[kLnRows][kChunks][kVec];
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) sum += v[e];
-  }
-  const float mean = warp_sum(sum) / static_cast<float>(D);
-  float sq = 0.f;
-  for (int c = lane * kVec; c < D; c += 32 * kVec) {
-    load8(xr + c, v);
+  for (int r = 0; r < kLnRows; ++r) {
+    const bf16* xr = x + static_cast<size_t>(row0 + r) * D;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      const float d = v[e] - mean;
-      sq += d * d;
+    for (int j = 0; j < kChunks; ++j) {
+      if (row0 + r < M && in_row(j)) {
+        load8(xr + lane * kVec + 32 * kVec * j, v[r][j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[r][j][e] = 0.f;
+      }
     }
   }
-  const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
-  auto normalize = [&](int c) {  // v <- LN(x[row, c:c+8]) in fp32
-    load8(xr + c, v);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e)
-      v[e] = __fadd_rn(__fmul_rn(__fmul_rn(v[e] - mean, rstd), gamma[c + e]), beta[c + e]);
-  };
 
-  float inv;
-  if (static_inv != nullptr) {
-    inv = static_inv[0];
-  } else {
-    float amax = 0.f;
-    for (int c = lane * kVec; c < D; c += 32 * kVec) {
-      normalize(c);
+  float mean[kLnRows], rstd[kLnRows], amax[kLnRows];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  for (int r = 0; r < kLnRows; ++r) amax[r] = 0.f;
+#pragma unroll
+  for (int r = 0; r < kLnRows; ++r) {
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (!in_row(j)) break;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) sum += v[r][j][e];
     }
-    amax = warp_max(amax);
-    inv = inv_scale(amax);
-    if (lane == 0) row_scale[row] = __fdiv_rn(amax, 127.f);
+    mean[r] = warp_sum(sum) / static_cast<float>(D);
   }
-  int8_t* qr = x8 + static_cast<size_t>(row) * D;
-  for (int c = lane * kVec; c < D; c += 32 * kVec) {
-    normalize(c);
-    store8_int8(qr + c, v, inv);
+#pragma unroll
+  for (int r = 0; r < kLnRows; ++r) {
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (!in_row(j)) break;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float d = v[r][j][e] - mean[r];
+        sq += d * d;
+      }
+    }
+    rstd[r] = rsqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
+  }
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    if (!in_row(j)) break;
+    const int c = lane * kVec + 32 * kVec * j;
+    float g[kVec], b[kVec];
+    load_row8(gamma + c, g);
+    load_row8(beta + c, b);
+#pragma unroll
+    for (int r = 0; r < kLnRows; ++r) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        v[r][j][e] = __fadd_rn(__fmul_rn(__fmul_rn(v[r][j][e] - mean[r], rstd[r]), g[e]), b[e]);
+        amax[r] = fmaxf(amax[r], fabsf(v[r][j][e]));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kLnRows; ++r) {
+    if (row0 + r >= M) break;
+    float inv;
+    if (static_inv != nullptr) {
+      inv = static_inv[0];
+    } else {
+      const float m = warp_max(amax[r]);
+      inv = inv_scale(m);
+      if (lane == 0) row_scale[row0 + r] = __fdiv_rn(m, 127.f);
+    }
+    int8_t* qr = x8 + static_cast<size_t>(row0 + r) * D;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (!in_row(j)) break;
+      store8_int8(qr + lane * kVec + 32 * kVec * j, v[r][j], inv);
+    }
   }
 }
+
+constexpr int kLnQuantMaxWidth = 4 * 32 * kVec;  // 1024: 32 values a lane
 
 // in (M, N) bf16 or fp32 -> out (M, N) int8. static_inv null: dynamic,
 // row_scale[m] = amax/127; else every row quantizes with static_inv[0] and
@@ -164,11 +212,36 @@ inline int quant_blocks(int M) {
   return (M + rows_per_block - 1) / rows_per_block;
 }
 
+template <int kChunks>
+inline void launch_ln_quant_form(const bf16* x, const float* gamma, const float* beta,
+                                 int8_t* x8, float* row_scale, const float* static_inv, int M,
+                                 int D, float eps, cudaStream_t stream) {
+  ln_quant_rows_kernel<kChunks><<<quant_blocks((M + kLnRows - 1) / kLnRows), kQuantThreads, 0,
+                                  stream>>>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps);
+}
+
+// D % 8 == 0 and D <= kLnQuantMaxWidth, with 16-byte aligned x, gamma, beta
+// and x8, or nothing is launched.
 inline cudaError_t launch_ln_quant_rows(const bf16* x, const float* gamma, const float* beta,
                                         int8_t* x8, float* row_scale, const float* static_inv,
                                         int M, int D, float eps, cudaStream_t stream) {
-  ln_quant_rows_kernel<<<quant_blocks(M), kQuantThreads, 0, stream>>>(
-      x, gamma, beta, x8, row_scale, static_inv, M, D, eps);
+  if (M == 0) return cudaSuccess;
+  if (M < 0 || D <= 0 || D % kVec != 0 || D > kLnQuantMaxWidth) return cudaErrorInvalidValue;
+  if (misaligned16(x) || misaligned16(gamma) || misaligned16(beta) || misaligned16(x8))
+    return cudaErrorMisalignedAddress;
+  switch ((D + 32 * kVec - 1) / (32 * kVec)) {
+    case 1:
+      launch_ln_quant_form<1>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
+      break;
+    case 2:
+      launch_ln_quant_form<2>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
+      break;
+    case 3:
+      launch_ln_quant_form<3>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
+      break;
+    default:
+      launch_ln_quant_form<4>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
+  }
   return cudaGetLastError();
 }
 

@@ -63,6 +63,12 @@ _SIGNATURES = {
     "duodiff_gemm_bf16_stages": ([], _INT),
     "duodiff_gemm_bf16_smem_bytes": ([], _INT),
     "duodiff_gemm_bf16_blocks_per_sm": ([], _INT),
+    "duodiff_gemm_int8": ([_PTR] * 8 + [_INT] * 5 + [_PTR], _INT),
+    "duodiff_gemm_int8_threads": ([], _INT),
+    "duodiff_gemm_int8_stages": ([], _INT),
+    "duodiff_gemm_int8_smem_bytes": ([], _INT),
+    "duodiff_gemm_int8_blocks_per_sm": ([], _INT),
+    "duodiff_ln_quant_rows": ([_PTR] * 6 + [_INT] * 2 + [_FLOAT, _INT, _PTR], _INT),
     "duodiff_attn_core_max_len": ([], _INT),
     "duodiff_attn_bwd_core_max_len": ([], _INT),
     "duodiff_error_string": ([_INT], ctypes.c_char_p),

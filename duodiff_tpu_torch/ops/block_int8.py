@@ -21,8 +21,9 @@ takes static scales the same way (``inv = [127/sx, 127/sm]`` for the
 LayerNorm output and the merged heads, :func:`static_inv`); the model never
 passes them, as the JAX ``Block`` never does: they are an argument of the op.
 
-Packed int8 weights are (out, in), the torch ``Linear.weight`` layout, which
-is the ``row.col`` operand layout of the card's int8 ``mma.sync``.
+Packed int8 weights are (out, in), the torch ``Linear.weight`` layout: K
+contiguous, the only layout the card's int8 ``wgmma`` takes for either
+operand.
 
 Each wrapper takes the plain PyTorch version (:func:`attn_sublayer_int8_plain`,
 :func:`mlp_sublayer_int8_plain`) for a tensor on the CPU. For a CUDA tensor
@@ -47,6 +48,10 @@ from duodiff_tpu_torch.ops.block import (
     _raise_on_error,
     attention_core_plain,
 )
+
+# the widest row the LayerNorm + quant pass holds in a warp's registers
+# (csrc/quant.cuh)
+LN_QUANT_MAX_WIDTH = 1024
 
 
 def quantize_weight_int8(w: torch.Tensor, extra_col_scale=None):
@@ -214,8 +219,8 @@ def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, b
             f"the kernel takes the square form A == D == num_heads * {HEAD_DIM}: "
             f"A={a}, D={d}, num_heads={num_heads}"
         )
-    if d % 16:
-        raise ValueError(f"D must be a multiple of 16, got {d}")
+    if d % 16 or d > LN_QUANT_MAX_WIDTH:
+        raise ValueError(f"D must be a multiple of 16 and at most {LN_QUANT_MAX_WIDTH}, got {d}")
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, (b, l, d), bf16, dev)
     _check("ln_scale", ln_scale, (d,), f32, dev)
@@ -259,8 +264,9 @@ def _mlp_sublayer_int8_cuda(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, in
         raise ValueError(f"x must be (B, L, D), got {tuple(x.shape)}")
     b, l, d = x.shape
     hid = w1_8.shape[0]
-    if d % 16 or hid % 16:
-        raise ValueError(f"D and the hidden width must be multiples of 16: {d}, {hid}")
+    if d % 16 or hid % 16 or d > LN_QUANT_MAX_WIDTH:
+        raise ValueError(f"D and the hidden width must be multiples of 16, D at most "
+                         f"{LN_QUANT_MAX_WIDTH}: {d}, {hid}")
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, (b, l, d), bf16, dev)
     _check("ln_scale", ln_scale, (d,), f32, dev)

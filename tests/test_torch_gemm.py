@@ -202,9 +202,12 @@ GEMM_CALLERS = ("attn_sublayer.cu", "attn_sublayer_v1.cu", "attn_sublayer_bwd.cu
 def test_gemm_source_is_the_hopper_design():
     """One design: wgmma products from a TMA-fed mbarrier ring, persistent
     blocks, warp-specialised (producer, MMA and epilogue warpgroups); no WMMA
-    left in it."""
+    left in it. The mbarrier, TMA and descriptor helpers come from
+    hopper.cuh, which it includes."""
     src = (CSRC_DIR / "gemm.cuh").read_text()
     assert "wmma::" not in src and "<mma.h>" not in src
+    assert '#include "hopper.cuh"' in src
+    src += (CSRC_DIR / "hopper.cuh").read_text()
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait.parity",
                    "const __grid_constant__ CUtensorMap", "tile += gridDim.x",
                    "kGemmStages = 4", "mbar_wait(staged", "mbar_wait(drained"):
