@@ -83,7 +83,17 @@ N in {144, 272, 512} x K in {80, 512} in every epilogue with and without row
 scales, the refusal of K % 16 != 0, of N % 16 != 0 into int8 codes and of a
 misaligned operand, and at batch 128 TOP/s beside ``torch._int_mm`` and the
 bf16 GEMM; and the one-read LayerNorm + quant pass equal to the bit to its
-first form at D = 512 and 768. It also holds the backward kernels K6 (with and
+first form at D = 512 and 768; then the backward GEMMs of K6, K7 and K8 alone
+(``csrc/gemm.cuh`` in the forms ``csrc/gemm_t.cuh`` launches, and the MLP
+backward's hidden stage ``csrc/mlp_bwd_hidden.cuh``, through
+``ops/gemm.py:gemm_t`` and ``mlp_bwd_hidden``): ptxas's report of every form
+(no spill and no warning allowed), the eight backward products at batch 8 at
+both widths, the rows {1, 127, 129, 2056} x N {136, 264, 512} x K {72, 512}
+in every form (weight gradients also with three row splits), a repeat call
+equal to the bit, the refusals, K6's / K7's / K8's scratch before and after
+the 16 fp32 partials went, and at batch 128 TFLOP/s back to back beside
+``torch.matmul`` on the same transposed views and beside the forward GEMM
+(one JSON line ``{"gemm_t": ...}``). It also holds the backward kernels K6 (with and
 without a qkv bias) and K7 (exact and tanh GELU) against their plain
 versions, the attention
 kernels K9 and K10 at three (B, H, L) with
@@ -121,6 +131,7 @@ no CPU fallback: without a CUDA device the script exits with code 1.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gc
 import json
 import os
@@ -881,13 +892,7 @@ def report_gemm() -> None:
         for rec in kernel_resources(unit):
             if "gemm_bf16_kernel" not in rec["entry"]:
                 continue
-            # ..._kernelI<residual type><output type>EEv...: bf16 is
-            # 13__nv_bfloat16 or, repeated, a substitution S<n>_; fp32 is f
-            form = re.search(r"gemm_bf16_kernelI(.*?)EEv", rec["entry"])
-            types = ", ".join("fp32" if t == "f" else "bf16"
-                              for t in re.findall(r"13__nv_bfloat16|S\d*_|f",
-                                                  form.group(1) if form else ""))
-            print(f"phase 2: gemm_bf16_kernel <{types}> ({unit}.cu): "
+            print(f"phase 2: gemm_bf16_kernel <{gemm_form(rec['entry'])}> ({unit}.cu): "
                   f"{rec['registers']} registers a thread, spill stores {rec['spill_stores']} B, "
                   f"spill loads {rec['spill_loads']} B, stack {rec['stack']} B", flush=True)
         for line in ptxas_warnings(unit):
@@ -1310,6 +1315,378 @@ def check_ln_quant(device) -> None:
 
 # lengths at which a 16-row query tile, a 16-key step and the 272-key limit
 # of the attention cores break
+# The backward GEMMs of K6 / K7 / K8 alone: csrc/gemm.cuh in the forms
+# csrc/gemm_t.cuh launches, and the MLP backward's hidden stage
+# (csrc/mlp_bwd_hidden.cuh), through ops/gemm.py:gemm_t and mlp_bwd_hidden.
+GEMM_T_UNITS = ("gemm_t_entry", "attn_sublayer_bwd", "mlp_sublayer_bwd", "mlp_sublayer_bwd_split")
+# |kernel - plain| <= rel * |plain| + frac * max|plain| entry by entry: bf16
+# outputs (dm, hgb, dhp) as the bf16 GEMM gate, one flipped rounding plus the
+# order of the fp32 sums; fp32 outputs (weight gradients over up to 33,024
+# rows, dxn, db1) by the order of the fp32 sums alone, ~1e-6 of the largest
+# value. A missing split, slab or tile is off by the value's whole size.
+GEMM_T_BOUNDS = {torch.bfloat16: (2.0**-7, 2.0**-10), torch.float32: (2.0**-12, 2.0**-12)}
+# ragged cases in every form: the rows of the product (M of a K-major A, the
+# contracted rows of a weight gradient) where a 128-row tile or a 64-row
+# slab breaks, N = 136 / 264 / 512, and the other dimension 72 (a ragged
+# 64-deep slab, or a weight gradient's ragged output tile) or 512; a weight
+# gradient with the launcher's row splits and with GEMM_T_FORCED_SPLITS
+GEMM_T_RAGGED_ROWS = (1, 127, 129, 2056)
+GEMM_T_RAGGED_N = (136, 264, 512)
+GEMM_T_RAGGED_K = (72, 512)
+GEMM_T_FORCED_SPLITS = 3
+GEMM_T_FORMS = {"wgrad": 0, "nt": 1, "nt_bf16": 2, "nt_acc": 3}
+# row splits forced on each weight gradient at batch 128, timed beside the
+# launcher's own choice (weight_grad_splits and its kSplitCostSlabs)
+GEMM_T_SPLIT_SWEEP = (1, 2, 3, 4, 6, 8, 11, 16)
+
+
+def gemm_t_products(width: Width, batch: int) -> list:
+    """The backward products of K6 and K7 at (batch, width): (name, form, a
+    shape, b shape). Forms: "wgrad" a stored (K, M), b (K, N) into fp32;
+    "nt" / "nt_bf16" a (M, K), b stored (N, K) into fp32 / bf16; "hidden"
+    xn and dy (M, D) with the hidden width as b's shape."""
+    m, d = batch * width.l, width.d
+    return [
+        ("K6 dm = dy Wp^T", "nt_bf16", (m, d), (d, d)),
+        ("K6 dWp = merged^T dy", "wgrad", (m, d), (m, d)),
+        ("K6 dWqkv = xn^T dqkv", "wgrad", (m, d), (m, 3 * d)),
+        ("K6 dxn = dqkv Wqkv^T", "nt", (m, 3 * d), (d, 3 * d)),
+        ("K7 hidden stage", "hidden", (m, d), (4 * d,)),
+        ("K7 dW2 = hgb^T dy", "wgrad", (m, 4 * d), (m, d)),
+        ("K7 dW1 = xn^T dhp", "wgrad", (m, d), (m, 4 * d)),
+        ("K7 dxn = dhp W1^T", "nt", (m, 4 * d), (d, 4 * d)),
+    ]
+
+
+def gemm_t_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, bool]:
+    """(max abs error, largest error over its GEMM_T_BOUNDS bound, within it)."""
+    rel, frac = GEMM_T_BOUNDS[got.dtype]
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf"), float("inf"), False
+    diff = (got - want).abs()
+    limit = rel * want.abs() + frac * want.abs().max().clamp_min(1e-30)
+    worst = (diff / limit).max().item()
+    return diff.max().item(), worst, worst <= 1.0
+
+
+def gemm_t_operands(form: str, a_shape, b_shape, device, seed: int):
+    """bf16 a ~ N(0, 1) and b ~ N(0, 1 / K) (K the contracted length) of the
+    given shapes, on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(a_shape, generator=g, device=device).to(torch.bfloat16)
+    k = a_shape[0] if form == "wgrad" else a_shape[1]
+    b = torch.randn(b_shape, generator=g, device=device) * k**-0.5
+    return a, b.to(torch.bfloat16)
+
+
+def hidden_operands(m: int, d: int, hid: int, device, seed: int):
+    """xn, W1 (D, Hd) ~ N(0, 1 / D), b1 ~ N(0, 0.1^2), dy, W2 (Hd, D) ~ N(0,
+    1 / D), xn and dy (M, D) ~ N(0, 1), on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    xn = torch.randn((m, d), generator=g, device=device).to(torch.bfloat16)
+    dy = torch.randn((m, d), generator=g, device=device).to(torch.bfloat16)
+    w1 = (torch.randn((d, hid), generator=g, device=device) * d**-0.5).to(torch.bfloat16)
+    w2 = (torch.randn((hid, d), generator=g, device=device) * d**-0.5).to(torch.bfloat16)
+    b1 = torch.randn((hid,), generator=g, device=device) * 0.1
+    return xn, w1, b1, dy, w2
+
+
+def gemm_form(entry: str) -> str:
+    """The form of a gemm_bf16_kernel instance from its mangled name
+    (..._kernelILb<kTA>ELb<kTB>E<epilogue>...)."""
+    form = re.search(r"gemm_bf16_kernelILb([01])ELb([01])E", entry)
+    if form is None:
+        return entry
+    a = "A stored (K, M)" if form.group(1) == "1" else "A (M, K)"
+    b = "B stored (N, K)" if form.group(2) == "1" else "B (K, N)"
+    if "SplitSumEpilogue" in entry:
+        return f"{a}, {b}, split sums"
+    rows = re.search(r"RowEpilogueI(.*?)EE", entry)
+    types = ", ".join("fp32" if t == "f" else "bf16"
+                      for t in re.findall(r"13__nv_bfloat16|S\d*_|f", rows.group(1) if rows else ""))
+    return f"{a}, {b}, rows <residual, output: {types}>"
+
+
+def report_gemm_t() -> None:
+    """Phase 2: what ptxas says of every form of the GEMM kernel and of the
+    hidden-stage kernel in every backward unit (registers a thread, spills,
+    stack; any warning, such as a serialised wgmma), and what the runtime
+    says of a block of each. Fails on a spill or a warning."""
+    from duodiff_tpu_torch.ops._build import kernel_resources, load_library, ptxas_warnings
+
+    bad = []
+    for unit in GEMM_T_UNITS:
+        for rec in kernel_resources(unit):
+            if "gemm_bf16_kernel" in rec["entry"]:
+                name = f"gemm_bf16_kernel <{gemm_form(rec['entry'])}>"
+            elif "mlp_bwd_hidden_kernel" in rec["entry"]:
+                gelu = re.search(r"mlp_bwd_hidden_kernelILi(\d)E", rec["entry"])
+                name = (f"mlp_bwd_hidden_kernel <GELU "
+                        f"{GELU_NAMES.get(gelu.group(1) if gelu else '', '?')}>")
+            else:
+                continue
+            print(f"phase 2: {name} ({unit}.cu): {rec['registers']} registers a thread, spill "
+                  f"stores {rec['spill_stores']} B, spill loads {rec['spill_loads']} B, stack "
+                  f"{rec['stack']} B", flush=True)
+            if rec["spill_stores"] or rec["spill_loads"]:
+                bad.append(f"{name} in {unit}.cu spills")
+        for line in ptxas_warnings(unit):
+            print(f"phase 2: ptxas on {unit}.cu: {line}", flush=True)
+            bad.append(f"ptxas on {unit}.cu: {line}")
+    lib = load_library()
+    out = (ctypes.c_int * 8)()
+    lib.duodiff_gemm_t_layout(ctypes.cast(out, ctypes.c_void_p))
+    print(f"phase 2: gemm_t (gemm.cuh): {out[0] // 32} warps a block, {out[1]} stages, {out[2]} B "
+          f"of dynamic shared memory, {out[3]} blocks an SM; mlp_bwd_hidden: {out[4] // 32} warps a "
+          f"block, {out[5]} stages, {out[6]} B, {out[7]} blocks an SM", flush=True)
+    if out[3] != 1 or out[7] != 1:
+        bad.append("a backward GEMM block does not fit once an SM (the split flags need every "
+                   "block of the grid resident)")
+    if bad:
+        fail("; ".join(bad))
+
+
+def workspace_bytes(lib, width: Width, batch: int) -> dict:
+    """K6's, K7's and K8's (MAIN_SPLITS slices) scratch bytes at (width,
+    batch): now, and with the split-K scratch the weight gradients took
+    before their row splits summed through flags (the same layout with 16
+    fp32 partials of the largest weight gradient in place of the flags)."""
+    def a256(n):
+        return (n + 255) // 256 * 256
+
+    m, d = batch * width.l, width.d
+    hid, hs = 4 * d, 4 * d // MAIN_SPLITS
+    now = {"K6": lib.duodiff_attn_sublayer_bwd_workspace(batch, width.l, d, width.heads),
+           "K7": lib.duodiff_mlp_sublayer_bwd_workspace(m, d, hid),
+           "K8": lib.duodiff_mlp_sublayer_bwd_split_workspace(m, d, hid, MAIN_SPLITS)}
+    flags = {"K6": max(lib.duodiff_gemm_t_flag_bytes(d, 3 * d), lib.duodiff_gemm_t_flag_bytes(d, d)),
+             "K7": lib.duodiff_gemm_t_flag_bytes(d, hid), "K8": lib.duodiff_gemm_t_flag_bytes(d, hs)}
+    partials = {"K6": 16 * 3 * d * d * 4, "K7": 16 * d * hid * 4, "K8": 16 * d * hs * 4}
+    return {k: {"now": now[k], "before": now[k] - a256(flags[k]) + a256(partials[k])}
+            for k in now}
+
+
+def check_gemm_t(device) -> dict:
+    """Phase 2, the backward GEMMs alone (ops/gemm.py:gemm_t and
+    mlp_bwd_hidden, the measurement entry csrc/gemm_t_entry.cu): against
+    their plain versions (gemm_t_errors) at the eight products of
+    gemm_t_products at batch 8 at both widths, and at GEMM_T_RAGGED_ROWS x
+    _N x _K in every form (the hidden stage's hgb, dhp and db1 with exact
+    and tanh GELU in turn); a repeat call equal to the bit; the refusals of
+    N % 8, M % 8 with a stored (K, M) A, K % 8 and a misaligned operand; the
+    workspace bytes of K6, K7, K8 before and after. Then at batch 128 each
+    product back to back through the C entry, call by call through the
+    wrapper, beside torch.matmul on the same transposed views (the library
+    yardstick, no epilogue; the port never calls it) and the forward GEMM
+    on packed operands of the same (M, N, K) (the hidden stage: fc1's form,
+    bias and exact GELU), each weight gradient also with the row splits of
+    GEMM_T_SPLIT_SWEEP forced; one JSON line {"gemm_t": ...}."""
+    from duodiff_tpu_torch.ops import gemm
+    from duodiff_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run(form, a, b, out=None, splits=0):
+        if form == "wgrad":
+            return gemm.gemm_t(a, b, trans_a=True, splits=splits)
+        return gemm.gemm_t(a, b, trans_a=False, out=out,
+                           out_dtype=torch.bfloat16 if form == "nt_bf16" else torch.float32)
+
+    def plain(form, a, b, out=None):
+        if form == "wgrad":
+            return gemm.gemm_t_plain(a, b, trans_a=True)
+        return gemm.gemm_t_plain(a, b, trans_a=False, out=out,
+                                 out_dtype=torch.bfloat16 if form == "nt_bf16" else torch.float32)
+
+    def hidden_check(ops, act, label):
+        got, want = gemm.mlp_bwd_hidden(*ops, gelu=act), gemm.mlp_bwd_hidden_plain(*ops, gelu=act)
+        worst = 0.0
+        for what, g, w in zip(("hgb", "dhp", "db1"), got, want):
+            max_abs, over, ok = gemm_t_errors(g, w)
+            worst = max(worst, over)
+            if not ok or g.dtype != w.dtype:
+                fail(f"mlp_bwd_hidden {label} gelu={act}: {what} max_abs_err={max_abs:.6g}, worst "
+                     f"over bound {over:.4g}")
+        return worst
+
+    for width in (CELEBA, IMAGENET):
+        for i, (name, form, a_shape, b_shape) in enumerate(gemm_t_products(width, CHECK_BATCH)):
+            label = f"{name} D={width.d} M={a_shape[0]}"
+            if form == "hidden":
+                m, d = a_shape
+                worst = hidden_check(hidden_operands(m, d, b_shape[0], device, seed=i), "erf",
+                                     label)
+                print(f"phase 2: gemm_t {label} Hd={b_shape[0]}: hgb, dhp, db1 worst error over "
+                      f"bound {worst:.4g} ok=True", flush=True)
+                continue
+            a, b = gemm_t_operands(form, a_shape, b_shape, device, seed=i)
+            got = run(form, a, b)
+            again = run(form, a, b)
+            max_abs, worst, ok = gemm_t_errors(got, plain(form, a, b))
+            same = torch.equal(got, again)
+            print(f"phase 2: gemm_t {label} {form} a {tuple(a.shape)} b {tuple(b.shape)}: "
+                  f"max_abs_err={max_abs:.6g}, worst error over bound {worst:.4g} (bound "
+                  f"{GEMM_T_BOUNDS[got.dtype]}), repeat equal={same} ok={ok and same}", flush=True)
+            if not (ok and same):
+                fail(f"gemm_t {label} disagrees with its plain version or is not deterministic")
+    checked = 0
+    for rows in GEMM_T_RAGGED_ROWS:
+        for n in GEMM_T_RAGGED_N:
+            for k in GEMM_T_RAGGED_K:
+                seed = 1000 * rows + 10 * n + k
+                cases = {"nt": ((rows, k), (n, k)), "nt_bf16": ((rows, k), (n, k)),
+                         "nt_acc": ((rows, k), (n, k)), "wgrad": ((rows, k), (rows, n))}
+                for form, (a_shape, b_shape) in cases.items():
+                    a, b = gemm_t_operands(form, a_shape, b_shape, device, seed)
+                    outs = [(0, None)]
+                    if form == "wgrad":
+                        outs.append((GEMM_T_FORCED_SPLITS, None))
+                    if form == "nt_acc":
+                        g = torch.Generator(device=device).manual_seed(seed + 1)
+                        outs = [(0, torch.randn((rows, n), generator=g, device=device))]
+                    for splits, out in outs:
+                        kind = "nt" if form == "nt_acc" else form
+                        want = plain(kind, a, b, None if out is None else out.clone())
+                        got = run(kind, a, b, out, splits)
+                        max_abs, worst, ok = gemm_t_errors(got, want)
+                        if not ok:
+                            fail(f"gemm_t ragged {form} a {a_shape} b {b_shape} splits={splits}: "
+                                 f"max_abs_err={max_abs:.6g}, worst over bound {worst:.4g}")
+                        checked += 1
+                act = "tanh" if (n + k) % 2 else "erf"
+                hidden_check(hidden_operands(rows, k, n, device, seed), act,
+                             f"ragged M={rows} D={k} Hd={n}")
+                checked += 1
+    torch.cuda.synchronize()
+    print(f"phase 2: gemm_t ragged: rows in {GEMM_T_RAGGED_ROWS} x N in {GEMM_T_RAGGED_N} x K in "
+          f"{GEMM_T_RAGGED_K}, forms {sorted(GEMM_T_FORMS)} (weight gradients also with "
+          f"{GEMM_T_FORCED_SPLITS} splits) and the hidden stage: {checked} cases ok=True",
+          flush=True)
+    xn, w1, b1, dy, w2 = hidden_operands(CHECK_BATCH * CELEBA.l, CELEBA.d, 4 * CELEBA.d, device, 3)
+    first, again = gemm.mlp_bwd_hidden(xn, w1, b1, dy, w2), gemm.mlp_bwd_hidden(xn, w1, b1, dy, w2)
+    if not all(torch.equal(p, q) for p, q in zip(first, again)):
+        fail("mlp_bwd_hidden is not deterministic")
+
+    a, b = gemm_t_operands("wgrad", (64, 64), (64, 64), device, seed=7)
+    c = torch.empty((64, 64), dtype=torch.float32, device=device)
+    flags = torch.zeros(64, dtype=torch.int32, device=device)
+
+    def entry(a_ptr, m, n, k, form):
+        return lib.duodiff_gemm_t(a_ptr, b.data_ptr(), c.data_ptr(), flags.data_ptr(), m, n, k,
+                                  form, 0, stream)
+
+    refused = {
+        "N = 60": entry(a.data_ptr(), 64, 60, 64, 1),
+        "M = 60 with A stored (K, M)": entry(a.data_ptr(), 60, 64, 64, 0),
+        "K = 60 read along K": entry(a.data_ptr(), 64, 64, 60, 1),
+        "A 2 bytes off": entry(a.data_ptr() + 2, 64, 64, 56, 0),
+        "hidden stage with D = 60": lib.duodiff_mlp_bwd_hidden(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(), b.data_ptr(), a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), c.data_ptr(), 8, 60, 64, 1, stream),
+    }
+    print("phase 2: gemm_t refuses " + "; ".join(
+        f"{what}: error {err} ({lib.duodiff_error_string(err).decode()})"
+        for what, err in refused.items()), flush=True)
+    if not all(refused.values()):
+        fail("the backward GEMM entry launched on an operand it cannot take")
+    for width in (CELEBA, IMAGENET):
+        ws = workspace_bytes(lib, width, MAIN_BATCH)
+        print(f"phase 2: scratch at D={width.d} B={MAIN_BATCH} (K8 at {MAIN_SPLITS} slices), MiB: "
+              + "; ".join(f"{k} {v['now'] / 2**20:.6g} (with 16 fp32 partials: {v['before'] / 2**20:.6g})"
+                          for k, v in ws.items()), flush=True)
+
+    timed = {}
+    for width in (CELEBA, IMAGENET):
+        for i, (name, form, a_shape, b_shape) in enumerate(gemm_t_products(width, MAIN_BATCH)):
+            key = f"{name} D={width.d}"
+            if form == "hidden":
+                m, d = a_shape
+                hid = b_shape[0]
+                ops = hidden_operands(m, d, hid, device, seed=i)
+                xn, w1, b1, dy, w2 = ops
+                worst = hidden_check(ops, "erf", key)
+                outs = [torch.empty((m, hid), dtype=torch.bfloat16, device=device) for _ in range(2)]
+                db1 = torch.empty(hid, device=device)
+                part = torch.empty(lib.duodiff_mlp_bwd_hidden_part_bytes(m, hid),
+                                   dtype=torch.uint8, device=device)
+                args = (xn.data_ptr(), w1.data_ptr(), b1.data_ptr(), dy.data_ptr(), w2.data_ptr(),
+                        outs[0].data_ptr(), outs[1].data_ptr(), db1.data_ptr(), part.data_ptr(),
+                        m, d, hid, 1, stream)
+                fns = {"kernel": lambda: gemm.mlp_bwd_hidden(*ops),
+                       "plain": lambda: gemm.mlp_bwd_hidden_plain(*ops),
+                       "library": lambda: (torch.matmul(xn, w1), torch.matmul(dy, w2.t()))}
+                entry_fn = lambda: lib.duodiff_mlp_bwd_hidden(*args)  # noqa: E731
+                fwd = (xn, w1, b1, "erf")
+                flops, m_, n_, k_ = 4.0 * m * hid * d, m, hid, d
+                nbytes = 2 * (2 * m * d + 2 * d * hid + 2 * m * hid) + 4 * hid * (1 + (m + 127) // 128)
+                max_abs = worst
+            else:
+                a, b = gemm_t_operands(form, a_shape, b_shape, device, seed=i)
+                got = run(form, a, b)
+                max_abs, worst, ok = gemm_t_errors(got, plain(form, a, b))
+                if not ok:
+                    fail(f"gemm_t {key} disagrees with its plain version")
+                if form == "wgrad":
+                    (k_, m_), n_ = a.shape, b.shape[1]
+                    lib_fn = lambda a=a, b=b: torch.matmul(a.t(), b)  # noqa: E731
+                    fwd = (a.t().contiguous(), b, None, "none")
+                else:
+                    (m_, k_), n_ = a.shape, b.shape[0]
+                    lib_fn = lambda a=a, b=b: torch.matmul(a, b.t())  # noqa: E731
+                    fwd = (a, b.t().contiguous(), None, "none")
+                c = torch.empty((m_, n_), dtype=got.dtype, device=device)
+                fl = torch.empty(lib.duodiff_gemm_t_flag_bytes(m_, n_), dtype=torch.uint8,
+                                 device=device)
+                args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), fl.data_ptr(), m_, n_, k_,
+                        GEMM_T_FORMS[form], 0, stream)
+                fns = {"kernel": lambda a=a, b=b, form=form: run(form, a, b),
+                       "plain": lambda a=a, b=b, form=form: plain(form, a, b), "library": lib_fn}
+                entry_fn = lambda args=args: lib.duodiff_gemm_t(*args)  # noqa: E731
+                flops = 2.0 * m_ * n_ * k_
+                nbytes = 2 * (m_ * k_ + k_ * n_) + m_ * n_ * got.element_size()
+            ms = time_ms(fns)
+            burst = {"entry": burst_ms(entry_fn), "library": burst_ms(fns["library"])}
+            fa, fb, fbias, fact = fwd
+            fc = torch.empty((fa.shape[0], fb.shape[1]), dtype=torch.bfloat16, device=device)
+            burst["forward"] = burst_ms(lambda: lib.duodiff_gemm_bf16(
+                fa.data_ptr(), fb.data_ptr(), fc.data_ptr(),
+                None if fbias is None else fbias.data_ptr(), None, fa.shape[0], fb.shape[1],
+                fa.shape[1], gemm.GELU_MODES[fact], 0, 0, stream))
+            tflops = {k: flops / (v * 1e-3) / 1e12 for k, v in burst.items()}
+            splits = lib.duodiff_gemm_t_splits(m_, n_, k_) if form == "wgrad" else None
+            sweep = None
+            if form == "wgrad":
+                sweep = {n_s: burst_ms(lambda n_s=n_s, args=args: lib.duodiff_gemm_t(
+                    *args[:8], n_s, stream)) for n_s in GEMM_T_SPLIT_SWEEP}
+                print(f"phase 2: gemm_t {key} back to back by forced row splits, ms: "
+                      + ", ".join(f"{n_s}: {t:.6g}" for n_s, t in sweep.items())
+                      + f" (the launcher takes {splits})", flush=True)
+            timed[key] = {"form": form, "M": m_, "N": n_, "K": k_, "splits": splits,
+                          "split_sweep_ms": sweep,
+                          "ms": ms["kernel"], "burst_ms": burst["entry"],
+                          "tflops": tflops["entry"],
+                          "peak_share": tflops["entry"] / (PEAK_BF16_FLOPS / 1e12),
+                          "plain_ms": ms["plain"], "library_ms": ms["library"],
+                          "library_burst_ms": burst["library"],
+                          "library_tflops": tflops["library"],
+                          "forward_burst_ms": burst["forward"],
+                          "forward_tflops": tflops["forward"],
+                          "bound_ms": bound(flops, 0, nbytes)["bound_ms"], "max_abs_err": max_abs}
+            print(f"phase 2: gemm_t {key} ({form}, M={m_} N={n_} K={k_}"
+                  f"{'' if splits is None else f', {splits} row splits'}): back to back through "
+                  f"the C entry {burst['entry']:.6g} ms ({tflops['entry']:.1f} TFLOP/s, "
+                  f"{100 * tflops['entry'] / (PEAK_BF16_FLOPS / 1e12):.1f} % of 989), call by "
+                  f"call {ms['kernel']:.6g} ms, plain {ms['plain']:.6g} ms; library yardstick "
+                  f"torch.matmul {burst['library']:.6g} ms back to back "
+                  f"({tflops['library']:.1f} TFLOP/s){' (two calls, no epilogue)' if form == 'hidden' else ''}; "
+                  f"the forward GEMM on packed operands of the same shape "
+                  f"{burst['forward']:.6g} ms ({tflops['forward']:.1f} TFLOP/s)", flush=True)
+    print(json.dumps({"gemm_t": timed}), flush=True)
+    return timed
+
+
 RAGGED_LENGTHS = (1, 63, 64, 65, 129, 257, 272)
 NORM_FIRST_LENGTHS = (65, 257)
 
@@ -2741,6 +3118,8 @@ def main(argv=None) -> int:
         report_gemm_int8()
         check_gemm_int8(device, bf16_gemm)
         check_ln_quant(device)
+        report_gemm_t()
+        check_gemm_t(device)
         check_kernels(device, results)
         check_int8_kernels(device, results)
         check_bwd_kernels(device, results)

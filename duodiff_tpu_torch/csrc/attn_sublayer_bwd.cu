@@ -12,11 +12,13 @@
 // recomputed. The launches, in order:
 //   1. LayerNorm rows -> xn (layernorm.cuh), the qkv GEMM with the fp32 bias
 //      -> qkv (gemm.cuh): the forward's own kernels, bf16 where it rounds;
-//   2. dm = dy Wp^T (gemm_t.cuh), rounded to bf16 as the Pallas kernel does;
+//   2. dm = dy Wp^T (gemm_t.cuh over gemm.cuh), rounded to bf16 as the
+//      Pallas kernel does;
 //   3. the attention core backward (attn_bwd_core.cuh): merged heads, dq,
 //      dk, dv into dqkv (B*L, 3A) bf16;
 //   4. the weight gradients dWp = merged^T dy and dWqkv = xn^T dqkv, split
-//      over the B*L rows, and dxn = dqkv Wqkv^T in fp32 (gemm_t.cuh);
+//      over the B*L rows and summed in split order, and dxn = dqkv Wqkv^T in
+//      fp32 (gemm_t.cuh over gemm.cuh: wgmma from a TMA ring);
 //   5. the LayerNorm backward with + dy and the dgamma / dbeta sums, and
 //      the column sums dbp and dbqkv (layernorm_bwd.cuh).
 // Bound: ~172 GFLOP at batch 128 (the Pallas cost estimate, :736), of which
@@ -25,8 +27,8 @@
 // all in registers, is bound by its instruction count as the forward core
 // is. The Pallas kernel keeps xn, qkv, dm and dqkv in VMEM; here they go to
 // device memory, at its bf16 rounding points, so the split changes no number.
-// Deterministic reductions: the weight gradients sum split-K partials in
-// split order (gemm_t.cuh), dgamma / dbeta / dbp / dbqkv sum per-block
+// Deterministic reductions: the weight gradients sum their row splits in
+// split order, each waiting on a per-tile flag (gemm_t.cuh), dgamma / dbeta / dbp / dbqkv sum per-block
 // partials in block order (layernorm_bwd.cuh), and the core sums dk and dv
 // over queries inside one warp; no floating-point atomics, so a repeat call
 // gives the same bits.
@@ -42,23 +44,22 @@ using duodiff::bf16;
 
 namespace {
 
-size_t align256(size_t n) { return (n + 255) / 256 * 256; }
-
 // The scratch of one call, carved from one workspace buffer in this order.
 struct AttnBwdWorkspace {
-  size_t xn, qkv, dm, merged, dqkv, stats, dxn, split, colsum, ln, total;
+  size_t xn, qkv, dm, merged, dqkv, stats, dxn, flags, colsum, ln, total;
 };
 
 AttnBwdWorkspace attn_bwd_workspace(int B, int L, int D, int H) {
   const size_t M = static_cast<size_t>(B) * L;
   const size_t A = static_cast<size_t>(H) * duodiff::kBwdDh;
-  const size_t max_dw = D * 3 * A > A * D ? D * 3 * A : A * D;
+  const size_t flags_wqkv = duodiff::weight_grad_flags(D, static_cast<int>(3 * A));
+  const size_t flags_wp = duodiff::weight_grad_flags(static_cast<int>(A), D);
   const size_t max_cols = 3 * A > static_cast<size_t>(D) ? 3 * A : D;
   AttnBwdWorkspace w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     const size_t at = off;
-    off += align256(bytes);
+    off += duodiff::align256(bytes);
     return at;
   };
   w.xn = take(M * D * sizeof(bf16));
@@ -68,7 +69,7 @@ AttnBwdWorkspace attn_bwd_workspace(int B, int L, int D, int H) {
   w.dqkv = take(M * 3 * A * sizeof(bf16));
   w.stats = take(3 * M * H * sizeof(float));
   w.dxn = take(M * D * sizeof(float));
-  w.split = take(duodiff::kMaxSplits * max_dw * sizeof(float));
+  w.flags = take(flags_wqkv > flags_wp ? flags_wqkv : flags_wp);
   w.colsum = take(duodiff::colsum_chunks(static_cast<int>(M)) * max_cols * sizeof(float));
   w.ln = take(2 * duodiff::layernorm_bwd_blocks(static_cast<int>(M)) * static_cast<size_t>(D) *
               sizeof(float));
@@ -110,7 +111,7 @@ extern "C" int duodiff_attn_sublayer_bwd(const void* x, const void* dy, const vo
   bf16* dqkv = reinterpret_cast<bf16*>(ws + w.dqkv);
   float* stats = reinterpret_cast<float*>(ws + w.stats);
   float* dxn = reinterpret_cast<float*>(ws + w.dxn);
-  float* split = reinterpret_cast<float*>(ws + w.split);
+  int* flags = reinterpret_cast<int*>(ws + w.flags);
   float* colsum = reinterpret_cast<float*>(ws + w.colsum);
   float* ln = reinterpret_cast<float*>(ws + w.ln);
   const bf16* xb = static_cast<const bf16*>(x);
@@ -124,17 +125,16 @@ extern "C" int duodiff_attn_sublayer_bwd(const void* x, const void* dy, const vo
                     kGeluNone, s);
   if (err != cudaSuccess) return err;
   // dm = dy Wp^T: Wp (A, D) is the (N, K) layout
-  err = launch_gemm_t<false, true>(dyb, D, static_cast<const bf16*>(wp), D, dm, M, A, D, 1, true,
-                                   s);
+  err = launch_gemm_nt(dyb, D, static_cast<const bf16*>(wp), D, dm, M, A, D, s);
   if (err != cudaSuccess) return err;
   err = launch_attn_bwd_core(qkv, dm, merged, dqkv, stats, B, L, H, scale, s);
   if (err != cudaSuccess) return err;
-  err = launch_weight_grad(merged, dyb, static_cast<float*>(dwp), split, A, D, M, s);
+  err = launch_weight_grad(merged, dyb, static_cast<float*>(dwp), flags, A, D, M, s);
   if (err != cudaSuccess) return err;
-  err = launch_weight_grad(xn, dqkv, static_cast<float*>(dwqkv), split, D, 3 * A, M, s);
+  err = launch_weight_grad(xn, dqkv, static_cast<float*>(dwqkv), flags, D, 3 * A, M, s);
   if (err != cudaSuccess) return err;
   // dxn = dqkv Wqkv^T: Wqkv (D, 3A) is the (N, K) layout
-  err = launch_gemm_t<false, true>(dqkv, 3 * A, wq, 3 * A, dxn, M, D, 3 * A, 1, false, s);
+  err = launch_gemm_nt(dqkv, 3 * A, wq, 3 * A, dxn, M, D, 3 * A, s);
   if (err != cudaSuccess) return err;
   err = launch_layernorm_bwd(xb, dxn, static_cast<const float*>(ln_w), dyb,
                              static_cast<bf16*>(dx), static_cast<float*>(dg),

@@ -15,6 +15,9 @@ using bf16 = __nv_bfloat16;
 // 8 bf16 values = one 16-byte vector access.
 constexpr int kVec = 8;
 
+// Offsets into a workspace start on 256-byte boundaries.
+inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+
 // A launcher's check of an operand that its kernel reads or writes in 16-byte
 // vectors or by TMA (null passes).
 inline bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }

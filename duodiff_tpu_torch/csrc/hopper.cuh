@@ -1,7 +1,9 @@
-// The Hopper pieces both tensor-core GEMMs are built from (gemm.cuh, bf16;
-// gemm_int8.cuh, int8): mbarriers with a wait that traps instead of hanging,
-// 2-D TMA loads into shared memory, wgmma shared-memory descriptors with the
-// 128-byte swizzle and the wgmma fences, and on the host the TMA map
+// The Hopper pieces the tensor-core kernels are built from (gemm.cuh, bf16,
+// forward and backward forms; mlp_bwd_hidden.cuh; gemm_int8.cuh, int8):
+// mbarriers with a wait that traps instead of hanging, 2-D TMA loads into
+// shared memory, wgmma shared-memory descriptors with the 128-byte swizzle
+// and the wgmma fences, the per-tile flags by which the row splits of a
+// weight gradient hand their sums on in order, and on the host the TMA map
 // encoder, looked up through the CUDA runtime so that nothing links -lcuda.
 #pragma once
 
@@ -58,6 +60,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       __trap();
     }
   }
+}
+
+// Wait until the flag, set by another block of the same launch, holds
+// `value` (acquire: what that block wrote before setting it is visible);
+// trap after kHangNs.
+__device__ __forceinline__ void flag_wait(const int* flag, int value) {
+  uint64_t start = 0;
+  while (true) {
+    int now_value;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(now_value) : "l"(flag) : "memory");
+    if (now_value == value) return;
+    const uint64_t now = global_ns();
+    if (start == 0) {
+      start = now;
+    } else if (now - start > kHangNs) {
+      __trap();
+    }
+  }
+}
+
+// Set the flag (release: the block's writes before it are visible to the
+// block that acquires it; the writing threads fence and meet at a barrier
+// first).
+__device__ __forceinline__ void flag_set(int* flag, int value) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" :: "l"(flag), "r"(value) : "memory");
 }
 
 // One 2-D TMA box (inner coordinate c0, outer c1) into shared memory,
@@ -136,14 +163,17 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The TMA map of a row-major (rows, cols) matrix of `elem_bytes`-byte
-// elements, read in boxes of box_rows rows x 128 bytes with the 128-byte
-// swizzle; out-of-range elements read as zeros.
+// elements whose rows lie `ld` elements apart (ld 0: cols, packed rows; a
+// column slice of a wider matrix keeps the whole width as its pitch), read
+// in boxes of box_rows rows x 128 bytes with the 128-byte swizzle;
+// out-of-range elements, past rows or past cols, read as zeros.
 inline cudaError_t swizzled_tma_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-                                    const void* base, int rows, int cols, int box_rows) {
+                                    const void* base, int rows, int cols, int box_rows,
+                                    int ld = 0) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld > 0 ? ld : cols) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};

@@ -12,14 +12,32 @@
 // Determinism: the Pallas kernels add these sums across a grid that runs in
 // order. Here each block sums a fixed range of rows into a partial, in row
 // order within each warp and then warp by warp, and sum_partials_kernel
-// (gemm_t.cuh) adds the partials in block order: two passes, no atomics.
+// adds the partials in block order: two passes, no atomics.
 #pragma once
 
 #include "common.cuh"
-#include "gemm_t.cuh"
 
 namespace duodiff {
 namespace {
+
+// out[i] = sum over p = 0 .. parts-1, in that order, of part[p * n + i]: the
+// second pass of the deterministic column sums here and of db1
+// (mlp_bwd_hidden.cuh).
+__global__ void __launch_bounds__(256)
+sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int parts, size_t n) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < parts; ++p) s += part[static_cast<size_t>(p) * n + i];
+  out[i] = s;
+}
+
+inline cudaError_t launch_sum_partials(const float* part, float* out, int parts, size_t n,
+                                       cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  sum_partials_kernel<<<blocks, 256, 0, stream>>>(part, out, parts, n);
+  return cudaGetLastError();
+}
 
 constexpr int kLnbThreads = 256;                 // 8 warps, one row each at a time
 constexpr int kLnbWarps = kLnbThreads / 32;

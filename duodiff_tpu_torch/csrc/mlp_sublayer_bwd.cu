@@ -6,25 +6,26 @@
 // Replaces: duodiff_tpu/ops/pallas_block.py _mlp_sublayer_bwd_impl (kernel
 // _mlp_bwd_kernel). The launches, in order:
 //   1. LayerNorm rows -> xn (layernorm.cuh, the forward's kernel);
-//   2. mlp_bwd_hidden_kernel (mlp_bwd_hidden.cuh): for each (128 rows, 128 hidden columns) tile,
-//      h_pre = xn W1 + b1 and dh = dy W2^T in two fp32 accumulators, and in
-//      the epilogue hgb = bf16(gelu(h_pre)), dhp = dh * gelu'(h_pre) stored
-//      as bf16, and the tile's fp32 column sums of dhp (db1 partials);
-//   3. dW2 = hgb^T dy and dW1 = xn^T dhp, split over the rows, and
-//      dxn = dhp W1^T in fp32 (gemm_t.cuh);
+//   2. mlp_bwd_hidden_kernel (mlp_bwd_hidden.cuh): for each (128 rows, 64
+//      hidden columns) tile, h_pre = xn W1 + b1 and dh = dy W2^T in two fp32
+//      accumulators, and in the epilogue warpgroups hgb = bf16(gelu(h_pre)),
+//      dhp = dh * gelu'(h_pre) stored as bf16, and the tile's fp32 column
+//      sums of dhp (db1 partials);
+//   3. dW2 = hgb^T dy and dW1 = xn^T dhp, split over the rows and summed in
+//      split order, and dxn = dhp W1^T in fp32 (gemm_t.cuh over gemm.cuh);
 //   4. the LayerNorm backward with + dy and the dgamma / dbeta sums, db1
 //      from its partials, and db2 = the column sums of dy (layernorm_bwd.cuh).
 // GELU is exact (erff) or the tanh form, and its derivative is _gelu_grad's
 // (:942) with the exact erff; the Pallas kernel's _erf_poly is a Mosaic
 // workaround for the same function.
 // Bound: 5 GEMMs of 2 * M * D * Hd flops each (~345 GFLOP at batch 128,
-// the Pallas cost estimate :1151), tensor-core bound. The Pallas kernel
-// keeps hgb and dhp in VMEM, chunk by chunk; this first design writes both
-// to device memory in bf16 (2 x 135 MB at batch 128, read back once each),
+// the Pallas cost estimate :1151), tensor-core bound, all of them wgmma
+// from a TMA-fed ring. The Pallas kernel keeps hgb and dhp in VMEM, chunk by
+// chunk; this design writes both to device memory in bf16 (2 x 135 MB at batch 128, read back once each),
 // exactly where the Pallas kernel rounds them, so the split changes no
 // number and costs ~0.2 ms of bandwidth.
 // Deterministic reductions: db1 sums per-tile partials in tile order, the
-// weight gradients sum split-K partials in split order, dgamma / dbeta /
+// weight gradients sum their row splits in split order (per-tile flags), dgamma / dbeta /
 // db2 sum per-block partials in block order; inside a tile the column sums
 // run in a fixed shuffle order. No floating-point atomics.
 
@@ -40,7 +41,7 @@ namespace duodiff {
 namespace {
 
 struct MlpBwdWorkspace {
-  size_t xn, hgb, dhp, dxn, split, db1, colsum, ln, total;
+  size_t xn, hgb, dhp, dxn, flags, db1, colsum, ln, total;
 };
 
 MlpBwdWorkspace mlp_bwd_workspace(int M, int D, int Hd) {
@@ -56,7 +57,7 @@ MlpBwdWorkspace mlp_bwd_workspace(int M, int D, int Hd) {
   w.hgb = take(m * Hd * sizeof(bf16));
   w.dhp = take(m * Hd * sizeof(bf16));
   w.dxn = take(m * D * sizeof(float));
-  w.split = take(static_cast<size_t>(kMaxSplits) * D * Hd * sizeof(float));
+  w.flags = take(weight_grad_flags(D, Hd));  // dW2 (Hd, D) has as many tiles
   w.db1 = take(static_cast<size_t>(row_tiles(M)) * Hd * sizeof(float));
   w.colsum = take(static_cast<size_t>(colsum_chunks(M)) * D * sizeof(float));
   w.ln = take(2 * static_cast<size_t>(layernorm_bwd_blocks(M)) * D * sizeof(float));
@@ -89,7 +90,7 @@ extern "C" int duodiff_mlp_sublayer_bwd(const void* x, const void* dy, const voi
   bf16* hgb = reinterpret_cast<bf16*>(ws + w.hgb);
   bf16* dhp = reinterpret_cast<bf16*>(ws + w.dhp);
   float* dxn = reinterpret_cast<float*>(ws + w.dxn);
-  float* split = reinterpret_cast<float*>(ws + w.split);
+  int* flags = reinterpret_cast<int*>(ws + w.flags);
   float* db1_part = reinterpret_cast<float*>(ws + w.db1);
   float* colsum = reinterpret_cast<float*>(ws + w.colsum);
   float* ln = reinterpret_cast<float*>(ws + w.ln);
@@ -106,12 +107,12 @@ extern "C" int duodiff_mlp_sublayer_bwd(const void* x, const void* dy, const voi
   if (err != cudaSuccess) return err;
   err = launch_sum_partials(db1_part, static_cast<float*>(db1), row_tiles(M), Hd, s);
   if (err != cudaSuccess) return err;
-  err = launch_weight_grad(hgb, dyb, static_cast<float*>(dw2), split, Hd, D, M, s);
+  err = launch_weight_grad(hgb, dyb, static_cast<float*>(dw2), flags, Hd, D, M, s);
   if (err != cudaSuccess) return err;
-  err = launch_weight_grad(xn, dhp, static_cast<float*>(dw1), split, D, Hd, M, s);
+  err = launch_weight_grad(xn, dhp, static_cast<float*>(dw1), flags, D, Hd, M, s);
   if (err != cudaSuccess) return err;
   // dxn = dhp W1^T: W1 (D, Hd) is the (N, K) layout
-  err = launch_gemm_t<false, true>(dhp, Hd, w1b, Hd, dxn, M, D, Hd, 1, false, s);
+  err = launch_gemm_nt(dhp, Hd, w1b, Hd, dxn, M, D, Hd, s);
   if (err != cudaSuccess) return err;
   err = launch_layernorm_bwd(xb, dxn, static_cast<const float*>(ln_w), dyb,
                              static_cast<bf16*>(dx), static_cast<float*>(dg),

@@ -14,10 +14,11 @@
 //         w2[s, :]: hgb and dhp of the slice in bf16, db1[s] from its
 //         per-tile partials;
 //      b. dW2[s, :] = hgb^T dy and dW1[:, s] = xn^T dhp, split over the rows
-//         (gemm_t.cuh);
-//      c. the slice's dxn partial dhp W1[:, s]^T: slice 0 writes the fp32
-//         dxn buffer, every later slice adds its fp32 product to it in the
-//         epilogue, so the partials are summed in slice order and never
+//         and summed in split order (gemm_t.cuh over gemm.cuh);
+//      c. the slice's dxn partial dhp W1[:, s]^T (the same GEMM, W1's slice
+//         read by TMA with the whole width as row pitch): slice 0 writes the
+//         fp32 dxn buffer, every later slice adds its fp32 product to it in
+//         the epilogue, so the partials are summed in slice order and never
 //         rounded below fp32 (the `dxn + dxn_s` of :1334);
 //   3. once at the end, the LayerNorm backward with + dy and the dgamma /
 //      dbeta sums, and db2 = the column sums of dy (layernorm_bwd.cuh).
@@ -32,8 +33,8 @@
 // What it costs: xn and dy are read once per slice by each product, and
 // every slice after the first reads and rewrites the fp32 dxn (M * D * 8
 // bytes).
-// Deterministic as K7 is: per-tile partials summed in tile order, split-K
-// partials in split order, slices in slice order; no floating-point atomics.
+// Deterministic as K7 is: per-tile partials summed in tile order, row
+// splits in split order, slices in slice order; no floating-point atomics.
 
 #include "common.cuh"
 #include "gemm_t.cuh"
@@ -46,44 +47,8 @@ using duodiff::bf16;
 namespace duodiff {
 namespace {
 
-// C (M, N) fp32 += A (M, K) B^T, B stored (N, K) with row pitch ldb: the
-// tile's fp32 product is added to what C holds, one read and one write of
-// each entry by the one block that owns it.
-__global__ void __launch_bounds__(kTThreads)
-gemm_nt_accumulate_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
-                          float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(128) GemmSmem sm;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kTBM, n0 = blockIdx.x * kTBN;
-  Acc acc[4][2];
-  gemm_mainloop<false, true>(sm, acc, A, lda, B, ldb, M, N, m0, n0, 0, K);
-
-  float* cs = reinterpret_cast<float*>(sm.a) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * kVec;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 64 + i * 16 + r;
-      const int gc = n0 + wn * 32 + j * 16 + c0;
-      if (gr < M && gc < N) {
-        float* dst = C + static_cast<size_t>(gr) * N + gc;
-        float v[kVec];
-        load_row8(dst, v);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) v[e] += cs[r * 16 + c0 + e];
-        store_row8(dst, v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 struct MlpBwdSplitWorkspace {
-  size_t xn, hgb, dhp, dxn, split, db1, colsum, ln, total;
+  size_t xn, hgb, dhp, dxn, flags, db1, colsum, ln, total;
 };
 
 MlpBwdSplitWorkspace mlp_bwd_split_workspace(int M, int D, int Hd, int splits) {
@@ -100,7 +65,7 @@ MlpBwdSplitWorkspace mlp_bwd_split_workspace(int M, int D, int Hd, int splits) {
   w.hgb = take(m * hs * sizeof(bf16));
   w.dhp = take(m * hs * sizeof(bf16));
   w.dxn = take(m * D * sizeof(float));
-  w.split = take(static_cast<size_t>(kMaxSplits) * D * hs * sizeof(float));
+  w.flags = take(weight_grad_flags(D, hs));
   w.db1 = take(static_cast<size_t>(row_tiles(M)) * hs * sizeof(float));
   w.colsum = take(static_cast<size_t>(colsum_chunks(M)) * D * sizeof(float));
   w.ln = take(2 * static_cast<size_t>(layernorm_bwd_blocks(M)) * D * sizeof(float));
@@ -137,7 +102,7 @@ extern "C" int duodiff_mlp_sublayer_bwd_split(const void* x, const void* dy, con
   bf16* hgb = reinterpret_cast<bf16*>(ws + w.hgb);
   bf16* dhp = reinterpret_cast<bf16*>(ws + w.dhp);
   float* dxn = reinterpret_cast<float*>(ws + w.dxn);
-  float* split = reinterpret_cast<float*>(ws + w.split);
+  int* flags = reinterpret_cast<int*>(ws + w.flags);
   float* db1_part = reinterpret_cast<float*>(ws + w.db1);
   float* colsum = reinterpret_cast<float*>(ws + w.colsum);
   float* ln = reinterpret_cast<float*>(ws + w.ln);
@@ -159,18 +124,13 @@ extern "C" int duodiff_mlp_sublayer_bwd_split(const void* x, const void* dy, con
     if (err != cudaSuccess) return err;
     err = launch_sum_partials(db1_part, static_cast<float*>(db1) + lo, row_tiles(M), hs, s);
     if (err != cudaSuccess) return err;
-    err = launch_weight_grad(hgb, dyb, static_cast<float*>(dw2) + lo * D, split, hs, D, M, s);
+    err = launch_weight_grad(hgb, dyb, static_cast<float*>(dw2) + lo * D, flags, hs, D, M, s);
     if (err != cudaSuccess) return err;
-    err = launch_weight_grad(xn, dhp, static_cast<float*>(dw1) + lo * D, split, D, hs, M, s);
+    err = launch_weight_grad(xn, dhp, static_cast<float*>(dw1) + lo * D, flags, D, hs, M, s);
     if (err != cudaSuccess) return err;
-    if (i == 0) {
-      // dxn = dhp W1[:, s]^T: the slice of W1 (D, Hd) is the (N, K) layout
-      err = launch_gemm_t<false, true>(dhp, hs, w1s, Hd, dxn, M, D, hs, 1, false, s);
-    } else {
-      const dim3 grid((D + kTBN - 1) / kTBN, row_tiles(M));
-      gemm_nt_accumulate_kernel<<<grid, kTThreads, 0, s>>>(dhp, hs, w1s, Hd, dxn, M, D, hs);
-      err = cudaGetLastError();
-    }
+    // dxn (+)= dhp W1[:, s]^T: the slice of W1 (D, Hd) is the (N, K) layout
+    err = i == 0 ? launch_gemm_nt(dhp, hs, w1s, Hd, dxn, M, D, hs, s)
+                 : launch_gemm_nt_accumulate(dhp, hs, w1s, Hd, dxn, M, D, hs, s);
     if (err != cudaSuccess) return err;
   }
   err = launch_layernorm_bwd(xb, dxn, static_cast<const float*>(ln_w), dyb,

@@ -69,6 +69,12 @@ _SIGNATURES = {
     "duodiff_gemm_int8_smem_bytes": ([], _INT),
     "duodiff_gemm_int8_blocks_per_sm": ([], _INT),
     "duodiff_ln_quant_rows": ([_PTR] * 6 + [_INT] * 2 + [_FLOAT, _INT, _PTR], _INT),
+    "duodiff_gemm_t": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
+    "duodiff_gemm_t_splits": ([_INT] * 3, _INT),
+    "duodiff_gemm_t_flag_bytes": ([_INT] * 2, ctypes.c_size_t),
+    "duodiff_gemm_t_layout": ([_PTR], _INT),
+    "duodiff_mlp_bwd_hidden": ([_PTR] * 9 + [_INT] * 4 + [_PTR], _INT),
+    "duodiff_mlp_bwd_hidden_part_bytes": ([_INT] * 2, ctypes.c_size_t),
     "duodiff_attn_core_max_len": ([], _INT),
     "duodiff_attn_bwd_core_max_len": ([], _INT),
     "duodiff_error_string": ([_INT], ctypes.c_char_p),

@@ -13,7 +13,17 @@
   then by epilogue the bf16 residual, the fp32 bias, GELU, one rounding to
   bf16, fp32 or int8 codes;
 - :func:`ln_quant_rows` (``csrc/quant.cuh``, same entry): the LayerNorm +
-  int8 row quant pass in front of both W8A8 sublayers.
+  int8 row quant pass in front of both W8A8 sublayers;
+- :func:`gemm_t` (``csrc/gemm_t.cuh`` over ``csrc/gemm.cuh``, through the
+  entry ``csrc/gemm_t_entry.cu``): the backward products of K6, K7 and K8, a
+  weight gradient ``a^T b`` (a stored (K, M), b (K, N), fp32, split over
+  the K rows and summed in split order) or ``a b^T`` (b stored (N, K)) into
+  bf16 or fp32, or added to an fp32 ``out``; the contractions of
+  ``_attn_bwd_kernel`` and ``_mlp_bwd_kernel`` in
+  ``duodiff_tpu/ops/pallas_block.py``;
+- :func:`mlp_bwd_hidden` (``csrc/mlp_bwd_hidden.cuh``, same entry): the MLP
+  backward's hidden stage, hgb = bf16(gelu(xn W1 + b1)), dhp = bf16(dy W2^T
+  * gelu'(xn W1 + b1)) and db1, the column sums of the unrounded dhp.
 
 No model calls them: the sublayer kernels of ``ops/block.py`` and
 ``ops/block_int8.py`` run the same device code inside their own launches, and
@@ -28,7 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from duodiff_tpu_torch.ops.block import _check, _layer_norm, _ptr, _raise_on_error
+from duodiff_tpu_torch.ops.block import _check, _layer_norm, _ptr, _raise_on_error, gelu_grad
 from duodiff_tpu_torch.ops.block_int8 import (
     LN_QUANT_MAX_WIDTH,
     _int8_matmul,
@@ -243,3 +253,152 @@ def ln_quant_rows(x, gamma, beta, inv=None, *, eps: float = 1e-5, first: bool = 
 
 
 ln_quant_rows.launches = 0
+
+
+def _aligned(name, t) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (the TMA loads and row vectors)")
+
+
+def _gemm_t_dims(a, b, trans_a: bool):
+    """(M, N, K) of ``a^T b`` (trans_a: a (K, M), b (K, N)) or ``a b^T`` (a
+    (M, K), b (N, K)), with the refusals of the kernel's launcher."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"a and b must be matrices, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if trans_a:
+        k, m = a.shape
+        kb, n = b.shape
+    else:
+        m, k = a.shape
+        n, kb = b.shape
+    if k != kb:
+        raise ValueError(f"a and b do not chain over K: {tuple(a.shape)}, {tuple(b.shape)} "
+                         f"(trans_a={trans_a})")
+    if n % 8:
+        raise ValueError(f"N must be a multiple of 8, got {n}")
+    if trans_a and m % 8:
+        raise ValueError(f"M must be a multiple of 8 when a is stored (K, M), got {m}")
+    if not trans_a and k % 8:
+        raise ValueError(f"K must be a multiple of 8 when both operands are read along K, "
+                         f"got {k}")
+    return m, n, k
+
+
+def gemm_t_plain(a, b, *, trans_a: bool, out_dtype=torch.float32, out=None):
+    """Plain PyTorch: the fp32 product of the bf16 operands, ``a^T b`` with
+    trans_a (a (K, M), b (K, N); fp32 out) or ``a b^T`` (a (M, K), b (N, K))
+    rounded once to ``out_dtype``; with ``out`` (fp32 (M, N)), ``out + a b^T``
+    written into ``out``, which is returned."""
+    if trans_a and (out_dtype != torch.float32 or out is not None):
+        raise ValueError("a weight gradient (trans_a) is an fp32 product, never added to out")
+    acc = a.float().t() @ b.float() if trans_a else a.float() @ b.float().t()
+    if out is not None:
+        return out.add_(acc)
+    return acc.to(out_dtype)
+
+
+def _gemm_t_cuda(a, b, *, trans_a: bool, out_dtype, out, splits: int):
+    from duodiff_tpu_torch.ops._build import load_library
+
+    m, n, k = _gemm_t_dims(a, b, trans_a)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    if trans_a and (out_dtype != torch.float32 or out is not None):
+        raise ValueError("a weight gradient (trans_a) is an fp32 product, never added to out")
+    if out is not None and out_dtype != torch.float32:
+        raise ValueError("out is added to in fp32")
+    _aligned("a", a)
+    _aligned("b", b)
+    dev = a.device
+    _check("a", a, tuple(a.shape), torch.bfloat16, dev)
+    _check("b", b, tuple(b.shape), torch.bfloat16, dev)
+    if out is not None:
+        _aligned("out", out)
+        _check("out", out, (m, n), torch.float32, dev)
+    lib = load_library()
+    flags = None
+    if trans_a:
+        form = 0
+        flags = torch.empty(lib.duodiff_gemm_t_flag_bytes(m, n), dtype=torch.uint8, device=dev)
+    else:
+        form = 3 if out is not None else (1 if out_dtype == torch.float32 else 2)
+    c = out if out is not None else torch.empty((m, n), dtype=out_dtype, device=dev)
+    err = lib.duodiff_gemm_t(_ptr(a), _ptr(b), _ptr(c), _ptr(flags), m, n, k, form, splits,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on_error(lib, "backward GEMM kernel", err)
+    return c
+
+
+def gemm_t(a, b, *, trans_a: bool, out_dtype=torch.float32, out=None, splits: int = 0):
+    """A backward product (:func:`gemm_t_plain`) through the kernel of
+    ``csrc/gemm.cuh`` in the form ``csrc/gemm_t.cuh`` launches, or its plain
+    version on the CPU. ``splits`` (trans_a only) forces the number of row
+    splits; 0 takes the launcher's choice for the card."""
+    if a.device.type == "cpu":
+        _gemm_t_dims(a, b, trans_a)
+        return gemm_t_plain(a, b, trans_a=trans_a, out_dtype=out_dtype, out=out)
+    c = _gemm_t_cuda(a, b, trans_a=trans_a, out_dtype=out_dtype, out=out, splits=splits)
+    gemm_t.launches += 1
+    return c
+
+
+gemm_t.launches = 0
+
+
+def mlp_bwd_hidden_plain(xn, w1, b1, dy, w2, *, gelu: str = "erf"):
+    """Plain PyTorch: h = xn W1 + b1 in fp32, (bf16(gelu(h)), bf16(dy W2^T *
+    gelu'(h)), the column sums of the unrounded dy W2^T * gelu'(h)), as
+    :func:`duodiff_tpu_torch.ops.block.mlp_sublayer_bwd_plain` computes them."""
+    if gelu not in ("erf", "tanh"):
+        raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
+    h = xn.float() @ w1.float() + b1.float()
+    hgb = F.gelu(h, approximate="tanh" if gelu == "tanh" else "none").to(torch.bfloat16)
+    dhp = (dy.float() @ w2.float().t()) * gelu_grad(h, gelu == "tanh")
+    return hgb, dhp.to(torch.bfloat16), dhp.sum(0)
+
+
+def _mlp_bwd_hidden_cuda(xn, w1, b1, dy, w2, *, gelu: str):
+    from duodiff_tpu_torch.ops._build import load_library
+
+    if gelu not in ("erf", "tanh"):
+        raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
+    if xn.dim() != 2 or w1.dim() != 2:
+        raise ValueError(f"xn (M, D) and w1 (D, Hd) must be matrices, got {tuple(xn.shape)}, "
+                         f"{tuple(w1.shape)}")
+    m, d = xn.shape
+    hid = w1.shape[1]
+    if d % 8 or hid % 8:
+        raise ValueError(f"D and the hidden width must be multiples of 8, got {d}, {hid}")
+    for name, t in (("xn", xn), ("w1", w1), ("b1", b1), ("dy", dy), ("w2", w2)):
+        _aligned(name, t)
+    dev, bf16, f32 = xn.device, torch.bfloat16, torch.float32
+    _check("xn", xn, (m, d), bf16, dev)
+    _check("w1", w1, (d, hid), bf16, dev)
+    _check("b1", b1, (hid,), f32, dev)
+    _check("dy", dy, (m, d), bf16, dev)
+    _check("w2", w2, (hid, d), bf16, dev)
+    lib = load_library()
+    hgb = torch.empty((m, hid), dtype=bf16, device=dev)
+    dhp = torch.empty((m, hid), dtype=bf16, device=dev)
+    db1 = torch.empty((hid,), dtype=f32, device=dev)
+    part = torch.empty(lib.duodiff_mlp_bwd_hidden_part_bytes(m, hid), dtype=torch.uint8,
+                       device=dev)
+    err = lib.duodiff_mlp_bwd_hidden(_ptr(xn), _ptr(w1), _ptr(b1), _ptr(dy), _ptr(w2), _ptr(hgb),
+                                     _ptr(dhp), _ptr(db1), _ptr(part), m, d, hid,
+                                     GELU_MODES[gelu], torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on_error(lib, "MLP backward hidden-stage kernel", err)
+    return hgb, dhp, db1
+
+
+def mlp_bwd_hidden(xn, w1, b1, dy, w2, *, gelu: str = "erf"):
+    """The MLP backward's hidden stage (:func:`mlp_bwd_hidden_plain`) through
+    the kernel of ``csrc/mlp_bwd_hidden.cuh``, or its plain version on the
+    CPU: (hgb, dhp, db1)."""
+    if xn.device.type == "cpu":
+        return mlp_bwd_hidden_plain(xn, w1, b1, dy, w2, gelu=gelu)
+    out = _mlp_bwd_hidden_cuda(xn, w1, b1, dy, w2, gelu=gelu)
+    mlp_bwd_hidden.launches += 1
+    return out
+
+
+mlp_bwd_hidden.launches = 0
