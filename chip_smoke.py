@@ -51,7 +51,7 @@ checks them, in phases, each printing its results on its own lines:
    profile and peak memory, then 20 steps with ``--attn_impl fused`` (K1,
    K2, K6, K7 at D = 768);
 8. the same fused training with ``DUODIFF_MLP_BWD_SPLIT=1``, so that the MLP
-   sublayer's backward is the hidden-split kernel K8 and K7 never runs: 40
+   sublayer's backward is the split kernel K8 and K7 never runs: 40
    steps (the loss must fall; split, profile and peak memory beside phase
    7's), 20 steps with ``--grad_accum 2 --skip_nonfinite 3`` (10 optimizer
    updates), a run loaded from that one's checkpoint of step 13, inside an
@@ -101,14 +101,16 @@ kernels K9 and K10 at three (B, H, L) with
 K1, K2, K6, K7, K11 and K12 at the ImageNet-64 width, and at both widths
 the rest of ``ops/pallas_block.py``: the per-head attention sublayer K1-v1
 and the whole-block kernel K5 against their plain versions, K5 timed beside
-K1 then K2 and K1-v1 beside K1, and K8 at 2, 4 and 8 slices against its
-plain version and against K7, timed beside K7; and at the probes' geometry
-K13 and K14, dynamic and static, and K15's two forms (the int8 one within
-1 % relative Frobenius of its plain version, equal bits on a repeat call,
-under 5 % from the bf16 form) with ``F.scaled_dot_product_attention(scale=1)``
-timed beside them. It prints what the compiler and the runtime say of the two
-attention cores (registers and spills a thread, shared memory and resident
-blocks an SM, which must hold eight warps), holds K9 and K10 against their
+K1 then K2 and K1-v1 beside K1, and K8 at 2, 4 and 8 splits (row chunks,
+the last ragged at batch 8) against its plain version and against K7 (dx,
+db1 and db2 equal to K7's bits), timed in turns beside K7; and at the
+probes' geometry K13 and K14, dynamic and static, and K15's two forms (the
+int8 one within 1 % relative Frobenius of its plain version, equal bits on a
+repeat call, under 5 % from the bf16 form, also at ragged lengths 1 to 272)
+with ``F.scaled_dot_product_attention(scale=1)`` timed beside them. It prints
+what the compiler and the runtime say of the attention cores, the int8 one
+included (registers and spills a thread, shared memory and resident blocks
+an SM, which must hold eight warps), holds K9 and K10 against their
 plain versions at the lengths where a 16-row tile and the cores' 272-key
 limit break (1, 63, 64, 65, 129, 257, 272) and K1-v1 at 65 and 257, and times
 K9, K10 and the library call 20 calls back to back beside the call-by-call
@@ -242,7 +244,7 @@ BWD_KERNELS = {
     },
 }
 # the rest of ops/pallas_block.py: the per-head attention sublayer, the
-# whole-block kernel and the hidden-split MLP backward; their recorded times
+# whole-block kernel and the split MLP backward; their recorded times
 # and bounds are those at the ImageNet-64 width, where training runs K8
 BLOCK_KERNELS = {
     "fused_attn_sublayer_v1": {
@@ -296,7 +298,7 @@ PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9")
 # and the whole stack to STACK_GRAD_REL_FRO; a wrong backward is off by its
 # whole size either way.
 STACK_GRAD_REL_FRO = 3e-2
-SPLITS = (2, 4, 8)       # K8's slice counts held in phase 2
+SPLITS = (2, 4, 8)       # K8's splits held in phase 2 (row chunks on the card)
 MAIN_SPLITS = 4          # what mlp_bwd_split_config picks at hidden 2048 and 3072
 # The backward kernels are held per output tensor to
 # ||kernel - plain|| / ||plain|| <= BWD_REL_FRO: most gradient entries are
@@ -700,13 +702,22 @@ def check_block_kernels(device, results: dict, width: Width, suffix: str) -> Non
             results["fused_attn_sublayer_v1"]["v2_ms" + suffix] = ms["K1"]
 
 
+# K8's outputs that do not depend on how the rows are chunked: its chunks are
+# whole 128-row tiles, so every per-row value and every per-tile sum of the
+# hidden stage is K7's; the fp32 sums of dW1 and dW2 run over the chunks, and
+# those of dgamma and dbeta over smaller blocks where a chunk is small, in
+# another order
+SPLIT_EQUAL_TO_K7 = ("dx", "db1", "db2")
+
+
 def check_split_kernel(device, results: dict, width: Width, variants, suffix: str) -> None:
-    """Phase 2, the hidden-split MLP backward: K8 at 2, 4 and 8 slices
-    against mlp_sublayer_bwd_split_plain (every output within BWD_REL_FRO, dx
-    also elementwise, equal bits on a repeat call) and against K7's outputs
-    on the same inputs within the same bound, at batch 8 and 128; at batch
-    128 K8 timed beside K7, with the scratch each takes. The times kept are
-    those of MAIN_SPLITS slices, exact GELU."""
+    """Phase 2, the split MLP backward: K8 at 2, 4 and 8 splits against
+    mlp_sublayer_bwd_split_plain (every output within BWD_REL_FRO, dx also
+    elementwise, equal bits on a repeat call) and against K7's outputs on the
+    same inputs within the same bound, SPLIT_EQUAL_TO_K7 equal to K7's bits,
+    at batch 8 (whose rows leave a ragged last chunk) and 128; at batch 128
+    K8 timed in turns beside K7, with the scratch each takes. The times kept
+    are those of MAIN_SPLITS chunks, exact GELU."""
     from duodiff_tpu_torch.ops import block
     from duodiff_tpu_torch.ops._build import load_library
 
@@ -736,13 +747,22 @@ def check_split_kernel(device, results: dict, width: Width, variants, suffix: st
                 main = batch == MAIN_BATCH and not variant and splits == MAIN_SPLITS
                 compare_bwd_kernel(res, f"fused_mlp_sublayer_bwd_split {where} splits={splits}",
                                    outs, kernel, plain, suffix if main else None)
-                rels = {n: rel_fro(g, w) for n, g, w in zip(outs, kernel(), mono)}
+                got = kernel()
+                rels = {n: rel_fro(g, w) for n, g, w in zip(outs, got, mono)}
                 worst = max(rels, key=rels.get)
-                ok = rels[worst] <= BWD_REL_FRO
-                print(f"phase 2: K8 splits={splits} against K7 {where}: worst rel_fro_err "
-                      f"{rels[worst]:.3g} ({worst}) (bound {BWD_REL_FRO}) ok={ok}", flush=True)
+                same = [n for n, g, w in zip(outs, got, mono)
+                        if n in SPLIT_EQUAL_TO_K7 and torch.equal(g, w)]
+                ok = rels[worst] <= BWD_REL_FRO and len(same) == len(SPLIT_EQUAL_TO_K7)
+                rows = x.shape[0] * x.shape[1]
+                chunk = lib.duodiff_mlp_sublayer_bwd_split_chunk_rows(rows, splits)
+                n_chunks = -(-rows // chunk)
+                print(f"phase 2: K8 splits={splits} against K7 {where}: {rows} rows in {n_chunks} "
+                      f"chunks of {chunk}, the last {rows - (n_chunks - 1) * chunk}; worst "
+                      f"rel_fro_err {rels[worst]:.3g} ({worst}) (bound {BWD_REL_FRO}); equal to "
+                      f"K7's bits: {', '.join(same) or 'none'} (of {', '.join(SPLIT_EQUAL_TO_K7)}) "
+                      f"ok={ok}", flush=True)
                 if not ok:
-                    fail(f"K8 with {splits} slices disagrees with K7 at {where}")
+                    fail(f"K8 with {splits} splits disagrees with K7 at {where}")
             if batch != MAIN_BATCH or variant:
                 continue
             fns = {f"K8 splits={n}": (lambda n=n: block.fused_mlp_sublayer_bwd_split(
@@ -754,8 +774,9 @@ def check_split_kernel(device, results: dict, width: Width, variants, suffix: st
                 rows, width.d, hid, n) for n in SPLITS}
             scratch["K7"] = lib.duodiff_mlp_sublayer_bwd_workspace(rows, width.d, hid)
             k6 = lib.duodiff_attn_sublayer_bwd_workspace(batch, width.l, width.d, width.heads)
-            print(f"phase 2: {where}: " + "; ".join(
-                f"{k} {ms[k]:.6g} ms, scratch {scratch[k] / 2**20:.6g} MiB" for k in ms)
+            print(f"phase 2: {where}, in turns: " + "; ".join(
+                f"{k} {ms[k]:.6g} ms ({ms[k] / ms['K7']:.4g} x K7), scratch "
+                f"{scratch[k] / 2**20:.6g} MiB" for k in ms)
                 + f" (K6, the other backward kernel of a block, takes {k6 / 2**20:.6g} MiB)",
                 flush=True)
             res["monolithic_ms" + suffix] = ms["K7"]
@@ -1401,7 +1422,8 @@ def gemm_form(entry: str) -> str:
     a = "A stored (K, M)" if form.group(1) == "1" else "A (M, K)"
     b = "B stored (N, K)" if form.group(2) == "1" else "B (K, N)"
     if "SplitSumEpilogue" in entry:
-        return f"{a}, {b}, split sums"
+        pair = ", two products" if re.search(r"SplitSumEpilogueELi2E", entry) else ""
+        return f"{a}, {b}, split sums{pair}"
     rows = re.search(r"RowEpilogueI(.*?)EE", entry)
     types = ", ".join("fp32" if t == "f" else "bf16"
                       for t in re.findall(r"13__nv_bfloat16|S\d*_|f", rows.group(1) if rows else ""))
@@ -1447,24 +1469,38 @@ def report_gemm_t() -> None:
         fail("; ".join(bad))
 
 
-def workspace_bytes(lib, width: Width, batch: int) -> dict:
-    """K6's, K7's and K8's (MAIN_SPLITS slices) scratch bytes at (width,
-    batch): now, and with the split-K scratch the weight gradients took
-    before their row splits summed through flags (the same layout with 16
-    fp32 partials of the largest weight gradient in place of the flags)."""
-    def a256(n):
-        return (n + 255) // 256 * 256
+def a256(n: int) -> int:
+    return (n + 255) // 256 * 256
 
+
+def split_slices_bytes(lib, m: int, d: int, splits: int) -> int:
+    """K8's scratch when it cut the hidden width into `splits` slices (xn and
+    the fp32 dxn of all rows, hgb and dhp of one slice, the slice's flags and
+    db1 partials, the column-sum and LayerNorm partials), to set beside the
+    row chunks' (duodiff_mlp_sublayer_bwd_split_workspace)."""
+    hs, tiles = 4 * d // splits, -(-m // 128)
+    return (a256(m * d * 2) + 2 * a256(m * hs * 2) + a256(m * d * 4)
+            + a256(lib.duodiff_gemm_t_flag_bytes(d, hs)) + a256(tiles * hs * 4)
+            + a256(-(-m // 256) * d * 4) + a256(2 * -(-m // 64) * d * 4))
+
+
+def workspace_bytes(lib, width: Width, batch: int) -> dict:
+    """K6's, K7's and K8's (MAIN_SPLITS chunks) scratch bytes at (width,
+    batch): now, and as they were before: K6 and K7 with the split-K scratch
+    the weight gradients took before their row splits summed through flags
+    (the same layout with 16 fp32 partials of the largest weight gradient in
+    place of the flags), K8 cutting the hidden width (split_slices_bytes)."""
     m, d = batch * width.l, width.d
-    hid, hs = 4 * d, 4 * d // MAIN_SPLITS
+    hid = 4 * d
     now = {"K6": lib.duodiff_attn_sublayer_bwd_workspace(batch, width.l, d, width.heads),
            "K7": lib.duodiff_mlp_sublayer_bwd_workspace(m, d, hid),
            "K8": lib.duodiff_mlp_sublayer_bwd_split_workspace(m, d, hid, MAIN_SPLITS)}
     flags = {"K6": max(lib.duodiff_gemm_t_flag_bytes(d, 3 * d), lib.duodiff_gemm_t_flag_bytes(d, d)),
-             "K7": lib.duodiff_gemm_t_flag_bytes(d, hid), "K8": lib.duodiff_gemm_t_flag_bytes(d, hs)}
-    partials = {"K6": 16 * 3 * d * d * 4, "K7": 16 * d * hid * 4, "K8": 16 * d * hs * 4}
-    return {k: {"now": now[k], "before": now[k] - a256(flags[k]) + a256(partials[k])}
-            for k in now}
+             "K7": lib.duodiff_gemm_t_flag_bytes(d, hid)}
+    partials = {"K6": 16 * 3 * d * d * 4, "K7": 16 * d * hid * 4}
+    before = {k: now[k] - a256(flags[k]) + a256(partials[k]) for k in flags}
+    before["K8"] = split_slices_bytes(lib, m, d, MAIN_SPLITS)
+    return {k: {"now": now[k], "before": before[k]} for k in now}
 
 
 def check_gemm_t(device) -> dict:
@@ -1593,9 +1629,10 @@ def check_gemm_t(device) -> dict:
         fail("the backward GEMM entry launched on an operand it cannot take")
     for width in (CELEBA, IMAGENET):
         ws = workspace_bytes(lib, width, MAIN_BATCH)
-        print(f"phase 2: scratch at D={width.d} B={MAIN_BATCH} (K8 at {MAIN_SPLITS} slices), MiB: "
-              + "; ".join(f"{k} {v['now'] / 2**20:.6g} (with 16 fp32 partials: {v['before'] / 2**20:.6g})"
-                          for k, v in ws.items()), flush=True)
+        print(f"phase 2: scratch at D={width.d} B={MAIN_BATCH} (K8 at {MAIN_SPLITS} chunks), MiB: "
+              + "; ".join(f"{k} {v['now'] / 2**20:.6g} ("
+                          + ("by hidden slices" if k == "K8" else "with 16 fp32 partials")
+                          + f": {v['before'] / 2**20:.6g})" for k, v in ws.items()), flush=True)
 
     timed = {}
     for width in (CELEBA, IMAGENET):
@@ -1834,14 +1871,19 @@ def check_probe_kernels(device, results: dict) -> None:
         rel, max_abs = rel_fro(got, want), errors(got, want)[0]
         from_bf16 = rel_fro(got, sdpa_int8.sdpa_chain_bf16(qq, kk, vv))
         ms = time_ms({"kernel": lambda: sdpa_int8.sdpa_chain_int8(qq, kk, vv),
+                      "bf16": lambda: sdpa_int8.sdpa_chain_bf16(qq, kk, vv),
                       "plain": lambda: sdpa_int8.sdpa_chain_int8_plain(qq, kk, vv),
                       "library": lambda: F.scaled_dot_product_attention(qq, kk, vv, scale=1.0)})
+        burst = {"int8": burst_ms(lambda: sdpa_int8.sdpa_chain_int8(qq, kk, vv)),
+                 "bf16": burst_ms(lambda: sdpa_int8.sdpa_chain_bf16(qq, kk, vv))}
         ok = same and rel <= FWD_REL_FRO and from_bf16 <= SDPA_INT8_REL
         print(f"phase 2: K15 sdpa_chain_int8 {label}: rel_fro_err={rel:.6g} (bound {FWD_REL_FRO}) "
               f"max_abs_err={max_abs:.6g} repeat_equal={same} rel l2 from the bf16 form "
               f"{from_bf16:.6g} (bound {SDPA_INT8_REL}) ok={ok} kernel_ms={ms['kernel']:.6g} "
-              f"plain_ms={ms['plain']:.6g}; library yardstick F.scaled_dot_product_attention("
-              f"scale=1) {ms['library']:.6g} ms", flush=True)
+              f"plain_ms={ms['plain']:.6g}; in turns beside the bf16 form {ms['bf16']:.6g} ms "
+              f"({ms['kernel'] / ms['bf16']:.4g} x); back to back int8 {burst['int8']:.6g}, bf16 "
+              f"{burst['bf16']:.6g} ms ({burst['int8'] / burst['bf16']:.4g} x); library yardstick "
+              f"F.scaled_dot_product_attention(scale=1) {ms['library']:.6g} ms", flush=True)
         if not ok:
             fail(f"K15 sdpa_chain_int8 {label} disagrees with its plain version, with the bf16 "
                  "form, or is not deterministic")
@@ -1851,7 +1893,78 @@ def check_probe_kernels(device, results: dict) -> None:
         if timed:
             keep_times(res, ms, "")
             res["rel_l2_from_bf16"] = from_bf16
+            res["bf16_ms_in_turns"] = ms["bf16"]
+            res["back_to_back_ms"] = burst["int8"]
             res["library_ms"] = results["sdpa_chain_bf16"]["library_ms"] = ms["library"]
+
+
+# K15's int8 form at ragged lengths (batch 8, 8 heads): every class of the
+# core's tile count, its edges, and the longest length it takes
+RAGGED_INT8_LENGTHS = (1, 37, 63, 64, 65, 129, 257, 272)
+
+
+def report_int8_chain() -> None:
+    """Phase 2: what ptxas and the occupancy call say of K15's int8 core
+    (registers, spills, warps, shared memory and blocks an SM at the probe's
+    length and the longest). Fails on a spill, a ptxas warning, or fewer
+    than eight warps an SM."""
+    from duodiff_tpu_torch.ops._build import kernel_resources, load_library, ptxas_warnings
+
+    bad = []
+    for rec in kernel_resources("sdpa_int8"):
+        if "attn_core_int8_kernel" not in rec["entry"]:
+            continue
+        tiles = re.search(r"SeqClassILi(\d+)", rec["entry"])
+        keys = f"up to {8 * int(tiles.group(1))} keys" if tiles else rec["entry"]
+        print(f"phase 2: K15 int8 core, {keys} (sdpa_int8.cu): {rec['registers']} registers a "
+              f"thread, spill stores {rec['spill_stores']} B, spill loads {rec['spill_loads']} B, "
+              f"stack {rec['stack']} B", flush=True)
+        if rec["spill_stores"] or rec["spill_loads"]:
+            bad.append(f"the int8 core ({keys}) spills")
+    for line in ptxas_warnings("sdpa_int8"):
+        print(f"phase 2: ptxas on sdpa_int8.cu: {line}", flush=True)
+        bad.append(f"ptxas on sdpa_int8.cu: {line}")
+    lib = load_library()
+    for l in (CELEBA.l, lib.duodiff_sdpa_int8_max_len()):
+        warps, smem = lib.duodiff_sdpa_int8_warps(), lib.duodiff_sdpa_int8_smem_bytes(l)
+        blocks = lib.duodiff_sdpa_int8_blocks_per_sm(l)
+        print(f"phase 2: K15 int8 core at L={l}: {warps} warps a block, {smem} B of shared memory, "
+              f"{blocks} blocks an SM", flush=True)
+        if warps * blocks < 8:
+            bad.append(f"the int8 core holds fewer than eight warps an SM at L={l}")
+    if bad:
+        fail("; ".join(bad))
+
+
+def check_ragged_int8_chain(device, results: dict) -> None:
+    """Phase 2, K15's int8 form at RAGGED_INT8_LENGTHS, untimed, batch 8, 8
+    heads: within FWD_REL_FRO of its plain version, equal to the bit on a
+    repeat call and within SDPA_INT8_REL of the bf16 form, as
+    check_probe_kernels holds it at the probe's length."""
+    from duodiff_tpu_torch.ops import sdpa_int8
+
+    b, h = CHECK_BATCH, 8
+    res = results["sdpa_chain_int8"]
+    for l in RAGGED_INT8_LENGTHS:
+        g = torch.Generator().manual_seed(2000 + l)
+        qq, kk, vv = (torch.randn((b, h, l, 64), generator=g).to(torch.bfloat16).to(device)
+                      for _ in range(3))
+        got = sdpa_int8.sdpa_chain_int8(qq, kk, vv)
+        again = sdpa_int8.sdpa_chain_int8(qq, kk, vv)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        want = sdpa_int8.sdpa_chain_int8_plain(qq, kk, vv)
+        rel, max_abs = rel_fro(got, want), errors(got, want)[0]
+        from_bf16 = rel_fro(got, sdpa_int8.sdpa_chain_bf16(qq, kk, vv))
+        ok = same and rel <= FWD_REL_FRO and from_bf16 <= SDPA_INT8_REL
+        print(f"phase 2: ragged K15 sdpa_chain_int8 B={b} H={h} L={l}: rel_fro_err={rel:.6g} "
+              f"(bound {FWD_REL_FRO}) max_abs_err={max_abs:.6g} repeat_equal={same} rel l2 from "
+              f"the bf16 form {from_bf16:.6g} (bound {SDPA_INT8_REL}) ok={ok}", flush=True)
+        if not ok:
+            fail(f"K15 sdpa_chain_int8 at L={l} disagrees with its plain version, with the bf16 "
+                 "form, or is not deterministic")
+        res["max_abs_err"] = max(res["max_abs_err"], max_abs)
+        res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), rel)
 
 
 def bound(flops: float, int8_ops: float, nbytes: float) -> dict:
@@ -3134,6 +3247,8 @@ def main(argv=None) -> int:
         check_block_kernels(device, results, CELEBA, suffix="_d512")
         check_split_kernel(device, results, CELEBA, variants=(False, True), suffix="_d512")
         check_probe_kernels(device, results)
+        report_int8_chain()
+        check_ragged_int8_chain(device, results)
     if "3" in run:
         check_model(device)
         check_int8_model(device)

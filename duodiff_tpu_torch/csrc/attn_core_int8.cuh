@@ -20,312 +20,431 @@
 // differ only through expf against torch.exp, the order of the fp32 sum of
 // e, and an e code flipping by one at a rounding boundary.
 //
-// One block per (query tile of 64 rows, head, sample), 4 warps of 16 query
-// rows each, with the score rows in shared memory (the bf16 core,
-// attn_core.cuh, keeps its own in registers):
-//   - the head's k and v rows are copied once into shared memory as they
-//     come (bf16, in the area the warps' score rows take later), so that the
-//     quantization passes below never wait for device memory;
-//   - k's rows are quantized once per block (8 lanes a row), not once per
-//     warp;
-//   - v's column maxima are reduced over the L rows by the whole block, then
-//     the codes are staged transposed, v^T (64 x Lpad) with Lpad = L rounded
-//     up to 32 and the tail zero: the instruction's second operand wants K
-//     contiguous, and K is the token axis in the value product;
-//   - each warp quantizes its 16 q rows, takes s with mma.sync m16n8k32
-//     (two k32 steps), writes the dequantized fp32 scores to shared memory,
-//     runs a two-pass softmax over those stored rows, and stores the
-//     e codes (a quarter of the bf16 probabilities' bytes);
-//   - o32 = e8 v8 with Lpad / 32 k32 steps into 8 column tiles of int32
-//     accumulators in registers; the epilogue writes bf16 pairs.
+// Bound: 4*L*L*Dh int8 operations per (sample, head) against 8*L*Dh bytes,
+// as the bf16 form: bytes at the roofline. On the card such a small kernel
+// pays for its instructions and for latency with few warps resident. The
+// first design kept each warp's fp32 score rows in shared memory (~143 KB a
+// block at L = 257: one block of 4 warps an SM) and quantized k and v again
+// for every 64-row query tile. This one has the shape of the bf16 core
+// (attn_core.cuh, attn_tiles.cuh):
+//   - one block a (sample, head), its 4 warps walking the 16-row query
+//     tiles; a head is split over more blocks only while the heads alone do
+//     not fill the card (head_splits);
+//   - k and v are quantized once a block, read straight from device memory
+//     into registers (8 lanes a row, 16 bytes a lane): k per row into codes
+//     and sk; v per column, its maxima reduced over the rows by shuffles and
+//     across the warps through shared memory, then its codes staged as v^T.
+//     Shared memory then holds only int8 codes and their scales (43,584
+//     bytes at L = 272), so the registers, not the shared memory, set the
+//     blocks an SM: three of 4 warps (kI8BlocksPerSm, 168 registers);
+//   - each warp quantizes its 16 q rows in registers (the four lanes of a
+//     row hold its 64 values as the A fragments of mma.sync m16n8k32 s8 and
+//     reduce the amax by two shuffles) and forms its scores tile by tile of
+//     8 keys in registers, dequantized as float(s32) * (sq[i] * sk[j]), in
+//     two passes: the first keeps only the row maxima; the second forms each
+//     tile again, takes e, adds it to the fp32 row sums and packs
+//     e8 = rint(e * 127) straight into the A fragment of the value product,
+//     whose k32 step runs as soon as its 32 keys are packed. Holding all the
+//     score tiles between the max and e, as the bf16 core does, takes 136
+//     registers at L = 272: that form ran at 255 registers with spills, two
+//     blocks an SM. Forming the scores twice costs two int8 products a tile
+//     and no rounding: both passes form each tile with the same operations.
+//     No score, no e and no output tile is ever in shared memory;
+//   - the int32 accumulator layout is not the int8 A layout: thread (g, tg)
+//     holds keys 2tg, 2tg+1 of each 8-key tile, where a k32 A fragment
+//     wants k = 4tg..4tg+3 and 16+4tg..16+4tg+3. So v^T's tokens are staged
+//     in the matching order inside each 32-token block: position 4tg+i holds
+//     token (2tg, 2tg+1, 8+2tg, 9+2tg)[i] and position 16+4tg+i token
+//     (16+2tg, 17+2tg, 24+2tg, 25+2tg)[i] (token_pos). Since the int32 sums
+//     are exact in any order, this changes no bit of the result; the last
+//     16 keys of a class (kTiles % 4 == 2) go through m16n8k16 s8, whose A
+//     fragment is the first half of that order;
+//   - k codes and v^T codes reach the B fragments by ldmatrix, 16 bytes a
+//     row, from rows padded so that the eight rows of a matrix fall into
+//     eight bank groups; the output leaves as 16-byte stores after a
+//     four-lane exchange (store_row64).
 // Rows past L: zero codes and scale 0 for k, zero codes for v^T, masked
 // score columns, and query rows past L are never written.
-//
-// Bound: 4*L*L*Dh int8 operations per (sample, head) against 8*L*Dh bytes,
-// as the bf16 form: bytes at the roofline. This simple core is bound by
-// shared-memory traffic and occupancy instead: ~143 KB of shared memory at
-// L = 257 (the fp32 score rows are 74 KB of it), one block an SM, and every
-// query tile of a head requantizes that head's k and v (5 times at L = 257).
-// Scores in registers and k, v quantized once per head are later work.
 #pragma once
 
+#include "attn_tiles.cuh"
 #include "common.cuh"
 #include "quant.cuh"
 
 namespace duodiff {
 namespace {
 
-__device__ __forceinline__ void mma_s8_16832(int c[4], const unsigned a[4], const unsigned b[2]) {
+constexpr int kI8Dh = kHeadDim;            // head width the core takes
+constexpr int kI8AttnWarps = 4;            // 16 query rows each, per trip
+constexpr int kI8BlocksPerSm = 3;          // what the register cap is set for
+constexpr int kI8CodePitch = kI8Dh + 16;   // bytes a k code row: 20 words, conflict-free ldmatrix
+
+// c (+)= a b, int8 in, int32 sums: m16n8k32 (A 4 registers, B 2) and
+// m16n8k16 (A 2, B 1).
+__device__ __forceinline__ void mma_s8_16832(int c[4], const unsigned a[4], unsigned b0,
+                                             unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ unsigned lds32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+__device__ __forceinline__ void mma_s8_16816(int c[4], unsigned a0, unsigned a1, unsigned b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
-constexpr int kI8Dh = 64;                     // head width the core takes
-constexpr int kI8AttnWarps = 4;               // 16 query rows each
-constexpr int kI8QRows = 16 * kI8AttnWarps;   // query rows per block
-constexpr int kI8CodePitch = kI8Dh + 16;      // bytes per staged q / k code row
+// Where token t of a 32-token block of v^T is staged (see the note above):
+// the inverse of position 4tg+i -> token (2tg, 2tg+1, 8+2tg, 9+2tg)[i] in
+// each half of 16.
+__device__ __forceinline__ int token_pos(int t) {
+  const int u = t & 15;
+  return (t & 16) + 4 * ((u & 7) >> 1) + ((u >> 3) << 1) + (u & 1);
+}
 
-struct AttnInt8Smem {
-  int lpad;            // L rounded up to 32: the K of the value product
-  int s_pitch;         // fp32 per score row
-  int e_pitch;         // bytes per e-code row and per v^T code row
-  size_t k_bytes;      // k codes (lpad x kI8CodePitch)
-  size_t vt_bytes;     // v^T codes (Dh x e_pitch)
-  size_t stat_bytes;   // sk (lpad), v partial maxima (warps x Dh), vinv, vscale (Dh each)
-  size_t q_bytes;      // per warp: q codes
-  size_t s_bytes;      // per warp: fp32 scores
-  size_t e_bytes;      // per warp: e codes
-  size_t row_bytes;    // per warp: sq and denom (16 each)
-  size_t total;
+// Four int8 codes, the first in the low byte.
+__device__ __forceinline__ unsigned pack_s8x4(int c0, int c1, int c2, int c3) {
+  return (c0 & 0xff) | ((c1 & 0xff) << 8) | ((c2 & 0xff) << 16) |
+         (static_cast<unsigned>(c3) << 24);
+}
+
+// Two fp32 of shared memory, read where the code stands: ptxas hoists plain
+// loads of many tiles' key scales up front, into registers the score
+// passes need.
+__device__ __forceinline__ float2 lds_f32x2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
+// e8 = rint(e * 127), e in [0, 1].
+__device__ __forceinline__ int e_code(float e) { return __float2int_rn(__fmul_rn(e, 127.f)); }
+
+// The block's shared memory for a class of lengths: k codes (kKeys rows of
+// kI8CodePitch bytes), v^T codes (64 rows of kKeys + 32 bytes: 16 mod 32, so
+// that eight rows fall into eight bank groups), sk (kKeys), the v scales
+// (64) and the warps' partial v maxima (4 x 64).
+template <typename Seq>
+struct Int8Smem {
+  static constexpr int kVtPitch = Seq::kKeys + 32;
+  static constexpr size_t kK = static_cast<size_t>(Seq::kKeys) * kI8CodePitch;
+  static constexpr size_t kVt = static_cast<size_t>(kI8Dh) * kVtPitch;
+  static constexpr size_t kSk = kK + kVt;
+  static constexpr size_t kVscale = kSk + Seq::kKeys * sizeof(float);
+  static constexpr size_t kVpart = kVscale + kI8Dh * sizeof(float);
+  static constexpr size_t kBytes = kVpart + kI8AttnWarps * kI8Dh * sizeof(float);
 };
 
-__host__ __device__ inline AttnInt8Smem attn_int8_smem(int L) {
-  AttnInt8Smem m;
-  m.lpad = (L + 31) / 32 * 32;
-  m.s_pitch = m.lpad + 8;
-  m.e_pitch = m.lpad + 16;
-  m.k_bytes = static_cast<size_t>(m.lpad) * kI8CodePitch;
-  m.vt_bytes = static_cast<size_t>(kI8Dh) * m.e_pitch;
-  m.stat_bytes = (m.lpad + (kI8AttnWarps + 2) * kI8Dh) * sizeof(float);
-  m.q_bytes = 16 * kI8CodePitch;
-  m.s_bytes = static_cast<size_t>(16) * m.s_pitch * sizeof(float);
-  m.e_bytes = static_cast<size_t>(16) * m.e_pitch;
-  m.row_bytes = 32 * sizeof(float);
-  m.total = m.k_bytes + m.vt_bytes + m.stat_bytes +
-            kI8AttnWarps * (m.q_bytes + m.s_bytes + m.e_bytes + m.row_bytes);
-  return m;
-}
-
-// Eight lanes quantize one row of 64 values (lane `chunk` of the eight holds
-// values chunk*8 .. chunk*8+7 in v) into 64 int8 codes at dst; returns the
-// row's scale amax/127. All 32 lanes of the warp must call it together: the
-// amax is reduced by shuffles within each group of eight.
-__device__ __forceinline__ float quant_row64(const float v[kVec], int chunk, int8_t* dst) {
-  float amax = 0.f;
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) amax = fmaxf(amax, fabsf(v[e]));
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  store8_int8(dst + chunk * kVec, v, inv_scale(amax));
-  return __fdiv_rn(amax, 127.f);
-}
-
-__global__ void __launch_bounds__(kI8AttnWarps * 32)
+template <typename Seq>
+__global__ void __launch_bounds__(kI8AttnWarps * 32, kI8BlocksPerSm)
 attn_core_int8_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
                       HeadRows<const bf16> v_rows, HeadRows<bf16> out, int L) {
+  using Sm = Int8Smem<Seq>;
+  constexpr int kTiles = Seq::kTiles;
+  constexpr int kRowsPerLane = Seq::kKeys / (4 * kI8AttnWarps);  // staged rows a lane
   extern __shared__ __align__(128) unsigned char smem[];
-  const AttnInt8Smem sm = attn_int8_smem(L);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   int8_t* K8s = reinterpret_cast<int8_t*>(smem);
-  int8_t* Vt8s = K8s + sm.k_bytes;
-  float* sk = reinterpret_cast<float*>(smem + sm.k_bytes + sm.vt_bytes);
-  float* vpart = sk + sm.lpad;
-  float* vinv = vpart + kI8AttnWarps * kI8Dh;
-  float* vscale = vinv + kI8Dh;
-  unsigned char* warps = smem + sm.k_bytes + sm.vt_bytes + sm.stat_bytes;
-  unsigned char* mine = warps + warp * (sm.q_bytes + sm.s_bytes + sm.e_bytes + sm.row_bytes);
-  int8_t* Q8s = reinterpret_cast<int8_t*>(mine);
-  float* Ss = reinterpret_cast<float*>(mine + sm.q_bytes);
-  int8_t* E8s = reinterpret_cast<int8_t*>(mine + sm.q_bytes + sm.s_bytes);
-  float* sq = reinterpret_cast<float*>(mine + sm.q_bytes + sm.s_bytes + sm.e_bytes);
-  float* denom = sq + 16;
-  // Until the warps start on their own rows, their area holds the head's k
-  // and v rows as they come, bf16 (2 * L * 128 bytes, less than the area for
-  // any L), so that the quantization passes read shared memory and only this
-  // one copy waits for device memory.
-  bf16* Kst = reinterpret_cast<bf16*>(warps);
-  bf16* Vst = Kst + static_cast<size_t>(L) * kI8Dh;
-
+  int8_t* Vt8s = reinterpret_cast<int8_t*>(smem + Sm::kK);
+  float* sk = reinterpret_cast<float*>(smem + Sm::kSk);
+  float* vscale = reinterpret_cast<float*>(smem + Sm::kVscale);
+  float* vpart = reinterpret_cast<float*>(smem + Sm::kVpart);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.z, h = blockIdx.y;
-  const bf16* qb = q_rows.at(b, h);
-  const bf16* kb = k_rows.at(b, h);
-  const bf16* vb = v_rows.at(b, h);
-  const int sub = lane >> 3, chunk = lane & 7;  // 4 rows a warp trip, 8 lanes a row
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  // this warp's 16 q rows, kept in registers until its code rows are free
-  const int q0 = blockIdx.x * kI8QRows + warp * 16;
-  uint4 qraw[4];
+  // k, then v: lane (sub, chunk) takes columns 8 chunk .. + 7 of rows
+  // 16 i + 4 warp + sub, all loads of a tensor in flight before the first
+  // is used, one tensor at a time (rows past L read as zeros)
+  const int sub = lane >> 3, chunk = lane & 7;
+  const auto load_rows = [&](const HeadRows<const bf16>& rows, uint4 (&raw)[kRowsPerLane]) {
+    const bf16* base = rows.at(b, h) + chunk * kVec;
+    // a compiler barrier: loads of v hoisted above k's codes would hold the
+    // raw rows of both in registers at once
+    asm volatile("" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + i * 4 + sub;
-    qraw[i] = r < L ? *reinterpret_cast<const uint4*>(qb + r * q_rows.row + chunk * kVec) : zero;
-  }
-  for (int c = tid; c < L * (kI8Dh / kVec); c += blockDim.x) {
-    const int j = c / (kI8Dh / kVec), col = (c % (kI8Dh / kVec)) * kVec;
-    *reinterpret_cast<uint4*>(Kst + j * kI8Dh + col) =
-        *reinterpret_cast<const uint4*>(kb + j * k_rows.row + col);
-    *reinterpret_cast<uint4*>(Vst + j * kI8Dh + col) =
-        *reinterpret_cast<const uint4*>(vb + j * v_rows.row + col);
-  }
-  __syncthreads();
-
-  // k: per-row codes and scales, once per block (lpad is a multiple of 16;
-  // rows past L are rows of zeros)
-  for (int j0 = warp * 4; j0 < sm.lpad; j0 += kI8AttnWarps * 4) {
-    const int j = j0 + sub;
-    float v[kVec];
-    unpack8(j < L ? *reinterpret_cast<const uint4*>(Kst + j * kI8Dh + chunk * kVec) : zero, v);
-    const float s = quant_row64(v, chunk, K8s + j * kI8CodePitch);
-    if (chunk == 0) sk[j] = s;
-  }
-
-  // v: column maxima over the L tokens; lane owns columns 2*lane, 2*lane+1,
-  // warp w the rows w, w + 4, ...
-  {
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = warp; j < L; j += kI8AttnWarps) {
-      const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(Vst + j * kI8Dh + 2 * lane);
-      a0 = fmaxf(a0, fabsf(__low2float(t)));
-      a1 = fmaxf(a1, fabsf(__high2float(t)));
+    for (int i = 0; i < kRowsPerLane; ++i) {
+      const int j = 16 * i + 4 * warp + sub;
+      raw[i] = j < L ? *reinterpret_cast<const uint4*>(base + j * rows.row) : zero;
     }
-    vpart[warp * kI8Dh + 2 * lane] = a0;
-    vpart[warp * kI8Dh + 2 * lane + 1] = a1;
-  }
-  __syncthreads();
-  if (tid < kI8Dh) {
-    float vmax = 0.f;
-#pragma unroll
-    for (int w = 0; w < kI8AttnWarps; ++w) vmax = fmaxf(vmax, vpart[w * kI8Dh + tid]);
-    vinv[tid] = inv_scale(vmax);
-    vscale[tid] = __fdiv_rn(__fdiv_rn(vmax, 127.f), 127.f);
-  }
-  __syncthreads();
-  // v^T codes, the token axis contiguous and zero past L
+  };
   {
-    const float i0 = vinv[2 * lane], i1 = vinv[2 * lane + 1];
-    for (int j = warp; j < sm.lpad; j += kI8AttnWarps) {
-      int8_t c0 = 0, c1 = 0;
-      if (j < L) {
-        const __nv_bfloat162 t =
-            *reinterpret_cast<const __nv_bfloat162*>(Vst + j * kI8Dh + 2 * lane);
-        c0 = quant_int8(__low2float(t), i0);
-        c1 = quant_int8(__high2float(t), i1);
+    // k: per-row codes and scales (rows past L: codes 0, scale 0)
+    uint4 raw[kRowsPerLane];
+    load_rows(k_rows, raw);
+#pragma unroll
+    for (int i = 0; i < kRowsPerLane; ++i) {
+      const int j = 16 * i + 4 * warp + sub;
+      float v[kVec];
+      unpack8(raw[i], v);
+      float amax = 0.f;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) amax = fmaxf(amax, fabsf(v[e]));
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      store8_int8(K8s + j * kI8CodePitch + chunk * kVec, v, inv_scale(amax));
+      if (chunk == 0) sk[j] = __fdiv_rn(amax, 127.f);
+    }
+  }
+  {
+    // v: the column maxima over the rows, lanes of one chunk by shuffles,
+    // warps through shared memory
+    uint4 raw[kRowsPerLane];
+    load_rows(v_rows, raw);
+    float vmax[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) vmax[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRowsPerLane; ++i) {
+      float v[kVec];
+      unpack8(raw[i], v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) vmax[e] = fmaxf(vmax[e], fabsf(v[e]));
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      vmax[e] = fmaxf(vmax[e], __shfl_xor_sync(0xffffffffu, vmax[e], 8));
+      vmax[e] = fmaxf(vmax[e], __shfl_xor_sync(0xffffffffu, vmax[e], 16));
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) vpart[warp * kI8Dh + chunk * kVec + e] = vmax[e];
+    }
+    __syncthreads();
+    float vinv[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      float m = vpart[chunk * kVec + e];
+#pragma unroll
+      for (int w = 1; w < kI8AttnWarps; ++w) m = fmaxf(m, vpart[w * kI8Dh + chunk * kVec + e]);
+      vinv[e] = inv_scale(m);
+      if (warp == 0 && sub == 0) vscale[chunk * kVec + e] = __fdiv_rn(__fdiv_rn(m, 127.f), 127.f);
+    }
+    // v^T codes: column c's row holds the tokens in token_pos order (zero
+    // past L, as the zero rows loaded there quantize to 0)
+#pragma unroll
+    for (int i = 0; i < kRowsPerLane; ++i) {
+      const int j = 16 * i + 4 * warp + sub;
+      const int pos = (j & ~31) + token_pos(j & 31);
+      float v[kVec];
+      unpack8(raw[i], v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        Vt8s[(chunk * kVec + e) * Sm::kVtPitch + pos] = quant_int8(v[e], vinv[e]);
+    }
+  }
+  __syncthreads();  // the one barrier after the staging: the warps are independent below
+
+  const int g = lane >> 2, tg = lane & 3;
+  const unsigned k_stage = static_cast<unsigned>(__cvta_generic_to_shared(K8s));
+  const unsigned v_stage = static_cast<unsigned>(__cvta_generic_to_shared(Vt8s));
+  // ldmatrix rows: lane l gives row l % 8 of matrix l / 8
+  const unsigned k_off = k_stage + (lane & 7) * kI8CodePitch + (lane >> 3) * 16;
+  const unsigned v_off = v_stage + (lane & 7) * Sm::kVtPitch;
+  const bf16* qb = q_rows.at(b, h);
+  const int tiles = (L + 15) / 16;
+  for (int t = blockIdx.x * kI8AttnWarps + warp; t < tiles; t += gridDim.x * kI8AttnWarps) {
+    const int q0 = 16 * t;
+    // q: thread (g, tg) loads columns 16 c + 4 tg .. + 3, c = 0..3, of rows
+    // g and g + 8, exactly its A fragments of the two k32 steps
+    unsigned qa[2][4];
+    float sq[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = q0 + g + 8 * half;
+      const bool ok = r < L;
+      const bf16* qr = qb + (ok ? r : 0) * q_rows.row + 4 * tg;
+      float v[4][4];
+      float amax = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint2 raw = ok ? *reinterpret_cast<const uint2*>(qr + 16 * c) : make_uint2(0u, 0u);
+        const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+        v[c][0] = __low2float(lo);
+        v[c][1] = __high2float(lo);
+        v[c][2] = __low2float(hi);
+        v[c][3] = __high2float(hi);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[c][e]));
       }
-      Vt8s[(2 * lane) * sm.e_pitch + j] = c0;
-      Vt8s[(2 * lane + 1) * sm.e_pitch + j] = c1;
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+      const float inv = inv_scale(amax);
+      sq[half] = __fdiv_rn(amax, 127.f);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // c = 0, 1: step 0's a[half], a[2 + half]; c = 2, 3: step 1's
+        qa[c >> 1][(c & 1) * 2 + half] =
+            pack_s8x4(quant_int8(v[c][0], inv), quant_int8(v[c][1], inv),
+                      quant_int8(v[c][2], inv), quant_int8(v[c][3], inv));
+      }
     }
-  }
-  __syncthreads();  // the last block-wide barrier: the staged rows are dead,
-                    // and the warps are independent below
-  if (q0 >= L) return;
 
-  // q: this warp's 16 rows
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = i * 4 + sub;
-    float v[kVec];
-    unpack8(qraw[i], v);
-    const float s = quant_row64(v, chunk, Q8s + r * kI8CodePitch);
-    if (chunk == 0) sq[r] = s;
-  }
-  __syncwarp();
-
-  // scores s = float(q8 k8^T) * (sq x sk), (16 x lpad) fp32
-  const int g = lane >> 2;   // mma group: fragment row (A), column (B, C)
-  const int tg = lane & 3;   // thread in group
-  unsigned qa[kI8Dh / 32][4];
-#pragma unroll
-  for (int kk = 0; kk < kI8Dh / 32; ++kk) {
-    const int8_t* p = Q8s + g * kI8CodePitch + kk * 32 + tg * 4;
-    qa[kk][0] = lds32(p);
-    qa[kk][1] = lds32(p + 8 * kI8CodePitch);
-    qa[kk][2] = lds32(p + 16);
-    qa[kk][3] = lds32(p + 8 * kI8CodePitch + 16);
-  }
-  const float sq0 = sq[g], sq1 = sq[g + 8];
-  for (int nt = 0; nt < sm.lpad / 8; ++nt) {
-    int c[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int kk = 0; kk < kI8Dh / 32; ++kk) {
-      const int8_t* p = K8s + (nt * 8 + g) * kI8CodePitch + kk * 32 + tg * 4;
-      const unsigned kf[2] = {lds32(p), lds32(p + 16)};
-      mma_s8_16832(c, qa[kk], kf);
+    // s = float(q8 k8^T) * (sq x sk) of tile nt (keys 8nt..8nt+7), keys
+    // past L at -inf. The two passes below form each tile with the same
+    // operations, so they agree to the bit: the first takes the row maxima,
+    // the second e, its fp32 sums and its codes. Forming the scores twice
+    // costs two int8 products a tile; holding them all between the passes
+    // would take 4 kTiles registers (136 at L = 272).
+    const float neg_inf = __uint_as_float(0xff800000u);
+    const int left = L - 2 * tg;  // key 8nt + 2tg (+ 1) is past L iff 8nt (+ 1) >= left
+    const auto score_tile = [&](int nt, float (&st)[4]) {
+      unsigned f[4];
+      ldmatrix_x4(f, k_off + nt * 8 * kI8CodePitch);
+      int c[4] = {0, 0, 0, 0};
+      mma_s8_16832(c, qa[0], f[0], f[1]);
+      mma_s8_16832(c, qa[1], f[2], f[3]);
+      const float2 k2 = lds_f32x2(sk + nt * 8 + 2 * tg);
+      st[0] = __fmul_rn(__int2float_rn(c[0]), __fmul_rn(sq[0], k2.x));
+      st[1] = __fmul_rn(__int2float_rn(c[1]), __fmul_rn(sq[0], k2.y));
+      st[2] = __fmul_rn(__int2float_rn(c[2]), __fmul_rn(sq[1], k2.x));
+      st[3] = __fmul_rn(__int2float_rn(c[3]), __fmul_rn(sq[1], k2.y));
+      if (nt >= Seq::kMaskFrom) {
+        if (nt * 8 >= left) st[0] = st[2] = neg_inf;
+        if (nt * 8 + 1 >= left) st[1] = st[3] = neg_inf;
+      }
+    };
+    // the row maxima of rows g (lo) and g + 8 (hi) over the quad
+    float m_lo = neg_inf, m_hi = neg_inf;
+#pragma unroll 2
+    for (int nt = 0; nt < kTiles; ++nt) {
+      float st[4];
+      score_tile(nt, st);
+      m_lo = fmaxf(m_lo, fmaxf(st[0], st[1]));
+      m_hi = fmaxf(m_hi, fmaxf(st[2], st[3]));
     }
-    const int col = nt * 8 + tg * 2;
-    const float k0 = sk[col], k1 = sk[col + 1];
-    *reinterpret_cast<float2*>(Ss + g * sm.s_pitch + col) =
-        make_float2(__fmul_rn(__int2float_rn(c[0]), __fmul_rn(sq0, k0)),
-                    __fmul_rn(__int2float_rn(c[1]), __fmul_rn(sq0, k1)));
-    *reinterpret_cast<float2*>(Ss + (g + 8) * sm.s_pitch + col) =
-        make_float2(__fmul_rn(__int2float_rn(c[2]), __fmul_rn(sq1, k0)),
-                    __fmul_rn(__int2float_rn(c[3]), __fmul_rn(sq1, k1)));
-  }
-  __syncwarp();
+    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, 1));
+    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, 2));
+    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, 1));
+    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, 2));
 
-  // fp32 softmax numerator, its codes, and the fp32 sum of the unrounded e
-  const float neg_inf = __uint_as_float(0xff800000u);
-  for (int r = 0; r < 16; ++r) {
-    const float* srow = Ss + r * sm.s_pitch;
-    int8_t* erow = E8s + r * sm.e_pitch;
-    float m = neg_inf;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < sm.lpad; j += 32) {
-      const float e = j < L ? expf(srow[j] - m) : 0.f;
-      sum += e;
-      erow[j] = static_cast<int8_t>(static_cast<int>(rintf(__fmul_rn(e, 127.f))));
+    // e = exp(s - m) of tiles nt, nt + 1, added to the fp32 sums in tile
+    // order and packed as e8 codes: a[0] row g, a[1] row g + 8, keys 2tg,
+    // 2tg + 1, 8 + 2tg, 9 + 2tg of the 16, the order of an A fragment
+    float sum_lo = 0.f, sum_hi = 0.f;
+    const auto e_codes = [&](int nt, unsigned (&a)[2]) {
+      float e[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        float st[4];
+        score_tile(nt + t, st);
+        e[t][0] = expf(st[0] - m_lo);
+        e[t][1] = expf(st[1] - m_lo);
+        e[t][2] = expf(st[2] - m_hi);
+        e[t][3] = expf(st[3] - m_hi);
+        sum_lo += e[t][0] + e[t][1];
+        sum_hi += e[t][2] + e[t][3];
+      }
+      a[0] = pack_s8x4(e_code(e[0][0]), e_code(e[0][1]), e_code(e[1][0]), e_code(e[1][1]));
+      a[1] = pack_s8x4(e_code(e[0][2]), e_code(e[0][3]), e_code(e[1][2]), e_code(e[1][3]));
+    };
+    // o32 = e8 v8, 32 keys a step as their codes are formed: tiles 4kk ..
+    // 4kk + 3 are the A fragment of k32 step kk, against v^T staged in
+    // token_pos order; no e code outlives its step
+    int o[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0;
+#pragma unroll 1
+    for (int kk = 0; kk < kTiles / 4; ++kk) {
+      unsigned lo[2], hi[2];
+      e_codes(4 * kk, lo);
+      e_codes(4 * kk + 2, hi);
+      const unsigned a[4] = {lo[0], lo[1], hi[0], hi[1]};
+      // matrices: (columns 8n.., tokens +0..15), (8n.., +16..31), then n + 1
+      const unsigned at = v_off + 32 * kk + ((lane >> 3) & 1) * 16 + (lane >> 4) * 8 * Sm::kVtPitch;
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        unsigned f[4];
+        ldmatrix_x4(f, at + n * 8 * Sm::kVtPitch);
+        mma_s8_16832(o[n], a, f[0], f[1]);
+        mma_s8_16832(o[n + 1], a, f[2], f[3]);
+      }
     }
-    sum = warp_sum(sum);
-    if (lane == 0) denom[r] = sum;
-  }
-  __syncwarp();
+    if constexpr (kTiles % 4 == 2) {  // the last 16 keys: m16n8k16
+      constexpr int kt = kTiles / 4;
+      unsigned a[2];
+      e_codes(4 * kt, a);
+      // matrices: columns 8n.., 8(n+1).., 8(n+2).., 8(n+3).., tokens +0..15
+      const unsigned at = v_off + 32 * kt + (lane >> 3) * 8 * Sm::kVtPitch;
+#pragma unroll
+      for (int n = 0; n < 8; n += 4) {
+        unsigned f[4];
+        ldmatrix_x4(f, at + n * 8 * Sm::kVtPitch);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8_16816(o[n + j], a[0], a[1], f[j]);
+      }
+    }
+    sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 1);
+    sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 2);
+    sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 1);
+    sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 2);
 
-  // o32 = e8 v8, (16 x 64) int32 in registers
-  int o[kI8Dh / 8][4];
+    // o = float(o32) * vscale[c] / denom, rounded to bf16: o[n][0..1] are
+    // row g, columns 8n + 2tg, + 1; o[n][2..3] the same columns of row g + 8
+    unsigned w_lo[8], w_hi[8];
 #pragma unroll
-  for (int n = 0; n < kI8Dh / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0;
-  for (int kk = 0; kk < sm.lpad; kk += 32) {
-    const int8_t* p = E8s + g * sm.e_pitch + kk + tg * 4;
-    const unsigned ea[4] = {lds32(p), lds32(p + 8 * sm.e_pitch), lds32(p + 16),
-                            lds32(p + 8 * sm.e_pitch + 16)};
-#pragma unroll
-    for (int n = 0; n < kI8Dh / 8; ++n) {
-      const int8_t* pv = Vt8s + (n * 8 + g) * sm.e_pitch + kk + tg * 4;
-      const unsigned vf[2] = {lds32(pv), lds32(pv + 16)};
-      mma_s8_16832(o[n], ea, vf);
+    for (int n = 0; n < 8; ++n) {
+      const float2 vs = *reinterpret_cast<const float2*>(vscale + 8 * n + 2 * tg);
+      w_lo[n] = pack_bf16x2(__fdiv_rn(__fmul_rn(__int2float_rn(o[n][0]), vs.x), sum_lo),
+                            __fdiv_rn(__fmul_rn(__int2float_rn(o[n][1]), vs.y), sum_lo));
+      w_hi[n] = pack_bf16x2(__fdiv_rn(__fmul_rn(__int2float_rn(o[n][2]), vs.x), sum_hi),
+                            __fdiv_rn(__fmul_rn(__int2float_rn(o[n][3]), vs.y), sum_hi));
     }
+    bf16* ob = out.at(b, h);
+    store_row64(ob + static_cast<size_t>(q0 + g) * out.row, w_lo, tg, q0 + g < L);
+    store_row64(ob + static_cast<size_t>(q0 + g + 8) * out.row, w_hi, tg, q0 + g + 8 < L);
   }
+}
 
-  // o = float(o32) * vscale[c] / denom, rounded to bf16: c[0..1] are row g,
-  // columns tg*2 and tg*2+1 of a tile; c[2..3] the same columns of row g+8
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = g + half * 8;
-    if (q0 + r >= L) continue;
-    const float den = denom[r];
-    bf16* dst = out.at(b, h) + (q0 + r) * out.row;
-#pragma unroll
-    for (int n = 0; n < kI8Dh / 8; ++n) {
-      const int col = n * 8 + tg * 2;
-      const float v0 = __fdiv_rn(__fmul_rn(__int2float_rn(o[n][half * 2]), vscale[col]), den);
-      const float v1 =
-          __fdiv_rn(__fmul_rn(__int2float_rn(o[n][half * 2 + 1]), vscale[col + 1]), den);
-      *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
+// Dynamic shared memory of a block at length L (0 past kMaxSeq).
+inline int attn_core_int8_smem_bytes(int L) {
+  if (L < 1 || L > kMaxSeq) return 0;
+  return with_seq_class(L, [](auto seq) {
+    return static_cast<int>(Int8Smem<decltype(seq)>::kBytes);
+  });
+}
+
+// Resident blocks an SM at length L, by registers and shared memory, as the
+// runtime reckons them (0 on an error).
+inline int attn_core_int8_blocks_per_sm(int L) {
+  if (L < 1 || L > kMaxSeq) return 0;
+  return with_seq_class(L, [](auto seq) {
+    using Seq = decltype(seq);
+    constexpr size_t smem = Int8Smem<Seq>::kBytes;
+    int blocks = 0;
+    if (cudaFuncSetAttribute(attn_core_int8_kernel<Seq>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_core_int8_kernel<Seq>,
+                                                      kI8AttnWarps * 32, smem) != cudaSuccess)
+      return 0;
+    return blocks;
+  });
 }
 
 inline cudaError_t launch_attn_core_int8(HeadRows<const bf16> q, HeadRows<const bf16> k,
                                          HeadRows<const bf16> v, HeadRows<bf16> out, int B, int L,
                                          int H, cudaStream_t stream) {
-  const size_t smem = attn_int8_smem(L).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_core_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kI8QRows - 1) / kI8QRows, H, B);
-  attn_core_int8_kernel<<<grid, kI8AttnWarps * 32, smem, stream>>>(q, k, v, out, L);
-  return cudaGetLastError();
+  if (L < 1 || L > kMaxSeq) return cudaErrorInvalidValue;
+  return with_seq_class(L, [&](auto seq) {
+    using Seq = decltype(seq);
+    constexpr size_t smem = Int8Smem<Seq>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(attn_core_int8_kernel<Seq>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    // one block a head when the heads alone fill the card once over: a split
+    // head quantizes its k and v once a block
+    const dim3 grid(head_splits(B * H, L, kI8AttnWarps, kSmCount * kI8BlocksPerSm), H, B);
+    attn_core_int8_kernel<Seq><<<grid, kI8AttnWarps * 32, smem, stream>>>(q, k, v, out, L);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace

@@ -15,6 +15,37 @@ using bf16 = __nv_bfloat16;
 // 8 bf16 values = one 16-byte vector access.
 constexpr int kVec = 8;
 
+// Programmatic dependent launch: a kernel launched with launch_kernel(...,
+// pdl = true) is set up on the SMs as the kernel before it on the stream
+// drains, not after it has finished; it calls grid_dependency_wait() before
+// it touches device memory, which holds it until that kernel has finished
+// and its writes are visible. A no-op in a kernel launched the ordinary way.
+// (No kernel here signals its dependents early: blocks that wait hold SMs
+// that the kernel before them still needs, which measured slower.)
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+inline cudaError_t launch_kernel(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                                 cudaStream_t stream, bool pdl, Args... args) {
+  if (!pdl) {
+    kernel<<<grid, block, smem, stream>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, args...);
+}
+
 // Offsets into a workspace start on 256-byte boundaries.
 inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 

@@ -13,7 +13,9 @@
 //   RowEpilogue       C = cast(gelu?(acc + residual? + bias?)), bf16 or fp32
 //                     rows: the forward projections, dm and dxn;
 //   SplitSumEpilogue  C fp32 = the row splits' sums added in split order (a
-//                     weight gradient), or C += acc (K8's dxn slices).
+//                     weight gradient, or K8's pair of them a row chunk),
+//                     with split 0 adding to C when asked (K8's chunks after
+//                     the first, the measuring entry's C += acc).
 //
 // The forward form (A K-major, B N-major, RowEpilogue) carries qkv and proj
 // (K1, K1-v1, K6's qkv recompute), fc1 and fc2 (K2), and all four in the
@@ -76,8 +78,12 @@
 // with no partial buffer, and with no floating-point atomic, so a repeat
 // call gives the same bits. A unit waits only on a unit of lower index, and
 // every block of the grid (at most one a SM) is resident, so the lowest
-// unfinished unit can always go on: no deadlock. Its flag wait traps after
-// 10 s like the mbarrier waits.
+// unfinished unit can always go on: no deadlock. (Launched as a
+// programmatic dependent launch, as K8 launches it, the grid starts only
+// when every block of the kernel before it has exited, since no kernel
+// here signals its dependents early: its blocks are all resident too.) The
+// last split of a tile clears its flag, so a launch leaves the flags zero.
+// Its flag wait traps after 10 s like the mbarrier waits.
 // TMA zero-fills the rows and columns past the operands' ends and the K
 // tail; stores are masked at M and N. N % 8 == 0, K % 8 == 0 where an
 // operand is read along K (A K-major, B K-major), M % 8 == 0 with A stored
@@ -256,24 +262,26 @@ struct RowEpilogue {
   int gelu_mode;
   __device__ __forceinline__ void operator()(const float* staging, uint64_t* staged,
                                              uint32_t parity, int et, int m0, int n0, int M,
-                                             int N, int, int, int) const {
+                                             int N, int, int, int, int) const {
     gemm_epilogue<ResT, OutT>(staging, staged, parity, et, C, bias, residual, m0, n0, M, N,
                               gelu_mode);
   }
 };
 
-// C fp32: split 0 stores its sums (or, with accumulate, adds them to what C
-// holds), split s > 0 waits for flag == s, adds its sums to C's tile and
-// stores; every split but the last then sets flag = s + 1. Lane t of the
-// 256 takes the 8 columns 8 (t % 16) .. + 7 of rows t / 16 + 16 r.
+// C fp32 (C[problem] of a pair): split 0 stores its sums (or, with
+// accumulate, adds them to what C holds), split s > 0 waits for flag == s,
+// adds its sums to C's tile and stores; every split but the last then sets
+// flag = s + 1. Lane t of the 256 takes the 8 columns 8 (t % 16) .. + 7 of
+// rows t / 16 + 16 r.
 struct SplitSumEpilogue {
   static constexpr bool kSplit = true;
-  float* C;
-  int* flags;       // one a tile, zero before the launch; null when splits == 1
-  int accumulate;   // C += acc (one split)
+  float* C[2];      // the output of each problem (the second only for a pair)
+  int* flags;       // one a tile of all problems, zero before the launch; null when splits == 1
+  int accumulate;   // split 0 adds to C too
   __device__ __forceinline__ void operator()(const float* staging, uint64_t* staged,
                                              uint32_t parity, int et, int m0, int n0, int M,
-                                             int N, int tile, int split, int splits) const {
+                                             int N, int tile, int split, int splits,
+                                             int problem) const {
     const int seg = et & 15, row0 = et >> 4;
     const int gn = n0 + 8 * seg;
     if (split > 0) {
@@ -294,7 +302,7 @@ struct SplitSumEpilogue {
         const float4 second = *reinterpret_cast<const float4*>(src + 4 - h);
         const float4 lo = h ? second : first, hi = h ? first : second;
         float v[kVec] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        float* dst = C + static_cast<size_t>(gm) * N + gn;
+        float* dst = (problem ? C[1] : C[0]) + static_cast<size_t>(gm) * N + gn;
         if (add) {
           // C as the earlier splits left it, from L2 (another SM wrote it)
           const float4 c0 = __ldcg(reinterpret_cast<const float4*>(dst));
@@ -310,18 +318,30 @@ struct SplitSumEpilogue {
       __threadfence();
       epilogue_sync();
       if (et == 0) flag_set(flags + tile, split + 1);
+    } else if (split > 0 && et == 0) {
+      flags[tile] = 0;  // no unit reads it again: the launch leaves the flags as it found them
     }
   }
+};
+
+// The operands of a launch: each product's TMA maps of A and B and its
+// output shape (M, N). Two products share a launch only as a pair of weight
+// gradients over the same K rows (K8's dW2 and dW1 of a row chunk), so that
+// the units of both fill the card's waves together.
+template <int kProblems>
+struct GemmProblems {
+  CUtensorMap a[kProblems], b[kProblems];
+  int m[kProblems], n[kProblems];
 };
 
 // The kernel of every form: kTA A stored (K, M), kTB B stored (N, K)
 // (else A (M, K), B (K, N)); Epi one of the epilogues above. `splits` row
 // splits of k_per_split slabs each (1 and all slabs but for a weight
-// gradient).
-template <bool kTA, bool kTB, typename Epi>
+// gradient). With kProblems 2 the tiles of the second product follow those
+// of the first in every split.
+template <bool kTA, bool kTB, typename Epi, int kProblems = 1>
 __global__ void __launch_bounds__(kGemmThreads, 1)
-gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
-                 const __grid_constant__ CUtensorMap tma_b, int M, int N, int K, int splits,
+gemm_bf16_kernel(const __grid_constant__ GemmProblems<kProblems> pr, int K, int splits,
                  int k_per_split, const Epi epi) {
   extern __shared__ unsigned char gemm_smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -332,16 +352,40 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
   uint64_t* staged = empty + kGemmStages;  // the MMA warpgroups wrote a tile
   uint64_t* drained = staged + 1;          // the epilogue warpgroups read it
 
-  const int n_tiles = (N + kGemmBN - 1) / kGemmBN;
-  const int num_tiles = ((M + kGemmBM - 1) / kGemmBM) * n_tiles;
+  const int n_tiles0 = (pr.n[0] + kGemmBN - 1) / kGemmBN;
+  const int tiles0 = ((pr.m[0] + kGemmBM - 1) / kGemmBM) * n_tiles0;
+  int num_tiles = tiles0;
+  if constexpr (kProblems > 1)
+    num_tiles += ((pr.m[1] + kGemmBM - 1) / kGemmBM) * ((pr.n[1] + kGemmBN - 1) / kGemmBN);
   const int num_k = (K + kGemmBK - 1) / kGemmBK;
   const int num_units = Epi::kSplit ? num_tiles * splits : num_tiles;
-  // unit -> (output tile, its split's slabs [kb0, kb1))
-  const auto unit_of = [&](int unit, int& t, int& split, int& kb0, int& kb1) {
-    split = Epi::kSplit ? unit / num_tiles : 0;
-    t = Epi::kSplit ? unit - split * num_tiles : unit;
-    kb0 = Epi::kSplit ? split * k_per_split : 0;
-    kb1 = Epi::kSplit ? min(num_k, kb0 + k_per_split) : num_k;
+  // unit -> (tile of all problems, the problem, its output tile (m0, n0),
+  // its split's slabs [kb0, kb1))
+  struct Unit {
+    int tile, problem, m0, n0, M, N, split, kb0, kb1;
+  };
+  const auto unit_of = [&](int unit) {
+    Unit u;
+    u.split = Epi::kSplit ? unit / num_tiles : 0;
+    u.tile = Epi::kSplit ? unit - u.split * num_tiles : unit;
+    u.problem = 0;
+    u.M = pr.m[0];
+    u.N = pr.n[0];
+    int t = u.tile, n_tiles = n_tiles0;
+    if constexpr (kProblems > 1) {
+      if (u.tile >= tiles0) {
+        u.problem = 1;
+        u.M = pr.m[1];
+        u.N = pr.n[1];
+        t -= tiles0;
+        n_tiles = (u.N + kGemmBN - 1) / kGemmBN;
+      }
+    }
+    u.m0 = t / n_tiles * kGemmBM;
+    u.n0 = t % n_tiles * kGemmBN;
+    u.kb0 = Epi::kSplit ? u.split * k_per_split : 0;
+    u.kb1 = Epi::kSplit ? min(num_k, u.kb0 + k_per_split) : num_k;
+    return u;
   };
   // the warpgroup's role, read from lane 0 so that the compiler sees it
   // uniform across the warp: a branch it took for divergent would make ptxas
@@ -359,18 +403,29 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  grid_dependency_wait();
 
   if (wg == 0) {
     // producer: one thread issues every TMA load of the block's tiles
     if (threadIdx.x != 0) return;
-    prefetch_tma_map(&tma_a);
-    prefetch_tma_map(&tma_b);
+#pragma unroll
+    for (int p = 0; p < kProblems; ++p) {
+      prefetch_tma_map(&pr.a[p]);
+      prefetch_tma_map(&pr.b[p]);
+    }
     int it = 0;
     for (int tile = blockIdx.x; tile < num_units; tile += gridDim.x) {
-      int t, split, kb0, kb1;
-      unit_of(tile, t, split, kb0, kb1);
-      const int m0 = t / n_tiles * kGemmBM, n0 = t % n_tiles * kGemmBN;
-      for (int kb = kb0; kb < kb1; ++kb, ++it) {
+      const Unit u = unit_of(tile);
+      const int m0 = u.m0, n0 = u.n0;
+      const CUtensorMap* tma_a = &pr.a[0];
+      const CUtensorMap* tma_b = &pr.b[0];
+      if constexpr (kProblems > 1) {
+        if (u.problem) {
+          tma_a = &pr.a[1];
+          tma_b = &pr.b[1];
+        }
+      }
+      for (int kb = u.kb0; kb < u.kb1; ++kb, ++it) {
         const int s = it % kGemmStages;
         mbar_wait(&empty[s], ((it / kGemmStages) & 1) ^ 1);
         unsigned char* a = smem + s * kGemmStageBytes;
@@ -378,16 +433,16 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
         const int k0 = kb * kGemmBK;
         mbar_arrive_expect_tx(&full[s], kGemmStageBytes);
         if (kTA) {  // two boxes of 64 K rows x 64 of the M columns
-          tma_load_2d(a, &tma_a, &full[s], m0, k0);
-          tma_load_2d(a + kGemmBoxBytes, &tma_a, &full[s], m0 + 64, k0);
+          tma_load_2d(a, tma_a, &full[s], m0, k0);
+          tma_load_2d(a + kGemmBoxBytes, tma_a, &full[s], m0 + 64, k0);
         } else {    // one box of 128 rows x 64 K values
-          tma_load_2d(a, &tma_a, &full[s], k0, m0);
+          tma_load_2d(a, tma_a, &full[s], k0, m0);
         }
         if (kTB) {  // one box of 128 N rows x 64 K values
-          tma_load_2d(b, &tma_b, &full[s], k0, n0);
+          tma_load_2d(b, tma_b, &full[s], k0, n0);
         } else {    // two boxes of 64 K rows x 64 of the N columns
-          tma_load_2d(b, &tma_b, &full[s], n0, k0);
-          tma_load_2d(b + kGemmBoxBytes, &tma_b, &full[s], n0 + 64, k0);
+          tma_load_2d(b, tma_b, &full[s], n0, k0);
+          tma_load_2d(b + kGemmBoxBytes, tma_b, &full[s], n0 + 64, k0);
         }
       }
     }
@@ -396,10 +451,9 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
     const int et = threadIdx.x - 3 * 128;
     int i = 0;
     for (int tile = blockIdx.x; tile < num_units; tile += gridDim.x, ++i) {
-      int t, split, kb0, kb1;
-      unit_of(tile, t, split, kb0, kb1);
-      epi(staging, staged, i & 1, et, t / n_tiles * kGemmBM, t % n_tiles * kGemmBN, M, N, t,
-          split, splits);
+      const Unit u = unit_of(tile);
+      epi(staging, staged, i & 1, et, u.m0, u.n0, u.M, u.N, u.tile, u.split, splits,
+          u.problem);
       mbar_arrive(drained);
     }
   } else {
@@ -415,8 +469,8 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
     for (int r = 0; r < 64; ++r) d[r] = 0.f;
     int it = 0, i = 0;
     for (int tile = blockIdx.x; tile < num_units; tile += gridDim.x, ++i) {
-      int t, split, kb0, kb1;
-      unit_of(tile, t, split, kb0, kb1);
+      const Unit u = unit_of(tile);
+      const int kb0 = u.kb0, kb1 = u.kb1;
       int prev = 0;
       for (int kb = kb0; kb < kb1; ++kb, ++it) {
         const int s = it % kGemmStages;
@@ -469,10 +523,10 @@ inline cudaError_t bf16_tma_map(CUtensorMap* map, const bf16* base, int rows, in
 }
 
 // The kernel's dynamic shared memory opt-in, once per form.
-template <bool kTA, bool kTB, typename Epi>
+template <bool kTA, bool kTB, typename Epi, int kProblems = 1>
 inline cudaError_t gemm_kernel_attributes() {
   static const cudaError_t err =
-      cudaFuncSetAttribute(gemm_bf16_kernel<kTA, kTB, Epi>,
+      cudaFuncSetAttribute(gemm_bf16_kernel<kTA, kTB, Epi, kProblems>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmemBytes);
   return err;
 }
@@ -487,35 +541,54 @@ inline int gemm_blocks_per_sm() {
   return blocks;
 }
 
-// Any form: the checks, the tensor maps and the launch. lda / ldb are the
-// stored row pitches of A and B in elements; splits (a SplitSumEpilogue's
-// row splits) at least 1.
-template <bool kTA, bool kTB, typename Epi>
-inline cudaError_t launch_gemm_form(const bf16* A, int lda, const bf16* B, int ldb, int M,
-                                    int N, int K, int splits, const Epi& epi,
-                                    cudaStream_t stream) {
-  if (M == 0) return cudaSuccess;
-  if (M < 0 || N <= 0 || K <= 0 || N % 8 != 0 || lda % 8 != 0 || ldb % 8 != 0 ||
-      ((!kTA || kTB) && K % 8 != 0) || (kTA && M % 8 != 0) || splits < 1)
+// Problem p of a launch: the checks and the tensor maps of one product. lda
+// / ldb are the stored row pitches of A and B in elements.
+template <bool kTA, bool kTB, int kProblems>
+inline cudaError_t gemm_problem(GemmProblems<kProblems>& pr, int p, const bf16* A, int lda,
+                                const bf16* B, int ldb, int M, int N, int K) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0 || lda % 8 != 0 || ldb % 8 != 0 ||
+      ((!kTA || kTB) && K % 8 != 0) || (kTA && M % 8 != 0))
     return cudaErrorInvalidValue;
   if (misaligned16(A) || misaligned16(B)) return cudaErrorMisalignedAddress;
-  CUtensorMap map_a, map_b;
-  cudaError_t err = kTA ? bf16_tma_map(&map_a, A, K, M, 64, lda)
-                        : bf16_tma_map(&map_a, A, M, K, kGemmBM, lda);
+  pr.m[p] = M;
+  pr.n[p] = N;
+  const cudaError_t err = kTA ? bf16_tma_map(&pr.a[p], A, K, M, 64, lda)
+                              : bf16_tma_map(&pr.a[p], A, M, K, kGemmBM, lda);
   if (err != cudaSuccess) return err;
-  err = kTB ? bf16_tma_map(&map_b, B, N, K, kGemmBN, ldb)
-            : bf16_tma_map(&map_b, B, K, N, kGemmBK, ldb);
-  if (err != cudaSuccess) return err;
-  err = gemm_kernel_attributes<kTA, kTB, Epi>();
+  return kTB ? bf16_tma_map(&pr.b[p], B, N, K, kGemmBN, ldb)
+             : bf16_tma_map(&pr.b[p], B, K, N, kGemmBK, ldb);
+}
+
+// The launch of prepared problems over K: splits (a SplitSumEpilogue's row
+// splits) at least 1; one block an SM at most, fewer for fewer units.
+template <bool kTA, bool kTB, typename Epi, int kProblems>
+inline cudaError_t launch_gemm_problems(const GemmProblems<kProblems>& pr, int K, int splits,
+                                        const Epi& epi, cudaStream_t stream, bool pdl = false) {
+  if (splits < 1) return cudaErrorInvalidValue;
+  const cudaError_t err = gemm_kernel_attributes<kTA, kTB, Epi, kProblems>();
   if (err != cudaSuccess) return err;
   const int num_k = (K + kGemmBK - 1) / kGemmBK;
   const int k_per_split = (num_k + splits - 1) / splits;
   splits = (num_k + k_per_split - 1) / k_per_split;  // no split without a slab
-  const int units = ((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN) * splits;
+  int tiles = 0;
+  for (int p = 0; p < kProblems; ++p)
+    tiles += ((pr.m[p] + kGemmBM - 1) / kGemmBM) * ((pr.n[p] + kGemmBN - 1) / kGemmBN);
+  const int units = tiles * splits;
   const int grid = units < sm_count() ? units : sm_count();
-  gemm_bf16_kernel<kTA, kTB, Epi><<<grid, kGemmThreads, kGemmSmemBytes, stream>>>(
-      map_a, map_b, M, N, K, splits, k_per_split, epi);
-  return cudaGetLastError();
+  return launch_kernel(gemm_bf16_kernel<kTA, kTB, Epi, kProblems>, grid, kGemmThreads,
+                       kGemmSmemBytes, stream, pdl, pr, K, splits, k_per_split, epi);
+}
+
+// Any form, one product.
+template <bool kTA, bool kTB, typename Epi>
+inline cudaError_t launch_gemm_form(const bf16* A, int lda, const bf16* B, int ldb, int M,
+                                    int N, int K, int splits, const Epi& epi,
+                                    cudaStream_t stream, bool pdl = false) {
+  if (M == 0) return cudaSuccess;
+  GemmProblems<1> pr;
+  const cudaError_t err = gemm_problem<kTA, kTB>(pr, 0, A, lda, B, ldb, M, N, K);
+  if (err != cudaSuccess) return err;
+  return launch_gemm_problems<kTA, kTB>(pr, K, splits, epi, stream, pdl);
 }
 
 // The forward form: A (M, K), B (K, N), both packed. bias may be null (no

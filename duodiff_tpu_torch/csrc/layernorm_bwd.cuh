@@ -1,4 +1,4 @@
-// The row-wise ends of the backward sublayers (K6, K7): LayerNorm backward
+// The row-wise ends of the backward sublayers (K6, K7, K8): LayerNorm backward
 // fused with the residual and the dgamma / dbeta partial sums, and the
 // column sums of the bias gradients.
 //
@@ -8,7 +8,8 @@
 // (dbp :281, dbqkv :357, db2 :1070).
 //
 // Bound: memory. Each row reads x (bf16), dxn (fp32) and dy (bf16) and
-// writes dx (bf16), a few flops per byte.
+// writes dx (bf16), a few flops per byte. A warp reads a row into registers
+// at once (rows of D <= 1024) and reduces it there.
 // Determinism: the Pallas kernels add these sums across a grid that runs in
 // order. Here each block sums a fixed range of rows into a partial, in row
 // order within each warp and then warp by warp, and sum_partials_kernel
@@ -41,7 +42,7 @@ inline cudaError_t launch_sum_partials(const float* part, float* out, int parts,
 
 constexpr int kLnbThreads = 256;                 // 8 warps, one row each at a time
 constexpr int kLnbWarps = kLnbThreads / 32;
-constexpr int kLnbRows = 64;                     // rows per block
+constexpr int kLnbRows = 64;                     // rows per block (K6, K7)
 constexpr int kColRows = 256;                    // rows per column-sum chunk
 
 __device__ __forceinline__ void load8f(const float* p, float v[kVec]) {
@@ -54,13 +55,20 @@ __device__ __forceinline__ void load8f(const float* p, float v[kVec]) {
 // dx = rstd * (dxh - mean(dxh) - x_hat * mean(dxh * x_hat)) + dy, with
 // dxh = dxn * gamma and the forward's fp32 two-pass statistics recomputed
 // from x; part_dg / part_db[block][c] = the block's sums of dxn * x_hat and
-// dxn. Dynamic shared memory: 2 * kLnbWarps * D floats.
+// dxn over its block_rows rows. Lane l of a warp takes columns 8 l + 256 j
+// .. + 7, j < kChunks (D <= 256 kChunks), and reads its x, dxn and dy of a
+// row into registers at once, so that a row costs one trip to device
+// memory, not one a pass: a chunk of K8's rows launches only a few blocks
+// an SM, and then that latency is what bounds the launch. Dynamic shared
+// memory: 2 * kLnbWarps * D floats.
+template <int kChunks>
 __global__ void __launch_bounds__(kLnbThreads)
 layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
                      const float* __restrict__ gamma, const bf16* __restrict__ dy,
                      bf16* __restrict__ dx, float* __restrict__ part_dg,
-                     float* __restrict__ part_db, int M, int D, float eps) {
+                     float* __restrict__ part_db, int M, int D, int block_rows, float eps) {
   extern __shared__ float acc_s[];
+  grid_dependency_wait();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* my_dg = acc_s + warp * D;
   float* my_db = acc_s + (kLnbWarps + warp) * D;
@@ -68,22 +76,36 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
 #pragma unroll
     for (int e = 0; e < kVec; ++e) my_dg[c + e] = my_db[c + e] = 0.f;
   }
+  const auto col = [&](int j) { return lane * kVec + 32 * kVec * j; };
   const float inv_d = 1.f / static_cast<float>(D);
-  const int row_end = min(M, (blockIdx.x + 1) * kLnbRows);
-  for (int row = blockIdx.x * kLnbRows + warp; row < row_end; row += kLnbWarps) {
-    const bf16* xr = x + static_cast<size_t>(row) * D;
-    const float* gr = dxn + static_cast<size_t>(row) * D;
-    float v[kVec], g[kVec];
+  const int row_end = min(M, (blockIdx.x + 1) * block_rows);
+  for (int row = blockIdx.x * block_rows + warp; row < row_end; row += kLnbWarps) {
+    const size_t at = static_cast<size_t>(row) * D;
+    uint4 xr[kChunks], dyr[kChunks];
+    float g[kChunks][kVec];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (col(j) < D) {
+        xr[j] = *reinterpret_cast<const uint4*>(x + at + col(j));
+        dyr[j] = *reinterpret_cast<const uint4*>(dy + at + col(j));
+        load8f(dxn + at + col(j), g[j]);
+      }
+    }
+    float v[kVec];
     float sum = 0.f;
-    for (int c = lane * kVec; c < D; c += 32 * kVec) {
-      unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (col(j) >= D) break;
+      unpack8(xr[j], v);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) sum += v[e];
     }
     const float mean = warp_sum(sum) * inv_d;
     float sq = 0.f;
-    for (int c = lane * kVec; c < D; c += 32 * kVec) {
-      unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (col(j) >= D) break;
+      unpack8(xr[j], v);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         const float d = v[e] - mean;
@@ -92,35 +114,37 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
     }
     const float rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
     float m1 = 0.f, m2 = 0.f;
-    for (int c = lane * kVec; c < D; c += 32 * kVec) {
-      unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
-      load8f(gr + c, g);
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (col(j) >= D) break;
+      const int c = col(j);
+      unpack8(xr[j], v);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         const float x_hat = (v[e] - mean) * rstd;
-        const float dxh = g[e] * gamma[c + e];
+        const float dxh = g[j][e] * gamma[c + e];
         m1 += dxh;
         m2 += dxh * x_hat;
-        my_dg[c + e] += g[e] * x_hat;
-        my_db[c + e] += g[e];
+        my_dg[c + e] += g[j][e] * x_hat;
+        my_db[c + e] += g[j][e];
       }
     }
     m1 = warp_sum(m1) * inv_d;
     m2 = warp_sum(m2) * inv_d;
-    bf16* dxr = dx + static_cast<size_t>(row) * D;
-    const bf16* dyr = dy + static_cast<size_t>(row) * D;
-    for (int c = lane * kVec; c < D; c += 32 * kVec) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (col(j) >= D) break;
+      const int c = col(j);
       float d[kVec];
-      unpack8(*reinterpret_cast<const uint4*>(xr + c), v);
-      unpack8(*reinterpret_cast<const uint4*>(dyr + c), d);
-      load8f(gr + c, g);
+      unpack8(xr[j], v);
+      unpack8(dyr[j], d);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         const float x_hat = (v[e] - mean) * rstd;
-        const float dxh = g[e] * gamma[c + e];
+        const float dxh = g[j][e] * gamma[c + e];
         v[e] = rstd * (dxh - m1 - x_hat * m2) + d[e];
       }
-      *reinterpret_cast<uint4*>(dxr + c) = pack8(v);
+      *reinterpret_cast<uint4*>(dx + at + c) = pack8(v);
     }
   }
   __syncthreads();
@@ -135,7 +159,53 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
   }
 }
 
-inline int layernorm_bwd_blocks(int M) { return (M + kLnbRows - 1) / kLnbRows; }
+constexpr int kLnbMaxWidth = 4 * 32 * kVec;  // 1024: 32 values of a row a lane
+
+inline int layernorm_bwd_blocks(int M, int block_rows = kLnbRows) {
+  return (M + block_rows - 1) / block_rows;
+}
+
+// The kernel for kChunks, its shared-memory opt-in set once, at the widest
+// rows it takes.
+template <int kChunks>
+inline cudaError_t launch_layernorm_bwd_form(const bf16* x, const float* dxn, const float* gamma,
+                                             const bf16* dy, bf16* dx, float* part_dg,
+                                             float* part_db, int M, int D, int block_rows,
+                                             float eps, cudaStream_t stream, bool pdl) {
+  static const cudaError_t set = cudaFuncSetAttribute(
+      layernorm_bwd_kernel<kChunks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      2 * kLnbWarps * 32 * kVec * kChunks * static_cast<int>(sizeof(float)));
+  if (set != cudaSuccess) return set;
+  const int smem = 2 * kLnbWarps * D * static_cast<int>(sizeof(float));
+  return launch_kernel(layernorm_bwd_kernel<kChunks>, layernorm_bwd_blocks(M, block_rows),
+                       kLnbThreads, smem, stream, pdl, x, dxn, gamma, dy, dx, part_dg, part_db, M,
+                       D, block_rows, eps);
+}
+
+// dx of M rows (D <= kLnbMaxWidth, D % 8 == 0), and the dg / db partials of
+// their blocks of block_rows rows at part_dg / part_db
+// (layernorm_bwd_blocks(M, block_rows) rows of D floats each).
+inline cudaError_t launch_layernorm_bwd_rows(const bf16* x, const float* dxn,
+                                             const float* gamma, const bf16* dy, bf16* dx,
+                                             float* part_dg, float* part_db, int M, int D,
+                                             float eps, cudaStream_t stream,
+                                             int block_rows = kLnbRows, bool pdl = false) {
+  if (M == 0) return cudaSuccess;
+  if (M < 0 || D <= 0 || D % kVec != 0 || D > kLnbMaxWidth || block_rows < 1)
+    return cudaErrorInvalidValue;
+  const int chunks = (D + 32 * kVec - 1) / (32 * kVec);
+  if (chunks == 1)
+    return launch_layernorm_bwd_form<1>(x, dxn, gamma, dy, dx, part_dg, part_db, M, D,
+                                        block_rows, eps, stream, pdl);
+  if (chunks == 2)
+    return launch_layernorm_bwd_form<2>(x, dxn, gamma, dy, dx, part_dg, part_db, M, D,
+                                        block_rows, eps, stream, pdl);
+  if (chunks == 3)
+    return launch_layernorm_bwd_form<3>(x, dxn, gamma, dy, dx, part_dg, part_db, M, D,
+                                        block_rows, eps, stream, pdl);
+  return launch_layernorm_bwd_form<4>(x, dxn, gamma, dy, dx, part_dg, part_db, M, D,
+                                      block_rows, eps, stream, pdl);
+}
 
 // dx, and dg / db summed over all rows; part holds 2 * blocks * D floats.
 inline cudaError_t launch_layernorm_bwd(const bf16* x, const float* dxn, const float* gamma,
@@ -143,15 +213,10 @@ inline cudaError_t launch_layernorm_bwd(const bf16* x, const float* dxn, const f
                                         float* part, int M, int D, float eps,
                                         cudaStream_t stream) {
   const int blocks = layernorm_bwd_blocks(M);
-  const int smem = 2 * kLnbWarps * D * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(layernorm_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   float* part_dg = part;
   float* part_db = part + static_cast<size_t>(blocks) * D;
-  layernorm_bwd_kernel<<<blocks, kLnbThreads, smem, stream>>>(x, dxn, gamma, dy, dx, part_dg,
-                                                              part_db, M, D, eps);
-  err = cudaGetLastError();
+  cudaError_t err =
+      launch_layernorm_bwd_rows(x, dxn, gamma, dy, dx, part_dg, part_db, M, D, eps, stream);
   if (err != cudaSuccess) return err;
   err = launch_sum_partials(part_dg, dg, blocks, D, stream);
   if (err != cudaSuccess) return err;

@@ -1,5 +1,5 @@
 // The hidden-activation stage of the MLP sublayer's backward, shared by the
-// monolithic kernel K7 (mlp_sublayer_bwd.cu) and the hidden-split kernel K8
+// monolithic kernel K7 (mlp_sublayer_bwd.cu) and the row-chunked kernel K8
 // (mlp_sublayer_bwd_split.cu): for each (128 rows, 64 hidden columns) tile,
 // h_pre = xn W1 + b1 and dh = dy W2^T in fp32, and in the epilogue
 // hgb = bf16(gelu(h_pre)), dhp = dh * gelu'(h_pre) stored as bf16, and the
@@ -7,11 +7,12 @@
 //
 // Replaces: the h_pre / hgb / dh / dhp chain of duodiff_tpu/ops/
 // pallas_block.py _mlp_bwd_kernel (:1074-1091) and _mlp_bwd_partial_kernel
-// (:1206-1220). Hd is the number of hidden columns of THIS call: the whole
-// hidden width for K7, one slice for K8, whose w1 then points at the slice's
-// first column (row pitch ld_w1 = the whole width, a TMA stride), b1 at its
-// first entry and w2 at its first row; hgb, dhp (M, Hd) and db1_part (row
-// tiles, Hd) are the call's own.
+// (:1206-1220). M and Hd are the rows and hidden columns of THIS call: all
+// rows for K7, one row chunk for K8, whose xn and dy then point at the
+// chunk's first row; Hd may be a slice of the hidden width, w1 then pointing
+// at the slice's first column (row pitch ld_w1 = the whole width, a TMA
+// stride), b1 at its first entry and w2 at its first row; hgb, dhp (M, Hd)
+// and db1_part (row tiles, Hd) are the call's own.
 //
 // Bound: two products of 2 * M * D * Hd flops each (69 GFLOP each at D =
 // 512, batch 128), tensor-core bound, and an epilogue over M * Hd outputs
@@ -157,6 +158,7 @@ mlp_bwd_hidden_kernel(const __grid_constant__ CUtensorMap tma_x,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  grid_dependency_wait();
 
   if (wg == 0) {
     // producer: one thread issues every TMA load
@@ -320,7 +322,8 @@ inline int mlp_bwd_hidden_blocks_per_sm() {
 inline cudaError_t launch_mlp_bwd_hidden(const bf16* xn, const bf16* w1, int ld_w1,
                                          const float* b1, const bf16* dy, const bf16* w2,
                                          bf16* hgb, bf16* dhp, float* db1_part, int M, int D,
-                                         int Hd, int gelu_mode, cudaStream_t stream) {
+                                         int Hd, int gelu_mode, cudaStream_t stream,
+                                         bool pdl = false) {
   if (M == 0) return cudaSuccess;
   if (M < 0 || D <= 0 || Hd <= 0 || D % 8 != 0 || Hd % 8 != 0 || ld_w1 % 8 != 0 ||
       (gelu_mode != kGeluErf && gelu_mode != kGeluTanh))
@@ -340,15 +343,14 @@ inline cudaError_t launch_mlp_bwd_hidden(const bf16* xn, const bf16* w1, int ld_
   if (gelu_mode == kGeluTanh) {
     err = mlp_bwd_hidden_attributes<kGeluTanh>();
     if (err != cudaSuccess) return err;
-    mlp_bwd_hidden_kernel<kGeluTanh><<<grid, kHidThreads, kHidSmemBytes, stream>>>(
-        map_x, map_dy, map_w1, map_w2, b1, hgb, dhp, db1_part, M, D, Hd);
-  } else {
-    err = mlp_bwd_hidden_attributes<kGeluErf>();
-    if (err != cudaSuccess) return err;
-    mlp_bwd_hidden_kernel<kGeluErf><<<grid, kHidThreads, kHidSmemBytes, stream>>>(
-        map_x, map_dy, map_w1, map_w2, b1, hgb, dhp, db1_part, M, D, Hd);
+    return launch_kernel(mlp_bwd_hidden_kernel<kGeluTanh>, grid, kHidThreads, kHidSmemBytes,
+                         stream, pdl, map_x, map_dy, map_w1, map_w2, b1, hgb, dhp, db1_part, M,
+                         D, Hd);
   }
-  return cudaGetLastError();
+  err = mlp_bwd_hidden_attributes<kGeluErf>();
+  if (err != cudaSuccess) return err;
+  return launch_kernel(mlp_bwd_hidden_kernel<kGeluErf>, grid, kHidThreads, kHidSmemBytes, stream,
+                       pdl, map_x, map_dy, map_w1, map_w2, b1, hgb, dhp, db1_part, M, D, Hd);
 }
 
 }  // namespace

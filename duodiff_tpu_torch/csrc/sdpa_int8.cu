@@ -11,10 +11,11 @@
 // _sdpa_bf16_kernel :46-59 and _sdpa_int8_kernel :68-90). The bf16 body is
 // the attention core of K1 and K9 (attn_core.cuh) with no scale: this entry
 // launches that core with qscale = 1, which leaves q untouched. The TPU
-// kernel's group of samples per grid step has no counterpart: a block is one
-// (head, sample) in the bf16 form, whose scores live in registers, and one
-// (64 query rows, head, sample) in the int8 form, which still keeps its fp32
-// score rows in shared memory.
+// kernel's group of samples per grid step has no counterpart: in both forms a
+// block is one (head, sample), its warps walking the 16-row query tiles with
+// the score rows in registers; the int8 core (attn_core_int8.cuh) quantizes
+// the head's k and v once a block and keeps only their codes in shared
+// memory. Both take L <= 272, a register limit.
 // Bound: 4 * L * L * Dh operations per (sample, head) against 8 * L * Dh
 // bytes: bytes at the roofline for both forms; see the two cores' notes for
 // what bounds each on the card instead.
@@ -25,10 +26,16 @@
 
 using duodiff::bf16;
 
-// Dynamic shared memory the int8 core needs for sequence length L, so that
-// the caller can refuse a length that does not fit a block.
+// The int8 core at sequence length L: the longest L it takes, warps a
+// block, dynamic shared memory a block (0 past the longest L) and resident
+// blocks an SM.
+extern "C" int duodiff_sdpa_int8_max_len() { return duodiff::kMaxSeq; }
+extern "C" int duodiff_sdpa_int8_warps() { return duodiff::kI8AttnWarps; }
 extern "C" int duodiff_sdpa_int8_smem_bytes(int L) {
-  return static_cast<int>(duodiff::attn_int8_smem(L).total);
+  return duodiff::attn_core_int8_smem_bytes(L);
+}
+extern "C" int duodiff_sdpa_int8_blocks_per_sm(int L) {
+  return duodiff::attn_core_int8_blocks_per_sm(L);
 }
 
 // q, k, v, out: (B, H, L, 64) bf16, contiguous. Returns the first CUDA

@@ -48,10 +48,14 @@ _SIGNATURES = {
     "duodiff_sdpa_chain_bf16": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
     "duodiff_sdpa_chain_int8": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
     "duodiff_sdpa_int8_smem_bytes": ([_INT], _INT),
+    "duodiff_sdpa_int8_max_len": ([], _INT),
+    "duodiff_sdpa_int8_warps": ([], _INT),
+    "duodiff_sdpa_int8_blocks_per_sm": ([_INT], _INT),
     "duodiff_flash_attention_bwd_stats": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_attn_sublayer_bwd_workspace": ([_INT] * 4, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_split_workspace": ([_INT] * 4, ctypes.c_size_t),
+    "duodiff_mlp_sublayer_bwd_split_chunk_rows": ([_INT] * 2, _INT),
     "duodiff_attn_core_warps": ([], _INT),
     "duodiff_attn_core_smem_bytes": ([_INT], _INT),
     "duodiff_attn_bwd_core_smem_bytes": ([_INT] * 2, _INT),

@@ -11,8 +11,8 @@ backwards (counterpart of ``duodiff_tpu/ops/pallas_block.py``).
   with K1 and K2 in the autograd Functions :class:`FusedAttnSublayerFn`
   and :class:`FusedMlpSublayerFn` for training;
 - :func:`fused_mlp_sublayer_bwd_split` (K8, ``csrc/mlp_sublayer_bwd_split.cu``;
-  the Pallas ``_mlp_bwd_partial_kernel``): K7's gradients by slices of the
-  hidden width, which :class:`FusedMlpSublayerFn` takes when the environment
+  the Pallas ``_mlp_bwd_partial_kernel``): K7's gradients in scratch bounded
+  by ``splits``, which :class:`FusedMlpSublayerFn` takes when the environment
   variable ``DUODIFF_MLP_BWD_SPLIT`` is ``1`` (:func:`mlp_sublayer_bwd`);
 - :func:`fused_block` (K5, ``csrc/fused_block.cu``; the Pallas
   ``_block_kernel``): a whole block with the intermediate residual stream
@@ -49,18 +49,22 @@ import torch.nn.functional as F
 # aligned row of every operand (widths multiple of 8), and a sequence the
 # attention cores can hold: a warp keeps 16 whole fp32 score rows in
 # registers, 136 a thread at L = 272, which is the limit the library
-# reports (duodiff_attn_core_max_len, duodiff_attn_bwd_core_max_len). The
-# int8 chain of K15 still keeps its score rows in shared memory and is held
-# to a block's 227 KB opt-in limit less a margin of 256 bytes. Checked on the card at D = 512 with 8 heads and L = 257, and at
-# D = 768 with 12 heads and L = 258 (chip_smoke.py phase 2)
+# reports (duodiff_attn_core_max_len, duodiff_attn_bwd_core_max_len, and
+# duodiff_sdpa_int8_max_len for the int8 chain of K15). A block's shared
+# memory is held to the 227 KB opt-in limit less a margin of 256 bytes.
+# Checked on the card at D = 512 with 8 heads and L = 257, and at D = 768
+# with 12 heads and L = 258 (chip_smoke.py phase 2)
 HEAD_DIM = 64
 _MAX_SMEM_BYTES = 227 * 1024 - 256
 
 
-def _check_seq_len(lib, l: int, backward: bool = False) -> None:
-    """Raise unless the attention core (or its backward) takes length l."""
+def _check_seq_len(lib, l: int, backward: bool = False, int8: bool = False) -> None:
+    """Raise unless the attention core (its backward, or K15's int8 core)
+    takes length l."""
     if backward:
         limit, what = lib.duodiff_attn_bwd_core_max_len(), "attention backward core"
+    elif int8:
+        limit, what = lib.duodiff_sdpa_int8_max_len(), "int8 attention core"
     else:
         limit, what = lib.duodiff_attn_core_max_len(), "attention core"
     if l > limit:
@@ -353,7 +357,8 @@ def mlp_sublayer_bwd_plain(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool =
 
 
 def _check_splits(hidden: int, splits: int) -> int:
-    """The slice width hidden / splits the split kernel takes (16-byte rows)."""
+    """The slice width hidden / splits of the plain version (16-byte rows);
+    the kernel takes the same ``splits``, as row chunks."""
     if splits < 1 or hidden % splits or (hidden // splits) % 8:
         raise ValueError(f"splits must divide the hidden width {hidden} into slices that are "
                          f"multiples of 8, got {splits}")
@@ -363,11 +368,13 @@ def _check_splits(hidden: int, splits: int) -> int:
 def mlp_sublayer_bwd_split_plain(x, dy, ln_s, ln_b, w1, b1, w2, *, splits: int,
                                  gelu_approx: bool = False, eps: float = 1e-5):
     """Plain PyTorch K8 (pallas_block._mlp_sublayer_bwd_split): what
-    :func:`mlp_sublayer_bwd_plain` returns, computed slice by slice of the
-    hidden width. Per slice: h_pre on w1[:, s], gelu(h_pre) and
-    dh * gelu'(h_pre) rounded to x's dtype before the weight-gradient
-    products, and an fp32 dxn partial; the partials are added in slice order,
-    then the LayerNorm backward, its + dy and db2 happen once."""
+    :func:`mlp_sublayer_bwd_plain` returns, computed as JAX computes it,
+    slice by slice of the hidden width. Per slice: h_pre on w1[:, s],
+    gelu(h_pre) and dh * gelu'(h_pre) rounded to x's dtype before the
+    weight-gradient products, and an fp32 dxn partial; the partials are added
+    in slice order, then the LayerNorm backward, its + dy and db2 happen once.
+    The kernel cuts the rows instead (:func:`fused_mlp_sublayer_bwd_split`):
+    the same roundings, fp32 sums in another order."""
     dt = x.dtype
     hs = _check_splits(w1.shape[1], splits)
     gamma = ln_s.float()
@@ -623,12 +630,10 @@ def _mlp_sublayer_bwd_split_cuda(x, dy, ln_s, ln_b, w1, b1, w2, *, splits: int,
                                  gelu_approx: bool, eps: float):
     """Check the operands and launch K8 (csrc/mlp_sublayer_bwd_split.cu) with
     one scratch workspace, whose size follows ``splits``; returns what
-    :func:`mlp_sublayer_bwd_split_plain` does. The kernel writes dW1 slice by
-    slice as (splits, D, Hd / splits); the slices are laid side by side here,
-    as the JAX wrapper concatenates its per-slice outputs."""
+    :func:`mlp_sublayer_bwd_split_plain` does."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    hs = _check_splits(w1.shape[1], splits)
+    _check_splits(w1.shape[1], splits)
     b, l, d, hid = _mlp_bwd_dims(x, dy, ln_s, ln_b, w1, b1, w2)
     dev, f32 = x.device, torch.float32
     lib = load_library()
@@ -636,7 +641,7 @@ def _mlp_sublayer_bwd_split_cuda(x, dy, ln_s, ln_b, w1, b1, w2, *, splits: int,
                      dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
     dg, db, db2 = (torch.empty(d, dtype=f32, device=dev) for _ in range(3))
-    dw1 = torch.empty((splits, d, hs), dtype=f32, device=dev)
+    dw1 = torch.empty((d, hid), dtype=f32, device=dev)
     db1 = torch.empty(hid, dtype=f32, device=dev)
     dw2 = torch.empty((hid, d), dtype=f32, device=dev)
     err = lib.duodiff_mlp_sublayer_bwd_split(
@@ -645,8 +650,8 @@ def _mlp_sublayer_bwd_split_cuda(x, dy, ln_s, ln_b, w1, b1, w2, *, splits: int,
         _ptr(ws), b * l, d, hid, splits, 2 if gelu_approx else 1, eps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on_error(lib, "hidden-split MLP sublayer backward kernel", err)
-    return dx, dg, db, dw1.permute(1, 0, 2).reshape(d, hid), db1, dw2, db2
+    _raise_on_error(lib, "split MLP sublayer backward kernel", err)
+    return dx, dg, db, dw1, db1, dw2, db2
 
 
 def fused_attn_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
@@ -726,8 +731,15 @@ def fused_mlp_sublayer_bwd(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool =
 
 def fused_mlp_sublayer_bwd_split(x, dy, ln_s, ln_b, w1, b1, w2, *, splits: int,
                                  gelu_approx: bool = False, eps: float = 1e-5):
-    """K8: the gradients of K2 by ``splits`` slices of the hidden width
-    (:func:`mlp_sublayer_bwd_split_plain`); operands as K7's."""
+    """K8: the gradients of K2 (those of K7) in scratch bounded by
+    ``splits``; operands as K7's. ``splits`` cuts the hidden width into
+    slices in the plain version (:func:`mlp_sublayer_bwd_split_plain`, the
+    Pallas kernel's order, which a TPU's VMEM set) and the rows into as many
+    chunks of whole 128-row tiles on the card, each chunk through K7's
+    sequence over the whole hidden width: hgb and dhp take (rows / splits) x
+    hidden bf16 there, as one hidden slice of all rows does. The roundings
+    are the same; the fp32 weight gradients are summed over the chunks in
+    order."""
     if x.device.type == "cpu":
         return mlp_sublayer_bwd_split_plain(x, dy, ln_s, ln_b, w1, b1, w2, splits=splits,
                                             gelu_approx=gelu_approx, eps=eps)
@@ -747,7 +759,8 @@ fused_mlp_sublayer_bwd_split.launches = 0
 
 
 def mlp_bwd_split_config(hidden: int) -> int:
-    """The number of hidden slices K8 takes: the first of 4, 8, 2 that cuts
+    """The ``splits`` K8 takes (hidden slices in the plain version, row
+    chunks on the card): the first of 4, 8, 2 that cuts
     ``hidden`` into slices of a multiple of 8 columns, unless the environment
     variable ``DUODIFF_MLP_BWD_SPLIT_CFG`` names one. The JAX package's
     ``"splits,row_target,hidden_chunk"`` form is accepted; only ``splits``

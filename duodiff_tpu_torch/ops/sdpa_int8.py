@@ -14,12 +14,13 @@ the ``1/sqrt(Dh)`` scale: the probe times the chain, not an attention layer.
   ``e8 = round(e * 127)`` (the largest e is 1, so no clip), v quantized per
   column over the tokens, ``o = float(o32) * ((vmax / 127) / 127)``, then the
   division by the sum of the unrounded e (``_sdpa_int8_kernel``;
-  ``csrc/attn_core_int8.cuh``).
+  ``csrc/attn_core_int8.cuh``, with the score rows in registers as in the
+  bf16 core).
 
 Each wrapper takes its plain PyTorch version (:func:`sdpa_chain_bf16_plain`,
 :func:`sdpa_chain_int8_plain`) for a tensor on the CPU. For a CUDA tensor it
 launches its kernel or raises; it counts its launches in ``.launches``. The
-kernels take bf16 and head width 64. The plain int8 products go through
+kernels take bf16, head width 64 and L <= 272. The plain int8 products go through
 float64, which holds every partial sum of int8 products exactly, as XLA's
 int32 ``dot_general`` does.
 """
@@ -70,15 +71,15 @@ def sdpa_chain_int8_plain(q, k, v):
 
 def _launch(entry: str, smem_entry: str | None, what: str, q, k, v):
     """Check the operands and launch one form of K15 (csrc/sdpa_int8.cu).
-    smem_entry names the C entry that gives the form's shared memory at a
-    length; None holds the length to the bf16 core's own limit."""
+    smem_entry names the C entry that gives the int8 form's shared memory at
+    a length, whose own limit on the length is held first; None holds the
+    length to the bf16 core's limit."""
     from duodiff_tpu_torch.ops._build import load_library
 
     b, h, l = _dims(q, {"q": q, "k": k, "v": v})
     lib = load_library()
-    if smem_entry is None:
-        _check_seq_len(lib, l)
-    elif getattr(lib, smem_entry)(l) > _MAX_SMEM_BYTES:
+    _check_seq_len(lib, l, int8=smem_entry is not None)
+    if smem_entry is not None and getattr(lib, smem_entry)(l) > _MAX_SMEM_BYTES:
         raise ValueError(f"sequence length {l} does not fit the {what}")
     out = torch.empty_like(q)
     err = getattr(lib, entry)(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, l,

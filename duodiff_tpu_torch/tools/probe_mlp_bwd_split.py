@@ -1,5 +1,8 @@
-"""Probe of the hidden-split MLP backward kernel K8 (counterpart of the
-repository's ``tools/probe_mlp_bwd_split.py``):
+"""Probe of the split MLP backward kernel K8 (counterpart of the
+repository's ``tools/probe_mlp_bwd_split.py``). ``splits`` bounds K8's
+scratch: the JAX kernel cuts the hidden width into that many slices, the
+port's kernel cuts the rows into that many chunks, each over the whole
+hidden width (``ops/block.py:fused_mlp_sublayer_bwd_split``):
 
     python -m duodiff_tpu_torch.tools.probe_mlp_bwd_split [imagenet64|imagenet256] [splits ...]
 

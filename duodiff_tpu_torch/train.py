@@ -21,8 +21,8 @@ updates), ``--skip_nonfinite N`` drops an update whose gradients are not
 finite until more than N in a row were, and ``--use_checkpoint`` recomputes
 each block in the backward instead of keeping its activations. With
 ``--attn_impl fused`` the environment variable ``DUODIFF_MLP_BWD_SPLIT=1``
-takes the hidden-split MLP backward kernel K8 in place of K7
-(``DUODIFF_MLP_BWD_SPLIT_CFG=<slices>`` picks the number of slices). Flags
+takes the split MLP backward kernel K8 in place of K7, whose scratch
+``DUODIFF_MLP_BWD_SPLIT_CFG=<splits>`` bounds (row chunks on the card). Flags
 whose machinery is not ported yet are refused with a message.
 Checkpoints land in ``<log_path>/<exp_name>/<save_name>_last/checkpoint.pth``;
 ``python -m duodiff_tpu_torch.sample --checkpoint_path`` loads that file.

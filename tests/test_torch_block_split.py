@@ -1,15 +1,20 @@
-"""The port's hidden-split MLP backward K8
+"""The port's split MLP backward K8
 (duodiff_tpu_torch.ops.block.fused_mlp_sublayer_bwd_split) on CPU tensors,
 where it runs its plain PyTorch version, against the Pallas
 _mlp_sublayer_bwd_split of duodiff_tpu/ops/pallas_block.py run with
 interpret=True on the same numpy inputs; against the monolithic plain
-backward; and its dispatch by DUODIFF_MLP_BWD_SPLIT.
+backward; the order of the card's kernel (row chunks, each over the whole
+hidden width), mirrored here in plain PyTorch, against both; and its
+dispatch by DUODIFF_MLP_BWD_SPLIT.
 
 Tolerances: fp32 rtol 1e-5 / atol 1e-5 per output, the bound
 tests/test_ops.py holds the Pallas split kernel to against the monolithic
-one (the two sides differ in fp32 summation order only); bf16 1 % relative
-Frobenius per output (the same roundings to bf16, flipped now and then by
-that order) and dx elementwise within 5e-2 + 5e-2 * |want|."""
+one (the sides differ in fp32 summation order only: slices, chunks or
+neither); bf16 1 % relative Frobenius per output (the same roundings to
+bf16, flipped now and then by that order) and dx elementwise within
+5e-2 + 5e-2 * |want|."""
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,11 +31,11 @@ NAMES = ("dx", "dg", "db", "dw1", "db1", "dw2", "db2")
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, length=L):
     rng = np.random.RandomState(seed)
     r = lambda *s: (0.05 * rng.randn(*s)).astype(np.float32)  # noqa: E731
-    x = rng.randn(B, L, D).astype(np.float32)
-    dy = rng.randn(B, L, D).astype(np.float32)
+    x = rng.randn(B, length, D).astype(np.float32)
+    dy = rng.randn(B, length, D).astype(np.float32)
     return x, dy, {"ln_s": 1.0 + r(D), "ln_b": r(D), "w1": r(D, HID), "b1": r(HID),
                    "w2": r(HID, D)}
 
@@ -86,6 +91,63 @@ def test_split_plain_matches_monolithic_plain(splits, dtype_name):
     got = block.mlp_sublayer_bwd_split_plain(*ops, splits=splits, gelu_approx=True)
     _compare(got, want, dtype_name)
     assert torch.equal(got[6], want[6])  # db2 does not depend on the slices
+
+
+def _row_chunk_order(x, dy, ln_s, ln_b, w1, b1, w2, *, splits, tile, gelu_approx, eps=1e-5):
+    """The card's order of K8 (csrc/mlp_sublayer_bwd_split.cu) in plain fp32
+    PyTorch: the rows cut into chunks of whole `tile`-row tiles (the row
+    tiles over `splits`, rounded up; the last chunk takes what is left), each
+    chunk through the whole hidden width: LayerNorm, h_pre, gelu and
+    dh * gelu', dxn = dhp W1^T in one product over all hidden columns (no
+    slice partials) and the LayerNorm backward at once; dW1, dW2, db1, dgamma
+    and dbeta summed over the chunks in order, db2 over all of dy."""
+    xs, dys = block._rows(x).float(), block._rows(dy).float()
+    w1f, w2f, gamma = w1.float(), w2.float(), ln_s.float()
+    m = xs.shape[0]
+    chunk = -(-(-(-m // tile)) // splits) * tile
+    dx, dw1, dw2, db1, dg, db = [], 0.0, 0.0, 0.0, 0.0, 0.0
+    for r0 in range(0, m, chunk):
+        xc, dyc = xs[r0:r0 + chunk], dys[r0:r0 + chunk]
+        x_hat, rstd, xn = block._ln_fwd(xc, gamma, ln_b.float(), eps)
+        h_pre = xn @ w1f + b1.float()
+        hg = torch.nn.functional.gelu(h_pre, approximate="tanh" if gelu_approx else "none")
+        dhp = (dyc @ w2f.t()) * block.gelu_grad(h_pre, gelu_approx)
+        dxn = dhp @ w1f.t()
+        dx.append(block._ln_bwd_dx(dxn, x_hat, rstd, gamma) + dyc)
+        dw1, dw2 = dw1 + xn.t() @ dhp, dw2 + hg.t() @ dyc
+        db1, dg, db = db1 + dhp.sum(0), dg + (dxn * x_hat).sum(0), db + dxn.sum(0)
+    return (torch.cat(dx).reshape(x.shape), dg, db, dw1, db1, dw2, dys.sum(0))
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("gelu_approx", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("tile", [128, 16])
+def test_row_chunk_order_matches_plain_and_pallas(splits, gelu_approx, tile):
+    """K8's order on the card keeps the function: at 129 rows (3 x 43) the
+    chunks of whole 128-row tiles are 128 rows and a ragged last one of 1,
+    and with 16-row tiles 80 + 49 (2 splits) or 48 + 48 + 33 (4 splits); in
+    fp32 the mirror meets the slice-by-slice plain version and the Pallas
+    kernel (interpret mode) within the fp32 bound above."""
+    x, dy, p = _inputs(seed=3, length=43)
+    ops = _operands(x, dy, p, torch.float32)
+    got = _row_chunk_order(*ops, splits=splits, tile=tile, gelu_approx=gelu_approx)
+    plain = block.mlp_sublayer_bwd_split_plain(*ops, splits=splits, gelu_approx=gelu_approx)
+    _compare(got, plain, "fp32")
+    want = _mlp_sublayer_bwd_split(jnp.asarray(x), jnp.asarray(dy), p["ln_s"], p["ln_b"],
+                                   p["w1"], p["b1"], p["w2"], eps=1e-5, gelu_approx=gelu_approx,
+                                   interpret=True, config=(splits, 16, 64))
+    _compare(got, want, "fp32")
+
+
+def test_kernel_cuts_the_rows_not_the_hidden_width():
+    """csrc/mlp_sublayer_bwd_split.cu runs K7's sequence on row chunks over
+    the whole hidden width: one dxn product over all hidden columns a chunk
+    (no fp32 dxn read back and added to), both weight gradients of a chunk in
+    one launch that adds to the chunks before, no slice of w1 or w2."""
+    src = (Path(block.__file__).resolve().parents[1] / "csrc/mlp_sublayer_bwd_split.cu").read_text()
+    assert "chunk_rows(" in src and "launch_weight_grad_pair(" in src
+    assert "launch_gemm_nt(dhp, Hd, w1b, Hd, dxn, rows, D, Hd" in src
+    assert "launch_gemm_nt_accumulate" not in src and "w1s" not in src and "w2s" not in src
 
 
 @pytest.mark.parametrize("splits", [0, 3, 64])

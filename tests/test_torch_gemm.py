@@ -209,7 +209,8 @@ def test_gemm_source_is_the_hopper_design():
     assert '#include "hopper.cuh"' in src
     src += (CSRC_DIR / "hopper.cuh").read_text()
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait.parity",
-                   "const __grid_constant__ CUtensorMap", "tile += gridDim.x",
+                   "const __grid_constant__ GemmProblems",
+                   "CUtensorMap a[kProblems], b[kProblems];", "tile += gridDim.x",
                    "kGemmStages = 4", "mbar_wait(staged", "mbar_wait(drained"):
         assert needle in src, needle
 

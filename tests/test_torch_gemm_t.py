@@ -336,9 +336,14 @@ def test_backward_products_are_wgmma_from_a_tma_ring(header):
     src = (CSRC_DIR / header).read_text()
     assert '#include "hopper.cuh"' in src
     for needle in ("wgmma.mma_async", "tma_load_2d(", "mbar_wait(&full[s]", "mbar_wait(&empty[s]",
-                   "const __grid_constant__ CUtensorMap", "tile += gridDim.x", "mbar_wait(staged",
-                   "mbar_wait(drained", "__launch_bounds__(k"):
+                   "tile += gridDim.x", "mbar_wait(staged", "mbar_wait(drained",
+                   "__launch_bounds__(k"):
         assert needle in src, (header, needle)
+    # the TMA maps reach the kernel as grid constants, one by one or in the
+    # GEMM's operand struct (one or two products a launch)
+    assert ("const __grid_constant__ CUtensorMap" in src
+            or ("const __grid_constant__ GemmProblems" in src
+                and "CUtensorMap a[kProblems], b[kProblems];" in src)), header
     hopper = (CSRC_DIR / "hopper.cuh").read_text()
     for needle in ("cp.async.bulk.tensor", "mbarrier.try_wait.parity", "ld.acquire.gpu",
                    "st.release.gpu", "__trap()"):
@@ -350,7 +355,8 @@ def test_every_backward_caller_goes_through_the_one_design(unit):
     """No GEMM kernel of its own in a backward unit: the products go through
     gemm_t.cuh's launchers over gemm.cuh and the hidden stage."""
     src = (CSRC_DIR / unit).read_text()
-    assert '#include "gemm_t.cuh"' in src and "launch_weight_grad(" in src
+    assert '#include "gemm_t.cuh"' in src
+    assert "launch_weight_grad(" in src or "launch_weight_grad_pair(" in src
     assert "__global__" not in src
     assert "launch_gemm_nt" in src
     if unit.startswith("mlp"):

@@ -23,6 +23,7 @@ Tolerances:
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -353,6 +354,103 @@ def test_k15_launchers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="bfloat16"):
         sdpa_int8._launch("duodiff_sdpa_chain_int8", "duodiff_sdpa_int8_smem_bytes", "core",
                           qt.float(), kt.float(), vt.float())
+
+
+class _CoreLimits:
+    """Stands in for the loaded kernel library: it knows both cores' longest
+    sequence and the int8 core's shared memory, and has no kernel entry, so
+    a call that got past the checks fails with AttributeError."""
+
+    @staticmethod
+    def duodiff_attn_core_max_len():
+        return 272
+
+    @staticmethod
+    def duodiff_sdpa_int8_max_len():
+        return 272
+
+    @staticmethod
+    def duodiff_sdpa_int8_smem_bytes(length):
+        return 43584
+
+
+@pytest.mark.parametrize("entry, smem_entry", [
+    ("duodiff_sdpa_chain_int8", "duodiff_sdpa_int8_smem_bytes"), ("duodiff_sdpa_chain_bf16", None),
+], ids=["int8", "bf16"])
+def test_k15_forms_refuse_a_sequence_past_the_cores_registers(entry, smem_entry, monkeypatch):
+    """Both forms keep a warp's score tiles in registers, which bounds L at
+    272 (the int8 form's first design, with its score rows in shared memory,
+    took longer ones): each refuses L = 273 with the attention core's message
+    before it allocates or launches anything, and lets L = 272 through. The
+    device checks are taken out so that CPU tensors reach the length check."""
+    from duodiff_tpu_torch.ops import _build, flash_attention
+
+    monkeypatch.setattr(_build, "load_library", lambda: _CoreLimits)
+    monkeypatch.setattr(flash_attention, "_check", lambda *a: None)
+    q = torch.zeros(1, 1, 273, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"sequence length 273 does not fit the (int8 )?attention "
+                                         r"core \(at most 272\)"):
+        sdpa_int8._launch(entry, smem_entry, "core", q, q, q)
+    q = q[:, :, :272].contiguous()
+    with pytest.raises(AttributeError, match=entry):
+        sdpa_int8._launch(entry, smem_entry, "core", q, q, q)
+
+
+def _token_pos():
+    """csrc/attn_core_int8.cuh's token_pos, its expression taken from the
+    source: where token t of a 32-token block of v^T is staged."""
+    src = (REPO / "duodiff_tpu_torch/csrc/attn_core_int8.cuh").read_text()
+    expr = re.search(r"int token_pos\(int t\) \{\s*const int u = t & 15;\s*return (.*?);", src,
+                     re.S).group(1)
+    return lambda t: eval(expr, {"t": t, "u": t & 15})  # noqa: S307 - integer C expression
+
+
+def test_k15_int8_core_stages_v_in_the_a_fragments_order():
+    """The int8 core packs e codes straight from the int32 accumulator tiles
+    of q k^T into the A fragments of the value product, so v^T's tokens are
+    staged in that order: position 4tg+i takes token (2tg, 2tg+1, 8+2tg,
+    9+2tg)[i] and 16+4tg+i token (16+2tg, 17+2tg, 24+2tg, 25+2tg)[i]. Checked
+    twice: token_pos against that rule, and a numpy model of one k32 step of
+    mma.sync m16n8k32 (thread (g, tg) holds keys 2tg, 2tg+1 of each 8-key
+    accumulator tile; A fragment bytes k = 4tg..4tg+3 and 16+4tg..16+4tg+3;
+    B column n, k rows from v^T's staged row n) against e8 v8 itself."""
+    pos = _token_pos()
+    assert sorted(pos(t) for t in range(32)) == list(range(32))
+    for half in (0, 16):
+        for tg in range(4):
+            for i, tok in enumerate((2 * tg, 2 * tg + 1, 8 + 2 * tg, 9 + 2 * tg)):
+                assert pos(half + tok) == half + 4 * tg + i
+    rng = np.random.RandomState(0)
+    e8 = rng.randint(0, 128, size=(16, 32)).astype(np.int64)   # 16 rows, 32 keys
+    v8 = rng.randint(-127, 128, size=(32, 8)).astype(np.int64)  # 32 tokens, 8 columns
+    vt = np.zeros((8, 32), np.int64)
+    for tok in range(32):
+        vt[:, pos(tok)] = v8[tok]
+    a = np.zeros((16, 32), np.int64)  # the A operand as the fragments hold it
+    for g in range(8):
+        for tg in range(4):
+            for r in (g, g + 8):
+                held = [e8[r, 8 * t + 2 * tg + c] for t in range(4) for c in range(2)]
+                a[r, 4 * tg:4 * tg + 4] = held[:4]          # tiles 0, 1
+                a[r, 16 + 4 * tg:16 + 4 * tg + 4] = held[4:]  # tiles 2, 3
+    b = vt.T  # B (k, n): k runs along v^T's staged row n
+    np.testing.assert_array_equal(a @ b, e8 @ v8)
+
+
+def test_k15_int8_core_keeps_codes_not_scores_in_shared_memory():
+    """The redesigned int8 core: score tiles in registers (no fp32 score or
+    e rows in shared memory), k and v quantized once a block, B fragments by
+    ldmatrix, the int8 products m16n8k32 (and m16n8k16 for a class's last 16
+    keys), and the length limit of the bf16 core, reported to the wrapper."""
+    src = (REPO / "duodiff_tpu_torch/csrc/attn_core_int8.cuh").read_text()
+    for gone in ("s_pitch", "e_pitch", "float* Ss", "E8s"):
+        assert gone not in src, gone
+    for needle in ("m16n8k32.row.col.s32.s8.s8.s32", "m16n8k16.row.col.s32.s8.s8.s32",
+                   "ldmatrix_x4(", "token_pos(", "with_seq_class(", "head_splits(",
+                   "__launch_bounds__(kI8AttnWarps * 32, kI8BlocksPerSm)"):
+        assert needle in src, needle
+    entry = (REPO / "duodiff_tpu_torch/csrc/sdpa_int8.cu").read_text()
+    assert "duodiff_sdpa_int8_max_len() { return duodiff::kMaxSeq; }" in entry
 
 
 # --- the tools ---------------------------------------------------------------------
