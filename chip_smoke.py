@@ -63,7 +63,19 @@ checks them, in phases, each printing its results on its own lines:
    the static twin of both W8A8 sublayers, chained) and
    ``duodiff_tpu_torch.tools.probe_int8_sdpa`` (K15: the attention chain alone,
    bf16 and int8), each once through its ``main`` at its full geometry
-   (batch 128, L = 257, D = 512, 8 heads), with the launch counts they imply.
+   (batch 128, L = 257, D = 512, 8 heads), with the launch counts they imply;
+10. the other samplers and the tools that make the headline's two assets, at
+   CelebA-64 width: (a) DDIM DuoDiff, 50 steps, bf16, through the sampling
+   CLI, after a 10-step DDIM run at batch 8 held kernels against plain; (b)
+   DPM-Solver++ 2M, 20 steps, on the depth-13 model in int8 with the asset's
+   static scales, block-cached every 2 transitions, after the same run at
+   batch 8 held against ``plain_int8``; (c) heavy-light interleaving every 4
+   steps over 1000; (d) ``duodiff_tpu_torch.tools.derive_cache_schedule`` in
+   DuoDiff mode for the pair phase 4b samples (seeds 0 and 1, at most 80
+   anchors), its JSON loaded back; (e) ``duodiff_tpu_torch.tools.calibrate_int8
+   --mode search`` on the depth-13 model at seed 1, batch 16, its PSNR table
+   printed; (f) phase 4b's composition on the files (d) and (e) wrote. Each
+   with exact launch counts and its wall time beside the card.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -288,7 +300,7 @@ PROBE_KERNELS = {
 # single entries by more than a bf16 rounding, so the gate is the relative
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
-PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9")
+PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -473,7 +485,9 @@ def sublayer_operands(batch: int, qkv_bias: bool, device, width: Width = CELEBA)
 
 
 def new_results(names) -> dict:
-    return {name: {"max_abs_err": 0.0} for name in names}
+    """Per kernel, what its comparisons measured; ``max_abs_err`` appears
+    with the first comparison that ran."""
+    return {name: {} for name in names}
 
 
 def keep_times(res: dict, ms: dict, suffix) -> None:
@@ -533,7 +547,7 @@ def compare_kernel(res: dict, label: str, kernel, plain, suffix,
           f"plain_ms={ms['plain']:.6g}", flush=True)
     if not ok:
         fail(f"{label} disagrees with its plain version")
-    res["max_abs_err"] = max(res["max_abs_err"], max_abs)
+    res["max_abs_err"] = max(res.get("max_abs_err", 0.0), max_abs)
     keep_times(res, ms, suffix)
 
 
@@ -642,7 +656,7 @@ def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, suffix,
           f"plain_ms={ms['plain']:.6g}", flush=True)
     if not ok:
         fail(f"{label} disagrees with its plain version or is not deterministic")
-    res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+    res["max_abs_err"] = max(res.get("max_abs_err", 0.0), abs_err)
     res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), rels[worst])
     keep_times(res, ms, suffix)
     return ms
@@ -1800,7 +1814,7 @@ def check_ragged_attention(device, results: dict) -> None:
         if not (ok and bwd_ok):
             fail(f"K9 or K10 disagrees with its plain version at L={l}")
         res = results["flash_attention"]
-        res["max_abs_err"] = max(res["max_abs_err"], max_abs)
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), max_abs)
         res = results["flash_attention_bwd"]
         res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), max(rels.values()))
     for l in NORM_FIRST_LENGTHS:
@@ -1818,7 +1832,7 @@ def check_ragged_attention(device, results: dict) -> None:
         if not ok:
             fail(f"K1-v1 disagrees with its plain version at L={l}")
         res = results["fused_attn_sublayer_v1"]
-        res["max_abs_err"] = max(res["max_abs_err"], max_abs)
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), max_abs)
 
 
 def check_probe_kernels(device, results: dict) -> None:
@@ -1888,7 +1902,7 @@ def check_probe_kernels(device, results: dict) -> None:
             fail(f"K15 sdpa_chain_int8 {label} disagrees with its plain version, with the bf16 "
                  "form, or is not deterministic")
         res = results["sdpa_chain_int8"]
-        res["max_abs_err"] = max(res["max_abs_err"], max_abs)
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), max_abs)
         res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), rel)
         if timed:
             keep_times(res, ms, "")
@@ -1963,7 +1977,7 @@ def check_ragged_int8_chain(device, results: dict) -> None:
         if not ok:
             fail(f"K15 sdpa_chain_int8 at L={l} disagrees with its plain version, with the bf16 "
                  "form, or is not deterministic")
-        res["max_abs_err"] = max(res["max_abs_err"], max_abs)
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), max_abs)
         res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), rel)
 
 
@@ -2270,17 +2284,24 @@ def read_counts() -> dict:
 
 def run_cli(label: str, extra: list, card: str, expected: dict,
             configs=(EARLY_CONFIG, LATE_CONFIG), batch: int = MAIN_BATCH,
-            check_output=None) -> dict:
-    """One 1000-step DuoDiff run of the sampling CLI, in-process, with every
-    launch counter set to 0 just before and read just after; checks the
-    samples and that the counts equal ``expected`` (unlisted kernels: 0).
-    ``check_output(folder, result)`` looks at the files before they go."""
+            check_output=None, t_switch: int | None = T_SWITCH) -> dict:
+    """One run of the sampling CLI over the 1000-step schedule, in-process,
+    with every launch counter set to 0 just before and read just after;
+    checks the samples and that the counts equal ``expected`` (unlisted
+    kernels: 0). By default the DuoDiff pair with ``--t_switch``; one config
+    samples one model, ``t_switch=None`` passes the pair without it (heavy-light
+    interleaving). ``check_output(folder, result)`` looks at the files before
+    they go."""
     from duodiff_tpu_torch import sample
 
     with tempfile.TemporaryDirectory() as out:
-        argv = [
-            "--config_path", configs[0], "--config_path_late", configs[1],
-            "--t_switch", str(T_SWITCH), "--random_init",
+        argv = ["--config_path", configs[0]]
+        if len(configs) > 1:
+            argv += ["--config_path_late", configs[1]]
+        if t_switch is not None:
+            argv += ["--t_switch", str(t_switch)]
+        argv += [
+            "--random_init",
             "--num_timesteps", str(STEPS), "--batch_size", str(batch),
             "--parametrization", "predict_noise", "--device", "cuda",
             "--output_folder", out, "--seed", "0", *extra,
@@ -2372,16 +2393,18 @@ def run_main_path(card: str) -> dict:
     )
 
 
-def run_int8_main_path(card: str) -> dict:
+def run_int8_main_path(card: str, schedule: str = CACHE_SCHEDULE, scales: str = INT8_SCALES,
+                       phase: str = "phase 4b") -> dict:
     """Phase 4b: the headline composition through the sampling CLI: depth 3
     with dynamic int8 for t = 999..700, then depth 13 with the asset's
     static MLP scales, block-cached on the committed anchor schedule,
-    tanh GELU. The expected counts follow from the schedule: the late
-    segment anchors its listed steps below the handoff plus its first
-    step and runs 2 * n_outer blocks on every other step."""
+    tanh GELU (phase 10f: on the schedule and scales phase 10 made). The
+    expected counts follow from the schedule: the late segment anchors its
+    listed steps below the handoff plus its first step and runs 2 * n_outer
+    blocks on every other step."""
     from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
 
-    table = load_cache_schedule(CACHE_SCHEDULE, num_timesteps=STEPS)
+    table = load_cache_schedule(schedule, num_timesteps=STEPS)
     handoff = STEPS - T_SWITCH
     anchors = int(table[:handoff].sum()) + (not table[handoff - 1])
     early = T_SWITCH * 3
@@ -2393,11 +2416,11 @@ def run_int8_main_path(card: str) -> dict:
         "fused_mlp_sublayer_int8 static": late,
     }
     return run_cli(
-        f"phase 4b: DuoDiff {STEPS} steps int8 (depth 3 x {T_SWITCH} dynamic scales, "
+        f"{phase}: DuoDiff {STEPS} steps int8 (depth 3 x {T_SWITCH} dynamic scales, "
         f"depth 13 x {handoff} static scales, block-cached: {anchors} anchored, "
         f"{handoff - anchors} cached at n_outer {N_OUTER}), tanh GELU",
-        ["--attn_impl", "fused_int8", "--int8_scales_late", INT8_SCALES,
-         "--cache_schedule", CACHE_SCHEDULE, "--gelu_approx"],
+        ["--attn_impl", "fused_int8", "--int8_scales_late", scales,
+         "--cache_schedule", schedule, "--gelu_approx"],
         card, expected,
     )
 
@@ -3200,6 +3223,203 @@ def run_probe_tools(card: str) -> dict:
     return out
 
 
+DDIM_STEPS = 50           # sampler.py's --ddim_steps default
+DDIM_CHECK_STEPS = 10
+DPM_STEPS = 20            # sampler.py's --dpm_steps default
+DPM_CACHE_EVERY = 2
+INTERLEAVE_EVERY = 4
+DERIVE_ANCHORS = 80       # the committed schedule's meta: num_anchors<=80, batch 128
+CALIB_BATCH = 16          # the committed scales' meta: search 99.5, 99.9, margin 1.1
+CALIB_GRID = "99.5,99.9"
+CALIB_MARGIN = 1.1
+
+
+def check_ddim(device) -> None:
+    """Phase 10a's gate: a short DDIM DuoDiff run at eta 0, batch 8, the
+    kernels against their plain versions from one x_init. It is held as the
+    guided trajectory is, by relative Frobenius error (FWD_REL_FRO) and
+    entry by entry against the largest value (MODEL_MAX_FRAC), not by 0.05 +
+    0.05 |plain|: on random weights the eta-0 trajectory extrapolates its
+    x0 prediction to values in the hundreds (max 734, mean 139), and two
+    plain bf16 routes of the port (``plain`` and the unfused ``xla``) already
+    differ by up to 2.1 there, 2.7 % of the entries past that bound, at
+    2.6e-3 relative Frobenius (CPU, batch 2)."""
+    from duodiff_tpu_torch.diffusion.sampling import ddim_sample
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    early, _ = load_model(EARLY_CONFIG, device=device, seed=0)
+    late, cfg = load_model(LATE_CONFIG, device=device, seed=1)
+    shape = (CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    x0 = torch.randn(shape, generator=torch.Generator().manual_seed(10)).to(device)
+    schedule = NoiseSchedule.create(steps=STEPS, device=device)
+    outs = {}
+    with torch.inference_mode():
+        for impl in ("fused", "plain"):
+            for m in (early, late):
+                set_attn_impl(m, impl)
+                m.eval().pack_for_kernels()
+            outs[impl], _ = ddim_sample(early, None, schedule=schedule, shape=shape,
+                                        ddim_steps=DDIM_CHECK_STEPS, eta=0.0, x_init=x0,
+                                        late_apply_fn=late, t_switch=T_SWITCH)
+    max_abs, limit, rel, ok = scaled_errors(outs["fused"], outs["plain"], MODEL_MAX_FRAC)
+    print(f"phase 10a: {DDIM_CHECK_STEPS}-step DDIM DuoDiff (depth 3 -> {cfg.depth}, t_switch "
+          f"{T_SWITCH}, eta 0) B={CHECK_BATCH} fused vs plain: rel_fro_err={rel:.6g} (bound "
+          f"{FWD_REL_FRO}) max_abs_err={max_abs:.6g} (bound {limit:.6g}) max_abs_out="
+          f"{outs['plain'].abs().max().item():.6g} ok={ok}", flush=True)
+    if not ok:
+        fail("the fused DDIM trajectory disagrees with the plain one")
+
+
+def check_dpm(device) -> None:
+    """Phase 10b's gate: the cached int8 DPM-Solver++ run at batch 8, the
+    int8 kernels against plain_int8 from one x_init, held as a whole int8
+    forward is (INT8_REL_FRO)."""
+    from duodiff_tpu_torch.diffusion.sampling import dpm_solver_sample
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    model, cfg = load_model(LATE_CONFIG, device=device, seed=0, attn_impl="fused_int8",
+                            gelu_approx=True, int8_scales=INT8_SCALES)
+    model.eval().pack_for_kernels()
+    shape = (CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    x0 = torch.randn(shape, generator=torch.Generator().manual_seed(11)).to(device)
+    tokens = cfg.extras + cfg.num_patches
+    cache = (lambda x, t, y: model.forward_anchor(x, t, y, n_outer=N_OUTER),
+             lambda x, t, y, d: model.forward_cached(x, t, y, n_outer=N_OUTER, delta=d),
+             DPM_CACHE_EVERY,
+             lambda x: torch.zeros((x.shape[0], tokens, cfg.embed_dim), dtype=model.dtype,
+                                   device=x.device))
+    outs = {}
+    with torch.inference_mode():
+        for impl in ("fused_int8", "plain_int8"):
+            set_attn_impl(model, impl)
+            outs[impl] = dpm_solver_sample(
+                None, None, schedule=NoiseSchedule.create(steps=STEPS, device=device),
+                shape=shape, dpm_steps=DPM_STEPS, x_init=x0, cache=cache)
+    rel = rel_fro(outs["fused_int8"], outs["plain_int8"])
+    max_abs, _, _ = errors(outs["fused_int8"], outs["plain_int8"])
+    ok = rel <= INT8_REL_FRO and bool(torch.isfinite(outs["fused_int8"]).all())
+    print(f"phase 10b: DPM-Solver++ 2M {DPM_STEPS} steps, int8 static scales, cached every "
+          f"{DPM_CACHE_EVERY} transitions, B={CHECK_BATCH} fused_int8 vs plain_int8: "
+          f"rel_fro_err={rel:.6g} (bound {INT8_REL_FRO}) max_abs_err={max_abs:.6g} ok={ok}",
+          flush=True)
+    if not ok:
+        fail("the cached int8 DPM-Solver trajectory disagrees with its plain version")
+
+
+def run_tool(label: str, tool_main, argv: list, card: str, expected: dict) -> tuple:
+    """One of the port's tools through its ``main`` on the card, every launch
+    counter set to 0 just before and read just after, the counts checked.
+    Returns (what ``main`` returned, the launches)."""
+    reset_counts()
+    tic = time.perf_counter()
+    result = tool_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = read_counts()
+    print(f"{label}: wall {wall:.6g} s, launches {launches} (expected {expected}), card {card}",
+          flush=True)
+    if result["card"] != card:
+        fail(f"{label}: the tool saw another card: {result['card']}")
+    check_counts(launches, expected)
+    return result, launches
+
+
+def run_other_samplers(device, card: str) -> dict:
+    """Phase 10: the samplers after DDPM through the sampling CLI, then the
+    tools that make the headline's two assets, then the headline on what
+    they made. Returns the launches of each run, by run."""
+    from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
+    from duodiff_tpu_torch.diffusion.sampling import ddim_pairs, dpm_solver_tables
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.tools import calibrate_int8, derive_cache_schedule
+    from duodiff_tpu_torch.utils.int8_scales import load_int8_scales
+
+    runs = {}
+    check_ddim(device)
+    early_pairs, late_pairs = ddim_pairs(STEPS, DDIM_STEPS, T_SWITCH)
+    n = len(early_pairs) * 3 + len(late_pairs) * 13
+    runs["10a"] = run_cli(
+        f"phase 10a: DDIM DuoDiff {DDIM_STEPS} steps (depth 3 x {len(early_pairs)}, depth 13 x "
+        f"{len(late_pairs)}), bf16", ["--use_ddim", "--ddim_steps", str(DDIM_STEPS)], card,
+        {"fused_attn_sublayer": n, "fused_mlp_sublayer": n})
+
+    check_dpm(device)
+    transitions = len(dpm_solver_tables(NoiseSchedule.create(steps=STEPS), DPM_STEPS)["phi"])
+    anchored = len(range(0, transitions, DPM_CACHE_EVERY))
+    n = anchored * 13 + (transitions - anchored) * 2 * N_OUTER
+    runs["10b"] = run_cli(
+        f"phase 10b: DPM-Solver++ 2M {DPM_STEPS} steps, depth 13 int8 static scales, cached "
+        f"every {DPM_CACHE_EVERY} transitions ({anchored} anchored, {transitions - anchored} "
+        f"cached), tanh GELU",
+        ["--use_dpm_solver", "--dpm_steps", str(DPM_STEPS), "--attn_impl", "fused_int8",
+         "--int8_scales", INT8_SCALES, "--cache_every", str(DPM_CACHE_EVERY), "--gelu_approx"],
+        card, {"fused_attn_sublayer_int8": n, "fused_mlp_sublayer_int8": n,
+               "fused_mlp_sublayer_int8 static": n},
+        configs=(LATE_CONFIG,), t_switch=None)
+
+    full = len(range(0, STEPS, INTERLEAVE_EVERY))
+    n = full * 13 + (STEPS - full) * 3
+    runs["10c"] = run_cli(
+        f"phase 10c: heavy-light interleaving every {INTERLEAVE_EVERY} over {STEPS} steps "
+        f"(depth 13 x {full}, depth 3 x {STEPS - full}), bf16",
+        ["--interleave_every", str(INTERLEAVE_EVERY)], card,
+        {"fused_attn_sublayer": n, "fused_mlp_sublayer": n}, t_switch=None)
+
+    with tempfile.TemporaryDirectory() as work:
+        schedule_path, scales_path = f"{work}/cache_schedule.json", f"{work}/int8_scales.json"
+        n = T_SWITCH * 3 + (STEPS - T_SWITCH) * 13
+        derived, runs["10d"] = run_tool(
+            f"phase 10d: derive_cache_schedule, DuoDiff mode (t_switch {T_SWITCH}, seeds 0 / 1), "
+            f"batch {MAIN_BATCH}, <= {DERIVE_ANCHORS} anchors, tanh GELU",
+            derive_cache_schedule.main,
+            ["--config", LATE_CONFIG, "--shallow_config", EARLY_CONFIG, "--t_switch",
+             str(T_SWITCH), "--seed", "0", "--full_seed", "1", "--batch", str(MAIN_BATCH),
+             "--steps", str(STEPS), "--num_anchors", str(DERIVE_ANCHORS), "--gelu_approx",
+             "--out", schedule_path, "--device", "cuda"],
+            card, {"fused_attn_sublayer": n, "fused_mlp_sublayer": n})
+        table = load_cache_schedule(schedule_path, num_timesteps=STEPS)
+        late = int(table[:STEPS - T_SWITCH].sum())
+        drift = np.asarray(derived["drift"][:STEPS - T_SWITCH - 1])
+        print(f"phase 10d: the schedule loads: {late} anchors in the late segment (at most "
+              f"{DERIVE_ANCHORS}), {int(table.sum())} in all; budget {derived['budget']:.6g}; "
+              f"drift over t = 0..{STEPS - T_SWITCH - 2}: min {drift.min():.6g}, median "
+              f"{np.median(drift):.6g}, max {drift.max():.6g}", flush=True)
+        if not (0 < late <= DERIVE_ANCHORS and table[STEPS - T_SWITCH:].all()
+                and np.isfinite(drift).all() and (drift > 0).all()):
+            fail("the derived cache schedule is not what phase 10d asked for")
+
+        candidates = 1 + len(CALIB_GRID.split(","))
+        per_run = STEPS * 13
+        calibrated, runs["10e"] = run_tool(
+            f"phase 10e: calibrate_int8 --mode search (grid {CALIB_GRID}, margin "
+            f"{CALIB_MARGIN}), depth 13 seed 1, batch {CALIB_BATCH}, tanh GELU",
+            calibrate_int8.main,
+            ["--config_path", LATE_CONFIG, "--random_init", "--seed", "1", "--mode", "search",
+             "--search_grid", CALIB_GRID, "--margin", str(CALIB_MARGIN), "--gelu_approx",
+             "--batch_size", str(CALIB_BATCH), "--num_timesteps", str(STEPS),
+             "--output", scales_path, "--device", "cuda"],
+            card, {"fused_attn_sublayer_int8": (2 + candidates) * per_run,
+                   "fused_mlp_sublayer_int8": (1 + candidates) * per_run,
+                   "fused_mlp_sublayer_int8 dynamic": per_run,
+                   "fused_mlp_sublayer_int8 static": candidates * per_run})
+        table_rows = calibrated["meta"]["search"]
+        print("phase 10e: PSNR against the dynamic-int8 kernels: " + ", ".join(
+            f"{r['candidate']} {r['psnr_vs_dynamic_db']} dB" for r in table_rows)
+            + f"; winner {calibrated['meta']['search_winner']['candidate']}; statistics "
+            f"{calibrated['seconds']['stats']:.6g} s, search {calibrated['seconds']['search']:.6g}"
+            f" s", flush=True)
+        scales = load_int8_scales(scales_path)
+        if len(scales) != 13 or not all(np.isfinite(v).all() and min(v) > 0
+                                        for v in scales.values()):
+            fail(f"the calibrated scales are not 13 finite positive pairs: {scales}")
+        runs["10f"] = run_int8_main_path(card, schedule_path, scales_path, phase="phase 10f")
+    print(json.dumps({"phase10_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}), flush=True)
+    return runs
+
+
 def parse_phases(argv) -> set:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3279,6 +3499,12 @@ def main(argv=None) -> int:
         launches["fused_mlp_sublayer_bwd_split"] = split_launches["fused_mlp_sublayer_bwd_split"]
     if "9" in run:
         launches.update(run_probe_tools(card))
+    if "10" in run:
+        # phase 4 / 4b's counts stay the record where those paths ran
+        for counts in run_other_samplers(device, card).values():
+            for name in (*KERNELS, *INT8_KERNELS):
+                if counts.get(name):
+                    launches.setdefault(name, counts[name])
     if run == set(PHASES):
         idle = sorted(name for name in kernels if not launches.get(name))
         if idle:

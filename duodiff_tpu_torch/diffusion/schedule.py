@@ -110,6 +110,23 @@ class NoiseSchedule:
             return self.step_predict_previous(model_output, x, t, z, variance_mode)
         raise ValueError(f"Invalid parametrization {parametrization}")
 
+    def ddim_step(self, model_output, x, t: int, s: int, z, eta: float = 0.0):
+        """One DDIM step t -> s (s < t) from predicted epsilon, with
+        sigma^2 = eta * beta_tilde_t:
+
+            mean = sqrt(abar_s / abar_t) (x - sqrt(1 - abar_t) eps)
+                   + sqrt(max(1 - abar_s - sigma^2, 0)) eps
+            x_s  = mean + sqrt(sigma^2) z
+
+        The reference adds ``sigma^2 * z``; like the JAX package this takes
+        the standard ``sqrt(sigma^2) * z`` (the same at the default eta 0)."""
+        abar_t = self.alphas_bar[t]
+        abar_s = self.alphas_bar[s]
+        sigma_sq = self.betas_tilde[t] * eta
+        mean = torch.sqrt(abar_s / abar_t) * (x - torch.sqrt(1.0 - abar_t) * model_output)
+        mean = mean + torch.sqrt(torch.clamp(1.0 - abar_s - sigma_sq, min=0.0)) * model_output
+        return mean + torch.sqrt(sigma_sq) * z
+
 
 def _bcast(coeffs: torch.Tensor, ndim: int) -> torch.Tensor:
     """(B,) coefficients -> (B, 1, ..., 1) for broadcasting."""

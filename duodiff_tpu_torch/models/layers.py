@@ -33,6 +33,7 @@ from duodiff_tpu_torch.ops.block_int8 import (
     attn_sublayer_int8_plain,
     fused_attn_sublayer_int8,
     fused_mlp_sublayer_int8,
+    mlp_sublayer_int8_calib,
     mlp_sublayer_int8_plain,
     pack_attn_int8,
     pack_mlp_int8,
@@ -238,14 +239,17 @@ class Block(nn.Module):
                 pack_mlp(self.norm2, fc1, fc2, dtype=dtype),
             )
 
+    def _check_packed(self) -> None:
+        if self._packed is None:
+            raise RuntimeError("Block operands are not packed: call UViT.pack_for_kernels()")
+        if self._packed_marks != self._param_marks():
+            self.pack(self._packed_dtype)  # a parameter changed since packing
+
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
         training = self.training and torch.is_grad_enabled()
         unfused = self.attn_impl in UNFUSED_IMPLS
-        reads_packed = not training and (not unfused or self.mlp_impl == "fused")
-        if self._packed is None and reads_packed:
-            raise RuntimeError("Block operands are not packed: call UViT.pack_for_kernels()")
-        if reads_packed and self._packed_marks != self._param_marks():
-            self.pack(self._packed_dtype)  # a parameter changed since packing
+        if not training and (not unfused or self.mlp_impl == "fused"):
+            self._check_packed()
         if self.skip_linear is not None:
             x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
         if unfused:
@@ -259,6 +263,28 @@ class Block(nn.Module):
         attn, mlp = _SUBLAYERS[self.attn_impl]
         x = attn(x, *attn_ops, num_heads=self.num_heads)
         return mlp(x, *mlp_ops, gelu_approx=self.gelu_approx)
+
+    def forward_calib(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
+        """The calibration forward of an int8 block (the JAX ``Block`` with
+        ``int8_calibrate=True``): the attention sublayer with dynamic scales
+        (K11 on a CUDA tensor for ``fused_int8``, its plain version else),
+        then :func:`mlp_sublayer_int8_calib`. Returns ``(x, amax, rows)``:
+        amax (2,) the post-LN and post-GELU amax of the MLP sublayer, rows
+        (2, B*L) their per-row amaxes, fp32 on x's device. The block must
+        have no static scales: they are what the calibration makes."""
+        if self.attn_impl not in INT8_IMPLS or self.int8_mlp_scales is not None:
+            raise ValueError("the calibration forward takes an int8 block with dynamic scales, "
+                             f"got attn_impl {self.attn_impl!r}, int8_mlp_scales "
+                             f"{self.int8_mlp_scales}")
+        self._check_packed()
+        if self.skip_linear is not None:
+            x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
+        attn_ops, mlp_ops = self._packed
+        x = _SUBLAYERS[self.attn_impl][0](x, *attn_ops, num_heads=self.num_heads)
+        x, xn_amax, h_amax, (xn_rows, h_rows) = mlp_sublayer_int8_calib(
+            x, *mlp_ops[:-1], gelu_approx=self.gelu_approx, with_rows=True)
+        return (x, torch.stack([xn_amax, h_amax]),
+                torch.stack([xn_rows.reshape(-1), h_rows.reshape(-1)]))
 
     def _attention(self, x: torch.Tensor) -> torch.Tensor:
         """attn(LN(x)) of the unfused block, (B, L, D) in x's dtype."""

@@ -125,8 +125,11 @@ class UViT(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._forward(x, timesteps, y, self._run_block)
+
+    def _forward(self, x, timesteps, y, run):
+        """The U-Net traversal, each block through ``run(blk, x, skip=None)``."""
         x = self.embed_tokens(x, timesteps, y)
-        run = self._run_block
         skips = []
         for blk in self.in_blocks:
             x = run(blk, x)
@@ -135,6 +138,28 @@ class UViT(nn.Module):
         for blk in self.out_blocks:
             x = run(blk, x, skips.pop())
         return self.decode_tokens(x)
+
+    def block_names(self) -> list[str]:
+        """The JAX block names, in :meth:`blocks`' order: in_blocks_i,
+        mid_block, out_blocks_i (the keys of an int8 scales file)."""
+        k = self.config.depth // 2
+        return ([f"in_blocks_{i}" for i in range(k)] + ["mid_block"]
+                + [f"out_blocks_{i}" for i in range(k)])
+
+    def forward_calib(self, x, timesteps, y=None):
+        """The int8 calibration forward (``UViT(int8_calibrate=True)`` applied
+        with ``mutable=["int8_calib"]``): every block runs
+        :meth:`Block.forward_calib`. Returns ``(prediction, stats)``, stats
+        ``{block name: (amax (2,), rows (2, B*L))}`` on the device."""
+        names = iter(self.block_names())
+        stats = {}
+
+        def run(blk, x, skip=None):
+            x, amax, rows = blk.forward_calib(x, skip)
+            stats[next(names)] = (amax, rows)
+            return x
+
+        return self._forward(x, timesteps, y, run), stats
 
     def _run_block(self, blk: Block, x, skip=None):
         """The block, behind a checkpoint when training with ``use_checkpoint``."""

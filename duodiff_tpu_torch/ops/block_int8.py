@@ -179,13 +179,13 @@ def attn_sublayer_int8_plain(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, b
     return (xv + proj + bp).to(dt)
 
 
-def mlp_sublayer_int8_plain(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, inv=None,
-                            *, gelu_approx: bool = False, eps: float = 1e-5):
-    """Plain PyTorch K12 (pallas_block_int8._mlp_int8_reference); ``inv``
-    as :func:`pack_mlp_int8` returns it (None: dynamic per-row scales)."""
+def _mlp_int8(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, inv, gelu_approx, eps):
+    """Plain K12 and what it quantizes: (out, xn, h, rs, hrs), the row scales
+    None with static scales."""
     dt = x.dtype
     xv = x.float()
     xn = _layer_norm(xv, ln_scale.float(), ln_bias.float(), eps)
+    rs = hrs = None
     if inv is None:
         x8, rs = _quant_rows(xn)
         rs1 = rs * s1
@@ -199,7 +199,34 @@ def mlp_sublayer_int8_plain(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, in
     else:
         h8, rs2 = _quant_rows_static(h, inv[1]), s2
     out = _int8_matmul(h8, w2_8) * rs2
-    return (xv + out + b2).to(dt)
+    return (xv + out + b2).to(dt), xn, h, rs, hrs
+
+
+def mlp_sublayer_int8_plain(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, inv=None,
+                            *, gelu_approx: bool = False, eps: float = 1e-5):
+    """Plain PyTorch K12 (pallas_block_int8._mlp_int8_reference); ``inv``
+    as :func:`pack_mlp_int8` returns it (None: dynamic per-row scales)."""
+    return _mlp_int8(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, inv, gelu_approx, eps)[0]
+
+
+def mlp_sublayer_int8_calib(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, *,
+                            gelu_approx: bool = False, eps: float = 1e-5,
+                            with_rows: bool = False):
+    """The dynamic-int8 MLP sublayer of the calibration forward
+    (pallas_block_int8.mlp_sublayer_int8_calib): :func:`mlp_sublayer_int8_plain`
+    with per-row scales, which also returns the activation amax at the two
+    static-quant sites, ``(out, xn_amax, h_amax)``: xn the post-LN input, h
+    the post-GELU hidden, fp32 0-d tensors. ``with_rows=True`` appends the
+    per-row amaxes ``(xn_rows (B, L), h_rows (B, L))``, the row scales times
+    127 as the JAX package takes them. Plain PyTorch on any device: the JAX
+    package runs it in XLA, no kernel. Operands as :func:`pack_mlp_int8`
+    gives them without static scales."""
+    out, xn, h, rs, hrs = _mlp_int8(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, None,
+                                    gelu_approx, eps)
+    amaxes = (out, xn.abs().amax(), h.abs().amax())
+    if with_rows:
+        return (*amaxes, (rs[..., 0] * 127.0, hrs[..., 0] * 127.0))
+    return amaxes
 
 
 def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp, inv=None, *,

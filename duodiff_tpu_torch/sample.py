@@ -37,6 +37,21 @@ in between. A single model runs cached from its first step; with the
 DuoDiff pair the late model's segment runs cached from the handoff, and the
 shallow model stays dense. ``--cache_outer`` sets the blocks run every step
 at each end (default ``ceil((depth//2) / 3)``).
+
+The other samplers, dispatched in the JAX CLI's order:
+``--interleave_every N`` (heavy-light interleaving: the late model on the
+steps with t % N == 0, the first model on the others; needs the pair,
+without ``--t_switch``), ``--use_dpm_solver`` (DPM-Solver++ over
+``--dpm_steps`` grid points, ``--dpm_order`` 1 or 2; one model, block-cached
+by transition index with ``--cache_every``), ``--use_ddim`` (DDIM over
+``--ddim_steps`` grid points with ``--ddim_eta``, with the DuoDiff handoff
+when the pair and ``--t_switch`` are given). Guidance composes with each of
+them. The refusals follow ``sampler.py``, and the port refuses three more
+combinations whose output the JAX CLI gets wrong: with DDIM a
+``--timesteps_save`` value that is not ``num_timesteps - t`` for a grid
+step t (the JAX CLI shifts every later label), and with DPM-Solver a late
+model (the JAX CLI samples the first model alone) or ``--timesteps_save``
+(the JAX CLI writes no intermediate).
 """
 
 from __future__ import annotations
@@ -51,8 +66,13 @@ import torch
 from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
 from duodiff_tpu_torch.diffusion.sampling import (
     DDPMSampler,
+    ddim_pairs,
+    ddim_sample,
+    dpm_solver_sample,
     make_block_cached_apply,
     make_guided_apply,
+    make_interleaved_apply,
+    split_segments,
 )
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.utils.image import save_samples, to_uint8
@@ -101,6 +121,22 @@ def get_args(argv=None):
                         help="Anchor schedule JSON (tools/derive_cache_schedule.py) "
                              "in place of --cache_every: anchors exactly the listed "
                              "timesteps (plus the cached segment's first step)")
+    parser.add_argument("--interleave_every", type=int, default=None,
+                        help="Heavy-light interleaving: the late (full) model on the "
+                             "steps with t %% N == 0, t = 0 among them, the first "
+                             "(shallow) model elsewhere. Needs the model pair, without "
+                             "--t_switch; plain DDPM only")
+    parser.add_argument("--use_ddim", action="store_true",
+                        help="DDIM over --ddim_steps linspace grid points (with the "
+                             "DuoDiff handoff when --t_switch and the late model are "
+                             "given)")
+    parser.add_argument("--ddim_steps", type=int, default=50)
+    parser.add_argument("--ddim_eta", type=float, default=0.0)
+    parser.add_argument("--use_dpm_solver", action="store_true",
+                        help="DPM-Solver++ over --dpm_steps grid points (one model; "
+                             "block-cached by transition index with --cache_every)")
+    parser.add_argument("--dpm_steps", type=int, default=20)
+    parser.add_argument("--dpm_order", type=int, default=2, choices=[1, 2])
     parser.add_argument("--timesteps_save", type=int, nargs="+", default=[],
                         help="Also save the state after this many reverse steps, "
                              "each in [1, num_timesteps], as {i}_{s}.png")
@@ -125,19 +161,6 @@ def get_args(argv=None):
     parser.add_argument("--int8_scales_late", type=str, default=None,
                         help="int8 scales JSON for the DuoDiff late model")
     return parser.parse_args(argv)
-
-
-def split_segments(segments: list, stops) -> list:
-    """Cut ``(sampler, t_hi, t_lo)`` segments so that the update at every t in
-    ``stops`` is the last of a segment. Empty segments (t_hi < t_lo) stay as
-    they are."""
-    out = []
-    for sampler, t_hi, t_lo in segments:
-        for t in sorted((t for t in stops if t_lo < t <= t_hi), reverse=True):
-            out.append((sampler, t_hi, t))
-            t_hi = t - 1
-        out.append((sampler, t_hi, t_lo))
-    return out
 
 
 def class_labels(args, num_classes: int, generator: torch.Generator):
@@ -181,6 +204,75 @@ def class_labels(args, num_classes: int, generator: torch.Generator):
     return torch.randint(0, null, (batch,), generator=generator, device=device), null
 
 
+def check_flags(args, has_late: bool, cache_on: bool, steps: int) -> None:
+    """The refusals of ``sampler.py``, in its order, and the port's own."""
+    if args.interleave_every is not None:
+        if args.interleave_every < 1:
+            raise SystemExit("--interleave_every must be >= 1")
+        if not has_late:
+            raise SystemExit("--interleave_every needs the model pair "
+                             "(--config_path_late/--checkpoint_path_late)")
+        if (args.t_switch is not None or args.use_ddim or args.use_dpm_solver
+                or args.timesteps_save):
+            raise SystemExit("--interleave_every supports plain DDPM sampling (no "
+                             "--t_switch/--use_ddim/--use_dpm_solver/--timesteps_save)")
+    if cache_on:
+        if args.cache_every is not None and args.cache_every < 1:
+            raise SystemExit("--cache_every must be >= 1")
+        if args.use_ddim or args.interleave_every is not None:
+            raise SystemExit("--cache_every/--cache_schedule supports plain DDPM or "
+                             "DPM-Solver sampling (single model, or the DuoDiff pair with "
+                             "--t_switch: the full model's segment runs cached; no "
+                             "--use_ddim/--interleave_every)")
+        if args.guidance_scale is not None:
+            raise SystemExit("--cache_every/--cache_schedule does not support "
+                             "--guidance_scale")
+        if args.timesteps_save:
+            raise SystemExit("--cache_every/--cache_schedule does not support "
+                             "--timesteps_save")
+        if args.use_dpm_solver and args.cache_schedule is not None:
+            raise SystemExit("--cache_schedule is t-indexed; the solver's anchors are "
+                             "transition-indexed: use --cache_every with --use_dpm_solver")
+        if args.use_dpm_solver and has_late:
+            raise SystemExit("--cache_every with --use_dpm_solver supports the "
+                             "single-model solver only")
+        if has_late and args.t_switch is None:
+            raise SystemExit("--cache_every/--cache_schedule with a late model needs "
+                             "--t_switch (the cached segment starts at the DuoDiff "
+                             "handoff)")
+    elif args.cache_outer is not None:
+        raise SystemExit("--cache_outer requires --cache_every or --cache_schedule")
+    if args.interleave_every is None and has_late != (args.t_switch is not None):
+        raise SystemExit("DuoDiff needs both --t_switch and the late model "
+                         "(--config_path_late / --checkpoint_path_late)")
+    if args.t_switch is not None and not 0 <= args.t_switch <= steps:
+        raise SystemExit(f"--t_switch must be in [0, {steps}], got {args.t_switch}")
+    outside = [s for s in args.timesteps_save if not 1 <= s <= steps]
+    if outside:
+        raise SystemExit(f"--timesteps_save counts reverse steps, each in [1, {steps}]: "
+                         f"got {outside}")
+    if args.use_dpm_solver:
+        if args.parametrization == "predict_previous":
+            raise SystemExit("--use_dpm_solver supports predict_noise/predict_original")
+        if has_late:
+            raise SystemExit("--use_dpm_solver samples one model: drop the late model "
+                             "(--config_path_late/--checkpoint_path_late/--t_switch), "
+                             "which the solver would never run")
+        if args.timesteps_save:
+            raise SystemExit("--use_dpm_solver keeps no intermediate state: drop "
+                             "--timesteps_save")
+        if args.dpm_steps < 2:
+            raise SystemExit(f"--dpm_steps must be >= 2, got {args.dpm_steps}")
+    elif args.use_ddim and args.timesteps_save:
+        reachable = {steps - t for pairs in ddim_pairs(steps, args.ddim_steps) for t, _ in pairs}
+        unreachable = [s for s in args.timesteps_save if s not in reachable]
+        if unreachable:
+            raise SystemExit(f"--use_ddim keeps the state only after a grid step t, as "
+                             f"--timesteps_save {steps} - t: {unreachable} is not such a "
+                             f"value for --ddim_steps {args.ddim_steps} (the grid's: "
+                             f"{sorted(reachable)})")
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"samples": float (B, H, W, C) in about [0, 1],
     "intermediates": {s: the same after s reverse steps, for --timesteps_save},
@@ -201,31 +293,7 @@ def main(argv=None) -> dict:
             raise SystemExit("--cache_schedule and --cache_every are mutually exclusive")
         cache_rule = load_cache_schedule(args.cache_schedule, num_timesteps=steps)
     cache_on = cache_rule is not None
-    if cache_on:
-        if args.cache_every is not None and args.cache_every < 1:
-            raise SystemExit("--cache_every must be >= 1")
-        if args.guidance_scale is not None:
-            raise SystemExit("--cache_every/--cache_schedule does not support "
-                             "--guidance_scale")
-        if args.timesteps_save:
-            raise SystemExit("--cache_every/--cache_schedule does not support "
-                             "--timesteps_save")
-        if has_late and args.t_switch is None:
-            raise SystemExit("--cache_every/--cache_schedule with a late model needs "
-                             "--t_switch (the cached segment starts at the DuoDiff "
-                             "handoff)")
-    elif args.cache_outer is not None:
-        raise SystemExit("--cache_outer requires --cache_every or --cache_schedule")
-
-    if has_late != (args.t_switch is not None):
-        raise SystemExit("DuoDiff needs both --t_switch and the late model "
-                         "(--config_path_late / --checkpoint_path_late)")
-    if args.t_switch is not None and not 0 <= args.t_switch <= steps:
-        raise SystemExit(f"--t_switch must be in [0, {steps}], got {args.t_switch}")
-    outside = [s for s in args.timesteps_save if not 1 <= s <= steps]
-    if outside:
-        raise SystemExit(f"--timesteps_save counts reverse steps, each in [1, {steps}]: "
-                         f"got {outside}")
+    check_flags(args, has_late, cache_on, steps)
     attn_impl = args.attn_impl or ("fused" if device.type == "cuda" else "plain")
     output_folder = Path(args.output_folder)
     output_folder.mkdir(parents=True, exist_ok=True)
@@ -241,31 +309,37 @@ def main(argv=None) -> dict:
 
     schedule = NoiseSchedule.create(steps=steps, device=device)
 
-    def dense_sampler(model):
-        apply = model
-        if null_label is not None:
-            apply = make_guided_apply(model, args.guidance_scale, null_label)
-        return DDPMSampler(apply, schedule, parametrization=args.parametrization)
+    def guided(model):
+        if null_label is None:
+            return model
+        return make_guided_apply(model, args.guidance_scale, null_label)
 
-    def cached_sampler(model, cfg, t_first: int, which: str):
-        """The model's block-cached sampler; its state is the cached residual,
-        zeros (B, L, D) in the compute dtype at the segment's first step."""
+    def dense_sampler(model):
+        return DDPMSampler(guided(model), schedule, parametrization=args.parametrization)
+
+    def cache_parts(model, cfg, which: str):
+        """(anchor, cached, init_state) of the model's block cache: its
+        forward_anchor / forward_cached at n_outer, and the state at a
+        segment's first step, zeros (B, L, D) in the compute dtype."""
         k_half = cfg.depth // 2
         n_outer = args.cache_outer if args.cache_outer is not None else max(1, -(-k_half // 3))
         if not 1 <= n_outer <= k_half:
             raise SystemExit(f"--cache_outer must be in [1, {k_half}] for {which}depth "
                              f"{cfg.depth}, got {n_outer}")
-        apply = make_block_cached_apply(
+        tokens = cfg.extras + cfg.num_patches
+        return (
             lambda x, t, y: model.forward_anchor(x, t, y, n_outer=n_outer),
             lambda x, t, y, delta: model.forward_cached(x, t, y, n_outer=n_outer, delta=delta),
-            cache_rule, t_first,
+            lambda x: torch.zeros((x.shape[0], tokens, cfg.embed_dim), dtype=model.dtype,
+                                  device=x.device),
         )
-        tokens = cfg.extras + cfg.num_patches
-        return DDPMSampler(
-            apply, schedule, parametrization=args.parametrization,
-            init_state_fn=lambda x: torch.zeros((x.shape[0], tokens, cfg.embed_dim),
-                                                dtype=model.dtype, device=x.device),
-        )
+
+    def cached_sampler(model, cfg, t_first: int, which: str):
+        """The model's block-cached DDPM sampler; its state is the cached residual."""
+        anchor, cached, init_state = cache_parts(model, cfg, which)
+        apply = make_block_cached_apply(anchor, cached, cache_rule, t_first)
+        return DDPMSampler(apply, schedule, parametrization=args.parametrization,
+                           init_state_fn=init_state)
 
     model, cfg = load(args.config_path, args.checkpoint_path, args.seed, args.int8_scales)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -273,45 +347,87 @@ def main(argv=None) -> dict:
     if cfg.num_classes > 0 and y is None:
         raise SystemExit("a class-conditional model needs labels: pass --class_id "
                          "(with or without --guidance_scale) or --fixed_class")
+    late = None
     if has_late:
         late, late_cfg = load(args.config_path_late or args.config_path,
                               args.checkpoint_path_late, args.seed + 1,
                               args.int8_scales_late)
-        handoff = steps - args.t_switch
-        late_sampler = (cached_sampler(late, late_cfg, handoff - 1, "the late model's ")
-                        if cache_on else dense_sampler(late))
-        segments = [(dense_sampler(model), steps - 1, handoff),
-                    (late_sampler, handoff - 1, 0)]
-    else:
-        sampler = cached_sampler(model, cfg, steps - 1, "") if cache_on else dense_sampler(model)
-        segments = [(sampler, steps - 1, 0)]
-    # the state is kept after the update at t = steps - s
-    save_at = {steps - s for s in args.timesteps_save}
-    segments = split_segments(segments, save_at)
     shape = (args.batch_size, cfg.img_size, cfg.img_size, cfg.in_chans)
 
-    print(f"Sampling {args.batch_size} images on {device} (attn_impl={attn_impl}, "
+    if args.interleave_every is not None:
+        kind = f"interleave_every={args.interleave_every}"
+        apply = make_interleaved_apply(guided(late), guided(model), args.interleave_every)
+        sampler = DDPMSampler(apply, schedule, parametrization=args.parametrization,
+                              init_state_fn=lambda x: ())
+
+        def run(x0):
+            return sampler.run(x0, generator, steps - 1, 0, y, state=())[0], {}
+    elif args.use_dpm_solver:
+        kind = f"dpm_solver order {args.dpm_order}, {args.dpm_steps} steps"
+        cache = None
+        if cache_on:
+            anchor, cached, init_state = cache_parts(model, cfg, "")
+            cache = (anchor, cached, args.cache_every, init_state)
+
+        def run(x0):
+            return dpm_solver_sample(
+                guided(model), generator, schedule=schedule, shape=shape,
+                dpm_steps=args.dpm_steps, order=args.dpm_order,
+                parametrization=args.parametrization, y=y, x_init=x0, cache=cache,
+            ), {}
+    elif args.use_ddim:
+        kind = f"ddim {args.ddim_steps} steps, eta {args.ddim_eta}"
+
+        def run(x0):
+            x, inter = ddim_sample(
+                guided(model), generator, schedule=schedule, shape=shape,
+                ddim_steps=args.ddim_steps, eta=args.ddim_eta, y=y,
+                timesteps_save=args.timesteps_save, x_init=x0,
+                late_apply_fn=guided(late) if late is not None else None,
+                t_switch=args.t_switch,
+            )
+            return x, dict(zip(args.timesteps_save, inter))
+    else:
+        kind = "ddpm"
+        if late is not None:
+            handoff = steps - args.t_switch
+            late_sampler = (cached_sampler(late, late_cfg, handoff - 1, "the late model's ")
+                            if cache_on else dense_sampler(late))
+            segments = [(dense_sampler(model), steps - 1, handoff),
+                        (late_sampler, handoff - 1, 0)]
+        else:
+            single = (cached_sampler(model, cfg, steps - 1, "") if cache_on
+                      else dense_sampler(model))
+            segments = [(single, steps - 1, 0)]
+        # the state is kept after the update at t = steps - s
+        save_at = {steps - s for s in args.timesteps_save}
+        segments = split_segments(segments, save_at)
+
+        def run(x):
+            kept = {}
+            for sampler, t_hi, t_lo in segments:
+                if t_hi < t_lo:
+                    continue
+                if sampler.init_state_fn is None:
+                    x = sampler.run(x, generator, t_hi, t_lo, y)
+                else:
+                    x, _ = sampler.run(x, generator, t_hi, t_lo, y,
+                                       state=sampler.init_state_fn(x))
+                if t_lo in save_at:
+                    kept[steps - t_lo] = x
+            return x, {s: kept[s] for s in args.timesteps_save}
+
+    print(f"Sampling {args.batch_size} images on {device} ({kind}, attn_impl={attn_impl}, "
           f"cache={'on' if cache_on else 'off'})...")
     with torch.inference_mode():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         tic = time.perf_counter()
-        x = segments[0][0].init(generator, shape)
-        kept = {}
-        for sampler, t_hi, t_lo in segments:
-            if t_hi < t_lo:
-                continue
-            if sampler.init_state_fn is None:
-                x = sampler.run(x, generator, t_hi, t_lo, y)
-            else:
-                x, _ = sampler.run(x, generator, t_hi, t_lo, y,
-                                       state=sampler.init_state_fn(x))
-            if t_lo in save_at:
-                kept[t_lo] = x
+        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        x, kept = run(x)
         samples = ((x + 1.0) / 2.0).cpu().numpy()  # waits for the device
         elapsed = time.perf_counter() - tic
-        intermediates = {s: ((kept[steps - s] + 1.0) / 2.0).cpu().numpy()
-                         for s in args.timesteps_save}
+        intermediates = {s: ((v + 1.0) / 2.0).cpu().numpy() for s, v in kept.items()}
 
     np.save(output_folder / "samples.npy", to_uint8(samples))
     with open(output_folder / "statistics.txt", "w") as f:
