@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512) and of the class-conditional ImageNet-64 U-ViT (D = 768) and
@@ -75,7 +75,22 @@ checks them, in phases, each printing its results on its own lines:
    anchors), its JSON loaded back; (e) ``duodiff_tpu_torch.tools.calibrate_int8
    --mode search`` on the depth-13 model at seed 1, batch 16, its PSNR table
    printed; (f) phase 4b's composition on the files (d) and (e) wrote. Each
-   with exact launch counts and its wall time beside the card.
+   with exact launch counts and its wall time beside the card;
+11. early-exit sampling through ``python -m duodiff_tpu_torch.eesample`` and
+   ``duodiff_tpu_torch.tools.calibrate_probes``, random weights from seed 0:
+   after gates on the depth-13 ``configs/deediff_celeba.yaml`` model (the
+   forward triple at three timesteps, a short block-cached static-bucket
+   trajectory on one noise table, fused against plain, and the share of
+   agreeing exit indices of a short dynamic run), (a) the dynamic rule at a
+   threshold picked from the model's own probes, 1000 steps, batch 128,
+   bf16, then one such step timed beside its backbone alone and profiled;
+   (b) four buckets derived from (a)'s indices, cached every 2; (c) a
+   probe calibration (batch 16, 100 steps), the monotone adaptive walk and
+   the bidirectional one on that file; (d) guided on
+   ``configs/deediff_imagenet64.yaml`` (D = 768, depth 17), batch 64 doubled;
+   (e) int8 with the asset's static MLP scales. The launch counts follow
+   from each run's buckets and walk; they are added to the record of K1,
+   K2, K11 and K12.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -300,7 +315,7 @@ PROBE_KERNELS = {
 # single entries by more than a bf16 rounding, so the gate is the relative
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
-PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10")
+PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -3420,6 +3435,293 @@ def run_other_samplers(device, card: str) -> dict:
     return runs
 
 
+EE_CONFIG = str(REPO / "configs/deediff_celeba.yaml")          # D 512, depth 13, per-layer MLP probes
+EE_GUIDED_CONFIG = str(REPO / "configs/deediff_imagenet64.yaml")  # D 768, depth 17, 1000 classes
+EE_BUCKETS = 4            # eesampler.py's --derive_buckets default
+EE_CACHE_EVERY = 2
+EE_CALIB_BATCH = 16
+EE_CALIB_STEPS = 100
+EE_ADAPTIVE_LAYERS = (4, 7, 10, 13)
+EE_ADAPTIVE_CHUNK = 50    # eesampler.py's --adaptive_chunk default
+EE_SHORT_STEPS = 50       # the guided (11d) and int8 (11e) runs
+EE_GATE_STEPS = 20
+EE_GATE_BUCKETS = [(19, 14, 4), (13, 7, 9), (6, 0, 13)]
+EE_GATE_TIMESTEPS = (999.0, 500.0, 20.0)
+
+
+def ee_model(config: str, device, seed: int = 0):
+    """The early-exit model the CLI builds for ``--random_init --seed seed``."""
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    model, cfg = load_model(config, device=device, seed=seed, attn_impl="fused",
+                            early_exit=True)
+    return model.eval(), cfg
+
+
+def pick_threshold(u: torch.Tensor) -> float:
+    """A threshold between the probe values ``u`` (depth, N) that spreads
+    the first qualifying probe (the dynamic rule's exit) over the most
+    layers, at least 1e-4 from every value."""
+    u = u.float().cpu().numpy()
+    values = np.sort(np.unique(u.ravel()))
+    mids = [(a + b) / 2 for a, b in zip(values, values[1:]) if b - a > 2e-4]
+    if not mids:
+        fail("the probes read one value: no threshold splits them")
+    spread = [len(set(np.argmax(u <= m, axis=0))) for m in mids]
+    return float(mids[int(np.argmax(spread))])
+
+
+def ee_static_launches(buckets, depth: int, cache_every=None) -> int:
+    """Blocks a static-exit run launches: a bucket at exit layer e runs e
+    blocks a step (all ``depth`` at e = depth); cached, a step off its
+    anchors (t % cache_every == 0 and the bucket's first step) runs the
+    truncation's outer blocks only, e - 2k - 1 + 2 n_outer. n_outer is the
+    CLI's default max(1, ceil(k/3)) raised to 2k - e + 1, the least that
+    keeps the cached region inside the truncation; past k the bucket has
+    nothing to cache and runs uncached."""
+    k = depth // 2
+    n = 0
+    for t_hi, t_lo, layer in buckets:
+        p = max(1, -(-k // 3), 2 * k - layer + 1)
+        if cache_every is None or p > k:
+            p = None
+        for t in range(t_hi, t_lo - 1, -1):
+            anchored = p is None or t % cache_every == 0 or t == t_hi
+            n += layer if anchored else layer - 2 * k - 1 + 2 * p
+    return n
+
+
+def check_early_exit(device) -> float:
+    """Phase 11's gates, the fused kernels against their plain versions on
+    one depth-13 early-exit model (the CLI's seed-0 weights): the forward
+    triple at three timesteps, batch 8 (backbone and heads within 0.05 +
+    0.05 |plain|, the probes within 2^-7 of the largest); a short
+    static-bucket trajectory, block-cached every 2, on one injected noise
+    table (relative Frobenius FWD_REL_FRO and MODEL_MAX_FRAC of the largest
+    value, as phase 10a); and the share of exit indices on which a short
+    fused and plain dynamic run agree (printed). Returns the threshold for
+    the dynamic runs, picked from the model's own probe values."""
+    from duodiff_tpu_torch.diffusion.sampling import early_exit_sample
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.diffusion.static_exit import static_exit_sample
+
+    model, cfg = ee_model(EE_CONFIG, device)
+    gen = torch.Generator().manual_seed(12)
+    shape = (CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    x = torch.randn(shape, generator=gen).to(device)
+    probes = []
+    with torch.inference_mode():
+        for t in EE_GATE_TIMESTEPS:
+            tb = torch.full((CHECK_BATCH,), t, device=device)
+            outs = {}
+            for impl in ("fused", "plain"):
+                set_attn_impl(model, impl)
+                model.pack_for_kernels()
+                outs[impl] = model(x, tb)
+            (bb, u, g), (bb_p, u_p, g_p) = outs["fused"], outs["plain"]
+            probes.append(u_p)
+            ok_b, ok_g = errors(bb, bb_p)[2], errors(g, g_p)[2]
+            u_err = (u - u_p).abs().max().item()
+            u_limit = KERNEL_MAX_FRAC * u_p.abs().max().item()
+            ok = ok_b and ok_g and u_err <= u_limit and u.shape == (cfg.depth, CHECK_BATCH)
+            print(f"phase 11: early-exit forward t={t:g} B={CHECK_BATCH} fused vs plain: "
+                  f"backbone max_abs_err={errors(bb, bb_p)[0]:.6g} rel_fro={rel_fro(bb, bb_p):.6g}"
+                  f", heads max_abs_err={errors(g, g_p)[0]:.6g} rel_fro={rel_fro(g, g_p):.6g}, "
+                  f"probes max_abs_err={u_err:.6g} (bound {u_limit:.6g}) ok={ok}", flush=True)
+            if not ok:
+                fail("the fused early-exit forward disagrees with the plain one")
+        threshold = pick_threshold(torch.cat(probes, dim=1))
+
+        schedule = NoiseSchedule.create(steps=EE_GATE_STEPS, device=device)
+        table = torch.randn((EE_GATE_STEPS, *shape), generator=gen).to(device)
+        runs = {}
+        for impl in ("fused", "plain"):
+            set_attn_impl(model, impl)
+            model.pack_for_kernels()
+            runs[impl] = (
+                static_exit_sample(model, None, schedule=schedule, buckets=EE_GATE_BUCKETS,
+                                   cache_every=EE_CACHE_EVERY, x_init=x, noise_table=table),
+                early_exit_sample(model, None, schedule=schedule, shape=shape,
+                                  threshold=threshold, x_init=x, noise_table=table))
+    max_abs, limit, rel, ok = scaled_errors(runs["fused"][0], runs["plain"][0], MODEL_MAX_FRAC)
+    print(f"phase 11: {EE_GATE_STEPS}-step static-exit trajectory (buckets {EE_GATE_BUCKETS}, "
+          f"cached every {EE_CACHE_EVERY}) B={CHECK_BATCH} fused vs plain: rel_fro_err={rel:.6g} "
+          f"(bound {FWD_REL_FRO}) max_abs_err={max_abs:.6g} (bound {limit:.6g}) ok={ok}",
+          flush=True)
+    if not ok:
+        fail("the fused static-exit trajectory disagrees with the plain one")
+    idx_f, idx_p = runs["fused"][1][2], runs["plain"][1][2]
+    share = (idx_f == idx_p).float().mean().item()
+    print(f"phase 11: {EE_GATE_STEPS}-step dynamic run at threshold {threshold:.6g}, "
+          f"B={CHECK_BATCH}: fused and plain exit indices agree on {share:.6g} of (t, sample); "
+          f"fused exits {np.bincount(idx_f.cpu().numpy().ravel(), minlength=cfg.depth + 1)}",
+          flush=True)
+    del model
+    release_memory()
+    return threshold
+
+
+def profile_ee_step(device, card: str, threshold: float) -> None:
+    """One dense early-exit step's model call at batch 128 (the depth-13
+    model, its backbone, 13 heads and 13 probes, then the exit selection),
+    timed with CUDA events beside its backbone alone (``model.uvit``) and
+    profiled by kernel: what the heads and probes cost on top of the blocks."""
+    model, cfg = ee_model(EE_CONFIG, device)
+    model.pack_for_kernels()
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((MAIN_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans), generator=g).to(device)
+    t = torch.full((MAIN_BATCH,), 350.0, device=device)
+    rows = torch.arange(MAIN_BATCH, device=device)
+
+    def ee_step():
+        backbone, u, heads = model(x, t)
+        probes = torch.cat([u, torch.zeros_like(u[:1])])
+        idx = (probes <= threshold).to(torch.int32).argmax(0)
+        return torch.cat([heads, backbone[None]])[idx, rows]
+
+    steps = {"early-exit step (13 blocks, 13 heads, 13 probes)": ee_step,
+             "its backbone alone (13 blocks)": lambda: model.uvit(x, t)}
+    with torch.inference_mode():
+        ms = time_ms(steps, reps=5)  # in turns
+        for what, step in steps.items():
+            print(f"phase 11: one {what} at batch {MAIN_BATCH} (CUDA events, median of 5, in "
+                  f"turns): {ms[what]:.6g} ms; card {card}", flush=True)
+            profile_steps(f"phase 11, {what}", step)
+    del model
+    release_memory()
+
+
+def run_ee_cli(label: str, argv: list, card: str, batch: int, expected) -> tuple:
+    """One run of ``python -m duodiff_tpu_torch.eesample`` in-process in a
+    temporary folder, every launch counter set to 0 just before and read
+    just after; ``expected(result)`` gives the counts (unlisted kernels: 0)
+    from what the run chose. Returns (the CLI's result, the launches, the
+    folder's indices_by_timestep.npy)."""
+    from duodiff_tpu_torch import eesample
+
+    with tempfile.TemporaryDirectory() as out:
+        reset_counts()
+        tic = time.perf_counter()
+        result = eesample.main([*argv, "--random_init", "--batch_size", str(batch),
+                                "--device", "cuda", "--output_folder", out])
+        wall = time.perf_counter() - tic
+        launches = read_counts()
+        idx = np.load(f"{out}/indices_by_timestep.npy")
+        pngs = len(list(Path(out).glob("*.png")))
+    want = expected(result)
+    idx_mean = float(np.mean(result["idx_by_t"]))
+    print(f"{label} batch {batch}: sampling {result['seconds']:.6g} s, "
+          f"{batch / result['seconds']:.6g} samples/s, CLI wall {wall:.6g} s, mean exit index "
+          f"{idx_mean:.6g}, launches {launches} (expected {want}), card {card}", flush=True)
+    samples = result["samples"]
+    if samples.shape[0] != batch or not np.isfinite(samples).all() or pngs != batch:
+        fail(f"{label}: {samples.shape} samples, {pngs} PNG files, finite "
+             f"{bool(np.isfinite(samples).all())}")
+    if not np.array_equal(idx, result["idx_by_t"]):
+        fail(f"{label}: indices_by_timestep.npy is not the run's table")
+    check_counts(launches, want)
+    return result, launches, idx
+
+
+def run_early_exit(device, card: str) -> dict:
+    """Phase 11: early-exit sampling through ``eesample.py`` and
+    ``tools/calibrate_probes.py`` at full width: (a) the dynamic rule on
+    ``configs/deediff_celeba.yaml``, 1000 steps, batch 128, bf16 fused (every
+    block every step); (b) static buckets derived from (a)'s table, cached
+    every 2; (c) a probe calibration (batch 16, 100 steps), then the
+    adaptive walk, monotone and bidirectional on that file; (d) guided on
+    ``configs/deediff_imagenet64.yaml`` (D 768, depth 17), batch 64 doubled;
+    (e) int8 with the asset's static MLP scales. Returns the launches of
+    each run, by run."""
+    from duodiff_tpu_torch.diffusion.calibration import load_probe_calibration
+    from duodiff_tpu_torch.diffusion.static_exit import derive_exit_schedule
+    from duodiff_tpu_torch.tools import calibrate_probes
+
+    threshold = check_early_exit(device)
+    depth = 13
+    runs = {}
+    common = ["--config_path", EE_CONFIG, "--seed", "0"]
+    dense = STEPS * depth
+    result, runs["11a"], idx = run_ee_cli(
+        f"phase 11a: dynamic early exit, {STEPS} steps, threshold {threshold:.6g}, bf16",
+        [*common, "--num_timesteps", str(STEPS), "--threshold", repr(threshold)], card,
+        MAIN_BATCH, lambda r: {"fused_attn_sublayer": dense, "fused_mlp_sublayer": dense})
+    print(f"phase 11a: exits by layer {np.bincount(idx.ravel(), minlength=depth + 1).tolist()}",
+          flush=True)
+    profile_ee_step(device, card, threshold)
+
+    with tempfile.TemporaryDirectory() as work:
+        np.save(f"{work}/idx.npy", idx)
+        buckets = derive_exit_schedule(idx, n_buckets=EE_BUCKETS)
+        n = ee_static_launches(buckets, depth, EE_CACHE_EVERY)
+        _, runs["11b"], _ = run_ee_cli(
+            f"phase 11b: static buckets {buckets} derived from 11a, cached every "
+            f"{EE_CACHE_EVERY}", [*common, "--num_timesteps", str(STEPS),
+                                   "--derive_schedule_from", f"{work}/idx.npy",
+                                   "--derive_buckets", str(EE_BUCKETS),
+                                   "--cache_every", str(EE_CACHE_EVERY)],
+            card, MAIN_BATCH, lambda r: {"fused_attn_sublayer": n, "fused_mlp_sublayer": n})
+
+        calib_path = f"{work}/probe_calibration.json"
+        n = EE_CALIB_STEPS * depth
+        fitted, runs["11c calibration"] = run_tool(
+            f"phase 11c: calibrate_probes, batch {EE_CALIB_BATCH}, {EE_CALIB_STEPS} steps",
+            calibrate_probes.main,
+            ["--config", EE_CONFIG, "--batch", str(EE_CALIB_BATCH), "--steps",
+             str(EE_CALIB_STEPS), "--seed", "0", "--out", calib_path, "--device", "cuda"],
+            card, {"fused_attn_sublayer": n, "fused_mlp_sublayer": n})
+        calib = load_probe_calibration(calib_path)
+        print(f"phase 11c: calibration slopes {[round(a, 6) for a in calib['a']]}, mean realized "
+              f"errors {[round(e, 6) for e in calib['mean_error']]}", flush=True)
+
+        def walk_launches(r):
+            n = sum((row["t_hi"] - row["t_lo"] + 1) * row["layer"] for row in r["log"])
+            return {"fused_attn_sublayer": n, "fused_mlp_sublayer": n}
+
+        layers = ",".join(map(str, EE_ADAPTIVE_LAYERS))
+        slots = [min(v, depth - 1) for v in EE_ADAPTIVE_LAYERS]
+        u = fitted["u_rows"].mean(0)[slots]
+        # monotone: starts at the shallowest and deepens while its probe is above
+        first, deeper = u[0], u[1:].min()
+        mono_threshold = float((first + deeper) / 2 if first > deeper else first - 1e-3)
+        # bidirectional, in realized-error units: starts at the deepest, moves
+        # shallower while the own and the shallower candidate's errors allow it
+        err = np.asarray(calib["mean_error"])[slots]
+        bidir_threshold = float(1.01 * max(err[-1], err[-2] / 0.7))
+        for walk, extra in (("monotone", ["--threshold", repr(mono_threshold)]),
+                            ("bidirectional", ["--threshold", repr(bidir_threshold),
+                                               "--adaptive_bidirectional", "--probe_calibration",
+                                               calib_path])):
+            result, runs[f"11c {walk}"], _ = run_ee_cli(
+                f"phase 11c: adaptive {walk} walk over layers {layers}, chunk "
+                f"{EE_ADAPTIVE_CHUNK}, {STEPS} steps, threshold {extra[1]}",
+                [*common, "--num_timesteps", str(STEPS), "--adaptive_layers", layers,
+                 "--adaptive_chunk", str(EE_ADAPTIVE_CHUNK), *extra], card, MAIN_BATCH,
+                walk_launches)
+            print(f"phase 11c: {walk} walk layers by chunk "
+                  f"{[row['layer'] for row in result['log']]}", flush=True)
+
+    n = EE_SHORT_STEPS * 17
+    runs["11d"] = run_ee_cli(
+        f"phase 11d: guided dynamic early exit on the ImageNet-64 model (D 768, depth 17), "
+        f"w 1.5, {EE_SHORT_STEPS} steps, batch 64 doubled to 128",
+        ["--config_path", EE_GUIDED_CONFIG, "--seed", "0", "--num_timesteps",
+         str(EE_SHORT_STEPS), "--threshold", "0.5", "--class_id", "-1", "--guidance_scale",
+         "1.5"], card, 64, lambda r: {"fused_attn_sublayer": n, "fused_mlp_sublayer": n})[1]
+
+    n = EE_SHORT_STEPS * depth
+    runs["11e"] = run_ee_cli(
+        f"phase 11e: dynamic early exit int8 with the asset's static MLP scales, "
+        f"{EE_SHORT_STEPS} steps", [*common, "--num_timesteps", str(EE_SHORT_STEPS),
+                                    "--threshold", repr(threshold), "--attn_impl",
+                                    "fused_int8", "--int8_scales", INT8_SCALES],
+        card, MAIN_BATCH, lambda r: {"fused_attn_sublayer_int8": n, "fused_mlp_sublayer_int8": n,
+                                     "fused_mlp_sublayer_int8 static": n})[1]
+    print(json.dumps({"phase11_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}), flush=True)
+    return runs
+
+
 def parse_phases(argv) -> set:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3505,6 +3807,12 @@ def main(argv=None) -> int:
             for name in (*KERNELS, *INT8_KERNELS):
                 if counts.get(name):
                     launches.setdefault(name, counts[name])
+    if "11" in run:
+        # early exit's launches are added to the record of K1, K2, K11 and K12
+        for counts in run_early_exit(device, card).values():
+            for name in (*KERNELS, *INT8_KERNELS):
+                if counts.get(name):
+                    launches[name] = launches.get(name, 0) + counts[name]
     if run == set(PHASES):
         idle = sorted(name for name in kernels if not launches.get(name))
         if idle:

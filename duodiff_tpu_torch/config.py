@@ -116,7 +116,7 @@ def refuse_latent_config(path) -> None:
         raise NotImplementedError(
             f"{path}: this is a latent-diffusion config, and its autoencoder (the encoder "
             "that training needs and the decoder that turns sampled latents into images) is "
-            "not ported yet")
+            "not ported yet (ROADMAP item 8)")
 
 
 def merge_args_with_config(args, path):

@@ -21,8 +21,9 @@ the aux rows in step order on the device and reads nothing back, so the
 caller transfers them once, after the loop.
 
 Beside DDPM: :func:`ddim_sample` (DDIM over a linspace grid, with the
-DuoDiff handoff) and :func:`dpm_solver_sample` (DPM-Solver++ 1S / 2M, with
-block caching anchored by transition index).
+DuoDiff handoff), :func:`dpm_solver_sample` (DPM-Solver++ 1S / 2M, with
+block caching anchored by transition index) and :func:`early_exit_sample`
+(the DeeDiff / AdaDiff threshold rule over an early-exit model's heads).
 """
 
 from __future__ import annotations
@@ -33,6 +34,16 @@ import numpy as np
 import torch
 
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+
+
+def _noise(x, t: int, generator, noise_table):
+    """The step's z: zero at t == 0 (no noise on the last step, whatever the
+    table holds), else row t of ``noise_table`` or a draw."""
+    if t == 0:
+        return torch.zeros_like(x)
+    if noise_table is not None:
+        return noise_table[t]
+    return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
 
 
 def ddpm_loop(
@@ -66,13 +77,8 @@ def ddpm_loop(
         if aux_fn is not None:
             model_output, aux = aux_fn(model_output)
             rows.append(aux)
-        if t == 0:  # no noise on the last step, whatever the table holds
-            z = torch.zeros_like(x)
-        elif noise_table is not None:
-            z = noise_table[t]
-        else:
-            z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-        x = schedule.step(parametrization, model_output, x, t, z, variance_mode)
+        x = schedule.step(parametrization, model_output, x, t,
+                          _noise(x, t, generator, noise_table), variance_mode)
     out = (x, state) if stateful else (x,)
     if aux_fn is not None:
         out = (*out, _stack_rows(rows))
@@ -100,14 +106,39 @@ def make_guided_apply(apply_fn: Callable, guidance_scale: float, null_label: int
     doubled."""
 
     def guided(*args):
-        *lead, x, t, y = args
-        if y is None:
-            raise ValueError("guidance needs class labels")
-        b = x.shape[0]
-        out = apply_fn(*lead, torch.cat([x, x]), torch.cat([t, t]),
-                       torch.cat([y, torch.full_like(y, null_label)]))
+        lead, b, doubled = _double_batch_for_cfg(args, null_label)
+        out = apply_fn(*lead, *doubled)
         cond, uncond = out[:b], out[b:]
         return uncond + guidance_scale * (cond - uncond)
+
+    return guided
+
+
+def _double_batch_for_cfg(args, null_label: int):
+    """Split the leading (pass-through) arguments from the trailing (x, t, y)
+    triple and double its batch, the conditional half first and the
+    null-label half second: ``(lead, b, (xx, tt, yy))``."""
+    *lead, x, t, y = args
+    if y is None:
+        raise ValueError("guidance needs class labels")
+    doubled = (torch.cat([x, x]), torch.cat([t, t]),
+               torch.cat([y, torch.full_like(y, null_label)]))
+    return lead, x.shape[0], doubled
+
+
+def make_guided_apply_ee(apply_fn: Callable, guidance_scale: float, null_label: int) -> Callable:
+    """Classifier-free guidance for an early-exit apply returning
+    ``(backbone (B, ...), probes (depth, B), heads (depth, B, ...))``: one
+    forward at twice the batch (:func:`make_guided_apply`'s doubling); the
+    backbone and every head are guided, the probes come from the
+    conditional half. Returns the same triple on the original batch."""
+
+    def guided(*args):
+        lead, b, doubled = _double_batch_for_cfg(args, null_label)
+        backbone, probes, heads = apply_fn(*lead, *doubled)
+        backbone = backbone[b:] + guidance_scale * (backbone[:b] - backbone[b:])
+        heads = heads[:, b:] + guidance_scale * (heads[:, :b] - heads[:, b:])
+        return backbone, probes[:, :b], heads
 
     return guided
 
@@ -443,3 +474,76 @@ def dpm_solver_sample(
         x = c["sigma_ratio"][i] * x - c["alpha_t"][i] * c["phi"][i] * d
         x0_prev = x0
     return x
+
+
+def ee_loop(apply_fn: Callable, schedule: NoiseSchedule, threshold: float, x: torch.Tensor,
+            generator: Optional[torch.Generator], ts: Iterable[int],
+            y: Optional[torch.Tensor] = None, noise_table: Optional[torch.Tensor] = None):
+    """The early-exit update over the descending timesteps ``ts`` (``ee_scan``).
+    ``apply_fn(x, t_batch, y)`` returns ``(backbone, u (depth, B), g (depth,
+    B, ...))``. Each sample takes the output of the first probe point whose
+    probe reads ``<= threshold``, the backbone appended with probe 0; when
+    none qualifies (threshold < 0) the argmax over an all-false mask is 0,
+    the shallowest head, as in the reference. Returns ``(x, err_rows
+    (len(ts), depth), idx_rows (len(ts), B))`` in ``ts``' order, on the
+    device: the batch mean of each probe and each sample's exit index."""
+    batch = x.shape[0]
+    errs, idxs = [], []
+    for t in ts:
+        t = int(t)
+        t_batch = torch.full((batch,), float(t), dtype=torch.float32, device=x.device)
+        backbone, u, g = apply_fn(x, t_batch, y)
+        outputs = torch.cat([g, backbone[None]])
+        probes = torch.cat([u, torch.zeros((1, batch), dtype=u.dtype, device=u.device)])
+        indices = (probes <= threshold).to(torch.int32).argmax(0)
+        selected = outputs[indices, torch.arange(batch, device=x.device)]
+        x = schedule.step_predict_noise(selected, x, t, _noise(x, t, generator, noise_table))
+        errs.append(probes[:-1].mean(1))
+        idxs.append(indices.to(torch.int32))
+    return x, _stack_rows(errs), _stack_rows(idxs)
+
+
+def early_exit_sample(
+    apply_fn: Callable,
+    generator: Optional[torch.Generator],
+    *,
+    schedule: NoiseSchedule,
+    shape: Sequence[int],
+    threshold: float,
+    y: Optional[torch.Tensor] = None,
+    x_init: Optional[torch.Tensor] = None,
+    noise_table: Optional[torch.Tensor] = None,
+):
+    """DeeDiff / AdaDiff early-exit sampling over t = T-1 .. 0 with
+    :func:`ee_loop`'s rule and the predict_noise update. Returns ``(x,
+    err_by_t (T, depth), idx_by_t (T, B))``, the diagnostics indexed by t
+    ascending, as the reference logs them."""
+    x = _initial_noise(x_init, shape, generator)
+    x, errs, idxs = ee_loop(apply_fn, schedule, threshold, x, generator,
+                            range(schedule.steps - 1, -1, -1), y, noise_table)
+    return x, errs.flip(0), idxs.flip(0)
+
+
+def early_exit_select(lambda_threshold: float, model_output, earliest_exit_index: int):
+    """The legacy DeeDiff gate (reference ddpm_core.py:7-52): per sample the
+    first layer with ``1 - u > lambda``, clamped up to
+    ``earliest_exit_index``; where no layer qualifies, the backbone's
+    prediction and exit layer ``depth`` as a sentinel.
+
+    ``model_output = (predicted_noise (B, ...), u (depth, B) or (B, depth,
+    ...), g (depth, B, ...))``. Returns ``(selected (B, ...), exit_layers
+    (B,) int32)``."""
+    predicted_noise, u, g = model_output
+    u = torch.as_tensor(u)
+    if u.ndim > 2:  # (B, depth, ...) layout of the legacy path
+        u = u.mean(dim=tuple(range(2, u.ndim))).transpose(0, 1)
+    depth = u.shape[0]
+    layer_ids = torch.arange(depth, device=u.device)[:, None]
+    masked = torch.where((1.0 - u) > lambda_threshold, layer_ids, depth)
+    first_true = masked.min(0).values
+    never_met = first_true >= depth
+    exit_layers = torch.where(never_met, depth,
+                              torch.clamp(first_true, min=earliest_exit_index))
+    stacked = torch.cat([g, predicted_noise[None]])
+    selected = stacked[exit_layers, torch.arange(u.shape[1], device=u.device)]
+    return selected, exit_layers.to(torch.int32)

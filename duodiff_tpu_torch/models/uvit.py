@@ -173,6 +173,14 @@ class UViT(nn.Module):
             raise ValueError(f"n_outer must be in [0, {k}], got {n_outer}")
         return k
 
+    def _check_n_out(self, n_outer: int, n_out) -> tuple[int, int]:
+        k = self._check_n_outer(n_outer)
+        n_out = k if n_out is None else n_out
+        if not k - n_outer <= n_out <= k:
+            raise ValueError(f"n_out must be in [{k - n_outer}, {k}] for n_outer {n_outer}, "
+                             f"got {n_out}")
+        return k, n_out
+
     def forward_anchor(self, x, timesteps, y=None, *, n_outer: int):
         """Full forward that also returns the residual of the centered
         ``depth - 2*n_outer`` blocks (in_blocks[n_outer:], mid_block,
@@ -181,7 +189,15 @@ class UViT(nn.Module):
         (B, L, D) in the compute dtype. Long skips pushed inside the region
         are consumed inside it, so the region reduces to that one residual.
         ``prediction`` equals :meth:`forward`."""
-        k = self._check_n_outer(n_outer)
+        x, delta = self.anchor_tokens(x, timesteps, y, n_outer=n_outer)
+        return self.decode_tokens(x), delta
+
+    def anchor_tokens(self, x, timesteps, y=None, *, n_outer: int, n_out=None):
+        """:meth:`forward_anchor`'s traversal, stopped after
+        ``out_blocks[:n_out]`` (all of them by default; a truncated backbone
+        needs at least the region's ``k - n_outer``) and before the decoder:
+        ``(tokens, delta)``."""
+        k, n_out = self._check_n_out(n_outer, n_out)
         x = self.embed_tokens(x, timesteps, y)
         skips = []
         for blk in self.in_blocks[:n_outer]:
@@ -196,24 +212,30 @@ class UViT(nn.Module):
         for blk in self.out_blocks[:k - n_outer]:
             x = blk(x, inner_skips.pop())
         delta = x - region_in
-        for blk in self.out_blocks[k - n_outer:]:
+        for blk in self.out_blocks[k - n_outer:n_out]:
             x = blk(x, skips.pop())
-        return self.decode_tokens(x), delta
+        return x, delta
 
     def forward_cached(self, x, timesteps, y=None, *, n_outer: int, delta):
         """Forward that runs only the ``2*n_outer`` outer blocks (plus embed
         and decode) and replaces the centered region by ``x + delta``, a
         residual :meth:`forward_anchor` returned."""
-        k = self._check_n_outer(n_outer)
+        return self.decode_tokens(self.cached_tokens(x, timesteps, y, n_outer=n_outer,
+                                                     delta=delta))
+
+    def cached_tokens(self, x, timesteps, y=None, *, n_outer: int, delta, n_out=None):
+        """:meth:`forward_cached`'s traversal, stopped after
+        ``out_blocks[:n_out]`` as :meth:`anchor_tokens` is; returns the tokens."""
+        k, n_out = self._check_n_out(n_outer, n_out)
         x = self.embed_tokens(x, timesteps, y)
         skips = []
         for blk in self.in_blocks[:n_outer]:
             x = blk(x)
             skips.append(x)
         x = x + delta.to(x.dtype)
-        for blk in self.out_blocks[k - n_outer:]:
+        for blk in self.out_blocks[k - n_outer:n_out]:
             x = blk(x, skips.pop())
-        return self.decode_tokens(x)
+        return x
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):

@@ -24,8 +24,9 @@ sampling CLI. Modes:
   ``--seed + 17``, made anew for each run.
 
 It runs on the card unless ``--device cpu`` (the kernels' plain versions).
-``--early_exit`` needs the early-exit model, which the port does not have
-yet (ROADMAP item 7); it is refused.
+``--early_exit`` (an early-exit model's calibration) is not ported yet: it
+comes with early-exit training (ROADMAP item 7, its second half); it is
+refused.
 """
 
 from __future__ import annotations
@@ -91,8 +92,8 @@ def main(argv=None) -> dict:
     if not args.random_init and args.checkpoint_path is None:
         raise SystemExit("--checkpoint_path is required (or --random_init)")
     if args.early_exit:
-        raise SystemExit("--early_exit needs the early-exit model (EarlyExitUViT), which the "
-                         "port does not have yet (ROADMAP item 7)")
+        raise SystemExit("--early_exit (calibrating an early-exit model) is not ported yet: "
+                         "it comes with early-exit training (ROADMAP item 7, its second half)")
     device = device_from_arg(args.device)
     card = card_line(device)
     print(card)

@@ -24,8 +24,9 @@ with s + 1: ``--full_seed 1`` derives for its seed-0 pair). The noise comes
 from a generator seeded with ``--seed`` on the device, drawn as the sampling
 CLI draws it, so an unconditional run follows that CLI's trajectory.
 
-The static-exit mode (``--static_schedule``) needs the early-exit model,
-which the port does not have yet (ROADMAP item 7); it is refused.
+The static-exit mode (``--static_schedule``, a derivation over an
+early-exit model's buckets) is not ported yet: it comes with early-exit
+training (ROADMAP item 7, its second half); it is refused.
 
 It runs on the card unless ``--device cpu``. The JSON it writes holds the
 anchors and a ``meta`` block as the JAX tool writes it, with the card's name
@@ -90,7 +91,7 @@ def get_args(argv=None):
     p.add_argument("--label_max", type=int, default=None,
                    help="class-conditional models: labels in [0, label_max)")
     p.add_argument("--static_schedule", type=str, default=None,
-                   help="static-exit mode (needs the early-exit model; refused)")
+                   help="static-exit mode (not ported yet; refused)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -102,8 +103,9 @@ def check_args(args) -> None:
     if args.t_switch is not None and args.static_schedule is not None:
         raise SystemExit("--t_switch and --static_schedule are mutually exclusive")
     if args.static_schedule is not None:
-        raise SystemExit("--static_schedule needs the early-exit model (EarlyExitUViT), "
-                         "which the port does not have yet (ROADMAP item 7)")
+        raise SystemExit("--static_schedule (derivation over static-exit buckets) is not "
+                         "ported yet: it comes with early-exit training (ROADMAP item 7, its "
+                         "second half)")
     if args.full_seed is not None and (args.checkpoint is not None or args.t_switch is None):
         raise SystemExit("--full_seed is for the random-init DuoDiff mode only (no "
                          "--checkpoint, with --t_switch)")

@@ -34,9 +34,9 @@ from duodiff_tpu_torch.utils.train_utils import MetricsLogger
 
 # flag -> (is it set?, what it needs): refused until that machinery is ported
 _UNPORTED = {
-    "model": (lambda v: v != "uvit", "early exit (deediff_uvit)"),
-    "load_backbone": (bool, "early-exit backbone loading"),
-    "freeze_backbone": (bool, "early-exit backbone freezing"),
+    "model": (lambda v: v != "uvit", "early-exit training (deediff_uvit; ROADMAP item 7)"),
+    "load_backbone": (bool, "early-exit backbone loading (ROADMAP item 7)"),
+    "freeze_backbone": (bool, "early-exit backbone freezing (ROADMAP item 7)"),
     "log_every_n_steps": (lambda v: v is not None, "in-training sampling and image logging"),
     "async_checkpoint": (bool, "asynchronous checkpoints"),
     "profile": (bool, "the profiler hook"),

@@ -131,3 +131,133 @@ def block_params_from_jax(p: Mapping) -> tuple:
         return torch.from_numpy(np.ascontiguousarray(a.T if a.ndim == 2 else a)).float()
 
     return tuple(one(name) for name in _BLOCK_PARAM_ORDER)
+
+
+# --- the early-exit U-ViT ------------------------------------------------------
+
+
+def _conv(out: dict, node: Mapping, prefix: str) -> None:
+    out[f"{prefix}.weight"] = _np(node["kernel"]).transpose(3, 2, 0, 1)
+    out[f"{prefix}.bias"] = _np(node["bias"])
+
+
+def _unstack(tree, depth: int) -> list:
+    """A tree of arrays stacked on a leading axis -> ``depth`` trees of slices."""
+    def one(node, i):
+        if isinstance(node, Mapping):
+            return {k: one(v, i) for k, v in node.items()}
+        return _np(node)[i]
+
+    return [one(tree, i) for i in range(depth)]
+
+
+def head_names(depth: int) -> list[str]:
+    """The reference's output-head names in probe-point order."""
+    k = depth // 2
+    return ([f"in_blocks_heads.{i}" for i in range(k)] + ["mid_block_head"]
+            + [f"out_blocks_heads.{i}" for i in range(depth - k - 1)])
+
+
+def export_early_exit_uvit(params: Mapping, in_chans: Optional[int] = None
+                           ) -> dict[str, np.ndarray]:
+    """A JAX EarlyExitUViT tree ({uvit, heads, probes}, heads and per-layer
+    probes stacked on a leading depth axis, per-timestep probes as tables)
+    -> the reference's state-dict names, fp32 numpy: ``uvit.*``, one
+    ``in_blocks_heads.{i}`` / ``mid_block_head`` / ``out_blocks_heads.{i}``
+    a head, and ``matrix.{i}`` a per-layer probe, ``matrix.{t}`` /
+    ``matrix.{i}, {t}`` a per-timestep one."""
+    sd = {f"uvit.{k}": v for k, v in export_uvit(params["uvit"], in_chans).items()}
+    heads = params["heads"]
+    depth = int(np.shape(heads["norm"]["scale"])[0])
+    for name, head in zip(head_names(depth), _unstack(heads, depth)):
+        _norm(sd, head["norm"], f"{name}.norm")
+        _linear(sd, head["decoder_pred"], f"{name}.decoder_pred")
+        _conv(sd, head["final_layer"], f"{name}.final_layer")
+    probes = params["probes"]
+    if "classifier" in probes:  # MLPProbe, stacked
+        for i, probe in enumerate(_unstack(probes, depth)):
+            _linear(sd, probe["classifier"], f"matrix.{i}.classifier.0")
+    elif "q" in probes:  # AttentionProbe, stacked
+        for i, probe in enumerate(_unstack(probes, depth)):
+            sd[f"matrix.{i}.q"] = probe["q"]
+            _linear(sd, probe["weight_kv"], f"matrix.{i}.weight_kv")
+            _linear(sd, probe["cls_fc1"], f"matrix.{i}.classification.0")
+            _linear(sd, probe["cls_fc2"], f"matrix.{i}.classification.2")
+    elif "weight" in probes:  # per-timestep tables
+        w, b = _np(probes["weight"]), _np(probes["bias"])
+        if w.ndim == 3:  # (depth, T, D)
+            for i in range(w.shape[0]):
+                for t in range(w.shape[1]):
+                    sd[f"matrix.{i}, {t}.classifier.0.weight"] = w[i, t][None]
+                    sd[f"matrix.{i}, {t}.classifier.0.bias"] = b[i, t]
+        else:  # (T, D)
+            for t in range(w.shape[0]):
+                sd[f"matrix.{t}.classifier.0.weight"] = w[t][None]
+                sd[f"matrix.{t}.classifier.0.bias"] = b[t]
+    else:
+        raise ValueError(f"unrecognized probe tree keys: {list(probes)}")
+    return sd
+
+
+def _take(sd: dict, name: str):
+    """Remove and return ``sd[name]`` as an fp32 tensor; a missing name raises
+    KeyError naming it."""
+    if name not in sd:
+        raise KeyError(f"early-exit state dict has no {name!r}")
+    return torch.as_tensor(sd.pop(name)).float()
+
+
+def early_exit_state_dict_from_reference(state: Mapping, config) -> dict[str, torch.Tensor]:
+    """A state dict under the reference's EarlyExitUViT names -> the port's
+    (:class:`duodiff_tpu_torch.models.early_exit.EarlyExitUViT`): the
+    ``uvit.*`` keys as they are, the per-head and per-probe modules gathered
+    into their stacks, the per-timestep modules (1,000 or depth x 1,000 of
+    them) into their tables. Keys that fit none of these are passed through
+    untouched, so a strict ``load_state_dict`` names them."""
+    from duodiff_tpu_torch.models.early_exit import PROBE_TIMESTEPS
+
+    sd = dict(state)
+    depth = config.depth
+    out = {k: sd.pop(k) for k in [k for k in sd if k.startswith("uvit.")]}
+
+    def stack(fmt, suffix, count=depth, reshape=None):
+        rows = [_take(sd, fmt.format(i) + suffix) for i in range(count)]
+        return torch.stack([r if reshape is None else r.reshape(reshape) for r in rows])
+
+    names = head_names(depth)
+    parts = {"norm_weight": ".norm.weight", "norm_bias": ".norm.bias",
+             "decoder_weight": ".decoder_pred.weight", "decoder_bias": ".decoder_pred.bias",
+             "conv_weight": ".final_layer.weight", "conv_bias": ".final_layer.bias"}
+    for key, suffix in parts.items():
+        out[f"heads.{key}"] = torch.stack([_take(sd, name + suffix) for name in names])
+    kind, d = config.classifier_type, config.embed_dim
+    if kind == "mlp_probe_per_layer":
+        out["probes.weight"] = stack("matrix.{}", ".classifier.0.weight", reshape=(d,))
+        out["probes.bias"] = stack("matrix.{}", ".classifier.0.bias", reshape=())
+    elif kind == "attention_probe":
+        out["probes.q"] = stack("matrix.{}", ".q", reshape=(d,))
+        out["probes.kv_weight"] = stack("matrix.{}", ".weight_kv.weight")
+        out["probes.kv_bias"] = stack("matrix.{}", ".weight_kv.bias")
+        out["probes.fc1_weight"] = stack("matrix.{}", ".classification.0.weight")
+        out["probes.fc1_bias"] = stack("matrix.{}", ".classification.0.bias")
+        out["probes.fc2_weight"] = stack("matrix.{}", ".classification.2.weight", reshape=(d,))
+        out["probes.fc2_bias"] = stack("matrix.{}", ".classification.2.bias", reshape=())
+    elif kind == "mlp_probe_per_timestep":
+        out["probes.weight"] = stack("matrix.{}", ".classifier.0.weight", PROBE_TIMESTEPS, (d,))
+        out["probes.bias"] = stack("matrix.{}", ".classifier.0.bias", PROBE_TIMESTEPS, ())
+    elif kind == "mlp_probe_per_layer_per_timestep":
+        for key, suffix, shape in (("weight", ".classifier.0.weight", (d,)),
+                                   ("bias", ".classifier.0.bias", ())):
+            out[f"probes.{key}"] = torch.stack([
+                stack(f"matrix.{i}, {{}}", suffix, PROBE_TIMESTEPS, shape) for i in range(depth)])
+    else:
+        raise ValueError(f"Unknown classifier type: {kind}")
+    out.update(sd)  # whatever is left: unexpected keys for the strict load
+    return out
+
+
+def early_exit_state_dict_from_jax(params: Mapping, config) -> dict[str, torch.Tensor]:
+    """A JAX EarlyExitUViT tree -> the port's fp32 state dict."""
+    sd = {name: torch.from_numpy(np.array(value, dtype=np.float32, order="C"))  # a copy
+          for name, value in export_early_exit_uvit(params).items()}
+    return early_exit_state_dict_from_reference(sd, config)

@@ -15,8 +15,10 @@ from typing import Optional
 import torch
 
 from duodiff_tpu_torch.config import UViTConfig, load_model_config, refuse_latent_config
+from duodiff_tpu_torch.models.early_exit import EarlyExitUViT, init_early_exit_uvit
 from duodiff_tpu_torch.models.layers import INT8_IMPLS
 from duodiff_tpu_torch.models.uvit import UViT, init_uvit
+from duodiff_tpu_torch.utils.convert import early_exit_state_dict_from_reference
 from duodiff_tpu_torch.utils.int8_scales import load_int8_scales, scales_dict_to_tuple
 
 
@@ -32,14 +34,18 @@ def load_model(
     int8_scales: Optional[str] = None,
     mlp_impl: str = "auto",
     use_ema: bool = False,
-) -> tuple[UViT, UViTConfig]:
+    early_exit: bool = False,
+) -> tuple[UViT | EarlyExitUViT, UViTConfig]:
     """Build the UViT a config file describes, with random weights from
     ``seed`` or the weights of ``checkpoint_path`` (loaded strictly), on
     ``device`` with compute dtype ``dtype``. ``int8_scales`` is a
     calibration JSON (``tools/calibrate_int8.py``): static MLP activation
     scales for the int8 sublayers, so it needs an int8 ``attn_impl``.
     ``use_ema`` loads the checkpoint's EMA shadow of the parameters in place
-    of the live ones. A latent-diffusion config is refused."""
+    of the live ones. ``early_exit`` builds the config's
+    :class:`EarlyExitUViT` (its ``classifier_type`` names the probes) and
+    loads a checkpoint under the reference's early-exit names, gathered into
+    the port's stacks first. A latent-diffusion config is refused."""
     refuse_latent_config(config_path)
     cfg = load_model_config(config_path)
     scales = None
@@ -49,7 +55,8 @@ def load_model(
                 f"--int8_scales requires --attn_impl fused_int8 (got {attn_impl!r})"
             )
         scales = scales_dict_to_tuple(load_int8_scales(int8_scales), cfg.depth)
-    model = init_uvit(
+    init = init_early_exit_uvit if early_exit else init_uvit
+    model = init(
         cfg, device="cpu", dtype=dtype,
         generator=torch.Generator().manual_seed(seed),
         attn_impl=attn_impl, gelu_approx=gelu_approx, int8_mlp_scales=scales,
@@ -64,5 +71,7 @@ def load_model(
             state = state["ema_state_dict"]
         else:
             state = state.get("model_state_dict", state)
+        if early_exit:
+            state = early_exit_state_dict_from_reference(state, cfg)
         model.load_state_dict(state, strict=True)
     return model.to(device), cfg
