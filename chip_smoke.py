@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512) and of the class-conditional ImageNet-64 U-ViT (D = 768) and
@@ -90,7 +90,23 @@ checks them, in phases, each printing its results on its own lines:
    ``configs/deediff_imagenet64.yaml`` (D = 768, depth 17), batch 64 doubled;
    (e) int8 with the asset's static MLP scales. The launch counts follow
    from each run's buckets and walk; they are added to the record of K1,
-   K2, K11 and K12.
+   K2, K11 and K12;
+12. DeeDiff early-exit training through the training CLI on
+   ``configs/deediff_celeba.yaml`` (L = 257, D = 512, depth 13, per-layer MLP
+   probes) at batch 128 in bf16, fused, on a synthetic CelebA cache: (a)
+   gates at batch 8, fused against plain (every gradient, the five loss
+   terms, a few AdamW steps; with the backbone frozen, the backbone equal to
+   its start, the heads moved, the logged norm over every gradient); (b)
+   200 steps with ``--async_checkpoint``, sampling once at the last step
+   (16 images, 1000 steps), the loss falling, the checkpoint in
+   ``load_model(early_exit=True)``, a ``--resume`` run and ``eesample`` on it;
+   (c) ``--load_backbone`` of a ``uvit_celeba.yaml`` checkpoint from a seed
+   with ``--freeze_backbone`` and ``--profile``; (d) one early-exit step, the
+   frozen one and the plain U-ViT step on the same backbone timed and
+   profiled, with each run's peak memory; (e) ``derive_cache_schedule
+   --static_schedule`` and ``calibrate_int8 --early_exit`` on the trained
+   checkpoint, ``eesample`` on each file. Phase 12's launches are added to
+   the record of K1, K2, K6, K7, K11 and K12.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -315,7 +331,7 @@ PROBE_KERNELS = {
 # single entries by more than a bf16 rounding, so the gate is the relative
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
-PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11")
+PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -2638,16 +2654,23 @@ def profile_steps(label: str, one_step, n: int = 3) -> None:
           + "; ".join(f"{k} {v / busy:.4f}" for k, v in by_size(own)), flush=True)
 
 
-def profile_train_step(trainer, card: str, phase: str) -> None:
-    """One training step of the trainer's model split into forward, backward
-    and optimizer with CUDA events (medians of 5), then :func:`profile_steps`
-    over 3 steps."""
-    step_fn, state, model = trainer._train_step, trainer.state, trainer.model
-    model.train()
-    params = list(model.parameters())
+def profile_train_step(trainer, card: str, phase: str) -> dict:
+    """One training step of the trainer's model (:func:`profile_step_fn`) on
+    its loader's next batch and the draws of step 1."""
+    step_fn = trainer._train_step
     batch = trainer._to_device(trainer.dataloader.next_batch())
     trainer.dataloader.close()
     draws = (*step_fn.draws(batch, 1), step_fn.drop_mask(batch, 1))
+    return profile_step_fn(step_fn, trainer.state, trainer.model, batch, draws, card, phase)
+
+
+def profile_step_fn(step_fn, state, model, batch, draws, card: str, phase: str) -> dict:
+    """One training step (``make_train_step``'s function) split into
+    forward, backward and optimizer with CUDA events (medians of 5), then
+    :func:`profile_steps` over 3 steps. Returns the medians in ms."""
+    model.train()
+    params = list(model.parameters())
+    batch_size = batch["image"].shape[0]
 
     def one_step():
         events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -2658,8 +2681,7 @@ def profile_train_step(trainer, card: str, phase: str) -> None:
         events[1].record()
         loss.backward()
         events[2].record()
-        state.optimizer.step([p.grad for p in params])
-        state.update_ema()
+        step_fn.update(state, [p.grad for p in params])
         events[3].record()
         return events
 
@@ -2673,10 +2695,11 @@ def profile_train_step(trainer, card: str, phase: str) -> None:
             phases[name].append(ev[i].elapsed_time(ev[i + 1]))
         phases["step"].append(ev[0].elapsed_time(ev[3]))
     ms = {k: statistics.median(v) for k, v in phases.items()}
-    print(f"{phase}: one train step at batch {TRAIN_BATCH} (CUDA events, median of 5): "
+    print(f"{phase}: one train step at batch {batch_size} (CUDA events, median of 5): "
           f"forward {ms['forward']:.6g} ms, backward {ms['backward']:.6g} ms, optimizer + EMA "
           f"{ms['optimizer']:.6g} ms, step {ms['step']:.6g} ms; card {card}", flush=True)
     profile_steps(phase, one_step)
+    return ms
 
 
 def run_distill_path(card: str) -> None:
@@ -3474,11 +3497,11 @@ def pick_threshold(u: torch.Tensor) -> float:
 def ee_static_launches(buckets, depth: int, cache_every=None) -> int:
     """Blocks a static-exit run launches: a bucket at exit layer e runs e
     blocks a step (all ``depth`` at e = depth); cached, a step off its
-    anchors (t % cache_every == 0 and the bucket's first step) runs the
-    truncation's outer blocks only, e - 2k - 1 + 2 n_outer. n_outer is the
-    CLI's default max(1, ceil(k/3)) raised to 2k - e + 1, the least that
-    keeps the cached region inside the truncation; past k the bucket has
-    nothing to cache and runs uncached."""
+    anchors (t % cache_every == 0, or the anchor table ``cache_every[t]``,
+    and the bucket's first step) runs the truncation's outer blocks only,
+    e - 2k - 1 + 2 n_outer. n_outer is the CLI's default max(1, ceil(k/3))
+    raised to 2k - e + 1, the least that keeps the cached region inside the
+    truncation; past k the bucket has nothing to cache and runs uncached."""
     k = depth // 2
     n = 0
     for t_hi, t_lo, layer in buckets:
@@ -3486,7 +3509,8 @@ def ee_static_launches(buckets, depth: int, cache_every=None) -> int:
         if cache_every is None or p > k:
             p = None
         for t in range(t_hi, t_lo - 1, -1):
-            anchored = p is None or t % cache_every == 0 or t == t_hi
+            anchor = t % cache_every == 0 if isinstance(cache_every, int) else cache_every[t]
+            anchored = p is None or anchor or t == t_hi
             n += layer if anchored else layer - 2 * k - 1 + 2 * p
     return n
 
@@ -3591,19 +3615,21 @@ def profile_ee_step(device, card: str, threshold: float) -> None:
     release_memory()
 
 
-def run_ee_cli(label: str, argv: list, card: str, batch: int, expected) -> tuple:
+def run_ee_cli(label: str, argv: list, card: str, batch: int, expected,
+               random_init: bool = True) -> tuple:
     """One run of ``python -m duodiff_tpu_torch.eesample`` in-process in a
-    temporary folder, every launch counter set to 0 just before and read
-    just after; ``expected(result)`` gives the counts (unlisted kernels: 0)
-    from what the run chose. Returns (the CLI's result, the launches, the
+    temporary folder (random weights unless ``argv`` names a checkpoint and
+    ``random_init`` is False), every launch counter set to 0 just before and
+    read just after; ``expected(result)`` gives the counts (unlisted kernels:
+    0) from what the run chose. Returns (the CLI's result, the launches, the
     folder's indices_by_timestep.npy)."""
     from duodiff_tpu_torch import eesample
 
     with tempfile.TemporaryDirectory() as out:
         reset_counts()
         tic = time.perf_counter()
-        result = eesample.main([*argv, "--random_init", "--batch_size", str(batch),
-                                "--device", "cuda", "--output_folder", out])
+        result = eesample.main([*argv, *["--random_init"] * random_init, "--batch_size",
+                                str(batch), "--device", "cuda", "--output_folder", out])
         wall = time.perf_counter() - tic
         launches = read_counts()
         idx = np.load(f"{out}/indices_by_timestep.npy")
@@ -3722,6 +3748,328 @@ def run_early_exit(device, card: str) -> dict:
     return runs
 
 
+EE_TRAIN_STEPS = 200
+EE_RESUME_STEPS = 20
+EE_FROZEN_STEPS = 20
+EE_SAMPLES = 16           # main.py's --n_samples default, sampled once at the last step
+EE_EESAMPLE_STEPS = 100
+EE_STATIC_SCHEDULE = "999-750:13,749-0:4"
+EE_DERIVE_BATCH = 128
+EE_CALIB_STEPS_12 = 100
+EE_INT8_STEPS = 50
+EE_KERNELS = ("fused_attn_sublayer", "fused_mlp_sublayer", "fused_attn_sublayer_bwd",
+              "fused_mlp_sublayer_bwd")
+
+
+def ee_train_argv(work: str, exp: str, n_steps: int, *extra) -> list:
+    return train_argv(work, exp, n_steps, "--model", "deediff_uvit", "--attn_impl", "fused",
+                      *extra, config=EE_CONFIG, dataset="celeba")
+
+
+def check_ee_training(device) -> None:
+    """Phase 12a, the gates: on configs/deediff_celeba.yaml at batch 8, the
+    same weights, batch and draws fused (K1 / K2, K6 / K7) and plain: every
+    gradient (backbone, 13 heads, probes) within BWD_REL_FRO, the five loss
+    terms within STEP_LOSS_REL, OPT_STEPS AdamW steps as phase 3 holds
+    them; then, fused with the backbone frozen, the backbone equal to its
+    start to the bit, every head moved, and grad_norm the norm over all
+    gradients (the backbone's too)."""
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.training.train_state import TrainState, make_optimizer, make_train_step
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    schedule = NoiseSchedule.create(device=device)
+    opt = dict(lr=2e-4, weight_decay=0.03, beta1=0.99, beta2=0.999, max_grad_norm=1.0,
+               num_warmup_steps=0, num_training_steps=100)
+
+    def build(impl, frozen=False):
+        model, cfg = load_model(EE_CONFIG, device=device, seed=0, attn_impl=impl,
+                                early_exit=True)
+        model.train()
+        params = {n: p for n, p in model.named_parameters()
+                  if not (frozen and n.startswith("uvit."))}
+        step = make_train_step(model, schedule, parametrization="predict_noise", seed=0,
+                               model_kind="deediff_uvit")
+        return model, cfg, step, TrainState.create(model, make_optimizer(params, **opt))
+
+    models, steps, states = {}, {}, {}
+    for impl in ("fused", "plain"):
+        models[impl], cfg, steps[impl], states[impl] = build(impl)
+    g = torch.Generator().manual_seed(2)
+    shape = (CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    batch = {"image": (torch.rand(shape, generator=g) * 2 - 1).to(device)}
+    names = [n for n, _ in models["plain"].named_parameters()]
+    draws = steps["plain"].draws(batch, 1)
+    out = {impl: steps[impl].backward(batch, *draws) for impl in models}
+    terms = {k: abs(out["fused"][0][k].item() / out["plain"][0][k].item() - 1)
+             for k in out["plain"][0]}
+    rels = {n: rel_fro(a, b) for n, a, b in zip(names, out["fused"][1], out["plain"][1])}
+    groups = {part: max(v for n, v in rels.items() if n.startswith(part))
+              for part in ("uvit.", "heads.", "probes.")}
+    worst = max(rels, key=rels.get)
+    ok = rels[worst] <= BWD_REL_FRO and max(terms.values()) <= STEP_LOSS_REL
+    print(f"phase 12a: early-exit training gradients B={CHECK_BATCH} fused vs plain, "
+          f"{len(names)} parameters: worst rel_fro_err={rels[worst]:.6g} ({worst}), by part "
+          f"{ {k: round(v, 6) for k, v in groups.items()} }, median "
+          f"{statistics.median(rels.values()):.6g} (bound {BWD_REL_FRO}); loss terms "
+          f"{ {k: round(out['fused'][0][k].item(), 6) for k in terms} }, worst rel "
+          f"{max(terms.values()):.6g} (bound {STEP_LOSS_REL}) ok={ok}", flush=True)
+    if not ok:
+        fail("the fused early-exit training gradients or loss terms disagree with the plain ones")
+    del out
+
+    init = [p.detach().clone() for p in models["plain"].parameters()]
+    losses = {impl: [] for impl in models}
+    for s in range(1, OPT_STEPS + 1):
+        draws = steps["plain"].draws(batch, s)
+        for impl in models:
+            losses[impl].append(steps[impl](states[impl], batch, s, *draws)["train_loss"].item())
+    loss_rel = max(abs(a / b - 1) for a, b in zip(losses["fused"], losses["plain"]))
+    upd = {n: rel_fro(pf.detach() - p0, pp.detach() - p0) for n, pf, pp, p0 in
+           zip(names, models["fused"].parameters(), models["plain"].parameters(), init)}
+    worst = max(upd, key=upd.get)
+    ok = loss_rel <= STEP_LOSS_REL and upd[worst] <= UPDATE_REL_FRO
+    print(f"phase 12a: {OPT_STEPS} AdamW steps fused vs plain: losses "
+          f"{[round(v, 6) for v in losses['fused']]} vs {[round(v, 6) for v in losses['plain']]} "
+          f"max rel {loss_rel:.6g} (bound {STEP_LOSS_REL}); parameter updates worst rel_fro_err "
+          f"{upd[worst]:.6g} ({worst}), median {statistics.median(upd.values()):.6g} "
+          f"(bound {UPDATE_REL_FRO}) ok={ok}", flush=True)
+    if not ok:
+        fail("fused early-exit training steps disagree with plain ones")
+    del models, steps, states
+    release_memory()
+
+    model, _, step, state = build("fused", frozen=True)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    norms = []
+    for s in range(1, OPT_STEPS + 1):
+        metrics, grads = step.backward(batch, *step.draws(batch, s))
+        flat = torch.cat([g.double().flatten() for g in grads])
+        heads = torch.cat([g.double().flatten() for n, g in zip(names, grads)
+                           if not n.startswith("uvit.")])
+        logged = step.update(state, grads).item()
+        norms.append((logged, torch.linalg.vector_norm(flat).item(),
+                      torch.linalg.vector_norm(heads).item()))
+    still = all(torch.equal(p.detach(), start[n]) for n, p in model.named_parameters()
+                if n.startswith("uvit."))
+    moved = all(not torch.equal(p.detach(), start[n]) for n, p in model.named_parameters()
+                if not n.startswith("uvit."))
+    # the logged norm sums fp32 squares over ~4e7 entries; the references are float64
+    norm_ok = all(abs(a / b - 1) <= 1e-4 and abs(a / c - 1) > 1e-2 for a, b, c in norms)
+    ok = still and moved and norm_ok
+    print(f"phase 12a: {OPT_STEPS} fused steps with the backbone frozen: backbone equal to its "
+          f"start {still}, every head and probe moved {moved}; grad_norm logged / over all "
+          f"gradients / over the heads' and probes' (float64) "
+          f"{[tuple(round(v, 6) for v in n) for n in norms]} (bound 1e-4 from all) ok={ok}",
+          flush=True)
+    if not ok:
+        fail("the frozen backbone moved, a head did not, or grad_norm is not the norm of all")
+    del model, state, step
+    release_memory()
+
+
+def run_ee_training(device, card: str) -> dict:
+    """Phase 12: DeeDiff early-exit training through the training CLI on
+    configs/deediff_celeba.yaml at batch 128, bf16, fused, on a synthetic
+    CelebA cache: (a) the gates; (b) EE_TRAIN_STEPS steps with
+    --async_checkpoint that sample once, at the last step (EE_SAMPLES images,
+    1000 steps, the probe and statistics rows and the grid checked), the
+    loss falling, the checkpoint loaded strictly by load_model(early_exit=True)
+    with the trainer's forward, a --resume run, eesample's dynamic rule on
+    it; (c) --load_backbone of a uvit_celeba.yaml checkpoint written from a
+    seed, --freeze_backbone and --profile: the backbone equal to it after the
+    steps, the trace written; (d) one early-exit step timed and profiled
+    beside the plain U-ViT step on the same backbone, and the frozen step;
+    (e) derive_cache_schedule --static_schedule on the trained checkpoint,
+    eesample on its table, calibrate_int8 --early_exit --mode percentile,
+    eesample in int8 on its scales. Returns the launches of each run."""
+    from duodiff_tpu_torch.data.sampler import ResumableSeedableSampler
+    from duodiff_tpu_torch.data.synthetic import write_palette_celeba_cache
+    from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
+    from duodiff_tpu_torch.diffusion.static_exit import parse_exit_schedule
+    from duodiff_tpu_torch.tools import calibrate_int8, derive_cache_schedule
+    from duodiff_tpu_torch.training.checkpointer import CHECKPOINT_FILE, Checkpointer
+    from duodiff_tpu_torch.training.train_state import TrainState, make_optimizer, make_train_step
+    from duodiff_tpu_torch.utils.image import PNG_SIGNATURE
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    check_ee_training(device)
+    depth, runs = 13, {}
+    with tempfile.TemporaryDirectory() as work:
+        write_palette_celeba_cache(Path(work) / "data", seed=0)
+        floor = release_memory()
+        fwd, bwd = depth * (EE_TRAIN_STEPS + STEPS), depth * EE_TRAIN_STEPS
+        trainer, runs["12b"] = run_train_cli(
+            f"phase 12b: train deediff_celeba.yaml, --async_checkpoint, samples at step "
+            f"{EE_TRAIN_STEPS}",
+            ee_train_argv(work, "ee", EE_TRAIN_STEPS, "--async_checkpoint", "--log_every_n_steps",
+                          str(EE_TRAIN_STEPS), "--n_samples", str(EE_SAMPLES),
+                          "--sample_height", "64", "--sample_width", "64"), card,
+            {"fused_attn_sublayer": fwd, "fused_mlp_sublayer": fwd,
+             "fused_attn_sublayer_bwd": bwd, "fused_mlp_sublayer_bwd": bwd})
+        peak = torch.cuda.max_memory_allocated()
+        first, last = trainer.logs[0], trainer.logs[-1]
+        run = trainer.log_path
+        probe_rows = np.load(run / f"sample_classifier_outputs_step{EE_TRAIN_STEPS}.npy")
+        stat_rows = np.load(run / f"sample_stats_step{EE_TRAIN_STEPS}.npy")
+        grid = (run / f"samples_step{EE_TRAIN_STEPS}.png").read_bytes()
+        print(f"phase 12b: peak device memory {peak / 2**30:.6g} GiB ({floor:.6g} GiB held before "
+              f"the run); loss terms at step {first['step']} "
+              f"{ {k: round(v, 6) for k, v in first.items() if k.endswith('loss')} } -> step "
+              f"{last['step']} { {k: round(v, 6) for k, v in last.items() if k.endswith('loss')} }"
+              f"; in-training samples: probe rows {probe_rows.shape} mean {probe_rows.mean():.6g}, "
+              f"stats rows {stat_rows.shape} last {stat_rows[-1].round(6).tolist()}, grid "
+              f"{len(grid)} bytes; card {card}", flush=True)
+        if not last["train_loss"] < LOSS_DROP * first["train_loss"]:
+            fail(f"the early-exit train loss did not fall clearly: {first['train_loss']:.6g} -> "
+                 f"{last['train_loss']:.6g}")
+        if (probe_rows.shape != (STEPS, depth, EE_SAMPLES) or stat_rows.shape != (STEPS, 2)
+                or not np.isfinite(probe_rows).all() or not np.isfinite(stat_rows).all()
+                or not grid.startswith(PNG_SIGNATURE)):
+            fail("phase 12b: the in-training sampler's rows or grid are wrong")
+        # the dynamic runs' threshold, from the trained probes' values along that trajectory
+        threshold = pick_threshold(torch.from_numpy(probe_rows.transpose(1, 0, 2).reshape(depth, -1)))
+
+        ckpt = trainer.log_path / "celeba_deediff_uvit_last"
+        saved = Checkpointer.restore(ckpt)
+        model, cfg = load_model(EE_CONFIG, str(ckpt / CHECKPOINT_FILE), device=device,
+                                attn_impl="fused", early_exit=True)
+        for m in (model, trainer.model):
+            m.eval()
+            m.pack_for_kernels()
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn((CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans), generator=g)
+        t = torch.linspace(0, 999, CHECK_BATCH)
+        with torch.inference_mode():
+            same = all(torch.equal(a, b) for a, b in zip(model(x.to(device), t.to(device)),
+                                                          trainer.model(x.to(device), t.to(device))))
+        print(f"phase 12b: checkpoint step {saved['step']} ({len(saved['model_state_dict'])} "
+              f"reference names) loaded strictly by load_model(early_exit=True); its forward "
+              f"equals the trainer's: {same}", flush=True)
+        if not same or saved["step"] != EE_TRAIN_STEPS:
+            fail("the early-exit checkpoint does not reproduce the trained model")
+        del trainer, model
+        release_memory()
+
+        n = depth * EE_RESUME_STEPS
+        resumed, runs["12b resume"] = run_train_cli(
+            "phase 12b: --resume",
+            ee_train_argv(work, "ee", EE_TRAIN_STEPS + EE_RESUME_STEPS, "--resume"), card,
+            {k: n for k in EE_KERNELS})
+        sampler = ResumableSeedableSampler(len(saved["sampler_state"]["perm"]), seed=0)
+        sampler.set_state(saved["sampler_state"])
+        sampler.next_indices(TRAIN_BATCH * EE_RESUME_STEPS)
+        want, got = sampler.get_state(), resumed.dataloader.get_state()
+        ok = (resumed.start_step == EE_TRAIN_STEPS
+              and np.array_equal(want["perm"], got["perm"])
+              and (want["perm_index"], want["epoch"]) == (got["perm_index"], got["epoch"]))
+        print(f"phase 12b: resumed at step {resumed.start_step}, sampler at epoch {got['epoch']} "
+              f"index {got['perm_index']}, as the saved state implies: {ok}", flush=True)
+        if not ok:
+            fail("the early-exit --resume did not continue from the saved step and sampler state")
+        ee_step = profile_train_step(resumed, card, "phase 12d (early-exit step)")
+        trained = str(resumed.log_path / "celeba_deediff_uvit_last" / CHECKPOINT_FILE)
+
+        # the plain U-ViT step on the same backbone, beside it
+        uvit = resumed.model.uvit
+        step_fn = make_train_step(uvit, resumed.schedule, parametrization="predict_noise", seed=0)
+        state = TrainState.create(uvit, make_optimizer(
+            dict(uvit.named_parameters()), lr=2e-4, weight_decay=0.03, beta1=0.99, beta2=0.999,
+            max_grad_norm=1.0, num_warmup_steps=0, num_training_steps=100))
+        batch = {"image": torch.rand((TRAIN_BATCH, 64, 64, 3), generator=g).to(device) * 2 - 1}
+        uvit_step = profile_step_fn(step_fn, state, uvit, batch, step_fn.draws(batch, 1), card,
+                                    "phase 12d (its backbone's U-ViT step)")
+        del resumed, uvit, step_fn, state
+        release_memory()
+
+        n = EE_EESAMPLE_STEPS * depth
+        runs["12b eesample"] = run_ee_cli(
+            f"phase 12b: eesample dynamic rule on the trained checkpoint, {EE_EESAMPLE_STEPS} "
+            f"steps, threshold {threshold:.6g} (from the in-training sampler's probe rows)",
+            ["--config_path", EE_CONFIG, "--checkpoint_path", trained, "--num_timesteps",
+             str(EE_EESAMPLE_STEPS), "--threshold", repr(threshold)], card, MAIN_BATCH,
+            lambda r: {"fused_attn_sublayer": n, "fused_mlp_sublayer": n}, random_init=False)[1]
+
+        # (c) a U-ViT checkpoint written from a seed, loaded as the backbone and frozen
+        backbone_path = Path(work) / "uvit_celeba.pth"
+        source, _ = load_model(LATE_CONFIG, device="cpu", seed=7)
+        torch.save({"model_state_dict": source.state_dict()}, backbone_path)
+        floor = release_memory()
+        n = depth * EE_FROZEN_STEPS
+        frozen, runs["12c"] = run_train_cli(
+            "phase 12c: --load_backbone uvit_celeba.yaml checkpoint, --freeze_backbone, --profile",
+            ee_train_argv(work, "frozen", EE_FROZEN_STEPS, "--load_backbone", str(backbone_path),
+                          "--freeze_backbone", "--profile"), card, {k: n for k in EE_KERNELS})
+        frozen_peak = torch.cuda.max_memory_allocated()
+        got = frozen.model.uvit.state_dict()
+        still = all(torch.equal(v.cpu(), got[k].cpu()) for k, v in source.state_dict().items())
+        trace = frozen.log_path / "profile" / "trace.json"
+        trace_bytes = trace.stat().st_size if trace.exists() else 0
+        print(f"phase 12c: backbone equal to the loaded checkpoint after {EE_FROZEN_STEPS} frozen "
+              f"steps: {still}; --profile trace {trace_bytes} bytes; peak device memory "
+              f"{frozen_peak / 2**30:.6g} GiB ({floor:.6g} GiB held before the run)", flush=True)
+        if not still or not trace_bytes:
+            fail("phase 12c: the frozen backbone moved or --profile wrote no trace")
+        frozen_step = profile_train_step(frozen, card, "phase 12d (frozen early-exit step)")
+        del frozen, source
+        release_memory()
+        print(f"phase 12d: train step at batch {TRAIN_BATCH}: early exit {ee_step['step']:.6g} ms "
+              f"(forward {ee_step['forward']:.6g}, backward {ee_step['backward']:.6g}), frozen "
+              f"{frozen_step['step']:.6g} ms, its backbone's U-ViT step {uvit_step['step']:.6g} ms; "
+              f"peak {peak / 2**30:.6g} GiB (12b), {frozen_peak / 2**30:.6g} GiB (12c); card {card}",
+              flush=True)
+
+        # (e) the tools' early-exit modes on the trained checkpoint
+        buckets = parse_exit_schedule(EE_STATIC_SCHEDULE)
+        dense = sum((hi - lo + 1) * layer for hi, lo, layer in buckets)
+        schedule_path = f"{work}/ee_schedule.json"
+        result, runs["12e derive"] = run_tool(
+            f"phase 12e: derive_cache_schedule --static_schedule {EE_STATIC_SCHEDULE}, batch "
+            f"{EE_DERIVE_BATCH}", derive_cache_schedule.main,
+            ["--config", EE_CONFIG, "--checkpoint", trained, "--static_schedule",
+             EE_STATIC_SCHEDULE, "--batch", str(EE_DERIVE_BATCH), "--num_anchors",
+             str(DERIVE_ANCHORS), "--out", schedule_path, "--device", "cuda"], card,
+            {"fused_attn_sublayer": dense, "fused_mlp_sublayer": dense})
+        table = load_cache_schedule(schedule_path, num_timesteps=STEPS)
+        meta = result["meta"]
+        print(f"phase 12e: {int(table.sum())} anchors ({int(table[750:].sum())} in the cached "
+              f"bucket), budget {meta['budget']:.6g}, max staleness {meta['max_staleness']:.6g}, "
+              f"buckets {[(b['t_hi'], b['t_lo'], b['layer'], b['n_outer']) for b in meta['buckets']]}",
+              flush=True)
+        if meta["mode"] != "static_exit" or not table[:750].all() or table[750:].sum() > DERIVE_ANCHORS:
+            fail("phase 12e: the static-exit schedule is not what the buckets imply")
+        n = ee_static_launches(buckets, depth, table)
+        runs["12e eesample"] = run_ee_cli(
+            f"phase 12e: eesample --static_schedule {EE_STATIC_SCHEDULE} on the derived table",
+            ["--config_path", EE_CONFIG, "--checkpoint_path", trained, "--num_timesteps",
+             str(STEPS), "--static_schedule", EE_STATIC_SCHEDULE, "--cache_schedule",
+             schedule_path], card, MAIN_BATCH,
+            lambda r: {"fused_attn_sublayer": n, "fused_mlp_sublayer": n}, random_init=False)[1]
+
+        scales_path = f"{work}/ee_scales.json"
+        n = depth * EE_CALIB_STEPS_12
+        scales, runs["12e calibrate"] = run_tool(
+            f"phase 12e: calibrate_int8 --early_exit --mode percentile, batch {EE_CALIB_BATCH}, "
+            f"{EE_CALIB_STEPS_12} steps", calibrate_int8.main,
+            ["--config_path", EE_CONFIG, "--checkpoint_path", trained, "--early_exit", "--mode",
+             "percentile", "--batch_size", str(EE_CALIB_BATCH), "--num_timesteps",
+             str(EE_CALIB_STEPS_12), "--output", scales_path, "--device", "cuda"], card,
+            {"fused_attn_sublayer_int8": n})
+        names = sorted(scales["scales"])
+        print(f"phase 12e: scales of {len(names)} sites {names[:2]}...{names[-2:]}", flush=True)
+        n = depth * EE_INT8_STEPS
+        runs["12e int8"] = run_ee_cli(
+            f"phase 12e: eesample int8 on those scales, {EE_INT8_STEPS} steps",
+            ["--config_path", EE_CONFIG, "--checkpoint_path", trained, "--num_timesteps",
+             str(EE_INT8_STEPS), "--threshold", repr(threshold), "--attn_impl", "fused_int8",
+             "--int8_scales", scales_path], card, MAIN_BATCH,
+            lambda r: {"fused_attn_sublayer_int8": n, "fused_mlp_sublayer_int8": n,
+                       "fused_mlp_sublayer_int8 static": n}, random_init=False)[1]
+    print(json.dumps({"phase12_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}), flush=True)
+    return runs
+
+
 def parse_phases(argv) -> set:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3811,6 +4159,12 @@ def main(argv=None) -> int:
         # early exit's launches are added to the record of K1, K2, K11 and K12
         for counts in run_early_exit(device, card).values():
             for name in (*KERNELS, *INT8_KERNELS):
+                if counts.get(name):
+                    launches[name] = launches.get(name, 0) + counts[name]
+    if "12" in run:
+        # early-exit training's launches are added to K1, K2, K6, K7, K11 and K12
+        for counts in run_ee_training(device, card).values():
+            for name in (*KERNELS, *INT8_KERNELS, *BWD_KERNELS):
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
     if run == set(PHASES):

@@ -4,8 +4,8 @@
 The JAX package caches a dataset's decoded and resized images once as
 ``<data_dir>/_duodiff_cache/<key>/``: ``images.npy`` (N, H, W, 3), read as a
 memmap, ``labels.npy`` (N,) int32 and ``meta.json`` with the images' shape.
-The port cannot decode images, so a cache is its only ImageNet source: one
-the JAX package built with ``--cache_data``, or a synthetic one
+The port cannot decode images, so a cache is its only CelebA and ImageNet
+source: one the JAX package built with ``--cache_data``, or a synthetic one
 (``data/synthetic.py``). The cache does not record the float transform; the
 key's ``norm1`` names it, and the caller passes the matching ``scale`` and
 ``offset``.
@@ -20,6 +20,7 @@ import numpy as np
 
 CACHE_DIR = "_duodiff_cache"
 IMAGENET64_KEY = "imagenet64aa_norm1"  # antialiased 64x64 resize, Normalize(0.5, 0.5)
+CELEBA_KEY = "celeba64aa_norm1"        # crop 178, antialiased 64x64 resize, Normalize(0.5, 0.5)
 
 
 class MemmapCachedDataset:

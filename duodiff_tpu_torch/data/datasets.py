@@ -3,9 +3,9 @@
 CIFAR-10 reads the train split's python pickle batches with numpy alone:
 items are NHWC uint8, and the loader's fused scale and offset give
 x / 255 followed by Normalize(0.5, 0.5), i.e. values in [-1, 1]. CelebA
-and ImageNet need image decoding, which the port does not have yet;
-ImageNet-64 is read from its decoded-image cache (``data/cache.py``) when
-one is there.
+and ImageNet need image decoding, which the port does not have; CelebA-64
+and ImageNet-64 are read from their decoded-image caches (``data/cache.py``)
+when one is there, ImageNet-256 not at all.
 """
 
 from __future__ import annotations
@@ -15,7 +15,12 @@ from pathlib import Path
 
 import numpy as np
 
-from duodiff_tpu_torch.data.cache import CACHE_DIR, IMAGENET64_KEY, MemmapCachedDataset
+from duodiff_tpu_torch.data.cache import (
+    CACHE_DIR,
+    CELEBA_KEY,
+    IMAGENET64_KEY,
+    MemmapCachedDataset,
+)
 from duodiff_tpu_torch.data.loader import DataLoader
 from duodiff_tpu_torch.data.sampler import ResumableSeedableSampler
 
@@ -58,15 +63,16 @@ def get_dataloader(dataset: str, batch_size: int, seed: int, data_dir) -> DataLo
     if dataset == "cifar10":
         ds = Cifar10Dataset(data_dir)
         return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed))
-    if dataset == "imagenet64":
-        cache = Path(data_dir) / CACHE_DIR / IMAGENET64_KEY
+    caches = {"celeba": CELEBA_KEY, "imagenet64": IMAGENET64_KEY}
+    if dataset in caches:
+        cache = Path(data_dir) / CACHE_DIR / caches[dataset]
         if not (cache / "meta.json").exists():
             raise NotImplementedError(
-                f"dataset 'imagenet64' needs image decoding, which is not ported yet, unless "
+                f"dataset {dataset!r} needs image decoding, which is not ported yet, unless "
                 f"its decoded cache is at {cache} (the JAX package builds it with "
                 "--cache_data; duodiff_tpu_torch.data.synthetic writes a synthetic one)")
         ds = MemmapCachedDataset(cache, scale=NORMALIZE_SCALE, offset=NORMALIZE_OFFSET)
         return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed))
-    if dataset in ("celeba", "imagenet256"):
+    if dataset == "imagenet256":
         raise NotImplementedError(f"dataset {dataset!r} needs image decoding, not ported yet")
     raise ValueError(f"Dataset {dataset} not implemented.")

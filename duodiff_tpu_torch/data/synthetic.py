@@ -5,8 +5,9 @@ samples solid colors near the palette modes.
 :func:`write_palette_cifar` writes it in the CIFAR-10 file layout, the
 distribution of ``tools/convergence_probe.py``'s ``write_palette_cifar``
 (the same files, byte for byte, from the same seed);
-:func:`write_palette_imagenet64_cache` as the decoded-image cache that
-``--dataset imagenet64`` reads (``data/cache.py``).
+:func:`write_palette_imagenet64_cache` and :func:`write_palette_celeba_cache`
+as the decoded-image caches that ``--dataset imagenet64`` and ``--dataset
+celeba`` read (``data/cache.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,23 @@ def write_palette_cifar(data_dir, palette: np.ndarray = PALETTE4, seed: int = 0,
             pickle.dump({b"data": rows, b"labels": ks.tolist()}, f)
 
 
+def _write_cache(final: Path, images: np.ndarray, labels: np.ndarray) -> Path:
+    final.mkdir(parents=True, exist_ok=True)
+    np.save(final / "images.npy", images)
+    np.save(final / "labels.npy", labels)
+    (final / "meta.json").write_text(json.dumps({"shape": list(images.shape)}))
+    return final
+
+
+def _palette_images(rng, colors: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """Each image its palette color (index modulo the palette) plus noise,
+    float32 64x64x3 in 0..255."""
+    n = len(colors)
+    images = palette[colors % len(palette)][:, None, None, :] + (
+        rng.randn(n, 64, 64, 3).astype(np.float32) * 6.0)
+    return np.clip(images, 0, 255).astype(np.float32)
+
+
 def write_palette_imagenet64_cache(data_dir, n: int = 1024, palette: np.ndarray = PALETTE4,
                                    seed: int = 0, num_classes: int = 999) -> Path:
     """``data_dir/_duodiff_cache/imagenet64aa_norm1/``: ``n`` float32 64x64x3
@@ -47,14 +65,21 @@ def write_palette_imagenet64_cache(data_dir, n: int = 1024, palette: np.ndarray 
     palette) plus noise. Returns the cache directory."""
     from duodiff_tpu_torch.data.cache import CACHE_DIR, IMAGENET64_KEY
 
-    final = Path(data_dir) / CACHE_DIR / IMAGENET64_KEY
-    final.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(seed)
     labels = rng.randint(0, num_classes, n).astype(np.int32)
-    images = palette[labels % len(palette)][:, None, None, :] + (
-        rng.randn(n, 64, 64, 3).astype(np.float32) * 6.0)
-    images = np.clip(images, 0, 255).astype(np.float32)
-    np.save(final / "images.npy", images)
-    np.save(final / "labels.npy", labels)
-    (final / "meta.json").write_text(json.dumps({"shape": list(images.shape)}))
-    return final
+    return _write_cache(Path(data_dir) / CACHE_DIR / IMAGENET64_KEY,
+                        _palette_images(rng, labels, palette), labels)
+
+
+def write_palette_celeba_cache(data_dir, n: int = 1024, palette: np.ndarray = PALETTE4,
+                               seed: int = 0) -> Path:
+    """``data_dir/_duodiff_cache/celeba64aa_norm1/``: ``n`` float32 64x64x3
+    images in 0..255 as the JAX package caches cropped and resized CelebA,
+    every label 0 (CelebA's loader yields none), each image a random palette
+    color plus noise. Returns the cache directory."""
+    from duodiff_tpu_torch.data.cache import CACHE_DIR, CELEBA_KEY
+
+    rng = np.random.RandomState(seed)
+    images = _palette_images(rng, rng.randint(0, len(palette), n), palette)
+    return _write_cache(Path(data_dir) / CACHE_DIR / CELEBA_KEY, images,
+                        np.zeros(n, np.int32))

@@ -190,16 +190,19 @@ class EarlyExitUViT(nn.Module):
     output head and an uncertainty probe at every probe point. Beside the
     dense :meth:`forward`, the truncated forwards of the static-exit and
     adaptive samplers run blocks 0..exit_layer-1 and head ``exit_layer``
-    (at ``exit_layer == depth`` the whole backbone and its own decoder)."""
+    (at ``exit_layer == depth`` the whole backbone and its own decoder).
+    ``use_checkpoint`` is the backbone's (:class:`UViT`): in training each
+    block runs again in the backward instead of keeping its activations."""
 
     def __init__(self, config: UViTConfig, *, dtype=torch.bfloat16, attn_impl: str = "plain",
                  gelu_approx: bool = False, int8_mlp_scales: Optional[tuple] = None,
-                 mlp_impl: str = "auto"):
+                 mlp_impl: str = "auto", use_checkpoint: bool = False):
         super().__init__()
         self.config = config
         probes = make_probes(config)  # refuses an unknown classifier type first
         self.uvit = UViT(config, dtype=dtype, attn_impl=attn_impl, gelu_approx=gelu_approx,
-                         int8_mlp_scales=int8_mlp_scales, mlp_impl=mlp_impl)
+                         int8_mlp_scales=int8_mlp_scales, mlp_impl=mlp_impl,
+                         use_checkpoint=use_checkpoint)
         self.heads = OutputHeads(config.depth, config.embed_dim, config.patch_dim,
                                  config.in_chans, config.extras)
         self.probes = probes
@@ -213,6 +216,17 @@ class EarlyExitUViT(nn.Module):
 
     def pack_for_kernels(self) -> None:
         self.uvit.pack_for_kernels()
+
+    def block_names(self) -> list[str]:
+        return self.uvit.block_names()
+
+    def forward_calib(self, x, timesteps, y=None):
+        """The int8 calibration forward: the backbone's
+        (:meth:`UViT.forward_calib`), whose prediction the calibration
+        trajectory steps on. The heads and probes read the blocks and change
+        none of them, so the statistics are those of the full forward; the
+        sites carry the backbone's block names, as in the JAX package."""
+        return self.uvit.forward_calib(x, timesteps, y)
 
     @staticmethod
     def probe_index(timesteps: torch.Tensor) -> torch.Tensor:
@@ -336,11 +350,12 @@ def _init_heads_and_probes(model: EarlyExitUViT, generator: torch.Generator) -> 
 def init_early_exit_uvit(config: UViTConfig, *, device, dtype=torch.bfloat16,
                          generator: torch.Generator, attn_impl: str = "plain",
                          gelu_approx: bool = False, int8_mlp_scales: Optional[tuple] = None,
-                         mlp_impl: str = "auto") -> EarlyExitUViT:
+                         mlp_impl: str = "auto", use_checkpoint: bool = False) -> EarlyExitUViT:
     """An EarlyExitUViT with random fp32 weights drawn on the CPU from
     ``generator``, then moved to ``device``. ``dtype`` is the compute dtype."""
     model = EarlyExitUViT(config, dtype=dtype, attn_impl=attn_impl, gelu_approx=gelu_approx,
-                          int8_mlp_scales=int8_mlp_scales, mlp_impl=mlp_impl)
+                          int8_mlp_scales=int8_mlp_scales, mlp_impl=mlp_impl,
+                          use_checkpoint=use_checkpoint)
     _init_params(model.uvit, generator)
     _init_heads_and_probes(model, generator)
     return model.to(device)

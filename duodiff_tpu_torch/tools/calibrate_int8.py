@@ -23,10 +23,14 @@ sampling CLI. Modes:
   reference and every candidate draw the same noise: a generator seeded with
   ``--seed + 17``, made anew for each run.
 
+``--early_exit`` calibrates an early-exit model (the config's
+``classifier_type`` names its probes): the trajectory steps on its
+backbone, and the sites are its backbone blocks, under the names a plain
+U-ViT's scales file has. ``--mode search`` is refused there, as in the JAX
+tool: the early-exit sampler steps on the exit heads' outputs, not on the
+backbone's that the search would score.
+
 It runs on the card unless ``--device cpu`` (the kernels' plain versions).
-``--early_exit`` (an early-exit model's calibration) is not ported yet: it
-comes with early-exit training (ROADMAP item 7, its second half); it is
-refused.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ def get_args(argv=None):
                    help="calibrate on random weights from --seed")
     p.add_argument("--output", type=str, required=True, help="where to write the scales JSON")
     p.add_argument("--early_exit", action="store_true",
-                   help="the config is an early-exit model (refused)")
+                   help="the config is an early-exit model")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--num_timesteps", type=int, default=1000)
     p.add_argument("--margin", type=float, default=1.1,
@@ -91,9 +95,10 @@ def main(argv=None) -> dict:
     args = get_args(argv)
     if not args.random_init and args.checkpoint_path is None:
         raise SystemExit("--checkpoint_path is required (or --random_init)")
-    if args.early_exit:
-        raise SystemExit("--early_exit (calibrating an early-exit model) is not ported yet: "
-                         "it comes with early-exit training (ROADMAP item 7, its second half)")
+    if args.early_exit and args.mode == "search":
+        raise SystemExit("--mode search supports backbone models only (the EE serve path steps "
+                         "on exit-head outputs; calibrate EE scales with --mode percentile "
+                         "instead)")
     device = device_from_arg(args.device)
     card = card_line(device)
     print(card)
@@ -103,6 +108,7 @@ def main(argv=None) -> dict:
             args.config_path, None if args.random_init else args.checkpoint_path,
             device=device, seed=args.seed, attn_impl="fused_int8",
             gelu_approx=args.gelu_approx, use_ema=args.use_ema, int8_scales=scales_path,
+            early_exit=args.early_exit,
         )
         model.eval().pack_for_kernels()
         return model, cfg

@@ -24,9 +24,15 @@ with s + 1: ``--full_seed 1`` derives for its seed-0 pair). The noise comes
 from a generator seeded with ``--seed`` on the device, drawn as the sampling
 CLI draws it, so an unconditional run follows that CLI's trajectory.
 
-The static-exit mode (``--static_schedule``, a derivation over an
-early-exit model's buckets) is not ported yet: it comes with early-exit
-training (ROADMAP item 7, its second half); it is refused.
+Static-exit mode (``--static_schedule '999-700:3,699-0:13' --config
+<deediff yaml> [--checkpoint C]``): the early-exit model runs the buckets in
+turn, each on its backbone truncated at its exit layer. A bucket whose
+truncation can hold the cached region measures its own drift through the
+truncated anchor forward (``diffusion/static_exit.py``), from a zero delta
+at its entry, where the composed sampler anchors again; the others run
+dense. Anchors are derived bucket by bucket under one budget (the worst
+bucket-local uniform staleness, or bisected for ``--num_anchors``); the
+rows of dense buckets are written as anchors.
 
 It runs on the card unless ``--device cpu``. The JSON it writes holds the
 anchors and a ``meta`` block as the JAX tool writes it, with the card's name
@@ -52,6 +58,12 @@ from duodiff_tpu_torch.diffusion.cache_schedule import (
 )
 from duodiff_tpu_torch.diffusion.sampling import ddpm_loop
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+from duodiff_tpu_torch.diffusion.static_exit import (
+    cache_outer_for,
+    parse_exit_schedule,
+    truncated_ee_apply,
+    truncated_ee_apply_cached,
+)
 from duodiff_tpu_torch.tools._measure import card_line, device_from_arg
 from duodiff_tpu_torch.utils.model_loading import load_model
 
@@ -91,21 +103,21 @@ def get_args(argv=None):
     p.add_argument("--label_max", type=int, default=None,
                    help="class-conditional models: labels in [0, label_max)")
     p.add_argument("--static_schedule", type=str, default=None,
-                   help="static-exit mode (not ported yet; refused)")
+                   help="static-exit mode: the bucket schedule ('999-700:3,699-0:13') of "
+                        "the early-exit model of --config / --checkpoint; drift per bucket")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
 def check_args(args) -> None:
-    """The JAX tool's refusals, and the static-exit mode's."""
+    """The JAX tool's refusals (those that need no model)."""
     if (args.t_switch is None) != (args.shallow_config is None):
         raise SystemExit("--t_switch and --shallow_config go together")
     if args.t_switch is not None and args.static_schedule is not None:
         raise SystemExit("--t_switch and --static_schedule are mutually exclusive")
-    if args.static_schedule is not None:
-        raise SystemExit("--static_schedule (derivation over static-exit buckets) is not "
-                         "ported yet: it comes with early-exit training (ROADMAP item 7, its "
-                         "second half)")
+    if args.static_schedule is not None and args.config is None:
+        raise SystemExit("--static_schedule needs --config (the DeeDiff YAML of the "
+                         "EarlyExitUViT checkpoint)")
     if args.full_seed is not None and (args.checkpoint is not None or args.t_switch is None):
         raise SystemExit("--full_seed is for the random-init DuoDiff mode only (no "
                          "--checkpoint, with --t_switch)")
@@ -129,21 +141,97 @@ def drift_apply(anchor_apply):
     return apply
 
 
+def segment_drift(anchor_apply, schedule, x, generator, t_hi: int, t_lo: int, y, delta0,
+                  noise_table=None):
+    """An anchor forward ``(x, t, y) -> (out, delta)`` over t = t_hi .. t_lo
+    from x, the delta starting at ``delta0``, its noise from ``generator`` or
+    ``noise_table``. Returns (x after t_lo, drift, norm), each of the last
+    two (t_hi - t_lo + 1,) float64 indexed by t - t_lo: ||delta_t -
+    delta_{t+1}||_F (row t_hi against ``delta0``, never read) and
+    ||delta_t||_F. The rows are read once, after the segment."""
+    x, _, (drift_sq, norm_sq) = ddpm_loop(
+        drift_apply(anchor_apply), schedule, "predict_noise", x, generator,
+        range(t_hi, t_lo - 1, -1), y, noise_table=noise_table, state=delta0,
+        aux_fn=lambda out: out,
+    )
+    rows = torch.stack([drift_sq, norm_sq]).double().cpu().numpy()
+    return x, np.sqrt(rows[0])[::-1], np.sqrt(rows[1])[::-1]
+
+
 def measure_drift(model, schedule, x, generator, t_hi: int, n_outer: int, y, tokens: int,
                   noise_table=None):
-    """The full model's anchor forward over t = t_hi .. 0 from x, its noise
-    from ``generator`` or ``noise_table``; returns (drift, norm), each (t_hi +
-    1,) float64 indexed by t: ||delta_t - delta_{t+1}||_F (row t_hi against
-    the zero start, never read) and ||delta_t||_F."""
-    state = torch.zeros((x.shape[0], tokens, model.config.embed_dim), dtype=model.dtype,
-                        device=x.device)
-    apply = drift_apply(lambda xx, tt, yy: model.forward_anchor(xx, tt, yy, n_outer=n_outer))
-    _, _, (drift_sq, norm_sq) = ddpm_loop(
-        apply, schedule, "predict_noise", x, generator, range(t_hi, -1, -1), y,
-        noise_table=noise_table, state=state, aux_fn=lambda out: out,
-    )
-    rows = torch.stack([drift_sq, norm_sq]).double().cpu().numpy()  # one read, after the run
-    return np.sqrt(rows[0])[::-1], np.sqrt(rows[1])[::-1]
+    """The full model's anchor forward over t = t_hi .. 0 from x
+    (:func:`segment_drift` from a zero delta); returns (drift, norm), each
+    (t_hi + 1,) indexed by t."""
+    delta0 = torch.zeros((x.shape[0], tokens, model.config.embed_dim), dtype=model.dtype,
+                         device=x.device)
+    _, drift, norm = segment_drift(
+        lambda xx, tt, yy: model.forward_anchor(xx, tt, yy, n_outer=n_outer), schedule, x,
+        generator, t_hi, 0, y, delta0, noise_table)
+    return drift, norm
+
+
+def static_exit_drift(model, cfg, schedule, x, generator, buckets, cache_outer, y, tokens,
+                      drift, norm, noise_table=None):
+    """The static-exit mode's run: bucket after bucket, the cacheable ones
+    through their truncated anchor forward (:func:`segment_drift` from a
+    zero delta, rows written into ``drift`` and ``norm`` at their t), the
+    others dense. Returns (the cacheable segments (t_hi, t_lo), the buckets'
+    meta rows)."""
+    segments, bucket_meta = [], []
+    delta0 = torch.zeros((x.shape[0], tokens, cfg.embed_dim), dtype=model.dtype,
+                         device=x.device)
+    for t_hi, t_lo, layer in buckets:
+        p_outer = cache_outer_for(cfg.depth, layer, cache_outer)
+        if p_outer is not None:
+            anchor, _ = truncated_ee_apply_cached(model, layer, p_outer)
+            x, drift[t_lo:t_hi + 1], norm[t_lo:t_hi + 1] = segment_drift(
+                anchor, schedule, x, generator, t_hi, t_lo, y, delta0, noise_table)
+            segments.append((t_hi, t_lo))
+        else:
+            x = ddpm_loop(truncated_ee_apply(model, layer), schedule, "predict_noise", x,
+                          generator, range(t_hi, t_lo - 1, -1), y, noise_table=noise_table)
+        bucket_meta.append({"t_hi": t_hi, "t_lo": t_lo, "layer": layer, "n_outer": p_outer,
+                            "cacheable": p_outer is not None})
+    return segments, bucket_meta
+
+
+def derive_segmented(drift: np.ndarray, segments, budget: float) -> np.ndarray:
+    """The table under one budget: anchors derived in each cacheable segment
+    (t = 0 forced in the segment that reaches it), every other row an
+    anchor, since those steps run dense."""
+    table = np.ones(drift.shape, dtype=bool)
+    for hi, lo in segments:
+        table[lo:hi + 1] = derive_anchor_table(drift[lo:hi + 1], budget, anchor_zero=lo == 0)
+    return table
+
+
+def segmented_staleness(drift: np.ndarray, segments, table) -> tuple[float, float]:
+    """The worst and the mean staleness over the cacheable segments."""
+    st = np.concatenate([segment_staleness(drift[lo:hi + 1], table[lo:hi + 1])
+                         for hi, lo in segments])
+    return float(st.max()), float(st.mean())
+
+
+def segmented_budget_for_count(drift: np.ndarray, segments, num_anchors: int) -> float:
+    """The bisected least budget whose segmented table has at most
+    ``num_anchors`` anchors over the cacheable rows."""
+    in_seg = segment_mask(drift.shape[0], segments)
+    lo_b, hi_b = 0.0, float(drift.sum()) or 1.0
+    for _ in range(60):
+        mid = 0.5 * (lo_b + hi_b)
+        if int(derive_segmented(drift, segments, mid)[in_seg].sum()) <= num_anchors:
+            hi_b = mid
+        else:
+            lo_b = mid
+    return hi_b
+
+
+def segment_mask(steps: int, segments) -> np.ndarray:
+    in_seg = np.zeros((steps,), dtype=bool)
+    for hi, lo in segments:
+        in_seg[lo:hi + 1] = True
+    return in_seg
 
 
 def main(argv=None) -> dict:
@@ -156,8 +244,14 @@ def main(argv=None) -> dict:
     print(card)
     attn = args.attn_impl or ("fused" if device.type == "cuda" else "plain")
     full_seed = args.seed if args.full_seed is None else args.full_seed
+    buckets = None
+    if args.static_schedule is not None:
+        buckets = parse_exit_schedule(args.static_schedule)
+        if buckets[0][0] != args.steps - 1 or buckets[-1][1] != 0:
+            raise SystemExit(f"--static_schedule must cover t={args.steps - 1}..0")
     model, cfg = load_model(args.config or FLAGSHIP_CONFIG, args.checkpoint, device=device,
-                            seed=full_seed, attn_impl=attn, gelu_approx=args.gelu_approx)
+                            seed=full_seed, attn_impl=attn, gelu_approx=args.gelu_approx,
+                            early_exit=buckets is not None)
     model.eval().pack_for_kernels()
     k_half = cfg.depth // 2
     n_outer = args.cache_outer if args.cache_outer is not None else max(1, -(-k_half // 3))
@@ -178,6 +272,8 @@ def main(argv=None) -> dict:
     shape = (args.batch, cfg.img_size, cfg.img_size, cfg.in_chans)
     tokens = cfg.extras + cfg.num_patches
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    # drift[t] = ||delta_t - delta_{t+1}||; each cacheable segment's top row is
+    # against a zero delta and never read; rows outside the segments stay 0
     drift = np.zeros((steps,), np.float64)
     norm = np.zeros((steps,), np.float64)
     with torch.inference_mode():
@@ -196,51 +292,60 @@ def main(argv=None) -> dict:
                           range(steps - 1, handoff - 1, -1), y)
             drift[:handoff], norm[:handoff] = measure_drift(model, schedule, x, generator,
                                                             handoff - 1, n_outer, y, tokens)
-            n_seg = handoff
+            segments = [(handoff - 1, 0)]
             mode_meta = {"mode": "duodiff", "t_switch": args.t_switch,
                          "shallow_config": args.shallow_config,
                          "shallow_checkpoint": args.shallow_checkpoint, "full_seed": full_seed}
+        elif buckets is not None:
+            print(f"measuring per-bucket drift: {args.static_schedule}, batch {args.batch}, "
+                  f"attn={attn} ...", file=sys.stderr)
+            segments, bucket_meta = static_exit_drift(model, cfg, schedule, x, generator,
+                                                      buckets, args.cache_outer, y, tokens,
+                                                      drift, norm)
+            if not segments:
+                raise SystemExit("no bucket is cacheable (every exit is at/inside the mid "
+                                 "block) — nothing to derive")
+            mode_meta = {"mode": "static_exit", "static_schedule": args.static_schedule,
+                         "buckets": bucket_meta}
         else:
             print(f"measuring drift: {steps} steps, batch {args.batch}, attn={attn}, "
                   f"n_outer={n_outer} ...", file=sys.stderr)
             drift[:], norm[:] = measure_drift(model, schedule, x, generator, steps - 1, n_outer,
                                               y, tokens)
-            n_seg = steps
+            segments = [(steps - 1, 0)]
             mode_meta = {"mode": "dense"}
 
-    # the cached segment is t = n_seg - 1 .. 0; the rows above it run dense,
-    # so "anchor" is their true value
-    seg_drift = drift[:n_seg]
-
-    def staleness(tab):
-        st = segment_staleness(seg_drift, tab[:n_seg])
-        return float(st.max()), float(st.mean())
+    in_seg = segment_mask(steps, segments)
+    n_seg = int(in_seg.sum())
 
     def seg_anchors(tab):
-        return int(tab[:n_seg].sum())
+        return int(tab[in_seg].sum())
 
     if args.num_anchors is not None:
-        budget = budget_for_count(seg_drift, args.num_anchors)
+        if mode_meta["mode"] == "dense":
+            budget = budget_for_count(drift, args.num_anchors)
+        else:
+            budget = segmented_budget_for_count(drift, segments, args.num_anchors)
         budget_mode = f"num_anchors<={args.num_anchors}"
     else:
-        budget = uniform_budget(seg_drift, args.budget_from_every)
+        budget = max(uniform_budget(drift[lo:hi + 1], args.budget_from_every)
+                     for hi, lo in segments)
         budget_mode = f"budget_from_every={args.budget_from_every}"
-    table = np.ones((steps,), dtype=bool)
-    table[:n_seg] = derive_anchor_table(seg_drift, budget)
+    table = derive_segmented(drift, segments, budget)
 
     report = {"derived": table}
     for every in sorted({args.budget_from_every, 3, 5}):
         report[f"uniform_{every}"] = uniform_table(every, steps)
     print(f"\nbudget: {budget:.4f} ({budget_mode}); mean |delta| over cacheable t: "
-          f"{norm[:n_seg].mean():.3f}")
+          f"{norm[in_seg].mean():.3f}")
     print("| schedule | anchors (cacheable t) | anchor frac | max staleness | mean staleness |")
     print("|---|---|---|---|---|")
     for name, tab in report.items():
-        st_max, st_mean = staleness(tab)
+        st_max, st_mean = segmented_staleness(drift, segments, tab)
         print(f"| {name} | {seg_anchors(tab)} | {seg_anchors(tab) / n_seg:.3f} "
               f"| {st_max:.4f} | {st_mean:.4f} |")
 
-    stale_max, stale_mean = staleness(table)
+    stale_max, stale_mean = segmented_staleness(drift, segments, table)
     meta = {
         "config": args.config or "flagship (uvit_celeba)",
         "checkpoint": args.checkpoint,
@@ -255,7 +360,7 @@ def main(argv=None) -> dict:
         "max_staleness": stale_max,
         "mean_staleness": stale_mean,
         "drift": [round(float(v), 5) for v in drift],
-        "delta_norm_mean": float(norm[:n_seg].mean()),
+        "delta_norm_mean": float(norm[in_seg].mean()),
         **mode_meta,
     }
     save_cache_schedule(args.out, table, meta)

@@ -22,10 +22,16 @@ finite until more than N in a row were, and ``--use_checkpoint`` recomputes
 each block in the backward instead of keeping its activations. With
 ``--attn_impl fused`` the environment variable ``DUODIFF_MLP_BWD_SPLIT=1``
 takes the split MLP backward kernel K8 in place of K7, whose scratch
-``DUODIFF_MLP_BWD_SPLIT_CFG=<splits>`` bounds (row chunks on the card). Flags
-whose machinery is not ported yet are refused with a message.
+``DUODIFF_MLP_BWD_SPLIT_CFG=<splits>`` bounds (row chunks on the card).
+``--log_every_n_steps N`` samples ``--n_samples`` images every N steps and
+at the last (per-step statistics as ``.npy`` and the grid as a PNG in the
+run's folder), ``--profile`` traces steps 3 to 8 of the run with
+``torch.profiler`` into ``<log_path>/<exp_name>/profile``, and
+``--async_checkpoint`` writes checkpoints in a background thread. The
+multi-GPU flags are refused with a message.
 Checkpoints land in ``<log_path>/<exp_name>/<save_name>_last/checkpoint.pth``;
-``python -m duodiff_tpu_torch.sample --checkpoint_path`` loads that file.
+``python -m duodiff_tpu_torch.sample --checkpoint_path`` (``eesample`` for an
+early-exit model) loads that file.
 """
 
 from __future__ import annotations
@@ -71,7 +77,8 @@ def get_args(argv=None):
     p.add_argument("--load_backbone", type=str, default=None)
     p.add_argument("--freeze_backbone", action="store_true")
     p.add_argument("--normalize_timesteps", action="store_true")
-    p.add_argument("--use_unweighted_loss", action="store_true")
+    p.add_argument("--use_unweighted_loss", action="store_true",
+                   help="deediff_uvit: add the heads' unweighted loss term to the total")
     p.add_argument("--parametrization", type=str, default="predict_noise",
                    choices=["predict_noise", "predict_original", "predict_previous"])
     p.add_argument("--save_checkpoint_path", type=str, default=None)
@@ -121,8 +128,8 @@ def get_args(argv=None):
                    choices=["cifar10", "celeba", "imagenet64", "imagenet256"])
     p.add_argument("--data_path", type=str, default="data")
     p.add_argument("--cache_data", action="store_true", default=False,
-                   help="Accepted; CIFAR-10 lives in memory and imagenet64 is read from "
-                        "its cache only")
+                   help="Accepted; CIFAR-10 lives in memory, celeba and imagenet64 are read "
+                        "from their caches only")
     # Parallelism
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--fsdp", action="store_true", default=False)

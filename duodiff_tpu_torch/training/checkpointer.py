@@ -6,15 +6,22 @@
 one dict of tensors and plain values, loadable with ``weights_only=True``:
 
 - ``step``;
-- ``model_state_dict``: the parameters under the reference's names, so the
-  sampling CLI's ``--checkpoint_path <dir>/checkpoint.pth`` loads it as is;
-- ``optimizer``: the AdamW count and moments; ``ema_state_dict`` when an
-  EMA is kept;
+- ``model_state_dict``: the parameters under the reference's names (for an
+  early-exit model the caller passes them through
+  ``utils/convert.py:early_exit_state_dict_to_reference``), so the sampling
+  CLIs' ``--checkpoint_path <dir>/checkpoint.pth`` loads it as is;
+- ``optimizer``: the AdamW count and moments, under the port's parameter
+  names; ``ema_state_dict``, named as ``model_state_dict``, when an EMA is
+  kept;
 - ``sampler_state``: the data sampler's permutation (as a tensor), index,
   epoch and seed.
 
 The file is written to a temporary name and renamed, so a reader sees a
-whole checkpoint or none.
+whole checkpoint or none. With ``async_save`` (``--async_checkpoint``) the
+tensors are copied to the host in :meth:`Checkpointer.save` and a background
+thread writes them, one save in flight: the next save, and
+:meth:`Checkpointer.wait_until_finished` and :meth:`Checkpointer.close`, wait
+for it. The files are those a synchronous save writes.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import re
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -56,18 +64,22 @@ class Checkpointer:
     """Manages ``<log_path>/<exp_name>/<save_name>{_last,_step-N}`` dirs."""
 
     def __init__(self, log_path, exp_name: str, save_name: Optional[str] = None,
-                 dataset: str = "", model: str = ""):
+                 dataset: str = "", model: str = "", async_save: bool = False):
         self.log_path = Path(log_path) / exp_name
         self.save_name = save_name or f"{dataset}_{model}"
         self.log_path.mkdir(parents=True, exist_ok=True)
+        self._writer = ThreadPoolExecutor(1, "checkpoint") if async_save else None
+        self._pending: Optional[Future] = None
 
     def save(self, *, step: int, model_state: dict, optimizer_state: Optional[dict] = None,
              ema_state: Optional[dict] = None, sampler_state: Optional[dict] = None,
              args: Optional[dict] = None, new_checkpoint: bool = False) -> Path:
+        """Write a checkpoint directory and return it; asynchronously, return
+        once the tensors are copied to the host (the files follow)."""
         suffix = f"step-{step}" if new_checkpoint else "last"
         path = self.log_path / f"{self.save_name}_{suffix}"
-        path.mkdir(parents=True, exist_ok=True)
-        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+        # a copy on the host, so the caller may go on changing its tensors
+        cpu = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
         state = {"step": int(step), "model_state_dict": cpu(model_state)}
         if optimizer_state is not None:
             # the moments (and an accumulation window's running mean) as CPU
@@ -78,13 +90,38 @@ class Checkpointer:
             state["ema_state_dict"] = cpu(ema_state)
         if sampler_state is not None:
             state["sampler_state"] = _sampler_to_torch(sampler_state)
+        args = None if args is None else _jsonable(args)
+        if self._writer is None:
+            self._write(path, state, args)
+        else:
+            self.wait_until_finished()
+            self._pending = self._writer.submit(self._write, path, state, args)
+        return path
+
+    @staticmethod
+    def _write(path: Path, state: dict, args: Optional[dict]) -> None:
+        path.mkdir(parents=True, exist_ok=True)
         tmp = path / f"{CHECKPOINT_FILE}.{os.getpid()}.tmp"
         torch.save(state, tmp)
         os.replace(tmp, path / CHECKPOINT_FILE)
         if args is not None:
             with open(path / "run_args.json", "w") as f:
-                json.dump(_jsonable(args), f, indent=2)
-        return path
+                json.dump(args, f, indent=2)
+
+    def wait_until_finished(self) -> None:
+        """Wait for the save in flight, if any; raise what it raised."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self) -> None:
+        """Wait for the save in flight and stop the writer thread. Idempotent."""
+        try:
+            self.wait_until_finished()
+        finally:
+            if self._writer is not None:
+                self._writer.shutdown(wait=True)
+                self._writer = None
 
     def tracked_checkpoints(self) -> list[Path]:
         """Archived step-N checkpoints sorted by step ascending."""

@@ -8,6 +8,12 @@ accumulation (``optax.MultiSteps``) and the skipping of non-finite updates
 (``optax.apply_if_finite``). Every update stays on the device: clipping
 scales by a device scalar and the finite check selects on a device flag, so
 a step never waits for the host.
+
+An optimizer over a subset of the model's parameters is the JAX package's
+``optax.multi_transform`` with ``set_to_zero`` on the rest (``--freeze_backbone``):
+clipping, AdamW, accumulation and the finite check see the subset's
+gradients only, the rest never move, and the logged ``grad_norm`` is still
+the norm of every gradient.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch
 from torch import nn
 
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
-from duodiff_tpu_torch.training.losses import uvit_loss
+from duodiff_tpu_torch.training.losses import deediff_loss, total_deediff_loss, uvit_loss
 from duodiff_tpu_torch.training.lr import cosine_schedule_with_warmup
 
 
@@ -225,8 +231,9 @@ def make_optimizer(params: dict, *, lr: float, weight_decay: float, beta1: float
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (whose parameters are the live params), its optimizer, and
-    the EMA shadow of the parameters (None when ``ema_decay`` is 0)."""
+    """The model (whose parameters are the live params), its optimizer (over
+    all of them, or over the trainable ones), and the EMA shadow of every
+    parameter (None when ``ema_decay`` is 0)."""
 
     model: nn.Module
     optimizer: AdamW
@@ -245,9 +252,10 @@ class TrainState:
         if self.ema is None:
             return
         d = self.ema_decay
-        shadow = [self.ema[n] for n in self.optimizer.names]
+        names, params = zip(*self.model.named_parameters())
+        shadow = [self.ema[n] for n in names]
         torch._foreach_mul_(shadow, d)
-        torch._foreach_add_(shadow, self.optimizer.params, alpha=1.0 - d)
+        torch._foreach_add_(shadow, list(params), alpha=1.0 - d)
 
 
 _LABEL_DROP_STREAM = 0x1ABE1  # the JAX package's fold_in constant for the drop draw
@@ -263,7 +271,8 @@ def step_generator(seed: int, step: int, device, stream: int = 0) -> torch.Gener
 
 
 def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrization: str,
-                    seed: int, has_labels: bool = False, teacher: Optional[nn.Module] = None,
+                    seed: int, model_kind: str = "uvit", use_unweighted_loss: bool = False,
+                    has_labels: bool = False, teacher: Optional[nn.Module] = None,
                     distill_alpha: float = 1.0, t_min: int = 0, label_dropout: float = 0.0,
                     null_label: Optional[int] = None):
     """Build ``train_step(state, batch, step) -> metrics``.
@@ -273,6 +282,13 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     model, takes the parametrization's loss, backpropagates and updates.
     ``batch`` holds "image" (B, H, W, C) float and "label" (B,) on the
     model's device.
+
+    ``model_kind="deediff_uvit"``: the model is an early-exit U-ViT returning
+    ``(backbone, u, g)``, the loss is DeeDiff's
+    (:func:`~duodiff_tpu_torch.training.losses.total_deediff_loss`, with the
+    unweighted term under ``use_unweighted_loss``), and the metrics are its
+    parts: ``train_loss``, ``regular_train_loss``, ``classifier_train_loss``,
+    ``weighted_train_loss``, ``unweighted_loss``. Such a model takes no teacher.
 
     Distillation: with a ``teacher`` (in eval mode, operands packed) the
     loss is ``alpha * MSE(student, teacher) + (1 - alpha) * task``, the
@@ -285,9 +301,13 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     (:func:`drop_mask`), so the timesteps and the noise are those of a
     ``label_dropout=0`` run to the bit. ``loss_fn(..., drop=mask)`` injects it.
     """
-    params = list(model.parameters())
+    names, params = map(list, zip(*model.named_parameters()))
     if label_dropout > 0.0 and (not has_labels or null_label is None):
         raise ValueError("label_dropout needs labels and a null_label")
+    if model_kind not in ("uvit", "deediff_uvit"):
+        raise ValueError(f"Unknown model kind {model_kind}")
+    if model_kind == "deediff_uvit" and teacher is not None:
+        raise ValueError("distillation targets a plain UViT student, not deediff_uvit")
 
     def draws(batch, step: int):
         clean = batch["image"]
@@ -312,6 +332,14 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
             labels = torch.where(drop, torch.full_like(labels, null_label), labels)
         noisy = schedule.add_noise(clean, timesteps, noise)
         t = timesteps.float()
+        if model_kind == "deediff_uvit":
+            backbone, u, g = model(noisy, t, labels)
+            parts = deediff_loss(backbone, u, g, parametrization=parametrization, noise=noise,
+                                 clean=clean)
+            loss = total_deediff_loss(parts, use_unweighted_loss)
+            return loss, {"train_loss": loss, "regular_train_loss": parts[0],
+                          "classifier_train_loss": parts[1], "weighted_train_loss": parts[2],
+                          "unweighted_loss": parts[3]}
         pred = model(noisy, t, labels)
         loss = uvit_loss(pred, parametrization=parametrization, noise=noise, clean=clean,
                          noisy=noisy, timesteps=timesteps, schedule=schedule)
@@ -335,18 +363,32 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         return metrics, grads
 
+    def update(state: TrainState, grads: list) -> torch.Tensor:
+        """One optimizer step on the gradients of every parameter (in
+        ``model.named_parameters()`` order), then the EMA; returns the global
+        norm of all of them. An optimizer over a subset gets the subset's."""
+        opt_names = state.optimizer.names
+        if opt_names == names:
+            g_norm = state.optimizer.step(grads)
+        else:
+            g_norm = tensor_norms(grads)[1]
+            by_name = dict(zip(names, grads))
+            state.optimizer.step([by_name[n] for n in opt_names])
+        state.update_ema()
+        return g_norm
+
     def train_step(state: TrainState, batch, step: int, timesteps=None, noise=None,
                    drop=None) -> dict:
         if timesteps is None:
             timesteps, noise = draws(batch, step)
             drop = drop_mask(batch, step)
         metrics, grads = backward(batch, timesteps, noise, drop)
-        metrics["grad_norm"] = state.optimizer.step(grads)
-        state.update_ema()
+        metrics["grad_norm"] = update(state, grads)
         return {k: v.detach() for k, v in metrics.items()}
 
     train_step.loss_fn = loss_fn
     train_step.backward = backward
+    train_step.update = update
     train_step.draws = draws
     train_step.drop_mask = drop_mask
     return train_step

@@ -1,17 +1,25 @@
 """Training orchestration on one device (counterpart of
 ``duodiff_tpu/training/trainer.py``).
 
-``Trainer(args).train()`` with ``main.py``'s flag surface: the model (the
-fused K1/K2 forward and K6/K7 backward kernels on CUDA by default, the
-plain PyTorch sublayers on the CPU, or the unfused block around the
-attention kernels K9/K10 with ``--attn_impl pallas``), an optional
-distillation teacher, the CIFAR-10 or cached ImageNet-64 loader,
-classifier-free-guidance label dropout, AdamW with clipping and the cosine-warmup schedule, an
-optional EMA, gradient accumulation (``--grad_accum``), skipping of
-non-finite updates (``--skip_nonfinite``), activation checkpointing
-(``--use_checkpoint``), checkpoints with exact resume, also in the middle of
-an accumulation window, and a SIGTERM checkpoint-and-exit. Flags whose machinery is not ported are refused
-(:func:`refuse_unported`).
+``Trainer(args).train()`` with ``main.py``'s flag surface: the model, a
+U-ViT or (``--model deediff_uvit``) the DeeDiff early-exit U-ViT (the fused
+K1/K2 forward and K6/K7 backward kernels on CUDA by default, the plain
+PyTorch sublayers on the CPU, or the unfused block around the attention
+kernels K9/K10 with ``--attn_impl pallas``), for the early-exit model a
+backbone loaded (``--load_backbone``) and frozen (``--freeze_backbone``),
+an optional distillation teacher, the CIFAR-10 or cached CelebA /
+ImageNet-64 loader, classifier-free-guidance label dropout, AdamW with
+clipping and the cosine-warmup schedule, an optional EMA, gradient
+accumulation (``--grad_accum``), skipping of non-finite updates
+(``--skip_nonfinite``), activation checkpointing (``--use_checkpoint``),
+sampling during training (``--log_every_n_steps``), the profiler
+(``--profile``), checkpoints with exact resume, also in the middle of an
+accumulation window, written in the background with
+``--async_checkpoint``, and a SIGTERM checkpoint-and-exit. The multi-GPU
+flags are refused (:func:`refuse_unported`).
+
+Deliberate difference: the in-training samples go to a PNG grid beside the
+metrics, not to TensorBoard.
 """
 
 from __future__ import annotations
@@ -21,25 +29,27 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from duodiff_tpu_torch.config import UViTConfig
 from duodiff_tpu_torch.data.datasets import get_dataloader
+from duodiff_tpu_torch.diffusion.sampling import ddpm_loop
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+from duodiff_tpu_torch.models.early_exit import EarlyExitUViT, init_early_exit_uvit
 from duodiff_tpu_torch.models.uvit import init_uvit
 from duodiff_tpu_torch.training.checkpointer import Checkpointer
 from duodiff_tpu_torch.training.train_state import TrainState, make_optimizer, make_train_step
-from duodiff_tpu_torch.utils.model_loading import load_model
+from duodiff_tpu_torch.utils.convert import (
+    early_exit_state_dict_from_reference,
+    early_exit_state_dict_to_reference,
+)
+from duodiff_tpu_torch.utils.image import make_grid, save_image
+from duodiff_tpu_torch.utils.model_loading import load_backbone, load_model
 from duodiff_tpu_torch.utils.train_utils import MetricsLogger
 
 # flag -> (is it set?, what it needs): refused until that machinery is ported
 _UNPORTED = {
-    "model": (lambda v: v != "uvit", "early-exit training (deediff_uvit; ROADMAP item 7)"),
-    "load_backbone": (bool, "early-exit backbone loading (ROADMAP item 7)"),
-    "freeze_backbone": (bool, "early-exit backbone freezing (ROADMAP item 7)"),
-    "log_every_n_steps": (lambda v: v is not None, "in-training sampling and image logging"),
-    "async_checkpoint": (bool, "asynchronous checkpoints"),
-    "profile": (bool, "the profiler hook"),
     "fsdp": (bool, "multi-GPU parameter sharding"),
     "model_parallel": (lambda v: (v or 1) > 1, "multi-GPU tensor parallelism"),
     "multihost": (bool, "multi-host training"),
@@ -52,6 +62,34 @@ def refuse_unported(args) -> None:
         value = getattr(args, flag, None)
         if value is not None and is_set(value):
             raise ValueError(f"--{flag} {value!r} needs {needs}, which is not ported yet")
+    model = getattr(args, "model", "uvit")
+    if model != "deediff_uvit":
+        for flag in ("load_backbone", "freeze_backbone"):
+            if getattr(args, flag, None):
+                raise ValueError(f"--{flag} applies to --model deediff_uvit only; with "
+                                 f"--model {model} it would do nothing")
+
+
+def sample_rows(model, schedule: NoiseSchedule, x, generator, y=None, noise_table=None):
+    """The in-training sampler: ancestral DDPM over every step, predicting
+    the noise, variance ``beta``, from ``x``. Returns ``(x_0, probe_rows,
+    stat_rows)``: per step the mean and std of the model's output (T, 2),
+    and for an early-exit model, which steps on its backbone, its probes'
+    outputs (T, depth, B), else None; rows in step order, T-1 first."""
+    early_exit = isinstance(model, EarlyExitUViT)
+
+    def stats(out):
+        out = out.float()
+        return torch.stack([out.mean(), out.std(unbiased=False)])
+
+    def aux(out):
+        if early_exit:
+            return out[0], (out[1], stats(out[0]))
+        return out, stats(out)
+
+    x, rows = ddpm_loop(model, schedule, "predict_noise", x, generator,
+                        range(schedule.steps - 1, -1, -1), y, "beta", noise_table, aux_fn=aux)
+    return (x, *rows) if early_exit else (x, None, rows)
 
 
 class Trainer:
@@ -83,8 +121,12 @@ class Trainer:
         if grad_accum > 1 and args.n_steps % grad_accum:
             raise ValueError(f"--n_steps {args.n_steps} must be a multiple of "
                              f"--grad_accum {grad_accum}")
+        trainable = dict(self.model.named_parameters())
+        if getattr(args, "freeze_backbone", False):
+            print("Freezing the backbone...")
+            trainable = {n: p for n, p in trainable.items() if not n.startswith("uvit.")}
         optimizer = make_optimizer(
-            dict(self.model.named_parameters()), lr=args.lr, weight_decay=args.weight_decay,
+            trainable, lr=args.lr, weight_decay=args.weight_decay,
             beta1=args.beta1, beta2=args.beta2, max_grad_norm=args.max_grad_norm,
             # schedule positions count optimizer updates, not data steps
             num_warmup_steps=args.num_warmup_steps,
@@ -94,7 +136,8 @@ class Trainer:
         self.state = TrainState.create(self.model, optimizer, ema_decay=args.ema_decay or 0.0)
         self.checkpointer = Checkpointer(args.log_path, args.exp_name,
                                          save_name=args.save_checkpoint_path,
-                                         dataset=args.dataset, model=args.model)
+                                         dataset=args.dataset, model=args.model,
+                                         async_save=bool(getattr(args, "async_checkpoint", False)))
         self.logger = MetricsLogger(self.log_path)
         self.logger.log_hparams(vars(args))
         self.start_step = 0
@@ -102,6 +145,8 @@ class Trainer:
         label_dropout = getattr(args, "label_dropout", 0.0) or 0.0
         self._train_step = make_train_step(
             self.model, self.schedule, parametrization=args.parametrization, seed=args.seed,
+            model_kind=args.model,
+            use_unweighted_loss=bool(getattr(args, "use_unweighted_loss", False)),
             has_labels=self.has_labels, teacher=self.teacher,
             distill_alpha=args.distill_alpha, t_min=args.distill_t_min or 0,
             label_dropout=label_dropout, null_label=self._null_label(label_dropout),
@@ -129,16 +174,25 @@ class Trainer:
         print(f"label_dropout={label_dropout}: using null label {num_classes - 1}")
         return num_classes - 1
 
+    @property
+    def early_exit(self) -> bool:
+        return self.args.model == "deediff_uvit"
+
     def _init_model(self):
-        print(f"Training on {self.device} (attn_impl={self.attn_impl}, "
+        args = self.args
+        print(f"Training {args.model} on {self.device} (attn_impl={self.attn_impl}, "
               f"dtype={self.compute_dtype})")
-        self.model = init_uvit(
-            self.model_config, device=self.device, dtype=self.compute_dtype,
-            generator=torch.Generator().manual_seed(self.args.seed),
+        init = init_early_exit_uvit if self.early_exit else init_uvit
+        self.model = init(
+            self.model_config, device="cpu", dtype=self.compute_dtype,
+            generator=torch.Generator().manual_seed(args.seed),
             attn_impl=self.attn_impl, gelu_approx=self.gelu_approx,
-            use_checkpoint=bool(getattr(self.args, "use_checkpoint", False)),
+            use_checkpoint=bool(getattr(args, "use_checkpoint", False)),
         )
-        self.model.train()
+        if getattr(args, "load_backbone", None):
+            print(f"Loading backbone from {args.load_backbone}")
+            load_backbone(args.load_backbone, self.model.uvit)
+        self.model.to(self.device).train()
 
     def _init_teacher(self):
         """Optional distillation teacher: a frozen model in eval mode, its
@@ -147,6 +201,8 @@ class Trainer:
         self.teacher = None
         if not args.distill_config:
             return
+        if self.early_exit:
+            raise ValueError("distillation targets a plain UViT student (--model uvit)")
         if not args.distill_from:
             print("WARNING: random-init teacher (--distill_from not given)")
         self.teacher, _ = load_model(
@@ -169,11 +225,13 @@ class Trainer:
             return
         print(f"Loading training state from {path}")
         restored = Checkpointer.restore(path)
-        self.model.load_state_dict(restored["model_state_dict"], strict=True)
+        self.model.load_state_dict(self._from_saved(restored["model_state_dict"]), strict=True)
         self.state.optimizer.load_state_dict(restored["optimizer"])
         if self.state.ema is not None:
             ema = restored.get("ema_state_dict")
-            if ema is None:
+            if ema is not None:
+                ema = self._from_saved(ema)
+            else:
                 print("Checkpoint has no EMA params; starting EMA from the restored params")
                 ema = dict(self.model.named_parameters())
             if set(ema) != set(self.state.ema):
@@ -209,9 +267,13 @@ class Trainer:
         self._preempted = True
 
     def close(self) -> None:
-        """Release the logger's file and the loader's threads. Idempotent."""
-        self.logger.close()
-        self.dataloader.close()
+        """Wait for a checkpoint in flight, then release the logger's file, the
+        checkpointer's and the loader's threads. Idempotent."""
+        try:
+            self.checkpointer.close()
+        finally:
+            self.logger.close()
+            self.dataloader.close()
 
     def _to_device(self, batch: dict) -> dict:
         return {"image": torch.from_numpy(batch["image"]).to(self.device),
@@ -219,36 +281,132 @@ class Trainer:
 
     def _run_steps(self, batches, logs: list) -> None:
         args = self.args
+        self._profiler = None
         t_last, last_logged = time.time(), self.start_step
-        for step in range(self.start_step + 1, args.n_steps + 1):
-            batch = self._to_device(next(batches))
-            metrics = self._train_step(self.state, batch, step)
-            if step % 50 == 0 or step == args.n_steps or step == self.start_step + 1:
-                metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
-                dt = time.time() - t_last
-                t_last = time.time()
-                # the steps since the previous log (the first log includes set-up)
-                metrics["steps_per_sec"] = (step - last_logged) / max(dt, 1e-9)
-                last_logged = step
-                self.logger.log_scalars(step, metrics)
-                logs.append({"step": step, **metrics})
-                print(f"step {step:>7} | {metrics}", flush=True)
-            if (args.save_every_n_steps and step % args.save_every_n_steps == 0
-                    or step == args.n_steps):
-                self._save(step, new_checkpoint=False)
-            if args.save_new_every_n_steps is not None and step % args.save_new_every_n_steps == 0:
-                self._save(step, new_checkpoint=True)
-            if self._preempted:
-                if step % (args.save_every_n_steps or step + 1) != 0 and step != args.n_steps:
+        try:
+            for step in range(self.start_step + 1, args.n_steps + 1):
+                if getattr(args, "profile", False):
+                    # the JAX trainer's window: steps start + 3 .. start + 8
+                    if step == self.start_step + 3:
+                        self._start_profile()
+                    elif step == self.start_step + 9:
+                        self._stop_profile()
+                batch = self._to_device(next(batches))
+                metrics = self._train_step(self.state, batch, step)
+                if step % 50 == 0 or step == args.n_steps or step == self.start_step + 1:
+                    metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                    dt = time.time() - t_last
+                    t_last = time.time()
+                    # the steps since the previous log (the first log includes set-up)
+                    metrics["steps_per_sec"] = (step - last_logged) / max(dt, 1e-9)
+                    last_logged = step
+                    self.logger.log_scalars(step, metrics)
+                    logs.append({"step": step, **metrics})
+                    print(f"step {step:>7} | {metrics}", flush=True)
+                if args.log_every_n_steps is not None and (
+                        step % args.log_every_n_steps == 0 or step == args.n_steps):
+                    self._log_samples(step)
+                if (args.save_every_n_steps and step % args.save_every_n_steps == 0
+                        or step == args.n_steps):
                     self._save(step, new_checkpoint=False)
-                print(f"preempted: saved checkpoint at step {step}, exiting cleanly "
-                      "(resume with --resume)")
-                break
+                if (args.save_new_every_n_steps is not None
+                        and step % args.save_new_every_n_steps == 0):
+                    self._save(step, new_checkpoint=True)
+                if self._preempted:
+                    if step % (args.save_every_n_steps or step + 1) != 0 and step != args.n_steps:
+                        self._save(step, new_checkpoint=False)
+                    print(f"preempted: saved checkpoint at step {step}, exiting cleanly "
+                          "(resume with --resume)")
+                    break
+        finally:
+            self._stop_profile()
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_profile(self) -> None:
+        """End the profile window, if one is open, and write its trace to
+        ``<log_path>/<exp_name>/profile/trace.json``."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        out = self.log_path / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace.json"))
+        print(f"profile trace written to {out}")
+
+    @torch.no_grad()
+    def _log_samples(self, step: int) -> None:
+        """Sample ``--n_samples`` images of ``--sample_height`` x
+        ``--sample_width`` from seed ``--sample_seed`` (:func:`sample_rows`),
+        with the EMA weights when an EMA is kept, and write
+        ``sample_stats_step{step}.npy`` (T, 2), for an early-exit model
+        ``sample_classifier_outputs_step{step}.npy`` (T, depth, n_samples),
+        their means as scalars, and ``samples_step{step}.png``, the grid."""
+        args, model = self.args, self.model
+        cfg = self.model_config
+        shape = (args.n_samples, args.sample_height, args.sample_width, cfg.in_chans)
+        cpu = torch.Generator().manual_seed(args.sample_seed)
+        y = None
+        if self.has_labels and cfg.num_classes > 0:
+            y = torch.randint(0, cfg.num_classes, (args.n_samples,), generator=cpu)
+            y = y.to(self.device)
+        generator = torch.Generator(device=self.device).manual_seed(args.sample_seed)
+        x = torch.randn(shape, generator=generator, device=self.device, dtype=torch.float32)
+        live = None
+        if self.state.ema is not None:  # sample from the EMA weights, then put the live ones back
+            live = {n: p.detach().clone() for n, p in model.named_parameters()}
+            for n, p in model.named_parameters():
+                p.copy_(self.state.ema[n])
+        model.eval()
+        try:
+            model.pack_for_kernels()
+            x, probe_rows, stat_rows = sample_rows(model, self.schedule, x, generator, y)
+        finally:
+            if live is not None:
+                for n, p in model.named_parameters():
+                    p.copy_(live[n])
+            model.train()
+        scalars = {}
+        if probe_rows is not None:
+            probe_rows = probe_rows.float().cpu().numpy()
+            np.save(self.log_path / f"sample_classifier_outputs_step{step}.npy", probe_rows)
+            scalars["sample_mean_probe_error"] = float(probe_rows.mean())
+        stat_rows = stat_rows.float().cpu().numpy()
+        np.save(self.log_path / f"sample_stats_step{step}.npy", stat_rows)
+        scalars["sample_model_output_mean"] = float(stat_rows[:, 0].mean())
+        scalars["sample_model_output_std"] = float(stat_rows[:, 1].mean())
+        self.logger.log_scalars(step, scalars)
+        save_image(make_grid((x.float().cpu().numpy() + 1.0) / 2.0),
+                   self.log_path / f"samples_step{step}.png")
+        print(f"step {step:>7} | samples: {scalars}", flush=True)
+
+    def _from_saved(self, state: dict) -> dict:
+        """A saved state dict (reference names) -> the model's names."""
+        if self.early_exit:
+            return early_exit_state_dict_from_reference(state, self.model_config)
+        return state
+
+    def _to_saved(self, state: dict) -> dict:
+        """The model's names -> the reference's, which the checkpoint holds."""
+        if self.early_exit:
+            return early_exit_state_dict_to_reference(state, self.model_config)
+        return state
 
     def _save(self, step: int, new_checkpoint: bool) -> Path:
+        ema = None if self.state.ema is None else self._to_saved(self.state.ema)
         return self.checkpointer.save(
-            step=step, model_state=self.model.state_dict(),
-            optimizer_state=self.state.optimizer.state_dict(), ema_state=self.state.ema,
+            step=step, model_state=self._to_saved(self.model.state_dict()),
+            optimizer_state=self.state.optimizer.state_dict(), ema_state=ema,
             sampler_state=self.dataloader.get_state(), args=vars(self.args),
             new_checkpoint=new_checkpoint,
         )

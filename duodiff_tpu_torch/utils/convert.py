@@ -256,6 +256,64 @@ def early_exit_state_dict_from_reference(state: Mapping, config) -> dict[str, to
     return out
 
 
+def early_exit_state_dict_to_reference(state: Mapping, config) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`early_exit_state_dict_from_reference`: the
+    port's EarlyExitUViT state dict (its stacks and tables) -> the
+    reference's names and shapes, those :func:`export_early_exit_uvit` emits
+    (``in_blocks_heads.{i}``, ``mid_block_head``, ``out_blocks_heads.{i}``
+    and ``matrix.{i}`` / ``matrix.{t}`` / ``matrix.{i}, {t}``), fp32 on the
+    CPU. The ``uvit.*`` keys pass as they are; any other key raises."""
+    from duodiff_tpu_torch.models.early_exit import PROBE_TIMESTEPS
+
+    sd = {k: v.detach().float().cpu() for k, v in state.items()}
+    out = {k: sd.pop(k) for k in [k for k in sd if k.startswith("uvit.")]}
+    depth, d = config.depth, config.embed_dim
+    heads = {key: sd.pop(f"heads.{key}") for key in
+             ("norm_weight", "norm_bias", "decoder_weight", "decoder_bias", "conv_weight",
+              "conv_bias")}
+    for i, name in enumerate(head_names(depth)):
+        out[f"{name}.norm.weight"] = heads["norm_weight"][i]
+        out[f"{name}.norm.bias"] = heads["norm_bias"][i]
+        out[f"{name}.decoder_pred.weight"] = heads["decoder_weight"][i]
+        out[f"{name}.decoder_pred.bias"] = heads["decoder_bias"][i]
+        out[f"{name}.final_layer.weight"] = heads["conv_weight"][i]
+        out[f"{name}.final_layer.bias"] = heads["conv_bias"][i]
+    kind = config.classifier_type
+
+    def probe(key):
+        return sd.pop(f"probes.{key}")
+
+    if kind == "mlp_probe_per_layer":
+        w, b = probe("weight"), probe("bias")
+        for i in range(depth):
+            out[f"matrix.{i}.classifier.0.weight"] = w[i].reshape(1, d)
+            out[f"matrix.{i}.classifier.0.bias"] = b[i].reshape(1)
+    elif kind == "attention_probe":
+        p = {key: probe(key) for key in ("q", "kv_weight", "kv_bias", "fc1_weight", "fc1_bias",
+                                         "fc2_weight", "fc2_bias")}
+        for i in range(depth):
+            out[f"matrix.{i}.q"] = p["q"][i].reshape(1, 1, 1, d)
+            out[f"matrix.{i}.weight_kv.weight"] = p["kv_weight"][i]
+            out[f"matrix.{i}.weight_kv.bias"] = p["kv_bias"][i]
+            out[f"matrix.{i}.classification.0.weight"] = p["fc1_weight"][i]
+            out[f"matrix.{i}.classification.0.bias"] = p["fc1_bias"][i]
+            out[f"matrix.{i}.classification.2.weight"] = p["fc2_weight"][i].reshape(1, d)
+            out[f"matrix.{i}.classification.2.bias"] = p["fc2_bias"][i].reshape(1)
+    elif kind in ("mlp_probe_per_timestep", "mlp_probe_per_layer_per_timestep"):
+        w, b = probe("weight"), probe("bias")
+        tables = ([(f"matrix.{i}, {{}}", w[i], b[i]) for i in range(depth)]
+                  if kind == "mlp_probe_per_layer_per_timestep" else [("matrix.{}", w, b)])
+        for fmt, wt, bt in tables:
+            for t in range(PROBE_TIMESTEPS):
+                out[f"{fmt.format(t)}.classifier.0.weight"] = wt[t].reshape(1, d)
+                out[f"{fmt.format(t)}.classifier.0.bias"] = bt[t].reshape(1)
+    else:
+        raise ValueError(f"Unknown classifier type: {kind}")
+    if sd:
+        raise KeyError(f"not an early-exit state dict of this config: {sorted(sd)}")
+    return out
+
+
 def early_exit_state_dict_from_jax(params: Mapping, config) -> dict[str, torch.Tensor]:
     """A JAX EarlyExitUViT tree -> the port's fp32 state dict."""
     sd = {name: torch.from_numpy(np.array(value, dtype=np.float32, order="C"))  # a copy

@@ -75,7 +75,8 @@ def calibrate_int8_stats(
     noise_table: Optional[torch.Tensor] = None,
 ):
     """One reverse DDPM trajectory, t = T-1 .. 0, through
-    ``model.forward_calib`` (an int8 UViT without static scales, packed).
+    ``model.forward_calib`` (an int8 UViT without static scales, packed, or
+    an EarlyExitUViT around one, which steps on its backbone).
     Returns ``(amax, quants)``:
 
         amax:   {block name: (2,) np.float32}, the largest amax of each site

@@ -5,19 +5,23 @@ Checkpoints are reference-format ``.pth`` files: a state dict, or
 ``{"model_state_dict": ...}`` as ``export_torch_checkpoint`` and the port's
 trainer write, the latter with an ``ema_state_dict`` beside it when it ran
 with ``--ema_decay``. Orbax checkpoint directories need JAX; convert them
-with the JAX package first.
+with the JAX package first. :func:`load_backbone` fills an early-exit
+model's backbone (``--load_backbone``).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional
 
 import torch
+from torch import nn
 
 from duodiff_tpu_torch.config import UViTConfig, load_model_config, refuse_latent_config
 from duodiff_tpu_torch.models.early_exit import EarlyExitUViT, init_early_exit_uvit
 from duodiff_tpu_torch.models.layers import INT8_IMPLS
 from duodiff_tpu_torch.models.uvit import UViT, init_uvit
+from duodiff_tpu_torch.training.checkpointer import CHECKPOINT_FILE
 from duodiff_tpu_torch.utils.convert import early_exit_state_dict_from_reference
 from duodiff_tpu_torch.utils.int8_scales import load_int8_scales, scales_dict_to_tuple
 
@@ -75,3 +79,37 @@ def load_model(
             state = early_exit_state_dict_from_reference(state, cfg)
         model.load_state_dict(state, strict=True)
     return model.to(device), cfg
+
+
+def load_backbone(path, backbone: nn.Module) -> None:
+    """Fill ``backbone`` (an early-exit model's ``uvit``) from a
+    reference-format ``.pth`` of a plain U-ViT (a state dict, or one under
+    ``model_state_dict``), or from a checkpoint directory of the port's
+    trainer, plain or early-exit (then its ``uvit.*`` keys). A missing,
+    unexpected or mis-shaped key raises, naming it. A directory without the
+    trainer's ``checkpoint.pth`` is taken for an Orbax checkpoint, which
+    needs JAX: it is refused."""
+    file = Path(path)
+    if file.is_dir():
+        if not (file / CHECKPOINT_FILE).exists():
+            raise ValueError(
+                f"--load_backbone {path}: a directory without {CHECKPOINT_FILE} is an Orbax "
+                "checkpoint, which needs JAX; convert it to a .pth with the JAX package's "
+                "duodiff_tpu.utils.torch_export.export_torch_checkpoint first")
+        file = file / CHECKPOINT_FILE
+    state = torch.load(file, map_location="cpu", weights_only=True)
+    state = state.get("model_state_dict", state)
+    if any(k.startswith("uvit.") for k in state):  # an early-exit checkpoint's backbone
+        state = {k[len("uvit."):]: v for k, v in state.items() if k.startswith("uvit.")}
+    want = backbone.state_dict()
+    for name, t in want.items():
+        if name not in state:
+            raise KeyError(f"--load_backbone {path}: no {name!r}")
+        if tuple(state[name].shape) != tuple(t.shape):
+            raise ValueError(f"--load_backbone {path}: {name!r} has shape "
+                             f"{tuple(state[name].shape)}, the model's is {tuple(t.shape)}")
+    unexpected = sorted(set(state) - set(want))
+    if unexpected:
+        raise KeyError(f"--load_backbone {path}: keys the backbone does not have: "
+                       f"{unexpected[:5]}")
+    backbone.load_state_dict(state, strict=True)

@@ -164,7 +164,7 @@ def test_tool_plain_mode_runs(configs, tmp_path):
 
 
 TOOL_REFUSALS = {
-    "static_schedule": (["--static_schedule", "999-0:3"], "ROADMAP item 7"),
+    "static_schedule": (["--static_schedule", "9-0:3"], "--static_schedule needs --config"),
     "t_switch_alone": (["--t_switch", "3"], "--t_switch and --shallow_config go together"),
     "shallow_alone": (["--shallow_config", "x.yaml"], "--t_switch and --shallow_config"),
     "full_seed_dense": (["--full_seed", "1"], "--full_seed is for"),

@@ -274,7 +274,7 @@ def test_tool_writes_scales_the_sampler_takes(config, tmp_path, mode):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--random_init", "--early_exit"], "ROADMAP item 7"),
+    (["--random_init", "--early_exit", "--mode", "search"], "--mode search supports backbone"),
     ([], "--checkpoint_path is required"),
 ], ids=["early_exit", "no_checkpoint"])
 def test_tool_refusals(config, tmp_path, extra, message):

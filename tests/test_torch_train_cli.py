@@ -184,12 +184,6 @@ def test_last_checkpoint_skips_corrupt_ones(tmp_path):
 
 
 REFUSED = {
-    "deediff": ["--model", "deediff_uvit"],
-    "load_backbone": ["--load_backbone", "x.pth"],
-    "freeze_backbone": ["--freeze_backbone"],
-    "log_every_n_steps": ["--log_every_n_steps", "5"],
-    "async_checkpoint": ["--async_checkpoint"],
-    "profile": ["--profile"],
     "fsdp": ["--fsdp"],
     "model_parallel": ["--model_parallel", "2"],
     "multihost": ["--multihost"],
@@ -202,13 +196,23 @@ PORTED = {
     "grad_accum": ["--grad_accum", "2"],
     "skip_nonfinite": ["--skip_nonfinite", "3"],
     "use_checkpoint": ["--use_checkpoint"],
+    "deediff": ["--model", "deediff_uvit"],
+    "load_backbone": ["--model", "deediff_uvit", "--load_backbone", "UVIT"],
+    "freeze_backbone": ["--model", "deediff_uvit", "--freeze_backbone"],
+    "log_every_n_steps": ["--log_every_n_steps", "5", "--n_samples", "2",
+                          "--num_timesteps", "10"],
+    "async_checkpoint": ["--async_checkpoint"],
+    "profile": ["--profile"],
 }
 
 
 @pytest.mark.parametrize("name", sorted({**REFUSED, **PORTED}))
-def test_unported_flags_are_refused(files, name):
+def test_unported_flags_are_refused(files, name, tmp_path):
     if name in PORTED:
-        trainer = train.main(_argv(files, f"ported_{name}", 2, *PORTED[name]))
+        uvit = tmp_path / "uvit.pth"
+        torch.save(load_model(files["config3"], device="cpu", seed=5)[0].state_dict(), uvit)
+        extra = [str(uvit) if a == "UVIT" else a for a in PORTED[name]]
+        trainer = train.main(_argv(files, f"ported_{name}", 2, *extra))
         assert trainer.logs[-1]["step"] == 2 and np.isfinite(trainer.logs[-1]["train_loss"])
         return
     flag = REFUSED[name][0]
