@@ -1,9 +1,11 @@
 """Model configuration (counterpart of ``duodiff_tpu/config.py``).
 
-The ``configs/*.yaml`` files keep their flat ``model_params:`` block of
-scalars. The machine that runs the port on the card has no PyYAML, so
-:func:`load_model_config` reads that block with a small reader of its own:
-``key: value`` lines, values typed as bool, int, float or a quoted string.
+The ``configs/*.yaml`` files keep a flat ``model_params:`` block and, for
+latent diffusion, a flat ``autoencoder:`` block. The machine that runs the
+port on the card has no PyYAML, so :func:`load_model_config` and
+:func:`load_autoencoder_config` read those blocks with a small reader of
+their own: ``key: value`` lines, values typed as bool, int, float, a quoted
+or plain string, or a flow list of those (``ch_mult: [1, 2]``).
 """
 
 from __future__ import annotations
@@ -52,6 +54,33 @@ class UViTConfig:
         return cls(**{k: v for k, v in d.items() if k in fields})
 
 
+@dataclasses.dataclass(frozen=True)
+class AutoencoderConfig:
+    """The frozen KL autoencoder's block; the same fields and defaults as
+    ``duodiff_tpu.config.AutoencoderConfig`` (the reference's
+    ``get_autoencoder``: ch 128, ch_mult (1, 2, 4, 4), 2 res blocks, 4 latent
+    channels, 256 x 256 images to 32 x 32 latents, scale 0.18215)."""
+
+    autoencoder_checkpoint_path: str = ""
+    ch: int = 128
+    ch_mult: tuple = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    z_channels: int = 4
+    embed_dim: int = 4
+    resolution: int = 256
+    in_channels: int = 3
+    out_ch: int = 3
+    scale_factor: float = 0.18215
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "AutoencoderConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        known = {k: v for k, v in d.items() if k in fields}
+        if "ch_mult" in known:
+            known["ch_mult"] = tuple(known["ch_mult"])
+        return cls(**known)
+
+
 def flagship_config() -> UViTConfig:
     """The CelebA-64 U-ViT (``configs/uvit_celeba.yaml``)."""
     return UViTConfig(
@@ -62,17 +91,28 @@ def flagship_config() -> UViTConfig:
 
 
 def _scalar(text: str):
-    """One YAML scalar as the config files write it."""
+    """One YAML scalar as the config files write it: bool, int, float, a
+    quoted string, or else the plain string (a path)."""
     if text in ("True", "true"):
         return True
     if text in ("False", "false"):
         return False
     if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
         return text[1:-1]
-    try:
-        return int(text)
-    except ValueError:
-        return float(text)
+    for kind in (int, float):
+        try:
+            return kind(text)
+        except ValueError:
+            pass
+    return text
+
+
+def _value(text: str):
+    """A scalar, or a flow list of scalars (``[1, 2, 4]``) as a list."""
+    if text.startswith("[") and text.endswith("]"):
+        inner = text[1:-1].strip()
+        return [_scalar(item.strip()) for item in inner.split(",")] if inner else []
+    return _scalar(text)
 
 
 def _config_lines(path) -> list[str]:
@@ -83,19 +123,26 @@ def _config_lines(path) -> list[str]:
     return [line for line in lines if line.strip()]
 
 
-def read_model_params(path) -> dict:
-    """The flat ``model_params:`` block of a config file, as a dict."""
-    params: dict = {}
-    in_block = False
+def read_block(path, name: str) -> Optional[dict]:
+    """The flat top-level block ``name:`` of a config file as a dict, or None
+    when the file has no such block."""
+    params, in_block, found = {}, False, False
     for line in _config_lines(path):
         if not line[0].isspace():  # a top-level key opens or closes a block
-            in_block = line == "model_params:"
+            in_block = line == f"{name}:"
+            found = found or in_block
             continue
         if in_block:
             key, sep, value = line.strip().partition(":")
             if not sep or not value.strip():
-                raise ValueError(f"{path}: not a 'key: scalar' line: {line!r}")
-            params[key.strip()] = _scalar(value.strip())
+                raise ValueError(f"{path}: not a 'key: value' line: {line!r}")
+            params[key.strip()] = _value(value.strip())
+    return params if found else None
+
+
+def read_model_params(path) -> dict:
+    """The flat ``model_params:`` block of a config file, as a dict."""
+    params = read_block(path, "model_params")
     if not params:
         raise ValueError(f"{path}: no model_params block")
     return params
@@ -106,23 +153,18 @@ def load_model_config(path) -> UViTConfig:
     return UViTConfig.from_dict(read_model_params(path))
 
 
-def refuse_latent_config(path) -> None:
-    """Raise for a config with an ``autoencoder`` block (latent diffusion):
-    its model works on autoencoder latents, and the autoencoder is not ported
-    yet, so training could not encode its images and sampling would write
-    undecoded latents as if they were images."""
-    top = {line.rstrip(":").strip() for line in _config_lines(path) if not line[0].isspace()}
-    if "autoencoder" in top:
-        raise NotImplementedError(
-            f"{path}: this is a latent-diffusion config, and its autoencoder (the encoder "
-            "that training needs and the decoder that turns sampled latents into images) is "
-            "not ported yet (ROADMAP item 8)")
+def load_autoencoder_config(path) -> Optional[AutoencoderConfig]:
+    """Config file -> its :class:`AutoencoderConfig` (the ``autoencoder``
+    block, which marks a latent-diffusion model), or None without one."""
+    block = read_block(path, "autoencoder")
+    return None if block is None else AutoencoderConfig.from_dict(block)
 
 
 def merge_args_with_config(args, path):
-    """Overlay a config file's ``model_params`` onto an argparse namespace,
-    the file winning (the JAX package's merge). A latent-diffusion config is
-    refused (:func:`refuse_latent_config`)."""
-    refuse_latent_config(path)
+    """Overlay a config file's ``model_params`` and ``autoencoder`` block onto
+    an argparse namespace, the file winning (the JAX package's merge). Where
+    both blocks name a key (``embed_dim``), the model's value wins: the JAX
+    merge lets the autoencoder's overwrite the model's width."""
+    args.__dict__.update(read_block(path, "autoencoder") or {})
     args.__dict__.update(read_model_params(path))
     return args

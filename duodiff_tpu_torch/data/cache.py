@@ -5,10 +5,10 @@ The JAX package caches a dataset's decoded and resized images once as
 ``<data_dir>/_duodiff_cache/<key>/``: ``images.npy`` (N, H, W, 3), read as a
 memmap, ``labels.npy`` (N,) int32 and ``meta.json`` with the images' shape.
 The port cannot decode images, so a cache is its only CelebA and ImageNet
-source: one the JAX package built with ``--cache_data``, or a synthetic one
-(``data/synthetic.py``). The cache does not record the float transform; the
-key's ``norm1`` names it, and the caller passes the matching ``scale`` and
-``offset``.
+(64 and 256) source: one the JAX package built with ``--cache_data``, or a
+synthetic one (``data/synthetic.py``). The cache does not record the float
+transform; the key's ``norm1`` names it, and the caller passes the matching
+``scale`` and ``offset``.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 CACHE_DIR = "_duodiff_cache"
 IMAGENET64_KEY = "imagenet64aa_norm1"  # antialiased 64x64 resize, Normalize(0.5, 0.5)
 CELEBA_KEY = "celeba64aa_norm1"        # crop 178, antialiased 64x64 resize, Normalize(0.5, 0.5)
+IMAGENET256_KEY = "imagenet256_norm1"  # the 256x256 images as decoded (uint8), Normalize(0.5, 0.5)
 
 
 class MemmapCachedDataset:

@@ -3,9 +3,9 @@
 CIFAR-10 reads the train split's python pickle batches with numpy alone:
 items are NHWC uint8, and the loader's fused scale and offset give
 x / 255 followed by Normalize(0.5, 0.5), i.e. values in [-1, 1]. CelebA
-and ImageNet need image decoding, which the port does not have; CelebA-64
-and ImageNet-64 are read from their decoded-image caches (``data/cache.py``)
-when one is there, ImageNet-256 not at all.
+and ImageNet need image decoding, which the port does not have; CelebA-64,
+ImageNet-64 and ImageNet-256 are read from their decoded-image caches
+(``data/cache.py``) when one is there.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from duodiff_tpu_torch.data.cache import (
     CACHE_DIR,
     CELEBA_KEY,
     IMAGENET64_KEY,
+    IMAGENET256_KEY,
     MemmapCachedDataset,
 )
 from duodiff_tpu_torch.data.loader import DataLoader
@@ -63,7 +64,7 @@ def get_dataloader(dataset: str, batch_size: int, seed: int, data_dir) -> DataLo
     if dataset == "cifar10":
         ds = Cifar10Dataset(data_dir)
         return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed))
-    caches = {"celeba": CELEBA_KEY, "imagenet64": IMAGENET64_KEY}
+    caches = {"celeba": CELEBA_KEY, "imagenet64": IMAGENET64_KEY, "imagenet256": IMAGENET256_KEY}
     if dataset in caches:
         cache = Path(data_dir) / CACHE_DIR / caches[dataset]
         if not (cache / "meta.json").exists():
@@ -73,6 +74,4 @@ def get_dataloader(dataset: str, batch_size: int, seed: int, data_dir) -> DataLo
                 "--cache_data; duodiff_tpu_torch.data.synthetic writes a synthetic one)")
         ds = MemmapCachedDataset(cache, scale=NORMALIZE_SCALE, offset=NORMALIZE_OFFSET)
         return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed))
-    if dataset == "imagenet256":
-        raise NotImplementedError(f"dataset {dataset!r} needs image decoding, not ported yet")
     raise ValueError(f"Dataset {dataset} not implemented.")

@@ -5,9 +5,10 @@ samples solid colors near the palette modes.
 :func:`write_palette_cifar` writes it in the CIFAR-10 file layout, the
 distribution of ``tools/convergence_probe.py``'s ``write_palette_cifar``
 (the same files, byte for byte, from the same seed);
-:func:`write_palette_imagenet64_cache` and :func:`write_palette_celeba_cache`
-as the decoded-image caches that ``--dataset imagenet64`` and ``--dataset
-celeba`` read (``data/cache.py``).
+:func:`write_palette_imagenet64_cache`, :func:`write_palette_celeba_cache`
+and :func:`write_palette_imagenet256_cache` as the decoded-image caches that
+``--dataset imagenet64``, ``celeba`` and ``imagenet256`` read
+(``data/cache.py``).
 """
 
 from __future__ import annotations
@@ -47,12 +48,12 @@ def _write_cache(final: Path, images: np.ndarray, labels: np.ndarray) -> Path:
     return final
 
 
-def _palette_images(rng, colors: np.ndarray, palette: np.ndarray) -> np.ndarray:
+def _palette_images(rng, colors: np.ndarray, palette: np.ndarray, size: int = 64) -> np.ndarray:
     """Each image its palette color (index modulo the palette) plus noise,
-    float32 64x64x3 in 0..255."""
+    float32 size x size x 3 in 0..255."""
     n = len(colors)
     images = palette[colors % len(palette)][:, None, None, :] + (
-        rng.randn(n, 64, 64, 3).astype(np.float32) * 6.0)
+        rng.randn(n, size, size, 3).astype(np.float32) * 6.0)
     return np.clip(images, 0, 255).astype(np.float32)
 
 
@@ -83,3 +84,24 @@ def write_palette_celeba_cache(data_dir, n: int = 1024, palette: np.ndarray = PA
     images = _palette_images(rng, rng.randint(0, len(palette), n), palette)
     return _write_cache(Path(data_dir) / CACHE_DIR / CELEBA_KEY, images,
                         np.zeros(n, np.int32))
+
+
+def write_palette_imagenet256_cache(data_dir, n: int = 256, palette: np.ndarray = PALETTE4,
+                                    seed: int = 0, num_classes: int = 1000,
+                                    size: int = 256) -> Path:
+    """``data_dir/_duodiff_cache/imagenet256_norm1/``: ``n`` uint8 size x size
+    x 3 images, as the JAX package caches ImageNet-256 (unresized images are
+    kept as decoded, uint8: 196,608 bytes an image at 256), labels uniform in
+    [0, num_classes) (1000: ``uvit_imagenet256.yaml``'s slot 1000 stays free
+    for the null label), each image its label's palette color plus noise,
+    rounded. ``size`` is 256 for the configs; smaller sizes suit tiny
+    autoencoders. Returns the cache directory."""
+    from duodiff_tpu_torch.data.cache import CACHE_DIR, IMAGENET256_KEY
+
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, num_classes, n).astype(np.int32)
+    images = np.empty((n, size, size, 3), np.uint8)
+    for lo in range(0, n, 64):  # in chunks: the float32 noise of 256 images is 200 MB
+        hi = min(n, lo + 64)
+        images[lo:hi] = np.rint(_palette_images(rng, labels[lo:hi], palette, size))
+    return _write_cache(Path(data_dir) / CACHE_DIR / IMAGENET256_KEY, images, labels)

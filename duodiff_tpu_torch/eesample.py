@@ -25,10 +25,12 @@ Every route writes ``{i}.png``, ``statistics.txt``,
 ``error_prediction_by_timestep.{npy,pt}`` (T x depth, NaN where a probe was
 not read) and ``indices_by_timestep.{npy,pt}`` (T x B). The CLI refuses what
 ``eesampler.py`` refuses, and also: ``--model_parallel`` above 1
-(multi-GPU is not ported, ROADMAP item 11), a latent-diffusion config
-(ROADMAP item 8), and ``--int8_scales`` with the static or adaptive route,
-which the JAX CLI silently drops there (its truncated backbones are built
-without the scales). Unguided class labels follow ``sample.py``'s rule.
+(multi-GPU is not ported, ROADMAP item 11) and ``--int8_scales`` with the
+static or adaptive route, which the JAX CLI silently drops there (its
+truncated backbones are built without the scales). Unguided class labels
+follow ``sample.py``'s rule. A latent-diffusion config
+(``configs/deediff_imagenet256.yaml``) samples latents and decodes them with
+its frozen KL autoencoder before writing, as ``sample.py`` does.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from duodiff_tpu_torch.diffusion.static_exit import (
     parse_exit_schedule,
     static_exit_sample,
 )
-from duodiff_tpu_torch.sample import class_labels
+from duodiff_tpu_torch.sample import class_labels, decode_all, latent_decoder
 from duodiff_tpu_torch.utils.image import save_samples
 from duodiff_tpu_torch.utils.model_loading import load_model
 
@@ -187,9 +189,10 @@ def check_flags(args) -> None:
 
 
 def main(argv=None) -> dict:
-    """Run the CLI; returns {"samples": float (B, H, W, C) in about [0, 1],
-    "err_by_t" (T, depth), "idx_by_t" (T, B), "log" (the adaptive route's
-    rows, else None), "seconds": sampling wall time}."""
+    """Run the CLI; returns {"samples": float (B, H, W, C) in about [0, 1]
+    (decoded images for a latent config), "err_by_t" (T, depth), "idx_by_t"
+    (T, B), "log" (the adaptive route's rows, else None), "seconds":
+    sampling wall time, "decode_seconds": the decode's (0 without one)}."""
     args = get_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -205,6 +208,7 @@ def main(argv=None) -> dict:
         int8_scales=args.int8_scales, use_ema=args.use_ema, early_exit=True,
     )
     model.eval().pack_for_kernels()
+    decode = latent_decoder(args.config_path, device)
     schedule = NoiseSchedule.create(steps=args.num_timesteps, device=device)
     steps = schedule.steps
     shape = (args.batch_size, cfg.img_size, cfg.img_size, cfg.in_chans)
@@ -260,8 +264,11 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
         tic = time.perf_counter()
         x, tables, ranges = run()
-        samples = ((x + 1.0) / 2.0).cpu().numpy()  # waits for the device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - tic
+        x, _, decode_seconds = decode_all(decode, x, {}, device)
+        samples = ((x + 1.0) / 2.0).cpu().numpy()
 
     if tables is not None:
         err_by_t, idx_by_t = (v.cpu().numpy() for v in tables)
@@ -288,10 +295,12 @@ def main(argv=None) -> dict:
     torch.save(torch.from_numpy(np.asarray(idx_by_t, dtype=np.float32)),
                output_folder / "indices_by_timestep.pt")
     save_samples(samples, output_folder, with_grid=False)
+    if decode is not None:
+        print(f"Decode time: {decode_seconds:.2f} s")
     print(f"Elapsed time: {elapsed:.2f} s -> {output_folder}")
     print(f"mean exit index: {np.asarray(idx_by_t).mean():.2f} (depth={cfg.depth})")
     return {"samples": samples, "err_by_t": err_by_t, "idx_by_t": idx_by_t, "log": log,
-            "seconds": elapsed}
+            "seconds": elapsed, "decode_seconds": decode_seconds}
 
 
 if __name__ == "__main__":

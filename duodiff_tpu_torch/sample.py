@@ -52,6 +52,14 @@ combinations whose output the JAX CLI gets wrong: with DDIM a
 step t (the JAX CLI shifts every later label), and with DPM-Solver a late
 model (the JAX CLI samples the first model alone) or ``--timesteps_save``
 (the JAX CLI writes no intermediate).
+
+A latent-diffusion config (one with an ``autoencoder:`` block, such as
+``configs/uvit_imagenet256.yaml``) samples latents, which the frozen KL
+autoencoder of that block (``autoencoder_checkpoint_path``, loaded in bf16)
+decodes to images before they are written, the ``--timesteps_save`` states
+too; the printed sampling time leaves the decode out, and the decode time
+is printed apart. A DuoDiff pair decodes with the first config's block; a
+pair of which only one config is latent is refused.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from duodiff_tpu_torch.config import load_autoencoder_config
 from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
 from duodiff_tpu_torch.diffusion.sampling import (
     DDPMSampler,
@@ -76,7 +85,7 @@ from duodiff_tpu_torch.diffusion.sampling import (
 )
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.utils.image import save_samples, to_uint8
-from duodiff_tpu_torch.utils.model_loading import load_model
+from duodiff_tpu_torch.utils.model_loading import load_autoencoder, load_model
 
 
 def get_args(argv=None):
@@ -273,10 +282,42 @@ def check_flags(args, has_late: bool, cache_on: bool, steps: int) -> None:
                              f"{sorted(reachable)})")
 
 
+def latent_decoder(config_path, device, late_config_path=None):
+    """The decode of a latent-diffusion config's frozen autoencoder (bf16),
+    or None for a config without an ``autoencoder`` block. With a late
+    config (a DuoDiff pair) the first config's block decodes, and a pair of
+    which only one config is latent is refused."""
+    ae_cfg = load_autoencoder_config(config_path)
+    if late_config_path is not None and (
+            (load_autoencoder_config(late_config_path) is None) != (ae_cfg is None)):
+        raise SystemExit(f"one of {config_path} and {late_config_path} samples latents and "
+                         "the other images: a DuoDiff pair must share its sample space")
+    if ae_cfg is None:
+        return None
+    autoencoder = load_autoencoder(ae_cfg.autoencoder_checkpoint_path, ae_cfg,
+                                   dtype=torch.bfloat16, device=device)
+    return autoencoder.decode
+
+
+def decode_all(decode, x, kept: dict, device) -> tuple:
+    """``decode`` (or nothing, when None) applied to the samples and each
+    kept state; returns (samples, kept, seconds the decode took)."""
+    if decode is None:
+        return x, kept, 0.0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    tic = time.perf_counter()
+    x, kept = decode(x), {s: decode(v) for s, v in kept.items()}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return x, kept, time.perf_counter() - tic
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"samples": float (B, H, W, C) in about [0, 1],
-    "intermediates": {s: the same after s reverse steps, for --timesteps_save},
-    "seconds": sampling wall time}."""
+    decoded images for a latent config, "intermediates": {s: the same after
+    s reverse steps, for --timesteps_save}, "seconds": sampling wall time,
+    "decode_seconds": the decode's (0 without an autoencoder)}."""
     args = get_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -307,6 +348,8 @@ def main(argv=None) -> dict:
         model.pack_for_kernels()
         return model.eval(), cfg
 
+    decode = latent_decoder(args.config_path, device,
+                            args.config_path_late if has_late else None)
     schedule = NoiseSchedule.create(steps=steps, device=device)
 
     def guided(model):
@@ -425,8 +468,11 @@ def main(argv=None) -> dict:
         tic = time.perf_counter()
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         x, kept = run(x)
-        samples = ((x + 1.0) / 2.0).cpu().numpy()  # waits for the device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - tic
+        x, kept, decode_seconds = decode_all(decode, x, kept, device)
+        samples = ((x + 1.0) / 2.0).cpu().numpy()
         intermediates = {s: ((v + 1.0) / 2.0).cpu().numpy() for s, v in kept.items()}
 
     np.save(output_folder / "samples.npy", to_uint8(samples))
@@ -435,8 +481,11 @@ def main(argv=None) -> dict:
     save_samples(samples, output_folder)
     for s, inter in intermediates.items():
         save_samples(inter, output_folder, timestep=s)
+    if decode is not None:
+        print(f"Decode time: {decode_seconds:.2f} s")
     print(f"Elapsed time: {elapsed:.2f} s -> {output_folder}")
-    return {"samples": samples, "intermediates": intermediates, "seconds": elapsed}
+    return {"samples": samples, "intermediates": intermediates, "seconds": elapsed,
+            "decode_seconds": decode_seconds}
 
 
 if __name__ == "__main__":

@@ -12,9 +12,12 @@ backward kernels, bf16 under ``--use_amp``; default on CUDA), ``plain``
 (autograd through the plain PyTorch sublayers; default on the CPU),
 ``pallas`` (the unfused block around the attention kernels K9 forward and
 K10 backward, bf16 on CUDA) or ``xla`` (the unfused block around plain
-attention). ``--dataset imagenet64`` reads the decoded-image cache under
-``<data_path>/_duodiff_cache`` (``data/synthetic.py`` writes a synthetic
-one); ``--label_dropout P`` trains for classifier-free guidance.
+attention). ``--dataset imagenet64`` (and ``celeba``, ``imagenet256``) reads
+the decoded-image cache under ``<data_path>/_duodiff_cache``
+(``data/synthetic.py`` writes a synthetic one); a config with an
+``autoencoder`` block (latent ImageNet-256) encodes every batch with that
+frozen autoencoder before the step. ``--label_dropout P`` trains for
+classifier-free guidance.
 ``--grad_accum K`` averages the gradients of K data steps into one optimizer
 update (``--n_steps`` must be a multiple of K; warm-up and the schedule count
 updates), ``--skip_nonfinite N`` drops an update whose gradients are not
@@ -128,8 +131,8 @@ def get_args(argv=None):
                    choices=["cifar10", "celeba", "imagenet64", "imagenet256"])
     p.add_argument("--data_path", type=str, default="data")
     p.add_argument("--cache_data", action="store_true", default=False,
-                   help="Accepted; CIFAR-10 lives in memory, celeba and imagenet64 are read "
-                        "from their caches only")
+                   help="Accepted; CIFAR-10 lives in memory, celeba, imagenet64 and "
+                        "imagenet256 are read from their caches only")
     # Parallelism
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--fsdp", action="store_true", default=False)

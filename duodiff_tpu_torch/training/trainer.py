@@ -8,8 +8,10 @@ PyTorch sublayers on the CPU, or the unfused block around the attention
 kernels K9/K10 with ``--attn_impl pallas``), for the early-exit model a
 backbone loaded (``--load_backbone``) and frozen (``--freeze_backbone``),
 an optional distillation teacher, the CIFAR-10 or cached CelebA /
-ImageNet-64 loader, classifier-free-guidance label dropout, AdamW with
-clipping and the cosine-warmup schedule, an optional EMA, gradient
+ImageNet-64 / ImageNet-256 loader, for a latent-diffusion config the frozen
+KL autoencoder that encodes every batch before its step,
+classifier-free-guidance label dropout, AdamW with clipping and the
+cosine-warmup schedule, an optional EMA, gradient
 accumulation (``--grad_accum``), skipping of non-finite updates
 (``--skip_nonfinite``), activation checkpointing (``--use_checkpoint``),
 sampling during training (``--log_every_n_steps``), the profiler
@@ -19,7 +21,8 @@ accumulation window, written in the background with
 flags are refused (:func:`refuse_unported`).
 
 Deliberate difference: the in-training samples go to a PNG grid beside the
-metrics, not to TensorBoard.
+metrics, not to TensorBoard (an RGBA grid of the undecoded latents for a
+latent model, as JAX logs them).
 """
 
 from __future__ import annotations
@@ -32,21 +35,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from duodiff_tpu_torch.config import UViTConfig
+from duodiff_tpu_torch.config import UViTConfig, load_autoencoder_config
 from duodiff_tpu_torch.data.datasets import get_dataloader
 from duodiff_tpu_torch.diffusion.sampling import ddpm_loop
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.models.early_exit import EarlyExitUViT, init_early_exit_uvit
 from duodiff_tpu_torch.models.uvit import init_uvit
 from duodiff_tpu_torch.training.checkpointer import Checkpointer
-from duodiff_tpu_torch.training.train_state import TrainState, make_optimizer, make_train_step
+from duodiff_tpu_torch.training.train_state import (
+    TrainState,
+    make_optimizer,
+    make_train_step,
+    step_generator,
+)
 from duodiff_tpu_torch.utils.convert import (
     early_exit_state_dict_from_reference,
     early_exit_state_dict_to_reference,
 )
 from duodiff_tpu_torch.utils.image import make_grid, save_image
-from duodiff_tpu_torch.utils.model_loading import load_backbone, load_model
+from duodiff_tpu_torch.utils.model_loading import load_autoencoder, load_backbone, load_model
 from duodiff_tpu_torch.utils.train_utils import MetricsLogger
+
+ENCODE_STREAM = 7  # the JAX trainer's fold_in constant for the encode's draw
 
 # flag -> (is it set?, what it needs): refused until that machinery is ported
 _UNPORTED = {
@@ -113,6 +123,7 @@ class Trainer:
 
         self._init_model()
         self._init_teacher()
+        self._init_autoencoder()
         self.dataloader = get_dataloader(args.dataset, args.batch_size, args.seed,
                                          args.data_path)
         # labels feed the model for ImageNet and for any class-conditional model
@@ -216,6 +227,28 @@ class Trainer:
         print(f"Distilling from {args.distill_config} "
               f"(alpha={args.distill_alpha}, t_min={args.distill_t_min})")
 
+    def _init_autoencoder(self):
+        """The frozen KL autoencoder of a latent-diffusion config (its
+        ``autoencoder`` block) in the compute dtype, or None. It is in no
+        optimizer, no EMA and no checkpoint."""
+        config_path = getattr(self.args, "config_path", None)
+        ae_cfg = load_autoencoder_config(config_path) if config_path else None
+        self.autoencoder = None
+        if ae_cfg is not None:
+            print(f"Encoding with the autoencoder {ae_cfg.autoencoder_checkpoint_path}")
+            self.autoencoder = load_autoencoder(ae_cfg.autoencoder_checkpoint_path, ae_cfg,
+                                                dtype=self.compute_dtype, device=self.device)
+
+    def _encode(self, batch: dict, step: int) -> dict:
+        """The batch with its images encoded to latents (a latent config), the
+        draw from the step's own generator, stream 7, so a resumed run
+        encodes what an unbroken one would; else the batch as it is."""
+        if self.autoencoder is None:
+            return batch
+        g = step_generator(self.args.seed, step, self.device, ENCODE_STREAM)
+        with torch.no_grad():
+            return {**batch, "image": self.autoencoder.encode(batch["image"], g)}
+
     def _maybe_resume(self):
         args = self.args
         path = args.load_checkpoint_path
@@ -291,7 +324,7 @@ class Trainer:
                         self._start_profile()
                     elif step == self.start_step + 9:
                         self._stop_profile()
-                batch = self._to_device(next(batches))
+                batch = self._encode(self._to_device(next(batches)), step)
                 metrics = self._train_step(self.state, batch, step)
                 if step % 50 == 0 or step == args.n_steps or step == self.start_step + 1:
                     metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device

@@ -319,3 +319,52 @@ def early_exit_state_dict_from_jax(params: Mapping, config) -> dict[str, torch.T
     sd = {name: torch.from_numpy(np.array(value, dtype=np.float32, order="C"))  # a copy
           for name, value in export_early_exit_uvit(params).items()}
     return early_exit_state_dict_from_reference(sd, config)
+
+
+# --- the frozen KL autoencoder -------------------------------------------------
+
+
+def _ae_resnet_block(out: dict, node: Mapping, prefix: str) -> None:
+    for name in ("norm1", "norm2"):
+        _norm(out, node[name], f"{prefix}.{name}")
+    for name in ("conv1", "conv2", "nin_shortcut"):
+        if name in node:
+            _conv(out, node[name], f"{prefix}.{name}")
+
+
+def _ae_coder(out: dict, node: Mapping, side: str) -> None:
+    """A JAX encoder or decoder tree, flat names (``down_{i}_block_{j}``,
+    ``up_{i}_upsample``) -> ``{side}.down.{i}.block.{j}`` and so on."""
+    group = "down" if side == "encoder" else "up"
+    for name, child in node.items():
+        if name in ("conv_in", "conv_out"):
+            _conv(out, child, f"{side}.{name}")
+        elif name == "norm_out":
+            _norm(out, child, f"{side}.norm_out")
+        elif name in ("mid_block_1", "mid_block_2"):
+            _ae_resnet_block(out, child, f"{side}.mid.{name[4:]}")
+        elif name == "mid_attn_1":
+            _norm(out, child["norm"], f"{side}.mid.attn_1.norm")
+            for conv in ("q", "k", "v", "proj_out"):
+                _conv(out, child[conv], f"{side}.mid.attn_1.{conv}")
+        else:  # {group}_{i}_block_{j} / {group}_{i}_{down,up}sample
+            parts = name.split("_")
+            if parts[0] != group:
+                raise KeyError(f"unexpected autoencoder parameter {side}/{name}")
+            if parts[2] == "block":
+                _ae_resnet_block(out, child, f"{side}.{group}.{parts[1]}.block.{parts[3]}")
+            else:
+                _conv(out, child["conv"], f"{side}.{group}.{parts[1]}.{parts[2]}.conv")
+
+
+def export_autoencoder(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``FrozenAutoencoderKL`` parameter tree -> the reference's
+    state-dict names, fp32 numpy: conv kernels HWIO -> OIHW, GroupNorm
+    ``scale`` -> ``weight``. The inverse of the JAX package's
+    ``convert_autoencoder_checkpoint``."""
+    sd: dict[str, np.ndarray] = {}
+    _ae_coder(sd, params["encoder"], "encoder")
+    _ae_coder(sd, params["decoder"], "decoder")
+    _conv(sd, params["quant_conv"], "quant_conv")
+    _conv(sd, params["post_quant_conv"], "post_quant_conv")
+    return sd

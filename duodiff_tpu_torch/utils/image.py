@@ -1,6 +1,7 @@
 """Image saving (counterpart of ``duodiff_tpu/utils/image.py``) with a PNG
 writer of its own on the standard library's ``zlib`` and ``struct``: 8-bit
-RGB or greyscale, no interlace, every scanline with filter type 0, one IDAT
+RGB, RGBA (a latent model's 4 channels, as TensorBoard shows them) or
+greyscale, no interlace, every scanline with filter type 0, one IDAT
 chunk. It writes the pixels Pillow writes for the same array; the bytes of
 the file may differ (Pillow picks filters and a compression level).
 """
@@ -15,7 +16,8 @@ from pathlib import Path
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_TYPES = {1: 0, 3: 2}  # channels -> PNG colour type (greyscale, truecolour)
+# channels -> PNG colour type (greyscale, truecolour, truecolour with alpha)
+_COLOR_TYPES = {1: 0, 3: 2, 4: 6}
 
 
 def to_uint8(img01: np.ndarray) -> np.ndarray:
@@ -29,13 +31,14 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(arr: np.ndarray) -> bytes:
-    """A uint8 (H, W), (H, W, 1) or (H, W, 3) array as the bytes of a PNG file."""
+    """A uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) array as the bytes of
+    a PNG file."""
     arr = np.asarray(arr)
     if arr.ndim == 2:
         arr = arr[..., None]
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[-1] not in _COLOR_TYPES:
-        raise ValueError(f"a PNG takes uint8 (H, W), (H, W, 1) or (H, W, 3), got {arr.dtype} "
-                         f"{arr.shape}")
+        raise ValueError(f"a PNG takes uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4), got "
+                         f"{arr.dtype} {arr.shape}")
     h, w, c = arr.shape
     rows = np.zeros((h, 1 + w * c), dtype=np.uint8)  # a filter-type byte (0) before each row
     rows[:, 1:] = arr.reshape(h, w * c)
@@ -45,7 +48,7 @@ def encode_png(arr: np.ndarray) -> bytes:
 
 
 def save_image(img01: np.ndarray, path) -> None:
-    """img01: (H, W, C) float in [0, 1], C = 1 or 3."""
+    """img01: (H, W, C) float in [0, 1], C = 1, 3 or 4."""
     Path(path).write_bytes(encode_png(to_uint8(np.asarray(img01))))
 
 

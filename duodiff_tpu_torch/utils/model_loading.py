@@ -6,7 +6,9 @@ Checkpoints are reference-format ``.pth`` files: a state dict, or
 trainer write, the latter with an ``ema_state_dict`` beside it when it ran
 with ``--ema_decay``. Orbax checkpoint directories need JAX; convert them
 with the JAX package first. :func:`load_backbone` fills an early-exit
-model's backbone (``--load_backbone``).
+model's backbone (``--load_backbone``); :func:`load_autoencoder` builds the
+frozen KL autoencoder of a latent-diffusion config from a reference
+``autoencoder_kl.pth``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from duodiff_tpu_torch.config import UViTConfig, load_model_config, refuse_latent_config
+from duodiff_tpu_torch.config import AutoencoderConfig, UViTConfig, load_model_config
+from duodiff_tpu_torch.models.autoencoder import FrozenAutoencoderKL
 from duodiff_tpu_torch.models.early_exit import EarlyExitUViT, init_early_exit_uvit
 from duodiff_tpu_torch.models.layers import INT8_IMPLS
 from duodiff_tpu_torch.models.uvit import UViT, init_uvit
@@ -49,8 +52,8 @@ def load_model(
     of the live ones. ``early_exit`` builds the config's
     :class:`EarlyExitUViT` (its ``classifier_type`` names the probes) and
     loads a checkpoint under the reference's early-exit names, gathered into
-    the port's stacks first. A latent-diffusion config is refused."""
-    refuse_latent_config(config_path)
+    the port's stacks first. A latent-diffusion config builds its model on
+    latents; its autoencoder is :func:`load_autoencoder`'s."""
     cfg = load_model_config(config_path)
     scales = None
     if int8_scales:
@@ -113,3 +116,43 @@ def load_backbone(path, backbone: nn.Module) -> None:
         raise KeyError(f"--load_backbone {path}: keys the backbone does not have: "
                        f"{unexpected[:5]}")
     backbone.load_state_dict(state, strict=True)
+
+
+AUTOENCODER_PREFIXES = ("encoder.", "decoder.", "quant_conv.", "post_quant_conv.")
+
+
+def load_autoencoder(path, config: AutoencoderConfig, *, dtype=torch.bfloat16,
+                     device) -> FrozenAutoencoderKL:
+    """The frozen KL autoencoder ``config`` describes, with the weights of
+    the reference-format ``.pth`` at ``path`` (a state dict, or one under
+    ``model_state_dict``), on ``device`` with compute dtype ``dtype`` (bf16,
+    the JAX package's default). Keys outside the autoencoder's four parts are
+    ignored, as the JAX converter ignores them; a missing or mis-shaped key
+    raises, naming it. A directory (an Orbax checkpoint) needs JAX and is
+    refused, and so is a missing file."""
+    file = Path(path)
+    if file.is_dir():
+        raise ValueError(
+            f"autoencoder checkpoint {path} is a directory, an Orbax checkpoint, which needs "
+            "JAX; cross its tree over with duodiff_tpu_torch.utils.convert.export_autoencoder "
+            "and save the state dict as a .pth")
+    if not file.exists():
+        raise FileNotFoundError(
+            f"the config's autoencoder_checkpoint_path {path!r} does not exist: latent "
+            "diffusion needs the autoencoder_kl.pth of the config's autoencoder block")
+    state = torch.load(file, map_location="cpu", weights_only=True)
+    state = state.get("model_state_dict", state)
+    state = {k: v for k, v in state.items() if k.startswith(AUTOENCODER_PREFIXES)}
+    model = FrozenAutoencoderKL(config, dtype=dtype)
+    for name, t in model.state_dict().items():
+        if name not in state:
+            raise KeyError(f"autoencoder checkpoint {path}: no {name!r}")
+        if tuple(state[name].shape) != tuple(t.shape):
+            raise ValueError(f"autoencoder checkpoint {path}: {name!r} has shape "
+                             f"{tuple(state[name].shape)}, the model's is {tuple(t.shape)}")
+    unexpected = sorted(set(state) - set(model.state_dict()))
+    if unexpected:
+        raise KeyError(f"autoencoder checkpoint {path}: keys the autoencoder does not have: "
+                       f"{unexpected[:5]}")
+    model.load_state_dict({k: v.float() for k, v in state.items()}, strict=True)
+    return model.to(device).freeze()

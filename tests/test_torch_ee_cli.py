@@ -6,8 +6,8 @@ derived and given, block-cached by period and by table, adaptive monotone
 and bidirectional on the tool's file) writes ``eesampler.py``'s files and
 samples what the library functions sample from the same seed; every
 refusal of ``eesampler.py`` and the port's own (``--model_parallel``,
-``--int8_scales`` with the static and adaptive routes, a latent config,
-no CUDA device) writes nothing."""
+``--int8_scales`` with the static and adaptive routes, no CUDA device)
+writes nothing."""
 
 import json
 from pathlib import Path
@@ -28,7 +28,6 @@ from duodiff_tpu_torch.utils.model_loading import load_model
 
 torch.set_num_threads(1)
 
-REPO = Path(__file__).resolve().parents[1]
 STEPS, BATCH, DEPTH = 10, 2, 5
 PARAMS = dict(img_size=16, patch_size=2, in_chans=3, embed_dim=32, depth=DEPTH, num_heads=4,
               mlp_ratio=4, qkv_bias=False, mlp_time_embed=False, normalize_timesteps=True)
@@ -272,15 +271,6 @@ def test_no_cuda_device_is_refused(files, tmp_path):
     with pytest.raises(SystemExit, match="no CUDA device is available"):
         calibrate_probes.main(["--config", files["config"], "--out", str(tmp_path / "c.json")])
     assert not list(tmp_path.iterdir())
-
-
-def test_latent_config_is_refused(tmp_path):
-    argv = ["--device", "cpu", "--config_path", str(REPO / "configs/deediff_imagenet256.yaml"),
-            "--random_init", "--threshold", "1", "--batch_size", "1", "--output_folder",
-            str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        eesample.main(argv)
-    assert not list(tmp_path.glob("*.png"))
 
 
 def test_int8_scales_need_an_int8_block(files, tmp_path):

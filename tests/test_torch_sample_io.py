@@ -1,7 +1,6 @@
 """What the sampling CLI reads and writes beyond ``samples.npy``
 (``python -m duodiff_tpu_torch.sample``, run in-process on the CPU at tiny
-configs): the refusal of latent-diffusion configs, ``--use_ema`` on
-checkpoints the port's trainer wrote, the PNG writer
+configs): ``--use_ema`` on checkpoints the port's trainer wrote, the PNG writer
 (``duodiff_tpu_torch.utils.image``) against its own decoding, Pillow's and
 the files ``duodiff_tpu.utils.image`` writes, and ``--timesteps_save``
 against the unbroken loop on the same generator.
@@ -11,7 +10,6 @@ Everything here is exact: the same pixels, the same bits.
 
 import struct
 import zlib
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,7 +25,6 @@ from duodiff_tpu_torch.utils.model_loading import load_model
 
 torch.set_num_threads(1)
 
-REPO = Path(__file__).resolve().parents[1]
 TINY = dict(img_size=32, patch_size=4, in_chans=3, embed_dim=32, num_heads=4, mlp_ratio=4,
             qkv_bias=False, mlp_time_embed=False, num_classes=-1, normalize_timesteps=True)
 STEPS, T_SWITCH = 20, 5
@@ -53,27 +50,6 @@ def _sample_argv(files, out, *extra, late=True):
     if late:
         argv += ["--config_path_late", files["config5"], "--t_switch", str(T_SWITCH)]
     return argv + list(extra)
-
-
-# --- F1: latent-diffusion configs are refused -------------------------------------
-
-
-@pytest.mark.parametrize("name", ["uvit_imagenet256", "uvit_imagenet256_3", "deediff_imagenet256"])
-@pytest.mark.parametrize("as_late", [False, True])
-def test_latent_configs_are_refused(files, tmp_path, name, as_late):
-    """A config with an ``autoencoder`` block samples latents, and the decoder
-    is not ported: the CLI must not write them as images."""
-    latent = str(REPO / "configs" / f"{name}.yaml")
-    argv = _sample_argv(files, tmp_path, "--random_init", late=False)
-    if as_late:
-        argv += ["--config_path_late", latent, "--t_switch", str(T_SWITCH)]
-    else:
-        argv[argv.index("--config_path") + 1] = latent
-    with pytest.raises(NotImplementedError, match="decoder"):
-        sample.main(argv)
-    assert not (tmp_path / "samples.npy").exists() and not list(tmp_path.glob("*.png"))
-    with pytest.raises(NotImplementedError, match="autoencoder"):
-        load_model(latent, device="cpu")
 
 
 # --- --use_ema ---------------------------------------------------------------------

@@ -220,11 +220,7 @@ def test_unported_flags_are_refused(files, name, tmp_path):
         train.main(_argv(files, "refused", 2, *REFUSED[name]))
 
 
-def test_autoencoder_config_and_fp32_fused_are_refused(files, tmp_path):
-    latent = tmp_path / "latent.yaml"
-    latent.write_text(open(files["config3"]).read() + "autoencoder:\n  ch: 128\n")
-    with pytest.raises(NotImplementedError, match="autoencoder"):
-        train.main(_argv(files, "refused", 2) + ["--config_path", str(latent)])
+def test_fp32_fused_is_refused(files):
     with pytest.raises(ValueError, match="--use_amp"):
         train.main(_argv(files, "refused", 2, "--attn_impl", "fused"))
 
