@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768) and of the
@@ -125,7 +125,26 @@ printing its results on its own lines:
    label dropout, 40 steps (the loss must fall; a step's split into encode,
    forward, backward and AdamW, peak memory), its checkpoint in
    ``load_model`` and 10 sampling steps from it, decoded. Phase 13's
-   launches are added to the record of K1, K2, K6, K7, K11 and K12.
+   launches are added to the record of K1, K2, K6, K7, K11 and K12;
+14. evaluation and the quality tools: (a) the FD-rand extractor (the
+   InceptionV3 graph, seed 2026) on the card with the caller's TF32 on,
+   against the same weights on the CPU (1e-4 of the largest feature), a
+   control without the extractor's own TF32 switch, the weights as a
+   pytorch-fid ``.pth`` in ``load_inception`` (equal bits), and
+   ``extract_features`` timed at batch 128; (b) FD-rand and the spectral
+   distance of two textured draws (the floor) and of a 3 x 3 box blur, the
+   blur above the floor, a repeated ``fd_rand`` call equal to the bit; (c)
+   ``tools.convergence_probe`` trains ``uvit_cifar10.yaml`` on palette data
+   (batch 128, bf16, fused; the loss must fall), ``tools.quality_matrix``
+   samples it with ddpm, int8, cache3, cache3_int8, ddim50 and dpm20 at
+   batch 64, each row's launches held exactly, ``tools.score_quality``
+   scores them, and the table is printed; (d) ``python -m
+   duodiff_tpu_torch.fid`` on random-init weights, ``tools.t_switch_sweep``
+   on the trained backbone and a random depth-3 model,
+   ``tools.probe_cache_gamma`` and ``tools.trajectory_parity`` (every row;
+   ``attn pallas vs fused`` launches K9) at 100 steps, each row's launches
+   held exactly. Phase 14's launches are added to the record of K1, K2, K6,
+   K7, K9, K11 and K12.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -363,7 +382,7 @@ PROBE_KERNELS = {
 # single entries by more than a bf16 rounding, so the gate is the relative
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
-PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13")
+PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -2339,43 +2358,15 @@ def check_training(device) -> None:
 
 
 def reset_counts() -> None:
-    from duodiff_tpu_torch.ops import block, block_int8, flash_attention, sdpa_int8
+    from duodiff_tpu_torch.tools._measure import reset_launch_counts
 
-    flash_attention.flash_attention.launches = 0
-    flash_attention.flash_attention_bwd.launches = 0
-    block.fused_attn_sublayer.launches = 0
-    block.fused_mlp_sublayer.launches = 0
-    block.fused_attn_sublayer_bwd.launches = 0
-    block.fused_mlp_sublayer_bwd.launches = 0
-    block.fused_attn_sublayer.launches_v1 = 0
-    block.fused_block.launches = 0
-    block.fused_mlp_sublayer_bwd_split.launches = 0
-    block_int8.reset_launch_counts()
-    sdpa_int8.reset_launch_counts()
+    reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from duodiff_tpu_torch.ops import block, block_int8, flash_attention, sdpa_int8
+    from duodiff_tpu_torch.tools._measure import launch_counts
 
-    k12 = block_int8.fused_mlp_sublayer_int8
-    return {
-        "flash_attention": flash_attention.flash_attention.launches,
-        "flash_attention_bwd": flash_attention.flash_attention_bwd.launches,
-        "fused_attn_sublayer": block.fused_attn_sublayer.launches,
-        "fused_mlp_sublayer": block.fused_mlp_sublayer.launches,
-        "fused_attn_sublayer_bwd": block.fused_attn_sublayer_bwd.launches,
-        "fused_mlp_sublayer_bwd": block.fused_mlp_sublayer_bwd.launches,
-        "fused_attn_sublayer_v1": block.fused_attn_sublayer.launches_v1,
-        "fused_block": block.fused_block.launches,
-        "fused_mlp_sublayer_bwd_split": block.fused_mlp_sublayer_bwd_split.launches,
-        "fused_attn_sublayer_int8": block_int8.fused_attn_sublayer_int8.launches,
-        "fused_mlp_sublayer_int8": k12.launches,
-        "fused_mlp_sublayer_int8 dynamic": k12.launches_dynamic,
-        "fused_mlp_sublayer_int8 static": k12.launches_static,
-        "fused_attn_sublayer_int8 static": block_int8.fused_attn_sublayer_int8.launches_static,
-        "sdpa_chain_bf16": sdpa_int8.sdpa_chain_bf16.launches,
-        "sdpa_chain_int8": sdpa_int8.sdpa_chain_int8.launches,
-    }
+    return launch_counts()
 
 
 def run_cli(label: str, extra: list, card: str, expected: dict,
@@ -4384,6 +4375,391 @@ def run_latent(device, card: str) -> dict:
     return runs
 
 
+# phase 14: evaluation and the quality tools
+EVAL_CONFIG = TRAIN_CONFIG                # configs/uvit_cifar10.yaml: D 512, depth 13, L 257
+EVAL_SHALLOW_CONFIG = STUDENT_CONFIG      # configs/uvit_cifar10_3.yaml, random: the sweep's
+EVAL_EE_CONFIG = str(REPO / "configs/deediff_celeba.yaml")
+EVAL_FEATURE_IMAGES = 8    # 14a's card-vs-CPU gate
+EVAL_TIME_IMAGES = 512     # 14a's timing, at EVAL_BATCH
+EVAL_BATCH = 128           # feature extraction
+EVAL_REF_N = 512           # reference draws (score_quality's --ref_n default)
+PROBE_STEPS = 1000         # 14c's training, ~47 ms a step (phase 5)
+PROBE_SAMPLE_BATCH = 64
+QM_METHODS = ("ddpm", "int8", "cache3", "cache3_int8", "ddim50", "dpm20")
+QM_BATCH = 64
+# 14c's loss, last logged over first (the probe's lr 2e-3, warm-up 50)
+PROBE_LOSS_DROP = 0.05  # measured 0.00896 (1.19401 -> 0.0107036), PERF.md
+SWEEP_STEPS, SWEEP_SWITCH, SWEEP_BATCH = 250, 75, 64
+# 14d's parity rows and gamma probe: PARITY_STEPS steps, on a drift curve of
+# every (STEPS / PARITY_STEPS)-th step of the committed schedule's
+PARITY_STEPS, PARITY_BATCH, PARITY_CHUNK = 100, 16, 20
+GAMMA_BATCH, GAMMA_GAMMAS = 16, "0,1"
+# 14a: the card's fp32 features against the CPU's on the same weights, at
+# 1e-4 of the largest feature: seeded random features are ~1e-4 in scale, so
+# an absolute 1e-4 would hold for any output
+FEATURE_REL = 1e-4
+EVAL_KERNELS = ("fused_attn_sublayer", "fused_mlp_sublayer", "fused_attn_sublayer_bwd",
+                "fused_mlp_sublayer_bwd", "flash_attention", "fused_attn_sublayer_int8",
+                "fused_mlp_sublayer_int8")
+
+
+def box_blur3(images: np.ndarray) -> np.ndarray:
+    """The mean of each pixel's 3 x 3 neighbourhood (wrapping at the edges)."""
+    return sum(np.roll(images, (dy, dx), axis=(1, 2))
+               for dy in (-1, 0, 1) for dx in (-1, 0, 1)) / 9.0
+
+
+def blocks_of(every, steps: int, depth: int = 13, n_outer: int = N_OUTER) -> int:
+    """Block launches of a block-cached run over ``steps`` steps: an anchor
+    (t % every == 0, or ``every[t]`` for a table, and the first step) runs
+    ``depth`` blocks, a cached step the 2 * n_outer outer ones."""
+    anchored = sum(1 for t in range(steps)
+                   if t == steps - 1 or (t % every == 0 if isinstance(every, int) else every[t]))
+    return anchored * depth + (steps - anchored) * 2 * n_outer
+
+
+def check_row_counts(label: str, got: dict, expected: dict) -> None:
+    """Every kernel's launches in one row of a tool equal ``expected``
+    (unlisted kernels: 0), both ways round."""
+    for name in sorted(set(got) | set(expected)):
+        if got.get(name, 0) != expected.get(name, 0):
+            fail(f"{label}: {name} launched {got.get(name, 0)} times, expected "
+                 f"{expected.get(name, 0)}")
+
+
+def bf16_blocks(n: int) -> dict:
+    return {"fused_attn_sublayer": n, "fused_mlp_sublayer": n}
+
+
+def int8_blocks(n: int) -> dict:
+    return {"fused_attn_sublayer_int8": n, "fused_mlp_sublayer_int8": n,
+            "fused_mlp_sublayer_int8 dynamic": n}
+
+
+def run_counted(label: str, fn, argv: list, card: str, expected):
+    """A tool's ``main`` on the card, every counter set to 0 just before and
+    read just after, the whole run's counts checked against ``expected``
+    (None: the caller holds the tool's rows one by one and their sum).
+    Returns (its result, the launches)."""
+    reset_counts()
+    tic = time.perf_counter()
+    result = fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = read_counts()
+    print(f"{label}: wall {wall:.6g} s, launches {launches} (expected {expected}), card {card}",
+          flush=True)
+    if expected is not None:
+        check_counts(launches, expected)
+    return result, launches
+
+
+def check_rows_cover(label: str, launches: dict, parts) -> None:
+    """The launches of a tool's rows add up to the whole run's: nothing ran
+    outside a row."""
+    total = {}
+    for part in parts:
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    check_row_counts(f"{label}, all rows", {k: v for k, v in launches.items() if v}, total)
+
+
+def check_extractor(device, card: str) -> None:
+    """14a: the FD-rand extractor (seed 2026) on the card in fp32, with the
+    caller's TF32 switched on, against the same weights on the CPU; a
+    control run with the extractor's own TF32 switch taken out; a
+    pytorch-fid-named ``.pth`` of those weights (with a classifier head,
+    under ``state_dict``) loaded by ``load_inception``, equal to the bit;
+    ``extract_features`` timed at batch 128."""
+    import contextlib
+
+    from duodiff_tpu_torch.evaluation.fid import extract_features
+    from duodiff_tpu_torch.evaluation.metrics import random_inception
+    from duodiff_tpu_torch.models import inception
+    from duodiff_tpu_torch.tools.score_quality import draw_reference
+
+    imgs = draw_reference("textured", 4, EVAL_FEATURE_IMAGES, 32, seed=14)
+    want = extract_features(random_inception(device="cpu"), imgs, EVAL_FEATURE_IMAGES)
+    model = random_inception(device=device)
+    switches = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    own_switch = inception._ieee_fp32_convs
+    try:
+        got = extract_features(model, imgs, EVAL_FEATURE_IMAGES)
+        inception._ieee_fp32_convs = lambda active: contextlib.nullcontext()
+        tf32 = extract_features(model, imgs, EVAL_FEATURE_IMAGES)
+    finally:
+        inception._ieee_fp32_convs = own_switch
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = switches
+    scale = float(np.abs(want).max())
+    err, err_tf32 = float(np.abs(got - want).max()), float(np.abs(tf32 - want).max())
+    ok = err <= FEATURE_REL * scale and bool(np.isfinite(got).all())
+    print(f"phase 14a: seed-2026 InceptionV3 features of {EVAL_FEATURE_IMAGES} textured 32x32 "
+          f"images, card (TF32 switched on by the caller) vs CPU fp32: max_abs_err={err:.6g} "
+          f"(bound {FEATURE_REL * scale:.6g} = {FEATURE_REL}*max|feature| {scale:.6g}) ok={ok}; "
+          f"control without the extractor's own switch, TF32 convolutions: max_abs_err="
+          f"{err_tf32:.6g} ({err_tf32 / scale:.6g} of max|feature|)", flush=True)
+    if not ok:
+        fail("phase 14a: the card's Inception features disagree with the CPU's")
+    with tempfile.TemporaryDirectory() as work:
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        state.update({"fc.weight": torch.zeros(1000, 2048), "fc.bias": torch.zeros(1000)})
+        torch.save({"state_dict": state}, f"{work}/pt_inception_random.pth")
+        loaded = inception.load_inception(f"{work}/pt_inception_random.pth", device)
+    same = np.array_equal(extract_features(loaded, imgs, EVAL_FEATURE_IMAGES), got)
+    print(f"phase 14a: the weights as a pytorch-fid-named .pth in load_inception: features "
+          f"equal to the bit: {same}", flush=True)
+    if not same:
+        fail("phase 14a: the loaded .pth does not reproduce the extractor's features")
+    many = draw_reference("textured", 4, EVAL_TIME_IMAGES, 32, seed=15)
+    extract_features(model, many[:EVAL_BATCH], EVAL_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    extract_features(model, many, EVAL_BATCH)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - tic
+    print(f"phase 14a: extract_features of {EVAL_TIME_IMAGES} 32x32 images at batch "
+          f"{EVAL_BATCH} (resize to 299, fp32, no TF32): {s:.6g} s, "
+          f"{EVAL_TIME_IMAGES / s:.6g} images/s; card {card}", flush=True)
+
+
+def check_fd_rand(device, card: str) -> None:
+    """14b: two independent textured draws a and b (n = EVAL_REF_N each):
+    the real-vs-real floor is a against b; the damage is a against a 3 x 3
+    box blur of b, so that the blur is the only change. FD-rand and the
+    spectral distance of the blur must lie above the floor, and a repeated
+    ``fd_rand`` call on the floor's sets must give its bits again."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from duodiff_tpu_torch.evaluation.fid import extract_features, fids_from_features
+    from duodiff_tpu_torch.evaluation.metrics import (
+        fd_rand,
+        random_inception,
+        spectral_distance,
+        standardize_features,
+    )
+    from duodiff_tpu_torch.tools.score_quality import draw_reference
+
+    tic = time.perf_counter()
+    a = draw_reference("textured", 4, EVAL_REF_N, 32, seed=123)
+    b = draw_reference("textured", 4, EVAL_REF_N, 32, seed=124)
+    blur = box_blur3(b).astype(np.float32)
+    model = random_inception(device=device)
+    raw = [extract_features(model, s, EVAL_BATCH) for s in (a, b, blur)]
+    fa, fb, fblur = standardize_features(raw[0], raw)
+    # the repeat runs the whole fd_rand (features on the card, the square root
+    # on the host) beside the two distances' worker processes
+    with ThreadPoolExecutor(1) as thread:
+        repeat = thread.submit(fd_rand, a, b, EVAL_BATCH, model=model)
+        floor, blurred = fids_from_features([(fa, fb), (fa, fblur)])
+        again = repeat.result()
+    spec_floor, spec_blur = spectral_distance(a, b), spectral_distance(a, blur)
+    s = time.perf_counter() - tic
+    finite = all(np.isfinite(v) for v in (floor, blurred, again, spec_floor, spec_blur))
+    ok = finite and blurred > floor and spec_blur > spec_floor and again == floor
+    print(f"phase 14b: textured, n={EVAL_REF_N} a set: real-vs-real floor FD-rand {floor!r}, "
+          f"spectral {spec_floor!r}; against the second draw 3x3 box-blurred: FD-rand "
+          f"{blurred!r}, spectral {spec_blur!r}; "
+          f"a repeated fd_rand call {again!r} (equal bits: {again == floor}); {s:.6g} s; "
+          f"ok={ok}; card {card}", flush=True)
+    if not ok:
+        fail("phase 14b: FD-rand / the spectral distance do not separate the blur from the "
+             "floor, or fd_rand is not deterministic")
+
+
+def run_quality_path(device, card: str, work: str) -> tuple:
+    """14c: ``convergence_probe`` (palette k = 4) trains ``uvit_cifar10.yaml``
+    at batch 128, bf16, fused, then ``quality_matrix`` samples the checkpoint
+    with each knob of QM_METHODS at batch 64 (each row's launches held
+    exactly), and ``score_quality`` scores them (ref_n 512). Returns (the
+    launches of each run, the probe's result)."""
+    from duodiff_tpu_torch.diffusion.sampling import ddim_pairs, dpm_solver_tables
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.tools import convergence_probe, quality_matrix, score_quality
+
+    runs = {}
+    n, s = 13 * PROBE_STEPS, 13 * STEPS
+    result, runs["14c probe"] = run_counted(
+        f"phase 14c: convergence_probe, {Path(EVAL_CONFIG).name} palette k=4, {PROBE_STEPS} steps "
+        f"at batch {TRAIN_BATCH} bf16, then {PROBE_SAMPLE_BATCH} samples over {STEPS} steps",
+        convergence_probe.main,
+        ["--config", EVAL_CONFIG, "--steps", str(PROBE_STEPS), "--batch", str(TRAIN_BATCH),
+         "--use_amp", "--palette_k", "4", "--sample_batch", str(PROBE_SAMPLE_BATCH),
+         "--workdir", f"{work}/probe", "--device", "cuda"], card,
+        {**bf16_blocks(n + s), "fused_attn_sublayer_bwd": n, "fused_mlp_sublayer_bwd": n})
+    first, last = result["train_loss_first"], result["train_loss_last"]
+    print(f"phase 14c: probe result {json.dumps(result)}", flush=True)
+    if not last < PROBE_LOSS_DROP * first:
+        fail(f"phase 14c: the train loss did not fall clearly: {first:.6g} -> {last:.6g}")
+
+    transitions = len(dpm_solver_tables(NoiseSchedule.create(steps=STEPS), 20)["phi"])
+    expected = {
+        "ddpm": bf16_blocks(13 * STEPS), "int8": int8_blocks(13 * STEPS),
+        "cache3": bf16_blocks(blocks_of(3, STEPS)),
+        "cache3_int8": int8_blocks(blocks_of(3, STEPS)),
+        "ddim50": bf16_blocks(13 * len(ddim_pairs(STEPS, 50)[0])),
+        "dpm20": bf16_blocks(13 * transitions),
+    }
+    total = {}
+    for row in expected.values():
+        for k, v in row.items():
+            total[k] = total.get(k, 0) + v
+    rows, runs["14c quality_matrix"] = run_counted(
+        f"phase 14c: quality_matrix {','.join(QM_METHODS)} at batch {QM_BATCH}",
+        quality_matrix.main,
+        ["--config", EVAL_CONFIG, "--checkpoint", result["checkpoint"], "--methods",
+         ",".join(QM_METHODS), "--batch", str(QM_BATCH), "--palette_k", "4",
+         "--out", f"{work}/qm", "--device", "cuda"], card, total)
+    for name, want in expected.items():
+        if "refused" in rows[name]:
+            fail(f"phase 14c: the port refused the {name} row: {rows[name]['refused']}")
+        check_row_counts(f"phase 14c: quality_matrix row {name}", rows[name]["launches"], want)
+    table, _ = run_counted(
+        f"phase 14c: score_quality, palette k=4, ref_n {EVAL_REF_N}", score_quality.main,
+        ["--out", f"{work}/qm", "--ref_n", str(EVAL_REF_N), "--palette_k", "4",
+         "--batch_size", str(EVAL_BATCH), "--device", "cuda"], card, {})
+    merged = json.loads(Path(f"{work}/qm/quality_matrix.json").read_text())
+    print("phase 14c: | row | sampling s | within-image std | modes hit | counts | "
+          "fd_rand_vs_real | fd_rand_vs_dense | spec_vs_real | spec_vs_dense |", flush=True)
+    for name, r in [("real_vs_real", table["rows"]["real_vs_real"])] + [
+            (m, merged[m]) for m in QM_METHODS]:
+        print(f"phase 14c: | {name} | {r.get('elapsed_s', '')} | {r.get('within_image_std', '')} "
+              f"| {r.get('modes_hit', '')} | {r.get('mode_counts', '')} | "
+              f"{r['fd_rand_vs_real']} | {r['fd_rand_vs_dense']} | {r['spec_vs_real']} | "
+              f"{r['spec_vs_dense']} |", flush=True)
+    numbers = [v for r in table["rows"].values() for v in r.values()]
+    if not all(np.isfinite(v) for v in numbers):
+        fail("phase 14c: a quality score is not finite")
+    print(json.dumps({"phase14_quality": table["rows"]}), flush=True)
+    return runs, result
+
+
+def run_eval_tools(device, card: str, work: str, probe: dict) -> dict:
+    """14d: the ``fid`` CLI on random-init weights (real statistics of the
+    probe's data saved), ``t_switch_sweep`` on the 14c backbone and a random
+    depth-3 shallow model, ``probe_cache_gamma`` on a 100-step drift curve
+    (every tenth step of the committed DuoDiff schedule's), and
+    ``trajectory_parity`` over every row at 100 steps, batch 16, with a
+    schedule derived from that curve; every row's launches held exactly."""
+    from duodiff_tpu_torch import fid
+    from duodiff_tpu_torch.diffusion.cache_schedule import (
+        derive_anchor_table,
+        load_cache_schedule,
+        save_cache_schedule,
+        uniform_budget,
+    )
+    from duodiff_tpu_torch.diffusion.sampling import dpm_solver_tables
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.tools import probe_cache_gamma, t_switch_sweep, trajectory_parity
+
+    runs = {}
+    stats = f"{work}/real_stats.npz"
+    value, runs["14d fid"] = run_counted(
+        "phase 14d: python -m duodiff_tpu_torch.fid on the ddpm row, random-init weights, "
+        "--save_real_stats", fid.main,
+        ["--dataset", "cifar10", "--data_path", f"{work}/probe/data", "--samples_path",
+         f"{work}/qm/ddpm", "--inception_weights", "random-init", "--save_real_stats", stats,
+         "--batch_size", str(EVAL_BATCH), "--device", "cuda"], card, {})
+    if not np.isfinite(value):
+        fail(f"phase 14d: the fid CLI gave {value}")
+
+    n = 2 * (SWEEP_STEPS * 13 + SWEEP_SWITCH * 3 + (SWEEP_STEPS - SWEEP_SWITCH) * 13)
+    sweep, runs["14d sweep"] = run_counted(
+        f"phase 14d: t_switch_sweep 0 / {SWEEP_SWITCH} over {SWEEP_STEPS} steps, the trained "
+        f"backbone and a random depth-3 model, batch {SWEEP_BATCH}", t_switch_sweep.main,
+        ["--config_path", EVAL_SHALLOW_CONFIG, "--config_path_late", EVAL_CONFIG,
+         "--checkpoint_path_late", probe["checkpoint"], "--real_stats", stats,
+         "--inception_weights", "random-init", "--t_switch", "0", str(SWEEP_SWITCH),
+         "--n_samples", str(SWEEP_BATCH), "--batch_size", str(SWEEP_BATCH),
+         "--num_timesteps", str(SWEEP_STEPS), "--device", "cuda"], card, bf16_blocks(n))
+    print(f"phase 14d: sweep {json.dumps(sweep)}", flush=True)
+    if not all(np.isfinite(r["fid"]) for r in sweep["results"]):
+        fail("phase 14d: a sweep FID is not finite")
+
+    drift = np.asarray(json.loads(Path(CACHE_SCHEDULE).read_text())["meta"]["drift"])
+    drift = drift[::len(drift) // PARITY_STEPS][:PARITY_STEPS]
+    drift_json, derived = f"{work}/drift.json", f"{work}/derived.json"
+    save_cache_schedule(drift_json, np.zeros(PARITY_STEPS, bool), meta={"drift": drift.tolist()})
+    save_cache_schedule(derived, derive_anchor_table(drift, uniform_budget(drift, 3)))
+    gamma, runs["14d gamma"] = run_counted(
+        f"phase 14d: probe_cache_gamma gammas {GAMMA_GAMMAS} on a {PARITY_STEPS}-step drift, batch "
+        f"{GAMMA_BATCH}", probe_cache_gamma.main,
+        ["--drift_json", drift_json, "--steps", str(PARITY_STEPS), "--batch", str(GAMMA_BATCH),
+         "--gammas", GAMMA_GAMMAS, "--device", "cuda"], card, None)
+    check_row_counts("phase 14d: probe_cache_gamma dense", gamma["dense_launches"],
+                     bf16_blocks(13 * PARITY_STEPS))
+    for name, r in gamma["rows"].items():
+        a = r["anchored_steps"]
+        check_row_counts(f"phase 14d: probe_cache_gamma {name}", r["launches"],
+                         bf16_blocks(a * 13 + (PARITY_STEPS - a) * 2 * N_OUTER))
+    check_rows_cover("phase 14d: probe_cache_gamma", runs["14d gamma"],
+                     [gamma["dense_launches"]] + [r["launches"] for r in gamma["rows"].values()])
+    print(f"phase 14d: probe_cache_gamma {json.dumps(gamma['rows'])}", flush=True)
+
+    table = load_cache_schedule(derived, num_timesteps=PARITY_STEPS)
+    transitions = len(dpm_solver_tables(NoiseSchedule.create(steps=PARITY_STEPS), 20)["phi"])
+    anchored = len(range(0, transitions, 3))
+    t = PARITY_STEPS
+    buckets = [(t - 1, int(t * 0.7), 3), (int(t * 0.7) - 1, int(t * 0.3), 8),
+               (int(t * 0.3) - 1, 0, 13)]
+    dense = 13 * PARITY_STEPS
+    expected = {
+        "determinism fused (rerun)": bf16_blocks(dense),
+        "attn xla vs fused": {}, "attn plain vs fused": {},
+        "attn pallas vs fused": {"flash_attention": dense},
+        "gelu tanh vs exact (fused)": bf16_blocks(dense),
+        "attn fused_int8 vs fused": int8_blocks(dense),
+        "block-cache every=3 vs dense": bf16_blocks(blocks_of(3, t)),
+        "block-cache every=5 vs dense": bf16_blocks(blocks_of(5, t)),
+        "block-cache every=3 + int8 vs dense": int8_blocks(blocks_of(3, t)),
+        "block-cache every=5 + int8 vs dense": int8_blocks(blocks_of(5, t)),
+        "block-cache derived vs dense": bf16_blocks(blocks_of(table, t)),
+        "block-cache derived + int8 vs dense": int8_blocks(blocks_of(table, t)),
+        "DPM-20 vs DDPM-1000 (shared x_init)": bf16_blocks(13 * transitions),
+        "DPM-20 cached every=3 vs DPM-20 dense": bf16_blocks(
+            anchored * 13 + (transitions - anchored) * 2 * N_OUTER),
+        "static buckets vs dynamic thr=0.08": bf16_blocks(
+            dense + sum(layer * (hi - lo + 1) for hi, lo, layer in buckets)),
+    }
+    parity, runs["14d parity"] = run_counted(
+        f"phase 14d: trajectory_parity, {PARITY_STEPS} steps, batch {PARITY_BATCH}, every row",
+        trajectory_parity.main,
+        ["--batch", str(PARITY_BATCH), "--steps", str(PARITY_STEPS), "--chunk",
+         str(PARITY_CHUNK), "--cache_schedule", derived, "--ee_config", EVAL_EE_CONFIG,
+         "--out", f"{work}/parity.json", "--device", "cuda"], card, None)
+    if set(parity["rows"]) != set(expected):
+        fail(f"phase 14d: trajectory_parity rows {sorted(parity['rows'])}, expected "
+             f"{sorted(expected)}")
+    check_row_counts("phase 14d: trajectory_parity baseline", parity["baseline_launches"],
+                     bf16_blocks(dense))
+    for name, want in expected.items():
+        check_row_counts(f"phase 14d: trajectory_parity {name}", parity["rows"][name]["launches"],
+                         want)
+    check_rows_cover("phase 14d: trajectory_parity", runs["14d parity"],
+                     [parity["baseline_launches"]]
+                     + [r["launches"] for r in parity["rows"].values()])
+    print(f"phase 14d: trajectory_parity {json.dumps(parity['rows'])}", flush=True)
+    return runs
+
+
+def run_evaluation(device, card: str) -> dict:
+    """Phase 14: evaluation and the quality tools. Returns the launches of
+    each run."""
+    tic = time.perf_counter()
+    check_extractor(device, card)
+    check_fd_rand(device, card)
+    with tempfile.TemporaryDirectory() as work:
+        runs, probe = run_quality_path(device, card, work)
+        release_memory()
+        runs.update(run_eval_tools(device, card, work, probe))
+    release_memory()
+    print(f"phase 14: {time.perf_counter() - tic:.6g} s", flush=True)
+    print(json.dumps({"phase14_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}),
+        flush=True)
+    return runs
+
+
 def parse_phases(argv) -> set:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4486,6 +4862,12 @@ def main(argv=None) -> int:
         # latent ImageNet-256's launches are added to K1, K2, K6, K7, K11 and K12
         for counts in run_latent(device, card).values():
             for name in (*KERNELS, *INT8_KERNELS, *BWD_KERNELS):
+                if counts.get(name):
+                    launches[name] = launches.get(name, 0) + counts[name]
+    if "14" in run:
+        # evaluation's launches are added to K1, K2, K6, K7, K9, K11 and K12
+        for counts in run_evaluation(device, card).values():
+            for name in EVAL_KERNELS:
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
     if run == set(PHASES):

@@ -38,8 +38,9 @@ class DataLoader:
         labels = np.asarray([it[1] for it in items], dtype=np.int32)
         images = np.stack([it[0] for it in items])
         out = np.empty(images.shape, np.float32)
-        np.multiply(images, self.dataset.scale, out=out, casting="unsafe")
-        out += self.dataset.offset
+        # in float32, as the JAX package's native batch assembler computes it
+        np.multiply(images, np.float32(self.dataset.scale), out=out, casting="unsafe")
+        out += np.float32(self.dataset.offset)
         return {"image": out, "label": labels}
 
     def next_batch(self) -> dict:

@@ -205,17 +205,20 @@ class DDPMSampler:
     With ``init_state_fn`` the sampler is stateful: ``apply_fn`` follows
     the stateful contract, ``init_state_fn(x)`` builds a segment's first
     state, and ``run(..., state=)`` returns ``(x, state)`` for the next
-    segment."""
+    segment. ``noise_table`` (steps, *shape) replaces the generator's draws
+    (module docstring)."""
 
     def __init__(self, apply_fn: Callable, schedule: NoiseSchedule, *,
                  parametrization: str = "predict_noise",
                  variance_mode: str = "beta_tilde",
-                 init_state_fn: Optional[Callable] = None):
+                 init_state_fn: Optional[Callable] = None,
+                 noise_table: Optional[torch.Tensor] = None):
         self.apply_fn = apply_fn
         self.schedule = schedule
         self.parametrization = parametrization
         self.variance_mode = variance_mode
         self.init_state_fn = init_state_fn
+        self.noise_table = noise_table
 
     def init(self, generator: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=generator,
@@ -227,7 +230,8 @@ class DDPMSampler:
                              "a stateless one without")
         return ddpm_loop(
             self.apply_fn, self.schedule, self.parametrization, x, generator,
-            range(t_start, t_end - 1, -1), y, self.variance_mode, state=state,
+            range(t_start, t_end - 1, -1), y, self.variance_mode,
+            noise_table=self.noise_table, state=state,
         )
 
 

@@ -70,3 +70,49 @@ def chain_ms(step, x: torch.Tensor, iters: int) -> float:
 
     run()
     return _elapsed_ms(run, x.device) / iters
+
+
+def _counted_wrappers() -> dict:
+    """Every kernel wrapper's launch counter by name: (wrapper, attribute)."""
+    from duodiff_tpu_torch.ops import block, block_int8, flash_attention, sdpa_int8
+
+    k11, k12 = block_int8.fused_attn_sublayer_int8, block_int8.fused_mlp_sublayer_int8
+    return {
+        "flash_attention": (flash_attention.flash_attention, "launches"),
+        "flash_attention_bwd": (flash_attention.flash_attention_bwd, "launches"),
+        "fused_attn_sublayer": (block.fused_attn_sublayer, "launches"),
+        "fused_mlp_sublayer": (block.fused_mlp_sublayer, "launches"),
+        "fused_attn_sublayer_bwd": (block.fused_attn_sublayer_bwd, "launches"),
+        "fused_mlp_sublayer_bwd": (block.fused_mlp_sublayer_bwd, "launches"),
+        "fused_attn_sublayer_v1": (block.fused_attn_sublayer, "launches_v1"),
+        "fused_block": (block.fused_block, "launches"),
+        "fused_mlp_sublayer_bwd_split": (block.fused_mlp_sublayer_bwd_split, "launches"),
+        "fused_attn_sublayer_int8": (k11, "launches"),
+        "fused_attn_sublayer_int8 static": (k11, "launches_static"),
+        "fused_mlp_sublayer_int8": (k12, "launches"),
+        "fused_mlp_sublayer_int8 dynamic": (k12, "launches_dynamic"),
+        "fused_mlp_sublayer_int8 static": (k12, "launches_static"),
+        "sdpa_chain_bf16": (sdpa_int8.sdpa_chain_bf16, "launches"),
+        "sdpa_chain_int8": (sdpa_int8.sdpa_chain_int8, "launches"),
+    }
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch counter by name. The counters are the
+    wrappers' own: one a launch of a kernel on the card, none for a plain
+    version on the CPU. Nothing here resets them, so a caller that counts a
+    whole run around a tool still sees every launch."""
+    return {name: getattr(w, attr) for name, (w, attr) in _counted_wrappers().items()}
+
+
+def launches_since(before: dict) -> dict:
+    """The launches since ``before`` (a :func:`launch_counts`), by name;
+    kernels not launched are left out."""
+    now = launch_counts()
+    return {name: now[name] - before[name] for name in now if now[name] != before[name]}
+
+
+def reset_launch_counts() -> None:
+    """Every wrapper's launch counter to 0 (for a caller that counts whole runs)."""
+    for wrapper, attr in _counted_wrappers().values():
+        setattr(wrapper, attr, 0)

@@ -368,3 +368,26 @@ def export_autoencoder(params: Mapping) -> dict[str, np.ndarray]:
     _conv(sd, params["quant_conv"], "quant_conv")
     _conv(sd, params["post_quant_conv"], "post_quant_conv")
     return sd
+
+
+_INCEPTION_BN = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+                 "bn_var": "running_var"}
+
+
+def export_inception(params: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """A JAX ``InceptionV3Features`` parameter tree -> pytorch-fid's
+    state-dict names, fp32 numpy: each ``BasicConv2d`` node's conv kernel
+    HWIO -> ``conv.weight`` OIHW, ``bn_scale`` / ``bn_bias`` / ``bn_mean``
+    / ``bn_var`` -> ``bn.weight`` / ``bias`` / ``running_mean`` /
+    ``running_var``. The inverse of the JAX package's
+    ``convert_inception_weights``."""
+    sd: dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        key = f"{prefix}.{name}" if prefix else name
+        if "conv" in node:
+            sd[f"{key}.conv.weight"] = _np(node["conv"]["kernel"]).transpose(3, 2, 0, 1)
+            for jax_name, torch_name in _INCEPTION_BN.items():
+                sd[f"{key}.bn.{torch_name}"] = _np(node[jax_name])
+        else:
+            sd.update(export_inception(node, key))
+    return sd

@@ -4,6 +4,13 @@ RGB, RGBA (a latent model's 4 channels, as TensorBoard shows them) or
 greyscale, no interlace, every scanline with filter type 0, one IDAT
 chunk. It writes the pixels Pillow writes for the same array; the bytes of
 the file may differ (Pillow picks filters and a compression level).
+
+The reader (:func:`decode_png`, :func:`read_png`) takes what the writer and
+Pillow write: greyscale (1, 2, 4 or 8 bits), greyscale with alpha, RGB,
+RGBA and palette images (1, 2, 4 or 8 bits), non-interlaced, with any of
+the five scanline filters in any row. 16-bit and interlaced files are
+refused. :func:`to_rgb` is Pillow's ``convert("RGB")``: greyscale
+repeated, alpha dropped, a palette looked up.
 """
 
 from __future__ import annotations
@@ -45,6 +52,121 @@ def encode_png(arr: np.ndarray) -> bytes:
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
     return (PNG_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + _chunk(b"IEND", b""))
+
+
+# colour type -> samples a pixel (greyscale, truecolour, palette, greyscale
+# with alpha, truecolour with alpha)
+_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int, name: str) -> np.ndarray:
+    """Undo the scanline filters of ``h`` rows of ``stride`` bytes, each row
+    after its filter-type byte: (h, stride) uint8. None, Sub and Up are
+    vectorised; Average and Paeth walk the row, one byte at a time."""
+    if len(data) < h * (stride + 1):
+        raise ValueError(f"{name}: image data is truncated")
+    raw = np.frombuffer(data, np.uint8, count=h * (stride + 1)).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for r in range(h):
+        kind, line = int(raw[r, 0]), raw[r, 1:]
+        if kind == 0:
+            cur = line.copy()
+        elif kind == 1:  # Sub: a running sum of each byte lane, modulo 256
+            pad = (-stride) % bpp
+            lanes = np.concatenate([line, np.zeros(pad, np.uint8)]).reshape(-1, bpp)
+            cur = (np.cumsum(lanes, axis=0, dtype=np.uint64) % 256).astype(np.uint8).ravel()
+            cur = cur[:stride]
+        elif kind == 2:  # Up
+            cur = line + prior
+        elif kind in (3, 4):
+            cur = bytearray(line.tobytes())
+            up = prior.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if kind == 3:  # Average
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
+                else:  # Paeth
+                    c = up[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                    cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"{name}: unknown scanline filter type {kind} in row {r}")
+        out[r] = cur
+        prior = out[r]
+    return out
+
+
+def decode_png(data: bytes, name: str = "PNG data") -> dict:
+    """The bytes of a PNG file -> ``{"pixels": uint8 (H, W, C), "color_type":
+    the PNG colour type, "bit_depth", "palette": uint8 (n, 3) or None}``.
+    ``pixels`` holds palette indices for a palette image, and greyscale
+    values of fewer than 8 bits scaled to 0..255, as Pillow loads them.
+    ``name`` names the file in every refusal."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file")
+    pos, header, palette, idat = 8, None, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{name}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if color not in _SAMPLES:
+        raise ValueError(f"{name}: unknown PNG colour type {color}")
+    if depth == 16:
+        raise ValueError(f"{name}: 16-bit PNG files are not supported (8 bits a sample or fewer)")
+    if depth != 8 and not (color in (0, 3) and depth in (1, 2, 4)):
+        raise ValueError(f"{name}: bit depth {depth} with colour type {color} is not a PNG "
+                         "this reader takes")
+    if interlace:
+        raise ValueError(f"{name}: interlaced PNG files are not supported")
+    if color == 3 and palette is None:
+        raise ValueError(f"{name}: a palette image without a PLTE chunk")
+    samples = _SAMPLES[color]
+    stride = (w * samples * depth + 7) // 8
+    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, samples * depth // 8),
+                     name)
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+        rows = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
+            -1, dtype=np.uint8)
+        if color == 0:
+            rows = rows * np.uint8(255 // ((1 << depth) - 1))
+    return {"pixels": rows.reshape(h, w, samples), "color_type": color, "bit_depth": depth,
+            "palette": palette}
+
+
+def to_rgb(png: dict) -> np.ndarray:
+    """A decoded PNG (:func:`decode_png`) as uint8 (H, W, 3), as Pillow's
+    ``convert("RGB")`` gives it."""
+    px, color = png["pixels"], png["color_type"]
+    if color == 3:
+        index = px[..., 0]
+        if int(index.max(initial=0)) >= len(png["palette"]):
+            raise ValueError("a palette index lies past the PLTE chunk")
+        return png["palette"][index]
+    if color in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def read_png(path) -> np.ndarray:
+    """A PNG file as uint8 (H, W, 3), ``Image.open(path).convert("RGB")``."""
+    return to_rgb(decode_png(Path(path).read_bytes(), str(path)))
 
 
 def save_image(img01: np.ndarray, path) -> None:

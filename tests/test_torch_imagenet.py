@@ -120,7 +120,7 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("where", ["duodiff_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("where", ["duodiff_tpu_torch", "chip_smoke.py", "k11_codes.py"])
 def test_no_source_imports_the_jax_package(where):
     root = REPO / where
     sources = sorted(root.rglob("*.py")) if root.is_dir() else [root]
