@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768) and of the
@@ -145,6 +145,28 @@ printing its results on its own lines:
    ``attn pallas vs fused`` launches K9) at 100 steps, each row's launches
    held exactly. Phase 14's launches are added to the record of K1, K2, K6,
    K7, K9, K11 and K12.
+15. serving, at the CelebA-64 width (``configs/uvit_celeba.yaml``, random
+   weights from seed 0): (a) K1, K2, K11 (with and without a qkv bias) and
+   K12 (dynamic and static) against their plain versions at the serving
+   batches 1, 3 and 16, phase 2's bounds, timed beside their bounds, and
+   each kernel on the first element alone against the first row of the
+   batch, to the bit; (b) ``duodiff_tpu_torch.serve.main`` in-process on an
+   ephemeral port, the bucket-1 server (ddpm, fused bf16):
+   ``POST /sample {"n": 2, "seed": 7}`` twice, each with K1 = K2 = 26,000
+   launches, the PNG images decoded to 64 x 64 x 3, the two answers equal to
+   the byte, ``/healthz`` naming the card; (c) the 8-slot continuous server
+   (int8 with the asset's static scales, ``--cache_pattern 1,0,0``): one
+   request of 8 images on one wave (K11 = K12 = 7,006, every K12 launch
+   static), each image against the bucket-1 server's on the same flags and
+   seed (equal bits, or 1 % relative Frobenius and 2**-5 of the largest
+   value), then a failure injected into the device loop answered 503 to
+   both waiting requests, to a later one and to ``/healthz``; (d)
+   ``duodiff_tpu_torch.tools.bench_serving``, bucket 1 against 8 slots, 8
+   clients x 4 requests, DPM-Solver++ 20 steps, both JSON lines and their
+   ratio beside the card, and a profile of three ``advance()`` calls of an
+   8-slot batcher (idle share, host time a step). Phase 15's launches are
+   added to the record of K1, K2, K11 and K12, and kept apart as
+   ``launches_15``.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -216,6 +238,7 @@ no CPU fallback: without a CUDA device the script exits with code 1.
 from __future__ import annotations
 
 import argparse
+import base64
 import ctypes
 import gc
 import json
@@ -226,9 +249,14 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 from typing import NamedTuple
+
+STARTED = time.perf_counter()  # the whole run's wall time counts from here
 
 import numpy as np
 import torch
@@ -382,7 +410,8 @@ PROBE_KERNELS = {
 # single entries by more than a bf16 rounding, so the gate is the relative
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
-PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14")
+PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14",
+          "15")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -609,7 +638,8 @@ def check_kernels(device, results: dict, width: Width = CELEBA, variants=(False,
 
 
 def compare_kernel(res: dict, label: str, kernel, plain, suffix,
-                   scaled: bool = False, max_frac: float = KERNEL_MAX_FRAC) -> None:
+                   scaled: bool = False, max_frac: float = KERNEL_MAX_FRAC,
+                   phase: str = "phase 2") -> None:
     """One kernel call against its plain version on the same inputs, both
     timed; folds the error into ``res`` and keeps the times (keep_times).
     ``scaled`` holds it to the bounds scaled to the output (scaled_errors
@@ -629,7 +659,7 @@ def compare_kernel(res: dict, label: str, kernel, plain, suffix,
         held = (f"max_abs_err={max_abs:.6g} max_rel_err={max_rel:.6g} "
                 f"bound={ATOL}+{RTOL}*|plain|")
     ms = time_ms({"kernel": kernel, "plain": plain})
-    print(f"phase 2: {label}: {held} ok={ok} kernel_ms={ms['kernel']:.6g} "
+    print(f"{phase}: {label}: {held} ok={ok} kernel_ms={ms['kernel']:.6g} "
           f"plain_ms={ms['plain']:.6g}", flush=True)
     if not ok:
         fail(f"{label} disagrees with its plain version")
@@ -4760,6 +4790,392 @@ def run_evaluation(device, card: str) -> dict:
     return runs
 
 
+# --- phase 15: serving ------------------------------------------------------
+
+SERVE_CONFIG = LATE_CONFIG              # configs/uvit_celeba.yaml: D 512, depth 13, L 257
+SERVE_KERNEL_BATCHES = (1, 3, 16)       # one image, an odd slot count, a wide slot batch
+SERVE_SLOTS = 8
+SERVE_CACHE_PATTERN = "1,0,0"           # every 3 steps an anchor; n_outer 2, depth 13's default
+SERVE_SEED = 7
+SERVE_BUCKET_IMAGES = 2                 # 15b's request
+SERVE_CLIENTS = 8                       # 15d: the A/B's load
+SERVE_REQUESTS_PER_CLIENT = 4
+SERVE_AB_STEPS = 20                     # 15d: DPM-Solver++ 20 steps, a load shape
+SERVE_STEPS_PER_POLL = 5                # serve.py's default; it divides 1000 and 20, so a
+                                        # wave's last advance runs no step past its end
+SERVE_TIMEOUT = 600                     # seconds an HTTP call may take before the check fails
+
+
+def http_json(url: str, payload=None, timeout: float = SERVE_TIMEOUT) -> tuple:
+    """(status, JSON body) of a GET (``payload`` None) or a POST of ``payload``."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def start_server(argv: list) -> tuple:
+    """``duodiff_tpu_torch.serve.main(argv)`` in a thread of this process, on
+    an ephemeral port; returns (server, service, base URL, thread) once it
+    listens. The service's ``sample`` is wrapped to keep what it returned
+    (float images in [0, 1]) in ``service.returned``."""
+    from duodiff_tpu_torch import serve
+
+    ready, box, failed = threading.Event(), [], []
+
+    def run():
+        try:
+            serve.main(argv, ready_event=ready, server_box=box)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            failed.append(e)
+            ready.set()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    if not ready.wait(timeout=SERVE_TIMEOUT) or failed:
+        fail(f"the server {argv} did not come up: {failed}")
+    httpd, service = box[0]
+    service.returned = []
+    inner = service.sample
+
+    def sample(**kw):
+        imgs = inner(**kw)
+        service.returned.append(imgs)
+        return imgs
+
+    service.sample = sample
+    return httpd, service, f"http://127.0.0.1:{httpd.server_address[1]}", th
+
+
+def stop_server(httpd, th) -> None:
+    httpd.shutdown()
+    th.join(timeout=120)
+    if th.is_alive():
+        fail("the server thread did not end")
+
+
+def check_png_images(label: str, resp: dict, n: int, side: int = 64) -> list:
+    """The response's ``n`` PNG images decoded (utils/image.py), each side x
+    side x 3; returns their pixels."""
+    from duodiff_tpu_torch.utils.image import decode_png
+
+    if len(resp.get("images", [])) != n:
+        fail(f"{label}: {len(resp.get('images', []))} images, expected {n}")
+    pixels = [decode_png(base64.b64decode(b))["pixels"] for b in resp["images"]]
+    for p in pixels:
+        if p.shape != (side, side, 3) or p.dtype != np.uint8:
+            fail(f"{label}: a PNG decodes to {p.shape} {p.dtype}, expected ({side}, {side}, 3)")
+    return pixels
+
+
+def check_returned(label: str, imgs: list, n: int, side: int = 64) -> None:
+    if len(imgs) != n or any(np.asarray(i).shape != (side, side, 3) for i in imgs):
+        fail(f"{label}: the service returned {[np.asarray(i).shape for i in imgs]}")
+    if not all(np.isfinite(i).all() for i in imgs):
+        fail(f"{label}: images are not finite")
+
+
+def check_serving_kernels(device, results: dict) -> dict:
+    """15a: K1 (with and without a qkv bias), K2 (exact and tanh GELU), K11
+    (with and without a qkv bias) and K12 (dynamic and static, exact and
+    tanh GELU) against their plain versions at the serving batches 1, 3 and
+    16 (a request of one image is M = 257 rows), phase 2's elementwise
+    bounds, each timed call by call beside its bound at that batch; and
+    whether a row's output depends on the batch: the kernel on the first
+    element alone against the first row of the whole batch, to the bit."""
+    from duodiff_tpu_torch.ops import block
+    from duodiff_tpu_torch.ops import block_int8 as q
+    from duodiff_tpu_torch.utils.int8_scales import load_int8_scales
+
+    static = load_int8_scales(INT8_SCALES)["mid_block"]
+    heads, rows_equal = CELEBA.heads, {}
+    for batch in SERVE_KERNEL_BATCHES:
+        suffix = f"_b{batch}"
+        for name, b in kernel_bounds(CELEBA, batch).items():
+            if name in (*KERNELS, *INT8_KERNELS):
+                results[name]["bound_ms" + suffix] = b["bound_ms"]
+        cases = []
+        for variant in (False, True):
+            x, attn_ops, mlp_ops = sublayer_operands(batch, variant, device)
+            cases += [
+                ("fused_attn_sublayer", f"qkv_bias={variant}", x,
+                 lambda x, o=attn_ops: block.fused_attn_sublayer(x, *o, num_heads=heads),
+                 lambda x, o=attn_ops: block.attn_sublayer_plain(x, *o, num_heads=heads),
+                 not variant),
+                ("fused_mlp_sublayer", f"gelu={'tanh' if variant else 'erf'}", x,
+                 lambda x, o=mlp_ops, v=variant: block.fused_mlp_sublayer(x, *o, gelu_approx=v),
+                 lambda x, o=mlp_ops, v=variant: block.mlp_sublayer_plain(x, *o, gelu_approx=v),
+                 not variant),
+            ]
+            xi, norm, qkv, proj, fc1, fc2 = block_modules(batch, variant)
+            xi = xi.to(device)
+            ops = to_device(q.pack_attn_int8(norm, qkv, proj, num_heads=heads), device)
+            cases.append((
+                "fused_attn_sublayer_int8", f"qkv_bias={variant}", xi,
+                lambda x, o=ops: q.fused_attn_sublayer_int8(x, *o, num_heads=heads),
+                lambda x, o=ops: q.attn_sublayer_int8_plain(x, *o, num_heads=heads), not variant))
+            if not variant:
+                for scales in (None, static):
+                    mops = to_device(q.pack_mlp_int8(norm, fc1, fc2, static_scales=scales),
+                                     device)
+                    for tanh in (False, True):
+                        cases.append((
+                            "fused_mlp_sublayer_int8",
+                            f"scales={'static' if scales else 'dynamic'} "
+                            f"gelu={'tanh' if tanh else 'erf'}", xi,
+                            lambda x, o=mops, v=tanh: q.fused_mlp_sublayer_int8(x, *o,
+                                                                                gelu_approx=v),
+                            lambda x, o=mops, v=tanh: q.mlp_sublayer_int8_plain(x, *o,
+                                                                                gelu_approx=v),
+                            # the served model's static scales, exact GELU
+                            scales is not None and not tanh))
+        for name, label, x, kernel, plain, timed in cases:
+            compare_kernel(results[name], f"{name} D={CELEBA.d} L={CELEBA.l} B={batch} {label}",
+                           lambda: kernel(x), lambda: plain(x), suffix if timed else None,
+                           phase="phase 15a")
+            if batch > 1:
+                same = torch.equal(kernel(x)[:1], kernel(x[:1].contiguous()))
+                rows_equal[f"{name} {label} B={batch}"] = same
+                print(f"phase 15a: {name} {label}: the first element alone equals the first row "
+                      f"of batch {batch} to the bit: {same}", flush=True)
+    for name in (*KERNELS, *INT8_KERNELS):
+        results[name]["rows_equal_across_batches"] = all(
+            v for k, v in rows_equal.items() if k.split()[0] == name)
+    print(json.dumps({"phase15a_rows_equal_across_batches": rows_equal}), flush=True)
+    return rows_equal
+
+
+def run_bucket_server(card: str) -> dict:
+    """15b: the bucket server over HTTP (``--random_init``, ddpm by default,
+    fused bf16 by default, ``--bucket 1``): ``POST /sample {"n": 2, "seed":
+    7}`` twice, each with the counters set to 0 just before and read just
+    after (K1 = K2 = 2 x 1000 x 13), the PNG images decoded, the two
+    answers equal to the byte; ``/healthz`` names the card."""
+    httpd, svc, base, th = start_server(["--config_path", SERVE_CONFIG, "--random_init",
+                                         "--port", "0", "--device", "cuda", "--bucket", "1"])
+    try:
+        code, info = http_json(base + "/healthz")
+        print(f"phase 15b: /healthz {code} {info}", flush=True)
+        want_info = {"status": "ok", "card": torch.cuda.get_device_name(0), "mode": "bucket",
+                     "method": "ddpm", "steps": STEPS, "attn_impl": "fused", "bucket": 1}
+        if code != 200 or any(info.get(k) != v for k, v in want_info.items()):
+            fail(f"phase 15b: /healthz gave {info}, expected {want_info}")
+        answers, launches = [], {}
+        expected = bf16_blocks(SERVE_BUCKET_IMAGES * STEPS * 13)
+        for i in range(2):
+            reset_counts()
+            tic = time.perf_counter()
+            code, resp = http_json(base + "/sample", {"n": SERVE_BUCKET_IMAGES, "seed": SERVE_SEED})
+            wall = time.perf_counter() - tic
+            launches = read_counts()
+            print(f"phase 15b: POST /sample n={SERVE_BUCKET_IMAGES} seed={SERVE_SEED} (#{i + 1}): "
+                  f"{code}, wall {wall:.6g} s ({SERVE_BUCKET_IMAGES / wall:.6g} images/s, server "
+                  f"elapsed_ms {resp.get('elapsed_ms')}), launches "
+                  f"{ {k: v for k, v in launches.items() if v} } (expected {expected}), card "
+                  f"{card}", flush=True)
+            if code != 200:
+                fail(f"phase 15b: POST /sample answered {code}: {resp}")
+            check_counts(launches, expected)
+            check_png_images("phase 15b", resp, SERVE_BUCKET_IMAGES)
+            check_returned("phase 15b", svc.returned[-1], SERVE_BUCKET_IMAGES)
+            answers.append(resp["images"])
+        same = answers[0] == answers[1]
+        print(f"phase 15b: the repeated request's PNG bytes equal the first's: {same}", flush=True)
+        if not same:
+            fail("phase 15b: the same request gave other bytes")
+    finally:
+        stop_server(httpd, th)
+    return launches
+
+
+def run_continuous_server(card: str) -> dict:
+    """15c: the continuous server (``--slots 8``, int8 with the asset's
+    static scales, ``--cache_pattern 1,0,0``, no warm-up): one request of 8
+    images, admitted on one wave, its launches exact (K11 = K12 =
+    blocks_of(3, 1000), every K12 launch static); each image against the
+    bucket-1 server's on the same flags and seed (equal bits, or within the
+    trajectory gate: FWD_REL_FRO and MODEL_MAX_FRAC of the largest value);
+    then a failure injected into the device loop fails both waiting
+    requests with 503, and a later request and ``/healthz`` answer 503."""
+    from duodiff_tpu_torch import serve
+    from duodiff_tpu_torch.diffusion.continuous import periodic_pattern_table
+
+    flags = ["--config_path", SERVE_CONFIG, "--random_init", "--device", "cuda",
+             "--attn_impl", "fused_int8", "--int8_scales", INT8_SCALES,
+             "--cache_pattern", SERVE_CACHE_PATTERN, "--no-warmup"]
+    n = SERVE_SLOTS
+    pattern = [int(v) for v in SERVE_CACHE_PATTERN.split(",")]
+    blocks = blocks_of(periodic_pattern_table(pattern, STEPS), STEPS)
+    expected = {"fused_attn_sublayer_int8": blocks, "fused_mlp_sublayer_int8": blocks,
+                "fused_mlp_sublayer_int8 static": blocks}
+    httpd, svc, base, th = start_server(flags + ["--port", "0", "--slots", str(n),
+                                                 "--steps_per_poll", str(SERVE_STEPS_PER_POLL)])
+    try:
+        code, info = http_json(base + "/healthz")
+        print(f"phase 15c: /healthz {code} {info}", flush=True)
+        if code != 200 or info.get("mode") != "continuous" or info.get("slots") != n \
+                or info.get("card") != torch.cuda.get_device_name(0):
+            fail(f"phase 15c: /healthz gave {info}")
+        reset_counts()
+        tic = time.perf_counter()
+        code, resp = http_json(base + "/sample", {"n": n, "seed": SERVE_SEED})
+        wall = time.perf_counter() - tic
+        launches = read_counts()
+        print(f"phase 15c: POST /sample n={n} seed={SERVE_SEED}: {code}, wall {wall:.6g} s "
+              f"({n / wall:.6g} images/s, server elapsed_ms {resp.get('elapsed_ms')}), launches "
+              f"{ {k: v for k, v in launches.items() if v} } (expected {expected}), card {card}",
+              flush=True)
+        if code != 200:
+            fail(f"phase 15c: POST /sample answered {code}: {resp}")
+        check_counts(launches, expected)
+        check_png_images("phase 15c", resp, n)
+        got = svc.returned[-1]
+        check_returned("phase 15c", got, n)
+
+        # a device-loop failure: both requests in flight get 503, none hangs
+        def boom():
+            deadline = time.time() + 60
+            while len(svc._slot_jobs) + len(svc._queue) < 3 and time.time() < deadline:
+                time.sleep(0.01)
+            raise RuntimeError("injected device failure")
+
+        svc.batcher.advance = boom
+        answers = {}
+
+        def hit(key, payload):
+            answers[key] = http_json(base + "/sample", payload, timeout=120)
+
+        waiters = [threading.Thread(target=hit, args=(k, {"n": m, "seed": 1}))
+                   for k, m in (("a", 2), ("b", 1))]
+        tic = time.perf_counter()
+        for w in waiters:
+            w.start()
+            time.sleep(0.5)
+        for w in waiters:
+            w.join(timeout=180)
+        codes = {k: answers.get(k, (None,))[0] for k in ("a", "b")}
+        later = http_json(base + "/sample", {"n": 1, "seed": 2}, timeout=60)
+        health = http_json(base + "/healthz", timeout=60)
+        print(f"phase 15c: injected device-loop failure: the two waiting requests answered "
+              f"{codes} in {time.perf_counter() - tic:.3g} s ({answers.get('a', (0, {}))[1]}); a "
+              f"later request {later}; /healthz {health[0]} {health[1].get('status')}",
+              flush=True)
+        if codes != {"a": 503, "b": 503} or later[0] != 503 or health[0] != 503 \
+                or health[1].get("status") != "stopped":
+            fail(f"phase 15c: a device-loop failure gave {codes}, then {later[0]} and /healthz "
+                 f"{health[0]} {health[1].get('status')}, expected 503 throughout and 'stopped'")
+    finally:
+        stop_server(httpd, th)
+
+    # the bucket-1 server on the same flags: the same images
+    ref = serve.SamplerService(serve.get_args(flags + ["--bucket", "1"]))
+    tic = time.perf_counter()
+    want = ref.sample(n=n, seed=SERVE_SEED)
+    ref_s = time.perf_counter() - tic
+    ref.close()
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(got, want)]
+    worst = {"rel_fro": 0.0, "max_abs": 0.0, "bound": float("inf")}
+    for a, b in zip(got, want):
+        max_abs, limit, rel, ok = scaled_errors(torch.from_numpy(np.asarray(a)),
+                                                torch.from_numpy(np.asarray(b)), MODEL_MAX_FRAC)
+        worst = {"rel_fro": max(worst["rel_fro"], rel), "max_abs": max(worst["max_abs"], max_abs),
+                 "bound": min(worst["bound"], limit)}
+        if not ok:
+            fail(f"phase 15c: a continuous image is {rel:.6g} (relative Frobenius) and "
+                 f"{max_abs:.6g} (max, bound {limit:.6g}) from the bucket-1 server's")
+    print(f"phase 15c: the 8 images against the bucket-1 server's ({ref_s:.6g} s for 8 "
+          f"trajectories at batch 1): equal to the bit {equal}; worst relative Frobenius "
+          f"{worst['rel_fro']:.6g} (bound {FWD_REL_FRO}), worst max |diff| {worst['max_abs']:.6g} "
+          f"(bound {worst['bound']:.6g} = {MODEL_MAX_FRAC} x max)", flush=True)
+    release_memory()
+    return launches
+
+
+def run_serving_ab(device, card: str) -> dict:
+    """15d: ``tools.bench_serving`` on the card, bucket 1 against 8 slots,
+    ``--clients 8 --requests_per_client 4``, DPM-Solver++ 20 steps given
+    explicitly (a load shape here, not a quality choice): both JSON lines
+    and the ratio line, beside the card. The launches depend on when the
+    requests reach the slots, so they are held to what is exact: K1 = K2,
+    13 a forward, no other kernel, at least the bucket pass's and at most
+    twice it (the slot pass runs at most one forward an image a step, as
+    when every image rides alone, so an advance with no job in flight
+    fails the check). Then a
+    profile of three ``advance()`` calls of an 8-slot batcher at that shape:
+    the device's idle share and the host's time a step."""
+    from duodiff_tpu_torch.diffusion.continuous import ContinuousDiffusionBatcher
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.tools import bench_serving
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    argv = ["--config_path", SERVE_CONFIG, "--random_init", "--method", "dpm",
+            "--steps", str(SERVE_AB_STEPS), "--clients", str(SERVE_CLIENTS),
+            "--requests_per_client", str(SERVE_REQUESTS_PER_CLIENT), "--slots", str(SERVE_SLOTS),
+            "--steps_per_poll", str(SERVE_STEPS_PER_POLL), "--bucket", "1", "--device", "cuda"]
+    print(f"phase 15d: card {card}", flush=True)
+    result, launches = run_counted("phase 15d: tools.bench_serving", bench_serving.main, argv,
+                                   card, None)
+    for mode in ("bucket", "continuous", "ratio"):
+        if mode not in result:
+            fail(f"phase 15d: no {mode} line")
+    print(f"phase 15d: {json.dumps(result['bucket'])}; {json.dumps(result['continuous'])}; "
+          f"{json.dumps(result['ratio'])}; card {card}", flush=True)
+    k1, k2 = launches["fused_attn_sublayer"], launches["fused_mlp_sublayer"]
+    # the bucket pass: warm-up, touch pass, measured pass, one trajectory an image
+    bucket = (1 + SERVE_CLIENTS + SERVE_CLIENTS * SERVE_REQUESTS_PER_CLIENT) * SERVE_AB_STEPS * 13
+    others = {k: v for k, v in launches.items() if v and k not in KERNELS}
+    if k1 != k2 or k1 % 13 or not bucket <= k1 <= 2 * bucket or others:
+        fail(f"phase 15d: launches {launches}: expected K1 = K2, a multiple of 13, from "
+             f"{bucket} to {2 * bucket}, no other kernel")
+
+    model, cfg = load_model(SERVE_CONFIG, device=device, attn_impl="fused")
+    model.eval().pack_for_kernels()
+    schedule = NoiseSchedule.create(steps=STEPS, device=device)
+    with torch.inference_mode():
+        batcher = ContinuousDiffusionBatcher(
+            model, schedule, img_shape=(cfg.img_size, cfg.img_size, cfg.in_chans),
+            slots=SERVE_SLOTS, method="dpm", dpm_steps=SERVE_AB_STEPS,
+            steps_per_poll=SERVE_STEPS_PER_POLL)
+        batcher.admit_many({s: (torch.Generator(device=device).manual_seed(s), None)
+                            for s in range(SERVE_SLOTS)})
+        batcher.advance()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(3):
+            batcher.advance()
+        issued = time.perf_counter() - tic
+        torch.cuda.synchronize()
+        done = time.perf_counter() - tic
+        steps = 3 * SERVE_STEPS_PER_POLL
+        print(f"phase 15d: three advance() calls of {SERVE_SLOTS} slots ({steps} steps, "
+              f"DPM-Solver++, bf16 fused): the host issued them in {issued * 1e3:.6g} ms "
+              f"({issued * 1e3 / steps:.6g} ms a step), the device finished after "
+              f"{done * 1e3:.6g} ms ({done * 1e3 / steps:.6g} ms a step); card {card}", flush=True)
+        profile_steps("phase 15d, three advance() calls of 8 slots", batcher.advance)
+    del model, batcher
+    release_memory()
+    return launches
+
+
+def run_serving(device, card: str, results: dict) -> dict:
+    """Phase 15: serving. Returns the launches of each counted run."""
+    tic = time.perf_counter()
+    check_serving_kernels(device, results)
+    release_memory()
+    runs = {"15b": run_bucket_server(card)}
+    release_memory()
+    runs["15c"] = run_continuous_server(card)
+    runs["15d"] = run_serving_ab(device, card)
+    print(f"phase 15: {time.perf_counter() - tic:.6g} s", flush=True)
+    print(json.dumps({"phase15_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}),
+        flush=True)
+    return runs
+
+
 def parse_phases(argv) -> set:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4780,11 +5196,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    clock = {"phase": "1", "at": time.perf_counter()}
+
+    def lap(phase: str) -> None:
+        """Print the wall time of the phase that just ended (if it ran) and
+        start the clock of ``phase``."""
+        now = time.perf_counter()
+        if clock["phase"] == "1" or clock["phase"] in run:
+            print(f"wall time: phase {clock['phase']} {now - clock['at']:.6g} s", flush=True)
+        clock.update(phase=phase, at=now)
+
     card = setup()
     kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS, **ATTENTION_KERNELS, **BLOCK_KERNELS,
                **PROBE_KERNELS}
     results = new_results(kernels)
     launches = {}
+    lap("2")
     if "2" in run:
         report_gemm()
         bf16_gemm = check_gemm(device)
@@ -4810,6 +5237,7 @@ def main(argv=None) -> int:
         check_probe_kernels(device, results)
         report_int8_chain()
         check_ragged_int8_chain(device, results)
+    lap("3")
     if "3" in run:
         check_model(device)
         check_int8_model(device)
@@ -4817,59 +5245,84 @@ def main(argv=None) -> int:
         check_imagenet_model(device)
         launches.update(check_block_stack(device))
         check_split_training(device)
+    lap("4")
     if "4" in run:
         launches.update({name: n for name, n in run_main_path(card).items() if name in KERNELS})
         profile_sampling_steps(device, card, int8=False)
+    lap("4b")
     if "4b" in run:
         launches.update({name: n for name, n in run_int8_main_path(card).items()
                          if name in INT8_KERNELS})
         profile_sampling_steps(device, card, int8=True)
+    lap("5")
     if "5" in run:
         launches.update({name: n for name, n in run_train_path(device, card).items()
                          if name in BWD_KERNELS})
+    lap("5b")
     if "5b" in run:
         run_distill_path(card)
+    lap("6")
     if "6" in run:
         launches["flash_attention"] = run_imagenet_sampling(device, card)["flash_attention"]
     fused_peak = None
+    lap("7")
     if "7" in run:
         imagenet_launches, fused_peak = run_imagenet_training(card)
         launches["flash_attention_bwd"] = imagenet_launches["flash_attention_bwd"]
+    lap("8")
     if "8" in run:
         split_launches = run_split_training(card, fused_peak)
         launches["fused_mlp_sublayer_bwd_split"] = split_launches["fused_mlp_sublayer_bwd_split"]
+    lap("9")
     if "9" in run:
         launches.update(run_probe_tools(card))
+    lap("10")
     if "10" in run:
         # phase 4 / 4b's counts stay the record where those paths ran
         for counts in run_other_samplers(device, card).values():
             for name in (*KERNELS, *INT8_KERNELS):
                 if counts.get(name):
                     launches.setdefault(name, counts[name])
+    lap("11")
     if "11" in run:
         # early exit's launches are added to the record of K1, K2, K11 and K12
         for counts in run_early_exit(device, card).values():
             for name in (*KERNELS, *INT8_KERNELS):
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
+    lap("12")
     if "12" in run:
         # early-exit training's launches are added to K1, K2, K6, K7, K11 and K12
         for counts in run_ee_training(device, card).values():
             for name in (*KERNELS, *INT8_KERNELS, *BWD_KERNELS):
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
+    lap("13")
     if "13" in run:
         # latent ImageNet-256's launches are added to K1, K2, K6, K7, K11 and K12
         for counts in run_latent(device, card).values():
             for name in (*KERNELS, *INT8_KERNELS, *BWD_KERNELS):
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
+    lap("14")
     if "14" in run:
         # evaluation's launches are added to K1, K2, K6, K7, K9, K11 and K12
         for counts in run_evaluation(device, card).values():
             for name in EVAL_KERNELS:
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
+    lap("15")
+    if "15" in run:
+        # serving's launches are added to K1, K2, K11 and K12, and kept apart
+        for counts in run_serving(device, card, results).values():
+            for name in (*KERNELS, *INT8_KERNELS):
+                if counts.get(name):
+                    launches[name] = launches.get(name, 0) + counts[name]
+                    results[name]["launches_15"] = (results[name].get("launches_15", 0)
+                                                    + counts[name])
+    lap("end")
+    print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "
+          "started", flush=True)
     if run == set(PHASES):
         idle = sorted(name for name in kernels if not launches.get(name))
         if idle:

@@ -3,7 +3,11 @@
 
 Linear betas in [1e-4, 0.02] over ``steps``; every per-timestep coefficient
 of the reverse step and the three parametrizations is a float32 table on
-the schedule's device, indexed with a Python int ``t``.
+the schedule's device. The reverse steps take ``t`` as a Python int, or as
+a (B,) integer tensor of per-row timesteps (continuous batching, where
+every slot of the batch is at its own step): each coefficient is then the
+rows' table values shaped (B, 1, ..., 1), and each row's result is the
+one the int form gives for its own t, to the bit.
 """
 
 from __future__ import annotations
@@ -74,31 +78,33 @@ class NoiseSchedule:
         """Reverse-step noise scale sqrt(sigma^2_t)."""
         return torch.sqrt(self.sigma_squared(variance_mode)[t])
 
+    def _noise_term(self, x, t, z, variance_mode):
+        return torch.sqrt(_at(self.sigma_squared(variance_mode), t, x)) * z
+
     def step_predict_noise(self, model_output, x, t, z, variance_mode="beta_tilde"):
         """x_{t-1} from predicted epsilon."""
-        alpha_t = self.alphas[t]
-        alpha_bar_t = self.alphas_bar[t]
+        alpha_t = _at(self.alphas, t, x)
+        alpha_bar_t = _at(self.alphas_bar, t, x)
         mean = torch.sqrt(1.0 / alpha_t) * (
             x - (1.0 - alpha_t) / torch.sqrt(1.0 - alpha_bar_t) * model_output
         )
-        return mean + self.sigma(t, variance_mode) * z
+        return mean + self._noise_term(x, t, z, variance_mode)
 
     def step_predict_original(self, model_output, x, t, z, variance_mode="beta_tilde"):
         """x_{t-1} from predicted x_0 via the closed-form posterior mean."""
-        alpha_t = self.alphas[t]
-        alpha_bar_t = self.alphas_bar[t]
-        alpha_bar_prev = self.alphas_bar_prev[t]
-        beta_t = self.betas[t]
+        alpha_t = _at(self.alphas, t, x)
+        alpha_bar_t = _at(self.alphas_bar, t, x)
+        alpha_bar_prev = _at(self.alphas_bar_prev, t, x)
+        beta_t = _at(self.betas, t, x)
         mean = (
             torch.sqrt(alpha_bar_prev) * beta_t * model_output / (1.0 - alpha_bar_t)
             + torch.sqrt(alpha_t) * (1.0 - alpha_bar_prev) * x / (1.0 - alpha_bar_t)
         )
-        return mean + self.sigma(t, variance_mode) * z
+        return mean + self._noise_term(x, t, z, variance_mode)
 
     def step_predict_previous(self, model_output, x, t, z, variance_mode="beta_tilde"):
         """x_{t-1} predicted directly."""
-        del x
-        return model_output + self.sigma(t, variance_mode) * z
+        return model_output + self._noise_term(x, t, z, variance_mode)
 
     def step(self, parametrization: str, model_output, x, t, z,
              variance_mode: str = "beta_tilde"):
@@ -110,7 +116,7 @@ class NoiseSchedule:
             return self.step_predict_previous(model_output, x, t, z, variance_mode)
         raise ValueError(f"Invalid parametrization {parametrization}")
 
-    def ddim_step(self, model_output, x, t: int, s: int, z, eta: float = 0.0):
+    def ddim_step(self, model_output, x, t, s, z, eta: float = 0.0):
         """One DDIM step t -> s (s < t) from predicted epsilon, with
         sigma^2 = eta * beta_tilde_t:
 
@@ -120,12 +126,20 @@ class NoiseSchedule:
 
         The reference adds ``sigma^2 * z``; like the JAX package this takes
         the standard ``sqrt(sigma^2) * z`` (the same at the default eta 0)."""
-        abar_t = self.alphas_bar[t]
-        abar_s = self.alphas_bar[s]
-        sigma_sq = self.betas_tilde[t] * eta
+        abar_t = _at(self.alphas_bar, t, x)
+        abar_s = _at(self.alphas_bar, s, x)
+        sigma_sq = _at(self.betas_tilde, t, x) * eta
         mean = torch.sqrt(abar_s / abar_t) * (x - torch.sqrt(1.0 - abar_t) * model_output)
         mean = mean + torch.sqrt(torch.clamp(1.0 - abar_s - sigma_sq, min=0.0)) * model_output
         return mean + torch.sqrt(sigma_sq) * z
+
+
+def _at(table: torch.Tensor, t, x: torch.Tensor) -> torch.Tensor:
+    """``table[t]``: a 0-d tensor for an int ``t``; for a (B,) tensor of
+    per-row timesteps the rows' values, shaped to broadcast over ``x``."""
+    if isinstance(t, torch.Tensor) and t.ndim == 1:
+        return _bcast(table[t], x.ndim)
+    return table[t]
 
 
 def _bcast(coeffs: torch.Tensor, ndim: int) -> torch.Tensor:

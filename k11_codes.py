@@ -220,6 +220,180 @@ def diagnose_k11_codes(device) -> dict:
     return verdicts
 
 
+# the batch element of the one entry past the reordered plain's worst with a
+# qkv bias (row (101, 24), 0.0662 from plain on an H100)
+K11_TRACE_ELEMENT = 101
+K11_TRACE_ROW = 24
+
+
+def bf16_flip_only(got: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
+    """Where ``got`` (bf16 values as fp32) is one of the two bf16 values
+    around the fp32 ``exact``: a rounding of ``exact`` to either side, what
+    an fp32 difference of an ulp or so in ``exact`` can move."""
+    return (got - exact).abs() < bf16_ulp(exact)
+
+
+def stage_diff(label: str, got: torch.Tensor, want: torch.Tensor, exact=None) -> dict:
+    """Entries of ``got`` unlike ``want`` (both bf16 values or codes as fp32)
+    and the largest difference; with ``exact``, the fp32 values ``want``
+    rounds, also how many of the differing entries are a bf16 rounding of
+    ``exact`` to its other side (:func:`bf16_flip_only`)."""
+    diff = got != want
+    n = int(diff.sum())
+    out = {"entries": got.numel(), "differ": n,
+           "max_abs": (got - want).abs().max().item() if n else 0.0}
+    if exact is not None and n:
+        out["differ_beyond_a_rounding_flip"] = int((diff & ~bf16_flip_only(got, exact)).sum())
+    print(f"k11 stages: {label}: {out}", flush=True)
+    return out
+
+
+def k11_launch_keeping(x, ops, heads: int, eps: float = 1e-5):
+    """K11 with dynamic scales, launched as ``fused_attn_sublayer_int8``'s
+    CUDA wrapper launches it, keeping the buffers its launches pass between
+    stages. Returns (y, kept): ``qkv`` (B*L, 3A) bf16 after the dequant, the
+    bias and the rounding; ``merged`` (B*L, A) bf16, the attention core's
+    heads; ``m8`` (B*L, A) int8 and ``mrs`` (B*L,) fp32, their codes and row
+    scales, as the proj GEMM read them."""
+    from duodiff_tpu_torch.ops._build import load_library
+    from duodiff_tpu_torch.ops.block import _ptr, _raise_on_error
+
+    ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp = ops
+    b, l, d = x.shape
+    m, dev = b * l, x.device
+    x8 = torch.empty((m, d), dtype=torch.int8, device=dev)  # reused for the merged heads
+    rs = torch.empty((m,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
+    merged = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    y = torch.empty_like(x)
+    lib = load_library()
+    err = lib.duodiff_attn_sublayer_int8(
+        _ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv8), _ptr(sqkv), _ptr(bqkv),
+        _ptr(wp8), _ptr(sp), _ptr(bp), None, _ptr(x8), _ptr(rs), _ptr(qkv), _ptr(merged),
+        _ptr(y), b, l, d, heads, eps, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on_error(lib, "int8 attention sublayer kernel", err)
+    return y, {"qkv": qkv, "merged": merged, "m8": x8, "mrs": rs}
+
+
+def trace_k11_stages(device) -> dict:
+    """K11 at D = 1024, batch 128, with and without a qkv bias: the kernel's
+    intermediates against plain's, for the whole batch and for batch element
+    K11_TRACE_ELEMENT alone (q, k and v apart). Plain's stages follow
+    ``attn_sublayer_int8_plain``: qkv = acc_f32 * (rs * sqkv), + the fp32
+    bias, one cast to bf16 (duodiff_tpu/ops/pallas_block_int8.py:124-129);
+    the bf16 core; per-row codes of the merged heads; the proj with the fp32
+    residual and bias. Each later stage is also taken from the kernel's own
+    input to it, so a difference is pinned to the stage that makes it."""
+    from duodiff_tpu_torch.ops import block_int8 as q
+    from duodiff_tpu_torch.ops.block import _layer_norm, attention_core_plain
+    from duodiff_tpu_torch.ops.gemm import ln_quant_rows
+
+    w, out = IMAGENET256, {}
+    a, b = w.d, K11_TRACE_ELEMENT
+    for qkv_bias in (True, False):
+        x, norm, qkv_mod, proj, _, _ = block_modules(MAIN_BATCH, qkv_bias, width=w)
+        x = x.to(device)
+        ops = to_device(q.pack_attn_int8(norm, qkv_mod, proj, num_heads=w.heads), device)
+        ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, bp = ops
+        kernel, keep = k11_launch_keeping(x, ops, w.heads)
+        torch.cuda.synchronize()
+        shape = (MAIN_BATCH, w.l)
+        k_qkv = keep["qkv"].reshape(*shape, 3 * a).float()
+        k_merged = keep["merged"].reshape(*shape, a).float()
+        k_m8 = keep["m8"].reshape(*shape, a).float()
+        k_mrs = keep["mrs"].reshape(*shape, 1)
+        # plain, stage by stage
+        xv = x.float()
+        xn = _layer_norm(xv, ln_scale, ln_bias, 1e-5)
+        x8, rs = q._quant_rows(xn)
+        exact = q._int8_matmul(x8, wqkv8) * (rs * sqkv)
+        if bqkv is not None:
+            exact = exact + bqkv
+        p_qkv = exact.to(torch.bfloat16)
+        label = f"D={w.d} B={MAIN_BATCH} qkv_bias={qkv_bias}"
+        res = {"qkv": stage_diff(f"{label} qkv", k_qkv, p_qkv.float(), exact)}
+        # the LayerNorm + quant pass that fed the kernel's qkv GEMM, alone
+        k_x8, k_rs = ln_quant_rows(x.reshape(-1, a), ln_scale, ln_bias)
+        k_x8, k_rs = k_x8.reshape(*shape, a), k_rs.reshape(*shape, 1)
+        flips = (k_x8.float() - x8.float()).abs()
+        # where a code moved in a row whose scale did not: how far plain's
+        # value sat from the rounding boundary, in codes
+        pos = xn * (xn.new_tensor(127.0) / xn.abs().amax(-1, keepdim=True))
+        same_scale = (flips > 0) & (k_rs == rs)
+        dist = ((pos - torch.floor(pos)) - 0.5).abs()[same_scale]
+        res["ln_codes"] = {"entries": flips.numel(), "differ": int((flips > 0).sum()),
+                           "boundary_distance_max": dist.max().item() if dist.numel() else None,
+                           "max_abs": flips.max().item(),
+                           "rows_with_a_flip": int((flips.amax(-1) > 0).sum()),
+                           "row_scales_differ": int((k_rs != rs).sum()),
+                           f"differ[{b}]": int((flips[b] > 0).sum()),
+                           f"row_scales_differ[{b}]": int((k_rs[b] != rs[b]).sum())}
+        print(f"k11 stages: {label} LayerNorm + quant codes vs plain's: {res['ln_codes']}",
+              flush=True)
+        from_ln = q._int8_matmul(k_x8, wqkv8) * (k_rs * sqkv)
+        if bqkv is not None:
+            from_ln = from_ln + bqkv
+        from_ln = from_ln.to(torch.bfloat16)
+        res["qkv_from_kernel_ln_codes"] = stage_diff(
+            f"{label} qkv vs plain's epilogue on the kernel's LayerNorm + quant codes", k_qkv,
+            from_ln.float())
+        for i, part in enumerate("qkv"):
+            cols = slice(i * a, (i + 1) * a)
+            res[f"{part}[{b}]"] = stage_diff(f"{label} {part} of element {b}",
+                                             k_qkv[b, :, cols], p_qkv[b, :, cols].float(),
+                                             exact[b, :, cols])
+        # the core on the kernel's own q, k, v, then on plain's
+        own = attention_core_plain(keep["qkv"].reshape(*shape, 3 * a), w.heads, torch.bfloat16)
+        res["merged_from_kernel_qkv"] = stage_diff(f"{label} merged heads vs plain core on the "
+                                                   "kernel's q, k, v", k_merged, own.float())
+        res[f"merged_from_kernel_qkv[{b}]"] = stage_diff(
+            f"{label} merged heads of element {b} vs plain core on the kernel's q, k, v",
+            k_merged[b], own[b].float())
+        p_merged = attention_core_plain(p_qkv, w.heads, torch.bfloat16).float()
+        res["merged"] = stage_diff(f"{label} merged heads vs plain's", k_merged, p_merged)
+        # the codes of the kernel's own merged heads
+        m8, mrs = q._quant_rows(k_merged)
+        res["m8_from_kernel_merged"] = stage_diff(f"{label} merged-head codes vs plain quant of "
+                                                  "the kernel's heads", k_m8, m8.float())
+        res["mrs_from_kernel_merged"] = stage_diff(f"{label} merged-head row scales",
+                                                   k_mrs, mrs)
+        # the proj on the kernel's own codes and scales
+        p_out = (xv + q._int8_matmul(keep["m8"].reshape(*shape, a), wp8) * (k_mrs * sp)
+                 + bp).to(torch.bfloat16).float()
+        res["out_from_kernel_codes"] = stage_diff(f"{label} output vs plain proj on the kernel's "
+                                                  "codes", kernel.float(), p_out)
+        # plain from the kernel's q, k, v on: its core, codes and proj
+        o8, ors = q._quant_rows(own.float())
+        from_qkv = (xv + q._int8_matmul(o8, wp8) * (ors * sp) + bp).to(torch.bfloat16).float()
+        # plain from the kernel's LayerNorm + quant codes on: its qkv
+        # epilogue, the plain core, codes and proj
+        l8, lrs = q._quant_rows(attention_core_plain(from_ln, w.heads, torch.bfloat16).float())
+        from_codes = (xv + q._int8_matmul(l8, wp8) * (lrs * sp) + bp).to(torch.bfloat16).float()
+        res["out_vs_plain_from_kernel_ln_codes_max"] = (
+            kernel.float() - from_codes).abs().max().item()
+        whole = q.attn_sublayer_int8_plain(x, *ops, num_heads=w.heads).float()
+        res["out_vs_plain_max"] = (kernel.float() - whole).abs().max().item()
+        print(f"k11 stages: {label} output: max |kernel - plain| {res['out_vs_plain_max']:.6g}, "
+              f"max |kernel - plain from the kernel's LayerNorm + quant codes| "
+              f"{res['out_vs_plain_from_kernel_ln_codes_max']:.6g}", flush=True)
+        row = (b, K11_TRACE_ROW)
+        at = {
+            "kernel": kernel[row].float(), "plain": whole[row],
+            "plain_from_kernel_ln_codes": from_codes[row],
+            "plain_from_kernel_qkv": from_qkv[row], "plain_proj_on_kernel_codes": p_out[row],
+        }
+        worst = int((at["kernel"] - at["plain"]).abs().argmax())
+        res[f"row{row}"] = {k: v[worst].item() for k, v in at.items()}
+        res[f"row{row}"]["column"] = worst
+        print(f"k11 stages: {label} row {row}, its worst column {worst}: "
+              f"{res[f'row{row}']}", flush=True)
+        out[f"qkv_bias={qkv_bias}"] = res
+        del keep, kernel, exact, xn, pos, p_qkv, own, p_merged, whole, p_out, from_qkv, o8, from_ln, from_codes
+    print(json.dumps({"k11_stages": out}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device; k11_codes.py runs only on a GPU", file=sys.stderr)
@@ -228,6 +402,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     setup()
     diagnose_k11_codes(torch.device("cuda", 0))
+    trace_k11_stages(torch.device("cuda", 0))
     return 0
 
 

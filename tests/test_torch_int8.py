@@ -126,6 +126,24 @@ def test_weight_codes_and_scales_match_jax(which):
         np.testing.assert_allclose(bqkv.numpy(), np.asarray(j_bqkv)[0], rtol=1e-7, atol=0)
 
 
+@pytest.mark.parametrize("width,heads", [(512, 8), (1024, 16)], ids=["d512", "d1024"])
+def test_prescaled_q_bias_equals_jax_to_the_bit(width, heads):
+    """K11's qkv bias with the softmax scale folded into its q part, fp32,
+    equal to the bit to JAX's _prep_attn_int8 at the CelebA and the latent
+    ImageNet-256 widths (the latter where K11's open check ran)."""
+    rng = np.random.RandomState(width)
+    wqkv = (0.05 * rng.randn(width, 3 * width)).astype(np.float32)
+    bqkv = (0.05 * rng.randn(3 * width)).astype(np.float32)
+    wp = (0.05 * rng.randn(width, width)).astype(np.float32)
+    norm = nn.LayerNorm(width)
+    proj = nn.Linear(width, width)
+    got = q.pack_attn_int8(norm, _linear(wqkv, bqkv), proj, num_heads=heads)[4]
+    want = pbi._prep_attn_int8(jnp.asarray(wqkv), jnp.asarray(bqkv), jnp.asarray(wp),
+                               num_heads=heads)[2]
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[0])
+
+
 def test_static_scales_fold_as_jax():
     """s1 * sx/127, s2 * sh/127 and inv = [127/sx, 127/sh] in fp32, as the
     JAX wrapper folds them; the codes are those of the dynamic pack."""
