@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768) and of the
@@ -44,15 +44,16 @@ printing its results on its own lines:
    ``configs/uvit_imagenet64.yaml`` (D = 768, 12 heads, depth 17, L = 258),
    ``--attn_impl pallas`` (the unfused block around the attention kernel
    K9) with classifier-free guidance on random classes at batch 64, so
-   every forward runs at batch 128; then one guided step timed and profiled;
+   every forward runs at batch 128, over 250 steps (depth 3 for 75); then
+   one guided step timed and profiled;
 7. class-conditional training through the training CLI on
    ``configs/uvit_imagenet64.yaml`` at batch 128 in bf16 on a synthetic
-   ImageNet-64 cache with label dropout: 100 steps with ``--attn_impl
+   ImageNet-64 cache with label dropout: 50 steps with ``--attn_impl
    pallas`` (K9 forward, K10 backward; the loss must fall), a step's split,
    profile and peak memory, then 20 steps with ``--attn_impl fused`` (K1,
    K2, K6, K7 at D = 768);
 8. the same fused training with ``DUODIFF_MLP_BWD_SPLIT=1``, so that the MLP
-   sublayer's backward is the split kernel K8 and K7 never runs: 40
+   sublayer's backward is the split kernel K8 and K7 never runs: 20
    steps (the loss must fall; split, profile and peak memory beside phase
    7's), 20 steps with ``--grad_accum 2 --skip_nonfinite 3`` (10 optimizer
    updates), a run loaded from that one's checkpoint of step 13, inside an
@@ -74,8 +75,8 @@ printing its results on its own lines:
    steps over 1000; (d) ``duodiff_tpu_torch.tools.derive_cache_schedule`` in
    DuoDiff mode for the pair phase 4b samples (seeds 0 and 1, at most 80
    anchors), its JSON loaded back; (e) ``duodiff_tpu_torch.tools.calibrate_int8
-   --mode search`` on the depth-13 model at seed 1, batch 16, its PSNR table
-   printed; (f) phase 4b's composition on the files (d) and (e) wrote. Each
+   --mode search`` on the depth-13 model at seed 1, batch 16, over 125
+   steps, its PSNR table printed; (f) phase 4b's composition on the files (d) and (e) wrote. Each
    with exact launch counts and its wall time beside the card;
 11. early-exit sampling through ``python -m duodiff_tpu_torch.eesample`` and
    ``duodiff_tpu_torch.tools.calibrate_probes``, random weights from seed 0:
@@ -87,7 +88,7 @@ printing its results on its own lines:
    bf16, then one such step timed beside its backbone alone and profiled;
    (b) four buckets derived from (a)'s indices, cached every 2; (c) a
    probe calibration (batch 16, 100 steps), the monotone adaptive walk and
-   the bidirectional one on that file; (d) guided on
+   the bidirectional one on that file (500 steps each); (d) guided on
    ``configs/deediff_imagenet64.yaml`` (D = 768, depth 17), batch 64 doubled;
    (e) int8 with the asset's static MLP scales. The launch counts follow
    from each run's buckets and walk; they are added to the record of K1,
@@ -98,7 +99,7 @@ printing its results on its own lines:
    gates at batch 8, fused against plain (every gradient, the five loss
    terms, a few AdamW steps; with the backbone frozen, the backbone equal to
    its start, the heads moved, the logged norm over every gradient); (b)
-   200 steps with ``--async_checkpoint``, sampling once at the last step
+   100 steps with ``--async_checkpoint``, sampling once at the last step
    (16 images, 1000 steps), the loss falling, the checkpoint in
    ``load_model(early_exit=True)``, a ``--resume`` run and ``eesample`` on it;
    (c) ``--load_backbone`` of a ``uvit_celeba.yaml`` checkpoint from a seed
@@ -116,7 +117,7 @@ printing its results on its own lines:
    trajectory at D = 1024, fused against plain on one noise table, and the
    autoencoder's decode and encode in bf16 against fp32; (b) guided
    DuoDiff sampling through the sampling CLI (``uvit_imagenet256_3.yaml``
-   for 300 steps, then ``uvit_imagenet256.yaml``), batch 16, decoded to
+   for 75 of 250 steps, then ``uvit_imagenet256.yaml``), batch 16, decoded to
    256 x 256 PNG files; (c) the cached int8 operating point on
    ``assets/cache_schedule_imagenet256.json``, batch 32, decoded; (d)
    ``eesample``'s dynamic rule on ``deediff_imagenet256.yaml``, 100 steps,
@@ -137,12 +138,13 @@ printing its results on its own lines:
    ``tools.convergence_probe`` trains ``uvit_cifar10.yaml`` on palette data
    (batch 128, bf16, fused; the loss must fall), ``tools.quality_matrix``
    samples it with ddpm, int8, cache3, cache3_int8, ddim50 and dpm20 at
-   batch 64, each row's launches held exactly, ``tools.score_quality``
-   scores them, and the table is printed; (d) ``python -m
+   batch 64 over a 250-step schedule, each row's launches held exactly, ``tools.score_quality``
+   scores cache3_int8 against ddpm, and the table is printed (b runs in a
+   process of its own while c's probe trains); (d) ``python -m
    duodiff_tpu_torch.fid`` on random-init weights, ``tools.t_switch_sweep``
    on the trained backbone and a random depth-3 model,
    ``tools.probe_cache_gamma`` and ``tools.trajectory_parity`` (every row;
-   ``attn pallas vs fused`` launches K9) at 100 steps, each row's launches
+   ``attn pallas vs fused`` launches K9) at 60 steps, each row's launches
    held exactly. Phase 14's launches are added to the record of K1, K2, K6,
    K7, K9, K11 and K12.
 15. serving, at the CelebA-64 width (``configs/uvit_celeba.yaml``, random
@@ -151,12 +153,12 @@ printing its results on its own lines:
    batches 1, 3 and 16, phase 2's bounds, timed beside their bounds, and
    each kernel on the first element alone against the first row of the
    batch, to the bit; (b) ``duodiff_tpu_torch.serve.main`` in-process on an
-   ephemeral port, the bucket-1 server (ddpm, fused bf16):
-   ``POST /sample {"n": 2, "seed": 7}`` twice, each with K1 = K2 = 26,000
+   ephemeral port, the bucket-1 server (ddpm over 250 steps, fused bf16):
+   ``POST /sample {"n": 2, "seed": 7}`` twice, each with K1 = K2 = 6,500
    launches, the PNG images decoded to 64 x 64 x 3, the two answers equal to
    the byte, ``/healthz`` naming the card; (c) the 8-slot continuous server
    (int8 with the asset's static scales, ``--cache_pattern 1,0,0``): one
-   request of 8 images on one wave (K11 = K12 = 7,006, every K12 launch
+   request of 8 images on one wave (250 steps: K11 = K12 = 1,756, every K12 launch
    static), each image against the bucket-1 server's on the same flags and
    seed (equal bits, or 1 % relative Frobenius and 2**-5 of the largest
    value), then a failure injected into the device loop answered 503 to
@@ -167,6 +169,25 @@ printing its results on its own lines:
    8-slot batcher (idle share, host time a step). Phase 15's launches are
    added to the record of K1, K2, K11 and K12, and kept apart as
    ``launches_15``.
+16. data and tensor parallelism over ``torch.distributed``, two ranks
+   sharing the one card over gloo: (a) K1, K2, K6 and K7 in their shard form
+   (``residual=False``, rank 0's shard of the heads or hidden columns) against
+   their plain versions at batch 128, D = 512 and 768 over 2 and 4 shards,
+   timed beside their bounds, and every shard's partials summed (+ x +
+   bias; dx + dy, dgamma, dbeta) against the square kernel on the same
+   weights; (b) in one ``python -m torch.distributed.run --standalone
+   --nproc_per_node 2``, the training CLI with ``--model_parallel 2`` on
+   ``configs/uvit_cifar10.yaml`` at batch 128, bf16, fused, synthetic
+   CIFAR-10 data, 10 steps (exact per-rank launches of the four shard forms,
+   the loss falling, the gathered checkpoint in the one-process
+   ``load_model``, its forward held against the run's own); (c) then the
+   same data-parallel, its first loss, first gradient norm and last loss
+   within 2 % of (b)'s, its checkpoint held as (b)'s; (d) after each, the
+   sampling CLI so, DuoDiff DDPM over 10 steps at batch 128,
+   tensor-parallel within the trajectory gate of the one-process run and
+   data-parallel equal to it to the bit. The ranks are this script
+   in its ``--worker`` mode. Phase 16's launches are added to the records of
+   K1, K2, K6 and K7 and make those of their shard forms.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -323,7 +344,7 @@ MODEL_MAX_FRAC = 2.0**-5
 # (K11 with a qkv bias: 0.066 on an H100). At batch 8 both keep the
 # elementwise bound.
 INT8_WHOLE_MAX_FRAC = 2.0**-5
-TIMING_REPS = 25
+TIMING_REPS = 10
 
 KERNELS = {
     "fused_attn_sublayer": {
@@ -411,7 +432,7 @@ PROBE_KERNELS = {
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
 PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15")
+          "15", "16")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -450,15 +471,16 @@ LOSS_DROP = 0.75
 TRAIN_CONFIG = str(REPO / "configs/uvit_cifar10.yaml")
 STUDENT_CONFIG = str(REPO / "configs/uvit_cifar10_3.yaml")
 TRAIN_BATCH = 128      # main.py's default
-TRAIN_STEPS = 200
+TRAIN_STEPS = 100
 RESUME_STEPS = 20
 DISTILL_STEPS = 20
 WARMUP_STEPS = 20
 IMAGENET_EARLY_CONFIG = str(REPO / "configs/uvit_imagenet64_3.yaml")
 IMAGENET_CONFIG = str(REPO / "configs/uvit_imagenet64.yaml")
 GUIDED_BATCH = 64          # every guided forward runs at twice this, MAIN_BATCH
+GUIDED_STEPS, GUIDED_SWITCH = 250, 75    # phases 6 and 13b: the guided DuoDiff schedule
 GUIDANCE_SCALE = 1.5
-IMAGENET_TRAIN_STEPS = 100
+IMAGENET_TRAIN_STEPS = 50
 IMAGENET_FUSED_STEPS = 20
 LABEL_DROPOUT = 0.1
 INT8_SCALES = str(REPO / "assets/int8_scales_celeba_flagship.json")
@@ -754,7 +776,7 @@ def check_bwd_kernels(device, results: dict, width: Width = CELEBA, variants=(Fa
 
 
 def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, suffix,
-                       elementwise_first: bool = True) -> dict:
+                       elementwise_first: bool = True, phase: str = "phase 2") -> dict:
     """A backward kernel against its plain version: every output within
     BWD_REL_FRO, the first (dx) also elementwise unless told otherwise, and
     a repeat call equal to the bit. Returns the times."""
@@ -769,7 +791,7 @@ def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, suffix,
     ms = time_ms({"kernel": kernel, "plain": plain})
     worst = max(rels, key=rels.get)
     ok = same and (dx_ok or not elementwise_first) and rels[worst] <= BWD_REL_FRO
-    print(f"phase 2: {label}: rel_fro_err {', '.join(f'{n}={v:.3g}' for n, v in rels.items())} "
+    print(f"{phase}: {label}: rel_fro_err {', '.join(f'{n}={v:.3g}' for n, v in rels.items())} "
           f"(bound {BWD_REL_FRO}) {outs[0]} max_abs_err={dx_abs:.6g} "
           f"bound={ATOL}+{RTOL}*|plain| "
           f"max_abs_err={abs_err:.6g} repeat_equal={same} ok={ok} kernel_ms={ms['kernel']:.6g} "
@@ -2910,22 +2932,22 @@ def check_imagenet_model(device) -> None:
 
 
 def run_imagenet_sampling(device, card: str) -> dict:
-    """Phase 6: the sampling CLI on the ImageNet-64 pair (depth 3 for 300
-    steps, then depth 17), class-conditional with classifier-free guidance
+    """Phase 6: the sampling CLI on the ImageNet-64 pair over GUIDED_STEPS
+    steps (depth 3 for GUIDED_SWITCH, then depth 17), class-conditional with classifier-free guidance
     on random real classes, the unfused block around K9; every guided
     forward runs at batch 2 * GUIDED_BATCH. Then one guided depth-17 step
     alone, timed and profiled by kernel."""
     from duodiff_tpu_torch.diffusion.sampling import make_guided_apply
     from duodiff_tpu_torch.utils.model_loading import load_model
 
-    expected = T_SWITCH * 3 + (STEPS - T_SWITCH) * 17
+    expected = GUIDED_SWITCH * 3 + (GUIDED_STEPS - GUIDED_SWITCH) * 17
     launches = run_cli(
-        f"phase 6: guided DuoDiff {STEPS} steps on ImageNet-64 (depth 3 x {T_SWITCH}, depth 17 x "
-        f"{STEPS - T_SWITCH}), attn_impl pallas, w={GUIDANCE_SCALE}, forwards at batch "
-        f"{2 * GUIDED_BATCH},",
+        f"phase 6: guided DuoDiff {GUIDED_STEPS} steps on ImageNet-64 (depth 3 x {GUIDED_SWITCH}, "
+        f"depth 17 x {GUIDED_STEPS - GUIDED_SWITCH}), attn_impl pallas, w={GUIDANCE_SCALE}, "
+        f"forwards at batch {2 * GUIDED_BATCH},",
         ["--attn_impl", "pallas", "--class_id", "-1", "--guidance_scale", str(GUIDANCE_SCALE)],
         card, {"flash_attention": expected}, configs=(IMAGENET_EARLY_CONFIG, IMAGENET_CONFIG),
-        batch=GUIDED_BATCH,
+        batch=GUIDED_BATCH, steps=GUIDED_STEPS, t_switch=GUIDED_SWITCH,
     )
     model, cfg = load_model(IMAGENET_CONFIG, device=device, seed=1, attn_impl="pallas")
     apply = make_guided_apply(model.eval(), GUIDANCE_SCALE, cfg.num_classes - 1)
@@ -3173,7 +3195,7 @@ def check_split_training(device) -> None:
         p.grad = None
 
 
-SPLIT_TRAIN_STEPS = 40
+SPLIT_TRAIN_STEPS = 20
 ACCUM_STEPS, ACCUM, ACCUM_SAVE_AT = 20, 2, 13   # saved inside the 7th window
 CHECKPOINT_STEPS = 10
 FUSED_KERNELS_SPLIT = ("fused_attn_sublayer", "fused_mlp_sublayer", "fused_attn_sublayer_bwd",
@@ -3184,7 +3206,7 @@ def run_split_training(card: str, fused_peak) -> dict:
     """Phase 8, fused training with the split MLP backward at full width:
     the training CLI on configs/uvit_imagenet64.yaml at batch 128 in bf16 on the synthetic
     ImageNet-64 cache, --attn_impl fused with DUODIFF_MLP_BWD_SPLIT=1, so
-    every block runs K1, K2, K6 and K8 and none K7: (a) 40 steps, the loss
+    every block runs K1, K2, K6 and K8 and none K7: (a) 20 steps, the loss
     must fall, a step's split, profile and peak memory beside the K7 leg's
     (``fused_peak``, None when phase 7 did not run); (b) 20 steps with
     --grad_accum 2 --skip_nonfinite 3: 10
@@ -3360,6 +3382,7 @@ DPM_CACHE_EVERY = 2
 INTERLEAVE_EVERY = 4
 DERIVE_ANCHORS = 80       # the committed schedule's meta: num_anchors<=80, batch 128
 CALIB_BATCH = 16          # the committed scales' meta: search 99.5, 99.9, margin 1.1
+CALIB_STEPS = 125         # 10e's trajectories (the committed scales' meta: 1000)
 CALIB_GRID = "99.5,99.9"
 CALIB_MARGIN = 1.1
 
@@ -3521,14 +3544,15 @@ def run_other_samplers(device, card: str) -> dict:
             fail("the derived cache schedule is not what phase 10d asked for")
 
         candidates = 1 + len(CALIB_GRID.split(","))
-        per_run = STEPS * 13
+        per_run = CALIB_STEPS * 13
         calibrated, runs["10e"] = run_tool(
             f"phase 10e: calibrate_int8 --mode search (grid {CALIB_GRID}, margin "
-            f"{CALIB_MARGIN}), depth 13 seed 1, batch {CALIB_BATCH}, tanh GELU",
+            f"{CALIB_MARGIN}), depth 13 seed 1, batch {CALIB_BATCH}, {CALIB_STEPS} steps, tanh "
+            f"GELU",
             calibrate_int8.main,
             ["--config_path", LATE_CONFIG, "--random_init", "--seed", "1", "--mode", "search",
              "--search_grid", CALIB_GRID, "--margin", str(CALIB_MARGIN), "--gelu_approx",
-             "--batch_size", str(CALIB_BATCH), "--num_timesteps", str(STEPS),
+             "--batch_size", str(CALIB_BATCH), "--num_timesteps", str(CALIB_STEPS),
              "--output", scales_path, "--device", "cuda"],
             card, {"fused_attn_sublayer_int8": (2 + candidates) * per_run,
                    "fused_mlp_sublayer_int8": (1 + candidates) * per_run,
@@ -3558,6 +3582,7 @@ EE_CALIB_BATCH = 16
 EE_CALIB_STEPS = 100
 EE_ADAPTIVE_LAYERS = (4, 7, 10, 13)
 EE_ADAPTIVE_CHUNK = 50    # eesampler.py's --adaptive_chunk default
+EE_WALK_STEPS = 500       # 11c's walks: 10 chunks
 EE_SHORT_STEPS = 50       # the guided (11d) and int8 (11e) runs
 EE_GATE_STEPS = 20
 EE_GATE_BUCKETS = [(19, 14, 4), (13, 7, 9), (6, 0, 13)]
@@ -3812,8 +3837,8 @@ def run_early_exit(device, card: str) -> dict:
                                                calib_path])):
             result, runs[f"11c {walk}"], _ = run_ee_cli(
                 f"phase 11c: adaptive {walk} walk over layers {layers}, chunk "
-                f"{EE_ADAPTIVE_CHUNK}, {STEPS} steps, threshold {extra[1]}",
-                [*common, "--num_timesteps", str(STEPS), "--adaptive_layers", layers,
+                f"{EE_ADAPTIVE_CHUNK}, {EE_WALK_STEPS} steps, threshold {extra[1]}",
+                [*common, "--num_timesteps", str(EE_WALK_STEPS), "--adaptive_layers", layers,
                  "--adaptive_chunk", str(EE_ADAPTIVE_CHUNK), *extra], card, MAIN_BATCH,
                 walk_launches)
             print(f"phase 11c: {walk} walk layers by chunk "
@@ -3840,7 +3865,7 @@ def run_early_exit(device, card: str) -> dict:
     return runs
 
 
-EE_TRAIN_STEPS = 200
+EE_TRAIN_STEPS = 100
 EE_RESUME_STEPS = 20
 EE_FROZEN_STEPS = 20
 EE_SAMPLES = 16           # main.py's --n_samples default, sampled once at the last step
@@ -4315,15 +4340,16 @@ def run_latent(device, card: str) -> dict:
         check_latent(device, files)
         release_memory()
 
-        n = T_SWITCH * 3 + (STEPS - T_SWITCH) * d
+        n = GUIDED_SWITCH * 3 + (GUIDED_STEPS - GUIDED_SWITCH) * d
         runs["13b"] = run_cli(
-            f"phase 13b: guided DuoDiff {STEPS} steps on ImageNet-256 latents (depth 3 x "
-            f"{T_SWITCH}, depth {d} x {STEPS - T_SWITCH}), w={GUIDANCE_SCALE}, forwards at batch "
-            f"{2 * LATENT_BATCH}, decoded to {LATENT_IMAGE}x{LATENT_IMAGE},",
+            f"phase 13b: guided DuoDiff {GUIDED_STEPS} steps on ImageNet-256 latents (depth 3 x "
+            f"{GUIDED_SWITCH}, depth {d} x {GUIDED_STEPS - GUIDED_SWITCH}), w={GUIDANCE_SCALE}, "
+            f"forwards at batch {2 * LATENT_BATCH}, decoded to {LATENT_IMAGE}x{LATENT_IMAGE},",
             ["--class_id", "-1", "--guidance_scale", str(GUIDANCE_SCALE)], card,
             {"fused_attn_sublayer": n, "fused_mlp_sublayer": n},
             configs=(files["early"], files["late"]), batch=LATENT_BATCH, image_size=LATENT_IMAGE,
-            check_output=lambda folder, _: check_latent_files(LATENT_BATCH, folder))
+            check_output=lambda folder, _: check_latent_files(LATENT_BATCH, folder),
+            steps=GUIDED_STEPS, t_switch=GUIDED_SWITCH)
 
         table = load_cache_schedule(LATENT_CACHE_SCHEDULE, num_timesteps=STEPS)
         anchors = int(table.sum()) + (not table[STEPS - 1])
@@ -4413,16 +4439,23 @@ EVAL_FEATURE_IMAGES = 8    # 14a's card-vs-CPU gate
 EVAL_TIME_IMAGES = 512     # 14a's timing, at EVAL_BATCH
 EVAL_BATCH = 128           # feature extraction
 EVAL_REF_N = 512           # reference draws (score_quality's --ref_n default)
-PROBE_STEPS = 1000         # 14c's training, ~47 ms a step (phase 5)
+FD_RAND_THREADS = "2"      # 14b's BLAS threads, in its own process beside the probe
+PROBE_STEPS = 1000         # 14c's training, ~47 ms a step (phase 5); the cosine schedule's
+                           # length matters: a 700-step run ended at 0.0691, past the gate
 PROBE_SAMPLE_BATCH = 64
 QM_METHODS = ("ddpm", "int8", "cache3", "cache3_int8", "ddim50", "dpm20")
+# the row score_quality scores beside the ddpm baseline (the headline's two
+# knobs together): 2 + 2 x 2 Frechet distances, one 2048^2 square root each,
+# in one round of worker processes
+QM_SCORED = ("cache3_int8",)
 QM_BATCH = 64
+QM_STEPS = 250             # the matrix's schedule (the probe trains on 1000)
 # 14c's loss, last logged over first (the probe's lr 2e-3, warm-up 50)
 PROBE_LOSS_DROP = 0.05  # measured 0.00896 (1.19401 -> 0.0107036), PERF.md
-SWEEP_STEPS, SWEEP_SWITCH, SWEEP_BATCH = 250, 75, 64
+SWEEP_STEPS, SWEEP_SWITCH, SWEEP_BATCH = 125, 38, 64
 # 14d's parity rows and gamma probe: PARITY_STEPS steps, on a drift curve of
 # every (STEPS / PARITY_STEPS)-th step of the committed schedule's
-PARITY_STEPS, PARITY_BATCH, PARITY_CHUNK = 100, 16, 20
+PARITY_STEPS, PARITY_BATCH, PARITY_CHUNK = 60, 16, 20
 GAMMA_BATCH, GAMMA_GAMMAS = 16, "0,1"
 # 14a: the card's fp32 features against the CPU's on the same weights, at
 # 1e-4 of the largest feature: seeded random features are ~1e-4 in scale, so
@@ -4597,15 +4630,39 @@ def check_fd_rand(device, card: str) -> None:
              "floor, or fd_rand is not deterministic")
 
 
-def run_quality_path(device, card: str, work: str) -> tuple:
+def fd_rand_child(card: str) -> None:
+    """14b on the card, in a process of its own (:func:`start_fd_rand`)."""
+    check_fd_rand(torch.device("cuda"), card)
+
+
+def start_fd_rand(card: str):
+    """Start 14b in a spawned process with FD_RAND_THREADS BLAS threads: its
+    three 2048^2 square roots (two in single-thread workers) then hold ~4 of
+    the host's cores while 14c's probe trains in this process, where a
+    thread of its own starved the probe's host thread (59.6 -> 104.1 s).
+    14b launches none of the counted kernels. Returns the process."""
+    import multiprocessing
+
+    keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: FD_RAND_THREADS for k in keys})  # what the child inherits
+    try:
+        proc = multiprocessing.get_context("spawn").Process(target=fd_rand_child, args=(card,))
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return proc
+
+
+def run_probe(card: str, work: str) -> tuple:
     """14c: ``convergence_probe`` (palette k = 4) trains ``uvit_cifar10.yaml``
-    at batch 128, bf16, fused, then ``quality_matrix`` samples the checkpoint
-    with each knob of QM_METHODS at batch 64 (each row's launches held
-    exactly), and ``score_quality`` scores them (ref_n 512). Returns (the
-    launches of each run, the probe's result)."""
-    from duodiff_tpu_torch.diffusion.sampling import ddim_pairs, dpm_solver_tables
-    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
-    from duodiff_tpu_torch.tools import convergence_probe, quality_matrix, score_quality
+    at batch 128, bf16, fused, and samples it. Returns (the launches of the
+    run, the probe's result)."""
+    from duodiff_tpu_torch.tools import convergence_probe
 
     runs = {}
     n, s = 13 * PROBE_STEPS, 13 * STEPS
@@ -4621,13 +4678,25 @@ def run_quality_path(device, card: str, work: str) -> tuple:
     print(f"phase 14c: probe result {json.dumps(result)}", flush=True)
     if not last < PROBE_LOSS_DROP * first:
         fail(f"phase 14c: the train loss did not fall clearly: {first:.6g} -> {last:.6g}")
+    return runs, result
 
-    transitions = len(dpm_solver_tables(NoiseSchedule.create(steps=STEPS), 20)["phi"])
+
+def run_quality_matrix(card: str, work: str, probe: dict) -> dict:
+    """14c: ``quality_matrix`` samples the probe's checkpoint with each knob
+    of QM_METHODS at batch 64 (each row's launches held exactly), and
+    ``score_quality`` scores QM_SCORED against the ddpm row (ref_n 512).
+    Returns the launches of each run."""
+    from duodiff_tpu_torch.diffusion.sampling import ddim_pairs, dpm_solver_tables
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.tools import quality_matrix, score_quality
+
+    runs = {}
+    transitions = len(dpm_solver_tables(NoiseSchedule.create(steps=QM_STEPS), 20)["phi"])
     expected = {
-        "ddpm": bf16_blocks(13 * STEPS), "int8": int8_blocks(13 * STEPS),
-        "cache3": bf16_blocks(blocks_of(3, STEPS)),
-        "cache3_int8": int8_blocks(blocks_of(3, STEPS)),
-        "ddim50": bf16_blocks(13 * len(ddim_pairs(STEPS, 50)[0])),
+        "ddpm": bf16_blocks(13 * QM_STEPS), "int8": int8_blocks(13 * QM_STEPS),
+        "cache3": bf16_blocks(blocks_of(3, QM_STEPS)),
+        "cache3_int8": int8_blocks(blocks_of(3, QM_STEPS)),
+        "ddim50": bf16_blocks(13 * len(ddim_pairs(QM_STEPS, 50)[0])),
         "dpm20": bf16_blocks(13 * transitions),
     }
     total = {}
@@ -4635,24 +4704,25 @@ def run_quality_path(device, card: str, work: str) -> tuple:
         for k, v in row.items():
             total[k] = total.get(k, 0) + v
     rows, runs["14c quality_matrix"] = run_counted(
-        f"phase 14c: quality_matrix {','.join(QM_METHODS)} at batch {QM_BATCH}",
-        quality_matrix.main,
-        ["--config", EVAL_CONFIG, "--checkpoint", result["checkpoint"], "--methods",
-         ",".join(QM_METHODS), "--batch", str(QM_BATCH), "--palette_k", "4",
-         "--out", f"{work}/qm", "--device", "cuda"], card, total)
+        f"phase 14c: quality_matrix {','.join(QM_METHODS)} at batch {QM_BATCH}, {QM_STEPS} "
+        f"steps", quality_matrix.main,
+        ["--config", EVAL_CONFIG, "--checkpoint", probe["checkpoint"], "--methods",
+         ",".join(QM_METHODS), "--batch", str(QM_BATCH), "--palette_k", "4", "--num_timesteps",
+         str(QM_STEPS), "--out", f"{work}/qm", "--device", "cuda"], card, total)
     for name, want in expected.items():
         if "refused" in rows[name]:
             fail(f"phase 14c: the port refused the {name} row: {rows[name]['refused']}")
         check_row_counts(f"phase 14c: quality_matrix row {name}", rows[name]["launches"], want)
     table, _ = run_counted(
-        f"phase 14c: score_quality, palette k=4, ref_n {EVAL_REF_N}", score_quality.main,
-        ["--out", f"{work}/qm", "--ref_n", str(EVAL_REF_N), "--palette_k", "4",
-         "--batch_size", str(EVAL_BATCH), "--device", "cuda"], card, {})
+        f"phase 14c: score_quality of {','.join(QM_SCORED)} against ddpm, palette k=4, ref_n "
+        f"{EVAL_REF_N}", score_quality.main,
+        ["--out", f"{work}/qm", "--methods", ",".join(QM_SCORED), "--ref_n", str(EVAL_REF_N),
+         "--palette_k", "4", "--batch_size", str(EVAL_BATCH), "--device", "cuda"], card, {})
     merged = json.loads(Path(f"{work}/qm/quality_matrix.json").read_text())
     print("phase 14c: | row | sampling s | within-image std | modes hit | counts | "
           "fd_rand_vs_real | fd_rand_vs_dense | spec_vs_real | spec_vs_dense |", flush=True)
     for name, r in [("real_vs_real", table["rows"]["real_vs_real"])] + [
-            (m, merged[m]) for m in QM_METHODS]:
+            (m, merged[m]) for m in ("ddpm", *QM_SCORED)]:
         print(f"phase 14c: | {name} | {r.get('elapsed_s', '')} | {r.get('within_image_std', '')} "
               f"| {r.get('modes_hit', '')} | {r.get('mode_counts', '')} | "
               f"{r['fd_rand_vs_real']} | {r['fd_rand_vs_dense']} | {r['spec_vs_real']} | "
@@ -4661,16 +4731,17 @@ def run_quality_path(device, card: str, work: str) -> tuple:
     if not all(np.isfinite(v) for v in numbers):
         fail("phase 14c: a quality score is not finite")
     print(json.dumps({"phase14_quality": table["rows"]}), flush=True)
-    return runs, result
+    return runs
 
 
 def run_eval_tools(device, card: str, work: str, probe: dict) -> dict:
     """14d: the ``fid`` CLI on random-init weights (real statistics of the
     probe's data saved), ``t_switch_sweep`` on the 14c backbone and a random
-    depth-3 shallow model, ``probe_cache_gamma`` on a 100-step drift curve
-    (every tenth step of the committed DuoDiff schedule's), and
-    ``trajectory_parity`` over every row at 100 steps, batch 16, with a
-    schedule derived from that curve; every row's launches held exactly."""
+    depth-3 shallow model, ``probe_cache_gamma`` on a PARITY_STEPS-step drift
+    curve (every (1000 // PARITY_STEPS)-th step of the committed DuoDiff
+    schedule's), and ``trajectory_parity`` over every row at PARITY_STEPS
+    steps, batch 16, with a schedule derived from that curve; every row's
+    launches held exactly."""
     from duodiff_tpu_torch import fid
     from duodiff_tpu_torch.diffusion.cache_schedule import (
         derive_anchor_table,
@@ -4777,9 +4848,13 @@ def run_evaluation(device, card: str) -> dict:
     each run."""
     tic = time.perf_counter()
     check_extractor(device, card)
-    check_fd_rand(device, card)
     with tempfile.TemporaryDirectory() as work:
-        runs, probe = run_quality_path(device, card, work)
+        floor = start_fd_rand(card)  # 14b on the host while the probe trains on the card
+        runs, probe = run_probe(card, work)
+        floor.join()
+        if floor.exitcode != 0:
+            fail(f"phase 14b: its process exited with {floor.exitcode}")
+        runs.update(run_quality_matrix(card, work, probe))
         release_memory()
         runs.update(run_eval_tools(device, card, work, probe))
     release_memory()
@@ -4797,6 +4872,7 @@ SERVE_KERNEL_BATCHES = (1, 3, 16)       # one image, an odd slot count, a wide s
 SERVE_SLOTS = 8
 SERVE_CACHE_PATTERN = "1,0,0"           # every 3 steps an anchor; n_outer 2, depth 13's default
 SERVE_SEED = 7
+SERVE_STEPS = 250                       # 15b, 15c: the servers' ddpm schedule
 SERVE_BUCKET_IMAGES = 2                 # 15b's request
 SERVE_CLIENTS = 8                       # 15d: the A/B's load
 SERVE_REQUESTS_PER_CLIENT = 4
@@ -4952,19 +5028,20 @@ def run_bucket_server(card: str) -> dict:
     """15b: the bucket server over HTTP (``--random_init``, ddpm by default,
     fused bf16 by default, ``--bucket 1``): ``POST /sample {"n": 2, "seed":
     7}`` twice, each with the counters set to 0 just before and read just
-    after (K1 = K2 = 2 x 1000 x 13), the PNG images decoded, the two
+    after (K1 = K2 = 2 x SERVE_STEPS x 13), the PNG images decoded, the two
     answers equal to the byte; ``/healthz`` names the card."""
     httpd, svc, base, th = start_server(["--config_path", SERVE_CONFIG, "--random_init",
-                                         "--port", "0", "--device", "cuda", "--bucket", "1"])
+                                         "--port", "0", "--device", "cuda", "--bucket", "1",
+                                         "--num_timesteps", str(SERVE_STEPS)])
     try:
         code, info = http_json(base + "/healthz")
         print(f"phase 15b: /healthz {code} {info}", flush=True)
         want_info = {"status": "ok", "card": torch.cuda.get_device_name(0), "mode": "bucket",
-                     "method": "ddpm", "steps": STEPS, "attn_impl": "fused", "bucket": 1}
+                     "method": "ddpm", "steps": SERVE_STEPS, "attn_impl": "fused", "bucket": 1}
         if code != 200 or any(info.get(k) != v for k, v in want_info.items()):
             fail(f"phase 15b: /healthz gave {info}, expected {want_info}")
         answers, launches = [], {}
-        expected = bf16_blocks(SERVE_BUCKET_IMAGES * STEPS * 13)
+        expected = bf16_blocks(SERVE_BUCKET_IMAGES * SERVE_STEPS * 13)
         for i in range(2):
             reset_counts()
             tic = time.perf_counter()
@@ -4995,7 +5072,7 @@ def run_continuous_server(card: str) -> dict:
     """15c: the continuous server (``--slots 8``, int8 with the asset's
     static scales, ``--cache_pattern 1,0,0``, no warm-up): one request of 8
     images, admitted on one wave, its launches exact (K11 = K12 =
-    blocks_of(3, 1000), every K12 launch static); each image against the
+    blocks_of(3, SERVE_STEPS), every K12 launch static); each image against the
     bucket-1 server's on the same flags and seed (equal bits, or within the
     trajectory gate: FWD_REL_FRO and MODEL_MAX_FRAC of the largest value);
     then a failure injected into the device loop fails both waiting
@@ -5005,10 +5082,11 @@ def run_continuous_server(card: str) -> dict:
 
     flags = ["--config_path", SERVE_CONFIG, "--random_init", "--device", "cuda",
              "--attn_impl", "fused_int8", "--int8_scales", INT8_SCALES,
-             "--cache_pattern", SERVE_CACHE_PATTERN, "--no-warmup"]
+             "--cache_pattern", SERVE_CACHE_PATTERN, "--no-warmup", "--num_timesteps",
+             str(SERVE_STEPS)]
     n = SERVE_SLOTS
     pattern = [int(v) for v in SERVE_CACHE_PATTERN.split(",")]
-    blocks = blocks_of(periodic_pattern_table(pattern, STEPS), STEPS)
+    blocks = blocks_of(periodic_pattern_table(pattern, SERVE_STEPS), SERVE_STEPS)
     expected = {"fused_attn_sublayer_int8": blocks, "fused_mlp_sublayer_int8": blocks,
                 "fused_mlp_sublayer_int8 static": blocks}
     httpd, svc, base, th = start_server(flags + ["--port", "0", "--slots", str(n),
@@ -5176,6 +5254,492 @@ def run_serving(device, card: str, results: dict) -> dict:
     return runs
 
 
+# --- phase 16: data and tensor parallelism ------------------------------------
+
+# K1, K2, K6 and K7 in their tensor-parallel shard form (residual=False: a
+# shard's heads or hidden columns, the partial without x + / dx without + dy)
+SHARD_KERNELS = {
+    "fused_attn_sublayer_shard": {
+        "source": "duodiff_tpu_torch/csrc/attn_sublayer.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:97",
+    },
+    "fused_mlp_sublayer_shard": {
+        "source": "duodiff_tpu_torch/csrc/mlp_sublayer.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:395",
+    },
+    "fused_attn_sublayer_bwd_shard": {
+        "source": "duodiff_tpu_torch/csrc/attn_sublayer_bwd.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:232",
+    },
+    "fused_mlp_sublayer_bwd_shard": {
+        "source": "duodiff_tpu_torch/csrc/mlp_sublayer_bwd.cu",
+        "replaces": "duodiff_tpu/ops/pallas_block.py:1035",
+    },
+}
+# 16a: each width at --model_parallel 2 and 4; the first is the main path's
+SHARD_CASES = ((CELEBA, 2, ""), (CELEBA, 4, "_d512_mp4"), (IMAGENET, 2, "_d768_mp2"),
+               (IMAGENET, 4, "_d768_mp4"))
+TP_WORLD = 2               # ranks on the one card, over gloo
+TP_TRAIN_STEPS = 10        # 16b, 16c: enough for the loss to fall at lr 1e-3
+TP_LR, TP_WARMUP = "1e-3", "5"
+TP_FORWARD_BATCH = 8       # 16b: the run's own forward against the checkpoint's
+TP_SAMPLE_STEPS, TP_SAMPLE_SWITCH = 10, 3   # 16d: DuoDiff, depth 3 for 3 steps, then 13
+TP_TIMEOUT = 600           # seconds a torchrun launch may take
+
+
+def shard_bounds(width: Width, mp: int, batch: int = MAIN_BATCH) -> dict:
+    """bound_ms of the shard forms at ``width`` over ``mp`` shards: A = D / mp
+    attention columns, hidden / mp MLP columns; x read, the partial (or dx)
+    written, the shard's weights read once and its weight gradients written
+    once in fp32."""
+    l, d, _ = width
+    a, h = d // mp, 4 * d // mp
+    rows, act = batch * l, batch * l * d * 2
+    return {
+        "fused_attn_sublayer_shard": bound(rows * (8 * d * a + 4 * l * a), 0, 2 * act + 8 * d * a),
+        "fused_mlp_sublayer_shard": bound(rows * 4 * d * h, 0, 2 * act + 4 * d * h),
+        "fused_attn_sublayer_bwd_shard": bound(rows * (22 * d * a + 12 * l * a), 0,
+                                               3 * act + 24 * d * a),
+        "fused_mlp_sublayer_bwd_shard": bound(rows * 10 * d * h, 0, 3 * act + 12 * d * h),
+    }
+
+
+def shard_operands(width: Width, mp: int, device, qkv_bias: bool = False):
+    """A random block at ``width`` (batch 128) cut into ``mp`` shards:
+    (x, dy, full, shards); full and each shard hold the packed forward
+    operands ("attn", "mlp", with a zero output bias for a shard) and the
+    backward's ("ln", "attn_bwd", "mlp_bwd"), all on the device."""
+    from duodiff_tpu_torch.ops.block import attn_operands, mlp_operands
+    from duodiff_tpu_torch.utils.convert import shard_tensor
+
+    bf = torch.bfloat16
+    x, norm, qkv, proj, fc1, fc2 = block_modules(MAIN_BATCH, qkv_bias, width=width)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(bf)
+    ln = (norm.weight.detach(), norm.bias.detach())
+
+    def pack(heads, qw, qb, pw, pb, w1, b1, w2, b2):
+        return to_device_tree({
+            "attn": attn_operands(*ln, qw, qb, pw, pb, num_heads=heads, dtype=bf),
+            "mlp": mlp_operands(*ln, w1, b1, w2, b2, dtype=bf),
+            "ln": ln,
+            "attn_bwd": (qw.t().to(bf).contiguous(), qb, pw.t().to(bf).contiguous()),
+            "mlp_bwd": (w1.t().to(bf).contiguous(), b1, w2.t().to(bf).contiguous()),
+        }, device)
+
+    with torch.no_grad():
+        full = pack(width.heads, qkv.weight, qkv.bias, proj.weight, proj.bias, fc1.weight,
+                    fc1.bias, fc2.weight, fc2.bias)
+        zero = torch.zeros_like(proj.bias)
+        shards = [pack(width.heads // mp, shard_tensor("qkv", qkv.weight, r, mp),
+                       None if qkv.bias is None else shard_tensor("qkv", qkv.bias, r, mp),
+                       shard_tensor("cols", proj.weight, r, mp), zero,
+                       shard_tensor("rows", fc1.weight, r, mp),
+                       shard_tensor("rows", fc1.bias, r, mp),
+                       shard_tensor("cols", fc2.weight, r, mp), zero)
+                  for r in range(mp)]
+    return x.to(device), dy.to(device), full, shards
+
+
+def to_device_tree(tree, device):
+    return {k: to_device(v, device) for k, v in tree.items()}
+
+
+def check_shard_sums(label: str, got, want, rel_bound: float | None = None) -> None:
+    """The shards' summed result against the square kernel's: elementwise
+    (0.05 + 0.05 |square|) or, with ``rel_bound``, as a whole."""
+    if rel_bound is None:
+        max_abs, max_rel, ok = errors(got, want)
+        held = f"max_abs_err={max_abs:.6g} max_rel_err={max_rel:.6g} bound={ATOL}+{RTOL}*|square|"
+    else:
+        rel = rel_fro(got, want)
+        ok = rel <= rel_bound
+        held = f"rel_fro_err={rel:.6g} (bound {rel_bound})"
+    print(f"phase 16a: {label}: {held} ok={ok}", flush=True)
+    if not ok:
+        fail(f"{label}: the shards' sum disagrees with the square kernel")
+
+
+def check_shard_kernels(device, results: dict) -> None:
+    """16a: the four shard forms (rank 0's shard) against their plain
+    versions at batch 128, timed, at D = 512 and 768 over 2 and 4 shards
+    (and once with a qkv bias and tanh GELU); the partials of every shard
+    summed (+ x + bias) against the square K1 / K2 on the same weights, and
+    the dx partials (+ dy), dgamma and dbeta summed against the square K6 /
+    K7, rank 0's weight gradients against the square's slice."""
+    from duodiff_tpu_torch.ops import block
+    from duodiff_tpu_torch.utils.convert import shard_tensor
+
+    cases = [(w, mp, s, False) for w, mp, s in SHARD_CASES] + [(CELEBA, 2, None, True)]
+    for width, mp, suffix, variant in cases:
+        x, dy, full, shards = shard_operands(width, mp, device, qkv_bias=variant)
+        heads, r0 = width.heads // mp, shards[0]
+        tag = f"D={width.d} L={width.l} B={MAIN_BATCH} mp={mp} qkv_bias={variant}"
+        compare_kernel(
+            results["fused_attn_sublayer_shard"], f"fused_attn_sublayer_shard {tag}",
+            lambda: block.fused_attn_sublayer(x, *r0["attn"], num_heads=heads, residual=False),
+            lambda: block.attn_sublayer_plain(x, *r0["attn"], num_heads=heads, residual=False),
+            suffix, phase="phase 16a")
+        compare_kernel(
+            results["fused_mlp_sublayer_shard"], f"fused_mlp_sublayer_shard {tag} gelu={variant}",
+            lambda: block.fused_mlp_sublayer(x, *r0["mlp"], gelu_approx=variant, residual=False),
+            lambda: block.mlp_sublayer_plain(x, *r0["mlp"], gelu_approx=variant, residual=False),
+            suffix, phase="phase 16a")
+        compare_bwd_kernel(
+            results["fused_attn_sublayer_bwd_shard"], f"fused_attn_sublayer_bwd_shard {tag}",
+            ("dx", "dg", "db", "dwqkv", "dbqkv", "dwp", "dbp"),
+            lambda: block.fused_attn_sublayer_bwd(x, dy, *r0["ln"], *r0["attn_bwd"],
+                                                  num_heads=heads, residual=False),
+            lambda: block.attn_sublayer_bwd_plain(x, dy, *r0["ln"], *r0["attn_bwd"],
+                                                  num_heads=heads, residual=False),
+            suffix, phase="phase 16a")
+        compare_bwd_kernel(
+            results["fused_mlp_sublayer_bwd_shard"], f"fused_mlp_sublayer_bwd_shard {tag}",
+            ("dx", "dg", "db", "dw1", "db1", "dw2", "db2"),
+            lambda: block.fused_mlp_sublayer_bwd(x, dy, *r0["ln"], *r0["mlp_bwd"],
+                                                 gelu_approx=variant, residual=False),
+            lambda: block.mlp_sublayer_bwd_plain(x, dy, *r0["ln"], *r0["mlp_bwd"],
+                                                 gelu_approx=variant, residual=False),
+            suffix, phase="phase 16a")
+        # the sums over the shards against the square kernels
+        bp, b2 = full["attn"][5], full["mlp"][5]
+        for name, sq, part, bias in (
+                ("K1", block.fused_attn_sublayer(x, *full["attn"], num_heads=width.heads),
+                 lambda s: block.fused_attn_sublayer(x, *s["attn"], num_heads=heads,
+                                                     residual=False), bp),
+                ("K2", block.fused_mlp_sublayer(x, *full["mlp"], gelu_approx=variant),
+                 lambda s: block.fused_mlp_sublayer(x, *s["mlp"], gelu_approx=variant,
+                                                    residual=False), b2)):
+            total = sum(part(s).float() for s in shards)
+            check_shard_sums(f"{name}: {mp} shards' partials + x + bias vs the square kernel, "
+                             f"{tag}", (x.float() + total + bias).to(x.dtype), sq)
+        for name, square, shard, kinds in (
+                ("K6", block.fused_attn_sublayer_bwd(x, dy, *full["ln"], *full["attn_bwd"],
+                                                     num_heads=width.heads),
+                 lambda s: block.fused_attn_sublayer_bwd(x, dy, *s["ln"], *s["attn_bwd"],
+                                                         num_heads=heads, residual=False),
+                 ((3, "qkv"), (5, "cols"))),
+                ("K7", block.fused_mlp_sublayer_bwd(x, dy, *full["ln"], *full["mlp_bwd"],
+                                                    gelu_approx=variant),
+                 lambda s: block.fused_mlp_sublayer_bwd(x, dy, *s["ln"], *s["mlp_bwd"],
+                                                        gelu_approx=variant, residual=False),
+                 ((3, "rows"), (5, "cols")))):
+            outs = [shard(s) for s in shards]
+            dx = (dy.float() + sum(o[0].float() for o in outs)).to(x.dtype)
+            check_shard_sums(f"{name}: {mp} shards' dx + dy vs the square kernel, {tag}", dx,
+                             square[0])
+            for i, what in ((1, "dgamma"), (2, "dbeta")):
+                check_shard_sums(f"{name}: {mp} shards' {what} vs the square kernel, {tag}",
+                                 sum(o[i] for o in outs), square[i], BWD_REL_FRO)
+            for i, kind in kinds:  # (in, out) layout: the torch-layout slice, transposed
+                want = shard_tensor(kind, square[i].t().contiguous(), 0, mp).t()
+                check_shard_sums(f"{name}: rank 0's weight gradient {i} vs the square's slice, "
+                                 f"{tag}", outs[0][i], want, BWD_REL_FRO)
+        del x, dy, full, shards
+        release_memory()
+
+
+def torchrun(label: str, jobs: list, work: str, card: str) -> list:
+    """One ``python -m torch.distributed.run --standalone --nproc_per_node
+    TP_WORLD`` of this script's worker (:func:`run_worker`): each rank runs
+    every job in turn in one process group (the training CLI's steps on the
+    job's ``train`` argv, then the sampling CLI's ``main`` on its
+    ``sample`` argv) and writes its record of each to the job's ``out``; a
+    rank's non-zero exit, a missing record or the time limit fails the
+    phase. Returns each job's records by rank."""
+    spec = Path(work) / "jobs.json"
+    spec.write_text(json.dumps(jobs))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(TP_WORLD), str(Path(__file__).resolve()), "--worker", str(spec)]
+    tic, launched = time.perf_counter(), time.time()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        text = proc.communicate(timeout=TP_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)  # the agent and its ranks
+        text = proc.communicate()[0]
+        print(text[-6000:], flush=True)
+        fail(f"{label}: torchrun did not end within {TP_TIMEOUT} s")
+    wall = time.perf_counter() - tic
+    chosen = re.findall(r"grid of \d+ ranks: backend (\w+)", text)
+    shown = [line for line in text.splitlines()
+             if line.startswith(("Training on", "Sampling on", "step ", "Sampling ", "Elapsed"))]
+    print("\n".join(f"{label}: | {line}" for line in shown), flush=True)
+    if proc.returncode != 0:
+        print(text[-6000:], flush=True)
+        fail(f"{label}: torchrun exited with {proc.returncode}")
+    records = []
+    for job in jobs:
+        records.append([])
+        for rank in range(TP_WORLD):
+            path = Path(job["out"]) / f"rank{rank}.json"
+            if not path.exists():
+                fail(f"{label}: rank {rank} wrote no record to {job['out']}")
+            records[-1].append(json.loads(path.read_text()))
+    print(f"{label}: torchrun wall {wall:.6g} s ({TP_WORLD} processes started, {len(jobs)} "
+          f"trainings and samplings in turn), backends {chosen}, card {card}", flush=True)
+    marks = [("launched", launched)] + [
+        (f"{Path(job['out']).name} {name}", t)
+        for job, recs in zip(jobs, records) for name, t in recs[0]["stages"].items()] + [
+        ("ended", launched + wall)]
+    print(f"{label}: rank 0's stages, seconds each: " + ", ".join(
+        f"{name} {now - before:.3g}" for (_, before), (name, now) in zip(marks, marks[1:])),
+        flush=True)
+    if len(chosen) != 2 * len(jobs):
+        fail(f"{label}: the grids printed {len(chosen)} backends, not {2 * len(jobs)}")
+    return records
+
+
+def check_rank_counts(label: str, records: list, part: str, expected: dict) -> dict:
+    """Every rank's launches in ``part`` ("train" or "sample") equal
+    ``expected`` (unlisted kernels: 0); returns rank 0's."""
+    for rec in records:
+        got = rec[part]["launches"]
+        print(f"{label}: rank {rec['rank']} launches { {k: v for k, v in got.items() if v} } "
+              f"(expected {expected})", flush=True)
+        check_counts(got, expected)
+    return records[0][part]["launches"]
+
+
+def shard_blocks(n: int) -> dict:
+    return {"fused_attn_sublayer_shard": n, "fused_mlp_sublayer_shard": n}
+
+
+def train_blocks(n: int, shard: bool) -> dict:
+    names = (("fused_attn_sublayer_shard", "fused_mlp_sublayer_shard",
+              "fused_attn_sublayer_bwd_shard", "fused_mlp_sublayer_bwd_shard") if shard else
+             ("fused_attn_sublayer", "fused_mlp_sublayer", "fused_attn_sublayer_bwd",
+              "fused_mlp_sublayer_bwd"))
+    return {name: n for name in names}
+
+
+def forward_input():
+    """16b's fixed forward input: images (8, 32, 32, 3) and timesteps."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((TP_FORWARD_BATCH, 32, 32, 3), generator=g)
+    return x, torch.linspace(0, 999, TP_FORWARD_BATCH).round()
+
+
+def check_grid_training(label: str, records: list, shard: bool, card: str) -> list:
+    """16b / 16c: the per-rank launches, the loss falling, and for the
+    tensor-parallel run the profiled step's split. Returns rank 0's logs."""
+    check_rank_counts(label, records, "train", train_blocks(13 * TP_TRAIN_STEPS, shard))
+    rec = records[0]["train"]
+    logs = rec["logs"]
+    first, last = logs[0]["train_loss"], logs[-1]["train_loss"]
+    split = rec.get("split")
+    profiled = "" if split is None else (
+        f"; one more step profiled on rank 0: {split['wall_ms']:.6g} ms, of it "
+        f"{split['all_reduce_ms']:.6g} ms of host time in {split['all_reduces']} all-reduces "
+        f"({split['all_reduce_ms'] / split['wall_ms']:.3g}) and {split['kernel_ms']:.6g} ms of "
+        f"device kernels ({split['kernel_ms'] / split['wall_ms']:.3g})")
+    print(f"{label}: loss {first:.6g} -> {last:.6g} over {TP_TRAIN_STEPS} steps, "
+          f"{rec['seconds']:.6g} s (set-up included), steps/s at the last log "
+          f"{logs[-1]['steps_per_sec']:.6g}{profiled}, card {card}", flush=True)
+    if not last < first:
+        fail(f"{label}: the loss did not fall: {first:.6g} -> {last:.6g}")
+    return logs
+
+
+def check_grid_samples(label: str, records: list, out: str, one: dict, shard: bool, n: int,
+                       card: str) -> None:
+    """16d: the per-rank launches; tensor-parallel samples within the
+    trajectory gate of the one-process run's, data-parallel ones equal to
+    them to the bit."""
+    check_rank_counts(label, records, "sample", shard_blocks(n) if shard else bf16_blocks(n))
+    seconds = records[0]["sample"]["seconds"]
+    got = torch.from_numpy(np.load(f"{out}/samples.npy"))
+    want = torch.from_numpy(one["samples"])
+    print(f"{label}: sampling {seconds:.6g} s on rank 0 ({MAIN_BATCH / seconds:.6g} samples/s; "
+          f"one process {one['seconds']:.6g} s), card {card}", flush=True)
+    if shard:
+        rel = rel_fro(got, want)
+        max_abs, limit, _, _ = scaled_errors(got, want, MODEL_MAX_FRAC)
+        ok = rel <= FWD_REL_FRO and max_abs <= limit
+        print(f"{label}: against one process rel_fro_err={rel:.6g} (bound {FWD_REL_FRO}) "
+              f"max_abs_err={max_abs:.6g} (bound {limit:.6g}) ok={ok}", flush=True)
+    else:
+        ok = torch.equal(got, want)
+        print(f"{label}: equal to one process to the bit: {ok}", flush=True)
+    if not ok:
+        fail(f"{label}: the samples disagree with the one-process run's")
+
+
+def run_parallel_grids(device, card: str, work: str) -> dict:
+    """16b-d: one torchrun launch of two ranks on the one card, whose ranks
+    train ``uvit_cifar10.yaml`` (batch 128, bf16, fused, synthetic CIFAR-10
+    data) and then sample the ``uvit_celeba_3.yaml`` -> ``uvit_celeba.yaml``
+    DuoDiff pair (DDPM over TP_SAMPLE_STEPS steps, batch 128), first
+    tensor-parallel (--model_parallel 2: 16b, 16d tp), then data-parallel
+    (16c, 16d dp), in one process group. The two runs' first losses, first gradient
+    norms and last losses within 2 %, each run's checkpoint in the
+    one-process ``load_model`` with its forward held against the run's own.
+    Returns each run's rank-0 launches."""
+    from duodiff_tpu_torch import sample
+    from duodiff_tpu_torch.data.synthetic import write_palette_cifar
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    write_palette_cifar(f"{work}/data", seed=0)
+    n = 3 * TP_SAMPLE_SWITCH + 13 * (TP_SAMPLE_STEPS - TP_SAMPLE_SWITCH)
+    sample_argv = ["--config_path", EARLY_CONFIG, "--config_path_late", LATE_CONFIG,
+                   "--t_switch", str(TP_SAMPLE_SWITCH), "--random_init", "--num_timesteps",
+                   str(TP_SAMPLE_STEPS), "--batch_size", str(MAIN_BATCH), "--parametrization",
+                   "predict_noise", "--device", "cuda", "--seed", "0", "--attn_impl", "fused"]
+    reset_counts()
+    one = sample.main([*sample_argv, "--output_folder", f"{work}/one"])
+    check_counts(read_counts(), bf16_blocks(n))
+    runs, logs, jobs = {}, {}, []
+    grids = (("tp", ["--model_parallel", "2"], True), ("dp", [], False))
+    for tag, extra, _ in grids:
+        out = f"{work}/{tag}"
+        os.makedirs(out)
+        jobs.append({"out": out, "sample": [*sample_argv, *extra, "--output_folder", f"{out}/png"],
+                     "train": ["--config_path", TRAIN_CONFIG, "--dataset", "cifar10",
+                               "--data_path", f"{work}/data", "--log_path", f"{work}/logs",
+                               "--exp_name", tag, "--n_steps", str(TP_TRAIN_STEPS),
+                               "--batch_size", str(TRAIN_BATCH), "--use_amp", "--attn_impl",
+                               "fused", "--lr", TP_LR, "--num_warmup_steps", TP_WARMUP,
+                               "--device", "cuda", *extra]})
+    every = torchrun("phase 16b-d", jobs, work, card)
+    for (tag, extra, shard), records in zip(grids, every):
+        out = f"{work}/{tag}"
+        label = f"phase 16{'b' if shard else 'c'}: train {'--model_parallel 2' if shard else 'data-parallel'}"
+        logs[tag] = check_grid_training(label, records, shard, card)
+        runs[f"16{'b' if shard else 'c'}"] = records[0]["train"]["launches"]
+        check_grid_samples(f"phase 16d {tag}: sample", records, out, one, shard, n, card)
+        runs[f"16d {tag}"] = records[0]["sample"]["launches"]
+    # the tensor-parallel run takes the whole batch on each rank, so it does
+    # not depend on the data group's rows or gradient mean: the data-parallel
+    # run's first loss (its rows), first gradient norm (the mean of the
+    # ranks' gradients, before any update; AdamW itself would hide a wrong
+    # scale) and last loss (the updates) are held against it
+    for what, step, key in (("first-step loss", 0, "train_loss"),
+                            ("first-step gradient norm", 0, "grad_norm"),
+                            ("last-step loss", -1, "train_loss")):
+        tp, dp = logs["tp"][step][key], logs["dp"][step][key]
+        rel = abs(tp - dp) / abs(dp)
+        print(f"phase 16b/c: {what} tensor-parallel {tp:.6g}, data-parallel {dp:.6g}, rel "
+              f"{rel:.3g} (bound 0.02)", flush=True)
+        if not rel <= 0.02:
+            fail(f"phase 16b/c: the two grids' {what}s disagree")
+    x, t = forward_input()
+    for tag, grid in (("tp", "tensor-parallel"), ("dp", "data-parallel")):
+        ckpt = Path(f"{work}/logs/{tag}/cifar10_uvit_last/checkpoint.pth")
+        model, _ = load_model(TRAIN_CONFIG, str(ckpt), device=device, attn_impl="fused")
+        model.eval().pack_for_kernels()
+        with torch.no_grad():
+            want = model(x.to(device), t.to(device)).float().cpu()
+        got = torch.from_numpy(np.load(f"{work}/{tag}/forward.npy"))
+        rel = rel_fro(got, want)
+        max_abs, limit, _, _ = scaled_errors(got, want, MODEL_MAX_FRAC)
+        ok = rel <= MODEL_REL_FRO and max_abs <= limit
+        print(f"phase 16{'b' if tag == 'tp' else 'c'}: the checkpoint in the one-process "
+              f"load_model, its forward against the {grid} run's own: rel_fro_err={rel:.6g} "
+              f"(bound {MODEL_REL_FRO}) max_abs_err={max_abs:.6g} (bound {limit:.6g}) ok={ok}",
+              flush=True)
+        if not ok:
+            fail(f"phase 16: the {grid} checkpoint's forward disagrees with the run's")
+        del model
+    return runs
+
+
+def run_parallel(device, card: str, results: dict) -> dict:
+    """Phase 16: data and tensor parallelism. Returns the rank-0 launches of
+    each counted run."""
+    tic = time.perf_counter()
+    check_shard_kernels(device, results)
+    with tempfile.TemporaryDirectory() as work:
+        runs = run_parallel_grids(device, card, work)
+    release_memory()
+    print(f"phase 16: {time.perf_counter() - tic:.6g} s", flush=True)
+    print(json.dumps({"phase16_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}),
+        flush=True)
+    return runs
+
+
+def profile_grid_step(trainer) -> dict:
+    """One more step of a phase 16 training run (after its checkpoint and its
+    forward), profiled: its wall time, the host time inside the grid's
+    all-reduces (``grid.all_reduce`` spans: through gloo they wait for the
+    device and copy through the host) and the device's kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.model.train()
+    batch = trainer._to_device(trainer.dataloader.next_batch())
+    sync = torch.cuda.synchronize if trainer.device.type == "cuda" else (lambda: None)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        trainer._train_step(trainer.state, batch, trainer.args.n_steps + 1)
+        sync()
+        wall = time.perf_counter() - tic
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = [e for e in prof.events() if e.name == "grid.all_reduce" and e.device_type == cpu]
+    kernels = [e for e in prof.events() if e.device_type == cuda and e.name != "grid.all_reduce"]
+    return {"wall_ms": 1e3 * wall, "all_reduces": len(spans),
+            "all_reduce_ms": sum(e.time_range.elapsed_us() for e in spans) / 1e3,
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}
+
+
+def run_worker(spec: str) -> int:
+    """One rank of the phase 16 torchrun: for each job of the JSON list
+    ``spec`` in turn, the training CLI's own steps on its ``train`` argv (its
+    ``Trainer``, as ``train.main`` runs it), then ``sample.main`` on its
+    ``sample`` argv, every grid on the process group the first one joined,
+    each with its launch counts set to 0 just before and read just after,
+    written with what the phase holds and the wall clock at each stage to
+    ``out/rank{RANK}.json``. Between the two, every rank runs the trained
+    model's forward on :func:`forward_input` (the shards' sums) and, for a
+    tensor-parallel grid, one more profiled step (:func:`profile_grid_step`);
+    rank 0 writes that forward and the gathered samples."""
+    from duodiff_tpu_torch import sample, train
+    from duodiff_tpu_torch.config import merge_args_with_config
+    from duodiff_tpu_torch.parallel.mesh import close
+    from duodiff_tpu_torch.training.trainer import Trainer
+
+    # the wall clock (time.time) at each stage, from this process's start
+    stages = {"started": time.time() - (time.perf_counter() - STARTED)}
+    rank = int(os.environ["RANK"])
+    first = None  # the first trainer's grid, which joined the process group
+    for job in json.loads(Path(spec).read_text()):
+        out = job["out"]
+        args = train.get_args(job["train"])
+        merge_args_with_config(args, args.config_path)
+        stages["imported"] = time.time()
+        reset_counts()
+        tic = time.perf_counter()
+        trainer = Trainer(args)
+        first = first or trainer.grid
+        stages["trainer built"] = time.time()
+        trainer.train()
+        stages["trained"] = time.time()
+        record = {"rank": rank, "train": {"seconds": time.perf_counter() - tic,
+                                          "launches": read_counts(), "logs": trainer.logs}}
+        model = trainer.model.eval()
+        model.pack_for_kernels()
+        x, t = forward_input()
+        with torch.no_grad():
+            y = model(x.to(trainer.device), t.to(trainer.device)).float().cpu().numpy()
+        stages["forward"] = time.time()
+        if trainer.grid.model > 1:  # the tensor-parallel step's split
+            record["train"]["split"] = profile_grid_step(trainer)
+            stages["profiled"] = time.time()
+        del trainer, model
+        reset_counts()
+        result = sample.main(job["sample"])  # on the first grid's process group
+        stages["sampled"] = time.time()
+        record["sample"] = {"seconds": result["seconds"], "launches": read_counts()}
+        if rank == 0:
+            np.save(f"{out}/forward.npy", y)
+            np.save(f"{out}/samples.npy", result["samples"])
+        stages["written"] = time.time()
+        record["stages"], stages = stages, {}
+        Path(f"{out}/rank{rank}.json").write_text(json.dumps(record))
+    close(first)  # on a failure the rank exits and torchrun stops the others
+    return 0
+
+
 def parse_phases(argv) -> set:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -5208,7 +5772,7 @@ def main(argv=None) -> int:
 
     card = setup()
     kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS, **ATTENTION_KERNELS, **BLOCK_KERNELS,
-               **PROBE_KERNELS}
+               **PROBE_KERNELS, **SHARD_KERNELS}
     results = new_results(kernels)
     launches = {}
     lap("2")
@@ -5320,6 +5884,14 @@ def main(argv=None) -> int:
                     launches[name] = launches.get(name, 0) + counts[name]
                     results[name]["launches_15"] = (results[name].get("launches_15", 0)
                                                     + counts[name])
+    lap("16")
+    if "16" in run:
+        # the shard forms' launches (16b, 16d tensor-parallel, rank 0), and the
+        # data-parallel runs' added to K1, K2, K6 and K7
+        for counts in run_parallel(device, card, results).values():
+            for name in (*KERNELS, *BWD_KERNELS, *SHARD_KERNELS):
+                if counts.get(name):
+                    launches[name] = launches.get(name, 0) + counts[name]
     lap("end")
     print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "
           "started", flush=True)
@@ -5336,6 +5908,13 @@ def main(argv=None) -> int:
     for name, b in kernel_bounds(IMAGENET256).items():
         if "ms_d1024" in results.get(name, {}):
             bounds[name] = {**bounds[name], "bound_ms_d1024": b["bound_ms"]}
+    # the shard forms at the main path's D = 512 over 2 shards, and beside
+    # phase 16a's other times
+    bounds.update(shard_bounds(CELEBA, 2))
+    for width, mp, suffix in SHARD_CASES[1:]:
+        for name, b in shard_bounds(width, mp).items():
+            if "ms" + suffix in results[name]:
+                bounds[name] = {**bounds[name], "bound_ms" + suffix: b["bound_ms"]}
     # with a subset of the phases: the kernels that phase 2 timed or a path
     # launched, each with what was measured (launches null where its path did
     # not run)
@@ -5353,4 +5932,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:  # one rank of the phase 16 torchrun
+        sys.exit(run_worker(sys.argv[2]))
     sys.exit(main())

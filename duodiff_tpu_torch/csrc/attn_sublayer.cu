@@ -12,6 +12,14 @@
 // own bf16 rounding points (xn :130, qkv :135, per-head outputs :157), so
 // the split changes no number. As on the TPU, the softmax scale is folded
 // into the q columns of the packed weight by the caller.
+//
+// The tensor-parallel shard form (residual = 0; the Pallas kernel's
+// residual=False with head_dim passed, duodiff_tpu/parallel/tp_fused.py):
+// the shard holds H of the model's heads, A = H * 64 < D, so the qkv GEMM
+// has N = 3A, the core runs H heads and the proj GEMM has K = A; its
+// epilogue writes the bare partial proj + bias, no x +, rounded to bf16
+// once (the caller passes a zero bias and adds x and the real bias after
+// the sum over the shards).
 
 #include "attn_core.cuh"
 #include "common.cuh"
@@ -31,12 +39,14 @@ extern "C" const char* duodiff_error_string(int err) {
 // x, xn, out: (B, L, D) bf16; wqkv: (D, 3A) bf16, q columns pre-scaled;
 // bqkv: (3A,) fp32 or null; wp: (A, D) bf16; ln_w, ln_b, bp: fp32.
 // xn (B*L, D), qkv (B*L, 3A) and merged (B*L, A) are caller-owned scratch.
-// Head width 64, A = H * 64 = D. Returns the first CUDA error, or 0.
+// Head width 64, A = H * 64: A = D with residual = 1 (y = x + ...), any
+// A with residual = 0 (y = the partial, a shard's). Returns the first CUDA
+// error, or 0.
 extern "C" int duodiff_attn_sublayer(const void* x, const void* ln_w, const void* ln_b,
                                      const void* wqkv, const void* bqkv, const void* wp,
                                      const void* bp, void* xn, void* qkv, void* merged,
-                                     void* out, int B, int L, int D, int H, float eps,
-                                     void* stream) {
+                                     void* out, int B, int L, int D, int H, int residual,
+                                     float eps, void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * L, A = H * kDh;
@@ -52,5 +62,5 @@ extern "C" int duodiff_attn_sublayer(const void* x, const void* ln_w, const void
   if (err != cudaSuccess) return err;
   return launch_gemm(static_cast<const bf16*>(merged), static_cast<const bf16*>(wp),
                      static_cast<bf16*>(out), static_cast<const float*>(bp),
-                     static_cast<const bf16*>(x), M, D, A, kGeluNone, s);
+                     residual ? static_cast<const bf16*>(x) : nullptr, M, D, A, kGeluNone, s);
 }

@@ -27,6 +27,11 @@
 // all in registers, is bound by its instruction count as the forward core
 // is. The Pallas kernel keeps xn, qkv, dm and dqkv in VMEM; here they go to
 // device memory, at its bf16 rounding points, so the split changes no number.
+// The tensor-parallel shard form (residual = 0; the Pallas kernel's
+// residual=False with head_dim passed): H of the model's heads, A = H * 64
+// < D, dWqkv (D, 3A) and dWp (A, D); dx is the shard's partial, the
+// LayerNorm backward of its own dxn without the + dy, which the caller adds
+// once after the sum over the shards (as it sums dgamma and dbeta).
 // Deterministic reductions: the weight gradients sum their row splits in
 // split order, each waiting on a per-tile flag (gemm_t.cuh), dgamma / dbeta / dbp / dbqkv sum per-block
 // partials in block order (layernorm_bwd.cuh), and the core sums dk and dv
@@ -91,13 +96,15 @@ extern "C" int duodiff_attn_bwd_core_max_len() { return duodiff::kMaxSeq; }
 // x, dy, dx: (B, L, D) bf16; wqkv: (D, 3A) bf16, unscaled; bqkv: (3A,) fp32
 // or null; wp: (A, D) bf16; ln_w, ln_b: fp32. Outputs fp32: dg, db (D,),
 // dwqkv (D, 3A), dbqkv (3A,) (null iff bqkv is), dwp (A, D), dbp (D,).
-// Head width 64, A = H * 64 = D. Returns the first CUDA error, or 0.
+// Head width 64, A = H * 64: A = D with residual = 1 (dx includes + dy),
+// any A with residual = 0 (dx without it, a shard's). Returns the first
+// CUDA error, or 0.
 extern "C" int duodiff_attn_sublayer_bwd(const void* x, const void* dy, const void* ln_w,
                                          const void* ln_b, const void* wqkv, const void* bqkv,
                                          const void* wp, void* dx, void* dg, void* db,
                                          void* dwqkv, void* dbqkv, void* dwp, void* dbp,
-                                         void* workspace, int B, int L, int D, int H, float eps,
-                                         void* stream) {
+                                         void* workspace, int B, int L, int D, int H,
+                                         int residual, float eps, void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * L, A = H * kBwdDh;
@@ -136,7 +143,7 @@ extern "C" int duodiff_attn_sublayer_bwd(const void* x, const void* dy, const vo
   // dxn = dqkv Wqkv^T: Wqkv (D, 3A) is the (N, K) layout
   err = launch_gemm_nt(dqkv, 3 * A, wq, 3 * A, dxn, M, D, 3 * A, s);
   if (err != cudaSuccess) return err;
-  err = launch_layernorm_bwd(xb, dxn, static_cast<const float*>(ln_w), dyb,
+  err = launch_layernorm_bwd(xb, dxn, static_cast<const float*>(ln_w), residual ? dyb : nullptr,
                              static_cast<bf16*>(dx), static_cast<float*>(dg),
                              static_cast<float*>(db), ln, M, D, eps, s);
   if (err != cudaSuccess) return err;

@@ -52,7 +52,8 @@ __device__ __forceinline__ void load8f(const float* p, float v[kVec]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// dx = rstd * (dxh - mean(dxh) - x_hat * mean(dxh * x_hat)) + dy, with
+// dx = rstd * (dxh - mean(dxh) - x_hat * mean(dxh * x_hat)) + dy (dy null:
+// no + dy, a tensor-parallel shard's partial), with
 // dxh = dxn * gamma and the forward's fp32 two-pass statistics recomputed
 // from x; part_dg / part_db[block][c] = the block's sums of dxn * x_hat and
 // dxn over its block_rows rows. Lane l of a warp takes columns 8 l + 256 j
@@ -87,7 +88,7 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
     for (int j = 0; j < kChunks; ++j) {
       if (col(j) < D) {
         xr[j] = *reinterpret_cast<const uint4*>(x + at + col(j));
-        dyr[j] = *reinterpret_cast<const uint4*>(dy + at + col(j));
+        if (dy != nullptr) dyr[j] = *reinterpret_cast<const uint4*>(dy + at + col(j));
         load8f(dxn + at + col(j), g[j]);
       }
     }
@@ -137,7 +138,12 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
       const int c = col(j);
       float d[kVec];
       unpack8(xr[j], v);
-      unpack8(dyr[j], d);
+      if (dy != nullptr) {
+        unpack8(dyr[j], d);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) d[e] = 0.f;
+      }
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         const float x_hat = (v[e] - mean) * rstd;

@@ -13,6 +13,12 @@
 // changes no number. GELU is exact (erff; the TPU kernel's _erf_poly is a
 // Mosaic workaround for the same function) or the tanh form.
 //
+// The tensor-parallel shard form (residual = 0; the Pallas kernel's
+// residual=False, duodiff_tpu/parallel/tp_fused.py): w1 and w2 hold the
+// shard's slice of the hidden columns, and the fc2 epilogue writes the bare
+// partial fc2 + b2, no x +, rounded to bf16 once (the caller passes a zero
+// b2 and adds x and the real bias after the sum over the shards).
+//
 // Bound: the two GEMMs carry 16*M*D^2 flops against ~24*M*D bytes moved,
 // the bf16 xn and hidden round trips included (~340 flop/byte at D = 512,
 // just above the card's ~295 balance point), so the sublayer is
@@ -29,13 +35,13 @@ using duodiff::bf16;
 
 // x, xn, out: (M, D) bf16; w1: (D, hidden) bf16; w2: (hidden, D) bf16;
 // ln_w, ln_b, b1, b2: fp32. xn and hidden (M, hidden) are caller-owned
-// scratch. gelu_mode: 1 exact (erf), 2 tanh. Returns the first CUDA
-// error, or 0.
+// scratch. gelu_mode: 1 exact (erf), 2 tanh. residual: 1 adds x, 0 writes
+// the partial. Returns the first CUDA error, or 0.
 extern "C" int duodiff_mlp_sublayer(const void* x, const void* ln_w, const void* ln_b,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* b2, void* xn, void* hidden, void* out,
-                                    int M, int D, int Hd, int gelu_mode, float eps,
-                                    void* stream) {
+                                    int M, int D, int Hd, int gelu_mode, int residual,
+                                    float eps, void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_layernorm(static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
@@ -48,5 +54,5 @@ extern "C" int duodiff_mlp_sublayer(const void* x, const void* ln_w, const void*
   if (err != cudaSuccess) return err;
   return launch_gemm(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2),
                      static_cast<bf16*>(out), static_cast<const float*>(b2),
-                     static_cast<const bf16*>(x), M, D, Hd, kGeluNone, s);
+                     residual ? static_cast<const bf16*>(x) : nullptr, M, D, Hd, kGeluNone, s);
 }

@@ -24,6 +24,11 @@
 // chunk; this design writes both to device memory in bf16 (2 x 135 MB at batch 128, read back once each),
 // exactly where the Pallas kernel rounds them, so the split changes no
 // number and costs ~0.2 ms of bandwidth.
+// The tensor-parallel shard form (residual = 0; the Pallas kernel's
+// residual=False): w1, b1 and w2 hold the shard's slice of the hidden
+// columns, and dx is the shard's partial, without the + dy, which the
+// caller adds once after the sum over the shards (as it sums dgamma and
+// dbeta).
 // Deterministic reductions: db1 sums per-tile partials in tile order, the
 // weight gradients sum their row splits in split order (per-tile flags), dgamma / dbeta /
 // db2 sum per-block partials in block order; inside a tile the column sums
@@ -75,13 +80,14 @@ extern "C" size_t duodiff_mlp_sublayer_bwd_workspace(int M, int D, int Hd) {
 
 // x, dy, dx: (M, D) bf16; w1: (D, Hd) bf16; w2: (Hd, D) bf16; ln_w, ln_b,
 // b1: fp32. Outputs fp32: dg, db (D,), dw1 (D, Hd), db1 (Hd,), dw2 (Hd, D),
-// db2 (D,). gelu_mode: 1 exact (erf), 2 tanh. Returns the first CUDA error,
-// or 0.
+// db2 (D,). gelu_mode: 1 exact (erf), 2 tanh. residual: 1 adds dy to dx,
+// 0 leaves it out (a shard's partial). Returns the first CUDA error, or 0.
 extern "C" int duodiff_mlp_sublayer_bwd(const void* x, const void* dy, const void* ln_w,
                                         const void* ln_b, const void* w1, const void* b1,
                                         const void* w2, void* dx, void* dg, void* db, void* dw1,
                                         void* db1, void* dw2, void* db2, void* workspace, int M,
-                                        int D, int Hd, int gelu_mode, float eps, void* stream) {
+                                        int D, int Hd, int gelu_mode, int residual, float eps,
+                                        void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const MlpBwdWorkspace w = mlp_bwd_workspace(M, D, Hd);
@@ -114,7 +120,7 @@ extern "C" int duodiff_mlp_sublayer_bwd(const void* x, const void* dy, const voi
   // dxn = dhp W1^T: W1 (D, Hd) is the (N, K) layout
   err = launch_gemm_nt(dhp, Hd, w1b, Hd, dxn, M, D, Hd, s);
   if (err != cudaSuccess) return err;
-  err = launch_layernorm_bwd(xb, dxn, static_cast<const float*>(ln_w), dyb,
+  err = launch_layernorm_bwd(xb, dxn, static_cast<const float*>(ln_w), residual ? dyb : nullptr,
                              static_cast<bf16*>(dx), static_cast<float*>(dg),
                              static_cast<float*>(db), ln, M, D, eps, s);
   if (err != cudaSuccess) return err;

@@ -65,14 +65,14 @@ class Cifar10Dataset:
 
 
 def get_dataloader(dataset: str, batch_size: int, seed: int, data_dir,
-                   normalize: bool = True) -> DataLoader:
+                   normalize: bool = True, rows=None) -> DataLoader:
     """The loader of a dataset by name; ``normalize=False`` gives images in
-    [0, 1]. A cache holds the images before the transform, so its key's
+    [0, 1]; ``rows`` a data-parallel rank's rows of each batch. A cache holds the images before the transform, so its key's
     ``norm1`` / ``norm0`` only names what the JAX package built it for:
     the key of ``normalize`` is read first, the other where it is absent."""
     if dataset == "cifar10":
         ds = Cifar10Dataset(data_dir, normalize=normalize)
-        return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed))
+        return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed), rows)
     caches = {"celeba": CELEBA_KEY, "imagenet64": IMAGENET64_KEY, "imagenet256": IMAGENET256_KEY}
     if dataset in caches:
         key = caches[dataset]
@@ -86,5 +86,5 @@ def get_dataloader(dataset: str, batch_size: int, seed: int, data_dir,
                 "--cache_data; duodiff_tpu_torch.data.synthetic writes a synthetic one)")
         scale, offset = scale_offset(normalize)
         ds = MemmapCachedDataset(cache, scale=scale, offset=offset)
-        return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed))
+        return DataLoader(ds, batch_size, ResumableSeedableSampler(len(ds), seed=seed), rows)
     raise ValueError(f"Dataset {dataset} not implemented.")

@@ -4,7 +4,9 @@
 Items are fetched with a thread pool and assembled into contiguous NHWC
 float32 batches, scaled by the dataset's ``scale`` and ``offset``; a
 background producer keeps a bounded queue of ready batches. Batches are
-always full: the sampler is an infinite index stream.
+always full: the sampler is an infinite index stream. With ``rows = (lo,
+hi, batch_size)`` (a data-parallel rank) the sampler still advances by the
+whole global batch, as on every rank, and only rows lo:hi of it are fetched.
 """
 
 from __future__ import annotations
@@ -24,10 +26,12 @@ PREFETCH = 2     # ready batches queued ahead of the training loop
 
 
 class DataLoader:
-    def __init__(self, dataset, batch_size: int, sampler: ResumableSeedableSampler):
+    def __init__(self, dataset, batch_size: int, sampler: ResumableSeedableSampler,
+                 rows: Optional[tuple] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
+        self.rows = rows
         self._pool: Optional[ThreadPoolExecutor] = None
         self._consumed_state: Optional[dict] = None
 
@@ -45,7 +49,10 @@ class DataLoader:
 
     def next_batch(self) -> dict:
         """Synchronously fetch the next batch (advances the sampler state)."""
-        return self._fetch_batch(self.sampler.next_indices(self.batch_size))
+        indices = self.sampler.next_indices(self.batch_size)
+        if self.rows is not None:
+            indices = indices[self.rows[0]:self.rows[1]]
+        return self._fetch_batch(indices)
 
     def prefetching_iterator(self) -> Iterator[dict]:
         """Background-producer iterator. Checkpoint-exact: each queued batch

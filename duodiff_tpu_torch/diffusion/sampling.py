@@ -36,6 +36,34 @@ import torch
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 
 
+class RowDraws:
+    """A generator whose every draw of a batch (x_T, each step's z) is rows
+    lo:hi of a draw of ``total`` rows, ``rows = (lo, hi, total)``: a
+    data-parallel rank draws the global batch's noise from the shared
+    generator and keeps its rows, so its samples are those a one-process run
+    makes for them. The samplers take it where they take a generator."""
+
+    def __init__(self, generator: torch.Generator, rows: tuple):
+        self.generator, self.rows = generator, rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+
+def randn(shape: Sequence[int], generator, device, dtype=torch.float32) -> torch.Tensor:
+    """``torch.randn(shape)`` from ``generator``, or from a :class:`RowDraws`
+    its rows of the global draw."""
+    shape = tuple(shape)
+    if not isinstance(generator, RowDraws):
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    lo, hi, total = generator.rows
+    if shape[0] != hi - lo:
+        raise ValueError(f"a draw of {shape[0]} rows from the RowDraws of rows {lo}:{hi}")
+    return torch.randn((total, *shape[1:]), generator=generator.generator, device=device,
+                       dtype=dtype)[lo:hi]
+
+
 def _noise(x, t: int, generator, noise_table):
     """The step's z: zero at t == 0 (no noise on the last step, whatever the
     table holds), else row t of ``noise_table`` or a draw."""
@@ -43,7 +71,7 @@ def _noise(x, t: int, generator, noise_table):
         return torch.zeros_like(x)
     if noise_table is not None:
         return noise_table[t]
-    return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    return randn(x.shape, generator, x.device, x.dtype)
 
 
 def ddpm_loop(
@@ -221,8 +249,7 @@ class DDPMSampler:
         self.noise_table = noise_table
 
     def init(self, generator: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
-        return torch.randn(tuple(shape), generator=generator,
-                           device=generator.device, dtype=torch.float32)
+        return randn(shape, generator, generator.device)
 
     def run(self, x, generator, t_start: int, t_end: int = 0, y=None, state=None):
         if (self.init_state_fn is not None) != (state is not None):
@@ -253,8 +280,7 @@ def duodiff_sample(
     steps t = T-1 .. T-t_switch, the full model the remaining ones."""
     steps = schedule.steps
     if x_init is None:
-        x_init = torch.randn(tuple(shape), generator=generator,
-                             device=generator.device, dtype=torch.float32)
+        x_init = randn(shape, generator, generator.device)
     t_switch = min(max(int(t_switch), 0), steps)
     handoff = steps - t_switch
     x = ddpm_loop(early_apply_fn, schedule, parametrization, x_init, generator,
@@ -279,8 +305,7 @@ def split_segments(segments: list, stops) -> list:
 def _initial_noise(x_init, shape, generator):
     if x_init is not None:
         return x_init
-    return torch.randn(tuple(shape), generator=generator, device=generator.device,
-                       dtype=torch.float32)
+    return randn(shape, generator, generator.device)
 
 
 def ddpm_sample(
@@ -374,7 +399,7 @@ def ddim_sample(
             elif noise_table is not None:
                 z = noise_table[s]
             else:
-                z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+                z = randn(x.shape, generator, x.device, x.dtype)
             x = schedule.ddim_step(model_output, x, t, s, z, eta=eta)
             if steps - t in save_set:
                 snapshots[steps - t] = x

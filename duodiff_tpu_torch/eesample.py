@@ -24,10 +24,17 @@ Three routes, in the JAX CLI's order:
 Every route writes ``{i}.png``, ``statistics.txt``,
 ``error_prediction_by_timestep.{npy,pt}`` (T x depth, NaN where a probe was
 not read) and ``indices_by_timestep.{npy,pt}`` (T x B). The CLI refuses what
-``eesampler.py`` refuses, and also: ``--model_parallel`` above 1
-(multi-GPU is not ported, ROADMAP item 11) and ``--int8_scales`` with the
-static or adaptive route, which the JAX CLI silently drops there (its
-truncated backbones are built without the scales). Unguided class labels
+``eesampler.py`` refuses, and also: ``--int8_scales`` with the static or
+adaptive route, which the JAX CLI silently drops there (its truncated
+backbones are built without the scales), and ``--model_parallel`` with an
+int8 or unfused block, as ``sample.py`` does.
+
+Under ``python -m torch.distributed.run`` the CLI samples on the grid of
+``sample.py``: ``--model_parallel`` on the dynamic-threshold route only (the
+JAX CLI's refusals), data parallelism on the dynamic and static routes, the
+probe means averaged and the exit indices gathered over the data ranks; the
+adaptive route, whose host decides from the whole batch's probes, runs the
+whole batch on every rank. Unguided class labels
 follow ``sample.py``'s rule. A latent-diffusion config
 (``configs/deediff_imagenet256.yaml``) samples latents and decodes them with
 its frozen KL autoencoder before writing, as ``sample.py`` does.
@@ -45,7 +52,11 @@ import torch
 
 from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
 from duodiff_tpu_torch.diffusion.calibration import load_probe_calibration
-from duodiff_tpu_torch.diffusion.sampling import early_exit_sample, make_guided_apply_ee
+from duodiff_tpu_torch.diffusion.sampling import (
+    RowDraws,
+    early_exit_sample,
+    make_guided_apply_ee,
+)
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.diffusion.static_exit import (
     derive_exit_schedule,
@@ -53,7 +64,8 @@ from duodiff_tpu_torch.diffusion.static_exit import (
     parse_exit_schedule,
     static_exit_sample,
 )
-from duodiff_tpu_torch.sample import class_labels, decode_all, latent_decoder
+from duodiff_tpu_torch.parallel.mesh import close, sampling_grid
+from duodiff_tpu_torch.sample import check_parallel_flags, class_labels, decode_all, latent_decoder
 from duodiff_tpu_torch.utils.image import save_samples
 from duodiff_tpu_torch.utils.model_loading import load_model
 
@@ -81,7 +93,10 @@ def get_args(argv=None):
     parser.add_argument("--random_init", action="store_true")
     parser.add_argument("--num_timesteps", type=int, default=1000)
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="Tensor-parallel degree: only 1 (multi-GPU is not ported)")
+                        help="Tensor-parallel degree over the ranks of torch.distributed.run "
+                             "(the dynamic-threshold route)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="Let the torch.distributed.run grid span nodes")
     parser.add_argument("--attn_impl", type=str, default=None,
                         choices=["fused", "plain", "fused_int8", "pallas", "xla"],
                         help="Block (default: fused on CUDA, plain on the CPU)")
@@ -179,9 +194,10 @@ def check_flags(args) -> None:
                              "--guidance_scale")
     elif args.cache_outer is not None:
         raise SystemExit("--cache_outer requires --cache_every or --cache_schedule")
-    if (args.model_parallel or 1) > 1:
-        raise SystemExit("--model_parallel > 1 needs multi-GPU tensor parallelism, which the "
-                         "port does not have yet (ROADMAP item 11)")
+    if (args.model_parallel or 1) > 1 and args.adaptive_layers:
+        raise SystemExit("--model_parallel does not combine with --adaptive_layers")
+    if (args.model_parallel or 1) > 1 and args.static_schedule:
+        raise SystemExit("--model_parallel does not combine with --static_schedule")
     if args.int8_scales is not None and (args.static_schedule or args.adaptive_layers):
         raise SystemExit("--int8_scales applies to the dynamic-threshold route only: the "
                          "static and adaptive routes' truncated backbones run int8 with "
@@ -194,26 +210,45 @@ def main(argv=None) -> dict:
     (T, B), "log" (the adaptive route's rows, else None), "seconds":
     sampling wall time, "decode_seconds": the decode's (0 without one)}."""
     args = get_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
     check_flags(args)
-    attn_impl = args.attn_impl or ("fused" if device.type == "cuda" else "plain")
+    mp = args.model_parallel or 1
+    attn_impl = args.attn_impl or ("fused" if args.device.startswith("cuda") or mp > 1
+                                   else "plain")
+    check_parallel_flags(args, attn_impl)
+    grid = sampling_grid(mp, args.batch_size, args.device, args.multihost,
+                         split=args.adaptive_layers is None)
+    try:
+        return _sample(args, grid, attn_impl)
+    finally:
+        close(grid)
+
+
+def _sample(args, grid, attn_impl) -> dict:
+    """:func:`main` once the flags are checked and the grid is formed."""
+    device = grid.device
     output_folder = Path(args.output_folder)
-    output_folder.mkdir(parents=True, exist_ok=True)
+    if grid.is_main:
+        output_folder.mkdir(parents=True, exist_ok=True)
 
     model, cfg = load_model(
         args.config_path, None if args.random_init else args.checkpoint_path, device=device,
         seed=args.seed, attn_impl=attn_impl, gelu_approx=args.gelu_approx,
-        int8_scales=args.int8_scales, use_ema=args.use_ema, early_exit=True,
+        int8_scales=args.int8_scales, use_ema=args.use_ema, early_exit=True, grid=grid,
     )
     model.eval().pack_for_kernels()
     decode = latent_decoder(args.config_path, device)
     schedule = NoiseSchedule.create(steps=args.num_timesteps, device=device)
     steps = schedule.steps
-    shape = (args.batch_size, cfg.img_size, cfg.img_size, cfg.in_chans)
+    rows = grid.rows(args.batch_size)  # this rank's rows of the global batch
+    shape = (rows[1] - rows[0], cfg.img_size, cfg.img_size, cfg.in_chans)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     y, null_label = class_labels(args, cfg.num_classes, generator)
+    if y is not None:
+        y = y[rows[0]:rows[1]]
+    if grid.distributed:
+        generator = RowDraws(generator, rows)
     if cfg.num_classes > 0 and y is None:
         raise SystemExit("a class-conditional model needs labels: pass --class_id (with or "
                          "without --guidance_scale)")
@@ -258,7 +293,9 @@ def main(argv=None) -> dict:
                                             threshold=args.threshold, y=y)
             return x, (err, idx), None
 
-    print(f"Sampling {args.batch_size} images on {device} ({kind}, attn_impl={attn_impl})...")
+    if grid.is_main:
+        print(f"Sampling {args.batch_size} images on {device} ({kind}, attn_impl={attn_impl}, "
+              f"grid data {grid.data} x model {grid.model})...")
     with torch.inference_mode():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -268,10 +305,15 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - tic
         x, _, decode_seconds = decode_all(decode, x, {}, device)
-        samples = ((x + 1.0) / 2.0).cpu().numpy()
+        samples = grid.gather_rows(((x + 1.0) / 2.0).cpu()).numpy()
 
     if tables is not None:
-        err_by_t, idx_by_t = (v.cpu().numpy() for v in tables)
+        # the batch means of the probes averaged, the exit indices gathered
+        err, idx = (v.cpu() for v in tables)
+        if grid.distributed and not grid.replicated:
+            err = torch.stack(grid.gather_host(err)[::grid.model]).mean(0)
+            idx = grid.gather_rows(idx.t().contiguous()).t()
+        err_by_t, idx_by_t = err.numpy(), idx.numpy()
     else:  # implied by the buckets or the walk's chunks
         idx_by_t = np.zeros((steps, args.batch_size), np.int32)
         err_by_t = np.full((steps, cfg.depth), np.nan, np.float32)
@@ -281,6 +323,10 @@ def main(argv=None) -> dict:
                 err_by_t[row["t_lo"]: row["t_hi"] + 1, min(row["layer"], cfg.depth - 1)] = (
                     row["mean_probe"])
     log = ranges if args.adaptive_layers is not None else None
+    result = {"samples": samples, "err_by_t": err_by_t, "idx_by_t": idx_by_t, "log": log,
+              "seconds": elapsed, "decode_seconds": decode_seconds}
+    if not grid.is_main:
+        return result
     if log is not None:
         (output_folder / "adaptive_log.json").write_text(json.dumps(log, indent=1))
         print(f"adaptive chunks: {len(log)}, mean layer "
@@ -299,8 +345,7 @@ def main(argv=None) -> dict:
         print(f"Decode time: {decode_seconds:.2f} s")
     print(f"Elapsed time: {elapsed:.2f} s -> {output_folder}")
     print(f"mean exit index: {np.asarray(idx_by_t).mean():.2f} (depth={cfg.depth})")
-    return {"samples": samples, "err_by_t": err_by_t, "idx_by_t": idx_by_t, "log": log,
-            "seconds": elapsed, "decode_seconds": decode_seconds}
+    return result
 
 
 if __name__ == "__main__":

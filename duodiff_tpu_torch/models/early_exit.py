@@ -214,6 +214,12 @@ class EarlyExitUViT(nn.Module):
     def blocks(self):
         return self.uvit.blocks()
 
+    def shard_(self, grid) -> "EarlyExitUViT":
+        """Make the backbone's blocks tensor-parallel shards
+        (:meth:`UViT.shard_`); the heads and probes stay whole on every rank."""
+        self.uvit.shard_(grid)
+        return self
+
     def pack_for_kernels(self) -> None:
         self.uvit.pack_for_kernels()
 

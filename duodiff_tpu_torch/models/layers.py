@@ -38,6 +38,13 @@ from duodiff_tpu_torch.ops.block_int8 import (
     pack_attn_int8,
     pack_mlp_int8,
 )
+from duodiff_tpu_torch.parallel.tp_fused import (
+    tp_attn_sublayer,
+    tp_attn_sublayer_train,
+    tp_mlp_sublayer,
+    tp_mlp_sublayer_train,
+)
+from duodiff_tpu_torch.utils.convert import BLOCK_SHARD_KINDS, shard_tensor
 
 INT8_IMPLS = ("fused_int8", "plain_int8")
 # the unfused block: separate LayerNorm, projections and attention dispatch
@@ -174,6 +181,16 @@ class Block(nn.Module):
     parameters in training and in eval, and autograd differentiates it.
     ``mlp_impl="fused"`` pairs it with the fused MLP sublayer (K2, and K7 in
     training) in place of the plain MLP.
+
+    :meth:`shard_` makes the block a tensor-parallel shard (the JAX
+    ``Block``'s TP branch, ``layers.py:414-440``): it keeps the q, k and v
+    columns of its model rank's H / mp heads, the matching proj rows, and
+    hidden / mp columns of fc1 with the matching fc2 rows, under the same
+    names (:func:`~duodiff_tpu_torch.utils.convert.shard_tensor`), and runs
+    :mod:`duodiff_tpu_torch.parallel.tp_fused`: the shard forms of the fused
+    kernels, one sum over the model group a sublayer (on a CPU tensor their
+    wrappers run the plain versions). It takes ``"fused"`` only, as the JAX
+    TP branch does; the other impls are refused.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -207,6 +224,7 @@ class Block(nn.Module):
         self._packed = None
         self._packed_dtype = None
         self._packed_marks = None
+        self.grid = None  # the process grid when the block is a tensor-parallel shard
 
     def _param_marks(self) -> list:
         """(version, address) of every parameter :meth:`pack` reads, from the
@@ -239,11 +257,57 @@ class Block(nn.Module):
                 pack_mlp(self.norm2, fc1, fc2, dtype=dtype),
             )
 
+    @torch.no_grad()
+    def shard_(self, grid) -> None:
+        """Keep only this rank's shard of the heads and hidden columns (the
+        grid's model rank of ``grid.model``), in place; nothing when the grid
+        has no tensor parallelism."""
+        mp = grid.model
+        if mp <= 1:
+            return
+        if self.attn_impl in INT8_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r} does not combine with "
+                             "--model_parallel: the int8 kernels have no tensor-parallel shard "
+                             "form")
+        if self.attn_impl != "fused":
+            raise ValueError(f"attn_impl {self.attn_impl!r} has no tensor-parallel form: "
+                             "--model_parallel runs 'fused' only (the unfused block under "
+                             "tensor parallelism is not ported yet)")
+        hidden = self.mlp["fc1"].out_features
+        if self.num_heads % mp or hidden % mp or (hidden // mp) % 8:
+            raise ValueError(f"--model_parallel {mp} must divide the {self.num_heads} heads and "
+                             f"the {hidden} hidden columns into slices of a multiple of 8")
+        for name, kind in BLOCK_SHARD_KINDS.items():
+            path, attr = name.rsplit(".", 1)
+            mod = self.get_submodule(path)
+            t = getattr(mod, attr)
+            if t is not None:
+                setattr(mod, attr, nn.Parameter(shard_tensor(kind, t.data, grid.model_rank, mp)))
+        self.num_heads //= mp
+        self.grid = grid
+        self._packed = None
+
     def _check_packed(self) -> None:
         if self._packed is None:
             raise RuntimeError("Block operands are not packed: call UViT.pack_for_kernels()")
         if self._packed_marks != self._param_marks():
             self.pack(self._packed_dtype)  # a parameter changed since packing
+
+    def _tp_forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        """The two sublayers of a tensor-parallel shard."""
+        grid, heads = self.grid, self.num_heads
+        if not training:
+            (*attn, bp), (*mlp, b2) = self._packed
+            zero = torch.zeros_like(bp)
+            x = tp_attn_sublayer(x, (*attn, zero), bp, num_heads=heads, grid=grid)
+            return tp_mlp_sublayer(x, (*mlp, zero), b2, gelu_approx=self.gelu_approx, grid=grid)
+        if x.is_cuda:
+            self._check_bf16(x, "attn_impl 'fused'")
+        norm1, qkv, proj = self.norm1, self.attn["qkv"], self.attn["proj"]
+        x = tp_attn_sublayer_train(x.contiguous(), norm1.weight, norm1.bias, qkv.weight,
+                                   qkv.bias, proj.weight, proj.bias, num_heads=heads, grid=grid)
+        return tp_mlp_sublayer_train(x, *self._mlp_params(), gelu_approx=self.gelu_approx,
+                                     grid=grid)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
         training = self.training and torch.is_grad_enabled()
@@ -252,6 +316,8 @@ class Block(nn.Module):
             self._check_packed()
         if self.skip_linear is not None:
             x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
+        if self.grid is not None:
+            return self._tp_forward(x, training)
         if unfused:
             x = x + self._attention(x).to(x.dtype)
             if self.mlp_impl == "fused":

@@ -88,6 +88,14 @@ class UViT(nn.Module):
     def blocks(self) -> list[Block]:
         return [*self.in_blocks, self.mid_block, *self.out_blocks]
 
+    def shard_(self, grid) -> "UViT":
+        """Make every block a tensor-parallel shard of the grid's model group
+        (:meth:`Block.shard_`; ``tp_mesh`` in the JAX package), in place.
+        The weights are the full model's, so shard after loading them."""
+        for blk in self.blocks():
+            blk.shard_(grid)
+        return self
+
     @torch.no_grad()
     def pack_for_kernels(self) -> None:
         """Pack every block's sublayer operands once (weights transposed,

@@ -34,12 +34,12 @@ _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
 # C entry -> (argtypes, restype); every pointer and the stream as c_void_p
 _SIGNATURES = {
-    "duodiff_attn_sublayer": ([_PTR] * 11 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
-    "duodiff_mlp_sublayer": ([_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer": ([_PTR] * 11 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
+    "duodiff_mlp_sublayer": ([_PTR] * 10 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
     "duodiff_attn_sublayer_int8": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_int8": ([_PTR] * 16 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
-    "duodiff_attn_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
-    "duodiff_mlp_sublayer_bwd": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_bwd": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
+    "duodiff_mlp_sublayer_bwd": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
     "duodiff_attn_sublayer_v1": ([_PTR] * 11 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
     "duodiff_fused_block": ([_PTR] * 19 + [_INT] * 6 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_bwd_split": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),

@@ -22,6 +22,15 @@ backwards (counterpart of ``duodiff_tpu/ops/pallas_block.py``).
   ``csrc/attn_sublayer_v1.cu``; the Pallas ``_kernel``): the per-head form
   of K1 on the unscaled packing of :func:`pack_attn_v1`.
 
+K1, K2, K6 and K7 also have the tensor-parallel shard form, ``residual=False``
+(the Pallas kernels' ``residual=False`` with ``head_dim`` passed, which
+``duodiff_tpu/parallel/tp_fused.py`` runs): a shard of the heads (A = H_loc *
+64 < D) or of the hidden columns, the ``x +`` left out of the forward and the
+``+ dy`` out of dx, which ``duodiff_tpu_torch/parallel/tp_fused.py`` adds once
+after the sum over the shards. Their launches count in ``.launches_shard``,
+apart from the square form's ``.launches``. K5, K1-v1 and K8 are square only,
+as in the JAX package.
+
 Each wrapper takes the plain PyTorch version (:func:`attn_sublayer_plain`,
 :func:`mlp_sublayer_plain`, :func:`attn_sublayer_bwd_plain`,
 :func:`mlp_sublayer_bwd_plain`, :func:`mlp_sublayer_bwd_split_plain`,
@@ -169,9 +178,10 @@ def attention_core_plain(qkv, num_heads: int, dtype):
 
 
 def attn_sublayer_plain(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
-                        num_heads: int, eps: float = 1e-5):
+                        num_heads: int, eps: float = 1e-5, residual: bool = True):
     """Plain PyTorch K1 (pallas_block._attn_sublayer_reference with the
-    scale pre-folded into ``wqkv``)."""
+    scale pre-folded into ``wqkv``); ``residual=False`` returns the shard's
+    partial ``proj + bp`` without ``x +``."""
     dt = x.dtype
     xv = x.float()
     xn = _layer_norm(xv, ln_scale.float(), ln_bias.float(), eps).to(dt)
@@ -180,7 +190,9 @@ def attn_sublayer_plain(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
         qkv = qkv + bqkv.float()
     merged = attention_core_plain(qkv.to(dt), num_heads, dt)
     proj = torch.matmul(merged.float(), wp.float())
-    return (proj + xv + bp.float()).to(dt)
+    if residual:
+        proj = proj + xv
+    return (proj + bp.float()).to(dt)
 
 
 def _check_packing(variant: str, x, wqkv, bqkv, wp) -> None:
@@ -252,15 +264,18 @@ def block_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wp, bp, ln2_scale, ln2_bias,
 
 
 def mlp_sublayer_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
-                       gelu_approx: bool = False, eps: float = 1e-5):
-    """Plain PyTorch K2 (pallas_block._mlp_reference)."""
+                       gelu_approx: bool = False, eps: float = 1e-5, residual: bool = True):
+    """Plain PyTorch K2 (pallas_block._mlp_reference); ``residual=False``
+    returns the hidden slice's partial ``fc2 + b2`` without ``x +``."""
     dt = x.dtype
     xv = x.float()
     xn = _layer_norm(xv, ln_scale.float(), ln_bias.float(), eps).to(dt)
     hidden = torch.matmul(xn.float(), w1.float()) + b1.float()
     hidden = F.gelu(hidden, approximate="tanh" if gelu_approx else "none").to(dt)
     out = torch.matmul(hidden.float(), w2.float())
-    return (out + xv + b2.float()).to(dt)
+    if residual:
+        out = out + xv
+    return (out + b2.float()).to(dt)
 
 
 def _rows(t):
@@ -269,14 +284,14 @@ def _rows(t):
 
 
 def attn_sublayer_bwd_plain(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int,
-                            eps: float = 1e-5):
+                            eps: float = 1e-5, residual: bool = True):
     """Plain PyTorch K6 (pallas_block._attn_bwd_kernel): the gradients of
     K1 for the UNSCALED qkv weight ``wqkv`` (D, 3A), the scale applied to q
     inside. Returns (dx, dgamma, dbeta, dWqkv (D, 3A), dbqkv (3A,) or None,
     dWp (A, D), dbp (D,)): dx in x's dtype, the rest fp32. Rounds to the
     activation dtype where the Pallas kernel does: xn, qkv, dm, bf16(e),
     bf16(do * r), dsp, bf16(qsc * r) and the dq / dk / dv heads; fp32
-    elsewhere."""
+    elsewhere. ``residual=False`` (a shard's) leaves the ``+ dy`` out of dx."""
     dt = x.dtype
     b, l, d = x.shape
     a = wp.shape[0]
@@ -318,7 +333,8 @@ def attn_sublayer_bwd_plain(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int
     dwqkv = _rows(xn).t() @ _rows(dqkv)
     dbqkv = dqkv.sum((0, 1)) if bqkv is not None else None
     dxn = dqkv @ wq.t()
-    dx = (_ln_bwd_dx(dxn, x_hat, rstd, gamma) + dyf).to(dt)
+    dx = _ln_bwd_dx(dxn, x_hat, rstd, gamma)
+    dx = (dx + dyf if residual else dx).to(dt)
     return (dx, (dxn * x_hat).sum((0, 1)), dxn.sum((0, 1)), dwqkv, dbqkv, dwp,
             dyf.sum((0, 1)))
 
@@ -334,12 +350,13 @@ def gelu_grad(h, approx: bool):
 
 
 def mlp_sublayer_bwd_plain(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool = False,
-                           eps: float = 1e-5):
+                           eps: float = 1e-5, residual: bool = True):
     """Plain PyTorch K7 (pallas_block._mlp_bwd_kernel): the gradients of K2.
     Returns (dx, dgamma, dbeta, dW1 (D, Hd), db1, dW2 (Hd, D), db2): dx in
     x's dtype, the rest fp32. Rounds xn, gelu(h_pre) and dh * gelu'(h_pre)
     to the activation dtype, as the Pallas kernel does; db1 sums the
-    unrounded fp32 dh * gelu'(h_pre)."""
+    unrounded fp32 dh * gelu'(h_pre). ``residual=False`` (a shard's) leaves
+    the ``+ dy`` out of dx."""
     dt = x.dtype
     gamma = ln_s.float()
     x_hat, rstd, xn = _ln_fwd(x.float(), gamma, ln_b.float(), eps)
@@ -351,7 +368,8 @@ def mlp_sublayer_bwd_plain(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool =
     dhp = (dyf @ w2f.t()) * gelu_grad(h_pre, gelu_approx)
     dhpb = dhp.to(dt).float()
     dxn = dhpb @ w1f.t()
-    dx = (_ln_bwd_dx(dxn, x_hat, rstd, gamma) + dyf).to(dt)
+    dx = _ln_bwd_dx(dxn, x_hat, rstd, gamma)
+    dx = (dx + dyf if residual else dx).to(dt)
     return (dx, (dxn * x_hat).sum((0, 1)), dxn.sum((0, 1)), _rows(xn).t() @ _rows(dhpb),
             dhp.sum((0, 1)), _rows(hgb).t() @ _rows(dyf), dyf.sum((0, 1)))
 
@@ -400,6 +418,15 @@ def mlp_sublayer_bwd_split_plain(x, dy, ln_s, ln_b, w1, b1, w2, *, splits: int,
             torch.cat(db1), torch.cat(dw2, dim=0), dyf.sum((0, 1)))
 
 
+def _count(wrapper, residual: bool) -> None:
+    """One launch of ``wrapper``'s kernel, in its square form's counter or
+    its shard form's."""
+    if residual:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_shard += 1
+
+
 def _check(name, t, shape, dtype, device):
     if t.device.type != "cuda":
         raise ValueError(f"{name} is on {t.device}: the kernels take CUDA tensors")
@@ -423,15 +450,21 @@ def _raise_on_error(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
 
 
-def _attn_dims(x, wp, num_heads: int):
-    """(B, L, D, A) of an attention sublayer the kernels take."""
+def _attn_dims(x, wp, num_heads: int, residual: bool = True):
+    """(B, L, D, A) of an attention sublayer the kernels take: the square
+    form A == D, or with ``residual=False`` a shard's A < D."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, D), got {tuple(x.shape)}")
     b, l, d = x.shape
     a = wp.shape[0]
-    if a != d or a != num_heads * HEAD_DIM:
+    if residual and (a != d or a != num_heads * HEAD_DIM):
         raise ValueError(
             f"the kernel takes the square form A == D == num_heads * {HEAD_DIM}: "
+            f"A={a}, D={d}, num_heads={num_heads}"
+        )
+    if not residual and (a != num_heads * HEAD_DIM or a > d):
+        raise ValueError(
+            f"the shard form takes A == num_heads * {HEAD_DIM} <= D: "
             f"A={a}, D={d}, num_heads={num_heads}"
         )
     if d % 8:
@@ -440,14 +473,16 @@ def _attn_dims(x, wp, num_heads: int):
 
 
 def _attn_sublayer_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
-                        num_heads: int, eps: float, variant: str = "v2"):
+                        num_heads: int, eps: float, variant: str = "v2",
+                        residual: bool = True):
     """Check the operands and launch K1 (the LayerNorm, qkv GEMM, attention
-    core and proj GEMM launches of csrc/attn_sublayer.cu) or, for variant
-    "v1", K1-v1 (the LayerNorm, three q / k / v GEMMs, normalise-first
-    attention core and proj GEMM launches of csrc/attn_sublayer_v1.cu)."""
+    core and proj GEMM launches of csrc/attn_sublayer.cu; with
+    ``residual=False`` its shard form) or, for variant "v1", K1-v1 (the
+    LayerNorm, three q / k / v GEMMs, normalise-first attention core and
+    proj GEMM launches of csrc/attn_sublayer_v1.cu)."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    b, l, d, a = _attn_dims(x, wp, num_heads)
+    b, l, d, a = _attn_dims(x, wp, num_heads, residual)
     v1 = variant == "v1"
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, (b, l, d), bf16, dev)
@@ -465,12 +500,13 @@ def _attn_sublayer_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
     qkv = torch.empty((3, b, l, a) if v1 else (b, l, 3 * a), dtype=bf16, device=dev)
     merged = torch.empty((b, l, a), dtype=bf16, device=dev)
     y = torch.empty_like(x)
-    entry = lib.duodiff_attn_sublayer_v1 if v1 else lib.duodiff_attn_sublayer
-    err = entry(
-        _ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv), _ptr(bqkv),
-        _ptr(wp), _ptr(bp), _ptr(xn), _ptr(qkv), _ptr(merged), _ptr(y),
-        b, l, d, num_heads, eps, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ptrs = (_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv), _ptr(bqkv), _ptr(wp), _ptr(bp),
+            _ptr(xn), _ptr(qkv), _ptr(merged), _ptr(y))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if v1:
+        err = lib.duodiff_attn_sublayer_v1(*ptrs, b, l, d, num_heads, eps, stream)
+    else:
+        err = lib.duodiff_attn_sublayer(*ptrs, b, l, d, num_heads, int(residual), eps, stream)
     _raise_on_error(lib, f"attention sublayer kernel ({variant})", err)
     return y
 
@@ -517,9 +553,9 @@ def _fused_block_cuda(x, ln1_scale, ln1_bias, wqkv, bqkv, wp, bp, ln2_scale, ln2
 
 
 def _mlp_sublayer_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
-                       gelu_approx: bool, eps: float):
+                       gelu_approx: bool, eps: float, residual: bool = True):
     """Check the operands and launch K2 (the LayerNorm, fc1 GEMM and fc2 GEMM
-    launches of csrc/mlp_sublayer.cu)."""
+    launches of csrc/mlp_sublayer.cu; with ``residual=False`` its shard form)."""
     from duodiff_tpu_torch.ops._build import load_library
 
     if x.dim() != 3:
@@ -543,18 +579,20 @@ def _mlp_sublayer_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
     err = lib.duodiff_mlp_sublayer(
         _ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(w1), _ptr(b1), _ptr(w2),
         _ptr(b2), _ptr(xn), _ptr(hidden), _ptr(y), b * l, d, hid,
-        2 if gelu_approx else 1, eps, torch.cuda.current_stream(dev).cuda_stream,
+        2 if gelu_approx else 1, int(residual), eps, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(lib, "MLP sublayer kernel", err)
     return y
 
 
-def _attn_sublayer_bwd_cuda(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int, eps: float):
-    """Check the operands and launch K6 (csrc/attn_sublayer_bwd.cu) with one
-    scratch workspace; returns what :func:`attn_sublayer_bwd_plain` does."""
+def _attn_sublayer_bwd_cuda(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int, eps: float,
+                            residual: bool = True):
+    """Check the operands and launch K6 (csrc/attn_sublayer_bwd.cu, with
+    ``residual=False`` its shard form) with one scratch workspace; returns
+    what :func:`attn_sublayer_bwd_plain` does."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    b, l, d, a = _attn_dims(x, wp, num_heads)
+    b, l, d, a = _attn_dims(x, wp, num_heads, residual)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, (b, l, d), bf16, dev)
     _check("dy", dy, (b, l, d), bf16, dev)
@@ -576,7 +614,8 @@ def _attn_sublayer_bwd_cuda(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int
     err = lib.duodiff_attn_sublayer_bwd(
         _ptr(x), _ptr(dy), _ptr(ln_s), _ptr(ln_b), _ptr(wqkv), _ptr(bqkv), _ptr(wp),
         _ptr(dx), _ptr(dg), _ptr(db), _ptr(dwqkv), _ptr(dbqkv), _ptr(dwp), _ptr(dbp),
-        _ptr(ws), b, l, d, num_heads, eps, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(ws), b, l, d, num_heads, int(residual), eps,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(lib, "attention sublayer backward kernel", err)
     return dx, dg, db, dwqkv, dbqkv, dwp, dbp
@@ -601,9 +640,11 @@ def _mlp_bwd_dims(x, dy, ln_s, ln_b, w1, b1, w2):
     return b, l, d, hid
 
 
-def _mlp_sublayer_bwd_cuda(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool, eps: float):
-    """Check the operands and launch K7 (csrc/mlp_sublayer_bwd.cu) with one
-    scratch workspace; returns what :func:`mlp_sublayer_bwd_plain` does."""
+def _mlp_sublayer_bwd_cuda(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool, eps: float,
+                           residual: bool = True):
+    """Check the operands and launch K7 (csrc/mlp_sublayer_bwd.cu, with
+    ``residual=False`` its shard form) with one scratch workspace; returns
+    what :func:`mlp_sublayer_bwd_plain` does."""
     from duodiff_tpu_torch.ops._build import load_library
 
     b, l, d, hid = _mlp_bwd_dims(x, dy, ln_s, ln_b, w1, b1, w2)
@@ -619,7 +660,7 @@ def _mlp_sublayer_bwd_cuda(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool, 
     err = lib.duodiff_mlp_sublayer_bwd(
         _ptr(x), _ptr(dy), _ptr(ln_s), _ptr(ln_b), _ptr(w1), _ptr(b1), _ptr(w2),
         _ptr(dx), _ptr(dg), _ptr(db), _ptr(dw1), _ptr(db1), _ptr(dw2), _ptr(db2),
-        _ptr(ws), b * l, d, hid, 2 if gelu_approx else 1, eps,
+        _ptr(ws), b * l, d, hid, 2 if gelu_approx else 1, int(residual), eps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(lib, "MLP sublayer backward kernel", err)
@@ -655,13 +696,19 @@ def _mlp_sublayer_bwd_split_cuda(x, dy, ln_s, ln_b, w1, b1, w2, *, splits: int,
 
 
 def fused_attn_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
-                        num_heads: int, eps: float = 1e-5, variant: str = "v2"):
+                        num_heads: int, eps: float = 1e-5, variant: str = "v2",
+                        residual: bool = True):
     """K1 on packed operands; x (B, L, D). ``variant="v2"`` (default) is the
     full-width form on :func:`pack_attn`'s operands, ``"v1"`` the per-head
     form (K1-v1) on :func:`pack_attn_v1`'s; each refuses the other's packing.
-    Both are the square residual form (A == D, ``x +`` included), the only
-    one v1 has in the JAX package. v1's launches count in ``.launches_v1``."""
+    ``residual=False`` is v2's tensor-parallel shard form: ``num_heads``
+    local heads (A = num_heads * 64 <= D) and the partial ``proj + bp``
+    without ``x +``; its launches count in ``.launches_shard``. v1 has the
+    square residual form only, as in the JAX package; its launches count in
+    ``.launches_v1``."""
     _check_packing(variant, x, wqkv, bqkv, wp)
+    if variant == "v1" and not residual:
+        raise ValueError("variant 'v1' supports only the square residual form")
     if variant == "v1":
         if x.device.type == "cpu":
             return attn_sublayer_v1_plain(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp,
@@ -672,10 +719,10 @@ def fused_attn_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
         return y
     if x.device.type == "cpu":
         return attn_sublayer_plain(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp,
-                                   num_heads=num_heads, eps=eps)
+                                   num_heads=num_heads, eps=eps, residual=residual)
     y = _attn_sublayer_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp,
-                            num_heads=num_heads, eps=eps)
-    fused_attn_sublayer.launches += 1
+                            num_heads=num_heads, eps=eps, residual=residual)
+    _count(fused_attn_sublayer, residual)
     return y
 
 
@@ -692,40 +739,44 @@ def fused_block(x, ln1_scale, ln1_bias, wqkv, bqkv, wp, bp, ln2_scale, ln2_bias,
 
 
 def fused_mlp_sublayer(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
-                       gelu_approx: bool = False, eps: float = 1e-5):
-    """K2 on packed operands (:func:`pack_mlp`); x (B, L, D)."""
+                       gelu_approx: bool = False, eps: float = 1e-5, residual: bool = True):
+    """K2 on packed operands (:func:`pack_mlp`); x (B, L, D). ``residual=False``
+    is the shard form on a slice of the hidden columns: the partial ``fc2 +
+    b2`` without ``x +``, counted in ``.launches_shard``."""
     if x.device.type == "cpu":
         return mlp_sublayer_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                  gelu_approx=gelu_approx, eps=eps)
+                                  gelu_approx=gelu_approx, eps=eps, residual=residual)
     y = _mlp_sublayer_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                           gelu_approx=gelu_approx, eps=eps)
-    fused_mlp_sublayer.launches += 1
+                           gelu_approx=gelu_approx, eps=eps, residual=residual)
+    _count(fused_mlp_sublayer, residual)
     return y
 
 
 def fused_attn_sublayer_bwd(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int,
-                            eps: float = 1e-5):
+                            eps: float = 1e-5, residual: bool = True):
     """K6: the gradients of K1 (:func:`attn_sublayer_bwd_plain`); wqkv
-    (D, 3A) unscaled, wp (A, D), both in x's dtype."""
+    (D, 3A) unscaled, wp (A, D), both in x's dtype. ``residual=False`` is
+    the shard form (dx without ``+ dy``), counted in ``.launches_shard``."""
     if x.device.type == "cpu":
         return attn_sublayer_bwd_plain(x, dy, ln_s, ln_b, wqkv, bqkv, wp,
-                                       num_heads=num_heads, eps=eps)
+                                       num_heads=num_heads, eps=eps, residual=residual)
     grads = _attn_sublayer_bwd_cuda(x, dy, ln_s, ln_b, wqkv, bqkv, wp,
-                                    num_heads=num_heads, eps=eps)
-    fused_attn_sublayer_bwd.launches += 1
+                                    num_heads=num_heads, eps=eps, residual=residual)
+    _count(fused_attn_sublayer_bwd, residual)
     return grads
 
 
 def fused_mlp_sublayer_bwd(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool = False,
-                           eps: float = 1e-5):
+                           eps: float = 1e-5, residual: bool = True):
     """K7: the gradients of K2 (:func:`mlp_sublayer_bwd_plain`); w1 (D, Hd)
-    and w2 (Hd, D) in x's dtype."""
+    and w2 (Hd, D) in x's dtype. ``residual=False`` is the shard form (dx
+    without ``+ dy``), counted in ``.launches_shard``."""
     if x.device.type == "cpu":
         return mlp_sublayer_bwd_plain(x, dy, ln_s, ln_b, w1, b1, w2,
-                                      gelu_approx=gelu_approx, eps=eps)
+                                      gelu_approx=gelu_approx, eps=eps, residual=residual)
     grads = _mlp_sublayer_bwd_cuda(x, dy, ln_s, ln_b, w1, b1, w2,
-                                   gelu_approx=gelu_approx, eps=eps)
-    fused_mlp_sublayer_bwd.launches += 1
+                                   gelu_approx=gelu_approx, eps=eps, residual=residual)
+    _count(fused_mlp_sublayer_bwd, residual)
     return grads
 
 
@@ -751,10 +802,14 @@ def fused_mlp_sublayer_bwd_split(x, dy, ln_s, ln_b, w1, b1, w2, *, splits: int,
 
 fused_attn_sublayer.launches = 0
 fused_attn_sublayer.launches_v1 = 0
+fused_attn_sublayer.launches_shard = 0
 fused_mlp_sublayer.launches = 0
+fused_mlp_sublayer.launches_shard = 0
 fused_block.launches = 0
 fused_attn_sublayer_bwd.launches = 0
+fused_attn_sublayer_bwd.launches_shard = 0
 fused_mlp_sublayer_bwd.launches = 0
+fused_mlp_sublayer_bwd.launches_shard = 0
 fused_mlp_sublayer_bwd_split.launches = 0
 
 
@@ -782,11 +837,17 @@ def mlp_bwd_split_config(hidden: int) -> int:
 
 
 def mlp_sublayer_bwd(x, dy, ln_s, ln_b, w1, b1, w2, *, gelu_approx: bool = False,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, residual: bool = True):
     """The MLP sublayer's backward as training takes it (the counterpart of
     pallas_block._mlp_sublayer_bwd): K8 when the environment variable
     ``DUODIFF_MLP_BWD_SPLIT`` is ``1`` (read at call time), else K7. K7 has
-    no limit on the width here, so the variable alone decides."""
+    no limit on the width here, so the variable alone decides. The shard
+    form (``residual=False``, tensor parallelism) is K7's whatever the
+    variable says: K8 is square only, as JAX takes the split only when
+    ``residual`` is true."""
+    if not residual:
+        return fused_mlp_sublayer_bwd(x, dy, ln_s, ln_b, w1, b1, w2, gelu_approx=gelu_approx,
+                                      eps=eps, residual=False)
     if os.environ.get("DUODIFF_MLP_BWD_SPLIT") == "1":
         return fused_mlp_sublayer_bwd_split(x, dy, ln_s, ln_b, w1, b1, w2,
                                             splits=mlp_bwd_split_config(w1.shape[1]),
@@ -800,15 +861,19 @@ class FusedAttnSublayerFn(torch.autograd.Function):
     counterpart of pallas_block.fused_attn_sublayer_trainable. The forward
     packs the operands as :func:`pack_attn` does (scale folded into q); the
     backward takes the unscaled qkv weight in x's dtype, as K6 does, and
-    returns fp32 parameter gradients in torch layout."""
+    returns fp32 parameter gradients in torch layout. ``residual=False``
+    runs both shard forms on a shard's local heads (``num_heads`` of them):
+    the forward's partial and a dx without ``+ dy``
+    (``duodiff_tpu_torch/parallel/tp_fused.py`` sums them over the shards)."""
 
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b, num_heads, eps):
+    def forward(ctx, x, ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b, num_heads, eps,
+                residual=True):
         ops = _detached(attn_operands(ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b,
                                       num_heads=num_heads, dtype=x.dtype))
         ctx.save_for_backward(x, ln_w, ln_b, qkv_w, qkv_b, proj_w)
-        ctx.num_heads, ctx.eps = num_heads, eps
-        return fused_attn_sublayer(x, *ops, num_heads=num_heads, eps=eps)
+        ctx.num_heads, ctx.eps, ctx.residual = num_heads, eps, residual
+        return fused_attn_sublayer(x, *ops, num_heads=num_heads, eps=eps, residual=residual)
 
     @staticmethod
     def backward(ctx, dy):
@@ -819,21 +884,24 @@ class FusedAttnSublayerFn(torch.autograd.Function):
             qkv_w.t().to(dt).contiguous(),
             None if qkv_b is None else qkv_b.float().contiguous(),
             proj_w.t().to(dt).contiguous(), num_heads=ctx.num_heads, eps=ctx.eps,
+            residual=ctx.residual,
         )
-        return dx, dg, db, dwqkv.t(), dbqkv, dwp.t(), dbp, None, None
+        return dx, dg, db, dwqkv.t(), dbqkv, dwp.t(), dbp, None, None, None
 
 
 class FusedMlpSublayerFn(torch.autograd.Function):
     """K2 forward, K7 or K8 backward (:func:`mlp_sublayer_bwd`), on the live
     torch-layout parameters: the counterpart of
-    pallas_block.fused_mlp_sublayer_trainable."""
+    pallas_block.fused_mlp_sublayer_trainable. ``residual=False`` runs the
+    shard forms of K2 and K7 on a slice of the hidden columns."""
 
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gelu_approx, eps):
+    def forward(ctx, x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gelu_approx, eps,
+                residual=True):
         ops = _detached(mlp_operands(ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, dtype=x.dtype))
         ctx.save_for_backward(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w)
-        ctx.gelu_approx, ctx.eps = gelu_approx, eps
-        return fused_mlp_sublayer(x, *ops, gelu_approx=gelu_approx, eps=eps)
+        ctx.gelu_approx, ctx.eps, ctx.residual = gelu_approx, eps, residual
+        return fused_mlp_sublayer(x, *ops, gelu_approx=gelu_approx, eps=eps, residual=residual)
 
     @staticmethod
     def backward(ctx, dy):
@@ -843,8 +911,9 @@ class FusedMlpSublayerFn(torch.autograd.Function):
             x, dy.to(dt).contiguous(), ln_w.float().contiguous(), ln_b.float().contiguous(),
             fc1_w.t().to(dt).contiguous(), fc1_b.float().contiguous(),
             fc2_w.t().to(dt).contiguous(), gelu_approx=ctx.gelu_approx, eps=ctx.eps,
+            residual=ctx.residual,
         )
-        return dx, dg, db, dw1.t(), db1, dw2.t(), db2, None, None
+        return dx, dg, db, dw1.t(), db1, dw2.t(), db2, None, None, None
 
 
 class FusedBlockFn(torch.autograd.Function):

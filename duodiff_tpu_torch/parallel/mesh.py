@@ -1,0 +1,327 @@
+"""The process grid over ``torch.distributed`` (counterpart of
+``duodiff_tpu/parallel/mesh.py``, without FSDP).
+
+A run under ``python -m torch.distributed.run --nproc_per_node N`` (or across
+nodes with ``--multihost``) holds N ranks, one process each, laid out as a
+(data, model) grid: ``model`` consecutive ranks on one node form a model
+group, which shards the attention heads and the MLP hidden columns of every
+block (tensor parallelism, :mod:`duodiff_tpu_torch.parallel.tp_fused`), as
+``create_hybrid_mesh`` keeps tensor parallelism on a host; the ranks with the
+same place in their model groups form a data group, which splits the batch
+and averages the gradients (data parallelism). A run without the torchrun
+environment is one process on one device with no process group, and every
+collective here is then nothing.
+
+The backend follows the topology: ranks whose devices are all distinct
+reduce over NCCL, ranks that share a device (more ranks on a node than it
+has cards, or ``--device cpu``) over gloo, since NCCL refuses two ranks on
+one card. The choice is printed. Every collective is synchronous on the
+current stream (no ``async_op``): the weight-gradient kernels of the
+backward (``csrc/gemm.cuh``) spin on per-tile flags and assume every block
+of their grid is resident, which a communication kernel overlapping them on
+another stream would break, so nothing here overlaps a backward kernel
+(and training takes no DDP bucket overlap). The sums of the model and data
+groups show in a profile as ``grid.all_reduce`` spans.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.profiler import record_function
+
+# the torchrun environment, all of it or none
+ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+# the process group's init_method (default env://, torchrun's MASTER_ADDR and
+# MASTER_PORT); a file:// URL lets processes meet without a port
+INIT_METHOD_ENV = "DUODIFF_INIT_METHOD"
+
+
+@dataclasses.dataclass
+class Grid:
+    """One rank's place in the (data, model) grid. ``data`` x ``model``
+    ranks take part (``active``); a rank past them, which the batch rule of
+    :func:`training_grid` leaves without rows, only waits for the others."""
+
+    rank: int = 0
+    world: int = 1
+    data: int = 1
+    model: int = 1
+    device: torch.device = torch.device("cpu")
+    backend: Optional[str] = None
+    model_group: object = None   # the model group of this rank (None: size 1)
+    data_group: object = None    # the data group of this rank (None: size 1)
+    active_group: object = None  # every active rank (None: one process)
+    host_group: object = None    # the active ranks over gloo, for CPU tensors
+    replicated: bool = False     # every rank holds the whole batch (sampling)
+    joined: bool = False         # this grid joined the process group: close leaves it
+
+    @property
+    def distributed(self) -> bool:
+        return self.world > 1
+
+    @property
+    def active(self) -> bool:
+        return self.rank < self.data * self.model
+
+    @property
+    def data_rank(self) -> int:
+        return 0 if self.replicated else self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0, which writes the metrics, the files and the checkpoints."""
+        return self.rank == 0
+
+    def rows(self, batch: int) -> tuple[int, int, int]:
+        """(lo, hi, batch): the rows of a global batch this rank holds."""
+        shards = 1 if self.replicated else self.data
+        per = batch // shards
+        return self.data_rank * per, (self.data_rank + 1) * per, batch
+
+    # --- collectives: synchronous, nothing on a group of one ----------------
+
+    def _sum(self, t: torch.Tensor, group) -> torch.Tensor:
+        """``t`` summed over ``group``, in place, in its own dtype (a bf16
+        partial rounds to bf16 at each add of the collective's order: over 2
+        shards that is the fp32 sum rounded once)."""
+        if group is not None:
+            with record_function("grid.all_reduce"):
+                dist.all_reduce(t, group=group)
+        return t
+
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over this rank's model group (a new tensor)."""
+        return self._sum(t.clone(), self.model_group)
+
+    def model_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        return self._sum(t, self.model_group)
+
+    def data_mean_(self, tensors: list) -> None:
+        """Average fp32 ``tensors`` over the data group in place, as one flat
+        all-reduce."""
+        if self.data_group is None or not tensors:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        with record_function("grid.all_reduce"):
+            dist.all_reduce(flat, group=self.data_group)
+        flat /= self.data
+        at = 0
+        for t in tensors:
+            t.copy_(flat[at:at + t.numel()].view_as(t))
+            at += t.numel()
+
+    def all_true(self, flag: torch.Tensor) -> torch.Tensor:
+        """A bool device flag agreed over every active rank: true where it is
+        true on all of them."""
+        if self.active_group is None:
+            return flag
+        v = flag.to(torch.int32).reshape(1)
+        dist.all_reduce(v, op=dist.ReduceOp.MIN, group=self.active_group)
+        return v[0].bool()
+
+    def any_on_host(self, flag: bool) -> bool:
+        """A host flag agreed over every active rank: true where it is true
+        on any of them (a CPU all-reduce, which waits for no device)."""
+        if self.host_group is None:
+            return flag
+        v = torch.tensor([int(flag)], dtype=torch.int32)
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self.host_group)
+        return bool(v[0])
+
+    def barrier(self) -> None:
+        if self.host_group is not None:
+            dist.barrier(group=self.host_group)
+
+    def gather_host(self, t: torch.Tensor) -> list:
+        """Every active rank's CPU tensor ``t`` (the same shape on each), in
+        rank order, on every active rank."""
+        if self.host_group is None:
+            return [t]
+        out = [torch.empty_like(t) for _ in range(self.data * self.model)]
+        dist.all_gather(out, t.contiguous(), group=self.host_group)
+        return out
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch from each data rank's rows ``t`` (CPU tensors; the
+        first model rank's of each data rank), on every active rank."""
+        if self.host_group is None or self.replicated:
+            return t
+        parts = self.gather_host(t)
+        return torch.cat(parts[::self.model])
+
+
+def env_spec() -> Optional[dict]:
+    """The torchrun environment as ints, or None when none of it is set;
+    refuses a partial one (as ``main.py:maybe_init_distributed`` refuses a
+    partial ``JAX_*`` spec) and one that needs a rendezvous it lacks."""
+    env = os.environ
+    present = {k: env[k] for k in ENV_KEYS if env.get(k)}
+    if not present:
+        return None
+    missing = [k for k in ENV_KEYS if k not in present]
+    if missing:
+        raise SystemExit(f"{', '.join(sorted(present))} set but {' and '.join(missing)} "
+                         "missing: run under python -m torch.distributed.run, which sets all of "
+                         f"{', '.join(ENV_KEYS)}")
+    if not env.get(INIT_METHOD_ENV) and not (env.get("MASTER_ADDR") and env.get("MASTER_PORT")):
+        raise SystemExit("the torchrun environment lacks MASTER_ADDR / MASTER_PORT (or "
+                         f"{INIT_METHOD_ENV}): the ranks have nowhere to meet")
+    spec = {k.lower(): int(v) for k, v in present.items()}
+    if not 0 <= spec["rank"] < spec["world_size"] or not (
+            0 <= spec["local_rank"] < spec["local_world_size"] <= spec["world_size"]):
+        raise SystemExit(f"inconsistent torchrun environment: {present}")
+    return spec
+
+
+def _device(device: str, local_rank: int) -> torch.device:
+    """``cuda:{LOCAL_RANK % cards}`` for a CUDA run, else the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise SystemExit(f"--device {device}: no CUDA device is available")
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def _backend(dev: torch.device, local_world: int) -> str:
+    """NCCL when every rank of the node has a card of its own, else gloo.
+
+    The rule assumes that every rank sees every card of its node, as
+    torchrun leaves them: a launcher that hides all but one card from each
+    rank (``CUDA_VISIBLE_DEVICES`` a rank) makes ``device_count()`` 1, and
+    such ranks reduce over gloo through the host although their cards are
+    distinct."""
+    if dev.type == "cuda" and torch.cuda.device_count() >= local_world:
+        return "nccl"
+    return "gloo"
+
+
+def _grid(model_parallel: int, device: str, multihost: bool,
+          data_size, what: str) -> Grid:
+    """Join the process group (or keep the one this process joined for an
+    earlier grid, as when one process trains, then samples: :func:`close`
+    then leaves it only through the grid that joined it) and build the
+    grid; ``data_size(world // mp)`` picks the data size (or refuses)."""
+    mp = max(1, int(model_parallel or 1))
+    spec = env_spec()
+    if spec is None:
+        if multihost:
+            raise SystemExit("--multihost needs the torchrun environment (RANK, WORLD_SIZE, "
+                             "LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT): run under "
+                             "python -m torch.distributed.run --nnodes ... --nproc_per_node ...")
+        if mp > 1:
+            raise SystemExit(f"--model_parallel {mp} does not divide 1 process: run under "
+                             f"python -m torch.distributed.run --nproc_per_node {mp}")
+        return Grid(device=torch.device(device))
+    rank, world = spec["rank"], spec["world_size"]
+    local_rank, local_world = spec["local_rank"], spec["local_world_size"]
+    if world > local_world and not multihost:
+        raise SystemExit(f"{world} ranks over {world // local_world} nodes: pass --multihost "
+                         "for a run across nodes")
+    if world % mp:
+        raise SystemExit(f"--model_parallel {mp} does not divide {world} ranks")
+    if local_world % mp:
+        raise SystemExit(f"--model_parallel {mp} does not divide the {local_world} ranks of a "
+                         "node: a model group stays on one node")
+    data = data_size(world // mp)
+    dev = _device(device, local_rank)
+    backend = _backend(dev, local_world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    joined = not dist.is_initialized()
+    if joined:
+        dist.init_process_group(backend, init_method=os.environ.get(INIT_METHOD_ENV, "env://"),
+                                rank=rank, world_size=world)
+    elif (dist.get_rank(), dist.get_world_size(), dist.get_backend()) != (rank, world, backend):
+        raise SystemExit("this process already joined another process group")
+    grid = Grid(rank=rank, world=world, data=data, model=mp, device=dev, backend=backend,
+                joined=joined)
+    # every rank creates every group, in the same order
+    active = list(range(data * mp))
+    for d in range(data if mp > 1 else 0):
+        g = dist.new_group([d * mp + m for m in range(mp)])
+        if grid.active and grid.data_rank == d:
+            grid.model_group = g
+    for m in range(mp if data > 1 else 0):
+        g = dist.new_group([d * mp + m for d in range(data)])
+        if grid.active and grid.model_rank == m:
+            grid.data_group = g
+    if len(active) > 1:
+        whole = dist.new_group(active)
+        host = whole if backend == "gloo" else dist.new_group(active, backend="gloo")
+        if grid.active:
+            grid.active_group, grid.host_group = whole, host
+    if rank == 0:
+        print(f"{what} on a (data {data}, model {mp}) grid of {world} ranks: backend {backend} "
+              f"({'ranks share a device' if backend == 'gloo' else 'a device a rank'}), "
+              f"{dev.type}", flush=True)
+    return grid
+
+
+def training_grid(model_parallel: int, batch_size: int, device: str,
+                  multihost: bool = False) -> Grid:
+    """The training grid (``duodiff_tpu/training/trainer.py``'s mesh rule):
+    on one node the data size drops to the largest divisor of the batch
+    (the ranks past data x model wait), across nodes the batch must divide
+    it."""
+
+    def data_size(n: int) -> int:
+        if multihost:
+            if batch_size % n:
+                raise SystemExit(f"batch_size {batch_size} must be divisible by the {n} data "
+                                 "shards of a multi-node grid")
+            return n
+        d = n
+        while batch_size % d:
+            d -= 1
+        if d != n:
+            print(f"batch_size {batch_size} not divisible by {n} data shards; using {d}-way "
+                  "data parallelism", flush=True)
+        return d
+
+    return _grid(model_parallel, device, multihost, data_size, "Training")
+
+
+def sampling_grid(model_parallel: int, batch_size: int, device: str,
+                  multihost: bool = False, split: bool = True) -> Grid:
+    """The sampling grid (``sampling_mesh`` / ``setup_sampling_sharding``):
+    with ``model_parallel`` > 1 the batch must divide the data shards; without,
+    a batch that divides the world runs data-parallel, and any other batch
+    (or any batch with ``split=False``) runs whole on every rank
+    (``replicated``), rank 0 writing it."""
+    mp = max(1, int(model_parallel or 1))
+    whole = []
+
+    def data_size(n: int) -> int:
+        if mp > 1 and batch_size % n:
+            raise SystemExit(f"batch_size {batch_size} must be divisible by the {n} data "
+                             "shards")
+        if mp == 1 and (batch_size % n or not split):
+            whole.append(n)
+        return n
+
+    grid = _grid(mp, device, multihost, data_size, "Sampling")
+    if whole:
+        grid.replicated = True
+        if grid.is_main:
+            print(f"every one of the {whole[0]} ranks samples the whole batch of "
+                  f"{batch_size}", flush=True)
+    return grid
+
+
+def close(grid: Grid) -> None:
+    """Leave the process group (after a barrier), if this grid joined it; a
+    grid built on a group an earlier grid joined leaves it to that one."""
+    if grid.joined and dist.is_initialized():
+        if grid.host_group is not None:
+            dist.barrier(group=grid.host_group)
+        dist.destroy_process_group()

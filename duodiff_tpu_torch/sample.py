@@ -60,6 +60,18 @@ decodes to images before they are written, the ``--timesteps_save`` states
 too; the printed sampling time leaves the decode out, and the decode time
 is printed apart. A DuoDiff pair decodes with the first config's block; a
 pair of which only one config is latent is refused.
+
+Under ``python -m torch.distributed.run --nproc_per_node N`` the CLI samples
+on the (data, model) grid of ``parallel/mesh.py``: ``--model_parallel M``
+shards every block's heads and hidden columns over groups of M ranks (the
+batch must divide the N / M data shards; not with ``fused_int8``, whose
+kernels have no shard form, nor with the unfused blocks); without it a batch
+that divides N runs data-parallel, any other whole on every rank. Every rank
+draws the global batch's noise and labels from the shared generator and
+keeps its rows (``diffusion/sampling.py:RowDraws``), so the samples are
+those of a one-process run; rank 0 gathers the rows on the host and writes
+the files. ``--multihost`` lets the grid span nodes. ``--pipeline_parallel``
+(pipeline-parallel DuoDiff) is refused.
 """
 
 from __future__ import annotations
@@ -75,15 +87,18 @@ from duodiff_tpu_torch.config import load_autoencoder_config
 from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
 from duodiff_tpu_torch.diffusion.sampling import (
     DDPMSampler,
+    RowDraws,
     ddim_pairs,
     ddim_sample,
     dpm_solver_sample,
     make_block_cached_apply,
     make_guided_apply,
     make_interleaved_apply,
+    randn,
     split_segments,
 )
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+from duodiff_tpu_torch.parallel.mesh import close, sampling_grid
 from duodiff_tpu_torch.utils.image import save_samples, to_uint8
 from duodiff_tpu_torch.utils.model_loading import load_autoencoder, load_model
 
@@ -169,7 +184,34 @@ def get_args(argv=None):
                              "scales of the (early) model for --attn_impl fused_int8")
     parser.add_argument("--int8_scales_late", type=str, default=None,
                         help="int8 scales JSON for the DuoDiff late model")
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="Tensor-parallel degree over the ranks of torch.distributed.run: "
+                             "shard the heads and the MLP hidden columns over groups of this "
+                             "many ranks")
+    parser.add_argument("--multihost", action="store_true",
+                        help="Let the torch.distributed.run grid span nodes")
+    parser.add_argument("--pipeline_parallel", action="store_true",
+                        help="Pipeline-parallel DuoDiff: not ported (refused)")
     return parser.parse_args(argv)
+
+
+def check_parallel_flags(args, attn_impl: str) -> None:
+    """The refusals of the grid's flags (``sampler.py:162-196``, ``:588-620``),
+    and int8 with tensor parallelism, which the JAX CLI runs without the
+    shards."""
+    mp = args.model_parallel or 1
+    if mp < 1:
+        raise SystemExit(f"--model_parallel must be >= 1, got {mp}")
+    if getattr(args, "pipeline_parallel", False):
+        raise SystemExit("--pipeline_parallel (pipeline-parallel DuoDiff on disjoint device "
+                         "groups) is not ported yet (ROADMAP queue 1, item 8)")
+    if mp > 1 and attn_impl in ("fused_int8", "plain_int8"):
+        raise SystemExit(f"--attn_impl {attn_impl} does not combine with --model_parallel: the "
+                         "int8 kernels K11 / K12 have no tensor-parallel shard form")
+    if mp > 1 and attn_impl != "fused":
+        raise SystemExit(f"--attn_impl {attn_impl} with --model_parallel: only fused has a "
+                         "tensor-parallel form (the unfused block under tensor parallelism is "
+                         "not ported yet)")
 
 
 def class_labels(args, num_classes: int, generator: torch.Generator):
@@ -319,9 +361,12 @@ def main(argv=None) -> dict:
     s reverse steps, for --timesteps_save}, "seconds": sampling wall time,
     "decode_seconds": the decode's (0 without an autoencoder)}."""
     args = get_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
+    mp = args.model_parallel or 1
+    attn_impl = args.attn_impl or ("fused" if args.device.startswith("cuda") or mp > 1
+                                   else "plain")
+    check_parallel_flags(args, attn_impl)
     if not args.random_init and args.checkpoint_path is None:
         raise SystemExit("--checkpoint_path is required (or pass --random_init)")
     has_late = args.config_path_late is not None or args.checkpoint_path_late is not None
@@ -335,15 +380,26 @@ def main(argv=None) -> dict:
         cache_rule = load_cache_schedule(args.cache_schedule, num_timesteps=steps)
     cache_on = cache_rule is not None
     check_flags(args, has_late, cache_on, steps)
-    attn_impl = args.attn_impl or ("fused" if device.type == "cuda" else "plain")
+    grid = sampling_grid(mp, args.batch_size, args.device, args.multihost)
+    try:
+        return _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl)
+    finally:
+        close(grid)
+
+
+def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dict:
+    """:func:`main` once the flags are checked and the grid is formed."""
+    device = grid.device
     output_folder = Path(args.output_folder)
-    output_folder.mkdir(parents=True, exist_ok=True)
+    if grid.is_main:
+        output_folder.mkdir(parents=True, exist_ok=True)
 
     def load(config_path, checkpoint_path, seed, int8_scales):
         model, cfg = load_model(
             config_path, None if args.random_init else checkpoint_path,
             device=device, seed=seed, attn_impl=attn_impl,
             gelu_approx=args.gelu_approx, int8_scales=int8_scales, use_ema=args.use_ema,
+            grid=grid,
         )
         model.pack_for_kernels()
         return model.eval(), cfg
@@ -390,12 +446,17 @@ def main(argv=None) -> dict:
     if cfg.num_classes > 0 and y is None:
         raise SystemExit("a class-conditional model needs labels: pass --class_id "
                          "(with or without --guidance_scale) or --fixed_class")
+    rows = grid.rows(args.batch_size)  # this rank's rows of the global batch
+    if y is not None:
+        y = y[rows[0]:rows[1]]
+    if grid.distributed:
+        generator = RowDraws(generator, rows)
     late = None
     if has_late:
         late, late_cfg = load(args.config_path_late or args.config_path,
                               args.checkpoint_path_late, args.seed + 1,
                               args.int8_scales_late)
-    shape = (args.batch_size, cfg.img_size, cfg.img_size, cfg.in_chans)
+    shape = (rows[1] - rows[0], cfg.img_size, cfg.img_size, cfg.in_chans)
 
     if args.interleave_every is not None:
         kind = f"interleave_every={args.interleave_every}"
@@ -460,20 +521,28 @@ def main(argv=None) -> dict:
                     kept[steps - t_lo] = x
             return x, {s: kept[s] for s in args.timesteps_save}
 
-    print(f"Sampling {args.batch_size} images on {device} ({kind}, attn_impl={attn_impl}, "
-          f"cache={'on' if cache_on else 'off'})...")
+    if grid.is_main:
+        print(f"Sampling {args.batch_size} images on {device} ({kind}, attn_impl={attn_impl}, "
+              f"cache={'on' if cache_on else 'off'}, grid data {grid.data} x model "
+              f"{grid.model})...")
     with torch.inference_mode():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         tic = time.perf_counter()
-        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        x = randn(shape, generator, device)
         x, kept = run(x)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - tic
         x, kept, decode_seconds = decode_all(decode, x, kept, device)
-        samples = ((x + 1.0) / 2.0).cpu().numpy()
-        intermediates = {s: ((v + 1.0) / 2.0).cpu().numpy() for s, v in kept.items()}
+        # rank 0 gathers every data rank's rows on the host
+        samples = grid.gather_rows(((x + 1.0) / 2.0).cpu()).numpy()
+        intermediates = {s: grid.gather_rows(((v + 1.0) / 2.0).cpu()).numpy()
+                         for s, v in kept.items()}
+    result = {"samples": samples, "intermediates": intermediates, "seconds": elapsed,
+              "decode_seconds": decode_seconds}
+    if not grid.is_main:
+        return result
 
     np.save(output_folder / "samples.npy", to_uint8(samples))
     with open(output_folder / "statistics.txt", "w") as f:
@@ -484,8 +553,7 @@ def main(argv=None) -> dict:
     if decode is not None:
         print(f"Decode time: {decode_seconds:.2f} s")
     print(f"Elapsed time: {elapsed:.2f} s -> {output_folder}")
-    return {"samples": samples, "intermediates": intermediates, "seconds": elapsed,
-            "decode_seconds": decode_seconds}
+    return result
 
 
 if __name__ == "__main__":

@@ -144,8 +144,9 @@ class _ServiceBase:
         if not args.random_init and args.checkpoint_path is None:
             raise SystemExit("--checkpoint_path is required (or pass --random_init)")
         if (args.model_parallel or 1) > 1:
-            raise SystemExit(f"--model_parallel {args.model_parallel} needs multi-GPU tensor "
-                             "parallelism, which is not ported: serve on one GPU")
+            raise SystemExit(f"--model_parallel {args.model_parallel} needs multi-GPU serving "
+                             "(rank 0 broadcasting each request to the model group), which is "
+                             "not ported: serve on one GPU")
         self.static_buckets = None
         if args.static_schedule:
             if args.method != "ddpm":

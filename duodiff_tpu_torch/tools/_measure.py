@@ -84,6 +84,10 @@ def _counted_wrappers() -> dict:
         "fused_mlp_sublayer": (block.fused_mlp_sublayer, "launches"),
         "fused_attn_sublayer_bwd": (block.fused_attn_sublayer_bwd, "launches"),
         "fused_mlp_sublayer_bwd": (block.fused_mlp_sublayer_bwd, "launches"),
+        "fused_attn_sublayer_shard": (block.fused_attn_sublayer, "launches_shard"),
+        "fused_mlp_sublayer_shard": (block.fused_mlp_sublayer, "launches_shard"),
+        "fused_attn_sublayer_bwd_shard": (block.fused_attn_sublayer_bwd, "launches_shard"),
+        "fused_mlp_sublayer_bwd_shard": (block.fused_mlp_sublayer_bwd, "launches_shard"),
         "fused_attn_sublayer_v1": (block.fused_attn_sublayer, "launches_v1"),
         "fused_block": (block.fused_block, "launches"),
         "fused_mlp_sublayer_bwd_split": (block.fused_mlp_sublayer_bwd_split, "launches"),

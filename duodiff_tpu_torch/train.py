@@ -30,8 +30,17 @@ takes the split MLP backward kernel K8 in place of K7, whose scratch
 at the last (per-step statistics as ``.npy`` and the grid as a PNG in the
 run's folder), ``--profile`` traces steps 3 to 8 of the run with
 ``torch.profiler`` into ``<log_path>/<exp_name>/profile``, and
-``--async_checkpoint`` writes checkpoints in a background thread. The
-multi-GPU flags are refused with a message.
+``--async_checkpoint`` writes checkpoints in a background thread.
+
+Data and tensor parallelism run under ``python -m torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m duodiff_tpu_torch.train --model_parallel 2 ...
+
+forms a (data 2, model 2) grid (``parallel/mesh.py``); ``--multihost`` lets
+the grid span nodes (``--nnodes``), the model groups staying on one node.
+Without the torchrun environment the run is one process, as it always was.
+``--fsdp`` is refused with a message.
 Checkpoints land in ``<log_path>/<exp_name>/<save_name>_last/checkpoint.pth``;
 ``python -m duodiff_tpu_torch.sample --checkpoint_path`` (``eesample`` for an
 early-exit model) loads that file.
@@ -134,10 +143,13 @@ def get_args(argv=None):
                    help="Accepted; CIFAR-10 lives in memory, celeba, imagenet64 and "
                         "imagenet256 are read from their caches only")
     # Parallelism
-    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="Tensor-parallel degree: shard the heads and the MLP hidden columns "
+                        "over groups of this many ranks (under torch.distributed.run)")
     p.add_argument("--fsdp", action="store_true", default=False)
     p.add_argument("--fsdp_min_size", type=int, default=16384)
-    p.add_argument("--multihost", action="store_true", default=False)
+    p.add_argument("--multihost", action="store_true", default=False,
+                   help="Let the torch.distributed.run grid span nodes")
     # Device
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
@@ -152,8 +164,13 @@ def main(argv=None):
         merge_args_with_config(args, args.config_path)
     from duodiff_tpu_torch.training.trainer import Trainer
 
+    from duodiff_tpu_torch.parallel.mesh import close
+
     trainer = Trainer(args)
-    trainer.train()
+    try:
+        trainer.train()
+    finally:
+        close(trainer.grid)
     return trainer
 
 

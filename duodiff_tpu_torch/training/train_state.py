@@ -14,6 +14,14 @@ An optimizer over a subset of the model's parameters is the JAX package's
 clipping, AdamW, accumulation and the finite check see the subset's
 gradients only, the rest never move, and the logged ``grad_norm`` is still
 the norm of every gradient.
+
+On a process grid (``parallel/mesh.py``) the gradients are averaged over the
+data group after the backward, as one flat all-reduce that overlaps nothing
+(no DDP buckets); the global norm sums the squares of a tensor-parallel
+shard's gradients over the model group and a replicated one's once; the
+finite flag of ``skip_nonfinite`` is agreed over every rank; AdamW and the
+EMA stay local to the shard. A step draws the global batch's timesteps and
+noise and keeps its rows, so it computes what one process computes for them.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from torch import nn
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.training.losses import deediff_loss, total_deediff_loss, uvit_loss
 from duodiff_tpu_torch.training.lr import cosine_schedule_with_warmup
+from duodiff_tpu_torch.utils.convert import shard_kind
 
 
 def tensor_norms(tensors) -> tuple[torch.Tensor, torch.Tensor]:
@@ -35,6 +44,20 @@ def tensor_norms(tensors) -> tuple[torch.Tensor, torch.Tensor]:
     sum of squares of every element (optax.global_norm)."""
     norms = torch.stack(torch._foreach_norm(list(tensors)))
     return norms, torch.linalg.vector_norm(norms)
+
+
+def grid_norms(tensors, names, grid=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tensor_norms` of a model the grid shards: a tensor-parallel
+    shard's squares are summed over the model group (one all-reduce), a
+    replicated tensor's counted once."""
+    tensors = list(tensors)
+    sharded = [shard_kind(n) is not None for n in names]
+    if grid is None or grid.model <= 1 or not any(sharded):
+        return tensor_norms(tensors)
+    rep, _ = tensor_norms([t for t, s in zip(tensors, sharded) if not s])
+    shard, _ = tensor_norms([t for t, s in zip(tensors, sharded) if s])
+    shard_sq = grid.model_sum_(shard.square().sum().reshape(1))
+    return torch.cat([rep, shard]), (rep.square().sum() + shard_sq[0]).sqrt()
 
 
 class AdamW:
@@ -59,13 +82,16 @@ class AdamW:
     (``notfinite_count``, ``total_notfinite``, ``last_finite``) then live on
     the device. With both, a bad data step makes its window's mean
     non-finite and the window's update is the one skipped; the mean starts
-    again from zero with the next window."""
+    again from zero with the next window.
+
+    ``grid``: clip to the global norm over the grid's shards
+    (:func:`grid_norms`) and take the finite flag agreed over every rank."""
 
     EPS = 1e-8  # optax.adamw's default
 
     def __init__(self, params: dict, *, lr_schedule: Callable[[int], float], beta1: float,
                  beta2: float, weight_decay: float, max_grad_norm: float,
-                 skip_nonfinite: int = 0, grad_accum: int = 1):
+                 skip_nonfinite: int = 0, grad_accum: int = 1, grid=None):
         if grad_accum < 1 or skip_nonfinite < 0:
             raise ValueError(f"grad_accum must be >= 1 and skip_nonfinite >= 0, got "
                              f"{grad_accum} and {skip_nonfinite}")
@@ -77,6 +103,7 @@ class AdamW:
         self.max_grad_norm = max_grad_norm
         self.skip_nonfinite = skip_nonfinite
         self.grad_accum = grad_accum
+        self.grid = grid
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self._count = 0
@@ -108,7 +135,7 @@ class AdamW:
         clipping. Without accumulation it clips ``grads`` (in place) and
         updates; with it, it folds them into the running mean and updates
         from the mean on every ``grad_accum``-th call."""
-        norms, g_norm = tensor_norms(grads)
+        norms, g_norm = grid_norms(grads, self.names, self.grid)
         if self.grad_accum == 1:
             self._update(grads, norms, g_norm)
             return g_norm
@@ -117,7 +144,7 @@ class AdamW:
         torch._foreach_add_(self.acc_grads, diff)
         self.mini_step = (self.mini_step + 1) % self.grad_accum
         if self.mini_step == 0:
-            self._update(self.acc_grads, *tensor_norms(self.acc_grads))
+            self._update(self.acc_grads, *grid_norms(self.acc_grads, self.names, self.grid))
             torch._foreach_zero_(self.acc_grads)
         return g_norm
 
@@ -129,7 +156,8 @@ class AdamW:
                              self.max_grad_norm / g_norm)
         torch._foreach_mul_(grads, factor)
         if self.skip_nonfinite:
-            self._update_if_finite(grads, torch.isfinite(norms).all())
+            finite = torch.isfinite(norms).all()
+            self._update_if_finite(grads, finite if self.grid is None else self.grid.all_true(finite))
             return
         self._count += 1
         b1, b2 = self.beta1, self.beta2
@@ -219,14 +247,14 @@ class AdamW:
 
 def make_optimizer(params: dict, *, lr: float, weight_decay: float, beta1: float, beta2: float,
                    max_grad_norm: float, num_warmup_steps: int, num_training_steps: int,
-                   skip_nonfinite: int = 0, grad_accum: int = 1) -> AdamW:
+                   skip_nonfinite: int = 0, grad_accum: int = 1, grid=None) -> AdamW:
     """AdamW with global-norm clipping on the cosine-warmup schedule.
     ``num_warmup_steps`` and ``num_training_steps`` count optimizer updates:
     with ``grad_accum`` the caller divides its data steps by it."""
     return AdamW(params,
                  lr_schedule=cosine_schedule_with_warmup(lr, num_warmup_steps, num_training_steps),
                  beta1=beta1, beta2=beta2, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
-                 skip_nonfinite=skip_nonfinite, grad_accum=grad_accum)
+                 skip_nonfinite=skip_nonfinite, grad_accum=grad_accum, grid=grid)
 
 
 @dataclasses.dataclass
@@ -274,7 +302,7 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
                     seed: int, model_kind: str = "uvit", use_unweighted_loss: bool = False,
                     has_labels: bool = False, teacher: Optional[nn.Module] = None,
                     distill_alpha: float = 1.0, t_min: int = 0, label_dropout: float = 0.0,
-                    null_label: Optional[int] = None):
+                    null_label: Optional[int] = None, grid=None, rows: Optional[tuple] = None):
     """Build ``train_step(state, batch, step) -> metrics``.
 
     A step draws uniform timesteps in [t_min, steps) and the noise from
@@ -300,6 +328,11 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     ``null_label``. The mask comes from a generator of its own
     (:func:`drop_mask`), so the timesteps and the noise are those of a
     ``label_dropout=0`` run to the bit. ``loss_fn(..., drop=mask)`` injects it.
+
+    ``rows = (lo, hi, total)``: the batch is rows lo:hi of a global batch of
+    ``total``; the step draws the global batch's timesteps, noise and drop
+    mask and keeps those rows. ``grid``: the gradients are averaged over its
+    data group before the update.
     """
     names, params = map(list, zip(*model.named_parameters()))
     if label_dropout > 0.0 and (not has_labels or null_label is None):
@@ -309,12 +342,18 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     if model_kind == "deediff_uvit" and teacher is not None:
         raise ValueError("distillation targets a plain UViT student, not deediff_uvit")
 
+    def global_rows(clean):
+        """(lo, hi, total) of the batch: all of it without ``rows``."""
+        return rows if rows is not None else (0, clean.shape[0], clean.shape[0])
+
     def draws(batch, step: int):
         clean = batch["image"]
+        lo, hi, total = global_rows(clean)
         g = step_generator(seed, step, clean.device)
-        timesteps = torch.randint(t_min, schedule.steps, (clean.shape[0],), generator=g,
-                                  device=clean.device)
-        noise = torch.randn(clean.shape, generator=g, device=clean.device, dtype=torch.float32)
+        timesteps = torch.randint(t_min, schedule.steps, (total,), generator=g,
+                                  device=clean.device)[lo:hi]
+        noise = torch.randn((total, *clean.shape[1:]), generator=g, device=clean.device,
+                            dtype=torch.float32)[lo:hi]
         return timesteps, noise
 
     def drop_mask(batch, step: int):
@@ -322,8 +361,9 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
         if label_dropout <= 0.0:
             return None
         clean = batch["image"]
+        lo, hi, total = global_rows(clean)
         g = step_generator(seed, step, clean.device, _LABEL_DROP_STREAM)
-        return torch.rand((clean.shape[0],), generator=g, device=clean.device) < label_dropout
+        return torch.rand((total,), generator=g, device=clean.device)[lo:hi] < label_dropout
 
     def loss_fn(batch, timesteps, noise, drop=None):
         clean = batch["image"].float()
@@ -371,7 +411,7 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
         if opt_names == names:
             g_norm = state.optimizer.step(grads)
         else:
-            g_norm = tensor_norms(grads)[1]
+            g_norm = grid_norms(grads, names, grid)[1]
             by_name = dict(zip(names, grads))
             state.optimizer.step([by_name[n] for n in opt_names])
         state.update_ema()
@@ -383,6 +423,8 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
             timesteps, noise = draws(batch, step)
             drop = drop_mask(batch, step)
         metrics, grads = backward(batch, timesteps, noise, drop)
+        if grid is not None:
+            grid.data_mean_(grads)
         metrics["grad_norm"] = update(state, grads)
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -1,4 +1,4 @@
-"""Training orchestration on one device (counterpart of
+"""Training orchestration on one device or a process grid (counterpart of
 ``duodiff_tpu/training/trainer.py``).
 
 ``Trainer(args).train()`` with ``main.py``'s flag surface: the model, a
@@ -17,8 +17,16 @@ accumulation (``--grad_accum``), skipping of non-finite updates
 sampling during training (``--log_every_n_steps``), the profiler
 (``--profile``), checkpoints with exact resume, also in the middle of an
 accumulation window, written in the background with
-``--async_checkpoint``, and a SIGTERM checkpoint-and-exit. The multi-GPU
-flags are refused (:func:`refuse_unported`).
+``--async_checkpoint``, and a SIGTERM checkpoint-and-exit.
+
+Under ``python -m torch.distributed.run`` the run forms the (data, model)
+grid of ``parallel/mesh.py`` (``--model_parallel``, ``--multihost``): the
+blocks are tensor-parallel shards (``fused`` by default), each data rank
+reads and draws its rows of the global batch, the gradients are averaged
+over the data group, and rank 0 alone writes the metrics, ``hparams.json``,
+the samples and the checkpoints, which hold the full state gathered from the
+shards, so any one-GPU tool loads them and a grid of any shape resumes from
+them. ``--fsdp`` is refused (:func:`refuse_unported`).
 
 Deliberate difference: the in-training samples go to a PNG grid beside the
 metrics, not to TensorBoard (an RGBA grid of the undecoded latents for a
@@ -41,6 +49,7 @@ from duodiff_tpu_torch.diffusion.sampling import ddpm_loop
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.models.early_exit import EarlyExitUViT, init_early_exit_uvit
 from duodiff_tpu_torch.models.uvit import init_uvit
+from duodiff_tpu_torch.parallel.mesh import training_grid
 from duodiff_tpu_torch.training.checkpointer import Checkpointer
 from duodiff_tpu_torch.training.train_state import (
     TrainState,
@@ -51,6 +60,8 @@ from duodiff_tpu_torch.training.train_state import (
 from duodiff_tpu_torch.utils.convert import (
     early_exit_state_dict_from_reference,
     early_exit_state_dict_to_reference,
+    gather_state_dict,
+    shard_state_dict,
 )
 from duodiff_tpu_torch.utils.image import make_grid, save_image
 from duodiff_tpu_torch.utils.model_loading import load_autoencoder, load_backbone, load_model
@@ -60,9 +71,7 @@ ENCODE_STREAM = 7  # the JAX trainer's fold_in constant for the encode's draw
 
 # flag -> (is it set?, what it needs): refused until that machinery is ported
 _UNPORTED = {
-    "fsdp": (bool, "multi-GPU parameter sharding"),
-    "model_parallel": (lambda v: (v or 1) > 1, "multi-GPU tensor parallelism"),
-    "multihost": (bool, "multi-host training"),
+    "fsdp": (bool, "multi-GPU parameter sharding (FSDP)"),
 }
 
 
@@ -72,6 +81,11 @@ def refuse_unported(args) -> None:
         value = getattr(args, flag, None)
         if value is not None and is_set(value):
             raise ValueError(f"--{flag} {value!r} needs {needs}, which is not ported yet")
+    impl = getattr(args, "attn_impl", None)
+    if (getattr(args, "model_parallel", 1) or 1) > 1 and impl not in (None, "auto", "fused"):
+        raise ValueError(f"--attn_impl {impl} with --model_parallel: only fused has a "
+                         "tensor-parallel form (the unfused block under tensor parallelism is "
+                         "not ported yet)")
     model = getattr(args, "model", "uvit")
     if model != "deediff_uvit":
         for flag in ("load_backbone", "freeze_backbone"):
@@ -106,9 +120,16 @@ class Trainer:
     def __init__(self, args):
         refuse_unported(args)
         self.args = args
-        self.device = torch.device(args.device)
+        self.logs = []
+        self.grid = training_grid(getattr(args, "model_parallel", 1), args.batch_size,
+                                  args.device, bool(getattr(args, "multihost", False)))
+        if not self.grid.active:
+            print(f"rank {self.grid.rank}: no rows of the batch for this rank; it waits")
+            return
+        self.device = self.grid.device
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise SystemExit(f"--device {args.device}: no CUDA device is available")
+        self.rows = self.grid.rows(args.batch_size)  # this data rank's rows of the batch
         self.log_path = Path(args.log_path) / args.exp_name
         self.log_path.mkdir(parents=True, exist_ok=True)
         self.compute_dtype = (
@@ -118,14 +139,15 @@ class Trainer:
         self.schedule = NoiseSchedule.create(steps=args.num_timesteps, device=self.device)
         self.attn_impl = args.attn_impl
         if self.attn_impl in (None, "auto"):
-            self.attn_impl = "fused" if self.device.type == "cuda" else "plain"
+            tp = self.grid.model > 1
+            self.attn_impl = "fused" if self.device.type == "cuda" or tp else "plain"
         self.gelu_approx = args.gelu == "tanh"
 
         self._init_model()
         self._init_teacher()
         self._init_autoencoder()
         self.dataloader = get_dataloader(args.dataset, args.batch_size, args.seed,
-                                         args.data_path)
+                                         args.data_path, rows=self.rows)
         # labels feed the model for ImageNet and for any class-conditional model
         self.has_labels = "imagenet" in args.dataset or self.model_config.num_classes > 0
         grad_accum = getattr(args, "grad_accum", 1) or 1
@@ -143,13 +165,14 @@ class Trainer:
             num_warmup_steps=args.num_warmup_steps,
             num_training_steps=max(args.n_steps // grad_accum, 1),
             skip_nonfinite=getattr(args, "skip_nonfinite", 0) or 0, grad_accum=grad_accum,
+            grid=self.grid,
         )
         self.state = TrainState.create(self.model, optimizer, ema_decay=args.ema_decay or 0.0)
         self.checkpointer = Checkpointer(args.log_path, args.exp_name,
                                          save_name=args.save_checkpoint_path,
                                          dataset=args.dataset, model=args.model,
                                          async_save=bool(getattr(args, "async_checkpoint", False)))
-        self.logger = MetricsLogger(self.log_path)
+        self.logger = MetricsLogger(self.log_path, enabled=self.grid.is_main)
         self.logger.log_hparams(vars(args))
         self.start_step = 0
         self._maybe_resume()
@@ -161,6 +184,7 @@ class Trainer:
             has_labels=self.has_labels, teacher=self.teacher,
             distill_alpha=args.distill_alpha, t_min=args.distill_t_min or 0,
             label_dropout=label_dropout, null_label=self._null_label(label_dropout),
+            grid=self.grid, rows=self.rows,
         )
 
     def _null_label(self, label_dropout: float):
@@ -191,8 +215,9 @@ class Trainer:
 
     def _init_model(self):
         args = self.args
-        print(f"Training {args.model} on {self.device} (attn_impl={self.attn_impl}, "
-              f"dtype={self.compute_dtype})")
+        if self.grid.is_main:
+            print(f"Training {args.model} on {self.device} (attn_impl={self.attn_impl}, "
+                  f"dtype={self.compute_dtype})")
         init = init_early_exit_uvit if self.early_exit else init_uvit
         self.model = init(
             self.model_config, device="cpu", dtype=self.compute_dtype,
@@ -203,6 +228,7 @@ class Trainer:
         if getattr(args, "load_backbone", None):
             print(f"Loading backbone from {args.load_backbone}")
             load_backbone(args.load_backbone, self.model.uvit)
+        self.model.shard_(self.grid)
         self.model.to(self.device).train()
 
     def _init_teacher(self):
@@ -247,7 +273,12 @@ class Trainer:
             return batch
         g = step_generator(self.args.seed, step, self.device, ENCODE_STREAM)
         with torch.no_grad():
-            return {**batch, "image": self.autoencoder.encode(batch["image"], g)}
+            moments = self.autoencoder.encode_moments(batch["image"])
+            lo, hi, total = self.rows
+            # the global batch's draw, this rank's rows of it
+            noise = torch.randn((total, *moments.shape[1:-1], moments.shape[-1] // 2),
+                                generator=g, device=moments.device)[lo:hi]
+            return {**batch, "image": self.autoencoder.sample_latent(moments, noise=noise)}
 
     def _maybe_resume(self):
         args = self.args
@@ -258,12 +289,18 @@ class Trainer:
             return
         print(f"Loading training state from {path}")
         restored = Checkpointer.restore(path)
-        self.model.load_state_dict(self._from_saved(restored["model_state_dict"]), strict=True)
-        self.state.optimizer.load_state_dict(restored["optimizer"])
+        grid = self.grid
+        self.model.load_state_dict(
+            shard_state_dict(self._from_saved(restored["model_state_dict"]), grid), strict=True)
+        optimizer = dict(restored["optimizer"])
+        for key in ("mu", "nu", "acc_grads"):
+            if key in optimizer:
+                optimizer[key] = shard_state_dict(optimizer[key], grid)
+        self.state.optimizer.load_state_dict(optimizer)
         if self.state.ema is not None:
             ema = restored.get("ema_state_dict")
             if ema is not None:
-                ema = self._from_saved(ema)
+                ema = shard_state_dict(self._from_saved(ema), grid)
             else:
                 print("Checkpoint has no EMA params; starting EMA from the restored params")
                 ema = dict(self.model.named_parameters())
@@ -278,6 +315,8 @@ class Trainer:
     def train(self) -> list:
         """Run steps start_step + 1 .. n_steps; returns the logged metrics.
         SIGTERM checkpoints at the next step boundary and returns."""
+        if not self.grid.active:
+            return self.logs
         self._preempted = False
         in_main_thread = threading.current_thread() is threading.main_thread()
         prev_handler = None
@@ -302,6 +341,8 @@ class Trainer:
     def close(self) -> None:
         """Wait for a checkpoint in flight, then release the logger's file, the
         checkpointer's and the loader's threads. Idempotent."""
+        if not self.grid.active:
+            return
         try:
             self.checkpointer.close()
         finally:
@@ -327,7 +368,7 @@ class Trainer:
                 batch = self._encode(self._to_device(next(batches)), step)
                 metrics = self._train_step(self.state, batch, step)
                 if step % 50 == 0 or step == args.n_steps or step == self.start_step + 1:
-                    metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                    metrics = self._data_mean(metrics)  # waits for the device
                     dt = time.time() - t_last
                     t_last = time.time()
                     # the steps since the previous log (the first log includes set-up)
@@ -335,7 +376,8 @@ class Trainer:
                     last_logged = step
                     self.logger.log_scalars(step, metrics)
                     logs.append({"step": step, **metrics})
-                    print(f"step {step:>7} | {metrics}", flush=True)
+                    if self.grid.is_main:
+                        print(f"step {step:>7} | {metrics}", flush=True)
                 if args.log_every_n_steps is not None and (
                         step % args.log_every_n_steps == 0 or step == args.n_steps):
                     self._log_samples(step)
@@ -345,7 +387,7 @@ class Trainer:
                 if (args.save_new_every_n_steps is not None
                         and step % args.save_new_every_n_steps == 0):
                     self._save(step, new_checkpoint=True)
-                if self._preempted:
+                if self._agreed_preempted():
                     if step % (args.save_every_n_steps or step + 1) != 0 and step != args.n_steps:
                         self._save(step, new_checkpoint=False)
                     print(f"preempted: saved checkpoint at step {step}, exiting cleanly "
@@ -354,9 +396,24 @@ class Trainer:
         finally:
             self._stop_profile()
 
+    def _data_mean(self, metrics: dict) -> dict:
+        """The step's metrics as floats, averaged over the data group (each
+        data rank's loss is the mean over its rows)."""
+        names = list(metrics)
+        values = torch.stack([metrics[k].float().reshape(()) for k in names])
+        self.grid.data_mean_([values])
+        return dict(zip(names, values.tolist()))
+
+    def _agreed_preempted(self) -> bool:
+        """Whether any rank saw SIGTERM, agreed over the grid, so that every
+        rank saves and stops at the same step."""
+        return self.grid.any_on_host(self._preempted)
+
     def _start_profile(self) -> None:
         from torch.profiler import ProfilerActivity, profile
 
+        if not self.grid.is_main:
+            return
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
@@ -409,6 +466,8 @@ class Trainer:
                 for n, p in model.named_parameters():
                     p.copy_(live[n])
             model.train()
+        if not self.grid.is_main:
+            return
         scalars = {}
         if probe_rows is not None:
             probe_rows = probe_rows.float().cpu().numpy()
@@ -435,11 +494,24 @@ class Trainer:
             return early_exit_state_dict_to_reference(state, self.model_config)
         return state
 
-    def _save(self, step: int, new_checkpoint: bool) -> Path:
-        ema = None if self.state.ema is None else self._to_saved(self.state.ema)
-        return self.checkpointer.save(
-            step=step, model_state=self._to_saved(self.model.state_dict()),
-            optimizer_state=self.state.optimizer.state_dict(), ema_state=ema,
-            sampler_state=self.dataloader.get_state(), args=vars(self.args),
-            new_checkpoint=new_checkpoint,
-        )
+    def _save(self, step: int, new_checkpoint: bool):
+        """Rank 0 writes the full state, gathered from the shards first (also
+        before an asynchronous write's thread starts); every rank then waits
+        at a barrier. Returns the checkpoint's directory on rank 0."""
+        grid = self.grid
+        optimizer = self.state.optimizer.state_dict()
+        for key in ("mu", "nu", "acc_grads"):
+            if key in optimizer:
+                optimizer[key] = gather_state_dict(optimizer[key], grid)
+        model = gather_state_dict(self.model.state_dict(), grid)
+        ema = None if self.state.ema is None else self._to_saved(
+            gather_state_dict(self.state.ema, grid))
+        path = None
+        if grid.is_main:
+            path = self.checkpointer.save(
+                step=step, model_state=self._to_saved(model), optimizer_state=optimizer,
+                ema_state=ema, sampler_state=self.dataloader.get_state(), args=vars(self.args),
+                new_checkpoint=new_checkpoint,
+            )
+        grid.barrier()
+        return path

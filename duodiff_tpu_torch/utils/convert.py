@@ -17,6 +17,7 @@ package:
 
 from __future__ import annotations
 
+import re
 from typing import Mapping, Optional
 
 import numpy as np
@@ -391,3 +392,71 @@ def export_inception(params: Mapping, prefix: str = "") -> dict[str, np.ndarray]
         else:
             sd.update(export_inception(node, key))
     return sd
+
+
+# --- tensor-parallel shards (counterpart of parallel/mesh.py:param_sharding_rules) ----------
+
+# the block tensors a model group shards, by name within the block: the q, k
+# and v rows of whole heads ("qkv"), the matching columns of proj and fc2
+# ("cols"), and fc1's rows of the hidden columns ("rows"); everything else
+# is replicated
+_BLOCK_PREFIX = re.compile(r"(?:^|\.)(?:in_blocks\.\d+|mid_block|out_blocks\.\d+)\.(.+)$")
+BLOCK_SHARD_KINDS = {"attn.qkv.weight": "qkv", "attn.qkv.bias": "qkv", "attn.proj.weight": "cols",
+                     "mlp.fc1.weight": "rows", "mlp.fc1.bias": "rows", "mlp.fc2.weight": "cols"}
+
+
+def shard_kind(name: str) -> Optional[str]:
+    """How tensor parallelism cuts the state-dict entry ``name``: "qkv",
+    "rows", "cols", or None (replicated)."""
+    m = _BLOCK_PREFIX.search(name)
+    return None if m is None else BLOCK_SHARD_KINDS.get(m.group(1))
+
+
+def shard_tensor(kind: str, t: torch.Tensor, rank: int, shards: int) -> torch.Tensor:
+    """Shard ``rank`` of ``shards`` of a full tensor of a kind of
+    :func:`shard_kind` (a contiguous copy)."""
+    if kind == "qkv":  # (3A, ...) -> the rows of heads [rank] of each of q, k, v
+        part = t.reshape(3, shards, t.shape[0] // (3 * shards), *t.shape[1:])[:, rank]
+        return part.reshape(-1, *t.shape[1:]).clone()
+    if kind == "rows":
+        return t.reshape(shards, t.shape[0] // shards, *t.shape[1:])[rank].clone()
+    return t.reshape(t.shape[0], shards, t.shape[1] // shards)[:, rank].clone()
+
+
+def unshard_tensor(kind: str, parts: list) -> torch.Tensor:
+    """The full tensor from its shards, in rank order (the inverse of
+    :func:`shard_tensor`)."""
+    if kind == "qkv":
+        rest = parts[0].shape[1:]
+        return torch.cat([p.reshape(3, -1, *rest) for p in parts], dim=1).reshape(-1, *rest)
+    return torch.cat(parts, dim=0 if kind == "rows" else 1)
+
+
+def shard_state_dict(full: Mapping, grid) -> dict:
+    """This rank's shard of a full state dict (or of a dict of optimizer
+    moments under the same names) under the grid's tensor parallelism; the
+    dict as it is without it. A checkpoint always holds the full one."""
+    if grid.model <= 1:
+        return dict(full)
+    return {k: (v if shard_kind(k) is None
+                else shard_tensor(shard_kind(k), v, grid.model_rank, grid.model))
+            for k, v in full.items()}
+
+
+def gather_state_dict(shard: Mapping, grid) -> dict:
+    """The full state dict from every rank's :func:`shard_state_dict`, on the
+    CPU, on every active rank (every one must call it, with the same names
+    in the same order); the dict as it is without tensor parallelism."""
+    if grid.model <= 1:
+        return dict(shard)
+    out = {}
+    for k, v in shard.items():
+        v = v.detach().cpu()
+        kind = shard_kind(k)
+        if kind is None:
+            out[k] = v
+            continue
+        parts = grid.gather_host(v)
+        row = grid.data_rank * grid.model
+        out[k] = unshard_tensor(kind, parts[row:row + grid.model])
+    return out

@@ -42,6 +42,7 @@ def load_model(
     mlp_impl: str = "auto",
     use_ema: bool = False,
     early_exit: bool = False,
+    grid=None,
 ) -> tuple[UViT | EarlyExitUViT, UViTConfig]:
     """Build the UViT a config file describes, with random weights from
     ``seed`` or the weights of ``checkpoint_path`` (loaded strictly), on
@@ -53,7 +54,9 @@ def load_model(
     :class:`EarlyExitUViT` (its ``classifier_type`` names the probes) and
     loads a checkpoint under the reference's early-exit names, gathered into
     the port's stacks first. A latent-diffusion config builds its model on
-    latents; its autoencoder is :func:`load_autoencoder`'s."""
+    latents; its autoencoder is :func:`load_autoencoder`'s. With a ``grid``
+    of tensor parallelism (``parallel/mesh.py``) the model keeps this rank's
+    shard of the full weights (:meth:`UViT.shard_`)."""
     cfg = load_model_config(config_path)
     scales = None
     if int8_scales:
@@ -81,6 +84,8 @@ def load_model(
         if early_exit:
             state = early_exit_state_dict_from_reference(state, cfg)
         model.load_state_dict(state, strict=True)
+    if grid is not None:
+        model.shard_(grid)
     return model.to(device), cfg
 
 

@@ -23,12 +23,14 @@ def _maybe_str(v):
 
 class MetricsLogger:
     """Scalars appended to ``metrics.jsonl``, hyperparameters in
-    ``hparams.json``."""
+    ``hparams.json``; nothing written when not ``enabled`` (a rank other
+    than 0)."""
 
-    def __init__(self, log_dir):
+    def __init__(self, log_dir, enabled: bool = True):
         self.log_dir = Path(log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
-        self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
+        self.enabled = enabled
+        self._jsonl = open(self.log_dir / "metrics.jsonl", "a") if enabled else None
 
     def log_scalars(self, step: int, scalars: dict) -> None:
         if self._jsonl is None:
@@ -38,6 +40,8 @@ class MetricsLogger:
         self._jsonl.flush()
 
     def log_hparams(self, hparams: dict) -> None:
+        if not self.enabled:
+            return
         with open(self.log_dir / "hparams.json", "w") as f:
             json.dump({k: _maybe_str(v) for k, v in hparams.items()}, f, indent=2)
 

@@ -225,7 +225,9 @@ REFUSALS = {
                       "2"], "does not combine with --guidance_scale"),
     "cache_outer_alone": (["--static_schedule", "9-0:5", "--cache_outer", "1"],
                           "--cache_outer requires"),
-    "model_parallel": (["--threshold", "1", "--model_parallel", "2"], "ROADMAP item 11"),
+    # ported since; one process is refused it, naming the torchrun launch it needs
+    "model_parallel": (["--threshold", "1", "--model_parallel", "2"],
+                       "does not divide 1 process: run under python -m torch.distributed.run"),
     "int8_scales_static": (["--static_schedule", "9-0:5", "--attn_impl", "fused_int8",
                             "--int8_scales", "SCALES"], "the dynamic-threshold route only"),
     "int8_scales_adaptive": (["--adaptive_layers", "1", "--threshold", "1", "--attn_impl",

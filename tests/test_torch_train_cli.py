@@ -3,7 +3,8 @@ on the CPU at a tiny config on synthetic palette data): end to end with a
 falling loss, a resumed run equal to an unbroken one bit for bit, the
 checkpoint in the sampling CLI, distillation, SIGTERM checkpoint-and-exit,
 corrupt-checkpoint skipping, the refusal of every flag whose machinery
-is not ported (and a run with each of the three that since are), and class-conditional training on a synthetic ImageNet-64
+is not ported (a run with each of those that since are, and the refusal of
+the grid's flags without the torchrun environment), and class-conditional training on a synthetic ImageNet-64
 cache with the unfused block and label dropout."""
 
 import json
@@ -185,8 +186,14 @@ def test_last_checkpoint_skips_corrupt_ones(tmp_path):
 
 REFUSED = {
     "fsdp": ["--fsdp"],
-    "model_parallel": ["--model_parallel", "2"],
-    "multihost": ["--multihost"],
+}
+
+# ported since; a run without the torchrun environment is refused them, with
+# what they need (the grid's own runs: tests/test_torch_dist_cli.py)
+NEEDS_TORCHRUN = {
+    "model_parallel": (["--model_parallel", "2"],
+                       "does not divide 1 process: run under python -m torch.distributed.run"),
+    "multihost": (["--multihost"], "--multihost needs the torchrun environment"),
 }
 
 
@@ -206,8 +213,13 @@ PORTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted({**REFUSED, **PORTED}))
+@pytest.mark.parametrize("name", sorted({**REFUSED, **PORTED, **NEEDS_TORCHRUN}))
 def test_unported_flags_are_refused(files, name, tmp_path):
+    if name in NEEDS_TORCHRUN:
+        extra, message = NEEDS_TORCHRUN[name]
+        with pytest.raises(SystemExit, match=message):
+            train.main(_argv(files, "refused", 2, *extra))
+        return
     if name in PORTED:
         uvit = tmp_path / "uvit.pth"
         torch.save(load_model(files["config3"], device="cpu", seed=5)[0].state_dict(), uvit)

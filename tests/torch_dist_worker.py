@@ -1,0 +1,148 @@
+"""The torch.distributed worlds of the port's tests: ``run_world`` starts
+the ranks of a world of gloo processes on the CPU (the torchrun environment
+set by hand, the ranks meeting through a file, so that no two test workers
+contend for a port), and this file run as a script is a rank of the
+tensor-parallel checks of tests/test_torch_tp.py. Nothing here imports JAX:
+a rank is a plain PyTorch process.
+
+    python tests/torch_dist_worker.py INPUTS.pth MODEL_PARALLEL OUT.pth
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+import uuid
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def run_world(n: int, argv: list, tmp_path, timeout: float = 120, env: dict | None = None):
+    """``python *argv`` as the ``n`` ranks of one world; returns (their exit
+    codes, their outputs). A world still running after ``timeout`` seconds
+    is killed and fails the test, where a hung collective would otherwise
+    hang the run."""
+    init = Path(tmp_path) / f"init_{uuid.uuid4().hex}"
+    base = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT")}
+    procs = []
+    for rank in range(n):
+        rank_env = dict(base, RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
+                        LOCAL_WORLD_SIZE=str(n), DUODIFF_INIT_METHOD=f"file://{init}",
+                        OMP_NUM_THREADS="1", PYTHONPATH=str(REPO), **(env or {}))
+        procs.append(subprocess.Popen([sys.executable, *argv], env=rank_env, cwd=REPO,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+        for proc in procs:
+            proc.communicate()
+        raise AssertionError(f"a world of {n} ranks ({argv}) did not end within {timeout} s")
+    return [proc.returncode for proc in procs], outs
+
+
+def _sublayer(grid, data, which: str) -> dict:
+    """One tensor-parallel sublayer on this rank's rows and shard: the output
+    rows and dx gathered, the parameter gradients summed over the data ranks
+    and gathered, on rank 0."""
+    import torch
+
+    from duodiff_tpu_torch.parallel.tp_fused import tp_attn_sublayer_train, tp_mlp_sublayer_train
+    from duodiff_tpu_torch.utils.convert import gather_state_dict, shard_kind, shard_tensor
+
+    lo, hi, _ = grid.rows(data["x"].shape[0])
+    names = {"attn": ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+                      "attn.proj.weight", "attn.proj.bias"),
+             "mlp": ("norm2.weight", "norm2.bias", "mlp.fc1.weight", "mlp.fc1.bias",
+                     "mlp.fc2.weight", "mlp.fc2.bias")}[which]
+    names = [f"mid_block.{n}" for n in names]
+    params = []
+    for name, t in zip(names, data[which]):
+        kind = shard_kind(name)
+        if kind is not None:
+            t = shard_tensor(kind, t, grid.model_rank, grid.model)
+        params.append(t.clone().requires_grad_())
+    x = data["x"][lo:hi].clone().requires_grad_()
+    if which == "attn":
+        y = tp_attn_sublayer_train(x, *params, num_heads=data["heads"] // grid.model, grid=grid)
+    else:
+        y = tp_mlp_sublayer_train(x, *params, gelu_approx=False, grid=grid)
+    y.backward(data["dy"][lo:hi])
+    grads = [p.grad for p in params]
+    grid.data_mean_(grads)
+    grads = gather_state_dict({n: g * grid.data for n, g in zip(names, grads)}, grid)
+    return {"y": grid.gather_rows(y.detach()), "dx": grid.gather_rows(x.grad),
+            "grads": {n.split(".", 1)[1]: g for n, g in grads.items()}}
+
+
+def _uvit(grid, data) -> dict:
+    """The depth-3 U-ViT and the early-exit U-ViT as tensor-parallel shards:
+    forwards and the U-ViT's gradients of mean(y^2) over the global batch,
+    summed over the data ranks and gathered; the shards of the U-ViT's state
+    dict gathered back."""
+    import torch
+
+    from duodiff_tpu_torch.config import UViTConfig
+    from duodiff_tpu_torch.models.early_exit import EarlyExitUViT
+    from duodiff_tpu_torch.models.uvit import UViT
+    from duodiff_tpu_torch.utils.convert import gather_state_dict, shard_state_dict
+
+    n = data["img"].shape[0]
+    lo, hi, _ = grid.rows(n)
+    img, t = data["img"][lo:hi], data["t"][lo:hi]
+    model = UViT(UViTConfig(**data["uvit_config"]), dtype=torch.float32, attn_impl="fused")
+    model.load_state_dict(data["uvit_sd"])
+    full = {k: v.clone() for k, v in model.state_dict().items()}
+    model.shard_(grid)
+    shard = model.state_dict()
+    out = {"shard_equal": all(torch.equal(shard[k], v)
+                              for k, v in shard_state_dict(full, grid).items())}
+    gathered = gather_state_dict(shard, grid)
+    out["roundtrip_equal"] = set(gathered) == set(full) and all(
+        torch.equal(gathered[k], v) for k, v in full.items())
+    model.train()
+    y = model(img, t)
+    (y.square().sum() / (y[0].numel() * n)).backward()
+    grads = [p.grad for p in model.parameters()]
+    grid.data_mean_(grads)
+    named = {name: p.grad * grid.data for name, p in model.named_parameters()}
+    out["uvit_grads"] = gather_state_dict(named, grid)
+    model.eval()
+    model.pack_for_kernels()
+    with torch.no_grad():
+        out["uvit_y"] = grid.gather_rows(model(img, t))
+        ee = EarlyExitUViT(UViTConfig(**data["ee_config"]), dtype=torch.float32, attn_impl="fused")
+        ee.load_state_dict(data["ee_sd"])
+        ee.shard_(grid).eval().pack_for_kernels()
+        backbone, u, g = ee(img, t)
+    out["ee"] = (grid.gather_rows(backbone), grid.gather_rows(u.t().contiguous()).t(),
+                 grid.gather_rows(g.transpose(0, 1).contiguous()).transpose(0, 1))
+    return out
+
+
+def main(inputs: str, model_parallel: str, out: str) -> None:
+    import torch
+
+    from duodiff_tpu_torch.parallel.mesh import close, training_grid
+
+    torch.set_num_threads(1)
+    data = torch.load(inputs, weights_only=False)
+    grid = training_grid(int(model_parallel), data["x"].shape[0], "cpu")
+    try:
+        result = {"attn": _sublayer(grid, data, "attn"), "mlp": _sublayer(grid, data, "mlp"),
+                  **_uvit(grid, data), "data": grid.data, "backend": grid.backend}
+    finally:
+        close(grid)
+    if grid.is_main:
+        torch.save(result, out)
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:4])
