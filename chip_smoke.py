@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768) and of the
@@ -188,6 +188,27 @@ printing its results on its own lines:
    data-parallel equal to it to the bit. The ranks are this script
    in its ``--worker`` mode. Phase 16's launches are added to the records of
    K1, K2, K6 and K7 and make those of their shard forms.
+17. the measuring tools and the last one-GPU leftovers, each through its
+   entry point at batch 128 with exact launch counts: (a)
+   ``duodiff_tpu_torch.tools.microbench`` fwd, kernels and train (the
+   CelebA-64 forward under pallas, fused and xla; K9 and K1 alone and one
+   Block under each impl; the four train variants), every row and each
+   part's launches printed; (b) ``duodiff_tpu_torch.tools.trace_step`` in
+   both modes (a 20-step DDPM loop untraced then traced: K1 = K2 = 520; 3 +
+   20 train steps: K1 = K2 = K6 = K7 = 299), its family table printed, its
+   device busy time a step held within 0.5-1.25 of the traced loop's
+   CUDA-event step time and of phase 4's dense step and phase 5's train
+   step where those ran; (c) ``duodiff_tpu_torch.tools.supervise_train``
+   around ``python -m duodiff_tpu_torch.train`` on ``uvit_cifar10.yaml``,
+   20 steps at batch 128: the child dies once right after its step-10
+   checkpoint, the supervisor restarts it with ``--resume``, and the run
+   ends on the parameters of an unbroken in-process run of the same steps
+   to the bit, whose loader must have assembled its batches natively; (d)
+   the native batch assembler (``data/_native``), which must build, equal
+   to the numpy path to the bit at batch 128 on CIFAR-10 and ImageNet-64
+   shapes with both of the loader's scale and offset pairs, timed beside
+   it. Phase 17's launches are added to the records of K1, K2, K6, K7, K9
+   and K10, and kept apart as ``launches_17``.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -432,7 +453,7 @@ PROBE_KERNELS = {
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
 PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16")
+          "15", "16", "17")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -2569,11 +2590,11 @@ def run_int8_main_path(card: str, schedule: str = CACHE_SCHEDULE, scales: str = 
     )
 
 
-def profile_sampling_steps(device, card: str, int8: bool) -> None:
+def profile_sampling_steps(device, card: str, int8: bool) -> list:
     """One reverse step's model call of the depth-13 CelebA-64 model at batch
     128, timed with CUDA events and profiled by kernel: the bf16 dense
     forward (phase 4), or the int8 model's anchored and cached forwards
-    with the asset's static scales (phase 4b)."""
+    with the asset's static scales (phase 4b). Returns the steps' times in ms."""
     from duodiff_tpu_torch.utils.model_loading import load_model
 
     if int8:
@@ -2598,13 +2619,16 @@ def profile_sampling_steps(device, card: str, int8: bool) -> None:
             phase = "phase 4b"
         else:
             steps, phase = {"bf16 dense step (13 blocks)": lambda: model(x, t)}, "phase 4"
+        times = []
         for what, step in steps.items():
             ms = time_ms({"step": step}, reps=5)["step"]
+            times.append(ms)
             print(f"{phase}: one {what} at batch {MAIN_BATCH} (CUDA events, median of 5): "
                   f"{ms:.6g} ms; card {card}", flush=True)
             profile_steps(f"{phase}, {what}", step)
     del model
     release_memory()
+    return times
 
 
 def train_argv(work: str, exp: str, n_steps: int, *extra, config: str = TRAIN_CONFIG,
@@ -2642,11 +2666,11 @@ def run_train_cli(label: str, argv: list, card: str, expected: dict):
     return trainer, launches
 
 
-def run_train_path(device, card: str) -> dict:
+def run_train_path(device, card: str) -> tuple:
     """Phase 5: the training CLI on configs/uvit_cifar10.yaml at batch 128,
     bf16, on synthetic palette data; then the checkpoint in the sampling
     CLI's load_model, a --resume run, and a profile of one step. Returns
-    the main run's launch counts."""
+    the main run's launch counts and the profiled step's CUDA-event medians."""
     from duodiff_tpu_torch.data.sampler import ResumableSeedableSampler
     from duodiff_tpu_torch.data.synthetic import write_palette_cifar
     from duodiff_tpu_torch.training.checkpointer import CHECKPOINT_FILE, Checkpointer
@@ -2699,34 +2723,19 @@ def run_train_path(device, card: str) -> dict:
               f"implies: {ok}", flush=True)
         if not ok:
             fail("--resume did not continue from the saved step and sampler state")
-        profile_train_step(resumed, card, "phase 5")
-    return launches
-
-
-# device-kernel families of a profile, by what their names contain (first
-# match wins); everything else counts as "other"
-KERNEL_FAMILIES = (
-    ("own kernels", ("duodiff::",)),
-    ("cuBLAS matrix products", ("nvjet", "cublas", "cutlass", "gemm", "gemv", "xmma")),
-    ("PyTorch elementwise", ("elementwise", "CatArrayBatchedCopy", "fill", "copy")),
-    ("PyTorch reductions", ("reduce", "softmax", "norm")),
-    ("copies and memsets", ("Memcpy", "Memset")),
-)
-
-
-def kernel_family(name: str) -> str:
-    for family, marks in KERNEL_FAMILIES:
-        if any(m in name for m in marks):
-            return family
-    return "other"
+        medians = profile_train_step(resumed, card, "phase 5")
+    return launches, medians
 
 
 def profile_steps(label: str, one_step, n: int = 3) -> None:
     """torch.profiler over ``n`` calls of ``one_step``: device busy time, idle
     share, the share of every kernel family (all device events, summing to
-    1) and the largest kernels by name."""
+    1; the families of ``tools/trace_step.py``) and the largest kernels by
+    name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from duodiff_tpu_torch.tools.trace_step import kernel_family
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -5682,6 +5691,266 @@ def profile_grid_step(trainer) -> dict:
             "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}
 
 
+# --- phase 17: the measuring tools, the training supervisor, the native assembler
+
+TOOL_KERNELS = ("fused_attn_sublayer", "fused_mlp_sublayer", "fused_attn_sublayer_bwd",
+                "fused_mlp_sublayer_bwd", "flash_attention", "flash_attention_bwd")
+TRACE_STEPS = 20           # trace_step's --steps default
+TRACE_WARMUP_STEPS = 3     # trace_step's untraced train steps
+# a traced loop's device busy time a step against a CUDA-event step time of
+# the same work: at most all of it plus the kernels' overlap of host gaps,
+# at least half (the host's own time in a step is ~10-20 % here, PERF.md)
+TRACE_BUSY_RANGE = (0.5, 1.25)
+SUPERVISED_STEPS = 20
+SUPERVISED_SAVE_EVERY = 10  # the child dies right after this step's checkpoint
+SUPERVISOR_TIMEOUT = 600
+ASSEMBLER_BATCH = 128
+ASSEMBLER_SHAPES = {"CIFAR-10": (32, 32, 3), "ImageNet-64": (64, 64, 3)}
+ASSEMBLER_REPS = 10
+# the port's training CLI (the arguments after the marker path); on the run that
+# finds no marker file it dies (exit 3) right after its first checkpoint; each
+# run prints its kernels' launches as its last line
+CRASH_ONCE = '''
+import json, os, runpy, sys
+from pathlib import Path
+
+from duodiff_tpu_torch.tools._measure import launch_counts
+
+def report():
+    counts = {k: v for k, v in launch_counts().items() if v}
+    print("child launches " + json.dumps(counts), flush=True)
+
+marker = Path(sys.argv[1])
+if not marker.exists():
+    from duodiff_tpu_torch.training.trainer import Trainer
+
+    save = Trainer._save
+
+    def save_then_die(self, step, new_checkpoint):
+        save(self, step, new_checkpoint)
+        self.checkpointer.wait_until_finished()
+        marker.write_text(str(step))
+        report()
+        os._exit(3)
+
+    Trainer._save = save_then_die
+sys.argv = [sys.argv[3], *sys.argv[4:]]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+report()
+'''
+
+
+def run_microbench(card: str) -> dict:
+    """17a: ``tools.microbench`` fwd, kernels and train at batch 128 through
+    its ``main``, each part's launches held exactly."""
+    from duodiff_tpu_torch.tools import microbench as mb
+
+    calls = mb.WARMUP + mb.REPS            # each timed forward or kernel call
+    steps = mb.TRAIN_WARMUP + mb.REPS      # each train variant
+    variants = mb.TRAIN_VARIANTS
+    expected = {
+        "fwd": {"flash_attention": 13 * calls, **bf16_blocks(13 * calls)},
+        # K9 alone and in Block[pallas], K1 alone and in Block[fused], K2 in Block[fused]
+        "kernels": {"flash_attention": 2 * calls, "fused_attn_sublayer": 2 * calls,
+                    "fused_mlp_sublayer": calls},
+        "train": {},
+    }
+    train = expected["train"]
+    for attn, mlp in variants:
+        fused_mlp = attn == "fused" or mlp == "fused"
+        kernels = ((["fused_attn_sublayer", "fused_attn_sublayer_bwd"] if attn == "fused" else [])
+                   + (["flash_attention", "flash_attention_bwd"] if attn == "pallas" else [])
+                   + (["fused_mlp_sublayer", "fused_mlp_sublayer_bwd"] if fused_mlp else []))
+        for name in kernels:
+            train[name] = train.get(name, 0) + 13 * steps
+    runs = {}
+    for part in ("fwd", "kernels", "train"):
+        result, runs[part] = run_counted(f"phase 17a: microbench {part}", mb.main, [part], card,
+                                         expected[part])
+        rows = result[part]
+        if not all(np.isfinite(t) and t > 0 for t in rows.values()):
+            fail(f"phase 17a: microbench {part} gave times {rows}")
+    release_memory()
+    return runs
+
+
+def check_trace(label: str, result: dict, event_ms: dict, card: str) -> None:
+    """A trace_step run's summary: device events there, and the busy time a
+    step within TRACE_BUSY_RANGE of each CUDA-event step time in
+    ``event_ms``."""
+    summary = result["summary"]
+    if not summary["device_events"]:
+        fail(f"{label}: the trace holds no device events")
+    lo, hi = TRACE_BUSY_RANGE
+    ratios = {what: summary["per_step_ms"] / ms for what, ms in event_ms.items()}
+    print(f"{label}: device busy {summary['per_step_ms']:.6g} ms a step, idle share "
+          f"{summary['idle_share']:.6g} of a {summary['span_ms']:.6g} ms span; busy over the "
+          "CUDA-event step time: " + ", ".join(f"{k} ({event_ms[k]:.6g} ms) {v:.6g}"
+                                               for k, v in ratios.items())
+          + f" (bound {lo}-{hi}); card {card}", flush=True)
+    if not all(lo <= r <= hi for r in ratios.values()):
+        fail(f"{label}: the trace's busy time a step is off the CUDA-event step time")
+
+
+def run_trace_step(card: str, step_ms: dict) -> dict:
+    """17b: ``tools.trace_step`` in both modes at batch 128 through its
+    ``main``, launches held exactly, each summary's busy time a step held
+    against the traced loop's own CUDA-event time and against the step time
+    phase 4 (sampling) or 5 (training) measured in this run."""
+    from duodiff_tpu_torch.tools import trace_step
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as work:
+        # the untraced loop, then the traced one
+        result, runs["sample"] = run_counted(
+            "phase 17b: trace_step --mode sample", trace_step.main, ["--out", f"{work}/sample"],
+            card, bf16_blocks(13 * 2 * TRACE_STEPS))
+        event_ms = {"traced loop": result["capture"]["step_ms"],
+                    "untraced loop": result["capture"]["untraced_step_ms"]}
+        if "sample" in step_ms:
+            event_ms["phase 4 bf16 dense step"] = step_ms["sample"]
+        check_trace("phase 17b: sample", result, event_ms, card)
+        result, runs["train"] = run_counted(
+            "phase 17b: trace_step --mode train", trace_step.main,
+            ["--mode", "train", "--out", f"{work}/train"], card,
+            train_blocks(13 * (TRACE_WARMUP_STEPS + TRACE_STEPS), shard=False))
+        event_ms = {"traced loop": result["capture"]["step_ms"]}
+        if "train" in step_ms:
+            event_ms["phase 5 train step"] = step_ms["train"]
+        check_trace("phase 17b: train", result, event_ms, card)
+    release_memory()
+    return runs
+
+
+def child_launches(stdout: str) -> list:
+    """The launches each supervised child printed, in order."""
+    return [json.loads(line.split(" ", 2)[2]) for line in stdout.splitlines()
+            if line.startswith("child launches ")]
+
+
+def run_supervisor(card: str) -> dict:
+    """17c: ``tools.supervise_train`` around ``python -m
+    duodiff_tpu_torch.train`` on uvit_cifar10.yaml; the child dies once right
+    after its first checkpoint and is restarted with ``--resume``; the run
+    must end on the parameters of an unbroken run of the same steps to the
+    bit. The unbroken run is in-process, and its loader must have assembled
+    its batches with the native assembler."""
+    from duodiff_tpu_torch.data import _native
+    from duodiff_tpu_torch.data.synthetic import write_palette_cifar
+    from duodiff_tpu_torch.training.checkpointer import CHECKPOINT_FILE
+
+    with tempfile.TemporaryDirectory() as work:
+        write_palette_cifar(Path(work) / "data", seed=0)
+        wrapper, marker, log = Path(work) / "crash_once.py", Path(work) / "crashed", f"{work}/sup"
+        wrapper.write_text(CRASH_ONCE)
+        extra = ("--save_every_n_steps", str(SUPERVISED_SAVE_EVERY))
+        cmd = [sys.executable, "-m", "duodiff_tpu_torch.tools.supervise_train", "--backoff_base",
+               "1", "--max_restarts", "1", "--log", f"{log}.jsonl", "--", sys.executable,
+               str(wrapper), str(marker), "-m", "duodiff_tpu_torch.train",
+               *train_argv(work, "supervised", SUPERVISED_STEPS, *extra)]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])])}
+        tic = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=SUPERVISOR_TIMEOUT)
+        wall = time.perf_counter() - tic
+        Path(f"{log}.out").write_text(proc.stdout + proc.stderr)
+        events = [json.loads(line) for line in Path(f"{log}.jsonl").read_text().splitlines()]
+        kinds = [e["event"] for e in events]
+        children = child_launches(proc.stdout)
+        print(f"phase 17c: supervised training, {SUPERVISED_STEPS} steps at batch {TRAIN_BATCH}: "
+              f"rc {proc.returncode}, events {kinds}, wall {wall:.6g} s (two children, "
+              f"{events[-1].get('lived_s')} s the last), children's launches {children}; "
+              f"card {card}", flush=True)
+        resumed = [e for e in events if e["event"] == "start"]
+        if (proc.returncode != 0 or kinds != ["start", "crash", "start", "complete"]
+                or events[1]["rc"] != 3 or not all(e["cmd"][-1] == "--resume" for e in resumed)):
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], flush=True)
+            fail("phase 17c: the supervisor did not restart the crashed run once with --resume")
+        want = [train_blocks(13 * SUPERVISED_SAVE_EVERY, shard=False),
+                train_blocks(13 * (SUPERVISED_STEPS - SUPERVISED_SAVE_EVERY), shard=False)]
+        if children != want:
+            fail(f"phase 17c: the children launched {children}, expected {want}")
+
+        assembled = _native.assemble_batch.assemblies
+        trainer, launches = run_train_cli(
+            "phase 17c: the unbroken run", train_argv(work, "unbroken", SUPERVISED_STEPS, *extra),
+            card, train_blocks(13 * SUPERVISED_STEPS, shard=False))
+        assembled = _native.assemble_batch.assemblies - assembled
+        del trainer
+        states = [torch.load(next((Path(work) / "logs" / exp).glob(f"*_last/{CHECKPOINT_FILE}")),
+                             map_location="cpu", weights_only=False)
+                  for exp in ("supervised", "unbroken")]
+        got, want = (s["model_state_dict"] for s in states)
+        same = list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+        print(f"phase 17c: the supervised run ends at step {states[0]['step']} on the unbroken "
+              f"run's parameters to the bit: {same}; the unbroken run's loader assembled "
+              f"{assembled} batches natively", flush=True)
+        if not same or states[0]["step"] != SUPERVISED_STEPS:
+            fail("phase 17c: the supervised run does not end where the unbroken one ends")
+        if assembled < SUPERVISED_STEPS:
+            fail("phase 17c: the training loader did not assemble its batches natively")
+    release_memory()
+    return {"supervised": {k: sum(c.get(k, 0) for c in children) for k in launches},
+            "unbroken": launches}
+
+
+def check_assembler(card: str) -> None:
+    """17d: the native batch assembler built, equal to the bit to the numpy
+    path at batch 128 on CIFAR-10 and ImageNet-64 shapes, both of the
+    loader's scale and offset pairs, each timed beside numpy (host clock,
+    median of ASSEMBLER_REPS)."""
+    from duodiff_tpu_torch.data import _native
+    from duodiff_tpu_torch.data.datasets import scale_offset
+    from duodiff_tpu_torch.data.loader import NUM_WORKERS, assemble_numpy
+
+    assembler = _native.get_assembler()
+    if assembler is None:
+        fail("phase 17d: the native batch assembler could not be built (g++)")
+    rng = np.random.RandomState(17)
+    for name, shape in ASSEMBLER_SHAPES.items():
+        images = [np.ascontiguousarray(rng.randint(0, 256, shape, np.uint8))
+                  for _ in range(ASSEMBLER_BATCH)]
+        for normalize in (True, False):
+            pair = scale_offset(normalize)
+            out = np.empty((ASSEMBLER_BATCH, *shape), np.float32)
+            native_ms, numpy_ms = [], []
+            for _ in range(ASSEMBLER_REPS):
+                tic = time.perf_counter()
+                assembler(images, *pair, out, n_threads=NUM_WORKERS)
+                native_ms.append(1e3 * (time.perf_counter() - tic))
+                tic = time.perf_counter()
+                want = assemble_numpy(images, *pair)
+                numpy_ms.append(1e3 * (time.perf_counter() - tic))
+            same = np.array_equal(out, want)
+            print(f"phase 17d: native assembler, {name} batch {ASSEMBLER_BATCH} {shape}, "
+                  f"normalize={normalize}: equal to numpy to the bit: {same}; "
+                  f"{statistics.median(native_ms):.6g} ms ({NUM_WORKERS} threads) against numpy "
+                  f"{statistics.median(numpy_ms):.6g} ms (host clock, median of "
+                  f"{ASSEMBLER_REPS}); card {card}", flush=True)
+            if not same:
+                fail("phase 17d: the native assembler disagrees with the numpy path")
+
+
+def run_tools(card: str, step_ms: dict) -> dict:
+    """Phase 17: the measuring tools, the supervisor and the native batch
+    assembler. Returns the launches of each counted run."""
+    tic = time.perf_counter()
+    runs = {}
+    for part, counts in run_microbench(card).items():
+        runs[f"microbench {part}"] = counts
+    for mode, counts in run_trace_step(card, step_ms).items():
+        runs[f"trace_step {mode}"] = counts
+    for run, counts in run_supervisor(card).items():
+        runs[f"supervise_train {run}"] = counts
+    check_assembler(card)
+    print(f"phase 17: {time.perf_counter() - tic:.6g} s", flush=True)
+    print(json.dumps({"phase17_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}),
+        flush=True)
+    return runs
+
+
 def run_worker(spec: str) -> int:
     """One rank of the phase 16 torchrun: for each job of the JSON list
     ``spec`` in turn, the training CLI's own steps on its ``train`` argv (its
@@ -5809,10 +6078,11 @@ def main(argv=None) -> int:
         check_imagenet_model(device)
         launches.update(check_block_stack(device))
         check_split_training(device)
+    step_ms = {}  # CUDA-event step times of phases 4 and 5, which phase 17 holds its traces to
     lap("4")
     if "4" in run:
         launches.update({name: n for name, n in run_main_path(card).items() if name in KERNELS})
-        profile_sampling_steps(device, card, int8=False)
+        step_ms["sample"] = profile_sampling_steps(device, card, int8=False)[0]
     lap("4b")
     if "4b" in run:
         launches.update({name: n for name, n in run_int8_main_path(card).items()
@@ -5820,8 +6090,9 @@ def main(argv=None) -> int:
         profile_sampling_steps(device, card, int8=True)
     lap("5")
     if "5" in run:
-        launches.update({name: n for name, n in run_train_path(device, card).items()
-                         if name in BWD_KERNELS})
+        train_launches, medians = run_train_path(device, card)
+        launches.update({name: n for name, n in train_launches.items() if name in BWD_KERNELS})
+        step_ms["train"] = medians["step"]
     lap("5b")
     if "5b" in run:
         run_distill_path(card)
@@ -5892,6 +6163,15 @@ def main(argv=None) -> int:
             for name in (*KERNELS, *BWD_KERNELS, *SHARD_KERNELS):
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
+    lap("17")
+    if "17" in run:
+        # the tools' launches are added to K1, K2, K6, K7, K9 and K10, and kept apart
+        for counts in run_tools(card, step_ms).values():
+            for name in TOOL_KERNELS:
+                if counts.get(name):
+                    launches[name] = launches.get(name, 0) + counts[name]
+                    results[name]["launches_17"] = (results[name].get("launches_17", 0)
+                                                    + counts[name])
     lap("end")
     print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "
           "started", flush=True)

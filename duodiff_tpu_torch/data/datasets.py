@@ -27,7 +27,9 @@ from duodiff_tpu_torch.data.loader import DataLoader
 from duodiff_tpu_torch.data.sampler import ResumableSeedableSampler
 
 
-# uint8 -> float: x / 255, then Normalize(0.5, 0.5), as one multiply-add
+# uint8 -> float: x / 255, then Normalize(0.5, 0.5), as one multiply-add rounded
+# once to float32 (the loader's assembly; the JAX package's native assembler's
+# fused multiply-add)
 NORMALIZE_SCALE, NORMALIZE_OFFSET = 2.0 / 255.0, -1.0
 
 

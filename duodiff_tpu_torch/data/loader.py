@@ -1,9 +1,13 @@
 """Batched data loader with threaded fetch and prefetch (counterpart of
-``duodiff_tpu/data/loader.py``, numpy batch assembly only).
+``duodiff_tpu/data/loader.py``).
 
 Items are fetched with a thread pool and assembled into contiguous NHWC
-float32 batches, scaled by the dataset's ``scale`` and ``offset``; a
-background producer keeps a bounded queue of ready batches. Batches are
+float32 batches, scaled by the dataset's ``scale`` and ``offset``: uint8
+items by the native assembler (``data/_native``) or, where it cannot be
+built, by :func:`assemble_numpy`, both ``u8 * scale + offset`` rounded once
+to float32, the bits of the JAX package's native assembler on a host with
+FMA; float32 items by the JAX package's float path. A background producer
+keeps a bounded queue of ready batches. Batches are
 always full: the sampler is an infinite index stream. With ``rows = (lo,
 hi, batch_size)`` (a data-parallel rank) the sampler still advances by the
 whole global batch, as on every rank, and only rows lo:hi of it are fetched.
@@ -18,11 +22,24 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from duodiff_tpu_torch.data._native import get_assembler
 from duodiff_tpu_torch.data.sampler import ResumableSeedableSampler
 
 
 NUM_WORKERS = 4  # fetch threads
 PREFETCH = 2     # ready batches queued ahead of the training loop
+
+
+def assemble_numpy(images, scale: float, offset: float) -> np.ndarray:
+    """The native assembler's bits without it: ``u8 * f32(scale) +
+    f32(offset)`` for uint8 images, computed in float64 and rounded once to
+    float32. The float64 value is exact for the loader's pairs (2/255 and
+    -1, 1/255 and 0): a uint8 times a float32 needs 32 significant bits, and
+    the sum with the offset stays within 53."""
+    out = np.stack(images).astype(np.float64)
+    out *= np.float64(np.float32(scale))
+    out += np.float64(np.float32(offset))
+    return out.astype(np.float32)
 
 
 class DataLoader:
@@ -40,11 +57,23 @@ class DataLoader:
             self._pool = ThreadPoolExecutor(max_workers=NUM_WORKERS)
         items = list(self._pool.map(self.dataset.__getitem__, indices))
         labels = np.asarray([it[1] for it in items], dtype=np.int32)
-        images = np.stack([it[0] for it in items])
-        out = np.empty(images.shape, np.float32)
-        # in float32, as the JAX package's native batch assembler computes it
-        np.multiply(images, np.float32(self.dataset.scale), out=out, casting="unsafe")
-        out += np.float32(self.dataset.offset)
+        images = [np.ascontiguousarray(it[0]) for it in items]
+        scale, offset = float(self.dataset.scale), float(self.dataset.offset)
+        if images[0].dtype == np.uint8:
+            assembler = get_assembler()
+            if assembler is None:
+                return {"image": assemble_numpy(images, scale, offset), "label": labels}
+            out = np.empty((len(images),) + images[0].shape, np.float32)
+            assembler(images, scale, offset, out, n_threads=NUM_WORKERS)
+            return {"image": out, "label": labels}
+        if images[0].dtype != np.float32:
+            raise ValueError(f"dataset items must be uint8 or float32, got {images[0].dtype}")
+        # the JAX package's float path: stacked, scaled, then offset, in float32
+        out = np.stack(images)
+        if scale != 1.0:
+            out *= np.float32(scale)
+        if offset != 0.0:
+            out += np.float32(offset)
         return {"image": out, "label": labels}
 
     def next_batch(self) -> dict:

@@ -33,7 +33,7 @@ def card_line(device: torch.device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _elapsed_ms(run, device: torch.device) -> float:
+def elapsed_ms(run, device: torch.device) -> float:
     """Time of one ``run()``: CUDA events on the card, the host clock on the CPU."""
     if device.type != "cuda":
         tic = time.perf_counter()
@@ -48,15 +48,16 @@ def _elapsed_ms(run, device: torch.device) -> float:
     return start.elapsed_time(end)
 
 
-def time_ms(fn, device: torch.device, reps: int) -> float:
-    """Mean time per call over ``reps`` calls of ``fn()`` after one warm-up."""
-    fn()
+def time_ms(fn, device: torch.device, reps: int, warmup: int = 1) -> float:
+    """Mean time per call over ``reps`` calls of ``fn()`` after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
 
     def run():
         for _ in range(reps):
             fn()
 
-    return _elapsed_ms(run, device) / reps
+    return elapsed_ms(run, device) / reps
 
 
 def chain_ms(step, x: torch.Tensor, iters: int) -> float:
@@ -69,7 +70,7 @@ def chain_ms(step, x: torch.Tensor, iters: int) -> float:
             y = step(y)
 
     run()
-    return _elapsed_ms(run, x.device) / iters
+    return elapsed_ms(run, x.device) / iters
 
 
 def _counted_wrappers() -> dict:

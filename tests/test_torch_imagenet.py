@@ -125,10 +125,40 @@ def test_no_source_imports_the_jax_package(where):
     root = REPO / where
     sources = sorted(root.rglob("*.py")) if root.is_dir() else [root]
     assert sources
-    banned = {"duodiff_tpu", "jax", "jaxlib", "flax", "yaml", "PIL"}
+    banned = {"duodiff_tpu", "jax", "jaxlib", "flax", "yaml", "PIL", "tools"}
     for source in sources:
         bad = sorted({m for m in _imports(source) if m.split(".")[0] in banned})
         assert not bad, f"{source.relative_to(REPO)} imports {bad}"
+
+
+def _code_strings(path: Path):
+    """Every string constant of a source outside its docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            yield node.value
+
+
+@pytest.mark.parametrize("where", ["duodiff_tpu_torch", "chip_smoke.py"])
+def test_native_code_is_the_ports_own(where):
+    """No source loads native code of the JAX package: every C++ source or
+    shared library a source names in its code lies outside ``duodiff_tpu/``,
+    and the batch assembler is built from the port's copy."""
+    from duodiff_tpu_torch.data import _native
+
+    root = REPO / where
+    sources = sorted(root.rglob("*.py")) if root.is_dir() else [root]
+    for source in sources:
+        for text in _code_strings(source):
+            if text.endswith((".cpp", ".so")) or "_native" in text:
+                assert "duodiff_tpu/" not in text.replace("duodiff_tpu_torch/", ""), (
+                    f"{source.relative_to(REPO)} names {text!r}")
+    assert _native.SRC.is_relative_to(REPO / "duodiff_tpu_torch")
+    assert _native.SRC.exists() and _native.BUILD_DIR.is_relative_to(REPO / "duodiff_tpu_torch")
 
 
 # --- the unfused block and the class-conditional model --------------------------
