@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17,18]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768) and of the
@@ -209,6 +209,20 @@ printing its results on its own lines:
    shapes with both of the loader's scale and offset pairs, timed beside
    it. Phase 17's launches are added to the records of K1, K2, K6, K7, K9
    and K10, and kept apart as ``launches_17``.
+18. multi-GPU sampling and serving, two ranks of one torchrun sharing the
+   card over gloo (this script's ``--worker`` mode): (a) ``sample.py
+   --pipeline_parallel`` on ``uvit_celeba_3.yaml`` -> ``uvit_celeba.yaml``,
+   1000 steps with t_switch 300, batch 128 in 4 micro-batches of 32 (rank
+   0, stage A: K1 = K2 = 3,600; rank 1, stage B: 36,400), its PNGs equal to
+   those of a one-process run of this process, both wall times printed;
+   (b) ``serve.main`` on ``uvit_celeba.yaml`` over the grid, rank 0 on a
+   free port and this process its HTTP client: a bucket of 8 data-parallel
+   and 8 slots over the two data ranks (ddpm 250 steps; 3,250 launches of
+   K1 and K2 on each rank), equal to one-process servers' PNG bytes, and a
+   bucket of 8 with ``--model_parallel 2`` (50 steps; 650 of each shard
+   form on each rank) within 2 pixel levels; ``/healthz`` names the grid.
+   Phase 18's launches, every rank's, are added to the records of K1, K2
+   and their shard forms, and kept apart as ``launches_18``.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -453,7 +467,7 @@ PROBE_KERNELS = {
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
 PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17")
+          "15", "16", "17", "18")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -5447,32 +5461,41 @@ def check_shard_kernels(device, results: dict) -> None:
         release_memory()
 
 
-def torchrun(label: str, jobs: list, work: str, card: str) -> list:
+def torchrun(label: str, jobs: list, work: str, card: str, grids: int | None = None,
+             interact=None) -> list:
     """One ``python -m torch.distributed.run --standalone --nproc_per_node
     TP_WORLD`` of this script's worker (:func:`run_worker`): each rank runs
     every job in turn in one process group (the training CLI's steps on the
     job's ``train`` argv, then the sampling CLI's ``main`` on its
-    ``sample`` argv) and writes its record of each to the job's ``out``; a
-    rank's non-zero exit, a missing record or the time limit fails the
-    phase. Returns each job's records by rank."""
+    ``sample`` argv, or the server on its ``serve`` argv) and writes its
+    record of each to the job's ``out``; a rank's non-zero exit, a missing
+    record, other than ``grids`` grids printed (default two a job) or the
+    time limit fails the phase. ``interact(proc)`` runs while the ranks do
+    (phase 18's HTTP client). Returns each job's records by rank."""
     spec = Path(work) / "jobs.json"
     spec.write_text(json.dumps(jobs))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(TP_WORLD), str(Path(__file__).resolve()), "--worker", str(spec)]
     tic, launched = time.perf_counter(), time.time()
-    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True)
+    log = Path(work) / "torchrun.log"  # a file: a pipe nobody reads would block the ranks
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
     try:
-        text = proc.communicate(timeout=TP_TIMEOUT)[0]
+        if interact is not None:
+            interact(proc)
+        proc.wait(timeout=max(1.0, TP_TIMEOUT - (time.perf_counter() - tic)))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)  # the agent and its ranks
-        text = proc.communicate()[0]
-        print(text[-6000:], flush=True)
+        proc.wait()
+        print(log.read_text()[-6000:], flush=True)
         fail(f"{label}: torchrun did not end within {TP_TIMEOUT} s")
+    text = log.read_text()
     wall = time.perf_counter() - tic
     chosen = re.findall(r"grid of \d+ ranks: backend (\w+)", text)
     shown = [line for line in text.splitlines()
-             if line.startswith(("Training on", "Sampling on", "step ", "Sampling ", "Elapsed"))]
+             if line.startswith(("Training on", "Sampling on", "step ", "Sampling ", "Elapsed",
+                                 "Pipelined sampling", "stage A", "serving on"))]
     print("\n".join(f"{label}: | {line}" for line in shown), flush=True)
     if proc.returncode != 0:
         print(text[-6000:], flush=True)
@@ -5486,7 +5509,7 @@ def torchrun(label: str, jobs: list, work: str, card: str) -> list:
                 fail(f"{label}: rank {rank} wrote no record to {job['out']}")
             records[-1].append(json.loads(path.read_text()))
     print(f"{label}: torchrun wall {wall:.6g} s ({TP_WORLD} processes started, {len(jobs)} "
-          f"trainings and samplings in turn), backends {chosen}, card {card}", flush=True)
+          f"jobs in turn), backends {chosen}, card {card}", flush=True)
     marks = [("launched", launched)] + [
         (f"{Path(job['out']).name} {name}", t)
         for job, recs in zip(jobs, records) for name, t in recs[0]["stages"].items()] + [
@@ -5494,8 +5517,9 @@ def torchrun(label: str, jobs: list, work: str, card: str) -> list:
     print(f"{label}: rank 0's stages, seconds each: " + ", ".join(
         f"{name} {now - before:.3g}" for (_, before), (name, now) in zip(marks, marks[1:])),
         flush=True)
-    if len(chosen) != 2 * len(jobs):
-        fail(f"{label}: the grids printed {len(chosen)} backends, not {2 * len(jobs)}")
+    grids = 2 * len(jobs) if grids is None else grids
+    if len(chosen) != grids:
+        fail(f"{label}: the grids printed {len(chosen)} backends, not {grids}")
     return records
 
 
@@ -5951,28 +5975,258 @@ def run_tools(card: str, step_ms: dict) -> dict:
     return runs
 
 
+# --- phase 18: pipeline-parallel DuoDiff and the server over the process grid
+
+PIPE_MICRO = 32            # 18a: MAIN_BATCH in 4 micro-batches
+GRID_SLOTS = 8             # 18b: the bucket and the slots, 4 rows a data rank
+GRID_SERVE_STEPS = 250     # 18b data-parallel and slots: phase 15's schedule
+GRID_TP_STEPS = 50         # 18b --model_parallel 2: 26 all-reduces a step through the host
+TP_LEVELS = 2              # JAX's tensor-parallel tolerance on the served 8-bit pixels
+GRID_SERVERS = (  # (tag, the grid server's flags, the one-process server's, ddpm steps)
+    ("bucket", ["--bucket", str(GRID_SLOTS)], ["--bucket", str(GRID_SLOTS)], GRID_SERVE_STEPS),
+    ("slots", ["--slots", str(GRID_SLOTS)], ["--slots", str(GRID_SLOTS)], GRID_SERVE_STEPS),
+    ("tp", ["--bucket", str(GRID_SLOTS), "--model_parallel", "2"], ["--bucket", str(GRID_SLOTS)],
+     GRID_TP_STEPS),
+)
+
+
+def pipeline_counts() -> list:
+    """18a's launches by rank: stage A runs the depth-3 model over the first
+    T_SWITCH steps of every micro-batch, stage B the depth-13 one over the
+    rest."""
+    micro = MAIN_BATCH // PIPE_MICRO
+    return [bf16_blocks(micro * T_SWITCH * 3), bf16_blocks(micro * (STEPS - T_SWITCH) * 13)]
+
+
+def grid_serve_argv(flags: list, steps: int) -> list:
+    return ["--config_path", SERVE_CONFIG, "--random_init", "--device", "cuda", "--port", "0",
+            "--num_timesteps", str(steps), "--no-warmup", *flags]
+
+
+def grid_server_counts(tag: str, steps: int) -> dict:
+    """18b's launches on each rank: one request of GRID_SLOTS images, a
+    forward of the rank's 4 rows (data-parallel) or of the whole 8 through
+    the shard forms (tensor-parallel) a step; the slots all start on the
+    first round, and SERVE_STEPS_PER_POLL divides the steps."""
+    if tag == "tp":
+        return shard_blocks(steps * 13)
+    return bf16_blocks(steps * 13)
+
+
+def grid_client(jobs: dict, got: dict):
+    """18b's HTTP client, run while the ranks serve: for each server in
+    turn, wait for rank 0's port, read /healthz, POST one request of
+    GRID_SLOTS images, then tell rank 0 to stop. Records what came back in
+    ``got``; checks nothing, so that every server is stopped whatever
+    happened."""
+
+    def client(proc) -> None:
+        for tag, out in jobs.items():
+            port = Path(out) / "port"
+            deadline = time.monotonic() + TP_TIMEOUT
+            while not port.exists():
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    return
+                time.sleep(0.1)
+            base = f"http://127.0.0.1:{port.read_text()}"
+            try:
+                got[tag] = {"healthz": http_json(base + "/healthz")}
+                tic = time.perf_counter()
+                got[tag]["sample"] = http_json(base + "/sample",
+                                               {"n": GRID_SLOTS, "seed": SERVE_SEED})
+                got[tag]["wall"] = time.perf_counter() - tic
+            except (OSError, ValueError) as e:
+                got[tag] = {"error": repr(e)}
+            finally:
+                (Path(out) / "stop").write_text("")
+
+    return client
+
+
+def one_process_server(tag: str, flags: list, steps: int) -> list:
+    """The PNGs of the one-process server (this process, the card) for 18b's
+    request: bucket 8 for the bucket and tensor-parallel servers, 8 slots for
+    the slot server."""
+    from duodiff_tpu_torch import serve
+
+    svc = serve.make_service(serve.get_args(grid_serve_argv(flags, steps)))
+    try:
+        tic = time.perf_counter()
+        pngs = [serve.png_b64(im) for im in svc.sample(n=GRID_SLOTS, seed=SERVE_SEED)]
+        print(f"phase 18b {tag}: the one-process server ({' '.join(flags)}, ddpm {steps} steps) "
+              f"answered in {time.perf_counter() - tic:.6g} s", flush=True)
+        return pngs
+    finally:
+        svc.close()
+        del svc
+        release_memory()
+
+
+def png_pixels(pngs: list) -> np.ndarray:
+    from duodiff_tpu_torch.utils.image import decode_png
+
+    return np.stack([decode_png(base64.b64decode(b))["pixels"] for b in pngs]).astype(np.int32)
+
+
+def check_pipeline(records: list, out: str, one: dict, card: str) -> dict:
+    """18a's gates: each rank's launches, the pipelined PNG pixels equal to
+    the one-process run's (and whether the float samples are equal to the
+    bit), the two wall times. Returns the launches summed over the ranks."""
+    for rec, expected in zip(records, pipeline_counts()):
+        got = rec["sample"]["launches"]
+        print(f"phase 18a: rank {rec['rank']} (stage {'AB'[rec['rank']]}) launches "
+              f"{ {k: v for k, v in got.items() if v} } (expected {expected})", flush=True)
+        check_counts(got, expected)
+    got = np.load(f"{out}/png/samples.npy")
+    want = np.load(f"{out}/one/samples.npy")
+    same_png = np.array_equal(got, want)
+    same_float = np.array_equal(np.load(f"{out}/samples_float.npy"), one["samples"])
+    pngs = sorted(p.name for p in Path(f"{out}/png").glob("*.png"))
+    print(f"phase 18a: pipelined samples ({MAIN_BATCH}, {len(pngs)} PNG files) against the "
+          f"one-process run: 8-bit pixels equal {same_png}, float samples equal to the bit "
+          f"{same_float}", flush=True)
+    if not same_png or len(pngs) != MAIN_BATCH + 1:
+        fail("phase 18a: the pipelined PNGs are not the one-process run's")
+    stage = [r["sample"]["seconds"] for r in records]
+    print(f"phase 18a: wall time of the pipelined run (barrier to the gathered batch) "
+          f"{stage[0]:.6g} s on rank 0 (stage A), {stage[1]:.6g} s on rank 1 (stage B); the "
+          f"one-process run {one['seconds']:.6g} s; {MAIN_BATCH // PIPE_MICRO} micro-batches of "
+          f"{PIPE_MICRO}, t_switch {T_SWITCH} of {STEPS}. Both stages share the one card here, "
+          f"so these times measure correctness and overhead, not the pipeline's speed-up; "
+          f"card {card}", flush=True)
+    return {k: sum(r["sample"]["launches"][k] for r in records) for k in records[0]["sample"]
+            ["launches"]}
+
+
+def check_grid_server(tag: str, steps: int, records: list, got: dict, want: list,
+                      card: str) -> dict:
+    """18b's gates for one server: /healthz's grid, each rank's launches, the
+    images against the one-process server's (equal PNG bytes; the
+    tensor-parallel one within TP_LEVELS). Returns the launches summed over
+    the ranks."""
+    if "error" in got or "sample" not in got:
+        fail(f"phase 18b {tag}: the client got no answer: {got}")
+    (hcode, info), (code, resp) = got["healthz"], got["sample"]
+    grid = {"data": 1, "model": 2} if tag == "tp" else {"data": 2, "model": 1}
+    print(f"phase 18b {tag}: /healthz {hcode} mesh {info.get('mesh')} model_parallel "
+          f"{info.get('model_parallel')} mode {info.get('mode')}", flush=True)
+    if hcode != 200 or info.get("mesh") != grid or info.get("model_parallel") != grid["model"]:
+        fail(f"phase 18b {tag}: /healthz gave {info}, expected the grid {grid}")
+    if code != 200:
+        fail(f"phase 18b {tag}: POST /sample answered {code}: {resp}")
+    expected = grid_server_counts(tag, steps)
+    for rec in records:
+        counts = rec["serve"]["launches"]
+        print(f"phase 18b {tag}: rank {rec['rank']} launches "
+              f"{ {k: v for k, v in counts.items() if v} } (expected {expected})", flush=True)
+        check_counts(counts, expected)
+    pixels = check_png_images(f"phase 18b {tag}", resp, GRID_SLOTS)
+    if tag == "tp":
+        worst = int(np.max(np.abs(np.stack(pixels).astype(np.int32) - png_pixels(want))))
+        ok = worst <= TP_LEVELS
+        verdict = f"within {worst} pixel levels (bound {TP_LEVELS})"
+    else:
+        ok = resp["images"] == want
+        verdict = f"PNG bytes equal {ok}"
+    print(f"phase 18b {tag}: {GRID_SLOTS} images over HTTP in {got['wall']:.6g} s (ddpm {steps} "
+          f"steps, server elapsed_ms {resp.get('elapsed_ms')}) against the one-process "
+          f"server's: {verdict}; card {card}", flush=True)
+    if not ok:
+        fail(f"phase 18b {tag}: the served images disagree with the one-process server's")
+    return {k: sum(r["serve"]["launches"][k] for r in records)
+            for k in records[0]["serve"]["launches"]}
+
+
+def run_grids(card: str) -> dict:
+    """Phase 18: one torchrun of two ranks on the one card (gloo): 18a
+    ``sample.main --pipeline_parallel`` on the CelebA-64 DuoDiff pair at
+    batch 128 in 4 micro-batches, against the one-process run of this
+    process; 18b ``serve.main`` on ``uvit_celeba.yaml`` over the grid, a
+    bucket of 8 data-parallel, 8 slots over the two data ranks and a bucket
+    of 8 with ``--model_parallel 2``, this process their HTTP client,
+    against one-process servers here. Returns the launches of each run,
+    summed over the ranks."""
+    from duodiff_tpu_torch import sample
+
+    tic = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as work:
+        pipe = f"{work}/pipeline"
+        pair = ["--config_path", EARLY_CONFIG, "--config_path_late", LATE_CONFIG, "--t_switch",
+                str(T_SWITCH), "--random_init", "--num_timesteps", str(STEPS), "--batch_size",
+                str(MAIN_BATCH), "--parametrization", "predict_noise", "--device", "cuda",
+                "--seed", "0", "--attn_impl", "fused"]
+        reset_counts()
+        one = sample.main([*pair, "--output_folder", f"{pipe}/one"])
+        check_counts(read_counts(), bf16_blocks(T_SWITCH * 3 + (STEPS - T_SWITCH) * 13))
+        want = {tag: one_process_server(tag, ref, steps) for tag, _, ref, steps in GRID_SERVERS}
+        release_memory()
+        jobs = [{"out": pipe, "device": "cuda",
+                 "sample": [*pair, "--pipeline_parallel", "--pipeline_microbatch",
+                            str(PIPE_MICRO), "--output_folder", f"{pipe}/png"]}]
+        served = {}
+        for tag, flags, _, steps in GRID_SERVERS:
+            served[tag] = f"{work}/{tag}"
+            os.makedirs(served[tag])
+            jobs.append({"out": served[tag], "device": "cuda",
+                         "serve": grid_serve_argv(flags, steps)})
+        got = {}
+        # one grid joins the process group, then one a job
+        every = torchrun("phase 18", jobs, work, card, grids=1 + len(jobs),
+                         interact=grid_client(served, got))
+        runs["18a"] = check_pipeline(every[0], pipe, one, card)
+        for (tag, _, _, steps), records in zip(GRID_SERVERS, every[1:]):
+            runs[f"18b {tag}"] = check_grid_server(tag, steps, records, got.get(tag, {}),
+                                                   want[tag], card)
+    release_memory()
+    print(f"phase 18: {time.perf_counter() - tic:.6g} s", flush=True)
+    print(json.dumps({"phase18_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}),
+        flush=True)
+    return runs
+
+
 def run_worker(spec: str) -> int:
-    """One rank of the phase 16 torchrun: for each job of the JSON list
-    ``spec`` in turn, the training CLI's own steps on its ``train`` argv (its
-    ``Trainer``, as ``train.main`` runs it), then ``sample.main`` on its
-    ``sample`` argv, every grid on the process group the first one joined,
-    each with its launch counts set to 0 just before and read just after,
-    written with what the phase holds and the wall clock at each stage to
-    ``out/rank{RANK}.json``. Between the two, every rank runs the trained
-    model's forward on :func:`forward_input` (the shards' sums) and, for a
-    tensor-parallel grid, one more profiled step (:func:`profile_grid_step`);
-    rank 0 writes that forward and the gathered samples."""
+    """One rank of the phase 16 and 18 torchruns: for each job of the JSON
+    list ``spec`` in turn, the training CLI's own steps on its ``train``
+    argv (its ``Trainer``, as ``train.main`` runs it), then ``sample.main``
+    on its ``sample`` argv, or the server on its ``serve`` argv
+    (:func:`serve_job`), every grid on the process group the first one
+    joined (a job without training joins it through a grid of its own
+    first), each with its launch counts set to 0 just before and read just
+    after, written with what the phase holds and the wall clock at each
+    stage to ``out/rank{RANK}.json``. After training, every rank runs the
+    trained model's forward on :func:`forward_input` (the shards' sums) and,
+    for a tensor-parallel grid, one more profiled step
+    (:func:`profile_grid_step`); rank 0 writes that forward and the gathered
+    samples."""
     from duodiff_tpu_torch import sample, train
     from duodiff_tpu_torch.config import merge_args_with_config
-    from duodiff_tpu_torch.parallel.mesh import close
+    from duodiff_tpu_torch.parallel.mesh import close, sampling_grid
     from duodiff_tpu_torch.training.trainer import Trainer
 
     # the wall clock (time.time) at each stage, from this process's start
     stages = {"started": time.time() - (time.perf_counter() - STARTED)}
     rank = int(os.environ["RANK"])
-    first = None  # the first trainer's grid, which joined the process group
+    first = None  # the first grid, which joined the process group
     for job in json.loads(Path(spec).read_text()):
         out = job["out"]
+        if "train" not in job:
+            first = first or sampling_grid(1, TP_WORLD, job["device"])
+            stages["imported"] = time.time()
+            reset_counts()
+            if "serve" in job:
+                record = {"rank": rank, "serve": serve_job(job["serve"], rank, out)}
+            else:
+                result = sample.main(job["sample"])
+                record = {"rank": rank, "sample": {"seconds": result["seconds"],
+                                                   "launches": read_counts()}}
+                if rank == 0:
+                    np.save(f"{out}/samples_float.npy", result["samples"])
+            stages["ended"] = time.time()
+            record["stages"], stages = stages, {}
+            Path(f"{out}/rank{rank}.json").write_text(json.dumps(record))
+            continue
         args = train.get_args(job["train"])
         merge_args_with_config(args, args.config_path)
         stages["imported"] = time.time()
@@ -6007,6 +6261,41 @@ def run_worker(spec: str) -> int:
         Path(f"{out}/rank{rank}.json").write_text(json.dumps(record))
     close(first)  # on a failure the rank exits and torchrun stops the others
     return 0
+
+
+def serve_job(argv: list, rank: int, out: str) -> dict:
+    """``serve.main(argv)`` on this rank, its counts read after it ends.
+    Rank 0 runs it in a thread, writes its port to ``out/port`` and stops it
+    when ``out/stop`` appears (the phase's client wrote it); the other ranks
+    follow rank 0 until its stop."""
+    from duodiff_tpu_torch import serve
+
+    if rank != 0:
+        serve.main(argv)
+        return {"launches": read_counts()}
+    ready, box, failed = threading.Event(), [], []
+
+    def run():
+        try:
+            serve.main(argv, ready_event=ready, server_box=box)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            failed.append(e)
+            ready.set()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    if not ready.wait(timeout=TP_TIMEOUT) or failed:
+        raise RuntimeError(f"the server {argv} did not come up: {failed}")
+    httpd, _ = box[0]
+    Path(f"{out}/port").write_text(str(httpd.server_address[1]))
+    deadline = time.monotonic() + TP_TIMEOUT
+    while not Path(f"{out}/stop").exists() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    httpd.shutdown()
+    th.join(timeout=TP_TIMEOUT)
+    if failed or th.is_alive():
+        raise RuntimeError(f"the server {argv} did not end cleanly: {failed}")
+    return {"launches": read_counts()}
 
 
 def parse_phases(argv) -> set:
@@ -6171,6 +6460,16 @@ def main(argv=None) -> int:
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
                     results[name]["launches_17"] = (results[name].get("launches_17", 0)
+                                                    + counts[name])
+    lap("18")
+    if "18" in run:
+        # the pipeline's and the grid servers' launches, every rank's, are added
+        # to K1, K2 and their shard forms, and kept apart
+        for counts in run_grids(card).values():
+            for name in (*KERNELS, *SHARD_KERNELS):
+                if counts.get(name):
+                    launches[name] = launches.get(name, 0) + counts[name]
+                    results[name]["launches_18"] = (results[name].get("launches_18", 0)
                                                     + counts[name])
     lap("end")
     print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "

@@ -29,11 +29,20 @@ PyTorch path on the CPU: to the bit). The JAX package gives each slot a
 threefry key instead, which torch cannot reproduce; the tests drive both
 batchers with JAX's own draws through :class:`TableNoise`.
 
-Multi-GPU serving (the JAX batcher's ``mesh``) is not ported.
+Over the data ranks of a process grid (``mesh``, the JAX batcher's mesh):
+data rank d holds the global slots [d S / n, (d + 1) S / n) (their x,
+noise sources, labels and cache deltas), so a step advances S / n slots on
+each rank with no collective of its own. Every rank makes the same calls
+with the same global slot numbers (a server's rank 0 broadcasts them), so
+the host mirror and the wave counter are the same on every rank; a rank
+ignores the noise source of a slot it does not hold, and the finished
+images are gathered on the host. A request's images stay the one-process
+batcher's.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Optional
 
@@ -120,6 +129,10 @@ class ContinuousDiffusionBatcher:
     only, ``pattern[0]`` True): step j of every slot anchors iff
     ``pattern[j % len(pattern)]``; :func:`periodic_pattern_table` is the
     equivalent absolute-t table of the sequential samplers.
+
+    ``mesh``: a process grid (``parallel/mesh.py``) whose data ranks split
+    the slots (module docstring); the slots must divide them. A grid that
+    runs the batch whole on every rank (``replicated``) splits nothing.
     """
 
     def __init__(
@@ -138,11 +151,16 @@ class ContinuousDiffusionBatcher:
         cache: Optional[tuple] = None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise ValueError("continuous batching over a device mesh is multi-GPU serving, "
-                             "which is not ported: serve on one GPU")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        n_data = 1 if mesh is None or mesh.replicated else mesh.data
+        if slots % n_data:
+            raise ValueError(f"slots ({slots}) must be divisible by the mesh's {n_data} data "
+                             "shards")
+        # this rank's slots: [lo, lo + held) of the global slot numbers
+        self.mesh = mesh if n_data > 1 else None
+        self._held = slots // n_data
+        self._lo = 0 if self.mesh is None else mesh.data_rank * self._held
         if steps_per_poll < 1:
             raise ValueError(f"steps_per_poll must be >= 1, got {steps_per_poll}")
         if method not in ("ddpm", "ddim", "dpm"):
@@ -213,7 +231,7 @@ class ContinuousDiffusionBatcher:
         self._t = torch.as_tensor(t_host, dtype=torch.long, device=device)
         self._t_model = self._t.to(torch.float32)
 
-        s = slots
+        s = self._held
         f32 = torch.float32
         self.x = torch.zeros((s,) + self.img_shape, dtype=f32, device=device)
         self.x0_prev = torch.zeros_like(self.x)
@@ -247,23 +265,26 @@ class ContinuousDiffusionBatcher:
     def _admit(self, slot: int, noise, class_id):
         if not 0 <= slot < self.slots or slot in self.steps_done:
             raise ValueError(f"slot {slot} is not a free slot of {self.slots}")
-        if isinstance(noise, torch.Generator):
-            # the sequential samplers' x_T: randn((1, H, W, C), generator)
-            self.x[slot:slot + 1].normal_(generator=noise)
-        elif isinstance(noise, TableNoise):
-            if self._draw_rows is not None and noise.table is None:
-                raise ValueError(f"{self.method} draws noise every step: a TableNoise needs "
-                                 "its table")
-            self.x[slot].copy_(noise.x_init)
-        else:
+        if not isinstance(noise, (torch.Generator, TableNoise)):
             raise TypeError(f"a job's noise is a torch.Generator or a TableNoise, got "
                             f"{type(noise).__name__}")
-        self.x0_prev[slot] = 0.0
-        self.i[slot] = 0
-        self.active[slot] = True
-        self.y[slot] = 0 if class_id is None else int(class_id)
-        self._noise[slot] = noise
+        if isinstance(noise, TableNoise) and self._draw_rows is not None and noise.table is None:
+            raise ValueError(f"{self.method} draws noise every step: a TableNoise needs its "
+                             "table")
         self.steps_done[slot] = 0
+        j = slot - self._lo
+        if not 0 <= j < self._held:
+            return  # another data rank's slot
+        if isinstance(noise, torch.Generator):
+            # the sequential samplers' x_T: randn((1, H, W, C), generator)
+            self.x[j:j + 1].normal_(generator=noise)
+        else:
+            self.x[j].copy_(noise.x_init)
+        self.x0_prev[j] = 0.0
+        self.i[j] = 0
+        self.active[j] = True
+        self.y[j] = 0 if class_id is None else int(class_id)
+        self._noise[slot] = noise
 
     def can_admit_cached(self) -> bool:
         """True when admissions are allowed now: always without caching;
@@ -283,21 +304,22 @@ class ContinuousDiffusionBatcher:
     def _noise_for_step(self, progress: dict) -> Optional[torch.Tensor]:
         """The (slots, H, W, C) noise of one step: each live slot's own draw
         (or table row) where its step draws, zeros elsewhere; None when the
-        method draws nothing. ``progress`` is each occupied slot's step."""
+        method draws nothing. ``progress`` is each occupied slot's step; the
+        slots of other data ranks draw there."""
         if self._draw_rows is None:
             return None
         z = torch.zeros_like(self.x)
         for slot, j in progress.items():
-            if j >= self.n_trans:
+            if j >= self.n_trans or slot not in self._noise:
                 continue
             row = int(self._draw_rows[j])
             if row <= 0:
                 continue  # the last step adds no noise and draws none
-            noise = self._noise[slot]
+            noise, k = self._noise[slot], slot - self._lo
             if isinstance(noise, torch.Generator):
-                z[slot:slot + 1].normal_(generator=noise)
+                z[k:k + 1].normal_(generator=noise)
             else:
-                z[slot].copy_(noise.table[row])
+                z[k].copy_(noise.table[row])
         return z
 
     def _model(self, x, t_model, y, w: int):
@@ -358,10 +380,14 @@ class ContinuousDiffusionBatcher:
         return [s for s in range(self.slots) if s not in self.steps_done]
 
     def poll(self):
-        """(steps done (S,), active (S,)) read from the device: one blocking
-        round trip. The serving loop reads the host mirror instead; this is
-        for tests (it must always agree with the mirror)."""
-        return self.i.cpu().numpy(), self.active.cpu().numpy()
+        """(steps done (S,), active (S,)) read from the device (and gathered
+        from the data ranks): one blocking round trip. The serving loop reads
+        the host mirror instead; this is for tests (it must always agree
+        with the mirror)."""
+        if self.mesh is None:
+            return self.i.cpu().numpy(), self.active.cpu().numpy()
+        return (self.mesh.gather_rows(self.i.cpu()).numpy(),
+                self.mesh.gather_rows(self.active.cpu()).numpy())
 
     def begin_finish(self, slots, transform: Optional[Callable] = None):
         """Free ``slots`` and start the copy of their images to the host;
@@ -374,10 +400,15 @@ class ContinuousDiffusionBatcher:
         slots, and the freed slots can be re-admitted and advanced before
         ``materialize()`` is called. ``transform`` (a latent model's decode)
         runs on the gathered rows before the copy. On a GPU the copy goes
-        to pinned host memory behind an event."""
+        to pinned host memory behind an event. Over a grid's data ranks
+        every rank gathers (and transforms) the rows it holds and the host
+        gathers them all, before this returns."""
         slots = list(slots)
         if not slots:
             return lambda: []
+        if self.mesh is not None:
+            images = self._gather_finished(slots, transform)
+            return lambda: images
         rows = torch.stack([self.x[s] for s in slots])
         if transform is not None:
             rows = transform(rows)
@@ -399,6 +430,32 @@ class ContinuousDiffusionBatcher:
             return [host[j].numpy() for j in range(len(slots))]
 
         return materialize
+
+    def _gather_finished(self, slots: list, transform) -> list:
+        """:meth:`begin_finish` over the data ranks: each rank's finished
+        rows (padded to the most any rank holds, so that every rank gathers
+        one shape), transformed, gathered on the host; the slots freed."""
+        mesh = self.mesh
+        held = collections.Counter()  # finished slots on each data rank
+        place = {}  # slot -> (its data rank, its row among that rank's)
+        for s in slots:
+            d = s // self._held
+            place[s] = (d, held[d])
+            held[d] += 1
+        mine = [s for s in slots if place[s][0] == mesh.data_rank]
+        rows = torch.zeros((max(held.values()), *self.img_shape), dtype=self.x.dtype,
+                           device=self.x.device)
+        for k, s in enumerate(mine):
+            rows[k] = self.x[s - self._lo]
+        if transform is not None:
+            rows = transform(rows)
+        parts = mesh.gather_host(rows.cpu())[::mesh.model]
+        for s in slots:
+            del self.steps_done[s]
+        for s in mine:
+            self.active[s - self._lo] = False
+            del self._noise[s]
+        return [parts[d][k].numpy() for d, k in (place[s] for s in slots)]
 
     def finish_many(self, slots) -> list:
         """The finished images of ``slots`` (in that order) in one copy; frees them."""

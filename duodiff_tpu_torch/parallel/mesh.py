@@ -1,5 +1,6 @@
 """The process grid over ``torch.distributed`` (counterpart of
-``duodiff_tpu/parallel/mesh.py``, without FSDP).
+``duodiff_tpu/parallel/mesh.py``, without FSDP, and of the device split of
+``duodiff_tpu/diffusion/pipeline.py``).
 
 A run under ``python -m torch.distributed.run --nproc_per_node N`` (or across
 nodes with ``--multihost``) holds N ranks, one process each, laid out as a
@@ -10,7 +11,10 @@ block (tensor parallelism, :mod:`duodiff_tpu_torch.parallel.tp_fused`), as
 same place in their model groups form a data group, which splits the batch
 and averages the gradients (data parallelism). A run without the torchrun
 environment is one process on one device with no process group, and every
-collective here is then nothing.
+collective here is then nothing. Pipeline-parallel DuoDiff
+(:func:`pipeline_grid`) lays the ranks out as two such grids, the stages A
+and B, one after the other, whose paired ranks hand tensors over point to
+point (:meth:`Grid.send_to`, :meth:`Grid.recv_from`).
 
 The backend follows the topology: ranks whose devices are all distinct
 reduce over NCCL, ranks that share a device (more ranks on a node than it
@@ -27,6 +31,7 @@ groups show in a profile as ``grid.all_reduce`` spans.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Optional
 
@@ -39,13 +44,20 @@ ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
 # the process group's init_method (default env://, torchrun's MASTER_ADDR and
 # MASTER_PORT); a file:// URL lets processes meet without a port
 INIT_METHOD_ENV = "DUODIFF_INIT_METHOD"
+# how long a rank of a serving grid waits in a collective for the others: a
+# rank that died or hangs fails the request instead of hanging the server
+SERVE_TIMEOUT = datetime.timedelta(seconds=300)
+# how long a follower rank of a server waits for rank 0's next unit of work
+IDLE_TIMEOUT = datetime.timedelta(days=365)
 
 
 @dataclasses.dataclass
 class Grid:
-    """One rank's place in the (data, model) grid. ``data`` x ``model``
+    """One rank's place in the (data, model) grid, or in one of the
+    ``stages`` such grids of a pipeline. ``stages`` x ``data`` x ``model``
     ranks take part (``active``); a rank past them, which the batch rule of
-    :func:`training_grid` leaves without rows, only waits for the others."""
+    :func:`training_grid` leaves without rows or an odd world leaves
+    outside the pipeline's two stages, only waits for the others."""
 
     rank: int = 0
     world: int = 1
@@ -57,8 +69,10 @@ class Grid:
     data_group: object = None    # the data group of this rank (None: size 1)
     active_group: object = None  # every active rank (None: one process)
     host_group: object = None    # the active ranks over gloo, for CPU tensors
+    idle_group: object = None    # host_group's ranks with IDLE_TIMEOUT (serving)
     replicated: bool = False     # every rank holds the whole batch (sampling)
     joined: bool = False         # this grid joined the process group: close leaves it
+    stages: int = 1              # 2 for pipeline-parallel DuoDiff (stage A, then B)
 
     @property
     def distributed(self) -> bool:
@@ -66,11 +80,22 @@ class Grid:
 
     @property
     def active(self) -> bool:
-        return self.rank < self.data * self.model
+        return self.rank < self.stages * self.data * self.model
+
+    @property
+    def stage(self) -> Optional[int]:
+        """0 for stage A, 1 for stage B; None for a waiting rank."""
+        return self.rank // (self.data * self.model) if self.active else None
+
+    @property
+    def peer(self) -> int:
+        """The rank of the other stage with this rank's place in its grid."""
+        size = self.data * self.model
+        return self.rank + size if self.stage == 0 else self.rank - size
 
     @property
     def data_rank(self) -> int:
-        return 0 if self.replicated else self.rank // self.model
+        return 0 if self.replicated else self.rank % (self.data * self.model) // self.model
 
     @property
     def model_rank(self) -> int:
@@ -146,7 +171,7 @@ class Grid:
         rank order, on every active rank."""
         if self.host_group is None:
             return [t]
-        out = [torch.empty_like(t) for _ in range(self.data * self.model)]
+        out = [torch.empty_like(t) for _ in range(self.stages * self.data * self.model)]
         dist.all_gather(out, t.contiguous(), group=self.host_group)
         return out
 
@@ -157,6 +182,38 @@ class Grid:
             return t
         parts = self.gather_host(t)
         return torch.cat(parts[::self.model])
+
+    def broadcast_obj(self, obj=None):
+        """Rank 0's picklable ``obj`` on every active rank, over the host
+        (``idle_group`` where the grid has one: a follower waits there for
+        the next unit of work however long the server stays idle)."""
+        group = self.host_group if self.idle_group is None else self.idle_group
+        if group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=group)
+        return box[0]
+
+    # --- point to point: the pipeline's handoff -----------------------------
+
+    def _wire(self, host: bool) -> torch.device:
+        """Where a point-to-point tensor travels: on the device under NCCL,
+        through the host under gloo (whose send and recv take CPU tensors
+        only) or when ``host`` asks for it."""
+        return self.device if self.backend == "nccl" and not host else torch.device("cpu")
+
+    def send_to(self, t: torch.Tensor, dst: int, host: bool = False) -> None:
+        """Send ``t`` to rank ``dst``; returns once it has left (gloo) or is
+        queued on the current stream (NCCL)."""
+        dist.send(t.to(self._wire(host)).contiguous(), dst=dst,
+                  group=self.host_group if host else None)
+
+    def recv_from(self, shape, dtype, src: int, host: bool = False) -> torch.Tensor:
+        """The tensor rank ``src`` sends, on this rank's device (on the host
+        with ``host``)."""
+        buf = torch.empty(shape, dtype=dtype, device=self._wire(host))
+        dist.recv(buf, src=src, group=self.host_group if host else None)
+        return buf if host else buf.to(self.device)
 
 
 def env_spec() -> Optional[dict]:
@@ -206,11 +263,13 @@ def _backend(dev: torch.device, local_world: int) -> str:
 
 
 def _grid(model_parallel: int, device: str, multihost: bool,
-          data_size, what: str) -> Grid:
+          data_size, what: str, stages: int = 1, timeout=None) -> Grid:
     """Join the process group (or keep the one this process joined for an
     earlier grid, as when one process trains, then samples: :func:`close`
     then leaves it only through the grid that joined it) and build the
-    grid; ``data_size(world // mp)`` picks the data size (or refuses)."""
+    grid; ``data_size(world // (stages * mp))`` picks the data size (or
+    refuses). With a ``timeout`` (serving) every collective of the grid's
+    groups fails after it, and the grid gets an ``idle_group``."""
     mp = max(1, int(model_parallel or 1))
     spec = env_spec()
     if spec is None:
@@ -232,7 +291,7 @@ def _grid(model_parallel: int, device: str, multihost: bool,
     if local_world % mp:
         raise SystemExit(f"--model_parallel {mp} does not divide the {local_world} ranks of a "
                          "node: a model group stays on one node")
-    data = data_size(world // mp)
+    data = data_size(world // (stages * mp))
     dev = _device(device, local_rank)
     backend = _backend(dev, local_world)
     if dev.type == "cuda":
@@ -240,29 +299,36 @@ def _grid(model_parallel: int, device: str, multihost: bool,
     joined = not dist.is_initialized()
     if joined:
         dist.init_process_group(backend, init_method=os.environ.get(INIT_METHOD_ENV, "env://"),
-                                rank=rank, world_size=world)
+                                rank=rank, world_size=world, timeout=timeout)
     elif (dist.get_rank(), dist.get_world_size(), dist.get_backend()) != (rank, world, backend):
         raise SystemExit("this process already joined another process group")
     grid = Grid(rank=rank, world=world, data=data, model=mp, device=dev, backend=backend,
-                joined=joined)
-    # every rank creates every group, in the same order
-    active = list(range(data * mp))
-    for d in range(data if mp > 1 else 0):
-        g = dist.new_group([d * mp + m for m in range(mp)])
-        if grid.active and grid.data_rank == d:
-            grid.model_group = g
-    for m in range(mp if data > 1 else 0):
-        g = dist.new_group([d * mp + m for d in range(data)])
-        if grid.active and grid.model_rank == m:
-            grid.data_group = g
+                joined=joined, stages=stages)
+    # every rank creates every group, in the same order; each stage is a
+    # (data, model) grid of its own
+    size = data * mp
+    for s in range(stages):
+        for d in range(data if mp > 1 else 0):
+            g = dist.new_group([s * size + d * mp + m for m in range(mp)], timeout=timeout)
+            if grid.stage == s and grid.data_rank == d:
+                grid.model_group = g
+        for m in range(mp if data > 1 else 0):
+            g = dist.new_group([s * size + d * mp + m for d in range(data)], timeout=timeout)
+            if grid.stage == s and grid.model_rank == m:
+                grid.data_group = g
+    active = list(range(stages * size))
     if len(active) > 1:
-        whole = dist.new_group(active)
-        host = whole if backend == "gloo" else dist.new_group(active, backend="gloo")
+        whole = dist.new_group(active, timeout=timeout)
+        host = (whole if backend == "gloo" else
+                dist.new_group(active, backend="gloo", timeout=timeout))
+        idle = None if timeout is None else dist.new_group(active, backend="gloo",
+                                                           timeout=IDLE_TIMEOUT)
         if grid.active:
-            grid.active_group, grid.host_group = whole, host
+            grid.active_group, grid.host_group, grid.idle_group = whole, host, idle
     if rank == 0:
-        print(f"{what} on a (data {data}, model {mp}) grid of {world} ranks: backend {backend} "
-              f"({'ranks share a device' if backend == 'gloo' else 'a device a rank'}), "
+        staged = "" if stages == 1 else f"{stages} stages of "
+        print(f"{what} on {staged}a (data {data}, model {mp}) grid of {world} ranks: backend "
+              f"{backend} ({'ranks share a device' if backend == 'gloo' else 'a device a rank'}), "
               f"{dev.type}", flush=True)
     return grid
 
@@ -292,12 +358,13 @@ def training_grid(model_parallel: int, batch_size: int, device: str,
 
 
 def sampling_grid(model_parallel: int, batch_size: int, device: str,
-                  multihost: bool = False, split: bool = True) -> Grid:
+                  multihost: bool = False, split: bool = True, timeout=None) -> Grid:
     """The sampling grid (``sampling_mesh`` / ``setup_sampling_sharding``):
     with ``model_parallel`` > 1 the batch must divide the data shards; without,
     a batch that divides the world runs data-parallel, and any other batch
     (or any batch with ``split=False``) runs whole on every rank
-    (``replicated``), rank 0 writing it."""
+    (``replicated``), rank 0 writing it. A server passes ``timeout``
+    (:data:`SERVE_TIMEOUT`)."""
     mp = max(1, int(model_parallel or 1))
     whole = []
 
@@ -309,7 +376,7 @@ def sampling_grid(model_parallel: int, batch_size: int, device: str,
             whole.append(n)
         return n
 
-    grid = _grid(mp, device, multihost, data_size, "Sampling")
+    grid = _grid(mp, device, multihost, data_size, "Sampling", timeout=timeout)
     if whole:
         grid.replicated = True
         if grid.is_main:
@@ -318,10 +385,45 @@ def sampling_grid(model_parallel: int, batch_size: int, device: str,
     return grid
 
 
-def close(grid: Grid) -> None:
-    """Leave the process group (after a barrier), if this grid joined it; a
-    grid built on a group an earlier grid joined leaves it to that one."""
+def pipeline_grid(batch_size: int, microbatch: int, device: str,
+                  multihost: bool = False) -> Grid:
+    """The two stages of pipeline-parallel DuoDiff (``DuoDiffPipeline``'s
+    device split): stage A is ranks [0, N // 2), stage B ranks [N // 2, 2 (N
+    // 2)), and with an odd N the last rank waits. Rank r of A hands its
+    micro-batches to rank N // 2 + r of B (:attr:`Grid.peer`). Within a
+    stage a micro-batch that divides the stage's ranks runs data-parallel,
+    any other whole on every rank of the stage (``replicated``)."""
+    if microbatch < 1 or batch_size % microbatch:
+        raise SystemExit(f"--batch_size {batch_size} must be a multiple of "
+                         f"--pipeline_microbatch {microbatch}")
+    spec = env_spec()
+    world = 1 if spec is None else spec["world_size"]
+    if world < 2:
+        raise SystemExit(f"pipeline parallelism needs >= 2 ranks (have {world}): run under "
+                         "python -m torch.distributed.run --nproc_per_node 2 (or more)")
+    whole = []
+
+    def data_size(n: int) -> int:
+        if microbatch % n:
+            whole.append(n)
+        return n
+
+    grid = _grid(1, device, multihost, data_size, "Pipelined sampling", stages=2)
+    grid.replicated = bool(whole)
+    if grid.is_main:
+        per = "the whole micro-batch" if whole else f"{microbatch // grid.data} of its rows"
+        waits = f"; rank {world - 1} waits" if world % 2 else ""
+        print(f"stage A ranks 0-{grid.data - 1}, stage B ranks {grid.data}-{2 * grid.data - 1}: "
+              f"{batch_size // microbatch} micro-batches of {microbatch}, {per} a rank{waits}",
+              flush=True)
+    return grid
+
+
+def close(grid: Grid, barrier: bool = True) -> None:
+    """Leave the process group (after a barrier, unless ``barrier`` is
+    false, as after a failed collective), if this grid joined it; a grid
+    built on a group an earlier grid joined leaves it to that one."""
     if grid.joined and dist.is_initialized():
-        if grid.host_group is not None:
+        if barrier and grid.host_group is not None:
             dist.barrier(group=grid.host_group)
         dist.destroy_process_group()

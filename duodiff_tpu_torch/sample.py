@@ -70,8 +70,19 @@ that divides N runs data-parallel, any other whole on every rank. Every rank
 draws the global batch's noise and labels from the shared generator and
 keeps its rows (``diffusion/sampling.py:RowDraws``), so the samples are
 those of a one-process run; rank 0 gathers the rows on the host and writes
-the files. ``--multihost`` lets the grid span nodes. ``--pipeline_parallel``
-(pipeline-parallel DuoDiff) is refused.
+the files. ``--multihost`` lets the grid span nodes.
+
+``--pipeline_parallel`` (pipeline-parallel DuoDiff, the DuoDiff pair with
+``--t_switch``, plain DDPM) splits the N ranks into two stages
+(``parallel/mesh.py:pipeline_grid``): ranks [0, N // 2) hold only the first
+model and run the first ``t_switch`` steps, ranks [N // 2, 2 (N // 2)) only
+the late model and run the rest, and with an odd N the last rank waits. The
+batch streams through them in micro-batches of ``--pipeline_microbatch``
+(default ``batch_size // 4``), data-parallel within a stage
+(``diffusion/pipeline.py``); the samples are those of the one-process run.
+Rank 0, of the first stage, gathers the final rows from the second stage on
+the host, decodes a latent pair's samples with the autoencoder only it
+loads, and writes the files.
 """
 
 from __future__ import annotations
@@ -83,8 +94,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from duodiff_tpu_torch.config import load_autoencoder_config
+from duodiff_tpu_torch.config import load_autoencoder_config, load_model_config
 from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
+from duodiff_tpu_torch.diffusion.pipeline import DuoDiffPipeline
 from duodiff_tpu_torch.diffusion.sampling import (
     DDPMSampler,
     RowDraws,
@@ -98,7 +110,7 @@ from duodiff_tpu_torch.diffusion.sampling import (
     split_segments,
 )
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
-from duodiff_tpu_torch.parallel.mesh import close, sampling_grid
+from duodiff_tpu_torch.parallel.mesh import close, pipeline_grid, sampling_grid
 from duodiff_tpu_torch.utils.image import save_samples, to_uint8
 from duodiff_tpu_torch.utils.model_loading import load_autoencoder, load_model
 
@@ -191,7 +203,14 @@ def get_args(argv=None):
     parser.add_argument("--multihost", action="store_true",
                         help="Let the torch.distributed.run grid span nodes")
     parser.add_argument("--pipeline_parallel", action="store_true",
-                        help="Pipeline-parallel DuoDiff: not ported (refused)")
+                        help="Pipeline-parallel DuoDiff over the ranks of torch.distributed.run: "
+                             "the first half holds the first model and runs the first "
+                             "--t_switch steps, the second half the late model and the rest, "
+                             "the batch streaming through them in micro-batches (stage 1 of "
+                             "micro-batch i+1 overlaps stage 2 of i). Needs the DuoDiff pair, "
+                             "--t_switch and >= 2 ranks")
+    parser.add_argument("--pipeline_microbatch", type=int, default=None,
+                        help="Micro-batch size for --pipeline_parallel (default: batch_size / 4)")
     return parser.parse_args(argv)
 
 
@@ -202,9 +221,6 @@ def check_parallel_flags(args, attn_impl: str) -> None:
     mp = args.model_parallel or 1
     if mp < 1:
         raise SystemExit(f"--model_parallel must be >= 1, got {mp}")
-    if getattr(args, "pipeline_parallel", False):
-        raise SystemExit("--pipeline_parallel (pipeline-parallel DuoDiff on disjoint device "
-                         "groups) is not ported yet (ROADMAP queue 1, item 8)")
     if mp > 1 and attn_impl in ("fused_int8", "plain_int8"):
         raise SystemExit(f"--attn_impl {attn_impl} does not combine with --model_parallel: the "
                          "int8 kernels K11 / K12 have no tensor-parallel shard form")
@@ -257,6 +273,15 @@ def class_labels(args, num_classes: int, generator: torch.Generator):
 
 def check_flags(args, has_late: bool, cache_on: bool, steps: int) -> None:
     """The refusals of ``sampler.py``, in its order, and the port's own."""
+    if args.pipeline_parallel:
+        if not has_late or args.t_switch is None:
+            raise SystemExit("--pipeline_parallel needs the DuoDiff pair "
+                             "(--config_path_late/--checkpoint_path_late and --t_switch)")
+        if (args.model_parallel or 1) > 1:
+            raise SystemExit("--pipeline_parallel does not combine with --model_parallel")
+        if args.use_ddim or args.use_dpm_solver or args.timesteps_save:
+            raise SystemExit("--pipeline_parallel supports plain DDPM sampling (no "
+                             "--use_ddim/--use_dpm_solver/--timesteps_save)")
     if args.interleave_every is not None:
         if args.interleave_every < 1:
             raise SystemExit("--interleave_every must be >= 1")
@@ -264,17 +289,18 @@ def check_flags(args, has_late: bool, cache_on: bool, steps: int) -> None:
             raise SystemExit("--interleave_every needs the model pair "
                              "(--config_path_late/--checkpoint_path_late)")
         if (args.t_switch is not None or args.use_ddim or args.use_dpm_solver
-                or args.timesteps_save):
+                or args.pipeline_parallel or args.timesteps_save):
             raise SystemExit("--interleave_every supports plain DDPM sampling (no "
-                             "--t_switch/--use_ddim/--use_dpm_solver/--timesteps_save)")
+                             "--t_switch/--use_ddim/--use_dpm_solver/--pipeline_parallel/"
+                             "--timesteps_save)")
     if cache_on:
         if args.cache_every is not None and args.cache_every < 1:
             raise SystemExit("--cache_every must be >= 1")
-        if args.use_ddim or args.interleave_every is not None:
+        if args.use_ddim or args.pipeline_parallel or args.interleave_every is not None:
             raise SystemExit("--cache_every/--cache_schedule supports plain DDPM or "
                              "DPM-Solver sampling (single model, or the DuoDiff pair with "
                              "--t_switch: the full model's segment runs cached; no "
-                             "--use_ddim/--interleave_every)")
+                             "--use_ddim/--pipeline_parallel/--interleave_every)")
         if args.guidance_scale is not None:
             raise SystemExit("--cache_every/--cache_schedule does not support "
                              "--guidance_scale")
@@ -324,17 +350,18 @@ def check_flags(args, has_late: bool, cache_on: bool, steps: int) -> None:
                              f"{sorted(reachable)})")
 
 
-def latent_decoder(config_path, device, late_config_path=None):
+def latent_decoder(config_path, device, late_config_path=None, load: bool = True):
     """The decode of a latent-diffusion config's frozen autoencoder (bf16),
-    or None for a config without an ``autoencoder`` block. With a late
-    config (a DuoDiff pair) the first config's block decodes, and a pair of
-    which only one config is latent is refused."""
+    or None for a config without an ``autoencoder`` block (or with ``load``
+    false, after the checks). With a late config (a DuoDiff pair) the first
+    config's block decodes, and a pair of which only one config is latent
+    is refused."""
     ae_cfg = load_autoencoder_config(config_path)
     if late_config_path is not None and (
             (load_autoencoder_config(late_config_path) is None) != (ae_cfg is None)):
         raise SystemExit(f"one of {config_path} and {late_config_path} samples latents and "
                          "the other images: a DuoDiff pair must share its sample space")
-    if ae_cfg is None:
+    if ae_cfg is None or not load:
         return None
     autoencoder = load_autoencoder(ae_cfg.autoencoder_checkpoint_path, ae_cfg,
                                    dtype=torch.bfloat16, device=device)
@@ -380,11 +407,99 @@ def main(argv=None) -> dict:
         cache_rule = load_cache_schedule(args.cache_schedule, num_timesteps=steps)
     cache_on = cache_rule is not None
     check_flags(args, has_late, cache_on, steps)
+    if args.pipeline_parallel:
+        microbatch = args.pipeline_microbatch or max(1, args.batch_size // 4)
+        grid = pipeline_grid(args.batch_size, microbatch, args.device, args.multihost)
+        try:
+            return _sample_pipeline(args, grid, microbatch, steps, attn_impl)
+        finally:
+            close(grid)
     grid = sampling_grid(mp, args.batch_size, args.device, args.multihost)
     try:
         return _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl)
     finally:
         close(grid)
+
+
+def _load(args, grid, attn_impl, late: bool):
+    """The first (or the late) model of the CLI's flags, packed, in eval mode."""
+    config_path, checkpoint_path, seed, scales = (
+        (args.config_path_late or args.config_path, args.checkpoint_path_late, args.seed + 1,
+         args.int8_scales_late) if late else
+        (args.config_path, args.checkpoint_path, args.seed, args.int8_scales))
+    model, cfg = load_model(
+        config_path, None if args.random_init else checkpoint_path,
+        device=grid.device, seed=seed, attn_impl=attn_impl,
+        gelu_approx=args.gelu_approx, int8_scales=scales, use_ema=args.use_ema,
+        grid=grid,
+    )
+    model.pack_for_kernels()
+    return model.eval(), cfg
+
+
+def _guided(args, model, null_label):
+    if null_label is None:
+        return model
+    return make_guided_apply(model, args.guidance_scale, null_label)
+
+
+def _sample_pipeline(args, grid, microbatch: int, steps: int, attn_impl: str) -> dict:
+    """:func:`main` for ``--pipeline_parallel``: this rank's stage of the
+    pipeline (nothing on a waiting rank); rank 0 writes the files."""
+    device = grid.device
+    output_folder = Path(args.output_folder)
+    decode = latent_decoder(args.config_path, device, args.config_path_late, load=grid.is_main)
+    schedule = NoiseSchedule.create(steps=steps, device=device)
+    cfg = load_model_config(args.config_path)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    y, null_label = class_labels(args, cfg.num_classes, generator)
+    if cfg.num_classes > 0 and y is None:
+        raise SystemExit("a class-conditional model needs labels: pass --class_id "
+                         "(with or without --guidance_scale) or --fixed_class")
+    apply = None
+    if grid.active:
+        apply = _guided(args, _load(args, grid, attn_impl, late=grid.stage == 1)[0], null_label)
+    pipe = DuoDiffPipeline(apply, apply, schedule, t_switch=args.t_switch, grid=grid,
+                           parametrization=args.parametrization)
+    n_micro = args.batch_size // microbatch
+    shape = (microbatch, cfg.img_size, cfg.img_size, cfg.in_chans)
+    if grid.is_main:
+        output_folder.mkdir(parents=True, exist_ok=True)
+        print(f"Sampling {args.batch_size} images on {device} (ddpm pipelined over 2 stages of "
+              f"{grid.data} ranks, {n_micro} micro-batches of {microbatch}, t_switch "
+              f"{args.t_switch}, attn_impl={attn_impl})...")
+    with torch.inference_mode():
+        grid.barrier()  # every stage has its model
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        tic = time.perf_counter()
+        outs = pipe.sample(generator, shape, n_micro, None if y is None else y.split(microbatch))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        elapsed = time.perf_counter() - tic
+        if not grid.is_main:
+            return {"samples": None, "intermediates": {}, "seconds": elapsed,
+                    "decode_seconds": 0.0}
+        x, _, decode_seconds = decode_all(decode, torch.cat(outs).to(device), {}, device)
+        samples = ((x + 1.0) / 2.0).cpu().numpy()
+    return _write(output_folder, samples, {}, elapsed, decode, decode_seconds)
+
+
+def _write(output_folder: Path, samples, intermediates: dict, elapsed: float, decode,
+           decode_seconds: float) -> dict:
+    """Rank 0's files: ``samples.npy``, ``statistics.txt``, the PNGs; returns
+    :func:`main`'s result."""
+    np.save(output_folder / "samples.npy", to_uint8(samples))
+    with open(output_folder / "statistics.txt", "w") as f:
+        f.write(f"Elapsed time: {elapsed} s\n")
+    save_samples(samples, output_folder)
+    for s, inter in intermediates.items():
+        save_samples(inter, output_folder, timestep=s)
+    if decode is not None:
+        print(f"Decode time: {decode_seconds:.2f} s")
+    print(f"Elapsed time: {elapsed:.2f} s -> {output_folder}")
+    return {"samples": samples, "intermediates": intermediates, "seconds": elapsed,
+            "decode_seconds": decode_seconds}
 
 
 def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dict:
@@ -394,24 +509,12 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
     if grid.is_main:
         output_folder.mkdir(parents=True, exist_ok=True)
 
-    def load(config_path, checkpoint_path, seed, int8_scales):
-        model, cfg = load_model(
-            config_path, None if args.random_init else checkpoint_path,
-            device=device, seed=seed, attn_impl=attn_impl,
-            gelu_approx=args.gelu_approx, int8_scales=int8_scales, use_ema=args.use_ema,
-            grid=grid,
-        )
-        model.pack_for_kernels()
-        return model.eval(), cfg
-
     decode = latent_decoder(args.config_path, device,
                             args.config_path_late if has_late else None)
     schedule = NoiseSchedule.create(steps=steps, device=device)
 
     def guided(model):
-        if null_label is None:
-            return model
-        return make_guided_apply(model, args.guidance_scale, null_label)
+        return _guided(args, model, null_label)
 
     def dense_sampler(model):
         return DDPMSampler(guided(model), schedule, parametrization=args.parametrization)
@@ -440,7 +543,7 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
         return DDPMSampler(apply, schedule, parametrization=args.parametrization,
                            init_state_fn=init_state)
 
-    model, cfg = load(args.config_path, args.checkpoint_path, args.seed, args.int8_scales)
+    model, cfg = _load(args, grid, attn_impl, late=False)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     y, null_label = class_labels(args, cfg.num_classes, generator)
     if cfg.num_classes > 0 and y is None:
@@ -453,9 +556,7 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
         generator = RowDraws(generator, rows)
     late = None
     if has_late:
-        late, late_cfg = load(args.config_path_late or args.config_path,
-                              args.checkpoint_path_late, args.seed + 1,
-                              args.int8_scales_late)
+        late, late_cfg = _load(args, grid, attn_impl, late=True)
     shape = (rows[1] - rows[0], cfg.img_size, cfg.img_size, cfg.in_chans)
 
     if args.interleave_every is not None:
@@ -539,21 +640,10 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
         samples = grid.gather_rows(((x + 1.0) / 2.0).cpu()).numpy()
         intermediates = {s: grid.gather_rows(((v + 1.0) / 2.0).cpu()).numpy()
                          for s, v in kept.items()}
-    result = {"samples": samples, "intermediates": intermediates, "seconds": elapsed,
-              "decode_seconds": decode_seconds}
     if not grid.is_main:
-        return result
-
-    np.save(output_folder / "samples.npy", to_uint8(samples))
-    with open(output_folder / "statistics.txt", "w") as f:
-        f.write(f"Elapsed time: {elapsed} s\n")
-    save_samples(samples, output_folder)
-    for s, inter in intermediates.items():
-        save_samples(inter, output_folder, timestep=s)
-    if decode is not None:
-        print(f"Decode time: {decode_seconds:.2f} s")
-    print(f"Elapsed time: {elapsed:.2f} s -> {output_folder}")
-    return result
+        return {"samples": samples, "intermediates": intermediates, "seconds": elapsed,
+                "decode_seconds": decode_seconds}
+    return _write(output_folder, samples, intermediates, elapsed, decode, decode_seconds)
 
 
 if __name__ == "__main__":

@@ -34,10 +34,30 @@ images for a seed are not these.
 defaults to DPM-Solver++ 20 steps, whose samples score far from DDPM's).
 ``--device`` defaults to ``cuda`` and ``--attn_impl`` to ``fused`` there
 (``plain`` on the CPU); there is no fallback to the CPU. Refused:
-``--model_parallel`` above 1 (multi-GPU serving is not ported) and
 ``--int8_scales`` with ``--static_schedule`` (the truncated backbones run
 int8 with dynamic MLP scales). A latent config's samples are decoded by its
 frozen autoencoder before the PNG is written (``utils/image.py``'s writer).
+
+Under ``python -m torch.distributed.run --nproc_per_node N`` every rank runs
+``main`` on the process grid of ``parallel/mesh.py:sampling_grid`` (the
+bucket, or the slots, as its batch): ``--model_parallel M`` shards every
+block's heads and hidden columns over groups of M ranks (``fused`` only),
+and the bucket or the slots split over the N / M data ranks where they
+divide them, else every rank runs them whole. Rank 0 alone binds
+``--port`` and answers HTTP; the others build the same service and follow.
+One thread a rank issues the grid's collectives, in one order: the request
+lock's holder (bucket) or the device-loop thread (slots). Rank 0 broadcasts
+each unit of work over the host, a bucket chunk's image seed and labels or
+a slot round's admissions and advance, and a stop when it closes. A chunk's
+generator draws the whole chunk and each data rank keeps its rows
+(``diffusion/sampling.py:RowDraws``); a slot lives on one data rank
+(``diffusion/continuous.py``); rank 0 gathers the images on the host, so
+they are the one-process server's (within 2 pixel levels under
+``--model_parallel``, whose sums run in another order). Every collective
+fails after ``parallel/mesh.py:SERVE_TIMEOUT``: a rank that dies or hangs
+fails the request with 503, and the server then answers 503 with status
+``stopped``. The static-exit family serves on rank 0's device alone, and
+``--model_parallel`` with ``--static_schedule`` is refused.
 """
 
 from __future__ import annotations
@@ -86,8 +106,9 @@ def get_args(argv=None):
                    help="tools/calibrate_int8.py JSON: static MLP activation scales for "
                         "--attn_impl fused_int8")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel degree; above 1 is refused (multi-GPU serving is "
-                        "not ported)")
+                   help="tensor-parallel degree over the ranks of torch.distributed.run: shard "
+                        "the heads and the MLP hidden columns over groups of this many ranks; "
+                        "the other ranks form the data axis the bucket or the slots split over")
     p.add_argument("--warmup", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--slots", type=int, default=0,
                    help="mixed-timestep continuous batching with this many slots (0 = "
@@ -132,21 +153,14 @@ class _ServiceBase:
 
     def __init__(self, args):
         from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
-        from duodiff_tpu_torch.sample import latent_decoder
+        from duodiff_tpu_torch.parallel.mesh import SERVE_TIMEOUT, sampling_grid
+        from duodiff_tpu_torch.sample import check_parallel_flags, latent_decoder
         from duodiff_tpu_torch.utils.model_loading import load_model
 
-        device = torch.device(args.device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise SystemExit(f"--device {args.device}: no CUDA device is available")
-            if device.index is None:  # the device-loop thread sets it by index
-                device = torch.device("cuda", torch.cuda.current_device())
+        if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+            raise SystemExit(f"--device {args.device}: no CUDA device is available")
         if not args.random_init and args.checkpoint_path is None:
             raise SystemExit("--checkpoint_path is required (or pass --random_init)")
-        if (args.model_parallel or 1) > 1:
-            raise SystemExit(f"--model_parallel {args.model_parallel} needs multi-GPU serving "
-                             "(rank 0 broadcasting each request to the model group), which is "
-                             "not ported: serve on one GPU")
         self.static_buckets = None
         if args.static_schedule:
             if args.method != "ddpm":
@@ -166,14 +180,28 @@ class _ServiceBase:
             from duodiff_tpu_torch.diffusion.static_exit import parse_exit_schedule
 
             self.static_buckets = parse_exit_schedule(args.static_schedule)
+        mp = args.model_parallel or 1
+        if mp > 1 and self.static_buckets is not None:
+            raise SystemExit("--model_parallel does not combine with --static_schedule (each "
+                             "truncated bucket would need its own sharded backbone): serve the "
+                             "static-exit family without --model_parallel")
+        attn_impl = args.attn_impl or ("fused" if args.device.startswith("cuda") or mp > 1
+                                       else "plain")
+        check_parallel_flags(args, attn_impl)
 
+        # the static-exit family serves on rank 0's device alone
+        self.grid = sampling_grid(mp, args.slots or args.bucket, args.device,
+                                  split=self.static_buckets is None, timeout=SERVE_TIMEOUT)
+        self._failure = None  # the error that stopped the service, once one did
+        device = self.grid.device
+        if device.type == "cuda" and device.index is None:  # the device-loop thread sets it
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
-        attn_impl = args.attn_impl or ("fused" if device.type == "cuda" else "plain")
         model, cfg = load_model(
             args.config_path, None if args.random_init else args.checkpoint_path,
             device=device, attn_impl=attn_impl, gelu_approx=args.gelu_approx,
             int8_scales=args.int8_scales, use_ema=args.use_ema,
-            early_exit=self.static_buckets is not None,
+            early_exit=self.static_buckets is not None, grid=self.grid,
         )
         model.eval().pack_for_kernels()
         self.model, self.cfg, self.args = model, cfg, args
@@ -320,14 +348,39 @@ class _ServiceBase:
         self.sample(n=1, seed=0, class_id=0 if self.guidance_null is not None else None)
         return time.time() - tic
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the batch or the model is split over the grid's ranks."""
+        return self.grid.distributed and not self.grid.replicated
+
+    @property
+    def healthy(self) -> bool:
+        return self._failure is None
+
+    def follow(self):
+        """A follower rank's loop: do each unit of work rank 0 broadcasts, in
+        order, until its stop (None)."""
+        try:
+            with torch.inference_mode():
+                self._in_device_context()
+                self._follow()
+        except BaseException as e:
+            self._failure = e
+            raise
+
     def info(self):
         cuda = self.device.type == "cuda"
+        grid = self.grid
+        stopped = {}
+        if self._failure is not None:
+            stopped = {"status": "stopped", "error": repr(self._failure)}
         return {
             "status": "ok",
+            **stopped,
             "card": torch.cuda.get_device_name(self.device) if cuda else "cpu",
             "devices": torch.cuda.device_count() if cuda else 1,
-            "mesh": None,
-            "model_parallel": 1,
+            "mesh": {"data": grid.data, "model": grid.model} if self.sharded else None,
+            "model_parallel": grid.model,
             "attn_impl": self.attn_impl,
             "method": self.method,
             "steps": self.steps,
@@ -345,7 +398,8 @@ class _ServiceBase:
 class SamplerService(_ServiceBase):
     """Fixed-bucket serving: one bucket-sized sampler and a lock. Requests
     are padded/chunked onto the bucket and run whole trajectories back to
-    back, one generator a chunk."""
+    back, one generator a chunk; on a data-parallel grid each rank runs its
+    rows of the chunk."""
 
     def __init__(self, args):
         super().__init__(args)
@@ -358,7 +412,8 @@ class SamplerService(_ServiceBase):
 
         cfg, schedule, apply_fn, cache = self.cfg, self.schedule, self.apply_fn, self.cache
         self.bucket = args.bucket
-        self.shape = (args.bucket, cfg.img_size, cfg.img_size, cfg.in_chans)
+        self.rows = self.grid.rows(args.bucket)  # this rank's rows of a chunk
+        self.shape = (self.rows[1] - self.rows[0], cfg.img_size, cfg.img_size, cfg.in_chans)
         self.lock = threading.Lock()
 
         if self.static_buckets is not None:
@@ -395,6 +450,43 @@ class SamplerService(_ServiceBase):
 
             self._run = run_ddpm
 
+    def _chunk(self, gen_seed: int, y):
+        """One chunk on this rank: its rows of the chunk's draws from the
+        generator seeded ``gen_seed``, the labels ``y`` (bucket,) or None;
+        the whole chunk's images (bucket, H, W, C) in [0, 1], gathered from
+        the data ranks on the host."""
+        from duodiff_tpu_torch.diffusion.sampling import RowDraws
+
+        lo, hi, _ = self.rows
+        g = torch.Generator(device=self.device).manual_seed(gen_seed)
+        if self.sharded:
+            g = RowDraws(g, self.rows)
+        if y is not None:
+            y = y[lo:hi].to(self.device)
+        x = self._run(g, y)
+        if self.decode_fn is not None:
+            x = self.decode_fn(x)
+        return self.grid.gather_rows(((x + 1.0) / 2.0).float().cpu()).numpy()
+
+    def _lead(self, gen_seed: int, y):
+        """Rank 0's chunk: on a grid, broadcast it to the followers first;
+        a failure there stops the service (the ranks are out of step)."""
+        if not self.grid.distributed or self.static_buckets is not None:
+            return self._chunk(gen_seed, y)
+        if self._failure is None:
+            try:
+                self.grid.broadcast_obj((gen_seed, y))
+                return self._chunk(gen_seed, y)
+            except Exception as e:  # noqa: BLE001 — a collective or a rank's work failed
+                self._failure = e
+        # the handler answers 503: the server's state, not the request, is at fault
+        raise RuntimeError(f"server is stopped: a rank of the serving grid failed: "
+                           f"{self._failure!r}")
+
+    def _follow(self):
+        while (unit := self.grid.broadcast_obj()) is not None:
+            self._chunk(*unit)
+
     def sample(self, n=1, seed=None, class_id=None):
         if seed is None:
             seed = int(time.time_ns()) % (2**31)
@@ -402,15 +494,9 @@ class SamplerService(_ServiceBase):
         imgs = []
         with self.lock, torch.inference_mode():
             self._in_device_context()
-            if y is not None:
-                y = y.to(self.device)
             done = 0
             while done < n:
-                g = torch.Generator(device=self.device).manual_seed(image_seed(seed, done))
-                x = self._run(g, y)
-                if self.decode_fn is not None:
-                    x = self.decode_fn(x)
-                batch = ((x + 1.0) / 2.0).float().cpu().numpy()
+                batch = self._lead(image_seed(seed, done), y)
                 take = min(self.bucket, n - done)
                 imgs.extend(batch[:take])
                 done += take
@@ -420,13 +506,25 @@ class SamplerService(_ServiceBase):
     def info(self):
         return {**super().info(), "mode": "bucket", "bucket": self.bucket}
 
+    def close(self):
+        """Rank 0 of a grid: the followers' stop."""
+        if not (self.grid.is_main and self.grid.distributed):
+            return
+        with self.lock:
+            if self._failure is None:
+                try:
+                    self.grid.broadcast_obj(None)
+                except RuntimeError as e:  # a follower already gone
+                    self._failure = e
+
 
 class ContinuousSamplerService(_ServiceBase):
     """Mixed-timestep continuous batching: a device-loop thread advances
     every image in flight one shared step at a time; HTTP threads enqueue
     images and wait on futures. A request's images equal the bucket-1
     server's for the same seed where the model's rows do not depend on the
-    batch."""
+    batch. On a grid rank 0's device loop broadcasts each round, which the
+    followers' loops (:meth:`follow`) repeat on their slots."""
 
     def __init__(self, args):
         super().__init__(args)
@@ -441,15 +539,49 @@ class ContinuousSamplerService(_ServiceBase):
                 slots=args.slots, method=self.method, parametrization=args.parametrization,
                 ddim_steps=self.steps, dpm_steps=self.steps,
                 steps_per_poll=args.steps_per_poll, conditional=cfg.num_classes > 0,
-                cache=self.cache,
+                cache=self.cache, mesh=self.grid if self.sharded else None,
             )
         self._cv = threading.Condition()
         self._queue = collections.deque()  # (generator seed, label or None, future)
         self._slot_jobs = {}  # slot -> future (device-loop thread only)
         self._stopped = False
-        self._failure = None  # the device loop's escaped error, once it died
-        self._thread = threading.Thread(target=self._device_loop, daemon=True)
-        self._thread.start()
+        self._thread = None
+        if self.grid.is_main:
+            self._thread = threading.Thread(target=self._device_loop, daemon=True)
+            self._thread.start()
+
+    def _round(self, wave: dict, advance: bool, deferred):
+        """One round of the device loop, the same on every rank: admit
+        ``wave`` ({slot: (generator seed, label or None)}), advance if asked,
+        deliver the last round's finished images (rank 0), start fetching
+        this round's. Returns this round's (futures, materialize) or None."""
+        batcher = self.batcher
+        batcher.admit_many({
+            slot: (torch.Generator(device=self.device).manual_seed(gen_seed), y)
+            for slot, (gen_seed, y) in wave.items()})
+        if advance:
+            batcher.advance()
+        if deferred is not None:
+            for fut, img in zip(deferred[0], deferred[1]()):
+                if fut is not None:
+                    fut.set_result(img)
+        done = batcher.finished()
+        if not done:
+            return None
+        futs = [self._slot_jobs.pop(slot, None) for slot in done]
+        return futs, batcher.begin_finish(done, self.decode_fn)
+
+    def _tell(self, unit) -> None:
+        """Rank 0: broadcast a round, or the stop (None), to the followers."""
+        if self.grid.distributed:
+            self.grid.broadcast_obj(unit)
+
+    def _follow(self):
+        deferred = None
+        while (unit := self.grid.broadcast_obj()) is not None:
+            deferred = self._round(*unit, deferred)
+        if deferred is not None:
+            deferred[1]()
 
     def _device_loop(self):
         """The only thread that runs the model. One round: admit free slots
@@ -458,7 +590,8 @@ class ContinuousSamplerService(_ServiceBase):
         device to learn who finished; the one blocking transfer, the
         finished images, is deferred a round: ``begin_finish`` gathers them,
         starts the copy and frees the slots, the next round admits and
-        queues its advance, and only then does ``materialize()`` wait."""
+        queues its advance, and only then does ``materialize()`` wait (on a
+        data-parallel grid ``begin_finish`` waits for the gather itself)."""
         batcher = self.batcher
         deferred = None  # (futures, materialize) of the last round
         try:
@@ -474,6 +607,7 @@ class ContinuousSamplerService(_ServiceBase):
                                 for fut, img in zip(deferred[0], deferred[1]()):
                                     fut.set_result(img)
                                 deferred = None
+                            self._tell(None)
                             # fail (never silently abandon) queued requests and
                             # slots mid-trajectory: the HTTP handler maps the
                             # RuntimeError to 503
@@ -492,23 +626,13 @@ class ContinuousSamplerService(_ServiceBase):
                                 if not self._queue:
                                     break
                                 gen_seed, y, fut = self._queue.popleft()
-                                g = torch.Generator(device=self.device).manual_seed(gen_seed)
-                                wave[slot] = (g, y)
+                                wave[slot] = (gen_seed, y)
                                 self._slot_jobs[slot] = fut
-                        batcher.admit_many(wave)
                         # held requests (no free slot, or a phase-blocked
                         # admission) need the advance below to make progress
-                        queued = bool(self._queue)
-                    if self._slot_jobs or queued:
-                        batcher.advance()
-                    if deferred is not None:
-                        for fut, img in zip(deferred[0], deferred[1]()):
-                            fut.set_result(img)
-                        deferred = None
-                    done = batcher.finished()
-                    if done:
-                        futs = [self._slot_jobs.pop(slot) for slot in done]
-                        deferred = (futs, batcher.begin_finish(done, self.decode_fn))
+                        advance = bool(self._slot_jobs or self._queue)
+                    self._tell((wave, advance))
+                    deferred = self._round(wave, advance, deferred)
         except BaseException as e:  # noqa: BLE001 — the sole device thread:
             # an escaped error must fail every waiter, or they block in
             # fut.result() for an hour
@@ -568,7 +692,8 @@ class ContinuousSamplerService(_ServiceBase):
         with self._cv:
             self._stopped = True
             self._cv.notify_all()
-        self._thread.join(timeout=60)
+        if self._thread is not None:
+            self._thread.join(timeout=60)
 
 
 def png_b64(img) -> str:
@@ -644,17 +769,29 @@ def make_service(args):
 
 
 def main(argv=None, *, ready_event=None, server_box=None):
+    """Serve until interrupted (or ``server_box``'s server is shut down);
+    a follower rank of a grid follows rank 0 until its stop."""
+    from duodiff_tpu_torch.parallel.mesh import close
+
     args = get_args(argv)
     service = make_service(args)
-    mode = f"{args.slots}-slot continuous" if args.slots > 0 else f"bucket-{args.bucket}"
     try:
-        if args.warmup:
-            dt = service.warmup()
-            print(f"warmup: first {service.method}-{service.steps} {mode} sample in {dt:.1f}s")
-        httpd = ThreadingHTTPServer((args.host, args.port), make_handler(service))
-    except BaseException:
+        if service.grid.is_main:
+            _serve(args, service, ready_event, server_box)
+        else:
+            service.follow()
+    finally:
         service.close()
-        raise
+        close(service.grid, barrier=service.healthy)
+
+
+def _serve(args, service, ready_event, server_box):
+    """Rank 0: the warmup, then HTTP on ``--port``."""
+    mode = f"{args.slots}-slot continuous" if args.slots > 0 else f"bucket-{args.bucket}"
+    if args.warmup:
+        dt = service.warmup()
+        print(f"warmup: first {service.method}-{service.steps} {mode} sample in {dt:.1f}s")
+    httpd = ThreadingHTTPServer((args.host, args.port), make_handler(service))
     if server_box is not None:
         server_box.append((httpd, service))
     print(f"serving on http://{args.host}:{httpd.server_address[1]} ({service.info()})",
@@ -667,7 +804,6 @@ def main(argv=None, *, ready_event=None, server_box=None):
         pass
     finally:
         httpd.server_close()
-        service.close()
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ split a step), so the port consumes exactly what the JAX batcher drew.
 Tolerance 1e-4 (rtol and atol) in fp32, the sampler bound of
 ``tests/test_torch_sampling.py``. Against the port's bucket-1 sequential
 samplers on the same ``torch.Generator`` (x_T, then a draw for each DDPM t
-> 0 / DDIM s > 0): equal to the bit."""
+> 0 / DDIM s > 0): equal to the bit. Over a grid's data ranks the slots
+must divide them; the batcher on two ranks is held through the server by
+``tests/test_torch_serve_grid.py``."""
 
 import dataclasses
 
@@ -29,6 +31,7 @@ from duodiff_tpu_torch.diffusion import continuous, sampling
 from duodiff_tpu_torch.diffusion.continuous import ContinuousDiffusionBatcher, TableNoise
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.models.uvit import UViT
+from duodiff_tpu_torch.parallel.mesh import Grid
 from duodiff_tpu_torch.utils.convert import uvit_state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -257,10 +260,16 @@ def test_host_mirror_agrees_with_device():
 
 
 def test_a_mesh_is_refused():
-    """The JAX batcher shards its slots over a mesh; multi-GPU serving is not ported."""
-    with pytest.raises(ValueError, match="multi-GPU"):
+    """Over a grid's data ranks the slots must divide them (JAX's message);
+    a grid that runs the batch whole on every rank splits nothing."""
+    with pytest.raises(ValueError, match=r"slots \(8\) must be divisible by the mesh's 3 data "
+                                         "shards"):
         ContinuousDiffusionBatcher(stub_apply, NoiseSchedule.create(steps=10), img_shape=IMG,
-                                   slots=8, mesh=object())
+                                   slots=8, mesh=Grid(world=3, data=3))
+    whole = ContinuousDiffusionBatcher(stub_apply, NoiseSchedule.create(steps=10),
+                                       img_shape=IMG, slots=8,
+                                       mesh=Grid(world=3, data=3, replicated=True))
+    assert whole.mesh is None and whole.x.shape[0] == 8
 
 
 def test_admit_many_finish_many_match_per_slot():

@@ -20,7 +20,7 @@ data, against their one-process runs:
   ``test_sampler_cli_tensor_parallel``); ``eesample --model_parallel 2``
   writes finite diagnostics;
 - the refusals: int8 or an unfused block with tensor parallelism,
-  ``--pipeline_parallel``, the dynamic-threshold route only for
+  ``--pipeline_parallel`` with ``--model_parallel``, the dynamic-threshold route only for
   ``eesample``'s tensor parallelism, a partial torchrun environment, a grid
   that does not fit, a batch that does not divide the data shards.
 """
@@ -210,8 +210,10 @@ def test_refusals(files, tmp_path, monkeypatch, case):
         "train_plain_tp": (lambda: train.main(_train_argv(files, "x", 2, "--attn_impl", "plain",
                                                           "--model_parallel", "2")),
                            "only fused has a tensor-parallel form"),
-        "sample_pipeline": (lambda: sample.main(_sample_argv(files, out, "--pipeline_parallel")),
-                            "--pipeline_parallel .* is not ported"),
+        "sample_pipeline": (lambda: sample.main(_sample_argv(
+            files, out, "--config_path_late", files["config"], "--t_switch", "4",
+            "--pipeline_parallel", "--model_parallel", "2")),
+            "--pipeline_parallel does not combine with --model_parallel"),
         "eesample_int8_tp": (lambda: eesample.main([*ee, "--attn_impl", "fused_int8",
                                                     "--model_parallel", "2"]),
                              "fused_int8 does not combine with --model_parallel"),

@@ -9,8 +9,9 @@ pattern and a periodic table), a device-loop failure answered with 503.
 The port's own differences from the JAX server are held here too: the
 ``ddpm`` default, one ``torch.Generator`` an image seeded ``image_seed(seed,
 j)`` in place of threefry keys, the labels' CPU generator ``seed ^ 0x5EED``,
-and the refusals of ``--model_parallel`` > 1 and of int8 scales with
-``--static_schedule``."""
+and the refusals of ``--model_parallel`` with ``--static_schedule`` and of
+int8 scales with ``--static_schedule``. Serving over the process grid is
+held by tests/test_torch_serve_grid.py."""
 
 import base64
 import json
@@ -197,7 +198,8 @@ def test_ddpm_steps_contract(cfg):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model_parallel", "2"], "multi-GPU"),
+    (["--model_parallel", "2", "--static_schedule", "31-0:3"],
+     "--model_parallel does not combine with --static_schedule"),
     (["--static_schedule", "31-0:3", "--attn_impl", "fused_int8", "--int8_scales", "s.json"],
      "dynamic MLP scales"),
     (["--cache_every", "2", "--cache_pattern", "1,0"], "ONE of"),

@@ -1,11 +1,14 @@
 """The torch.distributed worlds of the port's tests: ``run_world`` starts
 the ranks of a world of gloo processes on the CPU (the torchrun environment
 set by hand, the ranks meeting through a file, so that no two test workers
-contend for a port), and this file run as a script is a rank of the
-tensor-parallel checks of tests/test_torch_tp.py. Nothing here imports JAX:
-a rank is a plain PyTorch process.
+contend for a port) and waits for them, ``start_world`` only starts them;
+this file run as a script is a rank of the tensor-parallel checks of
+tests/test_torch_tp.py, or with ``pipeline`` first of the pipeline checks of
+tests/test_torch_pipeline.py. Nothing here imports JAX: a rank is a plain
+PyTorch process.
 
     python tests/torch_dist_worker.py INPUTS.pth MODEL_PARALLEL OUT.pth
+    python tests/torch_dist_worker.py pipeline INPUTS.pth OUT_DIR
 """
 
 from __future__ import annotations
@@ -20,32 +23,47 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 
-def run_world(n: int, argv: list, tmp_path, timeout: float = 120, env: dict | None = None):
-    """``python *argv`` as the ``n`` ranks of one world; returns (their exit
-    codes, their outputs). A world still running after ``timeout`` seconds
-    is killed and fails the test, where a hung collective would otherwise
-    hang the run."""
-    init = Path(tmp_path) / f"init_{uuid.uuid4().hex}"
+def start_world(n: int, argv: list, tmp_path, env: dict | None = None) -> list:
+    """Start ``python *argv`` as the ``n`` ranks of one world; returns
+    (process, path of its output) of each rank."""
+    tag = uuid.uuid4().hex
+    init = Path(tmp_path) / f"init_{tag}"
     base = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT")}
-    procs = []
+    ranks = []
     for rank in range(n):
         rank_env = dict(base, RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
                         LOCAL_WORLD_SIZE=str(n), DUODIFF_INIT_METHOD=f"file://{init}",
                         OMP_NUM_THREADS="1", PYTHONPATH=str(REPO), **(env or {}))
-        procs.append(subprocess.Popen([sys.executable, *argv], env=rank_env, cwd=REPO,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        log = Path(tmp_path) / f"rank{rank}_{tag}.log"
+        with open(log, "w") as f:
+            ranks.append((subprocess.Popen([sys.executable, *argv], env=rank_env, cwd=REPO,
+                                           stdout=f, stderr=subprocess.STDOUT), log))
+    return ranks
+
+
+def wait_world(ranks: list, timeout: float, what: str) -> tuple:
+    """Wait for the ranks of :func:`start_world`; returns (their exit codes,
+    their outputs). A world still running after ``timeout`` seconds is
+    killed and fails the test, where a hung collective would otherwise hang
+    the run."""
     deadline = time.monotonic() + timeout
-    outs = []
     try:
-        for proc in procs:
-            outs.append(proc.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        for proc, _ in ranks:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
-        for proc in procs:
+        for proc, _ in ranks:
             proc.kill()
-        for proc in procs:
-            proc.communicate()
-        raise AssertionError(f"a world of {n} ranks ({argv}) did not end within {timeout} s")
-    return [proc.returncode for proc in procs], outs
+            proc.wait()
+        raise AssertionError(f"{what} did not end within {timeout} s:\n" + "\n".join(
+            log.read_text()[-3000:] for _, log in ranks))
+    return [proc.returncode for proc, _ in ranks], [log.read_text() for _, log in ranks]
+
+
+def run_world(n: int, argv: list, tmp_path, timeout: float = 120, env: dict | None = None):
+    """``python *argv`` as the ``n`` ranks of one world; returns (their exit
+    codes, their outputs)."""
+    return wait_world(start_world(n, argv, tmp_path, env), timeout,
+                      f"a world of {n} ranks ({argv})")
 
 
 def _sublayer(grid, data, which: str) -> dict:
@@ -127,6 +145,68 @@ def _uvit(grid, data) -> dict:
     return out
 
 
+def pipeline(inputs: str, out: str) -> None:
+    """A rank of a pipeline world: each job of INPUTS through
+    ``DuoDiffPipeline`` on the pipeline grid, on the CPU. Rank 0 saves each
+    job's gathered batches; every rank writes its place in the grid and the
+    monotonic clock at the end of each micro-batch of its stage (A: its last
+    model call; B: the yield) to ``OUT_DIR/rank{R}.pth``."""
+    import torch
+
+    from duodiff_tpu_torch.config import UViTConfig
+    from duodiff_tpu_torch.diffusion.pipeline import DuoDiffPipeline
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.models.uvit import UViT
+    from duodiff_tpu_torch.parallel.mesh import close, pipeline_grid
+
+    torch.set_num_threads(1)
+    data = torch.load(inputs, weights_only=False)
+    batch, mb, steps = data["batch"], data["microbatch"], data["steps"]
+    grid = pipeline_grid(batch, mb, "cpu")
+    record = {"rank": grid.rank, "stage": grid.stage, "replicated": grid.replicated,
+              "peer": grid.peer if grid.active else None, "ends": {}}
+    gathered = {}
+    try:
+        model = None
+        if grid.active:
+            which = ("shallow", "full")[grid.stage]
+            model = UViT(UViTConfig(**data[f"{which}_config"]), dtype=torch.float32,
+                         attn_impl="fused")
+            model.load_state_dict(data[which])
+            model.eval().pack_for_kernels()
+        shape = (mb, *data["img"])
+        for job in data["jobs"]:
+            name, t_switch = job["name"], job["t_switch"]
+            calls = []
+
+            def apply(x, t, y, sleep=job.get("sleep", 0.0)):
+                if grid.stage == 1 and t_switch == steps:
+                    raise AssertionError("the full model ran with t_switch == steps")
+                out = model(x, t, y)
+                time.sleep(sleep)
+                calls.append(time.monotonic())
+                return out
+
+            pipe = DuoDiffPipeline(apply, apply, NoiseSchedule.create(steps=steps),
+                                   t_switch=t_switch, grid=grid, noise_table=job.get("table"))
+            generator = torch.Generator().manual_seed(data["seed"])
+            ends = []
+            with torch.no_grad():
+                outs = []
+                for out_rows in pipe.sample_stream(generator, shape, batch // mb):
+                    ends.append(time.monotonic())
+                    outs.append(out_rows)
+                if grid.stage == 0:  # stage 1 of micro-batch i ends at its last model call
+                    ends = calls[t_switch - 1::t_switch]
+                record["ends"][name] = ends
+                gathered[name] = pipe.gather(outs, shape)
+    finally:
+        close(grid)
+    torch.save(record, Path(out) / f"rank{grid.rank}.pth")
+    if grid.is_main:
+        torch.save(gathered, Path(out) / "samples.pth")
+
+
 def main(inputs: str, model_parallel: str, out: str) -> None:
     import torch
 
@@ -145,4 +225,7 @@ def main(inputs: str, model_parallel: str, out: str) -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:4])
+    if sys.argv[1] == "pipeline":
+        pipeline(*sys.argv[2:4])
+    else:
+        main(*sys.argv[1:4])
