@@ -185,9 +185,22 @@ printing its results on its own lines:
    within 2 % of (b)'s, its checkpoint held as (b)'s; (d) after each, the
    sampling CLI so, DuoDiff DDPM over 10 steps at batch 128,
    tensor-parallel within the trajectory gate of the one-process run and
-   data-parallel equal to it to the bit. The ranks are this script
-   in its ``--worker`` mode. Phase 16's launches are added to the records of
-   K1, K2, K6 and K7 and make those of their shard forms.
+   data-parallel equal to it to the bit; in the same launch (e) the same
+   training with ``--fsdp`` over the two data ranks, its losses within 2e-4
+   of (c)'s, its checkpoint held as (b)'s, each rank's parameter + AdamW
+   bytes and peak allocation and one counted step's collectives beside (c)'s;
+   (f) ``configs/uvit_imagenet64.yaml --attn_impl pallas --model_parallel
+   2`` (D = 768, the unfused block on 6 of 12 heads a rank), 12 steps at
+   batch 32 on a synthetic ImageNet-64 cache (17 K9 and 17 K10 a rank a
+   step, the loss falling), then guided DuoDiff of the ImageNet-64 pair, 10
+   steps at batch 8, within the trajectory gate of a one-process run; (g)
+   ``eesample --model_parallel 2`` on ``configs/deediff_celeba.yaml`` (the
+   heads' decoder sharded), 10 steps at batch 32, its samples, the probes'
+   summed means and the exit indices against one process. (a) also holds K9
+   and K10 on a rank's heads, (128, 6, 258) and (128, 3, 258), to phase 2's
+   gates, timed beside their bounds. The ranks are this script in its
+   ``--worker`` mode. Phase 16's launches are added to the records of K1, K2,
+   K6, K7, K9 and K10 and make those of the shard forms.
 17. the measuring tools and the last one-GPU leftovers, each through its
    entry point at batch 128 with exact launch counts: (a)
    ``duodiff_tpu_torch.tools.microbench`` fwd, kernels and train (the
@@ -5308,6 +5321,13 @@ TP_LR, TP_WARMUP = "1e-3", "5"
 TP_FORWARD_BATCH = 8       # 16b: the run's own forward against the checkpoint's
 TP_SAMPLE_STEPS, TP_SAMPLE_SWITCH = 10, 3   # 16d: DuoDiff, depth 3 for 3 steps, then 13
 TP_TIMEOUT = 600           # seconds a torchrun launch may take
+# 16a: K9 / K10 on a rank's heads: ImageNet-64's 12 heads over 2 and 4 ranks
+HEAD_SHARDS = ((6, "_h6"), (3, "_h3"))
+FSDP_RTOL = 2e-4           # 16e: --fsdp's losses against 16c's data-parallel ones
+FSDP_MIN_SIZE = 16384      # 16e: --fsdp_min_size, train.py's default
+UNFUSED_TP_BATCH, UNFUSED_TP_STEPS = 32, 12  # 16f: ImageNet-64, --attn_impl pallas --model_parallel 2
+UNFUSED_TP_SAMPLE = (8, 10, 3)  # 16f: guided DuoDiff batch (forwards at 16), steps, t_switch
+EE_TP_BATCH, EE_TP_STEPS = 32, 10   # 16g: eesample --model_parallel 2 on deediff_celeba.yaml
 
 
 def shard_bounds(width: Width, mp: int, batch: int = MAIN_BATCH) -> dict:
@@ -5461,6 +5481,42 @@ def check_shard_kernels(device, results: dict) -> None:
         release_memory()
 
 
+def check_head_shard_attention(device, results: dict) -> None:
+    """16a: K9 and K10 on a rank's heads of ImageNet-64 (batch 128, L = 258,
+    6 and 3 of its 12 heads: D = 768 over 2 and 4 ranks) against their plain
+    versions, by phase 2's gates (K9 1 % relative Frobenius and 2^-7 of the
+    largest value; K10 1 % an output and equal bits on a repeat call), timed
+    beside the whole-head call's phase-2 times and their bounds."""
+    from duodiff_tpu_torch.ops import flash_attention as fa
+
+    b, l = MAIN_BATCH, IMAGENET.l
+    for h, suffix in HEAD_SHARDS:
+        g = torch.Generator().manual_seed(h)
+        q, k, v, do = (torch.randn((b, h, l, 64), generator=g).to(torch.bfloat16).to(device)
+                       for _ in range(4))
+        label = (f"B={b} H={h} L={l} (a rank's heads, {IMAGENET.heads} over "
+                 f"{IMAGENET.heads // h} ranks)")
+        compare_kernel(results["flash_attention"], f"flash_attention {label}",
+                       lambda: fa.flash_attention(q, k, v),
+                       lambda: fa.flash_attention_plain(q, k, v), suffix, scaled=True,
+                       phase="phase 16a")
+        compare_bwd_kernel(results["flash_attention_bwd"], f"flash_attention_bwd {label}",
+                           ("dq", "dk", "dv"), lambda: fa.flash_attention_bwd(q, k, v, do),
+                           lambda: fa.flash_attention_bwd_plain(q, k, v, do), suffix,
+                           elementwise_first=False, phase="phase 16a")
+        bounds = kernel_bounds(attention_shape=(b, h, l))
+        for name in ("flash_attention", "flash_attention_bwd"):
+            res = results[name]
+            whole = res.get("ms")
+            print(f"phase 16a: {name} at H={h}: {res['ms' + suffix]:.6g} ms (bound "
+                  f"{bounds[name]['bound_ms']:.4g} ms, by {bounds[name]['bound_by']}); the whole "
+                  f"{IMAGENET.heads} heads "
+                  f"{'not timed (phase 2 did not run)' if whole is None else f'{whole:.6g} ms'}",
+                  flush=True)
+        del q, k, v, do
+        release_memory()
+
+
 def torchrun(label: str, jobs: list, work: str, card: str, grids: int | None = None,
              interact=None) -> list:
     """One ``python -m torch.distributed.run --standalone --nproc_per_node
@@ -5598,42 +5654,130 @@ def check_grid_samples(label: str, records: list, out: str, one: dict, shard: bo
         fail(f"{label}: the samples disagree with the one-process run's")
 
 
+def check_fsdp(records: list, dp_records: list, logs: dict, card: str) -> None:
+    """16e: the --fsdp run's losses against 16c's, its bytes and peak memory
+    a rank beside 16c's, and the collectives of one counted step of each."""
+    for step, (fs, dp) in enumerate(zip(logs["fsdp"], logs["dp"])):
+        rel = abs(fs["train_loss"] - dp["train_loss"]) / abs(dp["train_loss"])
+        print(f"phase 16e: step {fs['step']} loss --fsdp {fs['train_loss']:.8g}, data-parallel "
+              f"{dp['train_loss']:.8g}, rel {rel:.3g} (bound {FSDP_RTOL})", flush=True)
+        if not (fs["step"] == dp["step"] and rel <= FSDP_RTOL):
+            fail("phase 16e: the --fsdp losses disagree with the data-parallel run's")
+    for fs, dp in zip(records, dp_records):
+        a, b = fs["train"], dp["train"]
+        print(f"phase 16e: rank {fs['rank']} parameters + AdamW state {a['state_bytes'] / 1e6:.6g} "
+              f"MB (data-parallel {b['state_bytes'] / 1e6:.6g} MB, ratio "
+              f"{a['state_bytes'] / b['state_bytes']:.4g}); peak allocated "
+              f"{a['peak_bytes'] / 2**30:.6g} GiB (data-parallel {b['peak_bytes'] / 2**30:.6g} "
+              f"GiB; {a['held_bytes'] / 2**30:.4g} / {b['held_bytes'] / 2**30:.4g} GiB held "
+              f"before each run); card {card}", flush=True)
+        if not a["state_bytes"] < 0.6 * b["state_bytes"]:
+            fail("phase 16e: --fsdp did not cut the training state a rank")
+    for tag, rec in (("--fsdp", records[0]), ("data-parallel", dp_records[0])):
+        step = rec["train"]["step"]
+        kinds = ", ".join(f"{k} {v['calls']} ({v['bytes'] / 1e6:.6g} MB)"
+                          for k, v in sorted(step["collectives"].items()))
+        print(f"phase 16e: one counted {tag} step on rank 0, {step['ms']:.6g} ms: {kinds}",
+              flush=True)
+    if not {"all_gather", "reduce_scatter"} <= set(records[0]["train"]["step"]["collectives"]):
+        fail("phase 16e: the --fsdp step issued no all-gather or reduce-scatter")
+
+
+def check_against_one(label: str, got: np.ndarray, want: np.ndarray) -> None:
+    """A grid's samples against the one-process run's: the trajectory gate
+    (relative Frobenius FWD_REL_FRO and MODEL_MAX_FRAC of the largest value)."""
+    got, want = torch.from_numpy(got), torch.from_numpy(want)
+    rel = rel_fro(got, want)
+    max_abs, limit, _, _ = scaled_errors(got, want, MODEL_MAX_FRAC)
+    ok = got.shape == want.shape and rel <= FWD_REL_FRO and max_abs <= limit
+    print(f"{label}: against one process rel_fro_err={rel:.6g} (bound {FWD_REL_FRO}) "
+          f"max_abs_err={max_abs:.6g} (bound {limit:.6g}) ok={ok}", flush=True)
+    if not ok:
+        fail(f"{label}: the grid's samples disagree with the one-process run's")
+
+
 def run_parallel_grids(device, card: str, work: str) -> dict:
-    """16b-d: one torchrun launch of two ranks on the one card, whose ranks
-    train ``uvit_cifar10.yaml`` (batch 128, bf16, fused, synthetic CIFAR-10
-    data) and then sample the ``uvit_celeba_3.yaml`` -> ``uvit_celeba.yaml``
-    DuoDiff pair (DDPM over TP_SAMPLE_STEPS steps, batch 128), first
-    tensor-parallel (--model_parallel 2: 16b, 16d tp), then data-parallel
-    (16c, 16d dp), in one process group. The two runs' first losses, first gradient
-    norms and last losses within 2 %, each run's checkpoint in the
-    one-process ``load_model`` with its forward held against the run's own.
-    Returns each run's rank-0 launches."""
-    from duodiff_tpu_torch import sample
-    from duodiff_tpu_torch.data.synthetic import write_palette_cifar
+    """16b-g: one torchrun launch of two ranks on the one card, whose ranks
+    run, in one process group: the training CLI on ``uvit_cifar10.yaml``
+    (batch 128, bf16, fused, synthetic CIFAR-10 data) and then sampling of
+    the ``uvit_celeba_3.yaml`` -> ``uvit_celeba.yaml`` DuoDiff pair (DDPM
+    over TP_SAMPLE_STEPS steps, batch 128), first tensor-parallel
+    (--model_parallel 2: 16b, 16d tp), then data-parallel (16c, 16d dp);
+    then the same training with --fsdp over the two data ranks (16e); the
+    unfused block around K9 / K10 under --model_parallel 2 on
+    ``uvit_imagenet64.yaml`` (16f: training at D = 768 on a synthetic
+    ImageNet-64 cache, then guided sampling of the ImageNet-64 pair); and
+    ``eesample --model_parallel 2`` on ``deediff_celeba.yaml`` with its
+    heads' decoder sharded (16g). The data-parallel run's first loss, first
+    gradient norm and last loss within 2 % of the tensor-parallel run's, the
+    --fsdp losses within FSDP_RTOL of the data-parallel ones, every
+    checkpoint's forward in the one-process ``load_model`` against the run's
+    own, 16f's and 16g's samples within the trajectory gate of one-process
+    runs here. Returns each run's rank-0 launches."""
+    from duodiff_tpu_torch import eesample, sample
+    from duodiff_tpu_torch.data.synthetic import write_palette_cifar, write_palette_imagenet64_cache
     from duodiff_tpu_torch.utils.model_loading import load_model
 
     write_palette_cifar(f"{work}/data", seed=0)
+    write_palette_imagenet64_cache(f"{work}/data64", seed=0)
     n = 3 * TP_SAMPLE_SWITCH + 13 * (TP_SAMPLE_STEPS - TP_SAMPLE_SWITCH)
     sample_argv = ["--config_path", EARLY_CONFIG, "--config_path_late", LATE_CONFIG,
                    "--t_switch", str(TP_SAMPLE_SWITCH), "--random_init", "--num_timesteps",
                    str(TP_SAMPLE_STEPS), "--batch_size", str(MAIN_BATCH), "--parametrization",
                    "predict_noise", "--device", "cuda", "--seed", "0", "--attn_impl", "fused"]
+    g_batch, g_steps, g_switch = UNFUSED_TP_SAMPLE
+    guided_argv = ["--config_path", IMAGENET_EARLY_CONFIG, "--config_path_late", IMAGENET_CONFIG,
+                   "--t_switch", str(g_switch), "--random_init", "--num_timesteps", str(g_steps),
+                   "--batch_size", str(g_batch), "--parametrization", "predict_noise", "--device",
+                   "cuda", "--seed", "0", "--attn_impl", "pallas", "--class_id", "-1",
+                   "--guidance_scale", str(GUIDANCE_SCALE)]
+    n_guided = 3 * g_switch + 17 * (g_steps - g_switch)
+    # the dynamic rule at a threshold below every probe: no exit, so the
+    # samples are the backbone's, while every head (its decoder sharded) and
+    # probe runs and the exit is decided on the summed probe outputs each step
+    ee_argv = ["--config_path", EE_CONFIG, "--random_init", "--threshold", "-1",
+               "--num_timesteps", str(EE_TP_STEPS), "--batch_size", str(EE_TP_BATCH), "--seed",
+               "0", "--device", "cuda", "--attn_impl", "fused"]
     reset_counts()
     one = sample.main([*sample_argv, "--output_folder", f"{work}/one"])
     check_counts(read_counts(), bf16_blocks(n))
+    reset_counts()
+    one_guided = sample.main([*guided_argv, "--output_folder", f"{work}/one_guided"])
+    check_counts(read_counts(), {"flash_attention": n_guided})
+    reset_counts()
+    one_ee = eesample.main([*ee_argv, "--output_folder", f"{work}/one_ee"])
+    check_counts(read_counts(), bf16_blocks(13 * EE_TP_STEPS))
+    release_memory()
     runs, logs, jobs = {}, {}, []
     grids = (("tp", ["--model_parallel", "2"], True), ("dp", [], False))
+    cifar = ["--config_path", TRAIN_CONFIG, "--dataset", "cifar10", "--data_path", f"{work}/data",
+             "--log_path", f"{work}/logs", "--n_steps", str(TP_TRAIN_STEPS), "--batch_size",
+             str(TRAIN_BATCH), "--use_amp", "--attn_impl", "fused", "--lr", TP_LR,
+             "--num_warmup_steps", TP_WARMUP, "--device", "cuda"]
     for tag, extra, _ in grids:
         out = f"{work}/{tag}"
         os.makedirs(out)
         jobs.append({"out": out, "sample": [*sample_argv, *extra, "--output_folder", f"{out}/png"],
-                     "train": ["--config_path", TRAIN_CONFIG, "--dataset", "cifar10",
-                               "--data_path", f"{work}/data", "--log_path", f"{work}/logs",
-                               "--exp_name", tag, "--n_steps", str(TP_TRAIN_STEPS),
-                               "--batch_size", str(TRAIN_BATCH), "--use_amp", "--attn_impl",
-                               "fused", "--lr", TP_LR, "--num_warmup_steps", TP_WARMUP,
-                               "--device", "cuda", *extra]})
-    every = torchrun("phase 16b-d", jobs, work, card)
+                     "train": [*cifar, "--exp_name", tag, *extra], "count_step": tag == "dp"})
+    for tag in ("fsdp", "unfused_tp", "ee_tp"):
+        os.makedirs(f"{work}/{tag}")
+    jobs.append({"out": f"{work}/fsdp", "train": [*cifar, "--exp_name", "fsdp", "--fsdp",
+                                                  "--fsdp_min_size", str(FSDP_MIN_SIZE)],
+                 "count_step": True})
+    jobs.append({"out": f"{work}/unfused_tp", "forward": False, "profile": False,
+                 "train": ["--config_path", IMAGENET_CONFIG, "--dataset", "imagenet64",
+                           "--data_path", f"{work}/data64", "--log_path", f"{work}/logs",
+                           "--exp_name", "unfused_tp", "--n_steps", str(UNFUSED_TP_STEPS),
+                           "--batch_size", str(UNFUSED_TP_BATCH), "--use_amp", "--attn_impl",
+                           "pallas", "--label_dropout", str(LABEL_DROPOUT), "--lr", TP_LR,
+                           "--num_warmup_steps", TP_WARMUP, "--device", "cuda",
+                           "--model_parallel", "2"],
+                 "sample": [*guided_argv, "--model_parallel", "2", "--output_folder",
+                            f"{work}/unfused_tp/png"]})
+    jobs.append({"out": f"{work}/ee_tp", "eesample": [*ee_argv, "--model_parallel", "2",
+                                                       "--output_folder", f"{work}/ee_tp/png"]})
+    # a grid a job's training and one its sampling: 2 + 2 + 1 + 2 + 1
+    every = torchrun("phase 16b-g", jobs, work, card, grids=8)
     for (tag, extra, shard), records in zip(grids, every):
         out = f"{work}/{tag}"
         label = f"phase 16{'b' if shard else 'c'}: train {'--model_parallel 2' if shard else 'data-parallel'}"
@@ -5655,8 +5799,44 @@ def run_parallel_grids(device, card: str, work: str) -> dict:
               f"{rel:.3g} (bound 0.02)", flush=True)
         if not rel <= 0.02:
             fail(f"phase 16b/c: the two grids' {what}s disagree")
+    fsdp_records, unfused, ee = every[2:]
+    logs["fsdp"] = check_grid_training("phase 16e: train --fsdp", fsdp_records, False, card)
+    runs["16e"] = fsdp_records[0]["train"]["launches"]
+    check_fsdp(fsdp_records, every[1], logs, card)
+    s = UNFUSED_TP_STEPS * 17
+    runs["16f train"] = check_rank_counts("phase 16f: train --attn_impl pallas --model_parallel 2",
+                                          unfused, "train",
+                                          {"flash_attention": s, "flash_attention_bwd": s})
+    first, last = (unfused[0]["train"]["logs"][i]["train_loss"] for i in (0, -1))
+    print(f"phase 16f: uvit_imagenet64.yaml, the unfused block on 6 of 12 heads a rank, batch "
+          f"{UNFUSED_TP_BATCH}: loss {first:.6g} -> {last:.6g} over {UNFUSED_TP_STEPS} steps, "
+          f"{unfused[0]['train']['seconds']:.6g} s (set-up included), card {card}", flush=True)
+    if not last < first:
+        fail(f"phase 16f: the loss did not fall: {first:.6g} -> {last:.6g}")
+    runs["16f sample"] = check_rank_counts("phase 16f: guided sample --attn_impl pallas "
+                                           "--model_parallel 2", unfused, "sample",
+                                           {"flash_attention": n_guided})
+    check_against_one(f"phase 16f: guided DuoDiff {g_steps} steps, batch {g_batch} (forwards at "
+                      f"{2 * g_batch}), {unfused[0]['sample']['seconds']:.6g} s on rank 0 "
+                      f"(one process {one_guided['seconds']:.6g} s)",
+                      np.load(f"{work}/unfused_tp/samples.npy"), one_guided["samples"])
+    runs["16g"] = check_rank_counts("phase 16g: eesample --model_parallel 2", ee, "sample",
+                                    shard_blocks(13 * EE_TP_STEPS))
+    check_against_one(f"phase 16g: eesample deediff_celeba.yaml {EE_TP_STEPS} steps, batch "
+                      f"{EE_TP_BATCH}, the heads' decoder sharded, "
+                      f"{ee[0]['sample']['seconds']:.6g} s on rank 0 (one process "
+                      f"{one_ee['seconds']:.6g} s)",
+                      np.load(f"{work}/ee_tp/samples_float.npy"), one_ee["samples"])
+    err = np.load(f"{work}/ee_tp/err_by_t.npy")
+    idx = np.load(f"{work}/ee_tp/idx_by_t.npy")
+    rel = rel_fro(torch.from_numpy(err), torch.from_numpy(one_ee["err_by_t"]))
+    same = bool(np.array_equal(idx, one_ee["idx_by_t"]))
+    print(f"phase 16g: the probes' summed means by step and layer against one process: "
+          f"rel_fro_err={rel:.6g} (bound {FWD_REL_FRO}); exit indices equal: {same}", flush=True)
+    if not (rel <= FWD_REL_FRO and same):
+        fail("phase 16g: the sharded early-exit model's probes or exits disagree")
     x, t = forward_input()
-    for tag, grid in (("tp", "tensor-parallel"), ("dp", "data-parallel")):
+    for tag, grid in (("tp", "tensor-parallel"), ("dp", "data-parallel"), ("fsdp", "--fsdp")):
         ckpt = Path(f"{work}/logs/{tag}/cifar10_uvit_last/checkpoint.pth")
         model, _ = load_model(TRAIN_CONFIG, str(ckpt), device=device, attn_impl="fused")
         model.eval().pack_for_kernels()
@@ -5666,7 +5846,7 @@ def run_parallel_grids(device, card: str, work: str) -> dict:
         rel = rel_fro(got, want)
         max_abs, limit, _, _ = scaled_errors(got, want, MODEL_MAX_FRAC)
         ok = rel <= MODEL_REL_FRO and max_abs <= limit
-        print(f"phase 16{'b' if tag == 'tp' else 'c'}: the checkpoint in the one-process "
+        print(f"phase 16{dict(tp='b', dp='c', fsdp='e')[tag]}: the checkpoint in the one-process "
               f"load_model, its forward against the {grid} run's own: rel_fro_err={rel:.6g} "
               f"(bound {MODEL_REL_FRO}) max_abs_err={max_abs:.6g} (bound {limit:.6g}) ok={ok}",
               flush=True)
@@ -5681,6 +5861,7 @@ def run_parallel(device, card: str, results: dict) -> dict:
     each counted run."""
     tic = time.perf_counter()
     check_shard_kernels(device, results)
+    check_head_shard_attention(device, results)
     with tempfile.TemporaryDirectory() as work:
         runs = run_parallel_grids(device, card, work)
     release_memory()
@@ -6186,21 +6367,50 @@ def run_grids(card: str) -> dict:
     return runs
 
 
+def state_bytes(trainer) -> int:
+    """The bytes of a trainer's parameters and optimizer state on this rank
+    (AdamW's moments, the accumulated gradients, the EMA)."""
+    opt = trainer.state.optimizer
+    tensors = [*trainer.model.parameters(), *opt.mu, *opt.nu, *(opt.acc_grads or ()),
+               *(trainer.state.ema or {}).values()]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def counted_step(trainer) -> dict:
+    """One more train step of a phase 16 run, its collectives counted by
+    kind and its wall time (host clock around a synchronized step)."""
+    trainer.model.train()
+    batch = trainer._to_device(trainer.dataloader.next_batch())
+    sync = torch.cuda.synchronize if trainer.device.type == "cuda" else (lambda: None)
+    sync()
+    trainer.grid.reset_collectives()
+    tic = time.perf_counter()
+    trainer._train_step(trainer.state, batch, trainer.args.n_steps + 1)
+    sync()
+    return {"ms": 1e3 * (time.perf_counter() - tic),
+            "collectives": trainer.grid.reset_collectives()}
+
+
 def run_worker(spec: str) -> int:
     """One rank of the phase 16 and 18 torchruns: for each job of the JSON
     list ``spec`` in turn, the training CLI's own steps on its ``train``
-    argv (its ``Trainer``, as ``train.main`` runs it), then ``sample.main``
-    on its ``sample`` argv, or the server on its ``serve`` argv
-    (:func:`serve_job`), every grid on the process group the first one
+    argv (its ``Trainer``, as ``train.main`` runs it), then (where the job
+    has one) ``sample.main`` on its ``sample`` argv; or, for a job without
+    training, ``sample.main`` on its ``sample`` argv, ``eesample.main`` on
+    its ``eesample`` argv or the server on its ``serve`` argv
+    (:func:`serve_job`); every grid on the process group the first one
     joined (a job without training joins it through a grid of its own
     first), each with its launch counts set to 0 just before and read just
     after, written with what the phase holds and the wall clock at each
-    stage to ``out/rank{RANK}.json``. After training, every rank runs the
-    trained model's forward on :func:`forward_input` (the shards' sums) and,
-    for a tensor-parallel grid, one more profiled step
-    (:func:`profile_grid_step`); rank 0 writes that forward and the gathered
-    samples."""
-    from duodiff_tpu_torch import sample, train
+    stage to ``out/rank{RANK}.json``. After training, every rank records its
+    parameter and optimizer-state bytes and its peak allocation, runs the
+    trained model's forward on :func:`forward_input` (the shards' sums;
+    unless the job says ``"forward": false``), with ``"count_step"`` one
+    more step whose collectives it counts (:func:`counted_step`), and, for a
+    tensor-parallel grid, one more profiled step (:func:`profile_grid_step`;
+    unless ``"profile": false``); rank 0 writes that forward and the
+    gathered samples."""
+    from duodiff_tpu_torch import eesample, sample, train
     from duodiff_tpu_torch.config import merge_args_with_config
     from duodiff_tpu_torch.parallel.mesh import close, sampling_grid
     from duodiff_tpu_torch.training.trainer import Trainer
@@ -6218,11 +6428,15 @@ def run_worker(spec: str) -> int:
             if "serve" in job:
                 record = {"rank": rank, "serve": serve_job(job["serve"], rank, out)}
             else:
-                result = sample.main(job["sample"])
+                cli = eesample if "eesample" in job else sample
+                result = cli.main(job["eesample" if "eesample" in job else "sample"])
                 record = {"rank": rank, "sample": {"seconds": result["seconds"],
                                                    "launches": read_counts()}}
                 if rank == 0:
                     np.save(f"{out}/samples_float.npy", result["samples"])
+                    if "eesample" in job:
+                        np.save(f"{out}/err_by_t.npy", result["err_by_t"])
+                        np.save(f"{out}/idx_by_t.npy", result["idx_by_t"])
             stages["ended"] = time.time()
             record["stages"], stages = stages, {}
             Path(f"{out}/rank{rank}.json").write_text(json.dumps(record))
@@ -6230,6 +6444,8 @@ def run_worker(spec: str) -> int:
         args = train.get_args(job["train"])
         merge_args_with_config(args, args.config_path)
         stages["imported"] = time.time()
+        on_card = torch.cuda.is_available()  # a CPU rehearsal of the phase reads no memory
+        held = release_memory() * 2**30 if on_card else 0
         reset_counts()
         tic = time.perf_counter()
         trainer = Trainer(args)
@@ -6238,24 +6454,36 @@ def run_worker(spec: str) -> int:
         trainer.train()
         stages["trained"] = time.time()
         record = {"rank": rank, "train": {"seconds": time.perf_counter() - tic,
-                                          "launches": read_counts(), "logs": trainer.logs}}
-        model = trainer.model.eval()
-        model.pack_for_kernels()
-        x, t = forward_input()
-        with torch.no_grad():
-            y = model(x.to(trainer.device), t.to(trainer.device)).float().cpu().numpy()
-        stages["forward"] = time.time()
-        if trainer.grid.model > 1:  # the tensor-parallel step's split
+                                          "launches": read_counts(), "logs": trainer.logs,
+                                          "state_bytes": state_bytes(trainer),
+                                          "peak_bytes": (torch.cuda.max_memory_allocated()
+                                                         if on_card else 0),
+                                          "held_bytes": held}}
+        y = None
+        if job.get("forward", True):
+            model = trainer.model.eval()
+            model.pack_for_kernels()
+            x, t = forward_input()
+            with torch.no_grad():
+                y = model(x.to(trainer.device), t.to(trainer.device)).float().cpu().numpy()
+            del model
+            stages["forward"] = time.time()
+        if job.get("count_step"):
+            record["train"]["step"] = counted_step(trainer)
+            stages["counted step"] = time.time()
+        if trainer.grid.model > 1 and job.get("profile", True):  # the tensor-parallel step's split
             record["train"]["split"] = profile_grid_step(trainer)
             stages["profiled"] = time.time()
-        del trainer, model
-        reset_counts()
-        result = sample.main(job["sample"])  # on the first grid's process group
-        stages["sampled"] = time.time()
-        record["sample"] = {"seconds": result["seconds"], "launches": read_counts()}
-        if rank == 0:
+        del trainer
+        if rank == 0 and y is not None:
             np.save(f"{out}/forward.npy", y)
-            np.save(f"{out}/samples.npy", result["samples"])
+        if "sample" in job:
+            reset_counts()
+            result = sample.main(job["sample"])  # on the first grid's process group
+            stages["sampled"] = time.time()
+            record["sample"] = {"seconds": result["seconds"], "launches": read_counts()}
+            if rank == 0:
+                np.save(f"{out}/samples.npy", result["samples"])
         stages["written"] = time.time()
         record["stages"], stages = stages, {}
         Path(f"{out}/rank{rank}.json").write_text(json.dumps(record))
@@ -6446,10 +6674,11 @@ def main(argv=None) -> int:
                                                     + counts[name])
     lap("16")
     if "16" in run:
-        # the shard forms' launches (16b, 16d tensor-parallel, rank 0), and the
-        # data-parallel runs' added to K1, K2, K6 and K7
+        # the shard forms' launches (16b, 16d tensor-parallel, 16g, rank 0), and
+        # the data-parallel and --fsdp runs' added to K1, K2, K6 and K7, the
+        # unfused tensor-parallel block's (16f) to K9 and K10
         for counts in run_parallel(device, card, results).values():
-            for name in (*KERNELS, *BWD_KERNELS, *SHARD_KERNELS):
+            for name in (*KERNELS, *BWD_KERNELS, *SHARD_KERNELS, *ATTENTION_KERNELS):
                 if counts.get(name):
                     launches[name] = launches.get(name, 0) + counts[name]
     lap("17")
@@ -6493,6 +6722,11 @@ def main(argv=None) -> int:
     for width, mp, suffix in SHARD_CASES[1:]:
         for name, b in shard_bounds(width, mp).items():
             if "ms" + suffix in results[name]:
+                bounds[name] = {**bounds[name], "bound_ms" + suffix: b["bound_ms"]}
+    # K9 and K10 on a rank's heads (16a)
+    for h, suffix in HEAD_SHARDS:
+        for name, b in kernel_bounds(attention_shape=(MAIN_BATCH, h, IMAGENET.l)).items():
+            if name in ATTENTION_KERNELS and "ms" + suffix in results[name]:
                 bounds[name] = {**bounds[name], "bound_ms" + suffix: b["bound_ms"]}
     # with a subset of the phases: the kernels that phase 2 timed or a path
     # launched, each with what was measured (launches null where its path did

@@ -27,11 +27,13 @@ not read) and ``indices_by_timestep.{npy,pt}`` (T x B). The CLI refuses what
 ``eesampler.py`` refuses, and also: ``--int8_scales`` with the static or
 adaptive route, which the JAX CLI silently drops there (its truncated
 backbones are built without the scales), and ``--model_parallel`` with an
-int8 or unfused block, as ``sample.py`` does.
+int8 or ``plain`` block, as ``sample.py`` does.
 
 Under ``python -m torch.distributed.run`` the CLI samples on the grid of
 ``sample.py``: ``--model_parallel`` on the dynamic-threshold route only (the
-JAX CLI's refusals), data parallelism on the dynamic and static routes, the
+JAX CLI's refusals; the heads' decoder and the attention probes sharded
+too, every exit decided on the summed probe outputs), data parallelism on
+the dynamic and static routes, the
 probe means averaged and the exit indices gathered over the data ranks; the
 adaptive route, whose host decides from the whole batch's probes, runs the
 whole batch on every rank. Unguided class labels

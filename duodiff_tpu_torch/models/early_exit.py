@@ -22,10 +22,19 @@ Pallas kernel, so they are plain PyTorch here: the heads' decoder is one
 batched product over the stacked weights and their 3x3 convolutions one
 grouped convolution. The blocks go through the UViT's blocks and so through
 its ``attn_impl``.
+
+Under tensor parallelism (:meth:`EarlyExitUViT.shard_`) the heads and the
+attention probes are sharded by JAX's ``_TP_RULES_STACKED``: the heads'
+decoder row-parallel over D (its partial summed over the model group
+before the bias and the convolution), the probes' kv and cls_fc1
+column-parallel (each of k and v cut over D) and cls_fc2 row-parallel. The
+per-layer MLP probes and the per-timestep tables stay whole, as JAX keeps
+them. Every output is the summed one, the same on each rank.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -36,6 +45,9 @@ from duodiff_tpu_torch.config import UViTConfig
 from duodiff_tpu_torch.models.layers import unpatchify
 from duodiff_tpu_torch.models.uvit import UViT, _init_params, _trunc_normal_
 from duodiff_tpu_torch.ops.attention import xla_attention
+from duodiff_tpu_torch.parallel import fsdp
+from duodiff_tpu_torch.parallel.tp_fused import gather_shards, replicated, sum_over_shards
+from duodiff_tpu_torch.utils.convert import shard_kind, shard_tensor
 
 CLASSIFIER_TYPES = (
     "attention_probe",
@@ -53,6 +65,22 @@ def _linear(x, weight, bias, dtype):
     return torch.matmul(x.to(dtype), weight.to(dtype).t()) + bias.to(dtype)
 
 
+@torch.no_grad()
+def _shard_params(module: nn.Module, prefix: str, grid) -> None:
+    """Keep this rank's tensor-parallel shard of every parameter of
+    ``module`` that ``convert.shard_kind`` cuts (named ``prefix.<name>``)."""
+    for name, p in list(module.named_parameters(recurse=False)):
+        kind = shard_kind(f"{prefix}.{name}")
+        if kind is not None:
+            setattr(module, name, nn.Parameter(shard_tensor(kind, p.data, grid.model_rank,
+                                                            grid.model)))
+
+
+def _cols(grid, n: int) -> slice:
+    """This model rank's slice of n / mp columns a rank."""
+    return slice(grid.model_rank * n, (grid.model_rank + 1) * n)
+
+
 class OutputHeads(nn.Module):
     """The ``depth`` output heads, each the U-ViT's tail (reference
     OutputHead): fp32 LayerNorm (eps 1e-5) -> Linear(D -> patch_dim) in the
@@ -63,6 +91,7 @@ class OutputHeads(nn.Module):
         super().__init__()
         self.extras = extras
         self.in_chans = in_chans
+        self.grid = None  # the process grid when the decoder is row-parallel
         self.norm_weight = nn.Parameter(torch.ones(depth, dim))
         self.norm_bias = nn.Parameter(torch.zeros(depth, dim))
         self.decoder_weight = nn.Parameter(torch.zeros(depth, patch_dim, dim))
@@ -84,8 +113,12 @@ class OutputHeads(nn.Module):
         normed = torch.empty((n, b, l, d), dtype=dtype, device=hs[0].device)
         for i, h in enumerate(hs):
             normed[i] = F.layer_norm(h.float(), (d,), w[i], bias[i], 1e-5)
-        y = torch.matmul(normed.view(n, b * l, d),
-                         self.decoder_weight[sel].to(dtype).transpose(1, 2))
+        w = self.decoder_weight[sel].to(dtype).transpose(1, 2)
+        if self.grid is None:
+            y = torch.matmul(normed.view(n, b * l, d), w)
+        else:  # the rank's D / mp of the contraction, summed over the model group
+            part = replicated(normed, self.grid)[..., _cols(self.grid, w.shape[1])]
+            y = sum_over_shards(torch.matmul(part.reshape(n, b * l, -1), w), self.grid)
         y = y + self.decoder_bias[sel].to(dtype)[:, None]
         img = unpatchify(y.view(n * b, l, -1)[:, self.extras:], self.in_chans)
         c, hh, ww = self.in_chans, img.shape[1], img.shape[2]
@@ -124,6 +157,7 @@ class AttentionProbes(nn.Module):
 
     def __init__(self, depth: int, dim: int):
         super().__init__()
+        self.grid = None  # the process grid when kv, cls_fc1 and cls_fc2 are shards
         self.q = nn.Parameter(torch.zeros(depth, dim))
         self.kv_weight = nn.Parameter(torch.zeros(depth, 2 * dim, dim))
         self.kv_bias = nn.Parameter(torch.zeros(depth, 2 * dim))
@@ -134,6 +168,8 @@ class AttentionProbes(nn.Module):
 
     def forward(self, hs, t_idx, dtype, slots=None) -> torch.Tensor:
         slots = range(len(hs)) if slots is None else slots
+        if self.grid is not None:
+            return torch.stack([self._shard_forward(h, s, dtype) for s, h in zip(slots, hs)])
         out = []
         for s, h in zip(slots, hs):
             x = h[:, 1:]
@@ -146,6 +182,26 @@ class AttentionProbes(nn.Module):
             o = torch.matmul(o, self.fc2_weight[s].to(dtype)) + self.fc2_bias[s].to(dtype)
             out.append(o.float()[:, 0])
         return torch.stack(out)
+
+    def _shard_forward(self, h, s: int, dtype) -> torch.Tensor:
+        """Probe ``s`` on a tensor-parallel shard: k and v of the rank's D /
+        mp columns, the logits' partial dot products summed over the model
+        group, the attention's output columns put together (one all-gather),
+        cls_fc1's columns, cls_fc2's rows summed over the group."""
+        grid = self.grid
+        x = replicated(h[:, 1:], grid)
+        b, _, d = x.shape
+        kv = _linear(x, self.kv_weight[s], self.kv_bias[s], dtype)
+        a = kv.shape[-1] // 2
+        k, v = kv[..., :a].float(), kv[..., a:]
+        q = replicated(self.q[s], grid)[_cols(grid, a)].to(kv.dtype).float()
+        logits = sum_over_shards(torch.matmul(k, q)[:, None, :], grid) / math.sqrt(d)
+        weights = replicated(torch.softmax(logits, dim=-1), grid)
+        o = torch.matmul(weights.to(v.dtype).float(), v.float()).to(dtype)  # (B, 1, A)
+        o = gather_shards(o, grid, -1)
+        o = F.silu(_linear(o, self.fc1_weight[s], self.fc1_bias[s], dtype))
+        o = sum_over_shards(torch.matmul(o, self.fc2_weight[s].to(dtype)), grid)
+        return (o + self.fc2_bias[s].to(dtype)).float()[:, 0]
 
 
 class TimestepProbeTable(nn.Module):
@@ -215,9 +271,16 @@ class EarlyExitUViT(nn.Module):
         return self.uvit.blocks()
 
     def shard_(self, grid) -> "EarlyExitUViT":
-        """Make the backbone's blocks tensor-parallel shards
-        (:meth:`UViT.shard_`); the heads and probes stay whole on every rank."""
+        """Make the backbone a tensor-parallel shard (:meth:`UViT.shard_`),
+        and the heads' decoder and the attention probes by JAX's
+        ``_TP_RULES_STACKED`` (the module docstring)."""
         self.uvit.shard_(grid)
+        if grid.model <= 1:
+            return self
+        for prefix, mod in (("heads", self.heads), ("probes", self.probes)):
+            _shard_params(mod, prefix, grid)
+            if hasattr(mod, "grid"):
+                mod.grid = grid
         return self
 
     def pack_for_kernels(self) -> None:
@@ -278,11 +341,12 @@ class EarlyExitUViT(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: Optional[torch.Tensor] = None):
         depth = self.config.depth
-        h, tapped = self._prefix(x, timesteps, y, depth, taps=range(depth))
-        hs = [tapped[i] for i in range(depth)]
-        backbone = self.uvit.decode_tokens(h)
-        u = self.probes(hs, self.probe_index(timesteps), self.dtype)
-        return backbone, u, self.heads(hs, self.dtype)
+        with fsdp.root(self):
+            h, tapped = self._prefix(x, timesteps, y, depth, taps=range(depth))
+            hs = [tapped[i] for i in range(depth)]
+            backbone = self.uvit.decode_tokens(h)
+            u = self.probes(hs, self.probe_index(timesteps), self.dtype)
+            return backbone, u, self.heads(hs, self.dtype)
 
     def forward_truncated(self, x, timesteps, y=None, *, exit_layer: int):
         """Blocks 0..exit_layer-1 and head ``exit_layer``: equals ``g[exit_layer]``

@@ -39,6 +39,8 @@ from duodiff_tpu_torch.ops.block_int8 import (
     pack_mlp_int8,
 )
 from duodiff_tpu_torch.parallel.tp_fused import (
+    replicated,
+    sum_over_shards,
     tp_attn_sublayer,
     tp_attn_sublayer_train,
     tp_mlp_sublayer,
@@ -132,7 +134,11 @@ class PatchEmbed(nn.Module):
 class TimeEmbed(nn.Sequential):
     """Linear-SiLU-Linear over the sinusoidal embedding (state-dict names
     ``time_embed.0`` / ``time_embed.2``); empty, the identity, when
-    ``mlp_time_embed`` is False."""
+    ``mlp_time_embed`` is False. :meth:`shard_` makes it a tensor-parallel
+    shard by JAX's rules: fc1's rows of the 4D hidden columns
+    (column-parallel; its bias stays whole, as JAX keeps it, and the rank
+    reads its slice), fc2's matching columns (row-parallel), one sum over
+    the model group before fc2's bias."""
 
     def __init__(self, embed_dim: int, mlp_time_embed: bool):
         layers = []
@@ -140,11 +146,31 @@ class TimeEmbed(nn.Sequential):
             layers = [nn.Linear(embed_dim, 4 * embed_dim), nn.SiLU(),
                       nn.Linear(4 * embed_dim, embed_dim)]
         super().__init__(*layers)
+        self.grid = None
+
+    @torch.no_grad()
+    def shard_(self, grid) -> None:
+        if grid.model <= 1 or len(self) == 0:
+            return
+        for name in ("0.weight", "2.weight"):
+            mod = self.get_submodule(name[0])
+            kind = "rows" if name[0] == "0" else "cols"
+            mod.weight = nn.Parameter(shard_tensor(kind, mod.weight.data, grid.model_rank,
+                                                   grid.model))
+        self.grid = grid
 
     def forward(self, emb: torch.Tensor, dtype) -> torch.Tensor:
         if len(self) == 0:
             return emb
-        return dense(F.silu(dense(emb, self[0], dtype)), self[2], dtype)
+        if self.grid is None:
+            return dense(F.silu(dense(emb, self[0], dtype)), self[2], dtype)
+        fc1, fc2, grid = self[0], self[2], self.grid
+        n = fc1.weight.shape[0]
+        bias = replicated(fc1.bias, grid)[grid.model_rank * n:(grid.model_rank + 1) * n]
+        h = torch.matmul(replicated(emb.to(dtype), grid), fc1.weight.to(dtype).t())
+        h = F.silu(h + bias.to(dtype))
+        partial = torch.matmul(h, fc2.weight.to(dtype).t())
+        return sum_over_shards(partial, grid) + fc2.bias.to(dtype)
 
 
 class Block(nn.Module):
@@ -183,14 +209,26 @@ class Block(nn.Module):
     training) in place of the plain MLP.
 
     :meth:`shard_` makes the block a tensor-parallel shard (the JAX
-    ``Block``'s TP branch, ``layers.py:414-440``): it keeps the q, k and v
-    columns of its model rank's H / mp heads, the matching proj rows, and
-    hidden / mp columns of fc1 with the matching fc2 rows, under the same
-    names (:func:`~duodiff_tpu_torch.utils.convert.shard_tensor`), and runs
-    :mod:`duodiff_tpu_torch.parallel.tp_fused`: the shard forms of the fused
-    kernels, one sum over the model group a sublayer (on a CPU tensor their
-    wrappers run the plain versions). It takes ``"fused"`` only, as the JAX
-    TP branch does; the other impls are refused.
+    ``Block``'s TP branch, ``layers.py:414-440``, and GSPMD's form of the
+    unfused block): it keeps the q, k and v columns of its model rank's H /
+    mp heads, the matching proj rows, and hidden / mp columns of fc1 with
+    the matching fc2 rows, under the same names
+    (:func:`~duodiff_tpu_torch.utils.convert.shard_tensor`). ``"fused"``
+    then runs :mod:`duodiff_tpu_torch.parallel.tp_fused`: the shard forms of
+    the fused kernels, one sum over the model group a sublayer (on a CPU
+    tensor their wrappers run the plain versions). The unfused impls run
+    their block on the shard: the LayerNorm in fp32 on the whole x, q, k and
+    v of the local heads, the attention (K9 / K10 for ``"pallas"``) on
+    (B, H / mp, L, Dh), proj on the local rows, one sum of the partial over
+    the model group, then the bias; fc1 on the local columns, the GELU, fc2
+    on the local rows, one sum, the bias. ``"plain"`` and the int8 impls
+    have no shard form and are refused.
+
+    Under FSDP (:mod:`duodiff_tpu_torch.parallel.fsdp`) ``fsdp_unit``
+    gathers the block's weights around each forward, which then reads them
+    live, in eval as in training (no packed operands: the gathered weights
+    are new tensors each time); inside ``fsdp.full_params`` the block holds
+    its whole weights and packs as a whole model does.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -225,6 +263,7 @@ class Block(nn.Module):
         self._packed_dtype = None
         self._packed_marks = None
         self.grid = None  # the process grid when the block is a tensor-parallel shard
+        self.fsdp_unit = None  # its FSDP leaves (parallel/fsdp.py), or None
 
     def _param_marks(self) -> list:
         """(version, address) of every parameter :meth:`pack` reads, from the
@@ -242,9 +281,12 @@ class Block(nn.Module):
         (``dtype``) weights, or int8 codes with fp32 scales for the int8
         impls. ``attn_impl`` may later switch within its family (fused and
         plain read the same operands), not across it."""
+        self._packed_dtype = dtype
+        if self.fsdp_unit is not None and not self.fsdp_unit.whole:
+            self._packed = None  # the forward reads the gathered weights live
+            return
         qkv, proj = self.attn["qkv"], self.attn["proj"]
         fc1, fc2 = self.mlp["fc1"], self.mlp["fc2"]
-        self._packed_dtype = dtype
         self._packed_marks = self._param_marks()
         if self.attn_impl in INT8_IMPLS:
             self._packed = (
@@ -269,10 +311,10 @@ class Block(nn.Module):
             raise ValueError(f"attn_impl {self.attn_impl!r} does not combine with "
                              "--model_parallel: the int8 kernels have no tensor-parallel shard "
                              "form")
-        if self.attn_impl != "fused":
+        if self.attn_impl not in ("fused", *UNFUSED_IMPLS):
             raise ValueError(f"attn_impl {self.attn_impl!r} has no tensor-parallel form: "
-                             "--model_parallel runs 'fused' only (the unfused block under "
-                             "tensor parallelism is not ported yet)")
+                             "--model_parallel runs 'fused' and the unfused blocks ('pallas', "
+                             "'xla')")
         hidden = self.mlp["fc1"].out_features
         if self.num_heads % mp or hidden % mp or (hidden // mp) % 8:
             raise ValueError(f"--model_parallel {mp} must divide the {self.num_heads} heads and "
@@ -310,20 +352,28 @@ class Block(nn.Module):
                                      grid=grid)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
-        training = self.training and torch.is_grad_enabled()
+        unit = self.fsdp_unit
+        if unit is not None and not unit.whole:
+            with unit.use():
+                return self._forward(x, skip, live=True)
+        return self._forward(x, skip, live=self.training and torch.is_grad_enabled())
+
+    def _forward(self, x, skip, live: bool):
+        """The block; ``live``: read the parameters, not the packed operands
+        (training, or the gathered weights of an FSDP block)."""
         unfused = self.attn_impl in UNFUSED_IMPLS
-        if not training and (not unfused or self.mlp_impl == "fused"):
+        if not live and (not unfused or self.mlp_impl == "fused"):
             self._check_packed()
         if self.skip_linear is not None:
             x = dense(torch.cat([x, skip], dim=-1), self.skip_linear, x.dtype)
-        if self.grid is not None:
-            return self._tp_forward(x, training)
         if unfused:
             x = x + self._attention(x).to(x.dtype)
             if self.mlp_impl == "fused":
-                return self._fused_mlp(x, training)
+                return self._fused_mlp(x, live)
             return x + self._mlp(x).to(x.dtype)
-        if training:
+        if self.grid is not None:
+            return self._tp_forward(x, live)
+        if live:
             return self._train_forward(x)
         attn_ops, mlp_ops = self._packed
         attn, mlp = _SUBLAYERS[self.attn_impl]
@@ -353,27 +403,45 @@ class Block(nn.Module):
                 torch.stack([xn_rows.reshape(-1), h_rows.reshape(-1)]))
 
     def _attention(self, x: torch.Tensor) -> torch.Tensor:
-        """attn(LN(x)) of the unfused block, (B, L, D) in x's dtype."""
+        """attn(LN(x)) of the unfused block, (B, L, D) in x's dtype; on a
+        tensor-parallel shard its local heads, then the sum over the model
+        group."""
         dt = x.dtype
-        b, l, d = x.shape
+        b, l, _ = x.shape
         qkv = self.attn["qkv"]
-        xn = flax_layer_norm(x, self.norm1).to(dt)
-        w = qkv.weight.to(dt)  # (3D, D): q, k and v rows, each head-major
+        xn = self._shard_input(flax_layer_norm(x, self.norm1).to(dt))
+        w = qkv.weight.to(dt)  # (3A, D): q, k and v rows, each head-major
+        a = w.shape[0] // 3
         heads = []
         for i in range(3):
-            t = torch.matmul(xn, w[i * d:(i + 1) * d].t())
+            t = torch.matmul(xn, w[i * a:(i + 1) * a].t())
             if qkv.bias is not None:
-                t = t + qkv.bias[i * d:(i + 1) * d].to(dt)
+                t = t + qkv.bias[i * a:(i + 1) * a].to(dt)
             heads.append(t.reshape(b, l, self.num_heads, -1).transpose(1, 2).contiguous())
         out = multi_head_attention(*heads, impl=self.attn_impl).to(dt)  # (B, H, L, Dh)
-        return dense(out.transpose(1, 2).reshape(b, l, d), self.attn["proj"], dt)
+        return self._shard_output(out.transpose(1, 2).reshape(b, l, a), self.attn["proj"])
 
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        """mlp(LN(x)) of the unfused block, in x's dtype."""
+        """mlp(LN(x)) of the unfused block, in x's dtype (the local hidden
+        columns and the sum over the model group on a shard)."""
         dt = x.dtype
-        hidden = dense(flax_layer_norm(x, self.norm2).to(dt), self.mlp["fc1"], dt)
+        xn = self._shard_input(flax_layer_norm(x, self.norm2).to(dt))
+        hidden = dense(xn, self.mlp["fc1"], dt)
         hidden = F.gelu(hidden, approximate="tanh" if self.gelu_approx else "none")
-        return dense(hidden, self.mlp["fc2"], dt)
+        return self._shard_output(hidden, self.mlp["fc2"])
+
+    def _shard_input(self, xn: torch.Tensor) -> torch.Tensor:
+        """The normed input of a sublayer; on a shard, its gradient summed
+        over the model group (the shards' products each give a part)."""
+        return xn if self.grid is None else replicated(xn, self.grid)
+
+    def _shard_output(self, h: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
+        """The sublayer's out projection: on a shard, the local rows' partial
+        summed over the model group before the bias."""
+        if self.grid is None:
+            return dense(h, linear, h.dtype)
+        partial = torch.matmul(h, linear.weight.to(h.dtype).t())
+        return sum_over_shards(partial, self.grid) + linear.bias.to(h.dtype)
 
     def _mlp_params(self):
         norm2, fc1, fc2 = self.norm2, self.mlp["fc1"], self.mlp["fc2"]
@@ -386,11 +454,19 @@ class Block(nn.Module):
                 f"{x.dtype}: pass --use_amp, or train with attn_impl 'plain'"
             )
 
-    def _fused_mlp(self, x: torch.Tensor, training: bool) -> torch.Tensor:
-        """The fused MLP sublayer after an unfused attention (mlp_impl "fused")."""
-        if not training:
+    def _fused_mlp(self, x: torch.Tensor, live: bool) -> torch.Tensor:
+        """The fused MLP sublayer after an unfused attention (mlp_impl
+        "fused"); its shard form on a tensor-parallel shard."""
+        if not live:
+            if self.grid is not None:
+                *mlp, b2 = self._packed[1]
+                return tp_mlp_sublayer(x, (*mlp, torch.zeros_like(b2)), b2,
+                                       gelu_approx=self.gelu_approx, grid=self.grid)
             return fused_mlp_sublayer(x, *self._packed[1], gelu_approx=self.gelu_approx)
         self._check_bf16(x, "mlp_impl 'fused'")
+        if self.grid is not None:
+            return tp_mlp_sublayer_train(x.contiguous(), *self._mlp_params(),
+                                         gelu_approx=self.gelu_approx, grid=self.grid)
         return FusedMlpSublayerFn.apply(x.contiguous(), *self._mlp_params(), self.gelu_approx, 1e-5)
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:

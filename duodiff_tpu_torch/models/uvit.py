@@ -31,6 +31,7 @@ from duodiff_tpu_torch.models.layers import (
     timestep_embedding,
     unpatchify,
 )
+from duodiff_tpu_torch.parallel import fsdp
 
 
 class UViT(nn.Module):
@@ -90,10 +91,13 @@ class UViT(nn.Module):
 
     def shard_(self, grid) -> "UViT":
         """Make every block a tensor-parallel shard of the grid's model group
-        (:meth:`Block.shard_`; ``tp_mesh`` in the JAX package), in place.
-        The weights are the full model's, so shard after loading them."""
+        (:meth:`Block.shard_`; ``tp_mesh`` in the JAX package), and the time
+        embedding's MLP where there is one (:meth:`TimeEmbed.shard_`), in
+        place. The weights are the full model's, so shard after loading
+        them."""
         for blk in self.blocks():
             blk.shard_(grid)
+        self.time_embed.shard_(grid)
         return self
 
     @torch.no_grad()
@@ -133,7 +137,8 @@ class UViT(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self._forward(x, timesteps, y, self._run_block)
+        with fsdp.root(self):
+            return self._forward(x, timesteps, y, self._run_block)
 
     def _forward(self, x, timesteps, y, run):
         """The U-Net traversal, each block through ``run(blk, x, skip=None)``."""

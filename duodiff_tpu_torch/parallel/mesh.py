@@ -1,5 +1,5 @@
 """The process grid over ``torch.distributed`` (counterpart of
-``duodiff_tpu/parallel/mesh.py``, without FSDP, and of the device split of
+``duodiff_tpu/parallel/mesh.py`` and of the device split of
 ``duodiff_tpu/diffusion/pipeline.py``).
 
 A run under ``python -m torch.distributed.run --nproc_per_node N`` (or across
@@ -24,8 +24,13 @@ current stream (no ``async_op``): the weight-gradient kernels of the
 backward (``csrc/gemm.cuh``) spin on per-tile flags and assume every block
 of their grid is resident, which a communication kernel overlapping them on
 another stream would break, so nothing here overlaps a backward kernel
-(and training takes no DDP bucket overlap). The sums of the model and data
-groups show in a profile as ``grid.all_reduce`` spans.
+(and training takes no DDP bucket overlap, and FSDP's gathers and
+scatters, :mod:`duodiff_tpu_torch.parallel.fsdp`, run in line too). Every
+collective a grid issues is counted by kind with its payload bytes
+(:attr:`Grid.collectives`: an all-reduce's tensor, an all-gather's gathered
+output, a reduce-scatter's input, a broadcast's or a point-to-point tensor)
+and shows in a profile as a ``grid.<kind>`` span (``grid.all_reduce``,
+``grid.all_gather``, ``grid.reduce_scatter``, ...).
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import pickle
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -73,6 +80,8 @@ class Grid:
     replicated: bool = False     # every rank holds the whole batch (sampling)
     joined: bool = False         # this grid joined the process group: close leaves it
     stages: int = 1              # 2 for pipeline-parallel DuoDiff (stage A, then B)
+    # kind -> {"calls": n, "bytes": payload}, every collective this grid issued
+    collectives: dict = dataclasses.field(default_factory=dict)
 
     @property
     def distributed(self) -> bool:
@@ -114,12 +123,28 @@ class Grid:
 
     # --- collectives: synchronous, nothing on a group of one ----------------
 
+    @contextmanager
+    def _collective(self, kind: str, nbytes: int):
+        """Count one collective of ``kind`` moving ``nbytes`` and show it as a
+        ``grid.<kind>`` span."""
+        c = self.collectives.setdefault(kind, {"calls": 0, "bytes": 0})
+        c["calls"] += 1
+        c["bytes"] += int(nbytes)
+        with record_function(f"grid.{kind}"):
+            yield
+
+    def reset_collectives(self) -> dict:
+        """The counts so far (a copy), then zero them."""
+        counts = {k: dict(v) for k, v in self.collectives.items()}
+        self.collectives.clear()
+        return counts
+
     def _sum(self, t: torch.Tensor, group) -> torch.Tensor:
         """``t`` summed over ``group``, in place, in its own dtype (a bf16
         partial rounds to bf16 at each add of the collective's order: over 2
         shards that is the fp32 sum rounded once)."""
         if group is not None:
-            with record_function("grid.all_reduce"):
+            with self._collective("all_reduce", _nbytes(t)):
                 dist.all_reduce(t, group=group)
         return t
 
@@ -130,13 +155,51 @@ class Grid:
     def model_sum_(self, t: torch.Tensor) -> torch.Tensor:
         return self._sum(t, self.model_group)
 
+    def data_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over this rank's data group, in place."""
+        return self._sum(t, self.data_group)
+
+    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model group's ``t`` (the same shape on each rank) side by side
+        on ``dim``, in rank order: one all-gather."""
+        if self.model_group is None:
+            return t
+        moved = t.movedim(dim, 0).contiguous()
+        out = torch.empty((self.model * moved.shape[0], *moved.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        with self._collective("all_gather", _nbytes(out)):
+            dist.all_gather_into_tensor(out, moved, group=self.model_group)
+        return out.movedim(0, dim)
+
+    def data_gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """The data group's flat ``shard`` (the same length on each rank) one
+        after the other, in data-rank order: one all-gather (FSDP's gather
+        of a unit's weights)."""
+        if self.data_group is None:
+            return shard
+        out = torch.empty(self.data * shard.numel(), dtype=shard.dtype, device=shard.device)
+        with self._collective("all_gather", _nbytes(out)):
+            dist.all_gather_into_tensor(out, shard.contiguous(), group=self.data_group)
+        return out
+
+    def data_scatter_mean(self, full: torch.Tensor) -> torch.Tensor:
+        """This data rank's chunk of the data group's mean of the flat
+        ``full`` (a length ``data`` divides): one reduce-scatter, then the
+        division (FSDP's scatter of a unit's gradients)."""
+        if self.data_group is None:
+            return full
+        out = torch.empty(full.numel() // self.data, dtype=full.dtype, device=full.device)
+        with self._collective("reduce_scatter", _nbytes(full)):
+            dist.reduce_scatter_tensor(out, full.contiguous(), group=self.data_group)
+        return out.div_(self.data)
+
     def data_mean_(self, tensors: list) -> None:
         """Average fp32 ``tensors`` over the data group in place, as one flat
         all-reduce."""
         if self.data_group is None or not tensors:
             return
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        with record_function("grid.all_reduce"):
+        with self._collective("all_reduce", _nbytes(flat)):
             dist.all_reduce(flat, group=self.data_group)
         flat /= self.data
         at = 0
@@ -150,7 +213,8 @@ class Grid:
         if self.active_group is None:
             return flag
         v = flag.to(torch.int32).reshape(1)
-        dist.all_reduce(v, op=dist.ReduceOp.MIN, group=self.active_group)
+        with self._collective("all_reduce", _nbytes(v)):
+            dist.all_reduce(v, op=dist.ReduceOp.MIN, group=self.active_group)
         return v[0].bool()
 
     def any_on_host(self, flag: bool) -> bool:
@@ -159,12 +223,14 @@ class Grid:
         if self.host_group is None:
             return flag
         v = torch.tensor([int(flag)], dtype=torch.int32)
-        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self.host_group)
+        with self._collective("all_reduce", _nbytes(v)):
+            dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self.host_group)
         return bool(v[0])
 
     def barrier(self) -> None:
         if self.host_group is not None:
-            dist.barrier(group=self.host_group)
+            with self._collective("barrier", 0):
+                dist.barrier(group=self.host_group)
 
     def gather_host(self, t: torch.Tensor) -> list:
         """Every active rank's CPU tensor ``t`` (the same shape on each), in
@@ -172,7 +238,8 @@ class Grid:
         if self.host_group is None:
             return [t]
         out = [torch.empty_like(t) for _ in range(self.stages * self.data * self.model)]
-        dist.all_gather(out, t.contiguous(), group=self.host_group)
+        with self._collective("all_gather", _nbytes(t) * len(out)):
+            dist.all_gather(out, t.contiguous(), group=self.host_group)
         return out
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -191,7 +258,8 @@ class Grid:
         if group is None:
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src=0, group=group)
+        with self._collective("broadcast", len(pickle.dumps(obj)) if self.is_main else 0):
+            dist.broadcast_object_list(box, src=0, group=group)
         return box[0]
 
     # --- point to point: the pipeline's handoff -----------------------------
@@ -205,15 +273,21 @@ class Grid:
     def send_to(self, t: torch.Tensor, dst: int, host: bool = False) -> None:
         """Send ``t`` to rank ``dst``; returns once it has left (gloo) or is
         queued on the current stream (NCCL)."""
-        dist.send(t.to(self._wire(host)).contiguous(), dst=dst,
-                  group=self.host_group if host else None)
+        with self._collective("send", _nbytes(t)):
+            dist.send(t.to(self._wire(host)).contiguous(), dst=dst,
+                      group=self.host_group if host else None)
 
     def recv_from(self, shape, dtype, src: int, host: bool = False) -> torch.Tensor:
         """The tensor rank ``src`` sends, on this rank's device (on the host
         with ``host``)."""
         buf = torch.empty(shape, dtype=dtype, device=self._wire(host))
-        dist.recv(buf, src=src, group=self.host_group if host else None)
+        with self._collective("recv", _nbytes(buf)):
+            dist.recv(buf, src=src, group=self.host_group if host else None)
         return buf if host else buf.to(self.device)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def env_spec() -> Optional[dict]:

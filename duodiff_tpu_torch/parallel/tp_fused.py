@@ -1,5 +1,8 @@
 """Tensor-parallel fused sublayers over a model group (counterpart of
-``duodiff_tpu/parallel/tp_fused.py``).
+``duodiff_tpu/parallel/tp_fused.py``), and the differentiable collectives
+of every tensor-parallel shard (:func:`replicated`, :func:`sum_over_shards`,
+:func:`gather_shards`), which the unfused block, the time embedding and the
+early-exit heads and probes use too (Megatron's f and g).
 
 Each rank of a model group holds its shard of a block: the q, k and v
 columns of H / mp whole heads (A = D / mp) and the matching proj rows, and
@@ -60,6 +63,41 @@ class _Replicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.grid.model_sum(g.contiguous()), None
+
+
+class _GatherShards(torch.autograd.Function):
+    """Forward: the model group's shards side by side on ``dim``. Backward:
+    the gradient of the whole, summed over the model group (the shards'
+    consumers each give a part), this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, t, grid, dim):
+        ctx.grid, ctx.dim, ctx.n = grid, dim, t.shape[dim]
+        return grid.model_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.grid.model_sum(g.contiguous())
+        return g.narrow(ctx.dim, ctx.grid.model_rank * ctx.n, ctx.n), None, None
+
+
+def replicated(t: torch.Tensor, grid) -> torch.Tensor:
+    """``t``, a tensor every rank of the model group holds whole, as the
+    input of shard-local work: its gradient is summed over the model group."""
+    return _Replicated.apply(t, grid)
+
+
+def sum_over_shards(partial: torch.Tensor, grid) -> torch.Tensor:
+    """The shards' partials summed over the model group, whose gradient each
+    partial takes whole."""
+    return _SumOverShards.apply(partial, grid)
+
+
+def gather_shards(t: torch.Tensor, grid, dim: int) -> torch.Tensor:
+    """The model group's shards ``t`` put together on ``dim`` (one
+    all-gather), as the input of shard-local work that reads the whole
+    (its gradient is summed over the model group, then sliced)."""
+    return _GatherShards.apply(t, grid, dim)
 
 
 def _finish(x, total, bias):

@@ -64,8 +64,9 @@ pair of which only one config is latent is refused.
 Under ``python -m torch.distributed.run --nproc_per_node N`` the CLI samples
 on the (data, model) grid of ``parallel/mesh.py``: ``--model_parallel M``
 shards every block's heads and hidden columns over groups of M ranks (the
-batch must divide the N / M data shards; not with ``fused_int8``, whose
-kernels have no shard form, nor with the unfused blocks); without it a batch
+batch must divide the N / M data shards; with ``fused`` or the unfused
+blocks of ``pallas`` and ``xla``, not with ``plain`` or ``fused_int8``,
+which have no shard form); without it a batch
 that divides N runs data-parallel, any other whole on every rank. Every rank
 draws the global batch's noise and labels from the shared generator and
 keeps its rows (``diffusion/sampling.py:RowDraws``), so the samples are
@@ -224,10 +225,9 @@ def check_parallel_flags(args, attn_impl: str) -> None:
     if mp > 1 and attn_impl in ("fused_int8", "plain_int8"):
         raise SystemExit(f"--attn_impl {attn_impl} does not combine with --model_parallel: the "
                          "int8 kernels K11 / K12 have no tensor-parallel shard form")
-    if mp > 1 and attn_impl != "fused":
-        raise SystemExit(f"--attn_impl {attn_impl} with --model_parallel: only fused has a "
-                         "tensor-parallel form (the unfused block under tensor parallelism is "
-                         "not ported yet)")
+    if mp > 1 and attn_impl not in ("fused", "pallas", "xla"):
+        raise SystemExit(f"--attn_impl {attn_impl} with --model_parallel: only fused, pallas "
+                         "and xla have a tensor-parallel form")
 
 
 def class_labels(args, num_classes: int, generator: torch.Generator):

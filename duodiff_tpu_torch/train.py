@@ -40,7 +40,11 @@ Data and tensor parallelism run under ``python -m torch.distributed.run``:
 forms a (data 2, model 2) grid (``parallel/mesh.py``); ``--multihost`` lets
 the grid span nodes (``--nnodes``), the model groups staying on one node.
 Without the torchrun environment the run is one process, as it always was.
-``--fsdp`` is refused with a message.
+``--fsdp`` cuts every leaf of at least ``--fsdp_min_size`` elements over the
+data group, by the JAX trainer's rule (``parallel/fsdp.py``), with AdamW's
+moments and the EMA; it composes with ``--model_parallel`` and shards
+nothing (and says so) when the data group is 1. The unfused block
+(``--attn_impl pallas`` / ``xla``) runs under ``--model_parallel`` too.
 Checkpoints land in ``<log_path>/<exp_name>/<save_name>_last/checkpoint.pth``;
 ``python -m duodiff_tpu_torch.sample --checkpoint_path`` (``eesample`` for an
 early-exit model) loads that file.
@@ -146,8 +150,12 @@ def get_args(argv=None):
     p.add_argument("--model_parallel", type=int, default=1,
                    help="Tensor-parallel degree: shard the heads and the MLP hidden columns "
                         "over groups of this many ranks (under torch.distributed.run)")
-    p.add_argument("--fsdp", action="store_true", default=False)
-    p.add_argument("--fsdp_min_size", type=int, default=16384)
+    p.add_argument("--fsdp", action="store_true", default=False,
+                   help="Cut the large parameters, AdamW's moments and the EMA over the data "
+                        "ranks (ZeRO-3: gathered around each block, gradients "
+                        "reduce-scattered)")
+    p.add_argument("--fsdp_min_size", type=int, default=16384,
+                   help="--fsdp leaves a parameter of fewer elements whole on every rank")
     p.add_argument("--multihost", action="store_true", default=False,
                    help="Let the torch.distributed.run grid span nodes")
     # Device

@@ -17,11 +17,15 @@ the norm of every gradient.
 
 On a process grid (``parallel/mesh.py``) the gradients are averaged over the
 data group after the backward, as one flat all-reduce that overlaps nothing
-(no DDP buckets); the global norm sums the squares of a tensor-parallel
-shard's gradients over the model group and a replicated one's once; the
-finite flag of ``skip_nonfinite`` is agreed over every rank; AdamW and the
-EMA stay local to the shard. A step draws the global batch's timesteps and
-noise and keeps its rows, so it computes what one process computes for them.
+(no DDP buckets); under FSDP (``parallel/fsdp.py``) a sharded leaf's
+gradient arrives averaged already, the rank's chunk of it (the unit's
+reduce-scatter in the backward), and only the rest are all-reduced. The
+global norm sums the squares of a tensor-parallel shard's gradients over the
+model group, an FSDP chunk's over the data group (a leaf cut both ways: over
+both), and a replicated one's once; the finite flag of ``skip_nonfinite`` is
+agreed over every rank; AdamW, the accumulation and the EMA stay local to
+the shard or chunk. A step draws the global batch's timesteps and noise and
+keeps its rows, so it computes what one process computes for them.
 """
 
 from __future__ import annotations
@@ -46,18 +50,27 @@ def tensor_norms(tensors) -> tuple[torch.Tensor, torch.Tensor]:
     return norms, torch.linalg.vector_norm(norms)
 
 
-def grid_norms(tensors, names, grid=None) -> tuple[torch.Tensor, torch.Tensor]:
+def grid_norms(tensors, names, grid=None, fsdp=frozenset()) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`tensor_norms` of a model the grid shards: a tensor-parallel
-    shard's squares are summed over the model group (one all-reduce), a
-    replicated tensor's counted once."""
+    shard's squares are summed over the model group, an FSDP chunk's (the
+    names in ``fsdp``) over the data group, a leaf cut both ways over both
+    (two all-reduces of two numbers), a replicated tensor's counted once.
+    The first result is each local tensor's norm, in order."""
     tensors = list(tensors)
-    sharded = [shard_kind(n) is not None for n in names]
-    if grid is None or grid.model <= 1 or not any(sharded):
+    tp = [grid is not None and grid.model > 1 and shard_kind(n) is not None for n in names]
+    fs = [n in fsdp for n in names]
+    if not any(tp) and not any(fs):
         return tensor_norms(tensors)
-    rep, _ = tensor_norms([t for t, s in zip(tensors, sharded) if not s])
-    shard, _ = tensor_norms([t for t, s in zip(tensors, sharded) if s])
-    shard_sq = grid.model_sum_(shard.square().sum().reshape(1))
-    return torch.cat([rep, shard]), (rep.square().sum() + shard_sq[0]).sqrt()
+    each = torch._foreach_norm(tensors)
+    zero = torch.zeros((), dtype=each[0].dtype, device=each[0].device)
+
+    def part(t_cut: bool, f_cut: bool) -> torch.Tensor:
+        picked = [n for n, a, b in zip(each, tp, fs) if a == t_cut and b == f_cut]
+        return torch.stack(picked).square().sum() if picked else zero
+
+    by_data = grid.data_sum_(torch.stack([part(False, True), part(True, True)]))
+    by_model = grid.model_sum_(torch.stack([part(True, False), by_data[1]]))
+    return torch.stack(each), (part(False, False) + by_data[0] + by_model.sum()).sqrt()
 
 
 class AdamW:
@@ -85,13 +98,15 @@ class AdamW:
     again from zero with the next window.
 
     ``grid``: clip to the global norm over the grid's shards
-    (:func:`grid_norms`) and take the finite flag agreed over every rank."""
+    (:func:`grid_norms`, with ``fsdp`` the names of the FSDP chunks) and
+    take the finite flag agreed over every rank."""
 
     EPS = 1e-8  # optax.adamw's default
 
     def __init__(self, params: dict, *, lr_schedule: Callable[[int], float], beta1: float,
                  beta2: float, weight_decay: float, max_grad_norm: float,
-                 skip_nonfinite: int = 0, grad_accum: int = 1, grid=None):
+                 skip_nonfinite: int = 0, grad_accum: int = 1, grid=None,
+                 fsdp=frozenset()):
         if grad_accum < 1 or skip_nonfinite < 0:
             raise ValueError(f"grad_accum must be >= 1 and skip_nonfinite >= 0, got "
                              f"{grad_accum} and {skip_nonfinite}")
@@ -104,6 +119,7 @@ class AdamW:
         self.skip_nonfinite = skip_nonfinite
         self.grad_accum = grad_accum
         self.grid = grid
+        self.fsdp = fsdp
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self._count = 0
@@ -135,7 +151,7 @@ class AdamW:
         clipping. Without accumulation it clips ``grads`` (in place) and
         updates; with it, it folds them into the running mean and updates
         from the mean on every ``grad_accum``-th call."""
-        norms, g_norm = grid_norms(grads, self.names, self.grid)
+        norms, g_norm = grid_norms(grads, self.names, self.grid, self.fsdp)
         if self.grad_accum == 1:
             self._update(grads, norms, g_norm)
             return g_norm
@@ -144,7 +160,8 @@ class AdamW:
         torch._foreach_add_(self.acc_grads, diff)
         self.mini_step = (self.mini_step + 1) % self.grad_accum
         if self.mini_step == 0:
-            self._update(self.acc_grads, *grid_norms(self.acc_grads, self.names, self.grid))
+            self._update(self.acc_grads,
+                         *grid_norms(self.acc_grads, self.names, self.grid, self.fsdp))
             torch._foreach_zero_(self.acc_grads)
         return g_norm
 
@@ -247,14 +264,15 @@ class AdamW:
 
 def make_optimizer(params: dict, *, lr: float, weight_decay: float, beta1: float, beta2: float,
                    max_grad_norm: float, num_warmup_steps: int, num_training_steps: int,
-                   skip_nonfinite: int = 0, grad_accum: int = 1, grid=None) -> AdamW:
+                   skip_nonfinite: int = 0, grad_accum: int = 1, grid=None,
+                   fsdp=frozenset()) -> AdamW:
     """AdamW with global-norm clipping on the cosine-warmup schedule.
     ``num_warmup_steps`` and ``num_training_steps`` count optimizer updates:
     with ``grad_accum`` the caller divides its data steps by it."""
     return AdamW(params,
                  lr_schedule=cosine_schedule_with_warmup(lr, num_warmup_steps, num_training_steps),
                  beta1=beta1, beta2=beta2, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
-                 skip_nonfinite=skip_nonfinite, grad_accum=grad_accum, grid=grid)
+                 skip_nonfinite=skip_nonfinite, grad_accum=grad_accum, grid=grid, fsdp=fsdp)
 
 
 @dataclasses.dataclass
@@ -317,6 +335,9 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     unweighted term under ``use_unweighted_loss``), and the metrics are its
     parts: ``train_loss``, ``regular_train_loss``, ``classifier_train_loss``,
     ``weighted_train_loss``, ``unweighted_loss``. Such a model takes no teacher.
+    Its ``L_u_t``, a sum over the batch, is scaled on a data rank's rows by
+    the global batch over the rows, so that the data group's mean of the
+    ranks' losses, and of their gradients, is one process's.
 
     Distillation: with a ``teacher`` (in eval mode, operands packed) the
     loss is ``alpha * MSE(student, teacher) + (1 - alpha) * task``, the
@@ -332,9 +353,12 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     ``rows = (lo, hi, total)``: the batch is rows lo:hi of a global batch of
     ``total``; the step draws the global batch's timesteps, noise and drop
     mask and keeps those rows. ``grid``: the gradients are averaged over its
-    data group before the update.
+    data group before the update (an FSDP model's chunks were, in its
+    backward).
     """
     names, params = map(list, zip(*model.named_parameters()))
+    fsdp_state = getattr(model, "fsdp", None)
+    chunked = frozenset() if fsdp_state is None else fsdp_state.names
     if label_dropout > 0.0 and (not has_labels or null_label is None):
         raise ValueError("label_dropout needs labels and a null_label")
     if model_kind not in ("uvit", "deediff_uvit"):
@@ -376,6 +400,10 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
             backbone, u, g = model(noisy, t, labels)
             parts = deediff_loss(backbone, u, g, parametrization=parametrization, noise=noise,
                                  clean=clean)
+            # L_u_t sums over the batch: on a data rank's rows, scaled so that
+            # the data group's mean is the global batch's sum
+            lo, hi, total = global_rows(clean)
+            parts = (parts[0], parts[1] * (total / (hi - lo)), *parts[2:])
             loss = total_deediff_loss(parts, use_unweighted_loss)
             return loss, {"train_loss": loss, "regular_train_loss": parts[0],
                           "classifier_train_loss": parts[1], "weighted_train_loss": parts[2],
@@ -411,7 +439,7 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
         if opt_names == names:
             g_norm = state.optimizer.step(grads)
         else:
-            g_norm = grid_norms(grads, names, grid)[1]
+            g_norm = grid_norms(grads, names, grid, chunked)[1]
             by_name = dict(zip(names, grads))
             state.optimizer.step([by_name[n] for n in opt_names])
         state.update_ema()
@@ -424,7 +452,7 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
             drop = drop_mask(batch, step)
         metrics, grads = backward(batch, timesteps, noise, drop)
         if grid is not None:
-            grid.data_mean_(grads)
+            grid.data_mean_([g for n, g in zip(names, grads) if n not in chunked])
         metrics["grad_norm"] = update(state, grads)
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -21,12 +21,20 @@ accumulation window, written in the background with
 
 Under ``python -m torch.distributed.run`` the run forms the (data, model)
 grid of ``parallel/mesh.py`` (``--model_parallel``, ``--multihost``): the
-blocks are tensor-parallel shards (``fused`` by default), each data rank
-reads and draws its rows of the global batch, the gradients are averaged
-over the data group, and rank 0 alone writes the metrics, ``hparams.json``,
-the samples and the checkpoints, which hold the full state gathered from the
-shards, so any one-GPU tool loads them and a grid of any shape resumes from
-them. ``--fsdp`` is refused (:func:`refuse_unported`).
+blocks are tensor-parallel shards (``fused`` by default, or the unfused
+block of ``pallas`` / ``xla``), and so are the time embedding's MLP and the
+early-exit heads and probes by JAX's rules; each data rank reads and draws
+its rows of the global batch, the gradients are averaged over the data
+group, and rank 0 alone writes the metrics, ``hparams.json``, the samples
+and the checkpoints, which hold the full state gathered from the shards, so
+any one-GPU tool loads them and a grid of any shape resumes from them.
+``--fsdp`` (``--fsdp_min_size``) also cuts every large leaf over the data
+group, with the optimizer's moments and the EMA (``parallel/fsdp.py``): the
+weights are gathered around each block's forward and again for its
+backward, the gradients reduce-scattered; with a data group of 1 it shards
+nothing and says so. Under ``--fsdp --freeze_backbone`` the frozen backbone
+takes no gradient at all (it is gathered, never reduce-scattered), so the
+logged ``grad_norm`` is the trained leaves' norm.
 
 Deliberate difference: the in-training samples go to a PNG grid beside the
 metrics, not to TensorBoard (an RGBA grid of the undecoded latents for a
@@ -49,6 +57,7 @@ from duodiff_tpu_torch.diffusion.sampling import ddpm_loop
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.models.early_exit import EarlyExitUViT, init_early_exit_uvit
 from duodiff_tpu_torch.models.uvit import init_uvit
+from duodiff_tpu_torch.parallel import fsdp
 from duodiff_tpu_torch.parallel.mesh import training_grid
 from duodiff_tpu_torch.training.checkpointer import Checkpointer
 from duodiff_tpu_torch.training.train_state import (
@@ -69,23 +78,15 @@ from duodiff_tpu_torch.utils.train_utils import MetricsLogger
 
 ENCODE_STREAM = 7  # the JAX trainer's fold_in constant for the encode's draw
 
-# flag -> (is it set?, what it needs): refused until that machinery is ported
-_UNPORTED = {
-    "fsdp": (bool, "multi-GPU parameter sharding (FSDP)"),
-}
+TP_IMPLS = (None, "auto", "fused", "pallas", "xla", "pallas_plain")
 
 
 def refuse_unported(args) -> None:
-    """Raise ValueError for any flag whose machinery is not ported yet."""
-    for flag, (is_set, needs) in _UNPORTED.items():
-        value = getattr(args, flag, None)
-        if value is not None and is_set(value):
-            raise ValueError(f"--{flag} {value!r} needs {needs}, which is not ported yet")
+    """Raise ValueError for a combination of flags the trainer cannot run."""
     impl = getattr(args, "attn_impl", None)
-    if (getattr(args, "model_parallel", 1) or 1) > 1 and impl not in (None, "auto", "fused"):
-        raise ValueError(f"--attn_impl {impl} with --model_parallel: only fused has a "
-                         "tensor-parallel form (the unfused block under tensor parallelism is "
-                         "not ported yet)")
+    if (getattr(args, "model_parallel", 1) or 1) > 1 and impl not in TP_IMPLS:
+        raise ValueError(f"--attn_impl {impl} with --model_parallel: only fused, pallas and xla "
+                         "have a tensor-parallel form")
     model = getattr(args, "model", "uvit")
     if model != "deediff_uvit":
         for flag in ("load_backbone", "freeze_backbone"):
@@ -165,7 +166,7 @@ class Trainer:
             num_warmup_steps=args.num_warmup_steps,
             num_training_steps=max(args.n_steps // grad_accum, 1),
             skip_nonfinite=getattr(args, "skip_nonfinite", 0) or 0, grad_accum=grad_accum,
-            grid=self.grid,
+            grid=self.grid, fsdp=self.fsdp_shapes.keys(),
         )
         self.state = TrainState.create(self.model, optimizer, ema_decay=args.ema_decay or 0.0)
         self.checkpointer = Checkpointer(args.log_path, args.exp_name,
@@ -229,7 +230,31 @@ class Trainer:
             print(f"Loading backbone from {args.load_backbone}")
             load_backbone(args.load_backbone, self.model.uvit)
         self.model.shard_(self.grid)
+        self.fsdp_shapes = {}
+        if getattr(args, "fsdp", False):
+            self._shard_fsdp()
         self.model.to(self.device).train()
+
+    def _shard_fsdp(self) -> None:
+        """--fsdp: cut the large leaves over the data group (a no-op, said
+        so, with a data group of 1)."""
+        args, grid, model = self.args, self.grid, self.model
+        min_size = getattr(args, "fsdp_min_size", 16384)
+        if getattr(args, "freeze_backbone", False):
+            model.uvit.requires_grad_(False)  # gathered, never reduce-scattered
+        before = sum(p.numel() for p in model.parameters())
+        state = fsdp.shard_model(model, grid, min_size, self.model_config.num_heads)
+        if state is None:
+            if grid.is_main:
+                print(f"--fsdp: the data group is 1 (grid data {grid.data}, model {grid.model}), "
+                      "so FSDP shards nothing", flush=True)
+            return
+        self.fsdp_shapes = state.shapes
+        after = sum(p.numel() for p in model.parameters())
+        if grid.is_main:
+            print(f"--fsdp: {len(state.shapes)} leaves of >= {min_size} elements cut over "
+                  f"{grid.data} data ranks, {len(state.units)} blocks and the root; parameters "
+                  f"a rank {before} -> {after}", flush=True)
 
     def _init_teacher(self):
         """Optional distillation teacher: a frozen model in eval mode, its
@@ -289,18 +314,19 @@ class Trainer:
             return
         print(f"Loading training state from {path}")
         restored = Checkpointer.restore(path)
-        grid = self.grid
+        grid, shapes = self.grid, self.fsdp_shapes
         self.model.load_state_dict(
-            shard_state_dict(self._from_saved(restored["model_state_dict"]), grid), strict=True)
+            shard_state_dict(self._from_saved(restored["model_state_dict"]), grid, shapes),
+            strict=True)
         optimizer = dict(restored["optimizer"])
         for key in ("mu", "nu", "acc_grads"):
             if key in optimizer:
-                optimizer[key] = shard_state_dict(optimizer[key], grid)
+                optimizer[key] = shard_state_dict(optimizer[key], grid, shapes)
         self.state.optimizer.load_state_dict(optimizer)
         if self.state.ema is not None:
             ema = restored.get("ema_state_dict")
             if ema is not None:
-                ema = shard_state_dict(self._from_saved(ema), grid)
+                ema = shard_state_dict(self._from_saved(ema), grid, shapes)
             else:
                 print("Checkpoint has no EMA params; starting EMA from the restored params")
                 ema = dict(self.model.named_parameters())
@@ -438,7 +464,8 @@ class Trainer:
     def _log_samples(self, step: int) -> None:
         """Sample ``--n_samples`` images of ``--sample_height`` x
         ``--sample_width`` from seed ``--sample_seed`` (:func:`sample_rows`),
-        with the EMA weights when an EMA is kept, and write
+        with the EMA weights when an EMA is kept (under FSDP the chunks,
+        then gathered whole for the sampling), and write
         ``sample_stats_step{step}.npy`` (T, 2), for an early-exit model
         ``sample_classifier_outputs_step{step}.npy`` (T, depth, n_samples),
         their means as scalars, and ``samples_step{step}.png``, the grid."""
@@ -459,8 +486,9 @@ class Trainer:
                 p.copy_(self.state.ema[n])
         model.eval()
         try:
-            model.pack_for_kernels()
-            x, probe_rows, stat_rows = sample_rows(model, self.schedule, x, generator, y)
+            with fsdp.full_params(model):
+                model.pack_for_kernels()
+                x, probe_rows, stat_rows = sample_rows(model, self.schedule, x, generator, y)
         finally:
             if live is not None:
                 for n, p in model.named_parameters():
@@ -498,14 +526,14 @@ class Trainer:
         """Rank 0 writes the full state, gathered from the shards first (also
         before an asynchronous write's thread starts); every rank then waits
         at a barrier. Returns the checkpoint's directory on rank 0."""
-        grid = self.grid
+        grid, shapes = self.grid, self.fsdp_shapes
         optimizer = self.state.optimizer.state_dict()
         for key in ("mu", "nu", "acc_grads"):
             if key in optimizer:
-                optimizer[key] = gather_state_dict(optimizer[key], grid)
-        model = gather_state_dict(self.model.state_dict(), grid)
+                optimizer[key] = gather_state_dict(optimizer[key], grid, shapes)
+        model = gather_state_dict(self.model.state_dict(), grid, shapes)
         ema = None if self.state.ema is None else self._to_saved(
-            gather_state_dict(self.state.ema, grid))
+            gather_state_dict(self.state.ema, grid, shapes))
         path = None
         if grid.is_main:
             path = self.checkpointer.save(

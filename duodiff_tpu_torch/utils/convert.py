@@ -403,60 +403,99 @@ def export_inception(params: Mapping, prefix: str = "") -> dict[str, np.ndarray]
 _BLOCK_PREFIX = re.compile(r"(?:^|\.)(?:in_blocks\.\d+|mid_block|out_blocks\.\d+)\.(.+)$")
 BLOCK_SHARD_KINDS = {"attn.qkv.weight": "qkv", "attn.qkv.bias": "qkv", "attn.proj.weight": "cols",
                      "mlp.fc1.weight": "rows", "mlp.fc1.bias": "rows", "mlp.fc2.weight": "cols"}
+# the rest of _TP_RULES and _TP_RULES_STACKED, by the name's last parts: the
+# time embedding's fc1 rows (column-parallel; its bias stays whole, as JAX
+# keeps it) and fc2 columns (row-parallel); the heads' decoder over D
+# (row-parallel, "deep": dim 2 of the stack); the attention probes' kv rows,
+# the k and the v halves each cut ("kv"), and cls_fc1's rows and bias and
+# cls_fc2's weight over D ("cols": dim 1 of the stack)
+_OTHER_SHARD_KINDS = {"time_embed.0.weight": "rows", "time_embed.2.weight": "cols",
+                      "heads.decoder_weight": "deep", "probes.kv_weight": "kv",
+                      "probes.kv_bias": "kv", "probes.fc1_weight": "cols",
+                      "probes.fc1_bias": "cols", "probes.fc2_weight": "cols"}
+_OTHER_PREFIX = re.compile(r"(?:^|\.)(" + "|".join(re.escape(k) for k in _OTHER_SHARD_KINDS)
+                           + r")$")
+# kind -> (the dim it cuts, the runs along that dim each cut into shards)
+_KIND_DIMS = {"rows": (0, 1), "cols": (1, 1), "deep": (2, 1), "qkv": (0, 3), "kv": (1, 2)}
 
 
 def shard_kind(name: str) -> Optional[str]:
-    """How tensor parallelism cuts the state-dict entry ``name``: "qkv",
-    "rows", "cols", or None (replicated)."""
+    """How tensor parallelism cuts the state-dict entry ``name``: a kind of
+    ``_KIND_DIMS``, or None (replicated)."""
     m = _BLOCK_PREFIX.search(name)
-    return None if m is None else BLOCK_SHARD_KINDS.get(m.group(1))
+    if m is not None:
+        return BLOCK_SHARD_KINDS.get(m.group(1))
+    m = _OTHER_PREFIX.search(name)
+    return None if m is None else _OTHER_SHARD_KINDS[m.group(1)]
 
 
 def shard_tensor(kind: str, t: torch.Tensor, rank: int, shards: int) -> torch.Tensor:
     """Shard ``rank`` of ``shards`` of a full tensor of a kind of
-    :func:`shard_kind` (a contiguous copy)."""
-    if kind == "qkv":  # (3A, ...) -> the rows of heads [rank] of each of q, k, v
-        part = t.reshape(3, shards, t.shape[0] // (3 * shards), *t.shape[1:])[:, rank]
-        return part.reshape(-1, *t.shape[1:]).clone()
-    if kind == "rows":
-        return t.reshape(shards, t.shape[0] // shards, *t.shape[1:])[rank].clone()
-    return t.reshape(t.shape[0], shards, t.shape[1] // shards)[:, rank].clone()
+    :func:`shard_kind` (a contiguous copy): along the kind's dim, each of
+    its runs (q, k and v of "qkv"; k and v of "kv") cut into ``shards``
+    pieces, this rank's piece of each."""
+    dim, runs = _KIND_DIMS[kind]
+    lead, n, rest = t.shape[:dim], t.shape[dim], t.shape[dim + 1:]
+    part = t.reshape(*lead, runs, shards, n // (runs * shards), *rest).select(dim + 1, rank)
+    return part.reshape(*lead, -1, *rest).clone()
+
+
+def full_shape(kind: str, shape, shards: int) -> tuple:
+    """The full tensor's shape from one of its ``shards`` shards' ``shape``."""
+    dim = _KIND_DIMS[kind][0]
+    return (*shape[:dim], shape[dim] * shards, *shape[dim + 1:])
 
 
 def unshard_tensor(kind: str, parts: list) -> torch.Tensor:
     """The full tensor from its shards, in rank order (the inverse of
     :func:`shard_tensor`)."""
-    if kind == "qkv":
-        rest = parts[0].shape[1:]
-        return torch.cat([p.reshape(3, -1, *rest) for p in parts], dim=1).reshape(-1, *rest)
-    return torch.cat(parts, dim=0 if kind == "rows" else 1)
+    dim, runs = _KIND_DIMS[kind]
+    p0 = parts[0]
+    lead, n, rest = p0.shape[:dim], p0.shape[dim], p0.shape[dim + 1:]
+    split = [p.reshape(*lead, runs, n // runs, *rest) for p in parts]
+    return torch.cat(split, dim=dim + 1).reshape(*lead, -1, *rest)
 
 
-def shard_state_dict(full: Mapping, grid) -> dict:
+def shard_state_dict(full: Mapping, grid, fsdp_shapes: Optional[Mapping] = None) -> dict:
     """This rank's shard of a full state dict (or of a dict of optimizer
-    moments under the same names) under the grid's tensor parallelism; the
-    dict as it is without it. A checkpoint always holds the full one."""
-    if grid.model <= 1:
-        return dict(full)
-    return {k: (v if shard_kind(k) is None
-                else shard_tensor(shard_kind(k), v, grid.model_rank, grid.model))
-            for k, v in full.items()}
+    moments under the same names): the tensor-parallel shard under the
+    grid's model group, then, for the names of ``fsdp_shapes`` (the FSDP
+    leaves, :mod:`duodiff_tpu_torch.parallel.fsdp`), this data rank's flat
+    chunk of that. The dict as it is on a grid of one. A checkpoint always
+    holds the full one."""
+    out = dict(full)
+    if grid.model > 1:
+        out = {k: (v if shard_kind(k) is None
+                   else shard_tensor(shard_kind(k), v, grid.model_rank, grid.model))
+               for k, v in out.items()}
+    for k in fsdp_shapes or ():
+        if k in out:
+            out[k] = out[k].reshape(grid.data, -1)[grid.data_rank].clone()
+    return out
 
 
-def gather_state_dict(shard: Mapping, grid) -> dict:
+def gather_state_dict(shard: Mapping, grid, fsdp_shapes: Optional[Mapping] = None) -> dict:
     """The full state dict from every rank's :func:`shard_state_dict`, on the
     CPU, on every active rank (every one must call it, with the same names
-    in the same order); the dict as it is without tensor parallelism."""
-    if grid.model <= 1:
+    in the same order); the dict as it is on a grid of one. A leaf of
+    ``fsdp_shapes`` (name -> its tensor-parallel shard's shape) is first put
+    together from its data group's chunks."""
+    fsdp_shapes = fsdp_shapes or {}
+    if grid.model <= 1 and not fsdp_shapes:
         return dict(shard)
     out = {}
     for k, v in shard.items():
         v = v.detach().cpu()
-        kind = shard_kind(k)
-        if kind is None:
+        kind = shard_kind(k) if grid.model > 1 else None
+        if kind is None and k not in fsdp_shapes:
             out[k] = v
             continue
-        parts = grid.gather_host(v)
-        row = grid.data_rank * grid.model
-        out[k] = unshard_tensor(kind, parts[row:row + grid.model])
+        parts = grid.gather_host(v)  # rank d * model + m holds (data rank d, model rank m)
+        if k in fsdp_shapes:
+            parts = [torch.cat(parts[m::grid.model]).reshape(fsdp_shapes[k])
+                     for m in range(grid.model)]
+        else:
+            row = grid.data_rank * grid.model
+            parts = parts[row:row + grid.model]
+        out[k] = parts[0] if kind is None else unshard_tensor(kind, parts)
     return out

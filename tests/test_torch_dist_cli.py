@@ -10,16 +10,21 @@ data, against their one-process runs:
   port from torch's, so the port's runs are held to its one-process run,
   whose step tests/test_torch_train_step.py holds against JAX's);
 - gradient accumulation and the non-finite check under tensor parallelism;
+- ``--fsdp`` (2 ranks: data 2), alone and with ``--grad_accum 2
+  --skip_nonfinite 2``: the losses within rtol 2e-4 of one process's;
 - a tensor-parallel checkpoint: the full state dict under the reference's
   names, resumed by a tensor-parallel run to the same losses and by a
-  one-process run within rtol 2e-4;
+  one-process run within rtol 2e-4; an FSDP checkpoint, full too, resumed
+  by one process and by a tensor-parallel grid, and a tensor-parallel one
+  by an FSDP run;
 - the data size dropping to a divisor of the batch on one node, the rank
   left over waiting;
 - ``sample``: data-parallel samples equal to the one-process run's to the
   bit, ``--model_parallel 2`` within 2 pixel levels of them (JAX's
-  ``test_sampler_cli_tensor_parallel``); ``eesample --model_parallel 2``
-  writes finite diagnostics;
-- the refusals: int8 or an unfused block with tensor parallelism,
+  ``test_sampler_cli_tensor_parallel``), with the fused block and with the
+  unfused ``pallas`` block; ``eesample --model_parallel 2`` writes finite
+  diagnostics;
+- the refusals: int8 or ``plain`` with tensor parallelism,
   ``--pipeline_parallel`` with ``--model_parallel``, the dynamic-threshold route only for
   ``eesample``'s tensor parallelism, a partial torchrun environment, a grid
   that does not fit, a batch that does not divide the data shards.
@@ -134,6 +139,84 @@ def test_tp_checkpoint_is_full_and_resumes_anywhere(files, one_process):
     np.testing.assert_allclose(trainer.logs[-1]["train_loss"], unbroken[4], rtol=2e-4)
 
 
+FSDP = ("--fsdp", "--fsdp_min_size", "64")
+
+
+@pytest.mark.parametrize("extra", [(), ("--grad_accum", "2", "--skip_nonfinite", "2")],
+                         ids=["plain", "accum_skip"])
+def test_fsdp_losses_equal_the_one_process_run(files, one_process, extra):
+    """--fsdp over 2 data ranks: every large leaf, its AdamW moments cut in
+    two; the losses are one process's (with accumulation and the finite
+    check, the one-process run's with the same flags)."""
+    exp = "fsdp_" + ("_".join(extra).replace("-", "") or "plain")
+    _, outs = _world(files, 2, ["-m", "duodiff_tpu_torch.train",
+                                *_train_argv(files, exp, 4, *FSDP, *extra)])
+    assert "--fsdp: " in outs[0] and "cut over 2 data ranks" in outs[0]
+    want = one_process if not extra else {
+        log["step"]: log["train_loss"]
+        for log in train.main(_train_argv(files, exp + "_one", 4, *extra)).logs}
+    got = _losses(files, exp)
+    np.testing.assert_allclose([got[s] for s in (1, 4)], [want[s] for s in (1, 4)], rtol=2e-4)
+
+
+@pytest.mark.parametrize("case", ["deediff", "frozen", "deediff_data_parallel"])
+def test_fsdp_early_exit_runs_equal_one_process(files, case):
+    """--fsdp with the early-exit model (its heads and probes cut too), with
+    --use_checkpoint, --async_checkpoint, the EMA and the in-training sampler
+    (the chunks gathered whole for it), and with a frozen backbone (gathered,
+    never reduce-scattered); and the early-exit model data-parallel without
+    FSDP (its L_u_t, a sum over the batch, is the global batch's): the losses
+    are one process's."""
+    extra = {"deediff": ["--model", "deediff_uvit", "--use_checkpoint", "--async_checkpoint",
+                         "--ema_decay", "0.9", "--log_every_n_steps", "4", "--n_samples", "2",
+                         "--num_timesteps", "10"],
+             "frozen": ["--model", "deediff_uvit", "--freeze_backbone"],
+             "deediff_data_parallel": ["--model", "deediff_uvit"]}[case]
+    exp = f"fsdp_{case}"
+    fsdp = () if case == "deediff_data_parallel" else FSDP
+    _world(files, 2, ["-m", "duodiff_tpu_torch.train", *_train_argv(files, exp, 4, *fsdp, *extra)])
+    one = train.main(_train_argv(files, exp + "_one", 4, *extra))
+    got = _losses(files, exp)
+    np.testing.assert_allclose([got[s] for s in (1, 4)], [log["train_loss"] for log in one.logs],
+                               rtol=2e-4)
+    if case == "deediff":  # the sampler's outputs, and the checkpoint's full EMA
+        ckpt = files["logs"] / exp / "cifar10_deediff_uvit_last" / CHECKPOINT_FILE
+        state = torch.load(ckpt, weights_only=True)
+        assert state["ema_state_dict"]["uvit.mid_block.attn.qkv.weight"].shape == (96, 32)
+        np.testing.assert_allclose(np.load(files["logs"] / exp / "sample_stats_step4.npy"),
+                                   np.load(one.log_path / "sample_stats_step4.npy"), rtol=2e-3,
+                                   atol=1e-4)
+
+
+def test_fsdp_checkpoint_is_full_and_resumes_across_grids(files, one_process):
+    """An --fsdp run's checkpoint holds the full state (the model, AdamW's
+    moments) under the reference's names: one process and a
+    --model_parallel 2 grid resume it to the unbroken run's last loss; an
+    --fsdp run resumes a tensor-parallel checkpoint the same way."""
+    _world(files, 2, ["-m", "duodiff_tpu_torch.train",
+                      *_train_argv(files, "fsdp2", 4, *FSDP, "--save_new_every_n_steps", "2")])
+    unbroken = _losses(files, "fsdp2")
+    step2 = files["logs"] / "fsdp2" / "cifar10_uvit_step-2"
+    state = torch.load(step2 / CHECKPOINT_FILE, weights_only=True)
+    assert state["model_state_dict"]["mid_block.attn.qkv.weight"].shape == (96, 32)
+    assert state["optimizer"]["nu"]["mid_block.mlp.fc2.weight"].shape == (32, 128)
+    load_model(files["config"], str(step2 / CHECKPOINT_FILE), device="cpu")
+    one = train.main(_train_argv(files, "fsdp2_one", 4, "--load_checkpoint_path", str(step2)))
+    np.testing.assert_allclose(one.logs[-1]["train_loss"], unbroken[4], rtol=2e-4)
+    _world(files, 2, ["-m", "duodiff_tpu_torch.train", "--model_parallel", "2",
+                      *_train_argv(files, "fsdp2_tp", 4, "--load_checkpoint_path", str(step2))])
+    np.testing.assert_allclose(_losses(files, "fsdp2_tp")[4], unbroken[4], rtol=2e-4)
+    # the other way round: a tensor-parallel run's checkpoint in an FSDP run
+    _world(files, 2, ["-m", "duodiff_tpu_torch.train", "--model_parallel", "2",
+                      *_train_argv(files, "tp_for_fsdp", 4, "--save_new_every_n_steps", "2")])
+    tp_step2 = files["logs"] / "tp_for_fsdp" / "cifar10_uvit_step-2"
+    _world(files, 2, ["-m", "duodiff_tpu_torch.train",
+                      *_train_argv(files, "fsdp_from_tp", 4, *FSDP, "--load_checkpoint_path",
+                                   str(tp_step2))])
+    np.testing.assert_allclose(_losses(files, "fsdp_from_tp")[4],
+                               _losses(files, "tp_for_fsdp")[4], rtol=2e-4)
+
+
 def test_train_data_size_drops_to_a_divisor_of_the_batch(files):
     """Batch 6 over 4 ranks of one node: 3 data ranks of 2 rows, the fourth
     waits; the loss is the one-process run's."""
@@ -166,6 +249,19 @@ def test_sample_grids_against_one_process(files, tmp_path):
     assert sorted(p.name for p in (tmp_path / "dp").glob("*.png")) == sorted(
         p.name for p in (tmp_path / "one").glob("*.png"))
     assert one["samples"].shape == (4, 32, 32, 3)
+
+
+def test_sample_unfused_tensor_parallel_against_one_process(files, tmp_path):
+    """--attn_impl pallas --model_parallel 2: the unfused block around the
+    attention kernels on each rank's 2 of the 4 heads (their plain versions
+    on the CPU), within 2 pixel levels of the one-process run's."""
+    extra = ("--attn_impl", "pallas")
+    sample.main(_sample_argv(files, tmp_path / "one", *extra))
+    _world(files, 2, ["-m", "duodiff_tpu_torch.sample",
+                      *_sample_argv(files, tmp_path / "tp", *extra, "--model_parallel", "2")])
+    one, tp = (np.load(tmp_path / k / "samples.npy").astype(np.int32) for k in ("one", "tp"))
+    assert tp.shape == (4, 32, 32, 3)
+    assert np.max(np.abs(tp - one)) <= 2
 
 
 def test_eesample_tensor_parallel(files, tmp_path):
@@ -201,15 +297,17 @@ def test_refusals(files, tmp_path, monkeypatch, case):
         "sample_int8_tp": (lambda: sample.main(_sample_argv(
             files, out, "--attn_impl", "fused_int8", "--model_parallel", "2")),
             "fused_int8 does not combine with --model_parallel"),
+        # the unfused block now has a tensor-parallel form: what stops this run
+        # is the grid's own refusal of --model_parallel 2 on one process
         "sample_unfused_tp": (lambda: sample.main(_sample_argv(
             files, out, "--attn_impl", "xla", "--model_parallel", "2")),
-            "unfused block under tensor parallelism"),
+            "--model_parallel 2 does not divide 1 process"),
         "sample_plain_tp": (lambda: sample.main(_sample_argv(
             files, out, "--attn_impl", "plain", "--model_parallel", "2")),
-            "only fused has a tensor-parallel form"),
+            "only fused, pallas and xla have a tensor-parallel form"),
         "train_plain_tp": (lambda: train.main(_train_argv(files, "x", 2, "--attn_impl", "plain",
                                                           "--model_parallel", "2")),
-                           "only fused has a tensor-parallel form"),
+                           "only fused, pallas and xla have a tensor-parallel form"),
         "sample_pipeline": (lambda: sample.main(_sample_argv(
             files, out, "--config_path_late", files["config"], "--t_switch", "4",
             "--pipeline_parallel", "--model_parallel", "2")),

@@ -11,9 +11,17 @@ same numpy inputs and crossed-over weights:
 - a depth-3 U-ViT and a depth-3 early-exit U-ViT, their blocks sharded:
   the forwards against JAX's tensor-parallel fused models, the U-ViT's
   gradients against JAX's;
+- the unfused blocks (``pallas``, the attention kernels K9 / K10 on a
+  rank's H / mp heads, and ``xla``) under tensor parallelism: the forward
+  and the gradients of the same U-ViT against JAX's;
+- a U-ViT with the time embedding's MLP, sharded by JAX's rules (fc1
+  column-, fc2 row-parallel): forward and gradients against JAX's;
+- the early-exit model with its heads' decoder and attention probes
+  sharded (_TP_RULES_STACKED): the forward above, and the gradients of its
+  three outputs' mean squares against ``jax.grad``'s;
 - ``shard_state_dict`` and ``gather_state_dict``: the shards are the
   model's after ``shard_``, and gathered back they equal the full state
-  dict to the bit.
+  dict to the bit, for the U-ViTs and the early-exit model's new names.
 
 Worlds: 2 ranks (model 2), 4 ranks (data 2 x model 2) and 4 ranks (model
 4). Tolerances (fp32): forwards 2e-5 for the sublayers
@@ -106,6 +114,17 @@ def setup(tmp_path_factory):
     ee_params = _random_params(ee_p, seed=2)
     img, t = jnp.asarray(inp["img"]), jnp.asarray(inp["t"])
     grads = jax.grad(lambda p: jnp.mean(model_p.apply({"params": p}, img, t) ** 2))(params)
+    te_cfg = dict(CFG, mlp_time_embed=True)
+    model_te, _ = init_uvit(JaxConfig(**te_cfg), jax.random.PRNGKey(0), attn_impl="xla")
+    te_params = _random_params(model_te, seed=3)
+    te_y, te_vjp = jax.vjp(lambda p: model_te.apply({"params": p}, img, t), te_params)
+    te_grads = te_vjp(2.0 * te_y / te_y.size)[0]
+
+    def ee_loss(p):
+        backbone, u, g = ee_p.apply({"params": p}, img, t)
+        return jnp.mean(backbone ** 2) + jnp.mean(u ** 2) + jnp.mean(g ** 2)
+
+    ee_grads = jax.grad(ee_loss)(ee_params)
     # JAX's (data 4, model 2) mesh; every world of the port, model 2 or 4,
     # computes the same function
     mesh = create_mesh(shape=(4, 2))
@@ -117,6 +136,8 @@ def setup(tmp_path_factory):
         "uvit_grads": convert.uvit_state_dict_from_jax(grads), **_jax_sublayers(inp, mesh),
         "uvit_y": model_tp.apply({"params": qkv_packed_to_heads(params, H)}, img, t),
         "ee": ee_tp.apply({"params": qkv_packed_to_heads(ee_params, H)}, img, t),
+        "te_y": te_y, "te_grads": convert.uvit_state_dict_from_jax(te_grads),
+        "ee_grads": convert.early_exit_state_dict_from_jax(ee_grads, _port_config(ee_cfg)),
     }
     to_t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     data = {
@@ -124,6 +145,7 @@ def setup(tmp_path_factory):
         "t": to_t(inp["t"]), "uvit_config": CFG, "ee_config": ee_cfg,
         "uvit_sd": convert.uvit_state_dict_from_jax(params),
         "ee_sd": convert.early_exit_state_dict_from_jax(ee_params, _port_config(ee_cfg)),
+        "te_config": te_cfg, "te_sd": convert.uvit_state_dict_from_jax(te_params),
     }
     # the sublayers' parameters in torch layout: kernels (in, out) -> (out, in)
     for which in ("attn", "mlp"):
@@ -172,6 +194,12 @@ def test_sublayer_forward_and_gradients_match_jax_tp(world, which):
         np.testing.assert_allclose(g.T if g.ndim == 2 else g, want, atol=3e-4, err_msg=name)
 
 
+def _check_grads(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(_np(got[name]), _np(w), atol=3e-4, err_msg=name)
+
+
 def test_uvit_forward_matches_jax_tp(world):
     got, refs, _ = world
     np.testing.assert_allclose(_np(got["uvit_y"]), np.asarray(refs["uvit_y"]), atol=5e-5)
@@ -179,11 +207,32 @@ def test_uvit_forward_matches_jax_tp(world):
 
 def test_uvit_gradients_match_jax(world):
     got, refs, _ = world
-    want = refs["uvit_grads"]
-    assert set(got["uvit_grads"]) == set(want)
-    for name, w in want.items():
-        np.testing.assert_allclose(_np(got["uvit_grads"][name]), _np(w), atol=3e-4,
-                                   err_msg=name)
+    _check_grads(got["uvit_grads"], refs["uvit_grads"])
+
+
+# the unfused block under tensor parallelism: around K9 / K10 on the rank's
+# heads (pallas), and around plain attention (xla); both compute JAX's function
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_unfused_forward_matches_jax_tp(world, impl):
+    got, refs, _ = world
+    np.testing.assert_allclose(_np(got[f"{impl}_y"]), np.asarray(refs["uvit_y"]), atol=5e-5)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_unfused_gradients_match_jax(world, impl):
+    got, refs, _ = world
+    _check_grads(got[f"{impl}_grads"], refs["uvit_grads"])
+
+
+def test_time_embedding_shard_matches_jax(world):
+    got, refs, _ = world
+    np.testing.assert_allclose(_np(got["te_y"]), np.asarray(refs["te_y"]), atol=5e-5)
+    _check_grads(got["te_grads"], refs["te_grads"])
+
+
+def test_early_exit_gradients_match_jax(world):
+    got, refs, _ = world
+    _check_grads(got["ee_grads"], refs["ee_grads"])
 
 
 def test_early_exit_forward_matches_jax_tp(world):
@@ -195,3 +244,9 @@ def test_early_exit_forward_matches_jax_tp(world):
 def test_state_dict_shards_and_gathers_back_to_the_bit(world):
     got, _, _ = world
     assert got["shard_equal"] and got["roundtrip_equal"]
+
+
+@pytest.mark.parametrize("prefix", ["pallas_", "xla_", "te_", "ee_"])
+def test_other_state_dicts_shard_and_gather_back_to_the_bit(world, prefix):
+    got, _, _ = world
+    assert got[f"{prefix}shard_equal"] and got[f"{prefix}roundtrip_equal"]

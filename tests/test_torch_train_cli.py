@@ -184,9 +184,8 @@ def test_last_checkpoint_skips_corrupt_ones(tmp_path):
     assert ckpt.last_checkpoint().name == "cifar10_uvit_step-3"
 
 
-REFUSED = {
-    "fsdp": ["--fsdp"],
-}
+# flags still refused for want of their machinery (none since --fsdp was ported)
+REFUSED = {}
 
 # ported since; a run without the torchrun environment is refused them, with
 # what they need (the grid's own runs: tests/test_torch_dist_cli.py)
@@ -210,6 +209,8 @@ PORTED = {
                           "--num_timesteps", "10"],
     "async_checkpoint": ["--async_checkpoint"],
     "profile": ["--profile"],
+    # one process has a data group of 1: FSDP shards nothing, says so, and trains
+    "fsdp": ["--fsdp"],
 }
 
 

@@ -3,12 +3,14 @@ the ranks of a world of gloo processes on the CPU (the torchrun environment
 set by hand, the ranks meeting through a file, so that no two test workers
 contend for a port) and waits for them, ``start_world`` only starts them;
 this file run as a script is a rank of the tensor-parallel checks of
-tests/test_torch_tp.py, or with ``pipeline`` first of the pipeline checks of
-tests/test_torch_pipeline.py. Nothing here imports JAX: a rank is a plain
-PyTorch process.
+tests/test_torch_tp.py, with ``pipeline`` first of the pipeline checks of
+tests/test_torch_pipeline.py, or with ``fsdp`` first of the FSDP train
+steps of tests/test_torch_fsdp.py. Nothing here imports JAX: a rank is a
+plain PyTorch process.
 
     python tests/torch_dist_worker.py INPUTS.pth MODEL_PARALLEL OUT.pth
     python tests/torch_dist_worker.py pipeline INPUTS.pth OUT_DIR
+    python tests/torch_dist_worker.py fsdp INPUTS.pth OUT_DIR
 """
 
 from __future__ import annotations
@@ -100,11 +102,23 @@ def _sublayer(grid, data, which: str) -> dict:
             "grads": {n.split(".", 1)[1]: g for n, g in grads.items()}}
 
 
+def _grads(model, grid) -> dict:
+    """The model's gradients, summed over the data ranks and gathered."""
+    grads = [p.grad for p in model.parameters()]
+    grid.data_mean_(grads)
+    from duodiff_tpu_torch.utils.convert import gather_state_dict
+
+    return gather_state_dict({name: p.grad * grid.data for name, p in model.named_parameters()},
+                             grid)
+
+
 def _uvit(grid, data) -> dict:
-    """The depth-3 U-ViT and the early-exit U-ViT as tensor-parallel shards:
-    forwards and the U-ViT's gradients of mean(y^2) over the global batch,
-    summed over the data ranks and gathered; the shards of the U-ViT's state
-    dict gathered back."""
+    """The depth-3 U-ViT (fused, and the unfused pallas and xla blocks), a
+    U-ViT with the time embedding's MLP, and the early-exit U-ViT as
+    tensor-parallel shards: forwards and the gradients of mean(y^2) over the
+    global batch (for the early-exit model of the mean squares of its three
+    outputs), summed over the data ranks and gathered; the shards of the
+    U-ViT's and the early-exit model's state dicts gathered back."""
     import torch
 
     from duodiff_tpu_torch.config import UViTConfig
@@ -115,30 +129,48 @@ def _uvit(grid, data) -> dict:
     n = data["img"].shape[0]
     lo, hi, _ = grid.rows(n)
     img, t = data["img"][lo:hi], data["t"][lo:hi]
-    model = UViT(UViTConfig(**data["uvit_config"]), dtype=torch.float32, attn_impl="fused")
-    model.load_state_dict(data["uvit_sd"])
-    full = {k: v.clone() for k, v in model.state_dict().items()}
-    model.shard_(grid)
-    shard = model.state_dict()
-    out = {"shard_equal": all(torch.equal(shard[k], v)
-                              for k, v in shard_state_dict(full, grid).items())}
-    gathered = gather_state_dict(shard, grid)
-    out["roundtrip_equal"] = set(gathered) == set(full) and all(
-        torch.equal(gathered[k], v) for k, v in full.items())
-    model.train()
-    y = model(img, t)
-    (y.square().sum() / (y[0].numel() * n)).backward()
-    grads = [p.grad for p in model.parameters()]
-    grid.data_mean_(grads)
-    named = {name: p.grad * grid.data for name, p in model.named_parameters()}
-    out["uvit_grads"] = gather_state_dict(named, grid)
-    model.eval()
-    model.pack_for_kernels()
+
+    def roundtrip(model, prefix: str) -> dict:
+        full = {k: v.clone() for k, v in model.state_dict().items()}
+        model.shard_(grid)
+        shard = model.state_dict()
+        gathered = gather_state_dict(shard, grid)
+        return {f"{prefix}shard_equal": all(torch.equal(shard[k], v)
+                                            for k, v in shard_state_dict(full, grid).items()),
+                f"{prefix}roundtrip_equal": set(gathered) == set(full) and all(
+                    torch.equal(gathered[k], v) for k, v in full.items())}
+
+    def train_forward(model, key: str) -> None:
+        model.train()
+        y = model(img, t)
+        (y.square().sum() / (y[0].numel() * n)).backward()
+        out[f"{key}_grads"] = _grads(model, grid)
+        model.eval()
+        model.pack_for_kernels()
+        with torch.no_grad():
+            out[f"{key}_y"] = grid.gather_rows(model(img, t))
+
+    out = {}
+    for impl, key in (("fused", "uvit"), ("pallas", "pallas"), ("xla", "xla")):
+        model = UViT(UViTConfig(**data["uvit_config"]), dtype=torch.float32, attn_impl=impl)
+        model.load_state_dict(data["uvit_sd"])
+        out.update(roundtrip(model, "" if impl == "fused" else f"{impl}_"))
+        train_forward(model, key)
+    model = UViT(UViTConfig(**data["te_config"]), dtype=torch.float32, attn_impl="fused")
+    model.load_state_dict(data["te_sd"])
+    out.update(roundtrip(model, "te_"))
+    train_forward(model, "te")
+    ee = EarlyExitUViT(UViTConfig(**data["ee_config"]), dtype=torch.float32, attn_impl="fused")
+    ee.load_state_dict(data["ee_sd"])
+    out.update(roundtrip(ee, "ee_"))
+    ee.train()
+    backbone, u, g = ee(img, t)
+    loss = (backbone.square().sum() / backbone[0].numel() + u.square().sum() / u.shape[0]
+            + g.square().sum() / (g.shape[0] * g[0, 0].numel())) / n
+    loss.backward()
+    out["ee_grads"] = _grads(ee, grid)
+    ee.eval().pack_for_kernels()
     with torch.no_grad():
-        out["uvit_y"] = grid.gather_rows(model(img, t))
-        ee = EarlyExitUViT(UViTConfig(**data["ee_config"]), dtype=torch.float32, attn_impl="fused")
-        ee.load_state_dict(data["ee_sd"])
-        ee.shard_(grid).eval().pack_for_kernels()
         backbone, u, g = ee(img, t)
     out["ee"] = (grid.gather_rows(backbone), grid.gather_rows(u.t().contiguous()).t(),
                  grid.gather_rows(g.transpose(0, 1).contiguous()).transpose(0, 1))
@@ -207,6 +239,70 @@ def pipeline(inputs: str, out: str) -> None:
         torch.save(gathered, Path(out) / "samples.pth")
 
 
+def fsdp_step(inputs: str, out: str) -> None:
+    """A rank of an FSDP world: one train step of the U-ViT of INPUTS on the
+    training grid, first with ``--fsdp``'s sharding, then data-parallel, on
+    the injected timesteps and noise (this rank's rows). Every rank writes
+    ``OUT_DIR/rank{R}.pth``: each leaf's elements on this rank (parameter,
+    mu, nu, EMA) and the collectives of each step; rank 0 also the loss
+    (the data group's mean), the gradient norm and the gathered gradients
+    (averaged over the data group), parameters, EMA and mu of each run."""
+    import torch
+
+    from duodiff_tpu_torch.config import UViTConfig
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.models.uvit import UViT
+    from duodiff_tpu_torch.parallel import fsdp
+    from duodiff_tpu_torch.parallel.mesh import close, training_grid
+    from duodiff_tpu_torch.training.train_state import TrainState, make_optimizer, make_train_step
+    from duodiff_tpu_torch.utils.convert import gather_state_dict
+
+    torch.set_num_threads(1)
+    data = torch.load(inputs, weights_only=False)
+    n = data["img"].shape[0]
+    grid = training_grid(data["model_parallel"], n, "cpu")
+    lo, hi, _ = grid.rows(n)
+    record, gathered = {"rank": grid.rank, "data": grid.data, "model": grid.model}, {}
+    try:
+        for tag in ("fsdp", "dp"):
+            cfg = UViTConfig(**data["config"])
+            model = UViT(cfg, dtype=torch.float32, attn_impl=data["attn_impl"])
+            model.load_state_dict(data["sd"])
+            model.shard_(grid)
+            shapes = {}
+            if tag == "fsdp":
+                shapes = fsdp.shard_model(model, grid, data["min_size"], cfg.num_heads).shapes
+            opt = make_optimizer(dict(model.named_parameters()), grid=grid, fsdp=shapes.keys(),
+                                 **data["opt"])
+            state = TrainState.create(model, opt, ema_decay=0.9)
+            step = make_train_step(model, NoiseSchedule.create(steps=1000),
+                                   parametrization="predict_noise", seed=0, grid=grid,
+                                   rows=(lo, hi, n))
+            grid.reset_collectives()
+            metrics = step(state, {"image": data["img"][lo:hi]}, 1, data["t"][lo:hi],
+                           data["noise"][lo:hi])
+            record[f"{tag}_collectives"] = grid.reset_collectives()
+            loss = metrics["train_loss"].reshape(1).clone()
+            grid.data_mean_([loss])
+            names = [name for name, _ in model.named_parameters()]
+            record[f"{tag}_numels"] = {
+                name: (p.numel(), opt.mu[i].numel(), opt.nu[i].numel(), state.ema[name].numel())
+                for i, (name, p) in enumerate(model.named_parameters())}
+            record[f"{tag}_shapes"] = dict(shapes)
+            gathered[tag] = {
+                "loss": float(loss[0]), "grad_norm": float(metrics["grad_norm"]),
+                "params": gather_state_dict(model.state_dict(), grid, shapes),
+                "grads": gather_state_dict({name: p.grad for name, p in model.named_parameters()},
+                                           grid, shapes),
+                "ema": gather_state_dict(state.ema, grid, shapes),
+                "mu": gather_state_dict(dict(zip(names, opt.mu)), grid, shapes)}
+    finally:
+        close(grid)
+    torch.save(record, Path(out) / f"rank{grid.rank}.pth")
+    if grid.is_main:
+        torch.save(gathered, Path(out) / "gathered.pth")
+
+
 def main(inputs: str, model_parallel: str, out: str) -> None:
     import torch
 
@@ -227,5 +323,7 @@ def main(inputs: str, model_parallel: str, out: str) -> None:
 if __name__ == "__main__":
     if sys.argv[1] == "pipeline":
         pipeline(*sys.argv[2:4])
+    elif sys.argv[1] == "fsdp":
+        fsdp_step(*sys.argv[2:4])
     else:
         main(*sys.argv[1:4])
