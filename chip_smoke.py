@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17,18]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17,18,19]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
 (D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768) and of the
@@ -236,6 +236,21 @@ printing its results on its own lines:
    form on each rank) within 2 pixel levels; ``/healthz`` names the grid.
    Phase 18's launches, every rank's, are added to the records of K1, K2
    and their shard forms, and kept apart as ``launches_18``.
+19. the samplers' step graphs (``diffusion/graphs.py``; since then every
+   sampling CLI above replays them) against their eager loops, on the same
+   seeds at batch 128 and full width: (a) a 40-step DuoDiff window across
+   t_switch, bf16 dense and int8 block-cached on the committed assets; (b)
+   DDIM 10 steps at eta 0.5 with the handoff; (c) DPM-Solver++ 2M 10
+   transitions, int8, cached every 2; (d) guided ImageNet-64 with
+   ``--attn_impl pallas``, 10 steps; (e) the 8-slot batcher, 20 advances, a
+   second wave admitted mid-flight; (f) early exit, 20 steps; each equal to
+   the bit, with the same generator states and launch counts, then per step
+   kind (DDIM's and DPM-Solver++'s first step, whose models the others time,
+   left out) the CUDA-event time of 6 steps in a row (median, least, most)
+   and the profiler's idle share, graphed and eager, the captures' seconds,
+   the pool's bytes and the peak memory; (g) phase 4b's headline through the
+   CLI, eager, then graphed (``sample.main(graphs=False)``), the samples
+   equal to the bit. Its launches are not added to the record.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -480,7 +495,7 @@ PROBE_KERNELS = {
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
 PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18")
+          "15", "16", "17", "18", "19")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -2472,7 +2487,8 @@ def read_counts() -> dict:
 def run_cli(label: str, extra: list, card: str, expected: dict,
             configs=(EARLY_CONFIG, LATE_CONFIG), batch: int = MAIN_BATCH,
             check_output=None, t_switch: int | None = T_SWITCH, image_size: int = 64,
-            steps: int | None = None, random_init: bool = True) -> dict:
+            steps: int | None = None, random_init: bool = True, graphs: bool = True,
+            keep: dict | None = None) -> dict:
     """One run of the sampling CLI over the 1000-step schedule, in-process,
     with every launch counter set to 0 just before and read just after;
     checks the samples and that the counts equal ``expected`` (unlisted
@@ -2481,7 +2497,8 @@ def run_cli(label: str, extra: list, card: str, expected: dict,
     interleaving). ``check_output(folder, result)`` looks at the files before
     they go. ``image_size`` is the side of the images written (a latent
     config's decoded ones). ``random_init=False`` with a ``--checkpoint_path``
-    in ``extra`` samples a trained model."""
+    in ``extra`` samples a trained model. ``graphs=False`` runs the eager loop
+    (``sample.main``'s library switch); ``keep`` receives the CLI's result."""
     from duodiff_tpu_torch import sample
 
     with tempfile.TemporaryDirectory() as out:
@@ -2498,7 +2515,7 @@ def run_cli(label: str, extra: list, card: str, expected: dict,
         ]
         reset_counts()
         tic = time.perf_counter()
-        result = sample.main(argv)
+        result = sample.main(argv, graphs=graphs)
         wall = time.perf_counter() - tic
         launches = read_counts()
         saved = np.load(f"{out}/samples.npy")
@@ -2517,6 +2534,8 @@ def run_cli(label: str, extra: list, card: str, expected: dict,
     if not np.isfinite(samples).all():
         fail("samples are not finite")
     check_counts(launches, expected)
+    if keep is not None:
+        keep.update(result)
     return launches
 
 
@@ -2586,7 +2605,8 @@ def run_main_path(card: str) -> dict:
 
 
 def run_int8_main_path(card: str, schedule: str = CACHE_SCHEDULE, scales: str = INT8_SCALES,
-                       phase: str = "phase 4b") -> dict:
+                       phase: str = "phase 4b", graphs: bool = True,
+                       keep: dict | None = None) -> dict:
     """Phase 4b: the headline composition through the sampling CLI: depth 3
     with dynamic int8 for t = 999..700, then depth 13 with the asset's
     static MLP scales, block-cached on the committed anchor schedule,
@@ -2613,7 +2633,7 @@ def run_int8_main_path(card: str, schedule: str = CACHE_SCHEDULE, scales: str = 
         f"{handoff - anchors} cached at n_outer {N_OUTER}), tanh GELU",
         ["--attn_impl", "fused_int8", "--int8_scales_late", scales,
          "--cache_schedule", schedule, "--gelu_approx"],
-        card, expected,
+        card, expected, graphs=graphs, keep=keep,
     )
 
 
@@ -2754,11 +2774,12 @@ def run_train_path(device, card: str) -> tuple:
     return launches, medians
 
 
-def profile_steps(label: str, one_step, n: int = 3) -> None:
+def profile_steps(label: str, one_step, n: int = 3) -> dict | None:
     """torch.profiler over ``n`` calls of ``one_step``: device busy time, idle
     share, the share of every kernel family (all device events, summing to
     1; the families of ``tools/trace_step.py``) and the largest kernels by
-    name."""
+    name. Returns {"busy_ms", "window_ms", "idle"}, or None where the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2779,7 +2800,7 @@ def profile_steps(label: str, one_step, n: int = 3) -> None:
     if not busy:
         print(f"{label}: the profiler recorded no device time (idle share not measured)",
               flush=True)
-        return
+        return None
     families = {}
     for name, us in kernels.items():
         families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + us
@@ -2801,6 +2822,7 @@ def profile_steps(label: str, one_step, n: int = 3) -> None:
           + "; ".join(f"{k[:60]} {v / busy:.4f}" for k, v in by_size(kernels)[:10])
           + "; own kernels by name: "
           + "; ".join(f"{k} {v / busy:.4f}" for k, v in by_size(own)), flush=True)
+    return {"busy_ms": busy / 1e3, "window_ms": window_us / 1e3, "idle": 1 - busy / window_us}
 
 
 def profile_train_step(trainer, card: str, phase: str) -> dict:
@@ -6188,10 +6210,14 @@ def grid_server_counts(tag: str, steps: int) -> dict:
     """18b's launches on each rank: one request of GRID_SLOTS images, a
     forward of the rank's 4 rows (data-parallel) or of the whole 8 through
     the shard forms (tensor-parallel) a step; the slots all start on the
-    first round, and SERVE_STEPS_PER_POLL divides the steps."""
+    first round, and SERVE_STEPS_PER_POLL divides the steps. The slots'
+    server also runs, before it serves, its one kind of step twice with no
+    slot live (``ContinuousDiffusionBatcher.capture_graphs``: the warm-up,
+    then the capture and a replay), which the counts read after it ends
+    include; the bucket captures inside its first request."""
     if tag == "tp":
         return shard_blocks(steps * 13)
-    return bf16_blocks(steps * 13)
+    return bf16_blocks((steps + 2 * (tag == "slots")) * 13)
 
 
 def grid_client(jobs: dict, got: dict):
@@ -6526,6 +6552,359 @@ def serve_job(argv: list, rank: int, out: str) -> dict:
     return {"launches": read_counts()}
 
 
+GRAPH_WINDOW = 20          # 19a: steps on each side of t_switch
+GRAPH_SHORT_STEPS = 10     # 19b DDIM, 19c DPM-Solver++, 19d guided
+GRAPH_DDIM_ETA = 0.5
+GRAPH_EE_STEPS = 20        # 19f
+GRAPH_ADVANCES = 20        # 19e: the slot batcher's advances, SERVE_STEPS_PER_POLL steps each
+GRAPH_KIND_STEPS = 6       # steps of one kind timed, and profiled, in a row
+GRAPH_SEED = 19
+
+
+def step_graphs_for(device, graphed: bool):
+    """A run's StepGraphs that also counts its steps by kind; ``mode`` names
+    the run: "graphed" or "eager"."""
+    from duodiff_tpu_torch.diffusion.graphs import StepGraphs
+
+    class Counted(StepGraphs):
+        def __init__(self):
+            super().__init__(device, graphed)
+            self.kinds, self.mode = {}, "graphed" if graphed else "eager"
+
+        def step(self, key, body, buffers=()):
+            self.kinds[key[1]] = self.kinds.get(key[1], 0) + 1
+            super().step(key, body, buffers)
+
+    return Counted()
+
+
+def kind_name(kind) -> str:
+    return "/".join(str(k) for k in kind) if isinstance(kind, tuple) else str(kind)
+
+
+def measure_kind(one_step, reset, label: str) -> dict:
+    """GRAPH_KIND_STEPS steps of one kind in a row: each step's CUDA-event
+    time (median, least, most; the device's time from the step's first
+    launch to its last, the host's gaps included), then the profiler's idle
+    share over as many more."""
+    reset()
+    events = []
+    torch.cuda.synchronize()
+    for _ in range(GRAPH_KIND_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        one_step()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    reset()
+    prof = profile_steps(label, one_step, n=GRAPH_KIND_STEPS) or {}
+    return {"ms_median": statistics.median(ms), "ms_min": min(ms), "ms_max": max(ms),
+            "idle": prof.get("idle"), "busy_ms_per_step": (prof["busy_ms"] / GRAPH_KIND_STEPS
+                                                           if prof else None)}
+
+
+def loop_windows(graphs, gen, skip=()) -> dict:
+    """One step of each kind each loop of ``graphs`` ran (but the kinds in
+    ``skip``), on that loop's buffers after the run, with its z drawn as a
+    step draws it: {name: (one_step, reset)}, the loops numbered in the
+    order they ran."""
+    from duodiff_tpu_torch.diffusion.sampling import fill_noise
+
+    out = {}
+    for n, loop in enumerate(graphs.loops.values()):
+        for kind in sorted(set(loop._bodies) - set(skip), key=kind_name):
+            def one(loop=loop, kind=kind):
+                fill_noise(loop.z, 1, gen, None)
+                loop.step(kind)
+
+            name = f"{type(loop).__name__.strip('_')} {n}:{kind_name(kind)}"
+            out[name] = (one, loop.i.zero_)
+    return out
+
+
+def graph_path(label: str, run, windows, card: str) -> dict:
+    """One phase-19 path, eager then graphed, from the same seeds:
+    ``run(graphs) -> (outputs {name: tensor}, generators)`` and
+    ``windows(graphs) -> {kind: (one_step, reset)}``. Fails unless every
+    output is equal to the bit, every generator ends in the same state and
+    the launch counts are equal; prints the wall times, peak memory, each
+    kind's step times and idle shares, the captures and the pool."""
+    got, runs = {}, {}
+    for mode in ("eager", "graphed"):
+        graphs = step_graphs_for(torch.device("cuda", 0), mode == "graphed")
+        release_memory()
+        reset_counts()
+        tic = time.perf_counter()
+        with torch.inference_mode():
+            outs, gens = run(graphs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        got[mode] = ({k: v.clone() for k, v in outs.items()}, [g.get_state() for g in gens],
+                     {k: v for k, v in read_counts().items() if v})
+        runs[mode] = {"graphs": graphs, "wall_s": wall, "pool_bytes": graphs.pool_bytes(),
+                      "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    (eo, es, el), (go, gs, gl) = got["eager"], got["graphed"]
+    diffs = {k: float((go[k].double() - eo[k].double()).abs().max()) if eo[k].numel() else 0.0
+             for k in eo}
+    equal = all(torch.equal(go[k], eo[k]) for k in eo)
+    same_gen = all(torch.equal(a, b) for a, b in zip(es, gs))
+    summary = runs["graphed"]["graphs"].summary()
+    print(f"{label}: eager {runs['eager']['wall_s']:.6g} s, graphed "
+          f"{runs['graphed']['wall_s']:.6g} s; max abs diff graphed vs eager {diffs} (equal "
+          f"bits: {equal}); generator states equal: {same_gen}; launches eager {el}, graphed "
+          f"{gl}; steps by kind {runs['graphed']['graphs'].kinds}; peak allocated eager "
+          f"{runs['eager']['peak_allocated_gib']:.6g} GiB, graphed "
+          f"{runs['graphed']['peak_allocated_gib']:.6g} GiB (reserved "
+          f"{runs['eager']['peak_reserved_gib']:.6g} / {runs['graphed']['peak_reserved_gib']:.6g}"
+          f" GiB); captures {summary}, the pool {runs['graphed']['pool_bytes']} bytes; card "
+          f"{card}", flush=True)
+    if not equal:
+        fail(f"{label}: the graphed samples differ from the eager ones: {diffs}")
+    if not same_gen:
+        fail(f"{label}: the generators end in other states graphed than eager")
+    if el != gl or not el:
+        fail(f"{label}: launches graphed {gl} against eager {el}")
+    kinds = {}
+    with torch.inference_mode():
+        wins = {m: windows(runs[m]["graphs"]) for m in runs}
+        for name in wins["graphed"]:
+            kinds[name] = {m: measure_kind(*wins[m][name], f"{label}, {name}, {m}")
+                           for m in ("graphed", "eager")}
+    for name, m in kinds.items():
+        e, g = m["eager"], m["graphed"]
+        print(f"{label}: step kind {name}: ms eager {e['ms_median']:.6g} [{e['ms_min']:.6g}, "
+              f"{e['ms_max']:.6g}], graphed {g['ms_median']:.6g} [{g['ms_min']:.6g}, "
+              f"{g['ms_max']:.6g}]; idle share eager {e['idle']}, graphed {g['idle']}; card "
+              f"{card}", flush=True)
+    return {"wall_s": {m: runs[m]["wall_s"] for m in runs},
+            "peak_allocated_gib": {m: runs[m]["peak_allocated_gib"] for m in runs},
+            "captures": summary, "pool_bytes": runs["graphed"]["pool_bytes"], "kinds": kinds,
+            "launches": gl}
+
+
+def run_headline_turns(card: str) -> dict:
+    """19g: phase 4b's headline through the sampling CLI in-process, eager,
+    then graphed (``sample.main(graphs=False)`` is the eager loop): the two
+    runs' samples equal to the bit, each run's sampling time."""
+    seconds, samples = {"eager": [], "graphed": []}, []
+    for mode in ("eager", "graphed"):
+        result = {}
+        release_memory()
+        run_int8_main_path(card, phase=f"phase 19g ({mode})", graphs=mode == "graphed",
+                           keep=result)
+        seconds[mode].append(result["seconds"])
+        samples.append(result["samples"])
+    same = all(np.array_equal(samples[0], s) for s in samples[1:])
+    print(f"phase 19g: the headline's sampling seconds eager {seconds['eager']}, graphed "
+          f"{seconds['graphed']}; the two runs' samples equal to the bit: {same}; card {card}",
+          flush=True)
+    if not same:
+        fail("phase 19g: the graphed headline's samples differ from the eager ones")
+    return seconds
+
+
+def run_step_graphs(device, card: str) -> dict:
+    """Phase 19: the samplers' step graphs against their eager loops at batch
+    128 and full width, on the same seeds: (a) a 40-step DuoDiff window
+    across t_switch, bf16 dense and int8 block-cached on the committed
+    schedule and scales; (b) DDIM 10 steps at eta 0.5 with the handoff; (c)
+    DPM-Solver++ 2M 10 steps, int8, cached every 2; (d) guided ImageNet-64,
+    attn_impl pallas, 10 steps (forwards at 128); (e) the 8-slot batcher,
+    int8 cached on ``SERVE_CACHE_PATTERN``, 20 advances with a second wave
+    admitted mid-flight; (f) early exit, 20 steps; (g) the headline through
+    the CLI, eager and graphed in turns."""
+    from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
+    from duodiff_tpu_torch.diffusion.continuous import ContinuousDiffusionBatcher
+    from duodiff_tpu_torch.diffusion.sampling import (
+        DDPMSampler,
+        ddim_sample,
+        ddpm_loop,
+        dpm_solver_sample,
+        ee_loop,
+        make_block_cached_apply,
+        make_guided_apply,
+        randn,
+    )
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    def load(config, seed, impl, **kw):
+        model, cfg = load_model(config, device=device, seed=seed, attn_impl=impl, **kw)
+        model.eval().pack_for_kernels()
+        return model, cfg
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(GRAPH_SEED)
+
+    def cache_of(model, cfg, rule):
+        tokens = cfg.extras + cfg.num_patches
+        return (lambda x, t, y: model.forward_anchor(x, t, y, n_outer=N_OUTER),
+                lambda x, t, y, d: model.forward_cached(x, t, y, n_outer=N_OUTER, delta=d),
+                rule, lambda x: torch.zeros((x.shape[0], tokens, cfg.embed_dim),
+                                            dtype=model.dtype, device=x.device))
+
+    out = {}
+    schedule = NoiseSchedule.create(steps=STEPS, device=device)
+    shape = (MAIN_BATCH, 64, 64, 3)
+    handoff = STEPS - T_SWITCH
+    early, _ = load(EARLY_CONFIG, 0, "fused")
+    late, late_cfg = load(LATE_CONFIG, 1, "fused")
+
+    def windows(graphs):
+        return loop_windows(graphs, gen())
+
+    def duodiff_window(e, l_sampler):
+        def run(graphs):
+            g = gen()
+            x = randn(shape, g, device)
+            x = DDPMSampler(e, schedule, graphs=graphs).run(x, g, handoff + GRAPH_WINDOW - 1,
+                                                             handoff)
+            sampler = l_sampler(graphs)
+            lo = handoff - GRAPH_WINDOW
+            if sampler.init_state_fn is None:
+                x = sampler.run(x, g, handoff - 1, lo)
+            else:
+                x, _ = sampler.run(x, g, handoff - 1, lo, state=sampler.init_state_fn(x))
+            return {"x": x}, [g]
+        return run
+
+    out["19a bf16"] = graph_path(
+        f"phase 19a: DuoDiff window t={handoff + GRAPH_WINDOW - 1}..{handoff - GRAPH_WINDOW}, "
+        f"bf16 dense, batch {MAIN_BATCH}",
+        duodiff_window(early, lambda graphs: DDPMSampler(late, schedule, graphs=graphs)),
+        windows, card)
+
+    def ddim(graphs):
+        g = gen()
+        x, _ = ddim_sample(early, g, schedule=schedule, shape=shape,
+                           ddim_steps=GRAPH_SHORT_STEPS, eta=GRAPH_DDIM_ETA, late_apply_fn=late,
+                           t_switch=T_SWITCH, graphs=graphs)
+        return {"x": x}, [g]
+
+    out["19b ddim"] = graph_path(
+        f"phase 19b: DDIM {GRAPH_SHORT_STEPS} steps, eta {GRAPH_DDIM_ETA}, the handoff at "
+        f"t_switch {T_SWITCH}, bf16, batch {MAIN_BATCH}", ddim, lambda graphs: {}, card)
+    del early, late
+    release_memory()
+
+    early8, _ = load(EARLY_CONFIG, 0, "fused_int8", gelu_approx=True)
+    late8, late8_cfg = load(LATE_CONFIG, 1, "fused_int8", gelu_approx=True,
+                            int8_scales=INT8_SCALES)
+    table = load_cache_schedule(CACHE_SCHEDULE, num_timesteps=STEPS)
+
+    def cached_late(graphs):
+        anchor, cached, _, init = cache_of(late8, late8_cfg, table)
+        return DDPMSampler(make_block_cached_apply(anchor, cached, table, handoff - 1), schedule,
+                           init_state_fn=init, graphs=graphs)
+
+    out["19a int8"] = graph_path(
+        f"phase 19a: DuoDiff window t={handoff + GRAPH_WINDOW - 1}..{handoff - GRAPH_WINDOW}, "
+        f"int8 (dynamic, then the asset's static scales block-cached on its schedule), tanh "
+        f"GELU, batch {MAIN_BATCH}", duodiff_window(early8, cached_late), windows, card)
+
+    def dpm(graphs):
+        g = gen()
+        x = dpm_solver_sample(None, g, schedule=schedule, shape=shape,
+                              dpm_steps=GRAPH_SHORT_STEPS + 1, order=2,
+                              cache=cache_of(late8, late8_cfg, DPM_CACHE_EVERY), graphs=graphs)
+        return {"x": x}, [g]
+
+    out["19c dpm"] = graph_path(
+        f"phase 19c: DPM-Solver++ 2M {GRAPH_SHORT_STEPS} transitions, int8 static, cached every "
+        f"{DPM_CACHE_EVERY}, batch {MAIN_BATCH}", dpm,
+        lambda graphs: loop_windows(graphs, gen(), skip=[("anchor", True)]), card)
+
+    pattern = np.asarray([int(v) for v in SERVE_CACHE_PATTERN.split(",")], bool)
+    serve_schedule = NoiseSchedule.create(steps=SERVE_STEPS, device=device)
+
+    batchers, host_ms = {}, {}
+
+    def slots(graphs):
+        b = ContinuousDiffusionBatcher(
+            late8, serve_schedule, img_shape=shape[1:], slots=SERVE_SLOTS,
+            steps_per_poll=SERVE_STEPS_PER_POLL, cache=cache_of(late8, late8_cfg, pattern),
+            graphs=graphs)
+        b.capture_graphs()
+        reset_counts()  # the captures' steps, with no slot live, are no part of the run
+        gens = [torch.Generator(device=device).manual_seed(GRAPH_SEED + k)
+                for k in range(SERVE_SLOTS)]
+        half = SERVE_SLOTS // 2
+        b.admit_many({k: (gens[k], None) for k in range(half)})
+        host = []
+        for a in range(GRAPH_ADVANCES):
+            if a and b.can_admit_cached() and half not in b.steps_done:
+                b.admit_many({k: (gens[k], None) for k in range(half, SERVE_SLOTS)})
+            tic = time.perf_counter()
+            b.advance()
+            host.append((time.perf_counter() - tic) * 1e3 / SERVE_STEPS_PER_POLL)
+        host_ms[graphs.mode] = statistics.median(host[2:])
+        batchers[graphs.mode] = b
+        return {"x": b.x, "i": b.i, "x0_prev": b.x0_prev}, gens
+
+    def slot_windows(graphs):
+        b = batchers[graphs.mode]
+        progress = {s: 1 for s in range(SERVE_SLOTS)}
+        return {f"slots:{k}": ((lambda k=k: (b._noise_for_step(progress), b._run_step(k))),
+                               lambda: None) for k in ("anchor", "cached")}
+
+    out["19e slots"] = graph_path(
+        f"phase 19e: the {SERVE_SLOTS}-slot batcher, ddpm {SERVE_STEPS} steps, int8 static "
+        f"cached on pattern {SERVE_CACHE_PATTERN}, {GRAPH_ADVANCES} advances of "
+        f"{SERVE_STEPS_PER_POLL} steps, a second wave admitted at the first aligned wave",
+        slots, slot_windows, card)
+    out["19e slots"]["host_ms_a_step"] = host_ms
+    print(f"phase 19e: host ms a step (median over advances 3..{GRAPH_ADVANCES}, "
+          f"advance() without a sync): eager {host_ms['eager']:.6g}, graphed "
+          f"{host_ms['graphed']:.6g}; card {card}", flush=True)
+    batchers.clear()
+    del early8, late8
+    release_memory()
+
+    imagenet, icfg = load(IMAGENET_CONFIG, 1, "pallas")
+    guided = make_guided_apply(imagenet, GUIDANCE_SCALE, icfg.num_classes - 1)
+
+    def guided_run(graphs):
+        g = gen()
+        x = randn((GUIDED_BATCH, icfg.img_size, icfg.img_size, icfg.in_chans), g, device)
+        y = torch.randint(0, icfg.num_classes - 1, (GUIDED_BATCH,), generator=g, device=device)
+        x = ddpm_loop(guided, schedule, "predict_noise", x, g,
+                      range(handoff + GRAPH_SHORT_STEPS - 1, handoff - 1, -1), y, graphs=graphs)
+        return {"x": x}, [g]
+
+    out["19d guided"] = graph_path(
+        f"phase 19d: guided ImageNet-64 depth {icfg.depth}, attn_impl pallas, "
+        f"{GRAPH_SHORT_STEPS} steps, w={GUIDANCE_SCALE}, forwards at batch {2 * GUIDED_BATCH}",
+        guided_run, windows, card)
+    del imagenet, guided
+    release_memory()
+
+    ee, ecfg = ee_model(EE_CONFIG, device)
+    ee.pack_for_kernels()
+    with torch.inference_mode():
+        probe_x = randn(shape, gen(), device)
+        threshold = pick_threshold(ee(probe_x, torch.full((MAIN_BATCH,), float(STEPS - 1),
+                                                          device=device))[1])
+
+    def early_exit(graphs):
+        g = gen()
+        x = randn(shape, g, device)
+        x, errs, idxs = ee_loop(ee, schedule, threshold, x, g,
+                                range(STEPS - 1, STEPS - 1 - GRAPH_EE_STEPS, -1), graphs=graphs)
+        return {"x": x, "errs": errs, "idxs": idxs}, [g]
+
+    out["19f early exit"] = graph_path(
+        f"phase 19f: early exit, {GRAPH_EE_STEPS} steps at threshold {threshold:.6g}, "
+        f"deediff_celeba.yaml, batch {MAIN_BATCH}", early_exit, windows, card)
+    del ee
+    release_memory()
+    out["19g headline"] = run_headline_turns(card)
+    print(json.dumps({"step_graphs": out, "card": card}), flush=True)
+    return out
+
+
 def parse_phases(argv) -> set:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -6700,6 +7079,9 @@ def main(argv=None) -> int:
                     launches[name] = launches.get(name, 0) + counts[name]
                     results[name]["launches_18"] = (results[name].get("launches_18", 0)
                                                     + counts[name])
+    lap("19")
+    if "19" in run:
+        run_step_graphs(device, card)
     lap("end")
     print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "
           "started", flush=True)

@@ -21,7 +21,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from duodiff_tpu_torch.diffusion.sampling import _initial_noise, _noise
+from duodiff_tpu_torch.diffusion.sampling import _initial_noise, fill_noise
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 
 
@@ -39,13 +39,15 @@ def collect_probe_stats(apply_fn: Callable, schedule: NoiseSchedule,
     x = _initial_noise(x_init, shape, generator)
     batch = x.shape[0]
     u_rows, e_rows = [], []
+    z = torch.empty_like(x)
     for t in range(schedule.steps - 1, -1, -1):
         t_batch = torch.full((batch,), float(t), dtype=torch.float32, device=x.device)
         backbone, u, g = apply_fn(x, t_batch, y)
         err = g.float() - backbone.float()[None]
         u_rows.append(u.float().mean(1))
         e_rows.append((err * err).mean(dim=tuple(range(1, err.ndim))))
-        x = schedule.step_predict_noise(backbone, x, t, _noise(x, t, generator, noise_table))
+        fill_noise(z, t, generator, noise_table)
+        x = schedule.step_predict_noise(backbone, x, t, z)
     u_rows = torch.stack(u_rows).flip(0).cpu().numpy()
     e_rows = torch.stack(e_rows).flip(0).cpu().numpy()
     return u_rows, e_rows

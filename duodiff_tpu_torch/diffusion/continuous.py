@@ -38,6 +38,15 @@ the host mirror and the wave counter are the same on every rank; a rank
 ignores the noise source of a slot it does not hold, and the finished
 images are gathered on the host. A request's images stay the one-process
 batcher's.
+
+A step is one step body that writes the slot state (x, the step counts,
+the solver's previous x0, the cache's residual) in place, and each kind of
+step (plain, or a block cache's anchor and cached steps, chosen by the
+host's wave counter) is captured once as a CUDA graph and replayed
+(``diffusion/graphs.py``): the counterpart of the JAX batcher's
+``fori_loop`` over a poll's steps. Each slot's noise is drawn on the host,
+from the slot's own source, into a static buffer before each step, as the
+eager step draws it.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from duodiff_tpu_torch.diffusion.graphs import step_graphs
 from duodiff_tpu_torch.diffusion.sampling import ddim_timestep_grid, dpm_solver_tables
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 
@@ -133,6 +143,11 @@ class ContinuousDiffusionBatcher:
     ``mesh``: a process grid (``parallel/mesh.py``) whose data ranks split
     the slots (module docstring); the slots must divide them. A grid that
     runs the batch whole on every rank (``replicated``) splits nothing.
+
+    ``graphs`` (:func:`~duodiff_tpu_torch.diffusion.graphs.step_graphs`):
+    the steps replay as CUDA graphs on the card by default
+    (:meth:`capture_graphs` makes them before any slot is admitted), or run
+    eagerly (on the CPU, or ``graphs=False``).
     """
 
     def __init__(
@@ -150,6 +165,7 @@ class ContinuousDiffusionBatcher:
         conditional: bool = False,
         cache: Optional[tuple] = None,
         mesh=None,
+        graphs=True,
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -239,6 +255,10 @@ class ContinuousDiffusionBatcher:
         self.active = torch.zeros((s,), dtype=torch.bool, device=device)
         self.y = torch.zeros((s,), dtype=torch.long, device=device)
         self.delta = cache[3](self.x) if cache is not None else None
+        self._z = torch.zeros_like(self.x)  # the step's noise, drawn on the host
+        self.graphs = step_graphs(graphs, device)
+        self._bodies = {kind: (lambda kind=kind: self._body(kind))
+                        for kind in ((None,) if cache is None else ("anchor", "cached"))}
         self._noise: dict = {}
         # host mirror of per-slot progress: slot -> steps completed
         # (occupied slots only). Progress is deterministic: an occupied slot
@@ -301,14 +321,15 @@ class ContinuousDiffusionBatcher:
                 f"(w={self._w_host}, every={self.cache_every}); check can_admit_cached() "
                 "before admitting")
 
-    def _noise_for_step(self, progress: dict) -> Optional[torch.Tensor]:
-        """The (slots, H, W, C) noise of one step: each live slot's own draw
-        (or table row) where its step draws, zeros elsewhere; None when the
-        method draws nothing. ``progress`` is each occupied slot's step; the
-        slots of other data ranks draw there."""
+    def _noise_for_step(self, progress: dict) -> None:
+        """The (slots, H, W, C) noise of one step into the static z: each
+        live slot's own draw (or table row) where its step draws, zeros
+        elsewhere; nothing when the method draws none. ``progress`` is each
+        occupied slot's step; the slots of other data ranks draw there."""
         if self._draw_rows is None:
-            return None
-        z = torch.zeros_like(self.x)
+            return
+        z = self._z
+        z.zero_()
         for slot, j in progress.items():
             if j >= self.n_trans or slot not in self._noise:
                 continue
@@ -320,29 +341,32 @@ class ContinuousDiffusionBatcher:
                 z[k:k + 1].normal_(generator=noise)
             else:
                 z[k].copy_(noise.table[row])
-        return z
 
-    def _model(self, x, t_model, y, w: int):
-        """The step's model output; with caching the anchor or the cached
-        forward by the host's step counter ``w``."""
+    def _kind(self, w: int):
+        """Step ``w``'s kind, by the host's step counter: None without
+        caching, else "anchor" or "cached"."""
         if self.cache is None:
-            return self.apply_fn(x, t_model, y)
-        apply_anchor, apply_cached = self.cache[0], self.cache[1]
+            return None
         if self._pattern is not None:
             anchor = bool(self._pattern[w % self.cache_every])
         else:
             anchor = w % self.cache_every == 0
-        if anchor:
-            out, self.delta = apply_anchor(x, t_model, y)
-            return out
-        return apply_cached(x, t_model, y, self.delta)
+        return "anchor" if anchor else "cached"
 
-    def _step(self, progress: dict, w: int):
+    def _body(self, kind) -> None:
+        """One step of every slot, of ``kind``: reads the slot state and z,
+        writes x, x0_prev, the step counts and the residual in place."""
         ic = self.i.clamp(0, self.n_trans - 1)
         y = self.y if self.conditional else None
-        mo = self._model(self.x, self._t_model[ic], y, w)
-        z = self._noise_for_step(progress)
-        x, x0 = self.x, None
+        x, t_model = self.x, self._t_model[ic]
+        if kind is None:
+            mo = self.apply_fn(x, t_model, y)
+        elif kind == "anchor":
+            mo, delta = self.cache[0](x, t_model, y)
+            self.delta.copy_(delta)
+        else:
+            mo = self.cache[1](x, t_model, y, self.delta)
+        z, x0 = self._z, None
         if self.method == "ddpm":
             xn = self.schedule.step(self.parametrization, mo, x, self._t[ic], z)
         elif self.method == "ddim":
@@ -358,10 +382,31 @@ class ContinuousDiffusionBatcher:
             xn = c["sigma_ratio"] * x - c["alpha_t"] * c["phi"] * d
         live = self.active & (self.i < self.n_trans)
         rows = live.reshape(-1, *(1,) * len(self.img_shape))
-        self.x = torch.where(rows, xn, x)
+        x.copy_(torch.where(rows, xn, x))
         if x0 is not None:
-            self.x0_prev = torch.where(rows, x0, self.x0_prev)
-        self.i = self.i + live
+            self.x0_prev.copy_(torch.where(rows, x0, self.x0_prev))
+        self.i.add_(live)
+
+    def _run_step(self, kind) -> None:
+        self.graphs.step((id(self), kind), self._bodies[kind], (self.x, self._z, self.i))
+
+    def _step(self, progress: dict, w: int):
+        self._noise_for_step(progress)
+        self._run_step(self._kind(w))
+
+    def capture_graphs(self) -> None:
+        """Warm up and capture every kind of step before any slot is
+        admitted: with no slot live a step changes no slot's x, x0 or count
+        (the residual it writes is rewritten by the first admitted wave's
+        anchor), and it draws nothing. Eager batchers do nothing."""
+        if not self.graphs.graphed:
+            return
+        if self.steps_done:
+            raise RuntimeError("capture_graphs runs before any slot is admitted")
+        self._noise_for_step({})
+        for kind in self._bodies:
+            for _ in range(2):  # the eager warm-up, then the capture and a replay
+                self._run_step(kind)
 
     def advance(self):
         """``steps_per_poll`` steps of every slot in flight."""

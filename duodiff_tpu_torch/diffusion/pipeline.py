@@ -28,6 +28,10 @@ are those of the one-process
 :func:`~duodiff_tpu_torch.diffusion.sampling.duodiff_sample` run on the same
 generator (to the bit on the CPU). An injected ``noise_table`` (steps,
 batch, ...) takes the place of the steps' draws, sliced by the same rows.
+
+A stage's steps hold no collective, so they run as step graphs
+(``diffusion/graphs.py``) on the card: a stream's micro-batches replay the
+graphs its first one captured.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Callable, Optional
 
 import torch
 
+from duodiff_tpu_torch.diffusion.graphs import step_graphs
 from duodiff_tpu_torch.diffusion.sampling import RowDraws, ddpm_loop, randn
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 
@@ -46,7 +51,8 @@ class DuoDiffPipeline:
     ``apply_shallow`` / ``apply_full``: ``fn(x, t_batch, y)``, the sampling
     CLI's applies (guidance wrappers compose unchanged). A stage A rank
     needs only the first, a stage B rank only the second; the other may be
-    None, and a waiting rank needs neither."""
+    None, and a waiting rank needs neither. ``graphs`` is
+    :func:`~duodiff_tpu_torch.diffusion.sampling.ddpm_loop`'s."""
 
     def __init__(
         self,
@@ -58,6 +64,7 @@ class DuoDiffPipeline:
         grid,
         parametrization: str = "predict_noise",
         noise_table: Optional[torch.Tensor] = None,
+        graphs=True,
     ):
         if not 0 < t_switch <= schedule.steps:
             raise ValueError(f"t_switch must be in (0, {schedule.steps}]")
@@ -71,6 +78,8 @@ class DuoDiffPipeline:
         self.parametrization = parametrization
         self.noise_table = noise_table
         self.handoff = schedule.steps - t_switch
+        self.graphs = graphs
+        self._run_graphs = None  # the stream's StepGraphs
 
     def _rows(self, i: int, mb: int, batch: int) -> tuple:
         """This rank's rows of micro-batch i in the whole batch's draws."""
@@ -81,8 +90,10 @@ class DuoDiffPipeline:
         table = self.noise_table
         if table is not None:
             table = table[:, draws.rows[0]:draws.rows[1]]
+        # a copy: the next micro-batch writes the stream's x buffer
         return ddpm_loop(self.apply, self.schedule, self.parametrization, x, draws,
-                         range(t_hi, t_lo - 1, -1), y, noise_table=table)
+                         range(t_hi, t_lo - 1, -1), y, noise_table=table,
+                         graphs=self._run_graphs).clone()
 
     def _stage1(self, draws: RowDraws, shape, y):
         x = randn((draws.rows[1] - draws.rows[0], *shape[1:]), draws, self.grid.device)
@@ -109,6 +120,7 @@ class DuoDiffPipeline:
             raise ValueError(f"{len(ys)} label batches for {n_micro} micro-batches")
         mb, batch = shape[0], shape[0] * n_micro
         lo, hi, _ = grid.rows(mb)
+        self._run_graphs = step_graphs(self.graphs, grid.device)
         start = generator.get_state()
         for i, yy in enumerate(ys):
             draws = RowDraws(generator, self._rows(i, mb, batch))

@@ -3,8 +3,10 @@
 
 Linear betas in [1e-4, 0.02] over ``steps``; every per-timestep coefficient
 of the reverse step and the three parametrizations is a float32 table on
-the schedule's device. The reverse steps take ``t`` as a Python int, or as
-a (B,) integer tensor of per-row timesteps (continuous batching, where
+the schedule's device. The reverse steps take ``t`` as a Python int, as a
+0-d integer tensor on the schedule's device (a step graph's timestep, read
+there, never on the host; the same bits as the int), or as a (B,) integer
+tensor of per-row timesteps (continuous batching, where
 every slot of the batch is at its own step): each coefficient is then the
 rows' table values shaped (B, 1, ..., 1), and each row's result is the
 one the int form gives for its own t, to the bit.
@@ -15,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from duodiff_tpu_torch.diffusion.graphs import device_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,10 +139,13 @@ class NoiseSchedule:
 
 
 def _at(table: torch.Tensor, t, x: torch.Tensor) -> torch.Tensor:
-    """``table[t]``: a 0-d tensor for an int ``t``; for a (B,) tensor of
-    per-row timesteps the rows' values, shaped to broadcast over ``x``."""
-    if isinstance(t, torch.Tensor) and t.ndim == 1:
-        return _bcast(table[t], x.ndim)
+    """``table[t]``: a 0-d tensor for an int ``t`` or a 0-d tensor ``t``
+    (gathered on the device); for a (B,) tensor of per-row timesteps the
+    rows' values, shaped to broadcast over ``x``."""
+    if isinstance(t, torch.Tensor):
+        if t.ndim == 1:
+            return _bcast(table[t], x.ndim)
+        return device_index(t, table)
     return table[t]
 
 

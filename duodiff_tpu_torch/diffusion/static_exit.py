@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from duodiff_tpu_torch.diffusion.calibration import apply_probe_calibration
+from duodiff_tpu_torch.diffusion.graphs import step_graphs
 from duodiff_tpu_torch.diffusion.sampling import (
     _initial_noise,
     ddpm_loop,
@@ -122,7 +123,7 @@ def derive_exit_schedule(indices_by_timestep: np.ndarray, n_buckets: int = 4,
 
 def make_static_exit_sampler(model, *, schedule: NoiseSchedule, buckets: Sequence[Bucket],
                              guidance: Optional[tuple] = None, cache_every=None,
-                             cache_outer: Optional[int] = None) -> Callable:
+                             cache_outer: Optional[int] = None, graphs=True) -> Callable:
     """``sample(generator, shape, y=None, x_init=None, noise_table=None) ->
     x``: one truncated backbone per bucket, each run by ``ddpm_loop`` over
     its t range (predict_noise). Buckets must cover [0, steps-1].
@@ -131,7 +132,9 @@ def make_static_exit_sampler(model, *, schedule: NoiseSchedule, buckets: Sequenc
     ``cache_every`` (an int period, or a 1-D boolean anchor table indexed by
     t) block-caches every bucket whose exit lies past the mid block, inside
     its truncation: anchors on its rule and on the bucket's first step (the
-    residual does not carry across buckets); not with guidance."""
+    residual does not carry across buckets); not with guidance. ``graphs``
+    is :func:`ddpm_loop`'s: by default a call's buckets replay step graphs
+    of one run; a :class:`StepGraphs` keeps them across calls."""
     buckets = sorted(buckets, key=lambda b: -b[0])
     if buckets[0][0] != schedule.steps - 1 or buckets[-1][1] != 0:
         raise ValueError(f"buckets must cover the timesteps {schedule.steps - 1}..0, got "
@@ -164,14 +167,15 @@ def make_static_exit_sampler(model, *, schedule: NoiseSchedule, buckets: Sequenc
 
     def sample(generator, shape=None, y=None, x_init=None, noise_table=None):
         x = _initial_noise(x_init, shape, generator)
+        run = step_graphs(graphs, x.device)
         for t_hi, t_lo, apply, stateful in segments:
             ts = range(t_hi, t_lo - 1, -1)
             if stateful:
                 x, _ = ddpm_loop(apply, schedule, "predict_noise", x, generator, ts, y,
-                                 noise_table=noise_table, state=init_state(x))
+                                 noise_table=noise_table, state=init_state(x), graphs=run)
             else:
                 x = ddpm_loop(apply, schedule, "predict_noise", x, generator, ts, y,
-                              noise_table=noise_table)
+                              noise_table=noise_table, graphs=run)
         return x
 
     return sample
@@ -180,11 +184,11 @@ def make_static_exit_sampler(model, *, schedule: NoiseSchedule, buckets: Sequenc
 def static_exit_sample(model, generator, *, schedule: NoiseSchedule, shape=None,
                        buckets: Sequence[Bucket], y=None, guidance: Optional[tuple] = None,
                        cache_every=None, cache_outer: Optional[int] = None, x_init=None,
-                       noise_table=None):
+                       noise_table=None, graphs=True):
     """One-shot :func:`make_static_exit_sampler`."""
     sampler = make_static_exit_sampler(model, schedule=schedule, buckets=buckets,
                                        guidance=guidance, cache_every=cache_every,
-                                       cache_outer=cache_outer)
+                                       cache_outer=cache_outer, graphs=graphs)
     return sampler(generator, shape, y, x_init=x_init, noise_table=noise_table)
 
 
@@ -285,9 +289,10 @@ def make_adaptive_exit_sampler(model, *, schedule: NoiseSchedule, layers: Sequen
         while t >= 0:
             lo = max(t - chunk + 1, 0)
             apply, init_state = get(li)
+            # eager: the walk reads the chunk's probe sum on the host after each chunk
             x, st = ddpm_loop(apply, schedule, "predict_noise", x, generator,
                               range(t, lo - 1, -1), y, noise_table=noise_table,
-                              state=init_state(x))
+                              state=init_state(x), graphs=False)
             st = st.double().cpu().numpy().reshape(-1) / (t - lo + 1)  # the chunk's one read
             mean_u = float(st[0])
             row = {"t_hi": int(t), "t_lo": int(lo), "layer": int(layers[li]),

@@ -40,6 +40,11 @@ whole batch on every rank. Unguided class labels
 follow ``sample.py``'s rule. A latent-diffusion config
 (``configs/deediff_imagenet256.yaml``) samples latents and decodes them with
 its frozen KL autoencoder before writing, as ``sample.py`` does.
+
+On a CUDA device the dynamic and static routes replay each kind of step as
+a CUDA graph, as ``sample.py`` does, and run eagerly under
+``--model_parallel``; the adaptive route, whose host reads a probe sum
+after every chunk, runs eagerly. A line says which route a run takes.
 """
 
 from __future__ import annotations
@@ -67,7 +72,13 @@ from duodiff_tpu_torch.diffusion.static_exit import (
     static_exit_sample,
 )
 from duodiff_tpu_torch.parallel.mesh import close, sampling_grid
-from duodiff_tpu_torch.sample import check_parallel_flags, class_labels, decode_all, latent_decoder
+from duodiff_tpu_torch.sample import (
+    check_parallel_flags,
+    class_labels,
+    decode_all,
+    graph_route,
+    latent_decoder,
+)
 from duodiff_tpu_torch.utils.image import save_samples
 from duodiff_tpu_torch.utils.model_loading import load_model
 
@@ -243,6 +254,9 @@ def _sample(args, grid, attn_impl) -> dict:
     decode = latent_decoder(args.config_path, device)
     schedule = NoiseSchedule.create(steps=args.num_timesteps, device=device)
     steps = schedule.steps
+    graphed, route = graph_route(device, grid.model)
+    if args.adaptive_layers is not None:
+        route = "step graphs: off (the adaptive route reads a probe sum on the host a chunk)"
     rows = grid.rows(args.batch_size)  # this rank's rows of the global batch
     shape = (rows[1] - rows[0], cfg.img_size, cfg.img_size, cfg.in_chans)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -285,6 +299,7 @@ def _sample(args, grid, attn_impl) -> dict:
             return static_exit_sample(
                 model, generator, schedule=schedule, shape=shape, buckets=buckets, y=y,
                 guidance=guidance, cache_every=cache_rule, cache_outer=args.cache_outer,
+                graphs=graphed,
             ), None, [{"t_hi": hi, "t_lo": lo, "layer": layer} for hi, lo, layer in buckets]
     else:
         apply = model if guidance is None else make_guided_apply_ee(model, *guidance)
@@ -292,12 +307,13 @@ def _sample(args, grid, attn_impl) -> dict:
 
         def run():
             x, err, idx = early_exit_sample(apply, generator, schedule=schedule, shape=shape,
-                                            threshold=args.threshold, y=y)
+                                            threshold=args.threshold, y=y, graphs=graphed)
             return x, (err, idx), None
 
     if grid.is_main:
         print(f"Sampling {args.batch_size} images on {device} ({kind}, attn_impl={attn_impl}, "
               f"grid data {grid.data} x model {grid.model})...")
+        print(route)
     with torch.inference_mode():
         if device.type == "cuda":
             torch.cuda.synchronize(device)

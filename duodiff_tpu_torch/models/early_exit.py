@@ -107,6 +107,10 @@ class OutputHeads(nn.Module):
         takes no bf16 input beside fp32 parameters), rounded once to the
         compute dtype; so no fp32 copy of all of ``hs`` is made."""
         sel = slice(None) if heads is None else list(heads)
+        if heads is not None and sel == list(range(sel[0], sel[-1] + 1)):
+            # a run of heads as a slice, a view: a list index is copied from
+            # the host, which a CUDA graph cannot capture
+            sel = slice(sel[0], sel[-1] + 1)
         n = len(hs)
         b, l, d = hs[0].shape
         w, bias = self.norm_weight[sel], self.norm_bias[sel]

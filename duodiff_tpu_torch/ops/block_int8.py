@@ -73,8 +73,9 @@ def _quant_rows(x: torch.Tensor):
     (x8 int8, row_scale fp32 (..., 1)) with ``x ~= x8 * row_scale``.
     Multiplies by the reciprocal; round half to even, clip to +-127."""
     amax = x.abs().amax(-1, keepdim=True)
-    # a true division (the ``127.0 / t`` operator takes a reciprocal first)
-    inv = torch.where(amax > 0, amax.new_tensor(127.0) / amax, torch.ones_like(amax))
+    # a true division (the ``127.0 / t`` operator takes a reciprocal first),
+    # with no host-made tensor, which a CUDA graph could not capture
+    inv = torch.where(amax > 0, torch.full_like(amax, 127.0) / amax, torch.ones_like(amax))
     x8 = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
     return x8, amax / 127.0
 

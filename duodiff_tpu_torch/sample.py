@@ -73,6 +73,14 @@ keeps its rows (``diffusion/sampling.py:RowDraws``), so the samples are
 those of a one-process run; rank 0 gathers the rows on the host and writes
 the files. ``--multihost`` lets the grid span nodes.
 
+On a CUDA device every sampler runs as step graphs
+(``diffusion/graphs.py``): each kind of step is captured once as a CUDA
+graph and replayed for every step of that kind, with the samples of the
+eager loop to the bit; a failed capture ends the run with an error. The
+one eager route is ``--model_parallel M > 1``, whose steps hold all-reduces
+that go through the host over gloo, which a graph cannot capture; a line
+says which route a run takes. On the CPU the same step bodies run eagerly.
+
 ``--pipeline_parallel`` (pipeline-parallel DuoDiff, the DuoDiff pair with
 ``--t_switch``, plain DDPM) splits the N ranks into two stages
 (``parallel/mesh.py:pipeline_grid``): ranks [0, N // 2) hold only the first
@@ -97,6 +105,7 @@ import torch
 
 from duodiff_tpu_torch.config import load_autoencoder_config, load_model_config
 from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
+from duodiff_tpu_torch.diffusion.graphs import StepGraphs
 from duodiff_tpu_torch.diffusion.pipeline import DuoDiffPipeline
 from duodiff_tpu_torch.diffusion.sampling import (
     DDPMSampler,
@@ -213,6 +222,21 @@ def get_args(argv=None):
     parser.add_argument("--pipeline_microbatch", type=int, default=None,
                         help="Micro-batch size for --pipeline_parallel (default: batch_size / 4)")
     return parser.parse_args(argv)
+
+
+def graph_route(device, model_parallel: int = 1, graphs: bool = True) -> tuple:
+    """Whether a sampling run's steps replay as CUDA graphs, and the line
+    that says which route it takes; ``graphs=False`` asks for the eager
+    loop (a library caller's comparison, never a flag)."""
+    if not graphs:
+        return False, "step graphs: off (the caller asked for the eager loop)"
+    if torch.device(device).type != "cuda":
+        return False, "step graphs: off (the CPU runs each step body eagerly)"
+    if model_parallel > 1:
+        return False, (f"step graphs: off, eager steps (--model_parallel {model_parallel}: a "
+                       "step's all-reduces go through the host over gloo, which a CUDA graph "
+                       "cannot capture)")
+    return True, "step graphs: on (each kind of step captured once as a CUDA graph, replayed)"
 
 
 def check_parallel_flags(args, attn_impl: str) -> None:
@@ -382,11 +406,13 @@ def decode_all(decode, x, kept: dict, device) -> tuple:
     return x, kept, time.perf_counter() - tic
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, graphs: bool = True) -> dict:
     """Run the CLI; returns {"samples": float (B, H, W, C) in about [0, 1],
     decoded images for a latent config, "intermediates": {s: the same after
     s reverse steps, for --timesteps_save}, "seconds": sampling wall time,
-    "decode_seconds": the decode's (0 without an autoencoder)}."""
+    "decode_seconds": the decode's (0 without an autoencoder)}.
+    ``graphs=False`` runs the step bodies eagerly on a CUDA device too (a
+    library caller's comparison; the CLI has no such flag)."""
     args = get_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
@@ -411,12 +437,12 @@ def main(argv=None) -> dict:
         microbatch = args.pipeline_microbatch or max(1, args.batch_size // 4)
         grid = pipeline_grid(args.batch_size, microbatch, args.device, args.multihost)
         try:
-            return _sample_pipeline(args, grid, microbatch, steps, attn_impl)
+            return _sample_pipeline(args, grid, microbatch, steps, attn_impl, graphs)
         finally:
             close(grid)
     grid = sampling_grid(mp, args.batch_size, args.device, args.multihost)
     try:
-        return _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl)
+        return _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl, graphs)
     finally:
         close(grid)
 
@@ -443,7 +469,8 @@ def _guided(args, model, null_label):
     return make_guided_apply(model, args.guidance_scale, null_label)
 
 
-def _sample_pipeline(args, grid, microbatch: int, steps: int, attn_impl: str) -> dict:
+def _sample_pipeline(args, grid, microbatch: int, steps: int, attn_impl: str,
+                     graphs: bool) -> dict:
     """:func:`main` for ``--pipeline_parallel``: this rank's stage of the
     pipeline (nothing on a waiting rank); rank 0 writes the files."""
     device = grid.device
@@ -459,8 +486,9 @@ def _sample_pipeline(args, grid, microbatch: int, steps: int, attn_impl: str) ->
     apply = None
     if grid.active:
         apply = _guided(args, _load(args, grid, attn_impl, late=grid.stage == 1)[0], null_label)
+    graphed, route = graph_route(device, graphs=graphs)
     pipe = DuoDiffPipeline(apply, apply, schedule, t_switch=args.t_switch, grid=grid,
-                           parametrization=args.parametrization)
+                           parametrization=args.parametrization, graphs=graphed)
     n_micro = args.batch_size // microbatch
     shape = (microbatch, cfg.img_size, cfg.img_size, cfg.in_chans)
     if grid.is_main:
@@ -468,6 +496,7 @@ def _sample_pipeline(args, grid, microbatch: int, steps: int, attn_impl: str) ->
         print(f"Sampling {args.batch_size} images on {device} (ddpm pipelined over 2 stages of "
               f"{grid.data} ranks, {n_micro} micro-batches of {microbatch}, t_switch "
               f"{args.t_switch}, attn_impl={attn_impl})...")
+        print(route)
     with torch.inference_mode():
         grid.barrier()  # every stage has its model
         if device.type == "cuda":
@@ -502,7 +531,8 @@ def _write(output_folder: Path, samples, intermediates: dict, elapsed: float, de
             "decode_seconds": decode_seconds}
 
 
-def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dict:
+def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl,
+            use_graphs: bool) -> dict:
     """:func:`main` once the flags are checked and the grid is formed."""
     device = grid.device
     output_folder = Path(args.output_folder)
@@ -512,12 +542,15 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
     decode = latent_decoder(args.config_path, device,
                             args.config_path_late if has_late else None)
     schedule = NoiseSchedule.create(steps=steps, device=device)
+    graphed, route = graph_route(device, grid.model, use_graphs)
+    graphs = StepGraphs(device, graphed)  # the run's graphs, buffers and memory pool
 
     def guided(model):
         return _guided(args, model, null_label)
 
     def dense_sampler(model):
-        return DDPMSampler(guided(model), schedule, parametrization=args.parametrization)
+        return DDPMSampler(guided(model), schedule, parametrization=args.parametrization,
+                           graphs=graphs)
 
     def cache_parts(model, cfg, which: str):
         """(anchor, cached, init_state) of the model's block cache: its
@@ -541,7 +574,7 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
         anchor, cached, init_state = cache_parts(model, cfg, which)
         apply = make_block_cached_apply(anchor, cached, cache_rule, t_first)
         return DDPMSampler(apply, schedule, parametrization=args.parametrization,
-                           init_state_fn=init_state)
+                           init_state_fn=init_state, graphs=graphs)
 
     model, cfg = _load(args, grid, attn_impl, late=False)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -563,7 +596,7 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
         kind = f"interleave_every={args.interleave_every}"
         apply = make_interleaved_apply(guided(late), guided(model), args.interleave_every)
         sampler = DDPMSampler(apply, schedule, parametrization=args.parametrization,
-                              init_state_fn=lambda x: ())
+                              init_state_fn=lambda x: (), graphs=graphs)
 
         def run(x0):
             return sampler.run(x0, generator, steps - 1, 0, y, state=())[0], {}
@@ -579,6 +612,7 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
                 guided(model), generator, schedule=schedule, shape=shape,
                 dpm_steps=args.dpm_steps, order=args.dpm_order,
                 parametrization=args.parametrization, y=y, x_init=x0, cache=cache,
+                graphs=graphs,
             ), {}
     elif args.use_ddim:
         kind = f"ddim {args.ddim_steps} steps, eta {args.ddim_eta}"
@@ -589,7 +623,7 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
                 ddim_steps=args.ddim_steps, eta=args.ddim_eta, y=y,
                 timesteps_save=args.timesteps_save, x_init=x0,
                 late_apply_fn=guided(late) if late is not None else None,
-                t_switch=args.t_switch,
+                t_switch=args.t_switch, graphs=graphs,
             )
             return x, dict(zip(args.timesteps_save, inter))
     else:
@@ -618,14 +652,15 @@ def _sample(args, grid, has_late, steps, cache_rule, cache_on, attn_impl) -> dic
                 else:
                     x, _ = sampler.run(x, generator, t_hi, t_lo, y,
                                        state=sampler.init_state_fn(x))
-                if t_lo in save_at:
-                    kept[steps - t_lo] = x
+                if t_lo in save_at:  # out of the run's x buffer, which goes on
+                    kept[steps - t_lo] = x.clone()
             return x, {s: kept[s] for s in args.timesteps_save}
 
     if grid.is_main:
         print(f"Sampling {args.batch_size} images on {device} ({kind}, attn_impl={attn_impl}, "
               f"cache={'on' if cache_on else 'off'}, grid data {grid.data} x model "
               f"{grid.model})...")
+        print(route)
     with torch.inference_mode():
         if device.type == "cuda":
             torch.cuda.synchronize(device)

@@ -58,6 +58,14 @@ fails after ``parallel/mesh.py:SERVE_TIMEOUT``: a rank that dies or hangs
 fails the request with 503, and the server then answers 503 with status
 ``stopped``. The static-exit family serves on rank 0's device alone, and
 ``--model_parallel`` with ``--static_schedule`` is refused.
+
+On a CUDA device the steps replay as CUDA graphs (``diffusion/graphs.py``),
+except under ``--model_parallel``, whose steps hold all-reduces over the
+host: the bucket server keeps its samplers' graphs, keyed by batch size,
+method and cache rule, for its life (captured by the first chunk, the
+warm-up's by default, under the request lock), and the continuous server
+captures each kind of step on its device-loop thread before it takes a
+request. A failed capture stops the server from starting.
 """
 
 from __future__ import annotations
@@ -209,6 +217,13 @@ class _ServiceBase:
         self.requests_served = 0
         self.decode_fn = latent_decoder(args.config_path, device)
         self.schedule = NoiseSchedule.create(steps=args.num_timesteps, device=device)
+        from duodiff_tpu_torch.diffusion.graphs import StepGraphs
+        from duodiff_tpu_torch.sample import graph_route
+
+        graphed, route = graph_route(device, self.grid.model)
+        self.graphs = StepGraphs(device, graphed)  # for the server's life
+        if self.grid.is_main:
+            print(route, flush=True)
 
         apply_fn = model
         self.guidance_null = None
@@ -423,24 +438,25 @@ class SamplerService(_ServiceBase):
                         if args.guidance_scale is not None else None)
             static = make_static_exit_sampler(
                 self.model, schedule=schedule, buckets=self.static_buckets, guidance=guidance,
-                cache_every=self.cache_rule, cache_outer=args.cache_outer)
+                cache_every=self.cache_rule, cache_outer=args.cache_outer, graphs=self.graphs)
             self._run = lambda g, y: static(g, self.shape, y)
         elif self.method == "dpm":
             self._run = lambda g, y: dpm_solver_sample(
                 apply_fn, g, schedule=schedule, shape=self.shape, dpm_steps=self.steps,
-                parametrization=args.parametrization, y=y, cache=cache)
+                parametrization=args.parametrization, y=y, cache=cache, graphs=self.graphs)
         elif self.method == "ddim":
             self._run = lambda g, y: ddim_sample(
                 apply_fn, g, schedule=schedule, shape=self.shape, ddim_steps=self.steps,
-                eta=0.0, y=y)[0]
+                eta=0.0, y=y, graphs=self.graphs)[0]
         else:
             t_first = schedule.steps - 1
             if cache is not None:
                 sampler = DDPMSampler(make_block_cached_apply(cache[0], cache[1], cache[2], t_first),
                                       schedule, parametrization=args.parametrization,
-                                      init_state_fn=cache[3])
+                                      init_state_fn=cache[3], graphs=self.graphs)
             else:
-                sampler = DDPMSampler(apply_fn, schedule, parametrization=args.parametrization)
+                sampler = DDPMSampler(apply_fn, schedule, parametrization=args.parametrization,
+                                      graphs=self.graphs)
 
             def run_ddpm(g, y):
                 x = sampler.init(g, self.shape)
@@ -540,15 +556,21 @@ class ContinuousSamplerService(_ServiceBase):
                 ddim_steps=self.steps, dpm_steps=self.steps,
                 steps_per_poll=args.steps_per_poll, conditional=cfg.num_classes > 0,
                 cache=self.cache, mesh=self.grid if self.sharded else None,
+                graphs=self.graphs.graphed,
             )
         self._cv = threading.Condition()
         self._queue = collections.deque()  # (generator seed, label or None, future)
         self._slot_jobs = {}  # slot -> future (device-loop thread only)
         self._stopped = False
         self._thread = None
+        self._ready = threading.Event()  # the device loop's graphs are made (or it failed)
         if self.grid.is_main:
             self._thread = threading.Thread(target=self._device_loop, daemon=True)
             self._thread.start()
+            self._ready.wait()
+            if self._failure is not None:
+                raise RuntimeError(f"the device loop failed before serving: "
+                                   f"{self._failure!r}") from self._failure
 
     def _round(self, wave: dict, advance: bool, deferred):
         """One round of the device loop, the same on every rank: admit
@@ -577,6 +599,7 @@ class ContinuousSamplerService(_ServiceBase):
             self.grid.broadcast_obj(unit)
 
     def _follow(self):
+        self.batcher.capture_graphs()
         deferred = None
         while (unit := self.grid.broadcast_obj()) is not None:
             deferred = self._round(*unit, deferred)
@@ -597,6 +620,8 @@ class ContinuousSamplerService(_ServiceBase):
         try:
             self._in_device_context()
             with torch.inference_mode():
+                batcher.capture_graphs()
+                self._ready.set()
                 while True:
                     with self._cv:
                         while (not self._stopped and not self._queue and not self._slot_jobs
@@ -648,6 +673,7 @@ class ContinuousSamplerService(_ServiceBase):
                 for fut in waiters:
                     if not fut.done():
                         fut.set_exception(e)
+            self._ready.set()
             raise
 
     def sample(self, n=1, seed=None, class_id=None):

@@ -152,7 +152,7 @@ def segment_drift(anchor_apply, schedule, x, generator, t_hi: int, t_lo: int, y,
     x, _, (drift_sq, norm_sq) = ddpm_loop(
         drift_apply(anchor_apply), schedule, "predict_noise", x, generator,
         range(t_hi, t_lo - 1, -1), y, noise_table=noise_table, state=delta0,
-        aux_fn=lambda out: out,
+        aux_fn=lambda out: out, graphs=False,  # the derivation's scans stay eager
     )
     rows = torch.stack([drift_sq, norm_sq]).double().cpu().numpy()
     return x, np.sqrt(rows[0])[::-1], np.sqrt(rows[1])[::-1]
@@ -190,7 +190,8 @@ def static_exit_drift(model, cfg, schedule, x, generator, buckets, cache_outer, 
             segments.append((t_hi, t_lo))
         else:
             x = ddpm_loop(truncated_ee_apply(model, layer), schedule, "predict_noise", x,
-                          generator, range(t_hi, t_lo - 1, -1), y, noise_table=noise_table)
+                          generator, range(t_hi, t_lo - 1, -1), y, noise_table=noise_table,
+                          graphs=False)
         bucket_meta.append({"t_hi": t_hi, "t_lo": t_lo, "layer": layer, "n_outer": p_outer,
                             "cacheable": p_outer is not None})
     return segments, bucket_meta
@@ -289,7 +290,7 @@ def main(argv=None) -> dict:
                   f"full anchors t={handoff - 1}..0, batch {args.batch}, attn={attn}, "
                   f"n_outer={n_outer} ...", file=sys.stderr)
             x = ddpm_loop(early, schedule, "predict_noise", x, generator,
-                          range(steps - 1, handoff - 1, -1), y)
+                          range(steps - 1, handoff - 1, -1), y, graphs=False)
             drift[:handoff], norm[:handoff] = measure_drift(model, schedule, x, generator,
                                                             handoff - 1, n_outer, y, tokens)
             segments = [(handoff - 1, 0)]

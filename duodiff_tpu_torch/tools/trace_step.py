@@ -99,7 +99,9 @@ def capture(args, device) -> dict:
     def run(seed: int) -> None:
         g = torch.Generator(device=device).manual_seed(seed)
         x = torch.randn(shape, generator=g, device=device)
-        out = ddpm_loop(lambda x, t, y: model(x, t, y), schedule, "predict_noise", x, g, ts, y)
+        # the eager loop: the trace shows each step's launches from the host
+        out = ddpm_loop(lambda x, t, y: model(x, t, y), schedule, "predict_noise", x, g, ts, y,
+                        graphs=False)
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError("the sampling loop gave non-finite values")
 

@@ -95,12 +95,15 @@ def refuse_unported(args) -> None:
                                  f"--model {model} it would do nothing")
 
 
-def sample_rows(model, schedule: NoiseSchedule, x, generator, y=None, noise_table=None):
+def sample_rows(model, schedule: NoiseSchedule, x, generator, y=None, noise_table=None,
+                graphs=True):
     """The in-training sampler: ancestral DDPM over every step, predicting
     the noise, variance ``beta``, from ``x``. Returns ``(x_0, probe_rows,
     stat_rows)``: per step the mean and std of the model's output (T, 2),
     and for an early-exit model, which steps on its backbone, its probes'
-    outputs (T, depth, B), else None; rows in step order, T-1 first."""
+    outputs (T, depth, B), else None; rows in step order, T-1 first.
+    ``graphs`` is :func:`ddpm_loop`'s: each call captures afresh, since the
+    weights move between calls."""
     early_exit = isinstance(model, EarlyExitUViT)
 
     def stats(out):
@@ -113,7 +116,8 @@ def sample_rows(model, schedule: NoiseSchedule, x, generator, y=None, noise_tabl
         return out, stats(out)
 
     x, rows = ddpm_loop(model, schedule, "predict_noise", x, generator,
-                        range(schedule.steps - 1, -1, -1), y, "beta", noise_table, aux_fn=aux)
+                        range(schedule.steps - 1, -1, -1), y, "beta", noise_table, aux_fn=aux,
+                        graphs=graphs)
     return (x, *rows) if early_exit else (x, None, rows)
 
 
@@ -488,7 +492,9 @@ class Trainer:
         try:
             with fsdp.full_params(model):
                 model.pack_for_kernels()
-                x, probe_rows, stat_rows = sample_rows(model, self.schedule, x, generator, y)
+                # eager under --model_parallel: its all-reduces go through the host
+                x, probe_rows, stat_rows = sample_rows(model, self.schedule, x, generator, y,
+                                                       graphs=self.grid.model == 1)
         finally:
             if live is not None:
                 for n, p in model.named_parameters():

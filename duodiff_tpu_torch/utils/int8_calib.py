@@ -102,7 +102,7 @@ def calibrate_int8_stats(
     _, (amax_rows, curves) = ddpm_loop(
         apply, schedule, parametrization, x_init, generator,
         range(schedule.steps - 1, -1, -1), y, noise_table=noise_table,
-        aux_fn=lambda out: out,
+        aux_fn=lambda out: out, graphs=False,  # the calibration scan stays eager
     )
     amax = amax_rows.amax(0).cpu().numpy()
     curves = curves.cpu().numpy()
