@@ -251,6 +251,23 @@ printing its results on its own lines:
    the pool's bytes and the peak memory; (g) phase 4b's headline through the
    CLI, eager, then graphed (``sample.main(graphs=False)``), the samples
    equal to the bit. Its launches are not added to the record.
+20. the train step graphs (``training/train_state.py``'s step body; since
+   then every training CLI run above on one process replays them) against
+   the eager steps: the training CLI in-process, ``train.main(graphs=False)``
+   then graphed, from the same seed, data and flags: (a) ``uvit_cifar10.yaml``
+   fused, batch 128, 20 steps, 4 in-training samples at the last with
+   ``--ema_decay 0``; (b) ``uvit_imagenet64.yaml`` fused with K8
+   (``DUODIFF_MLP_BWD_SPLIT=1``), ``--grad_accum 2 --skip_nonfinite 1``,
+   label dropout and EMA, 8 steps; (c) ``uvit_imagenet64.yaml`` pallas (K9,
+   K10), 4 steps; (d) ``deediff_cifar10.yaml``, 6 steps; (e)
+   ``uvit_imagenet256_3.yaml`` with a random autoencoder, the encode's graph
+   and the D = 1024 step at batch 32, 4 steps. Each route's parameters,
+   gradients, AdamW state, accumulation, counters, EMA, logged metrics,
+   launch counts by kernel and (a) the samples' PNG bytes and statistics
+   equal to the bit; then 4 more steps timed with CUDA events and 4
+   profiled, graphed and eager, the captures, the pool's bytes and the peak
+   memory. Its launches are added to the records of K1, K2, K6-K10, and
+   kept apart as ``launches_20``.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -495,7 +512,7 @@ PROBE_KERNELS = {
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
 PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18", "19")
+          "15", "16", "17", "18", "19", "20")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -2774,19 +2791,22 @@ def run_train_path(device, card: str) -> tuple:
     return launches, medians
 
 
-def profile_steps(label: str, one_step, n: int = 3) -> dict | None:
+def profile_steps(label: str, one_step, n: int = 3, cpu: bool = True) -> dict | None:
     """torch.profiler over ``n`` calls of ``one_step``: device busy time, idle
     share, the share of every kernel family (all device events, summing to
     1; the families of ``tools/trace_step.py``) and the largest kernels by
     name. Returns {"busy_ms", "window_ms", "idle"}, or None where the
-    profiler saw no device time."""
+    profiler saw no device time. ``cpu=False`` records the device alone
+    (none of these numbers reads the host's events, which cost time to
+    gather)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from duodiff_tpu_torch.tools.trace_step import kernel_family
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         tic = time.perf_counter()
         for _ in range(n):
             one_step()
@@ -6905,6 +6925,207 @@ def run_step_graphs(device, card: str) -> dict:
     return out
 
 
+TRAIN_GRAPH_STEPS = {"20a": 20, "20b": 8, "20c": 4, "20d": 6, "20e": 4}
+TRAIN_GRAPH_SAMPLES = 4    # 20a: the in-training samples, --ema_decay 0, at the last step
+TRAIN_GRAPH_TIMESTEPS = 250  # 20a: its schedule, which its samples walk whole
+TRAIN_GRAPH_EMA = 0.999    # 20b
+LATENT_ENCODE_BATCH = 32   # 20e
+TRAIN_GRAPH_WINDOW = 4     # steps timed, then as many profiled, after each run
+
+
+def train_state_tensors(trainer) -> dict:
+    """A copy of every tensor a train step writes: the parameters and their
+    gradients, AdamW's moments, count, window position and running mean,
+    the non-finite counters and the EMA."""
+    opt, state = trainer.state.optimizer, trainer.state
+    out = {}
+    for n, p in trainer.model.named_parameters():
+        out[f"param {n}"] = p.detach()
+        if p.grad is not None:
+            out[f"grad {n}"] = p.grad
+    for key in ("mu", "nu", "acc_grads"):
+        for n, t in zip(opt.names, getattr(opt, key) or ()):
+            out[f"{key} {n}"] = t
+    for key in ("_count", "_mini", "notfinite_count", "total_notfinite", "last_finite"):
+        if hasattr(opt, key):
+            out[key] = getattr(opt, key)
+    for n, t in (state.ema or {}).items():
+        out[f"ema {n}"] = t
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def measure_train_steps(trainer, label: str) -> dict:
+    """TRAIN_GRAPH_WINDOW data steps of the trainer after its run, each
+    through the trainer's own step (the draws, the copies and the step graph
+    or the eager step; a latent config's encode first): CUDA-event step
+    times (median, least, most), then the profiler's idle share over as many
+    more (an even count: both kinds of an accumulation window)."""
+    batch = trainer._to_device(trainer.dataloader.next_batch())
+    step = [trainer.args.n_steps]
+
+    def one_step():
+        step[0] += 1
+        trainer._train_step(trainer.state, trainer._encode(batch, step[0]), step[0])
+
+    events = []
+    torch.cuda.synchronize()
+    for _ in range(TRAIN_GRAPH_WINDOW):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        one_step()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    prof = profile_steps(label, one_step, n=TRAIN_GRAPH_WINDOW, cpu=False) or {}
+    return {"ms_median": statistics.median(ms), "ms_min": min(ms), "ms_max": max(ms),
+            "idle": prof.get("idle"),
+            "busy_ms_per_step": prof["busy_ms"] / TRAIN_GRAPH_WINDOW if prof else None}
+
+
+def run_train_graph_route(label: str, argv: list, card: str, expected: dict,
+                          samples_at: int | None = None) -> dict:
+    """One phase-20 route: the training CLI in-process, eager
+    (``train.main(graphs=False)``), then graphed, from the same seed, data
+    and flags. Fails unless every tensor a step writes (parameters,
+    gradients, moments, count, accumulation, counters, EMA), the logged
+    metrics and the launch counts by kernel are equal to the bit, the counts
+    are ``expected``, and (``samples_at``) the in-training samples' PNG
+    bytes and per-step statistics are equal. Prints the runs' wall times,
+    each mode's CUDA-event step times and idle share, the captures, the
+    pool's bytes and peak memory, with the card."""
+    from duodiff_tpu_torch import train
+
+    got, runs = {}, {}
+    for mode in ("eager", "graphed"):
+        release_memory()
+        reset_counts()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        trainer = train.main([*argv, "--exp_name", mode], graphs=mode == "graphed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        launches = {k: v for k, v in read_counts().items() if v}
+        files = {}
+        if samples_at is not None:
+            for name in (f"samples_step{samples_at}.png", f"sample_stats_step{samples_at}.npy"):
+                files[name] = (trainer.log_path / name).read_bytes()
+        logs = [{k: v for k, v in log.items() if k != "steps_per_sec"} for log in trainer.logs]
+        got[mode] = (train_state_tensors(trainer), logs, launches, files)
+        runs[mode] = {"wall_s": wall, "pool_bytes": trainer.graphs.pool_bytes(),
+                      "captures": trainer.graphs.summary(),
+                      "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+        runs[mode]["steps"] = measure_train_steps(trainer, f"{label}, {mode}")
+        del trainer
+    (es, elog, el, ef), (gs, glog, gl, gf) = got["eager"], got["graphed"]
+    differ = sorted(k for k in es if k not in gs or not torch.equal(es[k], gs[k]))
+    differ += sorted(set(gs) - set(es))
+    diffs = {k: float((gs[k].double() - es[k].double()).abs().max()) for k in differ[:5]
+             if k in gs and k in es and gs[k].shape == es[k].shape}
+    e, g = runs["eager"], runs["graphed"]
+    print(f"{label}: wall eager {e['wall_s']:.6g} s, graphed {g['wall_s']:.6g} s (set-up "
+          f"included); {len(es)} state tensors, {len(differ)} differ {differ[:5]} {diffs}; "
+          f"logged metrics equal: {elog == glog} ({glog}); launches eager {el}, graphed {gl}; "
+          f"in-training samples equal: {ef == gf if samples_at else 'not sampled'}; "
+          f"step ms eager {e['steps']['ms_median']:.6g} [{e['steps']['ms_min']:.6g}, "
+          f"{e['steps']['ms_max']:.6g}], graphed {g['steps']['ms_median']:.6g} "
+          f"[{g['steps']['ms_min']:.6g}, {g['steps']['ms_max']:.6g}]; idle share eager "
+          f"{e['steps']['idle']}, graphed {g['steps']['idle']}; captures {g['captures']}, the "
+          f"pool {g['pool_bytes']} bytes; peak allocated eager {e['peak_allocated_gib']:.6g} "
+          f"GiB, graphed {g['peak_allocated_gib']:.6g} GiB (reserved "
+          f"{e['peak_reserved_gib']:.6g} / {g['peak_reserved_gib']:.6g} GiB); card {card}",
+          flush=True)
+    if differ:
+        fail(f"{label}: the graphed run's state differs from the eager run's: {differ[:5]}")
+    if elog != glog:
+        fail(f"{label}: the logged metrics differ: eager {elog}, graphed {glog}")
+    if el != gl:
+        fail(f"{label}: launches graphed {gl} against eager {el}")
+    check_counts(gl, expected)
+    if ef != gf:
+        fail(f"{label}: the in-training samples differ graphed and eager")
+    if not g["captures"] or any(c["capture_s"] is None for c in g["captures"].values()):
+        fail(f"{label}: a kind of step was never captured: {g['captures']}")
+    return {"wall_s": {m: runs[m]["wall_s"] for m in runs},
+            "step_ms": {m: runs[m]["steps"] for m in runs},
+            "peak_allocated_gib": {m: runs[m]["peak_allocated_gib"] for m in runs},
+            "captures": g["captures"], "pool_bytes": g["pool_bytes"], "launches": gl}
+
+
+def run_train_graphs(card: str) -> dict:
+    """Phase 20: the train step graphs against the eager steps, each route
+    from the same initialisation and batches: (a) CIFAR-10 fused, batch 128,
+    20 steps, sampling at the last with --ema_decay 0; (b) ImageNet-64
+    fused with K8 (DUODIFF_MLP_BWD_SPLIT=1), --grad_accum 2
+    --skip_nonfinite 1, label dropout and EMA, 8 steps; (c) ImageNet-64
+    pallas (K9, K10), 4 steps; (d) DeeDiff CIFAR-10, 6 steps; (e) latent
+    ImageNet-256, the encode's graph and the step of the pair's depth-3
+    U-ViT at D = 1024, batch 32, 4 steps. Returns each route's record."""
+    from duodiff_tpu_torch.data.synthetic import (
+        write_palette_cifar,
+        write_palette_imagenet64_cache,
+        write_palette_imagenet256_cache,
+    )
+
+    fused = ("fused_attn_sublayer", "fused_mlp_sublayer", "fused_attn_sublayer_bwd",
+             "fused_mlp_sublayer_bwd")
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        write_palette_cifar(Path(work) / "data", seed=0)
+        n = TRAIN_GRAPH_STEPS["20a"]
+        out["20a"] = run_train_graph_route(
+            f"phase 20a: train graphs, {Path(TRAIN_CONFIG).name} fused, batch {TRAIN_BATCH}, "
+            f"{n} steps, {TRAIN_GRAPH_SAMPLES} samples over {TRAIN_GRAPH_TIMESTEPS} steps at step "
+            f"{n}", train_argv(work, "a", n, "--log_every_n_steps", str(n), "--n_samples",
+                               str(TRAIN_GRAPH_SAMPLES), "--num_timesteps",
+                               str(TRAIN_GRAPH_TIMESTEPS)), card,
+            {k: 13 * n + (13 * TRAIN_GRAPH_TIMESTEPS if k in fused[:2] else 0) for k in fused},
+            samples_at=n)
+        n = TRAIN_GRAPH_STEPS["20d"]
+        out["20d"] = run_train_graph_route(
+            f"phase 20d: train graphs, deediff_cifar10.yaml, batch {TRAIN_BATCH}, {n} steps",
+            train_argv(work, "d", n, "--model", "deediff_uvit", "--attn_impl", "fused",
+                       config=str(REPO / "configs/deediff_cifar10.yaml")), card,
+            {k: 13 * n for k in fused})
+    with tempfile.TemporaryDirectory() as work:
+        write_palette_imagenet64_cache(Path(work) / "data", seed=0)
+        n = TRAIN_GRAPH_STEPS["20b"]
+        with split_backward():
+            out["20b"] = run_train_graph_route(
+                f"phase 20b: train graphs, {Path(IMAGENET_CONFIG).name} fused with K8, batch "
+                f"{TRAIN_BATCH}, {n} steps, --grad_accum 2 --skip_nonfinite 1, label dropout "
+                f"{LABEL_DROPOUT}, EMA {TRAIN_GRAPH_EMA}",
+                train_argv(work, "b", n, "--attn_impl", "fused", "--grad_accum", "2",
+                           "--skip_nonfinite", "1", "--label_dropout", str(LABEL_DROPOUT),
+                           "--ema_decay", str(TRAIN_GRAPH_EMA), config=IMAGENET_CONFIG,
+                           dataset="imagenet64"), card,
+                {k: 17 * n for k in (*fused[:3], "fused_mlp_sublayer_bwd_split")})
+        n = TRAIN_GRAPH_STEPS["20c"]
+        out["20c"] = run_train_graph_route(
+            f"phase 20c: train graphs, {Path(IMAGENET_CONFIG).name} pallas, batch {TRAIN_BATCH}, "
+            f"{n} steps, label dropout {LABEL_DROPOUT}",
+            train_argv(work, "c", n, "--attn_impl", "pallas", "--label_dropout",
+                       str(LABEL_DROPOUT), config=IMAGENET_CONFIG, dataset="imagenet64"), card,
+            {"flash_attention": 17 * n, "flash_attention_bwd": 17 * n})
+    with tempfile.TemporaryDirectory() as work:
+        files = write_latent_files(work)
+        write_palette_imagenet256_cache(Path(work) / "data", n=LATENT_CACHE_IMAGES, seed=0,
+                                        size=LATENT_IMAGE)
+        n = TRAIN_GRAPH_STEPS["20e"]
+        # the encode is the point: the depth-3 U-ViT of the latent pair at D = 1024
+        argv = train_argv(work, "e", n, "--label_dropout", str(LABEL_DROPOUT),
+                          config=files["early"], dataset="imagenet256")
+        argv[argv.index("--batch_size") + 1] = str(LATENT_ENCODE_BATCH)
+        out["20e"] = run_train_graph_route(
+            f"phase 20e: train graphs, {Path(LATENT_EARLY_CONFIG).name} (D 1024, depth 3), the "
+            f"encode's graph and the step, batch {LATENT_ENCODE_BATCH}, {n} steps", argv, card,
+            {k: 3 * n for k in fused})
+    release_memory()
+    print(json.dumps({"train_graphs": out, "card": card}), flush=True)
+    return out
+
+
 def parse_phases(argv) -> set:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -7082,6 +7303,13 @@ def main(argv=None) -> int:
     lap("19")
     if "19" in run:
         run_step_graphs(device, card)
+    lap("20")
+    if "20" in run:
+        # the train step graphs' launches are added to K1, K2, K6-K10, and kept apart
+        for rec in run_train_graphs(card).values():
+            for name, n in rec["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+                results[name]["launches_20"] = results[name].get("launches_20", 0) + n
     lap("end")
     print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "
           "started", flush=True)

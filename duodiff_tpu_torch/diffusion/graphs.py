@@ -11,6 +11,11 @@ timestep and the step index live in device tensors that the body reads
 into a static ``z`` before each replay, and the state (x, a cache's
 residual, the solver's previous x0, the aux rows) is written in place. The
 host only chooses which graph replays, from its own copy of the timesteps.
+The trainer's steps are step graphs too, the counterpart of the JAX
+trainer's one jitted, donated step (``training/train_state.py``): a kind
+of train step ("update", and with accumulation "fold") reads the static
+batch and draws and writes the weights, their gradients, the optimizer's
+state, the EMA and the metrics in place.
 
 On the CPU, or with ``graphed=False``, the same bodies run eagerly, one
 step at a time: the CPU tests hold them to a plain loop with Python-int
@@ -122,8 +127,9 @@ class StepGraphs:
 
     def buffer(self, name: str, shape, dtype=torch.float32) -> torch.Tensor:
         """The run's static buffer ``name`` of that shape and dtype (zeros
-        when first made), shared by every sampler of the run that asks for
-        it: a DuoDiff segment's x is the next segment's."""
+        when first made), shared by every sampler or train step of the run
+        that asks for it: a DuoDiff segment's x is the next segment's, the
+        loader's batch the train step's."""
         key = (name, tuple(shape), dtype)
         if key not in self._buffers:
             self._buffers[key] = torch.zeros(key[1], dtype=dtype, device=self.device)

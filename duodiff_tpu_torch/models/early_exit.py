@@ -290,6 +290,9 @@ class EarlyExitUViT(nn.Module):
     def pack_for_kernels(self) -> None:
         self.uvit.pack_for_kernels()
 
+    def mark_weights_moved(self) -> None:
+        self.uvit.mark_weights_moved()
+
     def block_names(self) -> list[str]:
         return self.uvit.block_names()
 

@@ -269,7 +269,8 @@ class Block(nn.Module):
         """(version, address) of every parameter :meth:`pack` reads, from the
         host alone: an in-place update bumps the version, a replaced or moved
         tensor has another address. (An in-place write through ``p.data``
-        bumps no version and goes unseen.)"""
+        bumps no version and goes unseen, and so does a CUDA graph's replay:
+        ``UViT.mark_weights_moved`` clears the marks after one.)"""
         mods = (self.norm1, self.attn["qkv"], self.attn["proj"], self.norm2,
                 self.mlp["fc1"], self.mlp["fc2"])
         return [(0 if p.is_inference() else p._version, p.data_ptr())

@@ -107,6 +107,14 @@ class UViT(nn.Module):
         for blk in self.blocks():
             blk.pack(self.dtype)
 
+    def mark_weights_moved(self) -> None:
+        """Count every block's packed operands as stale, so that its next
+        packed forward packs again: a train step graph's replay writes the
+        weights in place without Python, which the packs' ``_version`` marks
+        cannot see. Reads nothing on the device."""
+        for blk in self.blocks():
+            blk._packed_marks = None
+
     def embed_tokens(self, x, timesteps, y=None):
         """Patchify + time/label tokens + positional embedding."""
         cfg = self.config
@@ -177,7 +185,9 @@ class UViT(nn.Module):
     def _run_block(self, blk: Block, x, skip=None):
         """The block, behind a checkpoint when training with ``use_checkpoint``."""
         if self.use_checkpoint and self.training and torch.is_grad_enabled():
-            return checkpoint(blk, x, skip, use_reentrant=False)
+            # the block draws nothing, so no RNG state is stashed (a CUDA
+            # graph's capture could not read it)
+            return checkpoint(blk, x, skip, use_reentrant=False, preserve_rng_state=False)
         return blk(x, skip)
 
     def _check_n_outer(self, n_outer: int) -> int:

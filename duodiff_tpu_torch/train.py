@@ -45,6 +45,13 @@ data group, by the JAX trainer's rule (``parallel/fsdp.py``), with AdamW's
 moments and the EMA; it composes with ``--model_parallel`` and shards
 nothing (and says so) when the data group is 1. The unfused block
 (``--attn_impl pallas`` / ``xla``) runs under ``--model_parallel`` too.
+On one process on a CUDA device every kind of train step (and a latent
+config's encode) replays a CUDA graph after its eager warm-up and its
+capture; the run prints its route (``train step graphs: on``). On the CPU,
+on a process grid (data or tensor parallelism, ``--fsdp``: their
+collectives go through the host over gloo) and with ``main(argv,
+graphs=False)`` (a library caller's comparison, no flag) the steps run
+eagerly. A failed capture raises.
 Checkpoints land in ``<log_path>/<exp_name>/<save_name>_last/checkpoint.pth``;
 ``python -m duodiff_tpu_torch.sample --checkpoint_path`` (``eesample`` for an
 early-exit model) loads that file.
@@ -163,8 +170,9 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    """Run the CLI; returns the Trainer, its logged metrics in ``.logs``."""
+def main(argv=None, *, graphs: bool = True):
+    """Run the CLI; returns the Trainer, its logged metrics in ``.logs``.
+    ``graphs=False`` runs the train steps eagerly on a CUDA device too."""
     args = get_args(argv)
     if args.exp_name is None:
         args.exp_name = get_exp_name(args)
@@ -174,7 +182,7 @@ def main(argv=None):
 
     from duodiff_tpu_torch.parallel.mesh import close
 
-    trainer = Trainer(args)
+    trainer = Trainer(args, graphs=graphs)
     try:
         trainer.train()
     finally:

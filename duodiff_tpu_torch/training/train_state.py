@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from duodiff_tpu_torch.diffusion.graphs import StepGraphs
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.training.losses import deediff_loss, total_deediff_loss, uvit_loss
 from duodiff_tpu_torch.training.lr import cosine_schedule_with_warmup
@@ -91,15 +92,22 @@ class AdamW:
     more than n updates in a row were bad, from when on it is applied as it
     is. The decision is a device flag (every tensor's norm is finite) that
     selects between the old and the new value of each tensor, so nothing
-    waits for the host; ``count`` and optax's three counters
-    (``notfinite_count``, ``total_notfinite``, ``last_finite``) then live on
-    the device. With both, a bad data step makes its window's mean
+    waits for the host; optax's three counters (``notfinite_count``,
+    ``total_notfinite``, ``last_finite``) live on the device. With both, a
+    bad data step makes its window's mean
     non-finite and the window's update is the one skipped; the mean starts
     again from zero with the next window.
 
     ``grid``: clip to the global norm over the grid's shards
     (:func:`grid_norms`, with ``fsdp`` the names of the FSDP chunks) and
-    take the finite flag agreed over every rank."""
+    take the finite flag agreed over every rank.
+
+    Every tensor of the state lives on the device and is written in place:
+    ``count`` (the learning-rate position and the bias corrections read
+    it there), the window position that divides the running mean, the
+    moments, the mean and the counters. So a CUDA graph of a step replays
+    what the eager step computes; only the host's copy of the window
+    position (:attr:`update_due`) picks which graph."""
 
     EPS = 1e-8  # optax.adamw's default
 
@@ -120,30 +128,34 @@ class AdamW:
         self.grad_accum = grad_accum
         self.grid = grid
         self.fsdp = fsdp
+        device = self.params[0].device
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self._count = 0
-        self.mini_step = 0
-        self.acc_grads = ([torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-                          if grad_accum > 1 else None)
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
+        self.mini_step = 0  # the host's copy of the window position: it picks the step's kind
+        self.acc_grads = None
+        if grad_accum > 1:
+            self.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+            self._mini = torch.zeros((), dtype=torch.int64, device=device)
         if skip_nonfinite:
-            device = self.params[0].device
-            self._count = torch.zeros((), dtype=torch.int64, device=device)
             self.notfinite_count = torch.zeros((), dtype=torch.int64, device=device)
             self.total_notfinite = torch.zeros((), dtype=torch.int64, device=device)
             self.last_finite = torch.ones((), dtype=torch.bool, device=device)
 
     @property
     def count(self) -> int:
-        """Updates applied so far (reads the device when ``skip_nonfinite``)."""
+        """Updates applied so far (reads the device)."""
         return int(self._count)
 
     @count.setter
     def count(self, value: int) -> None:
-        if self.skip_nonfinite:
-            self._count.fill_(int(value))
-        else:
-            self._count = int(value)
+        self._count.fill_(int(value))
+
+    @property
+    def update_due(self) -> bool:
+        """Whether the next data step ends an accumulation window, and so
+        updates (always without accumulation)."""
+        return self.mini_step == self.grad_accum - 1
 
     @torch.no_grad()
     def step(self, grads: list) -> torch.Tensor:
@@ -151,60 +163,60 @@ class AdamW:
         clipping. Without accumulation it clips ``grads`` (in place) and
         updates; with it, it folds them into the running mean and updates
         from the mean on every ``grad_accum``-th call."""
+        g_norm = self.step_body(grads, self.update_due)
+        self.advance()
+        return g_norm
+
+    @torch.no_grad()
+    def step_body(self, grads: list, update: bool) -> torch.Tensor:
+        """:meth:`step`'s work on the device, which reads and writes the
+        optimizer's tensors in place and nothing on the host: a step graph
+        captures it. ``update`` (the host's :attr:`update_due`) says whether
+        the step ends its window; :meth:`advance` moves the host's window
+        position after it."""
         norms, g_norm = grid_norms(grads, self.names, self.grid, self.fsdp)
         if self.grad_accum == 1:
             self._update(grads, norms, g_norm)
             return g_norm
         diff = torch._foreach_sub(grads, self.acc_grads)
-        torch._foreach_div_(diff, float(self.mini_step + 1))
+        torch._foreach_div_(diff, (self._mini + 1).float())
         torch._foreach_add_(self.acc_grads, diff)
-        self.mini_step = (self.mini_step + 1) % self.grad_accum
-        if self.mini_step == 0:
+        self._mini.add_(1).remainder_(self.grad_accum)
+        if update:
             self._update(self.acc_grads,
                          *grid_norms(self.acc_grads, self.names, self.grid, self.fsdp))
             torch._foreach_zero_(self.acc_grads)
         return g_norm
 
+    def advance(self) -> None:
+        """The host's window position after a data step (:meth:`step_body`
+        moved the device's)."""
+        self.mini_step = (self.mini_step + 1) % self.grad_accum
+
     def _update(self, grads: list, norms: torch.Tensor, g_norm: torch.Tensor) -> None:
         """Clip ``grads`` (in place) to the global norm ``g_norm``, then one
-        AdamW update, skipped on the device if it is to be."""
+        AdamW update, its bias corrections and learning rate from the
+        device's count. With ``skip_nonfinite`` the update is computed beside
+        the state and taken or dropped tensor by tensor on the device's
+        finite flag and the run of bad updates so far, as
+        optax.apply_if_finite does."""
         # optax.clip_by_global_norm: g if |g| < max, else g / |g| * max
         factor = torch.where(g_norm < self.max_grad_norm, torch.ones_like(g_norm),
                              self.max_grad_norm / g_norm)
         torch._foreach_mul_(grads, factor)
+        ok = None
         if self.skip_nonfinite:
             finite = torch.isfinite(norms).all()
-            self._update_if_finite(grads, finite if self.grid is None else self.grid.all_true(finite))
-            return
-        self._count += 1
-        b1, b2 = self.beta1, self.beta2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        mu_hat = torch._foreach_div(self.mu, 1.0 - b1 ** self.count)
-        denom = torch._foreach_div(self.nu, 1.0 - b2 ** self.count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.EPS)
-        update = torch._foreach_div(mu_hat, denom)
-        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-self.lr_schedule(self.count - 1))
-
-    def _update_if_finite(self, grads: list, finite: torch.Tensor) -> None:
-        """The same update computed beside the state, then taken or dropped
-        tensor by tensor on ``finite`` (a device bool) and the run of bad
-        updates so far, as optax.apply_if_finite does."""
-        bad_run = torch.where(finite, torch.zeros_like(self.notfinite_count),
-                              self.notfinite_count + 1)
-        ok = finite | (bad_run > self.skip_nonfinite)
-        self.notfinite_count = bad_run
-        self.total_notfinite = self.total_notfinite + (~finite)
-        self.last_finite = finite
+            ok = self._take(finite if self.grid is None else self.grid.all_true(finite))
         count = self._count + 1
         b1, b2 = self.beta1, self.beta2
-        mu = torch._foreach_mul(self.mu, b1)
+        if ok is None:
+            mu, nu = self.mu, self.nu
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_mul_(nu, b2)
+        else:
+            mu, nu = torch._foreach_mul(self.mu, b1), torch._foreach_mul(self.nu, b2)
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
-        nu = torch._foreach_mul(self.nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
         mu_hat = torch._foreach_div(mu, (1.0 - b1 ** count.double()).float())
         denom = torch._foreach_div(nu, (1.0 - b2 ** count.double()).float())
@@ -213,11 +225,27 @@ class AdamW:
         update = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(update, self.params, alpha=self.weight_decay)
         torch._foreach_mul_(update, (-self.lr_schedule(count - 1)).float())
+        if ok is None:
+            torch._foreach_add_(self.params, update)
+            self._count.copy_(count)
+            return
         new_params = torch._foreach_add(self.params, update)
         for old, new in ((self.mu, mu), (self.nu, nu), (self.params, new_params)):
             for t, n in zip(old, new):
                 t.copy_(torch.where(ok, n, t))
-        self._count = torch.where(ok, count, self._count)
+        self._count.copy_(torch.where(ok, count, self._count))
+
+    def _take(self, finite: torch.Tensor) -> torch.Tensor:
+        """Whether this update is taken: it is finite, or more than
+        ``skip_nonfinite`` in a row were not. Advances optax's three
+        counters in place."""
+        bad_run = torch.where(finite, torch.zeros_like(self.notfinite_count),
+                              self.notfinite_count + 1)
+        ok = finite | (bad_run > self.skip_nonfinite)
+        self.notfinite_count.copy_(bad_run)
+        self.total_notfinite.add_(~finite)
+        self.last_finite.copy_(finite)
+        return ok
 
     def state_dict(self) -> dict:
         state = {"count": self.count,
@@ -254,6 +282,7 @@ class AdamW:
                 t.copy_(state[key][name])
         if self.grad_accum > 1:
             self.mini_step = int(state.get("mini_step", 0))
+            self._mini.fill_(self.mini_step)
             if "acc_grads" not in state:
                 torch._foreach_zero_(self.acc_grads)
         if self.skip_nonfinite:
@@ -307,6 +336,12 @@ class TrainState:
 _LABEL_DROP_STREAM = 0x1ABE1  # the JAX package's fold_in constant for the drop draw
 
 
+def step_buffer(graphs, key: str, like: torch.Tensor) -> torch.Tensor:
+    """The run's static buffer of the train step's input ``key`` ("image",
+    "label", "timesteps", "noise", "drop") shaped and typed as ``like``."""
+    return graphs.buffer(f"step {key}", like.shape, like.dtype)
+
+
 def step_generator(seed: int, step: int, device, stream: int = 0) -> torch.Generator:
     """The generator of one step's draws, a function of (seed, step) only,
     so a resumed run draws what an unbroken one would. ``stream`` gives a
@@ -320,7 +355,8 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
                     seed: int, model_kind: str = "uvit", use_unweighted_loss: bool = False,
                     has_labels: bool = False, teacher: Optional[nn.Module] = None,
                     distill_alpha: float = 1.0, t_min: int = 0, label_dropout: float = 0.0,
-                    null_label: Optional[int] = None, grid=None, rows: Optional[tuple] = None):
+                    null_label: Optional[int] = None, grid=None, rows: Optional[tuple] = None,
+                    graphs=None):
     """Build ``train_step(state, batch, step) -> metrics``.
 
     A step draws uniform timesteps in [t_min, steps) and the noise from
@@ -355,6 +391,21 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
     mask and keeps those rows. ``grid``: the gradients are averaged over its
     data group before the update (an FSDP model's chunks were, in its
     backward).
+
+    The step in two parts, as the JAX trainer's one jitted, donated step
+    keeps everything on the device: (a) the draws, eager, copied with the
+    batch into static buffers; (b) the body, which reads and writes only
+    static tensors: the buffers, the parameters and their gradients (each
+    ``.grad`` made once and zeroed before every backward, never replaced),
+    the optimizer's state, the EMA and the metrics (one static vector). On
+    the run's :class:`~duodiff_tpu_torch.diffusion.graphs.StepGraphs`
+    ``graphs`` the body is one step graph per kind of step, "update", and
+    with accumulation "fold" (the host's window position picks it): a CUDA
+    graph on the card, the body run eagerly on the CPU or when the graphs
+    are not graphed. Without ``graphs`` the body runs eagerly on buffers of
+    its own. After a replay the model's packed operands count as stale
+    (``mark_weights_moved``): a replay writes the weights without Python,
+    so their ``_version`` marks do not move.
     """
     names, params = map(list, zip(*model.named_parameters()))
     fsdp_state = getattr(model, "fsdp", None)
@@ -421,44 +472,109 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, *, parametrizatio
             metrics = {"train_loss": loss, "distill_loss": distill, "task_loss": task}
         return loss, metrics
 
+    untrained = {}  # a zero gradient of each parameter that takes none, made once
+
+    def grad_buffers() -> list:
+        """One gradient tensor per parameter, at one address for the run:
+        each trained parameter's ``.grad`` (zeros, made where it has none),
+        the kept zeros of one that takes no gradient."""
+        out = []
+        for i, p in enumerate(params):
+            if not p.requires_grad:
+                out.append(untrained.setdefault(i, torch.zeros_like(p)))
+                continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            out.append(p.grad)
+        return out
+
     def backward(batch, timesteps, noise, drop=None) -> tuple[dict, list]:
-        """Loss and gradients (fp32, one per parameter) for injected draws."""
+        """Loss and gradients (one per parameter) for injected draws: the
+        gradients are zeroed, and the backward adds into them in place."""
         model.train()
-        for p in params:
-            p.grad = None
+        grads = grad_buffers()
+        torch._foreach_zero_(grads)
         loss, metrics = loss_fn(batch, timesteps, noise, drop)
         loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         return metrics, grads
 
-    def update(state: TrainState, grads: list) -> torch.Tensor:
-        """One optimizer step on the gradients of every parameter (in
-        ``model.named_parameters()`` order), then the EMA; returns the global
-        norm of all of them. An optimizer over a subset gets the subset's."""
+    def apply(state: TrainState, grads: list, update_now: bool) -> torch.Tensor:
+        """The optimizer's device work on the gradients of every parameter
+        (in ``model.named_parameters()`` order), then the EMA; returns the
+        global norm of all of them. An optimizer over a subset gets the
+        subset's."""
         opt_names = state.optimizer.names
         if opt_names == names:
-            g_norm = state.optimizer.step(grads)
+            g_norm = state.optimizer.step_body(grads, update_now)
         else:
             g_norm = grid_norms(grads, names, grid, chunked)[1]
             by_name = dict(zip(names, grads))
-            state.optimizer.step([by_name[n] for n in opt_names])
+            state.optimizer.step_body([by_name[n] for n in opt_names], update_now)
         state.update_ema()
         return g_norm
+
+    def update(state: TrainState, grads: list) -> torch.Tensor:
+        """One optimizer step, eager, on ``grads``, then the EMA; returns the
+        global norm of all of them."""
+        g_norm = apply(state, grads, state.optimizer.update_due)
+        state.optimizer.advance()
+        return g_norm
+
+    run = {"graphs": graphs, "state": None, "buffers": None, "metrics": None}
+
+    def stage(key: str, src: torch.Tensor) -> torch.Tensor:
+        """``src`` in the run's static buffer of the input ``key`` (copied
+        unless it is that buffer)."""
+        buf = step_buffer(run["graphs"], key, src)
+        if buf is not src:
+            buf.copy_(src, non_blocking=True)
+        return buf
+
+    def body(state: TrainState, inputs: dict, update_now: bool) -> None:
+        """The step on static tensors only: forward, loss, backward, (the
+        data group's mean,) clipping, AdamW, EMA, the metrics."""
+        batch = {k: inputs[k] for k in ("image", "label") if k in inputs}
+        metrics, grads = backward(batch, inputs["timesteps"], inputs["noise"], inputs.get("drop"))
+        if grid is not None:
+            grid.data_mean_([g for n, g in zip(names, grads) if n not in chunked])
+        metrics["grad_norm"] = apply(state, grads, update_now)
+        values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
+        run["graphs"].buffer("metrics", values.shape).copy_(values)
+        run["metrics"] = list(metrics)
 
     def train_step(state: TrainState, batch, step: int, timesteps=None, noise=None,
                    drop=None) -> dict:
         if timesteps is None:
             timesteps, noise = draws(batch, step)
             drop = drop_mask(batch, step)
-        metrics, grads = backward(batch, timesteps, noise, drop)
-        if grid is not None:
-            grid.data_mean_([g for n, g in zip(names, grads) if n not in chunked])
-        metrics["grad_norm"] = update(state, grads)
-        return {k: v.detach() for k, v in metrics.items()}
+        if run["graphs"] is None:
+            run["graphs"] = StepGraphs(batch["image"].device, graphed=False)
+        graphed = run["graphs"].graphed
+        inputs = {"image": batch["image"], "timesteps": timesteps, "noise": noise}
+        if has_labels and "label" in batch:
+            inputs["label"] = batch["label"]
+        if drop is not None:
+            inputs["drop"] = drop
+        inputs = {k: stage(k, v) for k, v in inputs.items()}
+        if graphed and run["state"] is not None and (
+                state is not run["state"] or inputs.keys() != run["buffers"].keys()
+                or any(inputs[k] is not run["buffers"][k] for k in inputs)):
+            raise ValueError("a graphed train step keeps the state and the batch shapes of its "
+                             "first call")
+        run["state"], run["buffers"] = state, inputs
+        opt = state.optimizer
+        kind = "update" if opt.update_due else "fold"
+        run["graphs"].step(("train", kind), lambda: body(state, inputs, kind == "update"))
+        opt.advance()
+        if graphed and hasattr(model, "mark_weights_moved"):
+            model.mark_weights_moved()
+        values = run["graphs"].buffer("metrics", (len(run["metrics"]),)).clone()
+        return dict(zip(run["metrics"], values.unbind()))
 
     train_step.loss_fn = loss_fn
     train_step.backward = backward
     train_step.update = update
     train_step.draws = draws
     train_step.drop_mask = drop_mask
+    train_step.run = run
     return train_step

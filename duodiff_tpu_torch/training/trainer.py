@@ -36,6 +36,15 @@ nothing and says so. Under ``--fsdp --freeze_backbone`` the frozen backbone
 takes no gradient at all (it is gathered, never reduce-scattered), so the
 logged ``grad_norm`` is the trained leaves' norm.
 
+On one process on a CUDA device each kind of train step is one CUDA graph
+(:func:`train_graph_route`, ``training/train_state.py:make_train_step``):
+the loader's arrays are copied into static buffers, the step's draws made
+eagerly into more, and the step graph (forward, loss, backward, clipping,
+AdamW, EMA, metrics) replayed; a latent config's encode is a graph of its
+own. On the CPU, with ``Trainer(args, graphs=False)`` or on a process grid
+(whose collectives go through the host over gloo) the same bodies run
+eagerly.
+
 Deliberate difference: the in-training samples go to a PNG grid beside the
 metrics, not to TensorBoard (an RGBA grid of the undecoded latents for a
 latent model, as JAX logs them).
@@ -53,6 +62,7 @@ import torch
 
 from duodiff_tpu_torch.config import UViTConfig, load_autoencoder_config
 from duodiff_tpu_torch.data.datasets import get_dataloader
+from duodiff_tpu_torch.diffusion.graphs import StepGraphs
 from duodiff_tpu_torch.diffusion.sampling import ddpm_loop
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.models.early_exit import EarlyExitUViT, init_early_exit_uvit
@@ -64,6 +74,7 @@ from duodiff_tpu_torch.training.train_state import (
     TrainState,
     make_optimizer,
     make_train_step,
+    step_buffer,
     step_generator,
 )
 from duodiff_tpu_torch.utils.convert import (
@@ -121,8 +132,25 @@ def sample_rows(model, schedule: NoiseSchedule, x, generator, y=None, noise_tabl
     return (x, *rows) if early_exit else (x, None, rows)
 
 
+def train_graph_route(device, grid=None, graphs: bool = True) -> tuple:
+    """Whether a training run's steps replay as CUDA graphs, and the line
+    that says which route it takes; ``graphs=False`` asks for the eager
+    steps (a library caller's comparison, never a flag)."""
+    if not graphs:
+        return False, "train step graphs: off (the caller asked for the eager steps)"
+    if torch.device(device).type != "cuda":
+        return False, "train step graphs: off (the CPU runs each step body eagerly)"
+    if grid is not None and grid.distributed:
+        return False, (f"train step graphs: off, eager steps (a process grid of {grid.world} "
+                       f"ranks, data {grid.data} x model {grid.model}: its all-reduces, "
+                       "--model_parallel's and --fsdp's too, go through the host over gloo, "
+                       "which a CUDA graph cannot capture)")
+    return True, ("train step graphs: on (each kind of train step, and a latent config's "
+                  "encode, captured once as a CUDA graph, replayed)")
+
+
 class Trainer:
-    def __init__(self, args):
+    def __init__(self, args, graphs: bool = True):
         refuse_unported(args)
         self.args = args
         self.logs = []
@@ -147,6 +175,11 @@ class Trainer:
             tp = self.grid.model > 1
             self.attn_impl = "fused" if self.device.type == "cuda" or tp else "plain"
         self.gelu_approx = args.gelu == "tanh"
+        self.use_graphs = graphs  # False: the in-training sampler's steps are eager too
+        graphed, route = train_graph_route(self.device, self.grid, graphs)
+        if self.grid.is_main:
+            print(route, flush=True)
+        self.graphs = StepGraphs(self.device, graphed)  # the run's graphs, buffers and pool
 
         self._init_model()
         self._init_teacher()
@@ -189,7 +222,7 @@ class Trainer:
             has_labels=self.has_labels, teacher=self.teacher,
             distill_alpha=args.distill_alpha, t_min=args.distill_t_min or 0,
             label_dropout=label_dropout, null_label=self._null_label(label_dropout),
-            grid=self.grid, rows=self.rows,
+            grid=self.grid, rows=self.rows, graphs=self.graphs,
         )
 
     def _null_label(self, label_dropout: float):
@@ -297,17 +330,33 @@ class Trainer:
     def _encode(self, batch: dict, step: int) -> dict:
         """The batch with its images encoded to latents (a latent config), the
         draw from the step's own generator, stream 7, so a resumed run
-        encodes what an unbroken one would; else the batch as it is."""
+        encodes what an unbroken one would; else the batch as it is. The
+        noise is drawn eagerly into a static buffer, then the encode (the
+        moments and the reparameterised sample) runs as a step graph of its
+        own, from the static image buffer into the static latent one, of
+        which the batch holds a copy (the next step rewrites the buffer)."""
         if self.autoencoder is None:
             return batch
+        ae, graphs = self.autoencoder, self.graphs
         g = step_generator(self.args.seed, step, self.device, ENCODE_STREAM)
-        with torch.no_grad():
-            moments = self.autoencoder.encode_moments(batch["image"])
-            lo, hi, total = self.rows
-            # the global batch's draw, this rank's rows of it
-            noise = torch.randn((total, *moments.shape[1:-1], moments.shape[-1] // 2),
-                                generator=g, device=moments.device)[lo:hi]
-            return {**batch, "image": self.autoencoder.sample_latent(moments, noise=noise)}
+        images = batch["image"]
+        lo, hi, total = self.rows
+        f = 2 ** (len(ae.config.ch_mult) - 1)  # the encoder's downsampling
+        shape = (total, images.shape[1] // f, images.shape[2] // f, ae.config.embed_dim)
+        # the global batch's draw, this rank's rows of it
+        noise = graphs.buffer("encode noise", (hi - lo, *shape[1:]))
+        noise.copy_(torch.randn(shape, generator=g, device=self.device)[lo:hi])
+        source = graphs.buffer("batch image", images.shape, images.dtype)
+        if source is not images:
+            source.copy_(images)
+        latent = graphs.buffer("encode latent", noise.shape)
+
+        def body():
+            with torch.no_grad():
+                latent.copy_(ae.sample_latent(ae.encode_moments(source), noise=noise))
+
+        graphs.step(("encode",), body)
+        return {**batch, "image": latent.clone()}
 
     def _maybe_resume(self):
         args = self.args
@@ -380,8 +429,23 @@ class Trainer:
             self.dataloader.close()
 
     def _to_device(self, batch: dict) -> dict:
-        return {"image": torch.from_numpy(batch["image"]).to(self.device),
-                "label": torch.from_numpy(batch["label"]).long().to(self.device)}
+        """The loader's arrays copied into the run's static buffers: the
+        images into the train step's (or, for a latent config, the
+        encode's), the labels into the train step's. On the card the copy
+        goes from pinned memory without waiting, so the host may queue the
+        next steps."""
+        arrays = {"image": torch.from_numpy(batch["image"]),
+                  "label": torch.from_numpy(batch["label"]).long()}
+        out = {}
+        for key, src in arrays.items():
+            if key == "image" and self.autoencoder is not None:
+                buf = self.graphs.buffer("batch image", src.shape, src.dtype)
+            else:
+                buf = step_buffer(self.graphs, key, src)
+            if self.device.type == "cuda":
+                src = src.pin_memory()
+            out[key] = buf.copy_(src, non_blocking=True)
+        return out
 
     def _run_steps(self, batches, logs: list) -> None:
         args = self.args
@@ -493,8 +557,9 @@ class Trainer:
             with fsdp.full_params(model):
                 model.pack_for_kernels()
                 # eager under --model_parallel: its all-reduces go through the host
-                x, probe_rows, stat_rows = sample_rows(model, self.schedule, x, generator, y,
-                                                       graphs=self.grid.model == 1)
+                x, probe_rows, stat_rows = sample_rows(
+                    model, self.schedule, x, generator, y,
+                    graphs=self.use_graphs and self.grid.model == 1)
         finally:
             if live is not None:
                 for n, p in model.named_parameters():
