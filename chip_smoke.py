@@ -207,7 +207,8 @@ printing its results on its own lines:
    CelebA-64 forward under pallas, fused and xla; K9 and K1 alone and one
    Block under each impl; the four train variants), every row and each
    part's launches printed; (b) ``duodiff_tpu_torch.tools.trace_step`` in
-   both modes (a 20-step DDPM loop untraced then traced: K1 = K2 = 520; 3 +
+   both modes (a 2-step warm-up, then a 20-step DDPM loop untraced and
+   traced: K1 = K2 = 546; 3 +
    20 train steps: K1 = K2 = K6 = K7 = 299), its family table printed, its
    device busy time a step held within 0.5-1.25 of the traced loop's
    CUDA-event step time and of phase 4's dense step and phase 5's train
@@ -268,6 +269,26 @@ printing its results on its own lines:
    profiled, graphed and eager, the captures, the pool's bytes and the peak
    memory. Its launches are added to the records of K1, K2, K6-K10, and
    kept apart as ``launches_20``.
+
+The tools of phases 10d, 10e, 11c, 12e and 17 replay step graphs on the card
+as the CLIs do, and each of those phases holds the loops it runs graphed
+against an eager twin (``graphs=False``) on the same seed through phase 19's
+comparison: equal bits, generator states and launch counts, then the
+CUDA-event time and idle share of each new kind of step both ways (a walk's
+first candidate; not the plain sampling steps phase 19 times; the twins'
+launches are not added to the record): (10d) ``derive_cache_schedule`` in DuoDiff mode on a
+100-step schedule (t_switch 30) at batch 128: the drift and norm rows, the
+table and the JSON file; (10e) the int8 calibration scan, 125 steps at batch
+16: the amax and quantile curves and the scales JSON of the tool's modes, after
+``_row_quantiles`` is held to ``torch.quantile`` on the card to the bit; (11c)
+``collect_probe_stats`` as the tool runs it (``u_rows``, ``e_rows``) and the
+monotone and bidirectional walks' first two chunks (a 100-step schedule) at
+batch 128: x and every log row; (12e) ``derive_cache_schedule
+--static_schedule`` on a 100-step schedule and the early-exit int8
+calibration scan on the trained checkpoint; (17) microbench's train rows and
+``trace_step``'s two modes run again with ``graphs=False``: the losses and
+launches equal, each one's ms a step and idle share printed beside the
+graphed ones'.
 
 Phase 4's run also passes ``--timesteps_save 300 1000`` and checks the PNG
 files the CLI writes. ``--phases`` runs a subset (phase 1 always runs); the
@@ -341,6 +362,7 @@ from __future__ import annotations
 import argparse
 import base64
 import ctypes
+import functools
 import gc
 import json
 import os
@@ -3566,6 +3588,7 @@ def run_other_samplers(device, card: str) -> dict:
     from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
     from duodiff_tpu_torch.tools import calibrate_int8, derive_cache_schedule
     from duodiff_tpu_torch.utils.int8_scales import load_int8_scales
+    from duodiff_tpu_torch.utils.model_loading import load_model
 
     runs = {}
     check_ddim(device)
@@ -3620,6 +3643,13 @@ def run_other_samplers(device, card: str) -> dict:
         if not (0 < late <= DERIVE_ANCHORS and table[STEPS - T_SWITCH:].all()
                 and np.isfinite(drift).all() and (drift > 0).all()):
             fail("the derived cache schedule is not what phase 10d asked for")
+        twin_derive(
+            device, f"phase 10d twin: derive_cache_schedule DuoDiff mode graphed vs eager, "
+            f"{TWIN_DERIVE_STEPS} steps (t_switch {TWIN_T_SWITCH}), batch {MAIN_BATCH}",
+            ["--config", LATE_CONFIG, "--shallow_config", EARLY_CONFIG, "--t_switch",
+             str(TWIN_T_SWITCH), "--seed", "0", "--full_seed", "1", "--batch", str(MAIN_BATCH),
+             "--steps", str(TWIN_DERIVE_STEPS), "--num_anchors", str(DERIVE_ANCHORS // 4),
+             "--gelu_approx"], card)
 
         candidates = 1 + len(CALIB_GRID.split(","))
         per_run = CALIB_STEPS * 13
@@ -3646,6 +3676,14 @@ def run_other_samplers(device, card: str) -> dict:
         if len(scales) != 13 or not all(np.isfinite(v).all() and min(v) > 0
                                         for v in scales.values()):
             fail(f"the calibrated scales are not 13 finite positive pairs: {scales}")
+        model, _ = load_model(LATE_CONFIG, device=device, seed=1, attn_impl="fused_int8",
+                              gelu_approx=True)
+        model.eval().pack_for_kernels()
+        twin_int8_calibration(
+            device, f"phase 10e twin: the int8 calibration scan graphed vs eager, depth 13 seed 1, batch "
+            f"{CALIB_BATCH}, {CALIB_STEPS} steps", model, CALIB_STEPS, 1, card)
+        del model
+        release_memory()
         runs["10f"] = run_int8_main_path(card, schedule_path, scales_path, phase="phase 10f")
     print(json.dumps({"phase10_launches": {
         run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}), flush=True)
@@ -3894,6 +3932,10 @@ def run_early_exit(device, card: str) -> dict:
         calib = load_probe_calibration(calib_path)
         print(f"phase 11c: calibration slopes {[round(a, 6) for a in calib['a']]}, mean realized "
               f"errors {[round(e, 6) for e in calib['mean_error']]}", flush=True)
+        model, _ = ee_model(EE_CONFIG, device)
+        model.pack_for_kernels()
+        twin_probe_stats(device, f"phase 11c twin: the probe calibration graphed vs eager, "
+                                 f"batch {EE_CALIB_BATCH}, {EE_CALIB_STEPS} steps", model, card)
 
         def walk_launches(r):
             n = sum((row["t_hi"] - row["t_lo"] + 1) * row["layer"] for row in r["log"])
@@ -3921,6 +3963,12 @@ def run_early_exit(device, card: str) -> dict:
                 walk_launches)
             print(f"phase 11c: {walk} walk layers by chunk "
                   f"{[row['layer'] for row in result['log']]}", flush=True)
+            twin_walk(device, f"phase 11c twin: the {walk} walk graphed vs eager, its first "
+                              f"two chunks ({TWIN_WALK_STEPS}-step schedule), threshold "
+                              f"{extra[1]}, batch {MAIN_BATCH}", model, float(extra[1]),
+                      walk == "monotone", calib if walk == "bidirectional" else None, card)
+        del model
+        release_memory()
 
     n = EE_SHORT_STEPS * 17
     runs["11d"] = run_ee_cli(
@@ -4233,6 +4281,12 @@ def run_ee_training(device, card: str) -> dict:
               flush=True)
         if meta["mode"] != "static_exit" or not table[:750].all() or table[750:].sum() > DERIVE_ANCHORS:
             fail("phase 12e: the static-exit schedule is not what the buckets imply")
+        twin_derive(
+            device, f"phase 12e twin: derive_cache_schedule --static_schedule graphed vs eager, "
+            f"{TWIN_STATIC_SCHEDULE} on {TWIN_DERIVE_STEPS} steps, batch {EE_DERIVE_BATCH}",
+            ["--config", EE_CONFIG, "--checkpoint", trained, "--static_schedule",
+             TWIN_STATIC_SCHEDULE, "--batch", str(EE_DERIVE_BATCH), "--steps",
+             str(TWIN_DERIVE_STEPS), "--num_anchors", str(DERIVE_ANCHORS // 4)], card)
         n = ee_static_launches(buckets, depth, table)
         runs["12e eesample"] = run_ee_cli(
             f"phase 12e: eesample --static_schedule {EE_STATIC_SCHEDULE} on the derived table",
@@ -4252,6 +4306,14 @@ def run_ee_training(device, card: str) -> dict:
             {"fused_attn_sublayer_int8": n})
         names = sorted(scales["scales"])
         print(f"phase 12e: scales of {len(names)} sites {names[:2]}...{names[-2:]}", flush=True)
+        model, _ = load_model(EE_CONFIG, trained, device=device, attn_impl="fused_int8",
+                              early_exit=True)
+        model.eval().pack_for_kernels()
+        twin_int8_calibration(
+            device, f"phase 12e twin: the early-exit int8 calibration scan graphed vs eager, batch "
+            f"{EE_CALIB_BATCH}, {EE_CALIB_STEPS_12} steps", model, EE_CALIB_STEPS_12, 0, card)
+        del model
+        release_memory()
         n = depth * EE_INT8_STEPS
         runs["12e int8"] = run_ee_cli(
             f"phase 12e: eesample int8 on those scales, {EE_INT8_STEPS} steps",
@@ -6010,13 +6072,26 @@ def run_microbench(card: str) -> dict:
                    + (["fused_mlp_sublayer", "fused_mlp_sublayer_bwd"] if fused_mlp else []))
         for name in kernels:
             train[name] = train.get(name, 0) + 13 * steps
-    runs = {}
+    runs, results = {}, {}
     for part in ("fwd", "kernels", "train"):
-        result, runs[part] = run_counted(f"phase 17a: microbench {part}", mb.main, [part], card,
-                                         expected[part])
-        rows = result[part]
+        results[part], runs[part] = run_counted(f"phase 17a: microbench {part}", mb.main, [part],
+                                                card, expected[part])
+        rows = results[part][part]
         if not all(np.isfinite(t) and t > 0 for t in rows.values()):
             fail(f"phase 17a: microbench {part} gave times {rows}")
+    # the train rows' eager twin: the same steps, each row's last loss and the
+    # launches equal to the graphed run's (its launches are not the path's)
+    eager, launches = run_counted("phase 17a twin: microbench train, eager (graphs=False)",
+                                  functools.partial(mb.main, graphs=False), ["train"], card,
+                                  expected["train"])
+    graphed = results["train"]
+    for row, seconds in graphed["train"].items():
+        print(f"phase 17a twin: train row {row}: ms a step graphed {seconds * 1e3:.6g}, eager "
+              f"{eager['train'][row] * 1e3:.6g} (CUDA events); last loss graphed "
+              f"{graphed['train_loss'][row]!r}, eager {eager['train_loss'][row]!r}; card {card}",
+              flush=True)
+    if graphed["train_loss"] != eager["train_loss"] or launches != runs["train"]:
+        fail("phase 17a twin: microbench's graphed train rows differ from the eager ones")
     release_memory()
     return runs
 
@@ -6047,24 +6122,41 @@ def run_trace_step(card: str, step_ms: dict) -> dict:
     from duodiff_tpu_torch.tools import trace_step
 
     runs = {}
+    expected = {"sample": bf16_blocks(13 * (2 + 2 * TRACE_STEPS)),
+                "train": train_blocks(13 * (TRACE_WARMUP_STEPS + TRACE_STEPS), shard=False)}
     with tempfile.TemporaryDirectory() as work:
-        # the untraced loop, then the traced one
-        result, runs["sample"] = run_counted(
-            "phase 17b: trace_step --mode sample", trace_step.main, ["--out", f"{work}/sample"],
-            card, bf16_blocks(13 * 2 * TRACE_STEPS))
-        event_ms = {"traced loop": result["capture"]["step_ms"],
-                    "untraced loop": result["capture"]["untraced_step_ms"]}
-        if "sample" in step_ms:
-            event_ms["phase 4 bf16 dense step"] = step_ms["sample"]
-        check_trace("phase 17b: sample", result, event_ms, card)
-        result, runs["train"] = run_counted(
-            "phase 17b: trace_step --mode train", trace_step.main,
-            ["--mode", "train", "--out", f"{work}/train"], card,
-            train_blocks(13 * (TRACE_WARMUP_STEPS + TRACE_STEPS), shard=False))
-        event_ms = {"traced loop": result["capture"]["step_ms"]}
-        if "train" in step_ms:
-            event_ms["phase 5 train step"] = step_ms["train"]
-        check_trace("phase 17b: train", result, event_ms, card)
+        for mode in ("sample", "train"):
+            # the untraced steps (the warm-up, the capture, for sample a timed
+            # loop of replays), then the traced ones
+            argv = ["--mode", mode, "--out", f"{work}/{mode}"]
+            result, runs[mode] = run_counted(f"phase 17b: trace_step --mode {mode}",
+                                             trace_step.main, argv, card, expected[mode])
+            event_ms = {"traced loop": result["capture"]["step_ms"]}
+            if mode == "sample":
+                event_ms["untraced loop"] = result["capture"]["untraced_step_ms"]
+            if mode in step_ms:
+                event_ms[{"sample": "phase 4 bf16 dense step",
+                          "train": "phase 5 train step"}[mode]] = step_ms[mode]
+            check_trace(f"phase 17b: {mode}", result, event_ms, card)
+            # the eager twin: the same steps traced eagerly, its launches and (train)
+            # its loss equal to the graphed run's (its launches are not the path's)
+            argv[-1] += "_eager"
+            eager, launches = run_counted(
+                f"phase 17b twin: trace_step --mode {mode}, eager (graphs=False)",
+                functools.partial(trace_step.main, graphs=False), argv, card, expected[mode])
+            check_trace(f"phase 17b twin: {mode}, eager", eager,
+                        {"traced loop": eager["capture"]["step_ms"]}, card)
+            g, e = result, eager
+            print(f"phase 17b twin: {mode}: ms a step graphed {g['capture']['step_ms']:.6g}, "
+                  f"eager {e['capture']['step_ms']:.6g} (CUDA events); idle share graphed "
+                  f"{g['summary']['idle_share']:.6g}, eager {e['summary']['idle_share']:.6g}; "
+                  f"device busy a step graphed {g['summary']['per_step_ms']:.6g}, eager "
+                  f"{e['summary']['per_step_ms']:.6g} ms"
+                  + (f"; loss graphed {g['capture']['loss']!r}, eager {e['capture']['loss']!r}"
+                     if mode == "train" else "") + f"; card {card}", flush=True)
+            if launches != runs[mode] or (mode == "train"
+                                          and g["capture"]["loss"] != e["capture"]["loss"]):
+                fail(f"phase 17b twin: trace_step --mode {mode} graphed differs from eager")
     release_memory()
     return runs
 
@@ -6606,7 +6698,7 @@ def measure_kind(one_step, reset, label: str) -> dict:
     """GRAPH_KIND_STEPS steps of one kind in a row: each step's CUDA-event
     time (median, least, most; the device's time from the step's first
     launch to its last, the host's gaps included), then the profiler's idle
-    share over as many more."""
+    share over as many more (the device's events alone, the cheaper trace)."""
     reset()
     events = []
     torch.cuda.synchronize()
@@ -6619,7 +6711,7 @@ def measure_kind(one_step, reset, label: str) -> dict:
     torch.cuda.synchronize()
     ms = [s.elapsed_time(e) for s, e in events]
     reset()
-    prof = profile_steps(label, one_step, n=GRAPH_KIND_STEPS) or {}
+    prof = profile_steps(label, one_step, n=GRAPH_KIND_STEPS, cpu=False) or {}
     return {"ms_median": statistics.median(ms), "ms_min": min(ms), "ms_max": max(ms),
             "idle": prof.get("idle"), "busy_ms_per_step": (prof["busy_ms"] / GRAPH_KIND_STEPS
                                                            if prof else None)}
@@ -6667,8 +6759,9 @@ def graph_path(label: str, run, windows, card: str) -> dict:
                       "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
                       "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
     (eo, es, el), (go, gs, gl) = got["eager"], got["graphed"]
-    diffs = {k: float((go[k].double() - eo[k].double()).abs().max()) if eo[k].numel() else 0.0
-             for k in eo}
+    diffs = {k: float((go[k].double() - eo[k].double()).abs().max())
+             if eo[k].shape == go[k].shape and eo[k].numel() else
+             0.0 if eo[k].shape == go[k].shape else float("inf") for k in eo}
     equal = all(torch.equal(go[k], eo[k]) for k in eo)
     same_gen = all(torch.equal(a, b) for a, b in zip(es, gs))
     summary = runs["graphed"]["graphs"].summary()
@@ -6923,6 +7016,140 @@ def run_step_graphs(device, card: str) -> dict:
     out["19g headline"] = run_headline_turns(card)
     print(json.dumps({"step_graphs": out, "card": card}), flush=True)
     return out
+
+
+# The last eager loops' step graphs, each held against its eager twin
+# (graphs=False) on the same seed through graph_path, in the phase whose tool
+# runs it graphed: 10d, 12e (the drift scans), 10e, 12e (the int8
+# calibration), 11c (the probe calibration, the adaptive walks), 17 (the
+# measuring tools' train rows and traces).
+TWIN_DERIVE_STEPS = 100     # 10d's and 12e's twins: the drift scans on a 100-step schedule
+TWIN_T_SWITCH = 30          # 10d's twin: its shallow segment
+TWIN_STATIC_SCHEDULE = "99-75:13,74-0:4"  # 12e's twin: EE_STATIC_SCHEDULE's buckets at 100
+TWIN_WALK_STEPS = 2 * EE_ADAPTIVE_CHUNK   # 11c's twins: the walks' first two chunks
+
+
+def text_tensor(text: str) -> torch.Tensor:
+    """A string's UTF-8 bytes as a uint8 tensor, for graph_path's bit checks."""
+    return torch.frombuffer(bytearray(text.encode()), dtype=torch.uint8)
+
+
+def twin_gen(device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(GRAPH_SEED)
+
+
+def twin_windows(graphs, skip=(), first: bool = False) -> dict:
+    """The step kinds a twin times and profiles (loop_windows): the new
+    bodies, not a plain sampling step phase 19 times (``skip=[None]``), and
+    with ``first`` one kind alone (a walk's candidates are one body)."""
+    windows = loop_windows(graphs, twin_gen(graphs.device), skip)
+    return dict(list(windows.items())[:1]) if first else windows
+
+
+def twin_derive(device, label: str, argv: list, card: str) -> dict:
+    """``derive_cache_schedule.main`` on ``argv`` with the run's graphs,
+    eager then graphed (graph_path): the drift and norm rows, the table and
+    the JSON file equal to the bit, the launch counts equal; each scan's
+    step kind timed and profiled both ways."""
+    from duodiff_tpu_torch.tools import derive_cache_schedule
+
+    def run(graphs):
+        with tempfile.TemporaryDirectory() as work:
+            out = f"{work}/schedule.json"
+            result = derive_cache_schedule.main([*argv, "--out", out, "--device", str(device)],
+                                                graphs=graphs)
+            text = Path(out).read_text()
+        return {"drift": torch.from_numpy(result["drift"].copy()),
+                "norm": torch.from_numpy(result["norm"].copy()),
+                "table": torch.from_numpy(result["table"].astype(np.uint8)),
+                "json": text_tensor(text)}, []
+
+    return graph_path(label, run, lambda graphs: twin_windows(graphs, skip=[None]), card)
+
+
+def twin_int8_calibration(device, label: str, model, steps: int, seed: int, card: str) -> dict:
+    """``calibrate_int8_stats`` over ``steps`` at CALIB_BATCH from ``seed``
+    (the tool's trajectory), eager then graphed: each site's amax and
+    quantile curves and the scales JSON of the tool's modes from them equal
+    to the bit. First ``_row_quantiles``, which the step body computes, is
+    held to ``torch.quantile`` on the card to the bit."""
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.utils.int8_calib import (
+        CALIB_FRACTIONS,
+        _row_quantiles,
+        calibrate_int8_stats,
+        scales_from_stats,
+    )
+
+    cfg = model.config
+    rows = torch.rand((2 * cfg.depth, CALIB_BATCH * (cfg.extras + cfg.num_patches)),
+                      generator=twin_gen(device), device=device) * 5
+    fractions = torch.tensor(CALIB_FRACTIONS, device=device)
+    same = torch.equal(_row_quantiles(rows, fractions), torch.quantile(rows, fractions, dim=-1).t())
+    print(f"{label}: _row_quantiles on {tuple(rows.shape)} equal to torch.quantile to the bit: "
+          f"{same}", flush=True)
+    if not same:
+        fail(f"{label}: _row_quantiles differs from torch.quantile on the card")
+    schedule = NoiseSchedule.create(steps=steps, device=device)
+    shape = (CALIB_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    modes = [("amax", 100.0, CALIB_MARGIN)] + [("percentile", float(p), CALIB_MARGIN)
+                                               for p in CALIB_GRID.split(",")]
+
+    def run(graphs):
+        g = torch.Generator(device=device).manual_seed(seed)
+        amax, quants = calibrate_int8_stats(model, schedule, g, shape, graphs=graphs)
+        names = sorted(amax)
+        scales = [scales_from_stats(amax, quants, mode=m, percentile=p, margin=margin)
+                  for m, p, margin in modes]
+        return {"amax": torch.from_numpy(np.stack([amax[n] for n in names])),
+                "quants": torch.from_numpy(np.stack([quants[n] for n in names])),
+                "scales": text_tensor(json.dumps(scales, sort_keys=True))}, [g]
+
+    return graph_path(label, run, twin_windows, card)
+
+
+def twin_probe_stats(device, label: str, model, card: str) -> dict:
+    """``collect_probe_stats`` as ``tools/calibrate_probes.py`` runs it in
+    11c (EE_CALIB_STEPS at EE_CALIB_BATCH, seed 0), eager then graphed:
+    ``u_rows`` and ``e_rows`` equal to the bit."""
+    from duodiff_tpu_torch.diffusion.calibration import collect_probe_stats
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+
+    cfg = model.config
+    schedule = NoiseSchedule.create(steps=EE_CALIB_STEPS, device=device)
+
+    def run(graphs):
+        g = torch.Generator(device=device).manual_seed(0)
+        u, e = collect_probe_stats(model, schedule, g,
+                                   (EE_CALIB_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans),
+                                   graphs=graphs)
+        return {"u_rows": torch.from_numpy(u.copy()), "e_rows": torch.from_numpy(e.copy())}, [g]
+
+    return graph_path(label, run, twin_windows, card)
+
+
+def twin_walk(device, label: str, model, threshold: float, monotone: bool, calibration,
+              card: str) -> dict:
+    """The adaptive walk over EE_ADAPTIVE_LAYERS in chunks of
+    EE_ADAPTIVE_CHUNK on a TWIN_WALK_STEPS schedule (its first two chunks)
+    at batch 128, eager then graphed: x and every log row equal to the bit."""
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.diffusion.static_exit import make_adaptive_exit_sampler
+
+    cfg = model.config
+    schedule = NoiseSchedule.create(steps=TWIN_WALK_STEPS, device=device)
+
+    def run(graphs):
+        sampler = make_adaptive_exit_sampler(
+            model, schedule=schedule, layers=EE_ADAPTIVE_LAYERS, chunk=EE_ADAPTIVE_CHUNK,
+            threshold=threshold, monotone=monotone, calibration=calibration, graphs=graphs)
+        g = twin_gen(device)
+        x, log = sampler(g, (MAIN_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans))
+        print(f"{label}: {graphs.mode} walk layers by chunk "
+              f"{[row['layer'] for row in log]}", flush=True)
+        return {"x": x, "log": text_tensor(json.dumps(log, sort_keys=True))}, [g]
+
+    return graph_path(label, run, lambda graphs: twin_windows(graphs, first=True), card)
 
 
 TRAIN_GRAPH_STEPS = {"20a": 20, "20b": 8, "20c": 4, "20d": 6, "20e": 4}

@@ -21,36 +21,36 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from duodiff_tpu_torch.diffusion.sampling import _initial_noise, fill_noise
+from duodiff_tpu_torch.diffusion.sampling import _initial_noise, ddpm_loop
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 
 
 def collect_probe_stats(apply_fn: Callable, schedule: NoiseSchedule,
                         generator: Optional[torch.Generator], shape: Sequence[int] = None,
                         y: Optional[torch.Tensor] = None, x_init: Optional[torch.Tensor] = None,
-                        noise_table: Optional[torch.Tensor] = None):
+                        noise_table: Optional[torch.Tensor] = None, graphs=True):
     """One dense early-exit trajectory over t = T-1 .. 0, driven by the
     backbone output (the dense path, threshold -inf), logging for each step
     ``u_rows[t, i] = mean(u_i)`` and ``e_rows[t, i] = mean((g_i -
     backbone)^2)``. ``apply_fn(x, t_batch, y) -> (backbone, u, g)``; noise
     from ``generator`` or row t of ``noise_table``. Returns ``(u_rows,
-    e_rows)``, (steps, depth) float32 numpy, row t = timestep t; the rows
-    stay on the device until the end."""
-    x = _initial_noise(x_init, shape, generator)
-    batch = x.shape[0]
-    u_rows, e_rows = [], []
-    z = torch.empty_like(x)
-    for t in range(schedule.steps - 1, -1, -1):
-        t_batch = torch.full((batch,), float(t), dtype=torch.float32, device=x.device)
-        backbone, u, g = apply_fn(x, t_batch, y)
+    e_rows)``, (steps, depth) float32 numpy, row t = timestep t.
+
+    The JAX package's one ``lax.scan``: each step is :func:`ddpm_loop`'s
+    body (t read from the device table, x written in place), the two rows
+    its aux rows on the device, read once after the last step; ``graphs``
+    is :func:`ddpm_loop`'s (a CUDA graph on the card by default)."""
+
+    def rows(out):
+        backbone, u, g = out
         err = g.float() - backbone.float()[None]
-        u_rows.append(u.float().mean(1))
-        e_rows.append((err * err).mean(dim=tuple(range(1, err.ndim))))
-        fill_noise(z, t, generator, noise_table)
-        x = schedule.step_predict_noise(backbone, x, t, z)
-    u_rows = torch.stack(u_rows).flip(0).cpu().numpy()
-    e_rows = torch.stack(e_rows).flip(0).cpu().numpy()
-    return u_rows, e_rows
+        return backbone, (u.float().mean(1), (err * err).mean(dim=tuple(range(1, err.ndim))))
+
+    x = _initial_noise(x_init, shape, generator)
+    _, (u_rows, e_rows) = ddpm_loop(apply_fn, schedule, "predict_noise", x, generator,
+                                    range(schedule.steps - 1, -1, -1), y,
+                                    noise_table=noise_table, aux_fn=rows, graphs=graphs)
+    return u_rows.flip(0).cpu().numpy(), e_rows.flip(0).cpu().numpy()
 
 
 def fit_probe_calibration(u_rows, e_rows, *, min_rel_var: float = 1e-12) -> dict:

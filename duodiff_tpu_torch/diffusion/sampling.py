@@ -271,7 +271,10 @@ def ddpm_loop(
     eagerly (on the CPU, or ``graphs=False``). Given a run's
     :class:`StepGraphs`, the loop keeps its graphs there for the run's later
     calls, and the x and state it returns are the run's buffers, which
-    those calls overwrite."""
+    those calls overwrite. The ``state`` a call is given is copied into
+    the loop's own static state (a chunk's zero probe sum, a drift scan's
+    zero delta), outside the graphs. The aux rows are static too,
+    ``schedule.steps`` of them, each step's written at its device index."""
     ts = [int(t) for t in ts]
     run = step_graphs(graphs, x.device)
     key = ("ddpm", id(apply_fn), id(aux_fn), id(schedule), parametrization, variance_mode,

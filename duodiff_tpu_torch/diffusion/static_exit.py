@@ -28,6 +28,7 @@ import torch
 from duodiff_tpu_torch.diffusion.calibration import apply_probe_calibration
 from duodiff_tpu_torch.diffusion.graphs import step_graphs
 from duodiff_tpu_torch.diffusion.sampling import (
+    StepKinds,
     _initial_noise,
     ddpm_loop,
     make_block_cached_apply,
@@ -198,10 +199,12 @@ def truncated_ee_apply_probed(model, exit_layer: int,
     the batch mean of each probe in ``probe_slots`` (each at most the
     layer's own slot ``min(exit_layer, depth-1)``; by default that one
     alone) to its state. Returns the stateful apply of ``ddpm_loop``,
-    ``apply(state, x, t_batch, y, t) -> (eps, state + means)``, and
-    ``init_state(x)``: fp32 zeros, a scalar for the default slot, else one
-    entry a slot. Per-layer probe families only: the per-timestep tables
-    gate on t, which the static buckets already encode."""
+    ``apply(state, x, t_batch, y, t) -> (eps, state + means)``, a
+    :class:`StepKinds` of the one kind "probed" (so it replays as a step
+    graph), and ``init_state(x)``: fp32 zeros, a scalar for the default
+    slot, else one entry a slot. Per-layer probe families only: the
+    per-timestep tables gate on t, which the static buckets already
+    encode."""
     depth = model.config.depth
     exit_layer = model.check_exit(exit_layer)
     own = min(exit_layer, depth - 1)
@@ -217,7 +220,7 @@ def truncated_ee_apply_probed(model, exit_layer: int,
             "static buckets already encode")
     scalar = probe_slots is None
 
-    def apply(state, x, t_batch, y, t):
+    def probed(state, x, t_batch, y):
         eps, u = model.forward_probed(x, t_batch, y, exit_layer=exit_layer, slots=slots)
         means = u.float().mean(1)
         return eps, state + (means[0] if scalar else means)
@@ -226,12 +229,13 @@ def truncated_ee_apply_probed(model, exit_layer: int,
         return torch.zeros(() if scalar else (len(slots),), dtype=torch.float32,
                            device=x.device)
 
-    return apply, init_state
+    return StepKinds({"probed": probed}, lambda t: "probed"), init_state
 
 
 def make_adaptive_exit_sampler(model, *, schedule: NoiseSchedule, layers: Sequence[int],
                                chunk: int = 50, threshold: float = 0.08, margin: float = 0.7,
-                               monotone: bool = True, calibration: Optional[dict] = None) -> Callable:
+                               monotone: bool = True, calibration: Optional[dict] = None,
+                               graphs=True) -> Callable:
     """Probe-driven bucket selection, chunk by chunk: each ``chunk``-step
     segment runs one truncated backbone that also sums its probe's batch
     mean; between chunks the host moves one candidate deeper when that mean
@@ -246,7 +250,16 @@ def make_adaptive_exit_sampler(model, *, schedule: NoiseSchedule, layers: Sequen
     ``calibrated`` / ``below_calibrated`` beside ``mean_probe`` /
     ``below_probe``. Returns ``sample(generator, shape, y=None, x_init=None,
     noise_table=None) -> (x, log)``, one log row a chunk. With one candidate
-    it samples what the static sampler with one bucket samples."""
+    it samples what the static sampler with one bucket samples.
+
+    ``graphs`` is :func:`ddpm_loop`'s: each (candidate, below) apply is a
+    kind of step of one run, replayed as a CUDA graph on the card by
+    default. A chunk's probe sum starts from zeros, copied into its loop's
+    static state, and is read once after its last step, the chunk's only
+    read on the host (the JAX sampler's one read a chunk); a shorter last
+    chunk replays the same graphs. The chunks pass x on in the run's x
+    buffer, which ``sample`` returns, as every sampler given a run's
+    :class:`StepGraphs` does."""
     depth = model.config.depth
     layers = sorted({int(v) for v in layers})
     if not layers:
@@ -284,15 +297,15 @@ def make_adaptive_exit_sampler(model, *, schedule: NoiseSchedule, layers: Sequen
     def sample(generator, shape=None, y=None, x_init=None, noise_table=None):
         li = 0 if monotone else len(layers) - 1
         x = _initial_noise(x_init, shape, generator)
+        run = step_graphs(graphs, x.device)
         t = schedule.steps - 1
         log = []
         while t >= 0:
             lo = max(t - chunk + 1, 0)
             apply, init_state = get(li)
-            # eager: the walk reads the chunk's probe sum on the host after each chunk
             x, st = ddpm_loop(apply, schedule, "predict_noise", x, generator,
                               range(t, lo - 1, -1), y, noise_table=noise_table,
-                              state=init_state(x), graphs=False)
+                              state=init_state(x), graphs=run)
             st = st.double().cpu().numpy().reshape(-1) / (t - lo + 1)  # the chunk's one read
             mean_u = float(st[0])
             row = {"t_hi": int(t), "t_lo": int(lo), "layer": int(layers[li]),

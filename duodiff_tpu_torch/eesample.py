@@ -41,10 +41,11 @@ follow ``sample.py``'s rule. A latent-diffusion config
 (``configs/deediff_imagenet256.yaml``) samples latents and decodes them with
 its frozen KL autoencoder before writing, as ``sample.py`` does.
 
-On a CUDA device the dynamic and static routes replay each kind of step as
-a CUDA graph, as ``sample.py`` does, and run eagerly under
-``--model_parallel``; the adaptive route, whose host reads a probe sum
-after every chunk, runs eagerly. A line says which route a run takes.
+On a CUDA device every route replays each kind of step as a CUDA graph, as
+``sample.py`` does, on one run of step graphs (the adaptive route's kinds
+are its candidates, its host reading one probe sum a chunk), and runs
+eagerly under ``--model_parallel``; ``main(argv, graphs=False)`` runs the
+step bodies eagerly. A line says which route a run takes.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ import torch
 
 from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
 from duodiff_tpu_torch.diffusion.calibration import load_probe_calibration
+from duodiff_tpu_torch.diffusion.graphs import StepGraphs
 from duodiff_tpu_torch.diffusion.sampling import (
     RowDraws,
     early_exit_sample,
@@ -217,11 +219,13 @@ def check_flags(args) -> None:
                          "dynamic MLP scales (the JAX CLI drops the file there silently)")
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, graphs: bool = True) -> dict:
     """Run the CLI; returns {"samples": float (B, H, W, C) in about [0, 1]
     (decoded images for a latent config), "err_by_t" (T, depth), "idx_by_t"
     (T, B), "log" (the adaptive route's rows, else None), "seconds":
-    sampling wall time, "decode_seconds": the decode's (0 without one)}."""
+    sampling wall time, "decode_seconds": the decode's (0 without one)}.
+    ``graphs=False`` runs the step bodies eagerly on a CUDA device too (a
+    library caller's comparison, never a flag)."""
     args = get_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
@@ -233,12 +237,12 @@ def main(argv=None) -> dict:
     grid = sampling_grid(mp, args.batch_size, args.device, args.multihost,
                          split=args.adaptive_layers is None)
     try:
-        return _sample(args, grid, attn_impl)
+        return _sample(args, grid, attn_impl, graphs)
     finally:
         close(grid)
 
 
-def _sample(args, grid, attn_impl) -> dict:
+def _sample(args, grid, attn_impl, use_graphs: bool) -> dict:
     """:func:`main` once the flags are checked and the grid is formed."""
     device = grid.device
     output_folder = Path(args.output_folder)
@@ -254,9 +258,8 @@ def _sample(args, grid, attn_impl) -> dict:
     decode = latent_decoder(args.config_path, device)
     schedule = NoiseSchedule.create(steps=args.num_timesteps, device=device)
     steps = schedule.steps
-    graphed, route = graph_route(device, grid.model)
-    if args.adaptive_layers is not None:
-        route = "step graphs: off (the adaptive route reads a probe sum on the host a chunk)"
+    graphed, route = graph_route(device, grid.model, use_graphs)
+    graphs = StepGraphs(device, graphed)  # the run's graphs, buffers and memory pool
     rows = grid.rows(args.batch_size)  # this rank's rows of the global batch
     shape = (rows[1] - rows[0], cfg.img_size, cfg.img_size, cfg.in_chans)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -278,7 +281,7 @@ def _sample(args, grid, attn_impl) -> dict:
         sampler = make_adaptive_exit_sampler(
             model, schedule=schedule, layers=layers, chunk=args.adaptive_chunk,
             threshold=args.threshold, margin=args.adaptive_margin,
-            monotone=not args.adaptive_bidirectional, calibration=calibration)
+            monotone=not args.adaptive_bidirectional, calibration=calibration, graphs=graphs)
         kind = (f"adaptive exits (layers={sorted(set(layers))}, chunk={args.adaptive_chunk}, "
                 f"threshold={args.threshold})")
 
@@ -299,7 +302,7 @@ def _sample(args, grid, attn_impl) -> dict:
             return static_exit_sample(
                 model, generator, schedule=schedule, shape=shape, buckets=buckets, y=y,
                 guidance=guidance, cache_every=cache_rule, cache_outer=args.cache_outer,
-                graphs=graphed,
+                graphs=graphs,
             ), None, [{"t_hi": hi, "t_lo": lo, "layer": layer} for hi, lo, layer in buckets]
     else:
         apply = model if guidance is None else make_guided_apply_ee(model, *guidance)
@@ -307,7 +310,7 @@ def _sample(args, grid, attn_impl) -> dict:
 
         def run():
             x, err, idx = early_exit_sample(apply, generator, schedule=schedule, shape=shape,
-                                            threshold=args.threshold, y=y, graphs=graphed)
+                                            threshold=args.threshold, y=y, graphs=graphs)
             return x, (err, idx), None
 
     if grid.is_main:

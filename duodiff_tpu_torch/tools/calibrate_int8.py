@@ -31,6 +31,8 @@ tool: the early-exit sampler steps on the exit heads' outputs, not on the
 backbone's that the search would score.
 
 It runs on the card unless ``--device cpu`` (the kernels' plain versions).
+On the card the calibration trajectory and the search's runs replay step
+graphs (``diffusion/graphs.py``), the counterparts of the JAX tool's scans.
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ fits an affine map per probe slot
 --probe_calibration FILE`` reads (the JAX package's file: its ``meta``
 carries the card's name and power limit as ``card`` in place of
 ``backend``). Without ``--checkpoint`` the weights are random from
-``--seed``. It runs on the card unless ``--device cpu``.
+``--seed``. It runs on the card unless ``--device cpu``. On the card the
+trajectory replays a step graph (``diffusion/graphs.py``), the counterpart
+of the JAX tool's one scan.
 """
 
 from __future__ import annotations

@@ -36,7 +36,10 @@ rows of dense buckets are written as anchors.
 
 It runs on the card unless ``--device cpu``. The JSON it writes holds the
 anchors and a ``meta`` block as the JAX tool writes it, with the card's name
-and power limit in place of the JAX backend.
+and power limit in place of the JAX backend. Every scan replays step graphs
+on the card, one run's (``diffusion/graphs.py``), as the JAX tool's scans
+are compiled loops; ``main(argv, graphs=False)`` runs the step bodies
+eagerly.
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ from duodiff_tpu_torch.diffusion.cache_schedule import (
     uniform_budget,
     uniform_table,
 )
-from duodiff_tpu_torch.diffusion.sampling import ddpm_loop
+from duodiff_tpu_torch.diffusion.graphs import step_graphs
+from duodiff_tpu_torch.diffusion.sampling import StepKinds, ddpm_loop
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.diffusion.static_exit import (
     cache_outer_for,
@@ -127,71 +131,74 @@ def check_args(args) -> None:
         raise SystemExit("--budget_from_every must be >= 1")
 
 
-def drift_apply(anchor_apply):
+def drift_apply(anchor_apply) -> StepKinds:
     """A stateful apply (``diffusion/sampling.py``) around an anchor forward
     ``(x, t, y) -> (out, delta)``: the state is the previous step's delta,
     the output ``(out, (drift_sq, norm_sq))`` for the aux rows, fp32 0-d
-    tensors on the device."""
-    def apply(prev_delta, x, t_batch, y, t):
+    tensors on the device; one kind of step, "anchor"."""
+    def anchor(prev_delta, x, t_batch, y):
         out, delta = anchor_apply(x, t_batch, y)
         d32 = delta.float()
         drift_sq = torch.sum((d32 - prev_delta.float()) ** 2)
         return (out, (drift_sq, torch.sum(d32 ** 2))), delta
 
-    return apply
+    return StepKinds({"anchor": anchor}, lambda t: "anchor")
 
 
 def segment_drift(anchor_apply, schedule, x, generator, t_hi: int, t_lo: int, y, delta0,
-                  noise_table=None):
+                  noise_table=None, graphs=True):
     """An anchor forward ``(x, t, y) -> (out, delta)`` over t = t_hi .. t_lo
     from x, the delta starting at ``delta0``, its noise from ``generator`` or
     ``noise_table``. Returns (x after t_lo, drift, norm), each of the last
     two (t_hi - t_lo + 1,) float64 indexed by t - t_lo: ||delta_t -
     delta_{t+1}||_F (row t_hi against ``delta0``, never read) and
-    ||delta_t||_F. The rows are read once, after the segment."""
+    ||delta_t||_F. The rows are read once, after the segment. ``graphs``
+    is :func:`ddpm_loop`'s."""
     x, _, (drift_sq, norm_sq) = ddpm_loop(
         drift_apply(anchor_apply), schedule, "predict_noise", x, generator,
         range(t_hi, t_lo - 1, -1), y, noise_table=noise_table, state=delta0,
-        aux_fn=lambda out: out, graphs=False,  # the derivation's scans stay eager
+        aux_fn=lambda out: out, graphs=graphs,
     )
     rows = torch.stack([drift_sq, norm_sq]).double().cpu().numpy()
     return x, np.sqrt(rows[0])[::-1], np.sqrt(rows[1])[::-1]
 
 
 def measure_drift(model, schedule, x, generator, t_hi: int, n_outer: int, y, tokens: int,
-                  noise_table=None):
+                  noise_table=None, graphs=True):
     """The full model's anchor forward over t = t_hi .. 0 from x
     (:func:`segment_drift` from a zero delta); returns (drift, norm), each
-    (t_hi + 1,) indexed by t."""
+    (t_hi + 1,) indexed by t. ``graphs`` is :func:`ddpm_loop`'s."""
     delta0 = torch.zeros((x.shape[0], tokens, model.config.embed_dim), dtype=model.dtype,
                          device=x.device)
     _, drift, norm = segment_drift(
         lambda xx, tt, yy: model.forward_anchor(xx, tt, yy, n_outer=n_outer), schedule, x,
-        generator, t_hi, 0, y, delta0, noise_table)
+        generator, t_hi, 0, y, delta0, noise_table, graphs=graphs)
     return drift, norm
 
 
 def static_exit_drift(model, cfg, schedule, x, generator, buckets, cache_outer, y, tokens,
-                      drift, norm, noise_table=None):
+                      drift, norm, noise_table=None, graphs=True):
     """The static-exit mode's run: bucket after bucket, the cacheable ones
     through their truncated anchor forward (:func:`segment_drift` from a
     zero delta, rows written into ``drift`` and ``norm`` at their t), the
-    others dense. Returns (the cacheable segments (t_hi, t_lo), the buckets'
-    meta rows)."""
+    others dense, all on one
+    run of step graphs (``graphs``, :func:`ddpm_loop`'s). Returns (the
+    cacheable segments (t_hi, t_lo), the buckets' meta rows)."""
     segments, bucket_meta = [], []
     delta0 = torch.zeros((x.shape[0], tokens, cfg.embed_dim), dtype=model.dtype,
                          device=x.device)
+    run = step_graphs(graphs, x.device)
     for t_hi, t_lo, layer in buckets:
         p_outer = cache_outer_for(cfg.depth, layer, cache_outer)
         if p_outer is not None:
             anchor, _ = truncated_ee_apply_cached(model, layer, p_outer)
             x, drift[t_lo:t_hi + 1], norm[t_lo:t_hi + 1] = segment_drift(
-                anchor, schedule, x, generator, t_hi, t_lo, y, delta0, noise_table)
+                anchor, schedule, x, generator, t_hi, t_lo, y, delta0, noise_table, graphs=run)
             segments.append((t_hi, t_lo))
         else:
             x = ddpm_loop(truncated_ee_apply(model, layer), schedule, "predict_noise", x,
                           generator, range(t_hi, t_lo - 1, -1), y, noise_table=noise_table,
-                          graphs=False)
+                          graphs=run)
         bucket_meta.append({"t_hi": t_hi, "t_lo": t_lo, "layer": layer, "n_outer": p_outer,
                             "cacheable": p_outer is not None})
     return segments, bucket_meta
@@ -235,9 +242,11 @@ def segment_mask(steps: int, segments) -> np.ndarray:
     return in_seg
 
 
-def main(argv=None) -> dict:
+def main(argv=None, graphs=True) -> dict:
     """Run the tool; returns {"table": bool (steps,), "budget", "budget_mode",
-    "drift" (steps,), "meta", "card"}."""
+    "drift" (steps,), "norm" (steps,), "meta", "card"}. ``graphs`` is
+    :func:`~duodiff_tpu_torch.diffusion.graphs.step_graphs`'s (a bool, or a
+    run's StepGraphs): the scans' one run."""
     args = get_args(argv)
     check_args(args)
     device = device_from_arg(args.device)
@@ -277,6 +286,7 @@ def main(argv=None) -> dict:
     # against a zero delta and never read; rows outside the segments stay 0
     drift = np.zeros((steps,), np.float64)
     norm = np.zeros((steps,), np.float64)
+    run = step_graphs(graphs, device)
     with torch.inference_mode():
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         if args.t_switch is not None:
@@ -290,9 +300,10 @@ def main(argv=None) -> dict:
                   f"full anchors t={handoff - 1}..0, batch {args.batch}, attn={attn}, "
                   f"n_outer={n_outer} ...", file=sys.stderr)
             x = ddpm_loop(early, schedule, "predict_noise", x, generator,
-                          range(steps - 1, handoff - 1, -1), y, graphs=False)
+                          range(steps - 1, handoff - 1, -1), y, graphs=run)
             drift[:handoff], norm[:handoff] = measure_drift(model, schedule, x, generator,
-                                                            handoff - 1, n_outer, y, tokens)
+                                                            handoff - 1, n_outer, y, tokens,
+                                                            graphs=run)
             segments = [(handoff - 1, 0)]
             mode_meta = {"mode": "duodiff", "t_switch": args.t_switch,
                          "shallow_config": args.shallow_config,
@@ -302,7 +313,7 @@ def main(argv=None) -> dict:
                   f"attn={attn} ...", file=sys.stderr)
             segments, bucket_meta = static_exit_drift(model, cfg, schedule, x, generator,
                                                       buckets, args.cache_outer, y, tokens,
-                                                      drift, norm)
+                                                      drift, norm, graphs=run)
             if not segments:
                 raise SystemExit("no bucket is cacheable (every exit is at/inside the mid "
                                  "block) — nothing to derive")
@@ -312,7 +323,7 @@ def main(argv=None) -> dict:
             print(f"measuring drift: {steps} steps, batch {args.batch}, attn={attn}, "
                   f"n_outer={n_outer} ...", file=sys.stderr)
             drift[:], norm[:] = measure_drift(model, schedule, x, generator, steps - 1, n_outer,
-                                              y, tokens)
+                                              y, tokens, graphs=run)
             segments = [(steps - 1, 0)]
             mode_meta = {"mode": "dense"}
 
@@ -369,7 +380,7 @@ def main(argv=None) -> dict:
           f"cacheable steps ({seg_anchors(table) / n_seg:.1%})",
           file=sys.stderr)
     return {"table": table, "budget": budget, "budget_mode": budget_mode, "drift": drift,
-            "meta": meta, "card": card}
+            "norm": norm, "meta": meta, "card": card}
 
 
 if __name__ == "__main__":

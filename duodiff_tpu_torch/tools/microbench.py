@@ -13,9 +13,12 @@ full train step (forward, loss, backward, AdamW with the JAX package's
 hyperparameters; 3 warm-up steps, 20 timed) for the four variants
 ``(fused, auto)``, ``(pallas, fused)``, ``(pallas, xla)`` and ``(xla, xla)``,
 so that regressions can be told apart: the kernel itself against the
-surrounding model. The port's unfused MLP is ``mlp_impl="auto"``, which the
-JAX package also runs for ``"xla"``, so ``xla`` maps to it; the rows keep the
-JAX tool's labels.
+surrounding model. A train row times the step the trainer runs: on the
+card a step graph (``diffusion/graphs.py``), the batch in its run's static
+buffers, its eager warm-up and capture among the warm-up steps
+(``bench_train(graphs=False)`` times the eager step body). The port's
+unfused MLP is ``mlp_impl="auto"``, which the JAX package also runs for
+``"xla"``, so ``xla`` maps to it; the rows keep the JAX tool's labels.
 
 Times are CUDA events around the timed calls on the card
 (``tools/_measure.py``), never the host clock there. The card's name and
@@ -176,9 +179,13 @@ def bench_kernels(*, device, batch: int = BATCH, reps: int = REPS) -> dict:
 
 
 def bench_train(*, device, batch: int | None = None, reps: int = REPS,
-                warmup: int = TRAIN_WARMUP) -> dict:
+                warmup: int = TRAIN_WARMUP, graphs: bool = True) -> dict:
     """A full train step per (attention, MLP) variant; returns {row label:
-    seconds per step}."""
+    seconds per step, "train_loss": {row label: the last step's loss}}.
+    ``graphs``: the step replays a CUDA graph on the card, captured in the
+    warm-up (at least two steps, graphed or not, so that both routes take
+    the same steps)."""
+    from duodiff_tpu_torch.diffusion.graphs import StepGraphs
     from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
     from duodiff_tpu_torch.models.early_exit import init_early_exit_uvit
     from duodiff_tpu_torch.models.uvit import init_uvit
@@ -186,6 +193,7 @@ def bench_train(*, device, batch: int | None = None, reps: int = REPS,
         TrainState,
         make_optimizer,
         make_train_step,
+        step_buffer,
     )
 
     # MB_MODEL=deediff benches the DeeDiff fine-tune step with the
@@ -196,8 +204,8 @@ def bench_train(*, device, batch: int | None = None, reps: int = REPS,
     schedule = NoiseSchedule.create(steps=1000, device=device)
     bsz = batch if batch is not None else int(os.environ.get("MB_BATCH", str(BATCH)))
     image = np.random.RandomState(0).randn(bsz, cfg.img_size, cfg.img_size, cfg.in_chans)
-    batch_ = {"image": torch.from_numpy(image.astype(np.float32)).to(device),
-              "label": torch.zeros((bsz,), dtype=torch.long, device=device)}
+    host_batch = {"image": torch.from_numpy(image.astype(np.float32)),
+                  "label": torch.zeros((bsz,), dtype=torch.long)}
     variants = TRAIN_VARIANTS
     only = os.environ.get("MB_ONLY")
     if only:
@@ -205,7 +213,7 @@ def bench_train(*, device, batch: int | None = None, reps: int = REPS,
     gelu_approx = os.environ.get("MB_GELU", "exact") == "tanh"
     # MB_REMAT=1 benches --use_checkpoint (per-block activation recompute)
     use_checkpoint = os.environ.get("MB_REMAT") == "1"
-    times = {}
+    times, losses = {}, {}
     for impl, mlp_impl in variants:
         generator = torch.Generator().manual_seed(0)
         if model_kind == "deediff_uvit":
@@ -221,8 +229,11 @@ def bench_train(*, device, batch: int | None = None, reps: int = REPS,
                                    beta1=0.99, beta2=0.999, max_grad_norm=1.0,
                                    num_warmup_steps=1500, num_training_steps=500000)
         state = TrainState.create(model, optimizer)
+        run = StepGraphs(device, graphs)  # the row's graphs and its batch's static buffers
+        batch_ = {k: step_buffer(run, k, v).copy_(v) for k, v in host_batch.items()}
         step = make_train_step(model, schedule, parametrization="predict_noise", seed=1,
-                               model_kind=model_kind, has_labels=cfg.num_classes > 0)
+                               model_kind=model_kind, has_labels=cfg.num_classes > 0,
+                               graphs=run)
         metrics = {}
 
         def one_step():
@@ -230,19 +241,22 @@ def bench_train(*, device, batch: int | None = None, reps: int = REPS,
             metrics.update(step(state, batch_, 1))
 
         before = launch_counts()
-        dt = timeit(one_step, device=device, reps=reps, warmup=warmup)
+        dt = timeit(one_step, device=device, reps=reps, warmup=max(warmup, 2))
         times[f"{impl}+mlp:{mlp_impl}"] = dt
+        losses[f"{impl}+mlp:{mlp_impl}"] = float(metrics["train_loss"])
         print(f"train_step[{impl:6s}+mlp:{mlp_impl:5s}] "
               f"gelu={'tanh' if gelu_approx else 'exact'}: {dt*1e3:7.1f} "
               f"ms/step ({1/dt:.2f} steps/s, loss {float(metrics['train_loss']):.4f})")
         _launches(f"train_step[{impl}+mlp:{mlp_impl}]", before)
-        del model, optimizer, state, step
-    return times
+        del model, optimizer, state, step, run, batch_
+    return {**times, "train_loss": losses}
 
 
-def main(argv=None) -> dict:
+def main(argv=None, graphs: bool = True) -> dict:
     """Run the parts named by ``which`` (fwd, kernels, train or all) on the
-    model of ``config``; returns {"card", part: {row: seconds}}."""
+    model of ``config``; returns {"card", part: {row: seconds}}, and with
+    train {"train_loss": {row: the last step's loss}}. ``graphs=False``
+    times the eager train step bodies on the card too."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("which", nargs="?", default="all", choices=["fwd", "kernels", "train", "all"])
     p.add_argument("config", nargs="?", default=None,
@@ -258,7 +272,8 @@ def main(argv=None) -> dict:
     if args.which in ("kernels", "all"):
         result["kernels"] = bench_kernels(device=device)
     if args.which in ("train", "all"):
-        result["train"] = bench_train(device=device)
+        result["train"] = bench_train(device=device, graphs=graphs)
+        result["train_loss"] = result["train"].pop("train_loss")
     return result
 
 

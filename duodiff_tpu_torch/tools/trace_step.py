@@ -9,20 +9,28 @@ where the device's time goes (counterpart of the repository's
 
 ``--mode sample``: one ``--steps``-step DDPM loop from t = steps - 1
 (``diffusion/sampling.py:ddpm_loop``) of the model (default the flagship
-CelebA-64 U-ViT) at ``--batch`` in bf16, run once outside the trace, then
-once inside it. ``--mode train``: three train steps (forward, loss,
-backward, AdamW with the JAX package's settings), then ``--steps`` more
-inside the trace. The trace is ``--out/trace.json`` (``utils/profiling.py:trace``);
-the traced loop is also timed with CUDA events.
+CelebA-64 U-ViT) at ``--batch`` in bf16, after a two-step loop that warms
+it up, run once outside the trace, then once inside it. ``--mode train``: three train steps
+(forward, loss, backward, AdamW with the JAX package's settings), then
+``--steps`` more inside the trace. The trace is ``--out/trace.json``
+(``utils/profiling.py:trace``); the traced loop is also timed with CUDA
+events. On the card both modes run what the CLIs run, step graphs
+(``diffusion/graphs.py``): a sampling step and a train step graph (the
+batch in the run's static buffers, as ``training/trainer.py`` stages it),
+whose eager warm-up and capture fall in the untraced steps, so the traced
+window holds replays only; ``main(argv, graphs=False)`` traces the eager
+step bodies.
 
 The summary reads the newest Chrome trace under ``--out`` (a training run's
 ``--profile`` folder works too) and sums the device's time, the
 counterpart of the JAX tool's HLO categories: by kernel family
 (:data:`KERNEL_FAMILIES`), per step, and the top ``--top`` kernels by name.
 It also prints the traced span and the device's idle share within it (the
-union of the device's events over the span): the port's step loop runs on
-the host between kernels, where a JAX scan had no host gaps to show. A
-trace with no device events is reported as such, with no shares.
+union of the device's events over the span): what remains between the
+replays (the host's noise draw, its choice of the next graph), where a JAX
+scan had no host gaps to show. The kernels a replay launches are device
+events of the trace as an eager step's are. A trace with no device events
+is reported as such, with no shares.
 
 It runs on the card unless ``--device cpu``, where the wrappers take their
 plain versions and the trace holds host events only. ``--rng rbg`` is
@@ -81,9 +89,12 @@ def _timed(run, device, n_steps: int) -> float:
     return elapsed_ms(run, device) / n_steps
 
 
-def capture(args, device) -> dict:
-    """Trace one ``--steps``-step DDPM loop after an untraced one; returns
-    {"trace", "step_ms" (the traced loop), "untraced_step_ms"}."""
+def capture(args, device, graphs: bool = True) -> dict:
+    """Trace one ``--steps``-step DDPM loop after an untraced one, both on
+    one run of step graphs (``graphs``) that a two-step loop before them
+    warmed up and captured; returns {"trace", "step_ms" (the traced loop),
+    "untraced_step_ms"}."""
+    from duodiff_tpu_torch.diffusion.graphs import StepGraphs
     from duodiff_tpu_torch.diffusion.sampling import ddpm_loop
     from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
     from duodiff_tpu_torch.utils.profiling import TRACE_FILE, trace
@@ -94,34 +105,39 @@ def capture(args, device) -> dict:
          if cfg.num_classes > 0 else None)
     schedule = NoiseSchedule.create(steps=SCHEDULE_STEPS, device=device)
     shape = (args.batch, cfg.img_size, cfg.img_size, cfg.in_chans)
-    ts = range(args.steps - 1, -1, -1)  # one chunk's worth of steps
+    run_graphs = StepGraphs(device, graphs)
+    apply = model  # one apply for both loops, so they share the run's graphs
 
-    def run(seed: int) -> None:
+    def run(seed: int, n_steps: int) -> None:
         g = torch.Generator(device=device).manual_seed(seed)
         x = torch.randn(shape, generator=g, device=device)
-        # the eager loop: the trace shows each step's launches from the host
-        out = ddpm_loop(lambda x, t, y: model(x, t, y), schedule, "predict_noise", x, g, ts, y,
-                        graphs=False)
+        out = ddpm_loop(apply, schedule, "predict_noise", x, g, range(n_steps - 1, -1, -1), y,
+                        graphs=run_graphs)
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError("the sampling loop gave non-finite values")
 
     with torch.inference_mode():
-        untraced = _timed(lambda: run(0), device, args.steps)
+        run(0, 2)  # the step's eager warm-up and its capture, untimed
+        untraced = _timed(lambda: run(0, args.steps), device, args.steps)
         with trace(args.out, device):
-            traced = _timed(lambda: run(1), device, args.steps)
+            traced = _timed(lambda: run(1, args.steps), device, args.steps)
     print(f"trace written to {args.out}", file=sys.stderr)
     return {"trace": str(Path(args.out) / TRACE_FILE), "step_ms": traced,
             "untraced_step_ms": untraced}
 
 
-def capture_train(args, device) -> dict:
-    """Trace ``--steps`` train steps after three untraced ones; returns
-    {"trace", "step_ms" (the traced steps), "loss"}."""
+def capture_train(args, device, graphs: bool = True) -> dict:
+    """Trace ``--steps`` train steps after three untraced ones (the eager
+    warm-up and the capture among them), the step on a run of step graphs
+    (``graphs``) with the batch in its static buffers; returns {"trace",
+    "step_ms" (the traced steps), "loss"}."""
+    from duodiff_tpu_torch.diffusion.graphs import StepGraphs
     from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
     from duodiff_tpu_torch.training.train_state import (
         TrainState,
         make_optimizer,
         make_train_step,
+        step_buffer,
     )
     from duodiff_tpu_torch.utils.profiling import TRACE_FILE, trace
 
@@ -130,12 +146,14 @@ def capture_train(args, device) -> dict:
                                beta1=0.99, beta2=0.999, max_grad_norm=1.0,
                                num_warmup_steps=1500, num_training_steps=500000)
     state = TrainState.create(model, optimizer)
+    run_graphs = StepGraphs(device, graphs)
     step = make_train_step(model, NoiseSchedule.create(steps=SCHEDULE_STEPS, device=device),
                            parametrization="predict_noise", seed=1, model_kind="uvit",
-                           has_labels=cfg.num_classes > 0)
+                           has_labels=cfg.num_classes > 0, graphs=run_graphs)
     image = np.random.RandomState(0).randn(args.batch, cfg.img_size, cfg.img_size, cfg.in_chans)
-    batch = {"image": torch.from_numpy(image.astype(np.float32)).to(device),
-             "label": torch.zeros((args.batch,), dtype=torch.long, device=device)}
+    batch = {"image": torch.from_numpy(image.astype(np.float32)),
+             "label": torch.zeros((args.batch,), dtype=torch.long)}
+    batch = {k: step_buffer(run_graphs, k, v).copy_(v) for k, v in batch.items()}
     metrics = {}
 
     def run(n: int) -> None:
@@ -246,10 +264,11 @@ def get_args(argv=None):
     return args
 
 
-def main(argv=None) -> dict:
+def main(argv=None, graphs: bool = True) -> dict:
     """Capture (unless ``--summarize_only``) and summarize; returns {"card",
     "capture", "summary", "launches"}, the launches as the wrappers counted
-    them during the capture."""
+    them during the capture. ``graphs=False`` traces the eager step bodies
+    on the card too."""
     from duodiff_tpu_torch.tools._measure import (
         card_line,
         device_from_arg,
@@ -264,7 +283,8 @@ def main(argv=None) -> dict:
         result["card"] = card_line(device)
         print(result["card"])
         before = launch_counts()
-        result["capture"] = (capture_train if args.mode == "train" else capture)(args, device)
+        result["capture"] = (capture_train if args.mode == "train" else capture)(args, device,
+                                                                                 graphs)
         result["launches"] = launches_since(before)
         clock = "CUDA events" if device.type == "cuda" else "host clock, not a device time"
         print(f"{args.mode} {args.steps} steps at batch {args.batch}, attn {args.attn}: "

@@ -52,15 +52,27 @@ def _union_percentile(quants, fractions, p: float) -> float:
 
 def _row_quantiles(rows: torch.Tensor, fractions: torch.Tensor) -> torch.Tensor:
     """(R, N) -> (R, Q): each row's quantiles at ``fractions`` with linear
-    interpolation (``jnp.quantile``'s default), in calls of at most
-    2**24 elements."""
+    interpolation (``jnp.quantile``'s default), in calls of at most 2**24
+    elements. These are the steps of ``torch.quantile(rows, fractions,
+    dim=-1).t()``, to the bit, less its check that the fractions lie in [0,
+    1], which reads a CPU tensor's value on the host: this runs inside a
+    step body. A row holding a NaN gives NaN, as there."""
     n = rows.shape[-1]
     if n > _QUANTILE_MAX_ELEMENTS:
         raise ValueError(f"a row of {n} amaxes is more than torch.quantile takes "
                          f"({_QUANTILE_MAX_ELEMENTS}): calibrate at a smaller batch")
     per_call = _QUANTILE_MAX_ELEMENTS // n
-    return torch.cat([torch.quantile(rows[i:i + per_call], fractions, dim=-1).t()
-                      for i in range(0, rows.shape[0], per_call)])
+    out = []
+    for i in range(0, rows.shape[0], per_call):
+        ordered = torch.sort(rows[i:i + per_call], dim=-1).values
+        ranks = torch.broadcast_tensors(fractions * (n - 1),
+                                        ordered.isnan().any(-1, keepdim=True))
+        ranks = ranks[0].masked_fill(ranks[1], n - 1)
+        below = ranks.to(torch.long)
+        weights = ranks - below
+        low = ordered.gather(-1, below)
+        out.append(low.lerp_(ordered.gather(-1, ranks.ceil_().to(torch.long)), weights))
+    return torch.cat(out)
 
 
 def calibrate_int8_stats(
@@ -73,6 +85,7 @@ def calibrate_int8_stats(
     y: Optional[torch.Tensor] = None,
     x_init: Optional[torch.Tensor] = None,
     noise_table: Optional[torch.Tensor] = None,
+    graphs=True,
 ):
     """One reverse DDPM trajectory, t = T-1 .. 0, through
     ``model.forward_calib`` (an int8 UViT without static scales, packed, or
@@ -85,7 +98,10 @@ def calibrate_int8_stats(
 
     The start noise and each step's noise come from ``generator`` unless
     ``x_init`` / ``noise_table`` (as :func:`ddpm_loop` takes it) give them.
-    Nothing is read from the device before the trajectory ends."""
+    Nothing is read from the device before the trajectory ends: each step
+    is :func:`ddpm_loop`'s body and the statistics are its aux rows.
+    ``graphs`` is :func:`ddpm_loop`'s: on the card by default the step is a
+    CUDA graph, replayed (the JAX package's one jitted scan)."""
     names = model.block_names()
     if x_init is None:
         x_init = torch.randn(tuple(shape), generator=generator, device=generator.device,
@@ -102,7 +118,7 @@ def calibrate_int8_stats(
     _, (amax_rows, curves) = ddpm_loop(
         apply, schedule, parametrization, x_init, generator,
         range(schedule.steps - 1, -1, -1), y, noise_table=noise_table,
-        aux_fn=lambda out: out, graphs=False,  # the calibration scan stays eager
+        aux_fn=lambda out: out, graphs=graphs,
     )
     amax = amax_rows.amax(0).cpu().numpy()
     curves = curves.cpu().numpy()

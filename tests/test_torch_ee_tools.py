@@ -206,7 +206,8 @@ def _run_port_tool(monkeypatch, argv, drift, norm):
         def pack_for_kernels(self):
             pass
 
-    def segment_drift(anchor, schedule, x, generator, t_hi, t_lo, y, delta0, noise_table=None):
+    def segment_drift(anchor, schedule, x, generator, t_hi, t_lo, y, delta0, noise_table=None,
+                      graphs=True):
         return x, drift[t_lo:t_hi + 1], norm[t_lo:t_hi + 1]
 
     monkeypatch.setattr(tool, "load_model", lambda *a, **k: (Model(), UViTConfig(**TINY)))

@@ -13,6 +13,7 @@
 """
 
 import json
+import math
 import os
 import sys
 from pathlib import Path
@@ -107,9 +108,11 @@ def test_microbench_train_runs(model, tiny, monkeypatch, capsys):
         monkeypatch.setenv("MB_MODEL", "deediff")
         monkeypatch.setenv("MB_ONLY", "fused")
     times = microbench.bench_train(device=CPU, batch=2, reps=1, warmup=1)
+    losses = times.pop("train_loss")
     rows = (["fused+mlp:auto"] if model == "deediff" else
             ["fused+mlp:auto", "pallas+mlp:fused", "pallas+mlp:xla", "xla+mlp:xla"])
     assert list(times) == rows and all(t > 0 for t in times.values())
+    assert list(losses) == rows and all(map(math.isfinite, losses.values()))
     out = capsys.readouterr().out
     assert "train_step[fused +mlp:auto ] gelu=exact" in out  # the JAX tool's row label
     assert "nan" not in out

@@ -3,14 +3,13 @@ step body, diffusion/graphs.py, the trainer's route) on the CPU.
 
 A CUDA graph replays the kernels its capture recorded, on the same memory,
 with every host value as it was at the capture. Here the capture is
-emulated: every aten op the body runs is recorded (a TorchDispatchMode),
-and a replay runs the recorded ops again on the same persistent tensors,
-with the capture's scalars, below autograd and without bumping a version
-counter, as a graph's replay does. The first replay after a capture does
-nothing, since the recording ran the step. So a body that read a host value
+emulated (tests/torch_graph_emulator.py): every aten op the body runs is
+recorded, and a replay runs the recorded ops again on the same persistent
+tensors, with the capture's scalars, below autograd and without bumping a
+version counter, as a graph's replay does. So a body that read a host value
 which the host moves between steps, wrote a tensor it had rebound or made
 its state anew, would drift from the eager steps here as it would on the
-card.
+card, and one that reads a value on the host during capture fails.
 
 Held: (1) every tensor the body writes (parameters, gradients, AdamW's
 moments and count, the accumulation window and mean, the non-finite
@@ -27,15 +26,12 @@ packs again; (5) the training CLI graphed equals it eager, and the route
 line.
 """
 
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils._pytree import tree_leaves
 
 from duodiff_tpu.config import UViTConfig as JaxConfig
 from duodiff_tpu.diffusion.schedule import NoiseSchedule as JaxSchedule
@@ -47,7 +43,6 @@ from duodiff_tpu.training.train_state import make_train_step as jax_make_train_s
 from duodiff_tpu_torch import train
 from duodiff_tpu_torch.config import UViTConfig
 from duodiff_tpu_torch.data.synthetic import write_palette_cifar
-from duodiff_tpu_torch.diffusion import graphs
 from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
 from duodiff_tpu_torch.models.early_exit import EarlyExitUViT
 from duodiff_tpu_torch.models.uvit import UViT
@@ -58,6 +53,7 @@ from duodiff_tpu_torch.utils.convert import (
     early_exit_state_dict_from_jax,
     uvit_state_dict_from_jax,
 )
+from torch_graph_emulator import emulated  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -74,64 +70,7 @@ DROP = 0.5
 STEPS = 4
 
 
-# --- the emulated graph -------------------------------------------------------
-
-
-class _Recorder(TorchDispatchMode):
-    def __init__(self, ops: list):
-        super().__init__()
-        self.ops = ops
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        self.ops.append((func, args, kwargs, out))
-        return out
-
-
-class _EmulatedGraph:
-    """The ops a capture recorded, run again at every replay but the first."""
-
-    def __init__(self):
-        self.ops, self.replays = [], 0
-
-    def replay(self):
-        self.replays += 1
-        if self.replays == 1:
-            return  # the capture's recording ran this step
-        memo = {}
-
-        def mapped(tree):
-            return tree_map(lambda t: memo.get(id(t), t) if isinstance(t, torch.Tensor) else t,
-                            tree)
-
-        with torch.no_grad(), torch._C._AutoDispatchBelowADInplaceOrView():
-            for func, args, kwargs, out in self.ops:
-                new = func(*mapped(args), **mapped(kwargs))
-                for o, n in zip(tree_leaves(out), tree_leaves(new)):
-                    if isinstance(o, torch.Tensor) and o is not n:
-                        memo[id(o)] = n
-
-
-@contextlib.contextmanager
-def _record(graph, pool):
-    with _Recorder(graph.ops):
-        yield
-
-
-@pytest.fixture
-def emulated(monkeypatch):
-    """Step graphs on the CPU that capture and replay as above."""
-    monkeypatch.setattr(graphs, "_new_graph", _EmulatedGraph)
-    monkeypatch.setattr(graphs, "_capture", _record)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-
-    def make():
-        run = graphs.StepGraphs("cpu")
-        run.graphed = True
-        return run
-
-    return make
+# --- the emulated graph (tests/torch_graph_emulator.py) ---------------------------
 
 
 def _stray_writes(ops, kept_storages: set) -> list:
