@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17,18,19]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
-(D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768) and of the
-latent ImageNet-256 U-ViT (D = 1024) and checks them, in phases, each
-printing its results on its own lines:
+(D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768), of the
+latent ImageNet-256 U-ViT (D = 1024) and of U-ViT-H/2 (D = 1152, 16 heads of
+72) and checks them, in phases, each printing its results on its own lines:
 
 1. set-up: the card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the build of the CUDA kernels from ``duodiff_tpu_torch/csrc``;
@@ -51,7 +51,8 @@ printing its results on its own lines:
    ImageNet-64 cache with label dropout: 50 steps with ``--attn_impl
    pallas`` (K9 forward, K10 backward; the loss must fall), a step's split,
    profile and peak memory, then 20 steps with ``--attn_impl fused`` (K1,
-   K2, K6, K7 at D = 768);
+   K2, K6, K7 at D = 768); the model cut to 5 blocks (CUT_DEPTH,
+   as in 8, 16 and 18);
 8. the same fused training with ``DUODIFF_MLP_BWD_SPLIT=1``, so that the MLP
    sublayer's backward is the split kernel K8 and K7 never runs: 20
    steps (the loss must fall; split, profile and peak memory beside phase
@@ -110,7 +111,8 @@ printing its results on its own lines:
    checkpoint, ``eesample`` on each file. Phase 12's launches are added to
    the record of K1, K2, K6, K7, K11 and K12;
 13. latent ImageNet-256 (``configs/uvit_imagenet256.yaml``: 32 x 32 x 4
-   latents, L = 258, D = 1024, 16 heads, depth 21) with a random frozen KL
+   latents, L = 258, D = 1024, 16 heads, depth 21, cut to 9 blocks) with a
+   random frozen KL
    autoencoder written under the reference's names (seed 0, the default
    configuration) and copies of the three ImageNet-256 configs pointing at
    it, in a temporary directory: (a) gates: a 20-step guided DuoDiff
@@ -145,8 +147,9 @@ printing its results on its own lines:
    on the trained backbone and a random depth-3 model,
    ``tools.probe_cache_gamma`` and ``tools.trajectory_parity`` (every row;
    ``attn pallas vs fused`` launches K9) at 60 steps, each row's launches
-   held exactly. Phase 14's launches are added to the record of K1, K2, K6,
-   K7, K9, K11 and K12.
+   held exactly (c's score_quality, whose square roots hold the host, runs in
+   a process of its own while d runs here). Phase 14's launches are added to
+   the record of K1, K2, K6, K7, K9, K11 and K12.
 15. serving, at the CelebA-64 width (``configs/uvit_celeba.yaml``, random
    weights from seed 0): (a) K1, K2, K11 (with and without a qkv bias) and
    K12 (dynamic and static) against their plain versions at the serving
@@ -191,12 +194,14 @@ printing its results on its own lines:
    bytes and peak allocation and one counted step's collectives beside (c)'s;
    (f) ``configs/uvit_imagenet64.yaml --attn_impl pallas --model_parallel
    2`` (D = 768, the unfused block on 6 of 12 heads a rank), 12 steps at
-   batch 32 on a synthetic ImageNet-64 cache (17 K9 and 17 K10 a rank a
-   step, the loss falling), then guided DuoDiff of the ImageNet-64 pair, 10
+   batch 32 on a synthetic ImageNet-64 cache (a K9 and a K10 a block, a
+   rank and a step, the loss falling), then guided DuoDiff of the ImageNet-64 pair, 10
    steps at batch 8, within the trajectory gate of a one-process run; (g)
    ``eesample --model_parallel 2`` on ``configs/deediff_celeba.yaml`` (the
    heads' decoder sharded), 10 steps at batch 32, its samples, the probes'
-   summed means and the exit indices against one process. (a) also holds K9
+   summed means and the exit indices against one process. (b)-(f) run the
+   deep models at their widths cut to 5 blocks (config copies).
+   (a) also holds K9
    and K10 on a rank's heads, (128, 6, 258) and (128, 3, 258), to phase 2's
    gates, timed beside their bounds. The ranks are this script in its
    ``--worker`` mode. Phase 16's launches are added to the records of K1, K2,
@@ -226,14 +231,15 @@ printing its results on its own lines:
 18. multi-GPU sampling and serving, two ranks of one torchrun sharing the
    card over gloo (this script's ``--worker`` mode): (a) ``sample.py
    --pipeline_parallel`` on ``uvit_celeba_3.yaml`` -> ``uvit_celeba.yaml``,
-   1000 steps with t_switch 300, batch 128 in 4 micro-batches of 32 (rank
-   0, stage A: K1 = K2 = 3,600; rank 1, stage B: 36,400), its PNGs equal to
+   1000 steps with t_switch 300, batch 128 in 4 micro-batches of 32, the
+   deep model cut to 5 blocks (rank 0, stage A: K1 = K2 = 3,600; rank 1,
+   stage B: 14,000), its PNGs equal to
    those of a one-process run of this process, both wall times printed;
    (b) ``serve.main`` on ``uvit_celeba.yaml`` over the grid, rank 0 on a
    free port and this process its HTTP client: a bucket of 8 data-parallel
-   and 8 slots over the two data ranks (ddpm 250 steps; 3,250 launches of
+   and 8 slots over the two data ranks (ddpm 250 steps; 1,250 launches of
    K1 and K2 on each rank), equal to one-process servers' PNG bytes, and a
-   bucket of 8 with ``--model_parallel 2`` (50 steps; 650 of each shard
+   bucket of 8 with ``--model_parallel 2`` (50 steps; 250 of each shard
    form on each rank) within 2 pixel levels; ``/healthz`` names the grid.
    Phase 18's launches, every rank's, are added to the records of K1, K2
    and their shard forms, and kept apart as ``launches_18``.
@@ -269,6 +275,26 @@ printing its results on its own lines:
    profiled, graphed and eager, the captures, the pool's bytes and the peak
    memory. Its launches are added to the records of K1, K2, K6-K10, and
    kept apart as ``launches_20``.
+21. U-ViT-H/2 at full width (``config.UVIT_H2_IMAGENET256``: latent
+   ImageNet-256, D = 1152, 16 heads of 72, L = 258; its depth-3 and depth-29
+   config files written from that dict into a temporary directory beside a
+   random autoencoder, as phase 13's): (a) every kernel against its plain
+   version at these widths with phase 2's gates (K1, K2, K5, K1-v1, K11, K12
+   dynamic and static with erf and tanh, K6, K7, K8 at 4 chunks at batch 32;
+   K9 and K10 at (32, 16, 258, 72) beside the library's call and K15's bf16
+   form; K9, K10 and K1-v1 at the ragged lengths; the LayerNorm + quant pass
+   at D = 1152 equal to its first form), each timed beside its bound with
+   the backward kernels' scratch, the cores' limits and occupancy at head
+   width 72, and the depth-29 model's forward and gradients, fused against
+   plain and pallas against pallas_plain; through the CLIs, random weights
+   from a seed: (b) guided DuoDiff, depth 3 for 75 of 250 steps, then depth
+   29, batch 16, decoded to 256 x 256; (c) ``--attn_impl fused_int8`` with
+   dynamic scales, guided, 50 steps; (d) ``--attn_impl pallas`` (K9 at head
+   width 72), guided, 20 steps; (e) the training CLI on a synthetic 256 x 256
+   cache, every batch encoded, bf16, batch 32: fused 40 steps (the loss must
+   fall as 13e's) and pallas 4 steps (finite), with peak memory and step
+   time. Its launches are added to the records of K1, K2, K6, K7, K9, K10,
+   K11 and K12, and kept apart as ``launches_21``.
 
 The tools of phases 10d, 10e, 11c, 12e and 17 replay step graphs on the card
 as the CLIs do, and each of those phases holds the loops it runs graphed
@@ -361,6 +387,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import ctypes
 import functools
 import gc
@@ -399,6 +426,10 @@ class Width(NamedTuple):
     l: int
     d: int
     heads: int
+
+    @property
+    def dh(self) -> int:
+        return self.d // self.heads
 
 
 CELEBA = Width(257, 512, 8)      # configs/uvit_celeba.yaml, uvit_cifar10.yaml
@@ -446,6 +477,14 @@ MODEL_MAX_FRAC = 2.0**-5
 # (K11 with a qkv bias: 0.066 on an H100). At batch 8 both keep the
 # elementwise bound.
 INT8_WHOLE_MAX_FRAC = 2.0**-5
+# K5 at U-ViT-H widths (D = 1152, batch 32) is held as a whole too: FWD_REL_FRO
+# and every entry within 2**-5 of the largest value. Its output and plain's
+# differ by the compounded bf16 roundings of xn, qkv, the heads, un and the
+# hidden activation, 2.7e-3 relative Frobenius at every width (2.4e-3 at D =
+# 768); over 9.5 M outputs their tail puts 3 entries of small value past
+# 0.05 + 0.05 |plain| (1 of 2.4 M at batch 8), the same entries at which K1
+# then K2 on the same inputs is past it against plain K1 then K2.
+WIDE_BLOCK_MAX_FRAC = 2.0**-5
 TIMING_REPS = 10
 
 KERNELS = {
@@ -534,7 +573,7 @@ PROBE_KERNELS = {
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
 PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18", "19", "20")
+          "15", "16", "17", "18", "19", "20", "21")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -582,6 +621,13 @@ IMAGENET_CONFIG = str(REPO / "configs/uvit_imagenet64.yaml")
 GUIDED_BATCH = 64          # every guided forward runs at twice this, MAIN_BATCH
 GUIDED_STEPS, GUIDED_SWITCH = 250, 75    # phases 6 and 13b: the guided DuoDiff schedule
 GUIDANCE_SCALE = 1.5
+# Phases 7, 8, 16 and 18 run their deep models (CIFAR-10 and CelebA-64 at depth
+# 13, ImageNet-64 at 17) at full width cut to CUT_DEPTH blocks (config copies,
+# write_depth_copy), for the smoke's time: those phases' time went to set-up,
+# checkpoints and host all-reduces (a tensor-parallel step over gloo takes two a
+# block, ~4.3 s at depth 13 on an H100 over gloo), none of their gates depends on
+# the depth, and phases 3, 4, 5, 6 and 20 keep the full depths
+CUT_DEPTH = 5
 IMAGENET_TRAIN_STEPS = 50
 IMAGENET_FUSED_STEPS = 20
 LABEL_DROPOUT = 0.1
@@ -733,14 +779,16 @@ def keep_times(res: dict, ms: dict, suffix) -> None:
 
 
 def check_kernels(device, results: dict, width: Width = CELEBA, variants=(False, True),
-                  suffix: str = "") -> None:
+                  suffix: str = "", batches=(CHECK_BATCH, MAIN_BATCH), timed: int = MAIN_BATCH,
+                  phase: str = "phase 2") -> None:
     """Phase 2: K1 (with and without a qkv bias) and K2 (exact and tanh
-    GELU) against their plain versions at batch 8 and 128; errors fold over
-    every variant and batch, times are kept at batch 128, first variant."""
+    GELU) against their plain versions at batch 8 and 128 (``batches``);
+    errors fold over every variant and batch, times are kept at batch 128
+    (``timed``), first variant."""
     from duodiff_tpu_torch.ops import block
 
     heads = width.heads
-    for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
+    for batch in sorted(set(batches)):
         for variant in variants:
             x, attn_ops, mlp_ops = sublayer_operands(batch, variant, device, width)
             cases = {
@@ -758,7 +806,7 @@ def check_kernels(device, results: dict, width: Width = CELEBA, variants=(False,
             for name, (label, kernel, plain) in cases.items():
                 compare_kernel(results[name], f"{name} D={width.d} L={width.l} B={batch} {label}",
                                kernel, plain,
-                               suffix if batch == MAIN_BATCH and not variant else None)
+                               suffix if batch == timed and not variant else None, phase=phase)
 
 
 def compare_kernel(res: dict, label: str, kernel, plain, suffix,
@@ -793,7 +841,7 @@ def compare_kernel(res: dict, label: str, kernel, plain, suffix,
 
 def check_int8_kernels(device, results: dict, width: Width = CELEBA,
                        batches=(CHECK_BATCH, MAIN_BATCH), suffix: str = "",
-                       whole_batches=()) -> None:
+                       whole_batches=(), phase: str = "phase 2") -> None:
     """Phase 2, int8: K11 with and without a qkv bias, K12 with dynamic and
     static scales (the asset's mid-block pair), each with erf and tanh
     GELU, against their plain versions; at ``whole_batches`` as a whole
@@ -817,7 +865,7 @@ def check_int8_kernels(device, results: dict, width: Width = CELEBA,
                 lambda: q.fused_attn_sublayer_int8(x, *ops, num_heads=heads),
                 lambda: q.attn_sublayer_int8_plain(x, *ops, num_heads=heads),
                 suffix if timed and not qkv_bias else None,
-                scaled=batch in whole_batches, max_frac=INT8_WHOLE_MAX_FRAC,
+                scaled=batch in whole_batches, max_frac=INT8_WHOLE_MAX_FRAC, phase=phase,
             )
         x, norm, _, _, fc1, fc2 = block_modules(batch, False, width=width)
         x = x.to(device)
@@ -831,12 +879,13 @@ def check_int8_kernels(device, results: dict, width: Width = CELEBA,
                     lambda: q.fused_mlp_sublayer_int8(x, *ops, gelu_approx=tanh),
                     lambda: q.mlp_sublayer_int8_plain(x, *ops, gelu_approx=tanh),
                     suffix if timed and scales is not None and tanh else None,
-                    scaled=batch in whole_batches, max_frac=INT8_WHOLE_MAX_FRAC,
+                    scaled=batch in whole_batches, max_frac=INT8_WHOLE_MAX_FRAC, phase=phase,
                 )
 
 
 def check_bwd_kernels(device, results: dict, width: Width = CELEBA, variants=(False, True),
-                      suffix: str = "") -> None:
+                      suffix: str = "", batches=(CHECK_BATCH, MAIN_BATCH),
+                      timed: int = MAIN_BATCH, phase: str = "phase 2") -> None:
     """Phase 2, backward: K6 with and without a qkv bias and K7 with exact
     and tanh GELU against their plain versions at batch 8 and 128, each
     called twice for the same bits. The times kept are those of the
@@ -846,7 +895,7 @@ def check_bwd_kernels(device, results: dict, width: Width = CELEBA, variants=(Fa
 
     bf = torch.bfloat16
     heads = width.heads
-    for batch in sorted({CHECK_BATCH, MAIN_BATCH}):
+    for batch in sorted(set(batches)):
         for variant in variants:
             x, norm, qkv, proj, fc1, fc2 = block_modules(batch, variant, width=width)
             dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(bf)
@@ -874,7 +923,8 @@ def check_bwd_kernels(device, results: dict, width: Width = CELEBA, variants=(Fa
                 compare_bwd_kernel(results[name],
                                    f"{name} D={width.d} L={width.l} B={batch} {label}", outs,
                                    kernel, plain,
-                                   suffix if batch == MAIN_BATCH and not variant else None)
+                                   suffix if batch == timed and not variant else None,
+                                   phase=phase)
 
 
 def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, suffix,
@@ -907,13 +957,16 @@ def compare_bwd_kernel(res: dict, label: str, outs, kernel, plain, suffix,
 
 
 def check_block_kernels(device, results: dict, width: Width, suffix: str,
-                        batches=(CHECK_BATCH, MAIN_BATCH)) -> None:
+                        batches=(CHECK_BATCH, MAIN_BATCH), timed: int = MAIN_BATCH,
+                        phase: str = "phase 2", whole: bool = False) -> None:
     """Phase 2, the per-head attention sublayer and the whole block: K1-v1
     against attn_sublayer_v1_plain (with and without a qkv bias) and K5
     against block_plain (exact and tanh GELU) at batch 8 and 128; then, at
     batch 128, K5 timed beside K1 followed by K2 on the same operands and
     K1-v1 beside K1, and how far K5's output lies from that of K1 then K2
-    (they differ by the bf16 rounding of the intermediate residual stream)."""
+    (they differ by the bf16 rounding of the intermediate residual stream).
+    ``whole`` holds K5 as a whole (WIDE_BLOCK_MAX_FRAC) instead of entry by
+    entry."""
     from duodiff_tpu_torch.ops import block
 
     bf = torch.bfloat16
@@ -925,19 +978,19 @@ def check_block_kernels(device, results: dict, width: Width, suffix: str,
             v1 = to_device(block.pack_attn_v1(norm, qkv, proj, dtype=bf), device)
             v2 = to_device(block.pack_attn(norm, qkv, proj, num_heads=heads, dtype=bf), device)
             mlp = to_device(block.pack_mlp(norm, fc1, fc2, dtype=bf), device)
-            keep = suffix if batch == MAIN_BATCH and not variant else None
+            keep = suffix if batch == timed and not variant else None
             where = f"D={width.d} L={width.l} B={batch}"
             compare_kernel(
                 results["fused_attn_sublayer_v1"],
                 f"fused_attn_sublayer_v1 {where} qkv_bias={variant}",
                 lambda: block.fused_attn_sublayer(x, *v1, num_heads=heads, variant="v1"),
-                lambda: block.attn_sublayer_v1_plain(x, *v1, num_heads=heads), keep)
+                lambda: block.attn_sublayer_v1_plain(x, *v1, num_heads=heads), keep, phase=phase)
             compare_kernel(
                 results["fused_block"],
                 f"fused_block {where} qkv_bias={variant} gelu={'tanh' if variant else 'erf'}",
                 lambda: block.fused_block(x, *v2, *mlp, num_heads=heads, gelu_approx=variant),
                 lambda: block.block_plain(x, *v2, *mlp, num_heads=heads, gelu_approx=variant),
-                keep)
+                keep, phase=phase, scaled=whole, max_frac=WIDE_BLOCK_MAX_FRAC)
             if keep is None:
                 continue
 
@@ -953,7 +1006,7 @@ def check_block_kernels(device, results: dict, width: Width, suffix: str,
             })
             got, two = block.fused_block(x, *v2, *mlp, num_heads=heads).float(), chain().float()
             differ = (got != two).float().mean().item()
-            print(f"phase 2: {where}: K5 {ms['K5']:.6g} ms beside K1 then K2 "
+            print(f"{phase}: {where}: K5 {ms['K5']:.6g} ms beside K1 then K2 "
                   f"{ms['K1 then K2']:.6g} ms; K1-v1 {ms['K1-v1']:.6g} ms beside K1 "
                   f"{ms['K1']:.6g} ms; K5 differs from K1 then K2 in {differ:.4g} of the "
                   f"entries, by at most {(got - two).abs().max().item():.6g}", flush=True)
@@ -992,7 +1045,8 @@ SPLIT_EQUAL_TO_K7 = ("dx", "db1", "db2")
 
 
 def check_split_kernel(device, results: dict, width: Width, variants, suffix: str,
-                       batches=(CHECK_BATCH, MAIN_BATCH)) -> None:
+                       batches=(CHECK_BATCH, MAIN_BATCH), timed: int = MAIN_BATCH,
+                       splits_held=SPLITS, phase: str = "phase 2") -> None:
     """Phase 2, the split MLP backward: K8 at 2, 4 and 8 splits against
     mlp_sublayer_bwd_split_plain (every output within BWD_REL_FRO, dx also
     elementwise, equal bits on a repeat call) and against K7's outputs on the
@@ -1017,7 +1071,7 @@ def check_split_kernel(device, results: dict, width: Width, variants, suffix: st
                              fc2.weight.detach().t().to(bf).contiguous()), device)
             where = (f"D={width.d} L={width.l} B={batch} gelu={'tanh' if variant else 'erf'}")
             mono = block.fused_mlp_sublayer_bwd(x, dy, *ops, gelu_approx=variant)
-            for splits in SPLITS:
+            for splits in splits_held:
                 def kernel(splits=splits):
                     return block.fused_mlp_sublayer_bwd_split(x, dy, *ops, splits=splits,
                                                               gelu_approx=variant)
@@ -1026,9 +1080,9 @@ def check_split_kernel(device, results: dict, width: Width, variants, suffix: st
                     return block.mlp_sublayer_bwd_split_plain(x, dy, *ops, splits=splits,
                                                               gelu_approx=variant)
 
-                main = batch == MAIN_BATCH and not variant and splits == MAIN_SPLITS
+                main = batch == timed and not variant and splits == MAIN_SPLITS
                 compare_bwd_kernel(res, f"fused_mlp_sublayer_bwd_split {where} splits={splits}",
-                                   outs, kernel, plain, suffix if main else None)
+                                   outs, kernel, plain, suffix if main else None, phase=phase)
                 got = kernel()
                 rels = {n: rel_fro(g, w) for n, g, w in zip(outs, got, mono)}
                 worst = max(rels, key=rels.get)
@@ -1038,25 +1092,26 @@ def check_split_kernel(device, results: dict, width: Width, variants, suffix: st
                 rows = x.shape[0] * x.shape[1]
                 chunk = lib.duodiff_mlp_sublayer_bwd_split_chunk_rows(rows, splits)
                 n_chunks = -(-rows // chunk)
-                print(f"phase 2: K8 splits={splits} against K7 {where}: {rows} rows in {n_chunks} "
+                print(f"{phase}: K8 splits={splits} against K7 {where}: {rows} rows in {n_chunks} "
                       f"chunks of {chunk}, the last {rows - (n_chunks - 1) * chunk}; worst "
                       f"rel_fro_err {rels[worst]:.3g} ({worst}) (bound {BWD_REL_FRO}); equal to "
                       f"K7's bits: {', '.join(same) or 'none'} (of {', '.join(SPLIT_EQUAL_TO_K7)}) "
                       f"ok={ok}", flush=True)
                 if not ok:
                     fail(f"K8 with {splits} splits disagrees with K7 at {where}")
-            if batch != MAIN_BATCH or variant:
+            if batch != timed or variant:
                 continue
             fns = {f"K8 splits={n}": (lambda n=n: block.fused_mlp_sublayer_bwd_split(
-                x, dy, *ops, splits=n)) for n in SPLITS}
+                x, dy, *ops, splits=n)) for n in splits_held}
             fns["K7"] = lambda: block.fused_mlp_sublayer_bwd(x, dy, *ops)
             ms = time_ms(fns)
             rows, hid = batch * width.l, 4 * width.d
             scratch = {f"K8 splits={n}": lib.duodiff_mlp_sublayer_bwd_split_workspace(
-                rows, width.d, hid, n) for n in SPLITS}
+                rows, width.d, hid, n) for n in splits_held}
             scratch["K7"] = lib.duodiff_mlp_sublayer_bwd_workspace(rows, width.d, hid)
-            k6 = lib.duodiff_attn_sublayer_bwd_workspace(batch, width.l, width.d, width.heads)
-            print(f"phase 2: {where}, in turns: " + "; ".join(
+            k6 = lib.duodiff_attn_sublayer_bwd_workspace(batch, width.l, width.d, width.heads,
+                                                         width.dh)
+            print(f"{phase}: {where}, in turns: " + "; ".join(
                 f"{k} {ms[k]:.6g} ms ({ms[k] / ms['K7']:.4g} x K7), scratch "
                 f"{scratch[k] / 2**20:.6g} MiB" for k in ms)
                 + f" (K6, the other backward kernel of a block, takes {k6 / 2**20:.6g} MiB)",
@@ -1071,32 +1126,35 @@ ATTENTION_SHAPES = ((CHECK_BATCH, IMAGENET.heads, IMAGENET.l),
                     (MAIN_BATCH, CELEBA.heads, CELEBA.l))
 
 
-def check_attention_kernels(device, results: dict) -> None:
+def check_attention_kernels(device, results: dict, shapes=ATTENTION_SHAPES,
+                            main_shape=ATTENTION_SHAPES[1], dh: int = 64, suffix: str = "",
+                            phase: str = "phase 2") -> None:
     """Phase 2, standalone attention: K9 against flash_attention_plain
     (relative Frobenius and elementwise, both scaled to the output) and K10 against flash_attention_bwd_plain (dq, dk, dv each
     within BWD_REL_FRO, equal bits on a repeat call) at ATTENTION_SHAPES,
     timed, with F.scaled_dot_product_attention's forward and its autograd
     backward timed beside them as the library yardstick (the port never
-    calls it). The times kept are those at (128, 12, 258)."""
+    calls it). The times kept are those at (128, 12, 258) (``main_shape``,
+    under ``suffix``); ``dh`` is the head width."""
     import torch.nn.functional as F
 
     from duodiff_tpu_torch.ops import flash_attention as fa
 
-    for b, h, l in ATTENTION_SHAPES:
+    for b, h, l in shapes:
         g = torch.Generator().manual_seed(l)
-        q, k, v, do = (torch.randn((b, h, l, 64), generator=g).to(torch.bfloat16).to(device)
+        q, k, v, do = (torch.randn((b, h, l, dh), generator=g).to(torch.bfloat16).to(device)
                        for _ in range(4))
-        main = (b, h, l) == ATTENTION_SHAPES[1]
-        label = f"B={b} H={h} L={l}"
+        main = (b, h, l) == main_shape
+        label = f"B={b} H={h} L={l}" + ("" if dh == 64 else f" Dh={dh}")
         compare_kernel(results["flash_attention"], f"flash_attention {label}",
                        lambda: fa.flash_attention(q, k, v),
-                       lambda: fa.flash_attention_plain(q, k, v), "" if main else None,
-                       scaled=True)
+                       lambda: fa.flash_attention_plain(q, k, v), suffix if main else None,
+                       scaled=True, phase=phase)
         compare_bwd_kernel(results["flash_attention_bwd"], f"flash_attention_bwd {label}",
                            ("dq", "dk", "dv"),
                            lambda: fa.flash_attention_bwd(q, k, v, do),
                            lambda: fa.flash_attention_bwd_plain(q, k, v, do),
-                           "" if main else None, elementwise_first=False)
+                           suffix if main else None, elementwise_first=False, phase=phase)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
         def sdpa_fwd_bwd():
@@ -1110,21 +1168,22 @@ def check_attention_kernels(device, results: dict) -> None:
                  "K10": burst_ms(lambda: fa.flash_attention_bwd(q, k, v, do)),
                  "fwd": burst_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                  "fwd_bwd": burst_ms(sdpa_fwd_bwd)}
-        print(f"phase 2: {label}, 20 calls back to back, ms a call: K9 {burst['K9']:.6g}, "
+        print(f"{phase}: {label}, 20 calls back to back, ms a call: K9 {burst['K9']:.6g}, "
               f"K10 {burst['K10']:.6g}; F.scaled_dot_product_attention forward "
               f"{burst['fwd']:.6g}, backward (forward + backward less forward) "
               f"{burst['fwd_bwd'] - burst['fwd']:.6g}", flush=True)
         sdpa_err = errors(F.scaled_dot_product_attention(q, k, v), fa.flash_attention(q, k, v))[0]
-        print(f"phase 2: library yardstick {label}: F.scaled_dot_product_attention forward "
+        print(f"{phase}: library yardstick {label}: F.scaled_dot_product_attention forward "
               f"{lib['fwd']:.6g} ms, backward (forward + backward less forward) {lib_bwd:.6g} ms; "
               f"max |SDPA - K9| {sdpa_err:.6g}", flush=True)
         if main:
-            results["flash_attention"]["library_ms"] = lib["fwd"]
-            results["flash_attention_bwd"]["library_ms"] = lib_bwd
-            results["flash_attention"]["burst_ms"] = burst["K9"]
-            results["flash_attention"]["library_burst_ms"] = burst["fwd"]
-            results["flash_attention_bwd"]["burst_ms"] = burst["K10"]
-            results["flash_attention_bwd"]["library_burst_ms"] = burst["fwd_bwd"] - burst["fwd"]
+            results["flash_attention"]["library_ms" + suffix] = lib["fwd"]
+            results["flash_attention_bwd"]["library_ms" + suffix] = lib_bwd
+            results["flash_attention"]["burst_ms" + suffix] = burst["K9"]
+            results["flash_attention"]["library_burst_ms" + suffix] = burst["fwd"]
+            results["flash_attention_bwd"]["burst_ms" + suffix] = burst["K10"]
+            results["flash_attention_bwd"]["library_burst_ms" + suffix] = (burst["fwd_bwd"]
+                                                                           - burst["fwd"])
 
 
 # The bf16 GEMM of the block kernels (csrc/gemm.cuh) alone, at the main
@@ -1564,12 +1623,14 @@ def check_gemm_int8(device, bf16_timed: dict | None = None) -> None:
 # one-read form against its first form, which stays in the measurement entry
 # for this gate: the same arithmetic in the same order, so the codes and row
 # scales must be equal to the bit.
-def check_ln_quant(device) -> None:
-    """Phase 2: ln_quant_rows at D = 512, 768 and 1024, its register limit
-    (L = 257, 258, 258), batch 8 and
-    128, dynamic and static (the asset's mid-block post-LN scale), against
-    its first form, equal to the bit; at batch 128 both timed 20 calls back
-    to back through the C entry (its host time is a fraction of the pass)
+def check_ln_quant(device, widths=(CELEBA, IMAGENET, IMAGENET256),
+                   batches=(CHECK_BATCH, MAIN_BATCH), timed: int = MAIN_BATCH,
+                   phase: str = "phase 2", key: str = "ln_quant_rows") -> None:
+    """Phase 2: ln_quant_rows at D = 512, 768 and 1024 (L = 257, 258, 258),
+    two rows a warp, batch 8 and 128 (``widths``, ``batches``), dynamic and
+    static (the asset's mid-block post-LN scale), against its first form,
+    equal to the bit; at batch 128 (``timed``) both timed 20 calls back to
+    back through the C entry (its host time is a fraction of the pass)
     beside the bound (bf16 read once, int8 and the row scales written
     once)."""
     from duodiff_tpu_torch.ops import gemm
@@ -1581,8 +1642,8 @@ def check_ln_quant(device) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     inv = static_inv(load_int8_scales(INT8_SCALES)["mid_block"], device)
     record = {}
-    for width in (CELEBA, IMAGENET, IMAGENET256):
-        for batch in (CHECK_BATCH, MAIN_BATCH):
+    for width in widths:
+        for batch in batches:
             x, norm, *_ = block_modules(batch, False, seed=batch, width=width)
             x = x.reshape(-1, width.d).to(device)
             gamma = norm.weight.detach().float().to(device)
@@ -1594,9 +1655,9 @@ def check_ln_quant(device) -> None:
                 torch.cuda.synchronize()
                 same = torch.equal(new[0], first[0]) and (
                     v is not None or torch.equal(new[1], first[1]))
-                line = (f"phase 2: ln_quant_rows D={width.d} M={m} {mode}: codes and row "
+                line = (f"{phase}: ln_quant_rows D={width.d} M={m} {mode}: codes and row "
                         f"scales equal to the first form's to the bit: {same}")
-                if batch == MAIN_BATCH:
+                if batch == timed:
                     x8 = torch.empty((m, width.d), dtype=torch.int8, device=device)
                     rs = torch.empty((m,), dtype=torch.float32, device=device)
                     args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), x8.data_ptr(),
@@ -1614,7 +1675,7 @@ def check_ln_quant(device) -> None:
                 print(line, flush=True)
                 if not same:
                     fail(f"ln_quant_rows D={width.d} M={m} {mode} differs from its first form")
-    print(json.dumps({"ln_quant_rows": record}), flush=True)
+    print(json.dumps({key: record}), flush=True)
 
 
 # lengths at which a 16-row query tile, a 16-key step and the 272-key limit
@@ -1775,7 +1836,8 @@ def workspace_bytes(lib, width: Width, batch: int) -> dict:
     place of the flags), K8 cutting the hidden width (split_slices_bytes)."""
     m, d = batch * width.l, width.d
     hid = 4 * d
-    now = {"K6": lib.duodiff_attn_sublayer_bwd_workspace(batch, width.l, d, width.heads),
+    now = {"K6": lib.duodiff_attn_sublayer_bwd_workspace(batch, width.l, d, width.heads,
+                                                         width.dh),
            "K7": lib.duodiff_mlp_sublayer_bwd_workspace(m, d, hid),
            "K8": lib.duodiff_mlp_sublayer_bwd_split_workspace(m, d, hid, MAIN_SPLITS)}
     flags = {"K6": max(lib.duodiff_gemm_t_flag_bytes(d, 3 * d), lib.duodiff_gemm_t_flag_bytes(d, d)),
@@ -2016,7 +2078,7 @@ def report_attention_cores() -> None:
     attention cores: registers a thread and spills of each kernel (ptxas),
     warps a block, dynamic shared memory and resident blocks an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at both main lengths."""
-    from duodiff_tpu_torch.ops._build import kernel_resources, load_library
+    from duodiff_tpu_torch.ops._build import kernel_resources
 
     names = {"attn_core_kernelILb0": "forward core", "attn_core_kernelILb1": "forward core, "
              "normalise first", "attn_bwd_q_kernel": "backward core, row launch",
@@ -2031,36 +2093,58 @@ def report_attention_cores() -> None:
             tiles = re.search(r"SeqClassILi(\d+)", rec["entry"])
             if tiles:
                 what += f", up to {8 * int(tiles.group(1))} keys"
+            # and for each head width (HeadDim<Dh>)
+            width = re.search(r"HeadDimILi(\d+)", rec["entry"])
+            if width:
+                what += f", head width {width.group(1)}"
             print(f"phase 2: {what} ({unit}.cu): {rec['registers']} registers a thread, "
                   f"spill stores {rec['spill_stores']} B, spill loads {rec['spill_loads']} B, "
                   f"stack {rec['stack']} B", flush=True)
+    report_core_occupancy(64, (CELEBA.l, IMAGENET.l), "phase 2")
+
+
+def report_core_occupancy(dh: int, lengths, phase: str) -> None:
+    """What the runtime says of the attention cores at head width dh and each
+    length: warps a block, dynamic shared memory and resident blocks an SM;
+    fails under eight warps an SM or where the library does not take the
+    length."""
+    from duodiff_tpu_torch.ops._build import load_library
+
     lib = load_library()
-    for l in (CELEBA.l, IMAGENET.l):
-        fwd = (lib.duodiff_attn_core_warps(), lib.duodiff_attn_core_smem_bytes(l),
-               lib.duodiff_attn_core_blocks_per_sm(l))
-        row, key = ((lib.duodiff_attn_bwd_core_warps(k), lib.duodiff_attn_bwd_core_smem_bytes(l, k),
-                     lib.duodiff_attn_bwd_core_blocks_per_sm(l, k)) for k in (0, 1))
-        print(f"phase 2: L={l}: forward core {fwd[0]} warps a block, {fwd[1]} B of shared "
-              f"memory, {fwd[2]} blocks an SM; backward row launch {row[0]} warps, {row[1]} B, "
-              f"{row[2]} blocks an SM; backward key launch {key[0]} warps, {key[1]} B, "
+    limits = (lib.duodiff_attn_core_max_len(dh), lib.duodiff_attn_bwd_core_max_len(dh))
+    print(f"{phase}: head width {dh}: the forward core takes L <= {limits[0]}, the backward "
+          f"core L <= {limits[1]}", flush=True)
+    for l in lengths:
+        if l > min(limits):
+            fail(f"the attention cores do not take L={l} at head width {dh}")
+        fwd = (lib.duodiff_attn_core_warps(), lib.duodiff_attn_core_smem_bytes(l, dh),
+               lib.duodiff_attn_core_blocks_per_sm(l, dh))
+        row, key = ((lib.duodiff_attn_bwd_core_warps(k),
+                     lib.duodiff_attn_bwd_core_smem_bytes(l, k, dh),
+                     lib.duodiff_attn_bwd_core_blocks_per_sm(l, k, dh)) for k in (0, 1))
+        print(f"{phase}: L={l} Dh={dh}: forward core {fwd[0]} warps a block, {fwd[1]} B of "
+              f"shared memory, {fwd[2]} blocks an SM; backward row launch {row[0]} warps, "
+              f"{row[1]} B, {row[2]} blocks an SM; backward key launch {key[0]} warps, {key[1]} B, "
               f"{key[2]} blocks an SM", flush=True)
         if min(fwd[0] * fwd[2], row[0] * row[2], key[0] * key[2]) < 8:
-            fail(f"an attention core holds fewer than eight warps an SM at L={l}")
+            fail(f"an attention core holds fewer than eight warps an SM at L={l}, Dh={dh}")
 
 
-def check_ragged_attention(device, results: dict) -> None:
+def check_ragged_attention(device, results: dict, dh: int = 64, phase: str = "phase 2") -> None:
     """Phase 2, ragged lengths, untimed, at batch 8: K9 and K10 against their
     plain versions at RAGGED_LENGTHS with the bounds of
     check_attention_kernels (K10 also equal to the bit on a repeat call),
     and the per-head sublayer K1-v1, whose core normalises before the value
-    product, against its plain version at NORM_FIRST_LENGTHS."""
+    product, against its plain version at NORM_FIRST_LENGTHS; all at head
+    width ``dh`` (K1-v1 at CelebA's D = 512 and 8 heads for 64, at D = 144
+    and 2 heads otherwise)."""
     from duodiff_tpu_torch.ops import block
     from duodiff_tpu_torch.ops import flash_attention as fa
 
     b, h = CHECK_BATCH, 2
     for l in RAGGED_LENGTHS:
         g = torch.Generator().manual_seed(1000 + l)
-        q, k, v, do = (torch.randn((b, h, l, 64), generator=g).to(torch.bfloat16).to(device)
+        q, k, v, do = (torch.randn((b, h, l, dh), generator=g).to(torch.bfloat16).to(device)
                        for _ in range(4))
         max_abs, limit, rel, ok = scaled_errors(fa.flash_attention(q, k, v),
                                                 fa.flash_attention_plain(q, k, v),
@@ -2075,19 +2159,20 @@ def check_ragged_attention(device, results: dict) -> None:
         rels = {n: 0.0 if torch.equal(a, w) else rel_fro(a, w)
                 for n, a, w in zip(("dq", "dk", "dv"), got, want)}
         bwd_ok = same and max(rels.values()) <= BWD_REL_FRO
-        print(f"phase 2: ragged B={b} H={h} L={l}: flash_attention max_abs_err={max_abs:.6g} "
+        print(f"{phase}: ragged B={b} H={h} L={l} Dh={dh}: flash_attention "
+              f"max_abs_err={max_abs:.6g} "
               f"(bound {limit:.6g}) rel_fro_err={rel:.6g} (bound {FWD_REL_FRO}) ok={ok}; "
               f"flash_attention_bwd rel_fro_err "
               f"{', '.join(f'{n}={x:.3g}' for n, x in rels.items())} (bound {BWD_REL_FRO}) "
               f"repeat_equal={same} ok={bwd_ok}", flush=True)
         if not (ok and bwd_ok):
-            fail(f"K9 or K10 disagrees with its plain version at L={l}")
+            fail(f"K9 or K10 disagrees with its plain version at L={l}, Dh={dh}")
         res = results["flash_attention"]
         res["max_abs_err"] = max(res.get("max_abs_err", 0.0), max_abs)
         res = results["flash_attention_bwd"]
         res["max_rel_fro_err"] = max(res.get("max_rel_fro_err", 0.0), max(rels.values()))
     for l in NORM_FIRST_LENGTHS:
-        width = Width(l, CELEBA.d, CELEBA.heads)
+        width = Width(l, CELEBA.d, CELEBA.heads) if dh == 64 else Width(l, 2 * dh, 2)
         x, norm, qkv, proj, _, _ = block_modules(b, True, width=width)
         x = x.to(device)
         v1 = to_device(block.pack_attn_v1(norm, qkv, proj, dtype=torch.bfloat16), device)
@@ -2095,13 +2180,81 @@ def check_ragged_attention(device, results: dict) -> None:
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(got, block.attn_sublayer_v1_plain(x, *v1,
                                                                         num_heads=width.heads))
-        print(f"phase 2: ragged fused_attn_sublayer_v1 D={width.d} L={l} B={b}: "
+        print(f"{phase}: ragged fused_attn_sublayer_v1 D={width.d} L={l} B={b} Dh={dh}: "
               f"max_abs_err={max_abs:.6g} max_rel_err={max_rel:.6g} "
               f"bound={ATOL}+{RTOL}*|plain| ok={ok}", flush=True)
         if not ok:
-            fail(f"K1-v1 disagrees with its plain version at L={l}")
+            fail(f"K1-v1 disagrees with its plain version at L={l}, Dh={dh}")
         res = results["fused_attn_sublayer_v1"]
         res["max_abs_err"] = max(res.get("max_abs_err", 0.0), max_abs)
+
+
+# phase 21: U-ViT-H/2 (github.com/baofff/U-ViT, configs/imagenet256_uvit_huge.py):
+# latent ImageNet-256, 32 x 32 x 4 latents in patches of 2, time + label tokens,
+# D = 1152, 16 heads of 72, hidden 4608
+UVIT_H = Width(258, 1152, 16)
+UVIT_H_BATCH = 32          # 21a's sublayer kernels and K9 / K10; 21e's training batch
+UVIT_H_SUFFIX = "_uvit_h"
+
+
+def check_uvit_h_kernels(device, results: dict) -> None:
+    """Phase 21a: every kernel of the sampling and training paths at U-ViT-H
+    widths against its plain version on the card, with phase 2's gates: the
+    cores' limits and occupancy at head width 72; K1, K2, K6, K7, K1-v1, K5,
+    K8 (MAIN_SPLITS chunks), K11 (with and without a qkv bias) and K12
+    (dynamic and static, erf and tanh, held as a whole as phase 2 holds
+    them at D = 1024 and batch 128) at batch 32 and L = 258, timed; the
+    LayerNorm + quant pass at D = 1152 (one row a warp) equal to its first
+    form (the LayerNorm backward runs inside K6, K7 and K8); K9 and K10 at
+    (32, 16, 258, 72) beside the library's call and K15's bf16 form, which
+    shares K9's core; K9, K10 and K1-v1 at the ragged lengths; the two GEMMs
+    alone (time_uvit_h_gemms). The times are kept under UVIT_H_SUFFIX; each
+    kernel's bound and scratch printed."""
+    from duodiff_tpu_torch.ops import sdpa_int8
+    from duodiff_tpu_torch.ops._build import load_library
+
+    phase, w, b, sfx = "phase 21a", UVIT_H, UVIT_H_BATCH, UVIT_H_SUFFIX
+    report_core_occupancy(w.dh, (w.l, 272), phase)
+    check_kernels(device, results, w, variants=(False,), suffix=sfx, batches=(b,), timed=b,
+                  phase=phase)
+    check_int8_kernels(device, results, w, batches=(b,), suffix=sfx, whole_batches=(b,),
+                       phase=phase)
+    check_bwd_kernels(device, results, w, variants=(False,), suffix=sfx, batches=(b,), timed=b,
+                      phase=phase)
+    check_block_kernels(device, results, w, suffix=sfx, batches=(b,), timed=b, phase=phase,
+                        whole=True)
+    check_split_kernel(device, results, w, variants=(False,), suffix=sfx, batches=(b,), timed=b,
+                       splits_held=(MAIN_SPLITS,), phase=phase)
+    check_ln_quant(device, widths=(w,), batches=(b,), timed=b, phase=phase,
+                   key="ln_quant_rows" + sfx)
+    shape = (b, w.heads, w.l)
+    check_attention_kernels(device, results, shapes=(shape,), main_shape=shape, dh=w.dh,
+                            suffix=sfx, phase=phase)
+    check_ragged_attention(device, results, dh=w.dh, phase=phase)
+    time_uvit_h_gemms(device)
+    g = torch.Generator().manual_seed(21)
+    q, k, v = (torch.randn((b, w.heads, w.l, w.dh), generator=g).to(torch.bfloat16).to(device)
+               for _ in range(3))
+    max_abs, limit, rel, ok = scaled_errors(sdpa_int8.sdpa_chain_bf16(q, k, v),
+                                            sdpa_int8.sdpa_chain_bf16_plain(q, k, v),
+                                            KERNEL_MAX_FRAC)
+    print(f"{phase}: sdpa_chain_bf16 B={b} H={w.heads} L={w.l} Dh={w.dh}: max_abs_err="
+          f"{max_abs:.6g} (bound {limit:.6g}) rel_fro_err={rel:.6g} (bound {FWD_REL_FRO}) "
+          f"ok={ok}", flush=True)
+    if not ok:
+        fail("K15's bf16 form disagrees with its plain version at head width 72")
+    bounds = kernel_bounds(w, b, attention_shape=shape, dh=w.dh)
+    ws = workspace_bytes(load_library(), w, b)
+    for name, res in results.items():
+        if "ms" + sfx in res:
+            res["bound_ms" + sfx] = bounds[name]["bound_ms"]
+            print(f"{phase}: {name} at U-ViT-H widths, batch {b}: {res['ms' + sfx]:.6g} ms, "
+                  f"plain {res['plain_ms' + sfx]:.6g} ms, bound {bounds[name]['bound_ms']:.6g} "
+                  f"ms (by {bounds[name]['bound_by']})"
+                  + (f", library {res['library_ms' + sfx]:.6g} ms" if "library_ms" + sfx in res
+                     else ""), flush=True)
+    print(f"{phase}: scratch at D={w.d} L={w.l} B={b}: " + "; ".join(
+        f"{k} {v['now'] / 2**20:.6g} MiB" for k, v in ws.items()), flush=True)
 
 
 def check_probe_kernels(device, results: dict) -> None:
@@ -2260,15 +2413,16 @@ def bound(flops: float, int8_ops: float, nbytes: float) -> dict:
 
 
 def kernel_bounds(width: Width = CELEBA, batch: int = MAIN_BATCH,
-                  attention_shape=ATTENTION_SHAPES[1], chain_shape=ATTENTION_SHAPES[2]) -> dict:
+                  attention_shape=ATTENTION_SHAPES[1], chain_shape=ATTENTION_SHAPES[2],
+                  dh: int = 64) -> dict:
     """bound_ms / bound_by of each kernel at the shapes its main path gives
     it: every input read once and every output written once (activations
     bf16, weights bf16 or int8, weight gradients fp32) against the
-    operations of its matrix products."""
+    operations of its matrix products; K9 and K10 at head width ``dh``."""
     l, d, _ = width
     rows, act = batch * l, batch * l * d * 2  # one (B, L, D) bf16 tensor
     bh, la = attention_shape[0] * attention_shape[1], attention_shape[2]
-    head = bh * la * 64 * 2  # one (B, H, L, 64) bf16 tensor
+    head = bh * la * dh * 2  # one (B, H, L, Dh) bf16 tensor
     ch, lc = chain_shape[0] * chain_shape[1], chain_shape[2]  # K15, the probe's (B, H, L)
     chain_ops, chain_bytes = 4 * ch * lc * lc * 64, 4 * ch * lc * 64 * 2
     return {
@@ -2285,8 +2439,8 @@ def kernel_bounds(width: Width = CELEBA, batch: int = MAIN_BATCH,
         "fused_block": bound(rows * (24 * d * d + 4 * l * d), 0, 2 * act + 24 * d * d),
         "fused_mlp_sublayer_bwd_split": bound(rows * 40 * d * d, 0,
                                               3 * act + 16 * d * d + 32 * d * d),
-        "flash_attention": bound(4 * bh * la * la * 64, 0, 4 * head),
-        "flash_attention_bwd": bound(10 * bh * la * la * 64, 0, 7 * head),
+        "flash_attention": bound(4 * bh * la * la * dh, 0, 4 * head),
+        "flash_attention_bwd": bound(10 * bh * la * la * dh, 0, 7 * head),
         # K13 and K14 compute K12's and K11's functions (no biases to speak of)
         "probe_mlp_int8": bound(0, rows * 16 * d * d, 2 * act + 8 * d * d),
         "probe_attn_int8": bound(rows * 4 * l * d, rows * 8 * d * d, 2 * act + 4 * d * d),
@@ -2718,14 +2872,14 @@ def profile_sampling_steps(device, card: str, int8: bool) -> list:
 
 
 def train_argv(work: str, exp: str, n_steps: int, *extra, config: str = TRAIN_CONFIG,
-               dataset: str = "cifar10") -> list:
+               dataset: str = "cifar10", batch: int = TRAIN_BATCH) -> list:
     return ["--config_path", config, "--dataset", dataset, "--data_path", f"{work}/data",
             "--log_path", f"{work}/logs", "--exp_name", exp, "--n_steps", str(n_steps),
-            "--batch_size", str(TRAIN_BATCH), "--use_amp", "--num_warmup_steps",
+            "--batch_size", str(batch), "--use_amp", "--num_warmup_steps",
             str(WARMUP_STEPS), "--device", "cuda", "--seed", "0", *extra]
 
 
-def run_train_cli(label: str, argv: list, card: str, expected: dict):
+def run_train_cli(label: str, argv: list, card: str, expected: dict, batch: int = TRAIN_BATCH):
     """One in-process run of the training CLI with every launch counter set
     to 0 just before and read just after; checks finite losses and the
     counts. Returns (trainer, launches)."""
@@ -2742,7 +2896,7 @@ def run_train_cli(label: str, argv: list, card: str, expected: dict):
     steps = logs[-1]["step"] - trainer.start_step
     steady = (f"{logs[-1]['steps_per_sec']:.6g} steps/s over steps {logs[-2]['step'] + 1}-"
               f"{logs[-1]['step']}, " if len(logs) > 1 else "")
-    print(f"{label}: {steps} steps at batch {TRAIN_BATCH}, losses "
+    print(f"{label}: {steps} steps at batch {batch}, losses "
           f"{[(log['step'], round(log['train_loss'], 6)) for log in logs]}, {steady}"
           f"CLI wall {wall:.6g} s ({steps / wall:.6g} steps/s, set-up included), "
           f"launches {launches} (expected {expected}), card {card}", flush=True)
@@ -3076,12 +3230,14 @@ def run_imagenet_training(card: str) -> tuple:
 
     def argv(work, exp, n_steps, impl):
         return train_argv(work, exp, n_steps, "--attn_impl", impl, "--label_dropout",
-                          str(LABEL_DROPOUT), config=IMAGENET_CONFIG, dataset="imagenet64")
+                          str(LABEL_DROPOUT), config=write_depth_copy(IMAGENET_CONFIG, CUT_DEPTH,
+                                                                      work),
+                          dataset="imagenet64")
 
     with tempfile.TemporaryDirectory() as work:
         write_palette_imagenet64_cache(Path(work) / "data", seed=0)
         floor = release_memory()
-        n = 17 * IMAGENET_TRAIN_STEPS
+        n = CUT_DEPTH * IMAGENET_TRAIN_STEPS
         trainer, launches = run_train_cli(
             "phase 7: train uvit_imagenet64.yaml, attn_impl pallas",
             argv(work, "pallas", IMAGENET_TRAIN_STEPS, "pallas"), card,
@@ -3095,7 +3251,7 @@ def run_imagenet_training(card: str) -> tuple:
         profile_train_step(trainer, card, "phase 7 (pallas)")
         del trainer
         floor = release_memory()
-        n = 17 * IMAGENET_FUSED_STEPS
+        n = CUT_DEPTH * IMAGENET_FUSED_STEPS
         trainer, _ = run_train_cli(
             "phase 7: train uvit_imagenet64.yaml, attn_impl fused",
             argv(work, "fused", IMAGENET_FUSED_STEPS, "fused"), card,
@@ -3322,14 +3478,15 @@ def run_split_training(card: str, fused_peak) -> dict:
 
     def argv(work, exp, n_steps, *extra):
         return train_argv(work, exp, n_steps, "--attn_impl", "fused", "--label_dropout",
-                          str(LABEL_DROPOUT), *extra, config=IMAGENET_CONFIG,
+                          str(LABEL_DROPOUT), *extra,
+                          config=write_depth_copy(IMAGENET_CONFIG, CUT_DEPTH, work),
                           dataset="imagenet64")
 
     def run(label, args, steps, forwards=1):
         floor = release_memory()
         print(f"phase 8{label.split(':')[0]}: {floor:.6g} GiB of device memory held before the "
               "run", flush=True)
-        n = 17 * steps
+        n = CUT_DEPTH * steps
         expected = {k: n for k in FUSED_KERNELS_SPLIT}
         expected["fused_attn_sublayer"] = expected["fused_mlp_sublayer"] = n * forwards
         trainer, launches = run_train_cli(f"phase 8{label}", args, card, expected)
@@ -4332,8 +4489,12 @@ LATENT_CONFIG = str(REPO / "configs/uvit_imagenet256.yaml")         # depth 21, 
 LATENT_EARLY_CONFIG = str(REPO / "configs/uvit_imagenet256_3.yaml")
 LATENT_EE_CONFIG = str(REPO / "configs/deediff_imagenet256.yaml")
 LATENT_CACHE_SCHEDULE = str(REPO / "assets/cache_schedule_imagenet256.json")  # 70 anchors
-LATENT_DEPTH = 21
-LATENT_N_OUTER = 4         # the default for depth 21, ceil((21 // 2) / 3), and the asset's
+# the deep models of phase 13 (uvit_imagenet256.yaml and deediff_imagenet256.yaml,
+# 21 blocks) at full width cut to LATENT_DEPTH (the config copies), for the
+# smoke's time, as CUT_DEPTH in phases 7, 8, 16, 18; phase 21 runs a deeper
+# latent model, U-ViT-H/2's 29 blocks
+LATENT_DEPTH = 9
+LATENT_N_OUTER = -(-(LATENT_DEPTH // 2) // 3)  # the CLI's default, ceil((depth // 2) / 3)
 LATENT_BATCH = 16          # 13b (guided: 32 rows a forward), 13d, 13e's sampling
 LATENT_INT8_BATCH = 32     # 13c, the README's cached int8 operating point
 LATENT_EE_STEPS = 100
@@ -4355,7 +4516,8 @@ AE_REL_FRO = 5e-2
 def write_latent_files(work: str) -> dict:
     """A random autoencoder ``.pth`` under the reference's names (seed 0, the
     default configuration) and copies of the three ImageNet-256 configs that
-    point at it, in ``work``. Returns their paths by role."""
+    point at it, in ``work``, the deep two cut to LATENT_DEPTH blocks.
+    Returns their paths by role."""
     from duodiff_tpu_torch.config import AutoencoderConfig
     from duodiff_tpu_torch.models.autoencoder import init_autoencoder
 
@@ -4366,6 +4528,8 @@ def write_latent_files(work: str) -> dict:
                       ("ee", LATENT_EE_CONFIG)):
         text = re.sub(r"(autoencoder_checkpoint_path:).*",
                       lambda m: f"{m.group(1)} {files['autoencoder']}", Path(src).read_text())
+        if role != "early":
+            text = re.sub(r"(?m)^(\s*depth:).*", lambda m: f"{m.group(1)} {LATENT_DEPTH}", text)
         files[role] = f"{work}/{Path(src).name}"
         Path(files[role]).write_text(text)
     return files
@@ -4461,7 +4625,7 @@ def profile_latent_train_step(trainer, card: str) -> None:
 def run_latent(device, card: str) -> dict:
     """Phase 13: latent ImageNet-256 at D = 1024 with a random autoencoder
     written under the reference's names: (a) the gates; (b) the sampling
-    CLI's guided DuoDiff run (depth 3 for 300 steps, then depth 21), batch 16,
+    CLI's guided DuoDiff run (depth 3 for 75 of 250 steps, then LATENT_DEPTH), batch 16,
     decoded; (c) the cached int8 operating point on the asset's 70 anchors,
     batch 32, decoded; (d) ``eesample``'s dynamic rule on the DeeDiff model,
     100 steps, batch 16, decoded; (e) the training CLI with the encode, batch
@@ -4571,6 +4735,256 @@ def run_latent(device, card: str) -> dict:
     return runs
 
 
+UVIT_H_DEPTH = 29
+UVIT_H_SAMPLE_BATCH = 16      # 21b, 21c, 21d: guided, so every forward at 32
+UVIT_H_INT8_STEPS = 50        # 21c
+UVIT_H_PALLAS_STEPS, UVIT_H_PALLAS_SWITCH = 20, 6   # 21d
+UVIT_H_TRAIN_STEPS = 40       # 21e fused, as 13e
+UVIT_H_PALLAS_TRAIN_STEPS = 4  # 21e pallas
+UVIT_H_CACHE_IMAGES = 64
+
+
+def time_uvit_h_gemms(device) -> None:
+    """Phase 21a, the two GEMMs of the sublayers alone at U-ViT-H's
+    projections, batch 32 (M = 8,256 rows), through ops/gemm.py: the bf16
+    GEMM (qkv with its bias, proj and fc2 with the residual, fc1 with exact
+    GELU) and the int8 GEMM (qkv, proj with row scales; fc1's tanh GELU
+    quantized to codes, fc2 static), each against its plain version with
+    phase 2's bounds, then 20 calls back to back beside ``torch.matmul`` /
+    ``torch._int_mm`` on the same operands (no epilogue; the port never
+    calls them), TFLOP/s (TOP/s) and the bound; one JSON line."""
+    from duodiff_tpu_torch.ops import gemm
+
+    d, m = UVIT_H.d, UVIT_H_BATCH * UVIT_H.l
+    record = {}
+    for i, (name, n, k, epi) in enumerate((("qkv", 3 * d, d, "bias"), ("proj", d, d, "residual"),
+                                           ("fc1", 4 * d, d, "gelu"), ("fc2", d, 4 * d, "residual"))):
+        res_dtype = torch.bfloat16 if epi == "residual" else None
+        act = "erf" if epi == "gelu" else "none"
+        a, b, bias, res = gemm_operands(m, n, k, device, res_dtype, seed=i)
+        fns = {"kernel": lambda: gemm.gemm_bf16(a, b, bias, res, gelu=act),
+               "plain": lambda: gemm.gemm_bf16_plain(a, b, bias, res, gelu=act),
+               "library": lambda: torch.matmul(a, b)}
+        max_abs, worst, ok = gemm_errors(fns["kernel"](), fns["plain"]())
+        if not ok:
+            fail(f"gemm_bf16 {name} at U-ViT-H widths M={m} disagrees with its plain version")
+        burst = {key: burst_ms(fn) for key, fn in fns.items()}
+        flops = 2.0 * m * n * k
+        bnd = bound(flops, 0, 2 * (m * k + k * n + m * n) + 4 * n
+                    + (0 if res is None else 2 * m * n))["bound_ms"]
+        record[f"bf16 {name}"] = {"M": m, "N": n, "K": k, "burst_ms": burst["kernel"],
+                                  "plain_burst_ms": burst["plain"],
+                                  "library_burst_ms": burst["library"], "bound_ms": bnd,
+                                  "max_abs_err": max_abs}
+        print(f"phase 21a: gemm_bf16 {name} M={m} N={n} K={k} {epi}: max_abs_err={max_abs:.6g} "
+              f"ok={ok}; back to back {burst['kernel']:.6g} ms "
+              f"({flops / (burst['kernel'] * 1e-3) / 1e12:.1f} TFLOP/s), plain "
+              f"{burst['plain']:.6g} ms, torch.matmul {burst['library']:.6g} ms, bound {bnd:.6g} ms",
+              flush=True)
+    for i, (name, n, k, epi, rows, act) in enumerate((
+            ("qkv", 3 * d, d, "bias", True, "none"), ("proj", d, d, "residual", True, "none"),
+            ("fc1", 4 * d, d, "gelu_quant", False, "tanh"),
+            ("fc2", d, 4 * d, "residual", False, "none"))):
+        a8, b8, col, row, bias, res, inv = gemm_int8_operands(m, n, k, device, epi, rows, seed=i)
+        b8_t = b8.t()
+        fns = {"kernel": lambda: gemm.gemm_int8(a8, b8, col, row, bias, res, inv, epilogue=epi,
+                                                gelu=act),
+               "plain": lambda: gemm.gemm_int8_plain(a8, b8, col, row, bias, res, inv,
+                                                     epilogue=epi, gelu=act),
+               "library": lambda: torch._int_mm(a8, b8_t)}
+        got = fns["kernel"]()
+        max_abs, worst, ok = gemm_int8_errors(got, fns["plain"]())
+        if not ok:
+            fail(f"gemm_int8 {name} at U-ViT-H widths M={m} disagrees with its plain version")
+        burst = {key: burst_ms(fn) for key, fn in fns.items()}
+        int8_ops = 2.0 * m * n * k
+        nbytes = (m * k + n * k + m * n * got.element_size() + 8 * n
+                  + (0 if row is None else 4 * m) + (0 if res is None else 2 * m * n))
+        bnd = bound(0, int8_ops, nbytes)["bound_ms"]
+        record[f"int8 {name}"] = {"M": m, "N": n, "K": k, "burst_ms": burst["kernel"],
+                                  "plain_burst_ms": burst["plain"],
+                                  "library_burst_ms": burst["library"], "bound_ms": bnd,
+                                  "max_abs_err": max_abs}
+        print(f"phase 21a: gemm_int8 {name} M={m} N={n} K={k} {epi} row_scales={rows} "
+              f"gelu={act}: max_abs_err={max_abs:.6g} ok={ok}; back to back "
+              f"{burst['kernel']:.6g} ms ({int8_ops / (burst['kernel'] * 1e-3) / 1e12:.1f} "
+              f"TOP/s), plain {burst['plain']:.6g} ms, torch._int_mm {burst['library']:.6g} ms, "
+              f"bound {bnd:.6g} ms", flush=True)
+    print(json.dumps({"gemm_uvit_h": record}), flush=True)
+
+
+def check_uvit_h_model(device, files: dict) -> None:
+    """Phase 21a, the model: the depth-29 U-ViT-H/2 (random weights, seed
+    1, bf16) at batch 8, its forward under ``fused`` against ``plain`` and
+    under ``pallas`` against ``pallas_plain``, held as phase 3 holds the
+    depth-17 ImageNet-64 forward; then the training gradients of every
+    parameter, fused (K6, K7) against plain and pallas (K10) against
+    pallas_plain, each within BWD_REL_FRO."""
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.training.train_state import make_train_step
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    model, cfg = load_model(files["late"], device=device, seed=1, attn_impl="plain")
+    model.pack_for_kernels()
+    g = torch.Generator().manual_seed(21)
+    shape = (CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    x = torch.randn(shape, generator=g).to(device)
+    y = torch.randint(0, cfg.num_classes - 1, (CHECK_BATCH,), generator=g).to(device)
+    t = torch.tensor([999.0, 700.0, 500.0, 300.0, 100.0, 10.0, 1.0, 0.0], device=device)
+    pairs = (("fused", "plain"), ("pallas", "pallas_plain"))
+
+    def forward(impl):
+        set_attn_impl(model, impl)
+        with torch.inference_mode():
+            return model.eval()(x, t, y)
+
+    for impl, ref in pairs:
+        max_abs, limit, rel, ok = scaled_errors(forward(impl), forward(ref), MODEL_MAX_FRAC,
+                                                MODEL_REL_FRO)
+        print(f"phase 21a: depth-{cfg.depth} U-ViT-H/2 forward (D={cfg.embed_dim}, "
+              f"{cfg.num_heads} heads of {cfg.embed_dim // cfg.num_heads}) B={CHECK_BATCH} {impl} "
+              f"vs {ref}: rel_fro_err={rel:.6g} (bound {MODEL_REL_FRO}) max_abs_err={max_abs:.6g} "
+              f"(bound {limit:.6g} = {MODEL_MAX_FRAC}*max|plain|) ok={ok}", flush=True)
+        if not ok:
+            fail(f"the U-ViT-H/2 forward through {impl} disagrees with {ref}")
+
+    step = make_train_step(model, NoiseSchedule.create(device=device),
+                           parametrization="predict_noise", seed=0, has_labels=True)
+    batch = {"image": (torch.rand(shape, generator=g) * 2 - 1).to(device), "label": y}
+    draws = step.draws(batch, 1)
+    names = [n for n, _ in model.named_parameters()]
+
+    def gradients(impl):
+        set_attn_impl(model, impl)
+        model.train()
+        metrics, grads = step.backward(batch, *draws)
+        return metrics["train_loss"].item(), [t.clone() for t in grads]
+
+    for impl, ref in pairs:
+        (loss, got), (ref_loss, want) = gradients(impl), gradients(ref)
+        rels = {n: rel_fro(a, b) for n, a, b in zip(names, got, want)}
+        worst = max(rels, key=rels.get)
+        ok = rels[worst] <= BWD_REL_FRO
+        print(f"phase 21a: depth-{cfg.depth} U-ViT-H/2 training gradients B={CHECK_BATCH} {impl} "
+              f"vs {ref}, {len(names)} parameters: loss {loss:.6g} vs {ref_loss:.6g}, worst "
+              f"rel_fro_err={rels[worst]:.6g} ({worst}), median "
+              f"{statistics.median(rels.values()):.6g} (bound {BWD_REL_FRO}) ok={ok}", flush=True)
+        if not ok:
+            fail(f"the U-ViT-H/2 gradients through {impl} disagree with {ref}")
+    for p in model.parameters():
+        p.grad = None
+
+
+def write_uvit_h_files(work: str) -> dict:
+    """A random autoencoder ``.pth`` under the reference's names (seed 0, the
+    default configuration, as phase 13's) and the U-ViT-H/2 pair's config
+    files, written from ``config.UVIT_H2_IMAGENET256`` at depth 3 and 29
+    into ``work``. Returns their paths by role."""
+    from duodiff_tpu_torch.config import UVIT_H2_IMAGENET256, AutoencoderConfig, write_config
+    from duodiff_tpu_torch.models.autoencoder import init_autoencoder
+
+    ae = init_autoencoder(AutoencoderConfig(), generator=torch.Generator().manual_seed(0))
+    files = {"autoencoder": f"{work}/autoencoder_kl.pth"}
+    torch.save(ae.state_dict(), files["autoencoder"])
+    for role, depth in (("early", 3), ("late", UVIT_H_DEPTH)):
+        files[role] = write_config(f"{work}/uvit_h2_{depth}.yaml",
+                                   dict(UVIT_H2_IMAGENET256, depth=depth), files["autoencoder"])
+    return files
+
+
+def run_uvit_h(device, card: str, results: dict) -> dict:
+    """Phase 21: U-ViT-H/2 (D = 1152, 16 heads of 72, L = 258) at full width:
+    (a) every kernel at these widths against its plain version
+    (check_uvit_h_kernels) and the depth-29 model's forward and gradients
+    through them against plain (check_uvit_h_model); through the normal CLIs, random weights from a
+    seed and a random autoencoder: (b) guided DuoDiff, depth 3 for
+    GUIDED_SWITCH of GUIDED_STEPS steps then depth 29, batch 16, decoded; (c)
+    ``--attn_impl fused_int8`` with dynamic scales, guided, 50 steps on the
+    depth-29 model, decoded; (d) ``--attn_impl pallas`` (K9 at head width
+    72), the guided pair over 20 steps, decoded; (e) the training CLI on a
+    synthetic 256 x 256 cache, every batch encoded, bf16, batch 32: fused (K1,
+    K2, K6, K7), the loss falling as 13e's must, then ``pallas`` (K9, K10),
+    the loss finite; each run's peak memory and steady step time beside the
+    card. Every sampling run replays step graphs and every training run train
+    step graphs, as the CLIs do; the launch counts are exact. Returns the
+    launches of each run."""
+    from duodiff_tpu_torch.data.synthetic import write_palette_imagenet256_cache
+
+    check_uvit_h_kernels(device, results)
+    runs, d, b = {}, UVIT_H_DEPTH, UVIT_H_SAMPLE_BATCH
+    guided = ["--class_id", "-1", "--guidance_scale", str(GUIDANCE_SCALE)]
+    with tempfile.TemporaryDirectory() as work:
+        files = write_uvit_h_files(work)
+        check_uvit_h_model(device, files)
+        release_memory()
+        pair = (files["early"], files["late"])
+
+        def decoded(batch):
+            return lambda folder, _: check_latent_files(batch, folder)
+
+        n = GUIDED_SWITCH * 3 + (GUIDED_STEPS - GUIDED_SWITCH) * d
+        runs["21b"] = run_cli(
+            f"phase 21b: guided DuoDiff {GUIDED_STEPS} steps, U-ViT-H/2 (depth 3 x {GUIDED_SWITCH}, "
+            f"depth {d} x {GUIDED_STEPS - GUIDED_SWITCH}), w={GUIDANCE_SCALE}, forwards at batch "
+            f"{2 * b}, decoded to {LATENT_IMAGE}x{LATENT_IMAGE},", guided, card,
+            {"fused_attn_sublayer": n, "fused_mlp_sublayer": n}, configs=pair, batch=b,
+            image_size=LATENT_IMAGE, check_output=decoded(b), steps=GUIDED_STEPS,
+            t_switch=GUIDED_SWITCH)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"phase 21b: peak memory {peak:.6g} GiB; card {card}", flush=True)
+        release_memory()
+
+        n = UVIT_H_INT8_STEPS * d
+        runs["21c"] = run_cli(
+            f"phase 21c: U-ViT-H/2 depth {d}, fused_int8 with dynamic scales, guided, "
+            f"{UVIT_H_INT8_STEPS} steps, decoded,", ["--attn_impl", "fused_int8", *guided], card,
+            {"fused_attn_sublayer_int8": n, "fused_mlp_sublayer_int8": n,
+             "fused_mlp_sublayer_int8 dynamic": n}, configs=(files["late"],), batch=b,
+            t_switch=None, image_size=LATENT_IMAGE, check_output=decoded(b),
+            steps=UVIT_H_INT8_STEPS)
+        release_memory()
+
+        s, ts = UVIT_H_PALLAS_STEPS, UVIT_H_PALLAS_SWITCH
+        n = ts * 3 + (s - ts) * d
+        runs["21d"] = run_cli(
+            f"phase 21d: guided DuoDiff {s} steps, U-ViT-H/2 (depth 3 x {ts}, depth {d} x "
+            f"{s - ts}), attn_impl pallas (K9 at head width 72), decoded,",
+            ["--attn_impl", "pallas", *guided], card, {"flash_attention": n}, configs=pair,
+            batch=b, image_size=LATENT_IMAGE, check_output=decoded(b), steps=s, t_switch=ts)
+        release_memory()
+
+        write_palette_imagenet256_cache(Path(work) / "data", n=UVIT_H_CACHE_IMAGES, seed=0,
+                                        size=LATENT_IMAGE)
+        for impl, steps, kernels in (
+                ("fused", UVIT_H_TRAIN_STEPS, ("fused_attn_sublayer", "fused_mlp_sublayer",
+                                               "fused_attn_sublayer_bwd",
+                                               "fused_mlp_sublayer_bwd")),
+                ("pallas", UVIT_H_PALLAS_TRAIN_STEPS, ("flash_attention", "flash_attention_bwd"))):
+            floor = release_memory()
+            trainer, runs[f"21e {impl}"] = run_train_cli(
+                f"phase 21e: train U-ViT-H/2 (depth {d}) on the synthetic ImageNet-256 cache, "
+                f"encoded, attn_impl {impl}",
+                train_argv(work, impl, steps, "--attn_impl", impl, "--label_dropout",
+                           str(LABEL_DROPOUT), config=files["late"], dataset="imagenet256",
+                           batch=UVIT_H_BATCH), card,
+                {k: d * steps for k in kernels}, batch=UVIT_H_BATCH)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            logs = trainer.logs
+            first, last = logs[0]["train_loss"], logs[-1]["train_loss"]
+            rate = logs[-1]["steps_per_sec"]
+            print(f"phase 21e: {impl}: loss {first:.6g} -> {last:.6g}; steady {1e3 / rate:.6g} ms "
+                  f"a step (steps {logs[-2]['step'] + 1}-{logs[-1]['step']}, encode included); "
+                  f"peak memory {peak:.6g} GiB ({floor:.6g} GiB held before the run); card {card}",
+                  flush=True)
+            if impl == "fused" and not last < LATENT_LOSS_DROP * first:
+                fail(f"phase 21e: the train loss did not fall clearly: {first:.6g} -> {last:.6g}")
+            del trainer
+        release_memory()
+    print(json.dumps({"phase21_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}), flush=True)
+    return runs
+
+
 # phase 14: evaluation and the quality tools
 EVAL_CONFIG = TRAIN_CONFIG                # configs/uvit_cifar10.yaml: D 512, depth 13, L 257
 EVAL_SHALLOW_CONFIG = STUDENT_CONFIG      # configs/uvit_cifar10_3.yaml, random: the sweep's
@@ -4674,8 +5088,6 @@ def check_extractor(device, card: str) -> None:
     pytorch-fid-named ``.pth`` of those weights (with a classifier head,
     under ``state_dict``) loaded by ``load_inception``, equal to the bit;
     ``extract_features`` timed at batch 128."""
-    import contextlib
-
     from duodiff_tpu_torch.evaluation.fid import extract_features
     from duodiff_tpu_torch.evaluation.metrics import random_inception
     from duodiff_tpu_torch.models import inception
@@ -4823,12 +5235,11 @@ def run_probe(card: str, work: str) -> tuple:
 
 def run_quality_matrix(card: str, work: str, probe: dict) -> dict:
     """14c: ``quality_matrix`` samples the probe's checkpoint with each knob
-    of QM_METHODS at batch 64 (each row's launches held exactly), and
-    ``score_quality`` scores QM_SCORED against the ddpm row (ref_n 512).
-    Returns the launches of each run."""
+    of QM_METHODS at batch 64 (each row's launches held exactly). Returns
+    the launches of the run."""
     from duodiff_tpu_torch.diffusion.sampling import ddim_pairs, dpm_solver_tables
     from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
-    from duodiff_tpu_torch.tools import quality_matrix, score_quality
+    from duodiff_tpu_torch.tools import quality_matrix
 
     runs = {}
     transitions = len(dpm_solver_tables(NoiseSchedule.create(steps=QM_STEPS), 20)["phi"])
@@ -4853,7 +5264,20 @@ def run_quality_matrix(card: str, work: str, probe: dict) -> dict:
         if "refused" in rows[name]:
             fail(f"phase 14c: the port refused the {name} row: {rows[name]['refused']}")
         check_row_counts(f"phase 14c: quality_matrix row {name}", rows[name]["launches"], want)
-    table, _ = run_counted(
+    return runs
+
+
+def score_quality_child(card: str, work: str) -> None:
+    """14c's ``score_quality`` of QM_SCORED against the ddpm row (ref_n 512)
+    on the card, in a process of its own (:func:`run_evaluation`): its 2048^2
+    square roots (in worker processes of one BLAS thread each, as in this
+    script's process) hold the host's cores while this script's process
+    runs 14d on the card. Prints the table, holds every score finite and
+    no counted launch, and writes the launches to
+    ``work/score_launches.json``."""
+    from duodiff_tpu_torch.tools import score_quality
+
+    table, launches = run_counted(
         f"phase 14c: score_quality of {','.join(QM_SCORED)} against ddpm, palette k=4, ref_n "
         f"{EVAL_REF_N}", score_quality.main,
         ["--out", f"{work}/qm", "--methods", ",".join(QM_SCORED), "--ref_n", str(EVAL_REF_N),
@@ -4871,17 +5295,17 @@ def run_quality_matrix(card: str, work: str, probe: dict) -> dict:
     if not all(np.isfinite(v) for v in numbers):
         fail("phase 14c: a quality score is not finite")
     print(json.dumps({"phase14_quality": table["rows"]}), flush=True)
-    return runs
+    Path(f"{work}/score_launches.json").write_text(json.dumps(launches))
 
 
 def run_eval_tools(device, card: str, work: str, probe: dict) -> dict:
     """14d: the ``fid`` CLI on random-init weights (real statistics of the
-    probe's data saved), ``t_switch_sweep`` on the 14c backbone and a random
-    depth-3 shallow model, ``probe_cache_gamma`` on a PARITY_STEPS-step drift
+    probe's data saved), ``probe_cache_gamma`` on a PARITY_STEPS-step drift
     curve (every (1000 // PARITY_STEPS)-th step of the committed DuoDiff
-    schedule's), and ``trajectory_parity`` over every row at PARITY_STEPS
-    steps, batch 16, with a schedule derived from that curve; every row's
-    launches held exactly."""
+    schedule's), ``trajectory_parity`` over every row at PARITY_STEPS steps,
+    batch 16, with a schedule derived from that curve, and ``t_switch_sweep``
+    on the 14c backbone and a random depth-3 shallow model, whose square
+    roots come last; every row's launches held exactly."""
     from duodiff_tpu_torch import fid
     from duodiff_tpu_torch.diffusion.cache_schedule import (
         derive_anchor_table,
@@ -4903,19 +5327,6 @@ def run_eval_tools(device, card: str, work: str, probe: dict) -> dict:
          "--batch_size", str(EVAL_BATCH), "--device", "cuda"], card, {})
     if not np.isfinite(value):
         fail(f"phase 14d: the fid CLI gave {value}")
-
-    n = 2 * (SWEEP_STEPS * 13 + SWEEP_SWITCH * 3 + (SWEEP_STEPS - SWEEP_SWITCH) * 13)
-    sweep, runs["14d sweep"] = run_counted(
-        f"phase 14d: t_switch_sweep 0 / {SWEEP_SWITCH} over {SWEEP_STEPS} steps, the trained "
-        f"backbone and a random depth-3 model, batch {SWEEP_BATCH}", t_switch_sweep.main,
-        ["--config_path", EVAL_SHALLOW_CONFIG, "--config_path_late", EVAL_CONFIG,
-         "--checkpoint_path_late", probe["checkpoint"], "--real_stats", stats,
-         "--inception_weights", "random-init", "--t_switch", "0", str(SWEEP_SWITCH),
-         "--n_samples", str(SWEEP_BATCH), "--batch_size", str(SWEEP_BATCH),
-         "--num_timesteps", str(SWEEP_STEPS), "--device", "cuda"], card, bf16_blocks(n))
-    print(f"phase 14d: sweep {json.dumps(sweep)}", flush=True)
-    if not all(np.isfinite(r["fid"]) for r in sweep["results"]):
-        fail("phase 14d: a sweep FID is not finite")
 
     drift = np.asarray(json.loads(Path(CACHE_SCHEDULE).read_text())["meta"]["drift"])
     drift = drift[::len(drift) // PARITY_STEPS][:PARITY_STEPS]
@@ -4980,23 +5391,61 @@ def run_eval_tools(device, card: str, work: str, probe: dict) -> dict:
                      [parity["baseline_launches"]]
                      + [r["launches"] for r in parity["rows"].values()])
     print(f"phase 14d: trajectory_parity {json.dumps(parity['rows'])}", flush=True)
+
+    n = 2 * (SWEEP_STEPS * 13 + SWEEP_SWITCH * 3 + (SWEEP_STEPS - SWEEP_SWITCH) * 13)
+    sweep, runs["14d sweep"] = run_counted(
+        f"phase 14d: t_switch_sweep 0 / {SWEEP_SWITCH} over {SWEEP_STEPS} steps, the trained "
+        f"backbone and a random depth-3 model, batch {SWEEP_BATCH}", t_switch_sweep.main,
+        ["--config_path", EVAL_SHALLOW_CONFIG, "--config_path_late", EVAL_CONFIG,
+         "--checkpoint_path_late", probe["checkpoint"], "--real_stats", stats,
+         "--inception_weights", "random-init", "--t_switch", "0", str(SWEEP_SWITCH),
+         "--n_samples", str(SWEEP_BATCH), "--batch_size", str(SWEEP_BATCH),
+         "--num_timesteps", str(SWEEP_STEPS), "--device", "cuda"], card, bf16_blocks(n))
+    print(f"phase 14d: sweep {json.dumps(sweep)}", flush=True)
+    if not all(np.isfinite(r["fid"]) for r in sweep["results"]):
+        fail("phase 14d: a sweep FID is not finite")
     return runs
+
+
+@contextlib.contextmanager
+def joined(proc):
+    """The started process ``proc``, joined at the end of the block; if the
+    block raises, stopped first, so that no child outlives this process's
+    failure or writes into the directory it leaves."""
+    try:
+        yield proc
+        proc.join()
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
 
 
 def run_evaluation(device, card: str) -> dict:
     """Phase 14: evaluation and the quality tools. Returns the launches of
     each run."""
+    import multiprocessing
+
     tic = time.perf_counter()
     check_extractor(device, card)
     with tempfile.TemporaryDirectory() as work:
-        floor = start_fd_rand(card)  # 14b on the host while the probe trains on the card
-        runs, probe = run_probe(card, work)
-        floor.join()
+        # 14b on the host while the probe trains on the card
+        with joined(start_fd_rand(card)) as floor:
+            runs, probe = run_probe(card, work)
         if floor.exitcode != 0:
             fail(f"phase 14b: its process exited with {floor.exitcode}")
         runs.update(run_quality_matrix(card, work, probe))
         release_memory()
-        runs.update(run_eval_tools(device, card, work, probe))
+        # 14c's scores, whose square roots hold the host, in a process of its
+        # own (spawned: it makes its own CUDA context) beside 14d on the card
+        score = multiprocessing.get_context("spawn").Process(
+            target=score_quality_child, args=(card, work))
+        score.start()
+        with joined(score):
+            runs.update(run_eval_tools(device, card, work, probe))
+        if score.exitcode != 0:
+            fail(f"phase 14c: score_quality's process exited with {score.exitcode}")
+        runs["14c score_quality"] = json.loads(Path(f"{work}/score_launches.json").read_text())
     release_memory()
     print(f"phase 14: {time.perf_counter() - tic:.6g} s", flush=True)
     print(json.dumps({"phase14_launches": {
@@ -5423,7 +5872,8 @@ TP_WORLD = 2               # ranks on the one card, over gloo
 TP_TRAIN_STEPS = 10        # 16b, 16c: enough for the loss to fall at lr 1e-3
 TP_LR, TP_WARMUP = "1e-3", "5"
 TP_FORWARD_BATCH = 8       # 16b: the run's own forward against the checkpoint's
-TP_SAMPLE_STEPS, TP_SAMPLE_SWITCH = 10, 3   # 16d: DuoDiff, depth 3 for 3 steps, then 13
+TP_SAMPLE_STEPS, TP_SAMPLE_SWITCH = 10, 3   # 16d: DuoDiff, depth 3 for 3 steps, then CUT_DEPTH
+
 TP_TIMEOUT = 600           # seconds a torchrun launch may take
 # 16a: K9 / K10 on a rank's heads: ImageNet-64's 12 heads over 2 and 4 ranks
 HEAD_SHARDS = ((6, "_h6"), (3, "_h3"))
@@ -5716,7 +6166,7 @@ def forward_input():
 def check_grid_training(label: str, records: list, shard: bool, card: str) -> list:
     """16b / 16c: the per-rank launches, the loss falling, and for the
     tensor-parallel run the profiled step's split. Returns rank 0's logs."""
-    check_rank_counts(label, records, "train", train_blocks(13 * TP_TRAIN_STEPS, shard))
+    check_rank_counts(label, records, "train", train_blocks(CUT_DEPTH * TP_TRAIN_STEPS, shard))
     rec = records[0]["train"]
     logs = rec["logs"]
     first, last = logs[0]["train_loss"], logs[-1]["train_loss"]
@@ -5800,11 +6250,22 @@ def check_against_one(label: str, got: np.ndarray, want: np.ndarray) -> None:
         fail(f"{label}: the grid's samples disagree with the one-process run's")
 
 
+def write_depth_copy(config: str, depth: int, work: str) -> str:
+    """A copy of the config file ``config`` in ``work`` with ``depth`` blocks
+    and everything else as it is; returns its path."""
+    text = re.sub(r"(?m)^(\s*depth:).*", lambda m: f"{m.group(1)} {depth}",
+                  Path(config).read_text())
+    path = f"{work}/{Path(config).stem}_depth{depth}.yaml"
+    Path(path).write_text(text)
+    return path
+
+
 def run_parallel_grids(device, card: str, work: str) -> dict:
     """16b-g: one torchrun launch of two ranks on the one card, whose ranks
     run, in one process group: the training CLI on ``uvit_cifar10.yaml``
     (batch 128, bf16, fused, synthetic CIFAR-10 data) and then sampling of
-    the ``uvit_celeba_3.yaml`` -> ``uvit_celeba.yaml`` DuoDiff pair (DDPM
+    the ``uvit_celeba_3.yaml`` -> ``uvit_celeba.yaml`` DuoDiff pair (the
+    deep models, here and in 16f, at CUT_DEPTH blocks; DDPM
     over TP_SAMPLE_STEPS steps, batch 128), first tensor-parallel
     (--model_parallel 2: 16b, 16d tp), then data-parallel (16c, 16d dp);
     then the same training with --fsdp over the two data ranks (16e); the
@@ -5824,18 +6285,20 @@ def run_parallel_grids(device, card: str, work: str) -> dict:
 
     write_palette_cifar(f"{work}/data", seed=0)
     write_palette_imagenet64_cache(f"{work}/data64", seed=0)
-    n = 3 * TP_SAMPLE_SWITCH + 13 * (TP_SAMPLE_STEPS - TP_SAMPLE_SWITCH)
-    sample_argv = ["--config_path", EARLY_CONFIG, "--config_path_late", LATE_CONFIG,
+    train_config, late_config, imagenet_config = (
+        write_depth_copy(c, CUT_DEPTH, work) for c in (TRAIN_CONFIG, LATE_CONFIG, IMAGENET_CONFIG))
+    n = 3 * TP_SAMPLE_SWITCH + CUT_DEPTH * (TP_SAMPLE_STEPS - TP_SAMPLE_SWITCH)
+    sample_argv = ["--config_path", EARLY_CONFIG, "--config_path_late", late_config,
                    "--t_switch", str(TP_SAMPLE_SWITCH), "--random_init", "--num_timesteps",
                    str(TP_SAMPLE_STEPS), "--batch_size", str(MAIN_BATCH), "--parametrization",
                    "predict_noise", "--device", "cuda", "--seed", "0", "--attn_impl", "fused"]
     g_batch, g_steps, g_switch = UNFUSED_TP_SAMPLE
-    guided_argv = ["--config_path", IMAGENET_EARLY_CONFIG, "--config_path_late", IMAGENET_CONFIG,
+    guided_argv = ["--config_path", IMAGENET_EARLY_CONFIG, "--config_path_late", imagenet_config,
                    "--t_switch", str(g_switch), "--random_init", "--num_timesteps", str(g_steps),
                    "--batch_size", str(g_batch), "--parametrization", "predict_noise", "--device",
                    "cuda", "--seed", "0", "--attn_impl", "pallas", "--class_id", "-1",
                    "--guidance_scale", str(GUIDANCE_SCALE)]
-    n_guided = 3 * g_switch + 17 * (g_steps - g_switch)
+    n_guided = 3 * g_switch + CUT_DEPTH * (g_steps - g_switch)
     # the dynamic rule at a threshold below every probe: no exit, so the
     # samples are the backbone's, while every head (its decoder sharded) and
     # probe runs and the exit is decided on the summed probe outputs each step
@@ -5854,7 +6317,7 @@ def run_parallel_grids(device, card: str, work: str) -> dict:
     release_memory()
     runs, logs, jobs = {}, {}, []
     grids = (("tp", ["--model_parallel", "2"], True), ("dp", [], False))
-    cifar = ["--config_path", TRAIN_CONFIG, "--dataset", "cifar10", "--data_path", f"{work}/data",
+    cifar = ["--config_path", train_config, "--dataset", "cifar10", "--data_path", f"{work}/data",
              "--log_path", f"{work}/logs", "--n_steps", str(TP_TRAIN_STEPS), "--batch_size",
              str(TRAIN_BATCH), "--use_amp", "--attn_impl", "fused", "--lr", TP_LR,
              "--num_warmup_steps", TP_WARMUP, "--device", "cuda"]
@@ -5869,7 +6332,7 @@ def run_parallel_grids(device, card: str, work: str) -> dict:
                                                   "--fsdp_min_size", str(FSDP_MIN_SIZE)],
                  "count_step": True})
     jobs.append({"out": f"{work}/unfused_tp", "forward": False, "profile": False,
-                 "train": ["--config_path", IMAGENET_CONFIG, "--dataset", "imagenet64",
+                 "train": ["--config_path", imagenet_config, "--dataset", "imagenet64",
                            "--data_path", f"{work}/data64", "--log_path", f"{work}/logs",
                            "--exp_name", "unfused_tp", "--n_steps", str(UNFUSED_TP_STEPS),
                            "--batch_size", str(UNFUSED_TP_BATCH), "--use_amp", "--attn_impl",
@@ -5907,12 +6370,13 @@ def run_parallel_grids(device, card: str, work: str) -> dict:
     logs["fsdp"] = check_grid_training("phase 16e: train --fsdp", fsdp_records, False, card)
     runs["16e"] = fsdp_records[0]["train"]["launches"]
     check_fsdp(fsdp_records, every[1], logs, card)
-    s = UNFUSED_TP_STEPS * 17
+    s = UNFUSED_TP_STEPS * CUT_DEPTH
     runs["16f train"] = check_rank_counts("phase 16f: train --attn_impl pallas --model_parallel 2",
                                           unfused, "train",
                                           {"flash_attention": s, "flash_attention_bwd": s})
     first, last = (unfused[0]["train"]["logs"][i]["train_loss"] for i in (0, -1))
-    print(f"phase 16f: uvit_imagenet64.yaml, the unfused block on 6 of 12 heads a rank, batch "
+    print(f"phase 16f: uvit_imagenet64.yaml at depth {CUT_DEPTH}, the unfused block on 6 of 12 "
+          f"heads a rank, batch "
           f"{UNFUSED_TP_BATCH}: loss {first:.6g} -> {last:.6g} over {UNFUSED_TP_STEPS} steps, "
           f"{unfused[0]['train']['seconds']:.6g} s (set-up included), card {card}", flush=True)
     if not last < first:
@@ -5942,7 +6406,7 @@ def run_parallel_grids(device, card: str, work: str) -> dict:
     x, t = forward_input()
     for tag, grid in (("tp", "tensor-parallel"), ("dp", "data-parallel"), ("fsdp", "--fsdp")):
         ckpt = Path(f"{work}/logs/{tag}/cifar10_uvit_last/checkpoint.pth")
-        model, _ = load_model(TRAIN_CONFIG, str(ckpt), device=device, attn_impl="fused")
+        model, _ = load_model(train_config, str(ckpt), device=device, attn_impl="fused")
         model.eval().pack_for_kernels()
         with torch.no_grad():
             want = model(x.to(device), t.to(device)).float().cpu()
@@ -6310,11 +6774,12 @@ def pipeline_counts() -> list:
     T_SWITCH steps of every micro-batch, stage B the depth-13 one over the
     rest."""
     micro = MAIN_BATCH // PIPE_MICRO
-    return [bf16_blocks(micro * T_SWITCH * 3), bf16_blocks(micro * (STEPS - T_SWITCH) * 13)]
+    return [bf16_blocks(micro * T_SWITCH * 3),
+            bf16_blocks(micro * (STEPS - T_SWITCH) * CUT_DEPTH)]
 
 
-def grid_serve_argv(flags: list, steps: int) -> list:
-    return ["--config_path", SERVE_CONFIG, "--random_init", "--device", "cuda", "--port", "0",
+def grid_serve_argv(config: str, flags: list, steps: int) -> list:
+    return ["--config_path", config, "--random_init", "--device", "cuda", "--port", "0",
             "--num_timesteps", str(steps), "--no-warmup", *flags]
 
 
@@ -6328,8 +6793,8 @@ def grid_server_counts(tag: str, steps: int) -> dict:
     then the capture and a replay), which the counts read after it ends
     include; the bucket captures inside its first request."""
     if tag == "tp":
-        return shard_blocks(steps * 13)
-    return bf16_blocks((steps + 2 * (tag == "slots")) * 13)
+        return shard_blocks(steps * CUT_DEPTH)
+    return bf16_blocks((steps + 2 * (tag == "slots")) * CUT_DEPTH)
 
 
 def grid_client(jobs: dict, got: dict):
@@ -6362,13 +6827,13 @@ def grid_client(jobs: dict, got: dict):
     return client
 
 
-def one_process_server(tag: str, flags: list, steps: int) -> list:
+def one_process_server(tag: str, config: str, flags: list, steps: int) -> list:
     """The PNGs of the one-process server (this process, the card) for 18b's
     request: bucket 8 for the bucket and tensor-parallel servers, 8 slots for
     the slot server."""
     from duodiff_tpu_torch import serve
 
-    svc = serve.make_service(serve.get_args(grid_serve_argv(flags, steps)))
+    svc = serve.make_service(serve.get_args(grid_serve_argv(config, flags, steps)))
     try:
         tic = time.perf_counter()
         pngs = [serve.png_b64(im) for im in svc.sample(n=GRID_SLOTS, seed=SERVE_SEED)]
@@ -6471,14 +6936,16 @@ def run_grids(card: str) -> dict:
     runs = {}
     with tempfile.TemporaryDirectory() as work:
         pipe = f"{work}/pipeline"
-        pair = ["--config_path", EARLY_CONFIG, "--config_path_late", LATE_CONFIG, "--t_switch",
+        late = write_depth_copy(LATE_CONFIG, CUT_DEPTH, work)  # SERVE_CONFIG's too
+        pair = ["--config_path", EARLY_CONFIG, "--config_path_late", late, "--t_switch",
                 str(T_SWITCH), "--random_init", "--num_timesteps", str(STEPS), "--batch_size",
                 str(MAIN_BATCH), "--parametrization", "predict_noise", "--device", "cuda",
                 "--seed", "0", "--attn_impl", "fused"]
         reset_counts()
         one = sample.main([*pair, "--output_folder", f"{pipe}/one"])
-        check_counts(read_counts(), bf16_blocks(T_SWITCH * 3 + (STEPS - T_SWITCH) * 13))
-        want = {tag: one_process_server(tag, ref, steps) for tag, _, ref, steps in GRID_SERVERS}
+        check_counts(read_counts(), bf16_blocks(T_SWITCH * 3 + (STEPS - T_SWITCH) * CUT_DEPTH))
+        want = {tag: one_process_server(tag, late, ref, steps)
+                for tag, _, ref, steps in GRID_SERVERS}
         release_memory()
         jobs = [{"out": pipe, "device": "cuda",
                  "sample": [*pair, "--pipeline_parallel", "--pipeline_microbatch",
@@ -6488,7 +6955,7 @@ def run_grids(card: str) -> dict:
             served[tag] = f"{work}/{tag}"
             os.makedirs(served[tag])
             jobs.append({"out": served[tag], "device": "cuda",
-                         "serve": grid_serve_argv(flags, steps)})
+                         "serve": grid_serve_argv(late, flags, steps)})
         got = {}
         # one grid joins the process group, then one a job
         every = torchrun("phase 18", jobs, work, card, grids=1 + len(jobs),
@@ -6819,6 +7286,62 @@ def run_headline_turns(card: str) -> dict:
     return seconds
 
 
+def check_capture_under_collection(device) -> None:
+    """19h: a garbage collection inside a capture that frees an earlier
+    graph held in a reference cycle tears that graph down, a call which a
+    capturing stream forbids: the capture under way is spoilt. So a
+    :class:`StepGraph` captures with automatic collection paused. Here an
+    earlier run's step graph is left in a cycle, then a step body that makes
+    cycles enough to start the collector several times is captured and
+    replayed: the capture holds, the old graph outlives it, and the
+    replays give the eager steps' values."""
+    import weakref
+
+    from duodiff_tpu_torch.diffusion.graphs import StepGraph
+
+    x = torch.zeros(1 << 20, device=device)
+    earlier = StepGraph(lambda: x.add_(1), [x])
+    for _ in range(3):  # warm-up, capture, replay: x = 3
+        earlier()
+
+    gone, alive = (lambda: None), []  # the earlier graph's cycle, alive at each body's end
+
+    def body():
+        x.mul_(2)
+        for _ in range(20000):
+            cycle = []
+            cycle.append(cycle)
+        x.add_(1)
+        alive.append(gone() is not None)
+
+    graph = StepGraph(body, [x])
+    graph()  # the eager warm-up: x = 7
+
+    class Run:
+        def __init__(self, graph):
+            self.me = self  # freed by the collector alone
+            self.graph = graph
+
+    gc.collect()  # the count of new objects from 0: no collection before the capture
+    run = Run(earlier)
+    gone = weakref.ref(run)
+    del run, earlier
+    try:
+        for _ in range(2):  # capture and replay, replay: x = 15, 31
+            graph()
+    except RuntimeError as e:
+        fail(f"phase 19h: a capture that started the collector failed: {e}")
+    torch.cuda.synchronize()
+    gc.collect()
+    ok = alive == [False, True] and gone() is None and bool((x == 31).all())
+    print(f"phase 19h: a step graph captured while its body starts the collector, an earlier "
+          f"graph in a cycle: capture held, the cycle alive at the capture's end and collected "
+          f"after it ({alive[-1]}, {gone() is None}), replays equal to the eager steps "
+          f"({x[0].item():g} of 31) ok={ok}", flush=True)
+    if not ok:
+        fail("phase 19h: a collection inside a capture")
+
+
 def run_step_graphs(device, card: str) -> dict:
     """Phase 19: the samplers' step graphs against their eager loops at batch
     128 and full width, on the same seeds: (a) a 40-step DuoDiff window
@@ -6828,7 +7351,8 @@ def run_step_graphs(device, card: str) -> dict:
     attn_impl pallas, 10 steps (forwards at 128); (e) the 8-slot batcher,
     int8 cached on ``SERVE_CACHE_PATTERN``, 20 advances with a second wave
     admitted mid-flight; (f) early exit, 20 steps; (g) the headline through
-    the CLI, eager and graphed in turns."""
+    the CLI, eager and graphed in turns; (h) a capture that starts the
+    garbage collector (:func:`check_capture_under_collection`)."""
     from duodiff_tpu_torch.diffusion.cache_schedule import load_cache_schedule
     from duodiff_tpu_torch.diffusion.continuous import ContinuousDiffusionBatcher
     from duodiff_tpu_torch.diffusion.sampling import (
@@ -6859,6 +7383,7 @@ def run_step_graphs(device, card: str) -> dict:
                 rule, lambda x: torch.zeros((x.shape[0], tokens, cfg.embed_dim),
                                             dtype=model.dtype, device=x.device))
 
+    check_capture_under_collection(device)
     out = {}
     schedule = NoiseSchedule.create(steps=STEPS, device=device)
     shape = (MAIN_BATCH, 64, 64, 3)
@@ -7537,6 +8062,15 @@ def main(argv=None) -> int:
             for name, n in rec["launches"].items():
                 launches[name] = launches.get(name, 0) + n
                 results[name]["launches_20"] = results[name].get("launches_20", 0) + n
+    lap("21")
+    if "21" in run:
+        # U-ViT-H/2's launches are added to the records of K1, K2, K6, K7, K9,
+        # K10, K11 and K12, and kept apart
+        for counts in run_uvit_h(device, card, results).values():
+            for name, n in counts.items():
+                if n and name in kernels:
+                    launches[name] = launches.get(name, 0) + n
+                    results[name]["launches_21"] = results[name].get("launches_21", 0) + n
     lap("end")
     print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "
           "started", flush=True)

@@ -90,6 +90,32 @@ def flagship_config() -> UViTConfig:
     )
 
 
+# U-ViT-H/2 for latent ImageNet-256, the largest model of the U-ViT paper
+# (github.com/baofff/U-ViT, configs/imagenet256_uvit_huge.py): D = 1152, 16
+# heads of 72, hidden 4608, L = 256 patches + time and label tokens. Upstream's
+# depth=28 counts the blocks around the mid block; this package counts every
+# block (configs/uvit_imagenet256.yaml's 21 is upstream U-ViT-L/2's depth=20),
+# so 29 here. DuoDiff's shallow model is the same at depth 3. No file under
+# configs/ holds it: write_config writes one where it is wanted.
+UVIT_H2_IMAGENET256 = {
+    "img_size": 32, "patch_size": 2, "in_chans": 4, "embed_dim": 1152, "depth": 29,
+    "num_heads": 16, "mlp_ratio": 4, "qkv_bias": False, "mlp_time_embed": False,
+    "num_classes": 1001, "normalize_timesteps": False,
+}
+
+
+def write_config(path, model_params: dict, autoencoder_checkpoint_path=None) -> str:
+    """Write a config file of the flat blocks :func:`read_block` reads: a
+    ``model_params`` block and, for latent diffusion, an ``autoencoder``
+    block naming the checkpoint (the autoencoder's other fields take their
+    defaults). Returns the path as a string."""
+    lines = ["model_params:", *(f"  {k}: {v}" for k, v in model_params.items())]
+    if autoencoder_checkpoint_path is not None:
+        lines += ["", "autoencoder:", f"  autoencoder_checkpoint_path: {autoencoder_checkpoint_path}"]
+    Path(path).write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
 def _scalar(text: str):
     """One YAML scalar as the config files write it: bool, int, float, a
     quoted string, or else the plain string (a path)."""

@@ -50,6 +50,10 @@
 // (two exps, the dsp arithmetic and the roundings per score; exp is one
 // multiplication and one ex2.approx, attn_tiles.cuh) and for the eight or
 // nine warps an SM holds at this many registers a thread.
+// The head width Dh is a template argument (HeadDim in attn_tiles.cuh, 64
+// or 72); at 72 the products over Dh (s, dp) take one more m16n8k8 step
+// and the dq, dk and dv tiles one more 8-column accumulator tile, and the
+// row launch spills more (chip_smoke.py phase 2 prints ptxas's report).
 // Determinism: every sum runs in a fixed order inside one warp; no atomics.
 // L = 257 or 258 is ragged: keys past L are masked (e = 0), query rows past
 // L are zeros with e = 0 in the key launch, so they add nothing to dk and
@@ -62,21 +66,22 @@
 namespace duodiff {
 namespace {
 
-constexpr int kBwdDh = kHeadDim;       // head width the core takes
 constexpr int kBwdRowWarps = 4;        // 16 query rows each, per trip
 constexpr int kBwdRowBlocksPerSm = 2;  // what the row launch's register cap is set for
 constexpr int kBwdKeyWarps = 9;        // 16 keys each, per trip
 
 // Dynamic shared memory of attn_bwd_kv_kernel at sequence length L: four
 // staged heads and the statistics m and c.
-__host__ __device__ inline size_t attn_bwd_kv_smem_bytes(int L) {
+template <typename HD>
+inline size_t attn_bwd_kv_smem_bytes(int L) {
   const size_t lpad = (L + 15) / 16 * 16;
-  return 4 * lpad * kHeadRowBytes + 2 * lpad * sizeof(float);
+  return 4 * lpad * HD::kRowBytes + 2 * lpad * sizeof(float);
 }
 
 // Row statistics, the forward output o (unless o.p is null) and dq.
-// stats: m, r, c, each (B, H, L). Seq is the SeqClass of L (attn_tiles.cuh).
-template <typename Seq>
+// stats: m, r, c, each (B, H, L). Seq is the SeqClass of L, HD the
+// HeadDim (attn_tiles.cuh).
+template <typename Seq, typename HD>
 __global__ void __launch_bounds__(kBwdRowWarps * 32, kBwdRowBlocksPerSm)
 attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
                   HeadRows<const bf16> v_rows, HeadRows<const bf16> do_rows,
@@ -87,25 +92,25 @@ attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
   unsigned char* Ks = smem;
-  unsigned char* Vs = smem + Seq::kHeadBytes;
+  unsigned char* Vs = smem + head_bytes<Seq, HD>();
   const unsigned k_stage = static_cast<unsigned>(__cvta_generic_to_shared(Ks));
   const unsigned v_stage = static_cast<unsigned>(__cvta_generic_to_shared(Vs));
 
   const int b = blockIdx.z, h = blockIdx.y;
-  stage_head_async(Ks, k_rows.at(b, h), k_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
+  stage_head_async<HD>(Ks, k_rows.at(b, h), k_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
   cp_async_commit();
-  stage_head_async(Vs, v_rows.at(b, h), v_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
+  stage_head_async<HD>(Vs, v_rows.at(b, h), v_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
   cp_async_commit();
 
-  const unsigned v_off0 = v_stage + rows_offset(lane, 0), v_off1 = v_stage + rows_offset(lane, 4);
-  const unsigned toff = trans_offset(lane, 0);
+  const RowsAt v_at = rows_at<HD>(v_stage, lane);
+  const TransAt k_at = trans_at<HD>(lane);
   // every warp makes the same number of trips (the barriers of the first)
   const int tiles = (L + 15) / 16, per_trip = gridDim.x * kBwdRowWarps;
   const int trips = (tiles + per_trip - 1) / per_trip;
   for (int trip = 0; trip < trips; ++trip) {
     const int q0 = ((trip * gridDim.x + blockIdx.x) * kBwdRowWarps + warp) * 16;
     const bool active = q0 < L;
-    unsigned qa[4][4], da[4][4];
+    ARows<HD> qa, da;
     float e[kTiles][4];
     if (active) {
       load_a_rows(qa, q_rows.at(b, h), q_rows.row, q0, L, lane, scale);  // qsc = bf16(q * scale)
@@ -115,7 +120,7 @@ attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
       cp_async_wait<1>();  // K has landed, V is still in flight
       __syncthreads();
     }
-    if (active) score_tiles<kTiles>(e, qa, k_stage, lane);
+    if (active) score_tiles<kTiles, HD>(e, qa, k_stage, lane);
     if (trip == 0) {
       cp_async_wait<0>();
       __syncthreads();
@@ -127,9 +132,9 @@ attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
     const float r_lo = 1.f / sum_lo, r_hi = 1.f / sum_hi;
 
     if (o_out.p != nullptr) {  // the forward output bf16((bf16(e) v) * r), which K6 needs
-      float o[8][4];
-      value_tiles<kTiles>(o, e, v_stage, lane);
-      store_tile64(o_out.at(b, h), o_out.row, q0, L, lane, o, r_lo, r_hi);
+      float o[HD::kChunks][4];
+      value_tiles<kTiles, HD>(o, e, v_stage, lane);
+      store_tile<HD>(o_out.at(b, h), o_out.row, q0, L, lane, o, r_lo, r_hi);
     }
 
     // c = rowsum(dp * e) * r with dp = do v^T, 16 keys at a time
@@ -137,7 +142,7 @@ attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
 #pragma unroll
     for (int nt = 0; nt < kTiles; nt += 2) {
       float dp[2][4];
-      row_col_pair(dp, da, v_off0, v_off1, nt);
+      row_col_pair<HD>(dp, da, v_at, nt);
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         c_lo += dp[t][0] * e[nt + t][0] + dp[t][1] * e[nt + t][1];
@@ -153,12 +158,12 @@ attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
 
     // dsp = bf16(e * (dp - c)), 16 keys at a time, in place of e, and
     // dq += dsp k
-    float dq[8][4];
-    zero_tile64(dq);
+    float dq[HD::kChunks][4];
+    zero_tiles(dq);
 #pragma unroll
     for (int kk = 0; kk < kTiles / 2; ++kk) {
       float dp[2][4];
-      row_col_pair(dp, da, v_off0, v_off1, 2 * kk);
+      row_col_pair<HD>(dp, da, v_at, 2 * kk);
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         float(&et)[4] = e[2 * kk + t];
@@ -169,9 +174,9 @@ attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
       }
       unsigned a[4];
       pack_a(a, e, kk);
-      rows_product_step(dq, a, k_stage, toff, kk);
+      rows_product_step<HD>(dq, a, k_stage, k_at, kk);
     }
-    store_tile64(dq_out.at(b, h), dq_out.row, q0, L, lane, dq, r_lo * scale, r_hi * scale);
+    store_tile<HD>(dq_out.at(b, h), dq_out.row, q0, L, lane, dq, r_lo * scale, r_hi * scale);
 
     if (tg == 0) {
       const size_t bhl = static_cast<size_t>(gridDim.z) * H * L;
@@ -191,6 +196,7 @@ attn_bwd_q_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
 }
 
 // dk and dv of 16 keys a warp, summed over every query row.
+template <typename HD>
 __global__ void __launch_bounds__(kBwdKeyWarps * 32, 1)
 attn_bwd_kv_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
                    HeadRows<const bf16> v_rows, HeadRows<const bf16> do_rows,
@@ -198,7 +204,7 @@ attn_bwd_kv_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
                    HeadRows<bf16> dk_out, HeadRows<bf16> dv_out, int L, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lpad = (L + 15) / 16 * 16;
-  const size_t head_bytes = static_cast<size_t>(lpad) * kHeadRowBytes;
+  const size_t head_bytes = static_cast<size_t>(lpad) * HD::kRowBytes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
   unsigned char* QS = smem;                   // bf16(q * scale)
@@ -214,8 +220,8 @@ attn_bwd_kv_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
   const size_t bhl = static_cast<size_t>(gridDim.z) * H * L;
   const float* st_b = stats + (static_cast<size_t>(b) * H + h) * L;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = threadIdx.x; c < lpad * 8; c += blockDim.x) {
-    const int row = c >> 3, ch = c & 7;
+  for (int c = threadIdx.x; c < lpad * HD::kChunks; c += blockDim.x) {
+    const int row = c / HD::kChunks, ch = c % HD::kChunks;
     uint4 qv = zero, dov = zero;
     float r = 0.f;
     if (row < L) {
@@ -223,7 +229,7 @@ attn_bwd_kv_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
       dov = *reinterpret_cast<const uint4*>(dob + row * do_rows.row + ch * kVec);
       r = st_b[bhl + row];
     }
-    const unsigned at = staged_byte(row, ch);
+    const unsigned at = HD::staged_byte(row, ch);
     const uint4 qsc = scale8(qv, scale);
     *reinterpret_cast<uint4*>(QS + at) = qsc;
     *reinterpret_cast<uint4*>(QR + at) = scale8(qsc, r);
@@ -240,25 +246,25 @@ attn_bwd_kv_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
   const unsigned qr_base = static_cast<unsigned>(__cvta_generic_to_shared(QR));
   const unsigned dos_base = static_cast<unsigned>(__cvta_generic_to_shared(DOS));
   const unsigned dor_base = static_cast<unsigned>(__cvta_generic_to_shared(DOR));
-  const unsigned roff0 = rows_offset(lane, 0), roff1 = rows_offset(lane, 4);
-  const unsigned toff = trans_offset(lane, 0);
+  const RowsAt qs_at = rows_at<HD>(qs_base, lane), dos_at = rows_at<HD>(dos_base, lane);
+  const TransAt t_at = trans_at<HD>(lane);
 
   for (int kt = blockIdx.x * kBwdKeyWarps + warp; kt * 16 < L; kt += gridDim.x * kBwdKeyWarps) {
     const int key0 = kt * 16;
-    unsigned ka[4][4], va[4][4];
+    ARows<HD> ka, va;
     load_a_rows(ka, k_rows.at(b, h), k_rows.row, key0, L, lane, 1.f);
     load_a_rows(va, v_rows.at(b, h), v_rows.row, key0, L, lane, 1.f);
     const bool key_lo = key0 + g < L, key_hi = key0 + g + 8 < L;
-    float dk[8][4], dv[8][4];
-    zero_tile64(dk);
-    zero_tile64(dv);
+    float dk[HD::kChunks][4], dv[HD::kChunks][4];
+    zero_tiles(dk);
+    zero_tiles(dv);
 #pragma unroll 1
     for (int qt = 0; qt * 16 < lpad; ++qt) {
       // e^T and dsp^T of (16 keys x 16 queries), packed as A operands
       unsigned ea[4], dsa[4];
       float st2[2][4], dpt2[2][4];
-      row_col_pair(st2, ka, qs_base + roff0, qs_base + roff1, 2 * qt);
-      row_col_pair(dpt2, va, dos_base + roff0, dos_base + roff1, 2 * qt);
+      row_col_pair<HD>(st2, ka, qs_at, 2 * qt);
+      row_col_pair<HD>(dpt2, va, dos_at, 2 * qt);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float(&st)[4] = st2[j], (&dpt)[4] = dpt2[j];
@@ -277,91 +283,103 @@ attn_bwd_kv_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
       }
       // dv += bf16(e)^T bf16(do * r), dk += dsp^T bf16(qsc * r): the queries
       // are the reduction, so the staged rows are read transposed
-      rows_product_step(dv, ea, dor_base, toff, qt);
-      rows_product_step(dk, dsa, qr_base, toff, qt);
+      rows_product_step<HD>(dv, ea, dor_base, t_at, qt);
+      rows_product_step<HD>(dk, dsa, qr_base, t_at, qt);
     }
-    store_tile64(dk_out.at(b, h), dk_out.row, key0, L, lane, dk, 1.f, 1.f);
-    store_tile64(dv_out.at(b, h), dv_out.row, key0, L, lane, dv, 1.f, 1.f);
+    store_tile<HD>(dk_out.at(b, h), dk_out.row, key0, L, lane, dk, 1.f, 1.f);
+    store_tile<HD>(dv_out.at(b, h), dv_out.row, key0, L, lane, dv, 1.f, 1.f);
   }
 }
 
 // Dynamic shared memory of a block of the row launch (key false: K and V of
-// the head) or of the key launch (key true) at sequence length L, and the
-// blocks of it that one SM holds, as the runtime reckons them (0 on an
-// error).
-inline int attn_bwd_core_smem_bytes(int L, bool key) {
-  if (key) return static_cast<int>(attn_bwd_kv_smem_bytes(L));
-  return with_seq_class(L, [](auto seq) {
-    return static_cast<int>(2 * decltype(seq)::kHeadBytes);
+// the head) or of the key launch (key true) at sequence length L and head
+// width Dh, and the blocks of it that one SM holds, as the runtime reckons
+// them (0 on an error or a width the core does not take).
+inline int attn_bwd_core_smem_bytes(int L, bool key, int Dh) {
+  if (L < 1 || L > kMaxSeq) return 0;
+  return with_head_dim(Dh, 0, [&](auto hd) {
+    using HD = decltype(hd);
+    if (key) return static_cast<int>(attn_bwd_kv_smem_bytes<HD>(L));
+    return with_seq_class(L, [](auto seq) {
+      return static_cast<int>(2 * head_bytes<decltype(seq), HD>());
+    });
   });
 }
 
-inline int attn_bwd_core_blocks_per_sm(int L, bool key) {
-  const size_t smem = attn_bwd_core_smem_bytes(L, key);
-  int blocks = 0;
-  if (key) {
-    if (cudaFuncSetAttribute(attn_bwd_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_bwd_kv_kernel,
-                                                      kBwdKeyWarps * 32, smem) != cudaSuccess)
-      return 0;
-    return blocks;
-  }
-  return with_seq_class(L, [&](auto seq) {
-    using Seq = decltype(seq);
-    if (cudaFuncSetAttribute(attn_bwd_q_kernel<Seq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_bwd_q_kernel<Seq>,
-                                                      kBwdRowWarps * 32, smem) != cudaSuccess)
-      return 0;
-    return blocks;
+inline int attn_bwd_core_blocks_per_sm(int L, bool key, int Dh) {
+  const size_t smem = attn_bwd_core_smem_bytes(L, key, Dh);
+  if (smem == 0) return 0;
+  return with_head_dim(Dh, 0, [&](auto hd) {
+    using HD = decltype(hd);
+    int blocks = 0;
+    if (key) {
+      if (cudaFuncSetAttribute(attn_bwd_kv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem)) != cudaSuccess ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_bwd_kv_kernel<HD>,
+                                                        kBwdKeyWarps * 32, smem) != cudaSuccess)
+        return 0;
+      return blocks;
+    }
+    return with_seq_class(L, [&](auto seq) {
+      using Seq = decltype(seq);
+      if (cudaFuncSetAttribute(attn_bwd_q_kernel<Seq, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem)) != cudaSuccess ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_bwd_q_kernel<Seq, HD>,
+                                                        kBwdRowWarps * 32, smem) != cudaSuccess)
+        return 0;
+      return blocks;
+    });
   });
 }
 
 // dq, dk, dv (and the forward output o_out unless its p is null) from q, k,
-// v and dout; stats is scratch of 3 * B * H * L floats.
+// v and dout at head width Dh (64 or 72, anything else is refused); stats
+// is scratch of 3 * B * H * L floats.
 inline cudaError_t launch_attn_bwd_core(HeadRows<const bf16> q, HeadRows<const bf16> k,
                                         HeadRows<const bf16> v, HeadRows<const bf16> dout,
                                         HeadRows<bf16> o_out, HeadRows<bf16> dq,
                                         HeadRows<bf16> dk, HeadRows<bf16> dv, float* stats, int B,
-                                        int L, int H, float scale, cudaStream_t stream) {
+                                        int L, int H, int Dh, float scale, cudaStream_t stream) {
   if (L < 1 || L > kMaxSeq) return cudaErrorInvalidValue;
-  cudaError_t err = with_seq_class(L, [&](auto seq) {
-    using Seq = decltype(seq);
-    constexpr size_t smem = 2 * Seq::kHeadBytes;
-    cudaError_t e = cudaFuncSetAttribute(attn_bwd_q_kernel<Seq>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    const dim3 grid(head_splits(B * H, L, kBwdRowWarps, 2 * kSmCount * kBwdRowBlocksPerSm), H,
-                    B);
-    attn_bwd_q_kernel<Seq><<<grid, kBwdRowWarps * 32, smem, stream>>>(q, k, v, dout, o_out, dq,
-                                                                      stats, L, H, scale);
+  return with_head_dim(Dh, cudaErrorInvalidValue, [&](auto hd) {
+    using HD = decltype(hd);
+    cudaError_t err = with_seq_class(L, [&](auto seq) {
+      using Seq = decltype(seq);
+      constexpr size_t smem = 2 * head_bytes<Seq, HD>();
+      cudaError_t e = cudaFuncSetAttribute(attn_bwd_q_kernel<Seq, HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      const dim3 grid(head_splits(B * H, L, kBwdRowWarps, 2 * kSmCount * kBwdRowBlocksPerSm), H,
+                      B);
+      attn_bwd_q_kernel<Seq, HD><<<grid, kBwdRowWarps * 32, smem, stream>>>(
+          q, k, v, dout, o_out, dq, stats, L, H, scale);
+      return cudaGetLastError();
+    });
+    if (err != cudaSuccess) return err;
+    const size_t smem_kv = attn_bwd_kv_smem_bytes<HD>(L);
+    err = cudaFuncSetAttribute(attn_bwd_kv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_kv));
+    if (err != cudaSuccess) return err;
+    // one block a head (and an SM) when there is a head for every SM
+    const dim3 grid_kv(head_splits(B * H, L, kBwdKeyWarps, kSmCount), H, B);
+    attn_bwd_kv_kernel<HD><<<grid_kv, kBwdKeyWarps * 32, smem_kv, stream>>>(
+        q, k, v, dout, stats, dk, dv, L, H, scale);
     return cudaGetLastError();
   });
-  if (err != cudaSuccess) return err;
-  const size_t smem_kv = attn_bwd_kv_smem_bytes(L);
-  err = cudaFuncSetAttribute(attn_bwd_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_kv));
-  if (err != cudaSuccess) return err;
-  // one block a head (and an SM) when there is a head for every SM
-  const dim3 grid_kv(head_splits(B * H, L, kBwdKeyWarps, kSmCount), H, B);
-  attn_bwd_kv_kernel<<<grid_kv, kBwdKeyWarps * 32, smem_kv, stream>>>(q, k, v, dout, stats, dk,
-                                                                      dv, L, H, scale);
-  return cudaGetLastError();
 }
 
-// The core on a packed (B, L, 3A) qkv and dm (B, L, A): merged heads, and
-// dq, dk, dv into the packed dqkv.
+// The core on a packed (B, L, 3A) qkv and dm (B, L, A), A = H * Dh: merged
+// heads, and dq, dk, dv into the packed dqkv.
 inline cudaError_t launch_attn_bwd_core(const bf16* qkv, const bf16* dm, bf16* merged,
-                                        bf16* dqkv, float* stats, int B, int L, int H,
+                                        bf16* dqkv, float* stats, int B, int L, int H, int Dh,
                                         float scale, cudaStream_t stream) {
-  constexpr int Dh = kBwdDh;
   return launch_attn_bwd_core(
       packed_third(qkv, 0, L, H, Dh), packed_third(qkv, 1, L, H, Dh),
       packed_third(qkv, 2, L, H, Dh), merged_heads(dm, L, H, Dh), merged_heads(merged, L, H, Dh),
       packed_third(dqkv, 0, L, H, Dh), packed_third(dqkv, 1, L, H, Dh),
-      packed_third(dqkv, 2, L, H, Dh), stats, B, L, H, scale, stream);
+      packed_third(dqkv, 2, L, H, Dh), stats, B, L, H, Dh, scale, stream);
 }
 
 }  // namespace

@@ -13,13 +13,14 @@
 //
 // Bound: 4*L*L*Dh flops per (sample, head) against 8*L*Dh bytes of bf16 q,
 // k, v and output (L/2, ~128 flop/byte at L = 257, under the card's ~295
-// balance point): bytes at the roofline. What a kernel of this size pays
+// balance point): bytes at the roofline, at either head width. What a kernel of this size pays
 // for on the card is its instruction count (an exp, a max, a sum and a rounding
 // per score) and latency with few warps resident. The design keeps the
 // score rows out of shared memory and the instructions per score few:
 //   - a warp owns 16 query rows and ALL their keys: 34 accumulator tiles of
 //     mma.sync m16n8k16 = 136 fp32 registers a thread at L = 272 (the
-//     bound on L), plus 32 for the 16 x 64 output. The row max and the row
+//     bound on L), plus 32 for the 16 x 64 output (36 for 16 x 72, and q's
+//     A operand 18 registers instead of 16: the k8 step of Dh = 72). The row max and the row
 //     sum are exact two-pass reductions over those registers and the four
 //     lanes that share a row (shuffles), so the Pallas kernels' rounding
 //     points stay: no online rescaling. e is packed to bf16 in registers:
@@ -33,10 +34,13 @@
 //     one multiplication and one ex2.approx, and the division by the row
 //     sum one IEEE reciprocal a row and a multiplication;
 //   - shared memory holds only K and V of the head, 128 bytes a row in an
-//     XOR swizzle (no padding): 2 * 272 * 128 = 69,632 bytes at L = 257,
-//     so three blocks would fit an SM; the registers (all 255 a thread
-//     at L > 144, some 180 bytes of spills around q k^T, none in the
-//     softmax) allow kAttnBlocksPerSm = 2 blocks of kAttnWarps = 4 warps;
+//     XOR swizzle at Dh = 64, 144 bytes a row unswizzled at 72 (HeadDim in
+//     attn_tiles.cuh; neither is padded): 2 * 272 * 128 = 69,632 bytes at
+//     L = 257 and Dh = 64, 78,336 at Dh = 72, so three (two) blocks would
+//     fit an SM; the registers (all 255 a thread at L > 144, some 180 bytes
+//     of spills around q k^T at 64, none in the softmax) allow
+//     kAttnBlocksPerSm = 2 blocks of kAttnWarps = 4 warps, at both widths
+//     and up to L = 272 (chip_smoke.py phase 2 prints ptxas's spills at 72);
 //   - K and V arrive by cp.async in two groups: q k^T starts when K is
 //     there, V lands behind it. Q is read straight from device memory into
 //     the A registers (and scaled there);
@@ -60,14 +64,13 @@
 namespace duodiff {
 namespace {
 
-constexpr int kDh = kHeadDim;            // head width the core takes
 constexpr int kAttnWarps = 4;            // 16 query rows each, per trip
 constexpr int kAttnBlocksPerSm = 2;      // what the register cap is set for
 
 // scale: q is multiplied by it and rounded to bf16 (1: q comes pre-scaled);
 // with kNormFirst q stays as it is and the fp32 scores are multiplied by it.
-// Seq is the SeqClass of L (attn_tiles.cuh).
-template <bool kNormFirst, typename Seq>
+// Seq is the SeqClass of L, HD the HeadDim (attn_tiles.cuh).
+template <bool kNormFirst, typename Seq, typename HD>
 __global__ void __launch_bounds__(kAttnWarps * 32, kAttnBlocksPerSm)
 attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
                  HeadRows<const bf16> v_rows, HeadRows<bf16> out, int L, float scale) {
@@ -75,14 +78,14 @@ attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
   constexpr int kTiles = Seq::kTiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   unsigned char* Ks = smem;
-  unsigned char* Vs = smem + Seq::kHeadBytes;
+  unsigned char* Vs = smem + head_bytes<Seq, HD>();
   const unsigned k_stage = static_cast<unsigned>(__cvta_generic_to_shared(Ks));
   const unsigned v_stage = static_cast<unsigned>(__cvta_generic_to_shared(Vs));
 
   const int b = blockIdx.z, h = blockIdx.y;
-  stage_head_async(Ks, k_rows.at(b, h), k_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
+  stage_head_async<HD>(Ks, k_rows.at(b, h), k_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
   cp_async_commit();
-  stage_head_async(Vs, v_rows.at(b, h), v_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
+  stage_head_async<HD>(Vs, v_rows.at(b, h), v_rows.row, Seq::kKeys, L, threadIdx.x, blockDim.x);
   cp_async_commit();
 
   // every warp makes the same number of trips, so that the two barriers of
@@ -92,7 +95,7 @@ attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
   for (int trip = 0; trip < trips; ++trip) {
     const int q0 = ((trip * gridDim.x + blockIdx.x) * kAttnWarps + warp) * 16;
     const bool active = q0 < L;
-    unsigned qa[4][4];
+    ARows<HD> qa;
     float s[kTiles][4];
     if (active)
       load_a_rows(qa, q_rows.at(b, h), q_rows.row, q0, L, lane, kNormFirst ? 1.f : scale);
@@ -100,7 +103,7 @@ attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
       cp_async_wait<1>();  // K has landed, V is still in flight
       __syncthreads();
     }
-    if (active) score_tiles<kTiles>(s, qa, k_stage, lane);
+    if (active) score_tiles<kTiles, HD>(s, qa, k_stage, lane);
     if (trip == 0) {
       cp_async_wait<0>();
       __syncthreads();
@@ -129,70 +132,90 @@ attn_core_kernel(HeadRows<const bf16> q_rows, HeadRows<const bf16> k_rows,
         s[nt][3] *= r_hi;
       }
     }
-    float o[8][4];
-    value_tiles<kTiles>(o, s, v_stage, lane);
-    store_tile64(out.at(b, h), out.row, q0, L, lane, o, kNormFirst ? 1.f : r_lo,
-                 kNormFirst ? 1.f : r_hi);
+    float o[HD::kChunks][4];
+    value_tiles<kTiles, HD>(o, s, v_stage, lane);
+    store_tile<HD>(out.at(b, h), out.row, q0, L, lane, o, kNormFirst ? 1.f : r_lo,
+                   kNormFirst ? 1.f : r_hi);
   }
 }
 
+// Dynamic shared memory of a block of class Seq and width HD: K and V of
+// the head.
+template <typename Seq, typename HD>
+constexpr size_t attn_core_smem() {
+  return 2 * head_bytes<Seq, HD>();
+}
+
+// Head width Dh (64 or 72), L <= kMaxSeq; anything else is refused.
 template <bool kNormFirst>
 cudaError_t launch_attn_core_form(HeadRows<const bf16> q, HeadRows<const bf16> k,
                                   HeadRows<const bf16> v, HeadRows<bf16> out, int B, int L, int H,
-                                  float scale, cudaStream_t stream) {
+                                  int Dh, float scale, cudaStream_t stream) {
   if (L < 1 || L > kMaxSeq) return cudaErrorInvalidValue;
-  return with_seq_class(L, [&](auto seq) {
-    using Seq = decltype(seq);
-    constexpr size_t smem = 2 * Seq::kHeadBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_core_kernel<kNormFirst, Seq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    // one block a head when the heads alone fill the card twice over
-    const dim3 grid(head_splits(B * H, L, kAttnWarps, 2 * kSmCount * kAttnBlocksPerSm), H, B);
-    attn_core_kernel<kNormFirst, Seq><<<grid, kAttnWarps * 32, smem, stream>>>(q, k, v, out, L,
-                                                                              scale);
-    return cudaGetLastError();
+  return with_head_dim(Dh, cudaErrorInvalidValue, [&](auto hd) {
+    using HD = decltype(hd);
+    return with_seq_class(L, [&](auto seq) {
+      using Seq = decltype(seq);
+      constexpr size_t smem = attn_core_smem<Seq, HD>();
+      cudaError_t err = cudaFuncSetAttribute(
+          attn_core_kernel<kNormFirst, Seq, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      // one block a head when the heads alone fill the card twice over
+      const dim3 grid(head_splits(B * H, L, kAttnWarps, 2 * kSmCount * kAttnBlocksPerSm), H, B);
+      attn_core_kernel<kNormFirst, Seq, HD><<<grid, kAttnWarps * 32, smem, stream>>>(
+          q, k, v, out, L, scale);
+      return cudaGetLastError();
+    });
   });
 }
 
-// Dynamic shared memory of a block of the core at sequence length L (K and
-// V of the head) and the blocks one SM holds, by registers and shared
-// memory, as the runtime reckons them (0 on an error).
-inline int attn_core_smem_bytes(int L) {
-  return with_seq_class(L, [](auto seq) {
-    return static_cast<int>(2 * decltype(seq)::kHeadBytes);
+// Dynamic shared memory of a block of the core at sequence length L and
+// head width Dh (K and V of the head) and the blocks one SM holds, by
+// registers and shared memory, as the runtime reckons them (0 on an error
+// or a width the core does not take).
+inline int attn_core_smem_bytes(int L, int Dh) {
+  if (L < 1 || L > kMaxSeq) return 0;
+  return with_head_dim(Dh, 0, [&](auto hd) {
+    using HD = decltype(hd);
+    return with_seq_class(L, [](auto seq) {
+      return static_cast<int>(attn_core_smem<decltype(seq), HD>());
+    });
   });
 }
 
-inline int attn_core_blocks_per_sm(int L) {
-  return with_seq_class(L, [](auto seq) {
-    using Seq = decltype(seq);
-    constexpr size_t smem = 2 * Seq::kHeadBytes;
-    int blocks = 0;
-    if (cudaFuncSetAttribute(attn_core_kernel<false, Seq>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_core_kernel<false, Seq>,
-                                                      kAttnWarps * 32, smem) != cudaSuccess)
-      return 0;
-    return blocks;
+inline int attn_core_blocks_per_sm(int L, int Dh) {
+  if (L < 1 || L > kMaxSeq) return 0;
+  return with_head_dim(Dh, 0, [&](auto hd) {
+    using HD = decltype(hd);
+    return with_seq_class(L, [](auto seq) {
+      using Seq = decltype(seq);
+      constexpr size_t smem = attn_core_smem<Seq, HD>();
+      int blocks = 0;
+      if (cudaFuncSetAttribute(attn_core_kernel<false, Seq, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem)) != cudaSuccess ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_core_kernel<false, Seq, HD>,
+                                                        kAttnWarps * 32, smem) != cudaSuccess)
+        return 0;
+      return blocks;
+    });
   });
 }
 
 // The default form: q * qscale rounded to bf16, normalised after e v.
 cudaError_t launch_attn_core(HeadRows<const bf16> q, HeadRows<const bf16> k,
                              HeadRows<const bf16> v, HeadRows<bf16> out, int B, int L, int H,
-                             float qscale, cudaStream_t stream) {
-  return launch_attn_core_form<false>(q, k, v, out, B, L, H, qscale, stream);
+                             int Dh, float qscale, cudaStream_t stream) {
+  return launch_attn_core_form<false>(q, k, v, out, B, L, H, Dh, qscale, stream);
 }
 
 // The core on a packed (B, L, 3A) qkv with pre-scaled q, merged heads out.
-cudaError_t launch_attn_core(const bf16* qkv, bf16* merged, int B, int L, int H,
+cudaError_t launch_attn_core(const bf16* qkv, bf16* merged, int B, int L, int H, int Dh,
                              cudaStream_t stream) {
-  return launch_attn_core(packed_third(qkv, 0, L, H, kDh), packed_third(qkv, 1, L, H, kDh),
-                          packed_third(qkv, 2, L, H, kDh), merged_heads(merged, L, H, kDh), B, L,
-                          H, 1.f, stream);
+  return launch_attn_core(packed_third(qkv, 0, L, H, Dh), packed_third(qkv, 1, L, H, Dh),
+                          packed_third(qkv, 2, L, H, Dh), merged_heads(merged, L, H, Dh), B, L,
+                          H, Dh, 1.f, stream);
 }
 
 }  // namespace

@@ -74,7 +74,7 @@
 namespace duodiff {
 namespace {
 
-constexpr int kI8Dh = kHeadDim;            // head width the core takes
+constexpr int kI8Dh = 64;                  // head width the core takes
 constexpr int kI8AttnWarps = 4;            // 16 query rows each, per trip
 constexpr int kI8BlocksPerSm = 3;          // what the register cap is set for
 constexpr int kI8CodePitch = kI8Dh + 16;   // bytes a k code row: 20 words, conflict-free ldmatrix

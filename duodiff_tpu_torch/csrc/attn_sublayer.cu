@@ -15,7 +15,7 @@
 //
 // The tensor-parallel shard form (residual = 0; the Pallas kernel's
 // residual=False with head_dim passed, duodiff_tpu/parallel/tp_fused.py):
-// the shard holds H of the model's heads, A = H * 64 < D, so the qkv GEMM
+// the shard holds H of the model's heads, A = H * Dh < D, so the qkv GEMM
 // has N = 3A, the core runs H heads and the proj GEMM has K = A; its
 // epilogue writes the bare partial proj + bias, no x +, rounded to bf16
 // once (the caller passes a zero bias and adds x and the real bias after
@@ -28,9 +28,18 @@
 
 using duodiff::bf16;
 
-// The longest sequence the attention core takes: a warp keeps 16 whole score
-// rows in registers (attn_core.cuh).
-extern "C" int duodiff_attn_core_max_len() { return duodiff::kMaxSeq; }
+// The head widths the attention cores take: the i-th, 0 past the last.
+extern "C" int duodiff_attn_head_width(int i) {
+  constexpr int n = sizeof(duodiff::kHeadWidths) / sizeof(int);
+  return i >= 0 && i < n ? duodiff::kHeadWidths[i] : 0;
+}
+
+// The longest sequence the attention core takes at head width Dh (0: a
+// width it does not take): a warp keeps 16 whole score rows in registers
+// (attn_core.cuh), at either width.
+extern "C" int duodiff_attn_core_max_len(int Dh) {
+  return duodiff::with_head_dim(Dh, 0, [](auto) { return duodiff::kMaxSeq; });
+}
 
 extern "C" const char* duodiff_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -39,17 +48,17 @@ extern "C" const char* duodiff_error_string(int err) {
 // x, xn, out: (B, L, D) bf16; wqkv: (D, 3A) bf16, q columns pre-scaled;
 // bqkv: (3A,) fp32 or null; wp: (A, D) bf16; ln_w, ln_b, bp: fp32.
 // xn (B*L, D), qkv (B*L, 3A) and merged (B*L, A) are caller-owned scratch.
-// Head width 64, A = H * 64: A = D with residual = 1 (y = x + ...), any
-// A with residual = 0 (y = the partial, a shard's). Returns the first CUDA
-// error, or 0.
+// Head width Dh (64 or 72), A = H * Dh: A = D with residual = 1
+// (y = x + ...), any A with residual = 0 (y = the partial, a shard's).
+// Returns the first CUDA error, or 0.
 extern "C" int duodiff_attn_sublayer(const void* x, const void* ln_w, const void* ln_b,
                                      const void* wqkv, const void* bqkv, const void* wp,
                                      const void* bp, void* xn, void* qkv, void* merged,
-                                     void* out, int B, int L, int D, int H, int residual,
+                                     void* out, int B, int L, int D, int H, int Dh, int residual,
                                      float eps, void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, A = H * kDh;
+  const int M = B * L, A = H * Dh;
   cudaError_t err = launch_layernorm(static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
                                      static_cast<const float*>(ln_b), static_cast<bf16*>(xn),
                                      M, D, eps, s);
@@ -58,7 +67,8 @@ extern "C" int duodiff_attn_sublayer(const void* x, const void* ln_w, const void
                     static_cast<bf16*>(qkv), static_cast<const float*>(bqkv), nullptr, M, 3 * A,
                     D, kGeluNone, s);
   if (err != cudaSuccess) return err;
-  err = launch_attn_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(merged), B, L, H, s);
+  err = launch_attn_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(merged), B, L, H, Dh,
+                         s);
   if (err != cudaSuccess) return err;
   return launch_gemm(static_cast<const bf16*>(merged), static_cast<const bf16*>(wp),
                      static_cast<bf16*>(out), static_cast<const float*>(bp),

@@ -28,7 +28,7 @@
 // is. The Pallas kernel keeps xn, qkv, dm and dqkv in VMEM; here they go to
 // device memory, at its bf16 rounding points, so the split changes no number.
 // The tensor-parallel shard form (residual = 0; the Pallas kernel's
-// residual=False with head_dim passed): H of the model's heads, A = H * 64
+// residual=False with head_dim passed): H of the model's heads, A = H * Dh
 // < D, dWqkv (D, 3A) and dWp (A, D); dx is the shard's partial, the
 // LayerNorm backward of its own dxn without the + dy, which the caller adds
 // once after the sum over the shards (as it sums dgamma and dbeta).
@@ -54,9 +54,9 @@ struct AttnBwdWorkspace {
   size_t xn, qkv, dm, merged, dqkv, stats, dxn, flags, colsum, ln, total;
 };
 
-AttnBwdWorkspace attn_bwd_workspace(int B, int L, int D, int H) {
+AttnBwdWorkspace attn_bwd_workspace(int B, int L, int D, int H, int Dh) {
   const size_t M = static_cast<size_t>(B) * L;
-  const size_t A = static_cast<size_t>(H) * duodiff::kBwdDh;
+  const size_t A = static_cast<size_t>(H) * Dh;
   const size_t flags_wqkv = duodiff::weight_grad_flags(D, static_cast<int>(3 * A));
   const size_t flags_wp = duodiff::weight_grad_flags(static_cast<int>(A), D);
   const size_t max_cols = 3 * A > static_cast<size_t>(D) ? 3 * A : D;
@@ -85,31 +85,34 @@ AttnBwdWorkspace attn_bwd_workspace(int B, int L, int D, int H) {
 }  // namespace
 
 // Bytes of the workspace duodiff_attn_sublayer_bwd takes.
-extern "C" size_t duodiff_attn_sublayer_bwd_workspace(int B, int L, int D, int H) {
-  return attn_bwd_workspace(B, L, D, H).total;
+extern "C" size_t duodiff_attn_sublayer_bwd_workspace(int B, int L, int D, int H, int Dh) {
+  return attn_bwd_workspace(B, L, D, H, Dh).total;
 }
 
-// The longest sequence the backward core takes: its row launch keeps 16
-// whole rows of e in registers (attn_bwd_core.cuh).
-extern "C" int duodiff_attn_bwd_core_max_len() { return duodiff::kMaxSeq; }
+// The longest sequence the backward core takes at head width Dh (0: a width
+// it does not take): its row launch keeps 16 whole rows of e in registers
+// (attn_bwd_core.cuh), at either width.
+extern "C" int duodiff_attn_bwd_core_max_len(int Dh) {
+  return duodiff::with_head_dim(Dh, 0, [](auto) { return duodiff::kMaxSeq; });
+}
 
 // x, dy, dx: (B, L, D) bf16; wqkv: (D, 3A) bf16, unscaled; bqkv: (3A,) fp32
 // or null; wp: (A, D) bf16; ln_w, ln_b: fp32. Outputs fp32: dg, db (D,),
 // dwqkv (D, 3A), dbqkv (3A,) (null iff bqkv is), dwp (A, D), dbp (D,).
-// Head width 64, A = H * 64: A = D with residual = 1 (dx includes + dy),
-// any A with residual = 0 (dx without it, a shard's). Returns the first
+// Head width Dh (64 or 72), A = H * Dh: A = D with residual = 1 (dx
+// includes + dy), any A with residual = 0 (dx without it, a shard's). Returns the first
 // CUDA error, or 0.
 extern "C" int duodiff_attn_sublayer_bwd(const void* x, const void* dy, const void* ln_w,
                                          const void* ln_b, const void* wqkv, const void* bqkv,
                                          const void* wp, void* dx, void* dg, void* db,
                                          void* dwqkv, void* dbqkv, void* dwp, void* dbp,
                                          void* workspace, int B, int L, int D, int H,
-                                         int residual, float eps, void* stream) {
+                                         int Dh, int residual, float eps, void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, A = H * kBwdDh;
-  const float scale = 1.f / sqrtf(static_cast<float>(kBwdDh));
-  const AttnBwdWorkspace w = attn_bwd_workspace(B, L, D, H);
+  const int M = B * L, A = H * Dh;
+  const float scale = 1.f / sqrtf(static_cast<float>(Dh));
+  const AttnBwdWorkspace w = attn_bwd_workspace(B, L, D, H, Dh);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   bf16* xn = reinterpret_cast<bf16*>(ws + w.xn);
   bf16* qkv = reinterpret_cast<bf16*>(ws + w.qkv);
@@ -134,7 +137,7 @@ extern "C" int duodiff_attn_sublayer_bwd(const void* x, const void* dy, const vo
   // dm = dy Wp^T: Wp (A, D) is the (N, K) layout
   err = launch_gemm_nt(dyb, D, static_cast<const bf16*>(wp), D, dm, M, A, D, s);
   if (err != cudaSuccess) return err;
-  err = launch_attn_bwd_core(qkv, dm, merged, dqkv, stats, B, L, H, scale, s);
+  err = launch_attn_bwd_core(qkv, dm, merged, dqkv, stats, B, L, H, Dh, scale, s);
   if (err != cudaSuccess) return err;
   err = launch_weight_grad(merged, dyb, static_cast<float*>(dwp), flags, A, D, M, s);
   if (err != cudaSuccess) return err;

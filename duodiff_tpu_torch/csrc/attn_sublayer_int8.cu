@@ -47,16 +47,17 @@ using duodiff::bf16;
 // fp32 for static scales, or null for dynamic ones. x8 (B*L, D) int8, rs
 // (B*L,) fp32 (null in static mode), qkv (B*L, 3A) bf16 and merged (B*L, A)
 // bf16 are caller-owned buffers (x8 and rs are reused for the merged
-// heads). Head width 64, A = H * 64 = D. Returns the first CUDA error, or 0.
+// heads). Head width Dh (64 or 72), A = H * Dh = D. Returns the first CUDA
+// error, or 0.
 extern "C" int duodiff_attn_sublayer_int8(const void* x, const void* ln_w, const void* ln_b,
                                           const void* wqkv8, const void* sqkv, const void* bqkv,
                                           const void* wp8, const void* sp, const void* bp,
                                           const void* inv, void* x8, void* rs, void* qkv,
                                           void* merged, void* out, int B, int L, int D, int H,
-                                          float eps, void* stream) {
+                                          int Dh, float eps, void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, A = H * kDh;
+  const int M = B * L, A = H * Dh;
   const float* inv_f = static_cast<const float*>(inv);
   const float* inv_m = inv_f != nullptr ? inv_f + 1 : nullptr;
   int8_t* codes = static_cast<int8_t*>(x8);
@@ -70,7 +71,8 @@ extern "C" int duodiff_attn_sublayer_int8(const void* x, const void* ln_w, const
                       static_cast<const float*>(bqkv), nullptr, nullptr, qkv};
   err = launch_gemm_int8(codes, static_cast<const int8_t*>(wqkv8), M, 3 * A, D, qkv_ep, s);
   if (err != cudaSuccess) return err;
-  err = launch_attn_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(merged), B, L, H, s);
+  err = launch_attn_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(merged), B, L, H, Dh,
+                         s);
   if (err != cudaSuccess) return err;
   err = launch_quant_rows(static_cast<const bf16*>(merged), codes, row_scale, inv_m, M, A, s);
   if (err != cudaSuccess) return err;

@@ -35,16 +35,16 @@ using duodiff::bf16;
 
 // x, xn, out: (B, L, D) bf16; wqkv: (3, D, A) bf16, unscaled; bqkv: (3, A)
 // fp32 or null; wp: (A, D) bf16; ln_w, ln_b, bp: fp32. xn (B*L, D), qkv
-// (3, B*L, A) and merged (B*L, A) are caller-owned scratch. Head width 64,
-// A = H * 64 = D. Returns the first CUDA error, or 0.
+// (3, B*L, A) and merged (B*L, A) are caller-owned scratch. Head width Dh
+// (64 or 72), A = H * Dh = D. Returns the first CUDA error, or 0.
 extern "C" int duodiff_attn_sublayer_v1(const void* x, const void* ln_w, const void* ln_b,
                                         const void* wqkv, const void* bqkv, const void* wp,
                                         const void* bp, void* xn, void* qkv, void* merged,
-                                        void* out, int B, int L, int D, int H, float eps,
+                                        void* out, int B, int L, int D, int H, int Dh, float eps,
                                         void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, A = H * kDh;
+  const int M = B * L, A = H * Dh;
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* xnb = static_cast<bf16*>(xn);
   bf16* qkvb = static_cast<bf16*>(qkv);
@@ -59,12 +59,12 @@ extern "C" int duodiff_attn_sublayer_v1(const void* x, const void* ln_w, const v
                       bias == nullptr ? nullptr : bias + i * A, nullptr, M, A, D, kGeluNone, s);
     if (err != cudaSuccess) return err;
   }
-  const float scale = 1.f / sqrtf(static_cast<float>(kDh));
+  const float scale = 1.f / sqrtf(static_cast<float>(Dh));
   err = launch_attn_core_form<true>(
-      merged_heads(static_cast<const bf16*>(qkvb), L, H, kDh),
-      merged_heads(static_cast<const bf16*>(qkvb + third), L, H, kDh),
-      merged_heads(static_cast<const bf16*>(qkvb + 2 * third), L, H, kDh),
-      merged_heads(static_cast<bf16*>(merged), L, H, kDh), B, L, H, scale, s);
+      merged_heads(static_cast<const bf16*>(qkvb), L, H, Dh),
+      merged_heads(static_cast<const bf16*>(qkvb + third), L, H, Dh),
+      merged_heads(static_cast<const bf16*>(qkvb + 2 * third), L, H, Dh),
+      merged_heads(static_cast<bf16*>(merged), L, H, Dh), B, L, H, Dh, scale, s);
   if (err != cudaSuccess) return err;
   return launch_gemm(static_cast<const bf16*>(merged), static_cast<const bf16*>(wp),
                      static_cast<bf16*>(out), static_cast<const float*>(bp), xb, M, D, A,

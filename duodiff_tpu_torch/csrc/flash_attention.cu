@@ -23,22 +23,24 @@
 using duodiff::bf16;
 
 // Warps a block, dynamic shared memory a block and resident blocks an SM of
-// the attention core at length L.
+// the attention core at length L and head width Dh.
 extern "C" int duodiff_attn_core_warps() { return duodiff::kAttnWarps; }
-extern "C" int duodiff_attn_core_smem_bytes(int L) { return duodiff::attn_core_smem_bytes(L); }
-extern "C" int duodiff_attn_core_blocks_per_sm(int L) {
-  return duodiff::attn_core_blocks_per_sm(L);
+extern "C" int duodiff_attn_core_smem_bytes(int L, int Dh) {
+  return duodiff::attn_core_smem_bytes(L, Dh);
+}
+extern "C" int duodiff_attn_core_blocks_per_sm(int L, int Dh) {
+  return duodiff::attn_core_blocks_per_sm(L, Dh);
 }
 
-// q, k, v, out: (B, H, L, 64) bf16, contiguous. Returns the first CUDA
-// error, or 0.
+// q, k, v, out: (B, H, L, Dh) bf16, contiguous, Dh 64 or 72. Returns the
+// first CUDA error, or 0.
 extern "C" int duodiff_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                       int B, int H, int L, void* stream) {
+                                       int B, int H, int L, int Dh, void* stream) {
   using namespace duodiff;
-  const float scale = 1.f / sqrtf(static_cast<float>(kDh));
-  return launch_attn_core(split_heads(static_cast<const bf16*>(q), L, H, kDh),
-                          split_heads(static_cast<const bf16*>(k), L, H, kDh),
-                          split_heads(static_cast<const bf16*>(v), L, H, kDh),
-                          split_heads(static_cast<bf16*>(out), L, H, kDh), B, L, H, scale,
+  const float scale = 1.f / sqrtf(static_cast<float>(Dh));
+  return launch_attn_core(split_heads(static_cast<const bf16*>(q), L, H, Dh),
+                          split_heads(static_cast<const bf16*>(k), L, H, Dh),
+                          split_heads(static_cast<const bf16*>(v), L, H, Dh),
+                          split_heads(static_cast<bf16*>(out), L, H, Dh), B, L, H, Dh, scale,
                           static_cast<cudaStream_t>(stream));
 }

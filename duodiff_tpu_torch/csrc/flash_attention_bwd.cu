@@ -30,24 +30,25 @@ extern "C" size_t duodiff_flash_attention_bwd_stats(int B, int H, int L) {
 }
 
 // Warps a block, dynamic shared memory a block and resident blocks an SM of
-// the backward core's row launch (key 0) and key launch (key 1) at length L.
+// the backward core's row launch (key 0) and key launch (key 1) at length L
+// and head width Dh.
 extern "C" int duodiff_attn_bwd_core_warps(int key) {
   return key ? duodiff::kBwdKeyWarps : duodiff::kBwdRowWarps;
 }
-extern "C" int duodiff_attn_bwd_core_smem_bytes(int L, int key) {
-  return duodiff::attn_bwd_core_smem_bytes(L, key != 0);
+extern "C" int duodiff_attn_bwd_core_smem_bytes(int L, int key, int Dh) {
+  return duodiff::attn_bwd_core_smem_bytes(L, key != 0, Dh);
 }
-extern "C" int duodiff_attn_bwd_core_blocks_per_sm(int L, int key) {
-  return duodiff::attn_bwd_core_blocks_per_sm(L, key != 0);
+extern "C" int duodiff_attn_bwd_core_blocks_per_sm(int L, int key, int Dh) {
+  return duodiff::attn_bwd_core_blocks_per_sm(L, key != 0, Dh);
 }
 
-// q, k, v, dout, dq, dk, dv: (B, H, L, 64) bf16, contiguous; stats: fp32
-// scratch. Returns the first CUDA error, or 0.
+// q, k, v, dout, dq, dk, dv: (B, H, L, Dh) bf16, contiguous, Dh 64 or 72;
+// stats: fp32 scratch. Returns the first CUDA error, or 0.
 extern "C" int duodiff_flash_attention_bwd(const void* q, const void* k, const void* v,
                                            const void* dout, void* dq, void* dk, void* dv,
-                                           void* stats, int B, int H, int L, void* stream) {
+                                           void* stats, int B, int H, int L, int Dh,
+                                           void* stream) {
   using namespace duodiff;
-  constexpr int Dh = kBwdDh;
   const float scale = 1.f / sqrtf(static_cast<float>(Dh));
   const HeadRows<bf16> none{nullptr, 0, 0, 0};
   return launch_attn_bwd_core(
@@ -56,6 +57,6 @@ extern "C" int duodiff_flash_attention_bwd(const void* q, const void* k, const v
       split_heads(static_cast<const bf16*>(v), L, H, Dh),
       split_heads(static_cast<const bf16*>(dout), L, H, Dh), none,
       split_heads(static_cast<bf16*>(dq), L, H, Dh), split_heads(static_cast<bf16*>(dk), L, H, Dh),
-      split_heads(static_cast<bf16*>(dv), L, H, Dh), static_cast<float*>(stats), B, L, H, scale,
+      split_heads(static_cast<bf16*>(dv), L, H, Dh), static_cast<float*>(stats), B, L, H, Dh, scale,
       static_cast<cudaStream_t>(stream));
 }

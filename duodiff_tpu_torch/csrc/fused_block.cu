@@ -33,19 +33,19 @@ using duodiff::bf16;
 // (3A,) fp32 or null; wp: (A, D) bf16; w1: (D, Hd) bf16; w2: (Hd, D) bf16;
 // the LayerNorm affines and the biases fp32. Caller-owned scratch: xn
 // (B*L, D) bf16 (both LayerNorm outputs in turn), qkv (B*L, 3A) bf16, merged
-// (B*L, A) bf16, u (B*L, D) fp32, hidden (B*L, Hd) bf16. Head width 64,
-// A = H * 64 = D. gelu_mode: 1 exact (erf), 2 tanh. Returns the first CUDA
+// (B*L, A) bf16, u (B*L, D) fp32, hidden (B*L, Hd) bf16. Head width Dh
+// (64 or 72), A = H * Dh = D. gelu_mode: 1 exact (erf), 2 tanh. Returns the first CUDA
 // error, or 0.
 extern "C" int duodiff_fused_block(const void* x, const void* ln1_w, const void* ln1_b,
                                    const void* wqkv, const void* bqkv, const void* wp,
                                    const void* bp, const void* ln2_w, const void* ln2_b,
                                    const void* w1, const void* b1, const void* w2, const void* b2,
                                    void* xn, void* qkv, void* merged, void* u, void* hidden,
-                                   void* out, int B, int L, int D, int H, int Hd, int gelu_mode,
+                                   void* out, int B, int L, int D, int H, int Dh, int Hd, int gelu_mode,
                                    float eps, void* stream) {
   using namespace duodiff;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, A = H * kDh;
+  const int M = B * L, A = H * Dh;
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* xnb = static_cast<bf16*>(xn);
   float* uf = static_cast<float*>(u);
@@ -55,7 +55,8 @@ extern "C" int duodiff_fused_block(const void* x, const void* ln1_w, const void*
   err = launch_gemm(xnb, static_cast<const bf16*>(wqkv), static_cast<bf16*>(qkv),
                     static_cast<const float*>(bqkv), nullptr, M, 3 * A, D, kGeluNone, s);
   if (err != cudaSuccess) return err;
-  err = launch_attn_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(merged), B, L, H, s);
+  err = launch_attn_core(static_cast<const bf16*>(qkv), static_cast<bf16*>(merged), B, L, H, Dh,
+                         s);
   if (err != cudaSuccess) return err;
   err = launch_gemm_rows<bf16, float>(static_cast<const bf16*>(merged),
                                       static_cast<const bf16*>(wp), uf,

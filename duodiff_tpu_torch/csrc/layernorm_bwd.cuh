@@ -9,12 +9,15 @@
 //
 // Bound: memory. Each row reads x (bf16), dxn (fp32) and dy (bf16) and
 // writes dx (bf16), a few flops per byte. A warp reads a row into registers
-// at once (rows of D <= 1024) and reduces it there.
+// at once (rows of D <= 2048, U-ViT-H's 1152 among them) and reduces it
+// there.
 // Determinism: the Pallas kernels add these sums across a grid that runs in
 // order. Here each block sums a fixed range of rows into a partial, in row
 // order within each warp and then warp by warp, and sum_partials_kernel
 // adds the partials in block order: two passes, no atomics.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -165,7 +168,7 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
   }
 }
 
-constexpr int kLnbMaxWidth = 4 * 32 * kVec;  // 1024: 32 values of a row a lane
+constexpr int kLnbMaxWidth = 8 * 32 * kVec;  // 2048: 64 values of a row a lane
 
 inline int layernorm_bwd_blocks(int M, int block_rows = kLnbRows) {
   return (M + block_rows - 1) / block_rows;
@@ -200,17 +203,20 @@ inline cudaError_t launch_layernorm_bwd_rows(const bf16* x, const float* dxn,
   if (M < 0 || D <= 0 || D % kVec != 0 || D > kLnbMaxWidth || block_rows < 1)
     return cudaErrorInvalidValue;
   const int chunks = (D + 32 * kVec - 1) / (32 * kVec);
-  if (chunks == 1)
-    return launch_layernorm_bwd_form<1>(x, dxn, gamma, dy, dx, part_dg, part_db, M, D,
-                                        block_rows, eps, stream, pdl);
-  if (chunks == 2)
-    return launch_layernorm_bwd_form<2>(x, dxn, gamma, dy, dx, part_dg, part_db, M, D,
-                                        block_rows, eps, stream, pdl);
-  if (chunks == 3)
-    return launch_layernorm_bwd_form<3>(x, dxn, gamma, dy, dx, part_dg, part_db, M, D,
-                                        block_rows, eps, stream, pdl);
-  return launch_layernorm_bwd_form<4>(x, dxn, gamma, dy, dx, part_dg, part_db, M, D,
-                                      block_rows, eps, stream, pdl);
+  const auto form = [&](auto n) {
+    return launch_layernorm_bwd_form<decltype(n)::value>(x, dxn, gamma, dy, dx, part_dg, part_db,
+                                                         M, D, block_rows, eps, stream, pdl);
+  };
+  switch (chunks) {
+    case 1: return form(std::integral_constant<int, 1>{});
+    case 2: return form(std::integral_constant<int, 2>{});
+    case 3: return form(std::integral_constant<int, 3>{});
+    case 4: return form(std::integral_constant<int, 4>{});
+    case 5: return form(std::integral_constant<int, 5>{});
+    case 6: return form(std::integral_constant<int, 6>{});
+    case 7: return form(std::integral_constant<int, 7>{});
+    default: return form(std::integral_constant<int, 8>{});
+  }
 }
 
 // dx, and dg / db summed over all rows; part holds 2 * blocks * D floats.

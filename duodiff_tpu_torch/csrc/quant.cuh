@@ -26,9 +26,11 @@
 // about to be rounded to an int8 code.
 //
 // Bound: memory, 3 bytes a value (bf16 in, int8 out) for the LayerNorm
-// pass. Design: 8 values a lane per 16-byte load; the LayerNorm pass gives
-// a warp two rows and holds them whole in registers (D <= 1024), so it reads
-// them from memory once and gamma and beta as 16-byte vectors; the row quant
+// pass. Design: 8 values a lane per 16-byte load; the LayerNorm pass holds
+// a warp's rows whole in registers, two rows a warp for D <= 1024 and one
+// row a warp for 1024 < D <= 2048 (U-ViT-H's 1152: 5 chunks of 256
+// columns), so it reads them from memory once and gamma and beta as 16-byte
+// vectors; the row quant
 // of an fp32 or bf16 matrix takes a row a warp and reads it twice (amax,
 // codes), the second time from L1/L2.
 #pragma once
@@ -74,14 +76,18 @@ __device__ __forceinline__ float inv_scale(float amax) {
 // not written. One warp takes kLnRows rows; lane l holds each row's columns
 // 8 l + 256 j .. + 7, j < kChunks (D <= 256 kChunks), in registers from one
 // read of the row, and the loads of all its rows are issued before the first
-// is summed, so twice the bytes are in flight while the reductions run. The
-// statistics, the normalized values, their amax and the codes all come from
-// the registers. Each row's sums run over the same values in the same order
-// as a loop over the row would, so the codes and scales depend neither on
-// kChunks nor on kLnRows.
-constexpr int kLnRows = 2;
+// is summed, so twice the bytes are in flight while the reductions run (at
+// kLnRows = 2). The statistics, the normalized values, their amax and the
+// codes all come from the registers. Each row's sums run over the same
+// values in the same order as a loop over the row would, so the codes and
+// scales depend neither on kChunks nor on kLnRows. Past 4 chunks a warp
+// takes one row (ln_quant_rows_per_warp), so that its values stay at 64
+// registers a lane or fewer above 1024 columns as well as at or below.
+__host__ __device__ constexpr int ln_quant_rows_per_warp(int chunks) {
+  return chunks <= 4 ? 2 : 1;
+}
 
-template <int kChunks>
+template <int kChunks, int kLnRows = ln_quant_rows_per_warp(kChunks)>
 __global__ void __launch_bounds__(kQuantThreads)
 ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta, int8_t* __restrict__ x8,
@@ -171,7 +177,7 @@ ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma
   }
 }
 
-constexpr int kLnQuantMaxWidth = 4 * 32 * kVec;  // 1024: 32 values a lane
+constexpr int kLnQuantMaxWidth = 8 * 32 * kVec;  // 2048: 64 values a lane
 
 // in (M, N) bf16 or fp32 -> out (M, N) int8. static_inv null: dynamic,
 // row_scale[m] = amax/127; else every row quantizes with static_inv[0] and
@@ -216,7 +222,8 @@ template <int kChunks>
 inline void launch_ln_quant_form(const bf16* x, const float* gamma, const float* beta,
                                  int8_t* x8, float* row_scale, const float* static_inv, int M,
                                  int D, float eps, cudaStream_t stream) {
-  ln_quant_rows_kernel<kChunks><<<quant_blocks((M + kLnRows - 1) / kLnRows), kQuantThreads, 0,
+  constexpr int rows = ln_quant_rows_per_warp(kChunks);
+  ln_quant_rows_kernel<kChunks><<<quant_blocks((M + rows - 1) / rows), kQuantThreads, 0,
                                   stream>>>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps);
 }
 
@@ -239,8 +246,20 @@ inline cudaError_t launch_ln_quant_rows(const bf16* x, const float* gamma, const
     case 3:
       launch_ln_quant_form<3>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
       break;
-    default:
+    case 4:
       launch_ln_quant_form<4>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
+      break;
+    case 5:
+      launch_ln_quant_form<5>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
+      break;
+    case 6:
+      launch_ln_quant_form<6>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
+      break;
+    case 7:
+      launch_ln_quant_form<7>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
+      break;
+    default:
+      launch_ln_quant_form<8>(x, gamma, beta, x8, row_scale, static_inv, M, D, eps, stream);
   }
   return cudaGetLastError();
 }

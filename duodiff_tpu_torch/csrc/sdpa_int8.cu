@@ -15,7 +15,8 @@
 // block is one (head, sample), its warps walking the 16-row query tiles with
 // the score rows in registers; the int8 core (attn_core_int8.cuh) quantizes
 // the head's k and v once a block and keeps only their codes in shared
-// memory. Both take L <= 272, a register limit.
+// memory. Both take L <= 272, a register limit; the int8 core head width
+// 64 only.
 // Bound: 4 * L * L * Dh operations per (sample, head) against 8 * L * Dh
 // bytes: bytes at the roofline for both forms; see the two cores' notes for
 // what bounds each on the card instead.
@@ -38,18 +39,20 @@ extern "C" int duodiff_sdpa_int8_blocks_per_sm(int L) {
   return duodiff::attn_core_int8_blocks_per_sm(L);
 }
 
-// q, k, v, out: (B, H, L, 64) bf16, contiguous. Returns the first CUDA
-// error, or 0.
+// q, k, v, out: (B, H, L, Dh) bf16, contiguous, Dh 64 or 72 (the bf16
+// core's widths). Returns the first CUDA error, or 0.
 extern "C" int duodiff_sdpa_chain_bf16(const void* q, const void* k, const void* v, void* out,
-                                       int B, int H, int L, void* stream) {
+                                       int B, int H, int L, int Dh, void* stream) {
   using namespace duodiff;
-  return launch_attn_core(split_heads(static_cast<const bf16*>(q), L, H, kDh),
-                          split_heads(static_cast<const bf16*>(k), L, H, kDh),
-                          split_heads(static_cast<const bf16*>(v), L, H, kDh),
-                          split_heads(static_cast<bf16*>(out), L, H, kDh), B, L, H, 1.f,
+  return launch_attn_core(split_heads(static_cast<const bf16*>(q), L, H, Dh),
+                          split_heads(static_cast<const bf16*>(k), L, H, Dh),
+                          split_heads(static_cast<const bf16*>(v), L, H, Dh),
+                          split_heads(static_cast<bf16*>(out), L, H, Dh), B, L, H, Dh, 1.f,
                           static_cast<cudaStream_t>(stream));
 }
 
+// q, k, v, out: (B, H, L, 64) bf16, contiguous: the int8 core takes head
+// width 64 only. Returns the first CUDA error, or 0.
 extern "C" int duodiff_sdpa_chain_int8(const void* q, const void* k, const void* v, void* out,
                                        int B, int H, int L, void* stream) {
   using namespace duodiff;

@@ -30,6 +30,8 @@ run counts what an eager one does.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Callable, Sequence
 
@@ -42,6 +44,21 @@ def _new_graph():
 
 def _capture(graph, pool):
     return torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """No automatic garbage collection inside the block. A collection there
+    may free an earlier run's CUDA graph held in a reference cycle, and a
+    graph's teardown is a call that a capturing stream forbids: it would
+    invalidate the capture under way."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _counters() -> dict:
@@ -61,7 +78,8 @@ class StepGraph:
     shared-memory attribute, a library handle, the packed operands) happen
     outside capture, and it is a real step. The second call captures
     ``body`` into ``pool`` (with thread-local capture, so other threads may
-    copy to the host meanwhile) and replays it, on the current stream; later
+    copy to the host meanwhile, and with no garbage collection during it)
+    and replays it, on the current stream; later
     calls replay. A failed capture raises: there is no eager fallback."""
 
     def __init__(self, body: Callable[[], None], buffers: Sequence[torch.Tensor] = (),
@@ -82,7 +100,7 @@ class StepGraph:
         before = _read_counters(counters)
         tic = time.perf_counter()
         graph = _new_graph()
-        with _capture(graph, self.pool):
+        with _no_collection(), _capture(graph, self.pool):
             self.body()
         self.capture_seconds = time.perf_counter() - tic
         after = _read_counters(counters)

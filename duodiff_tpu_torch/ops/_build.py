@@ -34,34 +34,34 @@ _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
 # C entry -> (argtypes, restype); every pointer and the stream as c_void_p
 _SIGNATURES = {
-    "duodiff_attn_sublayer": ([_PTR] * 11 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer": ([_PTR] * 11 + [_INT] * 6 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer": ([_PTR] * 10 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
-    "duodiff_attn_sublayer_int8": ([_PTR] * 15 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_int8": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_int8": ([_PTR] * 16 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
-    "duodiff_attn_sublayer_bwd": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_bwd": ([_PTR] * 15 + [_INT] * 6 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_bwd": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
-    "duodiff_attn_sublayer_v1": ([_PTR] * 11 + [_INT] * 4 + [_FLOAT, _PTR], _INT),
-    "duodiff_fused_block": ([_PTR] * 19 + [_INT] * 6 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_sublayer_v1": ([_PTR] * 11 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
+    "duodiff_fused_block": ([_PTR] * 19 + [_INT] * 7 + [_FLOAT, _PTR], _INT),
     "duodiff_mlp_sublayer_bwd_split": ([_PTR] * 15 + [_INT] * 5 + [_FLOAT, _PTR], _INT),
-    "duodiff_flash_attention": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
-    "duodiff_flash_attention_bwd": ([_PTR] * 8 + [_INT] * 3 + [_PTR], _INT),
-    "duodiff_sdpa_chain_bf16": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+    "duodiff_flash_attention": ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
+    "duodiff_flash_attention_bwd": ([_PTR] * 8 + [_INT] * 4 + [_PTR], _INT),
+    "duodiff_sdpa_chain_bf16": ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
     "duodiff_sdpa_chain_int8": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
     "duodiff_sdpa_int8_smem_bytes": ([_INT], _INT),
     "duodiff_sdpa_int8_max_len": ([], _INT),
     "duodiff_sdpa_int8_warps": ([], _INT),
     "duodiff_sdpa_int8_blocks_per_sm": ([_INT], _INT),
     "duodiff_flash_attention_bwd_stats": ([_INT] * 3, ctypes.c_size_t),
-    "duodiff_attn_sublayer_bwd_workspace": ([_INT] * 4, ctypes.c_size_t),
+    "duodiff_attn_sublayer_bwd_workspace": ([_INT] * 5, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_split_workspace": ([_INT] * 4, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_split_chunk_rows": ([_INT] * 2, _INT),
     "duodiff_attn_core_warps": ([], _INT),
-    "duodiff_attn_core_smem_bytes": ([_INT], _INT),
-    "duodiff_attn_bwd_core_smem_bytes": ([_INT] * 2, _INT),
-    "duodiff_attn_core_blocks_per_sm": ([_INT], _INT),
+    "duodiff_attn_core_smem_bytes": ([_INT] * 2, _INT),
+    "duodiff_attn_bwd_core_smem_bytes": ([_INT] * 3, _INT),
+    "duodiff_attn_core_blocks_per_sm": ([_INT] * 2, _INT),
     "duodiff_attn_bwd_core_warps": ([_INT], _INT),
-    "duodiff_attn_bwd_core_blocks_per_sm": ([_INT] * 2, _INT),
+    "duodiff_attn_bwd_core_blocks_per_sm": ([_INT] * 3, _INT),
     "duodiff_gemm_bf16": ([_PTR] * 5 + [_INT] * 6 + [_PTR], _INT),
     "duodiff_gemm_bf16_threads": ([], _INT),
     "duodiff_gemm_bf16_stages": ([], _INT),
@@ -79,8 +79,9 @@ _SIGNATURES = {
     "duodiff_gemm_t_layout": ([_PTR], _INT),
     "duodiff_mlp_bwd_hidden": ([_PTR] * 9 + [_INT] * 4 + [_PTR], _INT),
     "duodiff_mlp_bwd_hidden_part_bytes": ([_INT] * 2, ctypes.c_size_t),
-    "duodiff_attn_core_max_len": ([], _INT),
-    "duodiff_attn_bwd_core_max_len": ([], _INT),
+    "duodiff_attn_head_width": ([_INT], _INT),
+    "duodiff_attn_core_max_len": ([_INT], _INT),
+    "duodiff_attn_bwd_core_max_len": ([_INT], _INT),
     "duodiff_error_string": ([_INT], ctypes.c_char_p),
 }
 

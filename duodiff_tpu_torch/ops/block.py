@@ -25,7 +25,7 @@ backwards (counterpart of ``duodiff_tpu/ops/pallas_block.py``).
 K1, K2, K6 and K7 also have the tensor-parallel shard form, ``residual=False``
 (the Pallas kernels' ``residual=False`` with ``head_dim`` passed, which
 ``duodiff_tpu/parallel/tp_fused.py`` runs): a shard of the heads (A = H_loc *
-64 < D) or of the hidden columns, the ``x +`` left out of the forward and the
+Dh < D) or of the hidden columns, the ``x +`` left out of the forward and the
 ``+ dy`` out of dx, which ``duodiff_tpu_torch/parallel/tp_fused.py`` adds once
 after the sum over the shards. Their launches count in ``.launches_shard``,
 apart from the square form's ``.launches``. K5, K1-v1 and K8 are square only,
@@ -54,30 +54,76 @@ import os
 import torch
 import torch.nn.functional as F
 
-# what the CUDA kernels take: bf16 activations, head width 64, a 16-byte
-# aligned row of every operand (widths multiple of 8), and a sequence the
-# attention cores can hold: a warp keeps 16 whole fp32 score rows in
-# registers, 136 a thread at L = 272, which is the limit the library
-# reports (duodiff_attn_core_max_len, duodiff_attn_bwd_core_max_len, and
-# duodiff_sdpa_int8_max_len for the int8 chain of K15). A block's shared
+# what the CUDA kernels take: bf16 activations, a head width the attention
+# cores are built for (HEAD_WIDTHS: 64, every config of the repository, and
+# 72, U-ViT-H's; the library reports them, duodiff_attn_head_width), a
+# 16-byte aligned row of every operand (widths multiple of 8), rows of at
+# most ROW_MAX_WIDTH for the LayerNorm passes that hold a row in a warp's
+# registers (the LayerNorm + quant of K11 / K12, the LayerNorm backward of
+# K6 / K7 / K8), and a sequence the attention cores can hold: a warp keeps
+# 16 whole fp32 score rows in registers, 136 a thread at L = 272, which is
+# the limit the library reports for each width (duodiff_attn_core_max_len,
+# duodiff_attn_bwd_core_max_len, and duodiff_sdpa_int8_max_len for the
+# int8 chain of K15, whose core takes head width 64 only). A block's shared
 # memory is held to the 227 KB opt-in limit less a margin of 256 bytes.
-# Checked on the card at D = 512 with 8 heads and L = 257, and at D = 768
-# with 12 heads and L = 258 (chip_smoke.py phase 2)
-HEAD_DIM = 64
+# Checked on the card at D = 512 with 8 heads and L = 257, at D = 768
+# with 12 heads, D = 1024 with 16 and D = 1152 with 16 heads of 72, each at
+# L = 258 (chip_smoke.py phases 2 and 21)
+HEAD_WIDTHS = (64, 72)
+ROW_MAX_WIDTH = 2048
 _MAX_SMEM_BYTES = 227 * 1024 - 256
 
 
-def _check_seq_len(lib, l: int, backward: bool = False, int8: bool = False) -> None:
-    """Raise unless the attention core (its backward, or K15's int8 core)
-    takes length l."""
+def _widths_text(widths) -> str:
+    return " or ".join(str(w) for w in widths)
+
+
+def head_width(a: int, num_heads: int, what: str) -> int:
+    """A / num_heads, the head width of an attention sublayer whose A = H * Dh
+    columns hold ``num_heads`` heads, if it is one of HEAD_WIDTHS; else raise,
+    naming them."""
+    dh, rem = divmod(a, num_heads)
+    if rem or dh not in HEAD_WIDTHS:
+        raise ValueError(f"{what} takes head width {_widths_text(HEAD_WIDTHS)}: A={a} is not "
+                         f"{num_heads} heads of one of them")
+    return dh
+
+
+def _check_seq_len(lib, l: int, dh: int, backward: bool = False, int8: bool = False) -> None:
+    """Raise unless the attention core (its backward, or K15's int8 core,
+    whose width 64 the caller holds) takes length l at head width dh, as the
+    library reports: the longest length for the width, 0 for a width it
+    does not take."""
     if backward:
-        limit, what = lib.duodiff_attn_bwd_core_max_len(), "attention backward core"
+        limit, what = lib.duodiff_attn_bwd_core_max_len(dh), "attention backward core"
     elif int8:
         limit, what = lib.duodiff_sdpa_int8_max_len(), "int8 attention core"
     else:
-        limit, what = lib.duodiff_attn_core_max_len(), "attention core"
+        limit, what = lib.duodiff_attn_core_max_len(dh), "attention core"
+    if limit == 0:
+        raise ValueError(f"the {what} takes head width "
+                         f"{_widths_text(library_head_widths(lib))}, got {dh}")
     if l > limit:
-        raise ValueError(f"sequence length {l} does not fit the {what} (at most {limit})")
+        raise ValueError(f"sequence length {l} does not fit the {what} (at most {limit}) at "
+                         f"head width {dh}")
+
+
+def library_head_widths(lib) -> tuple:
+    """The head widths the built attention cores take, as the library
+    reports them (duodiff_attn_head_width)."""
+    widths, i = [], 0
+    while w := lib.duodiff_attn_head_width(i):
+        widths.append(w)
+        i += 1
+    return tuple(widths)
+
+
+def check_row_width(d: int, what: str = "D") -> None:
+    """Raise unless the LayerNorm passes that hold a row in a warp's
+    registers take rows of width d."""
+    if d % 8 or d > ROW_MAX_WIDTH:
+        raise ValueError(f"{what} must be a multiple of 8 and at most {ROW_MAX_WIDTH} (the "
+                         f"LayerNorm passes hold a row in a warp's registers), got {d}")
 
 
 def attn_operands(ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b, *, num_heads: int, dtype):
@@ -451,25 +497,20 @@ def _raise_on_error(lib, name: str, err: int) -> None:
 
 
 def _attn_dims(x, wp, num_heads: int, residual: bool = True):
-    """(B, L, D, A) of an attention sublayer the kernels take: the square
-    form A == D, or with ``residual=False`` a shard's A < D."""
+    """(B, L, D, A, Dh) of an attention sublayer the kernels take: the
+    square form A == D, or with ``residual=False`` a shard's A < D, each
+    with A = num_heads * Dh for a head width Dh of HEAD_WIDTHS."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, D), got {tuple(x.shape)}")
     b, l, d = x.shape
     a = wp.shape[0]
-    if residual and (a != d or a != num_heads * HEAD_DIM):
-        raise ValueError(
-            f"the kernel takes the square form A == D == num_heads * {HEAD_DIM}: "
-            f"A={a}, D={d}, num_heads={num_heads}"
-        )
-    if not residual and (a != num_heads * HEAD_DIM or a > d):
-        raise ValueError(
-            f"the shard form takes A == num_heads * {HEAD_DIM} <= D: "
-            f"A={a}, D={d}, num_heads={num_heads}"
-        )
+    form = "the square form A == D" if residual else "the shard form A <= D"
+    if a != d if residual else a > d:
+        raise ValueError(f"the kernel takes {form}: A={a}, D={d}, num_heads={num_heads}")
+    dh = head_width(a, num_heads, f"the kernel's {form[4:]}")
     if d % 8:
         raise ValueError(f"D must be a multiple of 8, got {d}")
-    return b, l, d, a
+    return b, l, d, a, dh
 
 
 def _attn_sublayer_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
@@ -482,7 +523,7 @@ def _attn_sublayer_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
     proj GEMM launches of csrc/attn_sublayer_v1.cu)."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    b, l, d, a = _attn_dims(x, wp, num_heads, residual)
+    b, l, d, a, dh = _attn_dims(x, wp, num_heads, residual)
     v1 = variant == "v1"
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, (b, l, d), bf16, dev)
@@ -494,7 +535,7 @@ def _attn_sublayer_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
     _check("wp", wp, (a, d), bf16, dev)
     _check("bp", bp, (d,), f32, dev)
     lib = load_library()
-    _check_seq_len(lib, l)
+    _check_seq_len(lib, l, dh)
     xn = torch.empty_like(x)
     # v2 packs q, k, v per row (B, L, 3A); v1 keeps them apart, (3, B, L, A)
     qkv = torch.empty((3, b, l, a) if v1 else (b, l, 3 * a), dtype=bf16, device=dev)
@@ -504,9 +545,10 @@ def _attn_sublayer_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
             _ptr(xn), _ptr(qkv), _ptr(merged), _ptr(y))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if v1:
-        err = lib.duodiff_attn_sublayer_v1(*ptrs, b, l, d, num_heads, eps, stream)
+        err = lib.duodiff_attn_sublayer_v1(*ptrs, b, l, d, num_heads, dh, eps, stream)
     else:
-        err = lib.duodiff_attn_sublayer(*ptrs, b, l, d, num_heads, int(residual), eps, stream)
+        err = lib.duodiff_attn_sublayer(*ptrs, b, l, d, num_heads, dh, int(residual), eps,
+                                        stream)
     _raise_on_error(lib, f"attention sublayer kernel ({variant})", err)
     return y
 
@@ -517,7 +559,7 @@ def _fused_block_cuda(x, ln1_scale, ln1_bias, wqkv, bqkv, wp, bp, ln2_scale, ln2
     launches with the intermediate residual stream in an fp32 scratch."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    b, l, d, a = _attn_dims(x, wp, num_heads)
+    b, l, d, a, dh = _attn_dims(x, wp, num_heads)
     hid = w1.shape[1]
     if hid % 8:
         raise ValueError(f"the hidden width must be a multiple of 8, got {hid}")
@@ -534,7 +576,7 @@ def _fused_block_cuda(x, ln1_scale, ln1_bias, wqkv, bqkv, wp, bp, ln2_scale, ln2
     _check("b1", b1, (hid,), f32, dev)
     _check("w2", w2, (hid, d), bf16, dev)
     lib = load_library()
-    _check_seq_len(lib, l)
+    _check_seq_len(lib, l, dh)
     xn = torch.empty_like(x)
     qkv = torch.empty((b, l, 3 * a), dtype=bf16, device=dev)
     merged = torch.empty((b, l, a), dtype=bf16, device=dev)
@@ -545,7 +587,7 @@ def _fused_block_cuda(x, ln1_scale, ln1_bias, wqkv, bqkv, wp, bp, ln2_scale, ln2
         _ptr(x), _ptr(ln1_scale), _ptr(ln1_bias), _ptr(wqkv), _ptr(bqkv), _ptr(wp), _ptr(bp),
         _ptr(ln2_scale), _ptr(ln2_bias), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2),
         _ptr(xn), _ptr(qkv), _ptr(merged), _ptr(u), _ptr(hidden), _ptr(y),
-        b, l, d, num_heads, hid, 2 if gelu_approx else 1, eps,
+        b, l, d, num_heads, dh, hid, 2 if gelu_approx else 1, eps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(lib, "whole-block kernel", err)
@@ -592,7 +634,8 @@ def _attn_sublayer_bwd_cuda(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int
     what :func:`attn_sublayer_bwd_plain` does."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    b, l, d, a = _attn_dims(x, wp, num_heads, residual)
+    b, l, d, a, dh = _attn_dims(x, wp, num_heads, residual)
+    check_row_width(d)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, (b, l, d), bf16, dev)
     _check("dy", dy, (b, l, d), bf16, dev)
@@ -603,8 +646,8 @@ def _attn_sublayer_bwd_cuda(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int
         _check("bqkv", bqkv, (3 * a,), f32, dev)
     _check("wp", wp, (a, d), bf16, dev)
     lib = load_library()
-    _check_seq_len(lib, l, backward=True)
-    ws = torch.empty(lib.duodiff_attn_sublayer_bwd_workspace(b, l, d, num_heads),
+    _check_seq_len(lib, l, dh, backward=True)
+    ws = torch.empty(lib.duodiff_attn_sublayer_bwd_workspace(b, l, d, num_heads, dh),
                      dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
     dg, db, dbp = (torch.empty(d, dtype=f32, device=dev) for _ in range(3))
@@ -614,7 +657,7 @@ def _attn_sublayer_bwd_cuda(x, dy, ln_s, ln_b, wqkv, bqkv, wp, *, num_heads: int
     err = lib.duodiff_attn_sublayer_bwd(
         _ptr(x), _ptr(dy), _ptr(ln_s), _ptr(ln_b), _ptr(wqkv), _ptr(bqkv), _ptr(wp),
         _ptr(dx), _ptr(dg), _ptr(db), _ptr(dwqkv), _ptr(dbqkv), _ptr(dwp), _ptr(dbp),
-        _ptr(ws), b, l, d, num_heads, int(residual), eps,
+        _ptr(ws), b, l, d, num_heads, dh, int(residual), eps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(lib, "attention sublayer backward kernel", err)
@@ -629,6 +672,7 @@ def _mlp_bwd_dims(x, dy, ln_s, ln_b, w1, b1, w2):
     hid = w1.shape[1]
     if d % 8 or hid % 8:
         raise ValueError(f"D and the hidden width must be multiples of 8: {d}, {hid}")
+    check_row_width(d)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, (b, l, d), bf16, dev)
     _check("dy", dy, (b, l, d), bf16, dev)
@@ -702,7 +746,7 @@ def fused_attn_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, *,
     full-width form on :func:`pack_attn`'s operands, ``"v1"`` the per-head
     form (K1-v1) on :func:`pack_attn_v1`'s; each refuses the other's packing.
     ``residual=False`` is v2's tensor-parallel shard form: ``num_heads``
-    local heads (A = num_heads * 64 <= D) and the partial ``proj + bp``
+    local heads (A = num_heads * Dh <= D) and the partial ``proj + bp``
     without ``x +``; its launches count in ``.launches_shard``. v1 has the
     square residual form only, as in the JAX package; its launches count in
     ``.launches_v1``."""

@@ -40,18 +40,15 @@ import torch
 import torch.nn.functional as F
 
 from duodiff_tpu_torch.ops.block import (
-    HEAD_DIM,
+    ROW_MAX_WIDTH,
     _check,
     _check_seq_len,
     _layer_norm,
     _ptr,
     _raise_on_error,
     attention_core_plain,
+    head_width,
 )
-
-# the widest row the LayerNorm + quant pass holds in a warp's registers
-# (csrc/quant.cuh)
-LN_QUANT_MAX_WIDTH = 1024
 
 
 def quantize_weight_int8(w: torch.Tensor, extra_col_scale=None):
@@ -242,13 +239,12 @@ def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, b
         raise ValueError(f"x must be (B, L, D), got {tuple(x.shape)}")
     b, l, d = x.shape
     a = wp8.shape[1]
-    if a != d or a != num_heads * HEAD_DIM:
-        raise ValueError(
-            f"the kernel takes the square form A == D == num_heads * {HEAD_DIM}: "
-            f"A={a}, D={d}, num_heads={num_heads}"
-        )
-    if d % 16 or d > LN_QUANT_MAX_WIDTH:
-        raise ValueError(f"D must be a multiple of 16 and at most {LN_QUANT_MAX_WIDTH}, got {d}")
+    if a != d:
+        raise ValueError(f"the kernel takes the square form A == D: A={a}, D={d}, "
+                         f"num_heads={num_heads}")
+    dh = head_width(a, num_heads, "the kernel's square form A == D")
+    if d % 16 or d > ROW_MAX_WIDTH:
+        raise ValueError(f"D must be a multiple of 16 and at most {ROW_MAX_WIDTH}, got {d}")
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, (b, l, d), bf16, dev)
     _check("ln_scale", ln_scale, (d,), f32, dev)
@@ -263,7 +259,7 @@ def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, b
     if inv is not None:
         _check("inv", inv, (2,), f32, dev)
     lib = load_library()
-    _check_seq_len(lib, l)
+    _check_seq_len(lib, l, dh)
     m = b * l
     x8 = torch.empty((m, d), dtype=i8, device=dev)  # reused for the merged heads
     rs = torch.empty((m,), dtype=f32, device=dev) if inv is None else None
@@ -273,7 +269,7 @@ def _attn_sublayer_int8_cuda(x, ln_scale, ln_bias, wqkv8, sqkv, bqkv, wp8, sp, b
     err = lib.duodiff_attn_sublayer_int8(
         _ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv8), _ptr(sqkv), _ptr(bqkv),
         _ptr(wp8), _ptr(sp), _ptr(bp), _ptr(inv), _ptr(x8), _ptr(rs), _ptr(qkv), _ptr(merged),
-        _ptr(y), b, l, d, num_heads, eps, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(y), b, l, d, num_heads, dh, eps, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(lib, "int8 attention sublayer kernel", err)
     return y
@@ -292,9 +288,9 @@ def _mlp_sublayer_int8_cuda(x, ln_scale, ln_bias, w1_8, s1, b1, w2_8, s2, b2, in
         raise ValueError(f"x must be (B, L, D), got {tuple(x.shape)}")
     b, l, d = x.shape
     hid = w1_8.shape[0]
-    if d % 16 or hid % 16 or d > LN_QUANT_MAX_WIDTH:
+    if d % 16 or hid % 16 or d > ROW_MAX_WIDTH:
         raise ValueError(f"D and the hidden width must be multiples of 16, D at most "
-                         f"{LN_QUANT_MAX_WIDTH}: {d}, {hid}")
+                         f"{ROW_MAX_WIDTH}: {d}, {hid}")
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     _check("x", x, (b, l, d), bf16, dev)
     _check("ln_scale", ln_scale, (d,), f32, dev)

@@ -13,7 +13,7 @@
 Each wrapper takes the plain PyTorch version (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`) for a tensor on the CPU. For a CUDA
 tensor it launches its kernel or raises; it counts its launches in
-``.launches``. The kernels take bf16 and head width 64.
+``.launches``. The kernels take bf16 and head width 64 or 72 (``HEAD_WIDTHS``).
 
 Numerics follow the Pallas kernels: q * scale in fp32 rounded to the input
 dtype, fp32 scores, row max and exp, the fp32 sum of the unrounded e as the
@@ -26,7 +26,14 @@ from __future__ import annotations
 
 import torch
 
-from duodiff_tpu_torch.ops.block import HEAD_DIM, _check, _check_seq_len, _ptr, _raise_on_error
+from duodiff_tpu_torch.ops.block import (
+    HEAD_WIDTHS,
+    _check,
+    _check_seq_len,
+    _ptr,
+    _raise_on_error,
+    _widths_text,
+)
 
 
 def _softmax_parts(q, k):
@@ -67,30 +74,32 @@ def flash_attention_bwd_plain(q, k, v, do):
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def _dims(q, tensors: dict):
-    """(B, H, L) of (B, H, L, 64) bf16 CUDA tensors the kernels take."""
+def _dims(q, tensors: dict, widths=HEAD_WIDTHS):
+    """(B, H, L, Dh) of (B, H, L, Dh) bf16 CUDA tensors the kernels take, Dh
+    one of ``widths``."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, Dh), got {tuple(q.shape)}")
     b, h, l, dh = q.shape
-    if dh != HEAD_DIM:
-        raise ValueError(f"the attention kernels take head width {HEAD_DIM}, got {dh}")
+    if dh not in widths:
+        raise ValueError(f"the attention kernels take head width {_widths_text(widths)}, "
+                         f"got {dh}")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the attention kernels take bfloat16 on a CUDA device, got {q.dtype}: "
                         "use impl 'xla' for other dtypes")
     for name, t in tensors.items():
         _check(name, t, (b, h, l, dh), torch.bfloat16, q.device)
-    return b, h, l
+    return b, h, l, dh
 
 
 def _flash_attention_cuda(q, k, v):
     """Check the operands and launch K9 (csrc/flash_attention.cu)."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    b, h, l = _dims(q, {"q": q, "k": k, "v": v})
+    b, h, l, dh = _dims(q, {"q": q, "k": k, "v": v})
     lib = load_library()
-    _check_seq_len(lib, l)
+    _check_seq_len(lib, l, dh)
     out = torch.empty_like(q)
-    err = lib.duodiff_flash_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, l,
+    err = lib.duodiff_flash_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, l, dh,
                                       torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(lib, "attention kernel", err)
     return out
@@ -100,15 +109,15 @@ def _flash_attention_bwd_cuda(q, k, v, do):
     """Check the operands and launch K10 (csrc/flash_attention_bwd.cu)."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    b, h, l = _dims(q, {"q": q, "k": k, "v": v, "do": do})
+    b, h, l, dh = _dims(q, {"q": q, "k": k, "v": v, "do": do})
     lib = load_library()
-    _check_seq_len(lib, l, backward=True)
+    _check_seq_len(lib, l, dh, backward=True)
     stats = torch.empty(lib.duodiff_flash_attention_bwd_stats(b, h, l), dtype=torch.float32,
                         device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     err = lib.duodiff_flash_attention_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats),
-        b, h, l, torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, l, dh, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(lib, "attention backward kernel", err)
     return dq, dk, dv

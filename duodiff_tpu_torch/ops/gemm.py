@@ -38,13 +38,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from duodiff_tpu_torch.ops.block import _check, _layer_norm, _ptr, _raise_on_error, gelu_grad
-from duodiff_tpu_torch.ops.block_int8 import (
-    LN_QUANT_MAX_WIDTH,
-    _int8_matmul,
-    _quant_rows,
-    _quant_rows_static,
+from duodiff_tpu_torch.ops.block import (
+    ROW_MAX_WIDTH,
+    _check,
+    _layer_norm,
+    _ptr,
+    _raise_on_error,
+    gelu_grad,
 )
+from duodiff_tpu_torch.ops.block_int8 import _int8_matmul, _quant_rows, _quant_rows_static
 
 GELU_MODES = {"none": 0, "erf": 1, "tanh": 2}
 # the int8 GEMM's epilogues: (C entry mode, output type)
@@ -219,8 +221,8 @@ def _ln_quant_rows_cuda(x, gamma, beta, inv, *, eps: float, first: bool):
     if x.dim() != 2:
         raise ValueError(f"x must be (M, D), got {tuple(x.shape)}")
     m, d = x.shape
-    if d % 8 or d > LN_QUANT_MAX_WIDTH:
-        raise ValueError(f"D must be a multiple of 8 and at most {LN_QUANT_MAX_WIDTH}, got {d}")
+    if d % 8 or d > ROW_MAX_WIDTH:
+        raise ValueError(f"D must be a multiple of 8 and at most {ROW_MAX_WIDTH}, got {d}")
     dev, f32 = x.device, torch.float32
     _check("x", x, (m, d), torch.bfloat16, dev)
     _check("gamma", gamma, (d,), f32, dev)

@@ -20,7 +20,8 @@ the ``1/sqrt(Dh)`` scale: the probe times the chain, not an attention layer.
 Each wrapper takes its plain PyTorch version (:func:`sdpa_chain_bf16_plain`,
 :func:`sdpa_chain_int8_plain`) for a tensor on the CPU. For a CUDA tensor it
 launches its kernel or raises; it counts its launches in ``.launches``. The
-kernels take bf16, head width 64 and L <= 272. The plain int8 products go through
+kernels take bf16 and L <= 272, the bf16 form head width 64 or 72 (the bf16
+core's), the int8 form 64. The plain int8 products go through
 float64, which holds every partial sum of int8 products exactly, as XLA's
 int32 ``dot_general`` does.
 """
@@ -29,7 +30,13 @@ from __future__ import annotations
 
 import torch
 
-from duodiff_tpu_torch.ops.block import _MAX_SMEM_BYTES, _check_seq_len, _ptr, _raise_on_error
+from duodiff_tpu_torch.ops.block import (
+    _MAX_SMEM_BYTES,
+    HEAD_WIDTHS,
+    _check_seq_len,
+    _ptr,
+    _raise_on_error,
+)
 from duodiff_tpu_torch.ops.block_int8 import _quant_rows
 from duodiff_tpu_torch.ops.flash_attention import _dims
 
@@ -76,13 +83,16 @@ def _launch(entry: str, smem_entry: str | None, what: str, q, k, v):
     length to the bf16 core's limit."""
     from duodiff_tpu_torch.ops._build import load_library
 
-    b, h, l = _dims(q, {"q": q, "k": k, "v": v})
+    int8 = smem_entry is not None
+    b, h, l, dh = _dims(q, {"q": q, "k": k, "v": v}, widths=(64,) if int8 else HEAD_WIDTHS)
     lib = load_library()
-    _check_seq_len(lib, l, int8=smem_entry is not None)
+    _check_seq_len(lib, l, dh, int8=int8)
     if smem_entry is not None and getattr(lib, smem_entry)(l) > _MAX_SMEM_BYTES:
         raise ValueError(f"sequence length {l} does not fit the {what}")
     out = torch.empty_like(q)
+    # the int8 entry has no width argument: its core takes 64 only
     err = getattr(lib, entry)(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, l,
+                              *(() if int8 else (dh,)),
                               torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(lib, what, err)
     return out

@@ -270,7 +270,7 @@ def k11_launch_keeping(x, ops, heads: int, eps: float = 1e-5):
     err = lib.duodiff_attn_sublayer_int8(
         _ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv8), _ptr(sqkv), _ptr(bqkv),
         _ptr(wp8), _ptr(sp), _ptr(bp), None, _ptr(x8), _ptr(rs), _ptr(qkv), _ptr(merged),
-        _ptr(y), b, l, d, heads, eps, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(y), b, l, d, heads, d // heads, eps, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(lib, "int8 attention sublayer kernel", err)
     return y, {"qkv": qkv, "merged": merged, "m8": x8, "mrs": rs}

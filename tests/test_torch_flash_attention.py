@@ -174,7 +174,7 @@ def test_kernel_operand_checks(what):
     (the checks run on the tensors' metadata)."""
     q = torch.zeros(1, 2, 18, 64, dtype=torch.bfloat16)
     bad = {
-        "head_dim": (q[..., :32], ValueError, "head width 64"),
+        "head_dim": (q[..., :32], ValueError, "head width 64 or 72, got 32"),
         "dtype": (q.float(), TypeError, "bfloat16"),
         "rank": (q[0], ValueError, r"\(B, H, L, Dh\)"),
         "shape": (q, ValueError, "is on cpu"),
@@ -184,17 +184,22 @@ def test_kernel_operand_checks(what):
 
 
 class _Limits:
-    """Stands in for the loaded kernel library: it knows the cores' longest
-    sequence and has no kernel entry, so a call that got past the length
-    check would fail with AttributeError, not ValueError."""
+    """Stands in for the loaded kernel library: it knows the cores' head
+    widths and their longest sequence at each, and has no kernel entry, so a
+    call that got past the length check would fail with AttributeError, not
+    ValueError."""
 
     @staticmethod
-    def duodiff_attn_core_max_len():
-        return 272
+    def duodiff_attn_head_width(i):
+        return (64, 72)[i] if i < 2 else 0
 
     @staticmethod
-    def duodiff_attn_bwd_core_max_len():
-        return 272
+    def duodiff_attn_core_max_len(dh):
+        return 272 if dh in (64, 72) else 0
+
+    @staticmethod
+    def duodiff_attn_bwd_core_max_len(dh):
+        return 272 if dh in (64, 72) else 0
 
 
 @pytest.mark.parametrize("kernel", ["K9", "K10", "K1", "K6"])
@@ -227,7 +232,7 @@ def test_wrappers_refuse_a_sequence_the_cores_cannot_hold(kernel, monkeypatch):
 def test_length_check_takes_the_limit_itself():
     from duodiff_tpu_torch.ops.block import _check_seq_len
 
-    _check_seq_len(_Limits, 272)
-    _check_seq_len(_Limits, 272, backward=True)
+    _check_seq_len(_Limits, 272, 64)
+    _check_seq_len(_Limits, 272, 64, backward=True)
     with pytest.raises(ValueError, match="backward core"):
-        _check_seq_len(_Limits, 273, backward=True)
+        _check_seq_len(_Limits, 273, 64, backward=True)

@@ -200,9 +200,9 @@ def test_int8_launchers_refuse_what_the_kernels_do_not_take():
         gemm.gemm_int8_plain(a8, b8, col, epilogue="relu")
     with pytest.raises(ValueError, match="gelu"):
         gemm.gemm_int8_plain(a8, b8, col, epilogue="gelu_f32", gelu="sigmoid")
-    x = torch.randn(4, 1032).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="at most 1024"):
-        gemm._ln_quant_rows_cuda(x, torch.ones(1032), torch.zeros(1032), None, eps=1e-5,
+    x = torch.randn(4, 2056).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 2048"):
+        gemm._ln_quant_rows_cuda(x, torch.ones(2056), torch.zeros(2056), None, eps=1e-5,
                                  first=False)
     with pytest.raises(ValueError, match="CUDA"):
         gemm._ln_quant_rows_cuda(x[:, :64], torch.ones(64), torch.zeros(64), None, eps=1e-5,
@@ -301,12 +301,12 @@ def test_int8_sublayers_match_pallas_at_ragged_rows(variant, dtype_name):
 
 
 def test_int8_sublayer_launchers_refuse_rows_wider_than_the_ln_pass():
-    xt = torch.zeros(1, 4, 1040, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="at most 1024"):
-        q._mlp_sublayer_int8_cuda(xt, torch.ones(1040), torch.zeros(1040),
-                                  torch.zeros(16, 1040, dtype=torch.int8), torch.ones(16),
-                                  torch.zeros(16), torch.zeros(1040, 16, dtype=torch.int8),
-                                  torch.ones(1040), torch.zeros(1040), None, gelu_approx=False,
+    xt = torch.zeros(1, 4, 2064, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 2048"):
+        q._mlp_sublayer_int8_cuda(xt, torch.ones(2064), torch.zeros(2064),
+                                  torch.zeros(16, 2064, dtype=torch.int8), torch.ones(16),
+                                  torch.zeros(16), torch.zeros(2064, 16, dtype=torch.int8),
+                                  torch.ones(2064), torch.zeros(2064), None, gelu_approx=False,
                                   eps=1e-5)
 
 

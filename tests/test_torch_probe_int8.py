@@ -348,7 +348,7 @@ def test_k15_launchers_refuse_what_the_kernels_do_not_take():
         before = fn.launches
         fn(qt, kt, vt)
         assert fn.launches == before  # the CPU path launches nothing
-    with pytest.raises(ValueError, match="head width 64"):
+    with pytest.raises(ValueError, match="head width 64, got 32"):
         sdpa_int8._launch("duodiff_sdpa_chain_int8", "duodiff_sdpa_int8_smem_bytes", "core",
                           qt[..., :32], kt[..., :32], vt[..., :32])
     with pytest.raises(TypeError, match="bfloat16"):
@@ -362,8 +362,8 @@ class _CoreLimits:
     a call that got past the checks fails with AttributeError."""
 
     @staticmethod
-    def duodiff_attn_core_max_len():
-        return 272
+    def duodiff_attn_core_max_len(dh):
+        return 272 if dh in (64, 72) else 0
 
     @staticmethod
     def duodiff_sdpa_int8_max_len():

@@ -10,6 +10,7 @@ route. Nothing here needs a card; the graphs themselves are held to the
 eager loop on the card by ``chip_smoke.py``'s phase 19."""
 
 import contextlib
+import gc
 import types
 
 import numpy as np
@@ -458,6 +459,39 @@ def test_counter_deltas_are_added_per_replay(monkeypatch):
         assert block.fused_mlp_sublayer.launches == 13 * n
     assert len(runs) == 2 and StubGraph.replays == 4  # warm-up and capture; 4 replays
     assert graph.deltas == {"fused_attn_sublayer": 13, "fused_mlp_sublayer": 13}
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+@pytest.mark.parametrize("fails", [False, True])
+def test_no_garbage_collection_runs_during_a_capture(monkeypatch, enabled, fails):
+    """A collection inside a capture could tear down an earlier run's graph
+    held in a cycle, which spoils the capture on the card: the capture runs
+    with automatic collection off, and leaves it as it found it, also when
+    the body raises."""
+    monkeypatch.setattr(graphs, "_new_graph", StubGraph)
+    monkeypatch.setattr(graphs, "_capture", lambda g, pool: contextlib.nullcontext())
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        if fails and len(seen) == 2:
+            raise RuntimeError("capture failed")
+
+    graph = graphs.StepGraph(body)
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        graph()  # the eager warm-up
+        if fails:
+            with pytest.raises(RuntimeError, match="capture failed"):
+                graph()
+        else:
+            graph()
+        after = gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+    assert seen == [enabled, False]
+    assert after == enabled
 
 
 def test_cpu_tensors_are_refused():

@@ -228,7 +228,7 @@ class _Lib:
 
     def __getattr__(self, name):
         if name.endswith("_max_len"):
-            return lambda: 272
+            return lambda *a: 272
         if name.endswith("_workspace"):
             return lambda *a: 16
         return lambda *a: self.calls.append((name, a)) or 0
