@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``duodiff_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21]
+    python3 chip_smoke.py [--phases 2,3,4,4b,5,5b,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22]
 
 Drives the port's main paths at the full width of the CelebA-64 U-ViT
-(D = 512), of the class-conditional ImageNet-64 U-ViT (D = 768), of the
-latent ImageNet-256 U-ViT (D = 1024) and of U-ViT-H/2 (D = 1152, 16 heads of
-72) and checks them, in phases, each printing its results on its own lines:
+(D = 512; at patch 4, L = 257, and at patch 2, L = 1025), of the
+class-conditional ImageNet-64 U-ViT (D = 768), of the latent ImageNet-256
+U-ViT (D = 1024) and of U-ViT-H/2 (D = 1152, 16 heads of 72) and checks them,
+in phases, each printing its results on its own lines:
 
 1. set-up: the card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the build of the CUDA kernels from ``duodiff_tpu_torch/csrc``;
@@ -294,7 +295,33 @@ latent ImageNet-256 U-ViT (D = 1024) and of U-ViT-H/2 (D = 1152, 16 heads of
    cache, every batch encoded, bf16, batch 32: fused 40 steps (the loss must
    fall as 13e's) and pallas 4 steps (finite), with peak memory and step
    time. Its launches are added to the records of K1, K2, K6, K7, K9, K10,
-   K11 and K12, and kept apart as ``launches_21``.
+   K11 and K12, and kept apart as ``launches_21``;
+22. past 272 tokens: CelebA-64 at patch 2 (``main.py``'s default patch at
+   ``--img_size 64``: L = 1025, D = 512, 8 heads of 64), where the attention
+   core takes its blocked form (``csrc/attn_core.cuh``), the depth-3 and
+   depth-13 configs written with ``config.write_config`` into a temporary
+   directory: (a) ptxas's report of the blocked core and the library's
+   limits (the forward core at least 1,025 at head widths 64 and 72, the
+   backward core 272); the blocked form forced at L = 257 and 258 equal to
+   the register form to the bit at both widths in both forms (the measuring
+   entry ``csrc/attn_core_entry.cu``), the two timed side by side at 258;
+   K1, K2, K11 (dynamic and static), K12, K1-v1 and K5 at batch 32 and K9,
+   K15's bf16 form and the core alone at (32, 8, 1025, 64), K9 at (8, 16,
+   1025, 72), each against its plain version with phase 2's gates, timed
+   beside its bound and ``F.scaled_dot_product_attention``; K9 at the
+   forward core's limit, and one past it refused with the limit named; a
+   train step at L = 1025 (fused, pallas) refused with the backward core's
+   limit named; the depth-13 forward, fused against plain and pallas
+   against pallas_plain, held as phase 3 holds the depth-17 forwards;
+   through the sampling CLI, batch 32, random weights from a seed: (b) 8
+   depth-13 steps graphed and eager, equal to the bit, then bf16 ``fused``
+   DuoDiff, depth 3 for 75 of 250 steps, then depth 13; (c) ``fused_int8``
+   with dynamic scales on the depth-13 model, 50 steps; (d) ``--attn_impl
+   pallas``, the pair over 20 steps; exact launch counts, samples/s and peak
+   memory. Its launches are added to the records of K1, K2, K9, K11 and K12
+   and kept apart as ``launches_22``; the record lists the blocked core
+   apart (``attn_core_blocked``), with the launches of K1, K11 and K9 in
+   22b-d.
 
 The tools of phases 10d, 10e, 11c, 12e and 17 replay step graphs on the card
 as the CLIs do, and each of those phases holds the loops it runs graphed
@@ -573,7 +600,7 @@ PROBE_KERNELS = {
 # Frobenius error alone. Against the bf16 form it is held under SDPA_INT8_REL.
 SDPA_INT8_REL = 5e-2
 PHASES = ("2", "3", "4", "4b", "5", "5b", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18", "19", "20", "21")
+          "15", "16", "17", "18", "19", "20", "21", "22")
 # A stack of 17 blocks with no long skips carries every block's bf16
 # roundings, forward and backward, through all the blocks behind it: the
 # gradients of FusedBlockFn against autograd through block_plain over the
@@ -2112,12 +2139,13 @@ def report_core_occupancy(dh: int, lengths, phase: str) -> None:
 
     lib = load_library()
     limits = (lib.duodiff_attn_core_max_len(dh), lib.duodiff_attn_bwd_core_max_len(dh))
-    print(f"{phase}: head width {dh}: the forward core takes L <= {limits[0]}, the backward "
-          f"core L <= {limits[1]}", flush=True)
+    print(f"{phase}: head width {dh}: the forward core takes L <= {limits[0]} (its register "
+          f"form L <= {lib.duodiff_attn_core_registers_max_len()}), the backward core "
+          f"L <= {limits[1]}", flush=True)
     for l in lengths:
         if l > min(limits):
             fail(f"the attention cores do not take L={l} at head width {dh}")
-        fwd = (lib.duodiff_attn_core_warps(), lib.duodiff_attn_core_smem_bytes(l, dh),
+        fwd = (lib.duodiff_attn_core_warps(l), lib.duodiff_attn_core_smem_bytes(l, dh),
                lib.duodiff_attn_core_blocks_per_sm(l, dh))
         row, key = ((lib.duodiff_attn_bwd_core_warps(k),
                      lib.duodiff_attn_bwd_core_smem_bytes(l, k, dh),
@@ -2418,13 +2446,15 @@ def kernel_bounds(width: Width = CELEBA, batch: int = MAIN_BATCH,
     """bound_ms / bound_by of each kernel at the shapes its main path gives
     it: every input read once and every output written once (activations
     bf16, weights bf16 or int8, weight gradients fp32) against the
-    operations of its matrix products; K9 and K10 at head width ``dh``."""
+    operations of its matrix products, at the sequence length ``width.l``
+    (its attention products grow as L squared); K9, K10 and K15 at head
+    width ``dh``."""
     l, d, _ = width
     rows, act = batch * l, batch * l * d * 2  # one (B, L, D) bf16 tensor
     bh, la = attention_shape[0] * attention_shape[1], attention_shape[2]
     head = bh * la * dh * 2  # one (B, H, L, Dh) bf16 tensor
     ch, lc = chain_shape[0] * chain_shape[1], chain_shape[2]  # K15, the probe's (B, H, L)
-    chain_ops, chain_bytes = 4 * ch * lc * lc * 64, 4 * ch * lc * 64 * 2
+    chain_ops, chain_bytes = 4 * ch * lc * lc * dh, 4 * ch * lc * dh * 2
     return {
         "fused_attn_sublayer": bound(rows * (8 * d * d + 4 * l * d), 0, 2 * act + 8 * d * d),
         "fused_mlp_sublayer": bound(rows * 16 * d * d, 0, 2 * act + 16 * d * d),
@@ -4981,6 +5011,365 @@ def run_uvit_h(device, card: str, results: dict) -> dict:
             del trainer
         release_memory()
     print(json.dumps({"phase21_launches": {
+        run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}), flush=True)
+    return runs
+
+
+# phase 22: past 272 tokens. CelebA-64 at patch 2 (main.py's default patch at
+# --img_size 64): 1,024 patches and the time token, D = 512, 8 heads of 64, the
+# widths of configs/uvit_celeba.yaml and uvit_celeba_3.yaml; the attention core
+# takes its blocked form there (csrc/attn_core.cuh)
+LONG_SEQ = Width(1025, 512, 8)
+LONG_BATCH = 32             # 22a's kernels, 22b-d's sampling batch
+LONG_WIDE = (8, 16, 1025, 72)  # 22a: K9 at head width 72, (B, H, L, Dh)
+LONG_SUFFIX = "_l1025"
+LONG_PATCH = 2
+LONG_INT8_STEPS = 50        # 22c, as 21c
+LONG_GRAPH_STEPS = 8        # 22b: the depth-13 model's steps, graphed against eager
+BIT_LENGTHS = (257, 258)    # 22a: the blocked form against the register form, to the bit
+# K1, K1-v1, K5, K9, K11 and K15's bf16 form run the blocked core past 272 tokens; the
+# record lists it apart, with the launches of K1, K11 and K9 in 22b-d (one each a call)
+BLOCKED_KERNEL = {
+    "attn_core_blocked": {
+        "source": "duodiff_tpu_torch/csrc/attn_core.cuh",
+        "replaces": "duodiff_tpu/ops/pallas_attention.py:30",
+    },
+}
+
+
+def report_blocked_core(phase: str) -> None:
+    """Phase 22a: what ptxas says of the blocked forward core in every unit
+    that launches it (registers and spills a thread), and what the library
+    says of the core past 272 tokens at both head widths: the limits (the
+    forward core at least 1,025, the backward core's 272), warps, shared
+    memory and blocks an SM at L = 1025. Fails under 1,025 or eight warps an
+    SM."""
+    from duodiff_tpu_torch.ops._build import kernel_resources, load_library
+
+    for unit in ("attn_core_entry", "attn_sublayer", "attn_sublayer_v1", "fused_block",
+                 "flash_attention", "attn_sublayer_int8", "sdpa_int8"):
+        for rec in kernel_resources(unit):
+            if "attn_core_blocked_kernel" not in rec["entry"]:
+                continue
+            form = "normalise first" if "ILb1" in rec["entry"] else "default"
+            width = re.search(r"HeadDimILi(\d+)", rec["entry"]).group(1)
+            print(f"{phase}: blocked core, {form}, head width {width} ({unit}.cu): "
+                  f"{rec['registers']} registers a thread, spill stores {rec['spill_stores']} B, "
+                  f"spill loads {rec['spill_loads']} B, stack {rec['stack']} B", flush=True)
+    lib = load_library()
+    for dh in (64, 72):
+        limit, bwd = lib.duodiff_attn_core_max_len(dh), lib.duodiff_attn_bwd_core_max_len(dh)
+        l = LONG_SEQ.l
+        warps, smem = lib.duodiff_attn_core_warps(l), lib.duodiff_attn_core_smem_bytes(l, dh)
+        blocks = lib.duodiff_attn_core_blocks_per_sm(l, dh)
+        print(f"{phase}: head width {dh}: the forward core takes L <= {limit} (the register "
+              f"form L <= {lib.duodiff_attn_core_registers_max_len()}), the backward core "
+              f"L <= {bwd}; at L={l} the forward core has {warps} warps a block, {smem} B of "
+              f"shared memory, {blocks} blocks an SM", flush=True)
+        if limit < l or warps * blocks < 8:
+            fail(f"the forward core does not take L={l} at head width {dh}, or holds fewer than "
+                 "eight warps an SM there")
+
+
+def check_blocked_bits(device, results: dict, phase: str) -> None:
+    """Phase 22a: the blocked form forced at BIT_LENGTHS against the register
+    form through the measuring entry (ops/flash_attention.py:attn_core_form),
+    at head widths 64 and 72, in the default form (K9's scale) and the
+    normalise-first one (K1-v1's), at (LONG_BATCH, 8, L): equal to the bit, or
+    the phase fails; then both forms timed in turns at L = 258."""
+    from duodiff_tpu_torch.ops import flash_attention as fa
+
+    for dh in (64, 72):
+        for norm_first in (False, True):
+            for l in BIT_LENGTHS:
+                g = torch.Generator().manual_seed(2200 + l + dh)
+                q, k, v = (torch.randn((LONG_BATCH, 8, l, dh), generator=g)
+                           .to(torch.bfloat16).to(device) for _ in range(3))
+                regs = fa.attn_core_form(q, k, v, form="registers", norm_first=norm_first)
+                blocked = fa.attn_core_form(q, k, v, form="blocked", norm_first=norm_first)
+                torch.cuda.synchronize()
+                same = torch.equal(regs, blocked)
+                print(f"{phase}: L={l} Dh={dh} {'normalise first' if norm_first else 'default'}: "
+                      f"blocked form equal to the register form to the bit: {same} "
+                      f"({int((regs != blocked).sum())} of {regs.numel()} entries differ)",
+                      flush=True)
+                if not same:
+                    fail(f"the blocked core differs from the register core at L={l}, Dh={dh}")
+            ms = time_ms({"registers": lambda: fa.attn_core_form(q, k, v, form="registers",
+                                                                 norm_first=norm_first),
+                          "blocked": lambda: fa.attn_core_form(q, k, v, form="blocked",
+                                                               norm_first=norm_first)})
+            key = f"bits_{'v1' if norm_first else 'default'}_dh{dh}"
+            results["attn_core_blocked"][key + "_registers_ms_l258"] = ms["registers"]
+            results["attn_core_blocked"][key + "_blocked_ms_l258"] = ms["blocked"]
+            print(f"{phase}: (B, H, L, Dh) = ({LONG_BATCH}, 8, 258, {dh}), "
+                  f"{'normalise first' if norm_first else 'default'}: register form "
+                  f"{ms['registers']:.6g} ms, blocked form {ms['blocked']:.6g} ms in turns",
+                  flush=True)
+
+
+def check_long_attention(device, results: dict, phase: str) -> None:
+    """Phase 22a: K9 at (LONG_BATCH, 8, 1025, 64) and at LONG_WIDE, K15's bf16
+    form and the blocked core alone (the measuring entry, K9's form) at
+    (LONG_BATCH, 8, 1025, 64), each against its plain version as phase 2
+    holds K9 (FWD_REL_FRO and KERNEL_MAX_FRAC of the largest value), timed,
+    with F.scaled_dot_product_attention (scale 1 beside K15) timed beside
+    them; then K9 at the forward core's limit against plain and one past it
+    refused, naming the limit."""
+    import torch.nn.functional as F
+
+    from duodiff_tpu_torch.ops import flash_attention as fa
+    from duodiff_tpu_torch.ops import sdpa_int8
+    from duodiff_tpu_torch.ops._build import load_library
+
+    b, h, l, sfx = LONG_BATCH, LONG_SEQ.heads, LONG_SEQ.l, LONG_SUFFIX
+    for shape in ((b, h, l, 64), LONG_WIDE):
+        g = torch.Generator().manual_seed(sum(shape))
+        q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(device)
+                   for _ in range(3))
+        main = shape[-1] == 64
+        where = "B={} H={} L={} Dh={}".format(*shape)
+        cases = [("flash_attention", lambda: fa.flash_attention(q, k, v),
+                  lambda: fa.flash_attention_plain(q, k, v),
+                  lambda: F.scaled_dot_product_attention(q, k, v),
+                  sfx if main else sfx + "_dh72")]
+        if main:
+            cases += [("sdpa_chain_bf16", lambda: sdpa_int8.sdpa_chain_bf16(q, k, v),
+                       lambda: sdpa_int8.sdpa_chain_bf16_plain(q, k, v),
+                       lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), sfx),
+                      ("attn_core_blocked", lambda: fa.attn_core_form(q, k, v),
+                       lambda: fa.attn_core_form_plain(q, k, v),
+                       lambda: F.scaled_dot_product_attention(q, k, v), "")]
+        for name, kernel, plain, library, suffix in cases:
+            compare_kernel(results[name], f"{name} {where}", kernel, plain, suffix, scaled=True,
+                           phase=phase)
+            lib_ms = time_ms({"library": library})["library"]
+            results[name]["library_ms" + suffix] = lib_ms
+            print(f"{phase}: {name} {where}: library yardstick "
+                  f"F.scaled_dot_product_attention {lib_ms:.6g} ms", flush=True)
+    limit = load_library().duodiff_attn_core_max_len(64)
+    g = torch.Generator().manual_seed(limit)
+    q, k, v = (torch.randn((1, 2, limit, 64), generator=g).to(torch.bfloat16).to(device)
+               for _ in range(3))
+    max_abs, bound_abs, rel, ok = scaled_errors(fa.flash_attention(q, k, v),
+                                                fa.flash_attention_plain(q, k, v),
+                                                KERNEL_MAX_FRAC)
+    print(f"{phase}: flash_attention at the forward core's limit B=1 H=2 L={limit}: "
+          f"max_abs_err={max_abs:.6g} (bound {bound_abs:.6g}) rel_fro_err={rel:.6g} "
+          f"(bound {FWD_REL_FRO}) ok={ok}", flush=True)
+    if not ok:
+        fail(f"K9 disagrees with its plain version at L={limit}")
+    del q, k, v
+    q = torch.zeros((1, 1, limit + 1, 64), dtype=torch.bfloat16, device=device)
+    try:
+        fa.flash_attention(q, q, q)
+    except ValueError as err:
+        print(f"{phase}: L={limit + 1} refused: {err}", flush=True)
+        if f"at most {limit}" not in str(err):
+            fail(f"the refusal of L={limit + 1} does not name the limit: {err}")
+    else:
+        fail(f"K9 took L={limit + 1}, past the limit the library reports")
+
+
+def check_long_kernels(device, results: dict) -> None:
+    """Phase 22a: every kernel of the long path against its plain version at
+    (LONG_BATCH, 1025, 512) with phase 2's gates, timed beside its bound: the
+    blocked core's ptxas report and limits, its bits against the register
+    core, K1 (with and without a qkv bias), K2 (erf and tanh), K11 (with and
+    without a qkv bias, and with the asset's static scales), K12 (dynamic and
+    static, erf and tanh), K1-v1 and K5 (K5 also beside K1 then K2), K9 at two
+    widths, K15's bf16 form and the core alone beside the library's call, K9
+    at the limit and past it. The times are kept under LONG_SUFFIX."""
+    from duodiff_tpu_torch.ops import block_int8 as q8
+    from duodiff_tpu_torch.tools.probe_int8_static import ATTN_SCALES
+
+    phase, w, b, sfx = "phase 22a", LONG_SEQ, LONG_BATCH, LONG_SUFFIX
+    report_blocked_core(phase)
+    check_blocked_bits(device, results, phase)
+    check_kernels(device, results, w, suffix=sfx, batches=(b,), timed=b, phase=phase)
+    check_int8_kernels(device, results, w, batches=(b,), suffix=sfx, phase=phase)
+    # K11 with static scales (K14's static body, the int8 probe's two scales):
+    # sx / 127 and sm / 127 folded into the column scales, inv = 127 / s
+    x, norm, qkv, proj, _, _ = block_modules(b, False, width=w)
+    x = x.to(device)
+    ln_w, ln_b, wqkv8, sqkv, bqkv, wp8, sp, bp = to_device(
+        q8.pack_attn_int8(norm, qkv, proj, num_heads=w.heads), device)
+    sx, sm = ATTN_SCALES
+    ops = (ln_w, ln_b, wqkv8, sqkv * (sx / 127.0), bqkv, wp8, sp * (sm / 127.0), bp,
+           q8.static_inv(ATTN_SCALES, device))
+    compare_kernel(results["fused_attn_sublayer_int8"],
+                   f"fused_attn_sublayer_int8 D={w.d} L={w.l} B={b} scales=static",
+                   lambda: q8.fused_attn_sublayer_int8(x, *ops, num_heads=w.heads),
+                   lambda: q8.attn_sublayer_int8_plain(x, *ops, num_heads=w.heads),
+                   sfx + "_static", phase=phase)
+    check_block_kernels(device, results, w, suffix=sfx, batches=(b,), timed=b, phase=phase)
+    check_long_attention(device, results, phase)
+    bounds = kernel_bounds(w, b, attention_shape=(b, w.heads, w.l), chain_shape=(b, w.heads, w.l))
+    bounds["attn_core_blocked"] = bounds["flash_attention"]
+    for name, res in results.items():
+        if "ms" + sfx in res or (name == "attn_core_blocked" and "ms" in res):
+            key = "" if name == "attn_core_blocked" else sfx
+            res["bound_ms" + key] = bounds[name]["bound_ms"]
+            print(f"{phase}: {name} at L={w.l}, batch {b}: {res['ms' + key]:.6g} ms, plain "
+                  f"{res['plain_ms' + key]:.6g} ms, bound {bounds[name]['bound_ms']:.6g} ms (by "
+                  f"{bounds[name]['bound_by']})"
+                  + (f", library {res['library_ms' + key]:.6g} ms" if "library_ms" + key in res
+                     else ""), flush=True)
+    wide = kernel_bounds(w, LONG_WIDE[0], attention_shape=LONG_WIDE[:3], dh=LONG_WIDE[3])
+    results["flash_attention"]["bound_ms" + sfx + "_dh72"] = wide["flash_attention"]["bound_ms"]
+
+
+def check_long_training_refused(device, files: dict) -> None:
+    """Phase 22a: a train step of the depth-3 model at L = 1025 on the card,
+    fused (K1 forward, K6 backward) and pallas (K9, K10), is refused in the
+    backward core's check, which names its limit."""
+    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
+    from duodiff_tpu_torch.training.train_state import make_train_step
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    model, cfg = load_model(files["early"], device=device, seed=0, attn_impl="fused")
+    step = make_train_step(model, NoiseSchedule.create(device=device),
+                           parametrization="predict_noise", seed=0)
+    g = torch.Generator().manual_seed(22)
+    shape = (2, cfg.img_size, cfg.img_size, cfg.in_chans)
+    batch = {"image": (torch.rand(shape, generator=g) * 2 - 1).to(device)}
+    draws = step.draws(batch, 1)
+    for impl in ("fused", "pallas"):
+        set_attn_impl(model, impl)
+        model.train()
+        try:
+            step.backward(batch, *draws)
+        except ValueError as err:
+            print(f"phase 22a: a train step at L={LONG_SEQ.l} ({impl}) refused: {err}",
+                  flush=True)
+            if "attention backward core (at most 272)" not in str(err):
+                fail(f"the refusal of a train step at L={LONG_SEQ.l} does not name the backward "
+                     f"core's limit: {err}")
+        else:
+            fail(f"a train step at L={LONG_SEQ.l} ({impl}) was not refused")
+    del model, step
+
+
+def check_long_model(device, files: dict) -> None:
+    """Phase 22a, the model: the depth-13 CelebA-64 U-ViT at patch 2 (L =
+    1025, random weights, seed 1, bf16) at batch 8, its forward under
+    ``fused`` against ``plain`` and under ``pallas`` against ``pallas_plain``,
+    held as phase 3 holds the depth-17 forwards (MODEL_REL_FRO and
+    MODEL_MAX_FRAC of the largest value)."""
+    from duodiff_tpu_torch.utils.model_loading import load_model
+
+    model, cfg = load_model(files["late"], device=device, seed=1, attn_impl="plain")
+    model.pack_for_kernels()
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn((CHECK_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans), generator=g)
+    x = x.to(device)
+    t = torch.tensor([999.0, 700.0, 500.0, 300.0, 100.0, 10.0, 1.0, 0.0],
+                     device=device)[:CHECK_BATCH]
+
+    def forward(impl):
+        set_attn_impl(model, impl)
+        with torch.inference_mode():
+            return model.eval()(x, t)
+
+    for impl, ref in (("fused", "plain"), ("pallas", "pallas_plain")):
+        max_abs, limit, rel, ok = scaled_errors(forward(impl), forward(ref), MODEL_MAX_FRAC,
+                                                MODEL_REL_FRO)
+        print(f"phase 22a: depth-{cfg.depth} CelebA-64 U-ViT at patch {cfg.patch_size} forward "
+              f"(D={cfg.embed_dim}, L={cfg.num_patches + cfg.extras}) B={CHECK_BATCH} {impl} vs "
+              f"{ref}: rel_fro_err={rel:.6g} (bound {MODEL_REL_FRO}) max_abs_err={max_abs:.6g} "
+              f"(bound {limit:.6g} = {MODEL_MAX_FRAC}*max|plain|) ok={ok}", flush=True)
+        if not ok:
+            fail(f"the L={LONG_SEQ.l} forward through {impl} disagrees with {ref}")
+    del model
+
+
+def write_long_files(work: str) -> dict:
+    """The CelebA-64 pair at patch 2: configs/uvit_celeba_3.yaml's and
+    configs/uvit_celeba.yaml's widths with ``patch_size: 2``, written by
+    ``config.write_config`` into ``work``. Returns their paths by role."""
+    from duodiff_tpu_torch.config import load_model_config, read_model_params, write_config
+
+    files = {}
+    for role, config in (("early", EARLY_CONFIG), ("late", LATE_CONFIG)):
+        params = dict(read_model_params(config), patch_size=LONG_PATCH)
+        files[role] = write_config(f"{work}/uvit_celeba_p2_{params['depth']}.yaml", params)
+        cfg = load_model_config(files[role])
+        if cfg.num_patches + cfg.extras != LONG_SEQ.l or cfg.embed_dim != LONG_SEQ.d:
+            fail(f"{files[role]} does not give L={LONG_SEQ.l} at D={LONG_SEQ.d}")
+    return files
+
+
+def run_long_seq(device, card: str, results: dict) -> dict:
+    """Phase 22: CelebA-64 at patch 2 (L = 1025, D = 512, 8 heads of 64) at
+    full width, where the attention core takes its blocked form: (a) every
+    kernel at L = 1025 against its plain version (check_long_kernels), a
+    train step refused with the backward core's limit named, and the depth-13
+    forward through the kernels against plain (check_long_model); through
+    the sampling CLI, random weights from a seed, the pair's configs written
+    by ``config.write_config``: (b) bf16 ``fused`` DuoDiff, depth 3 for
+    GUIDED_SWITCH of GUIDED_STEPS steps, then depth 13, after the depth-13
+    model's LONG_GRAPH_STEPS steps graphed against eager to the bit; (c)
+    ``fused_int8`` with dynamic scales on the depth-13 model, LONG_INT8_STEPS
+    steps; (d) ``--attn_impl pallas`` (K9), the pair over UVIT_H_PALLAS_STEPS
+    steps; each at batch LONG_BATCH with exact launch counts, samples/s and
+    peak memory beside the card. Returns the launches of each run."""
+    check_long_kernels(device, results)
+    release_memory()
+    runs, b = {}, LONG_BATCH
+    with tempfile.TemporaryDirectory() as work:
+        files = write_long_files(work)
+        pair, late = (files["early"], files["late"]), (files["late"],)
+        check_long_training_refused(device, files)
+        check_long_model(device, files)
+        release_memory()
+
+        kept = {}
+        for graphs in (False, True):
+            kept[graphs] = {}
+            n = LONG_GRAPH_STEPS * 13
+            run_cli(f"phase 22b: depth 13 at L={LONG_SEQ.l}, {LONG_GRAPH_STEPS} steps, "
+                    f"{'graphed' if graphs else 'eager'},", [], card,
+                    {"fused_attn_sublayer": n, "fused_mlp_sublayer": n}, configs=late, batch=b,
+                    t_switch=None, steps=LONG_GRAPH_STEPS, graphs=graphs, keep=kept[graphs])
+        same = np.array_equal(kept[True]["samples"], kept[False]["samples"])
+        print(f"phase 22b: the step graphs' replays against the eager steps at L={LONG_SEQ.l}: "
+              f"samples equal to the bit: {same}", flush=True)
+        if not same:
+            fail(f"the graphed steps at L={LONG_SEQ.l} differ from the eager ones")
+        release_memory()
+
+        n = GUIDED_SWITCH * 3 + (GUIDED_STEPS - GUIDED_SWITCH) * 13
+        runs["22b"] = run_cli(
+            f"phase 22b: DuoDiff {GUIDED_STEPS} steps at L={LONG_SEQ.l} (CelebA-64 at patch "
+            f"{LONG_PATCH}; depth 3 x {GUIDED_SWITCH}, depth 13 x "
+            f"{GUIDED_STEPS - GUIDED_SWITCH}), bf16 fused,", [], card,
+            {"fused_attn_sublayer": n, "fused_mlp_sublayer": n}, configs=pair, batch=b,
+            steps=GUIDED_STEPS, t_switch=GUIDED_SWITCH)
+        print(f"phase 22b: peak memory {torch.cuda.max_memory_allocated() / 2**30:.6g} GiB; "
+              f"card {card}", flush=True)
+        release_memory()
+
+        n = LONG_INT8_STEPS * 13
+        runs["22c"] = run_cli(
+            f"phase 22c: depth 13 at L={LONG_SEQ.l}, fused_int8 with dynamic scales, "
+            f"{LONG_INT8_STEPS} steps,", ["--attn_impl", "fused_int8"], card,
+            {"fused_attn_sublayer_int8": n, "fused_mlp_sublayer_int8": n,
+             "fused_mlp_sublayer_int8 dynamic": n}, configs=late, batch=b, t_switch=None,
+            steps=LONG_INT8_STEPS)
+        print(f"phase 22c: peak memory {torch.cuda.max_memory_allocated() / 2**30:.6g} GiB; "
+              f"card {card}", flush=True)
+        release_memory()
+
+        s, ts = UVIT_H_PALLAS_STEPS, UVIT_H_PALLAS_SWITCH
+        n = ts * 3 + (s - ts) * 13
+        runs["22d"] = run_cli(
+            f"phase 22d: DuoDiff {s} steps at L={LONG_SEQ.l} (depth 3 x {ts}, depth 13 x "
+            f"{s - ts}), attn_impl pallas (K9),", ["--attn_impl", "pallas"], card,
+            {"flash_attention": n}, configs=pair, batch=b, steps=s, t_switch=ts)
+        print(f"phase 22d: peak memory {torch.cuda.max_memory_allocated() / 2**30:.6g} GiB; "
+              f"card {card}", flush=True)
+        release_memory()
+    print(json.dumps({"phase22_launches": {
         run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}), flush=True)
     return runs
 
@@ -7910,7 +8299,7 @@ def main(argv=None) -> int:
 
     card = setup()
     kernels = {**KERNELS, **INT8_KERNELS, **BWD_KERNELS, **ATTENTION_KERNELS, **BLOCK_KERNELS,
-               **PROBE_KERNELS, **SHARD_KERNELS}
+               **PROBE_KERNELS, **SHARD_KERNELS, **BLOCKED_KERNEL}
     results = new_results(kernels)
     launches = {}
     lap("2")
@@ -8071,6 +8460,18 @@ def main(argv=None) -> int:
                 if n and name in kernels:
                     launches[name] = launches.get(name, 0) + n
                     results[name]["launches_21"] = results[name].get("launches_21", 0) + n
+    lap("22")
+    if "22" in run:
+        # L = 1025's launches are added to the records of K1, K2, K9, K11 and K12,
+        # and kept apart; each launch of K1, K11 or K9 there ran the blocked core once
+        for counts in run_long_seq(device, card, results).values():
+            for name, n in counts.items():
+                if n and name in kernels:
+                    launches[name] = launches.get(name, 0) + n
+                    results[name]["launches_22"] = results[name].get("launches_22", 0) + n
+                    if name in ("fused_attn_sublayer", "fused_attn_sublayer_int8",
+                                "flash_attention"):
+                        launches["attn_core_blocked"] = launches.get("attn_core_blocked", 0) + n
     lap("end")
     print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "
           "started", flush=True)
@@ -8094,6 +8495,10 @@ def main(argv=None) -> int:
         for name, b in shard_bounds(width, mp).items():
             if "ms" + suffix in results[name]:
                 bounds[name] = {**bounds[name], "bound_ms" + suffix: b["bound_ms"]}
+    # the blocked core alone (22a): K9's function at L = 1025
+    bounds["attn_core_blocked"] = kernel_bounds(
+        LONG_SEQ, LONG_BATCH, attention_shape=(LONG_BATCH, LONG_SEQ.heads, LONG_SEQ.l)
+    )["flash_attention"]
     # K9 and K10 on a rank's heads (16a)
     for h, suffix in HEAD_SHARDS:
         for name, b in kernel_bounds(attention_shape=(MAIN_BATCH, h, IMAGENET.l)).items():

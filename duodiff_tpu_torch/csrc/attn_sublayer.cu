@@ -3,8 +3,9 @@
 //   y = x + proj(SDPA(qkv(LN(x)))) + b_proj,   x (B, L, D) bf16,
 //
 // as four launches: LayerNorm rows (layernorm.cuh), the qkv GEMM
-// (gemm.cuh), the attention core (attn_core.cuh), and the proj GEMM with
-// the fp32 residual and bias in its epilogue.
+// (gemm.cuh), the attention core (attn_core.cuh: the register form up to
+// L = 272, the blocked form past it), and the proj GEMM with the fp32
+// residual and bias in its epilogue.
 //
 // Replaces: duodiff_tpu/ops/pallas_block.py fused_attn_sublayer, variant
 // "v2" (kernel _kernel_v2). The TPU kernel keeps everything in VMEM; here
@@ -35,10 +36,12 @@ extern "C" int duodiff_attn_head_width(int i) {
 }
 
 // The longest sequence the attention core takes at head width Dh (0: a
-// width it does not take): a warp keeps 16 whole score rows in registers
-// (attn_core.cuh), at either width.
+// width it does not take): up to 272 a warp keeps 16 whole score rows in
+// registers, past it the blocked form walks the keys in blocks
+// (attn_core.cuh), whose limit is its fp32 running sums' (attn_tiles.cuh),
+// at either width.
 extern "C" int duodiff_attn_core_max_len(int Dh) {
-  return duodiff::with_head_dim(Dh, 0, [](auto) { return duodiff::kMaxSeq; });
+  return duodiff::with_head_dim(Dh, 0, [](auto) { return duodiff::kMaxSeqBlocked; });
 }
 
 extern "C" const char* duodiff_error_string(int err) {

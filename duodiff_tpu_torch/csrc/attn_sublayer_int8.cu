@@ -5,9 +5,9 @@
 // as five launches: LayerNorm with per-row int8 quantization of its fp32
 // output (quant.cuh), the int8 qkv GEMM dequantized by (row x column)
 // scale plus the q-prescaled bias, rounded to bf16 (gemm_int8.cuh), the
-// bf16 attention core of K1 (attn_core.cuh), per-row int8 quantization of
-// the bf16 merged heads (quant.cuh), and the int8 proj GEMM with the fp32
-// residual and bias in its epilogue.
+// bf16 attention core of K1 (attn_core.cuh, its blocked form past L = 272),
+// per-row int8 quantization of the bf16 merged heads (quant.cuh), and the
+// int8 proj GEMM with the fp32 residual and bias in its epilogue.
 //
 // Replaces: duodiff_tpu/ops/pallas_block_int8.py fused_attn_sublayer_int8
 // (kernel _kernel_v2_int8, :103-152). The TPU kernel keeps a sample in

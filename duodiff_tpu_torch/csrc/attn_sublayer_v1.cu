@@ -6,8 +6,9 @@
 // as six launches: LayerNorm rows (layernorm.cuh), one GEMM each for q, k
 // and v from the three (D, A) blocks of the packed weight (gemm.cuh), the
 // attention core in its normalise-first form, one block a (head, sample)
-// whose warps walk the 16-row query tiles (attn_core.cuh), and the proj GEMM with the fp32 residual and
-// bias in its epilogue.
+// whose warps walk the 16-row query tiles (attn_core.cuh; past L = 272 its
+// blocked form, three passes over the keys), and the proj GEMM with the
+// fp32 residual and bias in its epilogue.
 //
 // Replaces: duodiff_tpu/ops/pallas_block.py fused_attn_sublayer, variant
 // "v1" (kernel _kernel, a (batch group, head) grid). Its rounding points

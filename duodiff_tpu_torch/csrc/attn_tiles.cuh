@@ -26,6 +26,12 @@ namespace duodiff {
 namespace {
 
 constexpr int kMaxSeq = 272;          // 34 score tiles of 8 keys = 136 registers a thread
+// The blocked forward core (attn_core.cuh) takes the lengths past kMaxSeq up to
+// this one: a thread sums its quarter of a score row's unrounded e one by one
+// in fp32, L / 4 terms of at most 1, whose rounding error stays under
+// (L / 4) * 2^-24 = 2^-12 of the sum at L = 2^14, far inside the bf16
+// rounding of the output; no register or shared-memory size depends on L.
+constexpr int kMaxSeqBlocked = 16384;
 constexpr int kSmCount = 132;         // an H100 SXM's SMs
 
 // A head of width kDhArg as the cores stage and multiply it. A staged row is
@@ -302,6 +308,16 @@ inline auto with_seq_class(int L, F&& f) {
   return f(SeqClass<kMaxSeq / 8, 18>{});
 }
 
+// A block of keys of the blocked core: kTiles accumulator tiles of 8 keys a
+// warp holds at a time, kKeys rows of K (and of V) staged at a time. Any
+// tile of the last block may hold a key past L, so masking is decided per
+// block at run time (mask_keys), not by a first masked tile.
+template <int kTilesArg>
+struct KeyBlock {
+  static constexpr int kTiles = kTilesArg;  // 8 keys each; even
+  static constexpr int kKeys = 8 * kTilesArg;
+};
+
 // exp(x) for x <= 0 (a score less its row maximum) as one multiplication
 // and one ex2.approx: 2 ulp of the fp32 result, far inside the bf16 rounding
 // e gets next, and a third of expf's instructions in a loop that its
@@ -364,30 +380,52 @@ __device__ __forceinline__ void score_tiles(float (&s)[kTiles][4], const ARows<H
   for (int nt = 0; nt < kTiles; nt += 2) row_col_pair<HD>(&s[nt], a, at, nt);
 }
 
-// In place: s -> e = exp(s - m) with keys past L masked (e = 0); returns
-// the row maxima and the fp32 sums of e of rows g (lo) and g + 8 (hi).
-template <int kTiles, int kMaskFrom>
-__device__ __forceinline__ void softmax_rows(float (&s)[kTiles][4], int L, int lane, float& m_lo,
-                                             float& m_hi, float& sum_lo, float& sum_hi) {
+// In place: the scores of keys at or past `left` + 2tg, counted from the
+// first key of tile 0, to -inf (softmax_rows' masking, for every tile).
+template <int kTiles>
+__device__ __forceinline__ void mask_keys(float (&s)[kTiles][4], int left, int lane) {
   const float neg_inf = __uint_as_float(0xff800000u);
-  const int left = L - (lane & 3) * 2;  // key 8nt + 2tg (+ 1) is past L iff 8nt (+ 1) >= left
-  m_lo = neg_inf;
-  m_hi = neg_inf;
+  left -= (lane & 3) * 2;
 #pragma unroll
   for (int nt = 0; nt < kTiles; ++nt) {
-    if (nt >= kMaskFrom) {
-      if (nt * 8 >= left) s[nt][0] = s[nt][2] = neg_inf;
-      if (nt * 8 + 1 >= left) s[nt][1] = s[nt][3] = neg_inf;
-    }
-    m_lo = fmaxf(m_lo, fmaxf(s[nt][0], s[nt][1]));
-    m_hi = fmaxf(m_hi, fmaxf(s[nt][2], s[nt][3]));
+    if (nt * 8 >= left) s[nt][0] = s[nt][2] = neg_inf;
+    if (nt * 8 + 1 >= left) s[nt][1] = s[nt][3] = neg_inf;
   }
+}
+
+// The row maxima of rows g (lo) and g + 8 (hi) over the four lanes that hold
+// them, from each lane's own.
+__device__ __forceinline__ void quad_max(float& m_lo, float& m_hi) {
   m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, 1));
   m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, 2));
   m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, 1));
   m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, 2));
-  sum_lo = 0.f;
-  sum_hi = 0.f;
+}
+
+// The same for the row sums, in softmax_rows' order.
+__device__ __forceinline__ void quad_sum(float& sum_lo, float& sum_hi) {
+  sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 1);
+  sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 2);
+  sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 1);
+  sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 2);
+}
+
+// The running row maxima of rows g (lo) and g + 8 (hi): this lane's, over
+// tiles [0, kTiles) of s, onto m_lo and m_hi.
+template <int kTiles>
+__device__ __forceinline__ void max_tiles(const float (&s)[kTiles][4], float& m_lo, float& m_hi) {
+#pragma unroll
+  for (int nt = 0; nt < kTiles; ++nt) {
+    m_lo = fmaxf(m_lo, fmaxf(s[nt][0], s[nt][1]));
+    m_hi = fmaxf(m_hi, fmaxf(s[nt][2], s[nt][3]));
+  }
+}
+
+// In place: s -> e = exp(s - m), each tile's four e added to this lane's
+// running sums in tile order (pairs first, as one row's two columns).
+template <int kTiles>
+__device__ __forceinline__ void exp_tiles(float (&s)[kTiles][4], float m_lo, float m_hi,
+                                          float& sum_lo, float& sum_hi) {
 #pragma unroll
   for (int nt = 0; nt < kTiles; ++nt) {
     s[nt][0] = exp_nonpos(s[nt][0] - m_lo);
@@ -397,10 +435,28 @@ __device__ __forceinline__ void softmax_rows(float (&s)[kTiles][4], int L, int l
     sum_lo += s[nt][0] + s[nt][1];
     sum_hi += s[nt][2] + s[nt][3];
   }
-  sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 1);
-  sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 2);
-  sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 1);
-  sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 2);
+}
+
+// In place: s -> e = exp(s - m) with keys past L masked (e = 0); returns
+// the row maxima and the fp32 sums of e of rows g (lo) and g + 8 (hi).
+template <int kTiles, int kMaskFrom>
+__device__ __forceinline__ void softmax_rows(float (&s)[kTiles][4], int L, int lane, float& m_lo,
+                                             float& m_hi, float& sum_lo, float& sum_hi) {
+  const float neg_inf = __uint_as_float(0xff800000u);
+  const int left = L - (lane & 3) * 2;  // key 8nt + 2tg (+ 1) is past L iff 8nt (+ 1) >= left
+#pragma unroll
+  for (int nt = kMaskFrom; nt < kTiles; ++nt) {
+    if (nt * 8 >= left) s[nt][0] = s[nt][2] = neg_inf;
+    if (nt * 8 + 1 >= left) s[nt][1] = s[nt][3] = neg_inf;
+  }
+  m_lo = neg_inf;
+  m_hi = neg_inf;
+  max_tiles(s, m_lo, m_hi);
+  quad_max(m_lo, m_hi);
+  sum_lo = 0.f;
+  sum_hi = 0.f;
+  exp_tiles(s, m_lo, m_hi, sum_lo, sum_hi);
+  quad_sum(sum_lo, sum_hi);
 }
 
 // The A operand of k-step kk (16 keys) of a product over the keys, from the

@@ -12,10 +12,13 @@
 // product, one rounding of the output. The TPU kernel's group size and lane
 // padding have no counterpart: a block is one (head, sample), its warps walk
 // the 16-row query tiles.
+// Past L = 272 the launch takes the core's blocked form (attn_core.cuh),
+// with the same rounding points.
 // Bound: 4 * L * L * Dh flops per (sample, head) against 8 * L * Dh bytes
-// (L / 2 = 129 flop/byte at L = 258, under the card's ~295): bytes at the
-// roofline; on the card, the instruction count of the softmax over score rows
-// held in registers (two blocks of four warps an SM); see attn_core.cuh.
+// (L / 2 = 129 flop/byte at L = 258, under the card's ~295, 513 at L =
+// 1025, over it): bytes at the roofline at L = 258, operations at 1025; on
+// the card, the instruction count of the softmax over score rows held in
+// registers (two blocks of four warps an SM); see attn_core.cuh.
 
 #include "attn_core.cuh"
 #include "common.cuh"
@@ -23,8 +26,8 @@
 using duodiff::bf16;
 
 // Warps a block, dynamic shared memory a block and resident blocks an SM of
-// the attention core at length L and head width Dh.
-extern "C" int duodiff_attn_core_warps() { return duodiff::kAttnWarps; }
+// the attention core at length L (its form's) and head width Dh.
+extern "C" int duodiff_attn_core_warps(int L) { return duodiff::attn_core_warps(L); }
 extern "C" int duodiff_attn_core_smem_bytes(int L, int Dh) {
   return duodiff::attn_core_smem_bytes(L, Dh);
 }

@@ -3,10 +3,11 @@
 //   u = x + proj(SDPA(qkv(LN1(x)))) + b_proj        (fp32, never rounded)
 //   y = u + fc2(gelu(fc1(LN2(u)) + b1)) + b2,       x, y (B, L, D) bf16,
 //
-// as seven launches: LayerNorm rows, the qkv GEMM, the attention core, the
-// proj GEMM whose epilogue writes u = acc + x + b_proj as fp32, LayerNorm of
-// the fp32 rows of u, the fc1 GEMM with bias and GELU, and the fc2 GEMM whose
-// epilogue adds the fp32 u and the bias and rounds once to bf16.
+// as seven launches: LayerNorm rows, the qkv GEMM, the attention core (its
+// blocked form past L = 272, attn_core.cuh), the proj GEMM whose epilogue
+// writes u = acc + x + b_proj as fp32, LayerNorm of the fp32 rows of u, the
+// fc1 GEMM with bias and GELU, and the fc2 GEMM whose epilogue adds the fp32
+// u and the bias and rounds once to bf16.
 //
 // Replaces: duodiff_tpu/ops/pallas_block.py fused_block (kernel
 // _block_kernel). What that kernel has over the two sublayer kernels run

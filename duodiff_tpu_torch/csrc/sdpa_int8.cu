@@ -15,8 +15,9 @@
 // block is one (head, sample), its warps walking the 16-row query tiles with
 // the score rows in registers; the int8 core (attn_core_int8.cuh) quantizes
 // the head's k and v once a block and keeps only their codes in shared
-// memory. Both take L <= 272, a register limit; the int8 core head width
-// 64 only.
+// memory. The int8 core takes L <= 272, a register limit, and head width
+// 64 only; the bf16 form takes the longer lengths in the core's blocked form
+// (attn_core.cuh), as K9 does.
 // Bound: 4 * L * L * Dh operations per (sample, head) against 8 * L * Dh
 // bytes: bytes at the roofline for both forms; see the two cores' notes for
 // what bounds each on the card instead.

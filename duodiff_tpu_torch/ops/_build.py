@@ -56,7 +56,9 @@ _SIGNATURES = {
     "duodiff_mlp_sublayer_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_split_workspace": ([_INT] * 4, ctypes.c_size_t),
     "duodiff_mlp_sublayer_bwd_split_chunk_rows": ([_INT] * 2, _INT),
-    "duodiff_attn_core_warps": ([], _INT),
+    "duodiff_attn_core_warps": ([_INT], _INT),
+    "duodiff_attn_core_form": ([_PTR] * 4 + [_INT] * 6 + [_FLOAT, _PTR], _INT),
+    "duodiff_attn_core_registers_max_len": ([], _INT),
     "duodiff_attn_core_smem_bytes": ([_INT] * 2, _INT),
     "duodiff_attn_bwd_core_smem_bytes": ([_INT] * 3, _INT),
     "duodiff_attn_core_blocks_per_sm": ([_INT] * 2, _INT),

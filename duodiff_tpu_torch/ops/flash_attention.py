@@ -8,12 +8,18 @@
 - :class:`FlashAttentionFn`: the two paired for autograd (the counterpart of
   ``flash_attention_trainable``). The forward saves only q, k and v: the
   backward rebuilds the softmax, so no (L, L) tensor is ever written to
-  device memory.
+  device memory;
+- :func:`attn_core_form`: the forward core alone in either of its forms, a
+  measuring entry (``csrc/attn_core_entry.cu``) that no model calls.
 
 Each wrapper takes the plain PyTorch version (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`) for a tensor on the CPU. For a CUDA
 tensor it launches its kernel or raises; it counts its launches in
-``.launches``. The kernels take bf16 and head width 64 or 72 (``HEAD_WIDTHS``).
+``.launches``. The kernels take bf16 and head width 64 or 72 (``HEAD_WIDTHS``),
+and the lengths the library reports (``duodiff_attn_core_max_len``: the
+forward core's register form up to 272 and its blocked form past it, at
+least 1,025, the CelebA-64 U-ViT at patch 2; ``duodiff_attn_bwd_core_max_len``:
+the backward core's 272).
 
 Numerics follow the Pallas kernels: q * scale in fp32 rounded to the input
 dtype, fp32 scores, row max and exp, the fp32 sum of the unrounded e as the
@@ -144,6 +150,63 @@ def flash_attention_bwd(q, k, v, do):
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+
+# the forms of the forward core the measuring entry takes (csrc/attn_core.cuh
+# CoreForm): by L as the kernels pick it, or one of the two forced
+CORE_FORMS = {"auto": 0, "registers": 1, "blocked": 2}
+
+
+def attn_core_form_plain(q, k, v, *, norm_first: bool = False, scale: float | None = None):
+    """Plain PyTorch forward core on (B, H, L, Dh) in q's dtype, ``scale``
+    1 / sqrt(Dh) by default. The default form is K9's with any scale (q *
+    scale rounded to q's dtype, the division after e v; scale 1 leaves q
+    as it is, K15's bf16 form); ``norm_first`` is K1-v1's per-head core
+    (the fp32 scores times scale, p = e / sum rounded before p v)."""
+    dt = q.dtype
+    scale = float(q.shape[-1]) ** -0.5 if scale is None else scale
+    kt, vf = k.float().transpose(-1, -2), v.float()
+    if norm_first:
+        s = (q.float() @ kt) * scale
+        p = torch.softmax(s, dim=-1).to(dt).float()
+        return (p @ vf).to(dt)
+    qsc = q.float() if scale == 1.0 else (q.float() * scale).to(dt).float()
+    s = qsc @ kt
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return ((e.to(dt).float() @ vf) / e.sum(-1, keepdim=True)).to(dt)
+
+
+def attn_core_form(q, k, v, *, form: str = "auto", norm_first: bool = False,
+                   scale: float | None = None):
+    """The forward attention core alone (``csrc/attn_core_entry.cu``, a
+    measuring entry that no model calls): q, k, v (B, H, L, Dh) bf16
+    contiguous -> (B, H, L, Dh), in the form ``form`` (``CORE_FORMS``: the
+    register form takes L <= 272, the blocked one any L the core takes), the
+    default or the normalise-first form, as :func:`attn_core_form_plain`.
+    On the CPU it is that plain version; it counts its launches in
+    ``.launches``."""
+    if q.device.type == "cpu":
+        return attn_core_form_plain(q, k, v, norm_first=norm_first, scale=scale)
+    from duodiff_tpu_torch.ops._build import load_library
+
+    b, h, l, dh = _dims(q, {"q": q, "k": k, "v": v})
+    lib = load_library()
+    _check_seq_len(lib, l, dh)
+    if form not in CORE_FORMS:
+        raise ValueError(f"form must be one of {sorted(CORE_FORMS)}, got {form!r}")
+    if form == "registers" and l > lib.duodiff_attn_core_registers_max_len():
+        raise ValueError(f"sequence length {l} does not fit the register form of the attention "
+                         f"core (at most {lib.duodiff_attn_core_registers_max_len()})")
+    out = torch.empty_like(q)
+    err = lib.duodiff_attn_core_form(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, l, dh, CORE_FORMS[form], int(norm_first),
+        float(dh) ** -0.5 if scale is None else scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(lib, "attention core", err)
+    attn_core_form.launches += 1
+    return out
+
+
+attn_core_form.launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -20,8 +20,9 @@ the ``1/sqrt(Dh)`` scale: the probe times the chain, not an attention layer.
 Each wrapper takes its plain PyTorch version (:func:`sdpa_chain_bf16_plain`,
 :func:`sdpa_chain_int8_plain`) for a tensor on the CPU. For a CUDA tensor it
 launches its kernel or raises; it counts its launches in ``.launches``. The
-kernels take bf16 and L <= 272, the bf16 form head width 64 or 72 (the bf16
-core's), the int8 form 64. The plain int8 products go through
+kernels take bf16; the bf16 form head width 64 or 72 and the forward core's
+lengths (its blocked form past 272), the int8 form head width 64 and
+L <= 272. The plain int8 products go through
 float64, which holds every partial sum of int8 products exactly, as XLA's
 int32 ``dot_general`` does.
 """
