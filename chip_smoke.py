@@ -298,30 +298,38 @@ in phases, each printing its results on its own lines:
    K11 and K12, and kept apart as ``launches_21``;
 22. past 272 tokens: CelebA-64 at patch 2 (``main.py``'s default patch at
    ``--img_size 64``: L = 1025, D = 512, 8 heads of 64), where the attention
-   core takes its blocked form (``csrc/attn_core.cuh``), the depth-3 and
-   depth-13 configs written with ``config.write_config`` into a temporary
-   directory: (a) ptxas's report of the blocked core and the library's
-   limits (the forward core at least 1,025 at head widths 64 and 72, the
-   backward core 272); the blocked form forced at L = 257 and 258 equal to
-   the register form to the bit at both widths in both forms (the measuring
-   entry ``csrc/attn_core_entry.cu``), the two timed side by side at 258;
-   K1, K2, K11 (dynamic and static), K12, K1-v1 and K5 at batch 32 and K9,
-   K15's bf16 form and the core alone at (32, 8, 1025, 64), K9 at (8, 16,
-   1025, 72), each against its plain version with phase 2's gates, timed
-   beside its bound and ``F.scaled_dot_product_attention``; K9 at the
-   forward core's limit, and one past it refused with the limit named; a
-   train step at L = 1025 (fused, pallas) refused with the backward core's
-   limit named; the depth-13 forward, fused against plain and pallas
-   against pallas_plain, held as phase 3 holds the depth-17 forwards;
-   through the sampling CLI, batch 32, random weights from a seed: (b) 8
-   depth-13 steps graphed and eager, equal to the bit, then bf16 ``fused``
-   DuoDiff, depth 3 for 75 of 250 steps, then depth 13; (c) ``fused_int8``
-   with dynamic scales on the depth-13 model, 50 steps; (d) ``--attn_impl
-   pallas``, the pair over 20 steps; exact launch counts, samples/s and peak
-   memory. Its launches are added to the records of K1, K2, K9, K11 and K12
-   and kept apart as ``launches_22``; the record lists the blocked core
-   apart (``attn_core_blocked``), with the launches of K1, K11 and K9 in
-   22b-d.
+   cores take their blocked forms (``csrc/attn_core.cuh``,
+   ``csrc/attn_bwd_core.cuh``), the depth-3 and depth-13 configs written
+   with ``config.write_config`` into a temporary directory: (a) ptxas's
+   report of the blocked cores and the library's limits and occupancy (both
+   cores at least 1,025 at head widths 64 and 72); the blocked forward core
+   forced at L = 257 and 258 equal to the register form to the bit at both
+   widths in both forms, and the blocked backward core at L = 1, 16, 257,
+   258 and 272, both widths, with K6's forward output and without (K10's),
+   through the measuring entries (``csrc/attn_core_entry.cu``), each pair
+   timed side by side at 258; K1, K2, K11 (dynamic and static), K12, K1-v1,
+   K5, K6 and K7 at batch 32 and K9, K10, K15's bf16 form and the two cores
+   alone at (32, 8, 1025, 64), K9 and K10 at (8, 16, 1025, 72), each against
+   its plain version with phase 2's gates (the backward ones also equal to
+   the bit on a repeat call), timed beside its bound and
+   ``F.scaled_dot_product_attention`` (its autograd backward beside K10);
+   K6's workspace at batch 32 and 128; K9 and K10 at the cores' limit, and
+   one past it refused with the limit named; the depth-13 forward, fused
+   against plain and pallas against pallas_plain, held as phase 3 holds the
+   depth-17 forwards; through the sampling CLI, batch 32, random weights
+   from a seed: (b) 8 depth-13 steps graphed and eager, equal to the bit,
+   then bf16 ``fused`` DuoDiff, depth 3 for 75 of 250 steps, then depth 13;
+   (c) ``fused_int8`` with dynamic scales on the depth-13 model, 50 steps;
+   (d) ``--attn_impl pallas``, the pair over 20 steps; (e) the training CLI
+   on a synthetic CelebA cache, the depth-13 model at batch 32, bf16:
+   ``fused`` (K1, K2, K6, K7) 20 steps, the loss falling, ``pallas`` (K9,
+   K10) 4 steps, finite, and 2 graphed steps against their eager twins,
+   every tensor a step writes equal to the bit; exact launch counts,
+   samples/s or step time and peak memory. Its launches are added to the
+   records of K1, K2, K6, K7, K9, K10, K11 and K12 and kept apart as
+   ``launches_22``; the record lists the blocked cores apart
+   (``attn_core_blocked``, ``attn_bwd_core_blocked``), with the launches of
+   K1, K11 and K9 in 22b-e and of K6 and K10 in 22e.
 
 The tools of phases 10d, 10e, 11c, 12e and 17 replay step graphs on the card
 as the CLIs do, and each of those phases holds the loops it runs graphed
@@ -2147,7 +2155,7 @@ def report_core_occupancy(dh: int, lengths, phase: str) -> None:
             fail(f"the attention cores do not take L={l} at head width {dh}")
         fwd = (lib.duodiff_attn_core_warps(l), lib.duodiff_attn_core_smem_bytes(l, dh),
                lib.duodiff_attn_core_blocks_per_sm(l, dh))
-        row, key = ((lib.duodiff_attn_bwd_core_warps(k),
+        row, key = ((lib.duodiff_attn_bwd_core_warps(l, k),
                      lib.duodiff_attn_bwd_core_smem_bytes(l, k, dh),
                      lib.duodiff_attn_bwd_core_blocks_per_sm(l, k, dh)) for k in (0, 1))
         print(f"{phase}: L={l} Dh={dh}: forward core {fwd[0]} warps a block, {fwd[1]} B of "
@@ -5027,48 +5035,76 @@ LONG_PATCH = 2
 LONG_INT8_STEPS = 50        # 22c, as 21c
 LONG_GRAPH_STEPS = 8        # 22b: the depth-13 model's steps, graphed against eager
 BIT_LENGTHS = (257, 258)    # 22a: the blocked form against the register form, to the bit
-# K1, K1-v1, K5, K9, K11 and K15's bf16 form run the blocked core past 272 tokens; the
-# record lists it apart, with the launches of K1, K11 and K9 in 22b-d (one each a call)
+BWD_BIT_LENGTHS = (1, 16, 257, 258, 272)  # 22a: the same for the backward core
+LONG_TRAIN_STEPS = 20       # 22e fused
+LONG_PALLAS_TRAIN_STEPS = 4  # 22e pallas
+LONG_GRAPH_TRAIN_STEPS = 2  # 22e: graphed against eager
+LONG_TRAIN_WARMUP = 5       # 22e: the warm-up of a 20-step run
+LONG_CACHE_IMAGES = 256
+LONG_LOSS_DROP = 0.75       # 22e fused: the last logged loss under this share of the first
+# K1, K1-v1, K5, K9, K11 and K15's bf16 form run the blocked core past 272 tokens, K6 and
+# K10 the blocked backward core; the record lists them apart, with the launches of K1,
+# K11 and K9 in 22b-e and of K6 and K10 in 22e (one each a call)
 BLOCKED_KERNEL = {
     "attn_core_blocked": {
         "source": "duodiff_tpu_torch/csrc/attn_core.cuh",
         "replaces": "duodiff_tpu/ops/pallas_attention.py:30",
     },
+    "attn_bwd_core_blocked": {
+        "source": "duodiff_tpu_torch/csrc/attn_bwd_core.cuh",
+        "replaces": "duodiff_tpu/ops/pallas_attention.py:72",
+    },
 }
 
 
 def report_blocked_core(phase: str) -> None:
-    """Phase 22a: what ptxas says of the blocked forward core in every unit
-    that launches it (registers and spills a thread), and what the library
-    says of the core past 272 tokens at both head widths: the limits (the
-    forward core at least 1,025, the backward core's 272), warps, shared
-    memory and blocks an SM at L = 1025. Fails under 1,025 or eight warps an
-    SM."""
+    """Phase 22a: what ptxas says of the blocked cores in every unit that
+    launches them (registers and spills a thread), and what the library says
+    of the cores past 272 tokens at both head widths: the limits (both at
+    least 1,025), warps, shared memory and blocks an SM at L = 1025 (the
+    backward core's row and key launches). Fails under 1,025 or eight warps
+    an SM."""
     from duodiff_tpu_torch.ops._build import kernel_resources, load_library
 
-    for unit in ("attn_core_entry", "attn_sublayer", "attn_sublayer_v1", "fused_block",
-                 "flash_attention", "attn_sublayer_int8", "sdpa_int8"):
-        for rec in kernel_resources(unit):
-            if "attn_core_blocked_kernel" not in rec["entry"]:
-                continue
-            form = "normalise first" if "ILb1" in rec["entry"] else "default"
-            width = re.search(r"HeadDimILi(\d+)", rec["entry"]).group(1)
-            print(f"{phase}: blocked core, {form}, head width {width} ({unit}.cu): "
-                  f"{rec['registers']} registers a thread, spill stores {rec['spill_stores']} B, "
-                  f"spill loads {rec['spill_loads']} B, stack {rec['stack']} B", flush=True)
+    units = {"attn_core_blocked_kernel": ("attn_core_entry", "attn_sublayer",
+                                          "attn_sublayer_v1", "fused_block", "flash_attention",
+                                          "attn_sublayer_int8", "sdpa_int8"),
+             "attn_bwd_q_blocked_kernel": ("attn_core_entry", "attn_sublayer_bwd",
+                                           "flash_attention_bwd"),
+             "attn_bwd_kv_blocked_kernel": ("attn_core_entry", "attn_sublayer_bwd",
+                                            "flash_attention_bwd")}
+    for kernel, where in units.items():
+        for unit in where:
+            for rec in kernel_resources(unit):
+                if kernel not in rec["entry"]:
+                    continue
+                if kernel == "attn_core_blocked_kernel":
+                    what = "core, normalise first" if "ILb1" in rec["entry"] else "core, default"
+                else:
+                    what = f"backward core, {'row' if '_q_' in kernel else 'key'} launch"
+                width = re.search(r"HeadDimILi(\d+)", rec["entry"]).group(1)
+                print(f"{phase}: blocked {what}, head width {width} ({unit}.cu): "
+                      f"{rec['registers']} registers a thread, spill stores "
+                      f"{rec['spill_stores']} B, spill loads {rec['spill_loads']} B, stack "
+                      f"{rec['stack']} B", flush=True)
     lib = load_library()
     for dh in (64, 72):
         limit, bwd = lib.duodiff_attn_core_max_len(dh), lib.duodiff_attn_bwd_core_max_len(dh)
         l = LONG_SEQ.l
         warps, smem = lib.duodiff_attn_core_warps(l), lib.duodiff_attn_core_smem_bytes(l, dh)
         blocks = lib.duodiff_attn_core_blocks_per_sm(l, dh)
+        row, key = ((lib.duodiff_attn_bwd_core_warps(l, k),
+                     lib.duodiff_attn_bwd_core_smem_bytes(l, k, dh),
+                     lib.duodiff_attn_bwd_core_blocks_per_sm(l, k, dh)) for k in (0, 1))
         print(f"{phase}: head width {dh}: the forward core takes L <= {limit} (the register "
               f"form L <= {lib.duodiff_attn_core_registers_max_len()}), the backward core "
               f"L <= {bwd}; at L={l} the forward core has {warps} warps a block, {smem} B of "
-              f"shared memory, {blocks} blocks an SM", flush=True)
-        if limit < l or warps * blocks < 8:
-            fail(f"the forward core does not take L={l} at head width {dh}, or holds fewer than "
-                 "eight warps an SM there")
+              f"shared memory, {blocks} blocks an SM; the backward row launch {row[0]} warps, "
+              f"{row[1]} B, {row[2]} blocks an SM, the key launch {key[0]} warps, {key[1]} B, "
+              f"{key[2]} blocks an SM", flush=True)
+        if min(limit, bwd) < l or min(warps * blocks, row[0] * row[2], key[0] * key[2]) < 8:
+            fail(f"a core does not take L={l} at head width {dh}, or holds fewer than eight "
+                 "warps an SM there")
 
 
 def check_blocked_bits(device, results: dict, phase: str) -> None:
@@ -5106,6 +5142,46 @@ def check_blocked_bits(device, results: dict, phase: str) -> None:
                   f"{'normalise first' if norm_first else 'default'}: register form "
                   f"{ms['registers']:.6g} ms, blocked form {ms['blocked']:.6g} ms in turns",
                   flush=True)
+
+
+def check_blocked_bwd_bits(device, results: dict, phase: str) -> None:
+    """Phase 22a: the blocked backward core forced at BWD_BIT_LENGTHS against
+    the register form through the measuring entry
+    (ops/flash_attention.py:attn_bwd_core_form), at head widths 64 and 72,
+    with K6's forward output and without (K10's), at (LONG_BATCH, 8, L):
+    every output equal to the bit, or the phase fails; then both forms timed
+    in turns at L = 258, K10's outputs."""
+    from duodiff_tpu_torch.ops import flash_attention as fa
+
+    for dh in (64, 72):
+        for with_o in (True, False):
+            for l in BWD_BIT_LENGTHS:
+                g = torch.Generator().manual_seed(2300 + l + dh)
+                q, k, v, do = (torch.randn((LONG_BATCH, 8, l, dh), generator=g)
+                               .to(torch.bfloat16).to(device) for _ in range(4))
+                regs = fa.attn_bwd_core_form(q, k, v, do, form="registers", with_o=with_o)
+                blocked = fa.attn_bwd_core_form(q, k, v, do, form="blocked", with_o=with_o)
+                torch.cuda.synchronize()
+                differ = [int((a != b).sum()) for a, b in zip(regs, blocked)]
+                names = ("o", "dq", "dk", "dv")[4 - len(regs):]
+                print(f"{phase}: backward L={l} Dh={dh} {'K6 (with o)' if with_o else 'K10'}: "
+                      f"blocked form equal to the register form to the bit: {not any(differ)} "
+                      f"(entries that differ: {dict(zip(names, differ))} of {regs[0].numel()} "
+                      "each)", flush=True)
+                if any(differ):
+                    fail(f"the blocked backward core differs from the register form at L={l}, "
+                         f"Dh={dh}")
+        g = torch.Generator().manual_seed(2300 + 258 + dh)
+        q, k, v, do = (torch.randn((LONG_BATCH, 8, 258, dh), generator=g).to(torch.bfloat16)
+                       .to(device) for _ in range(4))
+        ms = time_ms({"registers": lambda: fa.attn_bwd_core_form(q, k, v, do, form="registers"),
+                      "blocked": lambda: fa.attn_bwd_core_form(q, k, v, do, form="blocked")})
+        res = results["attn_bwd_core_blocked"]
+        res[f"bits_dh{dh}_registers_ms_l258"] = ms["registers"]
+        res[f"bits_dh{dh}_blocked_ms_l258"] = ms["blocked"]
+        print(f"{phase}: backward (B, H, L, Dh) = ({LONG_BATCH}, 8, 258, {dh}), K10's outputs: "
+              f"register form {ms['registers']:.6g} ms, blocked form {ms['blocked']:.6g} ms in "
+              "turns", flush=True)
 
 
 def check_long_attention(device, results: dict, phase: str) -> None:
@@ -5171,6 +5247,92 @@ def check_long_attention(device, results: dict, phase: str) -> None:
         fail(f"K9 took L={limit + 1}, past the limit the library reports")
 
 
+def check_long_attention_bwd(device, results: dict, phase: str) -> None:
+    """Phase 22a: K10 at (LONG_BATCH, 8, 1025, 64) and at LONG_WIDE, and the
+    blocked backward core alone (the measuring entry, K10's outputs) at
+    (LONG_BATCH, 8, 1025, 64), each against its plain version as phase 2
+    holds K10 (dq, dk, dv each within BWD_REL_FRO, equal bits on a repeat
+    call), timed, with the autograd backward of F.scaled_dot_product_attention
+    (its forward and backward less its forward) timed beside them; then K10
+    at the backward core's limit on one head of 64 against plain, equal bits
+    on a repeat call, and one past it refused, naming the limit."""
+    import torch.nn.functional as F
+
+    from duodiff_tpu_torch.ops import flash_attention as fa
+    from duodiff_tpu_torch.ops._build import load_library
+
+    b, h, l, sfx = LONG_BATCH, LONG_SEQ.heads, LONG_SEQ.l, LONG_SUFFIX
+    for shape in ((b, h, l, 64), LONG_WIDE):
+        g = torch.Generator().manual_seed(sum(shape) + 1)
+        q, k, v, do = (torch.randn(shape, generator=g).to(torch.bfloat16).to(device)
+                       for _ in range(4))
+        main = shape[-1] == 64
+        where = "B={} H={} L={} Dh={}".format(*shape)
+        cases = [("flash_attention_bwd", lambda: fa.flash_attention_bwd(q, k, v, do),
+                  sfx if main else sfx + "_dh72")]
+        if main:
+            cases.append(("attn_bwd_core_blocked", lambda: fa.attn_bwd_core_form(q, k, v, do),
+                          ""))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves)
+            return torch.autograd.grad(out, leaves, do)
+
+        lib = time_ms({"fwd": lambda: F.scaled_dot_product_attention(q, k, v),
+                       "fwd_bwd": sdpa_fwd_bwd})
+        lib_bwd = lib["fwd_bwd"] - lib["fwd"]
+        for name, kernel, suffix in cases:
+            compare_bwd_kernel(results[name], f"{name} {where}", ("dq", "dk", "dv"), kernel,
+                               lambda: fa.flash_attention_bwd_plain(q, k, v, do), suffix,
+                               elementwise_first=False, phase=phase)
+            results[name]["library_ms" + suffix] = lib_bwd
+        print(f"{phase}: {where}: library yardstick F.scaled_dot_product_attention autograd "
+              f"backward (forward + backward less forward) {lib_bwd:.6g} ms (forward "
+              f"{lib['fwd']:.6g} ms)", flush=True)
+        del q, k, v, do, leaves
+    limit = load_library().duodiff_attn_bwd_core_max_len(64)
+    g = torch.Generator().manual_seed(limit + 1)
+    q, k, v, do = (torch.randn((1, 1, limit, 64), generator=g).to(torch.bfloat16).to(device)
+                   for _ in range(4))
+    got = fa.flash_attention_bwd(q, k, v, do)
+    again = fa.flash_attention_bwd(q, k, v, do)
+    want = fa.flash_attention_bwd_plain(q, k, v, do)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    rels = {n: rel_fro(a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    ok = same and max(rels.values()) <= BWD_REL_FRO
+    print(f"{phase}: flash_attention_bwd at the backward core's limit B=1 H=1 L={limit}: "
+          f"rel_fro_err {', '.join(f'{n}={x:.3g}' for n, x in rels.items())} (bound "
+          f"{BWD_REL_FRO}) repeat_equal={same} ok={ok}", flush=True)
+    if not ok:
+        fail(f"K10 disagrees with its plain version at L={limit} or is not deterministic")
+    del q, k, v, do, got, again, want
+    q = torch.zeros((1, 1, limit + 1, 64), dtype=torch.bfloat16, device=device)
+    try:
+        fa.flash_attention_bwd(q, q, q, q)
+    except ValueError as err:
+        print(f"{phase}: L={limit + 1} refused by K10: {err}", flush=True)
+        if f"backward core (at most {limit})" not in str(err):
+            fail(f"the refusal of L={limit + 1} does not name the backward core's limit: {err}")
+    else:
+        fail(f"K10 took L={limit + 1}, past the limit the library reports")
+
+
+def report_long_workspace(results: dict, phase: str) -> None:
+    """Phase 22a: the scratch K6 takes at L = 1025 (D = 512, 8 heads of 64)
+    at batch 32 and 128, as the library reckons it: the backward core adds
+    only its statistics, 3 * B * H * L floats, to the sublayer's rows."""
+    from duodiff_tpu_torch.ops._build import load_library
+
+    lib, w = load_library(), LONG_SEQ
+    for b in (LONG_BATCH, 128):
+        n = lib.duodiff_attn_sublayer_bwd_workspace(b, w.l, w.d, w.heads, w.d // w.heads)
+        results["fused_attn_sublayer_bwd"][f"workspace_bytes{LONG_SUFFIX}_b{b}"] = n
+        print(f"{phase}: K6's workspace at L={w.l}, D={w.d}, batch {b}: {n} bytes "
+              f"({n / 2**30:.6g} GiB)", flush=True)
+
+
 def check_long_kernels(device, results: dict) -> None:
     """Phase 22a: every kernel of the long path against its plain version at
     (LONG_BATCH, 1025, 512) with phase 2's gates, timed beside its bound: the
@@ -5179,13 +5341,17 @@ def check_long_kernels(device, results: dict) -> None:
     without a qkv bias, and with the asset's static scales), K12 (dynamic and
     static, erf and tanh), K1-v1 and K5 (K5 also beside K1 then K2), K9 at two
     widths, K15's bf16 form and the core alone beside the library's call, K9
-    at the limit and past it. The times are kept under LONG_SUFFIX."""
+    at the limit and past it; the blocked backward core's bits against the
+    register form, K6 and K7, K10 at two widths and the backward core alone
+    beside SDPA's autograd backward, K10 at the limit and past it, K6's
+    workspace. The times are kept under LONG_SUFFIX."""
     from duodiff_tpu_torch.ops import block_int8 as q8
     from duodiff_tpu_torch.tools.probe_int8_static import ATTN_SCALES
 
     phase, w, b, sfx = "phase 22a", LONG_SEQ, LONG_BATCH, LONG_SUFFIX
     report_blocked_core(phase)
     check_blocked_bits(device, results, phase)
+    check_blocked_bwd_bits(device, results, phase)
     check_kernels(device, results, w, suffix=sfx, batches=(b,), timed=b, phase=phase)
     check_int8_kernels(device, results, w, batches=(b,), suffix=sfx, phase=phase)
     # K11 with static scales (K14's static body, the int8 probe's two scales):
@@ -5204,11 +5370,16 @@ def check_long_kernels(device, results: dict) -> None:
                    sfx + "_static", phase=phase)
     check_block_kernels(device, results, w, suffix=sfx, batches=(b,), timed=b, phase=phase)
     check_long_attention(device, results, phase)
+    check_bwd_kernels(device, results, w, variants=(False,), suffix=sfx, batches=(b,), timed=b,
+                      phase=phase)
+    check_long_attention_bwd(device, results, phase)
+    report_long_workspace(results, phase)
     bounds = kernel_bounds(w, b, attention_shape=(b, w.heads, w.l), chain_shape=(b, w.heads, w.l))
     bounds["attn_core_blocked"] = bounds["flash_attention"]
+    bounds["attn_bwd_core_blocked"] = bounds["flash_attention_bwd"]
     for name, res in results.items():
-        if "ms" + sfx in res or (name == "attn_core_blocked" and "ms" in res):
-            key = "" if name == "attn_core_blocked" else sfx
+        if "ms" + sfx in res or (name in BLOCKED_KERNEL and "ms" in res):
+            key = "" if name in BLOCKED_KERNEL else sfx
             res["bound_ms" + key] = bounds[name]["bound_ms"]
             print(f"{phase}: {name} at L={w.l}, batch {b}: {res['ms' + key]:.6g} ms, plain "
                   f"{res['plain_ms' + key]:.6g} ms, bound {bounds[name]['bound_ms']:.6g} ms (by "
@@ -5216,38 +5387,68 @@ def check_long_kernels(device, results: dict) -> None:
                   + (f", library {res['library_ms' + key]:.6g} ms" if "library_ms" + key in res
                      else ""), flush=True)
     wide = kernel_bounds(w, LONG_WIDE[0], attention_shape=LONG_WIDE[:3], dh=LONG_WIDE[3])
-    results["flash_attention"]["bound_ms" + sfx + "_dh72"] = wide["flash_attention"]["bound_ms"]
+    for name in ("flash_attention", "flash_attention_bwd"):
+        results[name]["bound_ms" + sfx + "_dh72"] = wide[name]["bound_ms"]
+        print(f"{phase}: {name} at {LONG_WIDE}: {results[name]['ms' + sfx + '_dh72']:.6g} ms, "
+              f"plain {results[name]['plain_ms' + sfx + '_dh72']:.6g} ms, bound "
+              f"{wide[name]['bound_ms']:.6g} ms (by {wide[name]['bound_by']}), library "
+              f"{results[name]['library_ms' + sfx + '_dh72']:.6g} ms", flush=True)
 
 
-def check_long_training_refused(device, files: dict) -> None:
-    """Phase 22a: a train step of the depth-3 model at L = 1025 on the card,
-    fused (K1 forward, K6 backward) and pallas (K9, K10), is refused in the
-    backward core's check, which names its limit."""
-    from duodiff_tpu_torch.diffusion.schedule import NoiseSchedule
-    from duodiff_tpu_torch.training.train_state import make_train_step
-    from duodiff_tpu_torch.utils.model_loading import load_model
+def run_long_training(work: str, files: dict, card: str) -> dict:
+    """Phase 22e: the training CLI on a synthetic CelebA cache
+    (LONG_CACHE_IMAGES images) with the depth-13 CelebA-64 config at patch 2
+    (L = 1025) at batch LONG_BATCH, bf16, a LONG_TRAIN_WARMUP-step warm-up,
+    each run through the train step graphs the CLI replays by default:
+    ``fused`` (K1, K2, K6, K7) for LONG_TRAIN_STEPS steps, the last logged
+    loss under LONG_LOSS_DROP of the first; ``pallas`` (K9, K10) for
+    LONG_PALLAS_TRAIN_STEPS steps, finite; then LONG_GRAPH_TRAIN_STEPS
+    ``fused`` steps graphed against their eager twins (phase 20's route:
+    every tensor a step writes, the logged metrics and the launch counts
+    equal to the bit, the step times both ways). Exact launch counts, peak
+    memory and the steady step time beside the card. Returns the launches of
+    the three graphed runs."""
+    from duodiff_tpu_torch.data.synthetic import write_palette_celeba_cache
 
-    model, cfg = load_model(files["early"], device=device, seed=0, attn_impl="fused")
-    step = make_train_step(model, NoiseSchedule.create(device=device),
-                           parametrization="predict_noise", seed=0)
-    g = torch.Generator().manual_seed(22)
-    shape = (2, cfg.img_size, cfg.img_size, cfg.in_chans)
-    batch = {"image": (torch.rand(shape, generator=g) * 2 - 1).to(device)}
-    draws = step.draws(batch, 1)
-    for impl in ("fused", "pallas"):
-        set_attn_impl(model, impl)
-        model.train()
-        try:
-            step.backward(batch, *draws)
-        except ValueError as err:
-            print(f"phase 22a: a train step at L={LONG_SEQ.l} ({impl}) refused: {err}",
-                  flush=True)
-            if "attention backward core (at most 272)" not in str(err):
-                fail(f"the refusal of a train step at L={LONG_SEQ.l} does not name the backward "
-                     f"core's limit: {err}")
-        else:
-            fail(f"a train step at L={LONG_SEQ.l} ({impl}) was not refused")
-    del model, step
+    write_palette_celeba_cache(Path(work) / "data", n=LONG_CACHE_IMAGES, seed=0)
+    depth = 13
+    runs = {}
+
+    def argv(exp, steps, impl):
+        out = train_argv(work, exp, steps, "--attn_impl", impl, config=files["late"],
+                         dataset="celeba", batch=LONG_BATCH)
+        out[out.index("--num_warmup_steps") + 1] = str(LONG_TRAIN_WARMUP)
+        return out
+
+    for impl, steps, kernels in (
+            ("fused", LONG_TRAIN_STEPS, ("fused_attn_sublayer", "fused_mlp_sublayer",
+                                         "fused_attn_sublayer_bwd", "fused_mlp_sublayer_bwd")),
+            ("pallas", LONG_PALLAS_TRAIN_STEPS, ("flash_attention", "flash_attention_bwd"))):
+        floor = release_memory()
+        trainer, runs[f"22e {impl}"] = run_train_cli(
+            f"phase 22e: train the depth-{depth} CelebA-64 U-ViT at patch {LONG_PATCH} "
+            f"(L={LONG_SEQ.l}) on the synthetic cache, attn_impl {impl}",
+            argv(impl, steps, impl), card, {k: depth * steps for k in kernels},
+            batch=LONG_BATCH)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logs = trainer.logs
+        first, last = logs[0]["train_loss"], logs[-1]["train_loss"]
+        rate = logs[-1]["steps_per_sec"]
+        print(f"phase 22e: {impl}: loss {first:.6g} -> {last:.6g}; steady {1e3 / rate:.6g} ms "
+              f"a step (steps {logs[-2]['step'] + 1}-{logs[-1]['step']}); peak memory "
+              f"{peak:.6g} GiB ({floor:.6g} GiB held before the run); card {card}", flush=True)
+        if impl == "fused" and not last < LONG_LOSS_DROP * first:
+            fail(f"phase 22e: the train loss did not fall clearly: {first:.6g} -> {last:.6g}")
+        del trainer
+    n = LONG_GRAPH_TRAIN_STEPS
+    rec = run_train_graph_route(
+        f"phase 22e: train graphs, depth {depth} at L={LONG_SEQ.l}, fused, batch {LONG_BATCH}, "
+        f"{n} steps", argv("graphs", n, "fused"), card,
+        {k: depth * n for k in ("fused_attn_sublayer", "fused_mlp_sublayer",
+                                "fused_attn_sublayer_bwd", "fused_mlp_sublayer_bwd")})
+    runs["22e graphs"] = rec["launches"]
+    release_memory()
+    return runs
 
 
 def check_long_model(device, files: dict) -> None:
@@ -5302,9 +5503,8 @@ def write_long_files(work: str) -> dict:
 def run_long_seq(device, card: str, results: dict) -> dict:
     """Phase 22: CelebA-64 at patch 2 (L = 1025, D = 512, 8 heads of 64) at
     full width, where the attention core takes its blocked form: (a) every
-    kernel at L = 1025 against its plain version (check_long_kernels), a
-    train step refused with the backward core's limit named, and the depth-13
-    forward through the kernels against plain (check_long_model); through
+    kernel at L = 1025 against its plain version (check_long_kernels) and
+    the depth-13 forward through the kernels against plain (check_long_model); through
     the sampling CLI, random weights from a seed, the pair's configs written
     by ``config.write_config``: (b) bf16 ``fused`` DuoDiff, depth 3 for
     GUIDED_SWITCH of GUIDED_STEPS steps, then depth 13, after the depth-13
@@ -5312,14 +5512,14 @@ def run_long_seq(device, card: str, results: dict) -> dict:
     ``fused_int8`` with dynamic scales on the depth-13 model, LONG_INT8_STEPS
     steps; (d) ``--attn_impl pallas`` (K9), the pair over UVIT_H_PALLAS_STEPS
     steps; each at batch LONG_BATCH with exact launch counts, samples/s and
-    peak memory beside the card. Returns the launches of each run."""
+    peak memory beside the card; (e) the training CLI on the depth-13 model
+    (run_long_training). Returns the launches of each run."""
     check_long_kernels(device, results)
     release_memory()
     runs, b = {}, LONG_BATCH
     with tempfile.TemporaryDirectory() as work:
         files = write_long_files(work)
         pair, late = (files["early"], files["late"]), (files["late"],)
-        check_long_training_refused(device, files)
         check_long_model(device, files)
         release_memory()
 
@@ -5369,6 +5569,7 @@ def run_long_seq(device, card: str, results: dict) -> dict:
         print(f"phase 22d: peak memory {torch.cuda.max_memory_allocated() / 2**30:.6g} GiB; "
               f"card {card}", flush=True)
         release_memory()
+        runs.update(run_long_training(work, files, card))
     print(json.dumps({"phase22_launches": {
         run: {k: v for k, v in counts.items() if v} for run, counts in runs.items()}}), flush=True)
     return runs
@@ -8462,16 +8663,21 @@ def main(argv=None) -> int:
                     results[name]["launches_21"] = results[name].get("launches_21", 0) + n
     lap("22")
     if "22" in run:
-        # L = 1025's launches are added to the records of K1, K2, K9, K11 and K12,
-        # and kept apart; each launch of K1, K11 or K9 there ran the blocked core once
+        # L = 1025's launches are added to the records of K1, K2, K6, K7, K9, K10,
+        # K11 and K12, and kept apart; each launch of K1, K11 or K9 there ran the
+        # blocked core once, each of K6 or K10 the blocked backward core
+        blocked = {"fused_attn_sublayer": "attn_core_blocked",
+                   "fused_attn_sublayer_int8": "attn_core_blocked",
+                   "flash_attention": "attn_core_blocked",
+                   "fused_attn_sublayer_bwd": "attn_bwd_core_blocked",
+                   "flash_attention_bwd": "attn_bwd_core_blocked"}
         for counts in run_long_seq(device, card, results).values():
             for name, n in counts.items():
                 if n and name in kernels:
                     launches[name] = launches.get(name, 0) + n
                     results[name]["launches_22"] = results[name].get("launches_22", 0) + n
-                    if name in ("fused_attn_sublayer", "fused_attn_sublayer_int8",
-                                "flash_attention"):
-                        launches["attn_core_blocked"] = launches.get("attn_core_blocked", 0) + n
+                    if name in blocked:
+                        launches[blocked[name]] = launches.get(blocked[name], 0) + n
     lap("end")
     print(f"wall time: the whole run {time.perf_counter() - STARTED:.6g} s since the process "
           "started", flush=True)
@@ -8495,10 +8701,11 @@ def main(argv=None) -> int:
         for name, b in shard_bounds(width, mp).items():
             if "ms" + suffix in results[name]:
                 bounds[name] = {**bounds[name], "bound_ms" + suffix: b["bound_ms"]}
-    # the blocked core alone (22a): K9's function at L = 1025
-    bounds["attn_core_blocked"] = kernel_bounds(
-        LONG_SEQ, LONG_BATCH, attention_shape=(LONG_BATCH, LONG_SEQ.heads, LONG_SEQ.l)
-    )["flash_attention"]
+    # the blocked cores alone (22a): K9's and K10's functions at L = 1025
+    long_bounds = kernel_bounds(LONG_SEQ, LONG_BATCH,
+                                attention_shape=(LONG_BATCH, LONG_SEQ.heads, LONG_SEQ.l))
+    bounds["attn_core_blocked"] = long_bounds["flash_attention"]
+    bounds["attn_bwd_core_blocked"] = long_bounds["flash_attention_bwd"]
     # K9 and K10 on a rank's heads (16a)
     for h, suffix in HEAD_SHARDS:
         for name, b in kernel_bounds(attention_shape=(MAIN_BATCH, h, IMAGENET.l)).items():

@@ -300,15 +300,6 @@ constexpr size_t attn_core_blocked_smem() {
   return static_cast<size_t>(kBlkStages) * 2 * head_bytes<BlkKeys, HD>();
 }
 
-// Which form of the core a launch takes: by L (kCoreAuto: the register form
-// up to kMaxSeq, the blocked one past it), or one of them forced at a length
-// both take (the measuring entry duodiff_attn_core_form).
-enum CoreForm : int { kCoreAuto = 0, kCoreRegisters = 1, kCoreBlocked = 2 };
-
-inline bool blocked_form(int L, int form) {
-  return form == kCoreBlocked || (form == kCoreAuto && L > kMaxSeq);
-}
-
 template <bool kNormFirst, typename HD>
 cudaError_t launch_attn_core_blocked(HeadRows<const bf16> q, HeadRows<const bf16> k,
                                      HeadRows<const bf16> v, HeadRows<bf16> out, int B, int L,
@@ -377,28 +368,13 @@ inline int attn_core_blocks_per_sm(int L, int Dh) {
   if (L < 1 || L > kMaxSeqBlocked) return 0;
   return with_head_dim(Dh, 0, [&](auto hd) {
     using HD = decltype(hd);
-    if (L > kMaxSeq) {
-      constexpr size_t smem = attn_core_blocked_smem<HD>();
-      int blocks = 0;
-      if (cudaFuncSetAttribute(attn_core_blocked_kernel<false, HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem)) != cudaSuccess ||
-          cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &blocks, attn_core_blocked_kernel<false, HD>, kBlkWarps * 32, smem) != cudaSuccess)
-        return 0;
-      return blocks;
-    }
+    if (L > kMaxSeq)
+      return resident_blocks(attn_core_blocked_kernel<false, HD>, kBlkWarps * 32,
+                             attn_core_blocked_smem<HD>());
     return with_seq_class(L, [](auto seq) {
       using Seq = decltype(seq);
-      constexpr size_t smem = attn_core_smem<Seq, HD>();
-      int blocks = 0;
-      if (cudaFuncSetAttribute(attn_core_kernel<false, Seq, HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem)) != cudaSuccess ||
-          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_core_kernel<false, Seq, HD>,
-                                                        kAttnWarps * 32, smem) != cudaSuccess)
-        return 0;
-      return blocks;
+      return resident_blocks(attn_core_kernel<false, Seq, HD>, kAttnWarps * 32,
+                             attn_core_smem<Seq, HD>());
     });
   });
 }

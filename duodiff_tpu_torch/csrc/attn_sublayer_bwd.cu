@@ -90,10 +90,10 @@ extern "C" size_t duodiff_attn_sublayer_bwd_workspace(int B, int L, int D, int H
 }
 
 // The longest sequence the backward core takes at head width Dh (0: a width
-// it does not take): its row launch keeps 16 whole rows of e in registers
-// (attn_bwd_core.cuh), at either width.
+// it does not take): the register form up to 272, the blocked form past it
+// (attn_bwd_core.cuh), up to the forward core's limit, at either width.
 extern "C" int duodiff_attn_bwd_core_max_len(int Dh) {
-  return duodiff::with_head_dim(Dh, 0, [](auto) { return duodiff::kMaxSeq; });
+  return duodiff::with_head_dim(Dh, 0, [](auto) { return duodiff::kMaxSeqBlocked; });
 }
 
 // x, dy, dx: (B, L, D) bf16; wqkv: (D, 3A) bf16, unscaled; bqkv: (3A,) fp32

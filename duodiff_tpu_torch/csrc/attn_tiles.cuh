@@ -26,13 +26,24 @@ namespace duodiff {
 namespace {
 
 constexpr int kMaxSeq = 272;          // 34 score tiles of 8 keys = 136 registers a thread
-// The blocked forward core (attn_core.cuh) takes the lengths past kMaxSeq up to
-// this one: a thread sums its quarter of a score row's unrounded e one by one
-// in fp32, L / 4 terms of at most 1, whose rounding error stays under
-// (L / 4) * 2^-24 = 2^-12 of the sum at L = 2^14, far inside the bf16
-// rounding of the output; no register or shared-memory size depends on L.
+// The blocked forms of the cores (attn_core.cuh, attn_bwd_core.cuh) take the
+// lengths past kMaxSeq up to this one: a thread sums its quarter of a score
+// row's unrounded e (and, in the backward, of dp * e) one by one in fp32, L / 4
+// terms, whose rounding error stays under (L / 4) * 2^-24 = 2^-12 of the sum
+// of their magnitudes at L = 2^14, far inside the bf16 rounding of the
+// outputs; no register or shared-memory size depends on L.
 constexpr int kMaxSeqBlocked = 16384;
 constexpr int kSmCount = 132;         // an H100 SXM's SMs
+
+// Which form of a core (attn_core.cuh, attn_bwd_core.cuh) a launch takes: by
+// L (kCoreAuto: the register form up to kMaxSeq, the blocked one past it),
+// or one of them forced at a length both take (the measuring entries
+// duodiff_attn_core_form and duodiff_attn_bwd_core_form).
+enum CoreForm : int { kCoreAuto = 0, kCoreRegisters = 1, kCoreBlocked = 2 };
+
+inline bool blocked_form(int L, int form) {
+  return form == kCoreBlocked || (form == kCoreAuto && L > kMaxSeq);
+}
 
 // A head of width kDhArg as the cores stage and multiply it. A staged row is
 // Dh bf16, 2 Dh bytes: at 64 a row is 128 bytes, and its 16-byte chunk c
@@ -83,6 +94,18 @@ inline int head_splits(int heads, int L, int warps, int wanted) {
   int splits = 1;
   while (heads * splits < wanted && splits * warps < tiles) ++splits;
   return splits;
+}
+
+// The blocks of `kernel` an SM holds at `threads` threads and `smem` bytes of
+// dynamic shared memory a block, as the runtime reckons them (0 on an error).
+template <typename K>
+inline int resident_blocks(K* kernel, int threads, size_t smem) {
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem) != cudaSuccess)
+    return 0;
+  return blocks;
 }
 
 __device__ __forceinline__ void mma_16816(float c[4], const unsigned a[4], unsigned b0,

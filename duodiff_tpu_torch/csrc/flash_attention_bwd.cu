@@ -15,9 +15,10 @@
 // comes in unscaled and dq is the gradient for that tensor. The rounding
 // points are the Pallas kernel's (attn_bwd_core.cuh lists them).
 // Bound: 10 * L * L * Dh flops per (sample, head) against 14 * L * Dh bytes
-// at the roofline (bytes); this core forms the scores in both launches and
-// is bound by its instruction count. No atomics: a repeat call gives the same
-// bits.
+// at the roofline (bytes up to L = 272, operations at L = 1025); this core
+// forms the scores in both launches and is bound by its instruction count.
+// Past L = 272 the launch takes the core's blocked form (attn_bwd_core.cuh),
+// with the same scratch. No atomics: a repeat call gives the same bits.
 
 #include "attn_bwd_core.cuh"
 #include "common.cuh"
@@ -31,9 +32,9 @@ extern "C" size_t duodiff_flash_attention_bwd_stats(int B, int H, int L) {
 
 // Warps a block, dynamic shared memory a block and resident blocks an SM of
 // the backward core's row launch (key 0) and key launch (key 1) at length L
-// and head width Dh.
-extern "C" int duodiff_attn_bwd_core_warps(int key) {
-  return key ? duodiff::kBwdKeyWarps : duodiff::kBwdRowWarps;
+// (the blocked form's past 272) and head width Dh.
+extern "C" int duodiff_attn_bwd_core_warps(int L, int key) {
+  return duodiff::attn_bwd_core_warps(L, key != 0);
 }
 extern "C" int duodiff_attn_bwd_core_smem_bytes(int L, int key, int Dh) {
   return duodiff::attn_bwd_core_smem_bytes(L, key != 0, Dh);

@@ -62,7 +62,8 @@ _SIGNATURES = {
     "duodiff_attn_core_smem_bytes": ([_INT] * 2, _INT),
     "duodiff_attn_bwd_core_smem_bytes": ([_INT] * 3, _INT),
     "duodiff_attn_core_blocks_per_sm": ([_INT] * 2, _INT),
-    "duodiff_attn_bwd_core_warps": ([_INT], _INT),
+    "duodiff_attn_bwd_core_warps": ([_INT] * 2, _INT),
+    "duodiff_attn_bwd_core_form": ([_PTR] * 9 + [_INT] * 5 + [_PTR], _INT),
     "duodiff_attn_bwd_core_blocks_per_sm": ([_INT] * 3, _INT),
     "duodiff_gemm_bf16": ([_PTR] * 5 + [_INT] * 6 + [_PTR], _INT),
     "duodiff_gemm_bf16_threads": ([], _INT),

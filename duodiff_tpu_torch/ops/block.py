@@ -62,15 +62,15 @@ import torch.nn.functional as F
 # registers (the LayerNorm + quant of K11 / K12, the LayerNorm backward of
 # K6 / K7 / K8), and a sequence the attention cores can hold, the limit the
 # library reports for each width: the forward core (K1, K1-v1, K5, K9, K11,
-# K15's bf16 form; duodiff_attn_core_max_len) keeps 16 whole fp32 score rows
-# a warp in registers up to L = 272 and walks the keys in blocks past it, up
-# to 16,384; the backward core (K6, K10; duodiff_attn_bwd_core_max_len) and
-# the int8 chain of K15 (duodiff_sdpa_int8_max_len, head width 64 only) keep
-# the rows in registers and stop at 272. A block's shared memory is held to
-# the 227 KB opt-in limit less a margin of 256 bytes. Checked on the card at
-# D = 512 with 8 heads and L = 257, at D = 768 with 12 heads, D = 1024 with
-# 16 and D = 1152 with 16 heads of 72, each at L = 258, and at D = 512 with
-# 8 heads at L = 1025 (chip_smoke.py phases 2, 21 and 22)
+# K15's bf16 form; duodiff_attn_core_max_len) and the backward core (K6,
+# K10; duodiff_attn_bwd_core_max_len) keep 16 whole fp32 score rows a warp in
+# registers up to L = 272 and walk the keys in blocks past it, up to 16,384;
+# the int8 chain of K15 (duodiff_sdpa_int8_max_len, head width 64 only)
+# keeps the rows in registers and stops at 272. A block's shared memory is
+# held to the 227 KB opt-in limit less a margin of 256 bytes. Checked on the
+# card at D = 512 with 8 heads and L = 257, at D = 768 with 12 heads,
+# D = 1024 with 16 and D = 1152 with 16 heads of 72, each at L = 258, and at
+# D = 512 with 8 heads at L = 1025 (chip_smoke.py phases 2, 21 and 22)
 HEAD_WIDTHS = (64, 72)
 ROW_MAX_WIDTH = 2048
 _MAX_SMEM_BYTES = 227 * 1024 - 256

@@ -9,17 +9,17 @@
   ``flash_attention_trainable``). The forward saves only q, k and v: the
   backward rebuilds the softmax, so no (L, L) tensor is ever written to
   device memory;
-- :func:`attn_core_form`: the forward core alone in either of its forms, a
-  measuring entry (``csrc/attn_core_entry.cu``) that no model calls.
+- :func:`attn_core_form` and :func:`attn_bwd_core_form`: the forward and
+  the backward core alone in either of their forms, measuring entries
+  (``csrc/attn_core_entry.cu``) that no model calls.
 
 Each wrapper takes the plain PyTorch version (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`) for a tensor on the CPU. For a CUDA
 tensor it launches its kernel or raises; it counts its launches in
 ``.launches``. The kernels take bf16 and head width 64 or 72 (``HEAD_WIDTHS``),
-and the lengths the library reports (``duodiff_attn_core_max_len``: the
-forward core's register form up to 272 and its blocked form past it, at
-least 1,025, the CelebA-64 U-ViT at patch 2; ``duodiff_attn_bwd_core_max_len``:
-the backward core's 272).
+and the lengths the library reports (``duodiff_attn_core_max_len`` and
+``duodiff_attn_bwd_core_max_len``: each core's register form up to 272 and
+its blocked form past it, at least 1,025, the CelebA-64 U-ViT at patch 2).
 
 Numerics follow the Pallas kernels: q * scale in fp32 rounded to the input
 dtype, fp32 scores, row max and exp, the fp32 sum of the unrounded e as the
@@ -151,9 +151,19 @@ def flash_attention_bwd(q, k, v, do):
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 
-# the forms of the forward core the measuring entry takes (csrc/attn_core.cuh
+# the forms of a core the measuring entries take (csrc/attn_tiles.cuh
 # CoreForm): by L as the kernels pick it, or one of the two forced
 CORE_FORMS = {"auto": 0, "registers": 1, "blocked": 2}
+
+
+def _check_form(lib, form: str, l: int, what: str) -> None:
+    """Raise unless ``form`` is one of CORE_FORMS and, forced to the register
+    form, L fits it (the limit the library reports)."""
+    if form not in CORE_FORMS:
+        raise ValueError(f"form must be one of {sorted(CORE_FORMS)}, got {form!r}")
+    if form == "registers" and l > lib.duodiff_attn_core_registers_max_len():
+        raise ValueError(f"sequence length {l} does not fit the register form of the {what} "
+                         f"(at most {lib.duodiff_attn_core_registers_max_len()})")
 
 
 def attn_core_form_plain(q, k, v, *, norm_first: bool = False, scale: float | None = None):
@@ -191,11 +201,7 @@ def attn_core_form(q, k, v, *, form: str = "auto", norm_first: bool = False,
     b, h, l, dh = _dims(q, {"q": q, "k": k, "v": v})
     lib = load_library()
     _check_seq_len(lib, l, dh)
-    if form not in CORE_FORMS:
-        raise ValueError(f"form must be one of {sorted(CORE_FORMS)}, got {form!r}")
-    if form == "registers" and l > lib.duodiff_attn_core_registers_max_len():
-        raise ValueError(f"sequence length {l} does not fit the register form of the attention "
-                         f"core (at most {lib.duodiff_attn_core_registers_max_len()})")
+    _check_form(lib, form, l, "attention core")
     out = torch.empty_like(q)
     err = lib.duodiff_attn_core_form(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), b, h, l, dh, CORE_FORMS[form], int(norm_first),
@@ -207,6 +213,46 @@ def attn_core_form(q, k, v, *, form: str = "auto", norm_first: bool = False,
 
 
 attn_core_form.launches = 0
+
+
+def attn_bwd_core_form_plain(q, k, v, do, *, with_o: bool = False):
+    """Plain PyTorch backward core on (B, H, L, Dh) in q's dtype: K10's
+    (dq, dk, dv), and with ``with_o`` K6's core, which also gives the forward
+    output first: (o, dq, dk, dv)."""
+    grads = flash_attention_bwd_plain(q, k, v, do)
+    return (flash_attention_plain(q, k, v), *grads) if with_o else grads
+
+
+def attn_bwd_core_form(q, k, v, do, *, form: str = "auto", with_o: bool = False):
+    """The backward attention core alone (``csrc/attn_core_entry.cu``, a
+    measuring entry that no model calls): q, k, v, do (B, H, L, Dh) bf16
+    contiguous -> (dq, dk, dv), or (o, dq, dk, dv) with ``with_o`` (K6's
+    core writes the forward output too), in the form ``form``
+    (``CORE_FORMS``: the register form takes L <= 272, the blocked one any
+    L the core takes), as :func:`attn_bwd_core_form_plain`. On the CPU it
+    is that plain version; it counts its launches in ``.launches``."""
+    if q.device.type == "cpu":
+        return attn_bwd_core_form_plain(q, k, v, do, with_o=with_o)
+    from duodiff_tpu_torch.ops._build import load_library
+
+    b, h, l, dh = _dims(q, {"q": q, "k": k, "v": v, "do": do})
+    lib = load_library()
+    _check_seq_len(lib, l, dh, backward=True)
+    _check_form(lib, form, l, "attention backward core")
+    stats = torch.empty(lib.duodiff_flash_attention_bwd_stats(b, h, l), dtype=torch.float32,
+                        device=q.device)
+    outs = [torch.empty_like(q) for _ in range(4 if with_o else 3)]
+    o = _ptr(outs[0]) if with_o else None
+    dq, dk, dv = outs[-3:]
+    err = lib.duodiff_attn_bwd_core_form(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), o, _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats),
+        b, h, l, dh, CORE_FORMS[form], torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(lib, "attention backward core", err)
+    attn_bwd_core_form.launches += 1
+    return tuple(outs)
+
+
+attn_bwd_core_form.launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):

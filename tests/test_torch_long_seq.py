@@ -16,7 +16,8 @@ converter:
 - what the CUDA wrappers take and refuse past 272, through a stand-in library
   that reports the limits the sources set: every forward wrapper takes the
   forward core's limit and refuses one more, naming it; the backward
-  wrappers refuse 273, naming the backward core.
+  wrappers do the same at the backward core's limit, which is the forward
+  core's (the backward past 272 is ``tests/test_torch_long_seq_bwd.py``).
 
 Tolerances, the JAX tests' own between the package's paths
 (tests/test_ops.py), as ``tests/test_torch_head_width.py`` holds them: kernels
@@ -352,14 +353,14 @@ def _source_limit(name):
 
 
 def test_the_sources_limits():
-    """The forward core takes L past 1,025 at both widths (its blocked
-    form), the backward core and K15's int8 core 272."""
+    """The forward and the backward core take L past 1,025 at both widths
+    (their blocked forms), to the same limit; K15's int8 core 272."""
     forward, registers = _source_limit("kMaxSeqBlocked"), _source_limit("kMaxSeq")
     assert forward >= 1025 and registers == 272
     entries = (_build.CSRC_DIR / "attn_sublayer.cu").read_text()
     assert "return duodiff::kMaxSeqBlocked;" in entries.split("duodiff_attn_core_max_len")[1]
     bwd = (_build.CSRC_DIR / "attn_sublayer_bwd.cu").read_text()
-    assert "return duodiff::kMaxSeq; });" in bwd.split("duodiff_attn_bwd_core_max_len")[1]
+    assert "return duodiff::kMaxSeqBlocked; });" in bwd.split("duodiff_attn_bwd_core_max_len")[1]
     assert "duodiff_sdpa_int8_max_len() { return duodiff::kMaxSeq; }" in (
         _build.CSRC_DIR / "sdpa_int8.cu").read_text()
 
@@ -370,7 +371,9 @@ class _Library:
     with AttributeError."""
 
     def __init__(self):
-        self.forward, self.backward = _source_limit("kMaxSeqBlocked"), _source_limit("kMaxSeq")
+        # the backward core's limit is the forward core's (test_the_sources_limits)
+        self.forward = self.backward = _source_limit("kMaxSeqBlocked")
+        self.int8 = _source_limit("kMaxSeq")
 
     def duodiff_attn_head_width(self, i):
         return block.HEAD_WIDTHS[i] if i < len(block.HEAD_WIDTHS) else 0
@@ -382,7 +385,7 @@ class _Library:
         return self.backward if dh in block.HEAD_WIDTHS else 0
 
     def duodiff_sdpa_int8_max_len(self):
-        return self.backward
+        return self.int8
 
 
 @pytest.fixture
@@ -441,10 +444,15 @@ def test_a_forward_wrapper_takes_the_cores_limit_and_refuses_past_it(kernel, sta
 @pytest.mark.parametrize("kernel", ["K6", "K10"])
 @pytest.mark.parametrize("dh", block.HEAD_WIDTHS)
 def test_a_backward_wrapper_still_refuses_273(kernel, dh, stand_in):
-    """A train step at L > 272 stops in the backward core's check, which
-    names its own limit; 272 gets through to the (absent) kernel entry."""
-    with pytest.raises(ValueError, match=rf"sequence length 273 does not fit the attention "
-                                         rf"backward core \(at most 272\) at head width {dh}"):
-        _wrapper(kernel, 273, dh)()
+    """The backward wrapper takes the backward core's limit (its blocked
+    form's, at least 1,025) and refuses one past it: at the limit it gets
+    through to the (absent) kernel entry, one past it it stops in the
+    backward core's check, which names the limit."""
+    limit = stand_in.backward
+    assert limit >= 1025
     with pytest.raises(AttributeError):
-        _wrapper(kernel, 272, dh)()
+        _wrapper(kernel, limit, dh)()
+    with pytest.raises(ValueError, match=rf"sequence length {limit + 1} does not fit the "
+                                         rf"attention backward core \(at most {limit}\) at "
+                                         rf"head width {dh}"):
+        _wrapper(kernel, limit + 1, dh)()
